@@ -1,0 +1,3 @@
+"""Prebuilt flagship flowgraphs (reference: newsched_tpu/models)."""
+
+from newsched_tpu_torch.models.wbfm import fm_channelizer  # noqa: F401

@@ -1,0 +1,131 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``newsched_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+loaded with ctypes. The build happens at first use, into ``build/kernels/``
+at the repository root; the library's file name carries a hash of the
+sources and flags, so an edited source is never served by a stale build.
+
+Nothing here runs at import: a CPU-only machine imports every module of the
+port and never builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+_LL = ctypes.c_longlong
+
+# C signature of every launcher: (argtypes); all return a cudaError_t as int.
+SIGNATURES = {
+    # noise.cu
+    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _F, _F, _P],
+    # fm_chain.cu
+    "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "atan2_launch": [_P, _P, _P, _LL, _P, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or it refused the sources."""
+
+
+class _Built:
+    lib: ctypes.CDLL | None = None
+    seconds: float = 0.0
+    log: str = ""
+
+
+_built = _Built()
+_lock = threading.Lock()
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    if nvcc is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels "
+            "of newsched_tpu_torch are built from csrc/ at first use on a "
+            "machine with the CUDA toolkit")
+    return nvcc
+
+
+def build() -> _Built:
+    """Compile (once per process, and only if the hashed library is not
+    already on disk) and load the kernel library. Raises KernelBuildError."""
+    with _lock:
+        if _built.lib is not None:
+            return _built
+        sources = sorted(CSRC.glob("*.cu"))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in sources + sorted(CSRC.glob("*.cuh")):
+            h.update(s.name.encode())
+            h.update(s.read_bytes())
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"libnewsched_kernels_{h.hexdigest()[:16]}.so"
+        t0 = time.monotonic()
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *(str(s) for s in sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _built.log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{_built.log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _built.seconds = time.monotonic() - t0
+        _built.lib = lib
+        return _built
+
+
+def lib() -> ctypes.CDLL:
+    return build().lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (its cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_tensor(t, name: str, *, device, shape: tuple | None = None) -> None:
+    """What a kernel takes: a contiguous float32 CUDA tensor on ``device``
+    (of ``shape`` when given). Raises ValueError on anything else."""
+    import torch
+
+    if t.device.type != "cuda" or t.device != torch.device(device):
+        raise ValueError(f"{name}: on {t.device}, the kernel runs on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")

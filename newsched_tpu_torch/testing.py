@@ -1,0 +1,79 @@
+"""Golden models for checking the port, in numpy/scipy (float64).
+
+``rows_reference`` is the JAX package's benchmark golden
+(``bench.rows_reference``) with the flagship's constants as arguments, and
+``planes_rows`` is ``newsched_tpu.parallel.channelizer.planes_rows``; both
+are needed where jax is not installed (the machine with the GPU).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from newsched_tpu_torch.ops.pfb import pfb_arm_taps
+
+
+def planes_rows(x: np.ndarray, nchans: int,
+                skew_carry: np.ndarray | None = None) -> np.ndarray:
+    """Complex samples -> the (n, 2M) f32 planes-rows stream format of the
+    fused chain: row k = [re | im] of x[kM-(M-1) .. kM]. ``skew_carry`` is
+    the previous batch's last M-1 samples (zeros at stream start)."""
+    M = int(nchans)
+    x = np.asarray(x)
+    if skew_carry is None:
+        skew_carry = np.zeros(M - 1, x.dtype)
+    full = np.concatenate([skew_carry, x])[: (len(x) // M) * M]
+    rows = full.reshape(-1, M)
+    return np.concatenate([rows.real, rows.imag], axis=1).astype(np.float32)
+
+
+def rows_reference(rows: np.ndarray, taps, audio_taps, nchans: int = 64,
+                   audio_decim: int = 8, demod_gain: float = 0.5,
+                   return_risk: bool = False):
+    """Float64 golden model of the chain over PLANES ROWS (zero pre-stream
+    halo/state): PFB channelizer, demod, per-channel audio FIR.
+
+    return_risk additionally returns a boolean audio-sample mask of
+    BRANCH-CUT-AMBIGUOUS outputs: demodulating pure noise occasionally
+    lands within the compute error floor of the atan2 +-pi cut (or in a
+    deep |conj(prev)*Y| null), where golden and kernel legitimately
+    disagree by ~2*pi. The mask covers the audio FIR footprint of each
+    risky channel sample."""
+    import scipy.signal as sig
+
+    M = int(nchans)
+    arm = pfb_arm_taps(np.asarray(taps).astype(np.float64), M)  # (M, L)
+    L = arm.shape[1]
+    C = rows[:, :M].astype(np.float64) + 1j * rows[:, M:].astype(np.float64)
+    n_out = C.shape[0]
+    V = np.concatenate([np.zeros((L - 1, M), np.complex128), C],
+                       axis=0)[:, ::-1].T  # U[p, i]
+    filt = np.empty((M, n_out), np.complex128)
+    for p in range(M):
+        filt[p] = np.correlate(V[p], arm[p][::-1], mode="valid")[:n_out]
+    Y = (M * np.fft.ifft(filt, axis=0)).T  # (n_out, M)
+    prev = np.vstack([np.zeros((1, M), np.complex128), Y[:-1]])
+    P = np.conj(prev) * Y
+    # Demod against zero history emits exactly 0 (atan2 of signed zeros
+    # is a convention no two backends share).
+    aud = np.where((prev == 0) | (Y == 0), 0.0, np.angle(P)) * demod_gain
+    at = np.asarray(audio_taps).astype(np.float64)
+    out = np.empty((n_out // audio_decim, M), np.float64)
+    for c in range(M):
+        out[:, c] = sig.lfilter(at, [1.0], aud[:, c])[::audio_decim]
+    if not return_risk:
+        return out
+    med = np.median(np.abs(P))
+    risk = ((np.abs(P.imag) < 3e-4 * np.maximum(np.abs(P.real), med * 1e-2))
+            & (P.real < 0)) | (np.abs(P) < 1e-3 * med)
+    spread = sig.lfilter(np.ones(len(at)), [1.0], risk.astype(np.float64), axis=0)
+    bad = (spread > 0)[::audio_decim][: out.shape[0]]
+    return out, bad
+
+
+def snr_db(ref, test) -> float:
+    """10*log10(mean(ref^2) / mean((ref-test)^2)); inf when equal."""
+    ref = np.asarray(ref, np.float64)
+    err = ref - np.asarray(test, np.float64)
+    e = np.mean(err**2)
+    return np.inf if e == 0 else float(10 * np.log10(np.mean(ref**2) / e))
