@@ -1,6 +1,7 @@
-"""Vector-stream DSP blocks of the fused flagship (reference:
-newsched_tpu/blocks/vector_dsp.py): the planes-rows source and adapter,
-and the fused channelizer block.
+"""Vector-stream DSP blocks (reference: newsched_tpu/blocks/vector_dsp.py):
+the per-channel demod and audio filter of the staged flagship, the
+planes-rows source and adapter, the fused channelizer block, and the live
+flagship's generating source.
 
 As in the reference, one block processes all M channels as one batched
 kernel: the per-channel axis is the kernel's lane axis.
@@ -13,9 +14,86 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops import firdes, pfb as pfb_ops
+from newsched_tpu_torch.ops import fir as fir_ops, firdes, pfb as pfb_ops
 from newsched_tpu_torch.ops.cuda import fm_chain, noise
 from newsched_tpu_torch.runtime.block import Block
+from newsched_tpu_torch.utils.dtypes import port_dtype
+
+
+class vector_quad_demod(Block):
+    """Quadrature/FM demod applied per channel on (M,)-vector items:
+    cf32[(M,)] -> rf32[(M,)]."""
+
+    def __init__(self, nchans: int, gain: float = 1.0, name=None):
+        super().__init__(name)
+        self.nchans = int(nchans)
+        self.add_input("in", "cf32", item_shape=(self.nchans,))
+        self.add_output("out", "rf32", item_shape=(self.nchans,))
+        self.declare_param("gain", gain, dtype=np.float32)
+
+    def init_state(self, nin, nout, device):
+        return {"prev": torch.zeros((self.nchans,), dtype=torch.complex64,
+                                    device=device)}
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"]  # (n, M)
+        xprev = torch.cat([state["prev"][None, :], x[:-1]])
+        p = torch.conj(xprev) * x
+        # Zero-history convention: pinned to exactly 0, as in every other
+        # demod path (the fused kernels, the float64 golden).
+        y = torch.where((xprev == 0) | (x == 0), torch.zeros((), device=x.device),
+                        torch.atan2(p.imag, p.real)) * params["gain"]
+        return {"prev": x[-1].clone()}, {"out": y.to(torch.float32)}
+
+
+class vector_fir(Block):
+    """Shared-taps FIR (+decimation) applied per channel on vector items:
+    the audio filter stage of a channelized receiver. State is a
+    per-channel tail; all M channels are filtered in one batched product
+    (ops/fir.py works along the last axis)."""
+
+    def __init__(self, nchans: int, taps, decim: int = 1, dtype="rf32",
+                 method: str = "auto", name=None):
+        super().__init__(name)
+        self.nchans = int(nchans)
+        self.taps = np.asarray(taps)
+        self.decim = int(decim)
+        self.method = method
+        self.relative_rate = Fraction(1, self.decim)
+        self.dtype = port_dtype(dtype)
+        self.add_input("in", self.dtype, item_shape=(self.nchans,))
+        self.add_output("out", self.dtype, item_shape=(self.nchans,))
+        self._dev_taps: dict[tuple, fir_ops.FirTaps] = {}
+
+    def init_state(self, nin, nout, device):
+        return fir_ops.fir_init_state(len(self.taps), device,
+                                      self.dtype.torch_dtype, (self.nchans,))
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"].T
+        key = (x.device, nout)  # the taps on the device, once per batch shape
+        if key not in self._dev_taps:
+            self._dev_taps[key] = fir_ops.fir_taps(self.taps, nout, self.decim,
+                                                   x.device)
+        st, y = fir_ops.fir_filter(self.taps, state, x, decim=self.decim,
+                                   method=self.method,
+                                   dev_taps=self._dev_taps[key])
+        return st, {"out": y.T}
+
+
+class channel_select(Block):
+    """Pick one channel from a vector stream: cf32[(M,)] -> cf32 scalar
+    items (utility for tests and single-channel taps off a channelizer)."""
+
+    def __init__(self, nchans: int, channel: int, dtype="cf32", name=None):
+        super().__init__(name)
+        self.channel = int(channel)
+        d = port_dtype(dtype)
+        self.add_input("in", d, item_shape=(int(nchans),))
+        self.add_output("out", d)
+
+    def work(self, state, ins, params, nout):
+        return state, {"out": ins["in"][:, self.channel]}
 
 
 class cplx_to_planes(Block):
@@ -91,17 +169,17 @@ class noise_planes_source(Block):
         return {"ghi": hi, "glo": lo}, {"out": r * amp}
 
 
-class fm_channelizer_fused_planes(Block):
-    """The flagship chain as ONE block on the planes-rows stream:
-    rf32[(2M,)] rows in -> rf32[(M,)] audio out at rate 1/decim, backed by
-    the fused kernel (ops/cuda/fm_chain.py fm_chain_step_planes). The
-    stream format is the kernel's native format, so source -> this block
-    -> sink runs no layout conversion at all."""
+class _fused_chain(Block):
+    """What the two fused-chain blocks share: the chain's constants (fold
+    taps from the prototype, audio taps, decimation, demod gain), uploaded
+    once per device, and the chain's carried state."""
 
-    def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
-                 gain: float = 1.0, taps_per_arm: int | None = None,
-                 precision="split3", name=None):
+    def __init__(self, nchans: int, taps, audio_taps, audio_decim: int,
+                 gain: float, taps_per_arm: int | None, precision, name):
         super().__init__(name)
+        if precision not in fm_chain.PRECISIONS:
+            raise ValueError(f"precision {precision!r} not in "
+                             f"{fm_chain.PRECISIONS}")
         self.nchans = int(nchans)
         if taps is None:
             taps = firdes.prototype_channelizer_taps(self.nchans,
@@ -113,9 +191,6 @@ class fm_channelizer_fused_planes(Block):
         self.gain = float(gain)
         self.precision = precision
         self.h8 = fm_chain._round8(self.arm.shape[1] - 1)
-        self.relative_rate = Fraction(1, self.audio_decim)
-        self.add_input("in", "rf32", item_shape=(2 * self.nchans,))
-        self.add_output("out", "rf32", item_shape=(self.nchans,))
         self._consts: dict[torch.device, fm_chain.FmChainConsts] = {}
 
     def consts(self, device) -> fm_chain.FmChainConsts:
@@ -126,7 +201,8 @@ class fm_channelizer_fused_planes(Block):
                 self.fold_c, self.audio_taps, device)
         return self._consts[device]
 
-    def init_state(self, nin, nout, device):
+    def chain_state(self, device) -> dict:
+        """Zero carried state: fold halo, last DFT row, audio tail."""
         M = self.nchans
         A = len(self.audio_taps)
 
@@ -135,6 +211,26 @@ class fm_channelizer_fused_planes(Block):
 
         return {"carry": z(self.h8, 2 * M), "prev": z(1, 2 * M),
                 "atail": z(A - 1, 2 * M)}
+
+
+class fm_channelizer_fused_planes(_fused_chain):
+    """The flagship chain as ONE block on the planes-rows stream:
+    rf32[(2M,)] rows in -> rf32[(M,)] audio out at rate 1/decim, backed by
+    the fused kernel (ops/cuda/fm_chain.py fm_chain_step_planes). The
+    stream format is the kernel's native format, so source -> this block
+    -> sink runs no layout conversion at all."""
+
+    def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
+                 gain: float = 1.0, taps_per_arm: int | None = None,
+                 precision="split3", name=None):
+        super().__init__(nchans, taps, audio_taps, audio_decim, gain,
+                         taps_per_arm, precision, name)
+        self.relative_rate = Fraction(1, self.audio_decim)
+        self.add_input("in", "rf32", item_shape=(2 * self.nchans,))
+        self.add_output("out", "rf32", item_shape=(self.nchans,))
+
+    def init_state(self, nin, nout, device):
+        return self.chain_state(device)
 
     def work(self, state, ins, params, nout):
         x = ins["in"].contiguous()  # (n, 2M) planes rows
@@ -146,3 +242,56 @@ class fm_channelizer_fused_planes(Block):
         carry = (x[-self.h8:] if n >= self.h8
                  else torch.cat([state["carry"], x])[-self.h8:]).clone()
         return {"carry": carry, "prev": prev, "atail": atail}, {"out": aud}
+
+
+class fm_noise_channelizer_source(_fused_chain):
+    """The LIVE flagship as ONE source kernel: Gaussian noise generated
+    inside the fused FM chain (ops/cuda/fm_chain.py fm_chain_gen_step,
+    kernel K5) with no input stream at all. Emits rf32[(M,)] audio items;
+    the noise stream is BIT-IDENTICAL to ``noise_planes_source(nchans,
+    amplitude, seed)`` -> ``fm_channelizer_fused_planes`` with the same
+    chain parameters, without that pipeline's 2 x 16.8 MB per-batch device
+    memory round trip.
+
+    ``generator``: "auto", "hw" and "pure" all select the port's one
+    position-pure Philox stream (the reference's "hw" is its TPU-hardware
+    stream and "pure" its portable twin; this stream replaces both).
+    ``noise_draws``: Philox words per element, 3 (Irwin-Hall N=6, the
+    default stream) or 2 (N=4: support +-3.46 sigma, excess kurtosis
+    -0.3, a DIFFERENT stream). Batches must be multiples of 64 rows.
+    """
+
+    def __init__(self, nchans: int, taps, audio_taps, audio_decim: int = 8,
+                 gain: float = 1.0, amplitude: float = 1.0, seed: int = 0,
+                 taps_per_arm: int | None = None, precision="split3",
+                 generator: str = "auto", noise_draws: int = 3, name=None):
+        super().__init__(nchans, taps, audio_taps, audio_decim, gain,
+                         taps_per_arm, precision, name)
+        if generator not in ("auto", "hw", "pure"):
+            raise ValueError(f"generator {generator!r} not in auto/hw/pure")
+        if noise_draws not in noise.DRAWS:
+            raise ValueError(f"noise_draws {noise_draws} not in {noise.DRAWS}")
+        self.noise_draws = int(noise_draws)
+        self.seed = int(seed)
+        self.generator = generator
+        self.add_output("out", "rf32", item_shape=(self.nchans,))
+        self.declare_param("amplitude", amplitude, dtype=np.float32)
+
+    def init_state(self, nin, nout, device):
+        if (nout * self.audio_decim) % noise.GROUP_ROWS:
+            raise ValueError(
+                f"fm_noise_channelizer_source needs batches in multiples of "
+                f"{noise.GROUP_ROWS} rows, got {nout * self.audio_decim}")
+        return {"ghi": 0, "glo": 0, **self.chain_state(device)}
+
+    def work(self, state, ins, params, nout):
+        n_loc = int(nout) * self.audio_decim
+        amp = params["amplitude"]
+        aud, prev, atail, carry = fm_chain.fm_chain_gen_step(
+            state["ghi"], state["glo"], amp, state["carry"], state["prev"],
+            state["atail"], self.consts(amp.device), self.audio_decim,
+            self.gain, n_loc, seed=self.seed, draws=self.noise_draws)
+        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
+                                      n_loc // noise.GROUP_ROWS)
+        return ({"ghi": hi, "glo": lo, "carry": carry, "prev": prev,
+                 "atail": atail}, {"out": aud})

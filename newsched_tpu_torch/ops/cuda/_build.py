@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``newsched_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ctypes. The build happens at first use, into ``build/kernels/``
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and the objects are linked into ONE shared library with a plain C
+interface, loaded with ctypes. The build happens at first use, into ``build/kernels/``
 at the repository root; the library's file name carries a hash of the
 sources and flags, so an edited source is never served by a stale build.
 
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,11 +37,17 @@ _LL = ctypes.c_longlong
 # C signature of every launcher: (argtypes); all return a cudaError_t as int.
 SIGNATURES = {
     # noise.cu
-    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _F, _F, _P],
+    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _I, _F, _F, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "fm_chain_gen_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _P, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
+    # channelizer.cu
+    "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
+    "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 
@@ -71,6 +78,41 @@ def _find_nvcc() -> str:
     return nvcc
 
 
+def _compile(sources: list[Path], so: Path) -> str:
+    """nvcc -c for every source in parallel, then one link; returns the
+    compilers' output. The library appears under its final name only
+    when complete."""
+    nvcc = _find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{s.stem}.{so.stem}.{tag}.o") for s in sources]
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True), s)
+             for s, o in zip(sources, objs)]
+    log, failed = [], []
+    for proc, src in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if not failed:
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+        else:
+            os.replace(tmp, so)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    text = "".join(log)
+    if failed:
+        raise KernelBuildError(f"nvcc failed: {', '.join(failed)}\n{text}")
+    return text
+
+
 def build() -> _Built:
     """Compile (once per process, and only if the hashed library is not
     already on disk) and load the kernel library. Raises KernelBuildError."""
@@ -86,16 +128,7 @@ def build() -> _Built:
         so = BUILD_DIR / f"libnewsched_kernels_{h.hexdigest()[:16]}.so"
         t0 = time.monotonic()
         if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            _built.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{_built.log}")
-            os.replace(tmp, so)
+            _built.log = _compile(sources, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,5 +1,6 @@
 """The FM channelizer chain as ONE kernel (reference:
-newsched_tpu/ops/pallas/fm_chain.py ``fm_chain_step_planes``).
+newsched_tpu/ops/pallas/fm_chain.py ``fm_chain_step_planes``, and
+``fm_chain_gen_step``, the same chain with its input generated inside).
 
 Fuses the flagship model's whole per-batch pipeline (BASELINE config #2:
 M-channel PFB -> per-channel quadrature demod -> per-channel decimating
@@ -32,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops.cuda import _build
+from newsched_tpu_torch.ops.cuda import _build, noise
 from newsched_tpu_torch.ops.cuda.mathfns import ATAN_COEFFS, atan2_plain
 
 PRECISIONS = ("split3", "highest", "high", "default")
@@ -168,24 +169,11 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     if vb.device.type == "cpu":
         return fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts,
                                           decim, gain)
-    if W != 128:
-        raise ValueError(f"planes width {W}: the CUDA kernel is built for "
-                         f"M=64 channels (2M=128 lanes)")
-    smem = -(-(tile + A) // 32) * 32 * W * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
-                         f"H100 allows {_SMEM_MAX}; pass a smaller tile")
+    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
     dev = vb.device
-    for name, t, shape in (("vb", vb, (n, W)), ("halo", halo, (H8, W)),
-                           ("prev0", prev0, (1, W)),
-                           ("tail0", tail0, (A - 1, W)),
-                           ("c2", consts.c2, (L, W)),
-                           ("w2", consts.w2, (W, W)),
-                           ("ataps", consts.ataps, (A,))):
-        _build.check_tensor(t, name, device=dev, shape=shape)
-    aud = torch.empty((n // decim, M), dtype=torch.float32, device=dev)
-    prev = torch.empty((1, W), dtype=torch.float32, device=dev)
-    tail = torch.empty((A - 1, W), dtype=torch.float32, device=dev)
+    _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (H8, W))],
+                         prev0, tail0, consts)
+    aud, prev, tail = _chain_outputs(n, decim, M, A, dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_planes_launch(
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
@@ -200,3 +188,119 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
 
 fm_chain_step_planes.launches = 0
+
+
+def _tile_rows(tile: int, A: int, L: int) -> int:
+    """Shared-memory rows of a chain block: the (tile + A)-row tile padded
+    to 32-row passes, or the tile + A + L - 1 input rows folded into it."""
+    return max(-(-(tile + A) // 32) * 32, tile + A + L - 1)
+
+
+def _check_kernel_shape(W: int, tile: int, smem_rows: int) -> None:
+    if W != 128:
+        raise ValueError(f"planes width {W}: the CUDA kernel is built for "
+                         f"M=64 channels (2M=128 lanes)")
+    smem = smem_rows * W * 4
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
+                         f"H100 allows {_SMEM_MAX}; pass a smaller tile")
+
+
+def _check_chain_tensors(dev, inputs, prev0, tail0, consts) -> None:
+    L, W = (int(d) for d in consts.c2.shape)
+    A = int(consts.ataps.shape[0])
+    for name, t, shape in [*inputs, ("prev0", prev0, (1, W)),
+                           ("tail0", tail0, (A - 1, W)),
+                           ("c2", consts.c2, (L, W)),
+                           ("w2", consts.w2, (W, W)),
+                           ("ataps", consts.ataps, (A,))]:
+        _build.check_tensor(t, name, device=dev, shape=shape)
+
+
+def _chain_outputs(n: int, decim: int, M: int, A: int, dev):
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((n // decim, M), **f32),
+            torch.empty((1, 2 * M), **f32), torch.empty((A - 1, 2 * M), **f32))
+
+
+def fm_chain_gen_step_plain(ghi: int, glo: int, amp, carry0, prev0, tail0,
+                            consts: FmChainConsts, decim: int, gain: float,
+                            n_loc: int, seed: int = 0, draws: int = 3):
+    """The plain PyTorch version of ``fm_chain_gen_step``: the noise
+    stream's plain version scaled by ``amp``, then the chain's."""
+    W = int(consts.c2.shape[1])
+    dev = carry0.device
+    rows = noise.gaussian_rows_plain(ghi, glo, n_rows=n_loc, width=W,
+                                     seed=seed, device=dev, draws=draws) \
+        * torch.as_tensor(amp, dtype=torch.float32, device=dev)
+    aud, prev, tail = fm_chain_step_planes_plain(rows, carry0, prev0, tail0,
+                                                 consts, decim, gain)
+    return aud, prev, tail, rows[n_loc - carry0.shape[0]:].clone()
+
+
+def fm_chain_gen_step(ghi: int, glo: int, amp, carry0: torch.Tensor,
+                      prev0: torch.Tensor, tail0: torch.Tensor,
+                      consts: FmChainConsts, decim: int, gain: float,
+                      n_loc: int, tile: int = 128, seed: int = 0,
+                      draws: int = 3):
+    """One batch of the fused chain with its input GENERATED in the kernel:
+    the live noise flagship as one source kernel.
+
+    Args:
+      ghi/glo: the batch's first absolute 64-row group of the noise stream
+        (two int32 halves as host ints, ops/cuda/noise.py).
+      amp: float32 scalar amplitude (a 0-dim tensor on the device, or a
+        number); the rows are ``gaussian_rows(...) * amp``.
+      carry0: (H8, 2M) the previous batch's last H8 generated rows (zeros
+        at stream start): the fold's halo.
+      prev0/tail0, consts, decim, gain: as ``fm_chain_step_planes``.
+      n_loc: rows to generate and process (a multiple of the tile).
+      tile: rows per CUDA block, shrunk to a divisor of n_loc; decim must
+        divide it. Unlike the TPU kernel it need not be a multiple of 64
+        rows: generation is position-pure per element. Outputs do not
+        depend on it.
+      seed, draws: the noise stream (ops/cuda/noise.py).
+
+    Returns (audio (n_loc//decim, M), prev (1, 2M), tail (A-1, 2M),
+    carry (H8, 2M)): bit for bit what ``gaussian_rows`` * amp fed to
+    ``fm_chain_step_planes`` at the same tile gives, with carry the last
+    H8 rows of that input.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``fm_chain_gen_launch`` (csrc/fm_chain.cu).
+    """
+    L, W = (int(d) for d in consts.c2.shape)
+    M = W // 2
+    A = int(consts.ataps.shape[0])
+    n_loc = int(n_loc)
+    H8 = _round8(L - 1)
+    tile = _pick_tile(n_loc, tile, decim)
+    if A - 1 > tile or tile < H8:
+        raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
+    if int(carry0.shape[0]) != H8:
+        raise ValueError(f"carry rows {carry0.shape[0]} != H8 = {H8}")
+    dev = carry0.device
+    if dev.type == "cpu":
+        return fm_chain_gen_step_plain(ghi, glo, amp, carry0, prev0, tail0,
+                                       consts, decim, gain, n_loc, seed, draws)
+    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
+    amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
+    _check_chain_tensors(dev, [("amp", amp, (1,)), ("carry0", carry0, (H8, W))],
+                         prev0, tail0, consts)
+    args = noise.stream_args(ghi, glo, seed, draws)
+    aud, prev, tail = _chain_outputs(n_loc, decim, M, A, dev)
+    carry = torch.empty((H8, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().fm_chain_gen_launch(
+            *args, amp.data_ptr(), carry0.data_ptr(), prev0.data_ptr(),
+            tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
+            tail.data_ptr(), carry.data_ptr(), n_loc, M, L, H8, A, int(decim),
+            tile, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fm_chain_gen_launch")
+    fm_chain_gen_step.launches += 1
+    return aud, prev, tail, carry
+
+
+fm_chain_gen_step.launches = 0

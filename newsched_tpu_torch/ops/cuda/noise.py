@@ -8,12 +8,14 @@ index)``. Any code that knows the absolute stream position can therefore
 (batches must be multiples of 64 rows).
 
 Generator: the TPU's hardware PRNG has no form off the TPU, so the port
-uses a counter-based Philox4x32-10 (``csrc/noise.cu``), keyed by the seed,
-with counter (element index within the group, group lo, group hi, 0); the
-first 3 of its 4 words feed the reference's Irwin-Hall N=6 transform (sum
-of the six uint16 halves, then ``(S - mean) * (1/std)``). Same contract
-and distribution as the TPU stream (zero mean, unit variance, support
-+-4.24 sigma, excess kurtosis -0.2); DIFFERENT bits.
+uses a counter-based Philox4x32-10 (``csrc/philox.cuh``), keyed by the
+seed, with counter (element index within the group, group lo, group hi,
+0); the first ``draws`` (3, or 2) of its 4 words feed the reference's
+Irwin-Hall N = 2*draws transform (sum of the uint16 halves, then
+``(S - mean) * (1/std)``). Same contract and distribution as the TPU
+stream (zero mean, unit variance; draws=3: support +-4.24 sigma, excess
+kurtosis -0.2; draws=2: +-3.46 sigma, -0.3); DIFFERENT bits. ``draws`` is
+part of the stream's identity, with the seed and the position.
 
 The plain PyTorch version computes the same Philox in int64 arithmetic
 masked to 32 bits (the 32x32->64 multiplies split into 16-bit halves, so
@@ -34,7 +36,7 @@ import torch
 from newsched_tpu_torch.ops.cuda import _build
 
 GROUP_ROWS = 64
-DRAWS = 3  # Philox words per element (Irwin-Hall N = 2 * DRAWS)
+DRAWS = (2, 3)  # Philox words an element may take (Irwin-Hall N = 2*draws)
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -91,10 +93,25 @@ def _key(seed: int) -> tuple[int, int]:
     return int(seed) & _M32, (int(seed) >> 32) & _M32
 
 
+def _check_draws(draws: int) -> int:
+    if draws not in DRAWS:
+        raise ValueError(f"draws {draws} not in {DRAWS}")
+    return int(draws)
+
+
+def stream_args(g0_hi: int, g0_lo: int, seed: int, draws: int) -> list:
+    """The stream as the kernels' launchers take it: group lo, group hi,
+    key lo, key hi, draws, mean, 1/std."""
+    mean, std = _ih_const(_check_draws(draws))
+    g = group64(g0_hi, g0_lo)
+    return [g & _M32, (g >> 32) & _M32, *_key(seed), int(draws), mean,
+            1.0 / std]
+
+
 def gaussian_rows_plain(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                        seed: int, device) -> torch.Tensor:
+                        seed: int, device, draws: int = 3) -> torch.Tensor:
     """The plain PyTorch version of ``gaussian_rows``."""
-    mean, std = _ih_const(DRAWS)
+    mean, std = _ih_const(_check_draws(draws))
     rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     g = group64(g0_hi, g0_lo) + rows // GROUP_ROWS
@@ -103,17 +120,18 @@ def gaussian_rows_plain(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
     c2 = ((g >> 32) & _M32).expand(n_rows, width)
     c3 = torch.zeros_like(c0)
     words = _philox4x32_10(c0, c1, c2, c3, *_key(seed))
-    s = sum((w & 0xFFFF) + (w >> 16) for w in words[:DRAWS])
+    s = sum((w & 0xFFFF) + (w >> 16) for w in words[:draws])
     f32 = dict(dtype=torch.float32, device=device)
     return (s.to(torch.float32) - torch.tensor(mean, **f32)) \
         * torch.tensor(1.0 / std, **f32)
 
 
 def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                  seed: int, device) -> torch.Tensor:
+                  seed: int, device, draws: int = 3) -> torch.Tensor:
     """(n_rows, width) f32 standard-normal rows for the absolute row span
     starting at group G = (g0_hi, g0_lo), the 64-row group index as two
-    int32 halves. Scale by amplitude outside.
+    int32 halves, from ``draws`` Philox words per element (3 or 2). Scale
+    by amplitude outside.
 
     On a CPU device this is the plain version; on a CUDA device it
     launches ``gaussian_rows_launch`` (csrc/noise.cu)."""
@@ -122,17 +140,15 @@ def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
     device = torch.device(device)
     if device.type == "cpu":
         return gaussian_rows_plain(g0_hi, g0_lo, n_rows=n_rows, width=width,
-                                   seed=seed, device=device)
+                                   seed=seed, device=device, draws=draws)
     if device.type != "cuda":
         raise ValueError(f"gaussian_rows runs on cpu or cuda, not {device}")
-    mean, std = _ih_const(DRAWS)
+    args = stream_args(g0_hi, g0_lo, seed, draws)
     out = torch.empty((n_rows, width), dtype=torch.float32, device=device)
-    g = group64(g0_hi, g0_lo)
-    k0, k1 = _key(seed)
     with torch.cuda.device(device):
         err = _build.lib().gaussian_rows_launch(
-            out.data_ptr(), n_rows, width, g & _M32, (g >> 32) & _M32, k0, k1,
-            mean, 1.0 / std, torch.cuda.current_stream(device).cuda_stream)
+            out.data_ptr(), n_rows, width, *args,
+            torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "gaussian_rows_launch")
     gaussian_rows.launches += 1
     return out

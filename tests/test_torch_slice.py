@@ -20,7 +20,9 @@ from newsched_tpu.runtime.compile import compile_flowgraph as jcompile
 from newsched_tpu.runtime.graph import Flowgraph as JFlowgraph
 
 from newsched_tpu_torch import convert, models as tmodels, testing
-from newsched_tpu_torch.blocks import general as tgen, vector_dsp as tvd
+from newsched_tpu_torch.blocks import analog as tanalog, general as tgen, \
+    vector_dsp as tvd
+from newsched_tpu_torch.ops import fir
 from newsched_tpu_torch.ops.cuda import fm_chain, noise
 from newsched_tpu_torch.runtime.compile import compile_flowgraph as tcompile
 from newsched_tpu_torch.runtime.graph import Flowgraph as TFlowgraph
@@ -191,11 +193,21 @@ def test_convert_refuses_threefry_key_state():
 
 
 def test_slices_not_ported_yet_raise():
-    with pytest.raises(NotImplementedError, match="staged"):
-        tmodels.fm_channelizer(nchans=16, fused=False)
-    with pytest.raises(NotImplementedError, match="live"):
-        tmodels.fm_channelizer(nchans=16, fused=True, source="live")
     with pytest.raises(NotImplementedError, match="threefry"):
         tvd.noise_planes_source(16, method="threefry")
     with pytest.raises(ValueError, match="multiples of 64"):
         tvd.noise_planes_source(16).init_state(0, 100, "cpu")
+    M, L, A = 16, 8, 33
+    consts = fm_chain.fm_chain_consts(np.ones((L, M), np.float32),
+                                      np.ones(A, np.float32), "cpu")
+    z = torch.zeros
+    with pytest.raises(NotImplementedError, match="warm"):
+        fm_chain.fm_chain_step_planes(z(256, 2 * M), z(8, 2 * M), z(1, 2 * M),
+                                      z(A - 1, 2 * M), consts, 4, 1.0, warm=256)
+    with pytest.raises(NotImplementedError, match="config #3"):
+        fir.fir_filter(np.ones(9, np.float32), fir.fir_init_state(9, "cpu"),
+                       z(64, dtype=torch.complex64), method="fft")
+    with pytest.raises(NotImplementedError, match="uniform"):
+        tanalog.noise_source("uniform")
+    with pytest.raises(NotImplementedError, match="threefry"):
+        tanalog.noise_source(method="threefry")
