@@ -4,16 +4,26 @@
     python3 chip_smoke.py
 
 The main paths are the three forms of the 64-channel FM channelizer
-flowgraph (``newsched_tpu_torch.models.fm_channelizer``), compiled by the
-rate algebra and stepped by the runner, at full width: M=64 channels, 16
-taps per arm, a 65-tap audio filter decimating by 8, batches of 2^21
-wideband samples:
+flowgraph (``newsched_tpu_torch.models.fm_channelizer``) and of the
+wideband-FM receiver (``models.wbfm_receiver``), compiled by the rate
+algebra and stepped by the runner, at full width. The channelizer: M=64
+channels, 16 taps per arm, a 65-tap audio filter decimating by 8, batches
+of 2^21 wideband samples:
   - fused (``fused=True``): source -> fused chain block (K3, K2 inside)
     -> sink, with a replayed stream or the noise source (K4);
   - staged (the default ``fused=False``): noise_source (K4) ->
     pfb_channelizer (K1) -> vector_quad_demod -> vector_fir -> sink; and a
     pfb_decimator graph (K7);
   - live (``fused=True, source="live"``): one generating source (K5).
+The wideband-FM receiver (BASELINE config #1): 1 MS/s, an 81-tap channel
+filter at 200 kHz decimating by 4, a 121-tap resampler decimating by 5,
+75 kHz deviation, batches of 2,088,960 samples, on the fixed-point tone at
+231.25 kHz:
+  - staged: sig_source (K8) -> freq_xlating_fir -> quadrature_demod ->
+    rational_resampler;
+  - fused: sig_source (K8) -> wbfm_rcv_fused (K10), and sig_source_folded
+    (K11) -> wbfm_rcv_fused(input_format="folded") (K10);
+  - live: wbfm_live_source (K12), one generating source.
 
 Phases (each failure raises, so the script exits nonzero):
   1. device: a CUDA device is required; its name and power limit;
@@ -50,10 +60,31 @@ Phases (each failure raises, so the script exits nonzero):
      same stream) and >= 95 dB against its golden; K5 launched on it; a
      two-draw live flowgraph equals phase 13's first batch;
  15. times: K1, K7 and K5 beside their plain versions (and K5 beside
-     K4 -> K3), the staged and live flowgraph steps in Msamples/s.
+     K4 -> K3), the staged and live flowgraph steps in Msamples/s; K7
+     beside one library call computing its function (a grouped conv1d);
+ 16. K8 nco_planes and K11 nco_folded at 2,088,960 samples: bit-equal to
+     their plain versions, on a tone with a nonzero start phase and on
+     phases a hair below a whole turn (quadrant 4 wraps to 0);
+ 17. K10 wbfm_chain_step on an FM signal, 2 carried batches: <= 2e-5 from
+     its plain version, carry equal; bit-identical audio at four (tile,
+     segment group) geometries and for one batch of twice the size;
+ 18. K12 wbfm_chain_live_step, 2 carried batches from stream start:
+     bit-equal to K11 -> K10, <= 2e-5 from its plain version;
+ 19. the staged, fused (cf32 and folded) and live wbfm_receiver graphs, 4
+     batches each: >= 60 dB against the float64 golden (the reading is
+     printed); K8 launched on the staged and fused paths, K11 and K10 on
+     the folded one, K10 on the fused one, K12 on the live one;
+ 20. times: K8, K11, K10, K12 beside their plain versions (K12 beside
+     K11 -> K10), K10 at the four geometries, the four wbfm flowgraph
+     steps in Msamples/s, and every kernel's least time on the card for
+     its work (``kernel_bounds``).
 
-Each timed flowgraph step is also traced for 20 steps with
-torch.profiler and its device time printed kernel by kernel.
+Kernel times are device times: 10 calls captured in a CUDA graph and the
+graph replayed under CUDA events (median of 30), so the host's launch
+time is left out (``graph_ms``); plain versions and flowgraph steps are
+timed as a caller runs them, host included (``median_ms``). Each timed
+flowgraph step is also traced for 20 steps with torch.profiler and its
+device time printed kernel by kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -582,22 +613,320 @@ def phase_live(torch, fm_chain, noise, fused_out, first_batch_d2) -> int:
     return launches
 
 
+# -- config #1: the wideband-FM receiver ------------------------------------
+
+WB_FS, WB_FC, WB_D, WB_RD, WB_DEV = 1e6, 200e3, 4, 5, 75e3
+WB_TONE = 231_250.0        # 31.25 kHz into the 100 kHz channel
+WB_BATCH = 2_088_960       # samples per batch (the reference bench's)
+WB_R = WB_BATCH // 64      # folded rows per batch (32640)
+WB_NAUD = WB_R // (WB_D * WB_RD)  # audio rows per batch (1632)
+WB_GATE_DB = 60.0          # the reference's gate (bench.py wbfm gate)
+K10_TOL = 2e-5             # K10/K12 vs plain: FMA vs separate roundings
+# (tile, seg_group) of K10/K12 blocks, the default first
+WB_GEOMS = ((2040, 4), (1920, 4), (1020, 4), (1360, 4), (4080, 2), (2040, 2),
+            (2040, 8), (1020, 8), (4080, 1), (8160, 1), (680, 8), (1020, 2))
+
+
+def wb_plan():
+    from newsched_tpu_torch.ops import firdes, nco
+    from newsched_tpu_torch.ops.cuda import wbfm_chain
+
+    chan = firdes.low_pass(1.0, WB_FS, 100e3, 30e3)
+    rt = firdes.low_pass(1.0, 1.0, 0.45 / WB_RD, 0.1 / WB_RD)
+    plan = wbfm_chain.WbfmChainPlan(
+        chan, nco.freq_to_dphase(WB_FC, WB_FS), WB_D, rt, WB_RD,
+        (WB_FS / WB_D) / (2 * np.pi * WB_DEV))
+    return plan, wbfm_chain.wbfm_consts(plan, "cuda"), chan, rt
+
+
+def phase_k8_k11(torch, sources) -> dict:
+    """K8 and K11 at the main path's shapes against their plain versions,
+    on a tone with a nonzero phase and on phases a hair below a turn."""
+    from newsched_tpu_torch.ops import nco
+
+    dp = nco.freq_to_dphase(WB_TONE, WB_FS)
+    errs = {}
+    for ph0, dphase, what in ((0x89ABCDEF, dp, "tone"),
+                              (0xFFFFFFFF, 0xFFFFFFFF, "quadrant 4")):
+        got = sources.nco_planes(ph0, dphase, 0.8, WB_BATCH, "cuda")
+        ref = sources.nco_planes_plain(ph0, dphase, 0.8, WB_BATCH, "cuda")
+        fgot = sources.nco_folded(ph0, dphase, 0.8, WB_R, "cuda")
+        fref = sources.nco_folded_plain(ph0, dphase, 0.8, WB_R, "cuda")
+        e8 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        e11 = float((fgot - fref).abs().max())
+        log(f"K8 nco_planes ({WB_BATCH} samples = {WB_BATCH // 128} x 128 x 2), "
+            f"K11 nco_folded ({WB_R} x 128), {what}: max abs err vs plain "
+            f"{e8:.3e} / {e11:.3e} (bit-equal required)")
+        require(all(torch.equal(g, r) for g, r in zip(got, ref))
+                and torch.equal(fgot, fref), f"K8/K11 {what}: differ from plain")
+        if what == "quadrant 4":
+            # phases 2^32 - 1 - k: t = -(k+1)/2^32, cos ~ 1 and sin ~ 0-
+            require(bool((got[0] > 0.79).all()) and bool((got[1] <= 0).all())
+                    and float(got[1][:4096].abs().max()) < 1e-5,
+                    "K8: phases below a whole turn left quadrant 0")
+        errs["K8"] = max(errs.get("K8", 0.0), e8)
+        errs["K11"] = max(errs.get("K11", 0.0), e11)
+    return errs
+
+
+def fm_signal(n: int, torch) -> torch.Tensor:
+    """A broadcast-FM signal at the channel's centre: a 2 kHz tone at
+    75 kHz deviation, complex64 on the GPU."""
+    t = torch.arange(n, dtype=torch.float64, device="cuda") / WB_FS
+    msg = torch.sin(2 * np.pi * 2000.0 * t)
+    ph = torch.cumsum(2 * np.pi * (WB_DEV / WB_FS) * msg, 0) + 2 * np.pi * WB_FC * t
+    return torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+
+
+def phase_k10(torch, wbfm_chain) -> float:
+    """K10 against its plain version on two carried batches, bit-identical
+    across tiles, segment groups and a batch split."""
+    plan, consts, _, _ = wb_plan()
+    x = fm_signal(2 * WB_BATCH, torch)
+
+    def run(step, sizes=(WB_BATCH, WB_BATCH), **kw):
+        carry = torch.zeros(plan.B8, 128, device="cuda")
+        outs, pos = [], 0
+        for n in sizes:
+            xp = wbfm_chain.fold_planes(x[pos:pos + n])
+            aud, carry = step(xp, carry, plan, consts, **kw)
+            outs.append(wbfm_chain.unfold_audio(aud))
+            pos += n
+        return torch.cat(outs), carry
+
+    got, carry = run(wbfm_chain.wbfm_chain_step)
+    ref, carry_p = run(wbfm_chain.wbfm_chain_step_plain)
+    err = float((got - ref).abs().max())
+    log(f"K10 wbfm_chain_step: 2 carried batches x {WB_R} x 128 rows on an FM "
+        f"signal, max abs err vs plain {err:.3e} of max|audio| "
+        f"{float(ref.abs().max()):.3f} (tol {K10_TOL}); carry equal: "
+        f"{torch.equal(carry, carry_p)}")
+    require(err <= K10_TOL and torch.equal(carry, carry_p),
+            "K10: kernel disagrees with its plain version")
+    for tile, gs in WB_GEOMS[1:]:
+        other, _ = run(wbfm_chain.wbfm_chain_step, tile=tile, seg_group=gs)
+        require(torch.equal(got, other),
+                f"K10: tile {tile} / seg_group {gs} differs from the default")
+    one, _ = run(wbfm_chain.wbfm_chain_step, sizes=(2 * WB_BATCH,))
+    require(torch.equal(got, one),
+            "K10: one batch of 2B differs from two carried batches of B")
+    log(f"K10: tiles/segment groups {WB_GEOMS} and one batch of 2B give "
+        f"bit-identical audio")
+    return err
+
+
+def live_batches(torch, sources, wbfm_chain, step_live: bool, plain=False):
+    """Two carried batches of the live chain from stream start: K12 (or
+    its plain version), or K11 -> K10."""
+    from newsched_tpu_torch.ops import nco
+
+    plan, consts, _, _ = wb_plan()
+    dp = nco.freq_to_dphase(WB_TONE, WB_FS)
+    carry = torch.zeros(plan.B8, 128, device="cuda")
+    outs, ph = [], 0x12345678
+    for b in range(2):
+        if step_live:
+            fn = (wbfm_chain.wbfm_chain_live_step_plain if plain
+                  else wbfm_chain.wbfm_chain_live_step)
+            outs.append(fn(ph, dp, 0.8, b == 0, plan, consts, WB_R))
+        else:
+            xp = sources.nco_folded(ph, dp, 0.8, WB_R, "cuda")
+            aud, carry = wbfm_chain.wbfm_chain_step(xp, carry, plan, consts)
+            outs.append(aud)
+        ph = nco.nco_advance(ph, dp, WB_BATCH)
+    return outs
+
+
+def phase_k12(torch, sources, wbfm_chain) -> float:
+    got = live_batches(torch, sources, wbfm_chain, True)
+    two = live_batches(torch, sources, wbfm_chain, False)
+    require(all(torch.equal(a, b) for a, b in zip(got, two)),
+            "K12: differs from K11 -> K10")
+    plain = live_batches(torch, sources, wbfm_chain, True, plain=True)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    log(f"K12 wbfm_chain_live_step: 2 carried batches from stream start "
+        f"(pre-stream zeros, then the uint32 wrap): bit-equal to K11 -> K10; "
+        f"max abs err vs plain {err:.3e} (tol {K10_TOL})")
+    require(err <= K10_TOL, "K12: kernel disagrees with its plain version")
+    return err
+
+
+def wb_graph(kind: str, n_batches, sink="vector"):
+    """models.wbfm_receiver at config #1 on the fixed-point tone at WB_TONE:
+    staged, fused (cf32 sig_source), folded (sig_source_folded) or live."""
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.blocks import analog
+
+    src = {"staged": None, "fused": None, "live": "live",
+           "folded": analog.sig_source_folded(WB_FS, frequency=WB_TONE)}[kind]
+    if src is None:
+        src = analog.sig_source(WB_FS, "complex", frequency=WB_TONE)
+    fg, blks = models.wbfm_receiver(
+        fs=WB_FS, center_freq=WB_FC, quad_rate_decim=WB_D,
+        audio_decim=(1, WB_RD), deviation=WB_DEV, source=src,
+        batch_size=WB_BATCH, sink=sink, fused=kind != "staged",
+        n_samples=None if n_batches is None else n_batches * WB_NAUD * 64)
+    if kind == "live":
+        blks["source"].set_frequency(WB_TONE)
+    return fg, blks
+
+
+def phase_wbfm_graphs(torch, sources, wbfm_chain) -> dict:
+    """The four config #1 graphs, 4 batches each, against the float64
+    golden; each path's launch counts."""
+    from newsched_tpu_torch.ops import nco
+    from newsched_tpu_torch.testing import fxpt_tone, snr_db, wbfm_golden
+
+    _, _, chan, rt = wb_plan()
+    n = 4 * WB_BATCH
+    ref = wbfm_golden(fxpt_tone(n, nco.freq_to_dphase(WB_TONE, WB_FS)), chan,
+                      nco.freq_to_dphase(WB_FC, WB_FS), WB_D, rt, WB_RD,
+                      (WB_FS / WB_D) / (2 * np.pi * WB_DEV))
+    kernels = {"K8": sources.nco_planes, "K11": sources.nco_folded,
+               "K10": wbfm_chain.wbfm_chain_step,
+               "K12": wbfm_chain.wbfm_chain_live_step}
+    want = {"staged": ("K8",), "fused": ("K8", "K10"),
+            "folded": ("K11", "K10"), "live": ("K12",)}
+    out, launches = {}, {}
+    for kind in ("staged", "fused", "folded", "live"):
+        fg, blks = wb_graph(kind, 4)
+        for k in kernels.values():
+            k.launches = 0
+        fg.run(device="cuda")
+        counts = {name: k.launches for name, k in kernels.items()}
+        got = blks["sink"].data()
+        require(got.shape == (n // 20,) and bool(np.isfinite(got).all()),
+                f"wbfm {kind}: audio shape {got.shape} or non-finite")
+        snr = snr_db(ref[:len(got)], got)
+        log(f"wbfm {kind} flowgraph: {len(got)} audio samples, SNR vs float64 "
+            f"golden {snr:.2f} dB (gate {WB_GATE_DB} dB); launches {counts}")
+        require(snr >= WB_GATE_DB, f"wbfm {kind}: SNR {snr:.2f} dB < gate")
+        require(all(counts[k] > 0 for k in want[kind]),
+                f"wbfm {kind}: a kernel of the path was never launched")
+        out[kind] = snr
+        launches[kind] = counts
+    return {"snr": out, "launches": launches}
+
+
+def wb_step_rate(torch, kind: str, card: str) -> float:
+    """Device time of one config #1 flowgraph step (median over REPS runs
+    of 10 steps), as Msamples/s of input."""
+    from newsched_tpu_torch.runtime.runner import Runner
+
+    fg, _ = wb_graph(kind, None, sink="null")
+    fg.validate()
+    runner = Runner(fg, batch_size=fg.batch_size, device="cuda")
+    params = runner.init_params()
+    box = {"s": runner.init_states()}
+
+    def one():
+        box["s"], _ = runner.cfg.step(box["s"], params)
+
+    ms = median_ms(one)
+    log(f"flowgraph step (wbfm {kind}): {ms:.4f} ms per batch of {WB_BATCH} "
+        f"samples = {WB_BATCH / ms / 1e3:.1f} Msamples/s [{card}]")
+    profile_steps(torch, one, f"wbfm {kind}")
+    return ms
+
+
+# -- the least time of each kernel's work on the card ------------------------
+
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
+PEAK_FP32 = 67e12      # FP32 outside the tensor cores, operations/s
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the
+    FP32 peak (the integer work of Philox is counted at the same rate, the
+    nearest entry of the published table), in ms, and which one it is."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+ATAN_OPS = 2 * 9 + 10   # degree-9 polynomial in z^2 + reduction and quadrant
+DEMOD_OPS = 6 + ATAN_OPS + 1        # conj product, atan2, gain
+NCO_OPS = 2 + 2 + 5 + 2 * 2 * 5 + 1 + 4 + 2  # phase, turns, reduce, polys, select, amp
+PHILOX_OPS = 10 * 10 + 14           # 10 rounds, Irwin-Hall sum and scale
+
+
+def kernel_bounds() -> dict:
+    """(bound ms, bound_by) of every kernel at the shapes this run gives it:
+    each input read once and each output written once, and the least
+    arithmetic of the function (multiply-adds count 2), not of the
+    kernel's formulation: an M-point FFT a row (5 M log2 M flops) where
+    K1/K3/K5 do a dense (2M x 2M) real DFT product, and for K10/K12 the
+    staged order (rotate each input sample by the NCO, then a real-tap FIR)
+    where the kernels filter with complex rotated taps."""
+    f4 = 4
+    n, W = ROWS, 2 * M
+    fold = 2 * L * n * W
+    fft = 5 * M * int(np.log2(M)) * n
+    audio = 2 * A * (n // DECIM) * M
+    demod = DEMOD_OPS * n * M
+    chain_out = ((n // DECIM) * M + (A - 1) * W + W) * f4
+    U = (WB_R // WB_D) * 64  # xlate outputs
+    # real taps on complex samples (4 flops a tap), demod, real resampler
+    wb_chain = 4 * 81 * U + DEMOD_OPS * U + 2 * 121 * WB_NAUD * 64
+    rotate = (NCO_OPS + 6) * WB_BATCH  # NCO + a complex multiply a sample
+    return {
+        "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
+        "K4": bound(n * W * f4, PHILOX_OPS * n * W),
+        "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
+        "K7": bound((n + L - 1) * W * f4 + n * W * f4, fold),
+        "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
+        "K8": bound(2 * WB_BATCH * f4, NCO_OPS * WB_BATCH),
+        "K11": bound(WB_R * 128 * f4, NCO_OPS * WB_R * 64),
+        "K10": bound((WB_R + 568) * 128 * f4 + WB_NAUD * 128 * f4,
+                     wb_chain + rotate),
+        # the live tone, rotated, is one NCO at the offset frequency
+        "K12": bound(WB_NAUD * 128 * f4, wb_chain + NCO_OPS * WB_BATCH),
+    }
+
+
+def graph_ms(fn, reps: int = REPS, inner: int = 10) -> float:
+    """Device time of one call without the host's enqueue time: ``inner``
+    calls captured once in a CUDA graph, the graph replayed under CUDA
+    events (median of ``reps``), divided by ``inner``. Where the host takes
+    longer to launch a call than the card to run it (the NCO kernels), an
+    event time of back-to-back calls measures the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(inner):
+            fn()
+    return median_ms(g.replay, reps=reps, inner=1) / inner
+
+
 def alternate(fns: dict, plain_reps: int = REPS) -> dict:
-    """median_ms of each named call, twice: in the reverse of the given
+    """The time of each named call, twice: in the reverse of the given
     order, then in it, so each kernel and its plain version alternate.
-    Calls named '... plain' take ``plain_reps`` reps."""
+    Kernels (and compositions of kernels) by graph_ms; the plain versions,
+    named '... plain', by median_ms with ``plain_reps`` reps: their torch
+    ops run as a caller runs them, host included."""
     names = list(fns)
     out: dict = {}
     for name in names[::-1] + names:
-        reps = plain_reps if name.endswith(" plain") else REPS
-        out.setdefault(name, []).append(median_ms(fns[name], reps=reps))
+        if name.endswith(" plain"):
+            ms = median_ms(fns[name], reps=plain_reps)
+        else:
+            ms = graph_ms(fns[name])
+        out.setdefault(name, []).append(ms)
     return out
 
 
 def main() -> int:
     from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.ops import nco as nco_mod
     from newsched_tpu_torch.ops.cuda import (_build, channelizer, fm_chain,
-                                             mathfns, noise)
+                                             mathfns, noise, sources,
+                                             wbfm_chain)
     from newsched_tpu_torch.testing import planes_rows
 
     import torch  # after the port, so a copy without it fails before torch loads
@@ -664,7 +993,7 @@ def main() -> int:
         "K4": lambda: noise.gaussian_rows(
             0, 0, n_rows=ROWS, width=2 * M, seed=0, device="cuda"),
     })
-    k3_t256 = median_ms(lambda: fm_chain.fm_chain_step_planes(
+    k3_t256 = graph_ms(lambda: fm_chain.fm_chain_step_planes(
         vb, *st, consts, DECIM, DEMOD_GAIN, tile=256))
     log(f"K3 fm_chain_step_planes ({ROWS} x {2 * M} rows): kernel "
         f"{t['K3']} ms (tile 256: {k3_t256:.4f} ms), plain {t['K3 plain']} ms "
@@ -705,34 +1034,98 @@ def main() -> int:
     log(f"K4 * amp -> K3 (what K5 fuses): {t['K4 -> K3']} ms [{card}]")
     step_rate(torch, None, "staged", card, fused=False)
     step_rate(torch, "live", "live", card)
+    # one PyTorch call computing K7's function: the depthwise correlation
+    # of every lane with its L taps (cuDNN, FP32: TF32 is off above)
+    vT = v.T.contiguous()[None]
+    w7 = c2.T.contiguous()[:, None, :]
+    lib = {"K7": graph_ms(lambda: torch.nn.functional.conv1d(vT, w7, groups=2 * M))}
+    log(f"library call for K7: conv1d(groups={2 * M}) {lib['K7']:.4f} ms [{card}]")
 
+    # 16-20. config #1, the wideband-FM receiver, each path counted
+    nco_err = phase_k8_k11(torch, sources)
+    k10_err = phase_k10(torch, wbfm_chain)
+    k12_err = phase_k12(torch, sources, wbfm_chain)
+    wb = phase_wbfm_graphs(torch, sources, wbfm_chain)
+
+    plan, wconsts, _, _ = wb_plan()
+    dp = nco_mod.freq_to_dphase(WB_TONE, WB_FS)
+    a8 = torch.tensor(0.8, dtype=torch.float32, device="cuda")
+    xp = wbfm_chain.fold_planes(fm_signal(WB_BATCH, torch))
+    carry = torch.zeros(plan.B8, 128, device="cuda")
+
+    def k11_k10():
+        wbfm_chain.wbfm_chain_step(sources.nco_folded(7, dp, a8, WB_R, "cuda"),
+                                   carry, plan, wconsts)
+
+    t.update(alternate({
+        "K8 plain": lambda: sources.nco_planes_plain(7, dp, a8, WB_BATCH, "cuda"),
+        "K8": lambda: sources.nco_planes(7, dp, a8, WB_BATCH, "cuda"),
+        "K11 plain": lambda: sources.nco_folded_plain(7, dp, a8, WB_R, "cuda"),
+        "K11": lambda: sources.nco_folded(7, dp, a8, WB_R, "cuda"),
+        "K10 plain": lambda: wbfm_chain.wbfm_chain_step_plain(xp, carry, plan,
+                                                              wconsts),
+        "K10": lambda: wbfm_chain.wbfm_chain_step(xp, carry, plan, wconsts),
+        "K12 plain": lambda: wbfm_chain.wbfm_chain_live_step_plain(
+            7, dp, a8, False, plan, wconsts, WB_R),
+        "K11 -> K10": k11_k10,
+        "K12": lambda: wbfm_chain.wbfm_chain_live_step(7, dp, a8, False, plan,
+                                                       wconsts, WB_R),
+    }, PLAIN_REPS))
+    ms = {k: min(v_) for k, v_ in t.items()}
+    for name, what in (("K8", "nco_planes"), ("K11", "nco_folded"),
+                       ("K10", "wbfm_chain_step"),
+                       ("K12", "wbfm_chain_live_step")):
+        log(f"{name} {what}: kernel {t[name]} ms, plain {t[name + ' plain']} ms "
+            f"[{card}]")
+    log(f"K11 -> K10 (what K12 fuses): {t['K11 -> K10']} ms [{card}]")
+    for tile, gs in WB_GEOMS:
+        k10_ms = graph_ms(lambda: wbfm_chain.wbfm_chain_step(
+            xp, carry, plan, wconsts, tile=tile, seg_group=gs))
+        k12_ms = graph_ms(lambda: wbfm_chain.wbfm_chain_live_step(
+            7, dp, a8, False, plan, wconsts, WB_R, tile=tile, seg_group=gs))
+        blocks = (WB_R // tile) * (64 // gs)
+        extra = (plan.A + 1) / (tile // (WB_D * WB_RD) * WB_RD)
+        smem = wbfm_chain._geometry(plan, WB_R, tile, gs).smem
+        log(f"K10/K12 tile {tile} seg_group {gs}: {blocks} blocks, {smem} B "
+            f"shared, junction +{100 * extra:.0f}% xlate outputs; K10 "
+            f"{k10_ms:.4f} ms, K12 {k12_ms:.4f} ms [{card}]")
+    for kind in ("staged", "fused", "folded", "live"):
+        wb_step_rate(torch, kind, card)
+
+    bounds = kernel_bounds()
+    for name, (b_ms, by) in bounds.items():
+        log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
+            f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
+
+    def entry(name, kid, src, replaces, launches, err):
+        return {"name": name, "route": "cuda",
+                "source": f"newsched_tpu_torch/csrc/{src}",
+                "replaces": f"newsched_tpu/ops/pallas/{replaces}",
+                "launches": launches, "max_abs_err": err,
+                "ms": ms[kid], "plain_ms": ms[kid + " plain"],
+                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
+                "library_ms": lib.get(kid)}
+
+    wl = wb["launches"]
     print(json.dumps({"kernels": [
-        {"name": "fm_chain_step_planes", "route": "cuda",
-         "source": "newsched_tpu_torch/csrc/fm_chain.cu",
-         "replaces": "newsched_tpu/ops/pallas/fm_chain.py:421",
-         "launches": launches["fm_chain"], "max_abs_err": k3_err,
-         "ms": ms["K3"], "plain_ms": ms["K3 plain"]},
-        {"name": "gaussian_rows", "route": "cuda",
-         "source": "newsched_tpu_torch/csrc/noise.cu",
-         "replaces": "newsched_tpu/ops/pallas/noise.py:176",
-         "launches": launches["noise"], "max_abs_err": k4_err,
-         "ms": ms["K4"], "plain_ms": ms["K4 plain"]},
-        {"name": "arm_fold_dft", "route": "cuda",
-         "source": "newsched_tpu_torch/csrc/channelizer.cu",
-         "replaces": "newsched_tpu/ops/pallas/channelizer.py:209",
-         "launches": staged["arm_fold_dft"],
-         "max_abs_err": fold_err["arm_fold_dft"],
-         "ms": ms["K1"], "plain_ms": ms["K1 plain"]},
-        {"name": "arm_fold", "route": "cuda",
-         "source": "newsched_tpu_torch/csrc/channelizer.cu",
-         "replaces": "newsched_tpu/ops/pallas/channelizer.py:95",
-         "launches": dec_launches, "max_abs_err": fold_err["arm_fold"],
-         "ms": ms["K7"], "plain_ms": ms["K7 plain"]},
-        {"name": "fm_chain_gen_step", "route": "cuda",
-         "source": "newsched_tpu_torch/csrc/fm_chain.cu",
-         "replaces": "newsched_tpu/ops/pallas/fm_chain.py:591",
-         "launches": live_launches, "max_abs_err": k5_err,
-         "ms": ms["K5"], "plain_ms": ms["K5 plain"]},
+        entry("fm_chain_step_planes", "K3", "fm_chain.cu", "fm_chain.py:421",
+              launches["fm_chain"], k3_err),
+        entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
+              launches["noise"], k4_err),
+        entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
+              staged["arm_fold_dft"], fold_err["arm_fold_dft"]),
+        entry("arm_fold", "K7", "channelizer.cu", "channelizer.py:95",
+              dec_launches, fold_err["arm_fold"]),
+        entry("fm_chain_gen_step", "K5", "fm_chain.cu", "fm_chain.py:591",
+              live_launches, k5_err),
+        entry("nco_planes", "K8", "sources.cu", "sources.py:44",
+              wl["staged"]["K8"] + wl["fused"]["K8"], nco_err["K8"]),
+        entry("nco_folded", "K11", "sources.cu", "sources.py:91",
+              wl["folded"]["K11"], nco_err["K11"]),
+        entry("wbfm_chain_step", "K10", "wbfm_chain.cu", "wbfm_chain.py:364",
+              wl["fused"]["K10"] + wl["folded"]["K10"], k10_err),
+        entry("wbfm_chain_live_step", "K12", "wbfm_chain.cu",
+              "wbfm_chain.py:452", wl["live"]["K12"], k12_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
 """Analog blocks (reference: newsched_tpu/blocks/analog.py): the noise
-source of the staged flagship."""
+source of the staged flagship; the tone sources, the quadrature demod and
+the fused and live wideband-FM receivers of config #1."""
 
 from __future__ import annotations
+
+from fractions import Fraction
 
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops.cuda import noise
+from newsched_tpu_torch.ops import analog as analog_ops, firdes, nco
+from newsched_tpu_torch.ops.cuda import fm_chain, noise, sources, wbfm_chain
 from newsched_tpu_torch.runtime.block import Block
 from newsched_tpu_torch.utils.dtypes import port_dtype
 
@@ -81,3 +85,266 @@ class noise_source(Block):
         else:
             y = r.reshape(-1) * a
         return {"ghi": hi, "glo": lo}, {"out": y}
+
+
+class sig_source(Block):
+    """Tone/waveform source (reference analog::sig_source<T>): sin, cos,
+    complex exponential, square, triangle, sawtooth at exact NCO phase.
+
+    frequency/amplitude/offset are runtime-settable parameters; waveform and
+    dtype are fixed at construction. complex, cos and sin come from the NCO
+    kernel (ops/cuda/sources.py ``nco_planes``, K8; its plain version on the
+    CPU); square, triangle and saw are torch ops on the NCO phase, as in the
+    reference. The phase counter and ``dphase`` are host ints, so a step
+    reads nothing back from the card.
+    """
+
+    WAVEFORMS = ("cos", "sin", "complex", "square", "triangle", "saw")
+
+    def __init__(self, sampling_freq: float, waveform: str = "complex",
+                 frequency: float = 1000.0, amplitude: float = 1.0,
+                 offset: float = 0.0, dtype="cf32", name=None):
+        super().__init__(name)
+        if waveform not in self.WAVEFORMS:
+            raise ValueError(f"waveform {waveform!r} not in {self.WAVEFORMS}")
+        self.waveform = waveform
+        self.sampling_freq = float(sampling_freq)
+        d = port_dtype(dtype)
+        self.dtype = d
+        self.add_output("out", d)
+        self.declare_param("dphase", nco.freq_to_dphase(frequency, sampling_freq),
+                           dtype=None, doc="per-sample phase increment")
+        self.declare_param("amplitude", amplitude, dtype=np.float32)
+        self.declare_param("offset", offset,
+                           dtype=d.np_dtype if d.name != "cf32" else np.complex64)
+
+    def set_frequency(self, freq: float) -> None:
+        self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
+
+    def init_state(self, nin, nout, device):
+        return {"phase": 0}
+
+    def work(self, state, ins, params, nout):
+        ph0, dp = state["phase"], params["dphase"]
+        a = params["amplitude"]
+        dev = a.device
+        if self.waveform in ("complex", "cos", "sin"):
+            re, im = sources.nco_planes(ph0, dp, a, nout, dev)
+            if self.waveform == "complex":
+                y = torch.complex(re, im) + params["offset"]
+            else:
+                y = (re if self.waveform == "cos" else im) + params["offset"]
+        else:
+            phase = nco.nco_phase(ph0, dp, nout, dev)
+            if self.waveform == "square":
+                y = torch.where(phase < np.pi, a, -a)
+            elif self.waveform == "triangle":
+                y = a * (4 * torch.abs(phase / (2 * np.pi) - 0.5) - 1.0)
+            else:  # saw
+                y = a * (phase / np.pi - 1.0)
+            y = y + params["offset"]
+        return ({"phase": nco.nco_advance(ph0, dp, nout)},
+                {"out": y.to(self.dtype.torch_dtype)})
+
+
+class quadrature_demod(Block):
+    """FM discriminator (reference analog::quadrature_demod): cf32 -> rf32,
+    y[n] = gain * arg(conj(x[n-1]) x[n])."""
+
+    def __init__(self, gain: float = 1.0, name=None):
+        super().__init__(name)
+        self.add_input("in", "cf32")
+        self.add_output("out", "rf32")
+        self.declare_param("gain", gain, dtype=np.float32)
+
+    def init_state(self, nin, nout, device):
+        return analog_ops.quad_demod_init_state(device)
+
+    def work(self, state, ins, params, nout):
+        st, y = analog_ops.quadrature_demod(state, ins["in"], params["gain"])
+        return st, {"out": y}
+
+
+class _wbfm_chain_block(Block):
+    """What the fused and live wideband-FM blocks share: the chain's plan
+    (rotated taps, demod rotation, resampler taps, junction sizes), its
+    constants uploaded once per device, and the ``center_freq`` fence
+    parameter, whose hook rebuilds both."""
+
+    def __init__(self, chan_taps, center_freq: float, fs: float, decim: int,
+                 deviation: float, resamp_interp: int, resamp_decim: int,
+                 resamp_taps, tile, precision, name):
+        super().__init__(name)
+        if resamp_interp != 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} fuses interp-1 resamplers only; use "
+                f"the staged wbfm_receiver for rational interpolation")
+        if precision not in fm_chain.PRECISIONS:
+            raise ValueError(f"precision {precision!r} not in "
+                             f"{fm_chain.PRECISIONS}")
+        if resamp_taps is None:
+            cutoff = 0.45 / max(resamp_interp, resamp_decim)
+            trans = 0.1 / max(resamp_interp, resamp_decim)
+            resamp_taps = firdes.low_pass(resamp_interp, 1.0, cutoff, trans)
+        quad_rate = fs / decim
+        self._plan_args = (np.asarray(chan_taps), float(fs), int(decim),
+                           np.asarray(resamp_taps), int(resamp_decim),
+                           float(quad_rate / (2 * np.pi * deviation)),
+                           precision)
+        self.sampling_freq = float(fs)
+        self.tile = tile
+        self._consts: dict[torch.device, wbfm_chain.WbfmConsts] = {}
+        self.plan = self._build_plan(center_freq)
+        # A RECOMPILE-FENCE parameter, as in the reference: the rotated
+        # taps bake center_freq in, so setting it rebuilds the plan and its
+        # device constants before the next batch. The junction state is raw
+        # input rows, so the retuned chain re-locks without a glitch.
+        self.declare_param("center_freq", float(center_freq), dtype=None,
+                           fence=True)
+
+    def _build_plan(self, center_freq: float) -> wbfm_chain.WbfmChainPlan:
+        chan_taps, fs, decim, rt, rd, gain, precision = self._plan_args
+        return wbfm_chain.WbfmChainPlan(
+            chan_taps, nco.freq_to_dphase(center_freq, fs), decim, rt, rd,
+            demod_gain=gain, precision=precision)
+
+    def on_fence_param(self, name, value):
+        # B8 depends only on the tap counts: the carry's shape survives
+        self.plan = self._build_plan(float(value))
+        self._consts = {}
+
+    def consts(self, device) -> wbfm_chain.WbfmConsts:
+        device = torch.device(device)
+        if device not in self._consts:
+            self._consts[device] = wbfm_chain.wbfm_consts(self.plan, device)
+        return self._consts[device]
+
+
+class wbfm_rcv_fused(_wbfm_chain_block):
+    """The wideband-FM receive chain (BASELINE config #1: freq_xlating_fir
+    -> quadrature_demod -> rational_resampler) as ONE kernel on the
+    time-folded-lanes layout (ops/cuda/wbfm_chain.py, K10): cf32 stream in
+    -> rf32 audio at rate 1/(decim*resamp_decim).
+
+    A drop-in for the staged chain of models.wbfm_receiver, to float32
+    accuracy (the dropped output NCO is an exact identity through the
+    demod). As in the reference, center_freq is a fence parameter (setting
+    it rebuilds the rotated taps), interp-1 resamplers only, and batches
+    are multiples of 64*decim*resamp_decim samples, at least plan.B8 * 64.
+
+    input_format="folded" takes the folded rows themselves (rf32[(128,)]
+    items of 64 samples each, as ``sig_source_folded`` emits them): no
+    complex assembly and no fold transpose.
+    """
+
+    def __init__(self, chan_taps, center_freq: float, fs: float,
+                 decim: int = 4, deviation: float = 75e3,
+                 resamp_interp: int = 1, resamp_decim: int = 5,
+                 resamp_taps=None, tile: int | None = None,
+                 precision="split3", input_format: str = "cf32", name=None):
+        super().__init__(chan_taps, center_freq, fs, decim, deviation,
+                         resamp_interp, resamp_decim, resamp_taps, tile,
+                         precision, name)
+        if input_format not in ("cf32", "folded"):
+            raise ValueError(f"input_format {input_format!r} not in "
+                             f"cf32/folded")
+        self.input_format = input_format
+        S = wbfm_chain.S
+        if input_format == "folded":
+            self.relative_rate = Fraction(S, decim * resamp_decim)
+            self.in_multiple = decim * resamp_decim
+            self.add_input("in", "rf32", item_shape=(2 * S,))
+        else:
+            self.relative_rate = Fraction(1, decim * resamp_decim)
+            self.in_multiple = S * decim * resamp_decim
+            self.add_input("in", "cf32")
+        self.add_output("out", "rf32")
+
+    def init_state(self, nin, nout, device):
+        return {"carry": torch.zeros((self.plan.B8, 2 * wbfm_chain.S),
+                                     dtype=torch.float32, device=device)}
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"]
+        xp = (x.contiguous() if self.input_format == "folded"
+              else wbfm_chain.fold_planes(x))
+        aud, carry = wbfm_chain.wbfm_chain_step(
+            xp, state["carry"], self.plan, self.consts(x.device),
+            tile=self.tile)
+        return {"carry": carry}, {"out": wbfm_chain.unfold_audio(aud)}
+
+
+class sig_source_folded(Block):
+    """Tone source emitting the time-folded-lanes rows of the fused
+    wideband-FM chain: rf32[(128,)] rows, a batch of R rows carrying 64*R
+    consecutive samples, segment s of the batch in lanes (s, 64+s). The
+    partner of wbfm_rcv_fused(input_format="folded"); the NCO kernel
+    ``nco_folded`` (K11) writes the layout directly. The fold is per batch,
+    so it only makes sense feeding a folded-input block at the same batch
+    size (models.wbfm_receiver wires it)."""
+
+    def __init__(self, sampling_freq: float, frequency: float = 1000.0,
+                 amplitude: float = 1.0, name=None):
+        super().__init__(name)
+        self.sampling_freq = float(sampling_freq)
+        self.add_output("out", "rf32", item_shape=(2 * sources.S,))
+        self.declare_param("dphase", nco.freq_to_dphase(frequency, sampling_freq),
+                           dtype=None)
+        self.declare_param("amplitude", amplitude, dtype=np.float32)
+
+    def set_frequency(self, freq: float) -> None:
+        self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
+
+    def init_state(self, nin, nout, device):
+        return {"phase": 0}
+
+    def work(self, state, ins, params, nout):
+        a = params["amplitude"]
+        out = sources.nco_folded(state["phase"], params["dphase"], a, nout,
+                                 a.device)
+        return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
+                                          sources.S * int(nout))},
+                {"out": out})
+
+
+class wbfm_live_source(_wbfm_chain_block):
+    """The LIVE wideband-FM receiver as ONE source kernel: the NCO test tone
+    is generated inside the fused chain (ops/cuda/wbfm_chain.py
+    ``wbfm_chain_live_step``, K12), so the only stream state is the phase
+    counter and a first-batch flag (samples before the stream are 0).
+    Emits the rf32 audio stream; bit-identical to ``sig_source_folded ->
+    wbfm_rcv_fused(input_format="folded")`` with the same parameters."""
+
+    def __init__(self, chan_taps, center_freq: float, fs: float,
+                 decim: int = 4, deviation: float = 75e3,
+                 resamp_interp: int = 1, resamp_decim: int = 5,
+                 resamp_taps=None, frequency: float = 0.0,
+                 amplitude: float = 1.0, tile: int | None = None,
+                 precision="split3", name=None):
+        super().__init__(chan_taps, center_freq, fs, decim, deviation,
+                         resamp_interp, resamp_decim, resamp_taps, tile,
+                         precision, name)
+        self.add_output("out", "rf32")
+        self.declare_param("dphase", nco.freq_to_dphase(frequency, fs),
+                           dtype=None, doc="tone phase increment")
+        self.declare_param("amplitude", amplitude, dtype=np.float32)
+
+    def set_frequency(self, freq: float) -> None:
+        self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
+
+    def init_state(self, nin, nout, device):
+        return {"phase": 0, "first": True}
+
+    def work(self, state, ins, params, nout):
+        S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
+        if (int(nout) * D * Rd) % S:
+            raise ValueError(f"audio batch {nout} not a multiple of "
+                             f"{S // np.gcd(S, D * Rd)} items (fold width)")
+        R = int(nout) * D * Rd // S
+        a = params["amplitude"]
+        aud = wbfm_chain.wbfm_chain_live_step(
+            state["phase"], params["dphase"], a, state["first"], self.plan,
+            self.consts(a.device), R, tile=self.tile)
+        return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
+                                          S * R), "first": False},
+                {"out": wbfm_chain.unfold_audio(aud)})

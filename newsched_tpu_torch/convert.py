@@ -6,16 +6,19 @@ These functions turn them, as numpy arrays, into the port's per-block
 values on a given device, so a stream can be handed from the reference to
 the port at a batch boundary.
 
-Dict states map key by key: the fused block's ``carry``/``prev``/
-``atail``, the live source's ``carry``/``prev``/``atail``,
-``cplx_to_planes``' ``skew``, ``vector_quad_demod``'s ``prev`` and
-``vector_source``'s ``data`` become tensors; stream positions
-(``vector_source``'s ``pos``, the noise sources' 64-bit group counter
-``ghi``/``glo``) become the host ints the port keeps. The staged blocks'
-NamedTuple states (``PfbState``, ``FirState``) become the port's
-NamedTuples of the same name and fields. The reference noise sources'
-threefry ``key`` state has no counterpart (its bits are jax's key
-chaining) and raises.
+Dict states map key by key: the fused blocks' ``carry``/``prev``/
+``atail`` (the wideband-FM ones: ``carry``), the live sources'
+``carry``/``prev``/``atail``, ``cplx_to_planes``' ``skew``,
+``vector_quad_demod``'s ``prev`` and ``vector_source``'s ``data`` become
+tensors; stream positions (``vector_source``'s ``pos``, the noise sources'
+64-bit group counter ``ghi``/``glo``, the NCO sources' uint32 ``phase``)
+and the wideband-FM live source's ``first`` flag become the host ints and
+bool the port keeps. NamedTuple states (``PfbState``, ``FirState``,
+``QuadDemodState``; ``RotatorState``, whose uint32 phase becomes a host
+int) become the port's NamedTuples of the same name and fields, also
+inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``). The reference
+noise sources' threefry ``key`` state has no counterpart (its bits are
+jax's key chaining) and raises.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from newsched_tpu_torch.ops.analog import QuadDemodState, RotatorState
 from newsched_tpu_torch.ops.fir import FirState
 from newsched_tpu_torch.ops.pfb import PfbState
 
-_HOST_INTS = ("pos", "ghi", "glo")
-_NAMED = {cls.__name__: cls for cls in (PfbState, FirState)}
+_HOST_INTS = ("pos", "ghi", "glo", "phase")
+_NAMED = {cls.__name__: cls
+          for cls in (PfbState, FirState, QuadDemodState, RotatorState)}
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -43,6 +48,8 @@ def state_from_jax(state: Any, device) -> Any:
         if cls is None or tuple(state._fields) != cls._fields:
             raise NotImplementedError(
                 f"state of type {type(state).__name__} has no port yet")
+        if cls is RotatorState:
+            return RotatorState(phase=int(np.array(state.phase)))
         return cls(*(_tensor(v, device) for v in state))
     if not isinstance(state, dict):
         if len(state):
@@ -55,7 +62,12 @@ def state_from_jax(state: Any, device) -> Any:
             raise NotImplementedError(
                 "a threefry key state (noise source method='threefry') has "
                 "no counterpart in the port's position-pure stream")
-        out[k] = int(np.array(v)) if k in _HOST_INTS else _tensor(v, device)
+        if hasattr(v, "_fields"):
+            out[k] = state_from_jax(v, device)
+        elif k == "first":
+            out[k] = bool(np.array(v))
+        else:
+            out[k] = int(np.array(v)) if k in _HOST_INTS else _tensor(v, device)
     return out
 
 

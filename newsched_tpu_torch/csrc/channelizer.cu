@@ -22,7 +22,10 @@
 // 16.8 MB in and 16.8 MB out, ~10 us at 3.35 TB/s, against 2*L flops a
 // lane (~2 flops/byte): memory-bound. K1 adds the DFT, 2*128^2 flops per
 // row (1.07 GFLOP a batch, ~64 flops/byte): compute-bound in FP32 on the
-// CUDA cores, like K3 but without K3's junction rows. K1 folds the tile
+// CUDA cores, like K3 but without K3's junction rows. The dense product is
+// this formulation's work, not the function's least: an M-point FFT a row
+// (~5 M log2 M flops, 17x fewer at M=64) leaves K1 memory-bound like K7
+// (chip_smoke.py kernel_bounds). K1 folds the tile
 // into shared memory (T x W floats, 64 KB at T=128, W=128) and writes the
 // product straight from registers, 128 columns at a time (tile_mm.cuh), so
 // it takes any W that is a multiple of 128, as the TPU kernel does (M = 64,

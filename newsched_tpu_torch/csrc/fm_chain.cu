@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernels newsched_tpu/ops/pallas/fm_chain.py
 // `fm_chain_step_planes` (`_kernel`, `_compute_tile`; K3 here) and
-// `fm_chain_gen_step` (`_kernel_gen`; K5 here), and their device function
-// newsched_tpu/ops/pallas/mathfns.py `atan2`. Per stream row t:
+// `fm_chain_gen_step` (`_kernel_gen`; K5 here); their device function
+// newsched_tpu/ops/pallas/mathfns.py `atan2` is in mathfns.cuh. Per
+// stream row t:
 //
 //   acc[t]  = sum_q c2[q] * vp[t + off + q]        L-tap arm fold
 //   Y[t]    = acc[t] @ W2                          (2M x 2M) real DFT
@@ -36,8 +37,12 @@
 // Bound on the H100: the DFT matmul, 2*(2M)^2 flops per row (32 KFLOP at
 // M=64) against 2M*4 bytes read per row: ~64 flops/byte, compute-bound in
 // FP32 on the CUDA cores, and more so by the junction recompute (A rows
-// per tile: +51% at T=128, +75% with the padding to 32-row passes). As on
-// the TPU, Y and aud never leave the chip:
+// per tile: +51% at T=128, +75% with the padding to 32-row passes). That
+// is the work of this formulation (the TPU's MXU form), not the least work
+// of the function: an M-point FFT a row takes ~5 M log2 M flops (1,920 at
+// M=64, 17x fewer), under which K3's least time is its bytes and K5's its
+// Philox (chip_smoke.py kernel_bounds). As on the TPU, Y and aud never
+// leave the chip:
 // the block keeps its (T+A, 2M) tile in shared memory (112 KB at T=128),
 // turns Y into aud in place, and writes only the T/decim audio rows.
 // The block first loads (K3) or generates (K5) its window of T+A+L-1
@@ -52,20 +57,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mathfns.cuh"
 #include "philox.cuh"
 #include "tile_mm.cuh"
 
 namespace {
 
-constexpr int kAtanDeg = 9;
+using mathfns::AtanCoeffs;
+using mathfns::atan2_poly;
+
 constexpr int kThreads = tile_mm::kThreads;
 constexpr int kChunkRows = tile_mm::kPassRows;
 constexpr int kW = tile_mm::kW;  // planes lanes, 2M for M = 64 channels
 constexpr int kM = kW / 2;
-
-struct AtanCoeffs {
-  float c[kAtanDeg + 1];
-};
 
 // What the two chain kernels share: constants, carried state in and out,
 // and the tile geometry.
@@ -82,27 +86,6 @@ struct Chain {
   float gain;
   AtanCoeffs co;
 };
-
-// atan2 by argument reduction to [0, 1] and an odd polynomial of degree
-// 2*kAtanDeg+1 (the reference's mathfns.atan2, deg=9). (+-0, +-0) -> 0:
-// the zero-history demod emits exactly 0, whatever the signs of the zeros.
-__device__ __forceinline__ float atan2_poly(float y, float x,
-                                            const AtanCoeffs& co) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
-  const float z = lo / fmaxf(hi, 1e-37f);
-  const float w = z * z;
-  float acc = co.c[kAtanDeg];
-#pragma unroll
-  for (int k = kAtanDeg - 1; k >= 0; --k) acc = acc * w + co.c[k];
-  float a = z * acc;
-  const float pi = 3.14159265358979f;
-  if (ay > ax) a = pi * 0.5f - a;
-  if (x < 0.f) a = pi - a;
-  if (y < 0.f) a = -a;
-  if (x == 0.f && y == 0.f) a = 0.f;
-  return a;
-}
 
 __global__ void atan2_kernel(const float* __restrict__ y,
                              const float* __restrict__ x,
@@ -281,12 +264,6 @@ fm_chain_gen_kernel(philox::Stream s, const float* __restrict__ amp,
   });
 }
 
-AtanCoeffs load_coeffs(const float* host) {
-  AtanCoeffs co;
-  for (int i = 0; i <= kAtanDeg; ++i) co.c[i] = host[i];
-  return co;
-}
-
 Chain make_chain(const float* prev0, const float* tail0, const float* c2,
                  const float* w2, const float* ataps, float* aud,
                  float* prev_out, float* tail_out, int n, int L, int H8,
@@ -294,7 +271,7 @@ Chain make_chain(const float* prev0, const float* tail0, const float* c2,
                  const float* atan_coeffs) {
   return Chain{c2,       w2, ataps, prev0, tail0, aud,   prev_out,
                tail_out, n,  L,     H8,    A,     decim, T,
-               gain,     load_coeffs(atan_coeffs)};
+               gain,     mathfns::load_atan(atan_coeffs)};
 }
 
 }  // namespace
@@ -347,6 +324,6 @@ extern "C" int atan2_launch(const float* y, const float* x, float* out,
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
   atan2_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      y, x, out, n, load_coeffs(atan_coeffs));
+      y, x, out, n, mathfns::load_atan(atan_coeffs));
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,8 @@
 """Flagship models (reference: newsched_tpu/models/wbfm.py).
 
+- wbfm_receiver  — config #1: freq_xlating_fir -> quadrature_demod ->
+                   rational_resampler (broadcast-FM receive chain), staged,
+                   fused, or live.
 - fm_channelizer — configs #2/#4: pfb_channelizer -> per-channel FM demod
                    -> per-channel audio FIR decimation, staged, fused, or
                    live.
@@ -21,13 +24,114 @@ def _sink(nchans: int, sink: str):
             else general.vector_sink(dtype="rf32", vlen=(nchans,)))
 
 
-def _connect_out(fg, last, nchans: int, n_samples, snk) -> None:
+def _connect_out(fg, last, vlen, n_samples, snk) -> None:
     if n_samples is not None:
-        hd = general.head(n_samples, dtype="rf32", vlen=(nchans,))
+        hd = general.head(n_samples, dtype="rf32", vlen=vlen)
         fg.connect(last, 0, hd, 0)
         fg.connect(hd, 0, snk, 0)
     else:
         fg.connect(last, 0, snk, 0)
+
+
+def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
+                  quad_rate_decim: int = 4, audio_decim: tuple[int, int] = (1, 5),
+                  deviation: float = 75_000.0, n_samples: int | None = None,
+                  source=None, batch_size: int | None = None, sink: str = "vector",
+                  deemph_tau: float | None = None, fused: bool = False,
+                  precision="split3"):
+    """Config #1: wideband FM receiver, 1 MS/s -> 250 kS/s quad -> 50 kS/s
+    audio by default.
+
+    fused=False (the default) is the staged graph: ``source`` (a cf32
+    stream; with none, a 0 Hz complex sig_source) -> freq_xlating_fir
+    (channel select, decimate to the quad rate) -> quadrature_demod ->
+    rational_resampler (audio rate).
+
+    fused=True runs the whole chain as ONE kernel (analog.wbfm_rcv_fused,
+    K10; interp-1 resampling, batches in multiples of 64*decim*
+    resamp_decim samples): a cf32 source is folded in the block; a source
+    whose output items are folded rows (rf32[(128,)], e.g.
+    analog.sig_source_folded, K11) feeds the block's folded input directly.
+    source="live" is the generating source (analog.wbfm_live_source, K12): a
+    tone at center_freq, no input stream at all.
+
+    n_samples bounds the OUTPUT (audio) stream; batch_size is input samples.
+    deemph_tau (the GR wfm_rcv's de-emphasis) needs ops/iir.py, which comes
+    with the rest of the block library (ROADMAP Queue 1 item 8): it raises.
+    """
+    if deemph_tau is not None:
+        raise NotImplementedError(
+            "wbfm_receiver(deemph_tau=...): fm_deemph needs ops/iir.py, which "
+            "comes with the block-library slice of the port (ROADMAP Queue 1 "
+            "item 8)")
+    quad_rate = fs / quad_rate_decim
+    chan_taps = firdes.low_pass(1.0, fs, 100e3, 30e3)
+    interp, decim = audio_decim
+    live = isinstance(source, str) and source == "live"
+    if live and not fused:
+        raise ValueError("source='live' requires fused=True")
+    snk = (general.vector_sink(dtype="rf32") if sink == "vector"
+           else general.null_sink(dtype="rf32"))
+    kw = dict(decim=quad_rate_decim, deviation=deviation, resamp_interp=interp,
+              resamp_decim=decim, precision=precision)
+    if live:
+        # the graph's reference item is an audio item of the source
+        bsz = (None if batch_size is None
+               else max(batch_size // (quad_rate_decim * decim), 1))
+        fg = Flowgraph("wbfm_receiver", batch_size=bsz)
+        src = analog.wbfm_live_source(chan_taps, center_freq, fs,
+                                      frequency=center_freq, **kw)
+        _connect_out(fg, src, (), n_samples, snk)
+        return fg, {"source": src, "fused": src, "xlate": src, "demod": src,
+                    "resamp": src, "deemph": None, "sink": snk}
+    if source is None:
+        source = analog.sig_source(fs, "complex", frequency=0.0)
+    if fused:
+        folded = any(p.item_shape == (128,)
+                     for p in getattr(source, "outputs", []))
+        bsz = batch_size
+        if folded and batch_size is not None:
+            bsz = max(batch_size // 64, 1)  # a folded row is 64 samples
+        fg = Flowgraph("wbfm_receiver", batch_size=bsz)
+        blk = analog.wbfm_rcv_fused(
+            chan_taps, center_freq, fs,
+            input_format="folded" if folded else "cf32", **kw)
+        fg.connect(source, 0, blk, 0)
+        _connect_out(fg, blk, (), n_samples, snk)
+        return fg, {"source": source, "fused": blk, "xlate": blk,
+                    "demod": blk, "resamp": blk, "deemph": None, "sink": snk}
+    fg = Flowgraph("wbfm_receiver", batch_size=batch_size)
+    xlate = filt.freq_xlating_fir(chan_taps, center_freq, fs,
+                                  decim=quad_rate_decim)
+    demod = analog.quadrature_demod(gain=quad_rate / (2 * np.pi * deviation))
+    resamp = filt.rational_resampler(interp, decim, dtype="rf32")
+    fg.connect(source, 0, xlate, 0)
+    fg.connect(xlate, 0, demod, 0)
+    fg.connect(demod, 0, resamp, 0)
+    _connect_out(fg, resamp, (), n_samples, snk)
+    return fg, {"source": source, "xlate": xlate, "demod": demod,
+                "resamp": resamp, "deemph": None, "sink": snk}
+
+
+def make_fm_demod_hier(quad_rate: float, deviation: float = 75e3,
+                       audio_interp: int = 1, audio_decim: int = 5):
+    """FM demod as a reusable HierBlock (reference: hier_block composites
+    like GR's wfm_rcv): quadrature_demod -> rational_resampler, exported
+    as one block with ports in=cf32, out=rf32."""
+    from newsched_tpu_torch.runtime.graph import HierBlock
+
+    class FmDemod(HierBlock):
+        def __init__(self, name=None):
+            super().__init__(name)
+            demod = analog.quadrature_demod(
+                gain=quad_rate / (2 * np.pi * deviation))
+            resamp = filt.rational_resampler(audio_interp, audio_decim,
+                                             dtype="rf32")
+            self.graph.connect(demod, 0, resamp, 0)
+            self.map_input("in", demod.i())
+            self.map_output("out", resamp.o())
+
+    return FmDemod()
 
 
 def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
@@ -74,7 +178,7 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
         fg.connect(source, 0, pfb, 0)
         fg.connect(pfb, 0, demod, 0)
         fg.connect(demod, 0, audio, 0)
-        _connect_out(fg, audio, nchans, n_samples, snk)
+        _connect_out(fg, audio, (nchans,), n_samples, snk)
         return fg, {"source": source, "pfb": pfb, "demod": demod,
                     "audio": audio, "sink": snk, "audio_taps": audio_taps}
     if isinstance(source, str) and source == "live":
@@ -86,7 +190,7 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
             max(batch_size // (nchans * audio_decim), 1)
         fg = Flowgraph("fm_channelizer_live", batch_size=bsz)
         snk = _sink(nchans, sink)
-        _connect_out(fg, src, nchans, n_samples, snk)
+        _connect_out(fg, src, (nchans,), n_samples, snk)
         return fg, {"source": src, "adapter": None, "fused": src,
                     "sink": snk, "audio_taps": audio_taps}
     fused_blk = vector_dsp.fm_channelizer_fused_planes(
@@ -110,7 +214,7 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
         fg.connect(source, 0, adapter, 0)
         fg.connect(adapter, 0, fused_blk, 0)
     snk = _sink(nchans, sink)
-    _connect_out(fg, fused_blk, nchans, n_samples, snk)
+    _connect_out(fg, fused_blk, (nchans,), n_samples, snk)
     return fg, {
         "source": source, "adapter": adapter, "fused": fused_blk, "sink": snk,
         "audio_taps": audio_taps,

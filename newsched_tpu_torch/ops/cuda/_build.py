@@ -48,6 +48,14 @@ SIGNATURES = {
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
     "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
+    # sources.cu
+    "nco_planes_launch": [_U, _U, _P, _LL, _P, _P, _P, _P],
+    "nco_folded_launch": [_U, _U, _P, _I, _P, _P, _P],
+    # wbfm_chain.cu
+    "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _F, _P, _P],
+    "wbfm_live_launch": [_U, _U, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """Streaming FIR filter (reference: newsched_tpu/ops/fir.py), the parts the
-staged flagship's ``vector_fir`` reaches.
+staged flagship's ``vector_fir`` and the wideband-FM receiver's xlate
+filter and resampler reach.
 
 A whole batch is filtered at once, carrying the last ``ntaps-1`` input
 samples between batches as explicit state:
@@ -186,3 +187,76 @@ def fir_filter(taps, state: FirState, x: torch.Tensor, decim: int = 1,
         y = _conv1d(xfull, rev, stride=decim)[..., :n_out]
     new_tail = xfull[..., -(ntaps - 1):].clone() if ntaps > 1 else state.tail
     return FirState(tail=new_tail), y
+
+
+class InterpTaps(NamedTuple):
+    """The per-phase reversed taps of ``fir_interp_filter`` on a device
+    (``interp_taps``): phase r's taps[l*interp + p], p = r*decim % interp."""
+
+    phases: tuple
+
+
+def interp_taps(taps, interp: int, decim: int, device) -> InterpTaps:
+    taps = np.asarray(taps)
+    dtype = np.complex64 if np.iscomplexobj(taps) else np.float32
+    L = -(-len(taps) // interp)  # taps per phase, zero-padded
+    tpad = np.pad(taps, (0, L * interp - len(taps)))
+    return InterpTaps(tuple(
+        torch.tensor(np.ascontiguousarray(tpad[(r * decim) % interp::interp][::-1],
+                                          dtype), device=device)
+        for r in range(interp)))
+
+
+def fir_interp_filter(taps, state: FirState, x: torch.Tensor, interp: int,
+                      decim: int = 1, dev_taps=None):
+    """Polyphase rational resampling FIR along the last axis: upsample by
+    ``interp``, filter, keep every ``decim``-th output (scipy.signal.upfirdn
+    semantics, streaming; reference ``ops/fir.py`` ``fir_interp_filter``).
+
+        y[m] = sum_t taps[t] * xu[m*decim - t],  xu the zero-stuffed input
+
+    The state carries ceil((ntaps-1)/interp) raw input samples
+    (``resampler_init_state``). Output length B * interp // decim.
+
+    interp == 1 is the decimating ``fir_filter`` (the state contracts
+    coincide; ``dev_taps`` is then its ``FirTaps``). For interp > 1, output
+    phase r = m mod interp is a decimate-by-``decim`` correlation of the RAW
+    input with the tap subset taps[l*interp + p], p = r*decim mod interp,
+    ending at raw sample hist + (r*decim - p)/interp (the reference's
+    derivation); ``dev_taps`` is then ``interp_taps(...)``.
+    """
+    if interp == 1:
+        return fir_filter(taps, state, x, decim=decim, method="auto",
+                          dev_taps=dev_taps)
+    taps = np.asarray(taps)
+    ntaps = len(taps)
+    B = int(x.shape[-1])
+    if (B * interp) % decim != 0:
+        raise ValueError(f"B*interp ({B}*{interp}) not divisible by decim {decim}")
+    if dev_taps is None:
+        dev_taps = interp_taps(taps, interp, decim, x.device)
+    n_out = B * interp // decim
+    hist = int(state.tail.shape[-1])  # raw-domain history samples
+    xfull = torch.cat([state.tail, x], -1)
+    L = -(-ntaps // interp)
+    nmax = -(-n_out // interp)  # outputs per phase (the last may be cut)
+    phases = []
+    for r in range(interp):
+        p = (r * decim) % interp
+        o_r = hist + (r * decim - p) // interp
+        start, stop = o_r - (L - 1), o_r + (nmax - 1) * decim + 1
+        pad = max(0, stop - int(xfull.shape[-1]))
+        src = (torch.cat([xfull, xfull.new_zeros((*xfull.shape[:-1], pad))], -1)
+               if pad else xfull)
+        phases.append(_conv1d(src[..., start:stop], dev_taps.phases[r],
+                              stride=decim)[..., :nmax])
+    y = torch.stack(phases, -1).reshape(*x.shape[:-1], -1)[..., :n_out]
+    new_tail = xfull[..., -hist:].clone() if hist > 0 else state.tail
+    return FirState(tail=new_tail), y
+
+
+def resampler_init_state(ntaps: int, interp: int, device,
+                         dtype=torch.complex64) -> FirState:
+    """History of ceil((ntaps-1)/interp) raw samples."""
+    hist = -(-(ntaps - 1) // interp) if ntaps > 1 else 0
+    return FirState(tail=torch.zeros((hist,), dtype=dtype, device=device))

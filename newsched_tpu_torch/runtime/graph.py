@@ -184,12 +184,12 @@ class Flowgraph(Graph):
         self.name = name
         self.batch_size = batch_size
 
-    def run(self, device, batch_size: int | None = None,
+    def run(self, device="cuda", batch_size: int | None = None,
             total_items: int | None = None):
-        """Synchronous run on ``device`` (a torch device or its name, e.g.
-        "cuda" or "cpu"; there is no default). Every block's state,
-        parameters and stream tensors live there; the run does not move to
-        another device."""
+        """Synchronous run on ``device`` (a torch device or its name): the
+        card unless the caller asks for the CPU (``device="cpu"``). Every
+        block's state, parameters and stream tensors live there; the run
+        does not move to another device."""
         from newsched_tpu_torch.runtime.runner import Runner
 
         self.validate()

@@ -27,10 +27,11 @@ log = get_logger("runner")
 
 
 class Runner:
-    """Compiles ``fg`` and runs it on ``device``: block states, parameters
-    and every stream tensor are created there."""
+    """Compiles ``fg`` and runs it on ``device`` (the card unless the
+    caller asks for the CPU): block states, parameters and every stream
+    tensor are created there."""
 
-    def __init__(self, fg, device, batch_size: int | None = None,
+    def __init__(self, fg, device="cuda", batch_size: int | None = None,
                  total_items: int | None = None):
         self.fg = fg
         self.device = torch.device(device)

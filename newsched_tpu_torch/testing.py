@@ -2,8 +2,11 @@
 
 ``rows_reference`` is the JAX package's benchmark golden
 (``bench.rows_reference``) with the flagship's constants as arguments, and
-``planes_rows`` is ``newsched_tpu.parallel.channelizer.planes_rows``; both
-are needed where jax is not installed (the machine with the GPU).
+``planes_rows`` is ``newsched_tpu.parallel.channelizer.planes_rows``;
+``wbfm_golden`` and ``fxpt_tone`` are the wideband-FM receiver's golden
+(``tests/test_wbfm_fused.py`` ``golden_chain``, ``bench.py``'s config #1
+gate). All are needed where jax is not installed (the machine with the
+GPU).
 """
 
 from __future__ import annotations
@@ -69,6 +72,30 @@ def rows_reference(rows: np.ndarray, taps, audio_taps, nchans: int = 64,
     spread = sig.lfilter(np.ones(len(at)), [1.0], risk.astype(np.float64), axis=0)
     bad = (spread > 0)[::audio_decim][: out.shape[0]]
     return out, bad
+
+
+def fxpt_tone(n: int, dphase: int, amp: float = 1.0) -> np.ndarray:
+    """float64 amp * e^{j 2 pi acc(k) / 2^32} on the exact fixed-point
+    ladder acc(k) = k * dphase mod 2^32 (the NCO sources' tone)."""
+    acc = (np.arange(n, dtype=np.uint64) * np.uint64(dphase)) \
+        & np.uint64(0xFFFFFFFF)
+    return amp * np.exp(2j * np.pi * (acc.astype(np.float64) / 2.0**32))
+
+
+def wbfm_golden(x, chan_taps, dphase: int, decim: int, resamp_taps,
+                resamp_decim: int, gain: float) -> np.ndarray:
+    """Float64 staged-semantics golden of the wideband-FM receiver
+    (config #1) from stream start: fixed-point-NCO rotation by -dphase,
+    decimating channel FIR, quadrature demod with the zero-history pin,
+    decimating resampler FIR."""
+    import scipy.signal as sig
+
+    rot = np.conj(fxpt_tone(len(x), dphase))
+    u = sig.lfilter(np.asarray(chan_taps, np.complex128), 1.0,
+                    np.asarray(x, np.complex128) * rot)[::decim]
+    up = np.concatenate([[0.0], u[:-1]])
+    d = np.where((up == 0) | (u == 0), 0.0, np.angle(np.conj(up) * u)) * gain
+    return sig.lfilter(np.asarray(resamp_taps, np.float64), 1.0, d)[::resamp_decim]
 
 
 def snr_db(ref, test) -> float:
