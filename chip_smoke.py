@@ -24,6 +24,14 @@ filter at 200 kHz decimating by 4, a 121-tap resampler decimating by 5,
   - fused: sig_source (K8) -> wbfm_rcv_fused (K10), and sig_source_folded
     (K11) -> wbfm_rcv_fused(input_format="folded") (K10);
   - live: wbfm_live_source (K12), one generating source.
+Config #0, the FIR chain (``models.fir_chain``): a 123,456 Hz fixed-point
+tone at 1 MS/s through a 128-tap lowpass FIR, 10,000,000 samples in
+batches of 2^21:
+  - staged: sig_source (K8) -> fir_filter (the FP32 Toeplitz product) ->
+    head;
+  - live: fir_tone_source (K9), one generating source -> head.
+And the fused channelizer chain's pipelined form,
+``fm_chain_step_planes(pipelined=True)`` (K3p).
 
 Phases (each failure raises, so the script exits nonzero):
   1. device: a CUDA device is required; its name and power limit;
@@ -76,8 +84,23 @@ Phases (each failure raises, so the script exits nonzero):
      the folded one, K10 on the fused one, K12 on the live one;
  20. times: K8, K11, K10, K12 beside their plain versions (K12 beside
      K11 -> K10), K10 at the four geometries, the four wbfm flowgraph
-     steps in Msamples/s, and every kernel's least time on the card for
-     its work (``kernel_bounds``).
+     steps in Msamples/s;
+ 21. K9 fir_tone_step at 2^21 samples, 128 taps, D = 1 and 4, two batches
+     from stream start and one from a nonzero phase: within 2e-5 of
+     max|out| from its plain version; bit-identical at seven block
+     geometries and for four batches of 2^20 against two of 2^21;
+ 22. the staged and live fir_chain graphs at 10M samples in batches of
+     2^21: >= 60 dB against the float64 golden each (the reading is
+     printed), live against staged > 100 dB; K8 launched on the staged
+     path, K9 on the live one;
+ 23. K3p on two carried batches of the FM band, counted: bit-equal to K3
+     (audio, prev, tail), bit-identical at tiles 128 and 64 and at 1, 2
+     and 4 tiles a block;
+ 24. times: K2 alone at the demod's shape beside its plain version and
+     torch.atan2; K9 beside its plain version and K11 ->
+     conv1d(groups=128), at each geometry; K3p beside K3 (alternated), at each tile and tiles a
+     block; the config #0 flowgraph steps in Msamples/s; and every
+     kernel's least time on the card for its work (``kernel_bounds``).
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -261,34 +284,43 @@ def chain_consts():
         M, taps, audio_taps, audio_decim=DECIM).consts("cuda")
 
 
-def phase_k3(torch, fm_chain):
-    from newsched_tpu_torch.testing import planes_rows
-
-    consts = chain_consts()
-    rows = torch.from_numpy(planes_rows(fm_band(2 * BATCH, "cuda"), M)).cuda()
+def k3_batches(torch, fm_chain, consts, rows, step, **kw):
+    """Two carried batches of ROWS planes rows through ``step`` (K3, its
+    plain version, or K3p): [aud, prev, tail] per batch."""
     H8 = fm_chain._round8(L - 1)
     z = dict(dtype=torch.float32, device="cuda")
+    halo, prev, tail = torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z), \
+        torch.zeros(A - 1, 2 * M, **z)
+    outs = []
+    for b in range(2):
+        vb = rows[b * ROWS:(b + 1) * ROWS]
+        aud, prev, tail = step(vb, halo, prev, tail, consts, DECIM, DEMOD_GAIN,
+                               **kw)
+        outs += [aud, prev, tail]
+        halo = vb[-H8:].contiguous()
+    return outs
 
-    def run(step, **kw):
-        halo, prev, tail = torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z), \
-            torch.zeros(A - 1, 2 * M, **z)
-        outs = []
-        for b in range(2):
-            vb = rows[b * ROWS:(b + 1) * ROWS]
-            aud, prev, tail = step(vb, halo, prev, tail, consts, DECIM,
-                                   DEMOD_GAIN, **kw)
-            outs += [aud, prev, tail]
-            halo = vb[-H8:].contiguous()
-        return outs
 
-    got = run(fm_chain.fm_chain_step_planes)
-    ref = run(fm_chain.fm_chain_step_planes_plain)
+def band_rows(torch):
+    """Two batches of the FM band as planes rows on the GPU."""
+    from newsched_tpu_torch.testing import planes_rows
+
+    return torch.from_numpy(planes_rows(fm_band(2 * BATCH, "cuda"), M)).cuda()
+
+
+def phase_k3(torch, fm_chain):
+    consts = chain_consts()
+    rows = band_rows(torch)
+    got = k3_batches(torch, fm_chain, consts, rows, fm_chain.fm_chain_step_planes)
+    ref = k3_batches(torch, fm_chain, consts, rows,
+                     fm_chain.fm_chain_step_planes_plain)
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     log(f"K3 fm_chain_step_planes: 2 batches x {ROWS} rows, max abs err vs "
         f"plain (audio, prev, tail) {err:.3e} (tol {K3_TOL})")
     require(err <= K3_TOL, "K3: kernel disagrees with its plain version")
     for tile in (256, 64):
-        other = run(fm_chain.fm_chain_step_planes, tile=tile)
+        other = k3_batches(torch, fm_chain, consts, rows,
+                           fm_chain.fm_chain_step_planes, tile=tile)
         require(all(torch.equal(a, b) for a, b in zip(got, other)),
                 f"K3: tile {tile} output differs from tile 128")
     log("K3: tiles 128, 256, 64 give bit-identical audio, prev and tail")
@@ -361,12 +393,12 @@ def phase_noise(torch, noise) -> np.ndarray:
     return got
 
 
-def step_rate(torch, source, label: str, card: str, **kw) -> float:
+def fg_step_rate(torch, fg, label: str, card: str, n_in: int) -> float:
     """Device time of one compiled flowgraph step, streaming batch after
-    batch (median over REPS runs of 10 steps), as Msamples/s."""
+    batch (median over REPS runs of 10 steps), as Msamples/s of its
+    ``n_in`` input samples; then a profile of the step."""
     from newsched_tpu_torch.runtime.runner import Runner
 
-    fg, _ = flowgraph(source, None, sink="null", **kw)
     fg.validate()
     runner = Runner(fg, batch_size=fg.batch_size, device="cuda")
     params = runner.init_params()
@@ -376,10 +408,15 @@ def step_rate(torch, source, label: str, card: str, **kw) -> float:
         box["s"], _ = runner.cfg.step(box["s"], params)
 
     ms = median_ms(one)
-    log(f"flowgraph step ({label}): {ms:.4f} ms per batch of {BATCH} samples"
-        f" = {BATCH / ms / 1e3:.1f} Msamples/s [{card}]")
+    log(f"flowgraph step ({label}): {ms:.4f} ms per batch of {n_in} samples"
+        f" = {n_in / ms / 1e3:.1f} Msamples/s [{card}]")
     profile_steps(torch, one, label)
     return ms
+
+
+def step_rate(torch, source, label: str, card: str, **kw) -> float:
+    fg, _ = flowgraph(source, None, sink="null", **kw)
+    return fg_step_rate(torch, fg, label, card, BATCH)
 
 
 def profile_steps(torch, step, label: str, n: int = 20) -> None:
@@ -809,24 +846,174 @@ def phase_wbfm_graphs(torch, sources, wbfm_chain) -> dict:
 
 
 def wb_step_rate(torch, kind: str, card: str) -> float:
-    """Device time of one config #1 flowgraph step (median over REPS runs
-    of 10 steps), as Msamples/s of input."""
-    from newsched_tpu_torch.runtime.runner import Runner
-
     fg, _ = wb_graph(kind, None, sink="null")
-    fg.validate()
-    runner = Runner(fg, batch_size=fg.batch_size, device="cuda")
-    params = runner.init_params()
-    box = {"s": runner.init_states()}
+    return fg_step_rate(torch, fg, f"wbfm {kind}", card, WB_BATCH)
 
-    def one():
-        box["s"], _ = runner.cfg.step(box["s"], params)
 
-    ms = median_ms(one)
-    log(f"flowgraph step (wbfm {kind}): {ms:.4f} ms per batch of {WB_BATCH} "
-        f"samples = {WB_BATCH / ms / 1e3:.1f} Msamples/s [{card}]")
-    profile_steps(torch, one, f"wbfm {kind}")
-    return ms
+# -- config #0: the FIR chain, and K3's pipelined form -----------------------
+
+FIR_FS, FIR_FREQ, FIR_NTAPS = 1e6, 123_456.0, 128
+FIR_BATCH = 1 << 21        # samples per batch
+FIR_R = FIR_BATCH // 64    # folded rows per batch (32768)
+FIR_N = 10_000_000         # the reference's gate as written (tests/test_models.py)
+FIR_GATE_DB = 60.0         # the reference's gate (bench.py config #0)
+K9_TOL = 2e-5              # K9 vs plain, relative to max|out|: FMA, another order
+# (tile, seg_group) of K9 blocks, the default first
+K9_GEOMS = ((512, 4), (256, 4), (1024, 4), (512, 8), (1024, 16), (2048, 32),
+            (256, 2))
+K3P_GS = (1, 2, 4)         # tiles a K3p block walks, beside its default
+
+
+def fir_taps(torch):
+    from newsched_tpu_torch.ops import firdes
+
+    taps = firdes.low_pass(1.0, FIR_FS, 0.2 * FIR_FS, 0.05 * FIR_FS,
+                           ntaps=FIR_NTAPS)
+    return taps, torch.from_numpy(taps.astype(np.float32)).cuda()
+
+
+def k9_run(torch, fir_source, step, D, sizes=(FIR_BATCH, FIR_BATCH),
+           ph=0, first=True):
+    """Consecutive batches of the live filtered tone from phase ``ph``
+    through ``step`` (K9, its plain version, or K9 at a geometry): the
+    unfolded cf32 stream."""
+    from newsched_tpu_torch.ops import nco
+
+    _, taps = fir_taps(torch)
+    dp = nco.freq_to_dphase(FIR_FREQ, FIR_FS)
+    outs = []
+    for n in sizes:
+        outs.append(fir_source.unfold_complex(
+            step(ph, dp, 0.8, first, taps, D, n // 64)))
+        ph, first = nco.nco_advance(ph, dp, n), False
+    return torch.cat(outs)
+
+
+def k9_at(fir_source, tile: int, gs: int):
+    """K9 at a block geometry (tile rows, segments a block)."""
+    def step(ph, dp, amp, first, taps, D, R):
+        g = fir_source._geometry(R, D, FIR_NTAPS, tile, gs)
+        return fir_source._launch(ph, dp, amp, first, taps, D, R, g)
+    return step
+
+
+def phase_k9(torch, fir_source) -> float:
+    """K9 at 2^21 samples against its plain version (D = 1 and 4, two
+    batches from stream start and one from a nonzero phase), bit-identical
+    across block geometries and across a batch split."""
+    worst = 0.0
+    for D in (1, 4):
+        for ph, first, nb in ((0, True, 2), (0x9E3779B9, False, 1)):
+            sizes = (FIR_BATCH,) * nb
+            got = k9_run(torch, fir_source, fir_source.fir_tone_step, D, sizes,
+                         ph, first)
+            ref = k9_run(torch, fir_source, fir_source.fir_tone_step_plain, D,
+                         sizes, ph, first)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            log(f"K9 fir_tone_step D={D}, {nb} batch(es) of {FIR_BATCH} from "
+                f"phase {ph:#x}{' (stream start)' if first else ''}: max abs "
+                f"err vs plain {err:.3e} = {err / scale:.3e} of max|out| "
+                f"{scale:.4f} (tol {K9_TOL})")
+            require(err <= K9_TOL * scale and got.shape == ref.shape,
+                    f"K9 D={D}: kernel disagrees with its plain version")
+            worst = max(worst, err)
+    base = k9_run(torch, fir_source, fir_source.fir_tone_step, 1)
+    for tile, gs in K9_GEOMS[1:]:
+        require(torch.equal(base, k9_run(torch, fir_source,
+                                         k9_at(fir_source, tile, gs), 1)),
+                f"K9: tile {tile} / seg_group {gs} differs from the default")
+    half = k9_run(torch, fir_source, fir_source.fir_tone_step, 1,
+                  (FIR_BATCH // 2,) * 4)
+    require(torch.equal(base, half),
+            "K9: four batches of 2^20 differ from two batches of 2^21")
+    log(f"K9: geometries {K9_GEOMS} and batches of 2^20 give bit-identical "
+        f"output")
+    return worst
+
+
+def fir_graph(kind: str, n, sink="vector"):
+    from newsched_tpu_torch import models
+
+    return models.fir_chain(n_samples=n, fs=FIR_FS, ntaps=FIR_NTAPS,
+                            frequency=FIR_FREQ, batch_size=FIR_BATCH, sink=sink,
+                            source="live" if kind == "live" else None)
+
+
+def phase_fir_graphs(torch, sources, fir_source) -> dict:
+    """Config #0 staged (K8 -> fir_filter -> head) and live (K9 -> head) at
+    10M samples in batches of 2^21 (the last cut by the head), against the
+    float64 golden and each other; each path's launch counts."""
+    from newsched_tpu_torch.testing import fir_golden, snr_db
+
+    taps, _ = fir_taps(torch)
+    ref = fir_golden(FIR_N, taps, FIR_FREQ, FIR_FS)
+    kernels = {"K8": sources.nco_planes, "K9": fir_source.fir_tone_step}
+    want = {"staged": "K8", "live": "K9"}
+    out, snr, launches = {}, {}, {}
+    for kind in ("staged", "live"):
+        fg, blks = fir_graph(kind, FIR_N)
+        for k in kernels.values():
+            k.launches = 0
+        fg.run(device="cuda")
+        counts = {name: k.launches for name, k in kernels.items()}
+        got = blks["sink"].data()
+        require(got.shape == (FIR_N,)
+                and bool(np.isfinite(got.view(np.float32)).all()),
+                f"fir_chain {kind}: output shape {got.shape} or non-finite")
+        snr[kind] = snr_db(ref, got)
+        log(f"fir_chain {kind} flowgraph: {FIR_N} samples in batches of "
+            f"{FIR_BATCH}, SNR vs float64 golden {snr[kind]:.2f} dB (gate "
+            f"{FIR_GATE_DB} dB; the CPU tests hold it above 100); launches "
+            f"{counts}")
+        require(snr[kind] >= FIR_GATE_DB, f"fir_chain {kind}: SNR below gate")
+        require(counts[want[kind]] > 0,
+                f"fir_chain {kind}: {want[kind]} was never launched")
+        out[kind], launches[kind] = got, counts
+    cross = snr_db(out["staged"], out["live"])
+    log(f"fir_chain live vs staged: {cross:.2f} dB (> 100 required)")
+    require(cross > 100, "fir_chain: live and staged disagree")
+    return {"snr": snr, "launches": launches}
+
+
+def phase_k3p(torch, fm_chain) -> dict:
+    """K3p (fm_chain_step_planes(pipelined=True)) on two carried batches of
+    the FM band, counted: bit-equal to K3, and bit-identical across tiles
+    and tiles per block."""
+    consts = chain_consts()
+    rows = band_rows(torch)
+    k3 = k3_batches(torch, fm_chain, consts, rows, fm_chain.fm_chain_step_planes)
+    fm_chain.fm_chain_step_planes.pipe_launches = 0
+    got = k3_batches(torch, fm_chain, consts, rows,
+                     fm_chain.fm_chain_step_planes, pipelined=True)
+    launches = fm_chain.fm_chain_step_planes.pipe_launches
+    require(launches > 0, "K3p was never launched by pipelined=True")
+    require(all(torch.equal(a, b) for a, b in zip(got, k3)),
+            "K3p: audio, prev or tail differ from K3")
+    for tile in (128, 64):
+        for G in K3P_GS:
+            other = k3_batches(torch, fm_chain, consts, rows, fm_chain._pipe,
+                               tile=tile, tiles_per_block=G)
+            require(all(torch.equal(a, b) for a, b in zip(got, other)),
+                    f"K3p: tile {tile}, {G} tiles a block differs")
+    other = k3_batches(torch, fm_chain, consts, rows,
+                       fm_chain.fm_chain_step_planes, pipelined=True, tile=128)
+    require(all(torch.equal(a, b) for a, b in zip(got, other)),
+            "K3p: tile 128 differs from the default tile 64")
+    err = max(float((g - r).abs().max()) for g, r in zip(
+        got, k3_batches(torch, fm_chain, consts, rows,
+                        fm_chain.fm_chain_step_planes_plain)))
+    log(f"K3p fm_chain_step_planes(pipelined=True): 2 batches x {ROWS} rows, "
+        f"bit-equal to K3 (audio, prev, tail), bit-identical at tiles 128/64 "
+        f"x {K3P_GS} tiles a block; max abs err vs plain {err:.3e}; "
+        f"launches {launches}")
+    require(err <= K3_TOL, "K3p: disagrees with the plain version")
+    return {"launches": launches, "err": err}
+
+
+def fir_step_rate(torch, kind: str, card: str) -> float:
+    fg, _ = fir_graph(kind, FIR_N, sink="null")
+    return fg_step_rate(torch, fg, f"fir_chain {kind}", card, FIR_BATCH)
 
 
 # -- the least time of each kernel's work on the card ------------------------
@@ -847,6 +1034,10 @@ ATAN_OPS = 2 * 9 + 10   # degree-9 polynomial in z^2 + reduction and quadrant
 DEMOD_OPS = 6 + ATAN_OPS + 1        # conj product, atan2, gain
 NCO_OPS = 2 + 2 + 5 + 2 * 2 * 5 + 1 + 4 + 2  # phase, turns, reduce, polys, select, amp
 PHILOX_OPS = 10 * 10 + 14           # 10 rounds, Irwin-Hall sum and scale
+# an overlap-save FFT convolution at 1024 points and 128 taps: a forward and
+# an inverse FFT (2 x 5 N log2 N) and N complex products (6 N) per 897
+# outputs, ~121 flops a complex output
+FIR_FFT_OPS = 121
 
 
 def kernel_bounds() -> dict:
@@ -856,7 +1047,8 @@ def kernel_bounds() -> dict:
     kernel's formulation: an M-point FFT a row (5 M log2 M flops) where
     K1/K3/K5 do a dense (2M x 2M) real DFT product, and for K10/K12 the
     staged order (rotate each input sample by the NCO, then a real-tap FIR)
-    where the kernels filter with complex rotated taps."""
+    where the kernels filter with complex rotated taps, and for K9 an FFT
+    convolution where the kernel runs the FIR in direct form."""
     f4 = 4
     n, W = ROWS, 2 * M
     fold = 2 * L * n * W
@@ -880,6 +1072,12 @@ def kernel_bounds() -> dict:
                      wb_chain + rotate),
         # the live tone, rotated, is one NCO at the offset frequency
         "K12": bound(WB_NAUD * 128 * f4, wb_chain + NCO_OPS * WB_BATCH),
+        # the output alone; the NCO and an FFT convolution a sample
+        "K9": bound(FIR_R * 128 * f4, (NCO_OPS + FIR_FFT_OPS) * FIR_BATCH),
+        # K3's function
+        "K3p": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
+        # K2 alone at the demod's shape: y and x read, the angle written
+        "K2": bound(3 * n * M * f4, ATAN_OPS * n * M),
     }
 
 
@@ -924,8 +1122,8 @@ def alternate(fns: dict, plain_reps: int = REPS) -> dict:
 def main() -> int:
     from newsched_tpu_torch.blocks import general
     from newsched_tpu_torch.ops import nco as nco_mod
-    from newsched_tpu_torch.ops.cuda import (_build, channelizer, fm_chain,
-                                             mathfns, noise, sources,
+    from newsched_tpu_torch.ops.cuda import (_build, channelizer, fir_source,
+                                             fm_chain, mathfns, noise, sources,
                                              wbfm_chain)
     from newsched_tpu_torch.testing import planes_rows
 
@@ -1092,6 +1290,85 @@ def main() -> int:
     for kind in ("staged", "fused", "folded", "live"):
         wb_step_rate(torch, kind, card)
 
+    # 21-23. config #0, the FIR chain, and K3's pipelined form, each counted
+    k9_err = phase_k9(torch, fir_source)
+    fir = phase_fir_graphs(torch, sources, fir_source)
+    k3p = phase_k3p(torch, fm_chain)
+
+    # 24. times
+    _, taps9 = fir_taps(torch)
+    dp9 = nco_mod.freq_to_dphase(FIR_FREQ, FIR_FS)
+    # the two-call form of K9: K11's tone, then every lane's FIR by one
+    # grouped convolution (its look-back is zeros, not the previous
+    # segment's samples; cuDNN in FP32, TF32 off above)
+    w9 = taps9.flip(0).repeat(128, 1)[:, None, :].contiguous()
+
+    def k11_conv():
+        x9 = sources.nco_folded(7, dp9, a8, FIR_R, "cuda")
+        return torch.nn.functional.conv1d(x9.T[None], w9, groups=128,
+                                          padding=FIR_NTAPS - 1)
+
+    # K2 alone (inside K3, K3p, K5, K10, K12) at the demod's shape, beside
+    # one PyTorch call computing atan2
+    d2 = torch.randn(2, ROWS, M, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    t.update(alternate({
+        "K2 plain": lambda: mathfns.atan2_plain(d2[0], d2[1]),
+        "K2 library": lambda: torch.atan2(d2[0], d2[1]),
+        "K2": lambda: mathfns.atan2(d2[0], d2[1]),
+    }))
+    log(f"K2 atan2 ({ROWS} x {M}): kernel {t['K2']} ms, plain "
+        f"{t['K2 plain']} ms, torch.atan2 {t['K2 library']} ms [{card}]")
+    t.update(alternate({
+        "K9 plain": lambda: fir_source.fir_tone_step_plain(
+            7, dp9, a8, False, taps9, 1, FIR_R),
+        "K11 -> conv1d": k11_conv,
+        "K9": lambda: fir_source.fir_tone_step(7, dp9, a8, False, taps9, 1,
+                                               FIR_R),
+        "K3p plain": lambda: fm_chain.fm_chain_step_planes_plain(
+            vb, *st, consts, DECIM, DEMOD_GAIN),
+        "K3p": lambda: fm_chain.fm_chain_step_planes(
+            vb, *st, consts, DECIM, DEMOD_GAIN, pipelined=True),
+        "K3 beside K3p": lambda: fm_chain.fm_chain_step_planes(
+            vb, *st, consts, DECIM, DEMOD_GAIN),
+    }, PLAIN_REPS))
+    ms = {k: min(v_) for k, v_ in t.items()}
+    lib["K2"] = ms["K2 library"]
+    log(f"K9 fir_tone_step ({FIR_R} x 128 rows, {FIR_NTAPS} taps): kernel "
+        f"{t['K9']} ms, plain {t['K9 plain']} ms; K11 -> conv1d(groups=128) "
+        f"{t['K11 -> conv1d']} ms [{card}]")
+    log(f"K3p fm_chain_step_planes(pipelined=True) ({ROWS} x {2 * M} rows): "
+        f"kernel {t['K3p']} ms, K3 {t['K3 beside K3p']} ms, plain "
+        f"{t['K3p plain']} ms [{card}]")
+    for tile, gs in K9_GEOMS:
+        k9_ms = graph_ms(lambda: k9_at(fir_source, tile, gs)(
+            7, dp9, a8, False, taps9, 1, FIR_R))
+        g = fir_source._geometry(FIR_R, 1, FIR_NTAPS, tile, gs)
+        log(f"K9 tile {tile} seg_group {gs}: {(FIR_R // tile) * (64 // gs)} "
+            f"blocks of {-(-tile // g.CU)} chunk(s), {g.smem} B shared; "
+            f"{k9_ms:.4f} ms [{card}]")
+    def first_rows(tile):  # rows K3 folds and transforms for a tile
+        return -(-(tile + A) // 32) * 32
+
+    log(f"K3 junction: {first_rows(128)} rows folded and transformed for a "
+        f"tile of 128 (+{100 * (first_rows(128) - 128) / 128:.0f}%)")
+    for tile in (128, 64):
+        smem = fm_chain._pipe_smem(tile, A, L, 2 * M)
+        default = fm_chain._pipe_tiles_per_block(
+            ROWS // tile, smem,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        for G in sorted({default, *K3P_GS}):
+            k3p_ms = graph_ms(lambda: fm_chain._pipe(
+                vb, *st, consts, DECIM, DEMOD_GAIN, tile, G))
+            rows_done = first_rows(tile) + (G - 1) * tile
+            mark = " (default)" if G == default else ""
+            log(f"K3p tile {tile}, {G} tiles a block{mark}: "
+                f"{-(-(ROWS // tile) // G)} blocks, {smem} B shared, junction "
+                f"+{100 * (rows_done - G * tile) / (G * tile):.0f}% rows; "
+                f"{k3p_ms:.4f} ms [{card}]")
+    for kind in ("staged", "live"):
+        fir_step_rate(torch, kind, card)
+
     bounds = kernel_bounds()
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
@@ -1119,13 +1396,18 @@ def main() -> int:
         entry("fm_chain_gen_step", "K5", "fm_chain.cu", "fm_chain.py:591",
               live_launches, k5_err),
         entry("nco_planes", "K8", "sources.cu", "sources.py:44",
-              wl["staged"]["K8"] + wl["fused"]["K8"], nco_err["K8"]),
+              wl["staged"]["K8"] + wl["fused"]["K8"]
+              + fir["launches"]["staged"]["K8"], nco_err["K8"]),
         entry("nco_folded", "K11", "sources.cu", "sources.py:91",
               wl["folded"]["K11"], nco_err["K11"]),
         entry("wbfm_chain_step", "K10", "wbfm_chain.cu", "wbfm_chain.py:364",
               wl["fused"]["K10"] + wl["folded"]["K10"], k10_err),
         entry("wbfm_chain_live_step", "K12", "wbfm_chain.cu",
               "wbfm_chain.py:452", wl["live"]["K12"], k12_err),
+        entry("fir_tone_step", "K9", "fir_source.cu", "fir_source.py:89",
+              fir["launches"]["live"]["K9"], k9_err),
+        entry("fm_chain_step_planes[pipelined]", "K3p", "fm_chain.cu",
+              "fm_chain.py:315", k3p["launches"], k3p["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

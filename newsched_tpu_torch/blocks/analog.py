@@ -1,6 +1,7 @@
 """Analog blocks (reference: newsched_tpu/blocks/analog.py): the noise
 source of the staged flagship; the tone sources, the quadrature demod and
-the fused and live wideband-FM receivers of config #1."""
+the fused and live wideband-FM receivers of config #1; the live filtered
+tone of config #0."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops import analog as analog_ops, firdes, nco
-from newsched_tpu_torch.ops.cuda import fm_chain, noise, sources, wbfm_chain
+from newsched_tpu_torch.ops.cuda import (fir_source, fm_chain, noise, sources,
+                                         wbfm_chain)
 from newsched_tpu_torch.runtime.block import Block
 from newsched_tpu_torch.utils.dtypes import port_dtype
 
@@ -348,3 +350,62 @@ class wbfm_live_source(_wbfm_chain_block):
         return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
                                           S * R), "first": False},
                 {"out": wbfm_chain.unfold_audio(aud)})
+
+
+class fir_tone_source(Block):
+    """Config #0's whole chain as ONE source kernel: the fixed-point NCO
+    tone generated and FIR-filtered (and decimated) in the same pass
+    (ops/cuda/fir_source.py ``fir_tone_step``, K9). Emits the filtered cf32
+    stream; real taps only (each re and im plane is filtered on its own).
+    A FIR has no recursive state, so the only stream state is the phase
+    counter and a first-batch flag (samples before the stream are 0), host
+    values as in ``wbfm_live_source``. Equal to ``sig_source ->
+    fir_filter(decim)`` to float32 accuracy. Batches are multiples of 64
+    samples (64*decim, so that each segment decimates whole)."""
+
+    def __init__(self, sampling_freq: float, taps, frequency: float = 0.0,
+                 amplitude: float = 1.0, decim: int = 1,
+                 tile: int | None = None, name=None):
+        super().__init__(name)
+        taps = np.asarray(taps)
+        if np.iscomplexobj(taps):
+            raise ValueError("fir_tone_source: real taps only")
+        self.taps = taps.astype(np.float32)
+        self.decim = int(decim)
+        self.sampling_freq = float(sampling_freq)
+        self.tile = tile
+        self.add_output("out", "cf32")
+        self.declare_param("dphase", nco.freq_to_dphase(frequency, sampling_freq),
+                           dtype=None, doc="tone phase increment")
+        self.declare_param("amplitude", amplitude, dtype=np.float32)
+        self._taps: dict[torch.device, torch.Tensor] = {}
+
+    def set_frequency(self, freq: float) -> None:
+        self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
+
+    def dev_taps(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._taps:
+            self._taps[device] = torch.as_tensor(self.taps, device=device)
+        return self._taps[device]
+
+    def _fold_rows(self, nout: int) -> int:
+        n_samp = int(nout) * self.decim
+        if n_samp % fir_source.S:
+            raise ValueError(f"{self.name}: batch of {nout} output items "
+                             f"({n_samp} samples) not a multiple of the "
+                             f"fold width ({fir_source.S} samples)")
+        return n_samp // fir_source.S
+
+    def init_state(self, nin, nout, device):
+        return {"phase": 0, "first": True}
+
+    def work(self, state, ins, params, nout):
+        R = self._fold_rows(nout)
+        a = params["amplitude"]
+        out = fir_source.fir_tone_step(state["phase"], params["dphase"], a,
+                                       state["first"], self.dev_taps(a.device),
+                                       self.decim, R, tile=self.tile)
+        return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
+                                          fir_source.S * R), "first": False},
+                {"out": fir_source.unfold_complex(out)})

@@ -1,6 +1,7 @@
-"""Filter blocks (reference: newsched_tpu/blocks/filter.py): the polyphase
-channelizer and the single-channel polyphase decimator; the frequency-
-translating FIR and the rational resampler of the wideband-FM receiver."""
+"""Filter blocks (reference: newsched_tpu/blocks/filter.py): the streaming
+FIR of config #0; the polyphase channelizer and the single-channel
+polyphase decimator; the frequency-translating FIR and the rational
+resampler of the wideband-FM receiver."""
 
 from __future__ import annotations
 
@@ -13,6 +14,41 @@ from newsched_tpu_torch.ops import analog as analog_ops, fir as fir_ops, \
     firdes, nco, pfb as pfb_ops
 from newsched_tpu_torch.runtime.block import Block
 from newsched_tpu_torch.utils.dtypes import port_dtype
+
+
+class fir_filter(Block):
+    """Streaming FIR, optional decimation (reference filter::fir_filter):
+    dtype in == dtype out (cf32 or rf32), taps real or complex, ``method``
+    as ``ops/fir.py`` ``fir_filter`` takes it ("mxu3", config #0's, is its
+    FP32 Toeplitz path). The taps' device constants are built once per
+    device and batch shape."""
+
+    def __init__(self, taps, decim: int = 1, dtype="cf32", method: str = "auto",
+                 name=None):
+        super().__init__(name)
+        self.taps = np.asarray(taps)
+        self.decim = int(decim)
+        self.method = method
+        self.relative_rate = Fraction(1, self.decim)
+        self.dtype = port_dtype(dtype)
+        self.add_input("in", self.dtype)
+        self.add_output("out", self.dtype)
+        self._dev_taps: dict[tuple, fir_ops.FirTaps] = {}
+
+    def init_state(self, nin, nout, device):
+        return fir_ops.fir_init_state(len(self.taps), device,
+                                      self.dtype.torch_dtype)
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"]
+        key = (x.device, nout)
+        if key not in self._dev_taps:
+            self._dev_taps[key] = fir_ops.fir_taps(self.taps, nout, self.decim,
+                                                   x.device)
+        st, y = fir_ops.fir_filter(self.taps, state, x, decim=self.decim,
+                                   method=self.method,
+                                   dev_taps=self._dev_taps[key])
+        return st, {"out": y}
 
 
 class _pfb_block(Block):

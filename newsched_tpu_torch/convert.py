@@ -11,9 +11,9 @@ Dict states map key by key: the fused blocks' ``carry``/``prev``/
 ``carry``/``prev``/``atail``, ``cplx_to_planes``' ``skew``,
 ``vector_quad_demod``'s ``prev`` and ``vector_source``'s ``data`` become
 tensors; stream positions (``vector_source``'s ``pos``, the noise sources'
-64-bit group counter ``ghi``/``glo``, the NCO sources' uint32 ``phase``)
-and the wideband-FM live source's ``first`` flag become the host ints and
-bool the port keeps. NamedTuple states (``PfbState``, ``FirState``,
+64-bit group counter ``ghi``/``glo``, the NCO sources' uint32 ``phase``,
+the live FIR and wideband-FM sources' included) and those live sources'
+``first`` flag become the host ints and bool the port keeps. NamedTuple states (``PfbState``, ``FirState``,
 ``QuadDemodState``; ``RotatorState``, whose uint32 phase becomes a host
 int) become the port's NamedTuples of the same name and fields, also
 inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``). The reference

@@ -1,7 +1,8 @@
 // The fused FM channelizer chain on planes rows, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels newsched_tpu/ops/pallas/fm_chain.py
-// `fm_chain_step_planes` (`_kernel`, `_compute_tile`; K3 here) and
+// `fm_chain_step_planes` (`_kernel`, `_compute_tile`; K3 here), its
+// pipelined variant (`_kernel_pipe`, `pipelined=True`; K3p here) and
 // `fm_chain_gen_step` (`_kernel_gen`; K5 here); their device function
 // newsched_tpu/ops/pallas/mathfns.py `atan2` is in mathfns.cuh. Per
 // stream row t:
@@ -22,7 +23,9 @@
 // previous batch's last H8 generated rows (zeros at stream start); K5
 // returns this batch's last H8 rows as the next carry. Everything after
 // the rows is one routine (chain_tile), so K5's outputs equal
-// K4 -> K3's bit for bit.
+// K4 -> K3's bit for bit. K3p reads what K3 reads and runs the same
+// routine on it, tile after tile (see fm_chain_pipe_kernel), so its
+// outputs equal K3's bit for bit.
 //
 // The TPU grid runs its tiles in order and carries Y[t-1] and the audio
 // tail from tile to tile in VMEM. CUDA blocks run in no order, so each
@@ -32,7 +35,13 @@
 // before the batch (the first, and for T < A a few more) read prev0/tail0.
 // Every value is computed by the same code with the same summation order
 // whichever block computes it, so the outputs are bit-identical for every
-// tile size T.
+// tile size T. K3p is the ordered form the TPU grid has, inside a block:
+// a block walks G consecutive tiles, rebuilds the junction for its first
+// only and carries it from tile to tile after that, and copies the next
+// tile's window (cp.async) while the current one computes. At the
+// flagship's batch and tile 64, G = 4 (128 blocks, one an SM at 121 KB of
+// shared memory) cuts the rows folded and transformed from +150% to +38%
+// over the batch's own (K3 at tile 128: +75%).
 //
 // Bound on the H100: the DFT matmul, 2*(2M)^2 flops per row (32 KFLOP at
 // M=64) against 2M*4 bytes read per row: ~64 flops/byte, compute-bound in
@@ -108,58 +117,85 @@ __host__ __device__ __forceinline__ int tile_rows(int T, int A, int L) {
   return r > T + A + L - 1 ? r : T + A + L - 1;
 }
 
-// One block's tile of T stream rows, both kernels: the block's input rows
-// come from `row(sr, k)` (stream row sr of the batch, lane k; sr < 0 is
-// the carried halo), everything after is the same code.
-template <class Row>
-__device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
-                                           Row row) {
+// The tile buffer's row jj holds stream row t0 - A + jj (jj < T + A): acc,
+// then Y, then aud in the re half. Every value is computed by the same
+// code whichever kernel, block or tile computes it.
+
+// Arm fold of nrows rows, kChunkRows rows a pass (npad rows, a multiple of
+// kChunkRows, >= nrows): dst row jj = sum_q c2[q] * src row jj + q, 0 where
+// t_first + jj < 0 (before the stream) or jj >= nrows. In place when
+// dst == src: every read of a pass (rows r0 .. r0+31+L-1) happens before
+// its writes (rows r0 .. r0+31), and later passes read only rows past
+// r0+31. Per lane: c2[0]*v, then fmaf in order.
+__device__ __forceinline__ void fold_rows(const float* src, float* dst,
+                                          const Chain& p, int t_first,
+                                          int nrows, int npad) {
+  constexpr int W = kW;
+  constexpr int kPer = kChunkRows * W / kThreads;  // 16 rows per thread
+  const int tid = threadIdx.x;
+  const int k = tid % W, h = tid / W;
+  for (int r0 = 0; r0 < npad; r0 += kChunkRows) {
+    float v[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int jj = r0 + h * kPer + e;
+      v[e] = 0.f;
+      if (jj < nrows && t_first + jj >= 0) {
+        float acc = __ldg(p.c2 + k) * src[jj * W + k];
+        for (int q = 1; q < p.L; ++q)
+          acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
+        v[e] = acc;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) dst[(r0 + h * kPer + e) * W + k] = v[e];
+    __syncthreads();
+  }
+}
+
+// One tile of T stream rows from t0, both kinds:
+//   kRebuild (K3, K5, a K3p block's first tile): the tile rebuilds its
+//     junction: its window of input rows, from `row(sr, k)` (stream row sr
+//     of the batch, lane k; sr < 0 is the carried halo), is folded in
+//     place into rows 0 .. T+A-1;
+//   !kRebuild (a K3p block's later tiles): the junction comes from the
+//     tile before, aud rows 1 .. A-1 in the buffer and Y[t0-1] in yprev;
+//     the window is in `stage` (input rows t0-L+1 .. t0+T-1) and only rows
+//     A .. A+T-1 are folded and transformed; after_fold() runs once the
+//     stage has been read.
+// `last`: the batch's last tile (prev_out, tail_out); ynext (or null)
+// receives Y[t0+T-1].
+template <bool kRebuild, class Row, class AfterFold>
+__device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
+                                           bool last, const float* yprev,
+                                           float* ynext, const float* stage,
+                                           Row row, AfterFold after_fold) {
   constexpr int W = kW, M = kM;
-  const int t0 = blockIdx.x * p.T;
   const int A = p.A, L = p.L;
   const int R = p.T + A;
-  const int R_pad = pad_rows(R);
+  const int jlo = kRebuild ? 1 : A;  // the first row the tile demodulates
+  const int r_lo = kRebuild ? 0 : A;  // the first row it transforms
+  const int r_hi = kRebuild ? pad_rows(R) : R;
   const int tid = threadIdx.x;
-  const bool last = blockIdx.x == gridDim.x - 1;
 
-  // 1a. The window: buffer row ii holds input stream row t0 - A - (L-1) + ii.
-  for (int idx = tid; idx < (R + L - 1) * W; idx += kThreads) {
-    const int ii = idx / W, k = idx % W;
-    buf[idx] = row(t0 - A - (L - 1) + ii, k);
-  }
-  __syncthreads();
-
-  // 1b. Arm fold in place, kChunkRows rows a pass: acc of stream row
-  //     t0 - A + jj (0 before the stream and in the padding rows) goes to
-  //     row jj. Every read of a pass (window rows r0 .. r0+31+L-1)
-  //     happens before its writes (rows r0 .. r0+31), and later passes
-  //     read only rows past r0+31. Per lane: c2[0]*v, then fmaf in order.
-  constexpr int kPer = kChunkRows * W / kThreads;  // 16 rows per thread
-  {
-    const int k = tid % W, h = tid / W;
-    for (int r0 = 0; r0 < R_pad; r0 += kChunkRows) {
-      float v[kPer];
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int jj = r0 + h * kPer + e;
-        v[e] = 0.f;
-        if (jj < R && t0 - A + jj >= 0) {
-          float acc = __ldg(p.c2 + k) * buf[jj * W + k];
-          for (int q = 1; q < L; ++q)
-            acc = fmaf(__ldg(p.c2 + q * W + k), buf[(jj + q) * W + k], acc);
-          v[e] = acc;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) buf[(r0 + h * kPer + e) * W + k] = v[e];
-      __syncthreads();
+  // 1. The window, folded: row jj gets acc of stream row t0 - A + jj.
+  if constexpr (kRebuild) {
+    for (int idx = tid; idx < (R + L - 1) * W; idx += kThreads) {
+      const int ii = idx / W, k = idx % W;
+      buf[idx] = row(t0 - A - (L - 1) + ii, k);
     }
+    __syncthreads();
+    fold_rows(buf, buf, p, t0 - A, R, r_hi);
+  } else {
+    fold_rows(stage, buf + A * W, p, t0, p.T, p.T);
   }
+  after_fold();
 
-  // 2. Y = acc @ W2 in place, kChunkRows rows a pass.
+  // 2. Y = acc @ W2 in place, kChunkRows rows a pass; the carried row
+  //    Y[-1] where the tile reaches it; Y[t0+T-1] out.
   const int tx = tid & 31, ty = tid >> 5;
-  for (int r0 = 0; r0 < R_pad; r0 += kChunkRows) {
+  for (int r0 = r_lo; r0 < r_hi; r0 += kChunkRows) {
     float o[4][4];
     tile_mm::pass(buf + r0 * W, p.w2, o);
     __syncthreads();
@@ -169,21 +205,25 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
           make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
     __syncthreads();
   }
-  if (t0 < A)  // the tile reaches back to Y[-1], the carried row
+  if (kRebuild && t0 < A)
     for (int k = tid; k < W; k += kThreads)
       buf[(A - 1 - t0) * W + k] = p.prev0[k];
-  if (last)  // Y[n-1], before the demod overwrites it
-    for (int k = tid; k < W; k += kThreads)
-      p.prev_out[k] = buf[(R - 1) * W + k];
+  if (last || ynext)
+    for (int k = tid; k < W; k += kThreads) {
+      const float y = buf[(R - 1) * W + k];
+      if (last) p.prev_out[k] = y;
+      if (ynext) ynext[k] = y;
+    }
   __syncthreads();
 
-  // 3. Demod in place, from the last row down: aud[jj] needs Y[jj-1] and
-  //    Y[jj], and is written into row jj's re half only after the chunk's
-  //    reads, so lower chunks still find their Y rows intact.
+  // 3. Demod in place, from the last row down: aud[jj] needs Y[jj-1] (for
+  //    a carried junction's first row, yprev) and Y[jj], and is written
+  //    into row jj's re half only after the chunk's reads, so lower chunks
+  //    still find their Y rows intact. Rows before the stream take tail0.
   constexpr int kElems = 4;
   constexpr int kDemodRows = kElems * kThreads / M;
-  for (int hi = R; hi > 1;) {
-    const int lo = hi - kDemodRows > 1 ? hi - kDemodRows : 1;
+  for (int hi = R; hi > jlo;) {
+    const int lo = hi - kDemodRows > jlo ? hi - kDemodRows : jlo;
     float val[kElems];
 #pragma unroll
     for (int e = 0; e < kElems; ++e) {
@@ -195,7 +235,7 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
         if (t < 0) {
           val[e] = p.tail0[(A - 1 + t) * W + m];
         } else {
-          const float* pa = buf + (jj - 1) * W;
+          const float* pa = !kRebuild && jj == jlo ? yprev : buf + (jj - 1) * W;
           const float* py = buf + jj * W;
           const float ar = pa[m], ai = pa[m + M], yr = py[m], yi = py[m + M];
           const float pr = ar * yr + ai * yi;
@@ -233,18 +273,33 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   }
 }
 
+// The tile of a kernel that rebuilds every junction (K3, K5).
+template <class Row>
+__device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
+                                             Row row) {
+  chain_tile<true>(buf, p, blockIdx.x * p.T, blockIdx.x == gridDim.x - 1,
+                   nullptr, nullptr, nullptr, row, [] {});
+}
+
+// K3's and K3p's input rows: read from memory, vp = [halo; vb].
+struct HaloRows {
+  const float* vb;
+  const float* halo;
+  int H8;
+  __device__ __forceinline__ float operator()(int sr, int k) const {
+    const int i = sr + H8;  // row of vp
+    if (i < 0) return 0.f;
+    return i < H8 ? __ldg(halo + i * kW + k)
+                  : __ldg(vb + (long long)(i - H8) * kW + k);
+  }
+};
+
 // K3: input rows read from memory, vp = [halo; vb].
 __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 Chain p) {
   extern __shared__ __align__(16) float buf[];
-  const int H8 = p.H8;
-  chain_tile(buf, p, [&](int sr, int k) {
-    const int i = sr + H8;  // row of vp
-    if (i < 0) return 0.f;
-    return i < H8 ? __ldg(halo + i * kW + k)
-                  : __ldg(vb + (long long)(i - H8) * kW + k);
-  });
+  rebuilt_tile(buf, p, HaloRows{vb, halo, p.H8});
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
@@ -256,12 +311,74 @@ fm_chain_gen_kernel(philox::Stream s, const float* __restrict__ amp,
   extern __shared__ __align__(16) float buf[];
   const int H8 = p.H8, n = p.n;
   const float a = amp[0];
-  chain_tile(buf, p, [&](int sr, int k) {
+  rebuilt_tile(buf, p, [&](int sr, int k) {
     if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * kW + k] : 0.f;
     const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
     if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
     return v;
   });
+}
+
+// K3p's overlap: a 16-byte copy from device to shared memory that runs
+// while the block computes (cp.async), committed as one group.
+__device__ __forceinline__ void prefetch_window(float* dst, const float* src,
+                                             int nfloats) {
+  for (int i = threadIdx.x * 4; i < nfloats; i += kThreads * 4) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_window() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// K3p: block b walks tiles [b*G, b*G + G) of the batch in stream order.
+// Its first tile is K3's (chain_tile, the junction rebuilt from the
+// block's own window); every later tile carries the junction from the tile
+// before: aud rows t0-A+1 .. t0-1 stay in the tile buffer (moved from rows
+// T+1 .. T+A-1 to 1 .. A-1) and Y[t0-1] in a shared row, so the tile folds
+// and transforms only its own T rows. Its window, the T+L-1 input rows
+// t0-L+1 .. t0+T-1 of vb, was copied into the stage buffer while the tile
+// before computed.
+__global__ void __launch_bounds__(kThreads)
+fm_chain_pipe_kernel(const float* __restrict__ vb,
+                     const float* __restrict__ halo, Chain p, int G) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int W = kW, M = kM;
+  const int T = p.T, A = p.A, L = p.L;
+  const int NT = p.n / T;
+  const int g0 = blockIdx.x * G;
+  const int g1 = min(g0 + G, NT);
+  const int tid = threadIdx.x;
+  float* buf = sm;
+  float* stage = buf + tile_rows(T, A, L) * W;
+  float* yrows = stage + (T + L - 1) * W;  // Y[t0-1] and Y[t0+T-1], by turns
+  const int win = (T + L - 1) * W;
+
+  const HaloRows row{vb, halo, p.H8};
+  if (g0 + 1 < g1)
+    prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
+  chain_tile<true>(buf, p, g0 * T, g0 == NT - 1, nullptr, yrows, nullptr, row,
+                   [] {});
+  for (int g = g0 + 1; g < g1; ++g) {
+    __syncthreads();  // the tile before has read its aud rows
+    for (int idx = tid; idx < (A - 1) * M; idx += kThreads) {
+      const int i = idx / M, m = idx % M;
+      buf[(1 + i) * W + m] = buf[(T + 1 + i) * W + m];
+    }
+    wait_window();
+    __syncthreads();
+    chain_tile<false>(buf, p, g * T, g == NT - 1,
+                      yrows + ((g - g0 - 1) & 1) * W,  // Y[t0-1]
+                      yrows + ((g - g0) & 1) * W, stage, row, [&] {
+      if (g + 1 < g1)
+        prefetch_window(stage, vb + ((long long)(g + 1) * T - (L - 1)) * W,
+                        win);
+    });
+  }
 }
 
 Chain make_chain(const float* prev0, const float* tail0, const float* c2,
@@ -313,6 +430,31 @@ extern "C" int fm_chain_gen_launch(
       s, amp, carry0, carry_out,
       make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
                  H8, A, decim, T, gain, atan_coeffs));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fm_chain_pipe_launch(
+    const float* vb, const float* halo, const float* prev0, const float* tail0,
+    const float* c2, const float* w2, const float* ataps, float* aud,
+    float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
+    int decim, int T, int G, float gain, const float* atan_coeffs,
+    void* stream) {
+  // later tiles: whole DFT passes, a window inside vb, a tail below row A
+  if (2 * M != kW || T % kChunkRows || T < A - 1 || T < L - 1 || n % T ||
+      G < 1 || (uintptr_t)vb % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kW * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fm_chain_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n / T + G - 1) / G;
+  fm_chain_pipe_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      vb, halo,
+      make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
+                 H8, A, decim, T, gain, atan_coeffs),
+      G);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // The polynomial math functions of the fused kernels, shared by the FM
 // channelizer chain (fm_chain.cu, K3/K5), the NCO sources (sources.cu,
-// K8/K11) and the wideband-FM chain (wbfm_chain.cu, K10/K12).
+// K8/K11), the wideband-FM chain (wbfm_chain.cu, K10/K12) and the live
+// FIR source (fir_source.cu, K9).
 //
 // Replaces the TPU device functions newsched_tpu/ops/pallas/mathfns.py
 // `atan2` (K2) and `sin_cos_turns`. Their coefficients come from the host
@@ -107,6 +108,25 @@ __device__ __forceinline__ void nco_sample(uint32_t phase, float amp,
   sin_cos_turns(t, co, &sn, &cs);
   *re = __fmul_rn(cs, amp);
   *im = __fmul_rn(sn, amp);
+}
+
+// Sample k of segment s of a batch folded into R rows (time-folded lanes:
+// batch sample s*R + k), the tone of the NCO with phase ph0 + idx * dp at
+// idx = s*R + k. A negative idx is the previous batch's sample by the
+// uint32 wrap, and 0 on the stream's first batch (``first``). The sample
+// loader of the live chains K9 and K12; K11 writes the same values.
+__device__ __forceinline__ void nco_folded_sample(uint32_t ph0, uint32_t dp,
+                                                  float amp, bool first, int R,
+                                                  int s, int k,
+                                                  const SinCosCoeffs& co,
+                                                  float* re, float* im) {
+  const int idx = s * R + k;
+  if (first && idx < 0) {
+    *re = 0.f;
+    *im = 0.f;
+  } else {
+    nco_sample(ph0 + (uint32_t)idx * dp, amp, co, re, im);
+  }
 }
 
 }  // namespace mathfns

@@ -48,7 +48,7 @@ nco_folded_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
   if (e >= (long long)R * kSegs) return;
   const int row = (int)(e / kSegs), s = (int)(e % kSegs);
   float r, i;
-  mathfns::nco_sample(ph0 + (uint32_t)(s * R + row) * dp, amp[0], co, &r, &i);
+  mathfns::nco_folded_sample(ph0, dp, amp[0], false, R, s, row, co, &r, &i);
   out[(long long)row * 2 * kSegs + s] = r;
   out[(long long)row * 2 * kSegs + kSegs + s] = i;
 }

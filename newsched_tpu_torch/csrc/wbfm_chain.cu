@@ -33,7 +33,7 @@
 //
 // The two kernels differ only in where a block's samples come from: K10
 // reads them from xp (and carry); K12 generates them from the phase
-// counter, mathfns.cuh nco_sample with the rounding of the NCO source K11
+// counter, mathfns.cuh nco_folded_sample, the values of the NCO source K11
 // (sources.cu), so K12's outputs equal K11 -> K10's bit for bit. Before
 // the stream (first batch, sample index < 0) the samples are 0.
 //
@@ -280,13 +280,7 @@ wbfm_live_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
   const float a = amp[0];
   const int R = p.R;
   wbfm_tile(sm, p, [&](int s, int k, float* re, float* im) {
-    const int idx = s * R + k;
-    if (first && idx < 0) {
-      *re = 0.f;
-      *im = 0.f;
-    } else {
-      mathfns::nco_sample(ph0 + (uint32_t)idx * dp, a, sc, re, im);
-    }
+    mathfns::nco_folded_sample(ph0, dp, a, first, R, s, k, sc, re, im);
   });
 }
 

@@ -1,4 +1,5 @@
 """Prebuilt flagship flowgraphs (reference: newsched_tpu/models)."""
 
-from newsched_tpu_torch.models.wbfm import (fm_channelizer,  # noqa: F401
+from newsched_tpu_torch.models.wbfm import (fir_chain,  # noqa: F401
+                                            fm_channelizer,
                                             make_fm_demod_hier, wbfm_receiver)

@@ -1,5 +1,7 @@
 """Flagship models (reference: newsched_tpu/models/wbfm.py).
 
+- fir_chain      — config #0: sig_source -> 128-tap FIR lowpass -> head,
+                   staged or live.
 - wbfm_receiver  — config #1: freq_xlating_fir -> quadrature_demod ->
                    rational_resampler (broadcast-FM receive chain), staged,
                    fused, or live.
@@ -31,6 +33,36 @@ def _connect_out(fg, last, vlen, n_samples, snk) -> None:
         fg.connect(hd, 0, snk, 0)
     else:
         fg.connect(last, 0, snk, 0)
+
+
+def fir_chain(n_samples: int = 10_000_000, fs: float = 1e6, ntaps: int = 128,
+              frequency: float = 123_456.0, batch_size: int | None = None,
+              sink: str = "null", source=None):
+    """Config #0: signal_source -> FIR lowpass(ntaps) -> head -> sink.
+
+    The staged graph (the default) is sig_source (K8) -> fir_filter with
+    the reference's method "mxu3" (here the FP32 Toeplitz product) -> head.
+    source="live" runs the whole chain as ONE kernel
+    (analog.fir_tone_source, K9): the fixed-point NCO tone generated and
+    filtered in the same pass, stateless but for the phase counter; equal
+    to the staged chain to float32 accuracy (the same NCO values, the same
+    taps)."""
+    taps = firdes.low_pass(1.0, fs, 0.2 * fs, 0.05 * fs, ntaps=ntaps)
+    fg = Flowgraph("fir_chain", batch_size=batch_size)
+    snk = general.null_sink() if sink == "null" else general.vector_sink()
+    hd = general.head(n_samples)
+    if isinstance(source, str) and source == "live":
+        src = analog.fir_tone_source(fs, taps, frequency=frequency)
+        fg.connect(src, 0, hd, 0)
+        fg.connect(hd, 0, snk, 0)
+        return fg, {"src": src, "fir": src, "head": hd, "sink": snk,
+                    "taps": taps}
+    src = analog.sig_source(fs, "complex", frequency=frequency)
+    fir = filt.fir_filter(taps, method="mxu3")
+    fg.connect(src, 0, fir, 0)
+    fg.connect(fir, 0, hd, 0)
+    fg.connect(hd, 0, snk, 0)
+    return fg, {"src": src, "fir": fir, "head": hd, "sink": snk, "taps": taps}
 
 
 def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,

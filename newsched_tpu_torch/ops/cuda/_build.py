@@ -41,6 +41,8 @@ SIGNATURES = {
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "fm_chain_pipe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "fm_chain_gen_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P, _P],
@@ -51,6 +53,9 @@ SIGNATURES = {
     # sources.cu
     "nco_planes_launch": [_U, _U, _P, _LL, _P, _P, _P, _P],
     "nco_folded_launch": [_U, _U, _P, _I, _P, _P, _P],
+    # fir_source.cu
+    "fir_tone_launch": [_U, _U, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P],
     # wbfm_chain.cu
     "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _F, _P, _P],

@@ -1,6 +1,7 @@
 """The FM channelizer chain as ONE kernel (reference:
-newsched_tpu/ops/pallas/fm_chain.py ``fm_chain_step_planes``, and
-``fm_chain_gen_step``, the same chain with its input generated inside).
+newsched_tpu/ops/pallas/fm_chain.py ``fm_chain_step_planes``, with its
+``pipelined`` variant, and ``fm_chain_gen_step``, the same chain with its
+input generated inside).
 
 Fuses the flagship model's whole per-batch pipeline (BASELINE config #2:
 M-channel PFB -> per-channel quadrature demod -> per-channel decimating
@@ -28,6 +29,7 @@ polynomial: at least as accurate as every TPU tier.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +40,9 @@ from newsched_tpu_torch.ops.cuda.mathfns import ATAN_COEFFS, atan2_plain
 
 PRECISIONS = ("split3", "highest", "high", "default")
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
+_SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
+_SM_THREADS = 2048  # threads an SM holds
+_THREADS = 256  # threads of a chain block
 
 
 def _round8(n: int) -> int:
@@ -125,8 +130,8 @@ def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
 def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
                          prev0: torch.Tensor, tail0: torch.Tensor,
                          consts: FmChainConsts, decim: int, gain: float,
-                         warm: int = 0, tile: int = 128,
-                         precision="split3"):
+                         warm: int = 0, tile: int | None = None,
+                         precision="split3", pipelined: bool = False):
     """Run one batch of the fused chain on the planes-rows stream format.
 
     Args:
@@ -139,15 +144,23 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
       decim: audio decimation; gain: demod gain.
       warm: 0. (The reference's warm-up recompute serves the sharded
         flagship, a later slice.)
-      tile: rows per CUDA block (shrunk to a divisor of n as the reference
-        does; decim must divide it). Outputs do not depend on it. 128 is
-        the faster of 128 and 256 at the flagship shape on an H100.
+      tile: rows per CUDA block tile (shrunk to a divisor of n as the
+        reference does; decim must divide it). Outputs do not depend on it.
+        None: 128, the faster of 128 and 256 at the flagship shape on an
+        H100; pipelined, 64, the faster of 64 and 128 (PERF.md).
       precision: accepted for the reference's signature; FP32 always.
+      pipelined: the reference's software-pipelined variant (K3p): each
+        CUDA block walks several consecutive tiles in order, carries the
+        demod/audio junction from tile to tile instead of rebuilding it,
+        and copies the next tile's window while the current one computes.
+        The same values bit for bit; tile must then be a multiple of 32
+        (64 or 128 at M=64: the block holds two windows).
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``fm_chain_planes_launch`` (csrc/fm_chain.cu).
+    ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3), or with
+    ``pipelined`` ``fm_chain_pipe_launch`` (K3p).
     """
     if int(warm) != 0:
         raise NotImplementedError(
@@ -159,16 +172,21 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     A = int(consts.ataps.shape[0])
     n = int(vb.shape[0])
     H8 = _round8(L - 1)
-    tile = _pick_tile(n, tile, decim)
+    tile = _pick_tile(n, tile or (64 if pipelined else 128), decim)
     if A - 1 > tile:
         raise ValueError(f"audio tail {A-1} exceeds tile {tile}")
     if tile < H8:
         raise ValueError(f"tile {tile} < H8 {H8} (batch rows must be >= {H8})")
     if int(halo.shape[0]) != H8:
         raise ValueError(f"halo rows {halo.shape[0]} != H8 = {H8}")
+    if pipelined and (tile % 32 or tile < L - 1):
+        raise ValueError(f"pipelined: tile {tile} must be a multiple of 32 "
+                         f"and >= L-1 = {L - 1}")
     if vb.device.type == "cpu":
         return fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts,
                                           decim, gain)
+    if pipelined:
+        return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None)
     _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
     dev = vb.device
     _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (H8, W))],
@@ -188,6 +206,55 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
 
 fm_chain_step_planes.launches = 0
+
+
+def _pipe_smem(tile: int, A: int, L: int, W: int) -> int:
+    """Shared bytes of a K3p block: the tile buffer, the stage buffer for
+    the next window and two Y rows."""
+    return (_tile_rows(tile, A, L) + tile + L - 1 + 2) * W * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _pipe_tiles_per_block(n_tiles: int, smem: int, sms: int) -> int:
+    """Tiles a K3p block walks: as few as fill every SM once at the blocks
+    per SM that its shared memory allows (one at the flagship's tiles)."""
+    per_sm = max(1, min(_SM_THREADS // _THREADS, _SM_SMEM // (smem + 1024)))
+    return -(-n_tiles // (sms * per_sm))
+
+
+def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
+          gain: float, tile: int, tiles_per_block: int | None):
+    """Launch K3p (``fm_chain_step_planes(pipelined=True)``); the tiles a
+    block walks default to ``_pipe_tiles_per_block`` and change no output
+    bit."""
+    L, W = (int(d) for d in consts.c2.shape)
+    M, A, n = W // 2, int(consts.ataps.shape[0]), int(vb.shape[0])
+    H8 = _round8(L - 1)
+    smem = _pipe_smem(tile, A, L, W)
+    _check_kernel_shape(W, tile, smem // (W * 4))
+    dev = vb.device
+    _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (H8, W))],
+                         prev0, tail0, consts)
+    if vb.data_ptr() % 16:
+        raise ValueError("vb: the pipelined kernel copies 16-byte words; "
+                         "its data must be 16-byte aligned")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = tiles_per_block or _pipe_tiles_per_block(n // tile, smem, sms)
+    aud, prev, tail = _chain_outputs(n, decim, M, A, dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().fm_chain_pipe_launch(
+            vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
+            tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
+            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, int(G),
+            float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fm_chain_pipe_launch")
+    fm_chain_step_planes.pipe_launches += 1
+    return aud, prev, tail
+
+
+fm_chain_step_planes.pipe_launches = 0
 
 
 def _tile_rows(tile: int, A: int, L: int) -> int:

@@ -119,7 +119,7 @@ def pick_tile(R: int, D: int, Rd: int, target_out: int = 102) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _row_stride(GS: int, rows: int) -> int:
+def row_stride(GS: int, rows: int) -> int:
     """Shared row stride of the sample planes: the smallest P >= GS for
     which a warp's reads (lane -> segment lane % GS, window lane // GS,
     windows ``rows`` rows apart) hit the fewest banks twice."""
@@ -159,7 +159,7 @@ def _geometry_of(D: int, Rd: int, A: int, ntaps: int, B8: int, R: int, tile,
             f"the batch (need >= {B8 * S} samples)")
     if GS <= 0 or S % GS:
         raise ValueError(f"seg_group {GS} does not divide {S} segments")
-    P = _row_stride(GS, _J * D)
+    P = row_stride(GS, _J * D)
     CU = _THREADS // GS * _J
     NU = (T // (D * Rd) - 1) * Rd + A + 1
     floats = 2 * ntaps + 2 * ((CU - 1) * D + ntaps) * P + 3 * NU * GS

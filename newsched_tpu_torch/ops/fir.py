@@ -19,11 +19,14 @@ Compute paths, selected by ``method``:
 - ``"conv"``: the strided correlation, as windows of the input times the
   reversed taps.
 
-Both run as FP32 matrix products (``torch.matmul``), which is what the
-reference's HIGHEST precision asks for; lower precision cost the reference
-~18 dB of SNR on the 65-tap audio FIR. The products are plain ops outside
-any kernel, as in the reference (XLA's matmul there). ``"fft"`` (and
-``"mxu3"``, the reference's bf16x3 tier) come with config #3.
+Both run as FP32 matrix products (``torch.matmul`` with TF32 off, torch's
+default), which is what the reference's HIGHEST precision asks for; lower
+precision cost the reference ~18 dB of SNR on the 65-tap audio FIR. The
+products are plain ops outside any kernel, as in the reference (XLA's
+matmul there). ``"mxu3"``, the reference's three-pass bf16 Toeplitz tier
+(config #0's staged filter), takes the FP32 Toeplitz path of ``"mxu"``:
+on the H100 FP32 is the accurate choice, and the bf16 split exists only
+for the TPU's matrix unit. ``"fft"`` comes with config #3.
 """
 
 from __future__ import annotations
@@ -145,11 +148,11 @@ def fir_filter(taps, state: FirState, x: torch.Tensor, decim: int = 1,
       state: FirState carrying the previous batch's tail.
       x: (..., B) input batch; B must be a multiple of decim.
       decim: keep every decim-th output (decimating FIR).
-      method: "auto" | "mxu" | "conv"; "fft" and "mxu3" are not ported yet.
-        "auto" follows the reference: "fft" above 384 taps, "mxu" for host
-        taps with decim <= max(4, ntaps // 8), else "conv". Tensor taps
-        take "conv" in place of "mxu" (the tap matrix is built from host
-        taps).
+      method: "auto" | "mxu" | "conv" | "mxu3" (the "mxu" path: see the
+        module docstring); "fft" is not ported yet. "auto" follows the
+        reference: "fft" above 384 taps, "mxu" for host taps with
+        decim <= max(4, ntaps // 8), else "conv". Tensor taps take "conv"
+        in place of "mxu" (the tap matrix is built from host taps).
       dev_taps: ``fir_taps(taps, B // decim, decim, x.device)`` for host
         taps; built here when None.
 
@@ -172,10 +175,12 @@ def fir_filter(taps, state: FirState, x: torch.Tensor, decim: int = 1,
             method = "mxu"
         else:
             method = "conv"
-    if method in ("fft", "mxu3"):
+    if method == "fft":
         raise NotImplementedError(
-            f"fir_filter(method={method!r}) comes with config #3, the "
-            f"fft_filter slice of the port (ROADMAP Queue 1 item 7)")
+            "fir_filter(method='fft') comes with config #3, the fft_filter "
+            "slice of the port (ROADMAP Queue 1 item 7)")
+    if method == "mxu3":
+        method = "mxu"  # FP32 on the card: see the module docstring
     if method == "mxu" and not taps_static:
         method = "conv"  # the tap matrix is built from host taps
     if taps_static and dev_taps is None:

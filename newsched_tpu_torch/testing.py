@@ -5,8 +5,9 @@
 ``planes_rows`` is ``newsched_tpu.parallel.channelizer.planes_rows``;
 ``wbfm_golden`` and ``fxpt_tone`` are the wideband-FM receiver's golden
 (``tests/test_wbfm_fused.py`` ``golden_chain``, ``bench.py``'s config #1
-gate). All are needed where jax is not installed (the machine with the
-GPU).
+gate); ``fir_golden`` is config #0's (``tests/test_models.py``,
+``bench.py``'s config #0 gate). All are needed where jax is not installed
+(the machine with the GPU).
 """
 
 from __future__ import annotations
@@ -98,9 +99,25 @@ def wbfm_golden(x, chan_taps, dphase: int, decim: int, resamp_taps,
     return sig.lfilter(np.asarray(resamp_taps, np.float64), 1.0, d)[::resamp_decim]
 
 
+def fir_golden(n: int, taps, freq: float, fs: float) -> np.ndarray:
+    """Float64 golden of config #0 from stream start: the tone on the exact
+    fixed-point phase ladder at ``freq`` (the NCO's uint32 increment, not
+    the real frequency, which drifts from it), through the FIR
+    (scipy.signal.lfilter, zero initial state)."""
+    import scipy.signal as sig
+
+    from newsched_tpu_torch.ops.nco import freq_to_dphase
+
+    x = fxpt_tone(int(n), freq_to_dphase(freq, fs))
+    return sig.lfilter(np.asarray(taps, np.float64), 1.0, x)
+
+
 def snr_db(ref, test) -> float:
-    """10*log10(mean(ref^2) / mean((ref-test)^2)); inf when equal."""
-    ref = np.asarray(ref, np.float64)
-    err = ref - np.asarray(test, np.float64)
-    e = np.mean(err**2)
-    return np.inf if e == 0 else float(10 * np.log10(np.mean(ref**2) / e))
+    """10*log10(mean|ref|^2 / mean|ref-test|^2), real or complex; inf when
+    equal."""
+    ref = np.asarray(ref)
+    ref = ref.astype(np.complex128 if np.iscomplexobj(ref) else np.float64)
+    err = ref - np.asarray(test).astype(ref.dtype)
+    e = np.mean(np.abs(err) ** 2)
+    p = np.mean(np.abs(ref) ** 2)
+    return np.inf if e == 0 else float(10 * np.log10(p / e))
