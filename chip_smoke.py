@@ -31,7 +31,12 @@ batches of 2^21:
     head;
   - live: fir_tone_source (K9), one generating source -> head.
 And the fused channelizer chain's pipelined form,
-``fm_chain_step_planes(pipelined=True)`` (K3p).
+``fm_chain_step_planes(pipelined=True)`` (K3p). Then the same graphs
+sharded, ``fg.run(mesh=make_mesh(n))`` for n = 4 and 8 logical shards on
+the one card (``newsched_tpu_torch.parallel``): the live channelizer (K6
+per shard), the fused channelizer (K3 per shard with warm > 0), and the
+receiver's fused (K10 per shard) and live (K12) forms and the live FIR
+chain (K9), each against its unsharded graph.
 
 Phases (each failure raises, so the script exits nonzero):
   1. device: a CUDA device is required; its name and power limit;
@@ -99,15 +104,36 @@ Phases (each failure raises, so the script exits nonzero):
  24. times: K2 alone at the demod's shape beside its plain version and
      torch.atan2; K9 beside its plain version and K11 ->
      conv1d(groups=128), at each geometry; K3p beside K3 (alternated), at each tile and tiles a
-     block; the config #0 flowgraph steps in Msamples/s; and every
-     kernel's least time on the card for its work (``kernel_bounds``).
+     block; the config #0 flowgraph steps in Msamples/s;
+ 25. K6 fm_chain_gen_warm_step at 8192 and 4096 rows (a shard of a 4- and
+     of an 8-shard batch), at stream start, at shard 3 and at group
+     2^32-2, draws 3 and 2: bit-equal to K5's stream at the same rows,
+     within K5_TOL of its plain version outside the golden's branch-cut
+     mask;
+ 26. the live flowgraph sharded over 4 and 8 shards, 3 batches: bit-equal
+     to the unsharded live flowgraph, >= 95 dB against its golden; K6
+     launched n times a batch, K5 never;
+ 27. the fused flowgraph over the replayed stream sharded over 4 and 8
+     shards, 3 batches: bit-equal to the unsharded one, >= 95 dB; K3
+     launched n times a batch; on shard 1 of each mesh, K3 with warm > 0
+     within K3_TOL of its plain version off the branch cut, and K3p with
+     warm > 0 bit-equal to K3;
+ 28. the wbfm fused (K8 -> K10 per shard) and live (K12 per shard) graphs
+     and the live fir_chain graph (K9 per shard) over 4 and 8 shards, 3
+     batches: bit-equal to their unsharded graphs, >= 60 dB each; launches
+     counted; K10, K12 and K9 on two shards of each mesh against their
+     plain versions;
+ 29. times: K6 at 8192 and 32768 rows beside K5 and its plain version;
+     the sharded live and fused flowgraph steps in Msamples/s (the
+     4-shard live step profiled); and every kernel's least time on the
+     card for its work (``kernel_bounds``).
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
 time is left out (``graph_ms``); plain versions and flowgraph steps are
 timed as a caller runs them, host included (``median_ms``). Each timed
-flowgraph step is also traced for 20 steps with torch.profiler and its
-device time printed kernel by kernel.
+unsharded flowgraph step, and one sharded one, is also traced for 20 steps
+with torch.profiler and its device time printed kernel by kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -353,10 +379,14 @@ def golden(rows: np.ndarray, key: str):
 
 
 def gate(rows: np.ndarray, got: np.ndarray, what: str, key: str,
-         gate_db: float = SNR_GATE_DB) -> float:
+         gate_db: float = SNR_GATE_DB, n_batches: int | None = None) -> float:
+    """SNR of ``got`` against the golden of stream ``key`` (its first
+    ``n_batches`` batches where given) on the samples off the branch cut."""
     from newsched_tpu_torch.testing import snr_db
 
     ref, bad = golden(rows, key)
+    if n_batches is not None:
+        ref, bad = ref[:n_batches * N_AUD], bad[:n_batches * N_AUD]
     require(got.shape == ref.shape, f"{what}: shape {got.shape} != {ref.shape}")
     require(bool(np.isfinite(got).all()), f"{what}: non-finite audio")
     snr = snr_db(ref[~bad], got[~bad])
@@ -372,8 +402,9 @@ def phase_replay(rows):
 
     fg, blks = flowgraph(general.vector_source(rows, repeat=True), 4)
     fg.run(device="cuda")
-    gate(np.concatenate([rows] * 4), blks["sink"].data(), "replay flowgraph",
-         "replay")
+    got = blks["sink"].data()
+    gate(np.concatenate([rows] * 4), got, "replay flowgraph", "replay")
+    return got
 
 
 def noise_rows(torch, noise, n_batches: int, draws: int = 3) -> np.ndarray:
@@ -393,14 +424,16 @@ def phase_noise(torch, noise) -> np.ndarray:
     return got
 
 
-def fg_step_rate(torch, fg, label: str, card: str, n_in: int) -> float:
+def fg_step_rate(torch, fg, label: str, card: str, n_in: int,
+                 mesh=None, profile: bool = True) -> float:
     """Device time of one compiled flowgraph step, streaming batch after
     batch (median over REPS runs of 10 steps), as Msamples/s of its
-    ``n_in`` input samples; then a profile of the step."""
+    ``n_in`` input samples; then, with ``profile``, a profile of the
+    step."""
     from newsched_tpu_torch.runtime.runner import Runner
 
     fg.validate()
-    runner = Runner(fg, batch_size=fg.batch_size, device="cuda")
+    runner = Runner(fg, batch_size=fg.batch_size, device="cuda", mesh=mesh)
     params = runner.init_params()
     box = {"s": runner.init_states()}
 
@@ -410,13 +443,15 @@ def fg_step_rate(torch, fg, label: str, card: str, n_in: int) -> float:
     ms = median_ms(one)
     log(f"flowgraph step ({label}): {ms:.4f} ms per batch of {n_in} samples"
         f" = {n_in / ms / 1e3:.1f} Msamples/s [{card}]")
-    profile_steps(torch, one, label)
+    if profile:
+        profile_steps(torch, one, label)
     return ms
 
 
-def step_rate(torch, source, label: str, card: str, **kw) -> float:
+def step_rate(torch, source, label: str, card: str, mesh=None,
+              profile: bool = True, **kw) -> float:
     fg, _ = flowgraph(source, None, sink="null", **kw)
-    return fg_step_rate(torch, fg, label, card, BATCH)
+    return fg_step_rate(torch, fg, label, card, BATCH, mesh, profile)
 
 
 def profile_steps(torch, step, label: str, n: int = 20) -> None:
@@ -824,7 +859,7 @@ def phase_wbfm_graphs(torch, sources, wbfm_chain) -> dict:
                "K12": wbfm_chain.wbfm_chain_live_step}
     want = {"staged": ("K8",), "fused": ("K8", "K10"),
             "folded": ("K11", "K10"), "live": ("K12",)}
-    out, launches = {}, {}
+    out, launches, audio = {}, {}, {}
     for kind in ("staged", "fused", "folded", "live"):
         fg, blks = wb_graph(kind, 4)
         for k in kernels.values():
@@ -842,7 +877,8 @@ def phase_wbfm_graphs(torch, sources, wbfm_chain) -> dict:
                 f"wbfm {kind}: a kernel of the path was never launched")
         out[kind] = snr
         launches[kind] = counts
-    return {"snr": out, "launches": launches}
+        audio[kind] = got
+    return {"snr": out, "launches": launches, "audio": audio, "ref": ref}
 
 
 def wb_step_rate(torch, kind: str, card: str) -> float:
@@ -973,7 +1009,7 @@ def phase_fir_graphs(torch, sources, fir_source) -> dict:
     cross = snr_db(out["staged"], out["live"])
     log(f"fir_chain live vs staged: {cross:.2f} dB (> 100 required)")
     require(cross > 100, "fir_chain: live and staged disagree")
-    return {"snr": snr, "launches": launches}
+    return {"snr": snr, "launches": launches, "out": out, "ref": ref}
 
 
 def phase_k3p(torch, fm_chain) -> dict:
@@ -1016,6 +1052,253 @@ def fir_step_rate(torch, kind: str, card: str) -> float:
     return fg_step_rate(torch, fg, f"fir_chain {kind}", card, FIR_BATCH)
 
 
+# -- sharding: logical shards on the one card --------------------------------
+
+MESHES = (4, 8)            # logical shards of the sharded graphs
+K6_ROWS = ROWS // 4        # rows of a shard of a 4-shard batch (8192)
+K6_NLOC = tuple(ROWS // n for n in MESHES)  # a shard's rows: 8192, 4096
+K6_WARM = 512              # the reference's warm at both (its tile)
+
+
+def phase_k6(torch, fm_chain, noise) -> float:
+    """K6 at a shard's rows against K5's stream at the same rows (bit for
+    bit) and its plain version (K5_TOL off the branch cut), at the rows of
+    a shard of the 4- and the 8-shard live path (the second window a prefix
+    of the first). K5 runs one batch of ROWS rows with zero state from 3
+    shards below the shard (at stream start for the first): its blocks
+    reach 80 rows back at most, so from there on it is the true stream.
+    Returns the worst error."""
+    consts = chain_consts()
+    H8 = fm_chain._round8(L - 1)
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    worst = 0.0
+    for draws in (3, 2):
+        for where, base, off in (("stream start", (0, 0), 0),
+                                 ("shard 3", (0, 3 * K6_ROWS // 64), 3 * K6_ROWS),
+                                 ("group 2^32-2", (0, -2), 3 * K6_ROWS)):
+            b0 = noise.add_groups_signed(*base, -off // noise.GROUP_ROWS)
+            k5 = fm_chain.fm_chain_gen_step(
+                *b0, amp, torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+                torch.zeros(A - 1, 2 * M, **z), consts, DECIM, DEMOD_GAIN, ROWS,
+                draws=draws)[0]
+            if b0 == (0, 0):  # phases 7 and 13's goldens of this stream
+                _, bad = golden(None, "noise" if draws == 3 else "noise draws=2")
+                bad = bad[off // DECIM:]
+            else:  # the shard's window and 1024 rows of lead, as far back
+                lead = 1024  # as any output reaches (A + L - 1 = 80 rows)
+                rows = noise.gaussian_rows_plain(
+                    *base, n_rows=lead + K6_ROWS, width=2 * M, seed=0,
+                    device="cuda", draws=draws, row0=-lead) * 0.5
+                _, bad = golden(rows.cpu().numpy(), f"{where} draws={draws}")
+                bad = bad[lead // DECIM:]
+            for n_loc in K6_NLOC:
+                got = fm_chain.fm_chain_gen_warm_step(
+                    *base, amp, consts, DECIM, DEMOD_GAIN, n_loc, warm=K6_WARM,
+                    draws=draws)
+                plain = fm_chain.fm_chain_gen_warm_step_plain(
+                    *base, amp, consts, DECIM, DEMOD_GAIN, n_loc, K6_WARM,
+                    draws=draws)
+                require(torch.equal(got, k5[off // DECIM:(off + n_loc) // DECIM]),
+                        f"K6 at {where}, {n_loc} rows, draws={draws}: differs "
+                        f"from K5's stream")
+                keep = ~bad[:n_loc // DECIM]
+                err = float(np.abs(got.cpu().numpy()
+                                   - plain.cpu().numpy())[keep].max())
+                log(f"K6 fm_chain_gen_warm_step at {where} (base group "
+                    f"{noise.group64(*base)}), {n_loc} rows, draws={draws}: "
+                    f"bit-equal to K5's stream there; vs plain {err:.3e} on "
+                    f"{int(keep.sum())} unmasked samples (tol {K5_TOL})")
+                require(err <= K5_TOL, f"K6 at {where}, {n_loc} rows: "
+                        f"disagrees with its plain version")
+                worst = max(worst, err)
+    return worst
+
+
+def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
+    """The live flowgraph over 4 and 8 shards: bit-equal to the unsharded
+    one, gated against its golden; K6 launched n times a batch, K5 never.
+    Returns K6's launches."""
+    from newsched_tpu_torch.parallel import make_mesh
+
+    total = 0
+    for n in MESHES:
+        fg, blks = flowgraph("live", 3)
+        fm_chain.fm_chain_gen_warm_step.launches = 0
+        fm_chain.fm_chain_gen_step.launches = 0
+        fg.run(device="cuda", mesh=make_mesh(n))
+        k6, k5 = (fm_chain.fm_chain_gen_warm_step.launches,
+                  fm_chain.fm_chain_gen_step.launches)
+        got = blks["sink"].data()
+        log(f"launches on the live path, {n} shards: fm_chain_gen_warm_step "
+            f"{k6}, fm_chain_gen_step {k5}")
+        require(k6 == 3 * n and k5 == 0,
+                f"live on {n} shards: K6 not n times a batch, or K5 ran")
+        require(np.array_equal(got, live_out[:3 * N_AUD]),
+                f"live on {n} shards differs from the unsharded flowgraph")
+        gate(None, got, f"live flowgraph on {n} shards (bit-equal to the "
+             f"unsharded one)", "noise", n_batches=3)
+        total += k6
+    return total
+
+
+def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
+                        replay_out: np.ndarray) -> tuple[int, float]:
+    """The fused flowgraph over the replayed stream on 4 and 8 shards:
+    bit-equal to the unsharded one, gated; K3 launched n times a batch.
+    Then, on shard 1 of each mesh, K3 with warm > 0 against its plain
+    version (K3_TOL off the branch cut) and the unsharded stream, and K3p
+    with warm > 0 against K3. Returns K3's launches with warm > 0 and the
+    worst error against the plain version."""
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.parallel import make_mesh
+
+    total = 0
+    for n in MESHES:
+        fg, blks = flowgraph(general.vector_source(rows, repeat=True), 3)
+        fm_chain.fm_chain_step_planes.launches = 0
+        fg.run(device="cuda", mesh=make_mesh(n))
+        k3 = fm_chain.fm_chain_step_planes.launches
+        got = blks["sink"].data()
+        log(f"launches on the fused path, {n} shards: fm_chain_step_planes {k3}")
+        require(k3 == 3 * n, f"fused on {n} shards: K3 not n times a batch")
+        require(np.array_equal(got, replay_out[:3 * N_AUD]),
+                f"fused on {n} shards differs from the unsharded flowgraph")
+        gate(np.concatenate([rows] * 4), got, f"fused flowgraph on {n} shards "
+             f"(bit-equal to the unsharded one)", "replay", n_batches=3)
+        total += k3
+    H8 = fm_chain._round8(L - 1)
+    consts = chain_consts()
+    vb_all = torch.from_numpy(rows).cuda()
+    z = dict(dtype=torch.float32, device="cuda")
+    hr = K6_WARM + H8
+    _, bad = golden(None, "replay")
+    worst = 0.0
+    for n_dev, n_loc in zip(MESHES, K6_NLOC):
+        args = (vb_all[n_loc:2 * n_loc], vb_all[n_loc - hr:n_loc],
+                torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z),
+                consts, DECIM, DEMOD_GAIN)
+        shard = fm_chain.fm_chain_step_planes(*args, warm=K6_WARM)
+        plain = fm_chain.fm_chain_step_planes_plain(*args, warm=K6_WARM)
+        piped = fm_chain.fm_chain_step_planes(*args, warm=K6_WARM,
+                                              pipelined=True)
+        sl = slice(n_loc // DECIM, 2 * n_loc // DECIM)
+        require(all(torch.equal(a, b) for a, b in zip(shard, piped)),
+                f"K3p with warm > 0 differs from K3 ({n_loc} rows)")
+        require(np.array_equal(shard[0].cpu().numpy(), replay_out[sl]),
+                f"K3 with warm > 0 differs from the unsharded stream "
+                f"({n_loc} rows)")
+        keep = ~bad[sl]
+        err = float(np.abs(shard[0].cpu().numpy()
+                           - plain[0].cpu().numpy())[keep].max())
+        log(f"K3 with warm={K6_WARM} on shard 1 of {n_dev} ({n_loc} rows): "
+            f"vs plain {err:.3e} on {int(keep.sum())} unmasked samples (tol "
+            f"{K3_TOL}); K3p bit-equal to it, both bit-equal to the "
+            f"unsharded stream")
+        require(err <= K3_TOL, f"K3 with warm > 0 ({n_loc} rows): disagrees "
+                f"with its plain version")
+        worst = max(worst, err)
+    return total, worst
+
+
+def shard_kernels_vs_plain(torch, wbfm_chain, fir_source, n: int) -> dict:
+    """Shards 0 and 1 of an n-shard batch through K10, K12 and K9 as the
+    sharded blocks call them (K10 from a zero carry, then from shard 0's
+    boundary rows; K12 and K9 at each shard's phase offset, stream start
+    on shard 0 only), each against its plain version: K10_TOL (carry
+    equal), K10_TOL, K9_TOL of max|out|. Returns each kernel's worst
+    error."""
+    from newsched_tpu_torch.ops import nco
+
+    plan, consts, _, _ = wb_plan()
+    seg = WB_BATCH // n
+    x = fm_signal(2 * seg, torch)
+    dp = nco.freq_to_dphase(WB_TONE, WB_FS)
+    _, taps = fir_taps(torch)
+    seg9, dp9 = FIR_BATCH // n, nco.freq_to_dphase(FIR_FREQ, FIR_FS)
+    carry = torch.zeros(plan.B8, 128, device="cuda")
+    errs = {"K10": 0.0, "K12": 0.0, "K9": 0.0}
+    for d in range(2):
+        xp = wbfm_chain.fold_planes(x[d * seg:(d + 1) * seg])
+        aud, bot = wbfm_chain.wbfm_chain_step(xp, carry, plan, consts)
+        ref, bot_p = wbfm_chain.wbfm_chain_step_plain(xp, carry, plan, consts)
+        require(torch.equal(bot, bot_p), f"K10 shard {d} of {n}: carry differs "
+                f"from its plain version's")
+        errs["K10"] = max(errs["K10"], float((aud - ref).abs().max()))
+        carry = bot
+        ph, first = nco.nco_advance(0x12345678, dp, seg * d), d == 0
+        got = wbfm_chain.wbfm_chain_live_step(ph, dp, 0.8, first, plan, consts,
+                                              seg // 64)
+        ref = wbfm_chain.wbfm_chain_live_step_plain(ph, dp, 0.8, first, plan,
+                                                    consts, seg // 64)
+        errs["K12"] = max(errs["K12"], float((got - ref).abs().max()))
+        ph = nco.nco_advance(0, dp9, seg9 * d)
+        got = fir_source.fir_tone_step(ph, dp9, 0.8, first, taps, 1, seg9 // 64)
+        ref = fir_source.fir_tone_step_plain(ph, dp9, 0.8, first, taps, 1,
+                                             seg9 // 64)
+        err = float((got - ref).abs().max())
+        require(err <= K9_TOL * float(ref.abs().max()),
+                f"K9 shard {d} of {n}: disagrees with its plain version")
+        errs["K9"] = max(errs["K9"], err)
+    log(f"shards 0-1 of {n}: K10 ({seg // 64} rows), K12 ({seg // 64} rows), "
+        f"K9 ({seg9 // 64} rows) vs plain: max abs err {errs['K10']:.3e}, "
+        f"{errs['K12']:.3e}, {errs['K9']:.3e} (tol {K10_TOL}, {K10_TOL}, "
+        f"{K9_TOL} of max|out|)")
+    require(errs["K10"] <= K10_TOL and errs["K12"] <= K10_TOL,
+            f"K10/K12 on a shard of {n}: disagree with their plain versions")
+    return errs
+
+
+def phase_sharded_receivers(torch, sources, wbfm_chain, fir_source, wb: dict,
+                            fir: dict) -> tuple[dict, dict]:
+    """The wbfm fused (sig_source K8 -> K10 per shard) and live (K12) graphs
+    and the live fir_chain (K9) on 4 and 8 shards, 3 batches: bit-equal to
+    their unsharded graphs, >= 60 dB; launches counted. Then one shard's
+    K10, K12 and K9 call of each mesh against its plain version. Returns
+    the launches and each kernel's worst error."""
+    from newsched_tpu_torch.parallel import make_mesh
+    from newsched_tpu_torch.testing import snr_db
+
+    kernels = {"K8": sources.nco_planes, "K10": wbfm_chain.wbfm_chain_step,
+               "K12": wbfm_chain.wbfm_chain_live_step,
+               "K9": fir_source.fir_tone_step}
+    launches: dict = {}
+    for n in MESHES:
+        for kind in ("wbfm fused", "wbfm live", "fir_chain live"):
+            if kind.startswith("wbfm"):
+                form = kind.split()[1]
+                fg, blks = wb_graph(form, 3)
+                unsharded, ref, gate_db = wb["audio"][form], wb["ref"], WB_GATE_DB
+                want = ({"K8": 3, "K10": 3 * n} if form == "fused"
+                        else {"K12": 3 * n})
+            else:
+                fg, blks = fir_graph("live", 3 * FIR_BATCH)
+                unsharded, ref = fir["out"]["live"], fir["ref"]
+                gate_db, want = FIR_GATE_DB, {"K9": 3 * n}
+            for k in kernels.values():
+                k.launches = 0
+            fg.run(device="cuda", mesh=make_mesh(n))
+            counts = {name: k.launches for name, k in kernels.items()}
+            got = blks["sink"].data()
+            snr = snr_db(ref[:len(got)], got)
+            log(f"{kind} flowgraph on {n} shards: {len(got)} samples, "
+                f"bit-equal to the unsharded one; SNR vs float64 golden "
+                f"{snr:.2f} dB (gate {gate_db} dB); launches {counts}")
+            require(len(got) > 0 and np.array_equal(got, unsharded[:len(got)]),
+                    f"{kind} on {n} shards differs from the unsharded graph")
+            require(snr >= gate_db, f"{kind} on {n} shards: SNR below gate")
+            require(all(counts[k] == v for k, v in want.items()),
+                    f"{kind} on {n} shards: launches {counts}, want {want}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    errs: dict = {}
+    for n in MESHES:
+        for k, e in shard_kernels_vs_plain(torch, wbfm_chain, fir_source,
+                                           n).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    return launches, errs
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -1056,6 +1339,11 @@ def kernel_bounds() -> dict:
     audio = 2 * A * (n // DECIM) * M
     demod = DEMOD_OPS * n * M
     chain_out = ((n // DECIM) * M + (A - 1) * W + W) * f4
+    # K6 at a shard: K5's work at its rows, and the A + L - 1 rows before
+    # them that it generates for its junction; only the audio leaves
+    r6 = K6_ROWS / n
+    k6_ops = (fold + fft + demod + audio) * r6 \
+        + PHILOX_OPS * (K6_ROWS + A + L - 1) * W
     U = (WB_R // WB_D) * 64  # xlate outputs
     # real taps on complex samples (4 flops a tap), demod, real resampler
     wb_chain = 4 * 81 * U + DEMOD_OPS * U + 2 * 121 * WB_NAUD * 64
@@ -1066,6 +1354,7 @@ def kernel_bounds() -> dict:
         "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
         "K7": bound((n + L - 1) * W * f4 + n * W * f4, fold),
         "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
+        "K6": bound((K6_ROWS // DECIM) * M * f4, k6_ops),
         "K8": bound(2 * WB_BATCH * f4, NCO_OPS * WB_BATCH),
         "K11": bound(WB_R * 128 * f4, NCO_OPS * WB_R * 64),
         "K10": bound((WB_R + 568) * 128 * f4 + WB_NAUD * 128 * f4,
@@ -1135,6 +1424,7 @@ def main() -> int:
         return 2
 
     # 1. device
+    t_start = time.monotonic()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1165,7 +1455,7 @@ def main() -> int:
     rows = planes_rows(x, M)
     fm_chain.fm_chain_step_planes.launches = 0
     noise.gaussian_rows.launches = 0
-    phase_replay(rows)
+    replay_out = phase_replay(rows)
     fused_out = phase_noise(torch, noise)
     launches = {"fm_chain": fm_chain.fm_chain_step_planes.launches,
                 "noise": noise.gaussian_rows.launches}
@@ -1369,6 +1659,43 @@ def main() -> int:
     for kind in ("staged", "live"):
         fir_step_rate(torch, kind, card)
 
+    # 25-28. sharding: K6, then the sharded graphs against the unsharded
+    from newsched_tpu_torch.parallel import make_mesh
+
+    k6_err = phase_k6(torch, fm_chain, noise)
+    k6_launches = phase_sharded_live(fm_chain, fused_out)
+    k3_warm_launches, k3_warm_err = phase_sharded_fused(torch, fm_chain, rows,
+                                                        replay_out)
+    sharded, shard_err = phase_sharded_receivers(torch, sources, wbfm_chain,
+                                                 fir_source, wb, fir)
+    k3_err = max(k3_err, k3_warm_err)
+    k10_err = max(k10_err, shard_err["K10"])
+    k12_err = max(k12_err, shard_err["K12"])
+    k9_err = max(k9_err, shard_err["K9"])
+
+    # 29. times
+    b6 = (0, 3 * K6_ROWS // 64)  # shard 3's base
+    t.update(alternate({
+        "K6 plain": lambda: fm_chain.fm_chain_gen_warm_step_plain(
+            *b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM),
+        "K5 beside K6": lambda: fm_chain.fm_chain_gen_step(*k5_args),
+        "K6 at 32768": lambda: fm_chain.fm_chain_gen_warm_step(
+            *b6, amp, consts, DECIM, DEMOD_GAIN, ROWS, warm=K6_WARM),
+        "K6": lambda: fm_chain.fm_chain_gen_warm_step(
+            *b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM),
+    }, PLAIN_REPS))
+    ms = {k: min(v_) for k, v_ in t.items()}
+    log(f"K6 fm_chain_gen_warm_step: {K6_ROWS} rows {t['K6']} ms, {ROWS} rows "
+        f"{t['K6 at 32768']} ms; K5 at {ROWS} rows {t['K5 beside K6']} ms; "
+        f"plain ({K6_ROWS} rows) {t['K6 plain']} ms [{card}]")
+    # one sharded step is profiled: each is its shards' kernels in a row
+    for n in MESHES:
+        step_rate(torch, "live", f"live, {n} shards", card, mesh=make_mesh(n),
+                  profile=n == MESHES[0])
+        step_rate(torch, general.vector_source(rows, repeat=True),
+                  f"replay, {n} shards", card, mesh=make_mesh(n), profile=False)
+    log(f"script time before the bounds: {time.monotonic() - t_start:.1f} s")
+
     bounds = kernel_bounds()
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
@@ -1386,7 +1713,7 @@ def main() -> int:
     wl = wb["launches"]
     print(json.dumps({"kernels": [
         entry("fm_chain_step_planes", "K3", "fm_chain.cu", "fm_chain.py:421",
-              launches["fm_chain"], k3_err),
+              launches["fm_chain"] + k3_warm_launches, k3_err),
         entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
               launches["noise"], k4_err),
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
@@ -1397,17 +1724,20 @@ def main() -> int:
               live_launches, k5_err),
         entry("nco_planes", "K8", "sources.cu", "sources.py:44",
               wl["staged"]["K8"] + wl["fused"]["K8"]
-              + fir["launches"]["staged"]["K8"], nco_err["K8"]),
+              + fir["launches"]["staged"]["K8"] + sharded["K8"], nco_err["K8"]),
         entry("nco_folded", "K11", "sources.cu", "sources.py:91",
               wl["folded"]["K11"], nco_err["K11"]),
         entry("wbfm_chain_step", "K10", "wbfm_chain.cu", "wbfm_chain.py:364",
-              wl["fused"]["K10"] + wl["folded"]["K10"], k10_err),
+              wl["fused"]["K10"] + wl["folded"]["K10"] + sharded["K10"],
+              k10_err),
         entry("wbfm_chain_live_step", "K12", "wbfm_chain.cu",
-              "wbfm_chain.py:452", wl["live"]["K12"], k12_err),
+              "wbfm_chain.py:452", wl["live"]["K12"] + sharded["K12"], k12_err),
         entry("fir_tone_step", "K9", "fir_source.cu", "fir_source.py:89",
-              fir["launches"]["live"]["K9"], k9_err),
+              fir["launches"]["live"]["K9"] + sharded["K9"], k9_err),
         entry("fm_chain_step_planes[pipelined]", "K3p", "fm_chain.cu",
               "fm_chain.py:315", k3p["launches"], k3p["err"]),
+        entry("fm_chain_gen_warm_step", "K6", "fm_chain.cu", "fm_chain.py:724",
+              k6_launches, k6_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

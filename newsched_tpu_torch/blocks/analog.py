@@ -1,7 +1,16 @@
 """Analog blocks (reference: newsched_tpu/blocks/analog.py): the noise
 source of the staged flagship; the tone sources, the quadrature demod and
 the fused and live wideband-FM receivers of config #1; the live filtered
-tone of config #0."""
+tone of config #0.
+
+The receiver's fused and live blocks and the live filtered tone shard over
+a mesh's time axis (``work_sharded``, run by the compiler under
+``fg.run(mesh=...)``): each time shard runs the block's kernel on its own
+stretch of the batch. The live blocks need no collective, since a window
+of theirs is a pure function of the phase counter: shard d starts at phase
+ph + dphase * n_loc * d (host arithmetic masked to 32 bits), and only shard
+0 of the stream's first batch has samples before the stream.
+"""
 
 from __future__ import annotations
 
@@ -275,6 +284,33 @@ class wbfm_rcv_fused(_wbfm_chain_block):
             tile=self.tile)
         return {"carry": carry}, {"out": wbfm_chain.unfold_audio(aud)}
 
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        return self.init_state(nin, nout, mesh.device)
+
+    def work_sharded(self, state, ins, params, nout, mesh, axis):
+        """Each time shard folds its own segment and runs K10 on it; its
+        junction is the B8 boundary rows of its left neighbour's fold
+        (shard 0: the carry), and the new carry the last shard's."""
+        if self.input_format == "folded":
+            raise NotImplementedError(
+                "wbfm_rcv_fused(input_format='folded') has per-batch fold "
+                "semantics and does not shard; use input_format='cf32' "
+                "under fg.run(mesh=...)")
+        nd = mesh.shape[axis]
+        x = ins["in"]
+        consts = self.consts(x.device)
+        auds, bots = [], []
+        for d, seg in enumerate(x.chunk(nd)):
+            xp = wbfm_chain.fold_planes(seg)
+            aud, bot = wbfm_chain.wbfm_chain_step(
+                xp, bots[-1] if d else state["carry"], self.plan, consts,
+                tile=self.tile)
+            auds.append(wbfm_chain.unfold_audio(aud))
+            bots.append(bot)
+        # the reference's psum of the last shard's boundary rows, the one
+        # contributor
+        return {"carry": bots[-1]}, {"out": torch.cat(auds)}
+
 
 class sig_source_folded(Block):
     """Tone source emitting the time-folded-lanes rows of the fused
@@ -299,6 +335,14 @@ class sig_source_folded(Block):
 
     def init_state(self, nin, nout, device):
         return {"phase": 0}
+
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        # the folded layout is per batch (segment s of THIS batch in lane
+        # s), so a time shard of the row stream is not one of the samples
+        raise ValueError(
+            f"{type(self).__name__} does not shard under fg.run(mesh=...): "
+            "its folded rows have per-batch semantics. Use wbfm_live_source "
+            "(which shards itself) or the cf32 sig_source path")
 
     def work(self, state, ins, params, nout):
         a = params["amplitude"]
@@ -350,6 +394,34 @@ class wbfm_live_source(_wbfm_chain_block):
         return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
                                           S * R), "first": False},
                 {"out": wbfm_chain.unfold_audio(aud)})
+
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
+        nd = mesh.shape[axis]
+        total = int(nout) * D * Rd
+        if total % (nd * S) or int(nout) % nd:
+            raise ValueError(
+                f"{self.name}: batch of {nout} audio items does not split "
+                f"over mesh time axis {nd} in fold-width units")
+        if (total // nd) // S < self.plan.B8:
+            raise ValueError(
+                f"{self.name}: per-device fold {(total // nd) // S} rows < "
+                f"boundary {self.plan.B8} rows — use a larger batch")
+        return self.init_state(nin, nout, mesh.device)
+
+    def work_sharded(self, state, ins, params, nout, mesh, axis):
+        """K12 per time shard at its own phase offset: zero collectives."""
+        nd = mesh.shape[axis]
+        S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
+        n_loc = int(nout) * D * Rd // nd  # samples a shard
+        ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
+        consts = self.consts(a.device)
+        auds = [wbfm_chain.unfold_audio(wbfm_chain.wbfm_chain_live_step(
+            nco.nco_advance(ph, dp, n_loc * d), dp, a,
+            state["first"] and d == 0, self.plan, consts, n_loc // S,
+            tile=self.tile)) for d in range(nd)]
+        return ({"phase": nco.nco_advance(ph, dp, int(nout) * D * Rd),
+                 "first": False}, {"out": torch.cat(auds)})
 
 
 class fir_tone_source(Block):
@@ -409,3 +481,25 @@ class fir_tone_source(Block):
         return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
                                           fir_source.S * R), "first": False},
                 {"out": fir_source.unfold_complex(out)})
+
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        nd = mesh.shape[axis]
+        if int(nout) % nd:
+            raise ValueError(f"{self.name}: batch {nout} does not split "
+                             f"over mesh time axis {nd}")
+        self._fold_rows(int(nout) // nd)  # per-device geometry check
+        return self.init_state(nin, nout, mesh.device)
+
+    def work_sharded(self, state, ins, params, nout, mesh, axis):
+        """K9 per time shard at its own phase offset: zero collectives."""
+        nd = mesh.shape[axis]
+        n_loc = int(nout) * self.decim // nd  # samples a shard
+        R_loc = self._fold_rows(int(nout) // nd)
+        ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
+        taps = self.dev_taps(a.device)
+        outs = [fir_source.unfold_complex(fir_source.fir_tone_step(
+            nco.nco_advance(ph, dp, n_loc * d), dp, a,
+            state["first"] and d == 0, taps, self.decim, R_loc,
+            tile=self.tile)) for d in range(nd)]
+        return ({"phase": nco.nco_advance(ph, dp, int(nout) * self.decim),
+                 "first": False}, {"out": torch.cat(outs)})

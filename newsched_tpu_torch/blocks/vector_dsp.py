@@ -4,7 +4,9 @@ planes-rows source and adapter, the fused channelizer block, and the live
 flagship's generating source.
 
 As in the reference, one block processes all M channels as one batched
-kernel: the per-channel axis is the kernel's lane axis.
+kernel: the per-channel axis is the kernel's lane axis. The two fused
+blocks also shard over a mesh's time axis (``work_sharded``, run by the
+compiler under ``fg.run(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -243,6 +245,37 @@ class fm_channelizer_fused_planes(_fused_chain):
                  else torch.cat([state["carry"], x])[-self.h8:]).clone()
         return {"carry": carry, "prev": prev, "atail": atail}, {"out": aud}
 
+    # -- graph-level sharding: under fg.run(mesh=...) the block runs
+    # parallel.channelizer.ShardedFMChannelizer.step_planes, K3 per time
+    # shard with warm > 0 after a time_halo of warm + H8 rows.
+
+    def _sharded_pipe(self, mesh, axis):
+        from newsched_tpu_torch.parallel.channelizer import ShardedFMChannelizer
+
+        key = (id(mesh), axis)
+        cache = getattr(self, "_sharded_cache", None)
+        if cache is None or cache[0] != key:
+            proto = np.asarray(self.arm).T.reshape(-1)  # inverse of pfb_arm_taps
+            ch = ShardedFMChannelizer(
+                mesh, self.nchans, proto, self.audio_taps,
+                audio_decim=self.audio_decim, demod_gain=self.gain, axis=axis,
+                chain_precision=self.precision)
+            self._sharded_cache = (key, ch)
+        return self._sharded_cache[1]
+
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        st = self._sharded_pipe(mesh, axis).init_state_planes(nin)
+        return {"carry": st.carry, "prev": st.prev, "atail": st.tail}
+
+    def work_sharded(self, state, ins, params, nout, mesh, axis):
+        from newsched_tpu_torch.parallel.channelizer import PlanesFMState
+
+        st = PlanesFMState(carry=state["carry"], prev=state["prev"],
+                           tail=state["atail"])
+        aud, st2 = self._sharded_pipe(mesh, axis).step_planes(ins["in"], st)
+        return ({"carry": st2.carry, "prev": st2.prev, "atail": st2.tail},
+                {"out": aud})
+
 
 class fm_noise_channelizer_source(_fused_chain):
     """The LIVE flagship as ONE source kernel: Gaussian noise generated
@@ -295,3 +328,68 @@ class fm_noise_channelizer_source(_fused_chain):
                                       n_loc // noise.GROUP_ROWS)
         return ({"ghi": hi, "glo": lo, "carry": carry, "prev": prev,
                  "atail": atail}, {"out": aud})
+
+    # -- graph-level sharding: under fg.run(mesh=...) each time shard d
+    # runs K6 (fm_chain_gen_warm_step) on its own absolute group range,
+    # base (ghi, glo) + d * n_loc / 64, and rebuilds its fold halo and
+    # junction from the stream itself: zero collectives, and the only state
+    # is the 64-bit group counter.
+
+    def _sharded_geometry(self, n_rows_tot: int, n_dev: int):
+        """(rows a shard, the reference's tile and warm) for batches of
+        n_rows_tot rows over n_dev shards; raises where the reference
+        raises."""
+        if n_rows_tot % n_dev:
+            raise ValueError(
+                f"{self.name}: batch rows {n_rows_tot} not divisible by "
+                f"mesh time axis {n_dev}")
+        n_loc = n_rows_tot // n_dev
+        G = noise.GROUP_ROWS
+        if n_loc % G:
+            raise ValueError(
+                f"{self.name}: per-device rows {n_loc} must be a multiple "
+                f"of the noise group ({G} rows)")
+        A = len(self.audio_taps)
+        if self.h8 > G:
+            raise ValueError(
+                f"{self.name}: PFB halo {self.h8} rows exceeds one noise "
+                f"group ({G}): sharded halo regeneration covers one group "
+                f"(taps_per_arm <= {G + 1})")
+        tile = fm_chain._pick_tile(n_loc, min(512, n_loc), self.audio_decim)
+        if tile % G or tile < self.h8 or A - 1 > tile:
+            raise ValueError(
+                f"{self.name}: per-device rows {n_loc} give tile {tile}; "
+                f"need a multiple of {G} with tile >= max(H8 {self.h8}, "
+                f"A-1 {A - 1}) — use a larger batch")
+        warm = tile
+        if warm < -(-A // self.audio_decim) * self.audio_decim:
+            raise ValueError(
+                f"{self.name}: warm {warm} rows cannot rebuild the {A}-tap "
+                f"audio state; use a larger batch")
+        return n_loc, tile, warm
+
+    def init_state_sharded(self, nin, nout, mesh, axis):
+        self._sharded_geometry(int(nout) * self.audio_decim, mesh.shape[axis])
+        return {"ghi": 0, "glo": 0}
+
+    def work_sharded(self, state, ins, params, nout, mesh, axis):
+        from newsched_tpu_torch.parallel.channelizer import kernel_tile
+
+        nd = mesh.shape[axis]
+        n_rows_tot = int(nout) * self.audio_decim
+        n_loc, tile, warm = self._sharded_geometry(n_rows_tot, nd)
+        G = noise.GROUP_ROWS
+        kt = kernel_tile(tile, int(np.lcm(G, self.audio_decim)),
+                         max(self.h8, len(self.audio_taps) - 1))
+        amp = params["amplitude"]
+        consts = self.consts(amp.device)
+        auds = []
+        for d in range(nd):
+            hi, lo = noise.add_groups_signed(state["ghi"], state["glo"],
+                                             d * (n_loc // G))
+            auds.append(fm_chain.fm_chain_gen_warm_step(
+                hi, lo, amp, consts, self.audio_decim, self.gain, n_loc,
+                warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws))
+        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
+                                      n_rows_tot // G)
+        return {"ghi": hi, "glo": lo}, {"out": torch.cat(auds)}

@@ -16,7 +16,10 @@ the live FIR and wideband-FM sources' included) and those live sources'
 ``first`` flag become the host ints and bool the port keeps. NamedTuple states (``PfbState``, ``FirState``,
 ``QuadDemodState``; ``RotatorState``, whose uint32 phase becomes a host
 int) become the port's NamedTuples of the same name and fields, also
-inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``). The reference
+inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``); so do the
+sharded channelizer's ``ShardedFMState`` and ``PlanesFMState``
+(parallel/channelizer.py keeps the reference's layouts, a carry block per
+shard), so a sharded stream too can be handed over mid-stream. The reference
 noise sources' threefry ``key`` state has no counterpart (its bits are
 jax's key chaining) and raises.
 """
@@ -31,10 +34,12 @@ import torch
 from newsched_tpu_torch.ops.analog import QuadDemodState, RotatorState
 from newsched_tpu_torch.ops.fir import FirState
 from newsched_tpu_torch.ops.pfb import PfbState
+from newsched_tpu_torch.parallel.channelizer import PlanesFMState, ShardedFMState
 
 _HOST_INTS = ("pos", "ghi", "glo", "phase")
 _NAMED = {cls.__name__: cls
-          for cls in (PfbState, FirState, QuadDemodState, RotatorState)}
+          for cls in (PfbState, FirState, QuadDemodState, RotatorState,
+                      PlanesFMState, ShardedFMState)}
 
 
 def _tensor(v, device) -> torch.Tensor:

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernels newsched_tpu/ops/pallas/fm_chain.py
 // `fm_chain_step_planes` (`_kernel`, `_compute_tile`; K3 here), its
-// pipelined variant (`_kernel_pipe`, `pipelined=True`; K3p here) and
-// `fm_chain_gen_step` (`_kernel_gen`; K5 here); their device function
+// pipelined variant (`_kernel_pipe`, `pipelined=True`; K3p here),
+// `fm_chain_gen_step` (`_kernel_gen`; K5 here) and its stateless per-shard
+// form `fm_chain_gen_warm_step` (`_kernel_gen_warm`; K6 here); their device
+// function
 // newsched_tpu/ops/pallas/mathfns.py `atan2` is in mathfns.cuh. Per
 // stream row t:
 //
@@ -16,8 +18,21 @@
 // with vp = [halo; vb] (the H8 rows before the batch, then the batch),
 // Y[-1] = prev0 and aud[t<0] from tail0, the carried state.
 //
-// The two kernels differ only in where a block's input rows come from. K3
-// reads vb and halo from device memory. K5 generates them: row t >= 0 of
+// Stream start: rows t < t_min are before the stream (a kernel argument;
+// 0 for the carried forms): their acc is 0, Y[t_min-1] is prev0 and aud
+// there comes from tail0. The sharded forms move it. K3 with warm > 0 (a
+// time shard of the fused graph) gets a halo of warm + H8 real rows before
+// its batch and t_min far in the past, so every block rebuilds its junction
+// from the halo's rows, prev0/tail0 unread: the same values, by the same
+// code, as the unsharded stream's, where the reference recomputes `warm`
+// rows from a zero junction and drops them. K6 (a time shard of the live
+// source) generates every row it reads, at any signed offset from its
+// shard's base group, with groups before the stream reading 0, and puts
+// t_min at the stream's first row when that lies within reach (shard 0 of
+// the first batch), so it computes what K5 computes at the same rows.
+//
+// The kernels differ only in where a block's input rows come from. K3
+// reads vb and halo from device memory. K5 (and K6) generate them: row t >= 0 of
 // the batch is amp * gauss(seed, group g0, row t, lane) (philox.cuh, the
 // stream of the noise kernel K4), and the halo comes from carry0, the
 // previous batch's last H8 generated rows (zeros at stream start); K5
@@ -92,6 +107,7 @@ struct Chain {
   float* prev_out;     // (1, W)
   float* tail_out;     // (A-1, W)
   int n, L, H8, A, decim, T;
+  int t_min;  // the stream's first row, relative to the batch
   float gain;
   AtanCoeffs co;
 };
@@ -123,7 +139,7 @@ __host__ __device__ __forceinline__ int tile_rows(int T, int A, int L) {
 
 // Arm fold of nrows rows, kChunkRows rows a pass (npad rows, a multiple of
 // kChunkRows, >= nrows): dst row jj = sum_q c2[q] * src row jj + q, 0 where
-// t_first + jj < 0 (before the stream) or jj >= nrows. In place when
+// t_first + jj < t_min (before the stream) or jj >= nrows. In place when
 // dst == src: every read of a pass (rows r0 .. r0+31+L-1) happens before
 // its writes (rows r0 .. r0+31), and later passes read only rows past
 // r0+31. Per lane: c2[0]*v, then fmaf in order.
@@ -140,7 +156,7 @@ __device__ __forceinline__ void fold_rows(const float* src, float* dst,
     for (int e = 0; e < kPer; ++e) {
       const int jj = r0 + h * kPer + e;
       v[e] = 0.f;
-      if (jj < nrows && t_first + jj >= 0) {
+      if (jj < nrows && t_first + jj >= p.t_min) {
         float acc = __ldg(p.c2 + k) * src[jj * W + k];
         for (int q = 1; q < p.L; ++q)
           acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
@@ -205,9 +221,11 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
           make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
     __syncthreads();
   }
-  if (kRebuild && t0 < A)
-    for (int k = tid; k < W; k += kThreads)
-      buf[(A - 1 - t0) * W + k] = p.prev0[k];
+  if (kRebuild) {
+    const int jp = p.t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
+    if (jp >= 0 && jp < R)
+      for (int k = tid; k < W; k += kThreads) buf[jp * W + k] = p.prev0[k];
+  }
   if (last || ynext)
     for (int k = tid; k < W; k += kThreads) {
       const float y = buf[(R - 1) * W + k];
@@ -232,8 +250,8 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
       val[e] = 0.f;
       if (jj < hi) {
         const int t = t0 - A + jj;
-        if (t < 0) {
-          val[e] = p.tail0[(A - 1 + t) * W + m];
+        if (t < p.t_min) {
+          val[e] = p.tail0[(A - 1 + t - p.t_min) * W + m];
         } else {
           const float* pa = !kRebuild && jj == jlo ? yprev : buf + (jj - 1) * W;
           const float* py = buf + jj * W;
@@ -273,33 +291,36 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
   }
 }
 
-// The tile of a kernel that rebuilds every junction (K3, K5).
+// The tile of a kernel that rebuilds every junction (K3, K5, K6); the
+// last block writes the end state where the kernel returns one.
 template <class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                                              Row row) {
-  chain_tile<true>(buf, p, blockIdx.x * p.T, blockIdx.x == gridDim.x - 1,
+  chain_tile<true>(buf, p, blockIdx.x * p.T,
+                   blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr,
                    nullptr, nullptr, nullptr, row, [] {});
 }
 
-// K3's and K3p's input rows: read from memory, vp = [halo; vb].
+// K3's and K3p's input rows: read from memory, vp = [halo; vb], the halo
+// the hrows rows before the batch (H8, or warm + H8 for a time shard).
 struct HaloRows {
   const float* vb;
   const float* halo;
-  int H8;
+  int hrows;
   __device__ __forceinline__ float operator()(int sr, int k) const {
-    const int i = sr + H8;  // row of vp
+    const int i = sr + hrows;  // row of vp
     if (i < 0) return 0.f;
-    return i < H8 ? __ldg(halo + i * kW + k)
-                  : __ldg(vb + (long long)(i - H8) * kW + k);
+    return i < hrows ? __ldg(halo + i * kW + k)
+                     : __ldg(vb + (long long)(i - hrows) * kW + k);
   }
 };
 
 // K3: input rows read from memory, vp = [halo; vb].
 __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
-                Chain p) {
+                int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile(buf, p, HaloRows{vb, halo, p.H8});
+  rebuilt_tile(buf, p, HaloRows{vb, halo, hrows});
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
@@ -316,6 +337,19 @@ fm_chain_gen_kernel(philox::Stream s, const float* __restrict__ amp,
     const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
     if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
     return v;
+  });
+}
+
+// K6: K5 with nothing carried in or out: every row a block reads, before
+// the batch too, generated from its signed offset to the base group (the
+// stream masks groups before its start to 0).
+__global__ void __launch_bounds__(kThreads)
+fm_chain_gen_warm_kernel(philox::Stream s, const float* __restrict__ amp,
+                         Chain p) {
+  extern __shared__ __align__(16) float buf[];
+  const float a = amp[0];
+  rebuilt_tile(buf, p, [&](int sr, int k) {
+    return __fmul_rn(philox::gauss(s, sr, k, kW), a);
   });
 }
 
@@ -345,7 +379,8 @@ __device__ __forceinline__ void wait_window() {
 // before computed.
 __global__ void __launch_bounds__(kThreads)
 fm_chain_pipe_kernel(const float* __restrict__ vb,
-                     const float* __restrict__ halo, Chain p, int G) {
+                     const float* __restrict__ halo, int hrows, Chain p,
+                     int G) {
   extern __shared__ __align__(16) float sm[];
   constexpr int W = kW, M = kM;
   const int T = p.T, A = p.A, L = p.L;
@@ -358,7 +393,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
   float* yrows = stage + (T + L - 1) * W;  // Y[t0-1] and Y[t0+T-1], by turns
   const int win = (T + L - 1) * W;
 
-  const HaloRows row{vb, halo, p.H8};
+  const HaloRows row{vb, halo, hrows};
   if (g0 + 1 < g1)
     prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
   chain_tile<true>(buf, p, g0 * T, g0 == NT - 1, nullptr, yrows, nullptr, row,
@@ -384,11 +419,24 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
 Chain make_chain(const float* prev0, const float* tail0, const float* c2,
                  const float* w2, const float* ataps, float* aud,
                  float* prev_out, float* tail_out, int n, int L, int H8,
-                 int A, int decim, int T, float gain,
+                 int A, int decim, int T, int t_min, float gain,
                  const float* atan_coeffs) {
-  return Chain{c2,       w2, ataps, prev0, tail0, aud,   prev_out,
-               tail_out, n,  L,     H8,    A,     decim, T,
-               gain,     mathfns::load_atan(atan_coeffs)};
+  return Chain{c2,    w2,    ataps, prev0, tail0,
+               aud,   prev_out, tail_out, n, L,
+               H8,    A,     decim, T,     t_min,
+               gain,  mathfns::load_atan(atan_coeffs)};
+}
+
+// The chain kernels' launch: the shared memory the tile buffer takes
+// (above 48 KB only once the kernel is allowed it), then one block a tile.
+template <class Kernel, class... Args>
+int launch_tiles(Kernel kernel, size_t smem, int blocks, void* stream,
+                 Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -397,17 +445,16 @@ extern "C" int fm_chain_planes_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
     const float* c2, const float* w2, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
-    int decim, int T, float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)tile_rows(T, A, L) * kW * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fm_chain_kernel<<<n / T, kThreads, smem, (cudaStream_t)stream>>>(
-      vb, halo,
+    int decim, int T, int hrows, int t_min, float gain,
+    const float* atan_coeffs, void* stream) {
+  // every block's window must lie in [halo; vb]
+  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_tiles(
+      fm_chain_kernel, (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T,
+      stream, vb, halo, hrows,
       make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
-                 H8, A, decim, T, gain, atan_coeffs));
-  return (int)cudaGetLastError();
+                 H8, A, decim, T, t_min, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_gen_launch(
@@ -419,43 +466,50 @@ extern "C" int fm_chain_gen_launch(
     float gain, const float* atan_coeffs, void* stream) {
   if (2 * M != kW || (draws != 2 && draws != 3))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)tile_rows(T, A, L) * kW * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_gen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
-                         inv_std};
-  fm_chain_gen_kernel<<<n / T, kThreads, smem, (cudaStream_t)stream>>>(
-      s, amp, carry0, carry_out,
+                         inv_std, 0};
+  return launch_tiles(
+      fm_chain_gen_kernel, (size_t)tile_rows(T, A, L) * kW * sizeof(float),
+      n / T, stream, s, amp, carry0, carry_out,
       make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
-                 H8, A, decim, T, gain, atan_coeffs));
-  return (int)cudaGetLastError();
+                 H8, A, decim, T, 0, gain, atan_coeffs));
+}
+
+extern "C" int fm_chain_gen_warm_launch(
+    uint32_t g_lo, uint32_t g_hi, uint32_t k0, uint32_t k1, int draws,
+    float mean, float inv_std, const float* amp, const float* prev0,
+    const float* tail0, const float* c2, const float* w2, const float* ataps,
+    float* aud, int n, int M, int L, int H8, int A, int decim, int T,
+    int t_min, float gain, const float* atan_coeffs, void* stream) {
+  if (2 * M != kW || (draws != 2 && draws != 3) || t_min > 0)
+    return (int)cudaErrorInvalidValue;
+  const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
+                         inv_std, 1};
+  return launch_tiles(
+      fm_chain_gen_warm_kernel,
+      (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T, stream, s, amp,
+      make_chain(prev0, tail0, c2, w2, ataps, aud, nullptr, nullptr, n, L, H8,
+                 A, decim, T, t_min, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_pipe_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
     const float* c2, const float* w2, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
-    int decim, int T, int G, float gain, const float* atan_coeffs,
-    void* stream) {
+    int decim, int T, int hrows, int t_min, int G, float gain,
+    const float* atan_coeffs, void* stream) {
   // later tiles: whole DFT passes, a window inside vb, a tail below row A
   if (2 * M != kW || T % kChunkRows || T < A - 1 || T < L - 1 || n % T ||
-      G < 1 || (uintptr_t)vb % 16)
+      G < 1 || (uintptr_t)vb % 16 || hrows < H8 ||
+      (t_min < 0 && hrows < A + L - 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kW * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n / T + G - 1) / G;
-  fm_chain_pipe_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      vb, halo,
+  return launch_tiles(
+      fm_chain_pipe_kernel,
+      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kW * sizeof(float),
+      (n / T + G - 1) / G, stream, vb, halo, hrows,
       make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
-                 H8, A, decim, T, gain, atan_coeffs),
+                 H8, A, decim, T, t_min, gain, atan_coeffs),
       G);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int atan2_launch(const float* y, const float* x, float* out,

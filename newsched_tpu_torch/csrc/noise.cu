@@ -39,7 +39,8 @@ __global__ void gaussian_rows_kernel(float* __restrict__ out, long long n_rows,
 extern "C" int gaussian_rows_launch(float* out, long long n_rows, int width,
                                     uint32_t g_lo, uint32_t g_hi, uint32_t k0,
                                     uint32_t k1, int draws, float mean,
-                                    float inv_std, void* stream) {
+                                    float inv_std, int mask_pre,
+                                    void* stream) {
   if (draws != 2 && draws != 3) return (int)cudaErrorInvalidValue;
   const long long total = n_rows * width;
   const int threads = 256;
@@ -47,7 +48,7 @@ extern "C" int gaussian_rows_launch(float* out, long long n_rows, int width,
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
   const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
-                         inv_std};
+                         inv_std, mask_pre};
   gaussian_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       out, n_rows, width, s);
   return (int)cudaGetLastError();

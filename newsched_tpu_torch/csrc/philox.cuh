@@ -3,10 +3,11 @@
 // two produce the same bits for the same (seed, row, lane).
 //
 // Element (row, k) of a stream of `width` lanes, with row counted from the
-// first row of group g0:
+// first row of group g0 (of either sign: a row before g0 lies in an
+// earlier group):
 //   key     = the stream seed (low, high 32 bits),
-//   counter = ((row % 64) * width + k, group lo, group hi, 0),
-//             group = g0 + row / 64 (64-bit),
+//   counter = ((row mod 64) * width + k, group lo, group hi, 0),
+//             group = g0 + floor(row / 64) (64-bit, two's complement),
 // then Philox4x32-10, and the Irwin-Hall N = 2*draws transform of its first
 // `draws` words (sum of their uint16 halves, then (S - mean) * inv_std).
 // The sum is an exact integer and the transform one correctly rounded
@@ -49,13 +50,18 @@ struct Stream {
   uint32_t k0, k1; // seed
   int draws;       // 2 or 3 Philox words per element
   float mean, inv_std;
+  int mask_pre;    // groups negative as signed (before the stream) read 0
 };
 
-// Standard-normal element (row, k), row >= 0 counted from group g0.
+// Standard-normal element (row, k), row counted from group g0. C division
+// truncates toward zero, so the group of a negative row is taken by floor
+// division: row -1 is the last row of group g0 - 1, not row -1 of g0.
 __device__ __forceinline__ float gauss(const Stream& s, long long row, int k,
                                        int width) {
-  const uint64_t g = s.g0 + (uint64_t)(row / kGroupRows);
-  uint32_t c[4] = {(uint32_t)((row % kGroupRows) * width + k), (uint32_t)g,
+  const long long q = (row >= 0 ? row : row - (kGroupRows - 1)) / kGroupRows;
+  const uint64_t g = s.g0 + (uint64_t)q;
+  if (s.mask_pre && (long long)g < 0) return 0.f;
+  uint32_t c[4] = {(uint32_t)((row - q * kGroupRows) * width + k), (uint32_t)g,
                    (uint32_t)(g >> 32), 0u};
   philox4x32_10(c, s.k0, s.k1);
   uint32_t sum = 0;

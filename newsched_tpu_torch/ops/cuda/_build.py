@@ -37,15 +37,20 @@ _LL = ctypes.c_longlong
 # C signature of every launcher: (argtypes); all return a cudaError_t as int.
 SIGNATURES = {
     # noise.cu
-    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _I, _F, _F, _P],
+    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _I, _F, _F, _I, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                               _P],
     "fm_chain_pipe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                             _P],
     "fm_chain_gen_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P, _P],
+    "fm_chain_gen_warm_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P,
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _P, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],

@@ -1,7 +1,8 @@
 """The FM channelizer chain as ONE kernel (reference:
 newsched_tpu/ops/pallas/fm_chain.py ``fm_chain_step_planes``, with its
-``pipelined`` variant, and ``fm_chain_gen_step``, the same chain with its
-input generated inside).
+``pipelined`` variant and its ``warm`` recompute for time shards,
+``fm_chain_gen_step``, the same chain with its input generated inside, and
+``fm_chain_gen_warm_step``, that one's stateless per-shard form).
 
 Fuses the flagship model's whole per-batch pipeline (BASELINE config #2:
 M-channel PFB -> per-channel quadrature demod -> per-channel decimating
@@ -43,6 +44,9 @@ _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
 _SM_THREADS = 2048  # threads an SM holds
 _THREADS = 256  # threads of a chain block
+# t_min of a batch whose rows before it are all real stream rows: further
+# back than any block reaches, so no block takes the stream-start branch
+_FAR_PAST = -(1 << 30)
 
 
 def _round8(n: int) -> int:
@@ -101,9 +105,17 @@ def fm_chain_consts(arm_c: np.ndarray, ataps: np.ndarray,
 
 
 def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
-                               decim: int, gain: float):
-    """The plain PyTorch version of ``fm_chain_step_planes`` (warm=0):
-    the same sums, written over whole tensors."""
+                               decim: int, gain: float, warm: int = 0):
+    """The plain PyTorch version of ``fm_chain_step_planes``: the same sums,
+    written over whole tensors. warm > 0 keeps the reference's own
+    formulation: the halo's last ``warm`` rows run through the chain from
+    the junction state passed (zeros) and their audio is dropped."""
+    if warm:
+        H8 = halo.shape[0] - warm
+        aud, prev, tail = fm_chain_step_planes_plain(
+            torch.cat([halo[H8:], vb]), halo[:H8], prev0, tail0, consts, decim,
+            gain)
+        return aud[warm // decim:], prev, tail
     L, W = consts.c2.shape
     M = W // 2
     A = consts.ataps.shape[0]
@@ -136,14 +148,21 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
     Args:
       vb: (n, 2M) f32 — this batch's planes rows.
-      halo: (H8, 2M) f32 — the rows immediately PRECEDING vb in stream order
-        (zeros at stream start); H8 = round8(L-1). Only its last L-1 rows
-        feed the fold. Next batch's halo is vb's own last H8 rows.
-      prev0/tail0: (1, 2M) / (A-1, 2M) f32 carried demod/audio state.
+      halo: (warm + H8, 2M) f32 — the rows immediately PRECEDING vb in
+        stream order (zeros at stream start); H8 = round8(L-1). With warm 0
+        only its last L-1 rows feed the fold. Next batch's halo is vb's own
+        last warm + H8 rows.
+      prev0/tail0: (1, 2M) / (A-1, 2M) f32 carried demod/audio state; with
+        warm > 0 pass zeros: the state is rebuilt from the halo.
       consts: ``fm_chain_consts(arm_c, ataps, device)``.
       decim: audio decimation; gain: demod gain.
-      warm: 0. (The reference's warm-up recompute serves the sharded
-        flagship, a later slice.)
+      warm: 0, or (a time shard, which carries no state) a multiple of the
+        tile >= ceil(A/decim)*decim: the reference recomputes that many
+        rows of output before the batch from a zero junction and drops
+        them. The kernel instead rebuilds each block's junction from the
+        halo's rows, as it does inside a batch, so the audio equals the
+        unsharded stream's bit for bit and no row is computed only to be
+        dropped. The returned prev/tail are the true end-of-batch state.
       tile: rows per CUDA block tile (shrunk to a divisor of n as the
         reference does; decim must divide it). Outputs do not depend on it.
         None: 128, the faster of 128 and 256 at the flagship shape on an
@@ -162,9 +181,6 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3), or with
     ``pipelined`` ``fm_chain_pipe_launch`` (K3p).
     """
-    if int(warm) != 0:
-        raise NotImplementedError(
-            "warm > 0 (the sharded flagship's recompute) is not ported yet")
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     L, W = (int(d) for d in consts.c2.shape)
@@ -172,24 +188,30 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     A = int(consts.ataps.shape[0])
     n = int(vb.shape[0])
     H8 = _round8(L - 1)
+    warm = int(warm)
     tile = _pick_tile(n, tile or (64 if pipelined else 128), decim)
+    if warm:
+        _check_warm(warm, tile, A, decim)
     if A - 1 > tile:
         raise ValueError(f"audio tail {A-1} exceeds tile {tile}")
     if tile < H8:
         raise ValueError(f"tile {tile} < H8 {H8} (batch rows must be >= {H8})")
-    if int(halo.shape[0]) != H8:
-        raise ValueError(f"halo rows {halo.shape[0]} != H8 = {H8}")
+    if int(halo.shape[0]) != warm + H8:
+        raise ValueError(f"halo rows {halo.shape[0]} != warm+H8 = {warm + H8}")
     if pipelined and (tile % 32 or tile < L - 1):
         raise ValueError(f"pipelined: tile {tile} must be a multiple of 32 "
                          f"and >= L-1 = {L - 1}")
     if vb.device.type == "cpu":
         return fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts,
-                                          decim, gain)
+                                          decim, gain, warm)
+    t_min = _FAR_PAST if warm else 0
     if pipelined:
-        return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None)
+        return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None,
+                     t_min)
     _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
     dev = vb.device
-    _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (H8, W))],
+    _check_chain_tensors(dev, [("vb", vb, (n, W)),
+                               ("halo", halo, (warm + H8, W))],
                          prev0, tail0, consts)
     aud, prev, tail = _chain_outputs(n, decim, M, A, dev)
     with torch.cuda.device(dev):
@@ -197,8 +219,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
             tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
-            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, float(gain),
-            ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, warm + H8,
+            t_min, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_planes_launch")
     fm_chain_step_planes.launches += 1
@@ -206,6 +228,17 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
 
 fm_chain_step_planes.launches = 0
+
+
+def _check_warm(warm: int, tile: int, A: int, decim: int) -> None:
+    """The reference's conditions on ``warm``."""
+    if warm % tile:
+        raise ValueError(f"warm {warm} must be a multiple of tile {tile}")
+    need = -(-A // decim) * decim
+    if warm < need:
+        raise ValueError(
+            f"warm {warm} too small: need >= ceil(A/decim)*decim = {need} "
+            f"recomputed rows to rebuild demod+audio state")
 
 
 def _pipe_smem(tile: int, A: int, L: int, W: int) -> int:
@@ -223,17 +256,19 @@ def _pipe_tiles_per_block(n_tiles: int, smem: int, sms: int) -> int:
 
 
 def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
-          gain: float, tile: int, tiles_per_block: int | None):
+          gain: float, tile: int, tiles_per_block: int | None,
+          t_min: int = 0):
     """Launch K3p (``fm_chain_step_planes(pipelined=True)``); the tiles a
     block walks default to ``_pipe_tiles_per_block`` and change no output
-    bit."""
+    bit. ``t_min``: 0, or ``_FAR_PAST`` for a time shard (warm > 0)."""
     L, W = (int(d) for d in consts.c2.shape)
     M, A, n = W // 2, int(consts.ataps.shape[0]), int(vb.shape[0])
     H8 = _round8(L - 1)
+    hrows = int(halo.shape[0])
     smem = _pipe_smem(tile, A, L, W)
     _check_kernel_shape(W, tile, smem // (W * 4))
     dev = vb.device
-    _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (H8, W))],
+    _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (hrows, W))],
                          prev0, tail0, consts)
     if vb.data_ptr() % 16:
         raise ValueError("vb: the pipelined kernel copies 16-byte words; "
@@ -246,8 +281,8 @@ def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
             tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
-            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, int(G),
-            float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, hrows, t_min,
+            int(G), float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_pipe_launch")
     fm_chain_step_planes.pipe_launches += 1
@@ -371,3 +406,106 @@ def fm_chain_gen_step(ghi: int, glo: int, amp, carry0: torch.Tensor,
 
 
 fm_chain_gen_step.launches = 0
+
+
+def _zero_state(dev, A: int, W: int) -> tuple:
+    """Zero (1, W) and (A-1, W) junction rows on ``dev``, made once: the
+    stream-start state K6 reads at the stream's first row."""
+    key = (dev, A, W)
+    if key not in _ZEROS:
+        _ZEROS[key] = (torch.zeros((1, W), dtype=torch.float32, device=dev),
+                       torch.zeros((A - 1, W), dtype=torch.float32, device=dev))
+    return _ZEROS[key]
+
+
+_ZEROS: dict = {}
+
+
+def fm_chain_gen_warm_step_plain(ghi: int, glo: int, amp, consts: FmChainConsts,
+                                 decim: int, gain: float, n_loc: int,
+                                 warm: int, seed: int = 0, draws: int = 3):
+    """The plain PyTorch version of ``fm_chain_gen_warm_step``, the
+    reference's own non-hardware formulation: the stream's rows
+    [base - warm - H8, base + n_loc) (groups before the stream read 0),
+    scaled by ``amp``, through K3's warm > 0 plain version from a zero
+    junction."""
+    L, W = (int(d) for d in consts.c2.shape)
+    A = int(consts.ataps.shape[0])
+    hr = warm + _round8(L - 1)
+    dev = consts.c2.device
+    rows = noise.gaussian_rows_plain(ghi, glo, n_rows=hr + n_loc, width=W,
+                                     seed=seed, device=dev, draws=draws,
+                                     mask_pre=True, row0=-hr) \
+        * torch.as_tensor(amp, dtype=torch.float32, device=dev)
+    z1, zt = _zero_state(dev, A, W)
+    aud, _, _ = fm_chain_step_planes_plain(rows[hr:], rows[:hr], z1, zt, consts,
+                                           decim, gain, warm)
+    return aud
+
+
+def fm_chain_gen_warm_step(ghi: int, glo: int, amp, consts: FmChainConsts,
+                           decim: int, gain: float, n_loc: int, *, warm: int,
+                           tile: int = 128, seed: int = 0, draws: int = 3):
+    """One SEGMENT of the live chain with no carried state at all: the
+    audio of stream rows [G*64, G*64 + n_loc) of the noise stream, G =
+    (ghi, glo) (host ints), x ``amp``. The sharded live flagship's
+    per-shard step: a shard passes its own base group and needs no input,
+    no carries and no collectives.
+
+    The reference regenerates its fold halo and recomputes ``warm`` rows of
+    output from a zero junction, then drops them. Each CUDA block here
+    already rebuilds its junction from the rows before its tile, so K6
+    generates exactly those rows (before the base too, groups before the
+    stream reading 0) and computes nothing it drops: ``warm`` is checked
+    as the reference checks it (a multiple of the tile, at least
+    ceil(A/decim)*decim) and not otherwise used. The audio equals K5's at
+    the same rows bit for bit: the same routine on the same rows, and where
+    the shard starts at the stream's first row the same stream-start state.
+
+    tile: rows per CUDA block, shrunk to a divisor of n_loc; a multiple of
+    64 rows and of decim, as the reference requires. Outputs do not depend
+    on it. Returns audio (n_loc//decim, M) f32.
+
+    ``consts`` on the CPU take the plain version; on a CUDA device this
+    launches ``fm_chain_gen_warm_launch`` (csrc/fm_chain.cu, K6).
+    """
+    L, W = (int(d) for d in consts.c2.shape)
+    M = W // 2
+    A = int(consts.ataps.shape[0])
+    n_loc, warm = int(n_loc), int(warm)
+    H8 = _round8(L - 1)
+    tile = _pick_tile(n_loc, tile, decim)
+    _check_warm(warm, tile, A, decim)
+    if tile % noise.GROUP_ROWS:
+        raise ValueError(f"tile {tile} not a multiple of the noise group "
+                         f"({noise.GROUP_ROWS} rows)")
+    if A - 1 > tile or tile < H8:
+        raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
+    if H8 > noise.GROUP_ROWS:
+        raise ValueError(f"H8 {H8} > one noise group ({noise.GROUP_ROWS} "
+                         f"rows): first-tile halo regeneration spans one group")
+    dev = consts.c2.device
+    if dev.type == "cpu":
+        return fm_chain_gen_warm_step_plain(ghi, glo, amp, consts, decim, gain,
+                                            n_loc, warm, seed, draws)
+    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
+    amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
+    z1, zt = _zero_state(dev, A, W)
+    _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)
+    args = noise.stream_args(ghi, glo, seed, draws)
+    # the stream's first row relative to the base, where a block can reach it
+    t_min = max(_FAR_PAST, min(0, -noise.group64(ghi, glo) * noise.GROUP_ROWS))
+    aud = torch.empty((n_loc // decim, M), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().fm_chain_gen_warm_launch(
+            *args, amp.data_ptr(), z1.data_ptr(), zt.data_ptr(),
+            consts.c2.data_ptr(), consts.w2.data_ptr(), consts.ataps.data_ptr(),
+            aud.data_ptr(), n_loc, M, L, H8, A, int(decim), tile, t_min,
+            float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fm_chain_gen_warm_launch")
+    fm_chain_gen_warm_step.launches += 1
+    return aud
+
+
+fm_chain_gen_warm_step.launches = 0

@@ -25,7 +25,11 @@ agree bit for bit on any device.
 
 The 64-bit group counter is carried as two int32 halves (hi, lo) with the
 reference's uint32 wrap of lo into hi; here they are host ints, since the
-stream position of every batch is known before it is generated.
+stream position of every batch is known before it is generated. A row may
+lie before its base group (a sharded step reaches back into the rows
+before its shard): its group is base + floor(row / 64), and with
+``mask_pre`` a group whose 64-bit index is negative as signed (before the
+stream's first row) reads 0, as the reference's ``gen_rows(mask_pre=True)``.
 """
 
 from __future__ import annotations
@@ -61,11 +65,20 @@ def group64(hi: int, lo: int) -> int:
     return (int(hi) << 32) | (int(lo) & _M32)
 
 
+def add_groups_signed(hi: int, lo: int, off: int) -> tuple[int, int]:
+    """64-bit group-counter add of a SIGNED offset as two int32 halves, in
+    two's complement (reference ``noise.add_groups_signed``): a sharded step
+    steps back from a shard's base group to the rows before it, which may
+    cross zero on the first batch (hi goes negative: the pre-stream
+    region)."""
+    g = group64(hi, lo) + int(off)
+    return _i32(g >> 32), _i32(g)
+
+
 def advance_groups(hi: int, lo: int, n_groups: int) -> tuple[int, int]:
     """64-bit group-counter advance as two int32 halves (uint32 wraparound
     of lo carries into hi) — the source block's per-batch state update."""
-    g = group64(hi, lo) + int(n_groups)
-    return _i32(g >> 32), _i32(g)
+    return add_groups_signed(hi, lo, n_groups)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -109,29 +122,40 @@ def stream_args(g0_hi: int, g0_lo: int, seed: int, draws: int) -> list:
 
 
 def gaussian_rows_plain(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                        seed: int, device, draws: int = 3) -> torch.Tensor:
-    """The plain PyTorch version of ``gaussian_rows``."""
+                        seed: int, device, draws: int = 3,
+                        mask_pre: bool = False, row0: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of ``gaussian_rows``, for the rows
+    [row0, row0 + n_rows) counted from the first row of group (g0_hi,
+    g0_lo); row0 may be negative and n_rows need not fill whole groups
+    (the row loader of the generating kernels, csrc/philox.cuh ``gauss``)."""
     mean, std = _ih_const(_check_draws(draws))
-    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+    rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
+                        device=device)[:, None]
     cols = torch.arange(width, dtype=torch.int64, device=device)[None, :]
-    g = group64(g0_hi, g0_lo) + rows // GROUP_ROWS
-    c0 = (rows % GROUP_ROWS) * width + cols
+    grp = torch.div(rows, GROUP_ROWS, rounding_mode="floor")
+    g = group64(g0_hi, g0_lo) + grp
+    c0 = (rows - grp * GROUP_ROWS) * width + cols
     c1 = (g & _M32).expand(n_rows, width)
     c2 = ((g >> 32) & _M32).expand(n_rows, width)
     c3 = torch.zeros_like(c0)
     words = _philox4x32_10(c0, c1, c2, c3, *_key(seed))
     s = sum((w & 0xFFFF) + (w >> 16) for w in words[:draws])
     f32 = dict(dtype=torch.float32, device=device)
-    return (s.to(torch.float32) - torch.tensor(mean, **f32)) \
+    out = (s.to(torch.float32) - torch.tensor(mean, **f32)) \
         * torch.tensor(1.0 / std, **f32)
+    if mask_pre:
+        out = torch.where(g < 0, torch.zeros((), **f32), out)
+    return out
 
 
 def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                  seed: int, device, draws: int = 3) -> torch.Tensor:
+                  seed: int, device, draws: int = 3,
+                  mask_pre: bool = False) -> torch.Tensor:
     """(n_rows, width) f32 standard-normal rows for the absolute row span
     starting at group G = (g0_hi, g0_lo), the 64-row group index as two
     int32 halves, from ``draws`` Philox words per element (3 or 2). Scale
-    by amplitude outside.
+    by amplitude outside. ``mask_pre``: groups before the stream (negative
+    as signed 64-bit) read 0.
 
     On a CPU device this is the plain version; on a CUDA device it
     launches ``gaussian_rows_launch`` (csrc/noise.cu)."""
@@ -140,14 +164,15 @@ def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
     device = torch.device(device)
     if device.type == "cpu":
         return gaussian_rows_plain(g0_hi, g0_lo, n_rows=n_rows, width=width,
-                                   seed=seed, device=device, draws=draws)
+                                   seed=seed, device=device, draws=draws,
+                                   mask_pre=mask_pre)
     if device.type != "cuda":
         raise ValueError(f"gaussian_rows runs on cpu or cuda, not {device}")
     args = stream_args(g0_hi, g0_lo, seed, draws)
     out = torch.empty((n_rows, width), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = _build.lib().gaussian_rows_launch(
-            out.data_ptr(), n_rows, width, *args,
+            out.data_ptr(), n_rows, width, *args, int(bool(mask_pre)),
             torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "gaussian_rows_launch")
     gaussian_rows.launches += 1

@@ -15,6 +15,12 @@ solved once, statically:
      (states, sink_outputs) that the runner calls once per batch.
 
 Steps 1-3 are the reference's code unchanged (pure Python).
+
+Under a mesh of logical shards (parallel/mesh.py) the same graph compiles
+to a sharded step: the batch is a multiple of the time axis, a block that
+defines ``work_sharded`` (and ``init_state_sharded``) runs its own
+per-shard formulation, and every other block runs on the whole-batch
+tensor, which computes what the reference's SPMD partitioner computes.
 """
 
 from __future__ import annotations
@@ -47,11 +53,23 @@ class CompiledFlowgraph:
     sink_totals: dict[str, int | None]  # sink block name -> total input items
     sink_leads: dict[str, int]  # sink block name -> leading items to drop
     step: Callable[[dict, dict], tuple[dict, dict]]
+    mesh: Any = None  # parallel.mesh.Mesh the step shards over (None: one)
+    time_axis: str | None = None
 
     def init_states(self, device) -> dict[str, Any]:
-        return {b.name: b.init_state(self.n_in[b.name], self.n_out[b.name],
-                                     device)
-                for b in self.order}
+        """Each block's initial state on ``device``; under a mesh whose
+        time axis is > 1 (the size ``build_step`` selects ``work_sharded``
+        by), a block's ``init_state_sharded`` where it has one."""
+        n_time = self.mesh.shape[self.time_axis] if self.mesh is not None else 1
+        out: dict[str, Any] = {}
+        for b in self.order:
+            nin, nout = self.n_in[b.name], self.n_out[b.name]
+            if n_time > 1 and hasattr(b, "init_state_sharded"):
+                out[b.name] = b.init_state_sharded(nin, nout, self.mesh,
+                                                   self.time_axis)
+            else:
+                out[b.name] = b.init_state(nin, nout, device)
+        return out
 
     def init_params(self, device) -> dict[str, Any]:
         return {b.name: b.param_leaves(device) for b in self.order}
@@ -135,13 +153,19 @@ def _propagate_bounds(
 
 
 def compile_flowgraph(g: Graph, batch_size: int | None = None,
-                      total_items: int | None = None) -> CompiledFlowgraph:
+                      total_items: int | None = None, mesh=None,
+                      time_axis: str | None = None) -> CompiledFlowgraph:
     """batch_size: requested items/batch at the reference rate (rate-1 source).
     total_items: override stream length at the reference rate (else derived
-    from head blocks / finite sources; None with no bound = unbounded)."""
+    from head blocks / finite sources; None with no bound = unbounded).
+    mesh: a parallel.mesh.Mesh; the step shards over ``time_axis`` (default
+    the mesh's first axis)."""
     order = g.topo_order()
     rates = _propagate_rates(g, order)
     shard_n = 1
+    if mesh is not None:
+        time_axis = time_axis or mesh.axis_names[0]
+        shard_n = mesh.shape[time_axis]
     # Grouping constraints the rate fraction alone cannot carry
     # (reference: output_multiple/forecast, SURVEY.md §4.3): a block may
     # declare ``in_multiple`` — its per-batch input count must divide by
@@ -211,7 +235,7 @@ def compile_flowgraph(g: Graph, batch_size: int | None = None,
             nb = -(-(t + sink_leads[s.name]) // n_in[s.name])
             n_batches = nb if n_batches is None else max(n_batches, nb)
 
-    step = build_step(g, order, n_out, n_in)
+    step = build_step(g, order, n_out, n_in, mesh=mesh, time_axis=time_axis)
     return CompiledFlowgraph(
         graph=g,
         order=order,
@@ -225,6 +249,8 @@ def compile_flowgraph(g: Graph, batch_size: int | None = None,
         sink_totals=sink_totals,
         sink_leads=sink_leads,
         step=step,
+        mesh=mesh,
+        time_axis=time_axis,
     )
 
 
@@ -261,9 +287,14 @@ def _merge_bounds(g, order, rates, seeded):
     return bounds
 
 def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
-               n_in: dict[str, int] | None = None):
+               n_in: dict[str, int] | None = None, mesh=None,
+               time_axis: str | None = None):
     """Emit the per-batch function. Sinks (no stream outputs) return a
     per-batch collected value under their name (None to collect nothing).
+
+    Under a mesh whose time axis is > 1, a block exposing ``work_sharded``
+    runs its own per-shard formulation (the reference's explicit-collective
+    lowering hook); every other block runs ``work`` on the whole batch.
 
     The tag plane (the reference's shadow TagBatch per edge) belongs to a
     later slice of the port: a graph whose sources declare a tag capacity,
@@ -274,13 +305,23 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
                 f"{b.name}: stream tags are not ported yet (the tag plane, "
                 "runtime/tags.py, comes with the staged-chain slice)")
 
+    n_shard, axis = 1, None
+    if mesh is not None and mesh.size > 1:
+        axis = time_axis or mesh.axis_names[0]
+        n_shard = mesh.shape[axis]
+
     def step(states: dict, params: dict):
         vals: dict[tuple[str, str], Any] = {}
         new_states = dict(states)
         sink_out: dict[str, Any] = {}
         for b in order:
             ins = {e.dst_port: vals[(e.src.name, e.src_port)] for e in g.in_edges(b)}
-            st, outs = b.work(states[b.name], ins, params[b.name], n_out[b.name])
+            if n_shard > 1 and hasattr(b, "work_sharded"):
+                st, outs = b.work_sharded(states[b.name], ins, params[b.name],
+                                          n_out[b.name], mesh=mesh, axis=axis)
+            else:
+                st, outs = b.work(states[b.name], ins, params[b.name],
+                                  n_out[b.name])
             new_states[b.name] = st
             if b.outputs:
                 for p in b.outputs:

@@ -185,15 +185,18 @@ class Flowgraph(Graph):
         self.batch_size = batch_size
 
     def run(self, device="cuda", batch_size: int | None = None,
-            total_items: int | None = None):
+            total_items: int | None = None, mesh=None):
         """Synchronous run on ``device`` (a torch device or its name): the
         card unless the caller asks for the CPU (``device="cpu"``). Every
         block's state, parameters and stream tensors live there; the run
-        does not move to another device."""
+        does not move to another device. ``mesh`` (parallel.make_mesh)
+        shards the step over its time axis; ``device`` must agree with the
+        mesh's device (``fg.run(device="cpu", mesh=make_mesh(4,
+        device="cpu"))`` in the tests)."""
         from newsched_tpu_torch.runtime.runner import Runner
 
         self.validate()
         runner = Runner(self, batch_size=batch_size or self.batch_size,
-                        total_items=total_items, device=device)
+                        total_items=total_items, device=device, mesh=mesh)
         runner.run_to_completion()
         return runner

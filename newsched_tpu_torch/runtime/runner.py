@@ -29,14 +29,24 @@ log = get_logger("runner")
 class Runner:
     """Compiles ``fg`` and runs it on ``device`` (the card unless the
     caller asks for the CPU): block states, parameters and every stream
-    tensor are created there."""
+    tensor are created there. With ``mesh`` (parallel.mesh.Mesh) the step
+    shards over its time axis and everything lives on the mesh's device;
+    a ``device`` that names another raises."""
 
     def __init__(self, fg, device="cuda", batch_size: int | None = None,
-                 total_items: int | None = None):
+                 total_items: int | None = None, mesh=None):
         self.fg = fg
         self.device = torch.device(device)
+        if mesh is not None:
+            on = mesh.device
+            if self.device.type != on.type or self.device.index not in (
+                    None, on.index):
+                raise ValueError(
+                    f"device={str(device)!r} contradicts the mesh, whose "
+                    f"shards are on {on}: pass device={str(on)!r}")
+            self.device = on
         self.cfg = compile_flowgraph(fg, batch_size=batch_size,
-                                     total_items=total_items)
+                                     total_items=total_items, mesh=mesh)
         self._dirty_params: set[str] = set()
 
     def invalidate_params(self, block) -> None:

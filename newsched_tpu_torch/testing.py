@@ -2,7 +2,7 @@
 
 ``rows_reference`` is the JAX package's benchmark golden
 (``bench.rows_reference``) with the flagship's constants as arguments, and
-``planes_rows`` is ``newsched_tpu.parallel.channelizer.planes_rows``;
+``planes_rows`` is the port's ``parallel.channelizer.planes_rows``;
 ``wbfm_golden`` and ``fxpt_tone`` are the wideband-FM receiver's golden
 (``tests/test_wbfm_fused.py`` ``golden_chain``, ``bench.py``'s config #1
 gate); ``fir_golden`` is config #0's (``tests/test_models.py``,
@@ -15,20 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from newsched_tpu_torch.ops.pfb import pfb_arm_taps
-
-
-def planes_rows(x: np.ndarray, nchans: int,
-                skew_carry: np.ndarray | None = None) -> np.ndarray:
-    """Complex samples -> the (n, 2M) f32 planes-rows stream format of the
-    fused chain: row k = [re | im] of x[kM-(M-1) .. kM]. ``skew_carry`` is
-    the previous batch's last M-1 samples (zeros at stream start)."""
-    M = int(nchans)
-    x = np.asarray(x)
-    if skew_carry is None:
-        skew_carry = np.zeros(M - 1, x.dtype)
-    full = np.concatenate([skew_carry, x])[: (len(x) // M) * M]
-    rows = full.reshape(-1, M)
-    return np.concatenate([rows.real, rows.imag], axis=1).astype(np.float32)
+from newsched_tpu_torch.parallel.channelizer import planes_rows  # noqa: F401
 
 
 def rows_reference(rows: np.ndarray, taps, audio_taps, nchans: int = 64,

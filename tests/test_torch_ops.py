@@ -233,7 +233,7 @@ def test_fm_chain_wrapper_rejects_what_it_does_not_take():
                                       np.ones(A, np.float32), "cpu")
     z = torch.zeros
     args = (z(256, 2 * M), z(8, 2 * M), z(1, 2 * M), z(A - 1, 2 * M), consts, 4, 1.0)
-    with pytest.raises(NotImplementedError, match="warm"):
+    with pytest.raises(ValueError, match="warm"):  # a halo of H8 rows only
         fm_chain.fm_chain_step_planes(*args, warm=256)
     with pytest.raises(ValueError, match="precision"):
         fm_chain.fm_chain_step_planes(*args, precision="bf16")

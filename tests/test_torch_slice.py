@@ -201,7 +201,8 @@ def test_slices_not_ported_yet_raise():
     consts = fm_chain.fm_chain_consts(np.ones((L, M), np.float32),
                                       np.ones(A, np.float32), "cpu")
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="warm"):
+    # warm > 0 runs (a time shard), and takes a halo of warm + H8 rows
+    with pytest.raises(ValueError, match="warm"):
         fm_chain.fm_chain_step_planes(z(256, 2 * M), z(8, 2 * M), z(1, 2 * M),
                                       z(A - 1, 2 * M), consts, 4, 1.0, warm=256)
     with pytest.raises(NotImplementedError, match="config #3"):
