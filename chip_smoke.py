@@ -31,8 +31,10 @@ batches of 2^21:
     head;
   - live: fir_tone_source (K9), one generating source -> head.
 And the fused channelizer chain's pipelined form,
-``fm_chain_step_planes(pipelined=True)`` (K3p). Then the same graphs
-sharded, ``fg.run(mesh=make_mesh(n))`` for n = 4 and 8 logical shards on
+``fm_chain_step_planes(pipelined=True)`` (K3p). Runs of two batches or
+more take the runner's graph mode (a captured CUDA graph of a chunk of
+steps, the reference's scan mode), which phase 30 holds against its loop
+mode. Then the same graphs sharded, ``fg.run(mesh=make_mesh(n))`` for n = 4 and 8 logical shards on
 the one card (``newsched_tpu_torch.parallel``): the live channelizer (K6
 per shard), the fused channelizer (K3 per shard with warm > 0), and the
 receiver's fused (K10 per shard) and live (K12) forms and the live FIR
@@ -125,8 +127,31 @@ Phases (each failure raises, so the script exits nonzero):
      plain versions;
  29. times: K6 at 8192 and 32768 rows beside K5 and its plain version;
      the sharded live and fused flowgraph steps in Msamples/s (the
-     4-shard live step profiled); and every kernel's least time on the
-     card for its work (``kernel_bounds``).
+     4-shard live step profiled);
+ 30. graph mode, the runner's default on the card (a captured CUDA graph
+     of runtime/runner.py's GRAPH_CHUNK steps over the stream state on
+     the card): every unsharded graph (config #2 fused replay, fused
+     noise, staged, live; config #1 staged, fused, folded, live; config #0
+     staged, live) and the 4-shard live and fused graphs run by fg.run()
+     for 2C + 1 batches (two replays and a remainder): bit-equal to
+     Runner._run_loop with the same launch counts, each kernel of the path
+     among them, above their gates on the batches the goldens cover;
+ 31. parameter changes under graph mode: a dphase change between runs of
+     one runner, in sig_source and in the live receiver, keeps the captured
+     chunk and equals a fresh runner's output; a center_freq change (a
+     fence) captures anew and equals a fresh runner's output;
+ 32. K4 and K5 from the sources' counter on the card at group 2^32-2 and
+     at a negative group: K4 bit-equal to its plain version, K5 to K4 -> K3;
+ 33. the probes (newsched_tpu_torch/probes): window_copy in every variant
+     exactly its plain version, planes_unpack bit-equal to cplx_to_planes,
+     K3's ablation "full" bit-equal to K3 and each variant within K3_TOL
+     of max(1, max|out|) of its plain version;
+ 34. times: each cell's graph-mode step by the bench's two-point fit beside
+     its loop-mode step and profiled device time; the graph chunk at 2, 4,
+     8 and 16 steps; the bench's timer on its headline path (K1 = 10,
+     K2 = 40); the probes (window copies in GB/s beside 3.35 TB/s, the
+     prep pass, the ablation beside K3), counted; and every kernel's least
+     time on the card for its work (``kernel_bounds``).
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -134,6 +159,9 @@ time is left out (``graph_ms``); plain versions and flowgraph steps are
 timed as a caller runs them, host included (``median_ms``). Each timed
 unsharded flowgraph step, and one sharded one, is also traced for 20 steps
 with torch.profiler and its device time printed kernel by kernel.
+
+The bench probes (window copies, the planes unpack, K3's ablation) run
+last, through ``newsched_tpu_torch.probes.run``, the probes' entry point.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -165,6 +193,7 @@ DEC_CHANNEL = 5
 REPS = 30
 PLAIN_REPS = 10            # the slow plain versions of K1, K7, K5
 _GOLDEN: dict = {}         # float64 goldens by stream, computed once
+LOOP: dict = {}            # cell -> (loop-mode step ms, profiled device ms)
 
 
 def log(*a):
@@ -243,8 +272,8 @@ def fm_band(n_samples: int, device) -> np.ndarray:
 
 def phase_k4(torch, noise):
     dev = "cuda"
-    rows = noise.gaussian_rows(0, 0, n_rows=ROWS, width=2 * M, seed=5, device=dev)
-    plain = noise.gaussian_rows_plain(0, 0, n_rows=ROWS, width=2 * M, seed=5,
+    rows = noise.gaussian_rows(0, n_rows=ROWS, width=2 * M, seed=5, device=dev)
+    plain = noise.gaussian_rows_plain(0, n_rows=ROWS, width=2 * M, seed=5,
                                       device=dev)
     err = float((rows - plain).abs().max())
     require(torch.equal(rows, plain), f"K4: kernel != plain version ({err})")
@@ -257,10 +286,10 @@ def phase_k4(torch, noise):
     require(mean < 5 / np.sqrt(n) and abs(std - 1) < 0.01 and mx <= 4.25
             and abs(kurt + 0.2) < 0.05, "K4: moments out of bounds")
     half = ROWS // 2
-    hi, lo = noise.advance_groups(0, 0, half // noise.GROUP_ROWS)
     parts = torch.cat([
-        noise.gaussian_rows(0, 0, n_rows=half, width=2 * M, seed=5, device=dev),
-        noise.gaussian_rows(hi, lo, n_rows=half, width=2 * M, seed=5, device=dev)])
+        noise.gaussian_rows(0, n_rows=half, width=2 * M, seed=5, device=dev),
+        noise.gaussian_rows(half // noise.GROUP_ROWS, n_rows=half, width=2 * M,
+                            seed=5, device=dev)])
     require(torch.equal(parts, rows), "K4: two half batches != one batch")
     log(f"K4: bit-equal to plain (max abs err {err}); split-invariant")
     return err
@@ -411,7 +440,7 @@ def noise_rows(torch, noise, n_batches: int, draws: int = 3) -> np.ndarray:
     """The default noise stream (seed 0) x 0.5 as planes rows, regenerated
     by the plain generator on the GPU."""
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
-    return (noise.gaussian_rows_plain(0, 0, n_rows=n_batches * ROWS,
+    return (noise.gaussian_rows_plain(0, n_rows=n_batches * ROWS,
                                       width=2 * M, seed=0, device="cuda",
                                       draws=draws) * amp).cpu().numpy()
 
@@ -443,8 +472,7 @@ def fg_step_rate(torch, fg, label: str, card: str, n_in: int,
     ms = median_ms(one)
     log(f"flowgraph step ({label}): {ms:.4f} ms per batch of {n_in} samples"
         f" = {n_in / ms / 1e3:.1f} Msamples/s [{card}]")
-    if profile:
-        profile_steps(torch, one, label)
+    LOOP[label] = (ms, profile_steps(torch, one, label) if profile else None)
     return ms
 
 
@@ -454,22 +482,30 @@ def step_rate(torch, source, label: str, card: str, mesh=None,
     return fg_step_rate(torch, fg, label, card, BATCH, mesh, profile)
 
 
-def profile_steps(torch, step, label: str, n: int = 20) -> None:
-    """Device time per step, kernel by kernel, over n traced steps."""
+def profile_steps(torch, step, label: str, n: int = 20) -> float:
+    """Device time per step, kernel by kernel, over n traced steps; returns
+    the total in ms. The trace sometimes loses a window's device events
+    (a kernel counted 0.6 times a step): then it traces again, up to
+    three times, and keeps the last."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    rows = sorted(((e.device_time_total / n / 1e3, e.count / n, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.device_time_total > 0), reverse=True)
-    log(f"profile ({label}): device kernels {sum(r[0] for r in rows):.4f} ms "
-        f"per step")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        rows = sorted(((e.device_time_total / n / 1e3, e.count / n, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.device_time_total > 0), reverse=True)
+        if all(float(c).is_integer() for _, c, _ in rows):
+            break
+    total = sum(r[0] for r in rows)
+    log(f"profile ({label}): device kernels {total:.4f} ms per step")
     for ms, count, key in rows:
         log(f"  {ms:.4f} ms x{count:g} {key[:100]}")
+    return total
 
 
 def fold_consts(torch, channelizer):
@@ -556,7 +592,7 @@ def phase_staged(torch, noise, channelizer) -> dict:
             "a kernel of the staged path was never launched")
     from newsched_tpu_torch.testing import planes_rows
 
-    r = noise.gaussian_rows_plain(0, 0, n_rows=4 * ROWS, width=128, seed=0,
+    r = noise.gaussian_rows_plain(0, n_rows=4 * ROWS, width=128, seed=0,
                                   device="cuda")
     x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
          * 0.5).cpu().numpy()
@@ -605,8 +641,8 @@ def gen_batches(torch, fm_chain, noise, consts, draws, step, **kw):
                          torch.zeros(A - 1, 2 * M, **z))
     outs = []
     for b in range(2):
-        hi, lo = noise.advance_groups(0, 0, b * ROWS // noise.GROUP_ROWS)
-        aud, prev, tail, carry = step(hi, lo, amp, carry, prev, tail, consts,
+        g = noise.group_tensor(b * ROWS // noise.GROUP_ROWS, "cuda")
+        aud, prev, tail, carry = step(g, amp, carry, prev, tail, consts,
                                       DECIM, DEMOD_GAIN, ROWS, draws=draws, **kw)
         outs += [aud, prev, tail, carry]
     return outs
@@ -614,9 +650,8 @@ def gen_batches(torch, fm_chain, noise, consts, draws, step, **kw):
 
 def composed(rows_fn, chain_fn):
     """A K5-shaped step from a noise generator and a chain step."""
-    def step(hi, lo, amp, carry, prev, tail, consts, decim, gain, n, draws,
-             **kw):
-        rows = rows_fn(hi, lo, n_rows=n, width=2 * M, seed=0, device="cuda",
+    def step(g, amp, carry, prev, tail, consts, decim, gain, n, draws, **kw):
+        rows = rows_fn(g, n_rows=n, width=2 * M, seed=0, device="cuda",
                        draws=draws) * amp
         aud, prev, tail = chain_fn(rows, carry, prev, tail, consts, decim,
                                    gain, **kw)
@@ -823,23 +858,24 @@ def phase_k12(torch, sources, wbfm_chain) -> float:
     return err
 
 
-def wb_graph(kind: str, n_batches, sink="vector"):
+def wb_graph(kind: str, n_batches, sink="vector", tone=WB_TONE,
+             center=WB_FC):
     """models.wbfm_receiver at config #1 on the fixed-point tone at WB_TONE:
     staged, fused (cf32 sig_source), folded (sig_source_folded) or live."""
     from newsched_tpu_torch import models
     from newsched_tpu_torch.blocks import analog
 
     src = {"staged": None, "fused": None, "live": "live",
-           "folded": analog.sig_source_folded(WB_FS, frequency=WB_TONE)}[kind]
+           "folded": analog.sig_source_folded(WB_FS, frequency=tone)}[kind]
     if src is None:
-        src = analog.sig_source(WB_FS, "complex", frequency=WB_TONE)
+        src = analog.sig_source(WB_FS, "complex", frequency=tone)
     fg, blks = models.wbfm_receiver(
-        fs=WB_FS, center_freq=WB_FC, quad_rate_decim=WB_D,
+        fs=WB_FS, center_freq=center, quad_rate_decim=WB_D,
         audio_decim=(1, WB_RD), deviation=WB_DEV, source=src,
         batch_size=WB_BATCH, sink=sink, fused=kind != "staged",
         n_samples=None if n_batches is None else n_batches * WB_NAUD * 64)
     if kind == "live":
-        blks["source"].set_frequency(WB_TONE)
+        blks["source"].set_frequency(tone)
     return fg, blks
 
 
@@ -1074,30 +1110,34 @@ def phase_k6(torch, fm_chain, noise) -> float:
     amp = torch.tensor(0.5, **z)
     worst = 0.0
     for draws in (3, 2):
-        for where, base, off in (("stream start", (0, 0), 0),
-                                 ("shard 3", (0, 3 * K6_ROWS // 64), 3 * K6_ROWS),
-                                 ("group 2^32-2", (0, -2), 3 * K6_ROWS)):
-            b0 = noise.add_groups_signed(*base, -off // noise.GROUP_ROWS)
+        for where, base, off in (("stream start", 0, 0),
+                                 ("shard 3", 3 * K6_ROWS // 64, 3 * K6_ROWS),
+                                 ("group 2^32-2", (1 << 32) - 2, 3 * K6_ROWS)):
+            b0 = base - off // noise.GROUP_ROWS
             k5 = fm_chain.fm_chain_gen_step(
-                *b0, amp, torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+                noise.group_tensor(b0, "cuda"), amp,
+                torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
                 torch.zeros(A - 1, 2 * M, **z), consts, DECIM, DEMOD_GAIN, ROWS,
                 draws=draws)[0]
-            if b0 == (0, 0):  # phases 7 and 13's goldens of this stream
+            if b0 == 0:  # phases 7 and 13's goldens of this stream
                 _, bad = golden(None, "noise" if draws == 3 else "noise draws=2")
                 bad = bad[off // DECIM:]
             else:  # the shard's window and 1024 rows of lead, as far back
                 lead = 1024  # as any output reaches (A + L - 1 = 80 rows)
                 rows = noise.gaussian_rows_plain(
-                    *base, n_rows=lead + K6_ROWS, width=2 * M, seed=0,
+                    base, n_rows=lead + K6_ROWS, width=2 * M, seed=0,
                     device="cuda", draws=draws, row0=-lead) * 0.5
                 _, bad = golden(rows.cpu().numpy(), f"{where} draws={draws}")
                 bad = bad[lead // DECIM:]
             for n_loc in K6_NLOC:
+                # the base from the card: the batch's counter and the
+                # shard's offset in groups, as the sharded source passes it
                 got = fm_chain.fm_chain_gen_warm_step(
-                    *base, amp, consts, DECIM, DEMOD_GAIN, n_loc, warm=K6_WARM,
-                    draws=draws)
+                    noise.group_tensor(b0, "cuda"), amp, consts, DECIM,
+                    DEMOD_GAIN, n_loc, warm=K6_WARM, draws=draws,
+                    goff=off // noise.GROUP_ROWS)
                 plain = fm_chain.fm_chain_gen_warm_step_plain(
-                    *base, amp, consts, DECIM, DEMOD_GAIN, n_loc, K6_WARM,
+                    base, amp, consts, DECIM, DEMOD_GAIN, n_loc, K6_WARM,
                     draws=draws)
                 require(torch.equal(got, k5[off // DECIM:(off + n_loc) // DECIM]),
                         f"K6 at {where}, {n_loc} rows, draws={draws}: differs "
@@ -1106,7 +1146,7 @@ def phase_k6(torch, fm_chain, noise) -> float:
                 err = float(np.abs(got.cpu().numpy()
                                    - plain.cpu().numpy())[keep].max())
                 log(f"K6 fm_chain_gen_warm_step at {where} (base group "
-                    f"{noise.group64(*base)}), {n_loc} rows, draws={draws}: "
+                    f"{base}), {n_loc} rows, draws={draws}: "
                     f"bit-equal to K5's stream there; vs plain {err:.3e} on "
                     f"{int(keep.sum())} unmasked samples (tol {K5_TOL})")
                 require(err <= K5_TOL, f"K6 at {where}, {n_loc} rows: "
@@ -1299,6 +1339,377 @@ def phase_sharded_receivers(torch, sources, wbfm_chain, fir_source, wb: dict,
     return launches, errs
 
 
+# -- graph mode: the runner's captured chunks against its loop ---------------
+
+def launch_counts() -> dict:
+    """Every kernel's launch count on the flowgraph paths, by name."""
+    from newsched_tpu_torch.ops.cuda import launch_counters
+
+    return {f"{f.__name__}.{a}": getattr(f, a) for f, a in launch_counters()}
+
+
+def zero_launches() -> None:
+    from newsched_tpu_torch.ops.cuda import launch_counters
+
+    for f, a in launch_counters():
+        setattr(f, a, 0)
+
+
+def graph_vs_loop(build, label: str, want, mesh=None):
+    """A graph of 2C + 1 batches (C = GRAPH_CHUNK: two replays of the
+    captured chunk and a remainder) run by fg.run() on the card, which
+    takes graph mode, and by Runner._run_loop: bit-equal, with the same
+    launch counts, each kernel of ``want`` among them. Returns the graph
+    mode's output and counts."""
+    from newsched_tpu_torch.runtime import runner as rt
+
+    nb = 2 * rt.GRAPH_CHUNK + 1
+    out, counts = {}, {}
+    for mode in ("graph", "loop"):
+        fg, blks = build(nb)
+        zero_launches()
+        if mode == "graph":
+            r = fg.run(device="cuda", mesh=mesh)
+            require(r._chunk is not None and r._chunk.graph is not None,
+                    f"{label}: fg.run() did not capture a graph")
+        else:
+            fg.validate()
+            r = rt.Runner(fg, device="cuda", batch_size=fg.batch_size,
+                          mesh=mesh)
+            r._run_loop(r.cfg.n_batches)
+        require(r.cfg.n_batches == nb, f"{label}: {r.cfg.n_batches} batches")
+        counts[mode] = {k: v for k, v in launch_counts().items() if v}
+        out[mode] = blks["sink"].data()
+    log(f"graph mode, {label}: {nb} batches (chunks of {rt.GRAPH_CHUNK} "
+        f"replayed twice, {nb % rt.GRAPH_CHUNK} stepped), bit-equal to the "
+        f"loop: {np.array_equal(out['graph'], out['loop'])}; launches "
+        f"{counts['graph']}")
+    require(out["graph"].shape == out["loop"].shape
+            and np.array_equal(out["graph"], out["loop"]),
+            f"{label}: graph mode differs from the loop")
+    require(counts["graph"] == counts["loop"],
+            f"{label}: graph-mode launches {counts['graph']} != loop's "
+            f"{counts['loop']}")
+    require(all(counts["graph"].get(k, 0) > 0 for k in want),
+            f"{label}: a kernel of the path ({want}) was never launched")
+    return out["graph"], counts["graph"]
+
+
+def phase_graph_mode(rows: np.ndarray, wb: dict, fir: dict) -> dict:
+    """30. Every unsharded graph and the 4-shard live and fused graphs in
+    graph mode against the loop, bit for bit, and above their gates on
+    the batches the goldens cover; returns each path's launches."""
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.parallel import make_mesh
+    from newsched_tpu_torch.testing import snr_db
+
+    K3, K4 = "fm_chain_step_planes.launches", "gaussian_rows.launches"
+    K1, K5 = "arm_fold_dft.launches", "fm_chain_gen_step.launches"
+    K6 = "fm_chain_gen_warm_step.launches"
+    K8, K11 = "nco_planes.launches", "nco_folded.launches"
+    K10, K12 = "wbfm_chain_step.launches", "wbfm_chain_live_step.launches"
+    K9 = "fir_tone_step.launches"
+    launches, outs = {}, {}
+    replay = lambda nb: flowgraph(general.vector_source(rows, repeat=True), nb)
+    for label, build, want, key, gate_db in (
+            ("#2 fused replay", replay, (K3,), "replay", SNR_GATE_DB),
+            ("#2 fused noise", lambda nb: flowgraph(None, nb), (K3, K4),
+             "noise", SNR_GATE_DB),
+            ("#2 staged", lambda nb: flowgraph(None, nb, fused=False),
+             (K1, K4), "staged", STAGED_GATE_DB),
+            ("#2 live", lambda nb: flowgraph("live", nb), (K5,), "noise",
+             SNR_GATE_DB)):
+        got, launches[label] = graph_vs_loop(build, label, want)
+        gate(None, got[:4 * N_AUD], f"{label} in graph mode", key, gate_db,
+             n_batches=4)
+        outs[label] = got
+    require(np.array_equal(outs["#2 live"], outs["#2 fused noise"]),
+            "graph mode: live differs from the fused noise graph")
+    for label, build, want, ref in (
+            ("#2 live, 4 shards", lambda nb: flowgraph("live", nb), (K6,),
+             outs["#2 live"]),
+            ("#2 fused replay, 4 shards", replay, (K3,),
+             outs["#2 fused replay"])):
+        got, launches[label] = graph_vs_loop(build, label, want, make_mesh(4))
+        require(np.array_equal(got, ref),
+                f"{label}: differs from the unsharded graph mode")
+    for kind, want in (("staged", (K8,)), ("fused", (K8, K10)),
+                       ("folded", (K11, K10)), ("live", (K12,))):
+        label = f"#1 {kind}"
+        got, launches[label] = graph_vs_loop(
+            lambda nb, kind=kind: wb_graph(kind, nb), label, want)
+        n = 4 * WB_BATCH // 20
+        snr = snr_db(wb["ref"][:n], got[:n])
+        log(f"{label} in graph mode: SNR vs float64 golden {snr:.2f} dB on "
+            f"the first 4 batches (gate {WB_GATE_DB})")
+        require(snr >= WB_GATE_DB, f"{label}: below the gate")
+    for kind, want in (("staged", (K8,)), ("live", (K9,))):
+        label = f"#0 {kind}"
+        got, launches[label] = graph_vs_loop(
+            lambda nb, kind=kind: fir_graph(kind, nb * FIR_BATCH), label, want)
+        snr = snr_db(fir["ref"], got[:FIR_N])
+        log(f"{label} in graph mode: SNR vs float64 golden {snr:.2f} dB on "
+            f"{FIR_N} samples (gate {FIR_GATE_DB})")
+        require(snr >= FIR_GATE_DB, f"{label}: below the gate")
+    return launches
+
+
+def phase_params() -> None:
+    """31. Parameter changes under graph mode: a new tone (dphase, copied
+    into its tensor in place) between two runs of one runner, in the fused
+    receiver's sig_source and in the live receiver, keeps the captured
+    chunk and equals a fresh runner's output; a new center_freq (a fence)
+    captures anew and equals a fresh runner's."""
+    from newsched_tpu_torch.runtime import runner as rt
+
+    nb = rt.GRAPH_CHUNK + 1
+    tone2, center2 = 187_500.0, 210e3
+    for kind in ("fused", "live"):
+        fg, blks = wb_graph(kind, nb)
+        r = fg.run(device="cuda")
+        chunk, before = r._chunk, blks["sink"].data().copy()
+        blks["source"].set_frequency(tone2)
+        r.run_to_completion()
+        fg2, blks2 = wb_graph(kind, nb, tone=tone2)
+        fg2.run(device="cuda")
+        require(r._chunk is chunk and chunk.graph is not None,
+                f"{kind}: a dphase change captured anew")
+        require(np.array_equal(blks["sink"].data(), blks2["sink"].data())
+                and not np.array_equal(before, blks["sink"].data()),
+                f"{kind}: the new dphase did not take effect in graph mode")
+        log(f"graph mode, wbfm {kind}: a dphase change between runs kept "
+            f"the chunk and equals a fresh runner's output")
+    fg, blks = wb_graph("fused", nb)
+    r = fg.run(device="cuda")
+    chunk = r._chunk
+    blks["fused"].set_param("center_freq", center2)
+    r.run_to_completion()
+    fg2, blks2 = wb_graph("fused", nb, center=center2)
+    fg2.run(device="cuda")
+    require(r._chunk is not chunk and r._chunk.graph is not None,
+            "center_freq: no new capture")
+    require(np.array_equal(blks["sink"].data(), blks2["sink"].data()),
+            "center_freq: graph mode differs from a fresh runner")
+    log("graph mode, wbfm fused: a center_freq change captured anew and "
+        "equals a fresh runner's output")
+
+
+def phase_counters(torch, fm_chain, noise) -> None:
+    """32. K4 and K5 started from the sources' counter on the card at group
+    2^32-2 and at a negative group: K4 bit-equal to its plain version at
+    the same base (mask_pre off and on), K5 bit-equal to K4 -> K3 and its
+    carry (the generated rows) to its plain version's."""
+    consts = chain_consts()
+    H8 = fm_chain._round8(L - 1)
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    st = (torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+          torch.zeros(A - 1, 2 * M, **z))
+    for base in ((1 << 32) - 2, -3):
+        g = noise.group_tensor(base, "cuda")
+        for mask in (False, True):
+            got = noise.gaussian_rows(g, n_rows=ROWS, width=2 * M, seed=0,
+                                      device="cuda", mask_pre=mask)
+            ref = noise.gaussian_rows_plain(base, n_rows=ROWS, width=2 * M,
+                                            seed=0, device="cuda",
+                                            mask_pre=mask)
+            require(torch.equal(got, ref), f"K4 at group {base}, mask_pre "
+                    f"{mask}: differs from its plain version")
+        k5 = fm_chain.fm_chain_gen_step(g, amp, *st, consts, DECIM, DEMOD_GAIN,
+                                        ROWS)
+        k4k3 = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)(
+            g, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS, draws=3)
+        plain = fm_chain.fm_chain_gen_step_plain(base, amp, *st, consts, DECIM,
+                                                 DEMOD_GAIN, ROWS)
+        require(all(torch.equal(a, b) for a, b in zip(k5, k4k3)),
+                f"K5 at group {base}: differs from K4 -> K3")
+        require(torch.equal(k5[3], plain[3]),
+                f"K5 at group {base}: its rows differ from the plain version's")
+        nxt = noise.advance(g, ROWS // noise.GROUP_ROWS)
+        require(int(nxt) == noise._i64(base + ROWS // noise.GROUP_ROWS),
+                f"the counter's advance from {base} on the card")
+        log(f"on-card counter at group {base}: K4 bit-equal to plain (mask_pre "
+            f"off and on), K5 bit-equal to K4 -> K3, its rows to plain")
+
+
+def phase_probes(torch, fm_chain) -> dict:
+    """33. The probes against their plain versions: window_copy in every
+    variant exactly, planes_unpack bit-equal to cplx_to_planes over two
+    batches, the ablation's "full" bit-equal to K3 and every variant within
+    K3_TOL of max(1, max|out|) of its plain version on the FM band."""
+    from newsched_tpu_torch.blocks import vector_dsp
+    from newsched_tpu_torch.probes import ablate, dma, prep, run
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(run.ROWS + run.H8, 128, device="cuda", generator=g)
+    cases = [("dbuf", T, x, None, run.H8) for T in run.DMA_TILES]
+    cases += [("single", T, x, None, run.H8) for T in run.DMA_TILES]
+    xr, xi = (torch.randn(run.ROWS + run.H8, 64, device="cuda", generator=g)
+              for _ in range(2))
+    cases += [("split", T, xr, xi, run.H8) for T in (64, run.K3_TILE)]
+    for W in dma.LANES["dbuf"]:
+        cases.append(("dbuf", 16384 // W, torch.randn(
+            run.NTOT // W, W, device="cuda", generator=g), None, 0))
+    x5 = torch.randn(run.NTOT // 512, 512, device="cuda", generator=g)
+    cases += [("direct", T, x5, None, 0) for T in (512, 32)]
+    for variant, T, xx, xxi, H in cases:
+        got = dma.window_copy(xx, T, H, variant=variant, xi=xxi)
+        require(torch.equal(got, dma.window_copy_plain(xx, T, H, xxi)),
+                f"window_copy {variant} tile {T} x {xx.shape[1]}: differs "
+                f"from its plain version")
+    log(f"window_copy: {len(cases)} variants and tiles exactly equal to the "
+        f"plain strided slice, every tile's slot checked")
+    xs = torch.from_numpy(fm_band(2 * BATCH, "cuda")).cuda()
+    skew = torch.zeros(M - 1, dtype=torch.complex64, device="cuda")
+    blk = vector_dsp.cplx_to_planes(M)
+    bst = blk.init_state(BATCH, ROWS, "cuda")
+    for b in range(2):
+        xb = xs[b * BATCH:(b + 1) * BATCH]
+        got, skew = prep.planes_unpack(xb, skew)
+        bst, ref = blk.work(bst, {"in": xb}, {}, ROWS)
+        require(torch.equal(got, ref["out"]) and torch.equal(skew, bst["skew"]),
+                f"planes_unpack batch {b}: differs from cplx_to_planes")
+    log("planes_unpack: two carried batches bit-equal to cplx_to_planes")
+    consts = chain_consts()
+    rows = band_rows(torch)[:ROWS]
+    H8 = fm_chain._round8(L - 1)
+    z = dict(dtype=torch.float32, device="cuda")
+    st = (torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+          torch.zeros(A - 1, 2 * M, **z))
+    k3 = fm_chain.fm_chain_step_planes(rows, *st, consts, DECIM, DEMOD_GAIN)
+    full = ablate.fm_chain_ablate(rows, *st, consts, DECIM, DEMOD_GAIN)
+    require(all(torch.equal(a, b) for a, b in zip(full, k3)),
+            "ablation full: differs from K3")
+    worst = 0.0
+    for v in ablate.VARIANTS:
+        got = ablate.fm_chain_ablate(rows, *st, consts, DECIM, DEMOD_GAIN, v)[0]
+        ref = ablate.fm_chain_ablate_plain(rows, *st, consts, DECIM,
+                                           DEMOD_GAIN, v)[0]
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        log(f"ablation {v}: max abs err vs plain {err:.3e} (max|out| "
+            f"{scale:.3e}; tol {K3_TOL} x max(1, max|out|))")
+        require(err <= K3_TOL * max(1.0, scale),
+                f"ablation {v}: disagrees with its plain version")
+        worst = max(worst, err)
+    return {"window_copy": 0.0, "planes_unpack": 0.0, "ablate": worst}
+
+
+def graph_cells(rows: np.ndarray) -> dict:
+    """Every timed cell as (builder of its graph with a null sink, input
+    samples a batch, mesh)."""
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.parallel import make_mesh
+
+    def ch(source, **kw):
+        return lambda: flowgraph(source() if callable(source) else source,
+                                 None, sink="null", **kw)[0]
+
+    replay = lambda: general.vector_source(rows, repeat=True)
+    cells = {"replay": (ch(replay), BATCH, None),
+             "noise source": (ch(None), BATCH, None),
+             "staged": (ch(None, fused=False), BATCH, None),
+             "live": (ch("live"), BATCH, None)}
+    for kind in ("staged", "fused", "folded", "live"):
+        cells[f"wbfm {kind}"] = (lambda kind=kind: wb_graph(kind, None,
+                                                            "null")[0],
+                                 WB_BATCH, None)
+    for kind in ("staged", "live"):
+        cells[f"fir_chain {kind}"] = (lambda kind=kind: fir_graph(
+            kind, FIR_N, sink="null")[0], FIR_BATCH, None)
+    for n in MESHES:
+        cells[f"live, {n} shards"] = (ch("live"), BATCH, make_mesh(n))
+        cells[f"replay, {n} shards"] = (ch(replay), BATCH, make_mesh(n))
+    return cells
+
+
+GRAPH_K = (16, 64)     # the two points of chip_smoke's graph-mode fits
+CHUNKS = (2, 4, 8, 16)  # chunk sizes measured for runner.GRAPH_CHUNK
+
+
+def phase_graph_times(torch, rows: np.ndarray, card: str) -> dict:
+    """34a. Each cell's graph-mode step by the bench's two-point fit, beside
+    its loop-mode step and its profiled device time (the busy share in
+    graph mode); the chunk sizes on a host-bound and a device-bound cell;
+    a short run of the bench's timer on its headline path."""
+    from newsched_tpu_torch import bench
+
+    out = {}
+    for label, (build, n_in, mesh) in graph_cells(rows).items():
+        sps = bench.timed_two_point(
+            bench.graph_run(build(), "cuda", mesh=mesh), f"graph mode {label}",
+            n_in, n_best=3, k1=GRAPH_K[0], k2=GRAPH_K[1])
+        ms = n_in / sps * 1e3
+        loop_ms, dev_ms = LOOP.get(label, (None, None))
+        busy = "not profiled" if dev_ms is None else f"{100 * dev_ms / ms:.0f}%"
+        log(f"cell {label}: graph mode {ms:.4f} ms = {n_in / ms / 1e3:.1f} "
+            f"Msamples/s; loop {loop_ms if loop_ms is None else round(loop_ms, 4)}"
+            f" ms; device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms "
+            f"a step; busy in graph mode {busy} [{card}]")
+        out[label] = ms
+    cells = graph_cells(rows)
+    for label in ("wbfm staged", "replay"):
+        build, n_in, _ = cells[label]
+        for C in CHUNKS:
+            sps = bench.timed_two_point(
+                bench.graph_run(build(), "cuda", chunk=C),
+                f"chunk {C}, {label}", n_in, n_best=3, k1=GRAPH_K[0],
+                k2=GRAPH_K[1])
+            log(f"graph chunk {C} steps, {label}: {n_in / sps * 1e3:.4f} ms a "
+                f"step [{card}]")
+    taps, audio_taps = design()
+    run_k, gate_audio, brows, B = bench.graph_paths(taps, audio_taps, BATCH,
+                                                    "cuda")
+    require(np.array_equal(brows, rows), "the bench's batch is not phase 6's")
+    ref, bad = golden(None, "replay")  # phase 6's golden, its first batch
+    ref, bad = ref[:N_AUD], bad[:N_AUD]
+    snr = bench.snr_db(ref[~bad], gate_audio()[~bad])
+    require(snr >= bench.GATE_DB, f"the bench's headline gate: {snr:.2f} dB")
+    sps = bench.timed_two_point(run_k, "bench headline (K1 = 10, K2 = 40)", B,
+                                k1=10, k2=40)
+    log(f"bench timer, headline path: {sps / 1e6:.1f} Msamples/s at "
+        f"{snr:.2f} dB [{card}]")
+    return out
+
+
+def phase_probe_times(torch, card: str) -> dict:
+    """34b. The probes' measurements (the probes' main path, counted):
+    GB/s of each window copy beside 3.35 TB/s, the prep pass, the
+    ablation beside K3; and each probe kernel's plain and library times."""
+    from newsched_tpu_torch.probes import ablate, dma, prep, run
+    from newsched_tpu_torch.probes._timing import graph_ms as pgraph_ms
+
+    counters = {"window_copy": dma.window_copy, "planes_unpack":
+                prep.planes_unpack, "ablate": ablate.fm_chain_ablate}
+    for f in counters.values():
+        f.launches = 0
+    recs = run.dma_sweep(5) + run.prep_times(5) + run.ablate_times(5)
+    launches = {k: f.launches for k, f in counters.items()}
+    for r in recs:
+        log(f"probe {json.dumps(r)} [{card}]")
+    require(all(n > 0 for n in launches.values()),
+            f"a probe kernel was never launched: {launches}")
+    by = {(r.get("case") or r.get("variant"), r.get("tile")): r for r in recs}
+    x = torch.randn(run.ROWS + run.H8, 128, device="cuda")
+    xc, skew, _, _, _, _, _ = run.chain_inputs()
+    rows_c = xc.view(-1, M)
+    t = {"window_copy": by[("dma_dbuf", run.K3_TILE)]["us"] * 1e-3,
+         "window_copy plain": median_ms(
+             lambda: dma.window_copy_plain(x, run.K3_TILE, run.H8)),
+         "window_copy library": by[("torch_clone", None)]["us"] * 1e-3,
+         "planes_unpack": by[("planes_unpack", None)]["us"] * 1e-3,
+         "planes_unpack plain": median_ms(
+             lambda: prep.planes_unpack_plain(xc, skew)),
+         "planes_unpack library": pgraph_ms(
+             lambda: torch.cat([rows_c.real, rows_c.imag], dim=1), 5),
+         "ablate": by[("full", None)]["us"] * 1e-3}
+    k3 = by[("K3", None)]["us"]
+    for v in ablate.VARIANTS:
+        log(f"ablation {v}: {by[(v, None)]['us']:.2f} us, K3 {k3:.2f} us, "
+            f"{100 * by[(v, None)]['us'] / k3:.1f}% of K3 [{card}]")
+    return {"launches": launches, "t": t, "x_bytes": x.numel() * 4,
+            "n_tiles": run.ROWS // run.K3_TILE, "stream_bytes": xc.numel() * 8}
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -1471,15 +1882,16 @@ def main() -> int:
     z = dict(dtype=torch.float32, device="cuda")
     st = (torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
           torch.zeros(A - 1, 2 * M, **z))
+    g0 = noise.group_tensor(0, "cuda")  # the sources' counter, on the card
     t = alternate({
         "K3 plain": lambda: fm_chain.fm_chain_step_planes_plain(
             vb, *st, consts, DECIM, DEMOD_GAIN),
         "K3": lambda: fm_chain.fm_chain_step_planes(
             vb, *st, consts, DECIM, DEMOD_GAIN),
         "K4 plain": lambda: noise.gaussian_rows_plain(
-            0, 0, n_rows=ROWS, width=2 * M, seed=0, device="cuda"),
+            g0, n_rows=ROWS, width=2 * M, seed=0, device="cuda"),
         "K4": lambda: noise.gaussian_rows(
-            0, 0, n_rows=ROWS, width=2 * M, seed=0, device="cuda"),
+            g0, n_rows=ROWS, width=2 * M, seed=0, device="cuda"),
     })
     k3_t256 = graph_ms(lambda: fm_chain.fm_chain_step_planes(
         vb, *st, consts, DECIM, DEMOD_GAIN, tile=256))
@@ -1504,7 +1916,7 @@ def main() -> int:
     v = commutator(torch, channelizer, x)
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
     k5_rows = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)
-    k5_args = (0, 0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS)
+    k5_args = (g0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS)
     t.update(alternate({
         "K7 plain": lambda: channelizer.arm_fold_plain(v, c2, ROWS),
         "K7": lambda: channelizer.arm_fold(v, c2, ROWS),
@@ -1536,27 +1948,31 @@ def main() -> int:
     wb = phase_wbfm_graphs(torch, sources, wbfm_chain)
 
     plan, wconsts, _, _ = wb_plan()
-    dp = nco_mod.freq_to_dphase(WB_TONE, WB_FS)
+    # the stream state as the blocks keep it, on the card: host values would
+    # be uploaded by each call, which no CUDA graph capture allows
+    ph7 = nco_mod.phase_tensor(7, "cuda")
+    dp = nco_mod.phase_tensor(nco_mod.freq_to_dphase(WB_TONE, WB_FS), "cuda")
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
     a8 = torch.tensor(0.8, dtype=torch.float32, device="cuda")
     xp = wbfm_chain.fold_planes(fm_signal(WB_BATCH, torch))
     carry = torch.zeros(plan.B8, 128, device="cuda")
 
     def k11_k10():
-        wbfm_chain.wbfm_chain_step(sources.nco_folded(7, dp, a8, WB_R, "cuda"),
+        wbfm_chain.wbfm_chain_step(sources.nco_folded(ph7, dp, a8, WB_R, "cuda"),
                                    carry, plan, wconsts)
 
     t.update(alternate({
-        "K8 plain": lambda: sources.nco_planes_plain(7, dp, a8, WB_BATCH, "cuda"),
-        "K8": lambda: sources.nco_planes(7, dp, a8, WB_BATCH, "cuda"),
-        "K11 plain": lambda: sources.nco_folded_plain(7, dp, a8, WB_R, "cuda"),
-        "K11": lambda: sources.nco_folded(7, dp, a8, WB_R, "cuda"),
+        "K8 plain": lambda: sources.nco_planes_plain(ph7, dp, a8, WB_BATCH, "cuda"),
+        "K8": lambda: sources.nco_planes(ph7, dp, a8, WB_BATCH, "cuda"),
+        "K11 plain": lambda: sources.nco_folded_plain(ph7, dp, a8, WB_R, "cuda"),
+        "K11": lambda: sources.nco_folded(ph7, dp, a8, WB_R, "cuda"),
         "K10 plain": lambda: wbfm_chain.wbfm_chain_step_plain(xp, carry, plan,
                                                               wconsts),
         "K10": lambda: wbfm_chain.wbfm_chain_step(xp, carry, plan, wconsts),
         "K12 plain": lambda: wbfm_chain.wbfm_chain_live_step_plain(
-            7, dp, a8, False, plan, wconsts, WB_R),
+            ph7, dp, a8, off, plan, wconsts, WB_R),
         "K11 -> K10": k11_k10,
-        "K12": lambda: wbfm_chain.wbfm_chain_live_step(7, dp, a8, False, plan,
+        "K12": lambda: wbfm_chain.wbfm_chain_live_step(ph7, dp, a8, off, plan,
                                                        wconsts, WB_R),
     }, PLAIN_REPS))
     ms = {k: min(v_) for k, v_ in t.items()}
@@ -1570,7 +1986,7 @@ def main() -> int:
         k10_ms = graph_ms(lambda: wbfm_chain.wbfm_chain_step(
             xp, carry, plan, wconsts, tile=tile, seg_group=gs))
         k12_ms = graph_ms(lambda: wbfm_chain.wbfm_chain_live_step(
-            7, dp, a8, False, plan, wconsts, WB_R, tile=tile, seg_group=gs))
+            ph7, dp, a8, off, plan, wconsts, WB_R, tile=tile, seg_group=gs))
         blocks = (WB_R // tile) * (64 // gs)
         extra = (plan.A + 1) / (tile // (WB_D * WB_RD) * WB_RD)
         smem = wbfm_chain._geometry(plan, WB_R, tile, gs).smem
@@ -1587,14 +2003,14 @@ def main() -> int:
 
     # 24. times
     _, taps9 = fir_taps(torch)
-    dp9 = nco_mod.freq_to_dphase(FIR_FREQ, FIR_FS)
+    dp9 = nco_mod.phase_tensor(nco_mod.freq_to_dphase(FIR_FREQ, FIR_FS), "cuda")
     # the two-call form of K9: K11's tone, then every lane's FIR by one
     # grouped convolution (its look-back is zeros, not the previous
     # segment's samples; cuDNN in FP32, TF32 off above)
     w9 = taps9.flip(0).repeat(128, 1)[:, None, :].contiguous()
 
     def k11_conv():
-        x9 = sources.nco_folded(7, dp9, a8, FIR_R, "cuda")
+        x9 = sources.nco_folded(ph7, dp9, a8, FIR_R, "cuda")
         return torch.nn.functional.conv1d(x9.T[None], w9, groups=128,
                                           padding=FIR_NTAPS - 1)
 
@@ -1611,9 +2027,9 @@ def main() -> int:
         f"{t['K2 plain']} ms, torch.atan2 {t['K2 library']} ms [{card}]")
     t.update(alternate({
         "K9 plain": lambda: fir_source.fir_tone_step_plain(
-            7, dp9, a8, False, taps9, 1, FIR_R),
+            ph7, dp9, a8, off, taps9, 1, FIR_R),
         "K11 -> conv1d": k11_conv,
-        "K9": lambda: fir_source.fir_tone_step(7, dp9, a8, False, taps9, 1,
+        "K9": lambda: fir_source.fir_tone_step(ph7, dp9, a8, off, taps9, 1,
                                                FIR_R),
         "K3p plain": lambda: fm_chain.fm_chain_step_planes_plain(
             vb, *st, consts, DECIM, DEMOD_GAIN),
@@ -1632,7 +2048,7 @@ def main() -> int:
         f"{t['K3p plain']} ms [{card}]")
     for tile, gs in K9_GEOMS:
         k9_ms = graph_ms(lambda: k9_at(fir_source, tile, gs)(
-            7, dp9, a8, False, taps9, 1, FIR_R))
+            ph7, dp9, a8, off, taps9, 1, FIR_R))
         g = fir_source._geometry(FIR_R, 1, FIR_NTAPS, tile, gs)
         log(f"K9 tile {tile} seg_group {gs}: {(FIR_R // tile) * (64 // gs)} "
             f"blocks of {-(-tile // g.CU)} chunk(s), {g.smem} B shared; "
@@ -1674,15 +2090,15 @@ def main() -> int:
     k9_err = max(k9_err, shard_err["K9"])
 
     # 29. times
-    b6 = (0, 3 * K6_ROWS // 64)  # shard 3's base
+    b6 = noise.group_tensor(3 * K6_ROWS // 64, "cuda")  # shard 3's base
     t.update(alternate({
         "K6 plain": lambda: fm_chain.fm_chain_gen_warm_step_plain(
-            *b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM),
+            b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM),
         "K5 beside K6": lambda: fm_chain.fm_chain_gen_step(*k5_args),
         "K6 at 32768": lambda: fm_chain.fm_chain_gen_warm_step(
-            *b6, amp, consts, DECIM, DEMOD_GAIN, ROWS, warm=K6_WARM),
+            b6, amp, consts, DECIM, DEMOD_GAIN, ROWS, warm=K6_WARM),
         "K6": lambda: fm_chain.fm_chain_gen_warm_step(
-            *b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM),
+            b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM),
     }, PLAIN_REPS))
     ms = {k: min(v_) for k, v_ in t.items()}
     log(f"K6 fm_chain_gen_warm_step: {K6_ROWS} rows {t['K6']} ms, {ROWS} rows "
@@ -1694,17 +2110,38 @@ def main() -> int:
                   profile=n == MESHES[0])
         step_rate(torch, general.vector_source(rows, repeat=True),
                   f"replay, {n} shards", card, mesh=make_mesh(n), profile=False)
+    # 30-33. graph mode against the loop, parameter changes, the on-card
+    # counters, the probes against their plain versions
+    graph_launches = phase_graph_mode(rows, wb, fir)
+    phase_params()
+    phase_counters(torch, fm_chain, noise)
+    probe_err = phase_probes(torch, fm_chain)
+
+    # 34. times: graph mode, the chunk, the bench's timer, the probes
+    phase_graph_times(torch, rows, card)
+    pt = phase_probe_times(torch, card)
+    ms.update(pt["t"])
+    lib["window_copy"] = pt["t"]["window_copy library"]
+    lib["planes_unpack"] = pt["t"]["planes_unpack library"]
+    ms["ablate plain"] = ms["K3 plain"]
     log(f"script time before the bounds: {time.monotonic() - t_start:.1f} s")
 
     bounds = kernel_bounds()
+    # the probes: each input read once, each output written once
+    bounds["window_copy"] = bound(pt["x_bytes"] + pt["n_tiles"] * 8 * 128 * 4, 0)
+    bounds["planes_unpack"] = bound(2 * pt["stream_bytes"], 0)
+    bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
             f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
+    log(f"graph-mode launches on the main paths of phase 30: {graph_launches}")
 
     def entry(name, kid, src, replaces, launches, err):
+        if not replaces.startswith("bench/"):
+            replaces = f"newsched_tpu/ops/pallas/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"newsched_tpu_torch/csrc/{src}",
-                "replaces": f"newsched_tpu/ops/pallas/{replaces}",
+                "replaces": replaces,
                 "launches": launches, "max_abs_err": err,
                 "ms": ms[kid], "plain_ms": ms[kid + " plain"],
                 "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
@@ -1738,6 +2175,14 @@ def main() -> int:
               "fm_chain.py:315", k3p["launches"], k3p["err"]),
         entry("fm_chain_gen_warm_step", "K6", "fm_chain.cu", "fm_chain.py:724",
               k6_launches, k6_err),
+        entry("window_copy", "window_copy", "probes.cu", "bench/exp_dma.py:93",
+              pt["launches"]["window_copy"], probe_err["window_copy"]),
+        entry("planes_unpack", "planes_unpack", "probes.cu",
+              "bench/exp_prep.py:119", pt["launches"]["planes_unpack"],
+              probe_err["planes_unpack"]),
+        entry("fm_chain_step_planes[ablate]", "ablate", "fm_chain.cu",
+              "bench/exp_ablate.py:128", pt["launches"]["ablate"],
+              probe_err["ablate"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

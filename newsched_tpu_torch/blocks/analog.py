@@ -3,13 +3,21 @@ source of the staged flagship; the tone sources, the quadrature demod and
 the fused and live wideband-FM receivers of config #1; the live filtered
 tone of config #0.
 
+Every piece of stream state is a tensor on the run's device: the NCO
+phases (int64 holding the uint32 value), the noise group counter (int64)
+and the live sources' first-batch flag (bool). The kernels read them from
+the card and each step advances them there, so no step reads a value back
+and the runner's captured graph of a chunk of steps replays the stream on
+(runtime/runner.py). The ``dphase`` parameters are int64 tensors as well.
+
 The receiver's fused and live blocks and the live filtered tone shard over
 a mesh's time axis (``work_sharded``, run by the compiler under
 ``fg.run(mesh=...)``): each time shard runs the block's kernel on its own
 stretch of the batch. The live blocks need no collective, since a window
-of theirs is a pure function of the phase counter: shard d starts at phase
-ph + dphase * n_loc * d (host arithmetic masked to 32 bits), and only shard
-0 of the stream's first batch has samples before the stream.
+of theirs is a pure function of the phase counter: the kernel of shard d
+starts at phase ph + dphase * n_loc * d (uint32 arithmetic on the card),
+and only shard 0 of the stream's first batch has samples before the
+stream.
 """
 
 from __future__ import annotations
@@ -80,22 +88,21 @@ class noise_source(Block):
                 f"noise_source needs batches whose f32 word count is a "
                 f"multiple of {noise.GROUP_ROWS * _WIDTH}, got "
                 f"{self._words(nout)} ({nout} {self.dtype.name} items)")
-        return {"ghi": 0, "glo": 0}
+        return {"group": noise.group_tensor(0, device)}
 
     def work(self, state, ins, params, nout):
         a = params["amplitude"]
         n_rows = self._words(nout) // _WIDTH
-        r = noise.gaussian_rows(state["ghi"], state["glo"], n_rows=n_rows,
-                                width=_WIDTH, seed=self.seed, device=a.device)
-        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
-                                      n_rows // noise.GROUP_ROWS)
+        r = noise.gaussian_rows(state["group"], n_rows=n_rows, width=_WIDTH,
+                                seed=self.seed, device=a.device)
+        group = noise.advance(state["group"], n_rows // noise.GROUP_ROWS)
         if self.dtype.name == "cf32":
             half = _WIDTH // 2
             y = torch.complex(r[:, :half].reshape(-1) * a,
                               r[:, half:].reshape(-1) * a)
         else:
             y = r.reshape(-1) * a
-        return {"ghi": hi, "glo": lo}, {"out": y}
+        return {"group": group}, {"out": y}
 
 
 class sig_source(Block):
@@ -106,8 +113,8 @@ class sig_source(Block):
     dtype are fixed at construction. complex, cos and sin come from the NCO
     kernel (ops/cuda/sources.py ``nco_planes``, K8; its plain version on the
     CPU); square, triangle and saw are torch ops on the NCO phase, as in the
-    reference. The phase counter and ``dphase`` are host ints, so a step
-    reads nothing back from the card.
+    reference. The phase counter and ``dphase`` are int64 tensors on the
+    run's device, so a step reads nothing back from the card.
     """
 
     WAVEFORMS = ("cos", "sin", "complex", "square", "triangle", "saw")
@@ -133,7 +140,7 @@ class sig_source(Block):
         self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
 
     def init_state(self, nin, nout, device):
-        return {"phase": 0}
+        return {"phase": nco.phase_tensor(0, device)}
 
     def work(self, state, ins, params, nout):
         ph0, dp = state["phase"], params["dphase"]
@@ -334,7 +341,7 @@ class sig_source_folded(Block):
         self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
 
     def init_state(self, nin, nout, device):
-        return {"phase": 0}
+        return {"phase": nco.phase_tensor(0, device)}
 
     def init_state_sharded(self, nin, nout, mesh, axis):
         # the folded layout is per batch (segment s of THIS batch in lane
@@ -357,7 +364,8 @@ class wbfm_live_source(_wbfm_chain_block):
     """The LIVE wideband-FM receiver as ONE source kernel: the NCO test tone
     is generated inside the fused chain (ops/cuda/wbfm_chain.py
     ``wbfm_chain_live_step``, K12), so the only stream state is the phase
-    counter and a first-batch flag (samples before the stream are 0).
+    counter and a first-batch flag (samples before the stream are 0), both
+    on the card.
     Emits the rf32 audio stream; bit-identical to ``sig_source_folded ->
     wbfm_rcv_fused(input_format="folded")`` with the same parameters."""
 
@@ -379,7 +387,7 @@ class wbfm_live_source(_wbfm_chain_block):
         self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
 
     def init_state(self, nin, nout, device):
-        return {"phase": 0, "first": True}
+        return _live_state(device)
 
     def work(self, state, ins, params, nout):
         S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
@@ -391,8 +399,7 @@ class wbfm_live_source(_wbfm_chain_block):
         aud = wbfm_chain.wbfm_chain_live_step(
             state["phase"], params["dphase"], a, state["first"], self.plan,
             self.consts(a.device), R, tile=self.tile)
-        return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
-                                          S * R), "first": False},
+        return (_live_advance(state, params["dphase"], S * R),
                 {"out": wbfm_chain.unfold_audio(aud)})
 
     def init_state_sharded(self, nin, nout, mesh, axis):
@@ -410,18 +417,18 @@ class wbfm_live_source(_wbfm_chain_block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K12 per time shard at its own phase offset: zero collectives."""
+        """K12 per time shard at its own phase offset (the kernel's shard
+        index): zero collectives."""
         nd = mesh.shape[axis]
         S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
         n_loc = int(nout) * D * Rd // nd  # samples a shard
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
         consts = self.consts(a.device)
         auds = [wbfm_chain.unfold_audio(wbfm_chain.wbfm_chain_live_step(
-            nco.nco_advance(ph, dp, n_loc * d), dp, a,
-            state["first"] and d == 0, self.plan, consts, n_loc // S,
-            tile=self.tile)) for d in range(nd)]
-        return ({"phase": nco.nco_advance(ph, dp, int(nout) * D * Rd),
-                 "first": False}, {"out": torch.cat(auds)})
+            ph, dp, a, state["first"], self.plan, consts, n_loc // S,
+            tile=self.tile, shard=d)) for d in range(nd)]
+        return (_live_advance(state, dp, int(nout) * D * Rd),
+                {"out": torch.cat(auds)})
 
 
 class fir_tone_source(Block):
@@ -430,8 +437,8 @@ class fir_tone_source(Block):
     (ops/cuda/fir_source.py ``fir_tone_step``, K9). Emits the filtered cf32
     stream; real taps only (each re and im plane is filtered on its own).
     A FIR has no recursive state, so the only stream state is the phase
-    counter and a first-batch flag (samples before the stream are 0), host
-    values as in ``wbfm_live_source``. Equal to ``sig_source ->
+    counter and a first-batch flag (samples before the stream are 0), on
+    the card as in ``wbfm_live_source``. Equal to ``sig_source ->
     fir_filter(decim)`` to float32 accuracy. Batches are multiples of 64
     samples (64*decim, so that each segment decimates whole)."""
 
@@ -470,7 +477,7 @@ class fir_tone_source(Block):
         return n_samp // fir_source.S
 
     def init_state(self, nin, nout, device):
-        return {"phase": 0, "first": True}
+        return _live_state(device)
 
     def work(self, state, ins, params, nout):
         R = self._fold_rows(nout)
@@ -478,8 +485,7 @@ class fir_tone_source(Block):
         out = fir_source.fir_tone_step(state["phase"], params["dphase"], a,
                                        state["first"], self.dev_taps(a.device),
                                        self.decim, R, tile=self.tile)
-        return ({"phase": nco.nco_advance(state["phase"], params["dphase"],
-                                          fir_source.S * R), "first": False},
+        return (_live_advance(state, params["dphase"], fir_source.S * R),
                 {"out": fir_source.unfold_complex(out)})
 
     def init_state_sharded(self, nin, nout, mesh, axis):
@@ -491,15 +497,27 @@ class fir_tone_source(Block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K9 per time shard at its own phase offset: zero collectives."""
+        """K9 per time shard at its own phase offset (the kernel's shard
+        index): zero collectives."""
         nd = mesh.shape[axis]
-        n_loc = int(nout) * self.decim // nd  # samples a shard
         R_loc = self._fold_rows(int(nout) // nd)
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
         taps = self.dev_taps(a.device)
         outs = [fir_source.unfold_complex(fir_source.fir_tone_step(
-            nco.nco_advance(ph, dp, n_loc * d), dp, a,
-            state["first"] and d == 0, taps, self.decim, R_loc,
-            tile=self.tile)) for d in range(nd)]
-        return ({"phase": nco.nco_advance(ph, dp, int(nout) * self.decim),
-                 "first": False}, {"out": torch.cat(outs)})
+            ph, dp, a, state["first"], taps, self.decim, R_loc,
+            tile=self.tile, shard=d)) for d in range(nd)]
+        return (_live_advance(state, dp, int(nout) * self.decim),
+                {"out": torch.cat(outs)})
+
+
+def _live_state(device) -> dict:
+    """The live sources' stream state on ``device``: the phase counter and
+    the first-batch flag."""
+    return {"phase": nco.phase_tensor(0, device),
+            "first": torch.ones((), dtype=torch.bool, device=device)}
+
+
+def _live_advance(state: dict, dphase, n: int) -> dict:
+    """The live sources' state after a batch of n samples, on the card."""
+    return {"phase": nco.nco_advance(state["phase"], dphase, n),
+            "first": torch.zeros_like(state["first"])}

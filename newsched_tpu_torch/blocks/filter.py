@@ -140,7 +140,7 @@ class freq_xlating_fir(Block):
         self.set_param("dphase", nco.freq_to_dphase(f, self.sampling_freq))
 
     def init_state(self, nin, nout, device):
-        return {"rot": analog_ops.rotator_init_state(),
+        return {"rot": analog_ops.rotator_init_state(device),
                 "fir": fir_ops.fir_init_state(len(self.taps), device)}
 
     def work(self, state, ins, params, nout):

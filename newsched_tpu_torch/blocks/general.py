@@ -61,8 +61,11 @@ class null_sink(Block):
 class vector_source(Block):
     """Emit a fixed host vector, optionally repeating (reference
     blocklib/blocks/vector_source<T>). The data is copied to the run's
-    device once, in init_state; the read position is a host int, so a
-    batch is a slice of the device copy with no host round trip."""
+    device once, in init_state; the read position is an int64 tensor there
+    too, so a batch is a gather from the device copy with no host round
+    trip, and a captured step replays from the position the step before
+    left. A repeating source whose data is exactly one batch emits the
+    buffer itself, with no copy (the bench's replay form)."""
 
     def __init__(self, data, repeat: bool = False, dtype=None, vlen=(),
                  name=None):
@@ -91,24 +94,25 @@ class vector_source(Block):
             ) if pad else self.data
         data = torch.as_tensor(np.ascontiguousarray(arr, self.dtype.np_dtype),
                                device=device)
-        return {"data": data, "pos": 0}
+        return {"data": data,
+                "pos": torch.zeros((), dtype=torch.int64, device=device)}
 
     def work(self, state, ins, params, nout):
         data, pos = state["data"], state["pos"]
-        n = data.shape[0]
+        n = int(data.shape[0])
+        if self.repeat and len(self.data) == nout:
+            # whole buffer per batch: emitted as-is, pos stays 0
+            return state, {"out": data}
+        idx = pos + torch.arange(nout, device=data.device)
         if self.repeat:
-            if len(self.data) == nout:
-                out = data  # whole buffer per batch: emitted as-is
-            elif len(self.data) % nout == 0:
-                # pos only ever lands on batch boundaries: a plain slice
-                out = data[pos:pos + nout]
-            else:
-                idx = (pos + torch.arange(nout, device=data.device)) % len(self.data)
-                out = data[idx]
-            new_pos = (pos + nout) % len(self.data)
+            n_data = len(self.data)
+            out = data[idx % n_data]
+            new_pos = (pos + nout) % n_data
         else:
-            out = data[pos:pos + nout]
-            new_pos = min(pos + nout, max(n - nout, 0))
+            # the data is padded to whole batches, so a batch never reads
+            # past the end; the position stops at the last batch
+            out = data[idx]
+            new_pos = torch.clamp(pos + nout, max=max(n - nout, 0))
         return {"data": data, "pos": new_pos}, {"out": out}
 
 

@@ -159,16 +159,16 @@ class noise_planes_source(Block):
             raise ValueError(
                 f"noise_planes_source needs batches in multiples of "
                 f"{noise.GROUP_ROWS} rows, got {nout}")
-        return {"ghi": 0, "glo": 0}
+        return {"group": noise.group_tensor(0, device)}
 
     def work(self, state, ins, params, nout):
         amp = params["amplitude"]
-        r = noise.gaussian_rows(state["ghi"], state["glo"], n_rows=nout,
+        r = noise.gaussian_rows(state["group"], n_rows=nout,
                                 width=2 * self.nchans, seed=self.seed,
                                 device=amp.device)
-        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
-                                      nout // noise.GROUP_ROWS)
-        return {"ghi": hi, "glo": lo}, {"out": r * amp}
+        return ({"group": noise.advance(state["group"],
+                                        nout // noise.GROUP_ROWS)},
+                {"out": r * amp})
 
 
 class _fused_chain(Block):
@@ -315,23 +315,24 @@ class fm_noise_channelizer_source(_fused_chain):
             raise ValueError(
                 f"fm_noise_channelizer_source needs batches in multiples of "
                 f"{noise.GROUP_ROWS} rows, got {nout * self.audio_decim}")
-        return {"ghi": 0, "glo": 0, **self.chain_state(device)}
+        return {"group": noise.group_tensor(0, device),
+                **self.chain_state(device)}
 
     def work(self, state, ins, params, nout):
         n_loc = int(nout) * self.audio_decim
         amp = params["amplitude"]
         aud, prev, atail, carry = fm_chain.fm_chain_gen_step(
-            state["ghi"], state["glo"], amp, state["carry"], state["prev"],
+            state["group"], amp, state["carry"], state["prev"],
             state["atail"], self.consts(amp.device), self.audio_decim,
             self.gain, n_loc, seed=self.seed, draws=self.noise_draws)
-        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
-                                      n_loc // noise.GROUP_ROWS)
-        return ({"ghi": hi, "glo": lo, "carry": carry, "prev": prev,
+        group = noise.advance(state["group"], n_loc // noise.GROUP_ROWS)
+        return ({"group": group, "carry": carry, "prev": prev,
                  "atail": atail}, {"out": aud})
 
     # -- graph-level sharding: under fg.run(mesh=...) each time shard d
     # runs K6 (fm_chain_gen_warm_step) on its own absolute group range,
-    # base (ghi, glo) + d * n_loc / 64, and rebuilds its fold halo and
+    # base group + d * n_loc / 64 (the kernel adds the shard's offset to
+    # the counter it reads from the card), and rebuilds its fold halo and
     # junction from the stream itself: zero collectives, and the only state
     # is the 64-bit group counter.
 
@@ -370,7 +371,7 @@ class fm_noise_channelizer_source(_fused_chain):
 
     def init_state_sharded(self, nin, nout, mesh, axis):
         self._sharded_geometry(int(nout) * self.audio_decim, mesh.shape[axis])
-        return {"ghi": 0, "glo": 0}
+        return {"group": noise.group_tensor(0, mesh.device)}
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
         from newsched_tpu_torch.parallel.channelizer import kernel_tile
@@ -383,13 +384,9 @@ class fm_noise_channelizer_source(_fused_chain):
                          max(self.h8, len(self.audio_taps) - 1))
         amp = params["amplitude"]
         consts = self.consts(amp.device)
-        auds = []
-        for d in range(nd):
-            hi, lo = noise.add_groups_signed(state["ghi"], state["glo"],
-                                             d * (n_loc // G))
-            auds.append(fm_chain.fm_chain_gen_warm_step(
-                hi, lo, amp, consts, self.audio_decim, self.gain, n_loc,
-                warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws))
-        hi, lo = noise.advance_groups(state["ghi"], state["glo"],
-                                      n_rows_tot // G)
-        return {"ghi": hi, "glo": lo}, {"out": torch.cat(auds)}
+        auds = [fm_chain.fm_chain_gen_warm_step(
+            state["group"], amp, consts, self.audio_decim, self.gain, n_loc,
+            warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws,
+            goff=d * (n_loc // G)) for d in range(nd)]
+        return ({"group": noise.advance(state["group"], n_rows_tot // G)},
+                {"out": torch.cat(auds)})

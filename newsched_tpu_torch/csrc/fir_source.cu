@@ -124,9 +124,16 @@ __device__ __forceinline__ void fir_outputs(const float* xr, const float* xi,
 // o0 = blockIdx.x * T/D, CU outputs a chunk: stage the chunk's samples (0
 // past the block's last), then each thread sums kJ consecutive outputs of
 // one segment and writes them to both planes.
+// The phase counter, its increment and the first-batch flag are read from
+// the card (the stream state of the runner's captured graph); time shard
+// `shard` starts shard * 64 * R samples into the batch, and only shard 0
+// has samples before the stream.
 __global__ void __launch_bounds__(kThreads)
-fir_tone_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
-                int first, mathfns::SinCosCoeffs sc, Fir p) {
+fir_tone_kernel(const long long* __restrict__ phase,
+                const long long* __restrict__ dphase,
+                const float* __restrict__ amp,
+                const unsigned char* __restrict__ first, int shard,
+                mathfns::SinCosCoeffs sc, Fir p) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   const int GS = p.GS, P = p.P, D = p.D, nt = p.ntaps;
@@ -135,7 +142,10 @@ fir_tone_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
   const int s0 = blockIdx.y * GS;
   const int gs_shift = __ffs(GS) - 1;  // GS divides 64: a power of 2
   const float a = amp[0];
-  const bool b0 = first != 0;
+  const mathfns::NcoPos pos =
+      mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * p.R);
+  const uint32_t ph0 = pos.ph0, dp = pos.dp;
+  const bool b0 = shard == 0 && first[0] != 0;
 
   float* taps = sm;
   float* xre = sm + nt;
@@ -187,13 +197,15 @@ fir_tone_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
 
 }  // namespace
 
-extern "C" int fir_tone_launch(uint32_t ph0, uint32_t dp, const float* amp,
-                               int first, const float* taps, float* out, int R,
+extern "C" int fir_tone_launch(const long long* phase, const long long* dphase,
+                               const float* amp, const unsigned char* first,
+                               int shard, const float* taps, float* out, int R,
                                int ntaps, int D, int T, int GS, int P, int CU,
                                const float* sincos_coeffs, void* stream) {
   const Fir p{taps, out, R, ntaps, D, T, GS, P, CU};
   if (D <= 0 || T <= 0 || T % D || R % T || GS <= 0 || kSegs % GS ||
-      (GS & (GS - 1)) || P < GS || CU != kThreads / GS * kJ || ntaps <= 0)
+      (GS & (GS - 1)) || P < GS || CU != kThreads / GS * kJ || ntaps <= 0 ||
+      shard < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_floats(p) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -201,6 +213,7 @@ extern "C" int fir_tone_launch(uint32_t ph0, uint32_t dp, const float* amp,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(R / T, kSegs / GS);
   fir_tone_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      ph0, dp, amp, first, mathfns::load_sincos(sincos_coeffs), p);
+      phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs),
+      p);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,9 @@
 // with vp = [halo; vb] (the H8 rows before the batch, then the batch),
 // Y[-1] = prev0 and aud[t<0] from tail0, the carried state.
 //
-// Stream start: rows t < t_min are before the stream (a kernel argument;
-// 0 for the carried forms): their acc is 0, Y[t_min-1] is prev0 and aud
+// Stream start: rows t < t_min are before the stream (a launch argument,
+// 0 for the carried forms; K6 derives it from its base group, which like
+// K5's lives on the card): their acc is 0, Y[t_min-1] is prev0 and aud
 // there comes from tail0. The sharded forms move it. K3 with warm > 0 (a
 // time shard of the fused graph) gets a halo of warm + H8 real rows before
 // its batch and t_min far in the past, so every block rebuilds its junction
@@ -95,6 +96,22 @@ constexpr int kChunkRows = tile_mm::kPassRows;
 constexpr int kW = tile_mm::kW;  // planes lanes, 2M for M = 64 channels
 constexpr int kM = kW / 2;
 
+// The stages of a tile, each of which a variant of the ablation probe
+// (newsched_tpu_torch/probes/ablate.py; the reference's
+// bench/exp_ablate.py) switches off at compile time. The shipped kernels are
+// the all-on instance, kFull: every `if constexpr` below is then the code
+// they always ran.
+enum Variant {
+  kFull = 0,   // the chain
+  kNoAtan2,    // demod: (PR + PI) * gain in place of atan2(PI, PR) * gain
+  kNoDft,      // Y = acc, no DFT product
+  kNoFold,     // acc = c2[0] * the window row: one tap in place of L
+  kNoAudio,    // out[o] = aud[o * decim], no audio FIR
+  kNoDemod,    // aud = Re Y * gain, no demod
+  kDmaOnly,    // the window loaded, then out[o] = its row o * decim (re)
+  kVariants
+};
+
 // What the two chain kernels share: constants, carried state in and out,
 // and the tile geometry.
 struct Chain {
@@ -142,10 +159,12 @@ __host__ __device__ __forceinline__ int tile_rows(int T, int A, int L) {
 // t_first + jj < t_min (before the stream) or jj >= nrows. In place when
 // dst == src: every read of a pass (rows r0 .. r0+31+L-1) happens before
 // its writes (rows r0 .. r0+31), and later passes read only rows past
-// r0+31. Per lane: c2[0]*v, then fmaf in order.
+// r0+31. Per lane: c2[0]*v, then fmaf in order (kOneTap: c2[0]*v alone,
+// the ablation's kNoFold).
+template <bool kOneTap = false>
 __device__ __forceinline__ void fold_rows(const float* src, float* dst,
-                                          const Chain& p, int t_first,
-                                          int nrows, int npad) {
+                                          const Chain& p, int t_min,
+                                          int t_first, int nrows, int npad) {
   constexpr int W = kW;
   constexpr int kPer = kChunkRows * W / kThreads;  // 16 rows per thread
   const int tid = threadIdx.x;
@@ -156,10 +175,11 @@ __device__ __forceinline__ void fold_rows(const float* src, float* dst,
     for (int e = 0; e < kPer; ++e) {
       const int jj = r0 + h * kPer + e;
       v[e] = 0.f;
-      if (jj < nrows && t_first + jj >= p.t_min) {
+      if (jj < nrows && t_first + jj >= t_min) {
         float acc = __ldg(p.c2 + k) * src[jj * W + k];
-        for (int q = 1; q < p.L; ++q)
-          acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
+        if constexpr (!kOneTap)
+          for (int q = 1; q < p.L; ++q)
+            acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
         v[e] = acc;
       }
     }
@@ -181,12 +201,16 @@ __device__ __forceinline__ void fold_rows(const float* src, float* dst,
 //     A .. A+T-1 are folded and transformed; after_fold() runs once the
 //     stage has been read.
 // `last`: the batch's last tile (prev_out, tail_out); ynext (or null)
-// receives Y[t0+T-1].
-template <bool kRebuild, class Row, class AfterFold>
-__device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
-                                           bool last, const float* yprev,
-                                           float* ynext, const float* stage,
-                                           Row row, AfterFold after_fold) {
+// receives Y[t0+T-1]. kV: the stages switched off (Variant; kFull for
+// every shipped kernel). t_min: the stream's first row (p.t_min, but for
+// K6, which finds it from the base group it reads; passed on its own so
+// that the kernels' Chain stays an unmodified launch parameter).
+template <bool kRebuild, int kV, class Row, class AfterFold>
+__device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
+                                           int t_min, int t0, bool last,
+                                           const float* yprev, float* ynext,
+                                           const float* stage, Row row,
+                                           AfterFold after_fold) {
   constexpr int W = kW, M = kM;
   const int A = p.A, L = p.L;
   const int R = p.T + A;
@@ -202,16 +226,25 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
       buf[idx] = row(t0 - A - (L - 1) + ii, k);
     }
     __syncthreads();
-    fold_rows(buf, buf, p, t0 - A, R, r_hi);
+    if constexpr (kV == kDmaOnly) {
+      // window row A + L - 1 + j is stream row t0 + j
+      for (int idx = tid; idx < p.T / p.decim * M; idx += kThreads) {
+        const int o = idx / M, m = idx % M;
+        p.aud[((long long)t0 / p.decim + o) * M + m] =
+            buf[(A + L - 1 + o * p.decim) * W + m];
+      }
+      return;
+    }
+    fold_rows<kV == kNoFold>(buf, buf, p, t_min, t0 - A, R, r_hi);
   } else {
-    fold_rows(stage, buf + A * W, p, t0, p.T, p.T);
+    fold_rows(stage, buf + A * W, p, t_min, t0, p.T, p.T);
   }
   after_fold();
 
   // 2. Y = acc @ W2 in place, kChunkRows rows a pass; the carried row
   //    Y[-1] where the tile reaches it; Y[t0+T-1] out.
   const int tx = tid & 31, ty = tid >> 5;
-  for (int r0 = r_lo; r0 < r_hi; r0 += kChunkRows) {
+  for (int r0 = r_lo; r0 < r_hi && kV != kNoDft; r0 += kChunkRows) {
     float o[4][4];
     tile_mm::pass(buf + r0 * W, p.w2, o);
     __syncthreads();
@@ -222,7 +255,7 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
     __syncthreads();
   }
   if (kRebuild) {
-    const int jp = p.t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
+    const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
     if (jp >= 0 && jp < R)
       for (int k = tid; k < W; k += kThreads) buf[jp * W + k] = p.prev0[k];
   }
@@ -250,15 +283,20 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
       val[e] = 0.f;
       if (jj < hi) {
         const int t = t0 - A + jj;
-        if (t < p.t_min) {
-          val[e] = p.tail0[(A - 1 + t - p.t_min) * W + m];
+        if (t < t_min) {
+          val[e] = p.tail0[(A - 1 + t - t_min) * W + m];
         } else {
           const float* pa = !kRebuild && jj == jlo ? yprev : buf + (jj - 1) * W;
           const float* py = buf + jj * W;
           const float ar = pa[m], ai = pa[m + M], yr = py[m], yi = py[m + M];
           const float pr = ar * yr + ai * yi;
           const float pi = ar * yi - ai * yr;
-          val[e] = atan2_poly(pi, pr, p.co) * p.gain;
+          if constexpr (kV == kNoAtan2)
+            val[e] = (pr + pi) * p.gain;
+          else if constexpr (kV == kNoDemod)
+            val[e] = yr * p.gain;
+          else
+            val[e] = atan2_poly(pi, pr, p.co) * p.gain;
         }
       }
     }
@@ -286,17 +324,21 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p, int t0,
     const int o = idx / M, m = idx % M;
     const float* col = buf + (A + o * p.decim) * W + m;
     float acc = 0.f;
-    for (int k = 0; k < A; ++k) acc = fmaf(__ldg(p.ataps + k), col[-k * W], acc);
+    if constexpr (kV == kNoAudio)
+      acc = col[0];
+    else
+      for (int k = 0; k < A; ++k)
+        acc = fmaf(__ldg(p.ataps + k), col[-k * W], acc);
     p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
   }
 }
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
 // last block writes the end state where the kernel returns one.
-template <class Row>
+template <int kV = kFull, class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
-                                             Row row) {
-  chain_tile<true>(buf, p, blockIdx.x * p.T,
+                                             int t_min, Row row) {
+  chain_tile<true, kV>(buf, p, t_min, blockIdx.x * p.T,
                    blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr,
                    nullptr, nullptr, nullptr, row, [] {});
 }
@@ -320,19 +362,30 @@ __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile(buf, p, HaloRows{vb, halo, hrows});
+  rebuilt_tile(buf, p, p.t_min, HaloRows{vb, halo, hrows});
+}
+
+// The ablation probe: K3 with the stages of kV switched off; kFull is K3.
+template <int kV>
+__global__ void __launch_bounds__(kThreads)
+fm_chain_ablate_kernel(const float* __restrict__ vb,
+                       const float* __restrict__ halo, int hrows, Chain p) {
+  extern __shared__ __align__(16) float buf[];
+  rebuilt_tile<kV>(buf, p, p.t_min, HaloRows{vb, halo, hrows});
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
-// out as the next carry), the halo from carry0.
+// out as the next carry), the halo from carry0; the base group on the card.
 __global__ void __launch_bounds__(kThreads)
-fm_chain_gen_kernel(philox::Stream s, const float* __restrict__ amp,
+fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
+                    const float* __restrict__ amp,
                     const float* __restrict__ carry0,
                     float* __restrict__ carry_out, Chain p) {
   extern __shared__ __align__(16) float buf[];
+  s.g0 = philox::group_at(group, 0);
   const int H8 = p.H8, n = p.n;
   const float a = amp[0];
-  rebuilt_tile(buf, p, [&](int sr, int k) {
+  rebuilt_tile(buf, p, p.t_min, [&](int sr, int k) {
     if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * kW + k] : 0.f;
     const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
     if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
@@ -342,13 +395,25 @@ fm_chain_gen_kernel(philox::Stream s, const float* __restrict__ amp,
 
 // K6: K5 with nothing carried in or out: every row a block reads, before
 // the batch too, generated from its signed offset to the base group (the
-// stream masks groups before its start to 0).
+// stream masks groups before its start to 0). The shard's base is the
+// batch's group counter on the card plus `goff` groups; the stream's first
+// row relative to it (t_min) follows from that base here: where a block
+// can reach it (shard 0 of the first batch) it is -64 * base, else far in
+// the past (kFarPast, which no block reaches).
+constexpr int kFarPast = -(1 << 30);
+
 __global__ void __launch_bounds__(kThreads)
-fm_chain_gen_warm_kernel(philox::Stream s, const float* __restrict__ amp,
-                         Chain p) {
+fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
+                         long long goff, const float* __restrict__ amp,
+                         const Chain p) {
   extern __shared__ __align__(16) float buf[];
+  s.g0 = philox::group_at(group, goff);
+  const long long g = (long long)s.g0;
+  const int t_min = g <= 0 ? 0
+                    : g >= (1LL << 24) ? kFarPast
+                                       : (int)(-g * philox::kGroupRows);
   const float a = amp[0];
-  rebuilt_tile(buf, p, [&](int sr, int k) {
+  rebuilt_tile(buf, p, t_min, [&](int sr, int k) {
     return __fmul_rn(philox::gauss(s, sr, k, kW), a);
   });
 }
@@ -396,8 +461,8 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
   const HaloRows row{vb, halo, hrows};
   if (g0 + 1 < g1)
     prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
-  chain_tile<true>(buf, p, g0 * T, g0 == NT - 1, nullptr, yrows, nullptr, row,
-                   [] {});
+  chain_tile<true, kFull>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
+                          yrows, nullptr, row, [] {});
   for (int g = g0 + 1; g < g1; ++g) {
     __syncthreads();  // the tile before has read its aud rows
     for (int idx = tid; idx < (A - 1) * M; idx += kThreads) {
@@ -406,7 +471,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
     }
     wait_window();
     __syncthreads();
-    chain_tile<false>(buf, p, g * T, g == NT - 1,
+    chain_tile<false, kFull>(buf, p, p.t_min, g * T, g == NT - 1,
                       yrows + ((g - g0 - 1) & 1) * W,  // Y[t0-1]
                       yrows + ((g - g0) & 1) * W, stage, row, [&] {
       if (g + 1 < g1)
@@ -457,8 +522,49 @@ extern "C" int fm_chain_planes_launch(
                  H8, A, decim, T, t_min, gain, atan_coeffs));
 }
 
+// The ablation probe's launch: K3's arguments (prev_out/tail_out may be
+// null: the variant then writes the audio only) and the variant.
+extern "C" int fm_chain_ablate_launch(
+    int variant, const float* vb, const float* halo, const float* prev0,
+    const float* tail0, const float* c2, const float* w2, const float* ataps,
+    float* aud, float* prev_out, float* tail_out, int n, int M, int L, int H8,
+    int A, int decim, int T, int hrows, int t_min, float gain,
+    const float* atan_coeffs, void* stream) {
+  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
+      variant < 0 || variant >= kVariants || (prev_out == nullptr) !=
+      (tail_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tile_rows(T, A, L) * kW * sizeof(float);
+  const Chain p = make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out,
+                             tail_out, n, L, H8, A, decim, T, t_min, gain,
+                             atan_coeffs);
+  switch (variant) {
+    case kFull:
+      return launch_tiles(fm_chain_ablate_kernel<kFull>, smem, n / T, stream,
+                          vb, halo, hrows, p);
+    case kNoAtan2:
+      return launch_tiles(fm_chain_ablate_kernel<kNoAtan2>, smem, n / T,
+                          stream, vb, halo, hrows, p);
+    case kNoDft:
+      return launch_tiles(fm_chain_ablate_kernel<kNoDft>, smem, n / T, stream,
+                          vb, halo, hrows, p);
+    case kNoFold:
+      return launch_tiles(fm_chain_ablate_kernel<kNoFold>, smem, n / T, stream,
+                          vb, halo, hrows, p);
+    case kNoAudio:
+      return launch_tiles(fm_chain_ablate_kernel<kNoAudio>, smem, n / T,
+                          stream, vb, halo, hrows, p);
+    case kNoDemod:
+      return launch_tiles(fm_chain_ablate_kernel<kNoDemod>, smem, n / T,
+                          stream, vb, halo, hrows, p);
+    default:
+      return launch_tiles(fm_chain_ablate_kernel<kDmaOnly>, smem, n / T,
+                          stream, vb, halo, hrows, p);
+  }
+}
+
 extern "C" int fm_chain_gen_launch(
-    uint32_t g_lo, uint32_t g_hi, uint32_t k0, uint32_t k1, int draws,
+    const long long* group, uint32_t k0, uint32_t k1, int draws,
     float mean, float inv_std, const float* amp, const float* carry0,
     const float* prev0, const float* tail0, const float* c2, const float* w2,
     const float* ataps, float* aud, float* prev_out, float* tail_out,
@@ -466,30 +572,29 @@ extern "C" int fm_chain_gen_launch(
     float gain, const float* atan_coeffs, void* stream) {
   if (2 * M != kW || (draws != 2 && draws != 3))
     return (int)cudaErrorInvalidValue;
-  const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
-                         inv_std, 0};
+  const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
   return launch_tiles(
       fm_chain_gen_kernel, (size_t)tile_rows(T, A, L) * kW * sizeof(float),
-      n / T, stream, s, amp, carry0, carry_out,
+      n / T, stream, s, group, amp, carry0, carry_out,
       make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
                  H8, A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_gen_warm_launch(
-    uint32_t g_lo, uint32_t g_hi, uint32_t k0, uint32_t k1, int draws,
-    float mean, float inv_std, const float* amp, const float* prev0,
+    const long long* group, long long goff, uint32_t k0, uint32_t k1,
+    int draws, float mean, float inv_std, const float* amp, const float* prev0,
     const float* tail0, const float* c2, const float* w2, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
-    int t_min, float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || (draws != 2 && draws != 3) || t_min > 0)
+    float gain, const float* atan_coeffs, void* stream) {
+  if (2 * M != kW || (draws != 2 && draws != 3))
     return (int)cudaErrorInvalidValue;
-  const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
-                         inv_std, 1};
+  const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
   return launch_tiles(
       fm_chain_gen_warm_kernel,
-      (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T, stream, s, amp,
+      (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T, stream, s,
+      group, goff, amp,
       make_chain(prev0, tail0, c2, w2, ataps, aud, nullptr, nullptr, n, L, H8,
-                 A, decim, T, t_min, gain, atan_coeffs));
+                 A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_pipe_launch(

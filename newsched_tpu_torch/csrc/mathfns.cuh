@@ -110,6 +110,22 @@ __device__ __forceinline__ void nco_sample(uint32_t phase, float amp,
   *im = __fmul_rn(sn, amp);
 }
 
+// The NCO's stream position as the kernels read it: the phase counter and
+// its increment live on the card as int64 tensors holding uint32 values
+// (the runner's captured graph replays the step, so nothing of the stream
+// may be a launch argument), and a time shard starts `off` samples into
+// its batch.
+struct NcoPos {
+  uint32_t ph0, dp;
+};
+
+__device__ __forceinline__ NcoPos nco_pos(const long long* phase,
+                                          const long long* dphase,
+                                          long long off) {
+  const uint32_t dp = (uint32_t)dphase[0];
+  return NcoPos{(uint32_t)phase[0] + dp * (uint32_t)off, dp};
+}
+
 // Sample k of segment s of a batch folded into R rows (time-folded lanes:
 // batch sample s*R + k), the tone of the NCO with phase ph0 + idx * dp at
 // idx = s*R + k. A negative idx is the previous batch's sample by the

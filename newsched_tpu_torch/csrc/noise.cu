@@ -25,8 +25,12 @@
 
 namespace {
 
+// The base group is read from the card (the stream state a captured graph
+// replays with): s.g0 is filled in from `group`.
 __global__ void gaussian_rows_kernel(float* __restrict__ out, long long n_rows,
-                                     int width, philox::Stream s) {
+                                     int width, philox::Stream s,
+                                     const long long* __restrict__ group) {
+  s.g0 = philox::group_at(group, 0);
   const long long total = n_rows * width;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -37,7 +41,7 @@ __global__ void gaussian_rows_kernel(float* __restrict__ out, long long n_rows,
 }  // namespace
 
 extern "C" int gaussian_rows_launch(float* out, long long n_rows, int width,
-                                    uint32_t g_lo, uint32_t g_hi, uint32_t k0,
+                                    const long long* group, uint32_t k0,
                                     uint32_t k1, int draws, float mean,
                                     float inv_std, int mask_pre,
                                     void* stream) {
@@ -47,9 +51,8 @@ extern "C" int gaussian_rows_launch(float* out, long long n_rows, int width,
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
-  const philox::Stream s{((uint64_t)g_hi << 32) | g_lo, k0, k1, draws, mean,
-                         inv_std, mask_pre};
+  const philox::Stream s{0, k0, k1, draws, mean, inv_std, mask_pre};
   gaussian_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      out, n_rows, width, s);
+      out, n_rows, width, s, group);
   return (int)cudaGetLastError();
 }

@@ -53,6 +53,15 @@ struct Stream {
   int mask_pre;    // groups negative as signed (before the stream) read 0
 };
 
+// The stream's 64-bit group counter, kept on the card as one int64 (two's
+// complement, so the signed pre-stream region reads negative), plus a
+// signed offset of whole groups (a time shard's distance from its batch's
+// base); the sum wraps at 2^64 as the reference's (hi, lo) int32 pair.
+__device__ __forceinline__ uint64_t group_at(const long long* group,
+                                             long long off) {
+  return (uint64_t)group[0] + (uint64_t)off;
+}
+
 // Standard-normal element (row, k), row counted from group g0. C division
 // truncates toward zero, so the group of a negative row is taken by floor
 // division: row -1 is the last row of group g0 - 1, not row -1 of g0.

@@ -30,47 +30,56 @@ constexpr int kThreads = 256;
 constexpr int kSegs = 64;  // K11's fold width: segments = lane pairs
 
 __global__ void __launch_bounds__(kThreads)
-nco_planes_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
-                  long long n, float* __restrict__ re, float* __restrict__ im,
+nco_planes_kernel(const long long* __restrict__ phase,
+                  const long long* __restrict__ dphase,
+                  const float* __restrict__ amp, long long n,
+                  float* __restrict__ re, float* __restrict__ im,
                   mathfns::SinCosCoeffs co) {
   const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n) return;
+  const mathfns::NcoPos pos = mathfns::nco_pos(phase, dphase, 0);
   float r, i;
-  mathfns::nco_sample(ph0 + (uint32_t)k * dp, amp[0], co, &r, &i);
+  mathfns::nco_sample(pos.ph0 + (uint32_t)k * pos.dp, amp[0], co, &r, &i);
   re[k] = r;
   im[k] = i;
 }
 
 __global__ void __launch_bounds__(kThreads)
-nco_folded_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
-                  int R, float* __restrict__ out, mathfns::SinCosCoeffs co) {
+nco_folded_kernel(const long long* __restrict__ phase,
+                  const long long* __restrict__ dphase,
+                  const float* __restrict__ amp, int R, float* __restrict__ out,
+                  mathfns::SinCosCoeffs co) {
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= (long long)R * kSegs) return;
   const int row = (int)(e / kSegs), s = (int)(e % kSegs);
+  const mathfns::NcoPos pos = mathfns::nco_pos(phase, dphase, 0);
   float r, i;
-  mathfns::nco_folded_sample(ph0, dp, amp[0], false, R, s, row, co, &r, &i);
+  mathfns::nco_folded_sample(pos.ph0, pos.dp, amp[0], false, R, s, row, co,
+                             &r, &i);
   out[(long long)row * 2 * kSegs + s] = r;
   out[(long long)row * 2 * kSegs + kSegs + s] = i;
 }
 
 }  // namespace
 
-extern "C" int nco_planes_launch(uint32_t ph0, uint32_t dp, const float* amp,
+extern "C" int nco_planes_launch(const long long* phase,
+                                 const long long* dphase, const float* amp,
                                  long long n, float* re, float* im,
                                  const float* sincos_coeffs, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const long long blocks = (n + kThreads - 1) / kThreads;
   nco_planes_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      ph0, dp, amp, n, re, im, mathfns::load_sincos(sincos_coeffs));
+      phase, dphase, amp, n, re, im, mathfns::load_sincos(sincos_coeffs));
   return (int)cudaGetLastError();
 }
 
-extern "C" int nco_folded_launch(uint32_t ph0, uint32_t dp, const float* amp,
+extern "C" int nco_folded_launch(const long long* phase,
+                                 const long long* dphase, const float* amp,
                                  int R, float* out, const float* sincos_coeffs,
                                  void* stream) {
   if (R <= 0) return (int)cudaErrorInvalidValue;
   const long long blocks = ((long long)R * kSegs + kThreads - 1) / kThreads;
   nco_folded_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      ph0, dp, amp, R, out, mathfns::load_sincos(sincos_coeffs));
+      phase, dphase, amp, R, out, mathfns::load_sincos(sincos_coeffs));
   return (int)cudaGetLastError();
 }

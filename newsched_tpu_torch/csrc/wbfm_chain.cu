@@ -270,17 +270,24 @@ wbfm_chain_kernel(const float* __restrict__ xp, const float* __restrict__ carry,
   });
 }
 
-// K12: samples generated from the NCO's phase counter: sample index
-// s*R + k of the batch (negative: the previous batch, by the uint32 wrap;
-// 0 before the stream on the first batch).
+// K12: samples generated from the NCO's phase counter (on the card): sample
+// index s*R + k of the batch (negative: the previous batch, by the uint32
+// wrap; 0 before the stream on the stream's first batch, the flag `first`
+// on the card, which only time shard 0 of a batch reads).
 __global__ void __launch_bounds__(kThreads)
-wbfm_live_kernel(uint32_t ph0, uint32_t dp, const float* __restrict__ amp,
-                 int first, mathfns::SinCosCoeffs sc, Wbfm p) {
+wbfm_live_kernel(const long long* __restrict__ phase,
+                 const long long* __restrict__ dphase,
+                 const float* __restrict__ amp,
+                 const unsigned char* __restrict__ first, int shard,
+                 mathfns::SinCosCoeffs sc, Wbfm p) {
   extern __shared__ __align__(16) float sm[];
   const float a = amp[0];
   const int R = p.R;
+  const mathfns::NcoPos pos =
+      mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * R);
+  const bool b0 = shard == 0 && first[0] != 0;
   wbfm_tile(sm, p, [&](int s, int k, float* re, float* im) {
-    mathfns::nco_folded_sample(ph0, dp, a, first, R, s, k, sc, re, im);
+    mathfns::nco_folded_sample(pos.ph0, pos.dp, a, b0, R, s, k, sc, re, im);
   });
 }
 
@@ -326,8 +333,10 @@ extern "C" int wbfm_chain_launch(const float* xp, const float* carry,
   return (int)cudaGetLastError();
 }
 
-extern "C" int wbfm_live_launch(uint32_t ph0, uint32_t dp, const float* amp,
-                                int first, const float* crot,
+extern "C" int wbfm_live_launch(const long long* phase,
+                                const long long* dphase, const float* amp,
+                                const unsigned char* first, int shard,
+                                const float* crot,
                                 const float* rtaps, float* aud, int R,
                                 int ntaps, int D, int Rd, int A, int B8, int T,
                                 int GS, int P, int CU, float cos_t,
@@ -336,12 +345,13 @@ extern "C" int wbfm_live_launch(uint32_t ph0, uint32_t dp, const float* amp,
                                 const float* sincos_coeffs, void* stream) {
   const Wbfm p = make(crot, rtaps, aud, R, ntaps, D, Rd, A, T, GS, P, CU,
                       cos_t, sin_t, gain, atan_coeffs);
-  if (bad_geometry(p) || R < B8) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(p) || R < B8 || shard < 0) return (int)cudaErrorInvalidValue;
   size_t smem;
   const int err = set_smem(wbfm_live_kernel, p, &smem);
   if (err) return err;
   const dim3 grid(R / T, kSegs / GS);
   wbfm_live_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      ph0, dp, amp, first, mathfns::load_sincos(sincos_coeffs), p);
+      phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs),
+      p);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from newsched_tpu_torch.ops.nco import nco_advance, nco_cexp
+from newsched_tpu_torch.ops.nco import nco_advance, nco_cexp, phase_tensor
 
 
 class QuadDemodState(NamedTuple):
@@ -37,14 +37,16 @@ def quadrature_demod(state: QuadDemodState, x: torch.Tensor, gain
 
 
 class RotatorState(NamedTuple):
-    phase: int  # the uint32 fixed-point phase accumulator, a host int
+    # the uint32 fixed-point phase accumulator: a 0-dim int64 tensor on the
+    # run's device (advanced there, so no step reads it back)
+    phase: torch.Tensor
 
 
-def rotator_init_state() -> RotatorState:
-    return RotatorState(phase=0)
+def rotator_init_state(device="cpu") -> RotatorState:
+    return RotatorState(phase=phase_tensor(0, device))
 
 
-def rotate(state: RotatorState, x: torch.Tensor, dphase: int,
+def rotate(state: RotatorState, x: torch.Tensor, dphase,
            conj: bool = False) -> tuple[RotatorState, torch.Tensor]:
     """Multiply a batch by exp(+/- j*phase[n]) from the exact fixed-point
     NCO: the frequency-translation front end of freq_xlating_fir."""

@@ -37,35 +37,41 @@ _LL = ctypes.c_longlong
 # C signature of every launcher: (argtypes); all return a cudaError_t as int.
 SIGNATURES = {
     # noise.cu
-    "gaussian_rows_launch": [_P, _LL, _I, _U, _U, _U, _U, _I, _F, _F, _I, _P],
+    "gaussian_rows_launch": [_P, _LL, _I, _P, _U, _U, _I, _F, _F, _I, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                               _P],
+    "fm_chain_ablate_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
                                _P],
     "fm_chain_pipe_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
                              _P],
-    "fm_chain_gen_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
+    "fm_chain_gen_launch": [_P, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P, _P],
-    "fm_chain_gen_warm_launch": [_U, _U, _U, _U, _I, _F, _F, _P, _P, _P, _P,
-                                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _P, _P],
+    "fm_chain_gen_warm_launch": [_P, _LL, _U, _U, _I, _F, _F, _P, _P, _P, _P,
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                 _P, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
     "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
     # sources.cu
-    "nco_planes_launch": [_U, _U, _P, _LL, _P, _P, _P, _P],
-    "nco_folded_launch": [_U, _U, _P, _I, _P, _P, _P],
+    "nco_planes_launch": [_P, _P, _P, _LL, _P, _P, _P, _P],
+    "nco_folded_launch": [_P, _P, _P, _I, _P, _P, _P],
     # fir_source.cu
-    "fir_tone_launch": [_U, _U, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P],
+    "fir_tone_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P],
     # wbfm_chain.cu
     "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _F, _P, _P],
-    "wbfm_live_launch": [_U, _U, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
+    "wbfm_live_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
+    # probes.cu
+    "window_copy_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "planes_unpack_launch": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -165,6 +171,26 @@ def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (its cudaGetLastError())."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def device_scalar(x, name: str, *, device, dtype):
+    """A piece of stream state as a kernel reads it: a one-element tensor
+    of ``dtype`` on ``device`` (the blocks keep their NCO phases, group
+    counters and flags there, so a captured step reads the value the step
+    before it left). A host value, as a test or a probe passes one, is
+    uploaded here; a tensor must already be on the device with that dtype.
+    Never called on a host value inside a graph capture: the upload would
+    end the capture with an error."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if x.device != torch.device(device) or x.dtype != dtype \
+                or x.numel() != 1:
+            raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}, the kernel reads one {dtype} on "
+                             f"{device}")
+        return x
+    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def check_tensor(t, name: str, *, device, shape: tuple | None = None) -> None:

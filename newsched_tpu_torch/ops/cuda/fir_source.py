@@ -11,8 +11,9 @@ s, samples s*R .. s*R+R-1. The output is (R/D, 128) in the same layout
 tone of ``sources.nco_folded`` at batch index s*R + k: a negative index is
 the previous batch's sample (the uint32 wrap) and, on the stream's first
 batch, 0. So the chain is stateless but for the caller's phase counter and
-first-batch flag, both host values: no step reads anything back from the
-card.
+first-batch flag, which the kernel reads from the card (the block keeps
+them there, so a captured step replays with the state the step before
+left); a time shard passes its index and starts 64*R*shard samples on.
 """
 
 from __future__ import annotations
@@ -25,11 +26,12 @@ import torch
 
 from newsched_tpu_torch.ops.cuda import _build
 from newsched_tpu_torch.ops.cuda.mathfns import SINCOS_COEFFS
-from newsched_tpu_torch.ops.cuda.sources import folded_index, folded_values
+from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
+                                                 mask_before_stream, nco_args,
+                                                 shard_phase)
 from newsched_tpu_torch.ops.cuda.wbfm_chain import row_stride
 
 S = 64  # fold width: segments = lane pairs
-_M32 = 0xFFFFFFFF
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _THREADS = 256
 _J = 9  # consecutive outputs a CUDA thread computes (kJ)
@@ -77,8 +79,8 @@ def _geometry(R: int, D: int, ntaps: int, tile, GS: int) -> _Geometry:
     return _Geometry(T, GS, P, CU, smem)
 
 
-def fir_tone_step_plain(phase0: int, dphase: int, amp, first: bool,
-                        taps: torch.Tensor, decim: int, R: int):
+def fir_tone_step_plain(phase0, dphase, amp, first, taps: torch.Tensor,
+                        decim: int, R: int, shard: int = 0):
     """The plain PyTorch version of ``fir_tone_step``: the folded tone
     (``sources.folded_values``) over rows [-(ntaps-1), R), zero before the
     stream on the first batch, then the FIR tap by tap."""
@@ -86,9 +88,8 @@ def fir_tone_step_plain(phase0: int, dphase: int, amp, first: bool,
     nt = int(taps.shape[0])
     W = nt - 1
     idx = folded_index(R, -W, W + R, taps.device)
-    x = folded_values(phase0, dphase, amp, idx)
-    if first:
-        x = torch.where(idx < 0, torch.zeros((), device=taps.device), x)
+    x = folded_values(shard_phase(phase0, dphase, shard, R), dphase, amp, idx)
+    x = mask_before_stream(x, idx, first, shard)
     n_o = R // D
     out = torch.zeros((n_o, 2 * S), dtype=torch.float32, device=taps.device)
     for t in range(nt):
@@ -97,23 +98,26 @@ def fir_tone_step_plain(phase0: int, dphase: int, amp, first: bool,
     return out
 
 
-def fir_tone_step(phase0: int, dphase: int, amp, first: bool,
-                  taps: torch.Tensor, decim: int, R: int,
-                  tile: int | None = None):
+def fir_tone_step(phase0, dphase, amp, first, taps: torch.Tensor,
+                  decim: int, R: int, tile: int | None = None, shard: int = 0):
     """One batch of the live filtered tone: R folded rows (64*R samples)
     generated from the phase counter and filtered (and decimated) in one
     pass.
 
     Args:
       phase0, dphase: the NCO's phase at the batch's first sample and its
-        increment (host ints, uint32 semantics).
+        increment (uint32 values: int64 tensors on the device, the block's
+        state and parameter, or host ints).
       amp: float32 scalar amplitude (a 0-dim tensor or a number).
-      first: the stream's first batch (the samples before it are 0).
+      first: the stream's first batch (the samples before it are 0): a
+        bool tensor on the device, or a bool.
       taps: (ntaps,) float32 real taps on the device to run on.
       decim: the FIR's decimation D (R % D == 0).
       R: folded rows of the batch.
       tile: batch rows per CUDA block, a multiple of D dividing R (None:
         ``pick_tile``). It does not change the outputs, bit for bit.
+      shard: the time shard of the batch this call computes (R rows of
+        it, from 64*R*shard samples on; only shard 0 reads ``first``).
 
     Returns (R/D, 128) float32 folded planes of the filtered stream.
 
@@ -123,19 +127,23 @@ def fir_tone_step(phase0: int, dphase: int, amp, first: bool,
     R, D = int(R), int(decim)
     g = _geometry(R, D, int(taps.shape[0]), tile, SEG_GROUP)
     if taps.device.type == "cpu":
-        return fir_tone_step_plain(phase0, dphase, amp, first, taps, D, R)
-    return _launch(phase0, dphase, amp, first, taps, D, R, g)
+        return fir_tone_step_plain(phase0, dphase, amp, first, taps, D, R,
+                                   shard)
+    return _launch(phase0, dphase, amp, first, taps, D, R, g, shard)
 
 
-def _launch(phase0, dphase, amp, first, taps, D: int, R: int, g: _Geometry):
+def _launch(phase0, dphase, amp, first, taps, D: int, R: int, g: _Geometry,
+            shard: int = 0):
     dev = taps.device
     _build.check_tensor(taps, "taps", device=dev, shape=(int(taps.shape[0]),))
     a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
+    ph, dp = nco_args(phase0, dphase, dev)
+    fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
     out = torch.empty((R // D, 2 * S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().fir_tone_launch(
-            int(phase0) & _M32, int(dphase) & _M32, a.data_ptr(),
-            int(bool(first)), taps.data_ptr(), out.data_ptr(), R,
+            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
+            int(shard), taps.data_ptr(), out.data_ptr(), R,
             int(taps.shape[0]), D, g.T, g.GS, g.P, g.CU,
             SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)

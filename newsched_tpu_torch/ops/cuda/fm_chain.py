@@ -325,32 +325,32 @@ def _chain_outputs(n: int, decim: int, M: int, A: int, dev):
             torch.empty((1, 2 * M), **f32), torch.empty((A - 1, 2 * M), **f32))
 
 
-def fm_chain_gen_step_plain(ghi: int, glo: int, amp, carry0, prev0, tail0,
+def fm_chain_gen_step_plain(g0, amp, carry0, prev0, tail0,
                             consts: FmChainConsts, decim: int, gain: float,
                             n_loc: int, seed: int = 0, draws: int = 3):
     """The plain PyTorch version of ``fm_chain_gen_step``: the noise
     stream's plain version scaled by ``amp``, then the chain's."""
     W = int(consts.c2.shape[1])
     dev = carry0.device
-    rows = noise.gaussian_rows_plain(ghi, glo, n_rows=n_loc, width=W,
-                                     seed=seed, device=dev, draws=draws) \
+    rows = noise.gaussian_rows_plain(g0, n_rows=n_loc, width=W, seed=seed,
+                                     device=dev, draws=draws) \
         * torch.as_tensor(amp, dtype=torch.float32, device=dev)
     aud, prev, tail = fm_chain_step_planes_plain(rows, carry0, prev0, tail0,
                                                  consts, decim, gain)
     return aud, prev, tail, rows[n_loc - carry0.shape[0]:].clone()
 
 
-def fm_chain_gen_step(ghi: int, glo: int, amp, carry0: torch.Tensor,
-                      prev0: torch.Tensor, tail0: torch.Tensor,
-                      consts: FmChainConsts, decim: int, gain: float,
-                      n_loc: int, tile: int = 128, seed: int = 0,
+def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
+                      tail0: torch.Tensor, consts: FmChainConsts, decim: int,
+                      gain: float, n_loc: int, tile: int = 128, seed: int = 0,
                       draws: int = 3):
     """One batch of the fused chain with its input GENERATED in the kernel:
     the live noise flagship as one source kernel.
 
     Args:
-      ghi/glo: the batch's first absolute 64-row group of the noise stream
-        (two int32 halves as host ints, ops/cuda/noise.py).
+      g0: the batch's first absolute 64-row group of the noise stream (the
+        source's int64 counter on the device, which the kernel reads from
+        the card, or a host int; ops/cuda/noise.py).
       amp: float32 scalar amplitude (a 0-dim tensor on the device, or a
         number); the rows are ``gaussian_rows(...) * amp``.
       carry0: (H8, 2M) the previous batch's last H8 generated rows (zeros
@@ -383,18 +383,20 @@ def fm_chain_gen_step(ghi: int, glo: int, amp, carry0: torch.Tensor,
         raise ValueError(f"carry rows {carry0.shape[0]} != H8 = {H8}")
     dev = carry0.device
     if dev.type == "cpu":
-        return fm_chain_gen_step_plain(ghi, glo, amp, carry0, prev0, tail0,
-                                       consts, decim, gain, n_loc, seed, draws)
+        return fm_chain_gen_step_plain(g0, amp, carry0, prev0, tail0, consts,
+                                       decim, gain, n_loc, seed, draws)
     _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     _check_chain_tensors(dev, [("amp", amp, (1,)), ("carry0", carry0, (H8, W))],
                          prev0, tail0, consts)
-    args = noise.stream_args(ghi, glo, seed, draws)
+    args = noise.stream_args(seed, draws)
+    g = noise.device_group(g0, dev)
     aud, prev, tail = _chain_outputs(n_loc, decim, M, A, dev)
     carry = torch.empty((H8, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_launch(
-            *args, amp.data_ptr(), carry0.data_ptr(), prev0.data_ptr(),
+            g.data_ptr(), *args, amp.data_ptr(), carry0.data_ptr(),
+            prev0.data_ptr(),
             tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), carry.data_ptr(), n_loc, M, L, H8, A, int(decim),
@@ -421,19 +423,21 @@ def _zero_state(dev, A: int, W: int) -> tuple:
 _ZEROS: dict = {}
 
 
-def fm_chain_gen_warm_step_plain(ghi: int, glo: int, amp, consts: FmChainConsts,
-                                 decim: int, gain: float, n_loc: int,
-                                 warm: int, seed: int = 0, draws: int = 3):
+def fm_chain_gen_warm_step_plain(g0, amp, consts: FmChainConsts, decim: int,
+                                 gain: float, n_loc: int, warm: int,
+                                 seed: int = 0, draws: int = 3,
+                                 goff: int = 0):
     """The plain PyTorch version of ``fm_chain_gen_warm_step``, the
     reference's own non-hardware formulation: the stream's rows
     [base - warm - H8, base + n_loc) (groups before the stream read 0),
-    scaled by ``amp``, through K3's warm > 0 plain version from a zero
-    junction."""
+    base = g0 + goff groups, scaled by ``amp``, through K3's warm > 0
+    plain version from a zero junction."""
     L, W = (int(d) for d in consts.c2.shape)
     A = int(consts.ataps.shape[0])
     hr = warm + _round8(L - 1)
     dev = consts.c2.device
-    rows = noise.gaussian_rows_plain(ghi, glo, n_rows=hr + n_loc, width=W,
+    base = noise.group_tensor(g0, dev) + int(goff)
+    rows = noise.gaussian_rows_plain(base, n_rows=hr + n_loc, width=W,
                                      seed=seed, device=dev, draws=draws,
                                      mask_pre=True, row0=-hr) \
         * torch.as_tensor(amp, dtype=torch.float32, device=dev)
@@ -443,14 +447,18 @@ def fm_chain_gen_warm_step_plain(ghi: int, glo: int, amp, consts: FmChainConsts,
     return aud
 
 
-def fm_chain_gen_warm_step(ghi: int, glo: int, amp, consts: FmChainConsts,
-                           decim: int, gain: float, n_loc: int, *, warm: int,
-                           tile: int = 128, seed: int = 0, draws: int = 3):
+def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
+                           gain: float, n_loc: int, *, warm: int,
+                           tile: int = 128, seed: int = 0, draws: int = 3,
+                           goff: int = 0):
     """One SEGMENT of the live chain with no carried state at all: the
-    audio of stream rows [G*64, G*64 + n_loc) of the noise stream, G =
-    (ghi, glo) (host ints), x ``amp``. The sharded live flagship's
-    per-shard step: a shard passes its own base group and needs no input,
-    no carries and no collectives.
+    audio of stream rows [G*64, G*64 + n_loc) of the noise stream, G = g0
+    + goff (g0: the source's int64 group counter on the device, which the
+    kernel reads from the card, or a host int; goff: a host count of
+    groups), x ``amp``. The sharded live flagship's per-shard step: shard
+    d passes the batch's counter and its own distance from it in groups,
+    and needs no input, no carries and no collectives. The kernel finds
+    the stream's first row from the base it reads.
 
     The reference regenerates its fold halo and recomputes ``warm`` rows of
     output from a zero junction, then drops them. Each CUDA block here
@@ -486,22 +494,22 @@ def fm_chain_gen_warm_step(ghi: int, glo: int, amp, consts: FmChainConsts,
                          f"rows): first-tile halo regeneration spans one group")
     dev = consts.c2.device
     if dev.type == "cpu":
-        return fm_chain_gen_warm_step_plain(ghi, glo, amp, consts, decim, gain,
-                                            n_loc, warm, seed, draws)
+        return fm_chain_gen_warm_step_plain(g0, amp, consts, decim, gain,
+                                            n_loc, warm, seed, draws, goff)
     _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     z1, zt = _zero_state(dev, A, W)
     _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)
-    args = noise.stream_args(ghi, glo, seed, draws)
-    # the stream's first row relative to the base, where a block can reach it
-    t_min = max(_FAR_PAST, min(0, -noise.group64(ghi, glo) * noise.GROUP_ROWS))
+    args = noise.stream_args(seed, draws)
+    g = noise.device_group(g0, dev)
     aud = torch.empty((n_loc // decim, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_warm_launch(
-            *args, amp.data_ptr(), z1.data_ptr(), zt.data_ptr(),
-            consts.c2.data_ptr(), consts.w2.data_ptr(), consts.ataps.data_ptr(),
-            aud.data_ptr(), n_loc, M, L, H8, A, int(decim), tile, t_min,
-            float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            g.data_ptr(), int(goff), *args, amp.data_ptr(), z1.data_ptr(),
+            zt.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            consts.ataps.data_ptr(), aud.data_ptr(), n_loc, M, L, H8, A,
+            int(decim), tile, float(gain),
+            ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_gen_warm_launch")
     fm_chain_gen_warm_step.launches += 1

@@ -23,13 +23,18 @@ nothing overflows int64). The sum is an exact integer and the transform
 is one subtract and one multiply in float32, so kernel and plain version
 agree bit for bit on any device.
 
-The 64-bit group counter is carried as two int32 halves (hi, lo) with the
-reference's uint32 wrap of lo into hi; here they are host ints, since the
-stream position of every batch is known before it is generated. A row may
-lie before its base group (a sharded step reaches back into the rows
-before its shard): its group is base + floor(row / 64), and with
-``mask_pre`` a group whose 64-bit index is negative as signed (before the
-stream's first row) reads 0, as the reference's ``gen_rows(mask_pre=True)``.
+The reference carries the 64-bit group counter as two int32 halves (hi,
+lo) with a uint32 wrap of lo into hi. The port's sources keep it as ONE
+int64 tensor on the run's device, the same 64 bits in two's complement
+(``group64``): the kernels read it from the card, so a captured step
+replays with the position the step before left, and a step advances it
+with one tensor add, which wraps at 2^64 as the pair does. A row may lie
+before its base group (a sharded step reaches back into the rows before
+its shard): its group is base + floor(row / 64), and with ``mask_pre`` a
+group whose 64-bit index is negative as signed (before the stream's first
+row) reads 0, as the reference's ``gen_rows(mask_pre=True)``. The host
+pair arithmetic (``add_groups_signed``, ``advance_groups``) stays for the
+hand-over from the reference and for tests.
 """
 
 from __future__ import annotations
@@ -63,6 +68,26 @@ def _i32(u: int) -> int:
 def group64(hi: int, lo: int) -> int:
     """(hi, lo) int32 halves -> the 64-bit group index (two's complement)."""
     return (int(hi) << 32) | (int(lo) & _M32)
+
+
+def _i64(g: int) -> int:
+    """A host group index wrapped to the signed 64-bit range."""
+    g &= (1 << 64) - 1
+    return g - (1 << 64) if g >> 63 else g
+
+
+def group_tensor(g, device) -> torch.Tensor:
+    """The group counter as the sources keep it: a 0-dim int64 tensor on
+    ``device`` (a host index is wrapped to 64 bits)."""
+    if isinstance(g, torch.Tensor):
+        return g.to(device=device, dtype=torch.int64)
+    return torch.tensor(_i64(int(g)), dtype=torch.int64, device=device)
+
+
+def advance(group: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """The sources' per-batch counter update on the device: ``n_groups``
+    on, wrapping at 2^64 (two's complement int64), no read-back."""
+    return group + int(n_groups)
 
 
 def add_groups_signed(hi: int, lo: int, off: int) -> tuple[int, int]:
@@ -112,28 +137,27 @@ def _check_draws(draws: int) -> int:
     return int(draws)
 
 
-def stream_args(g0_hi: int, g0_lo: int, seed: int, draws: int) -> list:
-    """The stream as the kernels' launchers take it: group lo, group hi,
-    key lo, key hi, draws, mean, 1/std."""
+def stream_args(seed: int, draws: int) -> list:
+    """The stream's constants as the kernels' launchers take them: key lo,
+    key hi, draws, mean, 1/std (the position is read from the card)."""
     mean, std = _ih_const(_check_draws(draws))
-    g = group64(g0_hi, g0_lo)
-    return [g & _M32, (g >> 32) & _M32, *_key(seed), int(draws), mean,
-            1.0 / std]
+    return [*_key(seed), int(draws), mean, 1.0 / std]
 
 
-def gaussian_rows_plain(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                        seed: int, device, draws: int = 3,
-                        mask_pre: bool = False, row0: int = 0) -> torch.Tensor:
+def gaussian_rows_plain(g0, *, n_rows: int, width: int, seed: int, device,
+                        draws: int = 3, mask_pre: bool = False,
+                        row0: int = 0) -> torch.Tensor:
     """The plain PyTorch version of ``gaussian_rows``, for the rows
-    [row0, row0 + n_rows) counted from the first row of group (g0_hi,
-    g0_lo); row0 may be negative and n_rows need not fill whole groups
-    (the row loader of the generating kernels, csrc/philox.cuh ``gauss``)."""
+    [row0, row0 + n_rows) counted from the first row of group ``g0`` (the
+    64-bit index: an int64 tensor or a host int); row0 may be negative and
+    n_rows need not fill whole groups (the row loader of the generating
+    kernels, csrc/philox.cuh ``gauss``)."""
     mean, std = _ih_const(_check_draws(draws))
     rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
                         device=device)[:, None]
     cols = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     grp = torch.div(rows, GROUP_ROWS, rounding_mode="floor")
-    g = group64(g0_hi, g0_lo) + grp
+    g = group_tensor(g0, device) + grp
     c0 = (rows - grp * GROUP_ROWS) * width + cols
     c1 = (g & _M32).expand(n_rows, width)
     c2 = ((g >> 32) & _M32).expand(n_rows, width)
@@ -148,14 +172,14 @@ def gaussian_rows_plain(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
     return out
 
 
-def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
-                  seed: int, device, draws: int = 3,
-                  mask_pre: bool = False) -> torch.Tensor:
+def gaussian_rows(g0, *, n_rows: int, width: int, seed: int, device,
+                  draws: int = 3, mask_pre: bool = False) -> torch.Tensor:
     """(n_rows, width) f32 standard-normal rows for the absolute row span
-    starting at group G = (g0_hi, g0_lo), the 64-row group index as two
-    int32 halves, from ``draws`` Philox words per element (3 or 2). Scale
-    by amplitude outside. ``mask_pre``: groups before the stream (negative
-    as signed 64-bit) read 0.
+    starting at group ``g0``, the 64-row group index (a 0-dim int64 tensor
+    on the device, the sources' counter, which the kernel reads from the
+    card; or a host int), from ``draws`` Philox words per element (3 or 2).
+    Scale by amplitude outside. ``mask_pre``: groups before the stream
+    (negative as signed 64-bit) read 0.
 
     On a CPU device this is the plain version; on a CUDA device it
     launches ``gaussian_rows_launch`` (csrc/noise.cu)."""
@@ -163,16 +187,19 @@ def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
         raise ValueError(f"n_rows {n_rows} not a multiple of {GROUP_ROWS}")
     device = torch.device(device)
     if device.type == "cpu":
-        return gaussian_rows_plain(g0_hi, g0_lo, n_rows=n_rows, width=width,
-                                   seed=seed, device=device, draws=draws,
+        return gaussian_rows_plain(g0, n_rows=n_rows, width=width, seed=seed,
+                                   device=device, draws=draws,
                                    mask_pre=mask_pre)
     if device.type != "cuda":
         raise ValueError(f"gaussian_rows runs on cpu or cuda, not {device}")
-    args = stream_args(g0_hi, g0_lo, seed, draws)
+    args = stream_args(seed, draws)
     out = torch.empty((n_rows, width), dtype=torch.float32, device=device)
+    device = out.device  # "cuda" -> the current card, "cuda:0"
+    g = device_group(g0, device)
     with torch.cuda.device(device):
         err = _build.lib().gaussian_rows_launch(
-            out.data_ptr(), n_rows, width, *args, int(bool(mask_pre)),
+            out.data_ptr(), n_rows, width, g.data_ptr(), *args,
+            int(bool(mask_pre)),
             torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "gaussian_rows_launch")
     gaussian_rows.launches += 1
@@ -180,3 +207,12 @@ def gaussian_rows(g0_hi: int, g0_lo: int, *, n_rows: int, width: int,
 
 
 gaussian_rows.launches = 0
+
+
+def device_group(g0, device) -> torch.Tensor:
+    """The group counter as a kernel reads it: the sources' int64 tensor on
+    ``device``, or a host index uploaded for the launch (keep the tensor
+    alive until the launch)."""
+    if not isinstance(g0, torch.Tensor):
+        g0 = _i64(int(g0))
+    return _build.device_scalar(g0, "group", device=device, dtype=torch.int64)

@@ -16,9 +16,11 @@ each times amp.
 The plain versions compute the accumulator in int64 masked to 32 bits and
 the rest with torch's float32 ops; the kernels (``csrc/sources.cu``) round
 every step the same way, so the two agree bit for bit. ``phase0`` and
-``dphase`` are host ints (the stream position of a batch is known before it
-runs, so no step reads a value back from the card); ``amp`` is a float32
-scalar, a 0-dim tensor on the device or a number.
+``dphase`` are the blocks' stream state and parameter: int64 tensors on the
+run's device holding the uint32 values, which the kernels read from the
+card (so a captured step replays with the phase the step before left), or
+host ints (a test's, a probe's), uploaded for the launch; ``amp`` is a
+float32 scalar, a 0-dim tensor on the device or a number.
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ _M32 = 0xFFFFFFFF
 _T2 = 1.0 / (1 << 32)  # turns per phase unit (exact in float32)
 
 
-def nco_turns(phase0: int, dphase: int, idx: torch.Tensor) -> torch.Tensor:
+def nco_turns(phase0, dphase, idx: torch.Tensor) -> torch.Tensor:
     """float32 turns in [-0.5, 0.5) of the samples at int64 indices ``idx``
-    (negative indices wrap modulo 2^32, as the uint32 accumulator does)."""
-    acc = (int(phase0) + idx * int(dphase)) & _M32
+    (negative indices wrap modulo 2^32, as the uint32 accumulator does);
+    ``phase0``/``dphase`` host ints or int64 tensors."""
+    acc = (phase0 + idx * dphase) & _M32
     signed = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)
     return signed.to(torch.float32) * _T2
 
@@ -47,7 +50,15 @@ def _amp(amp, device) -> torch.Tensor:
     return torch.as_tensor(amp, dtype=torch.float32, device=device).reshape(1)
 
 
-def nco_planes_plain(phase0: int, dphase: int, amp, n: int, device):
+def nco_args(phase0, dphase, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The phase and its increment as the kernels read them: int64 on
+    ``device`` (host ints are uploaded; keep the tensors alive until the
+    launch)."""
+    return tuple(_build.device_scalar(v, name, device=device, dtype=torch.int64)
+                 for v, name in ((phase0, "phase"), (dphase, "dphase")))
+
+
+def nco_planes_plain(phase0, dphase, amp, n: int, device):
     """The plain PyTorch version of ``nco_planes``."""
     t = nco_turns(phase0, dphase, torch.arange(int(n), device=device))
     sn, cs = sin_cos_turns_plain(t)
@@ -55,7 +66,7 @@ def nco_planes_plain(phase0: int, dphase: int, amp, n: int, device):
     return cs * a, sn * a
 
 
-def nco_planes(phase0: int, dphase: int, amp, n: int, device):
+def nco_planes(phase0, dphase, amp, n: int, device):
     """One batch of n samples of the tone as (re, im) float32 planes, each
     (n,). CPU tensors take the plain version; on a CUDA device it launches
     ``nco_planes_launch`` (csrc/sources.cu, kernel K8)."""
@@ -64,11 +75,12 @@ def nco_planes(phase0: int, dphase: int, amp, n: int, device):
         return nco_planes_plain(phase0, dphase, amp, n, device)
     a = _amp(amp, device)
     device = a.device  # "cuda" -> the current card, "cuda:0"
+    ph, dp = nco_args(phase0, dphase, device)
     re = torch.empty(int(n), dtype=torch.float32, device=device)
     im = torch.empty_like(re)
     with torch.cuda.device(device):
         err = _build.lib().nco_planes_launch(
-            int(phase0) & _M32, int(dphase) & _M32, a.data_ptr(), int(n),
+            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), int(n),
             re.data_ptr(), im.data_ptr(),
             SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(device).cuda_stream)
@@ -89,7 +101,7 @@ def folded_index(R: int, r_lo: int, rows: int, device) -> torch.Tensor:
     return seg * int(R) + row
 
 
-def folded_values(phase0: int, dphase: int, amp, idx: torch.Tensor):
+def folded_values(phase0, dphase, amp, idx: torch.Tensor):
     """The folded-layout tone at the sample indices ``idx`` (2S lanes):
     cos * amp in the first S lanes, sin * amp in the last S."""
     sn, cs = sin_cos_turns_plain(nco_turns(phase0, dphase, idx))
@@ -97,12 +109,30 @@ def folded_values(phase0: int, dphase: int, amp, idx: torch.Tensor):
     return torch.where(lane < S, cs, sn) * _amp(amp, idx.device)
 
 
-def nco_folded_plain(phase0: int, dphase: int, amp, R: int, device):
+def shard_phase(phase0, dphase, shard: int, R: int):
+    """The phase at time shard ``shard``'s first sample, a batch's shards
+    being 64*R samples each (host ints or int64 tensors)."""
+    return (phase0 + dphase * (int(shard) * S * int(R))) & _M32 if shard \
+        else phase0
+
+
+def mask_before_stream(x: torch.Tensor, idx: torch.Tensor, first,
+                       shard: int = 0) -> torch.Tensor:
+    """``x`` with the samples at negative batch indices set to 0 where they
+    lie before the stream: on shard 0 of the stream's first batch
+    (``first``: a bool, or the blocks' bool flag on the device)."""
+    if shard or (not isinstance(first, torch.Tensor) and not first):
+        return x
+    pre = (idx < 0) & torch.as_tensor(first, device=idx.device)
+    return torch.where(pre, torch.zeros((), device=x.device), x)
+
+
+def nco_folded_plain(phase0, dphase, amp, R: int, device):
     """The plain PyTorch version of ``nco_folded``."""
     return folded_values(phase0, dphase, amp, folded_index(R, 0, R, device))
 
 
-def nco_folded(phase0: int, dphase: int, amp, R: int, device):
+def nco_folded(phase0, dphase, amp, R: int, device):
     """One batch of 64*R samples of the tone as (R, 128) time-folded planes.
     CPU tensors take the plain version; on a CUDA device it launches
     ``nco_folded_launch`` (csrc/sources.cu, kernel K11)."""
@@ -111,10 +141,11 @@ def nco_folded(phase0: int, dphase: int, amp, R: int, device):
         return nco_folded_plain(phase0, dphase, amp, R, device)
     a = _amp(amp, device)
     device = a.device  # "cuda" -> the current card, "cuda:0"
+    ph, dp = nco_args(phase0, dphase, device)
     out = torch.empty((int(R), 2 * S), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = _build.lib().nco_folded_launch(
-            int(phase0) & _M32, int(dphase) & _M32, a.data_ptr(), int(R),
+            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), int(R),
             out.data_ptr(), SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "nco_folded_launch")

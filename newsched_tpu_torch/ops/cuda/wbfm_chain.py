@@ -36,7 +36,9 @@ import torch
 from newsched_tpu_torch.ops.cuda import _build
 from newsched_tpu_torch.ops.cuda.mathfns import (ATAN_COEFFS, SINCOS_COEFFS,
                                                  atan2_plain)
-from newsched_tpu_torch.ops.cuda.sources import folded_index, folded_values
+from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
+                                                 mask_before_stream, nco_args,
+                                                 shard_phase)
 
 S = 64  # fold width: segments = lane pairs
 _M32 = 0xFFFFFFFF
@@ -279,27 +281,31 @@ def wbfm_chain_step(xp: torch.Tensor, carry: torch.Tensor,
 wbfm_chain_step.launches = 0
 
 
-def wbfm_chain_live_step_plain(phase0: int, dphase: int, amp, first: bool,
+def wbfm_chain_live_step_plain(phase0, dphase, amp, first,
                                plan: WbfmChainPlan, consts: WbfmConsts,
-                               R: int):
+                               R: int, shard: int = 0):
     """The plain PyTorch version of ``wbfm_chain_live_step``: the folded
     tone (``sources.folded_values``) over the same extended rows, zero
     before the stream on the first batch."""
     dev = consts.crot.device
     idx = folded_index(R, -plan.B8, plan.B8 + int(R), dev)
-    x = folded_values(phase0, dphase, amp, idx)
-    if first:
-        x = torch.where(idx < 0, torch.zeros((), device=dev), x)
+    x = folded_values(shard_phase(phase0, dphase, shard, R), dphase, amp, idx)
+    x = mask_before_stream(x, idx, first, shard)
     return _chain_plain(x[:, :S], x[:, S:], plan, consts, int(R))
 
 
-def wbfm_chain_live_step(phase0: int, dphase: int, amp, first: bool,
-                         plan: WbfmChainPlan, consts: WbfmConsts, R: int,
-                         tile: int | None = None, seg_group: int = 4):
+def wbfm_chain_live_step(phase0, dphase, amp, first, plan: WbfmChainPlan,
+                         consts: WbfmConsts, R: int, tile: int | None = None,
+                         seg_group: int = 4, shard: int = 0):
     """One batch of the LIVE chain: the NCO tone of ``sources.nco_folded``
-    (phase0, dphase: host ints; amp: a float32 scalar) generated inside the
-    chain. ``first`` marks the stream's first batch, before which the
-    samples are 0. Returns audio (R/(D*Rd), 128), bit for bit what
+    generated inside the chain. ``phase0``/``dphase``: the batch's phase
+    and increment, int64 tensors on the device (the block's state and
+    parameter, read by the kernel from the card) or host ints; amp: a
+    float32 scalar. ``first`` (a bool tensor on the device, or a bool)
+    marks the stream's first batch, before which the samples are 0.
+    ``shard``: the time shard of the batch this call computes, R rows of
+    it, at 64*R*shard samples from the phase (only shard 0 reads
+    ``first``). Returns audio (R/(D*Rd), 128), bit for bit what
     ``nco_folded`` -> ``wbfm_chain_step`` gives at the same tile and
     segment group.
 
@@ -311,14 +317,17 @@ def wbfm_chain_live_step(phase0: int, dphase: int, amp, first: bool,
     dev = consts.crot.device
     if dev.type == "cpu":
         return wbfm_chain_live_step_plain(phase0, dphase, amp, first, plan,
-                                          consts, R)
+                                          consts, R, shard)
     _check(plan, consts, dev)
     a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
+    ph, dp = nco_args(phase0, dphase, dev)
+    fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
     aud = torch.empty((R // (plan.D * plan.Rd), 2 * S), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().wbfm_live_launch(
-            int(phase0) & _M32, int(dphase) & _M32, a.data_ptr(), int(bool(first)),
+            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
+            int(shard),
             *_launch_args(plan, consts, aud, R, g),
             SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -11,7 +11,8 @@ A Block is:
 
 ``consume/produce`` bookkeeping is the compile-time rate algebra
 (runtime/compile.py); parameters reach ``work`` as tensors on the run's
-device, rebuilt from the host values when one is set.
+device, refreshed from the host values when one is set (in place under
+the runner's graph mode, so a captured step reads the new value).
 """
 
 from __future__ import annotations
@@ -58,6 +59,18 @@ class ParamSpec:
     # chain's rotated taps), so setting it calls the block's
     # ``on_fence_param`` hook to rebuild them.
     fence: bool = False
+
+
+def param_tensor(value, dtype, device) -> torch.Tensor:
+    """One parameter value as ``work`` gets it: ``dtype``, or for
+    ``dtype=None`` int64 (an integer) or float64, on ``device``."""
+    if dtype is None:
+        integral = isinstance(value, (int, np.integer)) or (
+            isinstance(value, np.ndarray) and value.dtype.kind in "iu")
+        return torch.tensor(int(value) if integral else float(value),
+                            dtype=torch.int64 if integral else torch.float64,
+                            device=device)
+    return torch.as_tensor(np.asarray(value, dtype=dtype), device=device)
 
 
 def param(default, dtype=np.float32, settable=True, doc="") -> ParamSpec:
@@ -154,9 +167,11 @@ class Block:
 
     def set_param(self, name: str, value) -> None:
         """Set a parameter. While running, takes effect on the next batch:
-        the runner rebuilds this block's parameter tensors. A FENCE
+        the runner refreshes this block's parameter tensors. A FENCE
         parameter (ParamSpec.fence) additionally calls the block's
-        ``on_fence_param(name, value)`` hook to rebuild derived constants."""
+        ``on_fence_param(name, value)`` hook to rebuild derived constants;
+        the runner finds the new value and captures its graph of the step
+        anew (the reference retraces)."""
         spec = self._param_specs[name]
         if not spec.settable:
             raise ValueError(f"parameter {name} of {self.name} is not settable")
@@ -172,16 +187,15 @@ class Block:
         return self._param_values[name]
 
     def param_leaves(self, device) -> dict[str, Any]:
-        """Current values as tensors on ``device`` for ``work``'s params."""
-        out = {}
-        for name, spec in self._param_specs.items():
-            v = self._param_values[name]
-            if spec.dtype is None:
-                out[name] = v
-            else:
-                out[name] = torch.as_tensor(np.asarray(v, dtype=spec.dtype),
-                                            device=device)
-        return out
+        """Current values as tensors on ``device`` for ``work``'s params.
+        A ``dtype=None`` parameter (the NCO sources' ``dphase``, the
+        ``center_freq`` fence) is a host number in the reference; here it
+        is a 0-dim tensor too, int64 for an integer (a uint32 ``dphase``
+        fits) and float64 otherwise, so that no step takes a host value
+        that a captured graph would bake in."""
+        return {name: param_tensor(self._param_values[name], spec.dtype,
+                                   device)
+                for name, spec in self._param_specs.items()}
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> None:

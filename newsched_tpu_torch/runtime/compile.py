@@ -303,7 +303,7 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
         if int(getattr(b, "tag_capacity", 0)) or getattr(b, "tag_aware", False):
             raise NotImplementedError(
                 f"{b.name}: stream tags are not ported yet (the tag plane, "
-                "runtime/tags.py, comes with the staged-chain slice)")
+                "runtime/tags.py, is ROADMAP Queue 1 item 4)")
 
     n_shard, axis = 1, None
     if mesh is not None and mesh.size > 1:

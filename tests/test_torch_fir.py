@@ -290,14 +290,17 @@ def test_fir_chain_states_from_jax_hand_over_at_batch_two():
         # the staged sig_source: libm sin/cos in the reference, the
         # quarter-wave polynomial here
         np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+        phase = nco.nco_advance(0, nco.freq_to_dphase(FREQ, FS), n)
         if live:
-            assert states["live"] == {"phase": nco.nco_advance(
-                0, nco.freq_to_dphase(FREQ, FS), n), "first": False}
+            # the on-card forms: the uint32 phase as an int64, the flag a bool
+            st = states["live"]
+            assert st["phase"].dtype == torch.int64 and int(st["phase"]) == phase
+            assert st["first"].dtype == torch.bool and not bool(st["first"])
         else:
             assert isinstance(states["fir"], fir.FirState)
             assert states["fir"].tail.shape == (NTAPS - 1,)
-            assert states["src"]["phase"] == nco.nco_advance(
-                0, nco.freq_to_dphase(FREQ, FS), n)
+            assert states["src"]["phase"].dtype == torch.int64
+            assert int(states["src"]["phase"]) == phase
     assert _launches() == (0, 0, 0, 0)
 
 

@@ -50,6 +50,26 @@ def test_port_sources_name_no_jax_import():
                 assert top not in ("jax", "jaxlib", "newsched_tpu"), (path, n)
 
 
+def test_port_sources_import_neither_the_root_bench_nor_bench_dir():
+    """The port keeps its own bench (newsched_tpu_torch/bench.py) and
+    probes: neither it nor chip_smoke.py imports the JAX package's bench.py
+    or its experiments under bench/."""
+    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [("." * node.level) + (node.module or "")]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] != "bench", (path, n)
+        text = path.read_text()
+        for needle in ("import_module(\"bench", "import_module('bench",
+                       "sys.path.insert"):
+            assert needle not in text, (path, needle)
+
+
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=_env(),
                        capture_output=True, text=True, timeout=120)

@@ -67,9 +67,9 @@ def test_gen_step_equals_noise_rows_through_the_chain(draws):
     halo, prev_r, tail_r = _zeros(M, H8, A)
     for _ in range(3):
         aud, prev, tail, carry = fm_chain.fm_chain_gen_step(
-            hi, lo, amp, carry, prev, tail, consts, decim, GAIN, n, seed=4,
+            noise.group64(hi, lo), amp, carry, prev, tail, consts, decim, GAIN, n, seed=4,
             draws=draws)
-        rows = noise.gaussian_rows_plain(hi, lo, n_rows=n, width=2 * M, seed=4,
+        rows = noise.gaussian_rows_plain(noise.group64(hi, lo), n_rows=n, width=2 * M, seed=4,
                                          device="cpu", draws=draws) * amp
         aud_r, prev_r, tail_r = fm_chain.fm_chain_step_planes_plain(
             rows, halo, prev_r, tail_r, consts, decim, GAIN)
@@ -98,8 +98,8 @@ def test_gen_step_matches_pallas_chain_on_the_same_rows(draws):
     hi, lo = _START
     for b in range(3):
         aud, prev, tail, carry = fm_chain.fm_chain_gen_step(
-            hi, lo, 0.5, carry, prev, tail, consts, decim, GAIN, n, draws=draws)
-        rows = (noise.gaussian_rows_plain(hi, lo, n_rows=n, width=2 * M, seed=0,
+            noise.group64(hi, lo), 0.5, carry, prev, tail, consts, decim, GAIN, n, draws=draws)
+        rows = (noise.gaussian_rows_plain(noise.group64(hi, lo), n_rows=n, width=2 * M, seed=0,
                                           device="cpu", draws=draws)
                 * torch.tensor(0.5)).numpy()
         jaud, jprev, jtail = jfm.fm_chain_step_planes(
@@ -145,7 +145,7 @@ def test_live_model_two_draws_equals_its_stream_through_the_chain():
     outs = []
     for b in range(nb):
         hi, lo = noise.advance_groups(0, 0, b * rows // noise.GROUP_ROWS)
-        vb = noise.gaussian_rows_plain(hi, lo, n_rows=rows, width=2 * M, seed=0,
+        vb = noise.gaussian_rows_plain(noise.group64(hi, lo), n_rows=rows, width=2 * M, seed=0,
                                        device="cpu", draws=2) * torch.tensor(0.5)
         aud, prev, tail = fm_chain.fm_chain_step_planes_plain(
             vb, halo, prev, tail, consts, decim, 0.5)
@@ -159,7 +159,7 @@ def test_live_model_two_draws_equals_its_stream_through_the_chain():
 def test_noise_two_draws_moments():
     """Irwin-Hall N=4: support +-3.46 sigma, excess kurtosis -0.3; a
     different stream from the three-draw one at the same seed."""
-    r = noise.gaussian_rows(0, 0, n_rows=8192, width=128, seed=5, device="cpu",
+    r = noise.gaussian_rows(0, n_rows=8192, width=128, seed=5, device="cpu",
                             draws=2).double().numpy()
     n = r.size
     assert abs(r.mean()) < 5 / np.sqrt(n)
@@ -167,10 +167,10 @@ def test_noise_two_draws_moments():
     assert 3.3 < np.abs(r).max() <= 3.47
     kurt = np.mean(r**4) / np.mean(r**2) ** 2 - 3.0
     assert abs(kurt - (-0.3)) < 0.05
-    three = noise.gaussian_rows(0, 0, n_rows=64, width=128, seed=5, device="cpu")
+    three = noise.gaussian_rows(0, n_rows=64, width=128, seed=5, device="cpu")
     assert not np.array_equal(three.numpy(), r[:64])
     with pytest.raises(ValueError, match="draws"):
-        noise.gaussian_rows(0, 0, n_rows=64, width=128, seed=5, device="cpu",
+        noise.gaussian_rows(0, n_rows=64, width=128, seed=5, device="cpu",
                             draws=4)
     assert noise.gaussian_rows.launches == 0
 
@@ -181,13 +181,13 @@ def test_live_source_rejects_what_it_does_not_take():
     consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
     carry, prev, tail = _zeros(M, 16, A)  # H8 = round8(L - 1), L = 16
     with pytest.raises(ValueError, match="carry rows"):
-        fm_chain.fm_chain_gen_step(0, 0, 0.5, carry[:4], prev, tail, consts, 8,
+        fm_chain.fm_chain_gen_step(0, 0.5, carry[:4], prev, tail, consts, 8,
                                    GAIN, 256)
     with pytest.raises(ValueError, match="draws"):
-        fm_chain.fm_chain_gen_step(0, 0, 0.5, carry, prev, tail, consts, 8,
+        fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
                                    GAIN, 256, draws=1)
     with pytest.raises(ValueError, match="too small"):
-        fm_chain.fm_chain_gen_step(0, 0, 0.5, carry, prev, tail, consts, 8,
+        fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
                                    GAIN, 256, tile=32)
     with pytest.raises(ValueError, match="noise_draws"):
         tvd.fm_noise_channelizer_source(M, None, ataps, noise_draws=4)
@@ -199,9 +199,10 @@ def test_live_source_rejects_what_it_does_not_take():
 
 
 def test_live_source_state_from_jax_maps_key_by_key():
-    """The reference live source's state (its 64-bit group counter and the
-    chain's carries) becomes the port's: host ints and tensors; one step
-    from it runs."""
+    """The reference live source's state (its 64-bit group counter as an
+    int32 pair, and the chain's carries) becomes the port's on-card forms:
+    one int64 counter and the carries, all tensors; one step from it runs
+    and advances the counter on the device."""
     M, A = 64, 65
     fold_c, ataps = _chain(M, A=A)
     jblk = jvd.fm_noise_channelizer_source(M, None, ataps, audio_decim=8,
@@ -209,11 +210,13 @@ def test_live_source_state_from_jax_maps_key_by_key():
     jst = jblk.init_state(0, 32)
     jst = dict(jst, ghi=jnp.int32(2), glo=jnp.int32(-3))
     st = convert.state_from_jax(jax.device_get(jst), "cpu")
-    assert (st["ghi"], st["glo"]) == (2, -3)
+    assert "ghi" not in st and "glo" not in st
+    assert st["group"].dtype == torch.int64 and st["group"].shape == ()
+    assert int(st["group"]) == noise.group64(2, -3)
     for k, shape in (("carry", (16, 2 * M)), ("prev", (1, 2 * M)),
                      ("atail", (A - 1, 2 * M))):
         assert st[k].shape == shape and st[k].dtype == torch.float32
     blk = tvd.fm_noise_channelizer_source(M, None, ataps, audio_decim=8)
     st2, out = blk.work(st, {}, blk.param_leaves("cpu"), 32)
     assert out["out"].shape == (32, M)
-    assert (st2["ghi"], st2["glo"]) == noise.advance_groups(2, -3, 4)
+    assert int(st2["group"]) == noise.group64(*noise.advance_groups(2, -3, 4))

@@ -86,8 +86,8 @@ def test_atan2_plain_matches_reference_polynomial():
 
 
 def _rows(n, seed=0, hi=0, lo=0, width=128):
-    return noise.gaussian_rows(hi, lo, n_rows=n, width=width, seed=seed,
-                               device="cpu")
+    return noise.gaussian_rows(noise.group64(hi, lo), n_rows=n, width=width,
+                               seed=seed, device="cpu")
 
 
 def test_noise_moments():

@@ -101,9 +101,9 @@ def test_mask_pre_zeroes_exactly_the_negative_groups():
     stream."""
     hi, lo = noise.add_groups_signed(0, 0, -3)
     assert hi < 0
-    rows = noise.gaussian_rows_plain(hi, lo, n_rows=6 * 64, width=16, seed=3,
+    rows = noise.gaussian_rows_plain(noise.group64(hi, lo), n_rows=6 * 64, width=16, seed=3,
                                      device="cpu", mask_pre=True)
-    plain = noise.gaussian_rows_plain(hi, lo, n_rows=6 * 64, width=16, seed=3,
+    plain = noise.gaussian_rows_plain(noise.group64(hi, lo), n_rows=6 * 64, width=16, seed=3,
                                       device="cpu")
     assert bool((rows[:3 * 64] == 0).all())
     assert torch.equal(rows[3 * 64:], plain[3 * 64:])
@@ -123,9 +123,9 @@ def test_rows_at_negative_offsets_equal_rows_from_a_lower_base(base, row0):
     group. The same rows come from a lower base at a non-negative row."""
     back = -(row0 // 64)  # groups back to a base at or before row0
     lower = noise.add_groups_signed(*base, -back)
-    got = noise.gaussian_rows_plain(*base, n_rows=200, width=8, seed=1,
+    got = noise.gaussian_rows_plain(noise.group64(*base), n_rows=200, width=8, seed=1,
                                     device="cpu", row0=row0)
-    ref = noise.gaussian_rows_plain(*lower, n_rows=200, width=8, seed=1,
+    ref = noise.gaussian_rows_plain(noise.group64(*lower), n_rows=200, width=8, seed=1,
                                     device="cpu", row0=row0 + 64 * back)
     assert torch.equal(got, ref)
 
@@ -245,7 +245,7 @@ BASES = {"start": (0, 0), "shard3": (0, 3 * 256 // 64), "lo-wrap": (0, -2)}
 def _k6_rows(base, draws, n_loc, hr):
     """The port's Philox rows of a shard's window [base - hr, base + n_loc)
     x 0.5, groups before the stream reading 0."""
-    return noise.gaussian_rows_plain(*base, n_rows=hr + n_loc, width=128,
+    return noise.gaussian_rows_plain(noise.group64(*base), n_rows=hr + n_loc, width=128,
                                      seed=4, device="cpu", draws=draws,
                                      mask_pre=True, row0=-hr) * 0.5
 
@@ -261,7 +261,7 @@ def test_k6_plain_matches_reference_on_its_rows(where, draws):
     taps, fold_c, ataps = _chain()
     consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
     n_loc, warm, H8 = 256, 128, 16
-    got = fm_chain.fm_chain_gen_warm_step(*BASES[where], 0.5, consts, 8, GAIN,
+    got = fm_chain.fm_chain_gen_warm_step(noise.group64(*BASES[where]), 0.5, consts, 8, GAIN,
                                           n_loc, warm=warm, seed=4, draws=draws)
     rows = _k6_rows(BASES[where], draws, n_loc, warm + H8).numpy()
     ja, _, _ = jfm.fm_chain_step_planes(
@@ -296,15 +296,15 @@ def test_k6_plain_equals_k5_stream_at_the_shard(where, draws):
     for b in range(2):
         hi, lo = noise.advance_groups(*b0, b * n // 64)
         aud, prev, tail, carry = fm_chain.fm_chain_gen_step(
-            hi, lo, 0.5, carry, prev, tail, consts, 8, GAIN, n, seed=4,
+            noise.group64(hi, lo), 0.5, carry, prev, tail, consts, 8, GAIN, n, seed=4,
             draws=draws)
         k5.append(aud)
     k5 = torch.cat(k5)
     r0 = 64 * (noise.group64(*base) - noise.group64(*b0))  # shard's row in k5
     ref = k5[r0 // 8:(r0 + n_loc) // 8]
-    got = fm_chain.fm_chain_gen_warm_step(*base, 0.5, consts, 8, GAIN, n_loc,
+    got = fm_chain.fm_chain_gen_warm_step(noise.group64(*base), 0.5, consts, 8, GAIN, n_loc,
                                           warm=128, seed=4, draws=draws)
-    rows = (noise.gaussian_rows_plain(*b0, n_rows=2 * n, width=128, seed=4,
+    rows = (noise.gaussian_rows_plain(noise.group64(*b0), n_rows=2 * n, width=128, seed=4,
                                       device="cpu", draws=draws) * 0.5).numpy()
     assert _off_cut_err(got, ref, rows[:r0 + n_loc], taps, ataps, r0) <= CHAIN_TOL
 
@@ -316,7 +316,7 @@ def test_k6_validates_as_the_reference():
                       (dict(warm=192, tile=128), "multiple of tile"),
                       (dict(warm=96, tile=96), "noise group")):
         with pytest.raises(ValueError, match=match):
-            fm_chain.fm_chain_gen_warm_step(0, 0, 0.5, consts, 8, GAIN, 384,
+            fm_chain.fm_chain_gen_warm_step(0, 0.5, consts, 8, GAIN, 384,
                                             **kw)
 
 
@@ -502,7 +502,7 @@ def test_live_flagship_sharded_vs_float64_golden():
     M, decim, nout = 16, 2, 512
     got, ataps = _live_fm(8, nout, 2)
     n_rows = nout * decim * 2
-    rows = noise.gaussian_rows_plain(0, 0, n_rows=n_rows, width=2 * M, seed=0,
+    rows = noise.gaussian_rows_plain(0, n_rows=n_rows, width=2 * M, seed=0,
                                      device="cpu").numpy() * 0.5
     taps = firdes.prototype_channelizer_taps(M, 4)
     ref = rows_reference(rows, taps, ataps, nchans=M, audio_decim=decim,

@@ -134,7 +134,7 @@ def test_fused_slice_default_noise_source_against_golden():
         deviation_frac=1.0 / (2 * np.pi * GAIN), audio_taps=at)
     assert isinstance(blks["source"], tvd.noise_planes_source)
     fg.run(device="cpu")
-    stream = (noise.gaussian_rows_plain(0, 0, n_rows=nb * rows, width=2 * M,
+    stream = (noise.gaussian_rows_plain(0, n_rows=nb * rows, width=2 * M,
                                         seed=0, device="cpu")
               * torch.tensor(0.5)).numpy()
     gold, bad = testing.rows_reference(stream, taps, at, nchans=M,
@@ -188,8 +188,11 @@ def test_convert_refuses_threefry_key_state():
     with pytest.raises(NotImplementedError, match="threefry"):
         convert.states_from_jax({"src": {"key": np.zeros(2, np.uint32)}}, "cpu")
     assert convert.state_from_jax((), "cpu") == ()
-    assert convert.states_from_jax({"s": {"ghi": np.int32(-1), "glo": np.int32(7)}},
-                                   "cpu") == {"s": {"ghi": -1, "glo": 7}}
+    # the reference's int32 pair becomes the one on-card int64 counter
+    st = convert.states_from_jax({"s": {"ghi": np.int32(-1), "glo": np.int32(7)}},
+                                 "cpu")
+    assert list(st["s"]) == ["group"] and st["s"]["group"].dtype == torch.int64
+    assert int(st["s"]["group"]) == noise.group64(-1, 7) == -(1 << 32) + 7
 
 
 def test_slices_not_ported_yet_raise():

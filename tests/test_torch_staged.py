@@ -288,7 +288,7 @@ def test_noise_source_equals_gaussian_rows(dtype):
         outs.append(o["out"])
     got = torch.cat(outs)
     n_rows = 2 * nout * (2 if dtype == "cf32" else 1) // 128
-    r = noise.gaussian_rows_plain(0, 0, n_rows=n_rows, width=128, seed=3,
+    r = noise.gaussian_rows_plain(0, n_rows=n_rows, width=128, seed=3,
                                   device="cpu")
     half = torch.tensor(0.5)
     if dtype == "cf32":
@@ -297,7 +297,8 @@ def test_noise_source_equals_gaussian_rows(dtype):
         assert torch.equal(got.imag, r[:, 64:].reshape(-1) * half)
     else:
         assert torch.equal(got, r.reshape(-1) * half)
-    assert (st["ghi"], st["glo"]) == (0, n_rows // noise.GROUP_ROWS)
+    assert st["group"].dtype == torch.int64
+    assert int(st["group"]) == n_rows // noise.GROUP_ROWS
     with pytest.raises(ValueError, match="8192"):
         blk.init_state(0, nout + 64, "cpu")
     assert noise.gaussian_rows.launches == 0
@@ -346,7 +347,7 @@ def test_staged_model_default_noise_source_against_golden():
         deviation_frac=1.0 / (2 * np.pi * GAIN), audio_taps=at)
     assert isinstance(blks["source"], tanalog.noise_source)
     fg.run(device="cpu")
-    r = noise.gaussian_rows_plain(0, 0, n_rows=nb * rows * M * 2 // 128,
+    r = noise.gaussian_rows_plain(0, n_rows=nb * rows * M * 2 // 128,
                                   width=128, seed=0, device="cpu")
     x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1)) * 0.5).numpy()
     gold, bad = testing.rows_reference(testing.planes_rows(x, M),

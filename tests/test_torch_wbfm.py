@@ -572,14 +572,17 @@ def test_wbfm_states_from_jax_hand_over_at_batch_two():
         np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5, err_msg=kind)
         assert np.abs(got).max() > 0.1, kind
         if kind == "staged":
-            assert states["src"]["phase"] == nco.nco_advance(
+            assert states["src"]["phase"].dtype == torch.int64
+            assert int(states["src"]["phase"]) == nco.nco_advance(
                 0, nco.freq_to_dphase(tone, FS), n)
             assert isinstance(states["xlate"]["rot"], taops.RotatorState)
+            assert states["xlate"]["rot"].phase.dtype == torch.int64
             assert isinstance(states["xlate"]["fir"], fir.FirState)
             assert isinstance(states["demod"], taops.QuadDemodState)
             assert isinstance(states["resamp"], fir.FirState)
         elif kind == "live":
-            assert states["live"]["first"] is False
+            first = states["live"]["first"]
+            assert first.dtype == torch.bool and not bool(first)
     assert _launches() == (0, 0, 0, 0)
 
 
