@@ -153,6 +153,31 @@ Phases (each failure raises, so the script exits nonzero):
      prep pass, the ablation beside K3), counted; and every kernel's least
      time on the card for its work (``kernel_bounds``).
 
+ 35. K3ag, the banded audio stage (``_pick_audio_groups`` overridden to 2
+     and 4): K3 (two carried batches of the FM band), K5 (from stream
+     start) and K6 (8192 rows, a shard at stream start) bit-equal to ag = 1
+     and within K3_TOL (K5_TOL) of their plain banded versions off the
+     branch-cut mask; the fused replay, live and 4-shard live flowgraphs at
+     ag = 2 bit-equal to ag = 1, K3ag's launches counted on them; each
+     kernel's time at ag = 1, 2 and 4;
+ 36. tags: the fused flowgraph over a replayed cf32 batch with
+     vector_source(tags=...), 3 batches through a captured chunk: tag
+     offsets the input offsets / (M * decim) exactly, payloads intact, the
+     audio bit-equal to the untagged graph's; with tag_capacity_limit=1 and
+     two tags in one batch, one drop counted;
+ 37. checkpoints: the live channelizer (K5) and the live receiver (K12),
+     2N batches straight through against N, a checkpoint and N resumed:
+     bit-equal;
+ 38. unbounded runs under fg.start()/stop(): the live channelizer into a
+     null_sink and into a vector_sink(capacity=12288) through replays of
+     the captured chunk (K5 once a batch, batches a multiple of
+     GRAPH_CHUNK), the ring the last items of a bounded run of the same
+     length; a center_freq change (a fence) from this thread during an
+     unbounded config #1 fused run lands at a chunk boundary, the output
+     before it a run at the old value, after it a run at the new one;
+ 39. times: the unbounded live run's rate beside phase 34's graph-mode
+     step; the throttle's pacing error at 10 Msamples/s.
+
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
 time is left out (``graph_ms``); plain versions and flowgraph steps are
@@ -1710,6 +1735,326 @@ def phase_probe_times(torch, card: str) -> dict:
             "n_tiles": run.ROWS // run.K3_TILE, "stream_bytes": xc.numel() * 8}
 
 
+# -- K3ag, tags, checkpoints, unbounded runs ----------------------------------
+
+AG = (2, 4)                # the band counts K3ag is checked and timed at
+
+
+def set_bands(fm_chain, ag: int) -> None:
+    """Override the port's band picker, as a caller does: K3, K5 and K6
+    read it at every call."""
+    fm_chain._pick_audio_groups = lambda tile, decim, A: ag
+
+
+def band_launches(fm_chain) -> int:
+    return sum(getattr(f, f"ag{ag}_launches") for ag in AG
+               for f in (fm_chain.fm_chain_step_planes,
+                         fm_chain.fm_chain_gen_step,
+                         fm_chain.fm_chain_gen_warm_step))
+
+
+def phase_k3ag(torch, fm_chain, noise, replay_out, fused_out) -> dict:
+    """35. K3, K5 and K6 at ag = 2 and 4 against ag = 1 (bit for bit) and
+    their plain banded versions; the fused replay, live and 4-shard live
+    flowgraphs at ag = 2 against ag = 1, K3ag's launches counted; times.
+    Returns K3ag's launches on those flowgraphs, its worst error against
+    the plain versions and the times."""
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.parallel import make_mesh
+
+    pick = fm_chain._pick_audio_groups
+    consts, rows = chain_consts(), band_rows(torch)
+    H8 = fm_chain._round8(L - 1)
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    st = (torch.zeros(H8, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+          torch.zeros(A - 1, 2 * M, **z))
+    g0 = noise.group_tensor(0, "cuda")
+    _, bad = golden(None, "noise")  # phase 7's stream: K5's and K6's rows
+    steps = {
+        "K3": (lambda: k3_batches(torch, fm_chain, consts, rows,
+                                  fm_chain.fm_chain_step_planes),
+               lambda ag: k3_batches(torch, fm_chain, consts, rows,
+                                     fm_chain.fm_chain_step_planes_plain,
+                                     ag=ag, tile=128), None, K3_TOL),
+        "K5": (lambda: list(fm_chain.fm_chain_gen_step(
+                   g0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS)),
+               lambda ag: list(fm_chain.fm_chain_gen_step_plain(
+                   g0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS, ag=ag,
+                   tile=128)), bad[:N_AUD], K5_TOL),
+        "K6": (lambda: [fm_chain.fm_chain_gen_warm_step(
+                   g0, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM)],
+               lambda ag: [fm_chain.fm_chain_gen_warm_step_plain(
+                   g0, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM, ag=ag,
+                   tile=128)], bad[:K6_ROWS // DECIM], K5_TOL)}
+    worst, times = 0.0, {}
+    try:
+        for kid, (kernel, plain, mask, tol) in steps.items():
+            set_bands(fm_chain, 1)
+            one = kernel()
+            for ag in AG:
+                set_bands(fm_chain, ag)
+                got, ref = kernel(), plain(ag)
+                require(all(torch.equal(a, b) for a, b in zip(got, one)),
+                        f"K3ag in {kid} at ag={ag}: differs from ag = 1")
+                if mask is None:
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+                else:  # the audio off the branch cut, the state everywhere
+                    err = float(np.abs(got[0].cpu().numpy()
+                                       - ref[0].cpu().numpy())[~mask].max())
+                    err = max([err] + [float((a - b).abs().max())
+                                       for a, b in zip(got[1:3], ref[1:3])])
+                log(f"K3ag in {kid} at ag={ag}: bit-equal to ag = 1; vs its "
+                    f"plain banded version {err:.3e} (tol {tol})")
+                require(err <= tol, f"K3ag in {kid} at ag={ag}: disagrees "
+                        f"with its plain version")
+                worst = max(worst, err)
+        launches = 0
+        for label, build, mesh, ref in (
+                ("fused replay", lambda: flowgraph(
+                    general.vector_source(planes_of(replay_rows()), repeat=True),
+                    3), None, replay_out),
+                ("live", lambda: flowgraph("live", 3), None, fused_out),
+                ("live, 4 shards", lambda: flowgraph("live", 3), 4, fused_out)):
+            out = {}
+            for ag in (1, 2):
+                set_bands(fm_chain, ag)
+                fg, blks = build()
+                zero_launches()
+                fg.run(device="cuda",
+                       mesh=None if mesh is None else make_mesh(mesh))
+                n_ag = band_launches(fm_chain)
+                require((n_ag > 0) == (ag > 1), f"{label} at ag={ag}: K3ag "
+                        f"launched {n_ag} times")
+                launches += n_ag
+                out[ag] = blks["sink"].data()
+            require(np.array_equal(out[2], out[1])
+                    and np.array_equal(out[1], ref[:3 * N_AUD]),
+                    f"{label} at ag = 2 differs from ag = 1")
+            log(f"{label} flowgraph at ag = 2: bit-equal to ag = 1, K3ag "
+                f"launched {n_ag} times on it")
+        for ag in (1, *AG):
+            set_bands(fm_chain, ag)
+            times[f"K3 ag={ag}"] = graph_ms(lambda: fm_chain.fm_chain_step_planes(
+                rows[:ROWS], *st, consts, DECIM, DEMOD_GAIN))
+            times[f"K5 ag={ag}"] = graph_ms(steps["K5"][0])
+            times[f"K6 ag={ag}"] = graph_ms(steps["K6"][0])
+        times["plain"] = median_ms(lambda: fm_chain.fm_chain_step_planes_plain(
+            rows[:ROWS], *st, consts, DECIM, DEMOD_GAIN, ag=2, tile=128),
+            reps=PLAIN_REPS)
+    finally:
+        fm_chain._pick_audio_groups = pick
+    return {"launches": launches, "err": worst, "t": times}
+
+
+def replay_rows() -> np.ndarray:
+    """Phase 6's replayed batch, as cf32 samples (2^21)."""
+    rng = np.random.default_rng(0)
+    return ((rng.standard_normal(BATCH) + 1j * rng.standard_normal(BATCH))
+            * 0.5).astype(np.complex64)
+
+
+def planes_of(x: np.ndarray) -> np.ndarray:
+    from newsched_tpu_torch.testing import planes_rows
+
+    return planes_rows(x, M)
+
+
+def run_chunked(fg, chunk_steps: int, **kw):
+    """fg through the runner's graph mode in chunks of ``chunk_steps`` (one
+    capture, replayed), as fg.run() runs it in chunks of GRAPH_CHUNK."""
+    from newsched_tpu_torch.runtime.runner import Runner
+
+    fg.validate()
+    r = Runner(fg, device="cuda", batch_size=fg.batch_size, **kw)
+    for b in r.cfg.order:
+        b._runtime = r
+    try:
+        r._run_graph(r.cfg.n_batches, chunk_steps)
+    finally:
+        for b in r.cfg.order:
+            b._runtime = None
+    require(r._chunk is not None and r._chunk.graph is not None,
+            "no chunk was captured")
+    return r
+
+
+def phase_tags() -> None:
+    """36. The fused flowgraph over a replayed cf32 batch with tags, 3
+    batches in chunks of 2 (a capture, its replay and a stepped batch):
+    tag offsets exact at full width, payloads intact, audio bit-equal to
+    the untagged graph's; a tag capacity limit of 1 drops one tag of two in
+    a batch and counts it."""
+    from newsched_tpu_torch.blocks import general
+
+    x = replay_rows()
+    mid = 3 * BATCH // 2  # 3 * 2^20, in the second batch
+    out = {}
+    for key, tags, limit in (("untagged", None, None),
+                             ("tagged", [(0, "start"), (mid, "mid", 7.5)], None),
+                             ("limit 1", [(0, "start"), (1, "second"),
+                                          (mid, "mid", 7.5)], 1)):
+        fg, blks = flowgraph(general.vector_source(x, repeat=True, tags=tags), 3)
+        r = run_chunked(fg, 2, tag_capacity_limit=limit)
+        out[key] = (blks["sink"].data(), blks["sink"].tags(), r.stats)
+    want = [(0, "start", (0.0, 0.0)), (mid // (M * DECIM), "mid", (7.5, 0.0))]
+    for key in ("tagged", "limit 1"):
+        got = [(t.offset, t.key, t.value) for t in out[key][1]]
+        require(got == want, f"tags ({key}): {got}, want {want}")
+        require(np.array_equal(out[key][0], out["untagged"][0]),
+                f"tags ({key}): the audio differs from the untagged graph's")
+    drops = out["limit 1"][2].get("tag_drops")
+    require(drops == 1, f"tag_capacity_limit=1: {drops} drops counted, want 1")
+    log(f"tags through the fused flowgraph, 3 batches in a captured chunk: "
+        f"{want} (input offsets 0 and {mid} / {M * DECIM}); audio bit-equal "
+        f"to the untagged graph's; tag_capacity_limit=1: 1 drop counted")
+
+
+def phase_checkpoints() -> None:
+    """37. The live channelizer (K5) and the live receiver (K12): 2N
+    batches straight against N, a checkpoint and N resumed, bit for bit."""
+    import os
+    import tempfile
+
+    n = 2
+    for label, build in (("live channelizer", lambda nb: flowgraph("live", nb)),
+                         ("live receiver", lambda nb: wb_graph("live", nb))):
+        fg, blks = build(2 * n)
+        fg.run(device="cuda")
+        straight = blks["sink"].data()
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+        os.makedirs(root, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=root) as d:
+            fg1, b1 = build(n)
+            fg1.run(device="cuda", checkpoint_path=d, checkpoint_every=n)
+            fg2, b2 = build(2 * n)
+            r = fg2.run(device="cuda", resume_from=d)
+        got = np.concatenate([b1["sink"].data(), b2["sink"].data()])
+        require(r.stats["batches"] == n and np.array_equal(got, straight),
+                f"{label}: checkpoint and resume differ from the straight run")
+        log(f"checkpoint, {label}: {n} batches, a checkpoint, {n} resumed "
+            f"bit-equal to {2 * n} straight")
+
+
+def _await(cond, what: str, limit_s: float = 60.0) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        require(time.monotonic() - t0 < limit_s, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _stop(fg, r) -> None:
+    """stop(), then the runner's thread joined (60 s at most) and wait()."""
+    fg.stop()
+    th = r._thread
+    th.join(60.0)
+    require(not th.is_alive(), "the runner thread did not stop")
+    fg.wait()
+
+
+def phase_unbounded(fm_chain) -> dict:
+    """38. Unbounded runs under start()/stop(): the live channelizer into a
+    null_sink and into a ring of 12288 audio rows, each timed (phase 39)
+    and then checked; a fence from this thread during an unbounded config
+    #1 fused run."""
+    from newsched_tpu_torch.runtime.runner import GRAPH_CHUNK as C
+
+    fg, blks = flowgraph("live", None, sink="null")
+    zero_launches()
+    r = fg.start(device="cuda")
+    _await(lambda: r.stats["batches"] >= 3 * C, "three chunks")
+    b1, t1 = r.stats["batches"], time.monotonic()
+    time.sleep(1.0)
+    b2, t2 = r.stats["batches"], time.monotonic()
+    _stop(fg, r)
+    nb, k5 = r.stats["batches"], fm_chain.fm_chain_gen_step.launches
+    rate = (b2 - b1) * BATCH / (t2 - t1) / 1e6
+    require(nb % C == 0 and nb >= 3 * C, f"unbounded live: {nb} batches")
+    require(k5 == nb and r._chunk.graph is not None,
+            f"unbounded live: K5 launched {k5} times in {nb} batches")
+    require(blks["sink"].checksum is not None
+            and np.isfinite(blks["sink"].checksum), "unbounded live: checksum")
+    log(f"unbounded live channelizer: {nb} batches in chunks of {C} (K5 "
+        f"launched {k5} times, through replays), stopped within a chunk")
+    cap = 3 * N_AUD
+    fg, blks = flowgraph("live", None)  # timed: its audio copied a chunk
+    blks["sink"].collect_capacity = cap
+    r = fg.start(device="cuda")
+    _await(lambda: r.stats["batches"] >= 3 * C, "three chunks")
+    b1, t1 = r.stats["batches"], time.monotonic()
+    time.sleep(0.5)
+    b2, t2 = r.stats["batches"], time.monotonic()
+    _stop(fg, r)
+    ring_rate = (b2 - b1) * BATCH / (t2 - t1) / 1e6
+    fg, blks = flowgraph("live", None)
+    blks["sink"].collect_capacity = cap
+    r = fg.start(device="cuda")
+    _await(lambda: r.stats["batches"] >= 3 * C, "three chunks")
+    _stop(fg, r)
+    nb, got = r.stats["batches"], blks["sink"].data()
+    fg2, blks2 = flowgraph("live", nb)
+    fg2.run(device="cuda")
+    ref = blks2["sink"].data()
+    require(nb % C == 0 and len(got) == cap <= len(ref)
+            and np.array_equal(got, ref[-cap:]),
+            f"unbounded ring: {len(got)} rows retained of {nb} batches, or "
+            f"not the last {cap} rows of a bounded run")
+    log(f"unbounded ring vector_sink(capacity={cap}): {nb} batches, "
+        f"{len(got)} rows retained (at most {r.stats['retained_items']} held), "
+        f"bit-equal to the last {cap} rows of a bounded run of {nb} batches")
+    old, new, span = WB_FC, 210e3, 4096  # the ring holds 4096 batches
+    fg, blks = wb_graph("fused", None, center=old)
+    blks["sink"].collect_capacity = span * WB_NAUD * 64
+    r = fg.start(device="cuda")
+    _await(lambda: r.stats["batches"] >= C, "a chunk")
+    blks["fused"].set_param("center_freq", new)
+    b0 = r.stats["batches"]
+    _await(lambda: r.stats["batches"] >= b0 + 2 * C, "two more chunks")
+    _stop(fg, r)
+    nb = r.stats["batches"]
+    require(nb <= span, f"fence run: {nb} batches, more than the ring holds")
+    got = blks["sink"].data().reshape(nb, -1)
+    refs = {}
+    for center in (old, new):
+        rfg, rblks = wb_graph("fused", nb, center=center)
+        rfg.run(device="cuda")
+        refs[center] = rblks["sink"].data().reshape(nb, -1)
+    at_old = [np.array_equal(got[i], refs[old][i]) for i in range(nb)]
+    require(False in at_old, "fence: the new center_freq never took effect")
+    k = at_old.index(False)
+    require(k % C == 0 and all(at_old[:k])
+            and np.array_equal(got[k:], refs[new][k:]),
+            f"fence: landed at batch {k} (chunks of {C}), or the output after "
+            f"it is not the new value's")
+    log(f"fence from the caller's thread during an unbounded wbfm fused run "
+        f"of {nb} batches: landed at batch {k}, a chunk boundary; before it "
+        f"bit-equal to the old center_freq's run, after it to the new one's")
+    return {"rate": rate, "ring rate": ring_rate}
+
+
+def phase_pacing(card: str) -> float:
+    """39b. The throttle at 10 Msamples/s: a null_source -> throttle ->
+    head of 10 batches of 2^20 samples; the run's wall time against the
+    10 batches' time at that rate."""
+    from newsched_tpu_torch import Flowgraph
+    from newsched_tpu_torch.blocks import general
+
+    rate, n = 10e6, 10 << 20
+    fg = Flowgraph(batch_size=1 << 20)
+    thr, hd = general.throttle(rate), general.head(n)
+    fg.connect(general.null_source(), 0, thr, 0)
+    fg.connect(thr, 0, hd, 0)
+    fg.connect(hd, 0, general.null_sink(), 0)
+    t0 = time.monotonic()
+    fg.run(device="cuda")
+    dt = time.monotonic() - t0
+    err = (dt - n / rate) / (n / rate)
+    log(f"throttle at {rate / 1e6:.0f} Msamples/s, {n} samples: {dt:.4f} s "
+        f"against {n / rate:.4f} s, pacing error {100 * err:+.2f}% [{card}]")
+    require(abs(err) < 0.2, "throttle: pacing error above 20%")
+    return err
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -2118,8 +2463,31 @@ def main() -> int:
     probe_err = phase_probes(torch, fm_chain)
 
     # 34. times: graph mode, the chunk, the bench's timer, the probes
-    phase_graph_times(torch, rows, card)
+    graph_times = phase_graph_times(torch, rows, card)
     pt = phase_probe_times(torch, card)
+
+    # 35-38. K3ag, tags, checkpoints, unbounded runs
+    t35 = time.monotonic()
+    k3ag = phase_k3ag(torch, fm_chain, noise, replay_out, fused_out)
+    phase_tags()
+    phase_checkpoints()
+    unb = phase_unbounded(fm_chain)
+
+    # 39. times
+    for kid in ("K3", "K5", "K6"):
+        log(f"K3ag in {kid}: " + ", ".join(
+            f"ag={ag} {k3ag['t'][f'{kid} ag={ag}']:.4f} ms" for ag in (1, *AG))
+            + f" [{card}]")
+    log(f"K3ag plain (ag=2, {ROWS} rows): {k3ag['t']['plain']:.4f} ms [{card}]")
+    ms["K3ag"], ms["K3ag plain"] = k3ag["t"]["K3 ag=2"], k3ag["t"]["plain"]
+    step = graph_times["live"]
+    log(f"unbounded live channelizer under start(): {unb['rate']:.1f} "
+        f"Msamples/s into a null_sink (8 checksums copied to the host a "
+        f"chunk), {unb['ring rate']:.1f} into the ring (8 batches of audio "
+        f"a chunk), beside the graph-mode step of phase 34, {step:.4f} ms "
+        f"= {BATCH / step / 1e3:.1f} Msamples/s [{card}]")
+    phase_pacing(card)
+    log(f"phases 35-39: {time.monotonic() - t35:.1f} s")
     ms.update(pt["t"])
     lib["window_copy"] = pt["t"]["window_copy library"]
     lib["planes_unpack"] = pt["t"]["planes_unpack library"]
@@ -2131,6 +2499,7 @@ def main() -> int:
     bounds["window_copy"] = bound(pt["x_bytes"] + pt["n_tiles"] * 8 * 128 * 4, 0)
     bounds["planes_unpack"] = bound(2 * pt["stream_bytes"], 0)
     bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
+    bounds["K3ag"] = bounds["K3"]  # K3's function, its audio stage banded
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
             f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
@@ -2183,6 +2552,8 @@ def main() -> int:
         entry("fm_chain_step_planes[ablate]", "ablate", "fm_chain.cu",
               "bench/exp_ablate.py:128", pt["launches"]["ablate"],
               probe_err["ablate"]),
+        entry("fm_chain_step_planes[audio_groups]", "K3ag", "fm_chain.cu",
+              "fm_chain.py:251", k3ag["launches"], k3ag["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

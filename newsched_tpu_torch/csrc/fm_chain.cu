@@ -78,6 +78,18 @@
 // padded tile at T = 64, 128 and 256 (at most L-1 more rows elsewhere).
 // The matmul is a plain register-tiled FP32 loop (tile_mm.cuh). Tensor
 // cores (TF32/3xTF32) are later work.
+//
+// K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
+// taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
+// chain_tile's stage 4 at kAG > 1: the tile's audio FIR as kAG bands of
+// T/kAG rows, each reading only its rows of [tail; aud] against one shared
+// band table, the shifted Toeplitz of T/kAG/decim x (T/kAG + A-1) taps,
+// built once per block in the tile buffer's spare rows. The TPU took the
+// band's product on the MXU, structural zeros and all, to cut the
+// product's size; its outputs were ulp-equal to ag = 1. Here each output
+// sums only the A taps of its table row that are not structural zeros, in
+// kAG = 1's order, so its outputs are kAG = 1's bit for bit. The stage is
+// 2% of K3 (the ablation probe), bound like the rest by the DFT.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,10 +214,11 @@ __device__ __forceinline__ void fold_rows(const float* src, float* dst,
 //     stage has been read.
 // `last`: the batch's last tile (prev_out, tail_out); ynext (or null)
 // receives Y[t0+T-1]. kV: the stages switched off (Variant; kFull for
-// every shipped kernel). t_min: the stream's first row (p.t_min, but for
+// every shipped kernel). kAG: the audio stage's bands (1, or K3ag's 2 or
+// 4; see stage 4). t_min: the stream's first row (p.t_min, but for
 // K6, which finds it from the base group it reads; passed on its own so
 // that the kernels' Chain stays an unmodified launch parameter).
-template <bool kRebuild, int kV, class Row, class AfterFold>
+template <bool kRebuild, int kV, int kAG, class Row, class AfterFold>
 __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
                                            int t_min, int t0, bool last,
                                            const float* yprev, float* ynext,
@@ -320,25 +333,67 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
 
   // 4. Decimating audio FIR: out[o] = sum_k ataps[k] * aud[o*decim - k].
   const int n_o = p.T / p.decim;
-  for (int idx = tid; idx < n_o * M; idx += kThreads) {
-    const int o = idx / M, m = idx % M;
-    const float* col = buf + (A + o * p.decim) * W + m;
-    float acc = 0.f;
-    if constexpr (kV == kNoAudio)
-      acc = col[0];
-    else
-      for (int k = 0; k < A; ++k)
-        acc = fmaf(__ldg(p.ataps + k), col[-k * W], acc);
-    p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
+  if constexpr (kAG == 1) {
+    for (int idx = tid; idx < n_o * M; idx += kThreads) {
+      const int o = idx / M, m = idx % M;
+      const float* col = buf + (A + o * p.decim) * W + m;
+      float acc = 0.f;
+      if constexpr (kV == kNoAudio)
+        acc = col[0];
+      else
+        for (int k = 0; k < A; ++k)
+          acc = fmaf(__ldg(p.ataps + k), col[-k * W], acc);
+      p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
+    }
+  } else {
+    // K3ag: band g of Tg = T/kAG rows holds outputs g*n_og .. g*n_og +
+    // n_og - 1 and reads only [tail; aud] rows g*Tg .. g*Tg + Tg + A-2
+    // (buffer rows 1 + g*Tg + s) against the band table H[o][s] =
+    // ataps[A-1 + o*decim - s], zero outside [0, A), which the first
+    // __syncthreads() leaves in rows R.. of the buffer (free since the
+    // demod). The threads of band g are the g-th kThreads/kAG of the block.
+    // Row o of H is summed over its A nonzero taps only, k = 0 .. A-1 as
+    // above, on the same aud values: kAG = 1's outputs bit for bit.
+    static_assert(kThreads % kAG == 0, "the bands split the block evenly");
+    const int Tg = p.T / kAG, n_og = Tg / p.decim, S = Tg + A - 1;
+    float* tab = buf + R * W;
+    for (int idx = tid; idx < n_og * S; idx += kThreads) {
+      const int o = idx / S, s = idx % S, k = A - 1 + o * p.decim - s;
+      tab[idx] = k >= 0 && k < A ? __ldg(p.ataps + k) : 0.f;
+    }
+    __syncthreads();
+    constexpr int kBand = kThreads / kAG;
+    const int g = tid / kBand;
+    const float* band = buf + (1 + g * Tg) * W;
+    for (int idx = tid % kBand; idx < n_og * M; idx += kBand) {
+      const int o = idx / M, m = idx % M;
+      const int s0 = A - 1 + o * p.decim;  // column of H[o] at k = 0
+      const float* h = tab + o * S + s0;
+      const float* col = band + s0 * W + m;
+      float acc = 0.f;
+      for (int k = 0; k < A; ++k) acc = fmaf(h[-k], col[-k * W], acc);
+      p.aud[((long long)t0 / p.decim + g * n_og + o) * M + m] = acc;
+    }
   }
+}
+
+// Shared floats of a chain block (K3, K5, K6): the tile buffer, and with
+// kAG > 1 room past its T + A rows for the band table.
+__host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
+                                                          int ag, int decim) {
+  const int rows = tile_rows(T, A, L) * kW;
+  if (ag == 1) return rows;
+  const int tg = T / ag;
+  const int need = (T + A) * kW + tg / decim * (tg + A - 1);
+  return need > rows ? need : rows;
 }
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
 // last block writes the end state where the kernel returns one.
-template <int kV = kFull, class Row>
+template <int kV = kFull, int kAG = 1, class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                                              int t_min, Row row) {
-  chain_tile<true, kV>(buf, p, t_min, blockIdx.x * p.T,
+  chain_tile<true, kV, kAG>(buf, p, t_min, blockIdx.x * p.T,
                    blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr,
                    nullptr, nullptr, nullptr, row, [] {});
 }
@@ -357,12 +412,13 @@ struct HaloRows {
   }
 };
 
-// K3: input rows read from memory, vp = [halo; vb].
+// K3: input rows read from memory, vp = [halo; vb]; kAG > 1 is K3ag.
+template <int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile(buf, p, p.t_min, HaloRows{vb, halo, hrows});
+  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, HaloRows{vb, halo, hrows});
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -376,6 +432,7 @@ fm_chain_ablate_kernel(const float* __restrict__ vb,
 
 // K5: input rows generated in the block (and the batch's last H8 copied
 // out as the next carry), the halo from carry0; the base group on the card.
+template <int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     const float* __restrict__ amp,
@@ -385,7 +442,7 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
   s.g0 = philox::group_at(group, 0);
   const int H8 = p.H8, n = p.n;
   const float a = amp[0];
-  rebuilt_tile(buf, p, p.t_min, [&](int sr, int k) {
+  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
     if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * kW + k] : 0.f;
     const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
     if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
@@ -402,6 +459,7 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
 // the past (kFarPast, which no block reaches).
 constexpr int kFarPast = -(1 << 30);
 
+template <int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
@@ -413,7 +471,7 @@ fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                     : g >= (1LL << 24) ? kFarPast
                                        : (int)(-g * philox::kGroupRows);
   const float a = amp[0];
-  rebuilt_tile(buf, p, t_min, [&](int sr, int k) {
+  rebuilt_tile<kFull, kAG>(buf, p, t_min, [&](int sr, int k) {
     return __fmul_rn(philox::gauss(s, sr, k, kW), a);
   });
 }
@@ -461,7 +519,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
   const HaloRows row{vb, halo, hrows};
   if (g0 + 1 < g1)
     prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
-  chain_tile<true, kFull>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
+  chain_tile<true, kFull, 1>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
                           yrows, nullptr, row, [] {});
   for (int g = g0 + 1; g < g1; ++g) {
     __syncthreads();  // the tile before has read its aud rows
@@ -471,7 +529,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
     }
     wait_window();
     __syncthreads();
-    chain_tile<false, kFull>(buf, p, p.t_min, g * T, g == NT - 1,
+    chain_tile<false, kFull, 1>(buf, p, p.t_min, g * T, g == NT - 1,
                       yrows + ((g - g0 - 1) & 1) * W,  // Y[t0-1]
                       yrows + ((g - g0) & 1) * W, stage, row, [&] {
       if (g + 1 < g1)
@@ -504,22 +562,44 @@ int launch_tiles(Kernel kernel, size_t smem, int blocks, void* stream,
   return (int)cudaGetLastError();
 }
 
+// The audio stage's bands a chain kernel takes: 1, or K3ag's 2 or 4, each
+// band a whole number of output rows.
+bool valid_bands(int ag, int T, int decim) {
+  return (ag == 1 || ag == 2 || ag == 4) && T % ag == 0 && (T / ag) % decim == 0;
+}
+
+// One chain kernel (K3, K5 or K6) at the audio stage's bands `ag`: the
+// instance of the kernel template for it, with the shared memory it takes.
+#define LAUNCH_BANDS(kernel, ag, T, A, L, decim, blocks, stream, ...)        \
+  {                                                                          \
+    const size_t smem_ =                                                     \
+        (size_t)chain_smem_floats(T, A, L, ag, decim) * sizeof(float);       \
+    switch (ag) {                                                            \
+      case 1:                                                                \
+        return launch_tiles(kernel<1>, smem_, blocks, stream, __VA_ARGS__);  \
+      case 2:                                                                \
+        return launch_tiles(kernel<2>, smem_, blocks, stream, __VA_ARGS__);  \
+      default:                                                               \
+        return launch_tiles(kernel<4>, smem_, blocks, stream, __VA_ARGS__);  \
+    }                                                                        \
+  }
+
 }  // namespace
 
 extern "C" int fm_chain_planes_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
     const float* c2, const float* w2, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
-    int decim, int T, int hrows, int t_min, float gain,
+    int decim, int T, int ag, int hrows, int t_min, float gain,
     const float* atan_coeffs, void* stream) {
   // every block's window must lie in [halo; vb]
-  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1))
+  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
+      !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
-  return launch_tiles(
-      fm_chain_kernel, (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T,
-      stream, vb, halo, hrows,
-      make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
-                 H8, A, decim, T, t_min, gain, atan_coeffs));
+  LAUNCH_BANDS(fm_chain_kernel, ag, T, A, L, decim, n / T, stream, vb, halo,
+               hrows,
+               make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out,
+                          n, L, H8, A, decim, T, t_min, gain, atan_coeffs));
 }
 
 // The ablation probe's launch: K3's arguments (prev_out/tail_out may be
@@ -569,15 +649,14 @@ extern "C" int fm_chain_gen_launch(
     const float* prev0, const float* tail0, const float* c2, const float* w2,
     const float* ataps, float* aud, float* prev_out, float* tail_out,
     float* carry_out, int n, int M, int L, int H8, int A, int decim, int T,
-    float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || (draws != 2 && draws != 3))
+    int ag, float gain, const float* atan_coeffs, void* stream) {
+  if (2 * M != kW || (draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
-  return launch_tiles(
-      fm_chain_gen_kernel, (size_t)tile_rows(T, A, L) * kW * sizeof(float),
-      n / T, stream, s, group, amp, carry0, carry_out,
-      make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
-                 H8, A, decim, T, 0, gain, atan_coeffs));
+  LAUNCH_BANDS(fm_chain_gen_kernel, ag, T, A, L, decim, n / T, stream, s,
+               group, amp, carry0, carry_out,
+               make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out,
+                          n, L, H8, A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_gen_warm_launch(
@@ -585,16 +664,14 @@ extern "C" int fm_chain_gen_warm_launch(
     int draws, float mean, float inv_std, const float* amp, const float* prev0,
     const float* tail0, const float* c2, const float* w2, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
-    float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || (draws != 2 && draws != 3))
+    int ag, float gain, const float* atan_coeffs, void* stream) {
+  if (2 * M != kW || (draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
-  return launch_tiles(
-      fm_chain_gen_warm_kernel,
-      (size_t)tile_rows(T, A, L) * kW * sizeof(float), n / T, stream, s,
-      group, goff, amp,
-      make_chain(prev0, tail0, c2, w2, ataps, aud, nullptr, nullptr, n, L, H8,
-                 A, decim, T, 0, gain, atan_coeffs));
+  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, n / T, stream, s,
+               group, goff, amp,
+               make_chain(prev0, tail0, c2, w2, ataps, aud, nullptr, nullptr,
+                          n, L, H8, A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_pipe_launch(

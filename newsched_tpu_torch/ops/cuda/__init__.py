@@ -18,5 +18,8 @@ def launch_counters() -> list[tuple[object, str]]:
            sources.nco_planes, sources.nco_folded,
            wbfm_chain.wbfm_chain_step, wbfm_chain.wbfm_chain_live_step,
            fir_source.fir_tone_step)
+    banded = (fm_chain.fm_chain_step_planes, fm_chain.fm_chain_gen_step,
+              fm_chain.fm_chain_gen_warm_step)
     return [(f, "launches") for f in fns] + [
-        (fm_chain.fm_chain_step_planes, "pipe_launches")]
+        (fm_chain.fm_chain_step_planes, "pipe_launches")] + [
+        (f, f"ag{ag}_launches") for f in banded for ag in (2, 4)]

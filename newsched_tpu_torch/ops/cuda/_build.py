@@ -40,8 +40,8 @@ SIGNATURES = {
     "gaussian_rows_launch": [_P, _LL, _I, _P, _U, _U, _I, _F, _F, _I, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-                               _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _P, _P],
     "fm_chain_ablate_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
                                _P],
@@ -50,10 +50,10 @@ SIGNATURES = {
                              _P],
     "fm_chain_gen_launch": [_P, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _P, _P],
+                            _I, _I, _F, _P, _P],
     "fm_chain_gen_warm_launch": [_P, _LL, _U, _U, _I, _F, _F, _P, _P, _P, _P,
-                                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                 _P, _P],
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _P, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],

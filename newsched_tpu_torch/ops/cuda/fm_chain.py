@@ -21,6 +21,10 @@ continued across batches). Per row t:
 State kept in the reference's layouts: ``prev`` is the last Y row
 [re | im]; ``tail`` the last A-1 aud rows, duplicated in both halves.
 
+The audio stage runs as ``ag`` bands (K3ag, the reference's banded audio
+Toeplitz) where ``_pick_audio_groups`` says so: 1 by default, as in the
+reference; the outputs are the same bit for bit either way.
+
 Precision: the TPU kernel offers accuracy tiers (``split3``, HIGHEST) that
 exist because its matrix unit works in bf16 passes. Here every value of
 ``precision`` computes in FP32 throughout, with the degree-9 atan2
@@ -70,6 +74,51 @@ def planes_dft_matrix(M: int) -> np.ndarray:
     return np.concatenate([top, bot], axis=0)
 
 
+def audio_toeplitz(ataps: np.ndarray, tile: int, decim: int) -> np.ndarray:
+    """(tile//decim, A-1+tile) matrix H with H[o, s] = ataps[A-1 + o*decim - s]
+    (zero outside [0, A)): y[o] = sum_s H[o, s] * [tail; aud][s] is the
+    streaming decimating FIR for one tile with an (A-1)-row tail."""
+    t = np.asarray(ataps, np.float32)
+    A = t.shape[0]
+    n_o = tile // decim
+    H = np.zeros((n_o, A - 1 + tile), np.float32)
+    for o in range(n_o):
+        base = A - 1 + o * decim
+        for tt in range(A):
+            H[o, base - tt] = t[tt]
+    return H
+
+
+def _pick_audio_groups(tile: int, decim: int, A: int) -> int:
+    """The audio stage's band count ``ag`` (K3ag, the reference's banded
+    audio Toeplitz): 1, as in the reference, whose TPU measured ag = 2 and
+    4 slower at the flagship's shape. A caller that wants the banded
+    stage replaces this function (the reference's callers monkeypatch
+    theirs); K3, K5 and K6 read it at every call, K3p never. The outputs
+    do not depend on it: each band sums only its nonzero taps in ag = 1's
+    order (csrc/fm_chain.cu, stage 4)."""
+    return 1
+
+
+def _audio_groups(tile: int, decim: int, A: int) -> int:
+    """``_pick_audio_groups``' choice, checked: 1, 2 or 4 bands, each a
+    whole number of audio outputs (``tile // ag`` a multiple of decim, as
+    the reference's shapes imply)."""
+    ag = int(_pick_audio_groups(tile, decim, A))
+    if ag not in (1, 2, 4) or tile % ag or (tile // ag) % decim:
+        raise ValueError(f"audio groups {ag}: tile {tile} // ag must be a "
+                         f"multiple of the audio decimation {decim} "
+                         f"(ag in 1, 2, 4)")
+    return ag
+
+
+def _count_bands(fn, ag: int) -> None:
+    """K3ag's launches, per band count, on the wrapper that launched it."""
+    if ag > 1:
+        name = f"ag{ag}_launches"
+        setattr(fn, name, getattr(fn, name) + 1)
+
+
 def _pick_tile(n_out: int, tile: int, decim: int) -> int:
     if n_out % tile != 0:
         if n_out <= tile:
@@ -105,16 +154,21 @@ def fm_chain_consts(arm_c: np.ndarray, ataps: np.ndarray,
 
 
 def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
-                               decim: int, gain: float, warm: int = 0):
+                               decim: int, gain: float, warm: int = 0,
+                               ag: int = 1, tile: int | None = None):
     """The plain PyTorch version of ``fm_chain_step_planes``: the same sums,
     written over whole tensors. warm > 0 keeps the reference's own
     formulation: the halo's last ``warm`` rows run through the chain from
-    the junction state passed (zeros) and their audio is dropped."""
+    the junction state passed (zeros) and their audio is dropped. ag > 1
+    (K3ag) is the reference's banded audio stage: each tile of ``tile``
+    rows as ``ag`` products of one shared shifted Toeplitz
+    (``audio_toeplitz(ataps, tile // ag, decim)``) against the rows
+    [g*T/ag, g*T/ag + T/ag + A-1) of the tile's [tail; aud]."""
     if warm:
         H8 = halo.shape[0] - warm
         aud, prev, tail = fm_chain_step_planes_plain(
             torch.cat([halo[H8:], vb]), halo[:H8], prev0, tail0, consts, decim,
-            gain)
+            gain, ag=ag, tile=tile)
         return aud[warm // decim:], prev, tail
     L, W = consts.c2.shape
     M = W // 2
@@ -131,10 +185,27 @@ def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
     aud = atan2_plain(ar * yi - ai * yr, ar * yr + ai * yi) * gain
     audfull = torch.cat([tail0[:, :M], aud])  # row s <-> aud[s - (A-1)]
     n_o = n // decim
-    out = torch.zeros((n_o, M), dtype=torch.float32, device=vb.device)
-    for k in range(A):
-        s = A - 1 - k
-        out = out + consts.ataps[k] * audfull[s:s + n_o * decim:decim]
+    if ag > 1:
+        # band b (tile b // ag, group b % ag) is rows [b*Tg, b*Tg + Tg + A-1)
+        # of audfull; H[o] @ band, its structural zeros skipped: tap k of
+        # row o sits at column A-1 + o*decim - k, and the taps are summed
+        # in the order of the ag = 1 sum below, as the kernel sums them
+        Tg = tile // ag
+        H = torch.as_tensor(audio_toeplitz(consts.ataps.cpu().numpy(), Tg,
+                                           decim), device=vb.device)
+        bands = audfull.unfold(0, Tg + A - 1, Tg)  # (n/Tg, M, Tg + A - 1)
+        o = torch.arange(Tg // decim, device=vb.device)
+        out = torch.zeros((n // Tg, Tg // decim, M), dtype=torch.float32,
+                          device=vb.device)
+        for k in range(A):
+            s = A - 1 + o * decim - k
+            out = out + H[o, s][:, None] * bands[:, :, s].transpose(1, 2)
+        out = out.reshape(n_o, M)
+    else:
+        out = torch.zeros((n_o, M), dtype=torch.float32, device=vb.device)
+        for k in range(A):
+            s = A - 1 - k
+            out = out + consts.ataps[k] * audfull[s:s + n_o * decim:decim]
     tail = aud[n - (A - 1):]
     return out, Y[n - 1:].clone(), torch.cat([tail, tail], dim=1)
 
@@ -178,8 +249,9 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3), or with
-    ``pipelined`` ``fm_chain_pipe_launch`` (K3p).
+    ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3; K3ag where
+    ``_pick_audio_groups`` gives ag > 1), or with ``pipelined``
+    ``fm_chain_pipe_launch`` (K3p, never banded).
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
@@ -201,14 +273,15 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     if pipelined and (tile % 32 or tile < L - 1):
         raise ValueError(f"pipelined: tile {tile} must be a multiple of 32 "
                          f"and >= L-1 = {L - 1}")
+    ag = 1 if pipelined else _audio_groups(tile, decim, A)
     if vb.device.type == "cpu":
         return fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts,
-                                          decim, gain, warm)
+                                          decim, gain, warm, ag, tile)
     t_min = _FAR_PAST if warm else 0
     if pipelined:
         return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None,
                      t_min)
-    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
+    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
     dev = vb.device
     _check_chain_tensors(dev, [("vb", vb, (n, W)),
                                ("halo", halo, (warm + H8, W))],
@@ -219,15 +292,18 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
             tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
-            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, warm + H8,
+            tail.data_ptr(), n, M, L, H8, A, int(decim), tile, ag, warm + H8,
             t_min, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_planes_launch")
     fm_chain_step_planes.launches += 1
+    _count_bands(fm_chain_step_planes, ag)
     return aud, prev, tail
 
 
 fm_chain_step_planes.launches = 0
+fm_chain_step_planes.ag2_launches = 0
+fm_chain_step_planes.ag4_launches = 0
 
 
 def _check_warm(warm: int, tile: int, A: int, decim: int) -> None:
@@ -266,7 +342,7 @@ def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
     H8 = _round8(L - 1)
     hrows = int(halo.shape[0])
     smem = _pipe_smem(tile, A, L, W)
-    _check_kernel_shape(W, tile, smem // (W * 4))
+    _check_kernel_shape(W, tile, smem)
     dev = vb.device
     _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (hrows, W))],
                          prev0, tail0, consts)
@@ -298,11 +374,23 @@ def _tile_rows(tile: int, A: int, L: int) -> int:
     return max(-(-(tile + A) // 32) * 32, tile + A + L - 1)
 
 
-def _check_kernel_shape(W: int, tile: int, smem_rows: int) -> None:
+def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int) -> int:
+    """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): the
+    tile buffer, and with ag > 1 room past its tile + A rows for K3ag's
+    band table (the buffer's padding holds it at the flagship's shape)."""
+    W = 128
+    floats = _tile_rows(tile, A, L) * W
+    if ag > 1:
+        tg = tile // ag
+        floats = max(floats, (tile + A) * W + tg // decim * (tg + A - 1))
+    return floats * 4
+
+
+def _check_kernel_shape(W: int, tile: int, smem: int) -> None:
+    """W: planes lanes; smem: the block's shared bytes."""
     if W != 128:
         raise ValueError(f"planes width {W}: the CUDA kernel is built for "
                          f"M=64 channels (2M=128 lanes)")
-    smem = smem_rows * W * 4
     if smem > _SMEM_MAX:
         raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
                          f"H100 allows {_SMEM_MAX}; pass a smaller tile")
@@ -327,16 +415,19 @@ def _chain_outputs(n: int, decim: int, M: int, A: int, dev):
 
 def fm_chain_gen_step_plain(g0, amp, carry0, prev0, tail0,
                             consts: FmChainConsts, decim: int, gain: float,
-                            n_loc: int, seed: int = 0, draws: int = 3):
+                            n_loc: int, seed: int = 0, draws: int = 3,
+                            ag: int = 1, tile: int | None = None):
     """The plain PyTorch version of ``fm_chain_gen_step``: the noise
-    stream's plain version scaled by ``amp``, then the chain's."""
+    stream's plain version scaled by ``amp``, then the chain's (ag, tile:
+    its audio stage, as ``fm_chain_step_planes_plain``)."""
     W = int(consts.c2.shape[1])
     dev = carry0.device
     rows = noise.gaussian_rows_plain(g0, n_rows=n_loc, width=W, seed=seed,
                                      device=dev, draws=draws) \
         * torch.as_tensor(amp, dtype=torch.float32, device=dev)
     aud, prev, tail = fm_chain_step_planes_plain(rows, carry0, prev0, tail0,
-                                                 consts, decim, gain)
+                                                 consts, decim, gain, ag=ag,
+                                                 tile=tile)
     return aud, prev, tail, rows[n_loc - carry0.shape[0]:].clone()
 
 
@@ -381,11 +472,13 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
         raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
     if int(carry0.shape[0]) != H8:
         raise ValueError(f"carry rows {carry0.shape[0]} != H8 = {H8}")
+    ag = _audio_groups(tile, decim, A)
     dev = carry0.device
     if dev.type == "cpu":
         return fm_chain_gen_step_plain(g0, amp, carry0, prev0, tail0, consts,
-                                       decim, gain, n_loc, seed, draws)
-    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
+                                       decim, gain, n_loc, seed, draws, ag,
+                                       tile)
+    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     _check_chain_tensors(dev, [("amp", amp, (1,)), ("carry0", carry0, (H8, W))],
                          prev0, tail0, consts)
@@ -400,14 +493,17 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
             tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), carry.data_ptr(), n_loc, M, L, H8, A, int(decim),
-            tile, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            tile, ag, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_gen_launch")
     fm_chain_gen_step.launches += 1
+    _count_bands(fm_chain_gen_step, ag)
     return aud, prev, tail, carry
 
 
 fm_chain_gen_step.launches = 0
+fm_chain_gen_step.ag2_launches = 0
+fm_chain_gen_step.ag4_launches = 0
 
 
 def _zero_state(dev, A: int, W: int) -> tuple:
@@ -426,12 +522,14 @@ _ZEROS: dict = {}
 def fm_chain_gen_warm_step_plain(g0, amp, consts: FmChainConsts, decim: int,
                                  gain: float, n_loc: int, warm: int,
                                  seed: int = 0, draws: int = 3,
-                                 goff: int = 0):
+                                 goff: int = 0, ag: int = 1,
+                                 tile: int | None = None):
     """The plain PyTorch version of ``fm_chain_gen_warm_step``, the
     reference's own non-hardware formulation: the stream's rows
     [base - warm - H8, base + n_loc) (groups before the stream read 0),
     base = g0 + goff groups, scaled by ``amp``, through K3's warm > 0
-    plain version from a zero junction."""
+    plain version from a zero junction (ag, tile: its audio stage, as
+    ``fm_chain_step_planes_plain``)."""
     L, W = (int(d) for d in consts.c2.shape)
     A = int(consts.ataps.shape[0])
     hr = warm + _round8(L - 1)
@@ -443,7 +541,7 @@ def fm_chain_gen_warm_step_plain(g0, amp, consts: FmChainConsts, decim: int,
         * torch.as_tensor(amp, dtype=torch.float32, device=dev)
     z1, zt = _zero_state(dev, A, W)
     aud, _, _ = fm_chain_step_planes_plain(rows[hr:], rows[:hr], z1, zt, consts,
-                                           decim, gain, warm)
+                                           decim, gain, warm, ag, tile)
     return aud
 
 
@@ -492,11 +590,13 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     if H8 > noise.GROUP_ROWS:
         raise ValueError(f"H8 {H8} > one noise group ({noise.GROUP_ROWS} "
                          f"rows): first-tile halo regeneration spans one group")
+    ag = _audio_groups(tile, decim, A)
     dev = consts.c2.device
     if dev.type == "cpu":
         return fm_chain_gen_warm_step_plain(g0, amp, consts, decim, gain,
-                                            n_loc, warm, seed, draws, goff)
-    _check_kernel_shape(W, tile, _tile_rows(tile, A, L))
+                                            n_loc, warm, seed, draws, goff,
+                                            ag, tile)
+    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     z1, zt = _zero_state(dev, A, W)
     _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)
@@ -508,12 +608,15 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
             g.data_ptr(), int(goff), *args, amp.data_ptr(), z1.data_ptr(),
             zt.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), n_loc, M, L, H8, A,
-            int(decim), tile, float(gain),
+            int(decim), tile, ag, float(gain),
             ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_gen_warm_launch")
     fm_chain_gen_warm_step.launches += 1
+    _count_bands(fm_chain_gen_warm_step, ag)
     return aud
 
 
 fm_chain_gen_warm_step.launches = 0
+fm_chain_gen_warm_step.ag2_launches = 0
+fm_chain_gen_warm_step.ag4_launches = 0

@@ -87,7 +87,7 @@ def fm_chain_ablate(vb, halo, prev0, tail0, consts, decim: int, gain: float,
     if vb.device.type == "cpu":
         return fm_chain_ablate_plain(vb, halo, prev0, tail0, consts, decim,
                                      gain, variant)
-    fm_chain._check_kernel_shape(W, tile, fm_chain._tile_rows(tile, A, L))
+    fm_chain._check_kernel_shape(W, tile, fm_chain._tile_rows(tile, A, L) * W * 4)
     dev = vb.device
     fm_chain._check_chain_tensors(dev, [("vb", vb, (n, W)),
                                         ("halo", halo, (H8, W))],

@@ -5,9 +5,10 @@ A Block is:
 
   - a declarative spec: typed stream ports (with per-item shape, the
     reference's vlen), a rational relative rate (out items per in item),
-    parameter descriptors;
+    parameter descriptors, message ports, a tag propagation policy;
   - a work function ``work(state, ins, params, nout) -> (state, outs)``
-    over torch tensors, called once per fixed-size time batch.
+    over torch tensors, called once per fixed-size time batch (a
+    ``tag_aware`` block's takes ``in_tags=`` and returns its out tags too).
 
 ``consume/produce`` bookkeeping is the compile-time rate algebra
 (runtime/compile.py); parameters reach ``work`` as tensors on the run's
@@ -17,10 +18,11 @@ the runner's graph mode, so a captured step reads the new value).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from fractions import Fraction
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -110,9 +112,17 @@ class Block:
     on the run's device. ``params`` maps param name -> tensor on that
     device. ``nin``/``nout`` are python ints fixed by the compiler's rate
     algebra.
+
+    Tags (runtime/tags.py): a block with ``tag_aware = True`` gets its
+    merged input tags as ``work(..., in_tags=)`` and returns (state, outs,
+    out_tags); any other block's tags follow ``tag_policy``, the
+    reference's tag_propagation_policy_t: "all_to_all" (every input's tags
+    on every output, offsets remapped by the rate), "one_to_one" (input i
+    to output i) or "dont".
     """
 
     relative_rate: Fraction = Fraction(1)
+    tag_policy: str = "all_to_all"
 
     def __init__(self, name: str | None = None):
         cls = type(self).__name__
@@ -122,6 +132,8 @@ class Block:
         self.outputs: list[Port] = list(getattr(self, "outputs", []))
         self._param_specs: dict[str, ParamSpec] = {}
         self._param_values: dict[str, Any] = {}
+        self._msg_handlers: dict[str, Callable[[Any], None]] = {}
+        self._msg_subscribers: dict[str, list[tuple["Block", str]]] = {}
         self._runtime = None  # set by the runner while the graph is running
         self.log = get_logger(self.name)
 
@@ -166,22 +178,28 @@ class Block:
         self._param_values[name] = default
 
     def set_param(self, name: str, value) -> None:
-        """Set a parameter. While running, takes effect on the next batch:
-        the runner refreshes this block's parameter tensors. A FENCE
+        """Set a parameter. While running, takes effect on the next batch
+        (the next chunk under graph mode): the runner refreshes this
+        block's parameter tensors between steps, on its own thread. A FENCE
         parameter (ParamSpec.fence) additionally calls the block's
         ``on_fence_param(name, value)`` hook to rebuild derived constants;
         the runner finds the new value and captures its graph of the step
-        anew (the reference retraces)."""
+        anew (the reference retraces). While a runner is attached, this
+        holds its ``param_lock``, which the runner holds while it steps,
+        captures or refreshes: a change never lands inside a step, and a
+        captured chunk keeps the constants it was captured with alive."""
         spec = self._param_specs[name]
         if not spec.settable:
             raise ValueError(f"parameter {name} of {self.name} is not settable")
-        self._param_values[name] = value
-        if spec.fence:
-            hook = getattr(self, "on_fence_param", None)
-            if hook is not None:
-                hook(name, value)
-        if self._runtime is not None:
-            self._runtime.invalidate_params(self)
+        rt = self._runtime
+        with getattr(rt, "param_lock", None) or contextlib.nullcontext():
+            self._param_values[name] = value
+            if spec.fence:
+                hook = getattr(self, "on_fence_param", None)
+                if hook is not None:
+                    hook(name, value)
+            if rt is not None:
+                rt.invalidate_params(self)
 
     def get_param(self, name: str):
         return self._param_values[name]
@@ -196,6 +214,25 @@ class Block:
         return {name: param_tensor(self._param_values[name], spec.dtype,
                                    device)
                 for name, spec in self._param_specs.items()}
+
+    # -- messages (host-side control plane) -----------------------------
+    def add_msg_port_in(self, name: str, handler: Callable[[Any], None]) -> None:
+        """Register an async message handler (reference: message_port +
+        register handler). Handlers run on the host between batches."""
+        self._msg_handlers[name] = handler
+
+    def add_msg_port_out(self, name: str) -> None:
+        self._msg_subscribers.setdefault(name, [])
+
+    def post_msg(self, port: str, msg: Any) -> None:
+        """Publish a message to subscribers of an output message port: a
+        running subscriber's runner queues it for its next batch boundary;
+        an idle one handles it now."""
+        for blk, in_port in self._msg_subscribers.get(port, []):
+            if blk._runtime is not None:
+                blk._runtime.enqueue_msg(blk, in_port, msg)
+            else:
+                blk._msg_handlers[in_port](msg)
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> None:

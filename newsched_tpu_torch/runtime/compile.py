@@ -12,7 +12,8 @@ solved once, statically:
   3. Finite-stream bounds (head blocks, finite sources) propagate through
      the same algebra to give exact per-sink totals and the batch count.
   4. ``build_step`` emits the per-batch function (states, params) ->
-     (states, sink_outputs) that the runner calls once per batch.
+     (states, sink_outputs) that the runner calls once per batch, with the
+     tag plane (runtime/tags.py) beside the stream edges.
 
 Steps 1-3 are the reference's code unchanged (pure Python).
 
@@ -154,12 +155,15 @@ def _propagate_bounds(
 
 def compile_flowgraph(g: Graph, batch_size: int | None = None,
                       total_items: int | None = None, mesh=None,
-                      time_axis: str | None = None) -> CompiledFlowgraph:
+                      time_axis: str | None = None,
+                      tag_capacity_limit: int | None = None
+                      ) -> CompiledFlowgraph:
     """batch_size: requested items/batch at the reference rate (rate-1 source).
     total_items: override stream length at the reference rate (else derived
     from head blocks / finite sources; None with no bound = unbounded).
     mesh: a parallel.mesh.Mesh; the step shards over ``time_axis`` (default
-    the mesh's first axis)."""
+    the mesh's first axis). tag_capacity_limit: the most tags an edge
+    carries a batch (``build_step``)."""
     order = g.topo_order()
     rates = _propagate_rates(g, order)
     shard_n = 1
@@ -235,7 +239,8 @@ def compile_flowgraph(g: Graph, batch_size: int | None = None,
             nb = -(-(t + sink_leads[s.name]) // n_in[s.name])
             n_batches = nb if n_batches is None else max(n_batches, nb)
 
-    step = build_step(g, order, n_out, n_in, mesh=mesh, time_axis=time_axis)
+    step = build_step(g, order, n_out, n_in, mesh=mesh, time_axis=time_axis,
+                      tag_capacity_limit=tag_capacity_limit)
     return CompiledFlowgraph(
         graph=g,
         order=order,
@@ -288,7 +293,8 @@ def _merge_bounds(g, order, rates, seeded):
 
 def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
                n_in: dict[str, int] | None = None, mesh=None,
-               time_axis: str | None = None):
+               time_axis: str | None = None,
+               tag_capacity_limit: int | None = None):
     """Emit the per-batch function. Sinks (no stream outputs) return a
     per-batch collected value under their name (None to collect nothing).
 
@@ -296,40 +302,120 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
     runs its own per-shard formulation (the reference's explicit-collective
     lowering hook); every other block runs ``work`` on the whole batch.
 
-    The tag plane (the reference's shadow TagBatch per edge) belongs to a
-    later slice of the port: a graph whose sources declare a tag capacity,
-    or that holds a tag-aware block, is refused here."""
-    for b in order:
-        if int(getattr(b, "tag_capacity", 0)) or getattr(b, "tag_aware", False):
-            raise NotImplementedError(
-                f"{b.name}: stream tags are not ported yet (the tag plane, "
-                "runtime/tags.py, is ROADMAP Queue 1 item 4)")
+    Tag plane (the reference's executor tag propagation per
+    tag_propagation_policy_t): a shadow TagBatch per output port, of a
+    static capacity propagated from each block's ``tag_capacity``
+    (sources) through merges; a graph with no capacity carries none. A
+    ``tag_aware`` block gets ``in_tags=`` and returns (state, outs,
+    out_tags); any other follows its ``tag_policy``, its merged input tags
+    remapped by n_out/n_in. A sink with ``collects_tags=True`` collects
+    {"data", "tags"}. ``tag_capacity_limit`` caps every capacity: an edge
+    over it is compacted each batch (valid tags first, in stream order)
+    and the drops are summed into the pseudo sink "__tag_drops__". Under a
+    mesh the tags ride with the whole batch, as the reference's step
+    carries them."""
+    from newsched_tpu_torch.runtime import tags as tags_mod
 
+    n_in = n_in or {}
     n_shard, axis = 1, None
     if mesh is not None and mesh.size > 1:
         axis = time_axis or mesh.axis_names[0]
         n_shard = mesh.shape[axis]
 
+    # Static tag capacity, per OUTPUT PORT (what one_to_one needs).
+    caps: dict[tuple[str, str], int] = {}
+    for b in order:
+        in_caps = []
+        for p in b.inputs:
+            e = next((e for e in g.in_edges(b) if e.dst_port == p.name), None)
+            in_caps.append(caps.get((e.src.name, e.src_port), 0) if e else 0)
+        own = int(getattr(b, "tag_capacity", 0))
+        policy = b.tag_policy
+        if policy == "one_to_one" and b.inputs and b.outputs \
+                and len(b.inputs) != len(b.outputs):
+            raise ValueError(
+                f"{b.name}: tag_policy 'one_to_one' requires equal input/"
+                f"output port counts ({len(b.inputs)} vs {len(b.outputs)}), "
+                "as in the reference's TPP_ONE_TO_ONE")
+        for i, p in enumerate(b.outputs):
+            if getattr(b, "tag_aware", False):
+                c = sum(in_caps) + own
+            elif policy == "one_to_one":
+                c = (in_caps[i] if i < len(in_caps) else 0) + own
+            elif policy == "dont":
+                c = own
+            else:  # all_to_all
+                c = sum(in_caps) + own
+            if tag_capacity_limit is not None:
+                c = min(c, tag_capacity_limit)
+            caps[(b.name, p.name)] = c
+    any_tags = any(caps.values())
+
     def step(states: dict, params: dict):
         vals: dict[tuple[str, str], Any] = {}
+        tag_vals: dict[tuple[str, str], Any] = {}  # (block, out port) -> TagBatch
         new_states = dict(states)
         sink_out: dict[str, Any] = {}
+        tag_drops = None  # int32 0-dim tensor when compaction is active
         for b in order:
             ins = {e.dst_port: vals[(e.src.name, e.src_port)] for e in g.in_edges(b)}
-            if n_shard > 1 and hasattr(b, "work_sharded"):
-                st, outs = b.work_sharded(states[b.name], ins, params[b.name],
-                                          n_out[b.name], mesh=mesh, axis=axis)
+            # tags on each input port, in declared port order (one_to_one
+            # pairs input i with output i)
+            in_tags: list[Any] = []
+            if any_tags:
+                for p in b.inputs:
+                    e = next((e for e in g.in_edges(b) if e.dst_port == p.name),
+                             None)
+                    in_tags.append(tag_vals.get((e.src.name, e.src_port))
+                                   if e else None)
+            merged = None
+            for t in in_tags:
+                if t is not None:
+                    merged = t if merged is None else tags_mod.merge(merged, t)
+            ni, no = n_in.get(b.name, 0), n_out[b.name]
+
+            def _remap(t):
+                return (tags_mod.remap(t, no, ni)
+                        if t is not None and ni and no and ni != no else t)
+
+            if getattr(b, "tag_aware", False):
+                st, outs, otags = b.work(states[b.name], ins, params[b.name],
+                                         no, in_tags=merged)
+                out_tags = {p.name: otags for p in b.outputs}
             else:
-                st, outs = b.work(states[b.name], ins, params[b.name],
-                                  n_out[b.name])
+                if n_shard > 1 and hasattr(b, "work_sharded"):
+                    st, outs = b.work_sharded(states[b.name], ins,
+                                              params[b.name], no, mesh=mesh,
+                                              axis=axis)
+                else:
+                    st, outs = b.work(states[b.name], ins, params[b.name], no)
+                if b.tag_policy == "one_to_one":
+                    out_tags = {p.name: _remap(in_tags[i] if i < len(in_tags)
+                                               else None)
+                                for i, p in enumerate(b.outputs)}
+                elif b.tag_policy == "dont":
+                    out_tags = {p.name: None for p in b.outputs}
+                else:  # all_to_all
+                    out_tags = {p.name: _remap(merged) for p in b.outputs}
             new_states[b.name] = st
             if b.outputs:
                 for p in b.outputs:
                     if p.name not in outs:
                         raise KeyError(f"{b.name}.work missing output {p.name!r}")
                     vals[(b.name, p.name)] = outs[p.name]
+                    t = out_tags[p.name]
+                    if (tag_capacity_limit is not None and t is not None
+                            and t.capacity > tag_capacity_limit):
+                        t, dropped = tags_mod.compact(t, tag_capacity_limit)
+                        tag_drops = (dropped if tag_drops is None
+                                     else tag_drops + dropped)
+                    tag_vals[(b.name, p.name)] = t
+            elif getattr(b, "collects_tags", False) and merged is not None:
+                sink_out[b.name] = {"data": outs, "tags": merged}
             elif outs is not None:
                 sink_out[b.name] = outs
+        if tag_drops is not None:
+            sink_out["__tag_drops__"] = tag_drops
         return new_states, sink_out
 
     return step

@@ -85,6 +85,14 @@ class Graph:
         self.edges.append(edge)
         return edge
 
+    def msg_connect(self, src: Block, out_port: str, dst: Block, in_port: str) -> None:
+        """Wire an async message path (reference: graph msg edges)."""
+        if in_port not in dst._msg_handlers:
+            raise KeyError(f"{dst.name} has no message input {in_port!r}")
+        src._msg_subscribers.setdefault(out_port, []).append((dst, in_port))
+        self._add_block(src)
+        self._add_block(dst)
+
     def _absorb(self, other: "Graph | None") -> None:
         if other is None:
             return
@@ -177,26 +185,59 @@ class HierBlock(Block):
 class Flowgraph(Graph):
     """Top-level runnable graph (reference: flowgraph.h + runtime
     start/wait). run() is synchronous: validate -> compile -> execute ->
-    deliver sink data."""
+    deliver sink data. start()/wait()/stop() are the reference's async API:
+    the run goes on on a thread of its own, an unbounded one until stop()."""
 
     def __init__(self, name: str = "flowgraph", batch_size: int | None = None):
         Graph.__init__(self)
         self.name = name
         self.batch_size = batch_size
+        self._runner = None
 
     def run(self, device="cuda", batch_size: int | None = None,
-            total_items: int | None = None, mesh=None):
+            total_items: int | None = None, mesh=None, **runner_kwargs):
         """Synchronous run on ``device`` (a torch device or its name): the
         card unless the caller asks for the CPU (``device="cpu"``). Every
         block's state, parameters and stream tensors live there; the run
         does not move to another device. ``mesh`` (parallel.make_mesh)
         shards the step over its time axis; ``device`` must agree with the
         mesh's device (``fg.run(device="cpu", mesh=make_mesh(4,
-        device="cpu"))`` in the tests)."""
+        device="cpu"))`` in the tests). Other keyword arguments reach the
+        Runner: resume_from, checkpoint_path, checkpoint_every,
+        collect_stats, profile_dir, tag_capacity_limit."""
         from newsched_tpu_torch.runtime.runner import Runner
 
         self.validate()
         runner = Runner(self, batch_size=batch_size or self.batch_size,
-                        total_items=total_items, device=device, mesh=mesh)
+                        total_items=total_items, device=device, mesh=mesh,
+                        **runner_kwargs)
         runner.run_to_completion()
         return runner
+
+    def start(self, device="cuda", batch_size: int | None = None, mesh=None,
+              **runner_kwargs):
+        """Start the run on a thread of its own and return its Runner; an
+        unbounded graph runs until stop(). Arguments as run()."""
+        from newsched_tpu_torch.runtime.runner import Runner
+
+        self.validate()
+        self._runner = Runner(self, batch_size=batch_size or self.batch_size,
+                              device=device, mesh=mesh, **runner_kwargs)
+        self._runner.start_async()
+        return self._runner
+
+    def wait(self):
+        """Wait for the run started by start() to end; raises what failed
+        on its thread."""
+        if self._runner is None:
+            raise RuntimeError("flowgraph not started")
+        try:
+            self._runner.wait()
+        finally:
+            self._runner = None
+
+    def stop(self):
+        """Ask the run started by start() to stop at its next batch (graph
+        mode: chunk) boundary; wait() then delivers what streamed."""
+        if self._runner is not None:
+            self._runner.request_stop()

@@ -226,19 +226,6 @@ def _keyed(tree, path=()) -> dict:
             .items()}
 
 
-def test_tag_refusal_points_at_the_tag_plane():
-    class tagged(tgen.vector_source):
-        tag_capacity = 4
-
-    fg = TFlowgraph(batch_size=64)
-    fg.connect(tagged(np.zeros(64, np.float32)), 0,
-               tgen.null_sink(dtype="rf32"), 0)
-    with pytest.raises(NotImplementedError,
-                       match=r"tag plane, runtime/tags\.py, is ROADMAP Queue 1 "
-                             r"item 4"):
-        tcompile(fg, batch_size=64)
-
-
 # -- the runner's graph mode, its bookkeeping on the CPU ---------------------
 
 def _model_graphs():

@@ -188,20 +188,6 @@ def test_rate_algebra_of_the_fused_slice(source, sink, n_batches):
     assert got["torch"][5] == n_batches
 
 
-def test_tag_capacity_is_refused():
-    class tagged(tblock.Block):
-        tag_capacity = 4
-
-        def __init__(self):
-            super().__init__()
-            self.add_output("out", "rf32")
-
-    fg = TFlowgraph(batch_size=64)
-    fg.connect(tagged(), 0, tgen.null_sink(dtype="rf32"), 0)
-    with pytest.raises(NotImplementedError, match="tag"):
-        tcompile(fg, batch_size=64, total_items=64)
-
-
 def test_general_blocks_end_to_end_match_reference():
     """vector_source -> head -> vector_sink and a null_sink checksum, run by
     both runners on the same data (non-divisible totals, padded last
