@@ -60,13 +60,18 @@ Phases (each failure raises, so the script exits nonzero):
      flowgraph step in Msamples/s;
  10. K7 arm_fold and K1 arm_fold_dft on the FM band's commutator matrix:
      within 1e-5 of max|out| from their plain versions, bit-identical at
-     tiles 128 and 256; K1 also at 128, 192 and 256 channels, where
-     pfb_channelize's "auto" must launch it;
+     their default tiles and 256; K1 also at 128, 192 and 256 channels,
+     where pfb_channelize's "auto" must launch it; K7 bit-equal to K1 with
+     the identity as its DFT matrix at 128 and 256 lanes, and across
+     tiles; K7 within 1e-5 of its plain version and
+     tile-invariant at 96 and 34 lanes, at 4, 8 and 17 taps, with v short
+     of its rows and with v 4 bytes off a 16-byte boundary;
  11. the staged flowgraph with its default noise source, 4 batches:
      >= 60 dB against the golden of the regenerated stream; K1 and K4
      launched on it;
  12. a pfb_decimator graph at channel 5 equals column 5 of the
-     pfb_channelizer graph within 1e-5 relative; K7 launched on it;
+     pfb_channelizer graph within 1e-5 relative; K7 launched on it (its
+     step is timed in phase 15);
  13. K5 fm_chain_gen_step, 2 carried batches, draws 3 and 2: bit-equal to
      K4 * amp -> K3 at the same tile, bit-identical at tiles 64/128/256,
      within 2e-5 of its plain version outside the golden's branch-cut
@@ -75,8 +80,10 @@ Phases (each failure raises, so the script exits nonzero):
      same stream) and >= 95 dB against its golden; K5 launched on it; a
      two-draw live flowgraph equals phase 13's first batch;
  15. times: K1, K7 and K5 beside their plain versions (and K5 beside
-     K4 -> K3), the staged and live flowgraph steps in Msamples/s; K7
-     beside one library call computing its function (a grouped conv1d);
+     K4 -> K3), the staged, live and pfb_decimator flowgraph steps in
+     Msamples/s; K7 beside one library call computing its function (a
+     grouped conv1d), both over 4 rotating inputs and outputs (past the
+     L2) and on one input, with K7's run length and occupancy on the card;
  16. K8 nco_planes and K11 nco_folded at 2,088,960 samples: bit-equal to
      their plain versions, on a tone with a nonzero start phase and on
      phases a hair below a whole turn (quadrant 4 wraps to 0);
@@ -144,14 +151,19 @@ Phases (each failure raises, so the script exits nonzero):
      at a negative group: K4 bit-equal to its plain version, K5 to K4 -> K3;
  33. the probes (newsched_tpu_torch/probes): window_copy in every variant
      exactly its plain version, planes_unpack bit-equal to cplx_to_planes,
-     K3's ablation "full" bit-equal to K3 and each variant within K3_TOL
+     and to its plain version (rows and next skew) at a row count off its
+     rows a block, from an aligned stream and one 8 bytes off, its skew
+     its own storage; K3's ablation "full" bit-equal to K3 and each variant within K3_TOL
      of max(1, max|out|) of its plain version;
  34. times: each cell's graph-mode step by the bench's two-point fit beside
      its loop-mode step and profiled device time; the graph chunk at 2, 4,
      8 and 16 steps; the bench's timer on its headline path (K1 = 10,
      K2 = 40); the probes (window copies in GB/s beside 3.35 TB/s, the
-     prep pass, the ablation beside K3), counted; and every kernel's least
-     time on the card for its work (``kernel_bounds``).
+     prep pass, the ablation beside K3), counted; planes_unpack beside
+     torch.cat of the same skewed rows' planes, aligned and 8 bytes off
+     as the kernel reads them (and of rows aligned to the batch); and
+     every kernel's least time on the card for its work
+     (``kernel_bounds``).
 
  35. K3ag, the banded audio stage (``_pick_audio_groups`` overridden to 2
      and 4): K3 (two carried batches of the FM band), K5 (from stream
@@ -180,8 +192,11 @@ Phases (each failure raises, so the script exits nonzero):
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
-time is left out (``graph_ms``); plain versions and flowgraph steps are
-timed as a caller runs them, host included (``median_ms``). Each timed
+time is left out (``graph_ms``); K7, its conv1d and the probes' copies
+take the next of 4 inputs each call and keep their outputs (the probes'
+``rotating``), so their bytes come from device memory, not the L2; plain
+versions and flowgraph steps are timed as a caller runs them, host
+included (``median_ms``). Each timed
 unsharded flowgraph step, and one sharded one, is also traced for 20 steps
 with torch.profiler and its device time printed kernel by kernel.
 
@@ -566,12 +581,77 @@ def phase_k1_k7(torch, channelizer) -> dict:
             f"= {err / scale:.3e} of max|out| {scale:.3f} (tol {FOLD_TOL})")
         require(err <= FOLD_TOL * scale, f"{name}: kernel disagrees with plain")
         require(torch.equal(got, kernel(v, *args, ROWS, tile=256)),
-                f"{name}: tile 256 output differs from tile 128")
+                f"{name}: tile 256 output differs from the default tile")
         errs[name] = err
-    log("K7, K1: tiles 128 and 256 give bit-identical outputs")
+    log("K7, K1: the default tile and tile 256 give bit-identical outputs")
+    k7_is_k1_identity(torch, channelizer, v, c2)
+    errs["arm_fold"] = max(errs["arm_fold"], k7_shapes(torch, channelizer))
     errs["arm_fold_dft"] = max(errs["arm_fold_dft"],
                                *(k1_wide(torch, channelizer, m) for m in (128, 192, 256)))
     return errs
+
+
+def fold_taps(torch, m: int, taps: int):
+    """The interleaved (taps, 2m) fold taps of an m-channel channelizer."""
+    from newsched_tpu_torch.ops import firdes, pfb
+
+    arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(m, taps), m)
+    return pfb.pfb_consts(arm, "cuda").c2
+
+
+def k7_is_k1_identity(torch, channelizer, v, c2) -> None:
+    """K7 bit-equal to K1 run with the identity as its DFT matrix, at the
+    flagship's 128 lanes and at 256: each column of that product is one
+    fmaf by 1 among fmafs by 0, so it is K1's fold chain exactly, the chain
+    K7 computes. At 128 lanes also a third tile."""
+    g = torch.Generator(device="cuda").manual_seed(256)
+    v256 = torch.randn(4096 + L - 1, 256, device="cuda", generator=g)
+    for vv, cc, n in ((v, c2, ROWS), (v256, fold_taps(torch, 128, L), 4096)):
+        W = int(vv.shape[1])
+        got = channelizer.arm_fold(vv, cc, n)
+        eye = torch.eye(W, device="cuda")
+        require(torch.equal(got, channelizer.arm_fold_dft(vv, cc, eye, n)),
+                f"K7 at {W} lanes differs from K1 with the identity")
+        if W == 2 * M:
+            require(torch.equal(got, channelizer.arm_fold(vv, cc, n, tile=48)),
+                    "K7 at tile 48 differs from the default tile")
+    log("K7: bit-equal to K1 with the identity at 128 and 256 lanes; tiles "
+        "48, 256 and the default give the same bits")
+
+
+# K7 beyond the flagship: (channels m, taps, rows short of n_out + taps - 1,
+# floats v starts past a 16-byte boundary)
+K7_CASES = ((48, L, 5, 0), (17, L, 0, 0), (M, 17, 0, 0), (M, 4, 3, 0),
+            (M, 8, 0, 0), (M, L, 0, 1))
+
+
+def k7_shapes(torch, channelizer, n_out: int = 4096) -> float:
+    """K7 within FOLD_TOL of its plain version, and the same bits at tiles
+    7 and 256 as at its default, at 96 and 34 lanes (float4 and float2
+    lanes of the generic width), at 17 taps (the generic tap count) and 4
+    and 8, with v short of its rows (they read as 0), and with v 4 bytes
+    off a 16-byte boundary (one float a lane)."""
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for m, taps, short, off in K7_CASES:
+        W, rows = 2 * m, n_out + taps - 1 - short
+        buf = torch.randn(rows * W + off, device="cuda", generator=g)
+        v = buf[off:].view(rows, W)
+        cc = fold_taps(torch, m, taps)
+        got = channelizer.arm_fold(v, cc, n_out)
+        ref = channelizer.arm_fold_plain(v, cc, n_out)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        what = (f"K7 at {W} lanes, {taps} taps, v {short} rows short, "
+                f"offset {4 * off} B")
+        log(f"{what}: max abs err vs plain {err:.3e} = {err / scale:.3e} of "
+            f"max|out| (tol {FOLD_TOL})")
+        require(err <= FOLD_TOL * scale, f"{what}: disagrees with plain")
+        for tile in (7, 256):
+            require(torch.equal(got, channelizer.arm_fold(v, cc, n_out,
+                                                          tile=tile)),
+                    f"{what}: tile {tile} differs from the default tile")
+        worst = max(worst, err)
+    return worst
 
 
 def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
@@ -653,6 +733,21 @@ def phase_decimator(torch, channelizer) -> int:
             "pfb_decimator disagrees with the channelizer")
     require(launches > 0, "K7 was never launched on the decimator path")
     return launches
+
+
+def decimator_step(torch, card: str) -> float:
+    """15. The step of phase 12's pfb_decimator graph (K7, then one
+    channel's weighted sum), over a replayed batch into a null sink."""
+    from newsched_tpu_torch import Flowgraph
+    from newsched_tpu_torch.blocks import filter as filt, general
+
+    taps, _ = design()
+    fg = Flowgraph(batch_size=BATCH)
+    blk = filt.pfb_decimator(M, DEC_CHANNEL, taps=taps)
+    fg.connect(general.vector_source(fm_band(BATCH, "cuda"), repeat=True), 0,
+               blk, 0)
+    fg.connect(blk, 0, general.null_sink(dtype="cf32"), 0)
+    return fg_step_rate(torch, fg, "pfb_decimator", card, BATCH, profile=True)
 
 
 def gen_batches(torch, fm_chain, noise, consts, draws, step, **kw):
@@ -1595,6 +1690,23 @@ def phase_probes(torch, fm_chain) -> dict:
         require(torch.equal(got, ref["out"]) and torch.equal(skew, bst["skew"]),
                 f"planes_unpack batch {b}: differs from cplx_to_planes")
     log("planes_unpack: two carried batches bit-equal to cplx_to_planes")
+    n = ROWS - 13  # off the kernel's 16 rows a block
+    for off in (0, 1):  # a stream on a 16-byte boundary, and 8 bytes off it
+        xb = xs[:n * M + 1].clone()[off:off + n * M]  # a view: its offset stays
+        require(xb.data_ptr() % 16 == 8 * off, "planes_unpack: the stream's "
+                "offset is not the one meant")
+        skew0 = xs[-(M - 1):].clone()
+        ref, rskew = prep.planes_unpack_plain(xb, skew0)
+        got, nskew = prep.planes_unpack(xb, skew0)
+        require(torch.equal(got, ref) and torch.equal(nskew, rskew),
+                f"planes_unpack at {n} rows, offset {8 * off} B: differs "
+                f"from its plain version")
+        xb.zero_()
+        require(torch.equal(nskew, rskew),
+                "planes_unpack: the next skew is not its own storage")
+    log(f"planes_unpack at {n} rows, from a stream on a 16-byte boundary and "
+        f"8 bytes off it: rows and next skew bit-equal to its plain version; "
+        f"the skew kept when the batch is overwritten")
     consts = chain_consts()
     rows = band_rows(torch)[:ROWS]
     H8 = fm_chain._round8(L - 1)
@@ -1716,7 +1828,18 @@ def phase_probe_times(torch, card: str) -> dict:
     by = {(r.get("case") or r.get("variant"), r.get("tile")): r for r in recs}
     x = torch.randn(run.ROWS + run.H8, 128, device="cuda")
     xc, skew, _, _, _, _, _ = run.chain_inputs()
+    # the kernel's rows are skewed, row k = samples kM-(M-1) .. kM of the
+    # stream, and start 8 bytes off a 16-byte boundary. The library call
+    # (the probes' "cat_skewed_torch" and "cat_skewed_offset_torch", over
+    # as many inputs and outputs as the kernel's) takes views of the same
+    # rows in buffers built outside its timing, rows aligned and rows 8
+    # bytes off as the kernel reads them; the faster is its time. Here
+    # both once more on one input, and the earlier yardstick, rows
+    # aligned to the batch
+    rows_s = torch.cat([skew, xc])[:xc.numel()].view(-1, M)
     rows_c = xc.view(-1, M)
+    cat_ms = {case: by[(case, None)]["us"] * 1e-3 for case in
+              ("cat_skewed_torch", "cat_skewed_offset_torch")}
     t = {"window_copy": by[("dma_dbuf", run.K3_TILE)]["us"] * 1e-3,
          "window_copy plain": median_ms(
              lambda: dma.window_copy_plain(x, run.K3_TILE, run.H8)),
@@ -1724,9 +1847,24 @@ def phase_probe_times(torch, card: str) -> dict:
          "planes_unpack": by[("planes_unpack", None)]["us"] * 1e-3,
          "planes_unpack plain": median_ms(
              lambda: prep.planes_unpack_plain(xc, skew)),
-         "planes_unpack library": pgraph_ms(
+         "planes_unpack library": min(cat_ms.values()),
+         "planes_unpack library one input": pgraph_ms(
+             lambda: torch.cat([rows_s.real, rows_s.imag], dim=1), 5),
+         "planes_unpack library aligned": pgraph_ms(
              lambda: torch.cat([rows_c.real, rows_c.imag], dim=1), 5),
+         "planes_unpack one input": pgraph_ms(
+             lambda: prep.planes_unpack(xc, skew), 5),
          "ablate": by[("full", None)]["us"] * 1e-3}
+    log(f"planes_unpack: {t['planes_unpack']:.4f} ms over 4 rotating inputs "
+        f"and outputs, {t['planes_unpack one input']:.4f} ms on one; a "
+        f"clone of the stream over 4 "
+        f"{by[('clone_rotating_torch', None)]['us'] * 1e-3:.4f} ms; "
+        f"torch.cat of the skewed rows' planes over 4: rows aligned "
+        f"{cat_ms['cat_skewed_torch']:.4f} ms, 8 bytes off "
+        f"{cat_ms['cat_skewed_offset_torch']:.4f} ms; aligned on one input "
+        f"{t['planes_unpack library one input']:.4f} ms; of rows aligned to "
+        f"the batch (one input) {t['planes_unpack library aligned']:.4f} ms "
+        f"[{card}]")
     k3 = by[("K3", None)]["us"]
     for v in ablate.VARIANTS:
         log(f"ablation {v}: {by[(v, None)]['us']:.2f} us, K3 {k3:.2f} us, "
@@ -2170,6 +2308,7 @@ def main() -> int:
     from newsched_tpu_torch.ops.cuda import (_build, channelizer, fir_source,
                                              fm_chain, mathfns, noise, sources,
                                              wbfm_chain)
+    from newsched_tpu_torch.probes import run as probes
     from newsched_tpu_torch.testing import planes_rows
 
     import torch  # after the port, so a copy without it fails before torch loads
@@ -2262,9 +2401,13 @@ def main() -> int:
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
     k5_rows = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)
     k5_args = (g0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS)
+    # K7 over 4 copies of its input, its outputs kept: 67 MB in and as
+    # much out, past the 50 MB L2, as a stream's batches come
+    vs = [v.clone() for _ in range(probes.ROT)]
     t.update(alternate({
         "K7 plain": lambda: channelizer.arm_fold_plain(v, c2, ROWS),
-        "K7": lambda: channelizer.arm_fold(v, c2, ROWS),
+        "K7": probes.rotating(lambda i: (vs[i],), lambda vv:
+                              channelizer.arm_fold(vv, c2, ROWS)),
         "K1 plain": lambda: channelizer.arm_fold_dft_plain(v, c2, w2, ROWS),
         "K1": lambda: channelizer.arm_fold_dft(v, c2, w2, ROWS),
         "K5 plain": lambda: fm_chain.fm_chain_gen_step_plain(*k5_args),
@@ -2279,12 +2422,28 @@ def main() -> int:
     log(f"K4 * amp -> K3 (what K5 fuses): {t['K4 -> K3']} ms [{card}]")
     step_rate(torch, None, "staged", card, fused=False)
     step_rate(torch, "live", "live", card)
+    decimator_step(torch, card)
     # one PyTorch call computing K7's function: the depthwise correlation
-    # of every lane with its L taps (cuDNN, FP32: TF32 is off above)
-    vT = v.T.contiguous()[None]
+    # of every lane with its L taps (cuDNN, FP32: TF32 is off above). Its
+    # inputs transposed to (lanes, rows) and its weight are prepared here,
+    # outside its timing: the call is timed alone, over the same 4 inputs
+    vTs = [vv.T.contiguous()[None] for vv in vs]
     w7 = c2.T.contiguous()[:, None, :]
-    lib = {"K7": graph_ms(lambda: torch.nn.functional.conv1d(vT, w7, groups=2 * M))}
-    log(f"library call for K7: conv1d(groups={2 * M}) {lib['K7']:.4f} ms [{card}]")
+
+    def conv(x):
+        return torch.nn.functional.conv1d(x, w7, groups=2 * M)
+
+    lib = {"K7": graph_ms(probes.rotating(lambda i: (vTs[i],), conv))}
+    geo = probes.fold_geometry(2 * M, L, ROWS)
+    k7_one, conv_one = (graph_ms(lambda: channelizer.arm_fold(v, c2, ROWS)),
+                        graph_ms(lambda: conv(vTs[0])))
+    log(f"K7 over 4 rotating inputs and outputs {ms['K7']:.4f} ms, "
+        f"{kernel_bounds()['K7'][0] / ms['K7']:.1%} of its bound; library call "
+        f"conv1d(groups={2 * M}) {lib['K7']:.4f} ms; on one input K7 "
+        f"{k7_one:.4f} ms, conv1d {conv_one:.4f} ms; K7's default run "
+        f"{geo['run_rows']} rows a thread, {geo['registers']} registers, "
+        f"{geo['blocks_per_sm']} blocks of {geo['threads']} threads an SM "
+        f"[{card}]")
 
     # 16-20. config #1, the wideband-FM receiver, each path counted
     nco_err = phase_k8_k11(torch, sources)

@@ -10,13 +10,31 @@
 //
 // with W2 the (2M x 2M) interleaved DFT matrix (phase combine and
 // twiddle in one real product). Rows of v past its end read as 0, so the
-// caller pads nothing.
+// caller pads nothing. Both compute each output as the same chain,
+// acc = c2[0]*v[t], then acc = fmaf(c2[q], v[t+q], acc) for q = 1..L-1, so
+// K7 equals K1's fold bit for bit, and neither depends on its tile size.
 //
 // The TPU kernels DMA one overlapping (T+H8)-row window per grid step and
-// carry nothing between steps; here each block reads its own window through
-// the read-only cache (the L-fold reuse is served by L1), so there is no
-// junction to recompute. Every output is computed by the same code in
-// whichever block holds it, so results do not depend on the tile size.
+// slide the taps over it in VMEM.
+//
+// K7 slides down the rows in registers instead. A thread owns kVec adjacent
+// lanes (a float4 where W and the pointers allow it, else a float2 or one
+// float; 32 threads span a 128-lane row) and a run of R consecutive output
+// rows. It keeps its L taps in registers and a ring of the last L + kAhead
+// input rows of its lanes: the loop over the run is unrolled by the ring's
+// length, so every ring index is a constant, and each step loads the row
+// kAhead steps ahead of its use with one 16-byte load, computes one output
+// from the ring and stores it with one 16-byte store. Each input word is
+// thus loaded once per run (R + L - 1 loads for R outputs), where a loop
+// over each output's taps (K1's fold_lane) loads L words of input and L of
+// taps for every output and leaves the reuse to L1. With no tile given, R
+// is what makes one wave of runs on the card (fold_plan): the time follows
+// the wave count more than the halo rows a run re-reads. The taps' count L
+// is a template constant for 4, 8 and 16 (the flagship's), and the width W
+// for 128, 256 and 512 lanes; any other L or W takes a generic instance of
+// the same kernel (a runtime L loads each output's L rows in turn). The
+// ring loads straight from device memory: staging the block's window in
+// shared memory first (cp.async) measured no faster (PERF.md).
 //
 // Bounds on the H100 at the flagship shape (32768 x 128 rows): K7 moves
 // 16.8 MB in and 16.8 MB out, ~10 us at 3.35 TB/s, against 2*L flops a
@@ -25,7 +43,8 @@
 // CUDA cores, like K3 but without K3's junction rows. The dense product is
 // this formulation's work, not the function's least: an M-point FFT a row
 // (~5 M log2 M flops, 17x fewer at M=64) leaves K1 memory-bound like K7
-// (chip_smoke.py kernel_bounds). K1 folds the tile
+// (chip_smoke.py kernel_bounds). K1 reads its window through the read-only
+// cache (fold_lane: the L-fold reuse is served by L1), folds the tile
 // into shared memory (T x W floats, 64 KB at T=128, W=128) and writes the
 // product straight from registers, 128 columns at a time (tile_mm.cuh), so
 // it takes any W that is a multiple of 128, as the TPU kernel does (M = 64,
@@ -34,6 +53,12 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 #include "tile_mm.cuh"
 
@@ -57,18 +82,219 @@ __device__ __forceinline__ float fold_lane(const float* __restrict__ v,
   return acc;
 }
 
-// K7: one block per tile of T output rows, any lane count W.
-__global__ void __launch_bounds__(kThreads)
-arm_fold_kernel(const float* __restrict__ v, long long n_in,
-                const float* __restrict__ c2, float* __restrict__ out,
-                long long n_out, int W, int L, int T) {
-  const long long t0 = (long long)blockIdx.x * T;
-  for (int idx = threadIdx.x; idx < T * W; idx += kThreads) {
-    const long long t = t0 + idx / W;
-    const int k = idx % W;
-    if (t < n_out) out[t * W + k] = fold_lane(v, n_in, c2, W, L, t, k);
+// ---- K7 --------------------------------------------------------------------
+
+constexpr int kFoldThreads = 64;  // threads of a K7 block
+
+// The ring of L + kAhead rows: a load is issued kAhead steps before its row
+// is first read, so each thread keeps kAhead 16-byte loads in flight.
+template <int kL>
+struct Ring {
+  static constexpr int kAhead = kL < 8 ? 4 : kL / 2;
+  static constexpr int kSlots = kL + kAhead;
+};
+
+// A block of G lane groups a row: gx groups side by side (the whole row
+// where it fits in a block), ry runs stacked.
+struct FoldGrid {
+  int gx, ry;
+};
+
+__host__ __device__ constexpr FoldGrid fold_grid(int G) {
+  return G >= kFoldThreads ? FoldGrid{kFoldThreads, 1}
+                           : FoldGrid{G, kFoldThreads / G};
+}
+
+template <int kVec>
+__device__ __forceinline__ void ld_lanes(float (&d)[kVec], const float* p) {
+  if constexpr (kVec == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    d[0] = t.x, d[1] = t.y, d[2] = t.z, d[3] = t.w;
+  } else if constexpr (kVec == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    d[0] = t.x, d[1] = t.y;
+  } else {
+    d[0] = __ldg(p);
   }
 }
+
+template <int kVec>
+__device__ __forceinline__ void st_lanes(float* p, const float (&s)[kVec]) {
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
+  else if constexpr (kVec == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
+  else
+    *p = s[0];
+}
+
+// Rows [t0, t_end) of lanes k .. k+kVec-1: the ring, unrolled by its length.
+template <int kL, int kVec, typename Load>
+__device__ __forceinline__ void fold_run(const float* __restrict__ c2, int W,
+                                         int k, long long t0, long long t_end,
+                                         float* __restrict__ out,
+                                         const Load& load) {
+  constexpr int kS = Ring<kL>::kSlots;
+  float tap[kL][kVec];
+#pragma unroll
+  for (int q = 0; q < kL; ++q) ld_lanes<kVec>(tap[q], c2 + q * W + k);
+  float ring[kS][kVec];
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s) load(ring[s], t0 + s);
+  for (long long c = t0; c < t_end; c += kS) {
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      // row c + j + kS - 1 into the slot of row c + j - 1, read last step
+      load(ring[(j + kS - 1) % kS], c + j + kS - 1);
+      float acc[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = tap[0][e] * ring[j][e];
+#pragma unroll
+      for (int q = 1; q < kL; ++q)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          acc[e] = fmaf(tap[q][e], ring[(j + q) % kS][e], acc[e]);
+      if (c + j < t_end) st_lanes<kVec>(out + (c + j) * W + k, acc);
+    }
+  }
+}
+
+// The generic instance for any other L: each output's L rows in turn.
+template <int kVec, typename Load>
+__device__ __forceinline__ void fold_run_any(const float* __restrict__ c2,
+                                             int W, int L, int k, long long t0,
+                                             long long t_end,
+                                             float* __restrict__ out,
+                                             const Load& load) {
+  for (long long t = t0; t < t_end; ++t) {
+    float acc[kVec], x[kVec], c[kVec];
+    load(x, t);
+    ld_lanes<kVec>(c, c2 + k);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = c[e] * x[e];
+    for (int q = 1; q < L; ++q) {
+      load(x, t + q);
+      ld_lanes<kVec>(c, c2 + q * W + k);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(c[e], x[e], acc[e]);
+    }
+    st_lanes<kVec>(out + t * W + k, acc);
+  }
+}
+
+// K7: block (bx, by) holds runs bx*ry .. bx*ry + ry-1 of lane groups
+// by*gx .. by*gx + gx-1. kWidth, kL: the width and tap count when nonzero (else
+// the arguments w, l); kVec: lanes a thread.
+template <int kWidth, int kL, int kVec>
+__global__ void __launch_bounds__(kFoldThreads)
+arm_fold_kernel(const float* __restrict__ v, long long n_in,
+                const float* __restrict__ c2, float* __restrict__ out,
+                long long n_out, int w, int l, int R) {
+  const int W = kWidth ? kWidth : w;
+  const int L = kL ? kL : l;
+  const FoldGrid fg = fold_grid(W / kVec);
+  const int tx = threadIdx.x % fg.gx, ty = threadIdx.x / fg.gx;
+  const int k = (blockIdx.y * fg.gx + tx) * kVec;  // the thread's first lane
+  const long long t0 = ((long long)blockIdx.x * fg.ry + ty) * R;
+  if (k >= W || t0 >= n_out) return;
+  const long long t_end = min(t0 + R, n_out);
+  const long long r_end = min(t_end + L - 1, n_in);  // rows this run reads
+  const auto load = [&](float (&d)[kVec], long long r) {
+    if (r < r_end) {
+      ld_lanes<kVec>(d, v + r * W + k);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) d[e] = 0.f;
+    }
+  };
+  if constexpr (kL > 0)
+    fold_run<kL, kVec>(c2, W, k, t0, t_end, out, load);
+  else
+    fold_run_any<kVec>(c2, W, L, k, t0, t_end, out, load);
+}
+
+using FoldKernel = void (*)(const float*, long long, const float*, float*,
+                            long long, int, int, int);
+
+template <int kWidth, int kVec>
+FoldKernel fold_instance(int L) {
+  switch (L) {
+    case 4: return arm_fold_kernel<kWidth, 4, kVec>;
+    case 8: return arm_fold_kernel<kWidth, 8, kVec>;
+    case 16: return arm_fold_kernel<kWidth, 16, kVec>;
+    default: return arm_fold_kernel<kWidth, 0, kVec>;
+  }
+}
+
+// Blocks of a K7 instance at `threads` a block that one SM of the current
+// device holds, and the device's SMs: the occupancy calculator, asked once
+// per instance, block size and device.
+int resident_blocks(FoldKernel fn, int threads, int& blocks, int& sms) {
+  static std::mutex mu;
+  static std::map<std::tuple<uintptr_t, int, int>, std::pair<int, int>> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(fn), threads, dev);
+  auto it = seen.find(key);
+  if (it == seen.end()) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                          threads, 0);
+    if (err != cudaSuccess) return (int)err;
+    it = seen.emplace(key, std::make_pair(blocks, sms)).first;
+  }
+  blocks = it->second.first;
+  sms = it->second.second;
+  return 0;
+}
+
+// One K7 launch: its instance, lanes a thread, rows a run and grid. T: rows
+// a block, or 0: one wave (as many runs as the card holds at once, each as
+// long as that makes it). The pointers decide the lanes' width (16-byte
+// words need 16-byte alignment).
+struct FoldPlan {
+  FoldKernel fn;
+  int vec, R;
+  dim3 grid, block;
+};
+
+int fold_plan(uintptr_t ptrs, int W, int L, int T, long long n_out,
+              FoldPlan& p) {
+  if (W < 1 || L < 1 || T < 0 || n_out < 0) return (int)cudaErrorInvalidValue;
+  p.vec = W % 4 == 0 && ptrs % 16 == 0 ? 4 : W % 2 == 0 && ptrs % 8 == 0 ? 2 : 1;
+  if (p.vec == 4) {
+    switch (W) {  // the flagship's 128 lanes, and M = 128, 256 channels
+      case 128: p.fn = fold_instance<128, 4>(L); break;
+      case 256: p.fn = fold_instance<256, 4>(L); break;
+      case 512: p.fn = fold_instance<512, 4>(L); break;
+      default: p.fn = fold_instance<0, 4>(L);
+    }
+  } else {
+    p.fn = p.vec == 2 ? fold_instance<0, 2>(L) : fold_instance<0, 1>(L);
+  }
+  const int G = W / p.vec;
+  const FoldGrid g = fold_grid(G);
+  const int lane_blocks = (G + g.gx - 1) / g.gx;
+  p.block = dim3(g.gx * g.ry);
+  if (T > 0) {
+    p.R = T / g.ry > 0 ? T / g.ry : 1;
+  } else {
+    int blocks = 0, sms = 0;
+    const int err = resident_blocks(p.fn, (int)p.block.x, blocks, sms);
+    if (err) return err;
+    const long long wave_runs =
+        (long long)g.ry * std::max(1, blocks * sms / lane_blocks);
+    p.R = (int)std::max(1LL, (n_out + wave_runs - 1) / wave_runs);
+  }
+  const long long runs = (n_out + p.R - 1) / p.R;
+  p.grid = dim3((unsigned)((runs + g.ry - 1) / g.ry), lane_blocks);
+  return 0;
+}
+
+// ---- K1 --------------------------------------------------------------------
 
 // K1: fold T rows into shared memory, then Y = acc @ W2 in passes of 32
 // rows by 128 columns. W is a multiple of 128: the template's kWidth when
@@ -143,11 +369,36 @@ extern "C" int arm_fold_dft_launch(const float* v, long long n_in,
   }
 }
 
+// T: rows a block (0: one wave, see fold_plan).
 extern "C" int arm_fold_launch(const float* v, long long n_in, const float* c2,
                                float* out, long long n_out, int W, int L,
                                int T, void* stream) {
-  if (T < 1 || W < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  arm_fold_kernel<<<n_blocks(n_out, T), kThreads, 0, (cudaStream_t)stream>>>(
-      v, n_in, c2, out, n_out, W, L, T);
+  FoldPlan p;
+  const int err = fold_plan((uintptr_t)v | (uintptr_t)c2 | (uintptr_t)out, W,
+                            L, T, n_out, p);
+  if (err) return err;
+  p.fn<<<p.grid, p.block, 0, (cudaStream_t)stream>>>(v, n_in, c2, out, n_out,
+                                                     W, L, p.R);
   return (int)cudaGetLastError();
+}
+
+// The geometry K7 takes for (W, L, T) and n_out rows on aligned tensors,
+// for the fold probe (newsched_tpu_torch/probes/run.py): info = {blocks an
+// SM can hold, threads a block, rows a run, lanes a thread, registers a
+// thread}.
+extern "C" int arm_fold_geometry(int W, int L, int T, long long n_out,
+                                 int* info) {
+  FoldPlan p;
+  int err = fold_plan(0, W, L, T, n_out, p);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, p.fn, (int)p.block.x, 0);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, p.fn);
+  if (err) return err;
+  const int vals[5] = {blocks, (int)p.block.x, p.R, p.vec, attr.numRegs};
+  for (int i = 0; i < 5; ++i) info[i] = vals[i];
+  return 0;
 }

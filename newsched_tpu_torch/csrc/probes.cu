@@ -33,10 +33,22 @@
 // planes_unpack: the interleaved cf32 stream (re, im pairs) and the M-1
 // samples carried from the batch before become the planes rows of the fused
 // chain, row k = [re | im] of stream samples kM-(M-1) .. kM, as
-// blocks/vector_dsp.py cplx_to_planes builds them with torch ops. A block
-// stages T rows' samples into shared memory as planes rows (the layout K3's
-// window holds), then writes the rows out with 16-byte stores. Bound:
-// bytes, one read of the stream and one write of the rows.
+// blocks/vector_dsp.py cplx_to_planes builds them with torch ops, and the
+// last M-1 samples of the batch become the next skew. At M = 64 row k >= 1
+// is x[64k - 63 .. 64k]: its channels 2c, 2c+1 are x[2q+1] and x[2q+2] for
+// q = 32(k-1) + c, the second sample of x's 16-byte word q and the first of
+// word q+1. So a thread loads kUnpack words q (one 16-byte load each, all
+// before any store), takes word q+1's first sample from the next lane
+// (__shfl_down_sync; lane 31 loads it), and writes the re and im pairs
+// straight from registers to the two 256-byte halves of row q/32 + 1: a
+// warp writes 256 contiguous bytes of each half, and nothing passes through
+// shared memory. Block 0 also writes row 0 (skew and x[0]) and the next
+// skew, so one launch does the whole job. A stream that starts 8 bytes off
+// a 16-byte boundary takes the same kernel with two 8-byte loads a word.
+// Bound: bytes, one read of the stream and one write of the rows. At the
+// flagship's batch the grid is two waves of blocks (8 an SM), each thread
+// with its kUnpack = 2 loads in flight: the speed of a plain copy of the
+// same bytes (chip_smoke.py phase 34 beside the probes' torch_clone).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,28 +175,58 @@ int launch_copy(const float* x, const float* xi, float* out, int NT, int T,
   return (int)cudaGetLastError();
 }
 
-// planes_unpack: block b builds rows [b*T, b*T + T) in shared memory.
-template <int kM>
+// planes_unpack at M = 64: block b holds words [b*kThreads*kUnpack, ...).
+constexpr int kUnpack = 2;  // 16-byte words a thread
+
+template <bool kWords>
 __global__ void __launch_bounds__(kThreads)
 planes_unpack_kernel(const float2* __restrict__ x,
                      const float2* __restrict__ skew, float* __restrict__ out,
-                     int n_rows, int T) {
-  extern __shared__ __align__(16) float rows_sm[];
-  constexpr int kW = 2 * kM;
-  const int r0 = blockIdx.x * T;
-  const int nr = min(T, n_rows - r0);
-  // sample f of [skew; x] is full-stream index f: row f / M, channel f % M
-  for (int e = threadIdx.x; e < nr * kM; e += kThreads) {
-    const long long f = (long long)r0 * kM + e;
-    const float2 v = f < kM - 1 ? skew[f] : x[f - (kM - 1)];
-    const int r = e / kM, j = e % kM;
-    rows_sm[r * kW + j] = v.x;
-    rows_sm[r * kW + kM + j] = v.y;
+                     float2* __restrict__ skew_out, int n_rows) {
+  constexpr int kM = 64, kW = 2 * kM;
+  const long long n_words = (long long)(n_rows - 1) * (kM / 2);
+  const long long q0 = (long long)blockIdx.x * kThreads * kUnpack + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // x[2q+1] and x[2q+2] of each word q; with 16-byte words, f holds x[2q]
+  // for lane-1 and e lane 31's x[2q+2]
+  float2 a[kUnpack], b[kUnpack], f[kUnpack], e[kUnpack];
+#pragma unroll
+  for (int u = 0; u < kUnpack; ++u) {
+    const long long q = q0 + u * kThreads;
+    if constexpr (kWords) {
+      // the word after the last row's last is x[64(n-1)], still in x
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q <= n_words)
+        w = __ldg(reinterpret_cast<const float4*>(x + 2 * q));
+      f[u] = make_float2(w.x, w.y);
+      a[u] = make_float2(w.z, w.w);
+      e[u] = lane == 31 && q < n_words ? __ldg(x + 2 * q + 2) : f[u];
+    } else if (q < n_words) {
+      a[u] = __ldg(x + 2 * q + 1);
+      b[u] = __ldg(x + 2 * q + 2);
+    }
   }
-  __syncthreads();
-  float4* dst = reinterpret_cast<float4*>(out + (long long)r0 * kW);
-  const float4* src = reinterpret_cast<const float4*>(rows_sm);
-  for (int i = threadIdx.x; i < nr * kW / 4; i += kThreads) dst[i] = src[i];
+#pragma unroll
+  for (int u = 0; u < kUnpack; ++u) {
+    const long long q = q0 + u * kThreads;
+    if constexpr (kWords) {
+      const float bx = __shfl_down_sync(0xffffffffu, f[u].x, 1);
+      const float by = __shfl_down_sync(0xffffffffu, f[u].y, 1);
+      b[u] = lane < 31 ? make_float2(bx, by) : e[u];
+    }
+    if (q < n_words) {
+      float* row = out + (q / 32 + 1) * kW + 2 * (q % 32);
+      *reinterpret_cast<float2*>(row) = make_float2(a[u].x, b[u].x);
+      *reinterpret_cast<float2*>(row + kM) = make_float2(a[u].y, b[u].y);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < kM) {
+    const int j = threadIdx.x;
+    const float2 s = j < kM - 1 ? skew[j] : x[0];
+    out[j] = s.x;
+    out[kM + j] = s.y;
+    if (j < kM - 1) skew_out[j] = x[(long long)n_rows * kM - (kM - 1) + j];
+  }
 }
 
 }  // namespace
@@ -220,16 +262,24 @@ extern "C" int window_copy_launch(int variant, const float* x, const float* xi,
 }
 
 // x: n_rows * M complex samples as (re, im) floats; skew: the M-1 samples
-// before them; out: (n_rows, 2M). M = 64 (the fused chain's 128 lanes).
+// before them; out: (n_rows, 2M); skew_out: the last M-1 samples of x. M =
+// 64 (the fused chain's 128 lanes).
 extern "C" int planes_unpack_launch(const float* x, const float* skew,
-                                    float* out, int n_rows, int M,
-                                    void* stream) {
-  constexpr int kT = 64;  // rows a block: 32 KB of shared memory
+                                    float* out, float* skew_out, int n_rows,
+                                    int M, void* stream) {
   if (M != 64 || n_rows <= 0) return (int)cudaErrorInvalidValue;
-  planes_unpack_kernel<64><<<(n_rows + kT - 1) / kT, kThreads,
-                             (size_t)kT * 2 * 64 * sizeof(float),
-                             (cudaStream_t)stream>>>(
-      reinterpret_cast<const float2*>(x), reinterpret_cast<const float2*>(skew),
-      out, n_rows, kT);
+  const long long words = (long long)(n_rows - 1) * (M / 2) + 1;
+  const unsigned blocks =
+      (unsigned)((words + kThreads * kUnpack - 1) / (kThreads * kUnpack));
+  const auto x2 = reinterpret_cast<const float2*>(x);
+  const auto s2 = reinterpret_cast<const float2*>(skew);
+  const auto o2 = reinterpret_cast<float2*>(skew_out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((uintptr_t)x % 16 == 0)
+    planes_unpack_kernel<true><<<blocks, kThreads, 0, s>>>(x2, s2, out, o2,
+                                                           n_rows);
+  else
+    planes_unpack_kernel<false><<<blocks, kThreads, 0, s>>>(x2, s2, out, o2,
+                                                            n_rows);
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,7 @@ SIGNATURES = {
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
+    "arm_fold_geometry": [_I, _I, _I, _LL, _P],
     "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
     # sources.cu
     "nco_planes_launch": [_P, _P, _P, _LL, _P, _P, _P, _P],
@@ -71,7 +72,7 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
     # probes.cu
     "window_copy_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "planes_unpack_launch": [_P, _P, _P, _I, _I, _P],
+    "planes_unpack_launch": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

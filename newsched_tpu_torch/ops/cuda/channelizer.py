@@ -20,7 +20,7 @@ import torch
 
 from newsched_tpu_torch.ops.cuda import _build
 
-TILE = 128      # rows per CUDA block; K1 at 128 lanes: 64 KB of shared memory
+TILE = 128      # K1's rows per CUDA block at 128 lanes: 64 KB of shared memory
 DFT_LANES = 128  # arm_fold_dft's kernel takes widths that are multiples of this
 
 
@@ -86,9 +86,10 @@ def arm_fold_dft_plain(v: torch.Tensor, c2: torch.Tensor, w2: torch.Tensor,
     return arm_fold_plain(v, c2, n_out) @ w2
 
 
-def _launch_args(v: torch.Tensor, c2: torch.Tensor, n_out: int, tile: int):
+def _launch_args(v: torch.Tensor, c2: torch.Tensor, n_out: int,
+                 tile: int | None):
     W = int(c2.shape[1])
-    if tile < 1:
+    if tile is not None and tile < 1:
         raise ValueError(f"tile {tile} < 1")
     dev = v.device
     _build.check_tensor(v, "v", device=dev)
@@ -99,11 +100,14 @@ def _launch_args(v: torch.Tensor, c2: torch.Tensor, n_out: int, tile: int):
     return dev, W, out
 
 
-def arm_fold(v: torch.Tensor, c2, n_out: int, tile: int = TILE) -> torch.Tensor:
+def arm_fold(v: torch.Tensor, c2, n_out: int,
+             tile: int | None = None) -> torch.Tensor:
     """The arm fold on the interleaved view: v (rows, W) f32 (rows past
     its end read as 0; n_out + L - 1 rows are used), c2 (L, W) taps
-    (``interleave_taps``) -> (n_out, W) f32. Any W. ``tile``: rows per
-    CUDA block; the output does not depend on it.
+    (``interleave_taps``) -> (n_out, W) f32. Any W and L. ``tile``: rows
+    per CUDA block (default: one wave, as many thread runs as the card
+    holds at once, each as long as that makes it); the output does not
+    depend on it.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``arm_fold_launch`` (csrc/channelizer.cu)."""
@@ -115,7 +119,8 @@ def arm_fold(v: torch.Tensor, c2, n_out: int, tile: int = TILE) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = _build.lib().arm_fold_launch(
             v.data_ptr(), int(v.shape[0]), c2.data_ptr(), out.data_ptr(),
-            n_out, W, L, int(tile), torch.cuda.current_stream(dev).cuda_stream)
+            n_out, W, L, int(tile or 0),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "arm_fold_launch")
     arm_fold.launches += 1
     return out
@@ -163,7 +168,7 @@ arm_fold_dft.launches = 0
 
 
 def pfb_arm_fold_complex(V: torch.Tensor, c: np.ndarray, n_out: int,
-                         tile: int = TILE) -> torch.Tensor:
+                         tile: int | None = None) -> torch.Tensor:
     """V (need, M) complex64, c (L, M) real arm coefficients -> acc
     (n_out, M) complex64, through ``arm_fold``."""
     acc = arm_fold(complex_to_interleaved(V), interleave_taps(c), n_out,

@@ -30,8 +30,9 @@ def planes_unpack_plain(x: torch.Tensor, skew: torch.Tensor, M: int = 64):
 def planes_unpack(x: torch.Tensor, skew: torch.Tensor, M: int = 64):
     """One batch of the cf32 stream ``x`` ((n*M,) complex64) and the M-1
     samples before it (``skew``) as planes rows (n, 2M) float32, and the
-    next batch's skew. CPU tensors take the plain version; CUDA tensors
-    launch ``planes_unpack_launch`` (M = 64)."""
+    next batch's skew (its own storage, not a view of ``x``). CPU tensors
+    take the plain version; CUDA tensors launch ``planes_unpack_launch``
+    (M = 64), which writes the rows and the next skew in one kernel."""
     n_samp = int(x.shape[0])
     if n_samp % M or tuple(skew.shape) != (M - 1,):
         raise ValueError(f"x of {n_samp} samples, skew {tuple(skew.shape)}: "
@@ -48,13 +49,15 @@ def planes_unpack(x: torch.Tensor, skew: torch.Tensor, M: int = 64):
                              f"takes contiguous complex64 on {dev}")
     n = n_samp // M
     out = torch.empty((n, 2 * M), dtype=torch.float32, device=dev)
+    next_skew = torch.empty(M - 1, dtype=torch.complex64, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().planes_unpack_launch(
-            x.data_ptr(), skew.data_ptr(), out.data_ptr(), n, M,
+            x.data_ptr(), skew.data_ptr(), out.data_ptr(),
+            next_skew.data_ptr(), n, M,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "planes_unpack_launch")
     planes_unpack.launches += 1
-    return out, x[n_samp - (M - 1):].clone()
+    return out, next_skew
 
 
 planes_unpack.launches = 0

@@ -1,16 +1,20 @@
 """The probes' measurements on the card, as records (dicts), one a case:
 what ``python3 -m newsched_tpu_torch.probes`` prints and chip_smoke.py's
-phase 34 reads. Every time is a device time (``_timing.graph_ms``); rates
-are the input's bytes over that time, beside the card's 3.35 TB/s. The
-copies read from device memory, not from the 50 MB L2 cache: each call
-takes the next of ``ROT`` copies of its input (67 MB and more in all), as
-a stream's batches would come."""
+phases 15 and 34 read. Every time is a device time
+(``_timing.graph_ms``); rates are the input's bytes over that time, beside
+the card's 3.35 TB/s. The copies read from device memory, not from the
+50 MB L2 cache: each call takes the next of ``ROT`` copies of its input
+(67 MB and more in all), as a stream's batches would come, and where the
+call is inside ``rotating`` its outputs rotate over as many buffers."""
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from newsched_tpu_torch.ops.cuda import _build
 from newsched_tpu_torch.probes import ablate, dma, prep
 from newsched_tpu_torch.probes._timing import graph_ms
 
@@ -21,17 +25,21 @@ NTOT = 1 << 22         # f32 elements of the per-row sweep (exp_dma2.py)
 DMA_TILES = (32, 64, 128, 192)  # two slots of (T + 16) x 128 fit 227 KB
 K3_TILE = 128          # K3's tile: its window is the shape that counts
 ROT = 4                # copies of an input the calls rotate over (> L2)
+FOLD_TILES = (32, 48, 64, 96, 128, 192)  # K7's rows a block: R = tile / 2
 
 
 def rotating(make, call):
     """A call over ``ROT`` inputs from ``make(i)``, the next one each time
-    (inside a captured graph too: the capture records the rotation)."""
+    (inside a captured graph too: the capture records the rotation). The
+    last ``ROT`` results are kept alive, so a call that allocates its
+    output writes each time to another buffer, as a stream's would."""
     inputs = [make(i) for i in range(ROT)]
-    state = {"i": 0}
+    state = {"i": 0, "kept": [None] * ROT}
 
     def fn():
-        state["i"] = (state["i"] + 1) % ROT
-        return call(*inputs[state["i"]])
+        i = state["i"] = (state["i"] + 1) % ROT
+        state["kept"][i] = out = call(*inputs[i])
+        return out
     return fn
 
 
@@ -116,7 +124,10 @@ def chain_inputs(n_rows: int = ROWS, seed: int = 0):
 
 def prep_times(reps: int = 10) -> list[dict]:
     """exp_prep.py on the card: K3 on preformed planes (a), the torch prep
-    pass then K3 (b), planes_unpack then K3 (c), and the unpack alone."""
+    pass then K3 (b), planes_unpack then K3 (c), and the unpack alone
+    (inputs and outputs rotating), beside the torch prep pass, a clone of
+    the stream and one torch.cat of the skewed rows, aligned and as the
+    kernel reads them."""
     from newsched_tpu_torch.ops.cuda import fm_chain
 
     x0, skew, rows0, st, consts, decim, gain = chain_inputs()
@@ -134,10 +145,84 @@ def prep_times(reps: int = 10) -> list[dict]:
              lambda: k3(prep.planes_unpack(x(), skew)[0]), reps)}
     out = [{"case": k, "us_per_step": ms * 1e3,
             "msps": x0.numel() / (ms * 1e-3) / 1e6} for k, ms in t.items()]
-    out.append(_rec("planes_unpack", graph_ms(
-        lambda: prep.planes_unpack(x(), skew), reps), nbytes))
+    unpack = rotating(lambda i: (x0.clone(),),
+                      lambda v: prep.planes_unpack(v, skew))
+    out.append(_rec("planes_unpack", graph_ms(unpack, reps), nbytes))
     out.append(_rec("cplx_to_planes_torch", graph_ms(
         lambda: prep.planes_unpack_plain(x(), skew), reps), nbytes))
+    # a plain copy of the same bytes, inputs and outputs rotating alike
+    out.append(_rec("clone_rotating_torch", graph_ms(rotating(
+        lambda i: (x0.clone(),), lambda v: v.clone()), reps), nbytes))
+    # one torch call building the same rows, row k = samples kM-(M-1) .. kM,
+    # from views of ROT buffers that hold the skewed stream (built outside
+    # the timing): rows 16-byte aligned ("cat_skewed_torch"), and 8 bytes
+    # off as the kernel reads them ("cat_skewed_offset_torch")
+    def skewed(off):
+        return lambda i: (torch.cat([x0[:off], skew, x0])[
+            off:off + x0.numel()].view(-1, 64),)
+
+    for case, off in (("cat_skewed_torch", 0), ("cat_skewed_offset_torch", 1)):
+        cat = rotating(skewed(off), lambda r: torch.cat([r.real, r.imag], 1))
+        out.append(_rec(case, graph_ms(cat, reps), nbytes))
+    return out
+
+
+def fold_geometry(W: int, L: int, n_out: int, tile: int | None = None) -> dict:
+    """What K7 (``ops/cuda/channelizer.arm_fold``) launches for n_out rows
+    at (W, L, tile) on aligned tensors, read from the current card: blocks
+    an SM holds, threads a block, rows a thread slides down (R), lanes a
+    thread, registers a thread."""
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.lib().arm_fold_geometry(W, L, int(tile or 0), n_out,
+                                                info), "arm_fold_geometry")
+    return dict(zip(("blocks_per_sm", "threads", "run_rows", "lanes",
+                     "registers"), info))
+
+
+def fold_times(reps: int = 10, tiles=FOLD_TILES) -> list[dict]:
+    """K7 at the flagship's shape (ROWS + 15 rows of 128 lanes in, 16
+    taps, ROWS out) over ``ROT`` inputs and outputs, at its default run
+    length and at each of ``tiles``, each with its geometry; beside it the
+    library call computing the same function, a grouped conv1d in FP32
+    over the same inputs in (lanes, rows) layout (transposed outside the
+    timing), and both on one input. ``share_of_bound``: the bytes' least
+    time at 3.35 TB/s over the kernel's."""
+    from newsched_tpu_torch.ops import firdes, pfb
+    from newsched_tpu_torch.ops.cuda import channelizer
+
+    M, L = 64, 16
+    c2 = pfb.pfb_consts(pfb.pfb_arm_taps(
+        firdes.prototype_channelizer_taps(M, L), M), "cuda").c2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    vs = [torch.randn(ROWS + L - 1, 2 * M, device="cuda", generator=g)
+          for _ in range(ROT)]
+    nbytes = (ROWS + L - 1 + ROWS) * 2 * M * 4
+
+    def rec(case, ms, **kw):
+        gbps = nbytes / (ms * 1e-3) / 1e9
+        return {"case": case, **kw, "us": ms * 1e3, "gbps_rw": gbps,
+                "share_of_bound": gbps / PEAK_GBPS}
+
+    out = []
+    for tile in (None, *tiles):
+        fold = rotating(lambda i: (vs[i],), lambda v, tile=tile:
+                        channelizer.arm_fold(v, c2, ROWS, tile=tile))
+        out.append(rec("arm_fold", graph_ms(fold, reps), tile=tile,
+                       **fold_geometry(2 * M, L, ROWS, tile)))
+    out.append(rec("arm_fold_one_input", graph_ms(
+        lambda: channelizer.arm_fold(vs[0], c2, ROWS), reps)))
+    vTs = [v.T.contiguous()[None] for v in vs]
+    w7 = c2.T.contiguous()[:, None, :]
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    try:
+        conv = rotating(lambda i: (vTs[i],), lambda x: torch.nn.functional
+                        .conv1d(x, w7, groups=2 * M))
+        out.append(rec("conv1d_torch", graph_ms(conv, reps)))
+        out.append(rec("conv1d_torch_one_input", graph_ms(
+            lambda: torch.nn.functional.conv1d(vTs[0], w7, groups=2 * M),
+            reps)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return out
 
 

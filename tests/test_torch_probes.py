@@ -70,26 +70,49 @@ def _stream(n, seed):
             ).astype(np.complex64)
 
 
-def test_planes_unpack_equals_cplx_to_planes_over_batches():
-    """Three batches with the skew carried: bit-equal to the port's
-    cplx_to_planes block and to the reference's."""
-    rows = 96
+def _unpack_against_cplx_to_planes(rows, n_batches, seed=0):
+    """``n_batches`` batches of ``rows`` rows with the skew carried:
+    planes_unpack's rows and next skew bit-equal to the port's
+    cplx_to_planes block, its rows to the reference's. Returns the last
+    batch's stream, rows and next skew."""
     blk = tvd.cplx_to_planes(M)
     jblk = jvd.cplx_to_planes(M)
     st = blk.init_state(rows * M, rows, "cpu")
     jst = jblk.init_state(rows * M, rows)
     skew = torch.zeros(M - 1, dtype=torch.complex64)
-    for b in range(3):
-        x = _stream(rows * M, b)
-        got, skew = prep.planes_unpack(torch.from_numpy(x), skew)
-        st, ref = blk.work(st, {"in": torch.from_numpy(x)}, {}, rows)
-        jst, jref = jblk.work(jst, {"in": jnp.asarray(x)}, {}, rows)
+    for b in range(n_batches):
+        x = torch.from_numpy(_stream(rows * M, seed + b))
+        got, skew = prep.planes_unpack(x, skew)
+        st, ref = blk.work(st, {"in": x.clone()}, {}, rows)
+        jst, jref = jblk.work(jst, {"in": jnp.asarray(x.numpy())}, {}, rows)
         assert got.dtype == torch.float32 and got.shape == (rows, 2 * M)
         assert torch.equal(got, ref["out"])
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(jax.device_get(jref["out"])))
         assert torch.equal(skew, st["skew"])
     assert prep.planes_unpack.launches == 0
+    return x, got, skew
+
+
+def test_planes_unpack_equals_cplx_to_planes_over_batches():
+    """Three batches with the skew carried: bit-equal to the port's
+    cplx_to_planes block and to the reference's."""
+    _unpack_against_cplx_to_planes(96, 3)
+
+
+@pytest.mark.parametrize("rows", [1, 33])
+def test_planes_unpack_next_skew_is_its_own_storage(rows):
+    """The same comparison at row counts off the kernel's 16 rows a block,
+    then the batch's buffer overwritten: the returned rows and skew stay.
+    On the CPU this holds the wrapper's contract through the plain version
+    only (its skew is a slice of a fresh cat); that the kernel writes the
+    skew into storage of its own is checked on the card (chip_smoke.py
+    phase 33)."""
+    x, got, nskew = _unpack_against_cplx_to_planes(rows, 2, seed=11 + rows)
+    want, rows_before = x[-(M - 1):].clone(), got.clone()
+    x.zero_()
+    assert torch.equal(nskew, want)
+    assert torch.equal(got, rows_before)
 
 
 def test_planes_unpack_is_the_reference_probes_row_major_reshape():

@@ -95,6 +95,32 @@ def test_arm_fold_plain_matches_pallas(tile):
     assert channelizer.arm_fold.launches == 0
 
 
+@pytest.mark.parametrize("M, L, short", [
+    (64, 1, 0), (64, 4, 0), (64, 16, 0), (64, 17, 0),  # the tap counts
+    (64, 16, 5), (48, 17, 9),                          # v short of its rows
+    (48, 16, 0), (17, 16, 0), (17, 4, 3)])             # W = 96 and W = 34
+def test_arm_fold_plain_matches_pallas_at_any_taps_and_width(M, L, short):
+    """K7's plain version against the TPU kernel in interpret mode at tap
+    counts with and without a templated instance (4, 16 and 1, 17), at
+    widths 2M = 96 and 34 (not multiples of 128, nor 34 of 4), and with v
+    ``short`` rows short of n_out + L - 1: the missing rows read as 0, as
+    the reference's padding gives."""
+    n_out = 96
+    V, v, c = _fold_case(M, L, n_out, seed=10 * L + M)
+    v = v[:v.shape[0] - short]
+    c2 = channelizer.interleave_taps(c)
+    ref = np.asarray(jch.arm_fold(jnp.asarray(v), c2, n_out, tile=32,
+                                  interpret=True))
+    got = channelizer.arm_fold(torch.from_numpy(v), c2, n_out)
+    assert got.shape == (n_out, 2 * M)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    if short:
+        np.testing.assert_array_equal(got.numpy(), channelizer.arm_fold(
+            torch.from_numpy(np.pad(v, ((0, short), (0, 0)))), c2,
+            n_out).numpy())
+    assert channelizer.arm_fold.launches == 0
+
+
 @pytest.mark.parametrize("tile", [128, 256])
 def test_arm_fold_dft_plain_matches_pallas(tile):
     M, L, n_out = 64, 16, 512
