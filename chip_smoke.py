@@ -45,8 +45,10 @@ Phases (each failure raises, so the script exits nonzero):
   2. build: nvcc builds every kernel from newsched_tpu_torch/csrc/;
   3. K4 gaussian_rows at 32768 x 128: bit-equal to its plain version,
      Irwin-Hall moments, split invariance;
-  4. K2 atan2 over a (y, x) grid with the axes and signed zeros, and at
-     the demod's shape: <= 1e-6 from the plain version and from float64;
+  4. K2 atan2 over a (y, x) grid with the axes and signed zeros, at
+     lengths 4k+1, 4k+2, 4k+3, 4k and below 4 with y and x on the 16-byte
+     grid and 4 bytes off it, and at the demod's shape: <= 1e-6 from the
+     plain version and from float64, (+-0, +-0) -> +0;
   5. K3 fm_chain_step_planes at n=32768 rows, two batches with carried
      state on a 64-station FM band: <= 2e-5 from the plain version, and
      bit-identical outputs for three tile sizes;
@@ -111,8 +113,9 @@ Phases (each failure raises, so the script exits nonzero):
      (audio, prev, tail), bit-identical at tiles 128 and 64 and at 1, 2
      and 4 tiles a block;
  24. times: K2 alone at the demod's shape beside its plain version and
-     torch.atan2; K9 beside its plain version and K11 ->
-     conv1d(groups=128), at each geometry; K3p beside K3 (alternated), at each tile and tiles a
+     torch.atan2, over 4 rotating inputs and outputs and on one; K9
+     beside its plain version and K11 -> conv1d(groups=128), at each
+     geometry; K3p beside K3 (alternated), at each tile and tiles a
      block; the config #0 flowgraph steps in Msamples/s;
  25. K6 fm_chain_gen_warm_step at 8192 and 4096 rows (a shard of a 4- and
      of an 8-shard batch), at stream start, at shard 3 and at group
@@ -159,11 +162,12 @@ Phases (each failure raises, so the script exits nonzero):
      its loop-mode step and profiled device time; the graph chunk at 2, 4,
      8 and 16 steps; the bench's timer on its headline path (K1 = 10,
      K2 = 40); the probes (window copies in GB/s beside 3.35 TB/s, the
-     prep pass, the ablation beside K3), counted; planes_unpack beside
-     torch.cat of the same skewed rows' planes, aligned and 8 bytes off
-     as the kernel reads them (and of rows aligned to the batch); and
-     every kernel's least time on the card for its work
-     (``kernel_bounds``).
+     prep pass, the ablation beside K3 and K3's time split by stage),
+     counted; K3, K5, K6 and K3p beside the dense-DFT chain's times;
+     planes_unpack beside torch.cat of the same skewed rows' planes,
+     aligned and 8 bytes off as the kernel reads them (and of rows
+     aligned to the batch); and every kernel's least time on the card for
+     its work (``kernel_bounds``).
 
  35. K3ag, the banded audio stage (``_pick_audio_groups`` overridden to 2
      and 4): K3 (two carried batches of the FM band), K5 (from stream
@@ -192,11 +196,11 @@ Phases (each failure raises, so the script exits nonzero):
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
-time is left out (``graph_ms``); K7, its conv1d and the probes' copies
-take the next of 4 inputs each call and keep their outputs (the probes'
-``rotating``), so their bytes come from device memory, not the L2; plain
-versions and flowgraph steps are timed as a caller runs them, host
-included (``median_ms``). Each timed
+time is left out (``graph_ms``); K7, its conv1d, K2, torch.atan2 and the
+probes' copies take the next of 4 inputs each call and keep their
+outputs (the probes' ``rotating``), so their bytes come from device
+memory, not the L2; plain versions and flowgraph steps are timed as a
+caller runs them, host included (``median_ms``). Each timed
 unsharded flowgraph step, and one sharded one, is also traced for 20 steps
 with torch.profiler and its device time printed kernel by kernel.
 
@@ -335,6 +339,30 @@ def phase_k4(torch, noise):
     return err
 
 
+def k2_check(mathfns, yt, xt, what: str):
+    """K2 on (yt, xt) against its plain version and float64: within K2_TOL
+    of both, (+-0, +-0) -> +0. Returns the error against the plain and
+    K2's output (numpy)."""
+    got = mathfns.atan2(yt, xt)
+    plain = mathfns.atan2_plain(yt, xt)
+    g = got.cpu().numpy()
+    y, x = yt.cpu().numpy(), xt.cpu().numpy()
+    err_plain = float(np.abs(g - plain.cpu().numpy()).max(initial=0.0))
+    # angles compared modulo 2 pi: on the negative real axis a signed zero
+    # y puts IEEE atan2 at -pi where the polynomial (like the reference's)
+    # gives +pi
+    ref = np.arctan2(y.astype(np.float64), x.astype(np.float64))
+    zeros = (x == 0) & (y == 0)
+    ref[zeros] = 0.0
+    err_f64 = float(np.abs(np.angle(np.exp(1j * (g - ref)))).max(initial=0.0))
+    require(err_plain <= K2_TOL and err_f64 <= K2_TOL,
+            f"K2 {what}: error above {K2_TOL} ({err_plain:.3e} vs plain, "
+            f"{err_f64:.3e} vs float64)")
+    require(np.all(g[zeros] == 0) and not np.any(np.signbit(g[zeros])),
+            f"K2 {what}: (+-0, +-0) is not +0")
+    return err_plain, g
+
+
 def phase_k2(torch, mathfns):
     vals = np.array([-3.0, -1.0, -1e-3, -1e-30, -0.0, 0.0, 1e-30, 1e-3, 1.0,
                      3.0], np.float32)
@@ -344,22 +372,32 @@ def phase_k2(torch, mathfns):
     x = np.concatenate([np.tile(vals, len(vals)),
                         rng.standard_normal(1 << 20).astype(np.float32)])
     yt, xt = torch.from_numpy(y).cuda(), torch.from_numpy(x).cuda()
-    got = mathfns.atan2(yt, xt)
-    plain = mathfns.atan2_plain(yt, xt)
-    g = got.cpu().numpy()
-    err_plain = float(np.abs(g - plain.cpu().numpy()).max())
-    # angles compared modulo 2 pi: on the negative real axis a signed zero
-    # y puts IEEE atan2 at -pi where the polynomial (like the reference's)
-    # gives +pi
-    ref = np.arctan2(y.astype(np.float64), x.astype(np.float64))
-    ref[(x == 0) & (y == 0)] = 0.0
-    err_f64 = float(np.abs(np.angle(np.exp(1j * (g - ref)))).max())
-    zeros = (x == 0) & (y == 0)
-    log(f"K2 atan2: max err vs plain {err_plain:.3e}, vs float64 {err_f64:.3e}; "
-        f"(+-0, +-0) -> {np.unique(g[zeros])}")
-    require(err_plain <= K2_TOL and err_f64 <= K2_TOL, "K2: error above 1e-6")
-    require(np.all(g[zeros] == 0) and not np.any(np.signbit(g[zeros])),
-            "K2: (+-0, +-0) is not +0")
+    err_plain, g = k2_check(mathfns, yt, xt, "grid")
+    log(f"K2 atan2: max err vs plain {err_plain:.3e}; (+-0, +-0) -> "
+        f"{np.unique(g[(x == 0) & (y == 0)])}")
+    # the launch's edges: lengths off its 4-element words (the tail), y
+    # and x one float past the 16-byte grid (one element a thread), and
+    # lengths below 4; signed-zero pairs every 7th element and first
+    ye = rng.standard_normal(8192).astype(np.float32)
+    xe = rng.standard_normal(8192).astype(np.float32)
+    sz = np.array([[-0.0, -0.0], [0.0, -0.0], [-0.0, 0.0], [0.0, 0.0]],
+                  np.float32)
+    ye[::7], xe[::7] = np.resize(sz[:, 0], ye[::7].size), \
+        np.resize(sz[:, 1], xe[::7].size)
+    ye, xe = (torch.from_numpy(np.concatenate([sz[:, i], v])).cuda()
+              for i, v in ((0, ye), (1, xe)))
+    cases = 0
+    for n in (4 * 1024 + 1, 4 * 1024 + 2, 4 * 1024 + 3, 3, 2, 1, 4 * 2047):
+        for off in (0, 1):
+            yv, xv = ye[off:off + n], xe[off:off + n]
+            require(yv.data_ptr() % 16 == 4 * off and xv.data_ptr() % 16
+                    == 4 * off, "K2: the inputs' offset is not the one meant")
+            err_plain = max(err_plain, k2_check(
+                mathfns, yv, xv, f"length {n}, offset {4 * off} B")[0])
+            cases += 1
+    log(f"K2 at {cases} lengths and offsets (4k+1, 4k+2, 4k+3, 3, 2, 1, 4k; "
+        f"on the 16-byte grid and 4 bytes off): within {K2_TOL} of plain "
+        f"and float64, (+-0, +-0) -> +0")
     # at the demod's shape
     gen = torch.Generator(device="cuda").manual_seed(3)
     d = torch.randn(2, ROWS, M, device="cuda", generator=gen)
@@ -1869,6 +1907,15 @@ def phase_probe_times(torch, card: str) -> dict:
     for v in ablate.VARIANTS:
         log(f"ablation {v}: {by[(v, None)]['us']:.2f} us, K3 {k3:.2f} us, "
             f"{100 * by[(v, None)]['us'] / k3:.1f}% of K3 [{card}]")
+    # what each stage costs: K3 less the variant without it; the window
+    # load is the variant that only loads it
+    split = {stage: k3 - by[(v, None)]["us"] for stage, v in (
+        ("DFT", "no_dft"), ("fold", "no_fold"), ("demod", "no_demod"),
+        ("atan2", "no_atan2"), ("audio FIR", "no_audio"))}
+    split["window load"] = by[("dma_only", None)]["us"]
+    log("K3 by stage (ablation): " + ", ".join(
+        f"{stage} {us:.2f} us = {100 * us / k3:.1f}%" for stage, us in
+        split.items()) + f" of K3's {k3:.2f} us [{card}]")
     return {"launches": launches, "t": t, "x_bytes": x.numel() * 4,
             "n_tiles": run.ROWS // run.K3_TILE, "stream_bytes": xc.numel() * 8}
 
@@ -2221,8 +2268,9 @@ def kernel_bounds() -> dict:
     """(bound ms, bound_by) of every kernel at the shapes this run gives it:
     each input read once and each output written once, and the least
     arithmetic of the function (multiply-adds count 2), not of the
-    kernel's formulation: an M-point FFT a row (5 M log2 M flops) where
-    K1/K3/K5 do a dense (2M x 2M) real DFT product, and for K10/K12 the
+    kernel's formulation: an M-point FFT a row (5 M log2 M flops), which
+    the fused chains take and K1 does as a dense (2M x 2M) real DFT
+    product, and for K10/K12 the
     staged order (rotate each input sample by the NCO, then a real-tap FIR)
     where the kernels filter with complex rotated taps, and for K9 an FFT
     convolution where the kernel runs the FIR in direct form."""
@@ -2519,16 +2567,30 @@ def main() -> int:
                                           padding=FIR_NTAPS - 1)
 
     # K2 alone (inside K3, K3p, K5, K10, K12) at the demod's shape, beside
-    # one PyTorch call computing atan2
-    d2 = torch.randn(2, ROWS, M, device="cuda",
-                     generator=torch.Generator(device="cuda").manual_seed(3))
+    # one PyTorch call computing atan2: each call takes the next of 4 (y, x)
+    # pairs and keeps its output (probes.rotating; 101 MB in all, past the
+    # 50 MB L2, as a stream's batches come), and once more on one input
+    gen2 = torch.Generator(device="cuda").manual_seed(3)
+    d2s = [torch.randn(2, ROWS, M, device="cuda", generator=gen2)
+           for _ in range(probes.ROT)]
+    d2 = d2s[0]
+
+    def rot(fn):
+        return probes.rotating(lambda i: (d2s[i][0], d2s[i][1]), fn)
+
     t.update(alternate({
-        "K2 plain": lambda: mathfns.atan2_plain(d2[0], d2[1]),
-        "K2 library": lambda: torch.atan2(d2[0], d2[1]),
-        "K2": lambda: mathfns.atan2(d2[0], d2[1]),
+        "K2 plain": rot(mathfns.atan2_plain),
+        "K2 library": rot(torch.atan2),
+        "K2": rot(mathfns.atan2),
     }))
-    log(f"K2 atan2 ({ROWS} x {M}): kernel {t['K2']} ms, plain "
-        f"{t['K2 plain']} ms, torch.atan2 {t['K2 library']} ms [{card}]")
+    k2_one = {"K2": graph_ms(lambda: mathfns.atan2(d2[0], d2[1])),
+              "torch.atan2": graph_ms(lambda: torch.atan2(d2[0], d2[1]))}
+    k2_ms = min(t["K2"])
+    log(f"K2 atan2 ({ROWS} x {M}) over 4 rotating inputs and outputs: kernel "
+        f"{t['K2']} ms, {kernel_bounds()['K2'][0] / k2_ms:.1%} of its bound; "
+        f"plain {t['K2 plain']} ms, torch.atan2 {t['K2 library']} ms; on one "
+        f"input K2 {k2_one['K2']:.4f} ms, torch.atan2 "
+        f"{k2_one['torch.atan2']:.4f} ms [{card}]")
     t.update(alternate({
         "K9 plain": lambda: fir_source.fir_tone_step_plain(
             ph7, dp9, a8, off, taps9, 1, FIR_R),
@@ -2653,6 +2715,12 @@ def main() -> int:
     ms["ablate plain"] = ms["K3 plain"]
     log(f"script time before the bounds: {time.monotonic() - t_start:.1f} s")
 
+    # K3's family beside the dense-DFT chain's times (PERF.md section 6:
+    # chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W)
+    dense_ms = {"K3": 0.1909, "K5": 0.2061, "K6": 0.1714, "K3p": 0.1717}
+    log("K3's family, FFT against the dense DFT's times: " + ", ".join(
+        f"{k} {ms[k]:.4f} ms ({v:.4f}, {v / ms[k]:.2f}x)"
+        for k, v in dense_ms.items()) + f" [{card}]")
     bounds = kernel_bounds()
     # the probes: each input read once, each output written once
     bounds["window_copy"] = bound(pt["x_bytes"] + pt["n_tiles"] * 8 * 128 * 4, 0)

@@ -10,7 +10,8 @@
 // stream row t:
 //
 //   acc[t]  = sum_q c2[q] * vp[t + off + q]        L-tap arm fold
-//   Y[t]    = acc[t] @ W2                          (2M x 2M) real DFT
+//   Y[t]    = acc[t] @ W2                          the planes DFT (W2 is
+//                                                  planes_dft_matrix)
 //   aud[t]  = atan2(PI, PR) * gain                 quadrature demod of
 //             PR + j PI = conj(Y[t-1]) * Y[t]      each of the M channels
 //   out[o]  = sum_k ataps[k] * aud[o*decim - k]    decimating audio FIR
@@ -59,25 +60,44 @@
 // shared memory) cuts the rows folded and transformed from +150% to +38%
 // over the batch's own (K3 at tile 128: +75%).
 //
-// Bound on the H100: the DFT matmul, 2*(2M)^2 flops per row (32 KFLOP at
-// M=64) against 2M*4 bytes read per row: ~64 flops/byte, compute-bound in
-// FP32 on the CUDA cores, and more so by the junction recompute (A rows
-// per tile: +51% at T=128, +75% with the padding to 32-row passes). That
-// is the work of this formulation (the TPU's MXU form), not the least work
-// of the function: an M-point FFT a row takes ~5 M log2 M flops (1,920 at
-// M=64, 17x fewer), under which K3's least time is its bytes and K5's its
-// Philox (chip_smoke.py kernel_bounds). As on the TPU, Y and aud never
-// leave the chip:
-// the block keeps its (T+A, 2M) tile in shared memory (112 KB at T=128),
-// turns Y into aud in place, and writes only the T/decim audio rows.
-// The block first loads (K3) or generates (K5) its window of T+A+L-1
-// input rows into that same buffer, once, and folds it in place, 32 rows
-// a pass, so the fold's L reads per output come from shared memory and
-// K5 generates each value once per block that needs it (1.6x per row at
-// T=128, for the junction), not once per tap. The window fits in the
-// padded tile at T = 64, 128 and 256 (at most L-1 more rows elsewhere).
-// The matmul is a plain register-tiled FP32 loop (tile_mm.cuh). Tensor
-// cores (TF32/3xTF32) are later work.
+// Bound on the H100. The function's least work is the fold (2 L flops a
+// lane), an M-point FFT a row (~5 M log2 M = 1,920 flops at M = 64), the
+// demod and the audio FIR; under it K3's least time is its bytes and K5's
+// its Philox (chip_smoke.py kernel_bounds). The TPU formulation takes the
+// DFT as a dense (2M x 2M) product on its MXU, 32 KFLOP a row, 17x the
+// FFT; here each row is a 64-point FFT in shared memory (stage 2 below),
+// so the chain's arithmetic is the function's, plus the junction
+// recompute (A rows a tile: +51% at T=128). As on the TPU, Y and aud
+// never leave the chip: the block keeps its (T+A, 2M) tile in shared
+// memory (112 KB at T=128, two blocks an SM), turns Y into aud in place,
+// and writes only the T/decim audio rows. The block first loads (K3, with
+// 16-byte loads where vb and the halo allow) or generates (K5) its window
+// of T+A+L-1 input rows into that same buffer, once, and folds it in
+// place, 32 rows a pass: a thread keeps its lane's L taps in registers and
+// slides its 16 rows' window through registers, so a pass reads 16+L-1
+// values a thread from shared memory, not 16 L (stage 1). K5 generates
+// each value once per block that needs it (1.6x per row at T=128, for the
+// junction), not once per tap. The window fits in the padded tile at T =
+// 64, 128 and 256 (at most L-1 more rows elsewhere).
+//
+// Stage 2, the planes DFT as an FFT. W2 maps [ar | ai] to Y with Y[j] =
+// e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}: a 64-point complex DFT,
+// then a per-channel post-twiddle. 8 threads take a row, 4 rows a warp, 64
+// = 8 x 8: thread n1 loads a[n1 + 8 n2] (n2 = 0..7), does a radix-8 DFT
+// over n2, multiplies by W64^(n1 k1), exchanges through the row itself
+// (__syncwarp between every read and write of the row), does the second
+// radix-8 DFT over n1, applies the post-twiddle and writes Y[k1 + 8 k2]:
+// ~2,000 flops a row in place of 32 KFLOP. The twiddles are the host's
+// (ops/cuda/fm_chain.py planes_fft_table: float64, cast to float32, K3's
+// `tw` argument). Every multiply and add is rounded on its own (no FMA
+// contraction), so the arithmetic is fixed whatever the compiler does and
+// a row's Y never depends on the block, tile or kernel that transforms it;
+// tests/test_torch_fft.py repeats it in torch float32. Rows are 128 floats,
+// all starting at bank 0, so the tile buffer keeps acc and Y rows
+// swizzled: logical lane k of buffer row r sits at k ^ ((r & 3) << 3)
+// (sw below), which puts the 4 rows of a warp on 4 disjoint sets of 8
+// banks; the exchange has its own conflict-free layout (xch below). The
+// window before the fold and the aud rows after the demod stay natural.
 //
 // K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
 // taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
@@ -88,25 +108,27 @@
 // band's product on the MXU, structural zeros and all, to cut the
 // product's size; its outputs were ulp-equal to ag = 1. Here each output
 // sums only the A taps of its table row that are not structural zeros, in
-// kAG = 1's order, so its outputs are kAG = 1's bit for bit. The stage is
-// 2% of K3 (the ablation probe), bound like the rest by the DFT.
+// kAG = 1's order, so its outputs are kAG = 1's bit for bit. The audio
+// stage is 13% of K3 (the ablation probe, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mathfns.cuh"
 #include "philox.cuh"
-#include "tile_mm.cuh"
 
 namespace {
 
 using mathfns::AtanCoeffs;
 using mathfns::atan2_poly;
 
-constexpr int kThreads = tile_mm::kThreads;
-constexpr int kChunkRows = tile_mm::kPassRows;
-constexpr int kW = tile_mm::kW;  // planes lanes, 2M for M = 64 channels
+constexpr int kThreads = 256;
+constexpr int kChunkRows = 32;  // rows a fold pass (16 a thread)
+constexpr int kW = 128;         // planes lanes, 2M for M = 64 channels
 constexpr int kM = kW / 2;
+constexpr int kFoldL = 16;      // the fold's taps with a register window
 
 // The stages of a tile, each of which a variant of the ablation probe
 // (newsched_tpu_torch/probes/ablate.py; the reference's
@@ -116,7 +138,7 @@ constexpr int kM = kW / 2;
 enum Variant {
   kFull = 0,   // the chain
   kNoAtan2,    // demod: (PR + PI) * gain in place of atan2(PI, PR) * gain
-  kNoDft,      // Y = acc, no DFT product
+  kNoDft,      // Y = acc, no DFT
   kNoFold,     // acc = c2[0] * the window row: one tap in place of L
   kNoAudio,    // out[o] = aud[o * decim], no audio FIR
   kNoDemod,    // aud = Re Y * gain, no demod
@@ -128,7 +150,7 @@ enum Variant {
 // and the tile geometry.
 struct Chain {
   const float* c2;     // (L, W) fold taps
-  const float* w2;     // (W, W) planes DFT matrix
+  const float* tw;     // (4, M) the FFT's twiddles (planes_fft_table)
   const float* ataps;  // (A,) audio taps
   const float* prev0;  // (1, W)
   const float* tail0;  // (A-1, W)
@@ -141,14 +163,34 @@ struct Chain {
   AtanCoeffs co;
 };
 
-__global__ void atan2_kernel(const float* __restrict__ y,
-                             const float* __restrict__ x,
-                             float* __restrict__ out, long long n,
-                             AtanCoeffs co) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = atan2_poly(y[i], x[i], co);
+// K2 alone: atan2_poly over whole tensors (mathfns.cuh; the same device
+// function the chains call). Bound by its bytes: 12 a element against ~28
+// flops, so the launch is shaped for the memory system. kVec: thread i
+// takes the 4 elements [4i, 4i + 4) with one 16-byte load of y and one of
+// x, both issued before any arithmetic, and one 16-byte store of the four
+// angles; the grid covers the n/4 words in one pass, and its first threads
+// take the < 4 elements past them one by one (the launch takes kVec only
+// where y, x and out are 16-byte aligned). !kVec: one element a thread,
+// for pointers off the 16-byte grid.
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+atan2_kernel(const float* __restrict__ y, const float* __restrict__ x,
+             float* __restrict__ out, long long n, AtanCoeffs co) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (kVec) {
+    const long long n4 = n / 4;
+    if (i < n4) {
+      const float4 yv = __ldg(reinterpret_cast<const float4*>(y) + i);
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(x) + i);
+      reinterpret_cast<float4*>(out)[i] = make_float4(
+          atan2_poly(yv.x, xv.x, co), atan2_poly(yv.y, xv.y, co),
+          atan2_poly(yv.z, xv.z, co), atan2_poly(yv.w, xv.w, co));
+    }
+    const long long e = 4 * n4 + i;  // the tail
+    if (e < n) out[e] = atan2_poly(y[e], x[e], co);
+  } else {
+    if (i < n) out[i] = atan2_poly(y[i], x[i], co);
+  }
 }
 
 __host__ __device__ __forceinline__ int pad_rows(int rows) {
@@ -164,42 +206,229 @@ __host__ __device__ __forceinline__ int tile_rows(int T, int A, int L) {
 
 // The tile buffer's row jj holds stream row t0 - A + jj (jj < T + A): acc,
 // then Y, then aud in the re half. Every value is computed by the same
-// code whichever kernel, block or tile computes it.
+// code whichever kernel, block or tile computes it. acc and Y rows are
+// swizzled: logical lane k of buffer row r at sw(r, k); the input window
+// and the aud rows are natural.
+__device__ __forceinline__ int sw(int r, int k) { return k ^ ((r & 3) << 3); }
 
 // Arm fold of nrows rows, kChunkRows rows a pass (npad rows, a multiple of
-// kChunkRows, >= nrows): dst row jj = sum_q c2[q] * src row jj + q, 0 where
-// t_first + jj < t_min (before the stream) or jj >= nrows. In place when
-// dst == src: every read of a pass (rows r0 .. r0+31+L-1) happens before
-// its writes (rows r0 .. r0+31), and later passes read only rows past
-// r0+31. Per lane: c2[0]*v, then fmaf in order (kOneTap: c2[0]*v alone,
-// the ablation's kNoFold).
-template <bool kOneTap = false>
-__device__ __forceinline__ void fold_rows(const float* src, float* dst,
-                                          const Chain& p, int t_min,
-                                          int t_first, int nrows, int npad) {
+// kChunkRows, >= nrows): buffer row row0 + jj = sum_q c2[q] * src row jj +
+// q, 0 where t_first + jj < t_min (before the stream) or jj >= nrows. In
+// place when src == buf and row0 == 0: every read of a pass (rows r0 ..
+// r0+31+L-1) happens before its writes (rows r0 .. r0+31), and later
+// passes read only rows past r0+31. Per lane: c2[0]*v, then fmaf in order
+// (kOneTap: c2[0]*v alone, the ablation's kNoFold). kL = kFoldL: the
+// thread's L taps in registers, loaded once, and its 16 rows' window of
+// 16+L-1 values slid through registers; kL = 0: any L, each tap and value
+// read per output. Both sum the same chain.
+template <bool kOneTap, int kL>
+__device__ __forceinline__ void fold_rows(const float* src, float* buf,
+                                          int row0, const Chain& p,
+                                          int t_min, int t_first, int nrows,
+                                          int npad) {
   constexpr int W = kW;
   constexpr int kPer = kChunkRows * W / kThreads;  // 16 rows per thread
   const int tid = threadIdx.x;
   const int k = tid % W, h = tid / W;
-  for (int r0 = 0; r0 < npad; r0 += kChunkRows) {
-    float v[kPer];
+  float c[kL > 0 ? kL : 1];
+  if constexpr (kL > 0) {
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int jj = r0 + h * kPer + e;
-      v[e] = 0.f;
-      if (jj < nrows && t_first + jj >= t_min) {
-        float acc = __ldg(p.c2 + k) * src[jj * W + k];
-        if constexpr (!kOneTap)
-          for (int q = 1; q < p.L; ++q)
-            acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
-        v[e] = acc;
+    for (int q = 0; q < kL; ++q) c[q] = __ldg(p.c2 + q * W + k);
+  }
+  for (int r0 = 0; r0 < npad; r0 += kChunkRows) {
+    const int j0 = r0 + h * kPer;
+    float o[kPer];
+    if constexpr (kL > 0) {
+      float v[kPer + kL - 1];
+#pragma unroll
+      for (int i = 0; i < kPer + kL - 1; ++i)
+        v[i] = j0 + i < nrows + kL - 1 ? src[(j0 + i) * W + k] : 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        float acc = 0.f;
+        if (j0 + e < nrows && t_first + j0 + e >= t_min) {
+          acc = c[0] * v[e];
+          if constexpr (!kOneTap) {
+#pragma unroll
+            for (int q = 1; q < kL; ++q) acc = fmaf(c[q], v[e + q], acc);
+          }
+        }
+        o[e] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int jj = j0 + e;
+        o[e] = 0.f;
+        if (jj < nrows && t_first + jj >= t_min) {
+          float acc = __ldg(p.c2 + k) * src[jj * W + k];
+          if constexpr (!kOneTap)
+            for (int q = 1; q < p.L; ++q)
+              acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
+          o[e] = acc;
+        }
       }
     }
     __syncthreads();
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) dst[(r0 + h * kPer + e) * W + k] = v[e];
+    for (int e = 0; e < kPer; ++e) {
+      const int r = row0 + j0 + e;
+      buf[r * W + sw(r, k)] = o[e];
+    }
     __syncthreads();
   }
+}
+
+// Stage 2's twiddles for thread t of a row (planes_fft_table: row 0/1 the
+// real/imaginary parts of W64^(n1 k1) at n1*8 + k1, row 2/3 those of the
+// post-twiddle e^{-2 pi i j/64} at j).
+struct FftTw {
+  float in_re[8], in_im[8];      // W64^(t k1), k1 = 0..7
+  float post_re[8], post_im[8];  // e^{-2 pi i (t + 8 k2)/64}, k2 = 0..7
+  float c;                       // cos(pi/4), from the post-twiddle at j = 8
+};
+
+__device__ __forceinline__ FftTw load_tw(const float* tab, int t) {
+  FftTw w;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w.in_re[i] = __ldg(tab + t * 8 + i);
+    w.in_im[i] = __ldg(tab + kM + t * 8 + i);
+    w.post_re[i] = __ldg(tab + 2 * kM + t + 8 * i);
+    w.post_im[i] = __ldg(tab + 3 * kM + t + 8 * i);
+  }
+  w.c = __ldg(tab + 2 * kM + 8);
+  return w;
+}
+
+// Single operations, each rounded to nearest on its own (never contracted).
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+
+// (re, im) *= (cr, ci), each product and sum rounded on its own.
+__device__ __forceinline__ void cmul(float& re, float& im, float cr, float ci) {
+  const float r = rsub(rmul(re, cr), rmul(im, ci));
+  im = radd(rmul(re, ci), rmul(im, cr));
+  re = r;
+}
+
+// y[k] = sum_n y[n] (-i)^(nk), in place, n, k = 0..3.
+__device__ __forceinline__ void dft4(float* yr, float* yi) {
+  const float s0r = radd(yr[0], yr[2]), s0i = radd(yi[0], yi[2]);
+  const float d0r = rsub(yr[0], yr[2]), d0i = rsub(yi[0], yi[2]);
+  const float s1r = radd(yr[1], yr[3]), s1i = radd(yi[1], yi[3]);
+  const float d1r = rsub(yr[1], yr[3]), d1i = rsub(yi[1], yi[3]);
+  yr[0] = radd(s0r, s1r); yi[0] = radd(s0i, s1i);
+  yr[2] = rsub(s0r, s1r); yi[2] = rsub(s0i, s1i);
+  yr[1] = radd(d0r, d1i); yi[1] = rsub(d0i, d1r);
+  yr[3] = rsub(d0r, d1i); yi[3] = radd(d0i, d1r);
+}
+
+// x[k] = sum_n x[n] W8^(nk) in place, n, k = 0..7, W8 = e^{-2 pi i/8}:
+// a = x[n] + x[n+4] gives the even k, b = (x[n] - x[n+4]) W8^n the odd.
+__device__ __forceinline__ void dft8(float* xr, float* xi, float c) {
+  float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    ar[n] = radd(xr[n], xr[n + 4]); ai[n] = radd(xi[n], xi[n + 4]);
+    br[n] = rsub(xr[n], xr[n + 4]); bi[n] = rsub(xi[n], xi[n + 4]);
+  }
+  float r = rmul(radd(br[1], bi[1]), c);  // W8 = c (1 - i)
+  bi[1] = rmul(rsub(bi[1], br[1]), c);
+  br[1] = r;
+  r = bi[2];                              // W8^2 = -i
+  bi[2] = -br[2];
+  br[2] = r;
+  r = rmul(rsub(bi[3], br[3]), c);        // W8^3 = -c (1 + i)
+  bi[3] = -rmul(radd(br[3], bi[3]), c);
+  br[3] = r;
+  dft4(ar, ai);
+  dft4(br, bi);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xr[2 * k] = ar[k]; xi[2 * k] = ai[k];
+    xr[2 * k + 1] = br[k]; xi[2 * k + 1] = bi[k];
+  }
+}
+
+// Where the exchange keeps A[a][b] (a the writing thread, b the reading
+// one) in a row whose swizzle key is s = r & 3: (a ^ s, b ^ s ^ (a & 4)) as
+// 8 x 8, so the 32 lanes of a warp (4 rows x 8 threads) touch 32 distinct
+// banks both when thread a writes A[a][b] and when thread b reads it.
+__device__ __forceinline__ int xch(int s, int a, int b) {
+  return 8 * (a ^ s) + (b ^ s ^ (a & 4));
+}
+
+// Stage 2 for one row (buffer row r at `row`), thread t = 0..7 of its 8:
+// acc (swizzled) in, Y = planes DFT of acc (swizzled) out. The whole warp
+// calls it (its 4 rows), for the __syncwarp()s.
+__device__ __forceinline__ void fft_row(float* row, int r, int t,
+                                        const FftTw& w) {
+  constexpr int M = kM;
+  const int s = r & 3;
+  float xr[8], xi[8];
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2) {
+    const int i = sw(r, t + 8 * n2);
+    xr[n2] = row[i];
+    xi[n2] = row[M + i];
+  }
+  dft8(xr, xi, w.c);  // A[t][k1], k1 = 0..7
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) cmul(xr[k1], xi[k1], w.in_re[k1], w.in_im[k1]);
+  __syncwarp();
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    const int i = xch(s, t, k1);
+    row[i] = xr[k1];
+    row[M + i] = xi[k1];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1) {
+    const int i = xch(s, n1, t);
+    xr[n1] = row[i];
+    xi[n1] = row[M + i];
+  }
+  __syncwarp();
+  dft8(xr, xi, w.c);  // X[t + 8 k2], k2 = 0..7
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) {
+    cmul(xr[k2], xi[k2], w.post_re[k2], w.post_im[k2]);
+    const int i = sw(r, t + 8 * k2);
+    row[i] = xr[k2];
+    row[M + i] = xi[k2];
+  }
+}
+
+// K3's and K3p's input rows: read from memory, vp = [halo; vb], the halo
+// the hrows rows before the batch (H8, or warm + H8 for a time shard).
+// vec: vb and halo 16-byte aligned, so the window loads 16 bytes at once.
+struct HaloRows {
+  const float* vb;
+  const float* halo;
+  int hrows;
+  bool vec;
+  __device__ __forceinline__ float operator()(int sr, int k) const {
+    const int i = sr + hrows;  // row of vp
+    if (i < 0) return 0.f;
+    return i < hrows ? __ldg(halo + i * kW + k)
+                     : __ldg(vb + (long long)(i - hrows) * kW + k);
+  }
+  __device__ __forceinline__ float4 load4(int sr, int k) const {
+    const int i = sr + hrows;
+    if (i < 0) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* src = i < hrows ? halo + i * kW + k
+                                 : vb + (long long)(i - hrows) * kW + k;
+    return __ldg(reinterpret_cast<const float4*>(src));
+  }
+};
+
+__device__ __forceinline__ HaloRows halo_rows(const float* vb,
+                                              const float* halo, int hrows) {
+  return HaloRows{vb, halo, hrows,
+                  (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0};
 }
 
 // One tile of T stream rows from t0, both kinds:
@@ -229,15 +458,24 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   const int R = p.T + A;
   const int jlo = kRebuild ? 1 : A;  // the first row the tile demodulates
   const int r_lo = kRebuild ? 0 : A;  // the first row it transforms
-  const int r_hi = kRebuild ? pad_rows(R) : R;
   const int tid = threadIdx.x;
 
   // 1. The window, folded: row jj gets acc of stream row t0 - A + jj.
   if constexpr (kRebuild) {
-    for (int idx = tid; idx < (R + L - 1) * W; idx += kThreads) {
-      const int ii = idx / W, k = idx % W;
-      buf[idx] = row(t0 - A - (L - 1) + ii, k);
+    const int sr0 = t0 - A - (L - 1);  // the window's first stream row
+    bool loaded = false;
+    if constexpr (std::is_same_v<Row, HaloRows>) {
+      if (row.vec) {
+        constexpr int W4 = W / 4;
+        for (int idx = tid; idx < (R + L - 1) * W4; idx += kThreads)
+          reinterpret_cast<float4*>(buf)[idx] =
+              row.load4(sr0 + idx / W4, 4 * (idx % W4));
+        loaded = true;
+      }
     }
+    if (!loaded)
+      for (int idx = tid; idx < (R + L - 1) * W; idx += kThreads)
+        buf[idx] = row(sr0 + idx / W, idx % W);
     __syncthreads();
     if constexpr (kV == kDmaOnly) {
       // window row A + L - 1 + j is stream row t0 + j
@@ -248,42 +486,50 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
       }
       return;
     }
-    fold_rows<kV == kNoFold>(buf, buf, p, t_min, t0 - A, R, r_hi);
+    if (L == kFoldL)
+      fold_rows<kV == kNoFold, kFoldL>(buf, buf, 0, p, t_min, t0 - A, R,
+                                       pad_rows(R));
+    else
+      fold_rows<kV == kNoFold, 0>(buf, buf, 0, p, t_min, t0 - A, R,
+                                  pad_rows(R));
   } else {
-    fold_rows(stage, buf + A * W, p, t_min, t0, p.T, p.T);
+    if (L == kFoldL)
+      fold_rows<false, kFoldL>(stage, buf, A, p, t_min, t0, p.T, p.T);
+    else
+      fold_rows<false, 0>(stage, buf, A, p, t_min, t0, p.T, p.T);
   }
   after_fold();
 
-  // 2. Y = acc @ W2 in place, kChunkRows rows a pass; the carried row
-  //    Y[-1] where the tile reaches it; Y[t0+T-1] out.
-  const int tx = tid & 31, ty = tid >> 5;
-  for (int r0 = r_lo; r0 < r_hi && kV != kNoDft; r0 += kChunkRows) {
-    float o[4][4];
-    tile_mm::pass(buf + r0 * W, p.w2, o);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(buf + (r0 + 4 * ty + i) * W + 4 * tx) =
-          make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+  // 2. Y = the planes DFT of acc, in place: rows r_lo .. R-1, each a
+  //    64-point FFT by 8 threads (fft_row), 4 rows a warp, a warp's rows
+  //    32 apart from pass to pass, no block barrier between passes. Then
+  //    the carried row Y[-1] where the tile reaches it; Y[t0+T-1] out.
+  if constexpr (kV != kNoDft) {
+    const FftTw tw = load_tw(p.tw, tid & 7);
+    for (int base = r_lo + 4 * (tid >> 5); base < R; base += kChunkRows) {
+      const int r = base + ((tid >> 3) & 3);
+      fft_row(buf + r * W, r, tid & 7, tw);
+    }
     __syncthreads();
   }
   if (kRebuild) {
     const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
     if (jp >= 0 && jp < R)
-      for (int k = tid; k < W; k += kThreads) buf[jp * W + k] = p.prev0[k];
+      for (int k = tid; k < W; k += kThreads) buf[jp * W + sw(jp, k)] = p.prev0[k];
   }
   if (last || ynext)
     for (int k = tid; k < W; k += kThreads) {
-      const float y = buf[(R - 1) * W + k];
+      const float y = buf[(R - 1) * W + sw(R - 1, k)];
       if (last) p.prev_out[k] = y;
       if (ynext) ynext[k] = y;
     }
   __syncthreads();
 
   // 3. Demod in place, from the last row down: aud[jj] needs Y[jj-1] (for
-  //    a carried junction's first row, yprev) and Y[jj], and is written
-  //    into row jj's re half only after the chunk's reads, so lower chunks
-  //    still find their Y rows intact. Rows before the stream take tail0.
+  //    a carried junction's first row, yprev, natural) and Y[jj], and is
+  //    written into row jj's re half (natural) only after the chunk's
+  //    reads, so lower chunks still find their Y rows intact. Rows before
+  //    the stream take tail0.
   constexpr int kElems = 4;
   constexpr int kDemodRows = kElems * kThreads / M;
   for (int hi = R; hi > jlo;) {
@@ -299,9 +545,11 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
         if (t < t_min) {
           val[e] = p.tail0[(A - 1 + t - t_min) * W + m];
         } else {
-          const float* pa = !kRebuild && jj == jlo ? yprev : buf + (jj - 1) * W;
+          const bool carried = !kRebuild && jj == jlo;
+          const float* pa = carried ? yprev : buf + (jj - 1) * W;
+          const int ma = carried ? m : sw(jj - 1, m), my = sw(jj, m);
           const float* py = buf + jj * W;
-          const float ar = pa[m], ai = pa[m + M], yr = py[m], yi = py[m + M];
+          const float ar = pa[ma], ai = pa[ma + M], yr = py[my], yi = py[my + M];
           const float pr = ar * yr + ai * yi;
           const float pi = ar * yi - ai * yr;
           if constexpr (kV == kNoAtan2)
@@ -398,27 +646,13 @@ __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                    nullptr, nullptr, nullptr, row, [] {});
 }
 
-// K3's and K3p's input rows: read from memory, vp = [halo; vb], the halo
-// the hrows rows before the batch (H8, or warm + H8 for a time shard).
-struct HaloRows {
-  const float* vb;
-  const float* halo;
-  int hrows;
-  __device__ __forceinline__ float operator()(int sr, int k) const {
-    const int i = sr + hrows;  // row of vp
-    if (i < 0) return 0.f;
-    return i < hrows ? __ldg(halo + i * kW + k)
-                     : __ldg(vb + (long long)(i - hrows) * kW + k);
-  }
-};
-
 // K3: input rows read from memory, vp = [halo; vb]; kAG > 1 is K3ag.
 template <int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, HaloRows{vb, halo, hrows});
+  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, halo_rows(vb, halo, hrows));
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -427,7 +661,7 @@ __global__ void __launch_bounds__(kThreads)
 fm_chain_ablate_kernel(const float* __restrict__ vb,
                        const float* __restrict__ halo, int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kV>(buf, p, p.t_min, HaloRows{vb, halo, hrows});
+  rebuilt_tile<kV>(buf, p, p.t_min, halo_rows(vb, halo, hrows));
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
@@ -516,7 +750,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
   float* yrows = stage + (T + L - 1) * W;  // Y[t0-1] and Y[t0+T-1], by turns
   const int win = (T + L - 1) * W;
 
-  const HaloRows row{vb, halo, hrows};
+  const HaloRows row = halo_rows(vb, halo, hrows);
   if (g0 + 1 < g1)
     prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
   chain_tile<true, kFull, 1>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
@@ -540,11 +774,11 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
 }
 
 Chain make_chain(const float* prev0, const float* tail0, const float* c2,
-                 const float* w2, const float* ataps, float* aud,
+                 const float* tw, const float* ataps, float* aud,
                  float* prev_out, float* tail_out, int n, int L, int H8,
                  int A, int decim, int T, int t_min, float gain,
                  const float* atan_coeffs) {
-  return Chain{c2,    w2,    ataps, prev0, tail0,
+  return Chain{c2,    tw,    ataps, prev0, tail0,
                aud,   prev_out, tail_out, n, L,
                H8,    A,     decim, T,     t_min,
                gain,  mathfns::load_atan(atan_coeffs)};
@@ -588,7 +822,7 @@ bool valid_bands(int ag, int T, int decim) {
 
 extern "C" int fm_chain_planes_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
-    const float* c2, const float* w2, const float* ataps, float* aud,
+    const float* c2, const float* tw, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
     int decim, int T, int ag, int hrows, int t_min, float gain,
     const float* atan_coeffs, void* stream) {
@@ -598,7 +832,7 @@ extern "C" int fm_chain_planes_launch(
     return (int)cudaErrorInvalidValue;
   LAUNCH_BANDS(fm_chain_kernel, ag, T, A, L, decim, n / T, stream, vb, halo,
                hrows,
-               make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out,
+               make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
                           n, L, H8, A, decim, T, t_min, gain, atan_coeffs));
 }
 
@@ -606,7 +840,7 @@ extern "C" int fm_chain_planes_launch(
 // null: the variant then writes the audio only) and the variant.
 extern "C" int fm_chain_ablate_launch(
     int variant, const float* vb, const float* halo, const float* prev0,
-    const float* tail0, const float* c2, const float* w2, const float* ataps,
+    const float* tail0, const float* c2, const float* tw, const float* ataps,
     float* aud, float* prev_out, float* tail_out, int n, int M, int L, int H8,
     int A, int decim, int T, int hrows, int t_min, float gain,
     const float* atan_coeffs, void* stream) {
@@ -615,7 +849,7 @@ extern "C" int fm_chain_ablate_launch(
       (tail_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)tile_rows(T, A, L) * kW * sizeof(float);
-  const Chain p = make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out,
+  const Chain p = make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out,
                              tail_out, n, L, H8, A, decim, T, t_min, gain,
                              atan_coeffs);
   switch (variant) {
@@ -646,7 +880,7 @@ extern "C" int fm_chain_ablate_launch(
 extern "C" int fm_chain_gen_launch(
     const long long* group, uint32_t k0, uint32_t k1, int draws,
     float mean, float inv_std, const float* amp, const float* carry0,
-    const float* prev0, const float* tail0, const float* c2, const float* w2,
+    const float* prev0, const float* tail0, const float* c2, const float* tw,
     const float* ataps, float* aud, float* prev_out, float* tail_out,
     float* carry_out, int n, int M, int L, int H8, int A, int decim, int T,
     int ag, float gain, const float* atan_coeffs, void* stream) {
@@ -655,14 +889,14 @@ extern "C" int fm_chain_gen_launch(
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
   LAUNCH_BANDS(fm_chain_gen_kernel, ag, T, A, L, decim, n / T, stream, s,
                group, amp, carry0, carry_out,
-               make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out,
+               make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
                           n, L, H8, A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_gen_warm_launch(
     const long long* group, long long goff, uint32_t k0, uint32_t k1,
     int draws, float mean, float inv_std, const float* amp, const float* prev0,
-    const float* tail0, const float* c2, const float* w2, const float* ataps,
+    const float* tail0, const float* c2, const float* tw, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
     int ag, float gain, const float* atan_coeffs, void* stream) {
   if (2 * M != kW || (draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
@@ -670,13 +904,13 @@ extern "C" int fm_chain_gen_warm_launch(
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
   LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, n / T, stream, s,
                group, goff, amp,
-               make_chain(prev0, tail0, c2, w2, ataps, aud, nullptr, nullptr,
+               make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
                           n, L, H8, A, decim, T, 0, gain, atan_coeffs));
 }
 
 extern "C" int fm_chain_pipe_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
-    const float* c2, const float* w2, const float* ataps, float* aud,
+    const float* c2, const float* tw, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
     int decim, int T, int hrows, int t_min, int G, float gain,
     const float* atan_coeffs, void* stream) {
@@ -689,19 +923,27 @@ extern "C" int fm_chain_pipe_launch(
       fm_chain_pipe_kernel,
       ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kW * sizeof(float),
       (n / T + G - 1) / G, stream, vb, halo, hrows,
-      make_chain(prev0, tail0, c2, w2, ataps, aud, prev_out, tail_out, n, L,
+      make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out, n, L,
                  H8, A, decim, T, t_min, gain, atan_coeffs),
       G);
 }
 
+// K2's launch: float4 lanes where y, x and out all lie on the 16-byte grid
+// (a torch allocation does; a view may not), else one element a thread.
 extern "C" int atan2_launch(const float* y, const float* x, float* out,
                             long long n, const float* atan_coeffs,
                             void* stream) {
   const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
+  const bool vec = (((uintptr_t)y | (uintptr_t)x | (uintptr_t)out) & 15) == 0;
+  const long long items = vec ? (n / 4 > 3 ? n / 4 : 3) : n;  // >= the tail
+  long long blocks = (items + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
-  atan2_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      y, x, out, n, mathfns::load_atan(atan_coeffs));
+  const AtanCoeffs co = mathfns::load_atan(atan_coeffs);
+  if (vec)
+    atan2_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        y, x, out, n, co);
+  else
+    atan2_kernel<false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        y, x, out, n, co);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The register-tiled FP32 product of a shared-memory tile with a constant
-// matrix, shared by the fused chain (fm_chain.cu, K3/K5, a 128 x 128
-// matrix) and the channelizer front end (channelizer.cu, K1, any multiple
-// of 128 lanes, one 128-column block at a time).
+// matrix: the channelizer front end's DFT (channelizer.cu, K1, any multiple
+// of 128 lanes, one 128-column block at a time). The fused chains
+// (fm_chain.cu) take their DFT as a 64-point FFT instead.
 //
 // One pass covers kPassRows = 32 rows and 128 output columns with 256
 // threads: thread (ty, tx), ty = tid / 32 and tx = tid % 32, owns rows
@@ -41,13 +41,6 @@ __device__ __forceinline__ void pass(const float* a, int lda,
       o[i][3] = fmaf(x, wv.w, o[i][3]);
     }
   }
-}
-
-// The 128 x 128 case: rows of kW lanes against a kW x kW matrix.
-__device__ __forceinline__ void pass(const float* a,
-                                     const float* __restrict__ w,
-                                     float o[4][4]) {
-  pass(a, kW, w, kW, kW, o);
 }
 
 }  // namespace tile_mm

@@ -14,7 +14,7 @@ samples x[kM-(M-1) .. kM] (the rows of the PFB commutator matrix V,
 continued across batches). Per row t:
 
     fold:   acc[t] = sum_q c2[q] * vp[t + off + q]      vp = [halo; vb]
-    DFT:    Y[t] = acc[t] @ [[Wr, Wi], [-Wi, Wr]]
+    DFT:    Y[t] = acc[t] @ [[Wr, Wi], [-Wi, Wr]]        (the kernels: an FFT)
     demod:  aud[t] = atan2(Im, Re)(conj(Y[t-1]) * Y[t]) * gain, Y[-1] = prev0
     audio:  out[o] = sum_k ataps[k] * aud[o*decim - k], aud[<0] from tail0
 
@@ -72,6 +72,23 @@ def planes_dft_matrix(M: int) -> np.ndarray:
     top = np.concatenate([Wr, Wi], axis=1)
     bot = np.concatenate([-Wi, Wr], axis=1)
     return np.concatenate([top, bot], axis=0)
+
+
+def planes_fft_table(M: int) -> np.ndarray | None:
+    """(4, M) float32 twiddles of ``planes_dft_matrix``'s product taken as
+    an R x R FFT, M = R * R (the kernels' stage 2, R = 8 at M = 64), or
+    None where M is not a square: row 0/1 the real/imaginary parts of
+    e^{-2 pi i n1 k1 / M} at n1 * R + k1 (n1, k1 < R), row 2/3 those of
+    the post-twiddle e^{-2 pi i j / M} at j. Computed in float64, then
+    cast."""
+    R = int(round(np.sqrt(M)))
+    if R * R != M:
+        return None
+    n1, k1 = np.divmod(np.arange(M), R)
+    inner = np.exp(-2j * np.pi * n1 * k1 / M)
+    post = np.exp(-2j * np.pi * np.arange(M) / M)
+    return np.stack([inner.real, inner.imag, post.real,
+                     post.imag]).astype(np.float32)
 
 
 def audio_toeplitz(ataps: np.ndarray, tile: int, decim: int) -> np.ndarray:
@@ -132,11 +149,14 @@ def _pick_tile(n_out: int, tile: int, decim: int) -> int:
 
 class FmChainConsts(NamedTuple):
     """The chain's constants as tensors on one device: fold taps (L, 2M),
-    DFT matrix (2M, 2M) and audio taps (A,)."""
+    DFT matrix (2M, 2M; the plain versions' product), audio taps (A,) and
+    the kernels' FFT twiddles (4, M; ``planes_fft_table``), which the CUDA
+    wrappers require."""
 
     c2: torch.Tensor
     w2: torch.Tensor
     ataps: torch.Tensor
+    fft: torch.Tensor | None
 
 
 def fm_chain_consts(arm_c: np.ndarray, ataps: np.ndarray,
@@ -149,8 +169,10 @@ def fm_chain_consts(arm_c: np.ndarray, ataps: np.ndarray,
         return torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                device=device)
 
+    fft = planes_fft_table(M)
     return FmChainConsts(t(planes_taps(arm_c)), t(planes_dft_matrix(M)),
-                         t(np.asarray(ataps, np.float32)))
+                         t(np.asarray(ataps, np.float32)),
+                         None if fft is None else t(fft))
 
 
 def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
@@ -237,7 +259,7 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
       tile: rows per CUDA block tile (shrunk to a divisor of n as the
         reference does; decim must divide it). Outputs do not depend on it.
         None: 128, the faster of 128 and 256 at the flagship shape on an
-        H100; pipelined, 64, the faster of 64 and 128 (PERF.md).
+        H100; pipelined, 64, within 4% of 128 there (PERF.md).
       precision: accepted for the reference's signature; FP32 always.
       pipelined: the reference's software-pipelined variant (K3p): each
         CUDA block walks several consecutive tiles in order, carries the
@@ -290,7 +312,7 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_planes_launch(
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
-            tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            tail0.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), n, M, L, H8, A, int(decim), tile, ag, warm + H8,
             t_min, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
@@ -355,7 +377,7 @@ def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_pipe_launch(
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
-            tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            tail0.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), n, M, L, H8, A, int(decim), tile, hrows, t_min,
             int(G), float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
@@ -399,10 +421,14 @@ def _check_kernel_shape(W: int, tile: int, smem: int) -> None:
 def _check_chain_tensors(dev, inputs, prev0, tail0, consts) -> None:
     L, W = (int(d) for d in consts.c2.shape)
     A = int(consts.ataps.shape[0])
+    if consts.fft is None:
+        raise ValueError("consts.fft: the kernels take the DFT as an FFT and "
+                         "need its twiddle table; build the constants with "
+                         "fm_chain_consts")
     for name, t, shape in [*inputs, ("prev0", prev0, (1, W)),
                            ("tail0", tail0, (A - 1, W)),
                            ("c2", consts.c2, (L, W)),
-                           ("w2", consts.w2, (W, W)),
+                           ("fft", consts.fft, (4, W // 2)),
                            ("ataps", consts.ataps, (A,))]:
         _build.check_tensor(t, name, device=dev, shape=shape)
 
@@ -490,7 +516,7 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
         err = _build.lib().fm_chain_gen_launch(
             g.data_ptr(), *args, amp.data_ptr(), carry0.data_ptr(),
             prev0.data_ptr(),
-            tail0.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            tail0.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), carry.data_ptr(), n_loc, M, L, H8, A, int(decim),
             tile, ag, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
@@ -606,7 +632,7 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_warm_launch(
             g.data_ptr(), int(goff), *args, amp.data_ptr(), z1.data_ptr(),
-            zt.data_ptr(), consts.c2.data_ptr(), consts.w2.data_ptr(),
+            zt.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), n_loc, M, L, H8, A,
             int(decim), tile, ag, float(gain),
             ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),

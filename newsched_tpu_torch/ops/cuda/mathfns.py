@@ -4,8 +4,15 @@ newsched_tpu/ops/pallas/mathfns.py ``atan2``, deg=9, and
 
 Their CUDA forms are ``__device__`` functions in ``csrc/mathfns.cuh``,
 shared by every kernel that needs them; ``atan2`` here launches the
-first over a whole tensor, so the card can check it against the plain
-version on its own:
+first over a whole tensor (K2 alone, ``atan2_launch`` in
+``csrc/fm_chain.cu``), so the card can check and time it against the
+plain version and ``torch.atan2``. The launch is shaped for the memory
+system, which bounds it (12 bytes an element, ~28 flops): one pass of a
+grid in which each thread loads 4 consecutive y and 4 x as two 16-byte
+words, both before any arithmetic, and stores its 4 angles as one, its
+first threads taking the < 4 elements past the last whole word; where y,
+x or the output lies off the 16-byte grid (a view), one element a
+thread. The device function computes
 
     z = min(|x|,|y|) / max(|x|,|y|)          z in [0, 1]
     a = atan(z)      via odd polynomial in z

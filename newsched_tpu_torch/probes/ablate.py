@@ -99,7 +99,7 @@ def fm_chain_ablate(vb, halo, prev0, tail0, consts, decim: int, gain: float,
         err = _build.lib().fm_chain_ablate_launch(
             VARIANTS.index(variant), vb.data_ptr(), halo.data_ptr(),
             prev0.data_ptr(), tail0.data_ptr(), consts.c2.data_ptr(),
-            consts.w2.data_ptr(), consts.ataps.data_ptr(), aud.data_ptr(),
+            consts.fft.data_ptr(), consts.ataps.data_ptr(), aud.data_ptr(),
             None if prev is None else prev.data_ptr(),
             None if tail is None else tail.data_ptr(), n, M, L, H8, A,
             int(decim), tile, H8, 0, float(gain),
