@@ -99,12 +99,15 @@ Phases (each failure raises, so the script exits nonzero):
      printed); K8 launched on the staged and fused paths, K11 and K10 on
      the folded one, K10 on the fused one, K12 on the live one;
  20. times: K8, K11, K10, K12 beside their plain versions (K12 beside
-     K11 -> K10), K10 at the four geometries, the four wbfm flowgraph
-     steps in Msamples/s;
- 21. K9 fir_tone_step at 2^21 samples, 128 taps, D = 1 and 4, two batches
-     from stream start and one from a nonzero phase: within 2e-5 of
-     max|out| from its plain version; bit-identical at seven block
-     geometries and for four batches of 2^20 against two of 2^21;
+     K11 -> K10), K10 and K12 over 4 rotating inputs and outputs and on
+     one, K10 and K12 at each geometry, the four wbfm flowgraph steps in
+     Msamples/s;
+ 21. K9 fir_tone_step (an overlap-save FFT convolution) at 2^21 samples,
+     128 taps, D = 1 and 4, two batches from stream start and one from a
+     nonzero phase, and one batch of 32700 rows, which its transforms'
+     128 outputs do not divide: within 2e-5 of max|out| from its plain
+     version (the direct form); bit-identical at seven block geometries
+     and for four batches of 2^20 against two of 2^21;
  22. the staged and live fir_chain graphs at 10M samples in batches of
      2^21: >= 60 dB against the float64 golden each (the reading is
      printed), live against staged > 100 dB; K8 launched on the staged
@@ -114,8 +117,8 @@ Phases (each failure raises, so the script exits nonzero):
      and 4 tiles a block;
  24. times: K2 alone at the demod's shape beside its plain version and
      torch.atan2, over 4 rotating inputs and outputs and on one; K9
-     beside its plain version and K11 -> conv1d(groups=128), at each
-     geometry; K3p beside K3 (alternated), at each tile and tiles a
+     beside its plain version and K11 -> conv1d(groups=128), over 4
+     rotating outputs and on one, at each geometry; K3p beside K3 (alternated), at each tile and tiles a
      block; the config #0 flowgraph steps in Msamples/s;
  25. K6 fm_chain_gen_warm_step at 8192 and 4096 rows (a shard of a 4- and
      of an 8-shard batch), at stream start, at shard 3 and at group
@@ -1088,18 +1091,23 @@ FIR_R = FIR_BATCH // 64    # folded rows per batch (32768)
 FIR_N = 10_000_000         # the reference's gate as written (tests/test_models.py)
 FIR_GATE_DB = 60.0         # the reference's gate (bench.py config #0)
 K9_TOL = 2e-5              # K9 vs plain, relative to max|out|: FMA, another order
-# (tile, seg_group) of K9 blocks, the default first
-K9_GEOMS = ((512, 4), (256, 4), (1024, 4), (512, 8), (1024, 16), (2048, 32),
-            (256, 2))
+# (tile, seg_group) of K9 blocks, the default first (8 segments a block or
+# more: a row's lanes of a block are whole 32-byte sectors)
+K9_GEOMS = ((512, 8), (256, 8), (1024, 8), (512, 16), (1024, 16), (256, 32),
+            (128, 64))
+K9_R_ODD = 32700           # folded rows that L = 128 does not divide
 K3P_GS = (1, 2, 4)         # tiles a K3p block walks, beside its default
 
 
 def fir_taps(torch):
+    """Config #0's taps, and K9's constants on the card (the taps and the
+    FFT convolution's table; the plain version reads the taps)."""
     from newsched_tpu_torch.ops import firdes
+    from newsched_tpu_torch.ops.cuda import fir_source
 
     taps = firdes.low_pass(1.0, FIR_FS, 0.2 * FIR_FS, 0.05 * FIR_FS,
                            ntaps=FIR_NTAPS)
-    return taps, torch.from_numpy(taps.astype(np.float32)).cuda()
+    return taps, fir_source.fir_tone_consts(taps, "cuda")
 
 
 def k9_run(torch, fir_source, step, D, sizes=(FIR_BATCH, FIR_BATCH),
@@ -1148,6 +1156,20 @@ def phase_k9(torch, fir_source) -> float:
             require(err <= K9_TOL * scale and got.shape == ref.shape,
                     f"K9 D={D}: kernel disagrees with its plain version")
             worst = max(worst, err)
+    # R that L does not divide: a segment's first and last transforms reach
+    # past its rows, and its blocks' tiles
+    sizes = (64 * K9_R_ODD,)
+    got = k9_run(torch, fir_source, fir_source.fir_tone_step, 1, sizes,
+                 0xFFFFF000, True)
+    ref = k9_run(torch, fir_source, fir_source.fir_tone_step_plain, 1, sizes,
+                 0xFFFFF000, True)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    log(f"K9 fir_tone_step at R = {K9_R_ODD} (not a multiple of L = 128): "
+        f"max abs err vs plain {err:.3e} = {err / scale:.3e} of max|out| "
+        f"(tol {K9_TOL})")
+    require(err <= K9_TOL * scale and got.shape == ref.shape,
+            f"K9 R={K9_R_ODD}: kernel disagrees with its plain version")
+    worst = max(worst, err)
     base = k9_run(torch, fir_source, fir_source.fir_tone_step, 1)
     for tile, gs in K9_GEOMS[1:]:
         require(torch.equal(base, k9_run(torch, fir_source,
@@ -2260,7 +2282,8 @@ NCO_OPS = 2 + 2 + 5 + 2 * 2 * 5 + 1 + 4 + 2  # phase, turns, reduce, polys, sele
 PHILOX_OPS = 10 * 10 + 14           # 10 rounds, Irwin-Hall sum and scale
 # an overlap-save FFT convolution at 1024 points and 128 taps: a forward and
 # an inverse FFT (2 x 5 N log2 N) and N complex products (6 N) per 897
-# outputs, ~121 flops a complex output
+# outputs, ~121 flops a complex output (K9 takes 256 points, 128 outputs a
+# transform: ~172)
 FIR_FFT_OPS = 121
 
 
@@ -2273,7 +2296,7 @@ def kernel_bounds() -> dict:
     product, and for K10/K12 the
     staged order (rotate each input sample by the NCO, then a real-tap FIR)
     where the kernels filter with complex rotated taps, and for K9 an FFT
-    convolution where the kernel runs the FIR in direct form."""
+    convolution at its most economical length."""
     f4 = 4
     n, W = ROWS, 2 * M
     fold = 2 * L * n * W
@@ -2508,6 +2531,10 @@ def main() -> int:
     a8 = torch.tensor(0.8, dtype=torch.float32, device="cuda")
     xp = wbfm_chain.fold_planes(fm_signal(WB_BATCH, torch))
     carry = torch.zeros(plan.B8, 128, device="cuda")
+    # K10 and K12 over 4 inputs and outputs (probes.rotating; K10's 4
+    # batches, 67 MB, past the L2), as K7, P-prep and K2 are, and on one
+    xps = [xp] + [wbfm_chain.fold_planes(fm_signal(WB_BATCH, torch) * (0.9 ** i))
+                  for i in range(1, probes.ROT)]
 
     def k11_k10():
         wbfm_chain.wbfm_chain_step(sources.nco_folded(ph7, dp, a8, WB_R, "cuda"),
@@ -2520,19 +2547,26 @@ def main() -> int:
         "K11": lambda: sources.nco_folded(ph7, dp, a8, WB_R, "cuda"),
         "K10 plain": lambda: wbfm_chain.wbfm_chain_step_plain(xp, carry, plan,
                                                               wconsts),
-        "K10": lambda: wbfm_chain.wbfm_chain_step(xp, carry, plan, wconsts),
+        "K10": probes.rotating(lambda i: (xps[i],), lambda x: wbfm_chain
+                               .wbfm_chain_step(x, carry, plan, wconsts)),
+        "K10 one": lambda: wbfm_chain.wbfm_chain_step(xp, carry, plan, wconsts),
         "K12 plain": lambda: wbfm_chain.wbfm_chain_live_step_plain(
             ph7, dp, a8, off, plan, wconsts, WB_R),
         "K11 -> K10": k11_k10,
-        "K12": lambda: wbfm_chain.wbfm_chain_live_step(ph7, dp, a8, off, plan,
-                                                       wconsts, WB_R),
+        "K12": probes.rotating(lambda i: (), lambda: wbfm_chain
+                               .wbfm_chain_live_step(ph7, dp, a8, off, plan,
+                                                     wconsts, WB_R)),
+        "K12 one": lambda: wbfm_chain.wbfm_chain_live_step(
+            ph7, dp, a8, off, plan, wconsts, WB_R),
     }, PLAIN_REPS))
     ms = {k: min(v_) for k, v_ in t.items()}
     for name, what in (("K8", "nco_planes"), ("K11", "nco_folded"),
                        ("K10", "wbfm_chain_step"),
                        ("K12", "wbfm_chain_live_step")):
-        log(f"{name} {what}: kernel {t[name]} ms, plain {t[name + ' plain']} ms "
-            f"[{card}]")
+        one = (f" over 4 rotating inputs and outputs, {t[name + ' one']} ms "
+               f"on one" if name + " one" in t else "")
+        log(f"{name} {what}: kernel {t[name]} ms{one}, plain "
+            f"{t[name + ' plain']} ms [{card}]")
     log(f"K11 -> K10 (what K12 fuses): {t['K11 -> K10']} ms [{card}]")
     for tile, gs in WB_GEOMS:
         k10_ms = graph_ms(lambda: wbfm_chain.wbfm_chain_step(
@@ -2559,7 +2593,7 @@ def main() -> int:
     # the two-call form of K9: K11's tone, then every lane's FIR by one
     # grouped convolution (its look-back is zeros, not the previous
     # segment's samples; cuDNN in FP32, TF32 off above)
-    w9 = taps9.flip(0).repeat(128, 1)[:, None, :].contiguous()
+    w9 = taps9.taps.flip(0).repeat(128, 1)[:, None, :].contiguous()
 
     def k11_conv():
         x9 = sources.nco_folded(ph7, dp9, a8, FIR_R, "cuda")
@@ -2595,8 +2629,11 @@ def main() -> int:
         "K9 plain": lambda: fir_source.fir_tone_step_plain(
             ph7, dp9, a8, off, taps9, 1, FIR_R),
         "K11 -> conv1d": k11_conv,
-        "K9": lambda: fir_source.fir_tone_step(ph7, dp9, a8, off, taps9, 1,
-                                               FIR_R),
+        # K9 over 4 outputs (probes.rotating: 67 MB, past the L2), and on one
+        "K9": probes.rotating(lambda i: (), lambda: fir_source.fir_tone_step(
+            ph7, dp9, a8, off, taps9, 1, FIR_R)),
+        "K9 one": lambda: fir_source.fir_tone_step(ph7, dp9, a8, off, taps9, 1,
+                                                   FIR_R),
         "K3p plain": lambda: fm_chain.fm_chain_step_planes_plain(
             vb, *st, consts, DECIM, DEMOD_GAIN),
         "K3p": lambda: fm_chain.fm_chain_step_planes(
@@ -2607,7 +2644,8 @@ def main() -> int:
     ms = {k: min(v_) for k, v_ in t.items()}
     lib["K2"] = ms["K2 library"]
     log(f"K9 fir_tone_step ({FIR_R} x 128 rows, {FIR_NTAPS} taps): kernel "
-        f"{t['K9']} ms, plain {t['K9 plain']} ms; K11 -> conv1d(groups=128) "
+        f"{t['K9']} ms over 4 rotating outputs, {t['K9 one']} ms on one; "
+        f"plain {t['K9 plain']} ms; K11 -> conv1d(groups=128) "
         f"{t['K11 -> conv1d']} ms [{card}]")
     log(f"K3p fm_chain_step_planes(pipelined=True) ({ROWS} x {2 * M} rows): "
         f"kernel {t['K3p']} ms, K3 {t['K3 beside K3p']} ms, plain "
@@ -2617,7 +2655,9 @@ def main() -> int:
             ph7, dp9, a8, off, taps9, 1, FIR_R))
         g = fir_source._geometry(FIR_R, 1, FIR_NTAPS, tile, gs)
         log(f"K9 tile {tile} seg_group {gs}: {(FIR_R // tile) * (64 // gs)} "
-            f"blocks of {-(-tile // g.CU)} chunk(s), {g.smem} B shared; "
+            f"blocks of {g.NQ} transforms a segment, window +"
+            f"{100 * (g.WR - tile) / tile:.0f}%, {g.smem} B shared, "
+            f"{'tensor copies of ' + str(g.BR) + ' rows' if g.BR else '16-byte stores'}; "
             f"{k9_ms:.4f} ms [{card}]")
     def first_rows(tile):  # rows K3 folds and transforms for a tile
         return -(-(tile + A) // 32) * 32

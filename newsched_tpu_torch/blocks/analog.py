@@ -457,16 +457,17 @@ class fir_tone_source(Block):
         self.declare_param("dphase", nco.freq_to_dphase(frequency, sampling_freq),
                            dtype=None, doc="tone phase increment")
         self.declare_param("amplitude", amplitude, dtype=np.float32)
-        self._taps: dict[torch.device, torch.Tensor] = {}
+        self._consts: dict[torch.device, fir_source.FirToneConsts] = {}
 
     def set_frequency(self, freq: float) -> None:
         self.set_param("dphase", nco.freq_to_dphase(freq, self.sampling_freq))
 
-    def dev_taps(self, device) -> torch.Tensor:
+    def dev_taps(self, device) -> fir_source.FirToneConsts:
+        """The taps and the kernel's FFT table on ``device``, made once."""
         device = torch.device(device)
-        if device not in self._taps:
-            self._taps[device] = torch.as_tensor(self.taps, device=device)
-        return self._taps[device]
+        if device not in self._consts:
+            self._consts[device] = fir_source.fir_tone_consts(self.taps, device)
+        return self._consts[device]
 
     def _fold_rows(self, nout: int) -> int:
         n_samp = int(nout) * self.decim

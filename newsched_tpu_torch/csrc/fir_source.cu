@@ -7,37 +7,56 @@
 //
 // Layout (time-folded lanes, as the wideband-FM chain's): a batch of 64*R
 // samples is R rows of 128 lanes; lane s holds re and lane 64+s im of
-// segment s, samples s*R .. s*R+R-1. With x[k] segment s's k-th sample
-// (k < 0: the samples before it in the stream) and D the decimation,
+// segment s, samples s*R .. s*R+R-1. With x[j] the batch's j-th sample
+// (j < 0: the samples before it in the stream) and D the decimation,
 //
-//   out[o, s] + j out[o, 64+s] = sum_t taps[t] * x[o*D - t],  o < R/D.
+//   out[o, s] + j out[o, 64+s] = sum_t taps[t] * x[s*R + o*D - t],  o < R/D.
 //
 // The samples are generated, never read: mathfns.cuh nco_folded_sample,
 // the values of the NCO sources K8/K11 (sources.cu) and of K12's loader,
 // with the previous batch's samples by the uint32 wrap and 0 before the
-// stream on the first batch. A FIR has no recursive state, so there are no
-// carries and no junction: each block owns a range of output rows of a
-// group of GS segments and generates the look-back window it needs into
-// shared memory, CU outputs at a time (ntaps-1 + CU*D rows). Each thread
-// computes kJ consecutive outputs of one segment, re and im, with a sliding
-// window of samples in registers, the taps summed phase by phase
-// (t mod D outer, t / D inner) in one fixed order: every output comes from
-// the same routine with the same summation order whichever block or thread
-// computes it, so the outputs are bit-identical for every geometry and
-// every batch split. The FIR runs in direct form, ntaps multiply-adds per
-// output and plane: the TPU's banded Toeplitz products (fir_toeplitz and
-// the group picker, a band of W8 + T/G window rows per group of outputs)
-// are the MXU's form of this loop and have no user here.
+// stream on the first batch.
 //
 // Bound on the H100 at config #0 (128 taps, D = 1, 2^21 samples a batch):
 // 16.8 MB of output written and nothing read, 5.0 us at 3.35 TB/s. The
-// function's least arithmetic is the NCO (~36 operations a sample) and an
-// FFT convolution (~120 flops a complex output at a 1024-point FFT),
-// ~0.33 GFLOP, 5 us at 67 TFLOP/s FP32: the bound is the bytes. The direct
-// form does 4 flops a tap and sample, 1.07 GFLOP, at least 16 us on the
-// FP32 cores, so this kernel reaches at most ~31% of its bound; an FFT
-// form is later work.
+// direct form costs 4 flops a tap and sample, 1.07 GFLOP, at least 16 us
+// on the FP32 cores, so it could not come within 3x of the bound. This
+// kernel takes the FIR as an overlap-save FFT convolution: N = Q*Q points
+// (Q = 8, 16 or 32: the smallest with N/2 >= ntaps - 1; N = 256 at 128
+// taps), L = N/2 outputs a transform, ~120 operations a complex output
+// against 512. The transforms are aligned to the batch index j = 64*R*shard
+// + s*R + row at multiples of L, not to the block: transform q takes the
+// samples j in [q*L - L, q*L + L) and keeps the outputs j in [q*L, q*L+L).
+// A block owns the output rows of a tile of T batch rows of GS segments
+// (GS >= 8, so that each row's re and im lanes are whole 32-byte sectors)
+// and computes every transform that touches them, whole, writing only its
+// own rows. So an output's value depends only on the samples and on j mod
+// L: it is bit-identical for every tile and segment group, and for every
+// batch split and time shard whose boundaries fall on multiples of L. At
+// D > 1 the transforms run at the full rate and the rows o*D are kept.
+//
+// A block: (1) generates its window of samples once into shared memory,
+// [row][segment] complex with a row stride chosen on the host against
+// bank conflicts; (2) walks its transforms in rounds of 256/Q, one
+// transform to Q threads: thread t loads x[t + Q*n2], a radix-Q DFT over
+// n2, times W_N^(t*k1), an exchange through the transform's own padded
+// shared buffer, a radix-Q DFT over n1 gives X[t + Q*k2]; times the taps'
+// spectrum (1/N folded in), and the inverse as the same transform of the
+// conjugate; (3) each round's kept outputs wait in the exchange buffers.
+// Where a round's transforms fill whole rows of the tile (the default
+// geometry), the block gathers them into a [row][lane] tile and writes it
+// by two 2-D tensor copies (the TMA), one a plane: a block's rows are 32
+// bytes a plane, and through the load/store unit such slices cost 3x the
+// same bytes written contiguously (PERF.md). Elsewhere it writes 16-byte
+// stores of 4 segments. The twiddles and the spectrum are the host's,
+// float64 rounded to float32 (ops/cuda/fir_source.py fir_tone_table), and
+// every add and multiply of the transforms is rounded on its own
+// (__fadd_rn/__fmul_rn, never contracted), so a transform's arithmetic is
+// the same wherever it runs; tests/test_torch_fir_fft.py repeats it in
+// torch float32. Measured at config #0, the samples take ~38% of the
+// kernel, the transforms ~46%, the writes ~16%.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,174 +65,407 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLoads = 4;  // samples a thread stages per pass
-// consecutive outputs a thread computes: odd, so that the kJ*D rows
-// between neighbouring threads' windows can avoid a multiple of 32 banks
-constexpr int kJ = 9;
+constexpr int kLoads = 4;  // samples a thread generates per pass
 constexpr int kSegs = 64;  // fold width: segments = lane pairs
 constexpr int kW = 2 * kSegs;
 
 struct Fir {
-  const float* taps;  // (ntaps,) real taps
-  float* out;         // (R / D, 128)
-  int R, ntaps, D;
-  int T;              // batch rows per block (T / D output rows)
-  int GS;             // segments per block
-  int P;              // shared row stride of the sample planes (>= GS)
-  int CU;             // outputs per chunk: kThreads / GS * kJ
+  const float* tab;  // (4, N): W_N^j (re, im), then the taps' spectrum / N
+  float* out;        // (R / D, 128)
+  int R, D;
+  int T;             // batch rows per block (T / D output rows)
+  int GS;            // segments per block: a power of 2, >= 8
+  int NQ;            // transforms a segment per block, at most
+  int off;           // the window starts `off` rows before the tile
+  int WR;            // window rows
+  int PW;            // window row stride in complex values (>= GS)
+  int BR;            // > 0: output rows a round, written by a tensor copy
 };
 
-// Rows of a block's staged window: the largest chunk, rounded up to whole
-// kJ-output groups, and its ntaps-1 rows of look-back.
-__host__ __device__ __forceinline__ int stage_rows(const Fir& p) {
-  const int To = p.T / p.D;
-  const int cu = To < p.CU ? To : p.CU;
-  return ((cu + kJ - 1) / kJ * kJ - 1) * p.D + p.ntaps;
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+
+template <int Q>
+struct Geo {
+  static constexpr int N = Q * Q;
+  static constexpr int L = N / 2;
+  static constexpr int G = kThreads / Q;  // transforms a round
+  // exchange buffer a transform: odd, so that the copy-out's reads of
+  // consecutive transforms fall on distinct banks
+  static constexpr int XS = Q * (Q + 1) + 1;
+};
+
+// Shared memory in float2: the output tile of a round (BR rows of GS
+// floats, re then im; 128-byte aligned for the tensor copy), the window,
+// the exchange buffers, the twiddles W_N^(t*k) at [k][t], the spectrum,
+// then one int a segment.
+template <int Q>
+__host__ __device__ __forceinline__ int smem_float2(const Fir& p) {
+  using Gq = Geo<Q>;
+  return (p.BR * p.GS + 15) / 16 * 16 + p.WR * p.PW + Gq::G * Gq::XS + Q * Q +
+         Gq::N + (p.GS + 1) / 2;
 }
 
-// Shared floats: taps, then the re and im sample planes.
-__host__ __device__ __forceinline__ int smem_floats(const Fir& p) {
-  return p.ntaps + 2 * stage_rows(p) * p.P;
+// The output tile's rows to the output by the tensor-memory accelerator:
+// generic-proxy writes to shared memory are fenced for the async proxy
+// before the block's barrier; one thread then issues the copies.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const float* src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"((unsigned)__cvta_generic_to_shared(src)), "r"(col), "r"(row)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the tile may be written again once the copies have read it
+__device__ __forceinline__ void tma_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// kJ consecutive outputs of one segment, j < kJ, from its staged samples
-// (xr, xi: the segment's column, row stride P; row rb holds sample m0*D of
-// the first output m0). Along phase ph the FIR is a kJ-wide sliding window
-// over y[i] = x[i*D - ph]: each y value is read from shared memory once and
-// used by every output that needs it, held in registers in slot
-// (i - m0) mod kJ, so the unrolled loop needs no register moves.
-__device__ __forceinline__ void fir_outputs(const float* xr, const float* xi,
-                                            const float* taps, int P, int D,
-                                            int nt, int rb, float ar[kJ],
-                                            float ai[kJ]) {
+// Single operations, each rounded to nearest on its own (never contracted).
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+
+// (re, im) *= (cr, ci), each product and sum rounded on its own.
+__device__ __forceinline__ void cmul(float& re, float& im, float cr, float ci) {
+  const float r = rsub(rmul(re, cr), rmul(im, ci));
+  im = radd(rmul(re, ci), rmul(im, cr));
+  re = r;
+}
+
+// x[k] = sum_n x[n] W_S^(nk) in place, n, k < S, by decimation in
+// frequency: a = x[n] + x[n+S/2] gives the even k, b = (x[n] - x[n+S/2])
+// W_S^n the odd ones. W_S^n = W_Q^(n Q/S) from (wr, wi), W_Q^m for m <
+// Q/2; W_S^(S/4) = -i, W_S^(S/8) = c (1 - i) and W_S^(3S/8) = -c (1 + i)
+// with c = cos(pi/4) = wr[Q/8] take two multiplies.
+template <int S, int Q>
+__device__ __forceinline__ void dft(float* xr, float* xi, const float* wr,
+                                    const float* wi) {
+  if constexpr (S == 2) {
+    const float r = rsub(xr[0], xr[1]), i = rsub(xi[0], xi[1]);
+    xr[0] = radd(xr[0], xr[1]);
+    xi[0] = radd(xi[0], xi[1]);
+    xr[1] = r;
+    xi[1] = i;
+  } else {
+    constexpr int H = S / 2;
+    float ar[H], ai[H], br[H], bi[H];
 #pragma unroll
-  for (int j = 0; j < kJ; ++j) ar[j] = ai[j] = 0.f;
-  for (int ph = 0; ph < D; ++ph) {
-    const int K = (nt - ph + D - 1) / D;  // taps of this phase
-    float wr[kJ], wi[kJ];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int r = (rb + j * D - ph) * P;
-      wr[j] = xr[r];
-      wi[j] = xi[r];
+    for (int n = 0; n < H; ++n) {
+      ar[n] = radd(xr[n], xr[n + H]); ai[n] = radd(xi[n], xi[n + H]);
+      br[n] = rsub(xr[n], xr[n + H]); bi[n] = rsub(xi[n], xi[n + H]);
     }
-    for (int kb = 0; kb < K; kb += kJ) {
 #pragma unroll
-      for (int kk = 0; kk < kJ; ++kk) {
-        const int k = kb + kk;
-        if (k < K) {
-          const float c = taps[ph + k * D];
-#pragma unroll
-          for (int j = 0; j < kJ; ++j) {
-            const int sl = (j - kk + kJ) % kJ;  // y[m0 + j - k]
-            ar[j] = fmaf(c, wr[sl], ar[j]);
-            ai[j] = fmaf(c, wi[sl], ai[j]);
-          }
-          if (k + 1 < K) {  // y[m0 - k - 1] replaces y[m0 - k + kJ - 1]
-            const int r = (rb - (k + 1) * D - ph) * P;
-            wr[kJ - 1 - kk] = xr[r];
-            wi[kJ - 1 - kk] = xi[r];
-          }
-        }
+    for (int n = 1; n < H; ++n) {
+      if (4 * n == S) {  // -i
+        const float r = bi[n];
+        bi[n] = -br[n];
+        br[n] = r;
+      } else if (8 * n == S) {  // c (1 - i)
+        const float c = wr[Q / 8];
+        const float r = rmul(radd(br[n], bi[n]), c);
+        bi[n] = rmul(rsub(bi[n], br[n]), c);
+        br[n] = r;
+      } else if (8 * n == 3 * S) {  // -c (1 + i)
+        const float c = wr[Q / 8];
+        const float r = rmul(rsub(bi[n], br[n]), c);
+        bi[n] = -rmul(radd(br[n], bi[n]), c);
+        br[n] = r;
+      } else {
+        cmul(br[n], bi[n], wr[n * (Q / S)], wi[n * (Q / S)]);
       }
+    }
+    dft<H, Q>(ar, ai, wr, wi);
+    dft<H, Q>(br, bi, wr, wi);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      xr[2 * k] = ar[k]; xi[2 * k] = ai[k];
+      xr[2 * k + 1] = br[k]; xi[2 * k + 1] = bi[k];
     }
   }
 }
 
-// One block: segments [blockIdx.y*GS, +GS), output rows [o0, o0+T/D) with
-// o0 = blockIdx.x * T/D, CU outputs a chunk: stage the chunk's samples (0
-// past the block's last), then each thread sums kJ consecutive outputs of
-// one segment and writes them to both planes.
-// The phase counter, its increment and the first-batch flag are read from
-// the card (the stream state of the runner's captured graph); time shard
-// `shard` starts shard * 64 * R samples into the batch, and only shard 0
-// has samples before the stream.
-__global__ void __launch_bounds__(kThreads)
+// The N-point DFT of the values thread t of a transform holds, x[t + Q*n]
+// in (xr, xi)[n], in place: X[t + Q*k] in (xr, xi)[k]. xb: the transform's
+// exchange buffer; tw: W_N^(t*k) at [k*Q + t]. The transform's Q threads
+// call it together (a half-warp, or a warp at Q = 32).
+template <int Q>
+__device__ __forceinline__ void fft(float* xr, float* xi, float2* xb,
+                                    const float2* tw, int t, const float* wr,
+                                    const float* wi) {
+  dft<Q, Q>(xr, xi, wr, wi);  // A[t][k1]
+#pragma unroll
+  for (int k = 1; k < Q; ++k) {
+    const float2 w = tw[k * Q + t];
+    cmul(xr[k], xi[k], w.x, w.y);
+  }
+#pragma unroll
+  for (int k = 0; k < Q; ++k) xb[t * (Q + 1) + k] = make_float2(xr[k], xi[k]);
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < Q; ++n) {
+    const float2 v = xb[n * (Q + 1) + t];
+    xr[n] = v.x;
+    xi[n] = v.y;
+  }
+  __syncwarp();
+  dft<Q, Q>(xr, xi, wr, wi);  // X[t + Q k2]
+}
+
+// One block: segments [blockIdx.y*GS, +GS), batch rows [r0, r0+T) with r0
+// = blockIdx.x * T. The phase counter, its increment and the first-batch
+// flag are read from the card (the stream state of the runner's captured
+// graph); time shard `shard` starts shard * 64 * R samples into the batch,
+// and only shard 0 has samples before the stream.
+template <int Q>
+__global__ void __launch_bounds__(kThreads, 2)
 fir_tone_kernel(const long long* __restrict__ phase,
                 const long long* __restrict__ dphase,
                 const float* __restrict__ amp,
                 const unsigned char* __restrict__ first, int shard,
-                mathfns::SinCosCoeffs sc, Fir p) {
-  extern __shared__ __align__(16) float sm[];
+                mathfns::SinCosCoeffs sc, Fir p,
+                const __grid_constant__ CUtensorMap omap) {
+  using Gq = Geo<Q>;
+  constexpr int N = Gq::N, L = Gq::L, G = Gq::G, XS = Gq::XS;
+  constexpr int lgL = log2i(L);
+  extern __shared__ __align__(128) float2 sm2[];
   const int tid = threadIdx.x;
-  const int GS = p.GS, P = p.P, D = p.D, nt = p.ntaps;
-  const int To = p.T / D;
-  const int o0 = blockIdx.x * To;
+  const int GS = p.GS, D = p.D, T = p.T;
+  const int gs_shift = __ffs(GS) - 1;
+  const int r0 = blockIdx.x * T;
   const int s0 = blockIdx.y * GS;
-  const int gs_shift = __ffs(GS) - 1;  // GS divides 64: a power of 2
   const float a = amp[0];
   const mathfns::NcoPos pos =
       mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * p.R);
-  const uint32_t ph0 = pos.ph0, dp = pos.dp;
   const bool b0 = shard == 0 && first[0] != 0;
+  // batch index of segment s's row r0
+  const long long jb = ((long long)shard * kSegs + s0) * p.R + r0;
 
-  float* taps = sm;
-  float* xre = sm + nt;
-  float* xim = xre + stage_rows(p) * P;
-  for (int t = tid; t < nt; t += kThreads) taps[t] = p.taps[t];
-
-  const int k_hi = (o0 + To - 1) * D;  // the block's last sample
-  for (int c0 = 0; c0 < To; c0 += p.CU) {
-    const int cu = min(p.CU, To - c0);
-    const int rows = ((cu + kJ - 1) / kJ * kJ - 1) * D + nt;
-    const int k0 = (o0 + c0) * D - (nt - 1);
-    __syncthreads();  // the previous chunk's reads are done
-    // kLoads samples a thread in flight before any is stored
-    for (int e0 = tid; e0 < rows * GS; e0 += kLoads * kThreads) {
-      float re[kLoads], im[kLoads];
+  float* ot = reinterpret_cast<float*>(sm2);  // p.BR > 0: the round's tile
+  float2* win = sm2 + (p.BR * GS + 15) / 16 * 16;
+  float2* xbuf = win + p.WR * p.PW;
+  float2* tw = xbuf + G * XS;
+  float2* hs = tw + Q * Q;
+  // where segment sl's row r0 sits in its transform: (jb + sl*R) mod L
+  int* dl = reinterpret_cast<int*>(hs + N);
+  for (int sl = tid; sl < GS; sl += kThreads)
+    dl[sl] = (int)((jb + (long long)sl * p.R) & (L - 1));
+  for (int e = tid; e < Q * Q; e += kThreads) {
+    const int k = e / Q, t = e % Q;
+    tw[e] = make_float2(__ldg(p.tab + t * k), __ldg(p.tab + N + t * k));
+  }
+  for (int e = tid; e < N; e += kThreads)
+    hs[e] = make_float2(__ldg(p.tab + 2 * N + e), __ldg(p.tab + 3 * N + e));
+  float wr[Q / 2], wi[Q / 2];  // W_Q^m = W_N^(m Q)
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int e = e0 + u * kThreads, k = k0 + (e >> gs_shift);
-        re[u] = im[u] = 0.f;
-        if (e < rows * GS && k <= k_hi)
-          mathfns::nco_folded_sample(ph0, dp, a, b0, p.R, s0 + (e & (GS - 1)),
-                                     k, sc, &re[u], &im[u]);
+  for (int m = 0; m < Q / 2; ++m) {
+    wr[m] = __ldg(p.tab + m * Q);
+    wi[m] = __ldg(p.tab + N + m * Q);
+  }
+
+  // (1) the window: rows [r0 - off, r0 - off + WR) of the GS segments,
+  //     kLoads samples a thread in flight before any is stored
+  const int n_win = p.WR * GS, k0 = r0 - p.off;
+  for (int e0 = tid; e0 < n_win; e0 += kLoads * kThreads) {
+    float re[kLoads], im[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {  // past the window: its last sample
+      const int e = min(e0 + u * kThreads, n_win - 1);
+      mathfns::nco_folded_sample(pos.ph0, pos.dp, a, b0, p.R,
+                                 s0 + (e & (GS - 1)), k0 + (e >> gs_shift),
+                                 sc, &re[u], &im[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < n_win)
+        win[(e >> gs_shift) * p.PW + (e & (GS - 1))] = make_float2(re[u], im[u]);
+    }
+  }
+  __syncthreads();
+
+  const int g = tid / Q, t = tid % Q;
+  float2* xb = xbuf + g * XS;
+  const int n_slots = GS * p.NQ;
+  // the largest offset of a segment's first transform before the tile
+  int dmax = 0;
+  for (int sl = 0; sl < GS; ++sl) dmax = max(dmax, dl[sl]);
+  for (int r = 0; r * G < n_slots; ++r) {
+    // (2) transform of slot i: segment sl = i % GS, iq = i / GS
+    {
+      const int i = r * G + g, sl = i & (GS - 1), iq = i >> gs_shift;
+      const bool live = i < n_slots && iq <= ((dl[sl] + T - 1) >> lgL);
+      // window row of the transform's first sample j = q*L - L
+      const int base = live ? iq * L - dl[sl] - L + p.off : 0;
+      float xr[Q], xi[Q];
+#pragma unroll
+      for (int n = 0; n < Q; ++n) {
+        const float2 v = win[(base + t + Q * n) * p.PW + sl];
+        xr[n] = v.x;
+        xi[n] = v.y;
       }
+      fft<Q>(xr, xi, xb, tw, t, wr, wi);
+      // Z = conj(X H): the inverse transform as the forward one of Z
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < rows * GS) {
-          const int at = (e >> gs_shift) * P + (e & (GS - 1));
-          xre[at] = re[u];
-          xim[at] = im[u];
-        }
+      for (int k = 0; k < Q; ++k) {
+        const float2 h = hs[t + Q * k];
+        cmul(xr[k], xi[k], h.x, h.y);
+        xi[k] = -xi[k];
+      }
+      fft<Q>(xr, xi, xb, tw, t, wr, wi);
+      // keep y[t + Q m] = conj(.) for m >= Q/2: output j = q*L + t + Q*(m - Q/2)
+#pragma unroll
+      for (int m = Q / 2; m < Q; ++m)
+        xb[t + Q * (m - Q / 2)] = make_float2(xr[m], -xi[m]);
+    }
+    if (p.BR && tid == 0 && r > 0) tma_wait_read();  // the last round's tile
+    __syncthreads();
+    // (3) this round's outputs to their rows: 4 segments a 16-byte store
+    //     where all 4 are in the round, else one by one
+    const int iq_a = (r * G) >> gs_shift;
+    const int iq_b = (min(n_slots, (r + 1) * G) - 1) >> gs_shift;
+    const int k_a = max(0, iq_a * L - dmax), k_b = min(T, (iq_b + 1) * L);
+    const int o_a = (k_a + D - 1) / D, o_b = (k_b + D - 1) / D;
+    if (p.BR) {
+      // whole rows of whole transforms: the tile [row][segment], re then
+      // im, then two tensor copies of (BR rows x GS lanes)
+      for (int e = tid; e < (o_b - o_a) << gs_shift; e += kThreads) {
+        const int sl = e & (GS - 1), x = (o_a + (e >> gs_shift)) * D;
+        const float2 v =
+            xbuf[((x >> lgL) * GS + sl - r * G) * XS + (x & (L - 1))];
+        ot[e] = v.x;
+        ot[p.BR * GS + e] = v.y;
+      }
+      fence_async_shared();
+      __syncthreads();
+      if (tid == 0) {
+        tma_store(&omap, ot, s0, r0 / D + o_a);
+        tma_store(&omap, ot + p.BR * GS, kSegs + s0, r0 / D + o_a);
+      }
+      continue;  // the next round's first barrier orders the tile's reuse
+    }
+    const int qshift = gs_shift - 2;  // GS / 4 quads a row
+#pragma unroll 2
+    for (int e = tid; e < (o_b - o_a) << qshift; e += kThreads) {
+      const int o = o_a + (e >> qshift), c = e & ((GS >> 2) - 1);
+      float vr[4], vi[4];
+      bool ok[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        // the output's place in segment sl's transforms: iq-th, position
+        // x mod L
+        const int sl = 4 * c + u, x = dl[sl] + o * D;
+        const int i = (x >> lgL) * GS + sl - r * G;
+        ok[u] = i >= 0 && i < G;
+        const float2 v = ok[u] ? xbuf[i * XS + (x & (L - 1))]
+                               : make_float2(0.f, 0.f);
+        vr[u] = v.x;
+        vi[u] = v.y;
+      }
+      float* row = p.out + (long long)(r0 / D + o) * kW + s0 + 4 * c;
+      if (ok[0] && ok[1] && ok[2] && ok[3]) {
+        *reinterpret_cast<float4*>(row) = make_float4(vr[0], vr[1], vr[2], vr[3]);
+        *reinterpret_cast<float4*>(row + kSegs) =
+            make_float4(vi[0], vi[1], vi[2], vi[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (ok[u]) {
+            row[u] = vr[u];
+            row[kSegs + u] = vi[u];
+          }
       }
     }
     __syncthreads();
-    const int mm0 = (tid >> gs_shift) * kJ, sl = tid & (GS - 1);
-    if (mm0 < cu) {
-      float ar[kJ], ai[kJ];
-      fir_outputs(xre + sl, xim + sl, taps, P, D, nt, mm0 * D + nt - 1, ar, ai);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-        if (mm0 + j < cu) {
-          float* row = p.out + (long long)(o0 + c0 + mm0 + j) * kW;
-          row[s0 + sl] = ar[j];
-          row[kSegs + s0 + sl] = ai[j];
-        }
-    }
   }
+  if (p.BR && tid == 0) tma_wait_all();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), found once through the runtime's
+// entry-point query, so the library links against the runtime alone.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+template <int Q>
+int launch(const long long* phase, const long long* dphase, const float* amp,
+           const unsigned char* first, int shard, Fir p,
+           const float* sincos_coeffs, cudaStream_t stream) {
+  using Gq = Geo<Q>;
+  const size_t smem = (size_t)smem_float2<Q>(p) * sizeof(float2);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fir_tone_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap omap{};
+  if (p.BR) {
+    // the output (R/D rows of 128 floats), a box of GS lanes x BR rows; the
+    // map holds the output's address, so a captured graph replays it
+    // whole rounds of whole rows only: a round's outputs fill its box
+    const int per_round = Gq::G / p.GS * Gq::L / p.D;
+    if (p.R % Gq::L || p.T % Gq::L || Gq::G % p.GS || Gq::L % p.D ||
+        p.NQ % (Gq::G / p.GS) || p.BR != per_round || p.BR * p.GS % 32)
+      return (int)cudaErrorInvalidValue;
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)kW, (cuuint64_t)(p.R / p.D)};
+    const cuuint64_t strides[1] = {(cuuint64_t)kW * sizeof(float)};
+    const cuuint32_t box[2] = {(cuuint32_t)p.GS, (cuuint32_t)p.BR};
+    const cuuint32_t estrides[2] = {1, 1};
+    if (encode(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.out, dims, strides,
+               box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(p.R / p.T, kSegs / p.GS);
+  fir_tone_kernel<Q><<<grid, kThreads, smem, stream>>>(
+      phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs), p,
+      omap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fir_tone_launch(const long long* phase, const long long* dphase,
                                const float* amp, const unsigned char* first,
-                               int shard, const float* taps, float* out, int R,
-                               int ntaps, int D, int T, int GS, int P, int CU,
+                               int shard, const float* tab, float* out, int R,
+                               int Q, int D, int T, int GS, int NQ, int off,
+                               int WR, int PW, int BR,
                                const float* sincos_coeffs, void* stream) {
-  const Fir p{taps, out, R, ntaps, D, T, GS, P, CU};
-  if (D <= 0 || T <= 0 || T % D || R % T || GS <= 0 || kSegs % GS ||
-      (GS & (GS - 1)) || P < GS || CU != kThreads / GS * kJ || ntaps <= 0 ||
-      shard < 0)
+  const Fir p{tab, out, R, D, T, GS, NQ, off, WR, PW, BR};
+  if (D <= 0 || T <= 0 || T % D || R % T || GS < 8 || kSegs % GS ||
+      (GS & (GS - 1)) || PW < GS || NQ <= 0 || WR <= 0 || off < 0 ||
+      BR < 0 || BR > 256 || shard < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)smem_floats(p) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fir_tone_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R / T, kSegs / GS);
-  fir_tone_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs),
-      p);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (Q) {
+    case 8: return launch<8>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
+    case 16: return launch<16>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
+    case 32: return launch<32>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

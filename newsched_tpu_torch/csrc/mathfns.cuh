@@ -84,16 +84,12 @@ __device__ __forceinline__ void sin_cos_turns(float t, const SinCosCoeffs& co,
     ac = __fadd_rn(__fmul_rn(ac, w), co.c[k]);
   }
   const float s1 = __fmul_rn(as, f), c1 = ac;
-  // quadrant 0 (s1, c1), 1 (c1, -s1), 2 (-s1, -c1), 3 (-c1, s1)
-  if (q == 0.f) {
-    *sn = s1; *cs = c1;
-  } else if (q == 1.f) {
-    *sn = c1; *cs = -s1;
-  } else if (q == 2.f) {
-    *sn = -s1; *cs = -c1;
-  } else {
-    *sn = -c1; *cs = s1;
-  }
+  // quadrant 0 (s1, c1), 1 (c1, -s1), 2 (-s1, -c1), 3 (-c1, s1), by
+  // selects rather than branches, so that a thread's samples interleave
+  const bool odd = q == 1.f || q == 3.f;
+  const float a = odd ? c1 : s1, b = odd ? s1 : c1;
+  *sn = q >= 2.f ? -a : a;
+  *cs = q == 1.f || q == 2.f ? -b : b;
 }
 
 // The NCO sample of the fixed-point phase accumulator: the uint32 phase
@@ -137,12 +133,11 @@ __device__ __forceinline__ void nco_folded_sample(uint32_t ph0, uint32_t dp,
                                                   const SinCosCoeffs& co,
                                                   float* re, float* im) {
   const int idx = s * R + k;
-  if (first && idx < 0) {
-    *re = 0.f;
-    *im = 0.f;
-  } else {
-    nco_sample(ph0 + (uint32_t)idx * dp, amp, co, re, im);
-  }
+  float r, i;
+  nco_sample(ph0 + (uint32_t)idx * dp, amp, co, &r, &i);
+  const bool pre = first && idx < 0;  // selected, not branched around
+  *re = pre ? 0.f : r;
+  *im = pre ? 0.f : i;
 }
 
 }  // namespace mathfns

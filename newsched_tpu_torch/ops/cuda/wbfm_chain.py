@@ -43,12 +43,15 @@ from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
 S = 64  # fold width: segments = lane pairs
 _M32 = 0xFFFFFFFF
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
-_THREADS = 256
-_J = 5  # consecutive xlate outputs a CUDA thread computes (kJ)
+_J = 7  # consecutive xlate outputs a CUDA thread computes (kJ)
 
 
 def _round8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 class WbfmChainPlan:
@@ -109,9 +112,11 @@ def pick_tile(R: int, D: int, Rd: int, target_out: int = 102) -> int:
     """Batch rows per block: the largest multiple of D*Rd that divides R
     with at most ``target_out`` audio rows. The junction costs each block
     A+1 extra xlate outputs, so larger tiles waste less, and smaller tiles
-    give more blocks. At config #1's batch (R = 32640) 102 rows with 4
-    segments a block make 256 blocks, one wave at two blocks per SM on
-    the H100's 132 SMs (96 rows made 272 and ran 65% longer)."""
+    give more blocks. At config #1's batch (R = 32640) 102 rows with 8
+    segments a block make 128 blocks, one wave of one 512-thread block an
+    SM on the H100's 132 SMs, the junction +24% xlate outputs; 51 rows
+    (256 blocks, +48%) ran 21% longer, and 4 segments a block (256 blocks
+    of 256 threads, two an SM, half-sector rows) 11% longer."""
     step = D * Rd
     if R % step:
         raise ValueError(f"batch fold R={R} not a multiple of D*Rd = {step}")
@@ -134,10 +139,17 @@ def row_stride(GS: int, rows: int) -> int:
     return min(range(GS, GS + 33), key=lambda P: (worst(P), P))
 
 
+def block_threads(GS: int) -> int:
+    """Threads a block: 512 from 8 segments a block on (one block an SM at
+    config #1), else 256 (two blocks an SM)."""
+    return 512 if GS >= 8 else 256
+
+
 class _Geometry(NamedTuple):
     T: int
     GS: int
     P: int
+    NT: int
     CU: int
     smem: int
 
@@ -162,13 +174,15 @@ def _geometry_of(D: int, Rd: int, A: int, ntaps: int, B8: int, R: int, tile,
     if GS <= 0 or S % GS:
         raise ValueError(f"seg_group {GS} does not divide {S} segments")
     P = row_stride(GS, _J * D)
-    CU = _THREADS // GS * _J
+    NT = block_threads(GS)
+    CU = NT // GS * _J
     NU = (T // (D * Rd) - 1) * Rd + A + 1
-    floats = 2 * ntaps + 2 * ((CU - 1) * D + ntaps) * P + 3 * NU * GS
+    floats = (_round4(2 * ntaps) + _round4(A)
+              + 2 * _round4(((CU - 1) * D + ntaps) * P) + 3 * NU * GS)
     if floats * 4 > _SMEM_MAX:
         raise ValueError(f"tile {T}, seg_group {GS}: {floats * 4} bytes of "
                          f"shared memory, the H100 allows {_SMEM_MAX}")
-    return _Geometry(T, GS, P, CU, floats * 4)
+    return _Geometry(T, GS, P, NT, CU, floats * 4)
 
 
 def _extended(xp: torch.Tensor, carry: torch.Tensor, B8: int):
@@ -231,14 +245,15 @@ def _launch_args(plan: WbfmChainPlan, consts: WbfmConsts, aud, R: int,
                  g: _Geometry):
     return (consts.crot.data_ptr(), consts.rtaps.data_ptr(), aud.data_ptr(),
             R, plan.ntaps, plan.D, plan.Rd, plan.A, plan.B8, g.T, g.GS, g.P,
-            g.CU, float(np.float32(plan.cos_t)), float(np.float32(plan.sin_t)),
+            g.NT, g.CU, float(np.float32(plan.cos_t)),
+            float(np.float32(plan.sin_t)),
             float(np.float32(plan.gain)),
             ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p))
 
 
 def wbfm_chain_step(xp: torch.Tensor, carry: torch.Tensor,
                     plan: WbfmChainPlan, consts: WbfmConsts,
-                    tile: int | None = None, seg_group: int = 4):
+                    tile: int | None = None, seg_group: int = 8):
     """One batch of the fused chain.
 
     Args:
@@ -296,7 +311,7 @@ def wbfm_chain_live_step_plain(phase0, dphase, amp, first,
 
 def wbfm_chain_live_step(phase0, dphase, amp, first, plan: WbfmChainPlan,
                          consts: WbfmConsts, R: int, tile: int | None = None,
-                         seg_group: int = 4, shard: int = 0):
+                         seg_group: int = 8, shard: int = 0):
     """One batch of the LIVE chain: the NCO tone of ``sources.nco_folded``
     generated inside the chain. ``phase0``/``dphase``: the batch's phase
     and increment, int64 tensors on the device (the block's state and

@@ -1,0 +1,289 @@
+"""Stage times of the live FIR kernel K9 and the wideband-FM tile routine
+(K10, K12), and their outputs for comparison across trees.
+
+    PYTHONPATH=<tree> python3 <this file> stages
+    PYTHONPATH=<tree> python3 <this file> outputs --save FILE
+    PYTHONPATH=<tree> python3 <this file> outputs --compare FILE
+
+``stages`` copies ``csrc/fir_source.cu`` and ``csrc/wbfm_chain.cu`` of the
+package on the path (this tree, or one unpacked with ``git archive`` of an
+earlier commit: the cuts know the direct-form K9 and its FFT form) into
+``build/stages/``, inserts cuts there behind a ``STAGE`` macro, builds one
+library a stage with ``-DSTAGE=n`` and times each beside the untouched
+kernels, on one input and over 4 rotating outputs (and inputs, for K10).
+The cuts are cumulative, each stage keeps its shared-memory results alive
+and skips what follows:
+  K9 direct form: 1 the samples generated; 2 + the FIR and the writes;
+  K9 FFT form: 1 the samples generated; 2 + the transforms; 3 + the writes;
+  K10, K12: 1 the samples staged (read, or generated); 2 + the xlate FIR;
+       3 + the demod and atan2; 4 + the resampler and the writes.
+
+``outputs`` runs K9, K10 and K12 at the main paths' shapes on fixed inputs
+(K10 and K12 at several block geometries) and saves them, or compares them
+with a saved run: bit for bit for K10 and K12, by the largest difference
+for K9.
+
+Prints one JSON line a record, the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from newsched_tpu_torch.ops import firdes, nco
+from newsched_tpu_torch.ops.cuda import _build, fir_source, sources, wbfm_chain
+from newsched_tpu_torch.probes._timing import graph_ms
+from newsched_tpu_torch.probes.run import rotating
+
+FIR_R, FIR_NTAPS, FIR_FS, FIR_FREQ = 32768, 128, 1e6, 123_456.0
+WB_R, WB_FS, WB_FC, WB_D, WB_RD, WB_DEV = 32640, 1e6, 200e3, 4, 5, 75e3
+WB_TONE = 231_250.0
+WB_OUT_GEOMS = ((None, 4), (1020, 4), (2040, 8), (4080, 16), (None, 8))
+
+_KEEP = "if ({a}[tid] == 1234.5f) {out}[tid] = {b}[tid];"
+_KEEP2 = "if ({a}[tid].x == 1234.5f) {out}[tid] = {a}[tid].y;"
+# for each file, each form of its kernels: (anchor, text inserted before
+# it) a cut, and the names of the stages the cuts leave (the last: none)
+_FORMS = {
+    "fir_source.cu": {
+        "direct": ([
+            ("    if (mm0 < cu) {\n      float ar[kJ], ai[kJ];\n      fir_outputs(",
+             "#if STAGE < 2\n    " + _KEEP.format(a="xre", b="xim", out="p.out")
+             + "\n    continue;\n#endif\n"),
+        ], ("gen", "full")),
+        "fft": ([
+            ("  const int g = tid / Q, t = tid % Q;",
+             "#if STAGE < 2\n  " + _KEEP2.format(a="win", out="p.out")
+             + "\n  return;\n#endif\n"),
+            ("    // (3) this round's outputs to their rows",
+             "#if STAGE < 3\n    " + _KEEP2.format(a="xbuf", out="p.out")
+             + "\n    continue;\n#endif\n"),
+        ], ("gen", "fft", "full")),
+    },
+    "wbfm_chain.cu": {
+        "direct": ([
+            ("    if (mm0 < cu) {\n      float ar[kJ], ai[kJ];\n      xlate_outputs(",
+             "#if STAGE < 2\n    " + _KEEP.format(a="xre", b="xim", out="p.aud")
+             + "\n    continue;\n#endif\n"),
+            ("  // 2. d[mlo + i]",
+             "#if STAGE < 3\n  " + _KEEP.format(a="ure", b="uim", out="p.aud")
+             + "\n  return;\n#endif\n"),
+            ("  // 3. y[o0 + o]",
+             "#if STAGE < 4\n  " + _KEEP.format(a="dd", b="dd", out="p.aud")
+             + "\n  return;\n#endif\n"),
+        ], ("samples", "xlate", "demod", "full")),
+    },
+}
+_KERNELS = {"K9": "fir_source.cu", "K10": "wbfm_chain.cu",
+            "K12": "wbfm_chain.cu"}
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _cut_sources(out: Path) -> dict:
+    """The cut copies under ``out``; returns each file's stage names."""
+    out.mkdir(parents=True, exist_ok=True)
+    for h in _build.CSRC.glob("*.cuh"):
+        (out / h.name).write_text(h.read_text())
+    names = {}
+    for name, forms in _FORMS.items():
+        text = (_build.CSRC / name).read_text()
+        form = [f for f, (cuts, _) in forms.items()
+                if all(text.count(a) == 1 for a, _ in cuts)]
+        if not form:
+            raise SystemExit(f"{name}: none of the forms {list(forms)} has "
+                             f"its anchors here")
+        cuts, names[name] = forms[form[0]]
+        for anchor, cut in cuts:
+            text = text.replace(anchor, cut + anchor)
+        (out / name).write_text("#ifndef STAGE\n#define STAGE 99\n#endif\n"
+                                + text)
+    return names
+
+
+def _build_stages(out: Path, stages=(1, 2, 3)) -> dict:
+    """One library a stage, every nvcc started together; the ptxas lines
+    of each build are returned beside it."""
+    nvcc = _build._find_nvcc()
+    jobs = {}
+    for st in stages:
+        for name in _FORMS:
+            obj = out / f"{Path(name).stem}.s{st}.o"
+            jobs[(st, name)] = (obj, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, f"-DSTAGE={st}", "-c", "-o",
+                 str(obj), str(out / name)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    logs = {}
+    for (st, name), (obj, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc {name} STAGE={st}:\n{text}")
+        logs.setdefault(st, []).append(text)
+    libs = {}
+    for st in stages:
+        so = out / f"libstage{st}.so"
+        objs = [str(jobs[(st, n)][0]) for n in _FORMS]
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        *objs], check=True)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("fir_tone_launch", "wbfm_chain_launch", "wbfm_live_launch"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[st] = lib
+        regs = re.findall(r"Function properties for (\S+)[\s\S]*?Used (\d+) "
+                          r"registers", "".join(logs[st]))
+        print(json.dumps({"stage_build": st, "registers": regs}), flush=True)
+    return libs
+
+
+def _wb_plan():
+    chan = firdes.low_pass(1.0, WB_FS, 100e3, 30e3)
+    rt = firdes.low_pass(1.0, 1.0, 0.45 / WB_RD, 0.1 / WB_RD)
+    plan = wbfm_chain.WbfmChainPlan(
+        chan, nco.freq_to_dphase(WB_FC, WB_FS), WB_D, rt, WB_RD,
+        (WB_FS / WB_D) / (2 * np.pi * WB_DEV))
+    return plan, wbfm_chain.wbfm_consts(plan, "cuda")
+
+
+def _fir_taps():
+    taps = firdes.low_pass(1.0, FIR_FS, 0.2 * FIR_FS, 0.05 * FIR_FS,
+                           ntaps=FIR_NTAPS)
+    t = torch.from_numpy(taps.astype(np.float32)).cuda()
+    make = getattr(fir_source, "fir_tone_consts", None)
+    return make(taps, "cuda") if make else t
+
+
+def _calls():
+    """The three kernels at their main paths' shapes: name -> (one-input
+    call, rotating call)."""
+    plan, consts = _wb_plan()
+    taps = _fir_taps()
+    dpf = nco.freq_to_dphase(FIR_FREQ, FIR_FS)
+    dpw = nco.freq_to_dphase(WB_TONE, WB_FS)
+    dev = "cuda"
+    ph9 = torch.tensor(0x1234567, dtype=torch.int64, device=dev)
+    dp9 = torch.tensor(dpf, dtype=torch.int64, device=dev)
+    ph12 = torch.tensor(0x89ABCDE, dtype=torch.int64, device=dev)
+    dp12 = torch.tensor(dpw, dtype=torch.int64, device=dev)
+    amp = torch.tensor(0.8, dtype=torch.float32, device=dev)
+    off = torch.tensor(False, device=dev)
+    xps = [sources.nco_folded(0x1000 * i, dpw, 0.8, WB_R, dev)
+           for i in range(4)]
+    carry = torch.zeros(plan.B8, 128, device=dev)
+
+    def k9():
+        return fir_source.fir_tone_step(ph9, dp9, amp, off, taps, 1, FIR_R)
+
+    def k10(xp):
+        return wbfm_chain.wbfm_chain_step(xp, carry, plan, consts)[0]
+
+    def k12():
+        return wbfm_chain.wbfm_chain_live_step(ph12, dp12, amp, off, plan,
+                                               consts, WB_R)
+    return {"K9": (k9, rotating(lambda i: (), k9)),
+            "K10": (lambda: k10(xps[0]), rotating(lambda i: (xps[i],), k10)),
+            "K12": (k12, rotating(lambda i: (), k12))}
+
+
+def stages() -> list[dict]:
+    out = Path(_build.BUILD_DIR).parent / "stages"
+    names = _cut_sources(out)
+    libs = _build_stages(out)
+    calls = _calls()
+    full = _build.lib()
+    recs = []
+    for kern, src in _KERNELS.items():
+        variants = {nm: libs[i + 1] if nm != "full" else full
+                    for i, nm in enumerate(names[src])}
+        order = list(variants) + list(variants)[::-1]
+        ms: dict = {}
+        for nm in order:
+            _build.lib = (lambda lib=variants[nm]: lib)
+            try:
+                for mode, fn in zip(("one", "rot"), calls[kern]):
+                    ms.setdefault((nm, mode), []).append(graph_ms(fn))
+            finally:
+                _build.lib = lambda: full
+        for (nm, mode), v in ms.items():
+            recs.append({"kernel": kern, "stage": nm, "inputs": mode,
+                         "us": min(v) * 1e3, "us_all": [t * 1e3 for t in v]})
+    return recs
+
+
+def _outputs() -> dict:
+    plan, consts = _wb_plan()
+    dpw = nco.freq_to_dphase(WB_TONE, WB_FS)
+    res = {}
+    for ph in (0x12345678, 0xFFFFF000):
+        for first in (True, False):
+            xp = sources.nco_folded(ph, dpw, 0.8, WB_R, "cuda")
+            carry = torch.zeros(plan.B8, 128, device="cuda")
+            if not first:
+                carry = sources.nco_folded(ph ^ 0x5555, dpw, 0.8, WB_R,
+                                           "cuda")[-plan.B8:].clone()
+            for tile, gs in WB_OUT_GEOMS:
+                try:
+                    a10, _ = wbfm_chain.wbfm_chain_step(xp, carry, plan, consts,
+                                                        tile=tile, seg_group=gs)
+                    a12 = wbfm_chain.wbfm_chain_live_step(
+                        ph, dpw, 0.8, first, plan, consts, WB_R, tile=tile,
+                        seg_group=gs)
+                except ValueError as e:  # a geometry the tree does not offer
+                    print(json.dumps({"skipped": [tile, gs], "why": str(e)}))
+                    continue
+                key = f"{ph:#x}/{int(first)}/{tile}/{gs}"
+                res[f"K10/{key}"] = a10.cpu()
+                res[f"K12/{key}"] = a12.cpu()
+    taps = _fir_taps()
+    dpf = nco.freq_to_dphase(FIR_FREQ, FIR_FS)
+    for D in (1, 4):
+        res[f"K9/{D}"] = fir_source.fir_tone_step(0x9E3779B9, dpf, 0.8, False,
+                                                  taps, D, FIR_R).cpu()
+    torch.cuda.synchronize()
+    return res
+
+
+def outputs(argv) -> list[dict]:
+    res = _outputs()
+    if argv[:1] == ["--save"]:
+        torch.save(res, argv[1])
+        return [{"saved": len(res), "to": argv[1]}]
+    ref = torch.load(argv[1])
+    recs = []
+    for key, v in res.items():
+        # a geometry one tree offers and the other not has no pair
+        if key not in ref:
+            recs.append({"key": key, "unpaired": True})
+            continue
+        r = ref[key]
+        recs.append({"key": key, "bit_equal": bool(torch.equal(v, r)),
+                     "max_abs_diff": float((v - r).abs().max()),
+                     "max_abs": float(r.abs().max())})
+    return recs
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("stages: no CUDA device", file=sys.stderr)
+        return 2
+    print(_card(), flush=True)
+    recs = stages() if argv[:1] == ["stages"] else outputs(argv[1:])
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -115,7 +115,7 @@ def test_fir_tone_geometry_and_refusals():
     assert fir_source.pick_tile(32768, 1) == 512
     assert fir_source.pick_tile(256, 4) == 256
     g = fir_source._geometry(32768, 1, NTAPS, None, fir_source.SEG_GROUP)
-    assert (g.T, g.GS, g.CU) == (512, 4, 576) and g.smem <= fir_source._SMEM_MAX
+    assert (g.T, g.GS, g.NQ) == (512, 8, 4) and g.smem <= fir_source._SMEM_MAX
     with pytest.raises(ValueError, match="tile"):
         fir_source.fir_tone_step(0, 1, 1.0, True, tt, 1, 256, tile=96)
     with pytest.raises(ValueError, match="decim"):
