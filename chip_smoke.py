@@ -62,10 +62,12 @@ Phases (each failure raises, so the script exits nonzero):
      flowgraph step in Msamples/s;
  10. K7 arm_fold and K1 arm_fold_dft on the FM band's commutator matrix:
      within 1e-5 of max|out| from their plain versions, bit-identical at
-     their default tiles and 256; K1 also at 128, 192 and 256 channels,
-     where pfb_channelize's "auto" must launch it; K7 bit-equal to K1 with
-     the identity as its DFT matrix at 128 and 256 lanes, and across
-     tiles; K7 within 1e-5 of its plain version and
+     their default tiles and 256; K1 (its FFT instance) bit-equal to the
+     torch-float32 replay of its planes FFT on K7's output, at runs of 48
+     rows, one ring and its default; K1 also at 128, 192 and 256 channels
+     (the FFT instance, bit-equal to the replay of K7 there too) and 320
+     (the dense instance), where pfb_channelize's "auto" must launch it;
+     K7 within 1e-5 of its plain version and
      tile-invariant at 96 and 34 lanes, at 4, 8 and 17 taps, with v short
      of its rows and with v 4 bytes off a 16-byte boundary;
  11. the staged flowgraph with its default noise source, 4 batches:
@@ -195,7 +197,25 @@ Phases (each failure raises, so the script exits nonzero):
      unbounded config #1 fused run lands at a chunk boundary, the output
      before it a run at the old value, after it a run at the new one;
  39. times: the unbounded live run's rate beside phase 34's graph-mode
-     step; the throttle's pacing error at 10 Msamples/s.
+     step; the throttle's pacing error at 10 Msamples/s;
+ 40. K9's direct instance (past the FFT's 513 taps) at 514 and 1024 taps,
+     D = 1 and 4: within K9_TOL of its plain version, bit-identical at
+     tile 256 and across a batch split, counted on direct_launches; a tap
+     count past its stated limit raises naming the limit; the live
+     fir_chain at 1024 taps, two batches in graph mode, >= 60 dB against
+     its float64 golden, the direct instance launched on it;
+ 41. K3, K5 and K6 at M = 128, 192 and 256 (16384 rows a batch): K3 within
+     K3_TOL of its plain version on an M-station FM band, tile-invariant;
+     K5 bit-equal to K4 * amp -> K3 and within K5_TOL of its plain version
+     off the branch cut; K6 bit-equal to K5's stream at shard 3 and within
+     K5_TOL of its plain version;
+ 42. the fused (replayed FM band) and live fm_channelizer flowgraphs at M =
+     128, 192 and 256, two batches in graph mode: >= 95 dB against the
+     float64 golden off its branch-cut mask; at M = 128 also at half the
+     batch (bit-equal), the live graph on 4 shards (K6, bit-equal) and the
+     staged graph (>= 60 dB, K1 launched); launches counted;
+ 43. times at M = 128: K3, K5, K6 and K1 beside their plain versions; K9's
+     direct instance at 1024 taps beside its plain version.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -299,20 +319,20 @@ def design():
     return taps, audio_taps
 
 
-def fm_band(n_samples: int, device) -> np.ndarray:
-    """A 64-station FM band: one carrier at each channel centre k/M, each
-    frequency-modulated by its own tone so that the demodulated angle per
-    channel sample stays within +-0.4 rad, far from the +-pi branch cut
-    (a kernel-vs-plain comparison of noise would flip there on a 1-ulp
-    difference)."""
+def fm_band(n_samples: int, device, m: int = M) -> np.ndarray:
+    """An m-station FM band (64 by default): one carrier at each channel
+    centre k/m, each frequency-modulated by its own tone so that the
+    demodulated angle per channel sample stays within +-0.4 rad, far from
+    the +-pi branch cut (a kernel-vs-plain comparison of noise would flip
+    there on a 1-ulp difference)."""
     import torch
 
     n = torch.arange(n_samples, dtype=torch.float64, device=device)
     x = torch.zeros(n_samples, dtype=torch.complex128, device=device)
-    for k in range(M):
+    for k in range(m):
         fm = (k + 1) * 1e-6                       # message tone, cycles/sample
-        beta = 0.4 / (2 * np.pi * M * fm)         # peak step 0.4 rad/channel sample
-        phase = 2 * np.pi * k * n / M + beta * torch.sin(2 * np.pi * fm * n + k)
+        beta = 0.4 / (2 * np.pi * m * fm)         # peak step 0.4 rad/channel sample
+        phase = 2 * np.pi * k * n / m + beta * torch.sin(2 * np.pi * fm * n + k)
         x += torch.polar(torch.ones_like(phase), phase)
     return (x / 8).to(torch.complex64).cpu().numpy()
 
@@ -591,13 +611,13 @@ def profile_steps(torch, step, label: str, n: int = 20) -> float:
 
 def fold_consts(torch, channelizer):
     """K7/K1 constants of the flagship channelizer on the GPU: fold taps
-    (L, 2M) and the interleaved DFT matrix (2M, 2M)."""
+    (L, 2M), the interleaved DFT matrix (2M, 2M; the plain version's) and
+    K1's FFT table (4, M)."""
     from newsched_tpu_torch.ops import pfb
 
     taps, _ = design()
-    c = pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T.copy()
-    return (torch.from_numpy(channelizer.interleave_taps(c)).cuda(),
-            torch.from_numpy(channelizer.interleaved_dft_matrix(M).copy()).cuda())
+    consts = pfb.pfb_consts(pfb.pfb_arm_taps(taps, M), "cuda")
+    return consts.c2, consts.w2, consts.fft
 
 
 def commutator(torch, channelizer, x: np.ndarray):
@@ -609,26 +629,28 @@ def commutator(torch, channelizer, x: np.ndarray):
 
 
 def phase_k1_k7(torch, channelizer) -> dict:
-    c2, w2 = fold_consts(torch, channelizer)
+    c2, w2, fft = fold_consts(torch, channelizer)
     v = commutator(torch, channelizer, fm_band(BATCH, "cuda"))
     errs = {}
-    for name, args in (("arm_fold", (c2,)), ("arm_fold_dft", (c2, w2))):
+    for name, args, kw in (("arm_fold", (c2,), {}),
+                           ("arm_fold_dft", (c2, w2), {"fft": fft})):
         kernel = getattr(channelizer, name)
         plain = getattr(channelizer, name + "_plain")
-        got, ref = kernel(v, *args, ROWS), plain(v, *args, ROWS)
+        got, ref = kernel(v, *args, ROWS, **kw), plain(v, *args, ROWS)
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         log(f"{name}: {ROWS} x {2 * M} rows, max abs err vs plain {err:.3e} "
             f"= {err / scale:.3e} of max|out| {scale:.3f} (tol {FOLD_TOL})")
         require(err <= FOLD_TOL * scale, f"{name}: kernel disagrees with plain")
-        require(torch.equal(got, kernel(v, *args, ROWS, tile=256)),
+        require(torch.equal(got, kernel(v, *args, ROWS, tile=256, **kw)),
                 f"{name}: tile 256 output differs from the default tile")
         errs[name] = err
     log("K7, K1: the default tile and tile 256 give bit-identical outputs")
-    k7_is_k1_identity(torch, channelizer, v, c2)
+    k1_is_fft_of_k7(torch, channelizer, v, c2, w2, fft)
     errs["arm_fold"] = max(errs["arm_fold"], k7_shapes(torch, channelizer))
     errs["arm_fold_dft"] = max(errs["arm_fold_dft"],
-                               *(k1_wide(torch, channelizer, m) for m in (128, 192, 256)))
+                               *(k1_wide(torch, channelizer, m) for m in WIDE_M))
+    errs["arm_fold_dft[dense]"] = k1_wide(torch, channelizer, K1_DENSE_M)
     return errs
 
 
@@ -640,24 +662,22 @@ def fold_taps(torch, m: int, taps: int):
     return pfb.pfb_consts(arm, "cuda").c2
 
 
-def k7_is_k1_identity(torch, channelizer, v, c2) -> None:
-    """K7 bit-equal to K1 run with the identity as its DFT matrix, at the
-    flagship's 128 lanes and at 256: each column of that product is one
-    fmaf by 1 among fmafs by 0, so it is K1's fold chain exactly, the chain
-    K7 computes. At 128 lanes also a third tile."""
-    g = torch.Generator(device="cuda").manual_seed(256)
-    v256 = torch.randn(4096 + L - 1, 256, device="cuda", generator=g)
-    for vv, cc, n in ((v, c2, ROWS), (v256, fold_taps(torch, 128, L), 4096)):
-        W = int(vv.shape[1])
-        got = channelizer.arm_fold(vv, cc, n)
-        eye = torch.eye(W, device="cuda")
-        require(torch.equal(got, channelizer.arm_fold_dft(vv, cc, eye, n)),
-                f"K7 at {W} lanes differs from K1 with the identity")
-        if W == 2 * M:
-            require(torch.equal(got, channelizer.arm_fold(vv, cc, n, tile=48)),
-                    "K7 at tile 48 differs from the default tile")
-    log("K7: bit-equal to K1 with the identity at 128 and 256 lanes; tiles "
-        "48, 256 and the default give the same bits")
+def k1_is_fft_of_k7(torch, channelizer, v, c2, w2, fft) -> None:
+    """K1 bit-equal to the torch-float32 replay of its FFT
+    (``channelizer.fft_interleaved``) on K7's output, on the card, at the
+    flagship's 128 lanes: K1's fold is K7's fmaf chain and its transform
+    the replay's operations, each rounded on its own. Also at run lengths
+    of 48 rows and one ring."""
+    got = channelizer.arm_fold_dft(v, c2, w2, ROWS, fft=fft)
+    rep = channelizer.fft_interleaved(channelizer.arm_fold(v, c2, ROWS), fft)
+    require(torch.equal(got, rep),
+            "K1 differs from the FFT replay of K7's fold")
+    for run in (48, 1):
+        require(torch.equal(got, channelizer.arm_fold_dft(
+            v, c2, w2, ROWS, tile=run, fft=fft)),
+                f"K1 at runs of {run} rows differs from the default runs")
+    log("K1: bit-equal to the torch-float32 FFT replay of K7's output; runs "
+        "of 48 rows, one ring and the default give the same bits")
 
 
 # K7 beyond the flagship: (channels m, taps, rows short of n_out + taps - 1,
@@ -696,32 +716,41 @@ def k7_shapes(torch, channelizer, n_out: int = 4096) -> float:
 
 
 def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
-    """K1 at m channels (2m lanes): "auto" in pfb_channelize launches it,
-    it agrees with its plain version, and its default tile (fewer rows at
-    wider rows) gives the bits of tile 48."""
+    """K1 at m channels (2m lanes): "auto" in pfb_channelize launches it
+    (the FFT instance at m in planes_fft.CHANNELS, bit-equal to the FFT
+    replay of K7's output; the dense instance elsewhere), it agrees with
+    its plain version, and runs of 48 rows give the default's bits."""
     from newsched_tpu_torch.ops import firdes, pfb
 
     arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(m, L), m)
     consts = pfb.pfb_consts(arm, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(m)
     x = torch.randn(n_out * m, dtype=torch.complex64, device="cuda", generator=gen)
-    before = channelizer.arm_fold_dft.launches
+    fn = channelizer.arm_fold_dft
+    count = "launches" if consts.fft is not None else "dense_launches"
+    before = getattr(fn, count)
     pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x, consts=consts)
-    require(channelizer.arm_fold_dft.launches == before + 1,
-            f"pfb_channelize auto at M={m} did not launch K1")
+    require(getattr(fn, count) == before + 1,
+            f"pfb_channelize auto at M={m} did not launch K1 ({count})")
     xfull = torch.cat([torch.zeros(m * L - 1, dtype=x.dtype, device="cuda"), x])
     v = channelizer.complex_to_interleaved(
         xfull[:(n_out + L - 1) * m].reshape(-1, m))
-    got = channelizer.arm_fold_dft(v, consts.c2, consts.w2, n_out)
+    got = fn(v, consts.c2, consts.w2, n_out, fft=consts.fft)
     ref = channelizer.arm_fold_dft_plain(v, consts.c2, consts.w2, n_out)
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    log(f"arm_fold_dft at M={m}: {n_out} x {2 * m} rows, max abs err vs plain "
-        f"{err:.3e} = {err / scale:.3e} of max|out| (tol {FOLD_TOL}); launched "
-        f"by pfb_channelize auto")
+    what = "FFT" if consts.fft is not None else "dense"
+    log(f"arm_fold_dft at M={m} ({what} instance): {n_out} x {2 * m} rows, max "
+        f"abs err vs plain {err:.3e} = {err / scale:.3e} of max|out| (tol "
+        f"{FOLD_TOL}); launched by pfb_channelize auto")
     require(err <= FOLD_TOL * scale, f"K1 at M={m} disagrees with plain")
-    require(torch.equal(got, channelizer.arm_fold_dft(v, consts.c2, consts.w2,
-                                                      n_out, tile=48)),
+    if consts.fft is not None:
+        rep = channelizer.fft_interleaved(
+            channelizer.arm_fold(v, consts.c2, n_out), consts.fft)
+        require(torch.equal(got, rep), f"K1 at M={m} differs from the FFT "
+                f"replay of K7's output")
+    require(torch.equal(got, fn(v, consts.c2, consts.w2, n_out, tile=48,
+                                fft=consts.fft)),
             f"K1 at M={m}: tile 48 differs from the default tile")
     return err
 
@@ -2262,6 +2291,377 @@ def phase_pacing(card: str) -> float:
     return err
 
 
+# -- K9 past the FFT's taps; the chains and K1 past 64 channels --------------
+
+K9_WIDE_TAPS = (514, 1024)  # the direct instance's (past FFT_MAX_TAPS = 513)
+K9_WIDE_N = 2 * FIR_BATCH   # the 1024-tap live graph: two batches, graph mode
+WIDE_M = (128, 192, 256)    # channels past the flagship's the chains take
+WIDE_ROWS = 16384           # planes rows a batch at those widths
+K1_DENSE_M = 320            # a width K1 takes by its dense instance
+
+
+def wide_taps(torch, ntaps: int):
+    """Config #0's lowpass at ``ntaps``, and K9's constants for it."""
+    from newsched_tpu_torch.ops import firdes
+    from newsched_tpu_torch.ops.cuda import fir_source
+
+    taps = firdes.low_pass(1.0, FIR_FS, 0.2 * FIR_FS, 0.05 * FIR_FS,
+                           ntaps=ntaps)
+    return taps, fir_source.fir_tone_consts(taps, "cuda")
+
+
+def phase_k9_direct(torch, fir_source) -> dict:
+    """40. K9's direct instance at 514 and 1024 taps: within K9_TOL of its
+    plain version (two batches from stream start, D = 1 and 4), counted on
+    ``direct_launches`` (the FFT instance never), bit-identical at tile 256
+    and for four batches of 2^20 against two of 2^21; past its stated
+    limit a ValueError names it. Then the live fir_chain at 1024 taps in
+    graph mode against its float64 golden (the fixed-point tone through
+    the FIR, by FFT convolution), its launches counted."""
+    from scipy.signal import fftconvolve
+
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.ops import nco
+    from newsched_tpu_torch.testing import fxpt_tone, snr_db
+
+    dp = nco.freq_to_dphase(FIR_FREQ, FIR_FS)
+    worst = 0.0
+    for nt in K9_WIDE_TAPS:
+        taps, tc = wide_taps(torch, nt)
+        for D in (1, 4):
+            outs = {}
+            for kind, step in (("kernel", fir_source.fir_tone_step),
+                               ("plain", fir_source.fir_tone_step_plain)):
+                ph, first, parts = 0, True, []
+                for _ in range(2):
+                    arg = tc if kind == "kernel" else tc.taps
+                    parts.append(step(ph, dp, 0.8, first, arg, D, FIR_R))
+                    ph, first = nco.nco_advance(ph, dp, FIR_BATCH), False
+                outs[kind] = torch.cat(parts)
+            err = float((outs["kernel"] - outs["plain"]).abs().max())
+            scale = float(outs["plain"].abs().max())
+            log(f"K9 direct instance, {nt} taps, D={D}: 2 batches from stream "
+                f"start, max abs err vs plain {err:.3e} = {err / scale:.3e} of "
+                f"max|out| (tol {K9_TOL})")
+            require(err <= K9_TOL * scale, f"K9 at {nt} taps, D={D}: kernel "
+                    f"disagrees with its plain version")
+            worst = max(worst, err)
+        fft0, dir0 = fir_source.fir_tone_step.launches, \
+            fir_source.fir_tone_step.direct_launches
+        base = torch.cat([fir_source.fir_tone_step(0, dp, 0.8, True, tc, 1,
+                                                   FIR_R),
+                          fir_source.fir_tone_step(nco.nco_advance(0, dp,
+                                                                   FIR_BATCH),
+                                                   dp, 0.8, False, tc, 1,
+                                                   FIR_R)])
+        require(fir_source.fir_tone_step.launches == fft0
+                and fir_source.fir_tone_step.direct_launches == dir0 + 2,
+                f"K9 at {nt} taps: not the direct instance")
+        tiled = torch.cat([fir_source.fir_tone_step(
+            0, dp, 0.8, True, tc, 1, FIR_R, tile=256),
+            fir_source.fir_tone_step(nco.nco_advance(0, dp, FIR_BATCH), dp,
+                                     0.8, False, tc, 1, FIR_R, tile=256)])
+        ph, first, half = 0, True, []
+        for _ in range(4):
+            half.append(fir_source.fir_tone_step(ph, dp, 0.8, first, tc, 1,
+                                                 FIR_R // 2))
+            ph, first = nco.nco_advance(ph, dp, FIR_BATCH // 2), False
+        require(torch.equal(base, tiled),
+                f"K9 direct at {nt} taps: tile 256 differs from the default")
+        full = torch.cat([fir_source.unfold_complex(base[:FIR_R]),
+                          fir_source.unfold_complex(base[FIR_R:])])
+        split = torch.cat([fir_source.unfold_complex(h) for h in half])
+        require(torch.equal(full, split), f"K9 direct at {nt} taps: batches "
+                f"of 2^20 differ from batches of 2^21")
+        log(f"K9 direct instance, {nt} taps: tile 256 and the default, "
+            f"batches of 2^20 and 2^21 give bit-identical output")
+    limit = fir_source.direct_max_taps(1, fir_source.pick_direct_tile(FIR_R, 1))
+    try:
+        fir_source.fir_tone_step(0, dp, 0.8, True,
+                                 wide_taps(torch, limit + 1)[1], 1, FIR_R)
+        require(False, f"K9 took {limit + 1} taps, past its stated limit")
+    except ValueError as e:
+        require(f"at most {limit} taps" in str(e), f"K9's refusal: {e}")
+        log(f"K9 at {limit + 1} taps raises: {e}")
+    # the live graph at 1024 taps, two batches: graph mode
+    nt = K9_WIDE_TAPS[-1]
+    fg, blks = models.fir_chain(n_samples=K9_WIDE_N, fs=FIR_FS, ntaps=nt,
+                                frequency=FIR_FREQ, batch_size=FIR_BATCH,
+                                sink="vector", source="live")
+    fir_source.fir_tone_step.launches = 0
+    fir_source.fir_tone_step.direct_launches = 0
+    fg.run(device="cuda")
+    launches = fir_source.fir_tone_step.direct_launches
+    got = blks["sink"].data()
+    x = fxpt_tone(K9_WIDE_N, dp)
+    ref = fftconvolve(x, np.asarray(blks["taps"], np.float64))[:K9_WIDE_N]
+    snr = snr_db(ref, got)
+    log(f"fir_chain live at {nt} taps (graph mode, {K9_WIDE_N} samples): SNR "
+        f"vs float64 golden {snr:.2f} dB (gate {FIR_GATE_DB}); direct "
+        f"instance launched {launches} times, the FFT instance "
+        f"{fir_source.fir_tone_step.launches}")
+    require(got.shape == (K9_WIDE_N,) and snr >= FIR_GATE_DB,
+            f"fir_chain live at {nt} taps below its gate")
+    require(launches > 0 and fir_source.fir_tone_step.launches == 0,
+            f"fir_chain live at {nt} taps did not run the direct instance")
+    return {"err": worst, "launches": launches, "snr": snr}
+
+
+def wide_design(m: int):
+    from newsched_tpu_torch.ops import firdes
+
+    taps = firdes.prototype_channelizer_taps(m, L)
+    audio_taps = firdes.low_pass(1.0, 1.0, 0.4 / DECIM, 0.1 / DECIM, ntaps=A)
+    return taps, audio_taps
+
+
+def wide_consts(m: int):
+    from newsched_tpu_torch.blocks import vector_dsp
+
+    taps, audio_taps = wide_design(m)
+    return vector_dsp.fm_channelizer_fused_planes(
+        m, taps, audio_taps, audio_decim=DECIM).consts("cuda")
+
+
+def wide_golden(rows: np.ndarray, m: int, key: str):
+    from newsched_tpu_torch.testing import rows_reference
+
+    if key not in _GOLDEN:
+        taps, audio_taps = wide_design(m)
+        _GOLDEN[key] = rows_reference(rows, taps, audio_taps, nchans=m,
+                                      audio_decim=DECIM,
+                                      demod_gain=DEMOD_GAIN, return_risk=True)
+    return _GOLDEN[key]
+
+
+def wide_noise(torch, noise, m: int, n_rows: int) -> np.ndarray:
+    amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
+    return (noise.gaussian_rows_plain(0, n_rows=n_rows, width=2 * m, seed=0,
+                                      device="cuda") * amp).cpu().numpy()
+
+
+def phase_wide_kernels(torch, fm_chain, noise) -> dict:
+    """41. K3, K5 and K6 at M = 128, 192 and 256 (16 taps an arm, a 65-tap
+    audio FIR decimating by 8, batches of 16384 rows): K3 on two carried
+    batches of an M-station FM band within K3_TOL of its plain version,
+    bit-identical at tile 64 and at its default; K5 from stream start
+    bit-equal to K4 * amp -> K3 and within K5_TOL of its plain version off
+    the golden's branch-cut mask; K6 at a quarter batch from shard 3
+    bit-equal to K5's stream there and within K5_TOL of its plain
+    version. Returns the worst errors."""
+    from newsched_tpu_torch.testing import planes_rows
+
+    n = WIDE_ROWS
+    worst = {"K3": 0.0, "K5": 0.0, "K6": 0.0}
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    for m in WIDE_M:
+        consts = wide_consts(m)
+        W = 2 * m
+        rows = torch.from_numpy(planes_rows(fm_band(2 * n * m, "cuda", m),
+                                            m)).cuda()
+
+        def k3(step, **kw):
+            halo, prev = torch.zeros(16, W, **z), torch.zeros(1, W, **z)
+            tail, outs = torch.zeros(A - 1, W, **z), []
+            for b in range(2):
+                vb = rows[b * n:(b + 1) * n]
+                aud, prev, tail = step(vb, halo, prev, tail, consts, DECIM,
+                                       DEMOD_GAIN, **kw)
+                outs += [aud, prev, tail]
+                halo = vb[-16:].contiguous()
+            return outs
+
+        got = k3(fm_chain.fm_chain_step_planes)
+        err = max(float((g - r).abs().max()) for g, r in
+                  zip(got, k3(fm_chain.fm_chain_step_planes_plain)))
+        require(err <= K3_TOL, f"K3 at M={m}: {err:.3e} from its plain version")
+        require(all(torch.equal(a, b) for a, b in
+                    zip(got, k3(fm_chain.fm_chain_step_planes, tile=64))),
+                f"K3 at M={m}: tile 64 differs from the default tile")
+        worst["K3"] = max(worst["K3"], err)
+        zero = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+                torch.zeros(A - 1, W, **z))
+        g0 = noise.group_tensor(0, "cuda")
+        k5 = fm_chain.fm_chain_gen_step(g0, amp, *zero, consts, DECIM,
+                                        DEMOD_GAIN, n)
+        nrows = noise.gaussian_rows(g0, n_rows=n, width=W, seed=0,
+                                    device="cuda") * amp
+        k4k3 = fm_chain.fm_chain_step_planes(nrows, *zero, consts, DECIM,
+                                             DEMOD_GAIN)
+        require(all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3))
+                and torch.equal(k5[3], nrows[-16:]),
+                f"K5 at M={m}: differs from K4 * amp -> K3")
+        _, bad = wide_golden(wide_noise(torch, noise, m, n), m,
+                             f"noise M={m}")
+        p5 = fm_chain.fm_chain_gen_step_plain(g0, amp, *zero, consts, DECIM,
+                                              DEMOD_GAIN, n)
+        e5 = float(np.abs(k5[0].cpu().numpy() - p5[0].cpu().numpy())[~bad].max())
+        require(e5 <= K5_TOL, f"K5 at M={m}: {e5:.3e} from its plain version")
+        q = n // 4
+        k6 = fm_chain.fm_chain_gen_warm_step(g0, amp, consts, DECIM,
+                                             DEMOD_GAIN, q, warm=K6_WARM,
+                                             goff=3 * q // 64)
+        sl = slice(3 * q // DECIM, n // DECIM)
+        require(torch.equal(k6, k5[0][sl]),
+                f"K6 at M={m}: differs from K5's stream at shard 3")
+        p6 = fm_chain.fm_chain_gen_warm_step_plain(3 * q // 64, amp, consts,
+                                                   DECIM, DEMOD_GAIN, q,
+                                                   K6_WARM)
+        e6 = float(np.abs(k6.cpu().numpy() - p6.cpu().numpy())[~bad[sl]].max())
+        require(e6 <= K5_TOL, f"K6 at M={m}: {e6:.3e} from its plain version")
+        worst["K5"], worst["K6"] = max(worst["K5"], e5), max(worst["K6"], e6)
+        log(f"M={m} ({W} lanes, {n} rows): K3 {err:.3e} from plain (tol "
+            f"{K3_TOL}), tiles 64 and {fm_chain._fit_tile(128, W, A, L, DECIM, DECIM)}"
+            f" bit-identical; K5 bit-equal to K4 * amp -> K3, {e5:.3e} from "
+            f"plain off the branch cut (tol {K5_TOL}); K6 bit-equal to K5's "
+            f"stream at shard 3, {e6:.3e} from plain")
+    return worst
+
+
+def wide_graph(m: int, source, n_batches: int, batch: int, **kw):
+    from newsched_tpu_torch import models
+
+    taps, audio_taps = wide_design(m)
+    return models.fm_channelizer(
+        nchans=m, taps_per_arm=L, audio_decim=DECIM, fused=kw.pop("fused", True),
+        source=source, batch_size=batch, sink="vector",
+        n_samples=n_batches * batch // m // DECIM,
+        deviation_frac=1.0 / (2 * np.pi * DEMOD_GAIN), audio_taps=audio_taps,
+        **kw)
+
+
+def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
+    """42. The fused (a replayed M-station FM band) and live
+    fm_channelizer flowgraphs at M = 128, 192 and 256, two batches each in
+    graph mode: >= 95 dB against the float64 golden off its branch-cut
+    mask, K3 and K5 launched on them. At M = 128 also: both at half the
+    batch, bit-equal; the live graph on 4 shards (K6), bit-equal to the
+    unsharded one; the staged graph (K4 -> K1 -> torch ops) >= 60 dB with
+    K1 launched. Returns the M = 128 paths' launch counts."""
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.parallel import make_mesh
+    from newsched_tpu_torch.testing import planes_rows, snr_db
+
+    counts = {}
+    for m in WIDE_M:
+        batch = WIDE_ROWS * m
+        rows = planes_rows(fm_band(batch, "cuda", m), m)
+        out = {}
+        for kind, source in (("fused", general.vector_source(rows, repeat=True)),
+                             ("live", "live")):
+            fm_chain.fm_chain_step_planes.launches = 0
+            fm_chain.fm_chain_gen_step.launches = 0
+            fg, blks = wide_graph(m, source, 2, batch)
+            fg.run(device="cuda")
+            got = blks["sink"].data()
+            stream = (np.concatenate([rows, rows]) if kind == "fused"
+                      else wide_noise(torch, noise, m, 2 * WIDE_ROWS))
+            ref, bad = wide_golden(stream, m, f"{kind} M={m}")
+            require(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                    f"{kind} M={m}: shape {got.shape} or non-finite")
+            snr = snr_db(ref[~bad], got[~bad])
+            k = (fm_chain.fm_chain_step_planes.launches if kind == "fused"
+                 else fm_chain.fm_chain_gen_step.launches)
+            log(f"{kind} flowgraph at M={m} (graph mode, 2 batches of {batch}):"
+                f" SNR vs float64 golden {snr:.2f} dB on {int((~bad).sum())} "
+                f"samples (gate {SNR_GATE_DB}); "
+                f"{'K3' if kind == 'fused' else 'K5'} launched {k} times")
+            require(snr >= SNR_GATE_DB, f"{kind} M={m}: SNR {snr:.2f} dB")
+            require(k > 0, f"{kind} M={m}: its kernel never launched")
+            out[kind] = got
+            if m == WIDE_M[0]:
+                counts[kind] = k
+        if m != WIDE_M[0]:
+            continue
+        for kind, source in (("fused", general.vector_source(rows, repeat=True)),
+                             ("live", "live")):
+            fg, blks = wide_graph(m, source, 4, batch // 2)
+            fg.run(device="cuda")
+            require(np.array_equal(blks["sink"].data(), out[kind]),
+                    f"{kind} M={m}: batches of {batch // 2} differ")
+        fm_chain.fm_chain_gen_warm_step.launches = 0
+        fg, blks = wide_graph(m, "live", 2, batch)
+        fg.run(device="cuda", mesh=make_mesh(4))
+        counts["K6"] = fm_chain.fm_chain_gen_warm_step.launches
+        require(np.array_equal(blks["sink"].data(), out["live"])
+                and counts["K6"] == 8,
+                f"live M={m} on 4 shards differs, or K6 not 4 times a batch")
+        channelizer.arm_fold_dft.launches = 0
+        fg, blks = wide_graph(m, None, 2, batch, fused=False)
+        fg.run(device="cuda")
+        counts["K1"] = channelizer.arm_fold_dft.launches
+        r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
+                                      seed=0, device="cuda")
+        x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
+             * 0.5).cpu().numpy()
+        ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
+        snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
+        log(f"M={m}: fused and live at batches of {batch // 2} bit-equal to "
+            f"batches of {batch}; live on 4 shards bit-equal, K6 launched "
+            f"{counts['K6']} times; staged {snr:.2f} dB (gate "
+            f"{STAGED_GATE_DB}), K1 launched {counts['K1']} times")
+        require(snr >= STAGED_GATE_DB and counts["K1"] > 0,
+                f"staged M={m}: {snr:.2f} dB, or K1 never launched")
+    return counts
+
+
+def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
+                     card: str) -> dict:
+    """43. Times at M = 128 (batches of 16384 rows of 256 lanes): K3, K5,
+    K6 at a 4-shard batch's 4096 rows and K1, by CUDA-graph replay, beside
+    their plain versions; K9's direct instance at 1024 taps beside its
+    plain version (3 calls: its 1024 taps are 1024 tensor passes)."""
+    from newsched_tpu_torch.ops import nco, pfb
+
+    m, n = WIDE_M[0], WIDE_ROWS
+    W = 2 * m
+    consts = wide_consts(m)
+    z = dict(dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(128)
+    vb = torch.randn(n, W, device="cuda", generator=g) * 0.5
+    st = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+          torch.zeros(A - 1, W, **z))
+    amp = torch.tensor(0.5, **z)
+    g0 = noise.group_tensor(0, "cuda")
+    b6 = noise.group_tensor(3 * (n // 4) // 64, "cuda")
+    taps, _ = wide_design(m)
+    pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
+    v = torch.randn(n + L - 1, W, device="cuda", generator=g) * 0.5
+    k5_args = (g0, amp, *st, consts, DECIM, DEMOD_GAIN, n)
+    t = alternate({
+        "K3w plain": lambda: fm_chain.fm_chain_step_planes_plain(
+            vb, *st, consts, DECIM, DEMOD_GAIN),
+        "K3w": lambda: fm_chain.fm_chain_step_planes(vb, *st, consts, DECIM,
+                                                     DEMOD_GAIN),
+        "K5w plain": lambda: fm_chain.fm_chain_gen_step_plain(*k5_args),
+        "K5w": lambda: fm_chain.fm_chain_gen_step(*k5_args),
+        "K6w plain": lambda: fm_chain.fm_chain_gen_warm_step_plain(
+            b6, amp, consts, DECIM, DEMOD_GAIN, n // 4, K6_WARM),
+        "K6w": lambda: fm_chain.fm_chain_gen_warm_step(
+            b6, amp, consts, DECIM, DEMOD_GAIN, n // 4, warm=K6_WARM),
+        "K1w plain": lambda: channelizer.arm_fold_dft_plain(v, pc.c2, pc.w2, n),
+        "K1w": lambda: channelizer.arm_fold_dft(v, pc.c2, pc.w2, n,
+                                                fft=pc.fft),
+    }, PLAIN_REPS)
+    ms = {k: min(x) for k, x in t.items()}
+    for kid in ("K3w", "K5w", "K6w", "K1w"):
+        log(f"{kid} at M={m}: kernel {t[kid]} ms, plain {t[kid + ' plain']} "
+            f"ms [{card}]")
+    _, tc = wide_taps(torch, K9_WIDE_TAPS[-1])
+    ph = nco.phase_tensor(7, "cuda")
+    dp = nco.phase_tensor(nco.freq_to_dphase(FIR_FREQ, FIR_FS), "cuda")
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
+    a8 = torch.tensor(0.8, **z)
+    ms["K9d"] = min(graph_ms(lambda: fir_source.fir_tone_step(
+        ph, dp, a8, off, tc, 1, FIR_R)) for _ in range(2))
+    ms["K9d plain"] = median_ms(lambda: fir_source.fir_tone_step_plain(
+        ph, dp, a8, off, tc.taps, 1, FIR_R), reps=3, inner=1, warmup=1)
+    log(f"K9 direct instance, {K9_WIDE_TAPS[-1]} taps ({FIR_R} x 128 rows): "
+        f"kernel {ms['K9d']:.4f} ms, plain {ms['K9d plain']:.4f} ms [{card}]")
+    return ms
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -2285,6 +2685,34 @@ PHILOX_OPS = 10 * 10 + 14           # 10 rounds, Irwin-Hall sum and scale
 # outputs, ~121 flops a complex output (K9 takes 256 points, 128 outputs a
 # transform: ~172)
 FIR_FFT_OPS = 121
+
+
+def fir_fft_ops(ntaps: int) -> float:
+    """Flops a complex output of an overlap-save FFT convolution with real
+    taps at its most economical power-of-two length N: a forward and an
+    inverse FFT (2 x 5 N log2 N) and N complex products (6 N) per N -
+    ntaps + 1 outputs."""
+    return min((10 * N * np.log2(N) + 6 * N) / (N - ntaps + 1)
+               for N in (1 << k for k in range(8, 20)) if N > 2 * ntaps)
+
+
+def chain_bounds(m: int, n: int, n6: int) -> dict:
+    """(bound ms, bound_by) of K3, K5, K6 (at n6 rows) and K1 at m channels
+    and n rows, as kernel_bounds counts them at the flagship's."""
+    f4, W = 4, 2 * m
+    fold = 2 * L * n * W
+    fft = 5 * m * np.log2(m) * n
+    audio = 2 * A * (n // DECIM) * m
+    demod = DEMOD_OPS * n * m
+    chain_out = ((n // DECIM) * m + (A - 1) * W + W) * f4
+    r6 = n6 / n
+    k6_ops = (fold + fft + demod + audio) * r6 + PHILOX_OPS * (n6 + A + L - 1) * W
+    return {
+        "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
+        "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
+        "K6": bound((n6 // DECIM) * m * f4, k6_ops),
+        "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
+    }
 
 
 def kernel_bounds() -> dict:
@@ -2313,7 +2741,12 @@ def kernel_bounds() -> dict:
     # real taps on complex samples (4 flops a tap), demod, real resampler
     wb_chain = 4 * 81 * U + DEMOD_OPS * U + 2 * 121 * WB_NAUD * 64
     rotate = (NCO_OPS + 6) * WB_BATCH  # NCO + a complex multiply a sample
+    wide = chain_bounds(WIDE_M[0], WIDE_ROWS, WIDE_ROWS // 4)
     return {
+        **{k + "w": v for k, v in wide.items()},
+        # the direct instance's function: config #0 at 1024 taps
+        "K9d": bound(FIR_R * 128 * f4, (NCO_OPS + fir_fft_ops(
+            K9_WIDE_TAPS[-1])) * FIR_BATCH),
         "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
         "K4": bound(n * W * f4, PHILOX_OPS * n * W),
         "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
@@ -2467,7 +2900,7 @@ def main() -> int:
                                first_batch_d2)
 
     # 15. times
-    c2, w2 = fold_consts(torch, channelizer)
+    c2, w2, fft = fold_consts(torch, channelizer)
     v = commutator(torch, channelizer, x)
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
     k5_rows = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)
@@ -2480,7 +2913,7 @@ def main() -> int:
         "K7": probes.rotating(lambda i: (vs[i],), lambda vv:
                               channelizer.arm_fold(vv, c2, ROWS)),
         "K1 plain": lambda: channelizer.arm_fold_dft_plain(v, c2, w2, ROWS),
-        "K1": lambda: channelizer.arm_fold_dft(v, c2, w2, ROWS),
+        "K1": lambda: channelizer.arm_fold_dft(v, c2, w2, ROWS, fft=fft),
         "K5 plain": lambda: fm_chain.fm_chain_gen_step_plain(*k5_args),
         "K4 -> K3": lambda: k5_rows(*k5_args, draws=3),
         "K5": lambda: fm_chain.fm_chain_gen_step(*k5_args),
@@ -2749,6 +3182,15 @@ def main() -> int:
         f"= {BATCH / step / 1e3:.1f} Msamples/s [{card}]")
     phase_pacing(card)
     log(f"phases 35-39: {time.monotonic() - t35:.1f} s")
+
+    # 40-43. K9 past the FFT's taps; the chains and K1 past 64 channels
+    t40 = time.monotonic()
+    k9d = phase_k9_direct(torch, fir_source)
+    wide_err = phase_wide_kernels(torch, fm_chain, noise)
+    wide = phase_wide_graphs(torch, fm_chain, noise, channelizer)
+    ms.update(phase_wide_times(torch, fm_chain, channelizer, fir_source,
+                               noise, card))
+    log(f"phases 40-43: {time.monotonic() - t40:.1f} s")
     ms.update(pt["t"])
     lib["window_copy"] = pt["t"]["window_copy library"]
     lib["planes_unpack"] = pt["t"]["planes_unpack library"]
@@ -2821,6 +3263,16 @@ def main() -> int:
               probe_err["ablate"]),
         entry("fm_chain_step_planes[audio_groups]", "K3ag", "fm_chain.cu",
               "fm_chain.py:251", k3ag["launches"], k3ag["err"]),
+        entry("fir_tone_step[direct]", "K9d", "fir_direct.cu",
+              "fir_source.py:89", k9d["launches"], k9d["err"]),
+        entry("fm_chain_step_planes[M=128]", "K3w", "fm_chain.cu",
+              "fm_chain.py:421", wide["fused"], wide_err["K3"]),
+        entry("fm_chain_gen_step[M=128]", "K5w", "fm_chain.cu",
+              "fm_chain.py:591", wide["live"], wide_err["K5"]),
+        entry("fm_chain_gen_warm_step[M=128]", "K6w", "fm_chain.cu",
+              "fm_chain.py:724", wide["K6"], wide_err["K6"]),
+        entry("arm_fold_dft[M=128]", "K1w", "channelizer.cu",
+              "channelizer.py:209", wide["K1"], fold_err["arm_fold_dft"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

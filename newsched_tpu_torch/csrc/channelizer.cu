@@ -38,18 +38,32 @@
 //
 // Bounds on the H100 at the flagship shape (32768 x 128 rows): K7 moves
 // 16.8 MB in and 16.8 MB out, ~10 us at 3.35 TB/s, against 2*L flops a
-// lane (~2 flops/byte): memory-bound. K1 adds the DFT, 2*128^2 flops per
-// row (1.07 GFLOP a batch, ~64 flops/byte): compute-bound in FP32 on the
-// CUDA cores, like K3 but without K3's junction rows. The dense product is
-// this formulation's work, not the function's least: an M-point FFT a row
-// (~5 M log2 M flops, 17x fewer at M=64) leaves K1 memory-bound like K7
-// (chip_smoke.py kernel_bounds). K1 reads its window through the read-only
-// cache (fold_lane: the L-fold reuse is served by L1), folds the tile
-// into shared memory (T x W floats, 64 KB at T=128, W=128) and writes the
-// product straight from registers, 128 columns at a time (tile_mm.cuh), so
-// it takes any W that is a multiple of 128, as the TPU kernel does (M = 64,
-// 128, 192, 256 channels). The FP32 product keeps the TPU kernel's HIGHEST
-// accuracy: bf16 passes left its DFT at 22 dB.
+// lane (~2 flops/byte): memory-bound. K1 adds the phase combine; as an
+// M-point FFT a row (~5 M log2 M flops) it stays memory-bound like K7
+// (chip_smoke.py kernel_bounds), where the TPU's dense (2M x 2M) product,
+// 2*128^2 flops a row at M = 64 (17x the FFT), made it compute-bound.
+//
+// K1 at M = 64, 128, 192 and 256 (the FFT instance) is K7's register ring
+// and the fused chains' FFT (planes_fft.cuh) in one block. A thread owns
+// one channel q, lanes 2q and 2q+1 (a float2), G = 256/M groups of M
+// threads at M <= 128 (one group of M threads above), and each group a run
+// of consecutive rows, folded in registers as K7 folds them (the ring of L
+// + kAhead rows, each input word loaded once a run, the same fmaf chain as
+// K7's, so K1's fold is K7's output bit for bit). Every S = 32/G rows of
+// its run a group has written the folded rows as planes rows (re lanes,
+// then im, swizzled) into one of two 32-row tiles in shared memory; the
+// block then transforms the tile's 32 rows (8 threads a row) and writes
+// them interleaved, two channels a 16-byte store, while the next S rows
+// fold into the other tile. The transform takes the host's twiddles
+// (planes_fft_table) with every operation rounded on its own, so K1's
+// output is the torch-float32 FFT replay of K7's fold bit for bit
+// (channelizer.py fft_interleaved) and does not depend on the run length.
+// Any other 2M that is a multiple of 128 (the TPU kernel's rule) takes the
+// dense instance: the fold read through the read-only cache (fold_lane:
+// the L-fold reuse is served by L1) into a shared-memory tile (T x W
+// floats, 64 KB at T=128, W=128), then the FP32 product with W2 straight
+// from registers, 128 columns at a time (tile_mm.cuh). Both keep the TPU
+// kernel's HIGHEST accuracy: bf16 passes left its DFT at 22 dB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +74,7 @@
 #include <tuple>
 #include <utility>
 
+#include "planes_fft.cuh"
 #include "tile_mm.cuh"
 
 namespace {
@@ -294,6 +309,189 @@ int fold_plan(uintptr_t ptrs, int W, int L, int T, long long n_out,
   return 0;
 }
 
+// ---- K1, the FFT instance ---------------------------------------------------
+
+// Rows a group of an M-channel K1 block folds between two transforms of
+// the block's 32-row tile, the block's threads, and the ring of the fold
+// at kL taps: L + kAhead rows, kAhead >= kL/2 (4 at kL = 4), rounded up to
+// a multiple of the step so that every step's end is a constant place of
+// the unrolled loop (24 rows at M = 64, 16 taps; 32 at M >= 128).
+template <int M, int kL>
+struct FftFold {
+  static constexpr int kG = M <= 128 ? 256 / M : 1;  // groups a block
+  static constexpr int kThreads = M * kG;
+  static constexpr int kS = 32 / kG;                 // rows a step
+  static constexpr int kTileRows = 32;
+  static constexpr int kMin = kL + (kL < 8 ? 4 : kL / 2);
+  static constexpr int kSlots = kL ? (kMin + kS - 1) / kS * kS : kS;
+};
+
+// Block b, group g folds rows [(b G + g) R, +R) of its channel q in
+// registers (kL > 0: K7's ring; 0: any L, each output's rows in turn),
+// R a multiple of kSlots, into the tile, kS rows a step; each full tile is
+// transformed and written.
+template <int M, int kL>
+__global__ void __launch_bounds__(FftFold<M, kL>::kThreads)
+arm_fold_fft_kernel(const float* __restrict__ v, long long n_in,
+                    const float* __restrict__ c2,
+                    const float* __restrict__ tab, float* __restrict__ out,
+                    long long n_out, int l, int R) {
+  using F = FftFold<M, kL>;
+  constexpr int W = 2 * M, P = M / 64, kS = F::kS, kSl = F::kSlots;
+  extern __shared__ __align__(16) float sm[];  // two tiles of 32 x W
+  const int L = kL ? kL : l;
+  const int tid = threadIdx.x, q = tid % M, g = tid / M;
+  const int k = 2 * q;
+  const long long run0 = (long long)blockIdx.x * F::kG * R;
+  const long long t0 = run0 + (long long)g * R;
+  const long long r_end = min(t0 + R + L - 1, n_in);  // rows this run reads
+  const auto load = [&](float (&d)[2], long long r) {
+    if (r < r_end) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(v + r * W + k));
+      d[0] = x.x, d[1] = x.y;
+    } else {
+      d[0] = d[1] = 0.f;
+    }
+  };
+  // row i of step `step` into its tile (the tiles alternate by step)
+  const auto put = [&](int step, int i, const float (&acc)[2]) {
+    float* b = sm + (step & 1) * F::kTileRows * W;
+    const int slot = g * kS + i;
+    b[slot * W + planes_fft::sw(slot, q)] = acc[0];
+    b[slot * W + M + planes_fft::sw(slot, q)] = acc[1];
+  };
+  // the step's tile is full: transform it, write its rows
+  const auto flush = [&](int step) {
+    float* b = sm + (step & 1) * F::kTileRows * W;
+    __syncthreads();
+    {
+      const planes_fft::Tw<P> tw(tab, tid & 7);
+      for (int base = 4 * (tid >> 5); base < F::kTileRows;
+           base += F::kThreads / 8) {
+        const int r = base + ((tid >> 3) & 3);
+        planes_fft::fft_row<P>(b + r * W, r, tid & 7, tw, tab);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < F::kTileRows * (M / 2); e += F::kThreads) {
+      const int j = e / (M / 2), qq = 2 * (e % (M / 2));
+      const long long t = run0 + (long long)(j / kS) * R + step * kS + j % kS;
+      if (t < n_out) {
+        const float* row = b + j * W;
+        const int i0 = planes_fft::sw(j, qq), i1 = planes_fft::sw(j, qq + 1);
+        *reinterpret_cast<float4*>(out + t * W + 2 * qq) =
+            make_float4(row[i0], row[M + i0], row[i1], row[M + i1]);
+      }
+    }
+  };
+  int step = 0;
+  if constexpr (kL > 0) {
+    float tap[kL][2];
+#pragma unroll
+    for (int qq = 0; qq < kL; ++qq) {
+      const float2 c = __ldg(reinterpret_cast<const float2*>(c2 + qq * W + k));
+      tap[qq][0] = c.x, tap[qq][1] = c.y;
+    }
+    float ring[kSl][2];
+#pragma unroll
+    for (int s = 0; s < kSl - 1; ++s) load(ring[s], t0 + s);
+    for (long long c = t0; c < t0 + R; c += kSl) {
+#pragma unroll
+      for (int j = 0; j < kSl; ++j) {
+        // row c + j + kSl - 1 into the slot of row c + j - 1, read last step
+        load(ring[(j + kSl - 1) % kSl], c + j + kSl - 1);
+        float acc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[e] = tap[0][e] * ring[j][e];
+#pragma unroll
+        for (int qq = 1; qq < kL; ++qq)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[e] = fmaf(tap[qq][e], ring[(j + qq) % kSl][e], acc[e]);
+        put(step, j % kS, acc);
+        if (j % kS == kS - 1) flush(step++);
+      }
+    }
+  } else {
+    for (long long c = t0; c < t0 + R; c += kS) {
+      for (int i = 0; i < kS; ++i) {
+        const long long t = c + i;
+        float acc[2], x[2];
+        load(x, t);
+        const float2 c0 = __ldg(reinterpret_cast<const float2*>(c2 + k));
+        acc[0] = c0.x * x[0], acc[1] = c0.y * x[1];
+        for (int qq = 1; qq < L; ++qq) {
+          load(x, t + qq);
+          const float2 cq =
+              __ldg(reinterpret_cast<const float2*>(c2 + qq * W + k));
+          acc[0] = fmaf(cq.x, x[0], acc[0]);
+          acc[1] = fmaf(cq.y, x[1], acc[1]);
+        }
+        put(step, i, acc);
+      }
+      flush(step++);
+    }
+  }
+}
+
+using FftFoldKernel = void (*)(const float*, long long, const float*,
+                               const float*, float*, long long, int, int);
+
+template <int M>
+FftFoldKernel fft_fold_instance(int L) {
+  switch (L) {
+    case 4: return arm_fold_fft_kernel<M, 4>;
+    case 8: return arm_fold_fft_kernel<M, 8>;
+    case 16: return arm_fold_fft_kernel<M, 16>;
+    default: return arm_fold_fft_kernel<M, 0>;
+  }
+}
+
+// The ring's rows at L taps: a run is a whole number of them.
+template <int M>
+int fold_fft_slots(int L) {
+  switch (L) {
+    case 4: return FftFold<M, 4>::kSlots;
+    case 8: return FftFold<M, 8>::kSlots;
+    case 16: return FftFold<M, 16>::kSlots;
+    default: return FftFold<M, 0>::kSlots;
+  }
+}
+
+// One K1 FFT-instance launch: rows a run R (the hint, or one wave of the
+// card's resident blocks, rounded up to whole rings), its shared memory,
+// its grid.
+template <int M>
+int launch_fold_fft(const float* v, long long n_in, const float* c2,
+                    const float* tab, float* out, long long n_out, int L,
+                    int R, cudaStream_t stream) {
+  using F = FftFold<M, 0>;  // the block's shape, the same at every L
+  const FftFoldKernel fn = fft_fold_instance<M>(L);
+  const int unit = fold_fft_slots<M>(L);  // R a whole number of rings
+  const size_t smem = (size_t)2 * F::kTileRows * 2 * M * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (R <= 0) {
+    int dev = 0, sms = 0, blocks = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                          F::kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long runs = (long long)F::kG * std::max(1, blocks * sms);
+    R = (int)std::max(1LL, (n_out + runs - 1) / runs);
+  }
+  R = (R + unit - 1) / unit * unit;
+  const long long per_block = (long long)F::kG * R;
+  const unsigned grid =
+      (unsigned)std::max(1LL, (n_out + per_block - 1) / per_block);
+  fn<<<grid, F::kThreads, smem, stream>>>(v, n_in, c2, tab, out, n_out, L, R);
+  return (int)cudaGetLastError();
+}
+
 // ---- K1 --------------------------------------------------------------------
 
 // K1: fold T rows into shared memory, then Y = acc @ W2 in passes of 32
@@ -366,6 +564,25 @@ extern "C" int arm_fold_dft_launch(const float* v, long long n_in,
     case 256: return launch_fold_dft<256>(v, n_in, c2, w2, out, n_out, W, L, T, s);
     case 512: return launch_fold_dft<512>(v, n_in, c2, w2, out, n_out, W, L, T, s);
     default: return launch_fold_dft<0>(v, n_in, c2, w2, out, n_out, W, L, T, s);
+  }
+}
+
+// K1's FFT instance (M = 64, 128, 192, 256): tab the (4, M) table of
+// planes_fft_table; R rows a run of each group (0: one wave).
+extern "C" int arm_fold_fft_launch(const float* v, long long n_in,
+                                   const float* c2, const float* tab,
+                                   float* out, long long n_out, int M, int L,
+                                   int R, void* stream) {
+  if (L < 1 || R < 0 || n_out < 0 ||
+      (((uintptr_t)v | (uintptr_t)c2) & 7) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (M) {
+    case 64: return launch_fold_fft<64>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 128: return launch_fold_fft<128>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 192: return launch_fold_fft<192>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 256: return launch_fold_fft<256>(v, n_in, c2, tab, out, n_out, L, R, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

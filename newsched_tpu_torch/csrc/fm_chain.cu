@@ -65,7 +65,7 @@
 // demod and the audio FIR; under it K3's least time is its bytes and K5's
 // its Philox (chip_smoke.py kernel_bounds). The TPU formulation takes the
 // DFT as a dense (2M x 2M) product on its MXU, 32 KFLOP a row, 17x the
-// FFT; here each row is a 64-point FFT in shared memory (stage 2 below),
+// FFT; here each row is an FFT in shared memory (stage 2 below),
 // so the chain's arithmetic is the function's, plus the junction
 // recompute (A rows a tile: +51% at T=128). As on the TPU, Y and aud
 // never leave the chip: the block keeps its (T+A, 2M) tile in shared
@@ -80,24 +80,24 @@
 // junction), not once per tap. The window fits in the padded tile at T =
 // 64, 128 and 256 (at most L-1 more rows elsewhere).
 //
-// Stage 2, the planes DFT as an FFT. W2 maps [ar | ai] to Y with Y[j] =
-// e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}: a 64-point complex DFT,
-// then a per-channel post-twiddle. 8 threads take a row, 4 rows a warp, 64
-// = 8 x 8: thread n1 loads a[n1 + 8 n2] (n2 = 0..7), does a radix-8 DFT
-// over n2, multiplies by W64^(n1 k1), exchanges through the row itself
-// (__syncwarp between every read and write of the row), does the second
-// radix-8 DFT over n1, applies the post-twiddle and writes Y[k1 + 8 k2]:
-// ~2,000 flops a row in place of 32 KFLOP. The twiddles are the host's
-// (ops/cuda/fm_chain.py planes_fft_table: float64, cast to float32, K3's
-// `tw` argument). Every multiply and add is rounded on its own (no FMA
-// contraction), so the arithmetic is fixed whatever the compiler does and
-// a row's Y never depends on the block, tile or kernel that transforms it;
-// tests/test_torch_fft.py repeats it in torch float32. Rows are 128 floats,
-// all starting at bank 0, so the tile buffer keeps acc and Y rows
-// swizzled: logical lane k of buffer row r sits at k ^ ((r & 3) << 3)
-// (sw below), which puts the 4 rows of a warp on 4 disjoint sets of 8
-// banks; the exchange has its own conflict-free layout (xch below). The
+// Stage 2, the planes DFT as an FFT (planes_fft.cuh, shared with K1 in
+// channelizer.cu). W2 maps [ar | ai] to Y with Y[j] = e^{-2 pi i j/M}
+// sum_k a[k] e^{-2 pi i jk/M}: at M = 64 a 64-point FFT of 8 x 8 by 8
+// threads a row, 4 rows a warp (~2,000 flops a row in place of 32 KFLOP);
+// at M = 128, 192 and 256 a radix-2, 3 or 4 step and two to four of those
+// 64-point FFTs. The twiddles are the host's (ops/cuda/planes_fft.py
+// planes_fft_table, K3's `tw` argument) and every operation is rounded on
+// its own, so a row's Y never depends on the block, tile or kernel that
+// transforms it; tests/test_torch_fft.py repeats it in torch float32. The
+// tile buffer keeps acc and Y rows swizzled (planes_fft.cuh sw); the
 // window before the fold and the aud rows after the demod stay natural.
+//
+// The width 2M is a template parameter of the kernels: 128 lanes (M = 64)
+// take chain_tile as above; 256, 384 and 512 (M = 128, 192, 256) take
+// chain_tile_wide, whose layout passes 32 rows at a time through a window
+// and keeps the demod's output apart, because chain_tile's buffer would
+// not fit in shared memory at M = 192 and 256 (its header below). K3p and
+// the ablation probe are built at 128 lanes only.
 //
 // K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
 // taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
@@ -118,17 +118,18 @@
 
 #include "mathfns.cuh"
 #include "philox.cuh"
+#include "planes_fft.cuh"
 
 namespace {
 
 using mathfns::AtanCoeffs;
 using mathfns::atan2_poly;
+using planes_fft::sw;
 
 constexpr int kThreads = 256;
-constexpr int kChunkRows = 32;  // rows a fold pass (16 a thread)
-constexpr int kW = 128;         // planes lanes, 2M for M = 64 channels
-constexpr int kM = kW / 2;
+constexpr int kChunkRows = 32;  // rows a fold pass (16 a group of lanes)
 constexpr int kFoldL = 16;      // the fold's taps with a register window
+constexpr int kFlagW = 128;     // planes lanes of the flagship, M = 64
 
 // The stages of a tile, each of which a variant of the ablation probe
 // (newsched_tpu_torch/probes/ablate.py; the reference's
@@ -159,6 +160,7 @@ struct Chain {
   float* tail_out;     // (A-1, W)
   int n, L, H8, A, decim, T;
   int t_min;  // the stream's first row, relative to the batch
+  int ag;     // the audio stage's bands, where the kernel reads them here
   float gain;
   AtanCoeffs co;
 };
@@ -207,204 +209,95 @@ __host__ __device__ __forceinline__ int tile_rows(int T, int A, int L) {
 // The tile buffer's row jj holds stream row t0 - A + jj (jj < T + A): acc,
 // then Y, then aud in the re half. Every value is computed by the same
 // code whichever kernel, block or tile computes it. acc and Y rows are
-// swizzled: logical lane k of buffer row r at sw(r, k); the input window
-// and the aud rows are natural.
-__device__ __forceinline__ int sw(int r, int k) { return k ^ ((r & 3) << 3); }
+// swizzled: logical lane k of buffer row r at sw(r, k) (planes_fft.cuh);
+// the input window and the aud rows are natural.
 
 // Arm fold of nrows rows, kChunkRows rows a pass (npad rows, a multiple of
 // kChunkRows, >= nrows): buffer row row0 + jj = sum_q c2[q] * src row jj +
 // q, 0 where t_first + jj < t_min (before the stream) or jj >= nrows. In
 // place when src == buf and row0 == 0: every read of a pass (rows r0 ..
 // r0+31+L-1) happens before its writes (rows r0 .. r0+31), and later
-// passes read only rows past r0+31. Per lane: c2[0]*v, then fmaf in order
-// (kOneTap: c2[0]*v alone, the ablation's kNoFold). kL = kFoldL: the
-// thread's L taps in registers, loaded once, and its 16 rows' window of
-// 16+L-1 values slid through registers; kL = 0: any L, each tap and value
-// read per output. Both sum the same chain.
-template <bool kOneTap, int kL>
+// passes read only rows past r0+31. A pass is 2 W groups of a lane and 16
+// rows, kG = W / 128 a thread (one at the flagship's 128 lanes). Per lane:
+// c2[0]*v, then fmaf in order (kOneTap: c2[0]*v alone, the ablation's
+// kNoFold). kL = kFoldL: a group's L taps in registers, loaded once, and
+// its 16 rows' window of 16+L-1 values slid through registers; kL = 0: any
+// L, each tap and value read per output. Both sum the same chain.
+template <int kW, bool kOneTap, int kL>
 __device__ __forceinline__ void fold_rows(const float* src, float* buf,
                                           int row0, const Chain& p,
                                           int t_min, int t_first, int nrows,
                                           int npad) {
   constexpr int W = kW;
-  constexpr int kPer = kChunkRows * W / kThreads;  // 16 rows per thread
+  constexpr int kPer = 16;                                // rows a group
+  constexpr int kG = kChunkRows * W / (kPer * kThreads);  // groups a thread
+  static_assert(kG * kPer * kThreads == kChunkRows * W, "whole groups");
   const int tid = threadIdx.x;
-  const int k = tid % W, h = tid / W;
-  float c[kL > 0 ? kL : 1];
+  float c[kG][kL > 0 ? kL : 1];
   if constexpr (kL > 0) {
 #pragma unroll
-    for (int q = 0; q < kL; ++q) c[q] = __ldg(p.c2 + q * W + k);
+    for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+      for (int q = 0; q < kL; ++q)
+        c[gi][q] = __ldg(p.c2 + q * W + (tid + gi * kThreads) % W);
   }
   for (int r0 = 0; r0 < npad; r0 += kChunkRows) {
-    const int j0 = r0 + h * kPer;
-    float o[kPer];
-    if constexpr (kL > 0) {
-      float v[kPer + kL - 1];
+    float o[kG][kPer];
 #pragma unroll
-      for (int i = 0; i < kPer + kL - 1; ++i)
-        v[i] = j0 + i < nrows + kL - 1 ? src[(j0 + i) * W + k] : 0.f;
+    for (int gi = 0; gi < kG; ++gi) {
+      const int g = tid + gi * kThreads;
+      const int k = g % W, j0 = r0 + g / W * kPer;
+      if constexpr (kL > 0) {
+        float v[kPer + kL - 1];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        float acc = 0.f;
-        if (j0 + e < nrows && t_first + j0 + e >= t_min) {
-          acc = c[0] * v[e];
-          if constexpr (!kOneTap) {
+        for (int i = 0; i < kPer + kL - 1; ++i)
+          v[i] = j0 + i < nrows + kL - 1 ? src[(j0 + i) * W + k] : 0.f;
 #pragma unroll
-            for (int q = 1; q < kL; ++q) acc = fmaf(c[q], v[e + q], acc);
+        for (int e = 0; e < kPer; ++e) {
+          float acc = 0.f;
+          if (j0 + e < nrows && t_first + j0 + e >= t_min) {
+            acc = c[gi][0] * v[e];
+            if constexpr (!kOneTap) {
+#pragma unroll
+              for (int q = 1; q < kL; ++q) acc = fmaf(c[gi][q], v[e + q], acc);
+            }
+          }
+          o[gi][e] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const int jj = j0 + e;
+          o[gi][e] = 0.f;
+          if (jj < nrows && t_first + jj >= t_min) {
+            float acc = __ldg(p.c2 + k) * src[jj * W + k];
+            if constexpr (!kOneTap)
+              for (int q = 1; q < p.L; ++q)
+                acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
+            o[gi][e] = acc;
           }
         }
-        o[e] = acc;
       }
-    } else {
+    }
+    __syncthreads();
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi) {
+      const int g = tid + gi * kThreads;
+      const int k = g % W, j0 = r0 + g / W * kPer;
 #pragma unroll
       for (int e = 0; e < kPer; ++e) {
-        const int jj = j0 + e;
-        o[e] = 0.f;
-        if (jj < nrows && t_first + jj >= t_min) {
-          float acc = __ldg(p.c2 + k) * src[jj * W + k];
-          if constexpr (!kOneTap)
-            for (int q = 1; q < p.L; ++q)
-              acc = fmaf(__ldg(p.c2 + q * W + k), src[(jj + q) * W + k], acc);
-          o[e] = acc;
-        }
+        const int r = row0 + j0 + e;
+        buf[r * W + sw(r, k)] = o[gi][e];
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int r = row0 + j0 + e;
-      buf[r * W + sw(r, k)] = o[e];
-    }
-    __syncthreads();
-  }
-}
-
-// Stage 2's twiddles for thread t of a row (planes_fft_table: row 0/1 the
-// real/imaginary parts of W64^(n1 k1) at n1*8 + k1, row 2/3 those of the
-// post-twiddle e^{-2 pi i j/64} at j).
-struct FftTw {
-  float in_re[8], in_im[8];      // W64^(t k1), k1 = 0..7
-  float post_re[8], post_im[8];  // e^{-2 pi i (t + 8 k2)/64}, k2 = 0..7
-  float c;                       // cos(pi/4), from the post-twiddle at j = 8
-};
-
-__device__ __forceinline__ FftTw load_tw(const float* tab, int t) {
-  FftTw w;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    w.in_re[i] = __ldg(tab + t * 8 + i);
-    w.in_im[i] = __ldg(tab + kM + t * 8 + i);
-    w.post_re[i] = __ldg(tab + 2 * kM + t + 8 * i);
-    w.post_im[i] = __ldg(tab + 3 * kM + t + 8 * i);
-  }
-  w.c = __ldg(tab + 2 * kM + 8);
-  return w;
-}
-
-// Single operations, each rounded to nearest on its own (never contracted).
-__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
-
-// (re, im) *= (cr, ci), each product and sum rounded on its own.
-__device__ __forceinline__ void cmul(float& re, float& im, float cr, float ci) {
-  const float r = rsub(rmul(re, cr), rmul(im, ci));
-  im = radd(rmul(re, ci), rmul(im, cr));
-  re = r;
-}
-
-// y[k] = sum_n y[n] (-i)^(nk), in place, n, k = 0..3.
-__device__ __forceinline__ void dft4(float* yr, float* yi) {
-  const float s0r = radd(yr[0], yr[2]), s0i = radd(yi[0], yi[2]);
-  const float d0r = rsub(yr[0], yr[2]), d0i = rsub(yi[0], yi[2]);
-  const float s1r = radd(yr[1], yr[3]), s1i = radd(yi[1], yi[3]);
-  const float d1r = rsub(yr[1], yr[3]), d1i = rsub(yi[1], yi[3]);
-  yr[0] = radd(s0r, s1r); yi[0] = radd(s0i, s1i);
-  yr[2] = rsub(s0r, s1r); yi[2] = rsub(s0i, s1i);
-  yr[1] = radd(d0r, d1i); yi[1] = rsub(d0i, d1r);
-  yr[3] = rsub(d0r, d1i); yi[3] = radd(d0i, d1r);
-}
-
-// x[k] = sum_n x[n] W8^(nk) in place, n, k = 0..7, W8 = e^{-2 pi i/8}:
-// a = x[n] + x[n+4] gives the even k, b = (x[n] - x[n+4]) W8^n the odd.
-__device__ __forceinline__ void dft8(float* xr, float* xi, float c) {
-  float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    ar[n] = radd(xr[n], xr[n + 4]); ai[n] = radd(xi[n], xi[n + 4]);
-    br[n] = rsub(xr[n], xr[n + 4]); bi[n] = rsub(xi[n], xi[n + 4]);
-  }
-  float r = rmul(radd(br[1], bi[1]), c);  // W8 = c (1 - i)
-  bi[1] = rmul(rsub(bi[1], br[1]), c);
-  br[1] = r;
-  r = bi[2];                              // W8^2 = -i
-  bi[2] = -br[2];
-  br[2] = r;
-  r = rmul(rsub(bi[3], br[3]), c);        // W8^3 = -c (1 + i)
-  bi[3] = -rmul(radd(br[3], bi[3]), c);
-  br[3] = r;
-  dft4(ar, ai);
-  dft4(br, bi);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    xr[2 * k] = ar[k]; xi[2 * k] = ai[k];
-    xr[2 * k + 1] = br[k]; xi[2 * k + 1] = bi[k];
-  }
-}
-
-// Where the exchange keeps A[a][b] (a the writing thread, b the reading
-// one) in a row whose swizzle key is s = r & 3: (a ^ s, b ^ s ^ (a & 4)) as
-// 8 x 8, so the 32 lanes of a warp (4 rows x 8 threads) touch 32 distinct
-// banks both when thread a writes A[a][b] and when thread b reads it.
-__device__ __forceinline__ int xch(int s, int a, int b) {
-  return 8 * (a ^ s) + (b ^ s ^ (a & 4));
-}
-
-// Stage 2 for one row (buffer row r at `row`), thread t = 0..7 of its 8:
-// acc (swizzled) in, Y = planes DFT of acc (swizzled) out. The whole warp
-// calls it (its 4 rows), for the __syncwarp()s.
-__device__ __forceinline__ void fft_row(float* row, int r, int t,
-                                        const FftTw& w) {
-  constexpr int M = kM;
-  const int s = r & 3;
-  float xr[8], xi[8];
-#pragma unroll
-  for (int n2 = 0; n2 < 8; ++n2) {
-    const int i = sw(r, t + 8 * n2);
-    xr[n2] = row[i];
-    xi[n2] = row[M + i];
-  }
-  dft8(xr, xi, w.c);  // A[t][k1], k1 = 0..7
-#pragma unroll
-  for (int k1 = 0; k1 < 8; ++k1) cmul(xr[k1], xi[k1], w.in_re[k1], w.in_im[k1]);
-  __syncwarp();
-#pragma unroll
-  for (int k1 = 0; k1 < 8; ++k1) {
-    const int i = xch(s, t, k1);
-    row[i] = xr[k1];
-    row[M + i] = xi[k1];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int n1 = 0; n1 < 8; ++n1) {
-    const int i = xch(s, n1, t);
-    xr[n1] = row[i];
-    xi[n1] = row[M + i];
-  }
-  __syncwarp();
-  dft8(xr, xi, w.c);  // X[t + 8 k2], k2 = 0..7
-#pragma unroll
-  for (int k2 = 0; k2 < 8; ++k2) {
-    cmul(xr[k2], xi[k2], w.post_re[k2], w.post_im[k2]);
-    const int i = sw(r, t + 8 * k2);
-    row[i] = xr[k2];
-    row[M + i] = xi[k2];
   }
 }
 
 // K3's and K3p's input rows: read from memory, vp = [halo; vb], the halo
 // the hrows rows before the batch (H8, or warm + H8 for a time shard).
 // vec: vb and halo 16-byte aligned, so the window loads 16 bytes at once.
+template <int kW>
 struct HaloRows {
   const float* vb;
   const float* halo;
@@ -425,10 +318,100 @@ struct HaloRows {
   }
 };
 
-__device__ __forceinline__ HaloRows halo_rows(const float* vb,
-                                              const float* halo, int hrows) {
-  return HaloRows{vb, halo, hrows,
-                  (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0};
+template <int kW>
+__device__ __forceinline__ HaloRows<kW> halo_rows(const float* vb,
+                                                  const float* halo,
+                                                  int hrows) {
+  return HaloRows<kW>{vb, halo, hrows,
+                      (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0};
+}
+
+// A tile's window of n input rows from stream row sr0 into buf (natural,
+// kW floats a row): 16-byte loads where the rows come from memory on the
+// 16-byte grid, else one float at a time.
+template <int kW, class Row>
+__device__ __forceinline__ void load_window(float* buf, int sr0, int n,
+                                            const Row& row) {
+  const int tid = threadIdx.x;
+  if constexpr (std::is_same_v<Row, HaloRows<kW>>) {
+    if (row.vec) {
+      constexpr int W4 = kW / 4;
+      for (int idx = tid; idx < n * W4; idx += kThreads)
+        reinterpret_cast<float4*>(buf)[idx] =
+            row.load4(sr0 + idx / W4, 4 * (idx % W4));
+      return;
+    }
+  }
+  for (int idx = tid; idx < n * kW; idx += kThreads)
+    buf[idx] = row(sr0 + idx / kW, idx % kW);
+}
+
+// The demod of one output: atan2 of conj(Y[t-1]) * Y[t], times the gain
+// (the ablation's variants: kNoAtan2 (PR + PI) * gain, kNoDemod Re Y *
+// gain).
+template <int kV>
+__device__ __forceinline__ float demod(float ar, float ai, float yr, float yi,
+                                       const Chain& p) {
+  const float pr = ar * yr + ai * yi;
+  const float pi = ar * yi - ai * yr;
+  if constexpr (kV == kNoAtan2)
+    return (pr + pi) * p.gain;
+  else if constexpr (kV == kNoDemod)
+    return yr * p.gain;
+  else
+    return atan2_poly(pi, pr, p.co) * p.gain;
+}
+
+// Stage 4, the decimating audio FIR of a tile: out[o] = sum_k ataps[k] *
+// aud[o*decim - k], aud row jj (stream row t0 - A + jj) at aud + jj * ld,
+// M lanes, in kAG bands (p.ag where kAG is 0). With more than one (K3ag),
+// band g of Tg = T/ag rows holds outputs g*n_og .. g*n_og + n_og - 1 and
+// reads only [tail; aud] rows g*Tg .. g*Tg + Tg + A-2 (aud rows 1 + g*Tg +
+// s) against the band table H[o][s] = ataps[A-1 + o*decim - s], zero
+// outside [0, A), built in `tab` (free shared memory). The threads of band
+// g are the g-th kThreads/ag of the block. Row o of H is summed over its A
+// nonzero taps only, k = 0 .. A-1 as with one band, on the same aud
+// values: one band's outputs bit for bit.
+template <int M, int kV, int kAG>
+__device__ __forceinline__ void audio_fir(const float* aud, int ld,
+                                          float* tab, const Chain& p,
+                                          int t0) {
+  const int tid = threadIdx.x, A = p.A;
+  const int n_o = p.T / p.decim;
+  const int ag = kAG ? kAG : p.ag;
+  if (kAG == 1 || ag == 1) {
+    for (int idx = tid; idx < n_o * M; idx += kThreads) {
+      const int o = idx / M, m = idx % M;
+      const float* col = aud + (A + o * p.decim) * ld + m;
+      float acc = 0.f;
+      if constexpr (kV == kNoAudio)
+        acc = col[0];
+      else
+        for (int k = 0; k < A; ++k)
+          acc = fmaf(__ldg(p.ataps + k), col[-k * ld], acc);
+      p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
+    }
+  } else {
+    static_assert(kAG == 0 || kThreads % kAG == 0, "whole bands");
+    const int Tg = p.T / ag, n_og = Tg / p.decim, S = Tg + A - 1;
+    for (int idx = tid; idx < n_og * S; idx += kThreads) {
+      const int o = idx / S, s = idx % S, k = A - 1 + o * p.decim - s;
+      tab[idx] = k >= 0 && k < A ? __ldg(p.ataps + k) : 0.f;
+    }
+    __syncthreads();
+    const int band_threads = kThreads / ag;
+    const int g = tid / band_threads;
+    const float* band = aud + (1 + g * Tg) * ld;
+    for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads) {
+      const int o = idx / M, m = idx % M;
+      const int s0 = A - 1 + o * p.decim;  // column of H[o] at k = 0
+      const float* h = tab + o * S + s0;
+      const float* col = band + s0 * ld + m;
+      float acc = 0.f;
+      for (int k = 0; k < A; ++k) acc = fmaf(h[-k], col[-k * ld], acc);
+      p.aud[((long long)t0 / p.decim + g * n_og + o) * M + m] = acc;
+    }
+  }
 }
 
 // One tile of T stream rows from t0, both kinds:
@@ -453,7 +436,7 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
                                            const float* yprev, float* ynext,
                                            const float* stage, Row row,
                                            AfterFold after_fold) {
-  constexpr int W = kW, M = kM;
+  constexpr int W = kFlagW, M = W / 2;
   const int A = p.A, L = p.L;
   const int R = p.T + A;
   const int jlo = kRebuild ? 1 : A;  // the first row the tile demodulates
@@ -462,20 +445,8 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
 
   // 1. The window, folded: row jj gets acc of stream row t0 - A + jj.
   if constexpr (kRebuild) {
-    const int sr0 = t0 - A - (L - 1);  // the window's first stream row
-    bool loaded = false;
-    if constexpr (std::is_same_v<Row, HaloRows>) {
-      if (row.vec) {
-        constexpr int W4 = W / 4;
-        for (int idx = tid; idx < (R + L - 1) * W4; idx += kThreads)
-          reinterpret_cast<float4*>(buf)[idx] =
-              row.load4(sr0 + idx / W4, 4 * (idx % W4));
-        loaded = true;
-      }
-    }
-    if (!loaded)
-      for (int idx = tid; idx < (R + L - 1) * W; idx += kThreads)
-        buf[idx] = row(sr0 + idx / W, idx % W);
+    // the window's first stream row is t0 - A - (L - 1)
+    load_window<W>(buf, t0 - A - (L - 1), R + L - 1, row);
     __syncthreads();
     if constexpr (kV == kDmaOnly) {
       // window row A + L - 1 + j is stream row t0 + j
@@ -487,16 +458,16 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
       return;
     }
     if (L == kFoldL)
-      fold_rows<kV == kNoFold, kFoldL>(buf, buf, 0, p, t_min, t0 - A, R,
-                                       pad_rows(R));
+      fold_rows<W, kV == kNoFold, kFoldL>(buf, buf, 0, p, t_min, t0 - A, R,
+                                          pad_rows(R));
     else
-      fold_rows<kV == kNoFold, 0>(buf, buf, 0, p, t_min, t0 - A, R,
-                                  pad_rows(R));
+      fold_rows<W, kV == kNoFold, 0>(buf, buf, 0, p, t_min, t0 - A, R,
+                                     pad_rows(R));
   } else {
     if (L == kFoldL)
-      fold_rows<false, kFoldL>(stage, buf, A, p, t_min, t0, p.T, p.T);
+      fold_rows<W, false, kFoldL>(stage, buf, A, p, t_min, t0, p.T, p.T);
     else
-      fold_rows<false, 0>(stage, buf, A, p, t_min, t0, p.T, p.T);
+      fold_rows<W, false, 0>(stage, buf, A, p, t_min, t0, p.T, p.T);
   }
   after_fold();
 
@@ -505,10 +476,10 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   //    32 apart from pass to pass, no block barrier between passes. Then
   //    the carried row Y[-1] where the tile reaches it; Y[t0+T-1] out.
   if constexpr (kV != kNoDft) {
-    const FftTw tw = load_tw(p.tw, tid & 7);
+    const planes_fft::Tw<1> tw(p.tw, tid & 7);
     for (int base = r_lo + 4 * (tid >> 5); base < R; base += kChunkRows) {
       const int r = base + ((tid >> 3) & 3);
-      fft_row(buf + r * W, r, tid & 7, tw);
+      planes_fft::fft_row<1>(buf + r * W, r, tid & 7, tw, p.tw);
     }
     __syncthreads();
   }
@@ -549,15 +520,7 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
           const float* pa = carried ? yprev : buf + (jj - 1) * W;
           const int ma = carried ? m : sw(jj - 1, m), my = sw(jj, m);
           const float* py = buf + jj * W;
-          const float ar = pa[ma], ai = pa[ma + M], yr = py[my], yi = py[my + M];
-          const float pr = ar * yr + ai * yi;
-          const float pi = ar * yi - ai * yr;
-          if constexpr (kV == kNoAtan2)
-            val[e] = (pr + pi) * p.gain;
-          else if constexpr (kV == kNoDemod)
-            val[e] = yr * p.gain;
-          else
-            val[e] = atan2_poly(pi, pr, p.co) * p.gain;
+          val[e] = demod<kV>(pa[ma], pa[ma + M], py[my], py[my + M], p);
         }
       }
     }
@@ -579,80 +542,148 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
       p.tail_out[i * W + M + m] = v;
     }
 
-  // 4. Decimating audio FIR: out[o] = sum_k ataps[k] * aud[o*decim - k].
-  const int n_o = p.T / p.decim;
-  if constexpr (kAG == 1) {
-    for (int idx = tid; idx < n_o * M; idx += kThreads) {
-      const int o = idx / M, m = idx % M;
-      const float* col = buf + (A + o * p.decim) * W + m;
-      float acc = 0.f;
-      if constexpr (kV == kNoAudio)
-        acc = col[0];
-      else
-        for (int k = 0; k < A; ++k)
-          acc = fmaf(__ldg(p.ataps + k), col[-k * W], acc);
-      p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
-    }
-  } else {
-    // K3ag: band g of Tg = T/kAG rows holds outputs g*n_og .. g*n_og +
-    // n_og - 1 and reads only [tail; aud] rows g*Tg .. g*Tg + Tg + A-2
-    // (buffer rows 1 + g*Tg + s) against the band table H[o][s] =
-    // ataps[A-1 + o*decim - s], zero outside [0, A), which the first
-    // __syncthreads() leaves in rows R.. of the buffer (free since the
-    // demod). The threads of band g are the g-th kThreads/kAG of the block.
-    // Row o of H is summed over its A nonzero taps only, k = 0 .. A-1 as
-    // above, on the same aud values: kAG = 1's outputs bit for bit.
-    static_assert(kThreads % kAG == 0, "the bands split the block evenly");
-    const int Tg = p.T / kAG, n_og = Tg / p.decim, S = Tg + A - 1;
-    float* tab = buf + R * W;
-    for (int idx = tid; idx < n_og * S; idx += kThreads) {
-      const int o = idx / S, s = idx % S, k = A - 1 + o * p.decim - s;
-      tab[idx] = k >= 0 && k < A ? __ldg(p.ataps + k) : 0.f;
+  // 4. Decimating audio FIR, from the aud rows in the re halves; K3ag's
+  //    band table in rows R.. of the buffer (free since the demod).
+  audio_fir<M, kV, kAG>(buf, W, buf + R * W, p, t0);
+}
+
+// One tile of T stream rows from t0 at 2M = kW > 128 lanes (M = 128, 192,
+// 256), rebuilding its junction as chain_tile does, in passes of 32 rows:
+// the tile buffer of chain_tile, (T + A + L-1) rows of 2M floats, takes
+// 245,760 bytes at M = 192 and 327,680 at M = 256 (T = 64, the least the
+// reference's T >= A-1 allows at A = 65), past the 232,448 a block may
+// use. Here the block keeps the demod's output, M real lanes a row, in a
+// buffer of its own, aud ((T + A) x M, row jj = stream row t0 - A + jj),
+// and runs the fold, the FFT and the demod through a window of 32 + L-1
+// input rows: each pass loads its rows' window (the L-1 rows of look-back
+// again), folds it in place into 32 swizzled acc rows, transforms them
+// (one row a group of 8 threads) and demodulates them into aud, Y[jj-1] of
+// its first row kept from the pass before (yp, natural, two rows by
+// turns). The audio FIR then reads aud, K3ag's band table the window. At
+// T = 64, L = 16, A = 65 that is 232,448 bytes at M = 256 and 168,960 at
+// M = 192. Every value is computed by the same operations, in the same
+// order, as at any other tile or pass boundary, so the outputs do not
+// depend on the tile, as at M = 64.
+template <int kW, int kAG, class Row>
+__device__ __forceinline__ void chain_tile_wide(float* sm, const Chain& p,
+                                                int t_min, int t0, bool last,
+                                                Row row) {
+  constexpr int W = kW, M = W / 2, P = M / 64;
+  const int A = p.A, L = p.L;
+  const int R = p.T + A;
+  const int tid = threadIdx.x;
+  float* aud = sm;
+  float* win = aud + R * M;
+  float* yp = win + (kChunkRows + L - 1) * W;
+  const planes_fft::Tw<P> tw(p.tw, tid & 7);
+  const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
+  for (int r0 = 0, pass = 0; r0 < R; r0 += kChunkRows, ++pass) {
+    const int n = min(kChunkRows, R - r0);
+    // 1. the pass's window, folded in place: window row j gets acc of
+    //    stream row t0 - A + r0 + j
+    load_window<W>(win, t0 - A + r0 - (L - 1), n + L - 1, row);
+    __syncthreads();
+    if (L == kFoldL)
+      fold_rows<W, false, kFoldL>(win, win, 0, p, t_min, t0 - A + r0, n,
+                                  kChunkRows);
+    else
+      fold_rows<W, false, 0>(win, win, 0, p, t_min, t0 - A + r0, n,
+                             kChunkRows);
+    // 2. Y: the 32 rows (past n: zeros), one a group of 8 threads
+    {
+      const int r = 4 * (tid >> 5) + ((tid >> 3) & 3);
+      planes_fft::fft_row<P>(win + r * W, r, tid & 7, tw, p.tw);
     }
     __syncthreads();
-    constexpr int kBand = kThreads / kAG;
-    const int g = tid / kBand;
-    const float* band = buf + (1 + g * Tg) * W;
-    for (int idx = tid % kBand; idx < n_og * M; idx += kBand) {
-      const int o = idx / M, m = idx % M;
-      const int s0 = A - 1 + o * p.decim;  // column of H[o] at k = 0
-      const float* h = tab + o * S + s0;
-      const float* col = band + s0 * W + m;
-      float acc = 0.f;
-      for (int k = 0; k < A; ++k) acc = fmaf(h[-k], col[-k * W], acc);
-      p.aud[((long long)t0 / p.decim + g * n_og + o) * M + m] = acc;
+    if (jp >= r0 && jp < r0 + n)
+      for (int k = tid; k < W; k += kThreads)
+        win[(jp - r0) * W + sw(jp - r0, k)] = p.prev0[k];
+    if (last && r0 + n == R)
+      for (int k = tid; k < W; k += kThreads)
+        p.prev_out[k] = win[(n - 1) * W + sw(n - 1, k)];
+    __syncthreads();
+    // 3. demod of rows max(r0, 1) .. r0+n-1 into aud; rows before the
+    //    stream take tail0. The pass's last Y row goes to yp for the next.
+    const float* yprev = yp + (pass & 1) * W;
+    for (int idx = tid; idx < n * M; idx += kThreads) {
+      const int j = idx / M, m = idx % M, jj = r0 + j;
+      if (jj < 1) continue;
+      const int t = t0 - A + jj;
+      float v;
+      if (t < t_min) {
+        v = p.tail0[(A - 1 + t - t_min) * W + m];
+      } else {
+        const float* pa = j ? win + (j - 1) * W : yprev;
+        const int ma = j ? sw(j - 1, m) : m, my = sw(j, m);
+        const float* py = win + j * W;
+        v = demod<kFull>(pa[ma], pa[ma + M], py[my], py[my + M], p);
+      }
+      aud[jj * M + m] = v;
     }
+    for (int k = tid; k < W; k += kThreads)
+      yp[((pass + 1) & 1) * W + k] = win[(n - 1) * W + sw(n - 1, k)];
+    __syncthreads();
+  }
+  if (last)  // the last A-1 aud rows, duplicated in both halves
+    for (int idx = tid; idx < (A - 1) * M; idx += kThreads) {
+      const int i = idx / M, m = idx % M;
+      const float v = aud[(R - (A - 1) + i) * M + m];
+      p.tail_out[i * W + m] = v;
+      p.tail_out[i * W + M + m] = v;
+    }
+  // 4. the decimating audio FIR from aud; K3ag's band table in the window
+  audio_fir<M, kFull, kAG>(aud, M, win, p, t0);
+}
+
+// Shared floats of a chain block (K3, K5, K6) at kW lanes: at the
+// flagship's 128 the tile buffer, and with kAG > 1 room past its T + A rows
+// for the band table; wider, chain_tile_wide's aud rows, window and two Y
+// rows (the band table, in the window, fits: chain_kernel_fits).
+template <int kW>
+__host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
+                                                          int ag, int decim) {
+  if constexpr (kW != kFlagW) {
+    return (T + A) * (kW / 2) + (kChunkRows + L - 1 + 2) * kW;
+  } else {
+    const int rows = tile_rows(T, A, L) * kW;
+    if (ag == 1) return rows;
+    const int tg = T / ag;
+    const int need = (T + A) * kW + tg / decim * (tg + A - 1);
+    return need > rows ? need : rows;
   }
 }
 
-// Shared floats of a chain block (K3, K5, K6): the tile buffer, and with
-// kAG > 1 room past its T + A rows for the band table.
-__host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
-                                                          int ag, int decim) {
-  const int rows = tile_rows(T, A, L) * kW;
-  if (ag == 1) return rows;
+// Whether K3ag's band table fits where the tile routine keeps it.
+template <int kW>
+bool chain_kernel_fits(int T, int A, int L, int ag, int decim) {
+  if constexpr (kW == kFlagW) return true;  // chain_smem_floats makes room
   const int tg = T / ag;
-  const int need = (T + A) * kW + tg / decim * (tg + A - 1);
-  return need > rows ? need : rows;
+  return ag == 1 || tg / decim * (tg + A - 1) <= (kChunkRows + L - 1) * kW;
 }
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
 // last block writes the end state where the kernel returns one.
-template <int kV = kFull, int kAG = 1, class Row>
+template <int kW, int kV = kFull, int kAG = 1, class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                                              int t_min, Row row) {
-  chain_tile<true, kV, kAG>(buf, p, t_min, blockIdx.x * p.T,
-                   blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr,
-                   nullptr, nullptr, nullptr, row, [] {});
+  const bool last = blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr;
+  if constexpr (kW == kFlagW) {
+    chain_tile<true, kV, kAG>(buf, p, t_min, blockIdx.x * p.T, last, nullptr,
+                              nullptr, nullptr, row, [] {});
+  } else {
+    static_assert(kV == kFull, "the ablation runs at 128 lanes");
+    chain_tile_wide<kW, kAG>(buf, p, t_min, blockIdx.x * p.T, last, row);
+  }
 }
 
 // K3: input rows read from memory, vp = [halo; vb]; kAG > 1 is K3ag.
-template <int kAG>
+template <int kW, int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, halo_rows(vb, halo, hrows));
+  rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min,
+                               halo_rows<kW>(vb, halo, hrows));
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -661,12 +692,13 @@ __global__ void __launch_bounds__(kThreads)
 fm_chain_ablate_kernel(const float* __restrict__ vb,
                        const float* __restrict__ halo, int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kV>(buf, p, p.t_min, halo_rows(vb, halo, hrows));
+  rebuilt_tile<kFlagW, kV>(buf, p, p.t_min,
+                           halo_rows<kFlagW>(vb, halo, hrows));
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
 // out as the next carry), the halo from carry0; the base group on the card.
-template <int kAG>
+template <int kW, int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     const float* __restrict__ amp,
@@ -676,7 +708,7 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
   s.g0 = philox::group_at(group, 0);
   const int H8 = p.H8, n = p.n;
   const float a = amp[0];
-  rebuilt_tile<kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
+  rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
     if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * kW + k] : 0.f;
     const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
     if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
@@ -693,7 +725,7 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
 // the past (kFarPast, which no block reaches).
 constexpr int kFarPast = -(1 << 30);
 
-template <int kAG>
+template <int kW, int kAG>
 __global__ void __launch_bounds__(kThreads)
 fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
@@ -705,7 +737,7 @@ fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                     : g >= (1LL << 24) ? kFarPast
                                        : (int)(-g * philox::kGroupRows);
   const float a = amp[0];
-  rebuilt_tile<kFull, kAG>(buf, p, t_min, [&](int sr, int k) {
+  rebuilt_tile<kW, kFull, kAG>(buf, p, t_min, [&](int sr, int k) {
     return __fmul_rn(philox::gauss(s, sr, k, kW), a);
   });
 }
@@ -739,7 +771,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
                      const float* __restrict__ halo, int hrows, Chain p,
                      int G) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int W = kW, M = kM;
+  constexpr int W = kFlagW, M = W / 2;
   const int T = p.T, A = p.A, L = p.L;
   const int NT = p.n / T;
   const int g0 = blockIdx.x * G;
@@ -750,7 +782,7 @@ fm_chain_pipe_kernel(const float* __restrict__ vb,
   float* yrows = stage + (T + L - 1) * W;  // Y[t0-1] and Y[t0+T-1], by turns
   const int win = (T + L - 1) * W;
 
-  const HaloRows row = halo_rows(vb, halo, hrows);
+  const HaloRows<W> row = halo_rows<W>(vb, halo, hrows);
   if (g0 + 1 < g1)
     prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
   chain_tile<true, kFull, 1>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
@@ -777,11 +809,11 @@ Chain make_chain(const float* prev0, const float* tail0, const float* c2,
                  const float* tw, const float* ataps, float* aud,
                  float* prev_out, float* tail_out, int n, int L, int H8,
                  int A, int decim, int T, int t_min, float gain,
-                 const float* atan_coeffs) {
+                 const float* atan_coeffs, int ag = 1) {
   return Chain{c2,    tw,    ataps, prev0, tail0,
                aud,   prev_out, tail_out, n, L,
                H8,    A,     decim, T,     t_min,
-               gain,  mathfns::load_atan(atan_coeffs)};
+               ag,    gain,  mathfns::load_atan(atan_coeffs)};
 }
 
 // The chain kernels' launch: the shared memory the tile buffer takes
@@ -802,21 +834,69 @@ bool valid_bands(int ag, int T, int decim) {
   return (ag == 1 || ag == 2 || ag == 4) && T % ag == 0 && (T / ag) % decim == 0;
 }
 
-// One chain kernel (K3, K5 or K6) at the audio stage's bands `ag`: the
-// instance of the kernel template for it, with the shared memory it takes.
+// One chain kernel (K3, K5 or K6) at kW lanes and the audio stage's bands
+// `ag`: the instance of the kernel template for them, with the shared
+// memory it takes. Used inside a function templated on kW; wider than the
+// flagship's 128 lanes one instance reads ag from the Chain.
 #define LAUNCH_BANDS(kernel, ag, T, A, L, decim, blocks, stream, ...)        \
   {                                                                          \
+    if (!chain_kernel_fits<kW>(T, A, L, ag, decim))                          \
+      return (int)cudaErrorInvalidValue;                                     \
     const size_t smem_ =                                                     \
-        (size_t)chain_smem_floats(T, A, L, ag, decim) * sizeof(float);       \
-    switch (ag) {                                                            \
-      case 1:                                                                \
-        return launch_tiles(kernel<1>, smem_, blocks, stream, __VA_ARGS__);  \
-      case 2:                                                                \
-        return launch_tiles(kernel<2>, smem_, blocks, stream, __VA_ARGS__);  \
-      default:                                                               \
-        return launch_tiles(kernel<4>, smem_, blocks, stream, __VA_ARGS__);  \
+        (size_t)chain_smem_floats<kW>(T, A, L, ag, decim) * sizeof(float);   \
+    if constexpr (kW != kFlagW) {                                            \
+      return launch_tiles(kernel<kW, 0>, smem_, blocks, stream,              \
+                          __VA_ARGS__);                                      \
+    } else {                                                                 \
+      switch (ag) {                                                          \
+        case 1:                                                              \
+          return launch_tiles(kernel<kW, 1>, smem_, blocks, stream,          \
+                              __VA_ARGS__);                                  \
+        case 2:                                                              \
+          return launch_tiles(kernel<kW, 2>, smem_, blocks, stream,          \
+                              __VA_ARGS__);                                  \
+        default:                                                             \
+          return launch_tiles(kernel<kW, 4>, smem_, blocks, stream,          \
+                              __VA_ARGS__);                                  \
+      }                                                                      \
     }                                                                        \
   }
+
+// The launch of a chain kernel at 2M lanes: the instance for the width
+// (M = 64, 128, 192, 256), or cudaErrorInvalidValue.
+#define FOR_WIDTH(M, fn, ...)                        \
+  switch (2 * (M)) {                                 \
+    case 128: return fn<128>(__VA_ARGS__);           \
+    case 256: return fn<256>(__VA_ARGS__);           \
+    case 384: return fn<384>(__VA_ARGS__);           \
+    case 512: return fn<512>(__VA_ARGS__);           \
+    default: return (int)cudaErrorInvalidValue;      \
+  }
+
+template <int kW>
+int planes_launch(const float* vb, const float* halo, int hrows, int n,
+                  int L, int A, int decim, int T, int ag, void* stream,
+                  const Chain& p) {
+  LAUNCH_BANDS(fm_chain_kernel, ag, T, A, L, decim, n / T, stream, vb, halo,
+               hrows, p);
+}
+
+template <int kW>
+int gen_launch(const philox::Stream& s, const long long* group,
+               const float* amp, const float* carry0, float* carry_out, int n,
+               int L, int A, int decim, int T, int ag, void* stream,
+               const Chain& p) {
+  LAUNCH_BANDS(fm_chain_gen_kernel, ag, T, A, L, decim, n / T, stream, s,
+               group, amp, carry0, carry_out, p);
+}
+
+template <int kW>
+int gen_warm_launch(const philox::Stream& s, const long long* group,
+                    long long goff, const float* amp, int n, int L, int A,
+                    int decim, int T, int ag, void* stream, const Chain& p) {
+  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, n / T, stream, s,
+               group, goff, amp, p);
+}
 
 }  // namespace
 
@@ -827,13 +907,12 @@ extern "C" int fm_chain_planes_launch(
     int decim, int T, int ag, int hrows, int t_min, float gain,
     const float* atan_coeffs, void* stream) {
   // every block's window must lie in [halo; vb]
-  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
+  if (hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
       !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
-  LAUNCH_BANDS(fm_chain_kernel, ag, T, A, L, decim, n / T, stream, vb, halo,
-               hrows,
-               make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
-                          n, L, H8, A, decim, T, t_min, gain, atan_coeffs));
+  FOR_WIDTH(M, planes_launch, vb, halo, hrows, n, L, A, decim, T, ag, stream,
+            make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
+                       n, L, H8, A, decim, T, t_min, gain, atan_coeffs, ag));
 }
 
 // The ablation probe's launch: K3's arguments (prev_out/tail_out may be
@@ -844,11 +923,11 @@ extern "C" int fm_chain_ablate_launch(
     float* aud, float* prev_out, float* tail_out, int n, int M, int L, int H8,
     int A, int decim, int T, int hrows, int t_min, float gain,
     const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
+  if (2 * M != kFlagW || hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
       variant < 0 || variant >= kVariants || (prev_out == nullptr) !=
       (tail_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)tile_rows(T, A, L) * kW * sizeof(float);
+  const size_t smem = (size_t)tile_rows(T, A, L) * kFlagW * sizeof(float);
   const Chain p = make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out,
                              tail_out, n, L, H8, A, decim, T, t_min, gain,
                              atan_coeffs);
@@ -884,13 +963,13 @@ extern "C" int fm_chain_gen_launch(
     const float* ataps, float* aud, float* prev_out, float* tail_out,
     float* carry_out, int n, int M, int L, int H8, int A, int decim, int T,
     int ag, float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || (draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
+  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
-  LAUNCH_BANDS(fm_chain_gen_kernel, ag, T, A, L, decim, n / T, stream, s,
-               group, amp, carry0, carry_out,
-               make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
-                          n, L, H8, A, decim, T, 0, gain, atan_coeffs));
+  FOR_WIDTH(M, gen_launch, s, group, amp, carry0, carry_out, n, L, A, decim,
+            T, ag, stream,
+            make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
+                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
 }
 
 extern "C" int fm_chain_gen_warm_launch(
@@ -899,13 +978,13 @@ extern "C" int fm_chain_gen_warm_launch(
     const float* tail0, const float* c2, const float* tw, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
     int ag, float gain, const float* atan_coeffs, void* stream) {
-  if (2 * M != kW || (draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
+  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
-  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, n / T, stream, s,
-               group, goff, amp,
-               make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
-                          n, L, H8, A, decim, T, 0, gain, atan_coeffs));
+  FOR_WIDTH(M, gen_warm_launch, s, group, goff, amp, n, L, A, decim, T, ag,
+            stream,
+            make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
+                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
 }
 
 extern "C" int fm_chain_pipe_launch(
@@ -915,13 +994,13 @@ extern "C" int fm_chain_pipe_launch(
     int decim, int T, int hrows, int t_min, int G, float gain,
     const float* atan_coeffs, void* stream) {
   // later tiles: whole DFT passes, a window inside vb, a tail below row A
-  if (2 * M != kW || T % kChunkRows || T < A - 1 || T < L - 1 || n % T ||
+  if (2 * M != kFlagW || T % kChunkRows || T < A - 1 || T < L - 1 || n % T ||
       G < 1 || (uintptr_t)vb % 16 || hrows < H8 ||
       (t_min < 0 && hrows < A + L - 1))
     return (int)cudaErrorInvalidValue;
   return launch_tiles(
       fm_chain_pipe_kernel,
-      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kW * sizeof(float),
+      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kFlagW * sizeof(float),
       (n / T + G - 1) / G, stream, vb, halo, hrows,
       make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out, n, L,
                  H8, A, decim, T, t_min, gain, atan_coeffs),

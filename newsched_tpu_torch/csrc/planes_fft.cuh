@@ -1,0 +1,229 @@
+// The planes DFT as a shared-memory FFT, for M = 64, 128, 192 and 256
+// channels: the phase combine of the fused chains (fm_chain.cu, stage 2 of
+// chain_tile) and of the channelizer front end (channelizer.cu, K1).
+//
+// A planes row holds a[k] = re at lane k and im at lane M + k (k < M); the
+// routine replaces it with Y[j] = e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}
+// (ops/cuda/fm_chain.py planes_dft_matrix). M = 64 P, P = 1 .. 4, and the
+// transform is a radix-P step, decimation in frequency, then P 64-point
+// FFTs of 8 x 8:
+//
+//   y_r[n] = W_M^(n r) sum_j a[n + 64 j] W_P^(j r)     n < 64, r < P
+//   X[P k + r] = sum_n y_r[n] W_64^(n k)              (the 8 x 8 FFT)
+//
+// 8 threads take a row, 4 rows a warp. Thread t holds a[t + 8 n2 + 64 j]
+// (n2 < 8, j < P), does the P-point DFTs and their twiddles, then for each
+// r a radix-8 DFT over n2, times W_64^(t k1), an exchange through the row
+// itself (__syncwarp between every read and write of the row; sub-FFT r
+// takes lanes 64 r .. 64 r + 63 of each half), a radix-8 DFT over n1, and
+// the post-twiddle e^{-2 pi i j/M} of its outputs j = P (t + 8 k2) + r. At
+// P = 1 that is the 64-point FFT alone, ~2,000 flops a row in place of the
+// dense product's 32 KFLOP; at P = 4 ~11,000 in place of 524 KFLOP.
+//
+// The twiddles are the host's (planes_fft_table: float64, cast to float32;
+// row 0/1 W_64^(n1 k1) at n1 * 8 + k1, n1, k1 < 8, then zeros; row 2/3
+// e^{-2 pi i j/M} at j < M, which are also the radix-P step's W_M^(n r)).
+// Every multiply and add is rounded on its own (__fadd_rn, __fmul_rn,
+// never contracted), so the arithmetic is fixed whatever the compiler does
+// and a row's Y never depends on the block, tile or kernel that transforms
+// it; ops/cuda/planes_fft.py fft_planes repeats it in torch float32.
+//
+// Rows of 2M floats all start at bank 0, so a row's lanes are kept
+// swizzled: logical lane k of buffer row r sits at k ^ ((r & 3) << 3) (sw),
+// which puts the 4 rows of a warp on 4 disjoint sets of 8 banks when its
+// threads read a[t + 8 n2 + 64 j]; the exchange has its own conflict-free
+// layout (xch), the same in each 64-lane part of the row.
+
+#pragma once
+
+namespace planes_fft {
+
+// Single operations, each rounded to nearest on its own (never contracted).
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+
+// (re, im) *= (cr, ci), each product and sum rounded on its own.
+__device__ __forceinline__ void cmul(float& re, float& im, float cr, float ci) {
+  const float r = rsub(rmul(re, cr), rmul(im, ci));
+  im = radd(rmul(re, ci), rmul(im, cr));
+  re = r;
+}
+
+// Logical lane k of buffer row r.
+__device__ __forceinline__ int sw(int r, int k) { return k ^ ((r & 3) << 3); }
+
+// Where the exchange keeps A[a][b] (a the writing thread, b the reading
+// one) in a row whose swizzle key is s = r & 3: (a ^ s, b ^ s ^ (a & 4)) as
+// 8 x 8, so the 32 lanes of a warp (4 rows x 8 threads) touch 32 distinct
+// banks both when thread a writes A[a][b] and when thread b reads it.
+__device__ __forceinline__ int xch(int s, int a, int b) {
+  return 8 * (a ^ s) + (b ^ s ^ (a & 4));
+}
+
+// y[k] = sum_n y[n] (-i)^(nk), in place, n, k = 0..3.
+__device__ __forceinline__ void dft4(float* yr, float* yi) {
+  const float s0r = radd(yr[0], yr[2]), s0i = radd(yi[0], yi[2]);
+  const float d0r = rsub(yr[0], yr[2]), d0i = rsub(yi[0], yi[2]);
+  const float s1r = radd(yr[1], yr[3]), s1i = radd(yi[1], yi[3]);
+  const float d1r = rsub(yr[1], yr[3]), d1i = rsub(yi[1], yi[3]);
+  yr[0] = radd(s0r, s1r); yi[0] = radd(s0i, s1i);
+  yr[2] = rsub(s0r, s1r); yi[2] = rsub(s0i, s1i);
+  yr[1] = radd(d0r, d1i); yi[1] = rsub(d0i, d1r);
+  yr[3] = rsub(d0r, d1i); yi[3] = radd(d0i, d1r);
+}
+
+// x[k] = sum_n x[n] W8^(nk) in place, n, k = 0..7, W8 = e^{-2 pi i/8}:
+// a = x[n] + x[n+4] gives the even k, b = (x[n] - x[n+4]) W8^n the odd.
+__device__ __forceinline__ void dft8(float* xr, float* xi, float c) {
+  float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    ar[n] = radd(xr[n], xr[n + 4]); ai[n] = radd(xi[n], xi[n + 4]);
+    br[n] = rsub(xr[n], xr[n + 4]); bi[n] = rsub(xi[n], xi[n + 4]);
+  }
+  float r = rmul(radd(br[1], bi[1]), c);  // W8 = c (1 - i)
+  bi[1] = rmul(rsub(bi[1], br[1]), c);
+  br[1] = r;
+  r = bi[2];                              // W8^2 = -i
+  bi[2] = -br[2];
+  br[2] = r;
+  r = rmul(rsub(bi[3], br[3]), c);        // W8^3 = -c (1 + i)
+  bi[3] = -rmul(radd(br[3], bi[3]), c);
+  br[3] = r;
+  dft4(ar, ai);
+  dft4(br, bi);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xr[2 * k] = ar[k]; xi[2 * k] = ai[k];
+    xr[2 * k + 1] = br[k]; xi[2 * k + 1] = bi[k];
+  }
+}
+
+// y[r] = sum_j x[j] W_P^(jr) in place, P = 1 .. 4. P = 3: s = x1 + x2,
+// d = x1 - x2, y0 = x0 + s, y1,2 = (x0 - s/2) -+ i h d with h = sin(pi/3).
+template <int P>
+__device__ __forceinline__ void dftp(float* xr, float* xi, float h) {
+  if constexpr (P == 2) {
+    const float r = rsub(xr[0], xr[1]), i = rsub(xi[0], xi[1]);
+    xr[0] = radd(xr[0], xr[1]);
+    xi[0] = radd(xi[0], xi[1]);
+    xr[1] = r;
+    xi[1] = i;
+  } else if constexpr (P == 3) {
+    const float sr = radd(xr[1], xr[2]), si = radd(xi[1], xi[2]);
+    const float dr = rsub(xr[1], xr[2]), di = rsub(xi[1], xi[2]);
+    const float tr = rsub(xr[0], rmul(0.5f, sr));
+    const float ti = rsub(xi[0], rmul(0.5f, si));
+    xr[0] = radd(xr[0], sr);
+    xi[0] = radd(xi[0], si);
+    const float hr = rmul(h, dr), hi = rmul(h, di);
+    xr[1] = radd(tr, hi); xi[1] = rsub(ti, hr);
+    xr[2] = rsub(tr, hi); xi[2] = radd(ti, hr);
+  } else if constexpr (P == 4) {
+    dft4(xr, xi);
+  }
+}
+
+// A thread's twiddles, loaded once (tab: the (4, M) table): W_64^(t k1),
+// cos(pi/4) and sin(pi/3); at P = 1 also its outputs' post-twiddles, which
+// wider rows read through the read-only cache.
+template <int P>
+struct Tw {
+  static constexpr int M = 64 * P;
+  float in_re[8], in_im[8];      // W_64^(t k1), k1 = 0..7
+  float post_re[P == 1 ? 8 : 1], post_im[P == 1 ? 8 : 1];
+  float c, h;
+  __device__ __forceinline__ Tw(const float* tab, int t) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      in_re[i] = __ldg(tab + t * 8 + i);
+      in_im[i] = __ldg(tab + M + t * 8 + i);
+      if constexpr (P == 1) {
+        post_re[i] = __ldg(tab + 2 * M + t + 8 * i);
+        post_im[i] = __ldg(tab + 3 * M + t + 8 * i);
+      }
+    }
+    c = __ldg(tab + 2 * M + M / 8);            // Re e^{-2 pi i/8}
+    h = P == 3 ? -__ldg(tab + 3 * M + M / 3) : 0.f;  // -Im e^{-2 pi i/3}
+  }
+};
+
+// One row (buffer row r at `row`, 2M floats, swizzled), thread t = 0..7 of
+// its 8: a in, Y out. The whole warp calls it (its 4 rows), for the
+// __syncwarp()s.
+template <int P>
+__device__ __forceinline__ void fft_row(float* row, int r, int t,
+                                        const Tw<P>& w, const float* tab) {
+  constexpr int M = 64 * P;
+  const int s = r & 3;
+  float xr[P][8], xi[P][8];
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = sw(r, t + 8 * n2 + 64 * j);
+      xr[j][n2] = row[i];
+      xi[j][n2] = row[M + i];
+    }
+  if constexpr (P > 1) {
+#pragma unroll
+    for (int n2 = 0; n2 < 8; ++n2) {
+      float yr[P], yi[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) yr[j] = xr[j][n2], yi[j] = xi[j][n2];
+      dftp<P>(yr, yi, w.h);
+#pragma unroll
+      for (int q = 1; q < P; ++q) {
+        const int m = (t + 8 * n2) * q;  // W_M^(n q), n = t + 8 n2
+        cmul(yr[q], yi[q], __ldg(tab + 2 * M + m), __ldg(tab + 3 * M + m));
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) xr[j][n2] = yr[j], xi[j][n2] = yi[j];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    dft8(xr[q], xi[q], w.c);  // A[t][k1], k1 = 0..7
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1)
+      cmul(xr[q][k1], xi[q][k1], w.in_re[k1], w.in_im[k1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) {
+      const int i = 64 * q + xch(s, t, k1);
+      row[i] = xr[q][k1];
+      row[M + i] = xi[q][k1];
+    }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+#pragma unroll
+    for (int n1 = 0; n1 < 8; ++n1) {
+      const int i = 64 * q + xch(s, n1, t);
+      xr[q][n1] = row[i];
+      xi[q][n1] = row[M + i];
+    }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    dft8(xr[q], xi[q], w.c);  // X[P (t + 8 k2) + q], k2 = 0..7
+#pragma unroll
+    for (int k2 = 0; k2 < 8; ++k2) {
+      const int j = P * (t + 8 * k2) + q;
+      if constexpr (P == 1)
+        cmul(xr[q][k2], xi[q][k2], w.post_re[k2], w.post_im[k2]);
+      else
+        cmul(xr[q][k2], xi[q][k2], __ldg(tab + 2 * M + j),
+             __ldg(tab + 3 * M + j));
+      const int i = sw(r, j);
+      row[i] = xr[q][k2];
+      row[M + i] = xi[q][k2];
+    }
+  }
+}
+
+}  // namespace planes_fft

@@ -1,7 +1,8 @@
 // The register-tiled FP32 product of a shared-memory tile with a constant
-// matrix: the channelizer front end's DFT (channelizer.cu, K1, any multiple
-// of 128 lanes, one 128-column block at a time). The fused chains
-// (fm_chain.cu) take their DFT as a 64-point FFT instead.
+// matrix: the channelizer front end's DFT at the widths its FFT does not
+// take (channelizer.cu, K1's dense instance, any multiple of 128 lanes,
+// one 128-column block at a time). K1's FFT instance and the fused chains
+// (fm_chain.cu) take the DFT as an FFT (planes_fft.cuh).
 //
 // One pass covers kPassRows = 32 rows and 128 output columns with 256
 // threads: thread (ty, tx), ty = tid / 32 and tx = tid % 32, owns rows

@@ -21,5 +21,7 @@ def launch_counters() -> list[tuple[object, str]]:
     banded = (fm_chain.fm_chain_step_planes, fm_chain.fm_chain_gen_step,
               fm_chain.fm_chain_gen_warm_step)
     return [(f, "launches") for f in fns] + [
-        (fm_chain.fm_chain_step_planes, "pipe_launches")] + [
+        (fm_chain.fm_chain_step_planes, "pipe_launches"),
+        (fir_source.fir_tone_step, "direct_launches"),
+        (channelizer.arm_fold_dft, "dense_launches")] + [
         (f, f"ag{ag}_launches") for f in banded for ag in (2, 4)]

@@ -59,12 +59,16 @@ SIGNATURES = {
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
     "arm_fold_geometry": [_I, _I, _I, _LL, _P],
     "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "arm_fold_fft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
     # sources.cu
     "nco_planes_launch": [_P, _P, _P, _LL, _P, _P, _P, _P],
     "nco_folded_launch": [_P, _P, _P, _I, _P, _P, _P],
     # fir_source.cu
     "fir_tone_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P, _P],
+    # fir_direct.cu
+    "fir_direct_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P, _P],
     # wbfm_chain.cu
     "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _F, _F, _F, _P, _P],

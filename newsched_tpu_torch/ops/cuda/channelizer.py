@@ -6,11 +6,15 @@ fold is M independent L-tap FIRs down the columns of V:
 
     acc[j, q] = sum_{s=0}^{L-1} c[s, q] * V[j + s, q]
 
-and the fused front end adds the phase combine, one real (2M x 2M) product
-with the interleaved DFT matrix. Both work on the interleaved float32 view
-of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)`` is the same
-memory, so entering and leaving it costs no copy. The kernels are
-``csrc/channelizer.cu``, whose header says how they map onto the H100.
+and the fused front end adds the phase combine, y[:, k] = e^{-j2pi k/M} *
+DFT_q(acc)[:, k]: the plain version as one real (2M x 2M) product with the
+interleaved DFT matrix, the kernel K1 as the chains' shared-memory FFT
+(``planes_fft``) at M = 64, 128, 192 and 256 and as that dense product at
+any other M with 2M a multiple of 128. Both work on the interleaved
+float32 view of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)``
+is the same memory, so entering and leaving it costs no copy. The kernels
+are ``csrc/channelizer.cu``, whose header says how they map onto the
+H100.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops.cuda import _build
+from newsched_tpu_torch.ops.cuda.planes_fft import (CHANNELS, fft_planes,
+                                                    planes_fft_table)
 
-TILE = 128      # K1's rows per CUDA block at 128 lanes: 64 KB of shared memory
+TILE = 128      # rows a block of K1's dense instance at 128 lanes (64 KB)
 DFT_LANES = 128  # arm_fold_dft's kernel takes widths that are multiples of this
 
 
@@ -86,6 +92,16 @@ def arm_fold_dft_plain(v: torch.Tensor, c2: torch.Tensor, w2: torch.Tensor,
     return arm_fold_plain(v, c2, n_out) @ w2
 
 
+def fft_interleaved(acc: torch.Tensor, fft: torch.Tensor) -> torch.Tensor:
+    """K1's phase combine as its FFT instance computes it, in torch
+    float32: the interleaved fold rows (n, 2M) as planes rows (re lanes,
+    then im), ``planes_fft.fft_planes`` with the table ``fft``, and the
+    result interleaved again. On K7's output it gives K1's bits."""
+    n, W = acc.shape
+    Y = fft_planes(torch.cat([acc[:, 0::2], acc[:, 1::2]], dim=1), fft)
+    return torch.stack([Y[:, :W // 2], Y[:, W // 2:]], dim=-1).reshape(n, W)
+
+
 def _launch_args(v: torch.Tensor, c2: torch.Tensor, n_out: int,
                  tile: int | None):
     W = int(c2.shape[1])
@@ -130,41 +146,61 @@ arm_fold.launches = 0
 
 
 def arm_fold_dft(v: torch.Tensor, c2, w2, n_out: int,
-                 tile: int | None = None) -> torch.Tensor:
+                 tile: int | None = None, fft=None) -> torch.Tensor:
     """Fold + interleaved DFT in one kernel: v (rows, 2M) f32 interleaved,
     c2 (L, 2M) from ``interleave_taps``, w2 (2M, 2M) from
     ``interleaved_dft_matrix`` -> Y interleaved (n_out, 2M) f32. The
-    product runs in FP32. The kernel takes 2M a multiple of 128 (M = 64,
-    128, 192, 256, ...), as the TPU kernel does. ``tile``: rows per CUDA
-    block (default: 128 at 128 lanes, fewer at wider rows, so that the
-    block's T x 2M fold fits in shared memory); the output does not depend
-    on it.
+    kernel takes 2M a multiple of 128, as the TPU kernel does, in one of
+    two instances chosen by the width alone: at M in ``planes_fft.CHANNELS``
+    (64, 128, 192, 256) the fold in registers and the shared-memory FFT,
+    which takes ``fft`` (``planes_fft_table(M)``, on the device) in place
+    of w2; at any other M the fold and the FP32 product with w2
+    (``dense_launches``). ``tile``: rows a thread group folds in a run
+    (the FFT instance; default: one wave of runs on the card) or rows a
+    block (the dense one; default 128 at 128 lanes, fewer at wider rows);
+    the output does not depend on it.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``arm_fold_dft_launch`` (csrc/channelizer.cu)."""
     L, W = int(np.shape(c2)[0]), int(np.shape(c2)[1])
+    M = W // 2
     if v.device.type != "cpu" and W % DFT_LANES:
-        raise ValueError(f"arm_fold_dft: width {W} lanes (M={W // 2}); the "
+        raise ValueError(f"arm_fold_dft: width {W} lanes (M={M}); the "
                          f"CUDA kernel takes multiples of {DFT_LANES}")
     c2 = _f32(c2, v.device, L, W)
-    w2 = _f32(w2, v.device, W, W)
     if v.device.type == "cpu":
-        return arm_fold_dft_plain(v, c2, w2, n_out)
+        return arm_fold_dft_plain(v, c2, _f32(w2, v.device, W, W), n_out)
+    if M in CHANNELS:
+        if fft is None:
+            raise ValueError("arm_fold_dft: the kernel takes the DFT as an "
+                             "FFT and needs its twiddle table: pass fft="
+                             "planes_fft_table(M) on the device")
+        dev, W, out = _launch_args(v, c2, n_out, tile)
+        fft = _f32(fft, dev, 4, M)
+        with torch.cuda.device(dev):
+            err = _build.lib().arm_fold_fft_launch(
+                v.data_ptr(), int(v.shape[0]), c2.data_ptr(), fft.data_ptr(),
+                out.data_ptr(), n_out, M, L, int(tile or 0),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "arm_fold_fft_launch")
+        arm_fold_dft.launches += 1
+        return out
+    w2 = _f32(w2, v.device, W, W)
     if tile is None:
         tile = max(32, TILE * DFT_LANES // W)
     dev, W, out = _launch_args(v, c2, n_out, tile)
-    _build.check_tensor(w2, "w2", device=dev, shape=(W, W))
     with torch.cuda.device(dev):
         err = _build.lib().arm_fold_dft_launch(
             v.data_ptr(), int(v.shape[0]), c2.data_ptr(), w2.data_ptr(),
             out.data_ptr(), n_out, W, L, int(tile),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "arm_fold_dft_launch")
-    arm_fold_dft.launches += 1
+    arm_fold_dft.dense_launches += 1
     return out
 
 
 arm_fold_dft.launches = 0
+arm_fold_dft.dense_launches = 0
 
 
 def pfb_arm_fold_complex(V: torch.Tensor, c: np.ndarray, n_out: int,
@@ -182,6 +218,8 @@ def pfb_channelize_fused(V: torch.Tensor, c: np.ndarray, n_out: int,
     complex64: the whole channelizer front end (fold + phase combine)
     through ``arm_fold_dft``."""
     M = int(V.shape[1])
+    fft = planes_fft_table(M)
     Y = arm_fold_dft(complex_to_interleaved(V), interleave_taps(c),
-                     interleaved_dft_matrix(M), n_out, tile=tile)
+                     interleaved_dft_matrix(M), n_out, tile=tile,
+                     fft=None if fft is None else torch.from_numpy(fft))
     return interleaved_to_complex(Y)

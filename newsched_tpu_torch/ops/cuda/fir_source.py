@@ -14,6 +14,12 @@ batch, 0. So the chain is stateless but for the caller's phase counter and
 first-batch flag, which the kernel reads from the card (the block keeps
 them there, so a captured step replays with the state the step before
 left); a time shard passes its index and starts 64*R*shard samples on.
+
+Two kernel instances, picked by the tap count alone: up to ``FFT_MAX_TAPS``
+(513) the overlap-save FFT convolution (``csrc/fir_source.cu``), past it
+the direct form (``csrc/fir_direct.cu``), whose window takes ~36 bytes of
+shared memory a tap; a tap count that fits neither raises, naming the
+largest the shape takes (``direct_max_taps``).
 """
 
 from __future__ import annotations
@@ -30,12 +36,16 @@ from newsched_tpu_torch.ops.cuda.mathfns import SINCOS_COEFFS
 from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
                                                  mask_before_stream, nco_args,
                                                  shard_phase)
+from newsched_tpu_torch.ops.cuda.wbfm_chain import row_stride
 
 S = 64  # fold width: segments = lane pairs
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _THREADS = 256
 RADICES = (8, 16, 32)  # Q: the kernel's transforms have N = Q*Q points
 SEG_GROUP = 8  # segments per CUDA block
+FFT_MAX_TAPS = RADICES[-1] ** 2 // 2 + 1  # 513: N = 1024 keeps L = 512 outputs
+_J = 9  # consecutive outputs a thread of the direct instance computes (kJ)
+DIRECT_SEG_GROUP = 4  # segments per block of the direct instance
 
 
 def fft_radix(ntaps: int) -> int:
@@ -71,10 +81,14 @@ class FirToneConsts(NamedTuple):
 
 
 def fir_tone_consts(taps, device) -> FirToneConsts:
+    """The taps on ``device``, with the FFT instance's table where the tap
+    count takes it (None past ``FFT_MAX_TAPS``: the direct instance reads
+    the taps alone)."""
     taps = np.asarray(taps, np.float32)
-    tab = fir_tone_table(taps, fft_radix(len(taps)))
-    return FirToneConsts(torch.as_tensor(taps, device=device),
-                         torch.as_tensor(tab, device=device))
+    tab = (torch.as_tensor(fir_tone_table(taps, fft_radix(len(taps))),
+                           device=device)
+           if len(taps) <= FFT_MAX_TAPS else None)
+    return FirToneConsts(torch.as_tensor(taps, device=device), tab)
 
 
 def pick_tile(R: int, D: int, L: int = 128, target: int = 512) -> int:
@@ -165,6 +179,70 @@ def _geometry(R: int, D: int, ntaps: int, tile, GS: int) -> _Geometry:
     return _Geometry(Q, T, GS, NQ, off, WR, PW, BR, smem)
 
 
+class _Direct(NamedTuple):
+    """The direct instance's block geometry (csrc/fir_direct.cu)."""
+
+    T: int
+    GS: int
+    P: int   # shared row stride of the sample planes
+    CU: int  # outputs a chunk
+    smem: int
+
+
+def pick_direct_tile(R: int, D: int, target_out: int = 512) -> int:
+    """The direct instance's batch rows per block: the largest multiple of
+    D that divides R with at most ``target_out`` output rows."""
+    if R % D:
+        raise ValueError(f"batch fold R={R} not a multiple of decim {D}")
+    n_o = R // D
+    return D * max(t for t in range(1, min(target_out, n_o) + 1)
+                   if n_o % t == 0)
+
+
+def _direct_smem(ntaps: int, D: int, T: int, GS: int) -> tuple[int, int, int]:
+    """(P, CU, shared bytes) of a direct-instance block: the taps, then the
+    re and im planes of the chunk's window, its look-back included."""
+    P = row_stride(GS, _J * D)
+    CU = _THREADS // GS * _J
+    rows = (-(-min(T // D, CU) // _J) * _J - 1) * D + ntaps
+    return P, CU, (ntaps + 2 * rows * P) * 4
+
+
+def direct_max_taps(D: int, T: int, GS: int = DIRECT_SEG_GROUP) -> int:
+    """The largest tap count whose window fits a direct-instance block at
+    decimation D and T batch rows a block (6001 at D = 1, T = 512)."""
+    P, _, base = _direct_smem(0, D, T, GS)
+    return (_SMEM_MAX - base) // (4 * (1 + 2 * P))
+
+
+@functools.lru_cache(maxsize=None)
+def _direct_geometry(R: int, D: int, ntaps: int, tile,
+                     GS: int = DIRECT_SEG_GROUP) -> _Direct:
+    if D <= 0 or R <= 0 or R % D:
+        raise ValueError(f"batch fold R={R} not a multiple of decim {D}")
+    T = int(tile) if tile else pick_direct_tile(R, D)
+    if T <= 0 or R % T or T % D:
+        raise ValueError(f"tile {T} incompatible with R={R}, D={D}")
+    if GS <= 0 or S % GS or GS & (GS - 1):
+        raise ValueError(f"seg_group {GS}: a power of 2 dividing {S}")
+    P, CU, smem = _direct_smem(ntaps, D, T, GS)
+    if smem > _SMEM_MAX:
+        raise ValueError(
+            f"{ntaps} taps: K9 takes at most {direct_max_taps(D, T, GS)} taps "
+            f"at decim {D} and tile {T} ({smem} bytes of shared memory, the "
+            f"H100 allows {_SMEM_MAX}); the reference's limit is its window")
+    return _Direct(T, GS, P, CU, smem)
+
+
+def plan(R: int, D: int, ntaps: int, tile=None):
+    """The instance K9 launches for these taps and its geometry: the FFT
+    convolution's ``_Geometry`` up to ``FFT_MAX_TAPS`` taps, else the
+    direct form's ``_Direct``. Raises where neither fits."""
+    if ntaps <= FFT_MAX_TAPS:
+        return _geometry(R, D, ntaps, tile, SEG_GROUP)
+    return _direct_geometry(R, D, ntaps, tile)
+
+
 def fir_tone_step_plain(phase0, dphase, amp, first, taps, decim: int, R: int,
                         shard: int = 0):
     """The plain PyTorch version of ``fir_tone_step`` (``taps``: the taps,
@@ -209,22 +287,28 @@ def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
       shard: the time shard of the batch this call computes (R rows of
         it, from 64*R*shard samples on; only shard 0 reads ``first``).
 
-    Returns (R/D, 128) float32 folded planes of the filtered stream. The
-    kernel's FFT convolution aligns its transforms to the batch index at
-    multiples of L (``fft_radix``: L = 128 at up to 129 taps), so its
-    output is bit-identical for every batch split and time shard whose
-    boundaries fall on multiples of L; any R is taken.
+    Returns (R/D, 128) float32 folded planes of the filtered stream. Up
+    to ``FFT_MAX_TAPS`` taps the kernel is an FFT convolution that aligns
+    its transforms to the batch index at multiples of L (``fft_radix``: L
+    = 128 at up to 129 taps), so its output is bit-identical for every
+    batch split and time shard whose boundaries fall on multiples of L;
+    past it the direct form, bit-identical for every tile, split and
+    shard (its outputs depend only on the samples). Any R is taken.
 
     CPU tensors (``taps`` on the CPU) take the plain version; on a CUDA
-    device it launches ``fir_tone_launch`` (csrc/fir_source.cu, K9).
+    device it launches ``fir_tone_launch`` (csrc/fir_source.cu, K9) or,
+    past ``FFT_MAX_TAPS`` taps, ``fir_direct_launch`` (csrc/fir_direct.cu).
     """
     R, D = int(R), int(decim)
     consts = taps if isinstance(taps, FirToneConsts) else FirToneConsts(taps,
                                                                         None)
-    g = _geometry(R, D, int(consts.taps.shape[0]), tile, SEG_GROUP)
+    g = plan(R, D, int(consts.taps.shape[0]), tile)
     if consts.taps.device.type == "cpu":
         return fir_tone_step_plain(phase0, dphase, amp, first, consts.taps, D,
                                    R, shard)
+    if isinstance(g, _Direct):
+        return _launch_direct(phase0, dphase, amp, first, consts, D, R, g,
+                              shard)
     return _launch(phase0, dphase, amp, first, consts, D, R, g, shard)
 
 
@@ -254,6 +338,30 @@ def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
 
 
 fir_tone_step.launches = 0
+
+
+def _launch_direct(phase0, dphase, amp, first, consts: FirToneConsts, D: int,
+                   R: int, g: _Direct, shard: int = 0):
+    """Launch the direct instance (counted on ``direct_launches``)."""
+    dev = consts.taps.device
+    nt = int(consts.taps.shape[0])
+    _build.check_tensor(consts.taps, "taps", device=dev, shape=(nt,))
+    a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
+    ph, dp = nco_args(phase0, dphase, dev)
+    fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
+    out = torch.empty((R // D, 2 * S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().fir_direct_launch(
+            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
+            int(shard), consts.taps.data_ptr(), out.data_ptr(), R, nt, D, g.T,
+            g.GS, g.P, g.CU, SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fir_direct_launch")
+    fir_tone_step.direct_launches += 1
+    return out
+
+
+fir_tone_step.direct_launches = 0
 
 
 def unfold_complex(planes: torch.Tensor) -> torch.Tensor:

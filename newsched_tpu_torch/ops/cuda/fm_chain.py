@@ -42,8 +42,11 @@ import torch
 
 from newsched_tpu_torch.ops.cuda import _build, noise
 from newsched_tpu_torch.ops.cuda.mathfns import ATAN_COEFFS, atan2_plain
+from newsched_tpu_torch.ops.cuda.planes_fft import planes_fft_table
 
 PRECISIONS = ("split3", "highest", "high", "default")
+WIDTHS = (128, 256, 384, 512)  # planes lanes 2M of K3, K5, K6 (M = 64 .. 256)
+FLAGSHIP_W = 128  # K3p's and the ablation's one width (M = 64)
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
 _SM_THREADS = 2048  # threads an SM holds
@@ -72,23 +75,6 @@ def planes_dft_matrix(M: int) -> np.ndarray:
     top = np.concatenate([Wr, Wi], axis=1)
     bot = np.concatenate([-Wi, Wr], axis=1)
     return np.concatenate([top, bot], axis=0)
-
-
-def planes_fft_table(M: int) -> np.ndarray | None:
-    """(4, M) float32 twiddles of ``planes_dft_matrix``'s product taken as
-    an R x R FFT, M = R * R (the kernels' stage 2, R = 8 at M = 64), or
-    None where M is not a square: row 0/1 the real/imaginary parts of
-    e^{-2 pi i n1 k1 / M} at n1 * R + k1 (n1, k1 < R), row 2/3 those of
-    the post-twiddle e^{-2 pi i j / M} at j. Computed in float64, then
-    cast."""
-    R = int(round(np.sqrt(M)))
-    if R * R != M:
-        return None
-    n1, k1 = np.divmod(np.arange(M), R)
-    inner = np.exp(-2j * np.pi * n1 * k1 / M)
-    post = np.exp(-2j * np.pi * np.arange(M) / M)
-    return np.stack([inner.real, inner.imag, post.real,
-                     post.imag]).astype(np.float32)
 
 
 def audio_toeplitz(ataps: np.ndarray, tile: int, decim: int) -> np.ndarray:
@@ -150,8 +136,8 @@ def _pick_tile(n_out: int, tile: int, decim: int) -> int:
 class FmChainConsts(NamedTuple):
     """The chain's constants as tensors on one device: fold taps (L, 2M),
     DFT matrix (2M, 2M; the plain versions' product), audio taps (A,) and
-    the kernels' FFT twiddles (4, M; ``planes_fft_table``), which the CUDA
-    wrappers require."""
+    the kernels' FFT twiddles (4, M; ``planes_fft_table``, None where M is
+    not one the kernels take), which the CUDA wrappers require."""
 
     c2: torch.Tensor
     w2: torch.Tensor
@@ -257,19 +243,23 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
         unsharded stream's bit for bit and no row is computed only to be
         dropped. The returned prev/tail are the true end-of-batch state.
       tile: rows per CUDA block tile (shrunk to a divisor of n as the
-        reference does; decim must divide it). Outputs do not depend on it.
-        None: 128, the faster of 128 and 256 at the flagship shape on an
-        H100; pipelined, 64, within 4% of 128 there (PERF.md).
+        reference does; decim must divide it; at M > 64 shrunk again to a
+        divisor whose block fits in shared memory, ``_fit_tile``: 64 at M =
+        256). Outputs do not depend on it. None: 128, the faster of 128
+        and 256 at the flagship shape on an H100; pipelined, 64, within 4%
+        of 128 there (PERF.md).
       precision: accepted for the reference's signature; FP32 always.
       pipelined: the reference's software-pipelined variant (K3p): each
         CUDA block walks several consecutive tiles in order, carries the
         demod/audio junction from tile to tile instead of rebuilding it,
         and copies the next tile's window while the current one computes.
         The same values bit for bit; tile must then be a multiple of 32
-        (64 or 128 at M=64: the block holds two windows).
+        (64 or 128 at M=64: the block holds two windows). Built for M = 64
+        only: other widths raise.
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
+    The kernels take M = 64, 128, 192 and 256 channels (``WIDTHS``).
     CPU tensors take the plain version; CUDA tensors launch
     ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3; K3ag where
     ``_pick_audio_groups`` gives ag > 1), or with ``pipelined``
@@ -284,6 +274,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     H8 = _round8(L - 1)
     warm = int(warm)
     tile = _pick_tile(n, tile or (64 if pipelined else 128), decim)
+    if not pipelined:
+        tile = _fit_tile(tile, W, A, L, decim, decim)
     if warm:
         _check_warm(warm, tile, A, decim)
     if A - 1 > tile:
@@ -303,7 +295,7 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     if pipelined:
         return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None,
                      t_min)
-    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
+    _check_kernel_shape(W, tile, A, L, ag, decim)
     dev = vb.device
     _check_chain_tensors(dev, [("vb", vb, (n, W)),
                                ("halo", halo, (warm + H8, W))],
@@ -363,8 +355,13 @@ def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
     M, A, n = W // 2, int(consts.ataps.shape[0]), int(vb.shape[0])
     H8 = _round8(L - 1)
     hrows = int(halo.shape[0])
+    if W != FLAGSHIP_W:
+        raise ValueError(f"pipelined: planes width {W}; K3p is built for "
+                         f"M=64 channels ({FLAGSHIP_W} lanes)")
     smem = _pipe_smem(tile, A, L, W)
-    _check_kernel_shape(W, tile, smem)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
+                         f"H100 allows {_SMEM_MAX}; pass a smaller tile")
     dev = vb.device
     _check_chain_tensors(dev, [("vb", vb, (n, W)), ("halo", halo, (hrows, W))],
                          prev0, tail0, consts)
@@ -396,11 +393,16 @@ def _tile_rows(tile: int, A: int, L: int) -> int:
     return max(-(-(tile + A) // 32) * 32, tile + A + L - 1)
 
 
-def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int) -> int:
-    """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): the
-    tile buffer, and with ag > 1 room past its tile + A rows for K3ag's
-    band table (the buffer's padding holds it at the flagship's shape)."""
-    W = 128
+def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int,
+                W: int = FLAGSHIP_W) -> int:
+    """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): at
+    128 lanes the tile buffer, and with ag > 1 room past its tile + A rows
+    for K3ag's band table (the buffer's padding holds it at the flagship's
+    shape); wider, chain_tile_wide's (tile + A) aud rows of M floats, its
+    window of 32 + L-1 rows and two Y rows (the band table in the
+    window)."""
+    if W != FLAGSHIP_W:
+        return ((tile + A) * (W // 2) + (32 + L - 1 + 2) * W) * 4
     floats = _tile_rows(tile, A, L) * W
     if ag > 1:
         tg = tile // ag
@@ -408,14 +410,36 @@ def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int) -> int:
     return floats * 4
 
 
-def _check_kernel_shape(W: int, tile: int, smem: int) -> None:
-    """W: planes lanes; smem: the block's shared bytes."""
-    if W != 128:
-        raise ValueError(f"planes width {W}: the CUDA kernel is built for "
-                         f"M=64 channels (2M=128 lanes)")
+def _fit_tile(tile: int, W: int, A: int, L: int, decim: int,
+              unit: int) -> int:
+    """The largest divisor of ``tile`` that is a multiple of ``unit``, at
+    least max(A-1, H8) rows and whose block fits in shared memory at W
+    lanes: the tile itself at 128 lanes, 64 at M = 256 for the flagship's
+    A and L. The tile changes no output bit; the wrapper's checks see
+    ``tile`` where none fits."""
+    least = max(A - 1, _round8(L - 1), 1)
+    return next((d for d in range(tile, least - 1, -1)
+                 if tile % d == 0 and d % unit == 0
+                 and _chain_smem(d, A, L, 1, decim, W) <= _SMEM_MAX), tile)
+
+
+def _check_kernel_shape(W: int, tile: int, A: int, L: int, ag: int,
+                        decim: int) -> None:
+    """What K3, K5 and K6 take: 2M in ``WIDTHS``, a block that fits in
+    shared memory, and (wider than 128 lanes) K3ag's band table in the
+    window."""
+    if W not in WIDTHS:
+        raise ValueError(f"planes width {W}: the CUDA kernels take M = 64, "
+                         f"128, 192 or 256 channels (2M in {WIDTHS})")
+    smem = _chain_smem(tile, A, L, ag, decim, W)
     if smem > _SMEM_MAX:
         raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
                          f"H100 allows {_SMEM_MAX}; pass a smaller tile")
+    tg = tile // ag
+    band_table = tg // decim * (tg + A - 1)
+    if W != FLAGSHIP_W and ag > 1 and band_table > (32 + L - 1) * W:
+        raise ValueError(f"audio groups {ag}: tile {tile}'s band table does "
+                         f"not fit the window at {W} lanes")
 
 
 def _check_chain_tensors(dev, inputs, prev0, tail0, consts) -> None:
@@ -493,7 +517,7 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
     A = int(consts.ataps.shape[0])
     n_loc = int(n_loc)
     H8 = _round8(L - 1)
-    tile = _pick_tile(n_loc, tile, decim)
+    tile = _fit_tile(_pick_tile(n_loc, tile, decim), W, A, L, decim, decim)
     if A - 1 > tile or tile < H8:
         raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
     if int(carry0.shape[0]) != H8:
@@ -504,7 +528,7 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
         return fm_chain_gen_step_plain(g0, amp, carry0, prev0, tail0, consts,
                                        decim, gain, n_loc, seed, draws, ag,
                                        tile)
-    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
+    _check_kernel_shape(W, tile, A, L, ag, decim)
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     _check_chain_tensors(dev, [("amp", amp, (1,)), ("carry0", carry0, (H8, W))],
                          prev0, tail0, consts)
@@ -606,7 +630,8 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     A = int(consts.ataps.shape[0])
     n_loc, warm = int(n_loc), int(warm)
     H8 = _round8(L - 1)
-    tile = _pick_tile(n_loc, tile, decim)
+    tile = _fit_tile(_pick_tile(n_loc, tile, decim), W, A, L, decim,
+                     int(np.lcm(noise.GROUP_ROWS, decim)))
     _check_warm(warm, tile, A, decim)
     if tile % noise.GROUP_ROWS:
         raise ValueError(f"tile {tile} not a multiple of the noise group "
@@ -622,7 +647,7 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
         return fm_chain_gen_warm_step_plain(g0, amp, consts, decim, gain,
                                             n_loc, warm, seed, draws, goff,
                                             ag, tile)
-    _check_kernel_shape(W, tile, _chain_smem(tile, A, L, ag, decim))
+    _check_kernel_shape(W, tile, A, L, ag, decim)
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     z1, zt = _zero_state(dev, A, W)
     _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)

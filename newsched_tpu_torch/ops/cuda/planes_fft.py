@@ -1,0 +1,112 @@
+"""The planes DFT as the kernels compute it: a radix-P step and P 64-point
+FFTs of 8 x 8 for M = 64 P channels (``csrc/planes_fft.cuh``, taken by the
+fused chains K3, K5, K6, K3p, K3ag and by the channelizer front end K1).
+
+``planes_fft_table`` is the kernels' twiddle table; ``fft_planes`` repeats
+the kernels' arithmetic in torch float32, every operation rounded on its
+own as the kernels' ``__fadd_rn``/``__fmul_rn`` are, so that on the same
+rows it gives their bits (what the CPU tests and chip_smoke.py hold the
+kernels to).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CHANNELS = (64, 128, 192, 256)  # M the FFT takes: 64 P, P = 1 .. 4
+
+
+def planes_fft_table(M: int) -> np.ndarray | None:
+    """(4, M) float32 twiddles of the planes DFT taken as a radix-P step and
+    P 64-point FFTs of 8 x 8 (M = 64 P), or None where M is not in
+    ``CHANNELS``: row 0/1 the real/imaginary parts of
+    e^{-2 pi i n1 k1 / 64} at n1 * 8 + k1 (n1, k1 < 8), zeros past 64;
+    row 2/3 those of e^{-2 pi i j / M} at j < M (the post-twiddle, and the
+    radix-P step's W_M^(n r) at j = n r). Computed in float64, then cast."""
+    if M not in CHANNELS:
+        return None
+    n1, k1 = np.divmod(np.arange(64), 8)
+    inner = np.zeros(M, np.complex128)
+    inner[:64] = np.exp(-2j * np.pi * n1 * k1 / 64)
+    post = np.exp(-2j * np.pi * np.arange(M) / M)
+    return np.stack([inner.real, inner.imag, post.real,
+                     post.imag]).astype(np.float32)
+
+
+def _dft8(xr, xi, c):
+    """The kernels' dft8 over the last axis: a = x[n] + x[n+4], b = (x[n] -
+    x[n+4]) W8^n, then a 4-point DFT of each (even and odd outputs)."""
+    ar = [xr[..., n] + xr[..., n + 4] for n in range(4)]
+    ai = [xi[..., n] + xi[..., n + 4] for n in range(4)]
+    br = [xr[..., n] - xr[..., n + 4] for n in range(4)]
+    bi = [xi[..., n] - xi[..., n + 4] for n in range(4)]
+    br[1], bi[1] = (br[1] + bi[1]) * c, (bi[1] - br[1]) * c
+    br[2], bi[2] = bi[2], -br[2]
+    br[3], bi[3] = (bi[3] - br[3]) * c, -((br[3] + bi[3]) * c)
+    (er, ei), (orr, oi) = _dft4(ar, ai), _dft4(br, bi)
+    out_r = [v for k in range(4) for v in (er[k], orr[k])]
+    out_i = [v for k in range(4) for v in (ei[k], oi[k])]
+    return torch.stack(out_r, -1), torch.stack(out_i, -1)
+
+
+def _dft4(yr, yi):
+    s0r, s0i = yr[0] + yr[2], yi[0] + yi[2]
+    d0r, d0i = yr[0] - yr[2], yi[0] - yi[2]
+    s1r, s1i = yr[1] + yr[3], yi[1] + yi[3]
+    d1r, d1i = yr[1] - yr[3], yi[1] - yi[3]
+    return ([s0r + s1r, d0r + d1i, s0r - s1r, d0r - d1i],
+            [s0i + s1i, d0i - d1r, s0i - s1i, d0i + d1r])
+
+
+def _dftp(xr: list, xi: list, h):
+    """The kernels' dftp: the P-point DFT of the lists' entries."""
+    P = len(xr)
+    if P == 2:
+        return [xr[0] + xr[1], xr[0] - xr[1]], [xi[0] + xi[1], xi[0] - xi[1]]
+    if P == 3:
+        sr, si = xr[1] + xr[2], xi[1] + xi[2]
+        dr, di = xr[1] - xr[2], xi[1] - xi[2]
+        tr, ti = xr[0] - 0.5 * sr, xi[0] - 0.5 * si
+        hr, hi = h * dr, h * di
+        return [xr[0] + sr, tr + hi, tr - hi], [xi[0] + si, ti - hr, ti + hr]
+    return _dft4(xr, xi)
+
+
+def _cmul(re, im, cr, ci):
+    return re * cr - im * ci, re * ci + im * cr
+
+
+def fft_planes(acc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Y = acc @ planes_dft_matrix(M) on (n, 2M) float32 planes rows as the
+    kernels compute it, with their table (``planes_fft_table(M)``): thread
+    t of a row holds a[t + 8 n2 + 64 j], the radix-P DFT over j times
+    W_M^((t + 8 n2) r), then for each r a radix-8 DFT over n2, times
+    W64^(t k1), the exchange, a radix-8 DFT over n1, times the
+    post-twiddle of output P (k1 + 8 k2) + r."""
+    n, W = acc.shape
+    M = W // 2
+    P = M // 64
+    c = table[2, M // 8]  # cos(pi/4)
+    h = -table[3, M // 3]  # sin(pi/3), read at P = 3
+    # [row, j, n1, n2] = a[n1 + 8 n2 + 64 j]
+    xr = acc[:, :M].reshape(n, P, 8, 8).transpose(2, 3)
+    xi = acc[:, M:].reshape(n, P, 8, 8).transpose(2, 3)
+    if P > 1:
+        yr, yi = _dftp([xr[:, j] for j in range(P)],
+                       [xi[:, j] for j in range(P)], h)
+        nn = torch.arange(64, device=acc.device).reshape(8, 8).T  # [n1, n2]
+        for q in range(1, P):
+            m = nn * q
+            yr[q], yi[q] = _cmul(yr[q], yi[q], table[2][m], table[3][m])
+        xr, xi = torch.stack(yr, 1), torch.stack(yi, 1)
+    ar, ai = _dft8(xr, xi, c)  # [row, r, n1, k1]
+    ar, ai = _cmul(ar, ai, table[0, :64].reshape(8, 8),
+                   table[1, :64].reshape(8, 8))
+    # [row, r, k1, k2]
+    xr, xi = _dft8(ar.transpose(2, 3), ai.transpose(2, 3), c)
+    # [row, k2, k1, r], output j = r + P k1 + 8 P k2
+    xr, xi = xr.permute(0, 3, 2, 1), xi.permute(0, 3, 2, 1)
+    yr, yi = _cmul(xr, xi, table[2].reshape(8, 8, P),
+                   table[3].reshape(8, 8, P))
+    return torch.cat([yr.reshape(n, M), yi.reshape(n, M)], dim=1)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops.cuda import channelizer
+from newsched_tpu_torch.ops.cuda.planes_fft import planes_fft_table
 
 METHODS = ("auto", "fused", "pallas", "sum")
 
@@ -44,6 +45,7 @@ class PfbConsts(NamedTuple):
     c2: torch.Tensor       # (L, 2M) the same on the interleaved lanes
     w2: torch.Tensor       # (2M, 2M) interleaved DFT matrix, twiddle absorbed
     twiddle: torch.Tensor  # (M,) complex64 e^{-j 2 pi k / M}
+    fft: torch.Tensor | None  # (4, M) K1's FFT table (planes_fft_table)
 
 
 def pfb_arm_taps(taps: np.ndarray, nchans: int) -> np.ndarray:
@@ -71,12 +73,14 @@ def pfb_consts(arm_taps, device) -> PfbConsts:
     M = int(arm_taps.shape[0])
     c = np.ascontiguousarray(np.asarray(arm_taps, np.float32)[::-1, ::-1].T)
     k = np.arange(M)
+    fft = planes_fft_table(M)
     return PfbConsts(
         c=torch.tensor(c, device=device),
         c2=torch.tensor(channelizer.interleave_taps(c), device=device),
         w2=torch.tensor(channelizer.interleaved_dft_matrix(M), device=device),
         twiddle=torch.tensor(np.exp(-2j * np.pi * k / M).astype(np.complex64),
-                             device=device))
+                             device=device),
+        fft=None if fft is None else torch.tensor(fft, device=device))
 
 
 def _commutator(arm_taps, state: PfbState, x: torch.Tensor):
@@ -101,7 +105,8 @@ def _fold(V: torch.Tensor, consts: PfbConsts, n_out: int, method: str):
             acc = acc + consts.c[s] * V[s:s + n_out]
         return acc
     v = channelizer.complex_to_interleaved(V)
-    out = (channelizer.arm_fold_dft(v, consts.c2, consts.w2, n_out)
+    out = (channelizer.arm_fold_dft(v, consts.c2, consts.w2, n_out,
+                                    fft=consts.fft)
            if method == "fused" else channelizer.arm_fold(v, consts.c2, n_out))
     return channelizer.interleaved_to_complex(out)
 

@@ -87,7 +87,10 @@ def fm_chain_ablate(vb, halo, prev0, tail0, consts, decim: int, gain: float,
     if vb.device.type == "cpu":
         return fm_chain_ablate_plain(vb, halo, prev0, tail0, consts, decim,
                                      gain, variant)
-    fm_chain._check_kernel_shape(W, tile, fm_chain._tile_rows(tile, A, L) * W * 4)
+    if W != fm_chain.FLAGSHIP_W:
+        raise ValueError(f"planes width {W}: the ablation is built for M=64 "
+                         f"channels ({fm_chain.FLAGSHIP_W} lanes)")
+    fm_chain._check_kernel_shape(W, tile, A, L, 1, decim)
     dev = vb.device
     fm_chain._check_chain_tensors(dev, [("vb", vb, (n, W)),
                                         ("halo", halo, (H8, W))],

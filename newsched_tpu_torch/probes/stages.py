@@ -1,5 +1,6 @@
 """Stage times of the live FIR kernel K9 and the wideband-FM tile routine
-(K10, K12), and their outputs for comparison across trees.
+(K10, K12), and their outputs and the fused channelizer chains' (K3, K3
+with warm > 0, K3p, K3ag, K5, K6 at M = 64) for comparison across trees.
 
     PYTHONPATH=<tree> python3 <this file> stages
     PYTHONPATH=<tree> python3 <this file> outputs --save FILE
@@ -19,9 +20,10 @@ and skips what follows:
        3 + the demod and atan2; 4 + the resampler and the writes.
 
 ``outputs`` runs K9, K10 and K12 at the main paths' shapes on fixed inputs
-(K10 and K12 at several block geometries) and saves them, or compares them
-with a saved run: bit for bit for K10 and K12, by the largest difference
-for K9.
+(K10 and K12 at several block geometries), and the chain kernels at the
+flagship's shape on seeded rows, and saves them, or compares them with a
+saved run: each record says whether the two are bit-equal and their
+largest difference.
 
 Prints one JSON line a record, the card's name and power limit first.
 """
@@ -38,8 +40,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops import firdes, nco
-from newsched_tpu_torch.ops.cuda import _build, fir_source, sources, wbfm_chain
+from newsched_tpu_torch.ops import firdes, nco, pfb
+from newsched_tpu_torch.ops.cuda import (_build, fir_source, fm_chain, sources,
+                                         wbfm_chain)
 from newsched_tpu_torch.probes._timing import graph_ms
 from newsched_tpu_torch.probes.run import rotating
 
@@ -251,7 +254,62 @@ def _outputs() -> dict:
     for D in (1, 4):
         res[f"K9/{D}"] = fir_source.fir_tone_step(0x9E3779B9, dpf, 0.8, False,
                                                   taps, D, FIR_R).cpu()
+    res.update(_chain_outputs())
     torch.cuda.synchronize()
+    return res
+
+
+def _chain_outputs() -> dict:
+    """K3 (two carried batches, tiles 128 and 64, and a time shard with
+    warm > 0), K3p, K3ag (ag = 2), K5 (two batches from stream start) and
+    K6 (a shard of 8192 rows) at the flagship's M = 64, 16 taps an arm, a
+    65-tap audio FIR decimating by 8, on seeded rows of 32768."""
+    M, L, A, D, n = 64, 16, 65, 8, 32768
+    taps = firdes.prototype_channelizer_taps(M, L)
+    at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
+    c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+    consts = fm_chain.fm_chain_consts(c, at, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(64)
+    rows = torch.randn(2 * n, 2 * M, device="cuda", generator=g) * 0.5
+    z = dict(dtype=torch.float32, device="cuda")
+    res = {}
+
+    def k3(key, **kw):
+        halo, prev = torch.zeros(16, 2 * M, **z), torch.zeros(1, 2 * M, **z)
+        tail = torch.zeros(A - 1, 2 * M, **z)
+        for b in range(2):
+            vb = rows[b * n:(b + 1) * n]
+            aud, prev, tail = fm_chain.fm_chain_step_planes(
+                vb, halo, prev, tail, consts, D, 0.5, **kw)
+            for name, t in (("aud", aud), ("prev", prev), ("tail", tail)):
+                res[f"{key}/{b}/{name}"] = t.cpu()
+            halo = vb[-16:].contiguous()
+
+    k3("K3/128", tile=128)
+    k3("K3/64", tile=64)
+    k3("K3p", pipelined=True)
+    pick = fm_chain._pick_audio_groups
+    fm_chain._pick_audio_groups = lambda tile, decim, A: 2
+    try:
+        k3("K3ag2")
+    finally:
+        fm_chain._pick_audio_groups = pick
+    warm = 512
+    zp, zt = torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z)
+    res["K3/warm"] = fm_chain.fm_chain_step_planes(
+        rows[n:].contiguous(), rows[n - warm - 16:n].contiguous(), zp, zt,
+        consts, D, 0.5, warm=warm, tile=128)[0].cpu()
+    amp = torch.tensor(0.5, **z)
+    carry, prev, tail = torch.zeros(16, 2 * M, **z), zp, zt
+    for b in range(2):
+        grp = torch.tensor(b * n // 64, dtype=torch.int64, device="cuda")
+        aud, prev, tail, carry = fm_chain.fm_chain_gen_step(
+            grp, amp, carry, prev, tail, consts, D, 0.5, n)
+        res[f"K5/{b}/aud"] = aud.cpu()
+        res[f"K5/{b}/carry"] = carry.cpu()
+    grp = torch.tensor(0, dtype=torch.int64, device="cuda")
+    res["K6"] = fm_chain.fm_chain_gen_warm_step(
+        grp, amp, consts, D, 0.5, 8192, warm=512, goff=3 * 8192 // 64).cpu()
     return res
 
 

@@ -1,86 +1,52 @@
-"""The fused chain kernels' DFT as a 64-point FFT (csrc/fm_chain.cu, stage
-2 of ``chain_tile``), held on the CPU: the 8 x 8 decomposition evaluated
-in torch float32 with the twiddle table ``fm_chain_consts`` builds, in the
-kernel's order of operations, each rounded on its own as the kernel's
-``__fadd_rn``/``__fmul_rn`` are, against the plain versions' dense product
-``acc @ planes_dft_matrix(64)`` and against numpy's float64 FFT with the
-post-twiddle. Also: every ``FmChainConsts`` carries the table, and the
-CUDA wrappers refuse constants without it (meta tensors stand in for the
-card: the check comes before any launch).
+"""The planes DFT as the kernels' shared-memory FFT (csrc/planes_fft.cuh:
+stage 2 of ``chain_tile`` in csrc/fm_chain.cu, and K1 in
+csrc/channelizer.cu), held on the CPU at M = 64, 128, 192 and 256: the
+radix-P step and the P 8 x 8 FFTs evaluated in torch float32
+(``planes_fft.fft_planes``) with the twiddle table the constants carry,
+in the kernels' order of operations, each rounded on its own as the
+kernels' ``__fadd_rn``/``__fmul_rn`` are, against the plain versions'
+dense product ``acc @ planes_dft_matrix(M)`` and against numpy's float64
+FFT with the post-twiddle. K1's path (the fold on interleaved lanes, the
+FFT on planes rows, interleaved out) against its plain version and the
+reference's ``arm_fold_dft`` in interpret mode. Also: every
+``FmChainConsts`` carries the table, the CUDA wrappers refuse constants
+without it, and K3, K5 and K6 plan every width the FFT takes (meta
+tensors stand in for the card: those checks come before any launch).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from newsched_tpu_torch.ops.cuda import fm_chain
+import jax.numpy as jnp
+
+from newsched_tpu.ops.pallas import channelizer as jch
+
+from newsched_tpu_torch.ops import firdes, pfb
+from newsched_tpu_torch.ops.cuda import channelizer, fm_chain, planes_fft
 from newsched_tpu_torch.probes import ablate
 
-M = 64
-R = 8  # M = R x R
+WIDTHS = planes_fft.CHANNELS  # M = 64, 128, 192, 256
 # |FFT - exact| and |dense product - exact| over the row's largest exact
-# output: FP32 rounding of a 64-point transform, a few ulp of the largest
-# output (measured on the random rows: 2.5e-7 for the FFT, 5.7e-7 for the
-# dense product)
+# output: FP32 rounding of the transform, a few ulp of the largest output
+# (measured on the random rows: up to 2.6e-7 for the FFT, 1.2e-6 for the
+# dense product at M = 192)
 REL_TOL = 1e-6
-
-
-def _dft8(xr, xi, c):
-    """kernel dft8 over the last axis: a = x[n] + x[n+4], b = (x[n] -
-    x[n+4]) W8^n, then a 4-point DFT of each (even and odd outputs)."""
-    ar = [xr[..., n] + xr[..., n + 4] for n in range(4)]
-    ai = [xi[..., n] + xi[..., n + 4] for n in range(4)]
-    br = [xr[..., n] - xr[..., n + 4] for n in range(4)]
-    bi = [xi[..., n] - xi[..., n + 4] for n in range(4)]
-    br[1], bi[1] = (br[1] + bi[1]) * c, (bi[1] - br[1]) * c
-    br[2], bi[2] = bi[2], -br[2]
-    br[3], bi[3] = (bi[3] - br[3]) * c, -((br[3] + bi[3]) * c)
-
-    def dft4(yr, yi):
-        s0r, s0i = yr[0] + yr[2], yi[0] + yi[2]
-        d0r, d0i = yr[0] - yr[2], yi[0] - yi[2]
-        s1r, s1i = yr[1] + yr[3], yi[1] + yi[3]
-        d1r, d1i = yr[1] - yr[3], yi[1] - yi[3]
-        return ([s0r + s1r, d0r + d1i, s0r - s1r, d0r - d1i],
-                [s0i + s1i, d0i - d1r, s0i - s1i, d0i + d1r])
-
-    (er, ei), (orr, oi) = dft4(ar, ai), dft4(br, bi)
-    out_r = [v for k in range(4) for v in (er[k], orr[k])]
-    out_i = [v for k in range(4) for v in (ei[k], oi[k])]
-    return torch.stack(out_r, -1), torch.stack(out_i, -1)
-
-
-def _cmul(re, im, cr, ci):
-    return re * cr - im * ci, re * ci + im * cr
-
-
-def fft_planes(acc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Y = acc @ planes_dft_matrix(64) as the kernel computes it: thread n1
-    of a row takes a[n1 + 8 n2], a radix-8 DFT over n2, times W64^(n1 k1),
-    the exchange, a radix-8 DFT over n1, times the post-twiddle."""
-    n = acc.shape[0]
-    c = table[2, 8]  # cos(pi/4), the post-twiddle at j = 8
-    # [row, n1, n2] = a[n1 + 8 n2]
-    xr = acc[:, :M].reshape(n, R, R).transpose(1, 2)
-    xi = acc[:, M:].reshape(n, R, R).transpose(1, 2)
-    ar, ai = _dft8(xr, xi, c)  # [row, n1, k1]
-    ar, ai = _cmul(ar, ai, table[0].reshape(R, R), table[1].reshape(R, R))
-    xr, xi = _dft8(ar.transpose(1, 2), ai.transpose(1, 2), c)  # [row, k1, k2]
-    post_r = table[2].reshape(R, R).T  # [k1, k2] = post[k1 + 8 k2]
-    post_i = table[3].reshape(R, R).T
-    yr, yi = _cmul(xr, xi, post_r, post_i)
-    return torch.cat([yr.transpose(1, 2).reshape(n, M),
-                      yi.transpose(1, 2).reshape(n, M)], dim=1)
+# K1's path against its plain version and the reference, relative to
+# max|out|: the fold's FMA against separate products and sums, and the FFT
+# against a dense FP32 product (measured 4e-7)
+FOLD_TOL = 1e-5
 
 
 def _exact(acc: np.ndarray) -> np.ndarray:
     """numpy's float64 FFT of a = re + i im, then the post-twiddle."""
+    M = acc.shape[1] // 2
     a = acc[:, :M].astype(np.float64) + 1j * acc[:, M:].astype(np.float64)
     y = np.fft.fft(a, axis=1) * np.exp(-2j * np.pi * np.arange(M) / M)
     return np.concatenate([y.real, y.imag], axis=1)
 
 
-def _rows(case: str) -> np.ndarray:
+def _rows(case: str, M: int) -> np.ndarray:
     if case == "random":  # channel amplitudes about 8, as the FM band's
         rng = np.random.default_rng(9)
         return (rng.standard_normal((256, 2 * M)) * 8).astype(np.float32)
@@ -89,12 +55,13 @@ def _rows(case: str) -> np.ndarray:
     return np.zeros((4, 2 * M), np.float32)
 
 
+@pytest.mark.parametrize("M", WIDTHS)
 @pytest.mark.parametrize("case", ["random", "impulse", "zero"])
-def test_fft_with_the_table_is_the_planes_dft(case):
-    acc = _rows(case)
+def test_fft_with_the_table_is_the_planes_dft(case, M):
+    acc = _rows(case, M)
     table = fm_chain.fm_chain_consts(np.ones((4, M), np.float32),
                                      np.ones(5, np.float32), "cpu").fft
-    got = fft_planes(torch.from_numpy(acc), table).numpy()
+    got = planes_fft.fft_planes(torch.from_numpy(acc), table).numpy()
     dense = (torch.from_numpy(acc)
              @ torch.from_numpy(fm_chain.planes_dft_matrix(M))).numpy()
     exact = _exact(acc)
@@ -107,25 +74,30 @@ def test_fft_with_the_table_is_the_planes_dft(case):
     err_dense = np.abs(got - dense) / scale
     assert err_fft.max() <= REL_TOL, err_fft.max()
     assert err_dense.max() <= 2 * REL_TOL, err_dense.max()
-    if case == "impulse":  # one product per output: exact to a few ulp
+    if case == "impulse":  # a few products per output: exact to a few ulp
         np.testing.assert_allclose(got, dense, rtol=0, atol=4e-7)
 
 
-def test_fft_table_values():
+@pytest.mark.parametrize("M", WIDTHS)
+def test_fft_table_values(M):
     tab = fm_chain.planes_fft_table(M)
     assert tab.dtype == np.float32 and tab.shape == (4, M)
-    n1, k1 = np.divmod(np.arange(M), R)
-    inner = np.exp(-2j * np.pi * n1 * k1 / M).astype(np.complex64)
+    n1, k1 = np.divmod(np.arange(64), 8)
+    inner = np.exp(-2j * np.pi * n1 * k1 / 64).astype(np.complex64)
     post = np.exp(-2j * np.pi * np.arange(M) / M).astype(np.complex64)
-    np.testing.assert_array_equal(tab[0] + 1j * tab[1], inner)
+    np.testing.assert_array_equal(tab[0, :64] + 1j * tab[1, :64], inner)
+    assert not tab[:2, 64:].any()  # rows 0/1 past the 8 x 8 FFT's 64
     np.testing.assert_array_equal(tab[2] + 1j * tab[3], post)
-    assert tab[2, 8] == np.float32(np.sqrt(0.5))
-    assert fm_chain.planes_fft_table(16).shape == (4, 16)
-    assert fm_chain.planes_fft_table(48) is None  # no square decomposition
+    assert tab[2, M // 8] == np.float32(np.sqrt(0.5))  # cos(pi/4)
+    if M == 192:  # -Im e^{-2 pi i/3} = sin(pi/3), the radix-3 step's
+        assert -tab[3, M // 3] == np.float32(np.sqrt(3) / 2)
+    for m in (16, 48, 320):  # no kernel FFT: K1's dense instance, or none
+        assert fm_chain.planes_fft_table(m) is None
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_consts_carry_the_table_on_every_device(device):
+@pytest.mark.parametrize("M", WIDTHS)
+def test_consts_carry_the_table_on_every_device(device, M):
     consts = fm_chain.fm_chain_consts(np.ones((16, M), np.float32),
                                       np.ones(65, np.float32), device)
     assert consts.fft.device.type == device
@@ -133,22 +105,65 @@ def test_consts_carry_the_table_on_every_device(device):
     if device == "cpu":
         assert torch.equal(consts.fft,
                            torch.from_numpy(fm_chain.planes_fft_table(M)))
+    p = pfb.pfb_consts(np.ones((M, 4), np.float32), device)
+    assert p.fft.shape == (4, M) and p.fft.device.type == device
 
 
-def _meta_case():
-    L, A, decim, n = 16, 65, 8, 256
+def _fold_case(M, L, n_out, seed):
+    """Interleaved commutator rows and fold taps of a real channelizer."""
+    taps = firdes.prototype_channelizer_taps(M, L)
+    c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+    rng = np.random.default_rng(seed)
+    V = ((rng.standard_normal((n_out + L - 1, M))
+          + 1j * rng.standard_normal((n_out + L - 1, M))) * 0.5
+         ).astype(np.complex64)
+    v = np.ascontiguousarray(np.stack([V.real, V.imag], -1).reshape(
+        n_out + L - 1, 2 * M))
+    return v, c
+
+
+@pytest.mark.parametrize("M", [64, 128])
+def test_k1_fold_then_fft_is_arm_fold_dft(M):
+    """K1's FFT instance in torch float32: the fold on the interleaved
+    lanes (K7's plain version), the planes FFT of its rows, interleaved
+    out (``channelizer.fft_interleaved``), against ``arm_fold_dft_plain``
+    (the fold, then the dense product) and the reference's
+    ``arm_fold_dft`` in interpret mode, within FOLD_TOL of max|out|."""
+    L, n_out = 16, 256
+    v, c = _fold_case(M, L, n_out, seed=M)
+    c2 = torch.from_numpy(channelizer.interleave_taps(c))
+    w2 = torch.from_numpy(channelizer.interleaved_dft_matrix(M))
+    table = torch.from_numpy(planes_fft.planes_fft_table(M))
+    vt = torch.from_numpy(v)
+    got = channelizer.fft_interleaved(
+        channelizer.arm_fold_plain(vt, c2, n_out), table).numpy()
+    plain = channelizer.arm_fold_dft_plain(vt, c2, w2, n_out).numpy()
+    ref = np.asarray(jch.arm_fold_dft(jnp.asarray(v), c2.numpy(), w2.numpy(),
+                                      n_out, tile=128, interpret=True))
+    scale = np.abs(ref).max()
+    assert got.shape == ref.shape == (n_out, 2 * M)
+    assert np.abs(got - plain).max() <= FOLD_TOL * scale
+    assert np.abs(got - ref).max() <= FOLD_TOL * scale
+    # the planes rows K1 transforms are the fold's re lanes, then its im
+    acc = channelizer.arm_fold_plain(vt, c2, n_out)
+    planes = torch.cat([acc[:, 0::2], acc[:, 1::2]], dim=1)
+    Y = planes_fft.fft_planes(planes, table)
+    assert torch.equal(torch.from_numpy(got[:, 0::2]), Y[:, :M])
+    assert torch.equal(torch.from_numpy(got[:, 1::2]), Y[:, M:])
+
+
+def _meta_case(M=64, n=256):
+    L, A, decim = 16, 65, 8
     consts = fm_chain.fm_chain_consts(np.ones((L, M), np.float32),
                                       np.ones(A, np.float32), "meta")
     z = dict(dtype=torch.float32, device="meta")
     st = (torch.zeros(16, 2 * M, **z), torch.zeros(1, 2 * M, **z),
           torch.zeros(A - 1, 2 * M, **z))
-    return consts._replace(fft=None), torch.zeros(n, 2 * M, **z), st, decim
+    return consts, torch.zeros(n, 2 * M, **z), st, decim
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K3p", "K5", "K6", "ablate"])
-def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
-    consts, vb, (halo, prev, tail), decim = _meta_case()
-    calls = {
+def _calls(consts, vb, halo, prev, tail, decim):
+    return {
         "K3": lambda: fm_chain.fm_chain_step_planes(
             vb, halo, prev, tail, consts, decim, 0.5),
         "K3p": lambda: fm_chain.fm_chain_step_planes(
@@ -160,5 +175,38 @@ def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
         "ablate": lambda: ablate.fm_chain_ablate(vb, halo, prev, tail,
                                                  consts, decim, 0.5),
     }
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K3p", "K5", "K6", "ablate"])
+def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
+    consts, vb, (halo, prev, tail), decim = _meta_case()
     with pytest.raises(ValueError, match="twiddle table"):
-        calls[kernel]()
+        _calls(consts._replace(fft=None), vb, halo, prev, tail,
+               decim)[kernel]()
+
+
+@pytest.mark.parametrize("M", [128, 192, 256])
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
+def test_chain_kernels_plan_every_fft_width(kernel, M):
+    """At the flagship's A = 65, L = 16, decim 8 and batch, K3, K5 and K6
+    plan M = 128, 192 and 256: a tile whose block fits the H100's shared
+    memory (chain_tile_wide's layout), every check passed up to the
+    tensors' device, which the meta tensors here fail. K3p and the
+    ablation stay at M = 64 and say so."""
+    L, A, decim, n = 16, 65, 8, 32768
+    consts, vb, (halo, prev, tail), _ = _meta_case(M, n)
+    W = 2 * M
+    tile = fm_chain._fit_tile(128, W, A, L, decim,
+                              64 if kernel == "K6" else decim)
+    smem = fm_chain._chain_smem(tile, A, L, 1, decim, W)
+    assert smem <= fm_chain._SMEM_MAX
+    assert smem == ((tile + A) * M + (32 + L - 1 + 2) * W) * 4
+    assert tile == (64 if M == 256 else 128)
+    fm_chain._check_kernel_shape(W, tile, A, L, 1, decim)
+    with pytest.raises(ValueError, match="on meta"):
+        _calls(consts, vb, halo, prev, tail, decim)[kernel]()
+    for flagship_only in ("K3p", "ablate"):
+        with pytest.raises(ValueError, match="M=64"):
+            _calls(consts, vb, halo, prev, tail, decim)[flagship_only]()
+    with pytest.raises(ValueError, match="planes width 640"):
+        fm_chain._check_kernel_shape(640, 64, A, L, 1, decim)

@@ -247,8 +247,24 @@ def test_radix_and_geometry():
     assert fir_source.window_stride(8, 8) == 10
     with pytest.raises(ValueError, match="seg_group"):
         fir_source._geometry(256, 1, NTAPS, None, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        fir_source._geometry(32768, 1, 1000, None, 8)
+    # past the FFT's 513 taps the wrapper plans the direct instance, whose
+    # window fits up to its stated limit and is refused past it
+    assert fir_source.FFT_MAX_TAPS == 513
+    assert isinstance(fir_source.plan(32768, 1, 513), fir_source._Geometry)
+    for nt in (514, 1000):
+        d = fir_source.plan(32768, 1, nt)
+        assert isinstance(d, fir_source._Direct)
+        assert (d.T, d.GS, d.CU) == (512, 4, 576)
+        assert d.smem <= fir_source._SMEM_MAX
+    # 36 bytes a tap, and 16 KB of window at 512 rows and 4 segments
+    assert fir_source.plan(32768, 1, 1024).smem == 53248
+    limit = fir_source.direct_max_taps(1, 512)
+    assert limit == 6001
+    assert fir_source.plan(32768, 1, limit).smem <= fir_source._SMEM_MAX
+    with pytest.raises(ValueError, match=f"at most {limit} taps"):
+        fir_source.plan(32768, 1, limit + 1)
+    consts = fir_source.fir_tone_consts(np.ones(1000, np.float32), "cpu")
+    assert consts.fft is None  # the direct instance reads the taps alone
 
 
 def test_cuda_wrapper_refuses_consts_without_the_table():
@@ -258,3 +274,21 @@ def test_cuda_wrapper_refuses_consts_without_the_table():
         with pytest.raises(ValueError, match="twiddle table"):
             fir_source.fir_tone_step(0, DP, 0.8, True, bad, 1, 256)
     assert fir_source.fir_tone_step.launches == 0
+
+
+def test_live_chain_past_the_fft_taps_against_golden():
+    """``fir_chain(ntaps=1024, source="live")`` runs on the CPU through K9's
+    plain version, the function of the direct instance its wrapper plans
+    on the card for that many taps: > 100 dB against the float64 golden
+    over two batches of 8192 samples."""
+    from newsched_tpu_torch import models, testing
+
+    n, nt, fs, freq = 2 * 8192, 1024, 1e6, 123_456.0
+    fg, b = models.fir_chain(n_samples=n, fs=fs, ntaps=nt, frequency=freq,
+                             batch_size=8192, sink="vector", source="live")
+    fg.run(device="cpu")
+    got = np.asarray(b["sink"].data())
+    assert isinstance(fir_source.plan(8192 // 64, 1, nt), fir_source._Direct)
+    ref = testing.fir_golden(n, b["taps"], freq, fs)
+    assert got.shape == (n,) and testing.snr_db(ref, got) > 100
+    assert fir_source.fir_tone_step.direct_launches == 0

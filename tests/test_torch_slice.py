@@ -92,7 +92,8 @@ def _models_run(pkg, M, L, A, decim, rows_per_batch, n_batches, source_data):
 
 
 @pytest.mark.parametrize("M,L,A,decim,rows,nb", [(16, 8, 33, 4, 256, 3),
-                                                 (64, 16, 65, 8, 1024, 2)])
+                                                 (64, 16, 65, 8, 1024, 2),
+                                                 (128, 16, 65, 8, 512, 2)])
 def test_fused_slice_replay_matches_reference_and_golden(M, L, A, decim, rows, nb):
     x = _noise_cf32(rows * M * 2, seed=M)
     planes = testing.planes_rows(x, M)  # repeated by the source
