@@ -44,7 +44,9 @@ Phases (each failure raises, so the script exits nonzero):
   1. device: a CUDA device is required; its name and power limit;
   2. build: nvcc builds every kernel from newsched_tpu_torch/csrc/;
   3. K4 gaussian_rows at 32768 x 128: bit-equal to its plain version,
-     Irwin-Hall moments, split invariance;
+     Irwin-Hall moments, split invariance; with and without the blocks'
+     amplitude, as rows and as the cf32 stream, bit-equal to its plain
+     version and to the blocks' own r * amp and torch.complex build;
   4. K2 atan2 over a (y, x) grid with the axes and signed zeros, at
      lengths 4k+1, 4k+2, 4k+3, 4k and below 4 with y and x on the 16-byte
      grid and 4 bytes off it, and at the demod's shape: <= 1e-6 from the
@@ -156,7 +158,8 @@ Phases (each failure raises, so the script exits nonzero):
      chunk and equals a fresh runner's output; a center_freq change (a
      fence) captures anew and equals a fresh runner's output;
  32. K4 and K5 from the sources' counter on the card at group 2^32-2 and
-     at a negative group: K4 bit-equal to its plain version, K5 to K4 -> K3;
+     at a negative group: K4 bit-equal to its plain version in every mode
+     (amplitude, cf32), K5 to K4 * amp -> K3;
  33. the probes (newsched_tpu_torch/probes): window_copy in every variant
      exactly its plain version, planes_unpack bit-equal to cplx_to_planes,
      and to its plain version (rows and next skew) at a row count off its
@@ -198,12 +201,13 @@ Phases (each failure raises, so the script exits nonzero):
      before it a run at the old value, after it a run at the new one;
  39. times: the unbounded live run's rate beside phase 34's graph-mode
      step; the throttle's pacing error at 10 Msamples/s;
- 40. K9's direct instance (past the FFT's 513 taps) at 514 and 1024 taps,
-     D = 1 and 4: within K9_TOL of its plain version, bit-identical at
-     tile 256 and across a batch split, counted on direct_launches; a tap
-     count past its stated limit raises naming the limit; the live
-     fir_chain at 1024 taps, two batches in graph mode, >= 60 dB against
-     its float64 golden, the direct instance launched on it;
+ 40. K9's partitioned instance (past the FFT's 513 taps) at 514, 1024 and
+     6001 taps, D = 1 and 4: within K9_TOL of its plain version,
+     bit-identical at tile 256 and across a batch split on a multiple of
+     its L = 512 outputs, counted on partitioned_launches; a tap count
+     past its stated limit raises naming the limit; the live fir_chain at
+     1024 taps, two batches in graph mode, >= 60 dB against its float64
+     golden, the partitioned instance launched on it;
  41. K3, K5 and K6 at M = 128, 192 and 256 (16384 rows a batch): K3 within
      K3_TOL of its plain version on an M-station FM band, tile-invariant;
      K5 bit-equal to K4 * amp -> K3 and within K5_TOL of its plain version
@@ -215,7 +219,7 @@ Phases (each failure raises, so the script exits nonzero):
      batch (bit-equal), the live graph on 4 shards (K6, bit-equal) and the
      staged graph (>= 60 dB, K1 launched); launches counted;
  43. times at M = 128: K3, K5, K6 and K1 beside their plain versions; K9's
-     direct instance at 1024 taps beside its plain version.
+     partitioned instance at 1024 and 6001 taps beside its plain version.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -358,8 +362,33 @@ def phase_k4(torch, noise):
         noise.gaussian_rows(half // noise.GROUP_ROWS, n_rows=half, width=2 * M,
                             seed=5, device=dev)])
     require(torch.equal(parts, rows), "K4: two half batches != one batch")
-    log(f"K4: bit-equal to plain (max abs err {err}); split-invariant")
+    k4_modes(torch, noise, noise.group_tensor(0, dev), False)
+    amp = torch.tensor(-0.3, dtype=torch.float32, device=dev)
+    cf = noise.gaussian_rows(0, n_rows=ROWS, width=2 * M, seed=5, device=dev,
+                             amp=amp, layout="cf32")
+    require(torch.equal(cf, torch.complex(rows[:, :M].reshape(-1) * amp,
+                                          rows[:, M:].reshape(-1) * amp)),
+            "K4 cf32: not the noise source's torch.complex build")
+    log(f"K4: bit-equal to plain (max abs err {err}); split-invariant; with "
+        f"and without an amplitude, as rows and as the cf32 stream, bit-equal "
+        f"to plain and to the blocks' own r * amp and torch.complex build")
     return err
+
+
+def k4_modes(torch, noise, g, mask: bool) -> None:
+    """K4 at base group ``g`` (a tensor on the card), with and without an
+    amplitude (a negative one: zeros of mask_pre come out -0), as rows and
+    as the cf32 stream: bit-equal to its plain version."""
+    amp = torch.tensor(-0.3, dtype=torch.float32, device="cuda")
+    for layout in noise.LAYOUTS:
+        for a in (None, amp):
+            kw = dict(n_rows=ROWS, width=2 * M, seed=5, device="cuda",
+                      mask_pre=mask, amp=a, layout=layout)
+            got = noise.gaussian_rows(g, **kw)
+            ref = noise.gaussian_rows_plain(int(g), **kw)
+            require(got.dtype == ref.dtype and torch.equal(got, ref),
+                    f"K4 at group {int(g)}, mask_pre {mask}, layout {layout}, "
+                    f"amp {a is not None}: differs from its plain version")
 
 
 def k2_check(mathfns, yt, xt, what: str):
@@ -842,7 +871,7 @@ def composed(rows_fn, chain_fn):
     """A K5-shaped step from a noise generator and a chain step."""
     def step(g, amp, carry, prev, tail, consts, decim, gain, n, draws, **kw):
         rows = rows_fn(g, n_rows=n, width=2 * M, seed=0, device="cuda",
-                       draws=draws) * amp
+                       draws=draws, amp=amp)
         aud, prev, tail = chain_fn(rows, carry, prev, tail, consts, decim,
                                    gain, **kw)
         return aud, prev, tail, rows[-carry.shape[0]:].contiguous()
@@ -1706,8 +1735,9 @@ def phase_params() -> None:
 def phase_counters(torch, fm_chain, noise) -> None:
     """32. K4 and K5 started from the sources' counter on the card at group
     2^32-2 and at a negative group: K4 bit-equal to its plain version at
-    the same base (mask_pre off and on), K5 bit-equal to K4 -> K3 and its
-    carry (the generated rows) to its plain version's."""
+    the same base (mask_pre off and on, each with and without an
+    amplitude, as rows and as the cf32 stream), K5 bit-equal to K4 * amp
+    -> K3 and its carry (the generated rows) to its plain version's."""
     consts = chain_consts()
     H8 = fm_chain._round8(L - 1)
     z = dict(dtype=torch.float32, device="cuda")
@@ -1717,13 +1747,7 @@ def phase_counters(torch, fm_chain, noise) -> None:
     for base in ((1 << 32) - 2, -3):
         g = noise.group_tensor(base, "cuda")
         for mask in (False, True):
-            got = noise.gaussian_rows(g, n_rows=ROWS, width=2 * M, seed=0,
-                                      device="cuda", mask_pre=mask)
-            ref = noise.gaussian_rows_plain(base, n_rows=ROWS, width=2 * M,
-                                            seed=0, device="cuda",
-                                            mask_pre=mask)
-            require(torch.equal(got, ref), f"K4 at group {base}, mask_pre "
-                    f"{mask}: differs from its plain version")
+            k4_modes(torch, noise, g, mask)
         k5 = fm_chain.fm_chain_gen_step(g, amp, *st, consts, DECIM, DEMOD_GAIN,
                                         ROWS)
         k4k3 = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)(
@@ -1738,7 +1762,8 @@ def phase_counters(torch, fm_chain, noise) -> None:
         require(int(nxt) == noise._i64(base + ROWS // noise.GROUP_ROWS),
                 f"the counter's advance from {base} on the card")
         log(f"on-card counter at group {base}: K4 bit-equal to plain (mask_pre "
-            f"off and on), K5 bit-equal to K4 -> K3, its rows to plain")
+            f"off and on, with and without an amplitude, as rows and as the "
+            f"cf32 stream), K5 bit-equal to K4 * amp -> K3, its rows to plain")
 
 
 def phase_probes(torch, fm_chain) -> dict:
@@ -2293,7 +2318,11 @@ def phase_pacing(card: str) -> float:
 
 # -- K9 past the FFT's taps; the chains and K1 past 64 channels --------------
 
-K9_WIDE_TAPS = (514, 1024)  # the direct instance's (past FFT_MAX_TAPS = 513)
+K9_WIDE_TAPS = (514, 1024, 6001)  # the partitioned instance's (past
+# FFT_MAX_TAPS = 513): 2, 2 and 12 partitions; 6001 the direct form's old limit
+K9_LIVE_TAPS = 1024        # the live graph past the FFT instance's taps
+# (tile, seg_group) of the partitioned instance's blocks, the default first
+K9P_GEOMS = ((512, 16), (512, 8), (1024, 8), (2048, 8), (1024, 16), (512, 32))
 K9_WIDE_N = 2 * FIR_BATCH   # the 1024-tap live graph: two batches, graph mode
 WIDE_M = (128, 192, 256)    # channels past the flagship's the chains take
 WIDE_ROWS = 16384           # planes rows a batch at those widths
@@ -2310,11 +2339,12 @@ def wide_taps(torch, ntaps: int):
     return taps, fir_source.fir_tone_consts(taps, "cuda")
 
 
-def phase_k9_direct(torch, fir_source) -> dict:
-    """40. K9's direct instance at 514 and 1024 taps: within K9_TOL of its
-    plain version (two batches from stream start, D = 1 and 4), counted on
-    ``direct_launches`` (the FFT instance never), bit-identical at tile 256
-    and for four batches of 2^20 against two of 2^21; past its stated
+def phase_k9_part(torch, fir_source) -> dict:
+    """40. K9's partitioned instance at 514, 1024 and 6001 taps: within
+    K9_TOL of its plain version (two batches from stream start, D = 1 and
+    4), counted on ``partitioned_launches`` (the FFT instance never),
+    bit-identical at tile 256 and for four batches of 2^20 against two of
+    2^21 (splits on multiples of its L = 512 outputs); past its stated
     limit a ValueError names it. Then the live fir_chain at 1024 taps in
     graph mode against its float64 golden (the fixed-point tone through
     the FIR, by FFT convolution), its launches counted."""
@@ -2340,14 +2370,15 @@ def phase_k9_direct(torch, fir_source) -> dict:
                 outs[kind] = torch.cat(parts)
             err = float((outs["kernel"] - outs["plain"]).abs().max())
             scale = float(outs["plain"].abs().max())
-            log(f"K9 direct instance, {nt} taps, D={D}: 2 batches from stream "
-                f"start, max abs err vs plain {err:.3e} = {err / scale:.3e} of "
-                f"max|out| (tol {K9_TOL})")
+            log(f"K9 partitioned instance, {nt} taps "
+                f"({fir_source.part_count(nt)} partitions), D={D}: 2 batches "
+                f"from stream start, max abs err vs plain {err:.3e} = "
+                f"{err / scale:.3e} of max|out| (tol {K9_TOL})")
             require(err <= K9_TOL * scale, f"K9 at {nt} taps, D={D}: kernel "
                     f"disagrees with its plain version")
             worst = max(worst, err)
-        fft0, dir0 = fir_source.fir_tone_step.launches, \
-            fir_source.fir_tone_step.direct_launches
+        fft0, part0 = fir_source.fir_tone_step.launches, \
+            fir_source.fir_tone_step.partitioned_launches
         base = torch.cat([fir_source.fir_tone_step(0, dp, 0.8, True, tc, 1,
                                                    FIR_R),
                           fir_source.fir_tone_step(nco.nco_advance(0, dp,
@@ -2355,8 +2386,8 @@ def phase_k9_direct(torch, fir_source) -> dict:
                                                    dp, 0.8, False, tc, 1,
                                                    FIR_R)])
         require(fir_source.fir_tone_step.launches == fft0
-                and fir_source.fir_tone_step.direct_launches == dir0 + 2,
-                f"K9 at {nt} taps: not the direct instance")
+                and fir_source.fir_tone_step.partitioned_launches == part0 + 2,
+                f"K9 at {nt} taps: not the partitioned instance")
         tiled = torch.cat([fir_source.fir_tone_step(
             0, dp, 0.8, True, tc, 1, FIR_R, tile=256),
             fir_source.fir_tone_step(nco.nco_advance(0, dp, FIR_BATCH), dp,
@@ -2367,15 +2398,16 @@ def phase_k9_direct(torch, fir_source) -> dict:
                                                  FIR_R // 2))
             ph, first = nco.nco_advance(ph, dp, FIR_BATCH // 2), False
         require(torch.equal(base, tiled),
-                f"K9 direct at {nt} taps: tile 256 differs from the default")
+                f"K9 partitioned at {nt} taps: tile 256 differs from the "
+                f"default")
         full = torch.cat([fir_source.unfold_complex(base[:FIR_R]),
                           fir_source.unfold_complex(base[FIR_R:])])
         split = torch.cat([fir_source.unfold_complex(h) for h in half])
-        require(torch.equal(full, split), f"K9 direct at {nt} taps: batches "
-                f"of 2^20 differ from batches of 2^21")
-        log(f"K9 direct instance, {nt} taps: tile 256 and the default, "
+        require(torch.equal(full, split), f"K9 partitioned at {nt} taps: "
+                f"batches of 2^20 differ from batches of 2^21")
+        log(f"K9 partitioned instance, {nt} taps: tile 256 and the default, "
             f"batches of 2^20 and 2^21 give bit-identical output")
-    limit = fir_source.direct_max_taps(1, fir_source.pick_direct_tile(FIR_R, 1))
+    limit = fir_source.PART_MAX_TAPS
     try:
         fir_source.fir_tone_step(0, dp, 0.8, True,
                                  wide_taps(torch, limit + 1)[1], 1, FIR_R)
@@ -2384,26 +2416,27 @@ def phase_k9_direct(torch, fir_source) -> dict:
         require(f"at most {limit} taps" in str(e), f"K9's refusal: {e}")
         log(f"K9 at {limit + 1} taps raises: {e}")
     # the live graph at 1024 taps, two batches: graph mode
-    nt = K9_WIDE_TAPS[-1]
+    nt = K9_LIVE_TAPS
     fg, blks = models.fir_chain(n_samples=K9_WIDE_N, fs=FIR_FS, ntaps=nt,
                                 frequency=FIR_FREQ, batch_size=FIR_BATCH,
                                 sink="vector", source="live")
     fir_source.fir_tone_step.launches = 0
-    fir_source.fir_tone_step.direct_launches = 0
+    fir_source.fir_tone_step.partitioned_launches = 0
     fg.run(device="cuda")
-    launches = fir_source.fir_tone_step.direct_launches
+    launches = fir_source.fir_tone_step.partitioned_launches
     got = blks["sink"].data()
     x = fxpt_tone(K9_WIDE_N, dp)
     ref = fftconvolve(x, np.asarray(blks["taps"], np.float64))[:K9_WIDE_N]
     snr = snr_db(ref, got)
     log(f"fir_chain live at {nt} taps (graph mode, {K9_WIDE_N} samples): SNR "
-        f"vs float64 golden {snr:.2f} dB (gate {FIR_GATE_DB}); direct "
+        f"vs float64 golden {snr:.2f} dB (gate {FIR_GATE_DB}); partitioned "
         f"instance launched {launches} times, the FFT instance "
         f"{fir_source.fir_tone_step.launches}")
     require(got.shape == (K9_WIDE_N,) and snr >= FIR_GATE_DB,
             f"fir_chain live at {nt} taps below its gate")
     require(launches > 0 and fir_source.fir_tone_step.launches == 0,
-            f"fir_chain live at {nt} taps did not run the direct instance")
+            f"fir_chain live at {nt} taps did not run the partitioned "
+            f"instance")
     return {"err": worst, "launches": launches, "snr": snr}
 
 
@@ -2486,7 +2519,7 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
         k5 = fm_chain.fm_chain_gen_step(g0, amp, *zero, consts, DECIM,
                                         DEMOD_GAIN, n)
         nrows = noise.gaussian_rows(g0, n_rows=n, width=W, seed=0,
-                                    device="cuda") * amp
+                                    device="cuda", amp=amp)
         k4k3 = fm_chain.fm_chain_step_planes(nrows, *zero, consts, DECIM,
                                              DEMOD_GAIN)
         require(all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3))
@@ -2610,8 +2643,9 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
                      card: str) -> dict:
     """43. Times at M = 128 (batches of 16384 rows of 256 lanes): K3, K5,
     K6 at a 4-shard batch's 4096 rows and K1, by CUDA-graph replay, beside
-    their plain versions; K9's direct instance at 1024 taps beside its
-    plain version (3 calls: its 1024 taps are 1024 tensor passes)."""
+    their plain versions; K9's partitioned instance at 1024 taps beside its
+    plain version (3 calls: its 1024 taps are 1024 tensor passes), and at
+    the largest tap count phase 40 checks."""
     from newsched_tpu_torch.ops import nco, pfb
 
     m, n = WIDE_M[0], WIDE_ROWS
@@ -2648,17 +2682,26 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
     for kid in ("K3w", "K5w", "K6w", "K1w"):
         log(f"{kid} at M={m}: kernel {t[kid]} ms, plain {t[kid + ' plain']} "
             f"ms [{card}]")
-    _, tc = wide_taps(torch, K9_WIDE_TAPS[-1])
     ph = nco.phase_tensor(7, "cuda")
     dp = nco.phase_tensor(nco.freq_to_dphase(FIR_FREQ, FIR_FS), "cuda")
     off = torch.zeros((), dtype=torch.bool, device="cuda")
     a8 = torch.tensor(0.8, **z)
-    ms["K9d"] = min(graph_ms(lambda: fir_source.fir_tone_step(
-        ph, dp, a8, off, tc, 1, FIR_R)) for _ in range(2))
-    ms["K9d plain"] = median_ms(lambda: fir_source.fir_tone_step_plain(
-        ph, dp, a8, off, tc.taps, 1, FIR_R), reps=3, inner=1, warmup=1)
-    log(f"K9 direct instance, {K9_WIDE_TAPS[-1]} taps ({FIR_R} x 128 rows): "
-        f"kernel {ms['K9d']:.4f} ms, plain {ms['K9d plain']:.4f} ms [{card}]")
+    for nt, key in ((K9_LIVE_TAPS, "K9p"), (K9_WIDE_TAPS[-1], "K9p max")):
+        _, tc = wide_taps(torch, nt)
+        ms[key] = min(graph_ms(lambda: fir_source.fir_tone_step(
+            ph, dp, a8, off, tc, 1, FIR_R)) for _ in range(2))
+        ms[key + " plain"] = median_ms(lambda: fir_source.fir_tone_step_plain(
+            ph, dp, a8, off, tc.taps, 1, FIR_R), reps=3, inner=1, warmup=1)
+        log(f"K9 partitioned instance, {nt} taps ({FIR_R} x 128 rows): kernel "
+            f"{ms[key]:.4f} ms, plain {ms[key + ' plain']:.4f} ms [{card}]")
+    _, tc = wide_taps(torch, K9_LIVE_TAPS)
+    for tile, gs in K9P_GEOMS:
+        g = fir_source._part_geometry(FIR_R, 1, K9_LIVE_TAPS, tile, gs)
+        k9p_ms = graph_ms(lambda: fir_source._launch(ph, dp, a8, off, tc, 1,
+                                                     FIR_R, g))
+        log(f"K9 partitioned, {K9_LIVE_TAPS} taps, tile {tile} seg_group {gs}: "
+            f"{(FIR_R // tile) * (64 // gs)} blocks of {g.NQ * gs // 8} "
+            f"rounds, {g.smem} B shared; {k9p_ms:.4f} ms [{card}]")
     return ms
 
 
@@ -2744,9 +2787,9 @@ def kernel_bounds() -> dict:
     wide = chain_bounds(WIDE_M[0], WIDE_ROWS, WIDE_ROWS // 4)
     return {
         **{k + "w": v for k, v in wide.items()},
-        # the direct instance's function: config #0 at 1024 taps
-        "K9d": bound(FIR_R * 128 * f4, (NCO_OPS + fir_fft_ops(
-            K9_WIDE_TAPS[-1])) * FIR_BATCH),
+        # the partitioned instance's function: config #0 at 1024 taps
+        "K9p": bound(FIR_R * 128 * f4, (NCO_OPS + fir_fft_ops(
+            K9_LIVE_TAPS)) * FIR_BATCH),
         "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
         "K4": bound(n * W * f4, PHILOX_OPS * n * W),
         "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
@@ -3185,7 +3228,7 @@ def main() -> int:
 
     # 40-43. K9 past the FFT's taps; the chains and K1 past 64 channels
     t40 = time.monotonic()
-    k9d = phase_k9_direct(torch, fir_source)
+    k9p = phase_k9_part(torch, fir_source)
     wide_err = phase_wide_kernels(torch, fm_chain, noise)
     wide = phase_wide_graphs(torch, fm_chain, noise, channelizer)
     ms.update(phase_wide_times(torch, fm_chain, channelizer, fir_source,
@@ -3263,8 +3306,8 @@ def main() -> int:
               probe_err["ablate"]),
         entry("fm_chain_step_planes[audio_groups]", "K3ag", "fm_chain.cu",
               "fm_chain.py:251", k3ag["launches"], k3ag["err"]),
-        entry("fir_tone_step[direct]", "K9d", "fir_direct.cu",
-              "fir_source.py:89", k9d["launches"], k9d["err"]),
+        entry("fir_tone_step[partitioned]", "K9p", "fir_part.cu",
+              "fir_source.py:89", k9p["launches"], k9p["err"]),
         entry("fm_chain_step_planes[M=128]", "K3w", "fm_chain.cu",
               "fm_chain.py:421", wide["fused"], wide_err["K3"]),
         entry("fm_chain_gen_step[M=128]", "K5w", "fm_chain.cu",

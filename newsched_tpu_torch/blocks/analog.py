@@ -93,16 +93,12 @@ class noise_source(Block):
     def work(self, state, ins, params, nout):
         a = params["amplitude"]
         n_rows = self._words(nout) // _WIDTH
+        cf32 = self.dtype.name == "cf32"
         r = noise.gaussian_rows(state["group"], n_rows=n_rows, width=_WIDTH,
-                                seed=self.seed, device=a.device)
+                                seed=self.seed, device=a.device, amp=a,
+                                layout="cf32" if cf32 else "rows")
         group = noise.advance(state["group"], n_rows // noise.GROUP_ROWS)
-        if self.dtype.name == "cf32":
-            half = _WIDTH // 2
-            y = torch.complex(r[:, :half].reshape(-1) * a,
-                              r[:, half:].reshape(-1) * a)
-        else:
-            y = r.reshape(-1) * a
-        return {"group": group}, {"out": y}
+        return {"group": group}, {"out": r.reshape(-1)}
 
 
 class sig_source(Block):

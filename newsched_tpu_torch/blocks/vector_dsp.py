@@ -165,10 +165,10 @@ class noise_planes_source(Block):
         amp = params["amplitude"]
         r = noise.gaussian_rows(state["group"], n_rows=nout,
                                 width=2 * self.nchans, seed=self.seed,
-                                device=amp.device)
+                                device=amp.device, amp=amp)
         return ({"group": noise.advance(state["group"],
                                         nout // noise.GROUP_ROWS)},
-                {"out": r * amp})
+                {"out": r})
 
 
 class _fused_chain(Block):

@@ -80,4 +80,49 @@ __device__ __forceinline__ float gauss(const Stream& s, long long row, int k,
   return __fmul_rn(__fsub_rn((float)sum, s.mean), s.inv_std);
 }
 
+// The same generator with its key schedule hoisted: the ten round keys of
+// a seed, computed once a thread, then the rounds alone (the noise kernel,
+// K4, which runs the generator many times a thread). Bit for bit
+// philox4x32_10.
+struct Keys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ Keys round_keys(uint32_t k0, uint32_t k1) {
+  Keys k;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    k.k0[r] = k0 + (uint32_t)r * kW0;
+    k.k1[r] = k1 + (uint32_t)r * kW1;
+  }
+  return k;
+}
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], const Keys& k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kM0, c[0]), lo0 = kM0 * c[0];
+    const uint32_t hi1 = __umulhi(kM1, c[2]), lo1 = kM1 * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k.k0[r], n2 = hi0 ^ c[3] ^ k.k1[r];
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+// The Irwin-Hall transform of gauss() with `draws` fixed at compile time:
+// the element of counter (c0, group lo, group hi, 0).
+template <int DRAWS>
+__device__ __forceinline__ float gauss_at(uint32_t c0, uint32_t glo,
+                                          uint32_t ghi, const Keys& k,
+                                          float mean, float inv_std) {
+  uint32_t c[4] = {c0, glo, ghi, 0u};
+  philox4x32_10(c, k);
+  uint32_t sum = 0;
+#pragma unroll
+  for (int d = 0; d < DRAWS; ++d) sum += (c[d] & 0xFFFFu) + (c[d] >> 16);
+  return __fmul_rn(__fsub_rn((float)sum, mean), inv_std);
+}
+
 }  // namespace philox

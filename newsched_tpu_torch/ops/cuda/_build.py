@@ -37,7 +37,8 @@ _LL = ctypes.c_longlong
 # C signature of every launcher: (argtypes); all return a cudaError_t as int.
 SIGNATURES = {
     # noise.cu
-    "gaussian_rows_launch": [_P, _LL, _I, _P, _U, _U, _I, _F, _F, _I, _P],
+    "gaussian_rows_launch": [_P, _LL, _I, _P, _U, _U, _I, _F, _F, _I, _P, _I,
+                             _I, _I, _I, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -66,9 +67,9 @@ SIGNATURES = {
     # fir_source.cu
     "fir_tone_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P, _P],
-    # fir_direct.cu
-    "fir_direct_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _P, _P],
+    # fir_part.cu
+    "fir_part_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P],
     # wbfm_chain.cu
     "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _F, _F, _F, _P, _P],

@@ -16,10 +16,11 @@ them there, so a captured step replays with the state the step before
 left); a time shard passes its index and starts 64*R*shard samples on.
 
 Two kernel instances, picked by the tap count alone: up to ``FFT_MAX_TAPS``
-(513) the overlap-save FFT convolution (``csrc/fir_source.cu``), past it
-the direct form (``csrc/fir_direct.cu``), whose window takes ~36 bytes of
-shared memory a tap; a tap count that fits neither raises, naming the
-largest the shape takes (``direct_max_taps``).
+(513) the overlap-save FFT convolution (``csrc/fir_source.cu``), past it,
+up to ``PART_MAX_TAPS`` (32768), the same convolution with the taps cut
+into partitions of ``PART_L`` = 512 (``csrc/fir_part.cu``); past that a
+``ValueError`` names the limit. The reference has no limit but its window
+(``W8 = _round8(ntaps - 1)`` rows in VMEM).
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from newsched_tpu_torch.ops.cuda.mathfns import SINCOS_COEFFS
 from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
                                                  mask_before_stream, nco_args,
                                                  shard_phase)
-from newsched_tpu_torch.ops.cuda.wbfm_chain import row_stride
 
 S = 64  # fold width: segments = lane pairs
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
@@ -44,8 +44,15 @@ _THREADS = 256
 RADICES = (8, 16, 32)  # Q: the kernel's transforms have N = Q*Q points
 SEG_GROUP = 8  # segments per CUDA block
 FFT_MAX_TAPS = RADICES[-1] ** 2 // 2 + 1  # 513: N = 1024 keeps L = 512 outputs
-_J = 9  # consecutive outputs a thread of the direct instance computes (kJ)
-DIRECT_SEG_GROUP = 4  # segments per block of the direct instance
+PART_Q = RADICES[-1]  # the partitioned instance's transforms: N = 1024
+PART_L = PART_Q ** 2 // 2  # 512 outputs a transform, taps a partition
+# 64 partitions: a 512 KB table of spectra, and P + 1 = 65 transforms an
+# output block (~30x the work at 1024 taps)
+PART_MAX_TAPS = 64 * PART_L
+# segments per block of the partitioned instance: two rounds of 8 transforms
+# a 512-row tile, so one round's tensor copies run while the next computes
+# (chip_smoke.py phase 43 times it beside 8 and 32, PERF.md)
+PART_SEG_GROUP = 16
 
 
 def fft_radix(ntaps: int) -> int:
@@ -73,22 +80,48 @@ def fir_tone_table(taps, Q: int) -> np.ndarray:
 
 class FirToneConsts(NamedTuple):
     """The chain's constants on one device: the taps (ntaps,) float32 and
-    ``fft``, the kernel's twiddles and spectrum (``fir_tone_table``), which
-    the CUDA wrapper requires."""
+    ``fft``, the kernel's twiddles and spectra (``fir_tone_table``, past
+    ``FFT_MAX_TAPS`` ``fir_part_table``), which the CUDA wrapper
+    requires."""
 
     taps: torch.Tensor
     fft: torch.Tensor | None
 
 
+def part_count(ntaps: int) -> int:
+    """P, the partitions of ``PART_L`` taps the partitioned instance cuts
+    ``ntaps`` taps into."""
+    return -(-int(ntaps) // PART_L)
+
+
+def fir_part_table(taps) -> np.ndarray:
+    """The partitioned instance's constants: (2 + 2P, N) float32 with N =
+    1024, rows 0/1 the real/imaginary parts of W_N^j, rows 2 + 2p and 3 + 2p
+    those of H_p / N, the N-point spectrum of taps [p*L, p*L + L) (L = 512)
+    over N; computed in float64 and rounded once, as ``fir_tone_table``."""
+    taps = np.asarray(taps, np.float64)
+    N, L, P = PART_Q * PART_Q, PART_L, part_count(len(taps))
+    h = np.zeros((P, N))  # partition p in row p, zero-padded
+    for p in range(P):
+        part = taps[p * L:(p + 1) * L]
+        h[p, :len(part)] = part
+    spec = np.fft.fft(h, axis=1) / N
+    w = np.exp(-2j * np.pi * np.arange(N) / N)
+    rows = [w.real, w.imag]
+    for p in range(P):
+        rows += [spec[p].real, spec[p].imag]
+    return np.stack(rows).astype(np.float32)
+
+
 def fir_tone_consts(taps, device) -> FirToneConsts:
-    """The taps on ``device``, with the FFT instance's table where the tap
-    count takes it (None past ``FFT_MAX_TAPS``: the direct instance reads
-    the taps alone)."""
+    """The taps on ``device``, with the table of the instance the tap count
+    takes: ``fir_tone_table`` up to ``FFT_MAX_TAPS``, ``fir_part_table``
+    past it."""
     taps = np.asarray(taps, np.float32)
-    tab = (torch.as_tensor(fir_tone_table(taps, fft_radix(len(taps))),
-                           device=device)
-           if len(taps) <= FFT_MAX_TAPS else None)
-    return FirToneConsts(torch.as_tensor(taps, device=device), tab)
+    tab = (fir_tone_table(taps, fft_radix(len(taps)))
+           if len(taps) <= FFT_MAX_TAPS else fir_part_table(taps))
+    return FirToneConsts(torch.as_tensor(taps, device=device),
+                         torch.as_tensor(tab, device=device))
 
 
 def pick_tile(R: int, D: int, L: int = 128, target: int = 512) -> int:
@@ -179,68 +212,58 @@ def _geometry(R: int, D: int, ntaps: int, tile, GS: int) -> _Geometry:
     return _Geometry(Q, T, GS, NQ, off, WR, PW, BR, smem)
 
 
-class _Direct(NamedTuple):
-    """The direct instance's block geometry (csrc/fir_direct.cu)."""
+class _Part(NamedTuple):
+    """The partitioned instance's block geometry (csrc/fir_part.cu)."""
 
     T: int
     GS: int
-    P: int   # shared row stride of the sample planes
-    CU: int  # outputs a chunk
+    NQ: int  # output blocks a segment per block, at most
+    P: int   # partitions of the taps
+    BR: int  # > 0: output rows a round (L / D), written by tensor copies
     smem: int
 
 
-def pick_direct_tile(R: int, D: int, target_out: int = 512) -> int:
-    """The direct instance's batch rows per block: the largest multiple of
-    D that divides R with at most ``target_out`` output rows."""
-    if R % D:
-        raise ValueError(f"batch fold R={R} not a multiple of decim {D}")
-    n_o = R // D
-    return D * max(t for t in range(1, min(target_out, n_o) + 1)
-                   if n_o % t == 0)
-
-
-def _direct_smem(ntaps: int, D: int, T: int, GS: int) -> tuple[int, int, int]:
-    """(P, CU, shared bytes) of a direct-instance block: the taps, then the
-    re and im planes of the chunk's window, its look-back included."""
-    P = row_stride(GS, _J * D)
-    CU = _THREADS // GS * _J
-    rows = (-(-min(T // D, CU) // _J) * _J - 1) * D + ntaps
-    return P, CU, (ntaps + 2 * rows * P) * 4
-
-
-def direct_max_taps(D: int, T: int, GS: int = DIRECT_SEG_GROUP) -> int:
-    """The largest tap count whose window fits a direct-instance block at
-    decimation D and T batch rows a block (6001 at D = 1, T = 512)."""
-    P, _, base = _direct_smem(0, D, T, GS)
-    return (_SMEM_MAX - base) // (4 * (1 + 2 * P))
-
-
 @functools.lru_cache(maxsize=None)
-def _direct_geometry(R: int, D: int, ntaps: int, tile,
-                     GS: int = DIRECT_SEG_GROUP) -> _Direct:
+def _part_geometry(R: int, D: int, ntaps: int, tile, GS: int) -> _Part:
+    """The partitioned instance's geometry: tiles as ``pick_tile`` picks
+    them at L = 512 (512 rows, one output block a segment, at config #0's
+    batch), 8 transforms a round, GS / 8 rounds an output block; where R
+    and T are multiples of L, each round's rows written by tensor copies
+    (``BR``). Its shared memory (the round's tile, the exchange buffers,
+    the spectra's sums, the twiddles: ~174 KB at D = 1) does not depend on
+    the taps."""
     if D <= 0 or R <= 0 or R % D:
         raise ValueError(f"batch fold R={R} not a multiple of decim {D}")
-    T = int(tile) if tile else pick_direct_tile(R, D)
+    if ntaps > PART_MAX_TAPS:
+        raise ValueError(
+            f"{ntaps} taps: K9 takes at most {PART_MAX_TAPS} taps "
+            f"({PART_MAX_TAPS // PART_L} partitions of {PART_L}); the "
+            f"reference's limit is its window")
+    L = PART_L
+    T = int(tile) if tile else pick_tile(R, D, L)
     if T <= 0 or R % T or T % D:
         raise ValueError(f"tile {T} incompatible with R={R}, D={D}")
-    if GS <= 0 or S % GS or GS & (GS - 1):
-        raise ValueError(f"seg_group {GS}: a power of 2 dividing {S}")
-    P, CU, smem = _direct_smem(ntaps, D, T, GS)
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"{ntaps} taps: K9 takes at most {direct_max_taps(D, T, GS)} taps "
-            f"at decim {D} and tile {T} ({smem} bytes of shared memory, the "
-            f"H100 allows {_SMEM_MAX}); the reference's limit is its window")
-    return _Direct(T, GS, P, CU, smem)
+    if GS < 8 or S % GS:
+        raise ValueError(f"seg_group {GS}: the kernel takes 8, 16, 32 or 64 "
+                         f"segments a block")
+    aligned = R % L == 0 and T % L == 0
+    NQ = T // L if aligned else (T + L - 2) // L + 1
+    BR = L // D if aligned and L % D == 0 else 0
+    G, N = _THREADS // PART_Q, PART_Q * PART_Q
+    smem = (G * BR + G * (PART_Q * (PART_Q + 1) + 1) + G * N + PART_Q ** 2
+            + -(-GS // 2)) * 8
+    return _Part(T, GS, NQ, part_count(ntaps), BR, smem)
 
 
-def plan(R: int, D: int, ntaps: int, tile=None):
+def plan(R: int, D: int, ntaps: int, tile=None, seg_group: int | None = None):
     """The instance K9 launches for these taps and its geometry: the FFT
     convolution's ``_Geometry`` up to ``FFT_MAX_TAPS`` taps, else the
-    direct form's ``_Direct``. Raises where neither fits."""
+    partitioned instance's ``_Part`` up to ``PART_MAX_TAPS``
+    (``seg_group`` None: ``SEG_GROUP``, ``PART_SEG_GROUP``). Raises past
+    that, or where the geometry does not fit."""
     if ntaps <= FFT_MAX_TAPS:
-        return _geometry(R, D, ntaps, tile, SEG_GROUP)
-    return _direct_geometry(R, D, ntaps, tile)
+        return _geometry(R, D, ntaps, tile, seg_group or SEG_GROUP)
+    return _part_geometry(R, D, ntaps, tile, seg_group or PART_SEG_GROUP)
 
 
 def fir_tone_step_plain(phase0, dphase, amp, first, taps, decim: int, R: int,
@@ -287,17 +310,18 @@ def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
       shard: the time shard of the batch this call computes (R rows of
         it, from 64*R*shard samples on; only shard 0 reads ``first``).
 
-    Returns (R/D, 128) float32 folded planes of the filtered stream. Up
-    to ``FFT_MAX_TAPS`` taps the kernel is an FFT convolution that aligns
-    its transforms to the batch index at multiples of L (``fft_radix``: L
-    = 128 at up to 129 taps), so its output is bit-identical for every
-    batch split and time shard whose boundaries fall on multiples of L;
-    past it the direct form, bit-identical for every tile, split and
-    shard (its outputs depend only on the samples). Any R is taken.
+    Returns (R/D, 128) float32 folded planes of the filtered stream. Both
+    instances are FFT convolutions that align their transforms to the
+    batch index at multiples of L (``fft_radix``: L = 128 at up to 129
+    taps; L = ``PART_L`` = 512 past ``FFT_MAX_TAPS``), so the output is
+    bit-identical for every tile and segment group, and for every batch
+    split and time shard whose boundaries fall on multiples of L. Any R is
+    taken.
 
     CPU tensors (``taps`` on the CPU) take the plain version; on a CUDA
     device it launches ``fir_tone_launch`` (csrc/fir_source.cu, K9) or,
-    past ``FFT_MAX_TAPS`` taps, ``fir_direct_launch`` (csrc/fir_direct.cu).
+    past ``FFT_MAX_TAPS`` taps, ``fir_part_launch`` (csrc/fir_part.cu,
+    counted on ``fir_tone_step.partitioned_launches``).
     """
     R, D = int(R), int(decim)
     consts = taps if isinstance(taps, FirToneConsts) else FirToneConsts(taps,
@@ -306,31 +330,42 @@ def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
     if consts.taps.device.type == "cpu":
         return fir_tone_step_plain(phase0, dphase, amp, first, consts.taps, D,
                                    R, shard)
-    if isinstance(g, _Direct):
-        return _launch_direct(phase0, dphase, amp, first, consts, D, R, g,
-                              shard)
     return _launch(phase0, dphase, amp, first, consts, D, R, g, shard)
 
 
 def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
-            g: _Geometry, shard: int = 0):
+            g, shard: int = 0):
+    """Launch the instance of ``g``: the FFT instance for a ``_Geometry``,
+    the partitioned one for a ``_Part``."""
     dev = consts.taps.device
     if consts.fft is None:
         raise ValueError("taps: the kernel takes the FIR as an FFT "
                          "convolution and needs its twiddle table; pass "
                          "fir_tone_consts(taps, device)")
+    part = isinstance(g, _Part)
+    N = PART_Q * PART_Q if part else g.Q * g.Q
     _build.check_tensor(consts.fft, "fft", device=dev,
-                        shape=(4, g.Q * g.Q))
+                        shape=(2 + 2 * g.P if part else 4, N))
     a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     ph, dp = nco_args(phase0, dphase, dev)
     fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
     out = torch.empty((R // D, 2 * S), dtype=torch.float32, device=dev)
+    coeffs = SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p)
+    if part:
+        with torch.cuda.device(dev):
+            err = _build.lib().fir_part_launch(
+                ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
+                int(shard), consts.fft.data_ptr(), out.data_ptr(), R, D, g.T,
+                g.GS, g.NQ, g.P, g.BR, coeffs,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "fir_part_launch")
+        fir_tone_step.partitioned_launches += 1
+        return out
     with torch.cuda.device(dev):
         err = _build.lib().fir_tone_launch(
             ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
             int(shard), consts.fft.data_ptr(), out.data_ptr(), R, g.Q, D,
-            g.T, g.GS, g.NQ, g.off, g.WR, g.PW, g.BR,
-            SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            g.T, g.GS, g.NQ, g.off, g.WR, g.PW, g.BR, coeffs,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fir_tone_launch")
     fir_tone_step.launches += 1
@@ -338,30 +373,7 @@ def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
 
 
 fir_tone_step.launches = 0
-
-
-def _launch_direct(phase0, dphase, amp, first, consts: FirToneConsts, D: int,
-                   R: int, g: _Direct, shard: int = 0):
-    """Launch the direct instance (counted on ``direct_launches``)."""
-    dev = consts.taps.device
-    nt = int(consts.taps.shape[0])
-    _build.check_tensor(consts.taps, "taps", device=dev, shape=(nt,))
-    a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
-    ph, dp = nco_args(phase0, dphase, dev)
-    fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
-    out = torch.empty((R // D, 2 * S), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().fir_direct_launch(
-            ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
-            int(shard), consts.taps.data_ptr(), out.data_ptr(), R, nt, D, g.T,
-            g.GS, g.P, g.CU, SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fir_direct_launch")
-    fir_tone_step.direct_launches += 1
-    return out
-
-
-fir_tone_step.direct_launches = 0
+fir_tone_step.partitioned_launches = 0
 
 
 def unfold_complex(planes: torch.Tensor) -> torch.Tensor:

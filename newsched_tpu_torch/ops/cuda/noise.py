@@ -144,15 +144,14 @@ def stream_args(seed: int, draws: int) -> list:
     return [*_key(seed), int(draws), mean, 1.0 / std]
 
 
-def gaussian_rows_plain(g0, *, n_rows: int, width: int, seed: int, device,
-                        draws: int = 3, mask_pre: bool = False,
-                        row0: int = 0) -> torch.Tensor:
-    """The plain PyTorch version of ``gaussian_rows``, for the rows
-    [row0, row0 + n_rows) counted from the first row of group ``g0`` (the
-    64-bit index: an int64 tensor or a host int); row0 may be negative and
-    n_rows need not fill whole groups (the row loader of the generating
-    kernels, csrc/philox.cuh ``gauss``)."""
-    mean, std = _ih_const(_check_draws(draws))
+LAYOUTS = ("rows", "cf32")
+
+
+def _counters(g0, n_rows: int, width: int, device, row0: int = 0):
+    """The Philox counter of every element of rows [row0, row0 + n_rows):
+    (c0, c1, c2, g), each (n_rows, width) int64: the element's index in its
+    64-row group, its group's low and high words, and the group (64-bit,
+    two's complement)."""
     rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
                         device=device)[:, None]
     cols = torch.arange(width, dtype=torch.int64, device=device)[None, :]
@@ -161,49 +160,115 @@ def gaussian_rows_plain(g0, *, n_rows: int, width: int, seed: int, device,
     c0 = (rows - grp * GROUP_ROWS) * width + cols
     c1 = (g & _M32).expand(n_rows, width)
     c2 = ((g >> 32) & _M32).expand(n_rows, width)
-    c3 = torch.zeros_like(c0)
-    words = _philox4x32_10(c0, c1, c2, c3, *_key(seed))
+    return c0, c1, c2, g.expand(n_rows, width)
+
+
+def _check_layout(layout: str, width: int) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    if layout == "cf32" and width % 2:
+        raise ValueError(f"layout 'cf32' pairs the halves of a row: width "
+                         f"{width} is odd")
+
+
+def gaussian_rows_plain(g0, *, n_rows: int, width: int, seed: int, device,
+                        draws: int = 3, mask_pre: bool = False,
+                        row0: int = 0, amp=None,
+                        layout: str = "rows") -> torch.Tensor:
+    """The plain PyTorch version of ``gaussian_rows``, for the rows
+    [row0, row0 + n_rows) counted from the first row of group ``g0`` (the
+    64-bit index: an int64 tensor or a host int); row0 may be negative and
+    n_rows need not fill whole groups (the row loader of the generating
+    kernels, csrc/philox.cuh ``gauss``). ``amp`` and ``layout`` as
+    ``gaussian_rows``: a float32 multiply and the complex build after the
+    draw."""
+    mean, std = _ih_const(_check_draws(draws))
+    _check_layout(layout, width)
+    c0, c1, c2, g = _counters(g0, n_rows, width, device, row0)
+    words = _philox4x32_10(c0, c1, c2, torch.zeros_like(c0), *_key(seed))
     s = sum((w & 0xFFFF) + (w >> 16) for w in words[:draws])
     f32 = dict(dtype=torch.float32, device=device)
     out = (s.to(torch.float32) - torch.tensor(mean, **f32)) \
         * torch.tensor(1.0 / std, **f32)
     if mask_pre:
         out = torch.where(g < 0, torch.zeros((), **f32), out)
-    return out
+    if amp is not None:
+        amp = torch.as_tensor(amp, **f32)
+    if layout == "cf32":  # the noise blocks' own expressions
+        h = width // 2
+        re, im = out[:, :h].reshape(-1), out[:, h:].reshape(-1)
+        return torch.complex(re, im) if amp is None else \
+            torch.complex(re * amp, im * amp)
+    return out if amp is None else out * amp
+
+
+def launch_shape(width: int, layout: str = "rows") -> tuple[int, int, int,
+                                                           int]:
+    """(vec, units, bx, ry) of K4's 2-D launch: a thread writes vec lanes
+    (4, one 16-byte store, where the row allows it; in the cf32 layout vec
+    lanes of each half, two stores) of ``units`` a row; bx threads across
+    them (at most 16, each taking every bx-th unit: 8 elements a thread at
+    the flagship's width, over which its round keys and group words are
+    spent); ry rows a block, the largest power of 2 dividing 64 with bx *
+    ry <= 256, so a block's rows lie in one 64-row group. At width 128:
+    (4, 32, 16, 16), and in cf32 (4, 16, 16, 16)."""
+    lanes = width // 2 if layout == "cf32" else width
+    vec = 4 if lanes % 4 == 0 else 1
+    units = lanes // vec
+    bx = min(units, 16)
+    ry = 1
+    while ry < GROUP_ROWS and bx * ry * 2 <= 256:
+        ry *= 2
+    return vec, units, bx, ry
 
 
 def gaussian_rows(g0, *, n_rows: int, width: int, seed: int, device,
-                  draws: int = 3, mask_pre: bool = False) -> torch.Tensor:
+                  draws: int = 3, mask_pre: bool = False, amp=None,
+                  layout: str = "rows") -> torch.Tensor:
     """(n_rows, width) f32 standard-normal rows for the absolute row span
     starting at group ``g0``, the 64-row group index (a 0-dim int64 tensor
     on the device, the sources' counter, which the kernel reads from the
     card; or a host int), from ``draws`` Philox words per element (3 or 2).
-    Scale by amplitude outside. ``mask_pre``: groups before the stream
-    (negative as signed 64-bit) read 0.
+    ``mask_pre``: groups before the stream (negative as signed 64-bit) read
+    0.
+
+    ``amp``: None, or the amplitude (the noise blocks' float32 parameter
+    tensor on the device, which the kernel reads from the card; or a
+    number): each element times it, the product ``r * amp`` rounds.
+    ``layout``: "rows", or "cf32", the (n_rows * width/2,) complex64 stream
+    ``torch.complex(r[:, :w/2].reshape(-1), r[:, w/2:].reshape(-1))`` (times
+    amp) that ``analog.noise_source`` emits.
 
     On a CPU device this is the plain version; on a CUDA device it
-    launches ``gaussian_rows_launch`` (csrc/noise.cu)."""
+    launches ``gaussian_rows_launch`` (csrc/noise.cu, K4)."""
     if n_rows % GROUP_ROWS:
         raise ValueError(f"n_rows {n_rows} not a multiple of {GROUP_ROWS}")
+    _check_layout(layout, width)
     device = torch.device(device)
     if device.type == "cpu":
         return gaussian_rows_plain(g0, n_rows=n_rows, width=width, seed=seed,
                                    device=device, draws=draws,
-                                   mask_pre=mask_pre)
+                                   mask_pre=mask_pre, amp=amp, layout=layout)
     if device.type != "cuda":
         raise ValueError(f"gaussian_rows runs on cpu or cuda, not {device}")
     args = stream_args(seed, draws)
-    out = torch.empty((n_rows, width), dtype=torch.float32, device=device)
+    cplx = layout == "cf32"
+    shape = (n_rows * width // 2, 2) if cplx else (n_rows, width)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
     device = out.device  # "cuda" -> the current card, "cuda:0"
     g = device_group(g0, device)
+    a = (None if amp is None else
+         _build.device_scalar(amp, "amp", device=device, dtype=torch.float32))
+    vec, _, bx, ry = launch_shape(width, layout)
     with torch.cuda.device(device):
         err = _build.lib().gaussian_rows_launch(
             out.data_ptr(), n_rows, width, g.data_ptr(), *args,
-            int(bool(mask_pre)),
+            int(bool(mask_pre)), None if a is None else a.data_ptr(),
+            int(cplx), vec, bx, ry,
             torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "gaussian_rows_launch")
     gaussian_rows.launches += 1
-    return out
+    return torch.view_as_complex(out) if cplx else out
 
 
 gaussian_rows.launches = 0

@@ -1,14 +1,18 @@
 """Stage times of the live FIR kernel K9 and the wideband-FM tile routine
 (K10, K12), and their outputs and the fused channelizer chains' (K3, K3
-with warm > 0, K3p, K3ag, K5, K6 at M = 64) for comparison across trees.
+with warm > 0, K3p, K3ag, K5, K6 at M = 64) for comparison across trees;
+the noise kernel K4's and the noise blocks' outputs and times, and K9's
+past the FFT's 513 taps, for the same comparison.
 
     PYTHONPATH=<tree> python3 <this file> stages
     PYTHONPATH=<tree> python3 <this file> outputs --save FILE
     PYTHONPATH=<tree> python3 <this file> outputs --compare FILE
+    PYTHONPATH=<tree> python3 <this file> times
 
-``stages`` copies ``csrc/fir_source.cu`` and ``csrc/wbfm_chain.cu`` of the
-package on the path (this tree, or one unpacked with ``git archive`` of an
-earlier commit: the cuts know the direct-form K9 and its FFT form) into
+``stages`` copies ``csrc/fir_source.cu``, ``csrc/fir_part.cu`` and
+``csrc/wbfm_chain.cu`` of the package on the path (this tree, or one
+unpacked with ``git archive`` of an earlier commit: the cuts know the
+direct-form K9 and its FFT form) into
 ``build/stages/``, inserts cuts there behind a ``STAGE`` macro, builds one
 library a stage with ``-DSTAGE=n`` and times each beside the untouched
 kernels, on one input and over 4 rotating outputs (and inputs, for K10).
@@ -16,14 +20,29 @@ The cuts are cumulative, each stage keeps its shared-memory results alive
 and skips what follows:
   K9 direct form: 1 the samples generated; 2 + the FIR and the writes;
   K9 FFT form: 1 the samples generated; 2 + the transforms; 3 + the writes;
+  K9 partitioned (``csrc/fir_part.cu``, at 1024 taps): 1 the samples
+       generated; 2 + the forward transforms and the spectra's sum; 3 + the
+       inverse transform; 4 + the writes;
   K10, K12: 1 the samples staged (read, or generated); 2 + the xlate FIR;
        3 + the demod and atan2; 4 + the resampler and the writes.
 
 ``outputs`` runs K9, K10 and K12 at the main paths' shapes on fixed inputs
-(K10 and K12 at several block geometries), and the chain kernels at the
-flagship's shape on seeded rows, and saves them, or compares them with a
-saved run: each record says whether the two are bit-equal and their
-largest difference.
+(K10 and K12 at several block geometries; K9 also at 1024 taps, past the
+FFT instance), the chain kernels at the flagship's shape on seeded rows,
+K4 at the flagship's 32768 x 128 (with and without an amplitude, as rows
+and as the cf32 stream, at group 2^32 - 2 and at a negative group with
+mask_pre), two batches of each noise block (``noise_planes_source``,
+``noise_source`` cf32 and rf32) and the audio of the config #2 fused-noise
+and staged graphs (two batches, graph mode), and saves them, or compares
+them with a saved run: each record says whether the two are bit-equal and
+their largest difference. A tree whose noise kernel takes no amplitude
+gets its blocks' own ``r * amp`` and torch.complex build.
+
+``times`` times, alternating, by CUDA-graph replay: K4 at 32768 x 128
+alone, with the amplitude and as the cf32 stream (in a tree without them,
+the kernel and the blocks' torch ops after it); K9 at 128, 1024 and 6001
+taps; and the graph-mode steps of the config #2 fused-noise and staged
+graphs and of the live fir_chain at 1024 taps (the bench's two-point fit).
 
 Prints one JSON line a record, the card's name and power limit first.
 """
@@ -31,6 +50,7 @@ Prints one JSON line a record, the card's name and power limit first.
 from __future__ import annotations
 
 import ctypes
+import inspect
 import json
 import re
 import subprocess
@@ -85,8 +105,25 @@ _FORMS = {
         ], ("samples", "xlate", "demod", "full")),
     },
 }
-_KERNELS = {"K9": "fir_source.cu", "K10": "wbfm_chain.cu",
-            "K12": "wbfm_chain.cu"}
+# K9's partitioned instance: its cuts `continue` past the round's barrier,
+# which holds where every warp's slot is live (the default geometry, timed)
+_SUM_X = ("float k0 = 0.f;\n        for (int n = 0; n < kQ; ++n) k0 += xr[n] + "
+          "xi[n];\n        if (k0 == 1234.5f) p.out[tid] = k0;")
+_FORMS["fir_part.cu"] = {
+    "partitioned": ([
+        ("        fft<kQ>(xr, xi, xb, tw, t, wr, wi);\n        // X[t + Q k] H_p",
+         "#if STAGE < 2\n        {\n        " + _SUM_X
+         + "\n        continue;\n        }\n#endif\n"),
+        ("      // the inverse transform as the forward one of the conjugate",
+         "#if STAGE < 3\n      if (ac[t].x == 1234.5f) p.out[tid] = ac[t].y;"
+         "\n      continue;\n#endif\n"),
+        ("    // this round's outputs to their rows",
+         "#if STAGE < 4\n    " + _KEEP2.format(a="xbuf", out="p.out")
+         + "\n    continue;\n#endif\n"),
+    ], ("gen", "fft", "inverse", "full")),
+}
+_KERNELS = {"K9": "fir_source.cu", "K9p": "fir_part.cu",
+            "K10": "wbfm_chain.cu", "K12": "wbfm_chain.cu"}
 
 
 def _card() -> str:
@@ -141,7 +178,8 @@ def _build_stages(out: Path, stages=(1, 2, 3)) -> dict:
         subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
                         *objs], check=True)
         lib = ctypes.CDLL(str(so))
-        for fn in ("fir_tone_launch", "wbfm_chain_launch", "wbfm_live_launch"):
+        for fn in ("fir_tone_launch", "fir_part_launch", "wbfm_chain_launch",
+                   "wbfm_live_launch"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[st] = lib
@@ -160,9 +198,9 @@ def _wb_plan():
     return plan, wbfm_chain.wbfm_consts(plan, "cuda")
 
 
-def _fir_taps():
+def _fir_taps(ntaps=FIR_NTAPS):
     taps = firdes.low_pass(1.0, FIR_FS, 0.2 * FIR_FS, 0.05 * FIR_FS,
-                           ntaps=FIR_NTAPS)
+                           ntaps=ntaps)
     t = torch.from_numpy(taps.astype(np.float32)).cuda()
     make = getattr(fir_source, "fir_tone_consts", None)
     return make(taps, "cuda") if make else t
@@ -189,6 +227,11 @@ def _calls():
     def k9():
         return fir_source.fir_tone_step(ph9, dp9, amp, off, taps, 1, FIR_R)
 
+    taps_p = _fir_taps(1024)
+
+    def k9p():
+        return fir_source.fir_tone_step(ph9, dp9, amp, off, taps_p, 1, FIR_R)
+
     def k10(xp):
         return wbfm_chain.wbfm_chain_step(xp, carry, plan, consts)[0]
 
@@ -196,6 +239,7 @@ def _calls():
         return wbfm_chain.wbfm_chain_live_step(ph12, dp12, amp, off, plan,
                                                consts, WB_R)
     return {"K9": (k9, rotating(lambda i: (), k9)),
+            "K9p": (k9p, rotating(lambda i: (), k9p)),
             "K10": (lambda: k10(xps[0]), rotating(lambda i: (xps[i],), k10)),
             "K12": (k12, rotating(lambda i: (), k12))}
 
@@ -254,9 +298,111 @@ def _outputs() -> dict:
     for D in (1, 4):
         res[f"K9/{D}"] = fir_source.fir_tone_step(0x9E3779B9, dpf, 0.8, False,
                                                   taps, D, FIR_R).cpu()
+        res[f"K9/1024/{D}"] = fir_source.fir_tone_step(
+            0x9E3779B9, dpf, 0.8, False, _fir_taps(1024), D, FIR_R).cpu()
     res.update(_chain_outputs())
+    res.update(_noise_outputs())
     torch.cuda.synchronize()
     return res
+
+
+def _k4(g0, amp=None, layout="rows", n_rows=32768, width=128, **kw):
+    """K4 as this tree's noise kernel takes it: the amplitude and the cf32
+    layout inside the kernel where it has them, else the blocks' own torch
+    ops after it."""
+    from newsched_tpu_torch.ops.cuda import noise
+
+    if "layout" in inspect.signature(noise.gaussian_rows).parameters:
+        return noise.gaussian_rows(g0, n_rows=n_rows, width=width, seed=0,
+                                   device="cuda", amp=amp, layout=layout, **kw)
+    r = noise.gaussian_rows(g0, n_rows=n_rows, width=width, seed=0,
+                            device="cuda", **kw)
+    a = 1 if amp is None else amp
+    if layout == "cf32":
+        h = width // 2
+        re, im = r[:, :h].reshape(-1), r[:, h:].reshape(-1)
+        return torch.complex(re, im) if amp is None else \
+            torch.complex(re * a, im * a)
+    return r if amp is None else r * a
+
+
+def _fm_graph(kind: str, n_batches):
+    """Config #2 (64 channels, 16 taps an arm, a 65-tap audio FIR by 8,
+    batches of 2^21) with its noise source: fused or staged."""
+    from newsched_tpu_torch import models
+
+    M, D = 64, 8
+    at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=65)
+    return models.fm_channelizer(
+        nchans=M, taps_per_arm=16, audio_decim=D, fused=kind == "fused",
+        source=None, batch_size=1 << 21,
+        sink="vector" if n_batches else "null",
+        n_samples=None if n_batches is None else n_batches * (1 << 21) // (M * D),
+        deviation_frac=1.0 / (2 * np.pi * 0.5), audio_taps=at)
+
+
+def _noise_outputs() -> dict:
+    """K4 in every mode, the noise blocks' outputs and the config #2
+    noise graphs' audio."""
+    from newsched_tpu_torch.blocks import analog, vector_dsp
+
+    res = {}
+    amp = torch.tensor(-0.3, dtype=torch.float32, device="cuda")
+    for base in ((1 << 32) - 2, -3):
+        g = torch.tensor(base, dtype=torch.int64, device="cuda")
+        for layout in ("rows", "cf32"):
+            for a in (None, amp):
+                key = f"K4/{base}/{layout}/{'amp' if a is not None else 1}"
+                res[key] = _k4(g, a, layout, mask_pre=base < 0).cpu()
+    for kind, blk, nout in (
+            ("planes", vector_dsp.noise_planes_source(64, seed=7), 32768),
+            ("cf32", analog.noise_source(seed=7, dtype="cf32"), 1 << 21),
+            ("rf32", analog.noise_source(seed=7, dtype="rf32"), 1 << 21)):
+        st = blk.init_state(0, nout, "cuda")
+        for b in range(2):
+            st, o = blk.work(st, {}, {"amplitude": amp}, nout)
+            res[f"block/{kind}/{b}"] = o["out"].cpu()
+    for kind in ("fused", "staged"):
+        fg, blks = _fm_graph(kind, 2)
+        fg.run(device="cuda")
+        res[f"graph/{kind}"] = torch.from_numpy(np.asarray(blks["sink"].data()))
+    return res
+
+
+def times() -> list[dict]:
+    """K4's modes, K9 at 128, 1024 and 6001 taps, by CUDA-graph replay in
+    turns (forward, then backward); the graph-mode steps of the config #2
+    noise graphs and the 1024-tap live fir_chain."""
+    from newsched_tpu_torch import bench, models
+
+    g0 = torch.tensor(0, dtype=torch.int64, device="cuda")
+    amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
+    dp = torch.tensor(nco.freq_to_dphase(FIR_FREQ, FIR_FS), dtype=torch.int64,
+                      device="cuda")
+    ph = torch.tensor(7, dtype=torch.int64, device="cuda")
+    a8 = torch.tensor(0.8, dtype=torch.float32, device="cuda")
+    off = torch.tensor(False, device="cuda")
+    calls = {"K4": lambda: _k4(g0),
+             "K4 amp": lambda: _k4(g0, amp),
+             "K4 cf32 amp": lambda: _k4(g0, amp, "cf32")}
+    for nt in (128, 1024, 6001):
+        tc = _fir_taps(nt)
+        calls[f"K9 {nt} taps"] = (lambda tc=tc: fir_source.fir_tone_step(
+            ph, dp, a8, off, tc, 1, FIR_R))
+    ms: dict = {}
+    for name in list(calls) + list(calls)[::-1]:
+        ms.setdefault(name, []).append(graph_ms(calls[name]))
+    recs = [{"kernel": k, "ms": min(v), "ms_all": v} for k, v in ms.items()]
+    cells = {"#2 fused noise": (lambda: _fm_graph("fused", None)[0], 1 << 21),
+             "#2 staged": (lambda: _fm_graph("staged", None)[0], 1 << 21),
+             "#0 live 1024 taps": (lambda: models.fir_chain(
+                 n_samples=10_000_000, fs=FIR_FS, ntaps=1024, frequency=FIR_FREQ,
+                 batch_size=1 << 21, sink="null", source="live")[0], 1 << 21)}
+    for label, (build, n_in) in cells.items():
+        sps = bench.timed_two_point(bench.graph_run(build(), "cuda"), label,
+                                    n_in, n_best=3, k1=16, k2=64)
+        recs.append({"cell": label, "graph_mode_ms": n_in / sps * 1e3})
+    return recs
 
 
 def _chain_outputs() -> dict:
@@ -337,7 +483,8 @@ def main(argv) -> int:
         print("stages: no CUDA device", file=sys.stderr)
         return 2
     print(_card(), flush=True)
-    recs = stages() if argv[:1] == ["stages"] else outputs(argv[1:])
+    recs = (stages() if argv[:1] == ["stages"] else
+            times() if argv[:1] == ["times"] else outputs(argv[1:]))
     for rec in recs:
         print(json.dumps(rec), flush=True)
     return 0

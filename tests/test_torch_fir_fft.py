@@ -8,6 +8,9 @@ across tiles, segment groups, a batch split and a time shard; at an R that
 L does not divide. Also: the table's values, the radix and geometry
 picks, and the CUDA wrapper's refusal of constants without the table
 (meta tensors stand in for the card: the check comes before any launch).
+Past 513 taps, the partitioned instance (csrc/fir_part.cu) the same way:
+its transforms, the partitions' spectra summed in the kernel's order, its
+table, its plan and its limit.
 """
 
 import numpy as np
@@ -16,8 +19,9 @@ import torch
 
 from newsched_tpu_torch.ops import firdes, nco
 from newsched_tpu_torch.ops.cuda import fir_source
+from newsched_tpu_torch.ops.cuda.mathfns import sin_cos_turns_plain
 from newsched_tpu_torch.ops.cuda.sources import (folded_index, folded_values,
-                                                 mask_before_stream,
+                                                 mask_before_stream, nco_turns,
                                                  shard_phase)
 
 FS, FREQ, NTAPS, S = 1e6, 123_456.0, 128, 64
@@ -28,6 +32,11 @@ DP = nco.freq_to_dphase(FREQ, FS)
 # 3.9e-7 from float64, the direct form's 128-term sums 6.5e-7, the two
 # 8.2e-7 apart)
 REL_TOL = 2e-6
+# |partitioned form - plain| over max|out| past 513 taps: the plain version
+# (the direct form) sums its ntaps products in float32, and drifts from
+# float64 as they grow (measured: 1.3e-6 at 514 taps, 1.9e-6 at 1024, 2.7e-6
+# at 1500); the partitioned form stays within REL_TOL of float64 (7.1e-7)
+PART_PLAIN_TOL = 5e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -161,6 +170,72 @@ def _exact(ph0, first, taps, D, R):
     return out
 
 
+def _samples(ph, amp, first, shard, idx):
+    """(re, im) float32 of the folded tone at batch indices ``idx``, as
+    ``folded_values`` and ``mask_before_stream`` give them."""
+    sn, cs = sin_cos_turns_plain(nco_turns(ph, DP, idx))
+    a = torch.tensor(amp, dtype=torch.float32)
+    re, im = cs * a, sn * a
+    if shard == 0 and first:
+        zero = torch.zeros(())
+        re, im = torch.where(idx < 0, zero, re), torch.where(idx < 0, zero, im)
+    return re, im
+
+
+def fir_part_model(ph0, dp, amp, first, taps, D, R, tile=None,
+                   seg_group=None, shard=0):
+    """K9's partitioned instance as the kernel computes it, block by block:
+    each block's slots (segment i % GS, the (i // GS)-th output block
+    touching the tile), each output block's P forward transforms of the
+    samples generated at their batch indices, times the partitions'
+    spectra and summed p = 0 .. P-1, the inverse transform of the
+    conjugate, its kept half written to the block's own rows. Rows no
+    block writes stay NaN."""
+    assert dp == DP
+    g = fir_source.plan(R, D, len(taps), tile, seg_group)
+    assert isinstance(g, fir_source._Part)
+    Q, L = fir_source.PART_Q, fir_source.PART_L
+    N = Q * Q
+    tab = torch.from_numpy(fir_source.fir_part_table(taps))
+    ph = shard_phase(ph0, dp, shard, R)
+    seg, base, dest = [], [], []
+    for r0 in range(0, R, g.T):
+        for s0 in range(0, S, g.GS):
+            jb = (shard * S + s0) * R + r0
+            for i in range(g.GS * g.NQ):
+                sl, iq = i % g.GS, i // g.GS
+                dl = (jb + sl * R) % L
+                if iq > (dl + g.T - 1) // L:
+                    continue
+                seg.append(s0 + sl)
+                base.append(r0 + iq * L - dl - L)
+                dest.append((s0 + sl, r0, r0 + iq * L - dl))
+    seg, base = torch.tensor(seg)[:, None], torch.tensor(base)[:, None]
+    n = torch.arange(N)[None, :]
+    for p in range(g.P):
+        re, im = _samples(ph, amp, first, shard, seg * R + base - p * L + n)
+        xr = re.reshape(-1, Q, Q).transpose(1, 2)  # [B, t, n2]
+        xi = im.reshape(-1, Q, Q).transpose(1, 2)
+        Xr, Xi = _fft(xr, xi, tab, Q)  # [B, t, k] = X[t + Q k]
+        hr = tab[2 + 2 * p].reshape(Q, Q).T  # [t, k] = H_p[t + Q k]
+        hi = tab[3 + 2 * p].reshape(Q, Q).T
+        Zr, Zi = _cmul(Xr, Xi, hr, hi)
+        if p == 0:
+            Ar, Ai = Zr, Zi
+        else:
+            Ar, Ai = Ar + Zr, Ai + Zi
+    Yr, Yi = _fft(Ar, -Ai, tab, Q)  # [B, t, m] = y'[t + Q m]
+    yr = Yr[:, :, Q // 2:].transpose(1, 2).reshape(-1, L)  # p = t + Q m'
+    yi = -Yi[:, :, Q // 2:].transpose(1, 2).reshape(-1, L)
+    out = torch.full((R // D, 2 * S), float("nan"))
+    for b, (s, r0, k0) in enumerate(dest):
+        k = k0 + torch.arange(L)
+        keep = (k >= r0) & (k < r0 + g.T) & (k % D == 0)
+        out[k[keep] // D, s] = yr[b, keep]
+        out[k[keep] // D, S + s] = yi[b, keep]
+    return out
+
+
 @pytest.mark.parametrize("D", [1, 4])
 @pytest.mark.parametrize("ph0,first", [(0xFFFFF000, True), (0x9E3779B9, False)])
 def test_fft_form_matches_plain_and_float64(D, ph0, first):
@@ -247,24 +322,27 @@ def test_radix_and_geometry():
     assert fir_source.window_stride(8, 8) == 10
     with pytest.raises(ValueError, match="seg_group"):
         fir_source._geometry(256, 1, NTAPS, None, 4)
-    # past the FFT's 513 taps the wrapper plans the direct instance, whose
-    # window fits up to its stated limit and is refused past it
+    # past the FFT's 513 taps the wrapper plans the partitioned instance:
+    # partitions of 512 taps, any count up to its stated limit (at least the
+    # 6001 taps at D = 1 and 3421 at D = 4 that the direct form took),
+    # refused past it
     assert fir_source.FFT_MAX_TAPS == 513
     assert isinstance(fir_source.plan(32768, 1, 513), fir_source._Geometry)
-    for nt in (514, 1000):
-        d = fir_source.plan(32768, 1, nt)
-        assert isinstance(d, fir_source._Direct)
-        assert (d.T, d.GS, d.CU) == (512, 4, 576)
-        assert d.smem <= fir_source._SMEM_MAX
-    # 36 bytes a tap, and 16 KB of window at 512 rows and 4 segments
-    assert fir_source.plan(32768, 1, 1024).smem == 53248
-    limit = fir_source.direct_max_taps(1, 512)
-    assert limit == 6001
-    assert fir_source.plan(32768, 1, limit).smem <= fir_source._SMEM_MAX
+    for nt, D, P in ((514, 1, 2), (1000, 1, 2), (1025, 1, 3), (6001, 1, 12),
+                     (3421, 4, 7)):
+        d = fir_source.plan(32768, D, nt)
+        assert isinstance(d, fir_source._Part)
+        assert (d.T, d.GS, d.NQ, d.P, d.BR) == (512, 16, 1, P, 512 // D)
+        # the round's tile, then what does not depend on the taps
+        assert d.smem == 8 * 8 * d.BR + 141440 <= fir_source._SMEM_MAX
+    g = fir_source.plan(100, 1, 1000)  # L does not divide R: 16-byte stores
+    assert (g.T, g.NQ, g.P, g.BR) == (100, 2, 2, 0)
+    limit = fir_source.PART_MAX_TAPS
+    assert limit == 32768 and fir_source.plan(32768, 1, limit).P == 64
     with pytest.raises(ValueError, match=f"at most {limit} taps"):
         fir_source.plan(32768, 1, limit + 1)
     consts = fir_source.fir_tone_consts(np.ones(1000, np.float32), "cpu")
-    assert consts.fft is None  # the direct instance reads the taps alone
+    assert consts.fft.shape == (6, 1024)  # the partitioned instance's table
 
 
 def test_cuda_wrapper_refuses_consts_without_the_table():
@@ -278,9 +356,9 @@ def test_cuda_wrapper_refuses_consts_without_the_table():
 
 def test_live_chain_past_the_fft_taps_against_golden():
     """``fir_chain(ntaps=1024, source="live")`` runs on the CPU through K9's
-    plain version, the function of the direct instance its wrapper plans
-    on the card for that many taps: > 100 dB against the float64 golden
-    over two batches of 8192 samples."""
+    plain version, the function of the partitioned instance its wrapper
+    plans on the card for that many taps: > 100 dB against the float64
+    golden over two batches of 8192 samples."""
     from newsched_tpu_torch import models, testing
 
     n, nt, fs, freq = 2 * 8192, 1024, 1e6, 123_456.0
@@ -288,7 +366,80 @@ def test_live_chain_past_the_fft_taps_against_golden():
                              batch_size=8192, sink="vector", source="live")
     fg.run(device="cpu")
     got = np.asarray(b["sink"].data())
-    assert isinstance(fir_source.plan(8192 // 64, 1, nt), fir_source._Direct)
+    assert isinstance(fir_source.plan(8192 // 64, 1, nt), fir_source._Part)
     ref = testing.fir_golden(n, b["taps"], freq, fs)
     assert got.shape == (n,) and testing.snr_db(ref, got) > 100
-    assert fir_source.fir_tone_step.direct_launches == 0
+    assert fir_source.fir_tone_step.partitioned_launches == 0
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("ntaps", [514, 1024, 1500])
+def test_partitioned_form_matches_plain_and_float64(ntaps, D):
+    """2, 2 and 3 partitions, at R = 512 (one output block a segment and a
+    tile), from stream start at D = 1 and from a nonzero phase at D = 4."""
+    ph0, first = (0xFFFFF000, True) if D == 1 else (0x9E3779B9, False)
+    R, taps = 512, _taps(ntaps)
+    got = fir_part_model(ph0, DP, 0.8, first, taps, D, R)
+    ref = _plain(ph0, first, taps, D, R).numpy()
+    exact = _exact(ph0, first, taps, D, R)
+    assert got.shape == (R // D, 2 * S) and torch.isfinite(got).all()
+    scale = np.abs(exact).max()
+    assert np.abs(got.numpy() - exact).max() <= REL_TOL * scale
+    assert np.abs(got.numpy() - ref).max() <= PART_PLAIN_TOL * scale
+
+
+def test_partitioned_form_bit_identical_across_blocks_splits_and_shards():
+    """1024 taps: tile 256 (each output block then computed whole for half
+    its rows) and 8 segments a block against the default (16); a batch of
+    R = 512 against two of R/2 (the split at 64*R/2 samples, a multiple of
+    L = 512); time shards 0 and 1 of R/2 rows against the whole batch."""
+    R, taps, ph0 = 512, _taps(1024), 0x00000100
+    base = fir_part_model(ph0, DP, 0.8, True, taps, 1, R)
+    assert torch.isfinite(base).all()
+    assert torch.equal(base, fir_part_model(ph0, DP, 0.8, True, taps, 1, R,
+                                            tile=256))
+    assert torch.equal(base, fir_part_model(ph0, DP, 0.8, True, taps, 1, R,
+                                            seg_group=8))
+    h = R // 2
+    halves = [fir_part_model(ph0, DP, 0.8, True, taps, 1, h),
+              fir_part_model(nco.nco_advance(ph0, DP, 64 * h), DP, 0.8, False,
+                             taps, 1, h)]
+    shards = [fir_part_model(ph0, DP, 0.8, True, taps, 1, h, shard=d)
+              for d in (0, 1)]
+    unfold = fir_source.unfold_complex
+    whole = unfold(base)
+    assert torch.equal(whole, torch.cat([unfold(x) for x in halves]))
+    assert torch.equal(whole, torch.cat([unfold(x) for x in shards]))
+
+
+@pytest.mark.parametrize("R,tile", [(100, None), (100, 50), (160, 40)])
+def test_partitioned_form_where_l_does_not_divide_r(R, tile):
+    """Output blocks that reach past a block's tile are computed whole:
+    within tolerance of the plain version, bit-equal across tiles."""
+    taps = _taps(700)
+    got = fir_part_model(0xFFFFF000, DP, 0.8, True, taps, 1, R, tile=tile)
+    ref = _plain(0xFFFFF000, True, taps, 1, R).numpy()
+    assert torch.isfinite(got).all()
+    assert np.abs(got.numpy() - ref).max() <= PART_PLAIN_TOL * np.abs(ref).max()
+    one = fir_part_model(0xFFFFF000, DP, 0.8, True, taps, 1, R, tile=R)
+    assert torch.equal(got, one)
+
+
+def test_partitioned_table_values():
+    """W_N^j and each partition's spectrum over N, float64 rounded once;
+    the last partition zero-padded."""
+    taps = _taps(1300)
+    tab = fir_source.fir_part_table(taps)
+    N, L = 1024, 512
+    assert fir_source.part_count(1300) == 3
+    assert tab.dtype == np.float32 and tab.shape == (2 + 2 * 3, N)
+    np.testing.assert_array_equal(tab[:2],
+                                  fir_source.fir_tone_table(taps[:L], 32)[:2])
+    for p in range(3):
+        h = np.zeros(N)
+        part = taps[p * L:(p + 1) * L].astype(np.float64)
+        h[:len(part)] = part
+        spec = (np.fft.fft(h) / N).astype(np.complex64)
+        np.testing.assert_array_equal(tab[2 + 2 * p] + 1j * tab[3 + 2 * p], spec)
+    consts = fir_source.fir_tone_consts(taps, "cpu")
+    assert torch.equal(consts.fft, torch.from_numpy(tab))

@@ -146,6 +146,145 @@ def test_noise_philox_matches_known_answer():
                (0xA4093822, 0x299F31D0)) == [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]
 
 
+@pytest.mark.parametrize("amp,g0,mask", [(0.37, 5, False), (-1.5, -1, True)])
+def test_noise_amp_is_the_product_with_the_rows(amp, g0, mask):
+    """``amp``: each element times the float32 amplitude, bit for bit the
+    blocks' ``r * amp`` (at a negative group with mask_pre, its zeros times
+    a negative amplitude too)."""
+    kw = dict(n_rows=128, width=16, seed=3, device="cpu", mask_pre=mask)
+    a = torch.tensor(amp, dtype=torch.float32)
+    rows = noise.gaussian_rows_plain(g0, **kw)
+    assert torch.equal(noise.gaussian_rows_plain(g0, amp=a, **kw), rows * a)
+    assert torch.equal(noise.gaussian_rows(g0, amp=a, **kw), rows * a)
+    assert torch.equal(noise.gaussian_rows_plain(g0, amp=amp, **kw), rows * a)
+    assert noise.gaussian_rows.launches == 0
+
+
+def test_noise_cf32_layout_is_the_complex_build():
+    """The cf32 layout: item i of row r is (lane k, lane width/2 + k), the
+    stream ``analog.noise_source`` builds with torch.complex, with and
+    without the amplitude."""
+    kw = dict(n_rows=128, width=128, seed=4, device="cpu")
+    r = noise.gaussian_rows_plain(7, **kw)
+    a = torch.tensor(0.5, dtype=torch.float32)
+    want = torch.complex(r[:, :64].reshape(-1) * a, r[:, 64:].reshape(-1) * a)
+    got = noise.gaussian_rows(7, amp=a, layout="cf32", **kw)
+    assert got.dtype == torch.complex64 and torch.equal(got, want)
+    assert torch.equal(noise.gaussian_rows_plain(7, layout="cf32", **kw),
+                       torch.complex(r[:, :64].reshape(-1),
+                                     r[:, 64:].reshape(-1)))
+    with pytest.raises(ValueError, match="odd"):
+        noise.gaussian_rows_plain(7, n_rows=64, width=7, seed=4,
+                                  device="cpu", layout="cf32")
+    with pytest.raises(ValueError, match="layout"):
+        noise.gaussian_rows_plain(7, layout="cf16", **kw)
+
+
+# sha256 (first 32 hex digits) of two batches of each noise block at seed 7
+# and amplitude -0.3, as the blocks computed them before the amplitude and
+# the complex build moved into the noise kernel (r * amp; torch.complex)
+_NOISE_BLOCK_SHA = {"planes": "563d6fe25bc1d44d3ebe5c91e144e18e",
+                    "cf32": "e154feef8c5d40f734a80ef112eea775",
+                    "rf32": "f1739c903db2e2f579bf0fd6a081359e"}
+
+
+@pytest.mark.parametrize("kind", ["planes", "cf32", "rf32"])
+def test_noise_blocks_outputs_unchanged(kind):
+    """Both noise blocks, two batches each: bit-equal to the expressions
+    they evaluated around the noise rows before (``r * amp``; the
+    torch.complex build of the halves), and to those outputs' hashes."""
+    import hashlib
+
+    from newsched_tpu_torch.blocks import analog, vector_dsp
+
+    amp = torch.tensor(-0.3, dtype=torch.float32)
+    if kind == "planes":
+        blk, nout = vector_dsp.noise_planes_source(8, amplitude=0.3, seed=7), 128
+    else:
+        blk, nout = analog.noise_source(amplitude=0.3, seed=7, dtype=kind), 8192
+    st, outs = blk.init_state(0, nout, "cpu"), []
+    for _ in range(2):
+        st, o = blk.work(st, {}, {"amplitude": amp}, nout)
+        outs.append(o["out"])
+    got = torch.cat(outs)
+    n_rows = 2 * nout if kind == "planes" else 2 * nout * (1 + (kind == "cf32")) // 128
+    r = noise.gaussian_rows_plain(0, n_rows=n_rows, width=16 if kind == "planes"
+                                  else 128, seed=7, device="cpu")
+    want = {"planes": lambda: r * amp,
+            "cf32": lambda: torch.complex(r[:, :64].reshape(-1) * amp,
+                                          r[:, 64:].reshape(-1) * amp),
+            "rf32": lambda: r.reshape(-1) * amp}[kind]()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    sha = hashlib.sha256(got.contiguous().numpy().tobytes()).hexdigest()[:32]
+    assert sha == _NOISE_BLOCK_SHA[kind]
+    assert noise.gaussian_rows.launches == 0
+
+
+def _kernel_counters(g0: int, n_rows: int, width: int, layout: str):
+    """K4's index arithmetic thread by thread (csrc/noise.cu
+    gaussian_rows_kernel at ``noise.launch_shape``): the counter words
+    (c0, group lo, group hi) of the element each output float holds."""
+    M32, M64 = 0xFFFFFFFF, (1 << 64) - 1
+    vec, units, bx, ry = noise.launch_shape(width, layout)
+    half = width // 2
+    words = np.full((3, n_rows * width), -1, np.int64)
+    for blk in range(n_rows // ry):
+        row0 = blk * ry
+        g = (g0 + (row0 >> 6)) & M64  # once a block
+        glo, ghi = g & M32, g >> 32
+        for ty in range(ry):
+            row = row0 + ty
+            crow = ((row & 63) * width) & M32  # once a row
+            for tx in range(bx):
+                for u in range(tx, units, bx):
+                    k = u * vec
+                    j = np.arange(vec)
+                    if layout == "cf32":
+                        pos = 2 * (row * half + k + j)
+                        words[:, pos] = [crow + k + j, [glo] * vec, [ghi] * vec]
+                        words[:, pos + 1] = [crow + half + k + j, [glo] * vec,
+                                             [ghi] * vec]
+                    else:
+                        words[:, row * width + k + j] = [crow + k + j,
+                                                         [glo] * vec,
+                                                         [ghi] * vec]
+    return words
+
+
+@pytest.mark.parametrize("layout", ["rows", "cf32"])
+@pytest.mark.parametrize("width", [128, 256, 384])
+@pytest.mark.parametrize("g0", [(1 << 32) - 1, -2])
+def test_noise_kernel_index_arithmetic_matches_the_counters(g0, width, layout):
+    """The 2-D launch's rows, lanes, group words once a block and c0 once a
+    row give every output float the counter of the plain version's element
+    there: two groups, across lo's wrap into hi and from a negative group
+    across zero."""
+    n_rows = 2 * noise.GROUP_ROWS
+    got = _kernel_counters(g0, n_rows, width, layout)
+    c0, c1, c2, _ = noise._counters(g0, n_rows, width, "cpu")
+    want = torch.stack([c0, c1, c2]).numpy()
+    if layout == "cf32":
+        h = width // 2
+        want = np.stack([want[:, :, :h].reshape(3, -1),
+                         want[:, :, h:].reshape(3, -1)], -1).reshape(3, -1)
+    else:
+        want = want.reshape(3, -1)
+    assert (got >= 0).all()
+    np.testing.assert_array_equal(got, want)
+    vec, units, bx, ry = noise.launch_shape(width, layout)
+    assert vec == 4 and bx * ry <= 256 and 64 % ry == 0
+
+
+def test_noise_launch_shape():
+    """The flagship's width: 2048 blocks of 16 x 16 threads over 32768
+    rows, each thread two units of 4 lanes (16-byte stores), in cf32 one
+    unit of each half; odd widths a lane a thread."""
+    assert noise.launch_shape(128) == (4, 32, 16, 16)
+    assert noise.launch_shape(128, "cf32") == (4, 16, 16, 16)
+    assert noise.launch_shape(6) == (1, 6, 6, 32)
+    assert noise.launch_shape(6, "cf32") == (1, 3, 3, 64)
+
+
 def _chain_case(M, L, A, decim, n, seed):
     rng = np.random.default_rng(seed)
     taps = jfirdes.prototype_channelizer_taps(M, L)
