@@ -219,7 +219,29 @@ Phases (each failure raises, so the script exits nonzero):
      batch (bit-equal), the live graph on 4 shards (K6, bit-equal) and the
      staged graph (>= 60 dB, K1 launched); launches counted;
  43. times at M = 128: K3, K5, K6 and K1 beside their plain versions; K9's
-     partitioned instance at 1024 and 6001 taps beside its plain version.
+     partitioned instance at 1024 and 6001 taps beside its plain version;
+ 44. config #3's two overlap-save engines (ops/fir.py "fft": "xla", cuFFT,
+     and "mxu", the Bailey products) at 1024 taps over three uneven
+     batches around 2^21, and on one segment (16384 samples at fft_size
+     16384): >= 85 dB each against float64; the engine "auto" picks; each
+     engine's time over 4 rotating inputs and on one beside the bound of
+     its bytes; the cuFFT engine at fft_size 4096 to 32768;
+ 45. config #3's flowgraph (noise_source (K4) -> fft_filter -> head) in
+     graph mode: bit-equal to the loop, K4 launched, >= 85 dB against the
+     float64 golden of the regenerated stream; its two-point step, loop
+     step and profile; tags through fft_filter at decim 2, offsets exact;
+ 46. ShardedFirFilter on 4 logical shards at 1024 taps, decim 2, two
+     batches with tags: >= 120 dB against the unsharded filter, tag offsets
+     exact;
+ 47. config #1 staged, fused, folded and live with deemph_tau=75e-6 in
+     graph mode: >= 60 dB against the float64 golden de-emphasised; the
+     de-emphasis (iir_filter at 104448 samples) timed beside K10, and the
+     fused step with and without it;
+ 48. AGC, an order-4 Butterworth iir_filter, the fft block and math and
+     streamops blocks on the card against their CPU runs;
+ 49. K1's dense instance on its main path: the staged fm_channelizer at
+     M = 320 in graph mode, >= 60 dB, counted; its time beside its plain
+     version and its bound (``arm_fold_dft[dense]`` in the kernels line).
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -1078,9 +1100,10 @@ def phase_k12(torch, sources, wbfm_chain) -> float:
 
 
 def wb_graph(kind: str, n_batches, sink="vector", tone=WB_TONE,
-             center=WB_FC):
+             center=WB_FC, deemph_tau=None):
     """models.wbfm_receiver at config #1 on the fixed-point tone at WB_TONE:
-    staged, fused (cf32 sig_source), folded (sig_source_folded) or live."""
+    staged, fused (cf32 sig_source), folded (sig_source_folded) or live;
+    de-emphasised with ``deemph_tau``."""
     from newsched_tpu_torch import models
     from newsched_tpu_torch.blocks import analog
 
@@ -1092,7 +1115,8 @@ def wb_graph(kind: str, n_batches, sink="vector", tone=WB_TONE,
         fs=WB_FS, center_freq=center, quad_rate_decim=WB_D,
         audio_decim=(1, WB_RD), deviation=WB_DEV, source=src,
         batch_size=WB_BATCH, sink=sink, fused=kind != "staged",
-        n_samples=None if n_batches is None else n_batches * WB_NAUD * 64)
+        n_samples=None if n_batches is None else n_batches * WB_NAUD * 64,
+        deemph_tau=deemph_tau)
     if kind == "live":
         blks["source"].set_frequency(tone)
     return fg, blks
@@ -2705,6 +2729,356 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
     return ms
 
 
+# -- config #3: the overlap-save engines, its graph, the sharded FIR; config
+# #1 de-emphasised; the block library's DSP half; K1's dense instance --------
+
+FFT_BATCH = 1 << 21        # config #3's batch (bench/bm_micro.py bm_fft_filter)
+FFT_SPLITS = (FFT_BATCH, FFT_BATCH - 8192, FFT_BATCH + 8192)  # uneven, carried
+FFT_GATE_DB = 85.0         # the engines and config #3's graph vs float64
+SHARD_GATE_DB = 120.0      # tests/test_mesh_graph.py's sharded-vs-unsharded gate
+FFT_SIZES = (4096, 8192, 16384, 32768)  # the cuFFT engine's sweep
+ENGINES = ("xla", "mxu")
+AUTO_ENGINE = "xla"        # ops/fir.py fft_engine's pick on the card
+DEEMPH_TAU = 75e-6
+DENSE_ROWS = 16384         # planes rows a batch of the M = 320 staged graph
+
+
+def golden64(x: np.ndarray, taps) -> np.ndarray:
+    """The zero-state FIR of x (scipy.signal.lfilter's), in float64 by
+    scipy's FFT convolution."""
+    import scipy.signal as sig
+
+    return sig.fftconvolve(x.astype(np.complex128),
+                           np.asarray(taps, np.float64))[:len(x)]
+
+
+def fft_stream(torch, fir, taps, x, splits, engine, fft_size=None):
+    """fir_filter(method="fft") over consecutive batches of x on the card,
+    the tail carried."""
+    s, out, i0 = fir.fir_init_state(len(taps), "cuda"), [], 0
+    for b in splits:
+        s, y = fir.fir_filter(taps, s, x[i0:i0 + b], method="fft",
+                              fft_method=engine, fft_size=fft_size)
+        out.append(y)
+        i0 += b
+    return torch.cat(out).cpu().numpy()
+
+
+def phase_engines(torch, card: str) -> dict:
+    """44. The "fft" method's two engines at config #3's shape (1024 taps,
+    three uneven batches around 2^21 carried across): >= 85 dB each against
+    the float64 golden; a one-segment batch (16384 samples at fft_size
+    16384) likewise; the engine "auto" picks; each engine's time by
+    CUDA-graph replay over 4 rotating inputs and on one, beside the bound
+    of the least bytes (2^21 cf32 in and out); the cuFFT engine at
+    fft_size 4096-32768, recorded only."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.ops import fir
+    from newsched_tpu_torch.probes import run as probes
+    from newsched_tpu_torch.testing import snr_db
+
+    taps = bench.fft_filter_taps()
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    x = torch.randn(sum(FFT_SPLITS), dtype=torch.complex64, device="cuda",
+                    generator=gen)
+    ref = golden64(x.cpu().numpy(), taps)
+    ref1 = golden64(x[:16384].cpu().numpy(), taps)
+    out = {"snr": {}, "ms": {}, "one": {}}
+    for engine in ENGINES:
+        snr = snr_db(ref, fft_stream(torch, fir, taps, x, FFT_SPLITS, engine))
+        snr1 = snr_db(ref1, fft_stream(torch, fir, taps, x[:16384], (16384,),
+                                       engine, 16384))
+        log(f"fft engine {engine!r}: 1024 taps, batches {FFT_SPLITS}: SNR vs "
+            f"float64 {snr:.2f} dB; one segment (16384 samples, fft_size "
+            f"16384) {snr1:.2f} dB (gate {FFT_GATE_DB})")
+        require(snr >= FFT_GATE_DB and snr1 >= FFT_GATE_DB,
+                f"fft engine {engine}: {snr:.2f} / {snr1:.2f} dB")
+        out["snr"][engine] = min(snr, snr1)
+    ft = fir.fft_taps(taps, FFT_BATCH, True, "cuda")
+    require(ft.engine == AUTO_ENGINE and ft.auto,
+            f"fft_method='auto' picked {ft.engine!r}, want {AUTO_ENGINE!r}")
+    log(f"fft_method='auto' on the card at {FFT_BATCH} samples, 1024 taps: "
+        f"{ft.engine!r}, fft_size {ft.fft_size}")
+    xs = [torch.randn(FFT_BATCH + len(taps) - 1, dtype=torch.complex64,
+                      device="cuda", generator=gen) for _ in range(probes.ROT)]
+
+    def timed(consts):
+        call = lambda xx: fir.fft_filter_full(xx, taps, FFT_BATCH,
+                                              consts=consts)
+        return (graph_ms(probes.rotating(lambda i: (xs[i],), call)),
+                graph_ms(lambda: call(xs[0])))
+
+    b_ms = bound(2 * FFT_BATCH * 8, 0)[0]
+    for _ in range(2):  # alternated: xla, mxu, xla, mxu
+        for engine in ENGINES:
+            c = fir.fft_taps(taps, FFT_BATCH, True, "cuda", engine)
+            rot, one = timed(c)
+            out["ms"].setdefault(engine, []).append(rot)
+            out["one"].setdefault(engine, []).append(one)
+    for engine in ENGINES:
+        ms = min(out["ms"][engine])
+        log(f"fft engine {engine!r} ({FFT_BATCH} cf32 samples, 1024 taps): "
+            f"{out['ms'][engine]} ms over 4 rotating inputs, "
+            f"{out['one'][engine]} ms on one; bound {b_ms:.4f} ms (bytes), "
+            f"{100 * b_ms / ms:.1f}% of it [{card}]")
+    for size in FFT_SIZES:
+        rot, one = timed(fir.fft_taps(taps, FFT_BATCH, True, "cuda", "xla",
+                                      size))
+        log(f"fft engine 'xla' at fft_size {size}: {rot:.4f} ms over 4 "
+            f"rotating inputs, {one:.4f} ms on one [{card}]")
+    return out
+
+
+def phase_config3(torch, card: str) -> dict:
+    """45. Config #3's flowgraph (bench.fft_filter_graph: noise_source (K4)
+    -> the 1024-tap fft_filter -> head -> sink, batches of 2^21) run by
+    fg.run() in graph mode for 2C + 1 batches: bit-equal to the loop, K4
+    launched, >= 85 dB against the float64 golden of the regenerated K4
+    stream on its first 4 batches; its step by the bench's two-point fit
+    beside its loop-mode step and profile; tags through fft_filter at decim
+    2 over 3 batches in graph mode, offsets exact."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.blocks import filter as filt, general
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+    from newsched_tpu_torch.testing import snr_db
+
+    B = FFT_BATCH
+    got, counts = graph_vs_loop(
+        lambda nb: bench.fft_filter_graph(nb * B, B, "vector"), "config #3",
+        ("gaussian_rows.launches",))
+    k4 = counts.get("gaussian_rows.launches", 0)
+    n4 = 4 * B
+    taps = bench.fft_filter_taps()
+    snr = snr_db(bench.fft_filter_golden(n4, taps, "cuda"), got[:n4])
+    log(f"config #3 graph mode: SNR vs float64 golden {snr:.2f} dB on the "
+        f"first {n4} samples (gate {FFT_GATE_DB}); K4 launched {k4} times")
+    require(snr >= FFT_GATE_DB and bool(np.isfinite(got).all()),
+            f"config #3: {snr:.2f} dB or non-finite")
+    sps = bench.timed_two_point(
+        bench.graph_run(bench.fft_filter_graph(B * 1000, B)[0], "cuda"),
+        "graph mode fft_filter", B, n_best=3, k1=GRAPH_K[0], k2=GRAPH_K[1])
+    ms = B / sps * 1e3
+    loop_ms = fg_step_rate(torch, bench.fft_filter_graph(B * 1000, B)[0],
+                           "fft_filter", card, B)
+    dev_ms = LOOP["fft_filter"][1]
+    log(f"cell fft_filter: graph mode {ms:.4f} ms = {B / ms / 1e3:.1f} "
+        f"Msamples/s; loop {loop_ms:.4f} ms; device {dev_ms:.4f} ms a step; "
+        f"busy in graph mode {100 * dev_ms / ms:.0f}% [{card}]")
+    x = np.random.default_rng(45).standard_normal(3 * B).astype(np.complex64)
+    tags = [(0, "start"), (B + 1001, "mid", 2.5), (3 * B - 1, "end")]
+    fg = Flowgraph(batch_size=B)
+    f, snk = filt.fft_filter(taps, decim=2), general.vector_sink()
+    fg.connect(general.vector_source(x, tags=tags), 0, f, 0)
+    fg.connect(f, 0, snk, 0)
+    r = fg.run(device="cuda")
+    want = [(0, "start"), ((B + 1001) // 2, "mid"), ((3 * B - 1) // 2, "end")]
+    have = [(t.offset, t.key) for t in snk.tags()]
+    require(r._chunk is not None and have == want,
+            f"tags through fft_filter(decim=2): {have}, want {want}")
+    log(f"tags through fft_filter at decim 2, 3 batches in graph mode: {have}")
+    return {"ms": ms, "launches": k4, "snr": snr}
+
+
+def phase_sharded_fir(torch) -> float:
+    """46. ShardedFirFilter on 4 logical shards at config #3's width (1024
+    taps, fft method, decim 2), two batches of 2^21 with tags: >= 120 dB
+    against the unsharded filter on the same stream, tag offsets remapped
+    exactly in both batches."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.ops import fir
+    from newsched_tpu_torch.parallel import ShardedFirFilter, make_mesh
+    from newsched_tpu_torch.runtime import tags as tags_mod
+    from newsched_tpu_torch.testing import snr_db
+
+    taps, B, D = bench.fft_filter_taps(), FFT_BATCH, 2
+    f = ShardedFirFilter(make_mesh(4), taps, decim=D)
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    x = torch.randn(2 * B, dtype=torch.complex64, device="cuda", generator=gen)
+    offs = [[7, B - 3], [11, B // 2 + 1]]
+    st, outs, got_offs = f.init_state(), [], []
+    for b in range(2):
+        k = len(offs[b])
+        tb = tags_mod.TagBatch(
+            offsets=torch.tensor(offs[b], dtype=torch.int32, device="cuda"),
+            keys=torch.zeros(k, dtype=torch.int32, device="cuda"),
+            values=torch.zeros(k, tags_mod.VALUE_DIM, device="cuda"),
+            valid=torch.ones(k, dtype=torch.bool, device="cuda"))
+        y, ot, st = f.step(x[b * B:(b + 1) * B], tb, st)
+        outs.append(y)
+        got_offs.append(ot.offsets.tolist())
+    s, ref = fir.fir_init_state(len(taps), "cuda"), []
+    for b in range(2):
+        s, y = fir.fir_filter(taps, s, x[b * B:(b + 1) * B], decim=D,
+                              method="fft")
+        ref.append(y)
+    snr = snr_db(torch.cat(ref).cpu().numpy(), torch.cat(outs).cpu().numpy())
+    want = [[o // D for o in ob] for ob in offs]
+    log(f"ShardedFirFilter, 4 shards, 1024 taps, decim {D}, 2 batches of {B}: "
+        f"{snr:.2f} dB vs the unsharded filter (gate {SHARD_GATE_DB}); tag "
+        f"offsets {got_offs}")
+    require(snr >= SHARD_GATE_DB and got_offs == want,
+            f"sharded FIR: {snr:.2f} dB, tags {got_offs} want {want}")
+    return snr
+
+
+def phase_deemph(torch, wb: dict, card: str, k10_ms: float) -> dict:
+    """47. Config #1 staged, fused, folded and live with deemph_tau=75e-6,
+    4 batches each in graph mode: >= 60 dB against the float64 golden
+    followed by a float64 lfilter of the emphasis taps; the de-emphasis
+    (fm_deemph's iir_filter at a batch's 104448 audio samples) timed by
+    CUDA-graph replay beside K10; the fused step with and without it."""
+    import scipy.signal as sig
+
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.blocks import analog
+    from newsched_tpu_torch.ops import iir
+    from newsched_tpu_torch.testing import snr_db
+
+    b, a = analog._emphasis_taps(WB_FS / WB_D / WB_RD, DEEMPH_TAU, None, True)
+    ref = sig.lfilter(b, a, wb["ref"])
+    out = {}
+    for kind in ("staged", "fused", "folded", "live"):
+        fg, blks = wb_graph(kind, 4, deemph_tau=DEEMPH_TAU)
+        r = fg.run(device="cuda")
+        got = blks["sink"].data()
+        snr = snr_db(ref[:len(got)], got)
+        log(f"wbfm {kind} with de-emphasis (tau 75 us), graph mode: "
+            f"{len(got)} audio samples, SNR vs float64 golden {snr:.2f} dB "
+            f"(gate {WB_GATE_DB})")
+        require(r._chunk is not None and snr >= WB_GATE_DB
+                and len(got) == 4 * WB_NAUD * 64,
+                f"wbfm {kind} de-emphasised: {snr:.2f} dB")
+        out[kind] = snr
+    ff, fb = iir.lfilter_taps(b, a)
+    n = WB_NAUD * 64
+    c = iir.iir_consts(ff, fb, n, "cuda")
+    s0 = iir.iir_init_state(len(ff), len(fb), "cuda")
+    xa = torch.randn(n, device="cuda")
+    de_ms = graph_ms(lambda: iir.iir_filter(ff, fb, s0, xa, consts=c))
+    steps = {}
+    for tau in (None, DEEMPH_TAU):
+        sps = bench.timed_two_point(
+            bench.graph_run(wb_graph("fused", None, "null",
+                                     deemph_tau=tau)[0], "cuda"),
+            f"graph mode wbfm fused, deemph {tau}", WB_BATCH, n_best=3,
+            k1=GRAPH_K[0], k2=GRAPH_K[1])
+        steps[tau] = WB_BATCH / sps * 1e3
+    log(f"de-emphasis: iir_filter at {n} audio samples (chunk "
+        f"{c.C}, {c.K} chunks) {de_ms:.4f} ms by CUDA-graph replay, beside "
+        f"K10 {k10_ms:.4f} ms; wbfm fused graph-mode step {steps[None]:.4f} "
+        f"ms, with de-emphasis {steps[DEEMPH_TAU]:.4f} ms [{card}]")
+    return {"snr": out, "ms": de_ms, "steps": steps}
+
+
+def phase_dsp_blocks(torch) -> None:
+    """48. The block library's DSP half on the card against its CPU run,
+    4 batches in graph mode, within the tolerance of its CPU test: AGC and
+    an order-4 Butterworth iir_filter (>= 100 dB), the fft block (1e-6 of
+    max|out|), math (1e-6) and streamops (exact) blocks."""
+    import scipy.signal as sig
+
+    from newsched_tpu_torch.blocks import analog, fft, filter as filt, \
+        general, math, streamops
+    from newsched_tpu_torch.ops import iir
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+    from newsched_tpu_torch.testing import snr_db
+
+    rng = np.random.default_rng(48)
+    n, B = 4 * 65536, 65536
+    xc = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.2
+          ).astype(np.complex64)
+    xr = xc.real.copy()
+    ff, fb = iir.lfilter_taps(*sig.butter(4, 0.2))
+
+    def chain(x, make, dtype, vlen=(), out_dtype=None, out_vlen=None):
+        def run(device):
+            fg = Flowgraph(batch_size=B // (vlen[0] if vlen else 1))
+            blk = make()
+            snk = general.vector_sink(dtype=out_dtype or dtype,
+                                      vlen=vlen if out_vlen is None else out_vlen)
+            fg.connect(general.vector_source(x, dtype=dtype, vlen=vlen), 0,
+                       blk, 0)
+            fg.connect(blk, 0, snk, 0)
+            fg.run(device=device)
+            return snk.data()
+        return run("cuda"), run("cpu")
+
+    cases = {
+        "agc": (chain(xc, lambda: analog.agc(rate=1e-3), "cf32"), "snr"),
+        "iir_filter": (chain(xr, lambda: filt.iir_filter(ff, fb), "rf32"),
+                       "snr"),
+        "fft": (chain(xc.reshape(-1, 64), lambda: fft.fft(
+            64, window=np.blackman(64), shift=True), "cf32", (64,)), "rel"),
+        "multiply_const": (chain(xc, lambda: math.multiply_const(0.5 + 1j, "cf32"),
+                                 "cf32"), "rel"),
+        "complex_to_mag": (chain(xc, math.complex_to_mag, "cf32", (), "rf32"),
+                           "rel"),
+        "keep_m_in_n": (chain(xc, lambda: streamops.keep_m_in_n(2, 8, 3),
+                              "cf32"), "exact"),
+        "skiphead": (chain(xc, lambda: streamops.skiphead(70000), "cf32"),
+                     "exact"),
+        "delay": (chain(xr, lambda: streamops.delay(77, dtype="rf32"),
+                        "rf32"), "exact"),
+    }
+    for name, ((gpu, cpu), how) in cases.items():
+        require(gpu.shape == cpu.shape and len(gpu) > 0,
+                f"{name}: shapes {gpu.shape} {cpu.shape}")
+        if how == "snr":
+            v = snr_db(cpu, gpu)
+            ok, what = v >= 100, f"{v:.2f} dB (gate 100)"
+        elif how == "rel":
+            v = float(np.max(np.abs(gpu - cpu)) / np.max(np.abs(cpu)))
+            ok, what = v <= 1e-6, f"max err {v:.2e} of max|out| (tol 1e-6)"
+        else:
+            ok, what = bool(np.array_equal(gpu, cpu)), "bit-equal"
+        log(f"block {name} on the card vs its CPU run, 4 batches: {what}")
+        require(ok, f"block {name}: {what}")
+
+
+def phase_k1_dense(torch, channelizer, noise, card: str) -> dict:
+    """49. K1's dense instance on its main path: the staged fm_channelizer
+    at M = 320 (noise_source -> pfb_channelizer, whose "auto" launches the
+    dense instance -> demod -> audio FIR), two batches of 16384 rows in
+    graph mode, counts set to 0 before: >= 60 dB against the float64
+    golden, K1 dense launched; its time at M = 320 by CUDA-graph replay
+    beside its plain version, and its bound."""
+    from newsched_tpu_torch.ops import pfb
+    from newsched_tpu_torch.testing import planes_rows, snr_db
+
+    m = K1_DENSE_M
+    batch = DENSE_ROWS * m
+    zero_launches()
+    fg, blks = wide_graph(m, None, 2, batch, fused=False)
+    fg.run(device="cuda")
+    launches = channelizer.arm_fold_dft.dense_launches
+    r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
+                                  seed=0, device="cuda")
+    x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
+         * 0.5).cpu().numpy()
+    ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
+    snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
+    log(f"staged fm_channelizer at M={m}, 2 batches of {batch} in graph mode: "
+        f"{snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); K1 dense launched "
+        f"{launches} times")
+    require(snr >= STAGED_GATE_DB and launches > 0,
+            f"staged M={m}: {snr:.2f} dB, or K1 dense never launched")
+    taps, _ = wide_design(m)
+    pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(m)
+    v = torch.randn(DENSE_ROWS + L - 1, 2 * m, device="cuda", generator=g)
+    t = alternate({
+        "K1d plain": lambda: channelizer.arm_fold_dft_plain(v, pc.c2, pc.w2,
+                                                            DENSE_ROWS),
+        "K1d": lambda: channelizer.arm_fold_dft(v, pc.c2, pc.w2, DENSE_ROWS),
+    }, PLAIN_REPS)
+    ms = {k: min(x_) for k, x_ in t.items()}
+    b_ms, by = chain_bounds(m, DENSE_ROWS, DENSE_ROWS)["K1"]
+    log(f"K1 dense arm_fold_dft at M={m} ({DENSE_ROWS} x {2 * m} rows): kernel "
+        f"{t['K1d']} ms, plain {t['K1d plain']} ms; bound {b_ms:.4f} ms ({by}),"
+        f" {100 * b_ms / ms['K1d']:.1f}% of it [{card}]")
+    return {"launches": launches, "ms": ms, "bound": (b_ms, by)}
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -3234,6 +3608,18 @@ def main() -> int:
     ms.update(phase_wide_times(torch, fm_chain, channelizer, fir_source,
                                noise, card))
     log(f"phases 40-43: {time.monotonic() - t40:.1f} s")
+
+    # 44-49. config #3's engines, graph and sharded FIR; config #1
+    # de-emphasised; the block library's DSP half; K1's dense instance
+    t44 = time.monotonic()
+    phase_engines(torch, card)
+    phase_config3(torch, card)
+    phase_sharded_fir(torch)
+    phase_deemph(torch, wb, card, ms["K10"])
+    phase_dsp_blocks(torch)
+    k1d = phase_k1_dense(torch, channelizer, noise, card)
+    ms.update(k1d["ms"])
+    log(f"phases 44-49: {time.monotonic() - t44:.1f} s")
     ms.update(pt["t"])
     lib["window_copy"] = pt["t"]["window_copy library"]
     lib["planes_unpack"] = pt["t"]["planes_unpack library"]
@@ -3252,6 +3638,7 @@ def main() -> int:
     bounds["planes_unpack"] = bound(2 * pt["stream_bytes"], 0)
     bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
     bounds["K3ag"] = bounds["K3"]  # K3's function, its audio stage banded
+    bounds["K1d"] = k1d["bound"]  # at M = 320, DENSE_ROWS rows
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
             f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
@@ -3316,6 +3703,9 @@ def main() -> int:
               "fm_chain.py:724", wide["K6"], wide_err["K6"]),
         entry("arm_fold_dft[M=128]", "K1w", "channelizer.cu",
               "channelizer.py:209", wide["K1"], fold_err["arm_fold_dft"]),
+        entry("arm_fold_dft[dense]", "K1d", "channelizer.cu",
+              "channelizer.py:209", k1d["launches"],
+              fold_err["arm_fold_dft[dense]"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ of K steps, the program of its runner's scan mode).
 Prints ONE JSON line last, with the reference's keys: ``metric``,
 ``value`` (the fused 64-channel FM channelizer flowgraph over a replayed
 batch), ``unit``, ``vs_baseline``, and ``live_value``,
-``wbfm_{staged,fused,live}_value``, ``fir_{staged,live}_value``, in
-Msamples/s of input on one GPU. Each value stands behind its SNR gate
+``wbfm_{staged,fused,live}_value``, ``fir_{staged,live}_value``, and
+``fft_filter_value`` (config #3, the reference's ``bench/bm_micro.py``
+``bm_fft_filter``), in Msamples/s of input on one GPU. Each value stands behind its SNR gate
 against a float64 golden; a path whose gate fails is left out, as in the
 reference. The lines before give each path's step in microseconds, the
 dispatch overhead and the card's name and power limit; a ``device`` key in
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch import models
-from newsched_tpu_torch.blocks import analog, general
+from newsched_tpu_torch.blocks import analog, filter as filt, general
 from newsched_tpu_torch.ops import firdes, nco
 from newsched_tpu_torch.ops.cuda import fm_chain, noise
 from newsched_tpu_torch.runtime import runner as rt
@@ -67,6 +68,8 @@ PINNED_CPU_SPS = 9.53e6
 WB_FS, WB_FC, WB_D, WB_RD, WB_DEV = 1e6, 200e3, 4, 5, 75e3
 WB_TONE = 231_250.0    # 31.25 kHz into the 100 kHz channel: nonzero audio
 FIR_FS, FIR_FREQ, FIR_NTAPS = 1e6, 123_456.0, 128
+FFT_NTAPS, FFT_AMP = 1024, 0.5   # config #3 (bench/bm_micro.py bm_fft_filter)
+FFT_GATE_DB = 85.0
 
 
 def log(*a):
@@ -337,6 +340,63 @@ def fir_paths(batch: int, device, k1=K1, k2=K2) -> dict:
     return out
 
 
+def fft_filter_taps(ntaps: int = FFT_NTAPS) -> np.ndarray:
+    """Config #3's low-pass: firdes.low_pass(1.0, 1.0, 0.1, 0.02)."""
+    return firdes.low_pass(1.0, 1.0, 0.1, 0.02, ntaps=ntaps)
+
+
+def fft_filter_graph(n_samples: int, batch: int, sink: str = "null",
+                     fft_method: str = "auto", fft_size=None,
+                     ntaps: int = FFT_NTAPS):
+    """Config #3, the reference's ``bench/bm_micro.py`` ``bm_fft_filter``:
+    noise_source("gaussian", 0.5) (K4) -> fft_filter (the 1024-tap
+    ``fft_filter_taps``) -> head(n_samples) -> sink, in batches of
+    ``batch`` samples. Returns (Flowgraph, dict of its blocks and taps)."""
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+
+    taps = fft_filter_taps(ntaps)
+    fg = Flowgraph("fft_filter", batch_size=batch)
+    src = analog.noise_source("gaussian", FFT_AMP)
+    f = filt.fft_filter(taps, fft_size=fft_size, fft_method=fft_method)
+    hd = general.head(n_samples)
+    snk = general.null_sink() if sink == "null" else general.vector_sink()
+    fg.connect(src, 0, f, 0)
+    fg.connect(f, 0, hd, 0)
+    fg.connect(hd, 0, snk, 0)
+    return fg, {"source": src, "filter": f, "head": hd, "sink": snk,
+                "taps": taps}
+
+
+def fft_filter_golden(n: int, taps, device="cpu") -> np.ndarray:
+    """Float64 golden of config #3 from stream start: the first n samples
+    of noise_source's stream (seed 0, amplitude 0.5), regenerated by K4's
+    plain version on ``device``, through the taps: the zero-state
+    convolution (scipy.signal.lfilter's), as scipy's float64 FFT
+    convolution."""
+    import scipy.signal as sig
+
+    x = noise.gaussian_rows_plain(0, n_rows=-(-2 * n // 128), width=128,
+                                  seed=0, device=device, amp=FFT_AMP,
+                                  layout="cf32")[:n].cpu().numpy()
+    return sig.fftconvolve(x.astype(np.complex128),
+                           np.asarray(taps, np.float64))[:n]
+
+
+def fft_filter_paths(batch: int, device, k1=K1, k2=K2) -> dict:
+    """Config #3's graph, gated >= 85 dB against its float64 golden over
+    two batches, then timed."""
+    B = max(batch // 4096, 1) * 4096  # whole noise groups of cf32 samples
+    fg, b = fft_filter_graph(2 * B, B, "vector")
+    fg.run(device=device)
+    if not gated("fft_filter", fft_filter_golden(2 * B, b["taps"], device),
+                 b["sink"].data(), FFT_GATE_DB):
+        return {}
+    fg, _ = fft_filter_graph(B * 1000, B, "null")
+    return {"fft_filter": timed_two_point(graph_run(fg, device),
+                                          "fft_filter flowgraph", B,
+                                          n_best=5, k1=k1, k2=k2)}
+
+
 def bespoke_path(taps, audio_taps, rows: np.ndarray, device) -> StreamRun:
     """The framework-bypass number: K3 called directly on the same batch
     with its carried state, no compiler and no runner, captured the same
@@ -418,6 +478,8 @@ def run(device: str = "cuda", k1: int = K1, k2: int = K2) -> dict:
         out[f"wbfm_{kind}_value"] = round(v / 1e6, 2)
     for kind, v in fir_paths(batch, device, k1, k2).items():
         out[f"fir_{kind}_value"] = round(v / 1e6, 2)
+    for kind, v in fft_filter_paths(batch, device, k1, k2).items():
+        out[f"{kind}_value"] = round(v / 1e6, 2)
     return out
 
 

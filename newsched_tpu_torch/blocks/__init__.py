@@ -1,3 +1,4 @@
 """The block library (reference: newsched_tpu/blocks)."""
 
-from newsched_tpu_torch.blocks import analog, filter, general, vector_dsp  # noqa: F401
+from newsched_tpu_torch.blocks import (  # noqa: F401
+    analog, fft, filter, general, math, streamops, vector_dsp)

@@ -1,7 +1,7 @@
 """Analog blocks (reference: newsched_tpu/blocks/analog.py): the noise
-source of the staged flagship; the tone sources, the quadrature demod and
-the fused and live wideband-FM receivers of config #1; the live filtered
-tone of config #0.
+source of the staged flagship; the tone sources, the quadrature demod,
+the FM de- and pre-emphasis and the fused and live wideband-FM receivers
+of config #1; the live filtered tone of config #0; the AGC.
 
 Every piece of stream state is a tensor on the run's device: the NCO
 phases (int64 holding the uint32 value), the noise group counter (int64)
@@ -27,7 +27,9 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops import analog as analog_ops, firdes, nco
+from newsched_tpu_torch.blocks import filter as filt
+from newsched_tpu_torch.ops import agc as agc_ops, analog as analog_ops, \
+    firdes, iir as iir_ops, nco
 from newsched_tpu_torch.ops.cuda import (fir_source, fm_chain, noise, sources,
                                          wbfm_chain)
 from newsched_tpu_torch.runtime.block import Block
@@ -177,6 +179,80 @@ class quadrature_demod(Block):
     def work(self, state, ins, params, nout):
         st, y = analog_ops.quadrature_demod(state, ins["in"], params["gain"])
         return st, {"out": y}
+
+
+class agc(Block):
+    """AGC (reference analog::agc_cc/_ff): ops/agc.py's affine scan;
+    ``rate`` and ``reference`` settable, ``max_gain`` <= 0 no clamp."""
+
+    def __init__(self, rate: float = 1e-4, reference: float = 1.0,
+                 gain: float = 1.0, max_gain: float = 0.0, dtype="cf32",
+                 name=None):
+        super().__init__(name)
+        d = port_dtype(dtype)
+        self.add_input("in", d)
+        self.add_output("out", d)
+        self.initial_gain = gain
+        self.max_gain = max_gain
+        self.declare_param("rate", rate, dtype=np.float32)
+        self.declare_param("reference", reference, dtype=np.float32)
+
+    def init_state(self, nin, nout, device):
+        return agc_ops.agc_init_state(self.initial_gain, device)
+
+    def work(self, state, ins, params, nout):
+        st, y = agc_ops.agc(state, ins["in"], params["rate"],
+                            params["reference"], self.max_gain)
+        return st, {"out": y}
+
+
+def _emphasis_taps(fs: float, tau: float, fh: float | None, deemph: bool):
+    """Single-pole emphasis-network taps via the bilinear transform
+    (the GR-lineage fm_deemph/fm_preemph hier blocks): corner at 1/tau
+    rad/s, prewarped; the pre-emphasis network adds an upper corner fh
+    (default 0.925 * fs/2) so its gain stops rising near Nyquist. Returns
+    (b, a) for ops/iir.py ``lfilter_taps``."""
+    import math
+
+    w_cl = 1.0 / tau
+    w_cla = 2.0 * fs * math.tan(w_cl / (2.0 * fs))
+    if deemph:
+        k = -w_cla / (2.0 * fs)
+        p1 = (1.0 + k) / (1.0 - k)
+        b0 = -k / (1.0 - k)
+        return np.array([b0, b0], np.float64), np.array([1.0, -p1], np.float64)
+    # clamp as the GR reference does: fh at or above Nyquist puts the pole
+    # on or beyond the unit circle (tan singular or negative)
+    if fh is None or fh <= 0.0 or fh >= fs / 2.0:
+        fh = 0.925 * fs / 2.0
+    w_ch = 2.0 * math.pi * fh
+    w_cha = 2.0 * fs * math.tan(w_ch / (2.0 * fs))
+    kl = -w_cla / (2.0 * fs)
+    kh = -w_cha / (2.0 * fs)
+    z1 = (1.0 + kl) / (1.0 - kl)
+    p1 = (1.0 + kh) / (1.0 - kh)
+    b0 = (1.0 - kl) / (1.0 - kh)
+    return np.array([b0, -z1 * b0], np.float64), np.array([1.0, -p1], np.float64)
+
+
+class fm_deemph(filt.iir_filter):
+    """FM broadcast de-emphasis (GR-lineage analog fm_deemph): a
+    single-pole IIR low-pass, corner 1/tau (75 us US, 50 us EU), run as
+    ``filter.iir_filter`` (ops/iir.py's chunked form)."""
+
+    def __init__(self, fs: float, tau: float = 75e-6, name=None):
+        b, a = _emphasis_taps(fs, tau, None, deemph=True)
+        super().__init__(*iir_ops.lfilter_taps(b, a), dtype="rf32", name=name)
+
+
+class fm_preemph(filt.iir_filter):
+    """FM broadcast pre-emphasis (GR-lineage analog fm_preemph): one zero
+    at the 1/tau corner, one pole at fh (default 0.925 * Nyquist)."""
+
+    def __init__(self, fs: float, tau: float = 75e-6, fh: float = -1.0,
+                 name=None):
+        b, a = _emphasis_taps(fs, tau, fh if fh > 0 else None, deemph=False)
+        super().__init__(*iir_ops.lfilter_taps(b, a), dtype="rf32", name=name)
 
 
 class _wbfm_chain_block(Block):

@@ -1,5 +1,6 @@
 """Filter blocks (reference: newsched_tpu/blocks/filter.py): the streaming
-FIR of config #0; the polyphase channelizer and the single-channel
+FIR of config #0; the overlap-save fft_filter of config #3; the IIR and
+the moving average; the polyphase channelizer and the single-channel
 polyphase decimator; the frequency-translating FIR and the rational
 resampler of the wideband-FM receiver."""
 
@@ -11,17 +12,41 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops import analog as analog_ops, fir as fir_ops, \
-    firdes, nco, pfb as pfb_ops
+    firdes, iir as iir_ops, nco, pfb as pfb_ops
 from newsched_tpu_torch.runtime.block import Block
 from newsched_tpu_torch.utils.dtypes import port_dtype
+
+
+_ENGINE_TIERS = {
+    "xla": "the native transform pair, torch.fft (cuFFT on the card), FP32",
+    "mxu": "the Bailey 128 x 128 fast convolution, FP32 matrix products",
+}
+
+
+def _dev_taps(blk, x: torch.Tensor, nout: int, method: str,
+              fft_method: str = "auto", fft_size=None) -> fir_ops.FirTaps:
+    """A FIR block's device constants for one device and batch shape,
+    built once (``ops/fir.py`` ``fir_taps``). When fft_method "auto" picks
+    the "fft" method's engine, and with it the accuracy tier, the block
+    logs which one, once."""
+    key = (x.device, nout)
+    if key not in blk._dev_taps:
+        dt = fir_ops.fir_taps(blk.taps, nout, blk.decim, x.device, method,
+                              x.is_complex(), fft_method, fft_size)
+        blk._dev_taps[key] = dt
+        if dt.fft is not None and dt.fft.auto and not blk._engine_logged:
+            blk._engine_logged = True
+            blk.log.info("fft_method='auto' picked the %r engine: %s",
+                         dt.fft.engine, _ENGINE_TIERS[dt.fft.engine])
+    return blk._dev_taps[key]
 
 
 class fir_filter(Block):
     """Streaming FIR, optional decimation (reference filter::fir_filter):
     dtype in == dtype out (cf32 or rf32), taps real or complex, ``method``
     as ``ops/fir.py`` ``fir_filter`` takes it ("mxu3", config #0's, is its
-    FP32 Toeplitz path). The taps' device constants are built once per
-    device and batch shape."""
+    FP32 Toeplitz path; "auto" takes "fft" above 384 taps). The taps'
+    device constants are built once per device and batch shape."""
 
     def __init__(self, taps, decim: int = 1, dtype="cf32", method: str = "auto",
                  name=None):
@@ -34,6 +59,7 @@ class fir_filter(Block):
         self.add_input("in", self.dtype)
         self.add_output("out", self.dtype)
         self._dev_taps: dict[tuple, fir_ops.FirTaps] = {}
+        self._engine_logged = False
 
     def init_state(self, nin, nout, device):
         return fir_ops.fir_init_state(len(self.taps), device,
@@ -41,14 +67,79 @@ class fir_filter(Block):
 
     def work(self, state, ins, params, nout):
         x = ins["in"]
-        key = (x.device, nout)
-        if key not in self._dev_taps:
-            self._dev_taps[key] = fir_ops.fir_taps(self.taps, nout, self.decim,
-                                                   x.device)
         st, y = fir_ops.fir_filter(self.taps, state, x, decim=self.decim,
                                    method=self.method,
-                                   dev_taps=self._dev_taps[key])
+                                   dev_taps=_dev_taps(self, x, nout,
+                                                      self.method))
         return st, {"out": y}
+
+
+class fft_filter(fir_filter):
+    """Overlap-save fast-convolution FIR (reference filter::fft_filter):
+    ``fir_filter`` with method "fft". ``fft_method`` selects the transform
+    engine: "xla" (torch.fft, cuFFT on the card, FP32), "mxu" (the Bailey
+    128 x 128 fast convolution, ops/fftops.py, FP32 matrix products) or
+    "auto" (``ops/fir.py`` ``fft_engine``; logged once). ``fft_size`` is
+    the segment's transform size (None: the reference's adaptive rule)."""
+
+    def __init__(self, taps, decim: int = 1, dtype="cf32",
+                 fft_size: int | None = None, fft_method: str = "auto",
+                 name=None):
+        if fft_method not in fir_ops.FFT_METHODS:
+            raise ValueError(f"fft_method {fft_method!r} not in auto/xla/mxu")
+        super().__init__(taps, decim, dtype, "fft", name)
+        self.fft_size = fft_size
+        self.fft_method = fft_method
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"]
+        dt = _dev_taps(self, x, nout, "fft", self.fft_method, self.fft_size)
+        st, y = fir_ops.fir_filter(self.taps, state, x, decim=self.decim,
+                                   method="fft", dev_taps=dt,
+                                   fft_method=self.fft_method,
+                                   fft_size=self.fft_size)
+        return st, {"out": y}
+
+
+class iir_filter(Block):
+    """Streaming IIR (reference filter::iir_filter), ops/iir.py's chunked
+    matrix form; its constants built once per device and batch length."""
+
+    def __init__(self, ff_taps, fb_taps, dtype="rf32", name=None):
+        super().__init__(name)
+        self.ff = np.asarray(ff_taps, dtype=np.float32)
+        self.fb = np.asarray(fb_taps, dtype=np.float32)
+        self.dtype = port_dtype(dtype)
+        self.add_input("in", self.dtype)
+        self.add_output("out", self.dtype)
+        self._consts: dict[tuple, iir_ops.IirConsts] = {}
+
+    def init_state(self, nin, nout, device):
+        return iir_ops.iir_init_state(len(self.ff), len(self.fb), device,
+                                      self.dtype.torch_dtype)
+
+    def work(self, state, ins, params, nout):
+        x = ins["in"]
+        key = (x.device, nout)
+        if key not in self._consts:
+            self._consts[key] = iir_ops.iir_consts(self.ff, self.fb, nout,
+                                                   x.device)
+        st, y = iir_ops.iir_filter(self.ff, self.fb, state, x,
+                                   consts=self._consts[key])
+        return st, {"out": y}
+
+
+class moving_average(fir_filter):
+    """Length-N moving average with optional scale (reference
+    filter::moving_average), as a FIR of N equal taps ("conv", as the
+    reference)."""
+
+    def __init__(self, length: int, scale: float | None = None, decim: int = 1,
+                 dtype="rf32", name=None):
+        self.length = int(length)
+        scale = 1.0 / length if scale is None else scale
+        super().__init__(np.full(length, scale, dtype=np.float32), decim, dtype,
+                         "conv", name)
 
 
 class _pfb_block(Block):
@@ -135,6 +226,7 @@ class freq_xlating_fir(Block):
         self.declare_param("dphase", nco.freq_to_dphase(center_freq, sampling_freq),
                            dtype=None)
         self._dev_taps: dict[tuple, fir_ops.FirTaps] = {}
+        self._engine_logged = False
 
     def set_center_freq(self, f: float) -> None:
         self.set_param("dphase", nco.freq_to_dphase(f, self.sampling_freq))
@@ -145,15 +237,12 @@ class freq_xlating_fir(Block):
 
     def work(self, state, ins, params, nout):
         x = ins["in"]
-        key = (x.device, nout)
-        if key not in self._dev_taps:
-            self._dev_taps[key] = fir_ops.fir_taps(self.taps, nout, self.decim,
-                                                   x.device)
         rot_st, xr = analog_ops.rotate(state["rot"], x, params["dphase"],
                                        conj=True)
         fir_st, y = fir_ops.fir_filter(self.taps, state["fir"], xr,
                                        decim=self.decim, method=self.method,
-                                       dev_taps=self._dev_taps[key])
+                                       dev_taps=_dev_taps(self, x, nout,
+                                                          self.method))
         return {"rot": rot_st, "fir": fir_st}, {"out": y}
 
 
@@ -187,7 +276,8 @@ class rational_resampler(Block):
         key = (x.device, nout)
         if key not in self._dev_taps:
             self._dev_taps[key] = (
-                fir_ops.fir_taps(self.taps, nout, self.decim, x.device)
+                fir_ops.fir_taps(self.taps, nout, self.decim, x.device,
+                                 complex_stream=x.is_complex())
                 if self.interp == 1 else
                 fir_ops.interp_taps(self.taps, self.interp, self.decim, x.device))
         st, y = fir_ops.fir_interp_filter(self.taps, state, x, self.interp,

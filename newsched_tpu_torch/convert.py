@@ -17,12 +17,14 @@ sources' included) 0-dim int64 tensors, the noise sources' 64-bit group
 counter, the reference's int32 pair ``ghi``/``glo``, ONE int64 tensor
 ``group`` (``noise.group64``), and the live sources' ``first`` flag a bool
 tensor. NamedTuple states (``PfbState``, ``FirState``,
-``QuadDemodState``; ``RotatorState``, whose uint32 phase becomes an int64
+``QuadDemodState``, ``IirState`` with its ``FirState`` inside, the AGC's
+``AgcState``; ``RotatorState``, whose uint32 phase becomes an int64
 tensor) become the port's NamedTuples of the same name and fields, also
 inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``); so do the
-sharded channelizer's ``ShardedFMState`` and ``PlanesFMState``
-(parallel/channelizer.py keeps the reference's layouts, a carry block per
-shard), so a sharded stream too can be handed over mid-stream. The reference
+sharded channelizer's ``ShardedFMState`` and ``PlanesFMState`` and the
+sharded FIR's ``ShardedFirState`` (parallel/ keeps the reference's
+layouts, a carry block per shard), so a sharded stream too can be handed
+over mid-stream. The reference
 noise sources' threefry ``key`` state has no counterpart (its bits are
 jax's key chaining) and raises.
 
@@ -40,19 +42,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from newsched_tpu_torch.ops.agc import AgcState
 from newsched_tpu_torch.ops.analog import QuadDemodState, RotatorState
 from newsched_tpu_torch.ops.cuda import noise
 from newsched_tpu_torch.ops.fir import FirState
+from newsched_tpu_torch.ops.iir import IirState
 from newsched_tpu_torch.ops.nco import phase_tensor
 from newsched_tpu_torch.ops.pfb import PfbState
 from newsched_tpu_torch.parallel.channelizer import PlanesFMState, ShardedFMState
+from newsched_tpu_torch.parallel.sharded_fir import ShardedFirState
 from newsched_tpu_torch.runtime.block import param_tensor
 
 # the parameters the port declares dtype=None (host numbers in the reference)
 _HOST_PARAMS = ("dphase", "center_freq")
 _NAMED = {cls.__name__: cls
           for cls in (PfbState, FirState, QuadDemodState, RotatorState,
-                      PlanesFMState, ShardedFMState)}
+                      PlanesFMState, ShardedFMState, IirState, AgcState,
+                      ShardedFirState)}
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -69,7 +75,8 @@ def state_from_jax(state: Any, device) -> Any:
         if cls is RotatorState:
             return RotatorState(phase=phase_tensor(int(np.array(state.phase)),
                                                    device))
-        return cls(*(_tensor(v, device) for v in state))
+        return cls(*(state_from_jax(v, device) if hasattr(v, "_fields")
+                     else _tensor(v, device) for v in state))
     if not isinstance(state, dict):
         if len(state):
             raise NotImplementedError(

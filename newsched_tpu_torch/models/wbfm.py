@@ -35,6 +35,16 @@ def _connect_out(fg, last, vlen, n_samples, snk) -> None:
         fg.connect(last, 0, snk, 0)
 
 
+def _deemph(fg, last, tau, audio_rate):
+    """analog.fm_deemph(audio_rate, tau) after ``last``, or None for no
+    tau."""
+    if tau is None:
+        return None
+    blk = analog.fm_deemph(audio_rate, tau=tau)
+    fg.connect(last, 0, blk, 0)
+    return blk
+
+
 def fir_chain(n_samples: int = 10_000_000, fs: float = 1e6, ntaps: int = 128,
               frequency: float = 123_456.0, batch_size: int | None = None,
               sink: str = "null", source=None):
@@ -88,15 +98,11 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
     tone at center_freq, no input stream at all.
 
     n_samples bounds the OUTPUT (audio) stream; batch_size is input samples.
-    deemph_tau (the GR wfm_rcv's de-emphasis) needs ops/iir.py, which comes
-    with the rest of the block library (ROADMAP Queue 1 item 8): it raises.
+    deemph_tau (e.g. 75e-6, the GR wfm_rcv's de-emphasis; off by default,
+    as config #1) appends analog.fm_deemph at the audio rate on every form.
     """
-    if deemph_tau is not None:
-        raise NotImplementedError(
-            "wbfm_receiver(deemph_tau=...): fm_deemph needs ops/iir.py, which "
-            "comes with the block-library slice of the port (ROADMAP Queue 1 "
-            "item 8)")
     quad_rate = fs / quad_rate_decim
+    audio_rate = quad_rate * audio_decim[0] / audio_decim[1]
     chan_taps = firdes.low_pass(1.0, fs, 100e3, 30e3)
     interp, decim = audio_decim
     live = isinstance(source, str) and source == "live"
@@ -113,9 +119,10 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
         fg = Flowgraph("wbfm_receiver", batch_size=bsz)
         src = analog.wbfm_live_source(chan_taps, center_freq, fs,
                                       frequency=center_freq, **kw)
-        _connect_out(fg, src, (), n_samples, snk)
+        deemph = _deemph(fg, src, deemph_tau, audio_rate)
+        _connect_out(fg, deemph or src, (), n_samples, snk)
         return fg, {"source": src, "fused": src, "xlate": src, "demod": src,
-                    "resamp": src, "deemph": None, "sink": snk}
+                    "resamp": src, "deemph": deemph, "sink": snk}
     if source is None:
         source = analog.sig_source(fs, "complex", frequency=0.0)
     if fused:
@@ -129,9 +136,10 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
             chan_taps, center_freq, fs,
             input_format="folded" if folded else "cf32", **kw)
         fg.connect(source, 0, blk, 0)
-        _connect_out(fg, blk, (), n_samples, snk)
+        deemph = _deemph(fg, blk, deemph_tau, audio_rate)
+        _connect_out(fg, deemph or blk, (), n_samples, snk)
         return fg, {"source": source, "fused": blk, "xlate": blk,
-                    "demod": blk, "resamp": blk, "deemph": None, "sink": snk}
+                    "demod": blk, "resamp": blk, "deemph": deemph, "sink": snk}
     fg = Flowgraph("wbfm_receiver", batch_size=batch_size)
     xlate = filt.freq_xlating_fir(chan_taps, center_freq, fs,
                                   decim=quad_rate_decim)
@@ -140,9 +148,10 @@ def wbfm_receiver(fs: float = 1_000_000.0, center_freq: float = 200_000.0,
     fg.connect(source, 0, xlate, 0)
     fg.connect(xlate, 0, demod, 0)
     fg.connect(demod, 0, resamp, 0)
-    _connect_out(fg, resamp, (), n_samples, snk)
+    deemph = _deemph(fg, resamp, deemph_tau, audio_rate)
+    _connect_out(fg, deemph or resamp, (), n_samples, snk)
     return fg, {"source": source, "xlate": xlate, "demod": demod,
-                "resamp": resamp, "deemph": None, "sink": snk}
+                "resamp": resamp, "deemph": deemph, "sink": snk}
 
 
 def make_fm_demod_hier(quad_rate: float, deviation: float = 75e3,

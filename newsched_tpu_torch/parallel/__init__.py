@@ -1,4 +1,4 @@
-"""Mesh, collectives and the sharded channelizer (reference:
+"""Mesh, collectives, the sharded channelizer and the sharded FIR (reference:
 newsched_tpu/parallel): logical shards in one process, all on one device
 (parallel/mesh.py)."""
 
@@ -8,4 +8,8 @@ from newsched_tpu_torch.parallel.channelizer import (  # noqa: F401
     PlanesFMState,
     ShardedFMChannelizer,
     planes_rows,
+)
+from newsched_tpu_torch.parallel.sharded_fir import (  # noqa: F401
+    ShardedFirFilter,
+    ShardedFirState,
 )

@@ -198,9 +198,13 @@ def test_fir_tone_source_matches_staged_blocks_and_refuses():
         src.work(src.init_state(0, 40, "cpu"), {}, src.param_leaves("cpu"), 40)
     with pytest.raises(ValueError, match="decim"):  # 64 samples, R % D != 0
         src.work(src.init_state(0, 16, "cpu"), {}, src.param_leaves("cpu"), 16)
-    with pytest.raises(NotImplementedError, match="config #3"):
-        _run_block("torch", taps, 1, "cf32", "fft", np.zeros(256, np.complex64),
-                   256)
+    # the "fft" method (config #3's overlap-save filter) equals the
+    # reference's, two batches with the carried tail
+    xf = np.random.default_rng(2).standard_normal(512).astype(np.complex64)
+    got = _run_block("torch", taps, 1, "cf32", "fft", xf, 256)
+    ref = _run_block("jax", taps, 1, "cf32", "fft", xf, 256)
+    assert got.shape == ref.shape == (512,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6 * np.abs(ref).max())
     assert _launches() == (0, 0, 0, 0)
 
 

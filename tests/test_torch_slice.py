@@ -209,9 +209,17 @@ def test_slices_not_ported_yet_raise():
     with pytest.raises(ValueError, match="warm"):
         fm_chain.fm_chain_step_planes(z(256, 2 * M), z(8, 2 * M), z(1, 2 * M),
                                       z(A - 1, 2 * M), consts, 4, 1.0, warm=256)
-    with pytest.raises(NotImplementedError, match="config #3"):
-        fir.fir_filter(np.ones(9, np.float32), fir.fir_init_state(9, "cpu"),
-                       z(64, dtype=torch.complex64), method="fft")
+    # the "fft" method (config #3) is ported: the reference's result
+    import jax.numpy as jnp
+    from newsched_tpu.ops import fir as jfir
+
+    xf = np.random.default_rng(1).standard_normal(64).astype(np.complex64)
+    _, yf = fir.fir_filter(np.ones(9, np.float32), fir.fir_init_state(9, "cpu"),
+                           torch.from_numpy(xf), method="fft")
+    _, jyf = jfir.fir_filter(np.ones(9, np.float32),
+                             jfir.fir_init_state(9), jnp.asarray(xf),
+                             method="fft")
+    np.testing.assert_allclose(yf.numpy(), np.asarray(jyf), rtol=0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="uniform"):
         tanalog.noise_source("uniform")
     with pytest.raises(NotImplementedError, match="threefry"):

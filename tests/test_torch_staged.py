@@ -290,8 +290,16 @@ def test_fir_filter_auto_choice_follows_reference():
                for c in range(2)]
         np.testing.assert_allclose(run(taps, decim, "auto").numpy(), np.stack(ref),
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="config #3"):
-        run(np.ones(400, np.float32), 1, "auto")  # the reference picks "fft"
+    # past 384 taps the reference picks "fft", and so does the port
+    t400 = np.hanning(400).astype(np.float32)
+    st400 = fir.fir_init_state(400, "cpu", torch.float32, (2,))
+    y400 = fir.fir_filter(t400, st400, tx)[1]
+    ref = np.stack([np.asarray(jfir.fir_filter(
+        t400, jfir.fir_init_state(400, jnp.float32), jnp.asarray(x[c]))[1])
+        for c in range(2)])
+    np.testing.assert_allclose(y400.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+    assert torch.equal(y400, fir.fir_filter(t400, st400, tx, method="fft")[1])
     # the reference's bf16x3 Toeplitz tier is the FP32 Toeplitz path here
     assert torch.equal(run(taps, 1, "mxu3"), run(taps, 1, "mxu"))
     with pytest.raises(ValueError, match="unknown FIR method"):

@@ -2,12 +2,8 @@
 held against the JAX package's tests/test_tags.py: each graph runs in both
 packages on the same numpy inputs and the sinks' tags (offsets, keys,
 values, payloads) must be equal; where the data is checked, it is held to
-the reference's output or to scipy.
-
-Blocks the port has not ported yet stand in as follows: a two-input add
-written here (the reference's math.add), and the port's fir_filter for the
-reference's fft_filter (the same FIR, the reference's tags and its
-90 dB data gate).
+the reference's output or to scipy. Both packages run the same blocks:
+math.add for the merges, fft_filter for config #3's long filter.
 """
 
 import numpy as np
@@ -21,7 +17,8 @@ from newsched_tpu.ops import firdes
 from newsched_tpu.runtime import block as jblock
 
 from newsched_tpu_torch import models as tmodels
-from newsched_tpu_torch.blocks import filter as tfilt, general as tgen
+from newsched_tpu_torch.blocks import filter as tfilt, general as tgen, \
+    math as tmath
 from newsched_tpu_torch.parallel import make_mesh
 from newsched_tpu_torch.runtime import block as tblock, tags as ttags
 from newsched_tpu_torch.runtime.graph import Flowgraph as TFlowgraph
@@ -43,21 +40,8 @@ def _rand_complex(n, seed=0):
             / np.sqrt(2)).astype(np.complex64)
 
 
-class _add2(tblock.SyncBlock):
-    """Two cf32 inputs summed (the reference's math.add(2))."""
-
-    def __init__(self, name=None):
-        super().__init__(name)
-        self.add_input("in0", "cf32")
-        self.add_input("in1", "cf32")
-        self.add_output("out", "cf32")
-
-    def work(self, state, ins, params, nout):
-        return state, {"out": ins["in0"] + ins["in1"]}
-
-
 PKGS = {"jax": (JFlowgraph, jgen, lambda: jmath.add(2), jblock),
-        "torch": (TFlowgraph, tgen, _add2, tblock)}
+        "torch": (TFlowgraph, tgen, lambda: tmath.add(2), tblock)}
 
 
 def _run(pkg, fg, **kw):
@@ -122,12 +106,12 @@ def test_tags_remap_through_decimator():
 
 
 def test_tags_through_a_long_fir_with_data_check():
-    """Config #3's shape (the reference's fft_filter test): a long FIR, its
-    tags intact and its data > 90 dB against scipy; the reference runs its
-    fft_filter, the port its fir_filter (fft_filter is not ported yet)."""
+    """Config #3's shape (the reference's fft_filter test): the fft_filter
+    block in both packages, its tags intact and its data > 90 dB against
+    scipy."""
     taps = firdes.low_pass(1.0, 1.0, 0.2, 0.02)
     mid = {"jax": lambda: jfilt.fft_filter(taps),
-           "torch": lambda: tfilt.fir_filter(taps)}
+           "torch": lambda: tfilt.fft_filter(taps)}
     build, data = _chain([(10, "sync", 7.0), (5000, "pkt", 1.0, 2.0)], 8192,
                          2048, mid=lambda pkg: mid[pkg](), seed=33)
     (jt, jd, _), (tt, td, _) = _both(build)

@@ -33,6 +33,7 @@ from newsched_tpu_torch import convert, models as tmodels, testing
 from newsched_tpu_torch.blocks import analog as tanalog, filter as tfilt, \
     general as tgen
 from newsched_tpu_torch.ops import analog as taops, fir, firdes, nco
+from newsched_tpu_torch.ops import iir as tiir
 from newsched_tpu_torch.ops.cuda import mathfns, sources, wbfm_chain
 from newsched_tpu_torch.runtime.compile import compile_flowgraph as tcompile
 from newsched_tpu_torch.runtime.graph import Flowgraph as TFlowgraph
@@ -410,8 +411,16 @@ def test_wbfm_chain_geometry_and_refusals():
         tanalog.wbfm_live_source(np.ones(9), 0.0, FS, resamp_interp=3)
     with pytest.raises(ValueError, match="input_format"):
         tanalog.wbfm_rcv_fused(np.ones(9), 0.0, FS, input_format="planes")
-    with pytest.raises(NotImplementedError, match="iir"):
-        tmodels.wbfm_receiver(deemph_tau=75e-6)
+    # deemph_tau appends fm_deemph at the audio rate (1 MS/s / 4 / 5) on
+    # every form; tests/test_torch_iir.py holds its output
+    for kw in ({}, {"fused": True}, {"fused": True, "source": "live"}):
+        _, blks = tmodels.wbfm_receiver(deemph_tau=75e-6, **kw)
+        de = blks["deemph"]
+        assert isinstance(de, tanalog.fm_deemph), kw
+        ff, fb = tiir.lfilter_taps(*tanalog._emphasis_taps(50e3, 75e-6, None,
+                                                           True))
+        np.testing.assert_array_equal(de.ff, ff)
+        np.testing.assert_array_equal(de.fb, fb)
     with pytest.raises(ValueError, match="live"):
         tmodels.wbfm_receiver(source="live")
 
