@@ -241,7 +241,29 @@ Phases (each failure raises, so the script exits nonzero):
      streamops blocks on the card against their CPU runs;
  49. K1's dense instance on its main path: the staged fm_channelizer at
      M = 320 in graph mode, >= 60 dB, counted; its time beside its plain
-     version and its bound (``arm_fold_dft[dense]`` in the kernels line).
+     version and its bound (``arm_fold_dft[dense]`` in the kernels line);
+ 50. S1 costas_loop (orders 2, 4, 8) and S2 clock_recovery_mm (sps 4) at
+     65536 samples on 1 and 64 streams against their plain versions (run
+     on the CPU): within 1e-4 of max|y|, the state within the same, S1's
+     decisions identical; two batches bit-equal to one; their times beside
+     the bytes bound and the serial floor of their critical path;
+ 51. S3 viterbi_decode at 1024 frames of 512 bits, K = 7 and 3, hard and
+     soft: bit-equal to its plain version; no errors on the noiseless code
+     and with four separated coded bits flipped a frame; its time at 1024
+     frames and at one, beside its bound;
+ 52. S1 and S2 at the QPSK link's shapes against their plain versions and
+     timed (the kernels line's); the QPSK link (``models.qpsk_tx`` on the
+     card, a channel of 0.3 rad, 0.5 sample and 20 dB, ``qpsk_receiver``)
+     over 8 batches of 2^20 samples in graph mode: the sent symbols from
+     symbol 2000 at the link's lag in every batch, but at the 36 symbols
+     where the reference's receiver errs on the same stream, and there the
+     same errors; S1 and S2 launched;
+     graph mode bit-equal to the loop at batches of 2^18, which equal
+     batches of 2^20; the step's two-point time, loop time and profile;
+ 53. the FEC link (cc_encoder, BPSK + AWGN, cc_decoder: S3) over 8
+     batches of 1024 frames in graph mode: bit-equal to S3's plain version
+     on the same LLRs, error-free at 7 dB, at the reference's sigma 0.65 a
+     BER under a fifth of the raw; S3 launched; the step's two-point time.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -3079,6 +3101,608 @@ def phase_k1_dense(torch, channelizer, noise, card: str) -> dict:
     return {"launches": launches, "ms": ms, "bound": (b_ms, by)}
 
 
+# -- the digital and FEC half: S1-S3, the QPSK link, the FEC link ------------
+
+LOOP_N = 65536             # samples a stream of phase 50's loops
+LOOP_STREAMS = (1, 64)
+LOOP_TOL = 1e-4            # S1/S2 vs plain, of max|y|: sincosf vs torch sin/cos
+QPSK_SPS = 4
+QPSK_BATCH = 1 << 20       # received samples a batch (262,144 symbols)
+QPSK_BATCHES = 8           # one captured chunk (runner.GRAPH_CHUNK steps)
+QPSK_LAG, QPSK_SETTLE = 11, 2000  # symbol k + LAG received is k sent
+FEC_FRAME, FEC_K = 512, 7
+FEC_FRAMES = 1024          # frames a batch of the FEC link
+FEC_BATCHES = 8            # one captured chunk (runner.GRAPH_CHUNK steps)
+FEC_SIGMA_7DB = 0.447      # Eb/N0 = 1 / (2 R sigma^2) = 7 dB at rate 1/2
+FEC_SIGMA_REF = 0.65       # tests/test_fec.py:54's channel, ~3.7 dB
+# The serial floor of S1 and S2: the dependent instructions on a step's
+# critical path (the loop-carried chain: phase -> phase for S1, pos and mu
+# -> pos and mu for S2), by class, times each class's latency in SM
+# cycles, times the steps, at the card's maximum SM clock. The latencies
+# are assumptions from published Hopper microbenchmarks, not measured here:
+# a dependent FP32/INT32 ALU operation 4 cycles, a shared-memory load 30, a
+# float->int64 conversion 12, CUDA's IEEE sincosf ~20 dependent FP32
+# operations (Cody-Waite reduction and two polynomials) and its IEEE
+# __fdiv_rn ~8 (reciprocal, Newton steps, the fix-up).
+LAT_CYCLES = {"alu": 4, "lds": 30, "f2i": 12}
+SERIAL_PATH = {
+    # -phase, sincosf 20, the rotation 2, the detector 3, clamp 2, freq
+    # (mul, add, clamp 2), phase 2 adds, the wrap (div 8, rint, mul, sub)
+    "S1": {"alu": 1 + 20 + 2 + 3 + 2 + 4 + 2 + 11},
+    # pos clamp 2 and slice offset 2 (64-bit), the load, interpolation 3,
+    # error 4, clamp 2, omega 5 with its clamp, step 2, floor, mu; the
+    # floor's conversion and the 64-bit add
+    "S2": {"alu": 4 + 3 + 4 + 2 + 5 + 2 + 2 + 2, "lds": 1, "f2i": 1},
+}
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def serial_floor_ns(kid: str, mhz: float) -> float:
+    """ns a step of one stream's critical path (SERIAL_PATH x LAT_CYCLES)."""
+    cycles = sum(n * LAT_CYCLES[c] for c, n in SERIAL_PATH[kid].items())
+    return cycles / mhz * 1e3
+
+
+def psk_streams(order: int, C: int, n: int, seed: int) -> np.ndarray:
+    """C streams of the detector's own constellation (BPSK, diagonal QPSK,
+    8PSK), rotated 0.3 rad with a slow drift, with noise far from the
+    decision boundaries."""
+    rng = np.random.default_rng(seed)
+    rot = {2: 0.0, 4: np.pi / 4, 8: 0.0}[order]
+    k = rng.integers(0, order, (C, n))
+    s = np.exp(1j * (2 * np.pi * k / order + rot + 0.3 + 2e-5 * np.arange(n)))
+    s = s + 0.05 * (rng.standard_normal(s.shape) + 1j * rng.standard_normal(s.shape))
+    return s.astype(np.complex64)
+
+
+def rrc_streams(C: int, n: int, seed: int, sps: int = QPSK_SPS) -> np.ndarray:
+    """C streams of diagonal QPSK through the link's RRC shaper at sps,
+    0.4 sample late, with a little noise (the M&M loop's input)."""
+    from newsched_tpu_torch.models import rrc_taps
+
+    rng = np.random.default_rng(seed)
+    taps = rrc_taps(sps)
+    k = rng.integers(0, 4, (C, n // sps + len(taps)))
+    up = np.zeros((C, k.shape[1] * sps), np.complex128)
+    up[:, ::sps] = np.exp(1j * (np.pi / 2 * k + np.pi / 4))
+    x = np.stack([np.convolve(u, taps)[len(taps):len(taps) + n + 1] for u in up])
+    x = x[:, :-1] + 0.4 * (x[:, 1:] - x[:, :-1])
+    x = x + 0.02 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def loop_ms(fn) -> float:
+    """Device time of one call of a loop kernel (CUDA-graph replay, 3 calls
+    a graph, median of 5): a call runs for milliseconds."""
+    return graph_ms(fn, reps=5, inner=3)
+
+
+def phase_loops(torch, kloops, card: str) -> dict:
+    """50. S1 and S2 against their plain versions (run on the CPU, its loop
+    of torch ops on the same inputs) at 65536 samples, C = 1 and 64
+    streams: S1 at orders 2, 4, 8 on each detector's constellation, S2 at
+    sps 4: outputs within LOOP_TOL of max|y|, the carried state within the
+    same, S1's decisions (constellation_decoder's) identical; two batches
+    bit-equal to one; each kernel's time beside its bytes bound and its
+    serial floor."""
+    from newsched_tpu_torch.blocks import digital
+    from newsched_tpu_torch.ops import loops
+
+    const = {2: digital.Constellation.bpsk(),
+             4: digital.Constellation.psk(4, rot=np.pi / 4),
+             8: digital.Constellation.psk(8)}
+    a, b = loops.loop_coeffs(0.06)
+    bw = torch.tensor(0.06, dtype=torch.float32, device="cuda")
+    errs = {"S1": 0.0, "S2": 0.0}
+    out = {"t": {}, "plain": {}}
+    for C in LOOP_STREAMS:
+        for order in (2, 4, 8):
+            x = torch.from_numpy(psk_streams(order, C, LOOP_N, seed=order + C))
+            z = torch.zeros(C)
+            z_ph = torch.full((C,), 0.1)
+            t0 = time.monotonic()
+            yp, php, frp = kloops.costas_loop_plain(x, z_ph, z, None, float(a),
+                                                    float(b), order, 1.0)
+            plain_s = time.monotonic() - t0
+            xc, zc, phc = x.cuda(), z.cuda(), z_ph.cuda()
+            yk, phk, frk = kloops.costas_loop(xc, phc, zc, None, float(a),
+                                              float(b), order, 1.0)
+            h = LOOP_N // 2 + 37
+            y1, ph1, fr1 = kloops.costas_loop(xc[:, :h].contiguous(), phc, zc,
+                                              None, float(a), float(b), order, 1.0)
+            y2, ph2, fr2 = kloops.costas_loop(xc[:, h:].contiguous(), ph1, fr1,
+                                              None, float(a), float(b), order, 1.0)
+            # the settable form: loop_bw a tensor on the card
+            yt, _, _ = kloops.costas_loop(xc, phc, zc, bw, 0.0, 0.0, order, 1.0)
+            ytp, _, _ = kloops.costas_loop_plain(x[:1, :4096], z_ph[:1], z[:1],
+                                                 torch.tensor(0.06), 0.0, 0.0,
+                                                 order, 1.0)
+            torch.cuda.synchronize()
+            err = float((yk.cpu() - yp).abs().max() / yp.abs().max())
+            st_err = max(float((phk.cpu() - php).abs().max()),
+                         float((frk.cpu() - frp).abs().max()))
+            terr = float((yt[:1, :4096].cpu() - ytp).abs().max() / ytp.abs().max())
+            dk = const[order].decide(yk.reshape(-1)).cpu()
+            dp = const[order].decide(yp.reshape(-1))
+            flips = int((dk != dp).sum())
+            split = (torch.equal(torch.cat([y1, y2], 1), yk)
+                     and torch.equal(ph2, phk) and torch.equal(fr2, frk))
+            log(f"S1 costas_loop order {order}, C = {C}, {LOOP_N} samples: "
+                f"{err:.2e} of max|y| from its plain version (loop_bw on the "
+                f"card: {terr:.2e} over 4096), state {st_err:.2e}, decisions "
+                f"flipped {flips}, two batches bit-equal to one: {split}; plain "
+                f"version {plain_s:.1f} s on the CPU")
+            require(err <= LOOP_TOL and st_err <= LOOP_TOL and terr <= LOOP_TOL
+                    and flips == 0 and split,
+                    f"S1 order {order} C {C}: err {err}, state {st_err}, "
+                    f"tensor bw {terr}, flips {flips}, split {split}")
+            errs["S1"] = max(errs["S1"], err)
+            if order == 4:
+                out["t"][f"S1 C={C}"] = loop_ms(lambda: kloops.costas_loop(
+                    xc, phc, zc, bw, 0.0, 0.0, 4, 1.0))
+                out["plain"][f"S1 C={C}"] = plain_s * 1e3
+        sps = QPSK_SPS
+        x = torch.from_numpy(rrc_streams(C, LOOP_N, seed=50 + C))
+        st = loops.mm_init_state(sps, device="cpu")
+        args = [t.expand(C, *t.shape).contiguous() for t in st]
+        gains = (torch.tensor(0.25 * 0.1 * 0.1, dtype=torch.float32),
+                 torch.tensor(0.1, dtype=torch.float32))
+        t0 = time.monotonic()
+        outp = kloops.clock_recovery_mm_plain(x, *args, sps, *gains, 0.005)
+        plain_s = time.monotonic() - t0
+        xc, argc = x.cuda(), [t.cuda() for t in args]
+        gc = tuple(g.cuda() for g in gains)
+        outk = kloops.clock_recovery_mm(xc, *argc, sps, *gc, 0.005)
+        h = LOOP_N // 2 + 36  # a multiple of sps
+        o1 = kloops.clock_recovery_mm(xc[:, :h].contiguous(), *argc, sps, *gc,
+                                      0.005)
+        o2 = kloops.clock_recovery_mm(xc[:, h:].contiguous(), *o1[1:], sps, *gc,
+                                      0.005)
+        torch.cuda.synchronize()
+        yk, yp = outk[0].cpu(), outp[0]
+        err = float((yk - yp).abs().max() / yp.abs().max())
+        # pos + mu, not pos alone: a 1-ulp step can move floor(step) by one
+        pm = float((outk[2].cpu() + outk[3].cpu().double()
+                    - outp[2] - outp[3].double()).abs().max())
+        st_err = max([pm] + [float((k.cpu() - p).abs().max())
+                             for k, p in zip(outk[4:], outp[4:])])
+        bit_equal = all(torch.equal(k.cpu(), p) for k, p in zip(outk, outp))
+        split = (torch.equal(torch.cat([o1[0], o2[0]], 1), outk[0])
+                 and all(torch.equal(p, q) for p, q in zip(o2[1:], outk[1:])))
+        log(f"S2 clock_recovery_mm sps {sps}, C = {C}, {LOOP_N} samples: "
+            f"{err:.2e} of max|y| from its plain version, state {st_err:.2e} "
+            f"(pos + mu), bit-equal to it: {bit_equal}; two batches bit-equal "
+            f"to one: {split}; plain version {plain_s:.1f} s on the CPU")
+        require(err <= LOOP_TOL and st_err <= LOOP_TOL and split,
+                f"S2 C {C}: err {err}, state {st_err}, split {split}")
+        errs["S2"] = max(errs["S2"], err)
+        out["t"][f"S2 C={C}"] = loop_ms(lambda: kloops.clock_recovery_mm(
+            xc, *argc, sps, *gc, 0.005))
+        out["plain"][f"S2 C={C}"] = plain_s * 1e3
+    mhz = sm_clock_mhz()
+    out["bounds"] = {}
+    for kid, steps_of in (("S1", lambda n: n), ("S2", lambda n: n // QPSK_SPS)):
+        floor_ns = serial_floor_ns(kid, mhz)
+        for C in LOOP_STREAMS:
+            key = f"{kid} C={C}"
+            ms = out["t"][key]
+            nbytes = C * LOOP_N * 8 + C * steps_of(LOOP_N) * 8
+            b_ms, by = bound(nbytes, 0)
+            floor_ms = floor_ns * steps_of(LOOP_N) * 1e-6
+            out["bounds"][key] = (max(b_ms, floor_ms),
+                                  "serial" if floor_ms > b_ms else by, b_ms,
+                                  floor_ms)
+            log(f"{key}: {ms:.4f} ms = {ms * 1e6 / steps_of(LOOP_N):.1f} ns a "
+                f"step ({C * steps_of(LOOP_N) / ms / 1e3:.1f} M steps/s over "
+                f"the streams); bytes bound {b_ms:.5f} ms, serial floor "
+                f"{floor_ns:.1f} ns a step = {floor_ms:.4f} ms ({mhz:.0f} MHz), "
+                f"{100 * floor_ms / ms:.1f}% of it; plain "
+                f"{out['plain'][key]:.0f} ms [{card}]")
+    out["err"] = errs
+    return out
+
+
+def fec_llrs(torch, n_frames: int, sigma: float, seed: int, K: int = FEC_K,
+             polys=(0o171, 0o133), hard: bool = False):
+    """Frames of random bits, encoded (ops/fec.py), +-1 plus AWGN; the
+    LLRs (hard: the slicer's +-1), the bits and the raw coded-bit errors."""
+    from newsched_tpu_torch.ops import fec
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (n_frames, FEC_FRAME))
+    coded = fec.conv_encode(torch.from_numpy(bits), polys, K).numpy()
+    rx = (2.0 * coded - 1.0 + rng.normal(0, sigma, coded.shape)).astype(np.float32)
+    llr = np.where(rx > 0, 1.0, -1.0).astype(np.float32) if hard else rx
+    return llr, bits, int(((rx > 0) != (coded > 0)).sum())
+
+
+def phase_viterbi(torch, kfec, card: str) -> dict:
+    """51. S3 against its plain version (on the card) at 1024 frames of 512
+    bits, K = 7 (171/133) and K = 3 (7/5), hard and soft LLRs: decoded bits
+    bit-equal; zero errors on the noiseless code and with four separated
+    coded bits flipped a frame (tests/test_fec.py:41); its time at 1024
+    frames and at one (a step's synchronisation cost) beside its bound."""
+    from newsched_tpu_torch.ops import fec
+
+    for polys, K in (((0o171, 0o133), 7), ((0o7, 0o5), 3)):
+        tabs = fec.viterbi_tables(polys, K, "cuda")
+        for kind, sigma in (("hard", 0.8), ("soft", 0.8), ("noiseless", 0.0),
+                            ("4 flips", 0.0)):
+            llr, bits, _ = fec_llrs(torch, FEC_FRAMES, sigma, seed=51 + K,
+                                    K=K, polys=polys, hard=kind != "soft")
+            if kind == "4 flips":
+                llr[:, [17, 150, 301, 450]] *= -1
+            lc = torch.from_numpy(llr).cuda().reshape(FEC_FRAMES, -1, 2)
+            got = kfec.viterbi_frames(lc, tabs, K, True)
+            ref = kfec.viterbi_frames_plain(lc, tabs, True, FEC_FRAME)
+            equal = torch.equal(got, ref)
+            errors = int((got.cpu().numpy() != bits).sum())
+            log(f"S3 viterbi_decode K = {K}, {kind}, {FEC_FRAMES} frames of "
+                f"{FEC_FRAME} bits: bit-equal to its plain version: {equal}; "
+                f"{errors} bit errors")
+            require(equal, f"S3 K {K} {kind}: differs from its plain version")
+            require(kind in ("hard", "soft") or errors == 0,
+                    f"S3 K {K} {kind}: {errors} bit errors")
+    tabs = fec.viterbi_tables((0o171, 0o133), FEC_K, "cuda")
+    llr, _, _ = fec_llrs(torch, FEC_FRAMES, 0.8, seed=510)
+    lc = torch.from_numpy(llr).cuda().reshape(FEC_FRAMES, -1, 2)
+    one = lc[:1].contiguous()
+    t = {"S3": graph_ms(lambda: kfec.viterbi_frames(lc, tabs, FEC_K, True)),
+         "S3 one frame": graph_ms(lambda: kfec.viterbi_frames(one, tabs, FEC_K,
+                                                              True)),
+         "S3 plain": median_ms(lambda: kfec.viterbi_frames_plain(
+             lc, tabs, True, FEC_FRAME), reps=3, inner=1)}
+    T, S = lc.shape[1], 1 << (FEC_K - 1)
+    b_ms, by = bound(lc.numel() * 4 + FEC_FRAMES * FEC_FRAME * 4,
+                     FEC_FRAMES * T * S * VITERBI_OPS)
+    log(f"S3 viterbi_decode ({FEC_FRAMES} x {T} steps, {S} states): kernel "
+        f"{t['S3']:.4f} ms = {t['S3'] * 1e6 / T:.1f} ns a step of every frame "
+        f"at once; one frame {t['S3 one frame']:.4f} ms = "
+        f"{t['S3 one frame'] * 1e6 / T:.1f} ns a step (its barrier, shuffles "
+        f"and loads: the synchronisation cost); plain {t['S3 plain']:.2f} ms; "
+        f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / t['S3']:.1f}% of it "
+        f"[{card}]")
+    return {"t": t, "bound": (b_ms, by)}
+
+
+# ACS a state a step at rate 1/2: two branch metrics (2 products, 1 add
+# each), the previous max subtracted twice, two adds, a compare, a max
+VITERBI_OPS = 2 * 3 + 2 + 2 + 1 + 1
+
+
+def qpsk_symbols(n_batches: int = QPSK_BATCHES + 1) -> np.ndarray:
+    """The link's symbols (seeded): n_batches of QPSK_BATCH samples' worth
+    (one more than phase 52's run, for its 17 batches of 2^18)."""
+    n_sym = n_batches * QPSK_BATCH // QPSK_SPS
+    return np.random.default_rng(52).integers(0, 4, n_sym).astype(np.int32)
+
+
+def qpsk_channel(tx: np.ndarray) -> np.ndarray:
+    """The received stream: a 0.5-sample fractional delay (a linear phase
+    across the spectrum), a 0.3 rad carrier phase and AWGN at 20 dB of the
+    signal's power, where the reference locks."""
+    f = np.fft.fftfreq(len(tx))
+    y = np.fft.ifft(np.fft.fft(tx) * np.exp(-2j * np.pi * f * 0.5)) * np.exp(0.3j)
+    rng = np.random.default_rng(520)
+    s = np.sqrt(np.mean(np.abs(y) ** 2) / 10 ** 2.0 / 2)
+    y = y + s * (rng.standard_normal(len(y)) + 1j * rng.standard_normal(len(y)))
+    return y.astype(np.complex64)
+
+
+def qpsk_stream(torch):
+    """The symbols, sent by qpsk_tx on the card (graph mode), and the
+    received stream."""
+    from newsched_tpu_torch.models import qpsk_tx
+
+    syms = qpsk_symbols()
+    fg, b = qpsk_tx(syms, sps=QPSK_SPS, batch_size=QPSK_BATCH // QPSK_SPS)
+    fg.run(device="cuda")
+    tx = b["sink"].data()
+    require(tx.shape == (len(syms) * QPSK_SPS,) and np.isfinite(tx).all(),
+            f"qpsk_tx: {tx.shape}")
+    return syms, qpsk_channel(tx)
+
+
+# The received symbols (indices from the stream's start) that differ from
+# the sent ones at the lag, from QPSK_SETTLE on, when the REFERENCE's
+# qpsk_tx and qpsk_receiver (newsched_tpu.models.qpsk) run phase 52's
+# stream (8 batches of 2^20 samples): 36 in 2,095,141, in 11 bursts of 2
+# to 9 errors within at most 14 symbols, the receiver locked between them
+# (the differential decoder turns one wrong decision into two). tests/test_torch_qpsk.py::
+# test_chip_smoke_link_errors_are_the_references recomputes them from the
+# reference. The reference is not error-free at this length, so phase 52
+# holds the port to the reference's own errors, symbol for symbol.
+QPSK_REF_ERRORS = (
+    100279, 100280, 169230, 169231, 536893, 536895, 536898, 536899, 536905,
+    536906, 1023056, 1023058, 1194927, 1194928, 1276517, 1276518, 1276520,
+    1276521, 1285648, 1285649, 1285650, 1285651, 1452918, 1452921, 1452922,
+    1706010, 1706012, 1875339, 1875341, 1875343, 1875344, 1875345, 1875346,
+    1875347, 1875350, 1875351)
+
+
+def qpsk_errors(got: np.ndarray, syms: np.ndarray) -> tuple:
+    """Indices of the received symbols from QPSK_SETTLE + QPSK_LAG on that
+    differ from the sent ones at the lag."""
+    n = len(got)
+    ok = got[QPSK_SETTLE + QPSK_LAG:] == syms[QPSK_SETTLE:n - QPSK_LAG]
+    return tuple(int(i) + QPSK_SETTLE + QPSK_LAG for i in np.nonzero(~ok)[0])
+
+
+def qpsk_check(got: np.ndarray, syms: np.ndarray, what: str) -> None:
+    """The received symbols equal the sent ones at the lag from symbol
+    QPSK_SETTLE on, but where the reference's receiver errs on the same
+    stream (QPSK_REF_ERRORS): there the port errs too, and nowhere else."""
+    err = qpsk_errors(got, syms)
+    bs = QPSK_BATCH // QPSK_SPS
+    per_batch = [sum(1 for i in err if b <= i < b + bs)
+                 for b in range(0, len(got), bs)]
+    ref = [sum(1 for i in QPSK_REF_ERRORS if b <= i < b + bs)
+           for b in range(0, len(got), bs)]
+    log(f"{what}: symbol errors from symbol {QPSK_SETTLE} at lag {QPSK_LAG}, "
+        f"batch by batch: {per_batch} in {len(got) - QPSK_SETTLE - QPSK_LAG} "
+        f"(the reference's on this stream: {ref}); at the reference's "
+        f"symbols: {err == QPSK_REF_ERRORS}")
+    require(err == QPSK_REF_ERRORS,
+            f"{what}: symbol errors at {err[:20]}..., not the reference's")
+
+
+def loops_on_main_path_shapes(torch, kloops, card: str) -> dict:
+    """52a. S2 and S1 at the shapes the QPSK link gives them (one stream; S2
+    a batch of 2^20 samples, S1 its 262,144 symbols) against their plain
+    versions (on the CPU) within LOOP_TOL, S1's decisions identical; each
+    kernel's time there (the kernels line's) beside its bound and serial
+    floor, and its plain version's."""
+    from newsched_tpu_torch.models import qpsk_constellation
+    from newsched_tpu_torch.ops import loops
+
+    n_sym = QPSK_BATCH // QPSK_SPS
+    x2 = torch.from_numpy(rrc_streams(1, QPSK_BATCH, seed=521))
+    st = [t.expand(1, *t.shape).contiguous()
+          for t in loops.mm_init_state(QPSK_SPS, device="cpu")]
+    g = (torch.tensor(0.25 * 0.1 * 0.1, dtype=torch.float32),
+         torch.tensor(0.1, dtype=torch.float32))
+    x1 = torch.from_numpy(psk_streams(4, 1, n_sym, seed=522))
+    z = torch.zeros(1)
+    bw = torch.tensor(0.06, dtype=torch.float32)
+    plain, t0 = {}, time.monotonic()
+    p2 = kloops.clock_recovery_mm_plain(x2, *st, QPSK_SPS, *g, 0.005)
+    plain["S2"] = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    p1 = kloops.costas_loop_plain(x1, z, z, bw, 0.0, 0.0, 4, 1.0)
+    plain["S1"] = (time.monotonic() - t0) * 1e3
+    c2 = (x2.cuda(), *[t.cuda() for t in st])
+    gc = tuple(t.cuda() for t in g)
+    c1 = (x1.cuda(), z.cuda(), z.cuda(), bw.cuda())
+    k2 = kloops.clock_recovery_mm(*c2, QPSK_SPS, *gc, 0.005)
+    k1 = kloops.costas_loop(*c1, 0.0, 0.0, 4, 1.0)
+    torch.cuda.synchronize()
+    err = {"S2": float((k2[0].cpu() - p2[0]).abs().max() / p2[0].abs().max()),
+           "S1": float((k1[0].cpu() - p1[0]).abs().max() / p1[0].abs().max())}
+    const = qpsk_constellation()
+    flips = int((const.decide(k1[0].reshape(-1)).cpu()
+                 != const.decide(p1[0].reshape(-1))).sum())
+    ms = {"S2": loop_ms(lambda: kloops.clock_recovery_mm(*c2, QPSK_SPS, *gc,
+                                                         0.005)),
+          "S1": loop_ms(lambda: kloops.costas_loop(*c1, 0.0, 0.0, 4, 1.0))}
+    mhz = sm_clock_mhz()
+    bounds = {"S2": bound(QPSK_BATCH * 8 + n_sym * 8, MM_OPS * n_sym),
+              "S1": bound(n_sym * 16, COSTAS_OPS * n_sym)}
+    for kid, what, steps in (("S2", "clock_recovery_mm", n_sym),
+                             ("S1", "costas_loop", n_sym)):
+        floor_ms = serial_floor_ns(kid, mhz) * steps * 1e-6
+        log(f"{kid} {what} on the QPSK link's shape ({steps} steps, one "
+            f"stream): {err[kid]:.2e} of max|y| from its plain version; "
+            f"kernel {ms[kid]:.4f} ms = {ms[kid] * 1e6 / steps:.1f} ns a step; "
+            f"bound {bounds[kid][0]:.5f} ms ({bounds[kid][1]}); serial floor "
+            f"{floor_ms:.4f} ms, {100 * floor_ms / ms[kid]:.1f}% of it; plain "
+            f"{plain[kid]:.0f} ms on the CPU [{card}]")
+        require(err[kid] <= LOOP_TOL, f"{kid} on the link's shape: {err[kid]}")
+    log(f"S1 decisions flipped against its plain version: {flips}")
+    require(flips == 0, f"S1 on the link's shape: {flips} decisions flipped")
+    return {"ms": ms, "plain": plain, "err": err, "bounds": bounds}
+
+
+# FP32 operations a step, for the bounds (the least work of the function):
+# S1 a sincos (~20), the rotation 6, the detector 3, the clamps and updates
+# 10, the wrap 4 and its divide; S2 interpolation 6, slicer 2, the error 10,
+# omega and the step 10
+COSTAS_OPS = 20 + 6 + 3 + 10 + 5
+MM_OPS = 6 + 2 + 10 + 10
+
+
+def phase_qpsk_link(torch, card: str) -> dict:
+    """52. The QPSK link at full width in graph mode: qpsk_tx on the card,
+    the channel, qpsk_receiver (AGC, 44-tap RRC matched filter, S2 at sps 4,
+    S1 at loop_bw 0.06, decisions, diff decoder) over 4 batches of 2^20
+    samples: symbols equal to the sent ones from symbol 2000 at the lag in
+    every batch but at the 36 where the reference's receiver errs on this
+    stream (QPSK_REF_ERRORS), S1 and S2 launched; graph mode bit-equal to
+    the loop and to batches of 2^18; the step's two-point time, loop time
+    and profile."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.blocks import general
+    from newsched_tpu_torch.models import qpsk_receiver
+    from newsched_tpu_torch.ops.cuda import loops as kloops
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+
+    syms, rx = qpsk_stream(torch)
+    zero_launches()
+    fg, b = qpsk_receiver(rx[:QPSK_BATCHES * QPSK_BATCH], sps=QPSK_SPS,
+                          batch_size=QPSK_BATCH)
+    r = fg.run(device="cuda")
+    require(r._chunk is not None or QPSK_BATCHES < 2, "QPSK: no graph mode")
+    launches = {"costas_loop": kloops.costas_loop.launches,
+                "clock_recovery_mm": kloops.clock_recovery_mm.launches}
+    got = b["sink"].data()
+    log(f"QPSK link, {QPSK_BATCHES} batches of {QPSK_BATCH} samples in graph "
+        f"mode: launches {launches}")
+    require(all(v > 0 for v in launches.values()),
+            "QPSK link: S1 or S2 never launched")
+    qpsk_check(got, syms[:len(got)], "QPSK link, graph mode")
+
+    def build(batch):
+        def f(nb):
+            return qpsk_receiver(rx[:nb * batch], sps=QPSK_SPS,
+                                 batch_size=batch)
+        return f
+
+    loop_out, _ = graph_vs_loop(build(QPSK_BATCH // 4), "QPSK link at 2^18",
+                                ["costas_loop.launches",
+                                 "clock_recovery_mm.launches"])
+    small = loop_out[:len(got)]
+    require(np.array_equal(small, got[:len(small)]),
+            "QPSK link: batches of 2^18 differ from batches of 2^20")
+    log(f"QPSK link: batches of 2^18 ({len(small)} symbols) bit-equal to "
+        f"batches of 2^20")
+
+    def timed():
+        src = general.vector_source(rx[:QPSK_BATCH], repeat=True)
+        _, blk = qpsk_receiver(source=src, sps=QPSK_SPS, batch_size=QPSK_BATCH)
+        g = Flowgraph("qpsk_receiver timed", batch_size=QPSK_BATCH)
+        chain = [blk[k] for k in ("source", "agc", "mf", "timing", "carrier",
+                                  "decoder", "diff")]
+        for a, b_ in zip(chain, chain[1:] + [general.null_sink(dtype="ri32")]):
+            g.connect(a, 0, b_, 0)
+        return g
+
+    sps = bench.timed_two_point(bench.graph_run(timed(), "cuda"),
+                                "graph mode QPSK link", QPSK_BATCH, n_best=3,
+                                k1=2, k2=6)
+    step = QPSK_BATCH / sps * 1e3
+    from newsched_tpu_torch.runtime.runner import Runner
+
+    g = timed()
+    g.validate()
+    runner = Runner(g, batch_size=g.batch_size, device="cuda")
+    params, box = runner.init_params(), {"s": runner.init_states()}
+
+    def one():
+        box["s"], _ = runner.cfg.step(box["s"], params)
+
+    loop = median_ms(one, reps=3, inner=2, warmup=1)
+    dev_ms = profile_steps(torch, one, "QPSK link", n=3)
+    syms_per_s = QPSK_BATCH / QPSK_SPS / step * 1e3
+    log(f"cell QPSK link: graph mode {step:.4f} ms a batch of {QPSK_BATCH} "
+        f"samples = {QPSK_BATCH / step / 1e3:.2f} Msamples/s = "
+        f"{syms_per_s / 1e6:.3f} Msymbols/s on one stream; loop {loop:.4f} ms;"
+        f" device {dev_ms:.4f} ms a step; busy {100 * dev_ms / step:.0f}% "
+        f"[{card}]")
+    return {"launches": launches, "step": step, "loop": loop, "dev": dev_ms}
+
+
+def bpsk_awgn(noise: np.ndarray):
+    """The FEC link's channel as a block: ri16 coded bits -> rf32 LLRs
+    2b - 1 + noise, the noise a seeded stream held on the device and read
+    at the block's own position, modulo its length (a captured step replays
+    it)."""
+    import torch
+
+    from newsched_tpu_torch.runtime.block import SyncBlock
+
+    class bpsk_awgn(SyncBlock):
+        def __init__(self):
+            super().__init__()
+            self.add_input("in", "ri16")
+            self.add_output("out", "rf32")
+
+        def init_state(self, nin, nout, device):
+            return {"noise": torch.as_tensor(noise, device=device),
+                    "pos": torch.zeros((), dtype=torch.int64, device=device)}
+
+        def work(self, state, ins, params, nout):
+            n = len(noise)
+            idx = (state["pos"] + torch.arange(nout, device=ins["in"].device)) % n
+            llr = 2.0 * ins["in"].to(torch.float32) - 1.0 + state["noise"][idx]
+            return {**state, "pos": (state["pos"] + nout) % n}, {"out": llr}
+
+    return bpsk_awgn()
+
+
+def fec_link(bits: np.ndarray, noise: np.ndarray, batch_frames: int = FEC_FRAMES,
+             sink: str = "vector"):
+    from newsched_tpu_torch.blocks import fec, general
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+
+    fg = Flowgraph("fec link", batch_size=batch_frames * FEC_FRAME)
+    snk = (general.vector_sink(dtype="ri16") if sink == "vector"
+           else general.null_sink(dtype="ri16"))
+    chain = [general.vector_source(bits, dtype="ri16",
+                                   repeat=sink != "vector"),
+             fec.cc_encoder(frame_bits=FEC_FRAME, K=FEC_K), bpsk_awgn(noise),
+             fec.cc_decoder(frame_bits=FEC_FRAME, K=FEC_K), snk]
+    for a, b in zip(chain, chain[1:]):
+        fg.connect(a, 0, b, 0)
+    return fg, snk
+
+
+def phase_fec_link(torch, kfec, card: str) -> dict:
+    """53. The FEC link in graph mode: cc_encoder (512-bit frames, K = 7,
+    171/133) -> BPSK +-1 + AWGN -> LLR -> cc_decoder (S3), 4 batches of 1024
+    frames: the decoded bits bit-equal to S3's plain version on the same
+    LLRs and error-free at 7 dB (sigma 0.447); at the reference's own
+    sigma 0.65 a decoded BER under a fifth of the raw; S3 launched; the
+    step's two-point time."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.ops import fec
+
+    n_frames = FEC_BATCHES * FEC_FRAMES
+    coded_per_frame = (FEC_FRAME + FEC_K - 1) * 2
+    rng = np.random.default_rng(53)
+    bits = rng.integers(0, 2, n_frames * FEC_FRAME).astype(np.int16)
+    coded = fec.conv_encode(torch.from_numpy(bits.reshape(n_frames, -1))
+                            .to(torch.int32)).numpy()
+    tabs = fec.viterbi_tables((0o171, 0o133), FEC_K, "cuda")
+    out = {}
+    for sigma in (FEC_SIGMA_7DB, FEC_SIGMA_REF):
+        noise = (sigma * rng.standard_normal(n_frames * coded_per_frame)
+                 ).astype(np.float32)
+        zero_launches()
+        fg, snk = fec_link(bits, noise)
+        r = fg.run(device="cuda")
+        require(r._chunk is not None, "FEC link: no graph mode")
+        launches = kfec.viterbi_frames.launches
+        got = snk.data().astype(np.int32)
+        llr = (2.0 * coded.reshape(-1).astype(np.float32) - 1.0 + noise)
+        ref = np.concatenate([kfec.viterbi_frames_plain(
+            torch.from_numpy(part).cuda().reshape(FEC_FRAMES, -1, 2), tabs,
+            True, FEC_FRAME).cpu().numpy().reshape(-1)
+            for part in np.split(llr, FEC_BATCHES)])
+        errors = int((got != bits).sum())
+        raw = int(((llr > 0) != (coded.reshape(-1) > 0)).sum())
+        ber, raw_ber = errors / bits.size, raw / coded.size
+        log(f"FEC link at sigma {sigma} ({10 * np.log10(1 / sigma ** 2):.2f} dB "
+            f"Eb/N0), {FEC_BATCHES} batches of {FEC_FRAMES} frames in graph "
+            f"mode: bit-equal to S3's plain version: {np.array_equal(got, ref)};"
+            f" {errors} bit errors in {bits.size} (BER {ber:.2e}), raw BER "
+            f"{raw_ber:.2e}; S3 launched {launches} times")
+        require(np.array_equal(got, ref), f"FEC link sigma {sigma}: differs "
+                "from S3's plain version")
+        require(launches > 0, "FEC link: S3 never launched")
+        if sigma == FEC_SIGMA_7DB:
+            require(errors == 0, f"FEC link at 7 dB: {errors} bit errors")
+        else:
+            require(raw_ber > 0.02 and ber < raw_ber / 5,
+                    f"FEC link at sigma {sigma}: BER {ber} against raw {raw_ber}")
+        out[sigma] = {"launches": launches, "ber": ber, "raw_ber": raw_ber}
+    fg, _ = fec_link(bits[:FEC_FRAMES * FEC_FRAME], noise[:FEC_FRAMES
+                                                          * coded_per_frame],
+                     sink="null")
+    sps = bench.timed_two_point(bench.graph_run(fg, "cuda"),
+                                "graph mode FEC link", FEC_FRAMES * FEC_FRAME,
+                                n_best=3, k1=8, k2=32)
+    step = FEC_FRAMES * FEC_FRAME / sps * 1e3
+    log(f"cell FEC link: graph mode {step:.4f} ms a batch of {FEC_FRAMES} "
+        f"frames = {sps / 1e6:.2f} Mbit/s decoded [{card}]")
+    out["step"] = step
+    return out
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -3226,9 +3850,10 @@ def alternate(fns: dict, plain_reps: int = REPS) -> dict:
 def main() -> int:
     from newsched_tpu_torch.blocks import general
     from newsched_tpu_torch.ops import nco as nco_mod
-    from newsched_tpu_torch.ops.cuda import (_build, channelizer, fir_source,
-                                             fm_chain, mathfns, noise, sources,
-                                             wbfm_chain)
+    from newsched_tpu_torch.ops.cuda import (_build, channelizer, fec as kfec,
+                                             fir_source, fm_chain,
+                                             loops as kloops, mathfns, noise,
+                                             sources, wbfm_chain)
     from newsched_tpu_torch.probes import run as probes
     from newsched_tpu_torch.testing import planes_rows
 
@@ -3620,6 +4245,19 @@ def main() -> int:
     k1d = phase_k1_dense(torch, channelizer, noise, card)
     ms.update(k1d["ms"])
     log(f"phases 44-49: {time.monotonic() - t44:.1f} s")
+
+    # 50-53. the digital and FEC half: S1-S3, the QPSK and FEC links
+    t50 = time.monotonic()
+    lp = phase_loops(torch, kloops, card)
+    vt = phase_viterbi(torch, kfec, card)
+    main_loops = loops_on_main_path_shapes(torch, kloops, card)
+    qp = phase_qpsk_link(torch, card)
+    fl = phase_fec_link(torch, kfec, card)
+    log(f"phases 50-53: {time.monotonic() - t50:.1f} s")
+    for kid in ("S1", "S2"):
+        ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
+                                       main_loops["plain"][kid])
+    ms["S3"], ms["S3 plain"] = vt["t"]["S3"], vt["t"]["S3 plain"]
     ms.update(pt["t"])
     lib["window_copy"] = pt["t"]["window_copy library"]
     lib["planes_unpack"] = pt["t"]["planes_unpack library"]
@@ -3639,13 +4277,15 @@ def main() -> int:
     bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
     bounds["K3ag"] = bounds["K3"]  # K3's function, its audio stage banded
     bounds["K1d"] = k1d["bound"]  # at M = 320, DENSE_ROWS rows
+    bounds.update(main_loops["bounds"])  # at the QPSK link's shapes
+    bounds["S3"] = vt["bound"]  # a batch of the FEC link
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
             f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
     log(f"graph-mode launches on the main paths of phase 30: {graph_launches}")
 
     def entry(name, kid, src, replaces, launches, err):
-        if not replaces.startswith("bench/"):
+        if not replaces.startswith(("bench/", "newsched_tpu/")):
             replaces = f"newsched_tpu/ops/pallas/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"newsched_tpu_torch/csrc/{src}",
@@ -3706,6 +4346,16 @@ def main() -> int:
         entry("arm_fold_dft[dense]", "K1d", "channelizer.cu",
               "channelizer.py:209", k1d["launches"],
               fold_err["arm_fold_dft[dense]"]),
+        # no TPU kernel: each replaces a lax.scan of the reference
+        entry("costas_loop", "S1", "loops.cu", "newsched_tpu/ops/loops.py:88",
+              qp["launches"]["costas_loop"],
+              max(lp["err"]["S1"], main_loops["err"]["S1"])),
+        entry("clock_recovery_mm", "S2", "loops.cu",
+              "newsched_tpu/ops/loops.py:165",
+              qp["launches"]["clock_recovery_mm"],
+              max(lp["err"]["S2"], main_loops["err"]["S2"])),
+        entry("viterbi_decode", "S3", "viterbi.cu", "newsched_tpu/ops/fec.py:83",
+              fl[FEC_SIGMA_7DB]["launches"], 0.0),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

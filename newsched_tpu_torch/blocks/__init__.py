@@ -1,4 +1,5 @@
 """The block library (reference: newsched_tpu/blocks)."""
 
 from newsched_tpu_torch.blocks import (  # noqa: F401
-    analog, fft, filter, general, math, streamops, vector_dsp)
+    analog, digital, fec, fft, filter, general, math, streamops,
+    vector_dsp)

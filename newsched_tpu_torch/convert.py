@@ -24,7 +24,9 @@ inside a dict (``freq_xlating_fir``'s ``rot`` and ``fir``); so do the
 sharded channelizer's ``ShardedFMState`` and ``PlanesFMState`` and the
 sharded FIR's ``ShardedFirState`` (parallel/ keeps the reference's
 layouts, a carry block per shard), so a sharded stream too can be handed
-over mid-stream. The reference
+over mid-stream; and the digital loops' ``CostasState`` (its phase in
+float32 radians, not an NCO phase) and ``MMState`` (its int32 read
+position as int64, the form the kernel takes). The reference
 noise sources' threefry ``key`` state has no counterpart (its bits are
 jax's key chaining) and raises.
 
@@ -47,6 +49,7 @@ from newsched_tpu_torch.ops.analog import QuadDemodState, RotatorState
 from newsched_tpu_torch.ops.cuda import noise
 from newsched_tpu_torch.ops.fir import FirState
 from newsched_tpu_torch.ops.iir import IirState
+from newsched_tpu_torch.ops.loops import CostasState, MMState
 from newsched_tpu_torch.ops.nco import phase_tensor
 from newsched_tpu_torch.ops.pfb import PfbState
 from newsched_tpu_torch.parallel.channelizer import PlanesFMState, ShardedFMState
@@ -58,7 +61,7 @@ _HOST_PARAMS = ("dphase", "center_freq")
 _NAMED = {cls.__name__: cls
           for cls in (PfbState, FirState, QuadDemodState, RotatorState,
                       PlanesFMState, ShardedFMState, IirState, AgcState,
-                      ShardedFirState)}
+                      ShardedFirState, CostasState, MMState)}
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -75,8 +78,11 @@ def state_from_jax(state: Any, device) -> Any:
         if cls is RotatorState:
             return RotatorState(phase=phase_tensor(int(np.array(state.phase)),
                                                    device))
-        return cls(*(state_from_jax(v, device) if hasattr(v, "_fields")
-                     else _tensor(v, device) for v in state))
+        out = cls(*(state_from_jax(v, device) if hasattr(v, "_fields")
+                    else _tensor(v, device) for v in state))
+        if cls is MMState:  # the kernel's read position is int64
+            out = out._replace(pos=out.pos.to(torch.int64))
+        return out
     if not isinstance(state, dict):
         if len(state):
             raise NotImplementedError(

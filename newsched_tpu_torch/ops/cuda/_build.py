@@ -78,6 +78,13 @@ SIGNATURES = {
     # probes.cu
     "window_copy_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "planes_unpack_launch": [_P, _P, _P, _P, _I, _I, _P],
+    # loops.cu
+    "costas_launch": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I,
+                      _I, _LL, _P],
+    "mm_launch": [_P] * 17 + [_P, _P, _F, _F, _F, _F, _I, _I, _LL, _I, _I,
+                              _P],
+    # viterbi.cu
+    "viterbi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

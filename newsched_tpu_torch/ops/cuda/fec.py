@@ -1,0 +1,129 @@
+"""S3 ``viterbi_decode``: add-compare-select and traceback of a rate-1/n
+convolutional code, frame by frame (reference: newsched_tpu/ops/fec.py
+``viterbi_decode``, its ACS ``lax.scan`` at ``:131`` and its traceback at
+``:142``). No TPU kernel: the reference runs both as scans, which torch
+cannot express, so the decoder is a CUDA kernel here (``csrc/viterbi.cu``,
+one block a frame, one thread a state), with its plain PyTorch version
+beside it: a torch loop over the steps, every frame and state at once.
+
+The trellis tables come from ops/fec.py (``viterbi_tables``: the
+reference's ``pred``/``pbit`` loop and its expected branch symbols). On
+CPU tensors the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises, and refuses a code or frame the kernel
+does not take (K > 11, n > 4, a frame past the card's shared memory) with
+a ValueError naming the limit. The decoded bits equal the reference's bit
+for bit at rate 1/2: each branch metric is a sum of two exact +-r
+products, and the kernel rounds each add as the plain version does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from newsched_tpu_torch.ops.cuda import _build
+
+MAX_K = 11           # S = 2^(K-1) <= 1024 states, one thread each
+MAX_N = 4            # coded bits a step the kernel's registers hold
+SMEM_MAX = 232448    # shared memory a block on the H100 (227 KB)
+NEG = -1e9           # metric of the states the encoder cannot start in
+
+
+class ViterbiTables(NamedTuple):
+    """One code's trellis on a device: for each state s', its two
+    predecessors ``pred`` (S, 2) int32, their input bits ``pbit`` (S, 2)
+    int32 and the expected +-1 symbols on the two branches ``psym``
+    (S, 2, n) float32."""
+
+    pred: torch.Tensor
+    pbit: torch.Tensor
+    psym: torch.Tensor
+
+
+def viterbi_smem(T: int, n: int, S: int) -> int:
+    """Shared memory of a block of the kernel (``csrc/viterbi.cu``): the
+    frame's LLRs, two metric and two warp-maximum buffers, the final
+    metrics, the tables, a decision word a warp a step and the bits."""
+    nw = -(-S // 32)
+    return 4 * (T * n + 2 * S + 2 * nw + S + 4 * S + T * nw + T)
+
+
+def viterbi_frames_plain(llr: torch.Tensor, tables: ViterbiTables,
+                         terminated: bool, nbits: int) -> torch.Tensor:
+    """The plain version: llr (F, T, n) float32 -> (F, nbits) int32, the
+    first ``nbits`` of each frame's traced-back bits."""
+    F, T, n = llr.shape
+    pred, pbit, psym = tables
+    S = pred.shape[0]
+    dev = llr.device
+    metrics = torch.full((F, S), NEG, dtype=torch.float32, device=dev)
+    metrics[:, 0] = 0.0
+    choices = torch.empty((T, F, S), dtype=torch.int64, device=dev)
+    for t in range(T):
+        rt = llr[:, t]                              # (F, n)
+        bm = psym[None, :, :, 0] * rt[:, None, None, 0]
+        for j in range(1, n):
+            bm = bm + psym[None, :, :, j] * rt[:, None, None, j]
+        cand = metrics[:, pred] + bm                # (F, S, 2)
+        ch = cand[..., 1] > cand[..., 0]            # argmax: the first max
+        new = torch.where(ch, cand[..., 1], cand[..., 0])
+        metrics = new - new.max(dim=1, keepdim=True).values
+        choices[t] = ch.to(torch.int64)
+    if terminated:
+        state = torch.zeros(F, dtype=torch.int64, device=dev)
+    else:
+        state = torch.argmax(metrics, dim=1)
+    bits = torch.empty((F, T), dtype=torch.int32, device=dev)
+    pred64, pbit32 = pred.to(torch.int64), pbit.to(torch.int32)
+    for t in range(T - 1, -1, -1):
+        which = choices[t].gather(1, state[:, None])[:, 0]
+        bits[:, t] = pbit32[state, which]
+        state = pred64[state, which]
+    return bits[:, :nbits]
+
+
+def viterbi_frames(llr: torch.Tensor, tables: ViterbiTables, K: int,
+                   terminated: bool) -> torch.Tensor:
+    """S3 on (F, T, n) float32 LLRs: the plain version for a CPU tensor,
+    ``viterbi_launch`` for a CUDA tensor. Returns (F, T - (K-1)) int32 bits
+    for a terminated code, else (F, T)."""
+    F, T, n = llr.shape
+    nbits = T - (K - 1) if terminated else T
+    if llr.device.type == "cpu":
+        return viterbi_frames_plain(llr, tables, terminated, nbits)
+    S = tables.pred.shape[0]
+    if K > MAX_K or S > 1 << (MAX_K - 1):
+        raise ValueError(f"viterbi_decode: K = {K}, the kernel takes "
+                         f"K <= {MAX_K} (2^{MAX_K - 1} states, one thread "
+                         f"each)")
+    if n > MAX_N:
+        raise ValueError(f"viterbi_decode: rate 1/{n}, the kernel takes "
+                         f"n <= {MAX_N} coded bits a step")
+    smem = viterbi_smem(T, n, S)
+    if smem > SMEM_MAX:
+        raise ValueError(f"viterbi_decode: a frame of {T} steps at K = {K}, "
+                         f"n = {n} needs {smem} B of shared memory, past the "
+                         f"{SMEM_MAX} B limit of a block")
+    lib = _build.lib()  # raises where the kernels cannot be built
+    dev = llr.device
+    _build.check_tensor(llr, "llr", device=dev, shape=(F, T, n))
+    _build.check_tensor(tables.psym, "psym", device=dev, shape=(S, 2, n))
+    for name, t in (("pred", tables.pred), ("pbit", tables.pbit)):
+        if t.device != dev or t.dtype != torch.int32 \
+                or tuple(t.shape) != (S, 2) or not t.is_contiguous():
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, the kernel takes int32 ({S}, 2) "
+                             f"on {dev}")
+    bits = torch.empty((F, nbits), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.viterbi_launch(
+            llr.data_ptr(), bits.data_ptr(), tables.psym.data_ptr(),
+            tables.pred.data_ptr(), tables.pbit.data_ptr(), F, T, n, S,
+            int(terminated), nbits, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "viterbi_launch")
+    viterbi_frames.launches += 1
+    return bits
+
+
+viterbi_frames.launches = 0
