@@ -66,9 +66,10 @@ Phases (each failure raises, so the script exits nonzero):
      within 1e-5 of max|out| from their plain versions, bit-identical at
      their default tiles and 256; K1 (its FFT instance) bit-equal to the
      torch-float32 replay of its planes FFT on K7's output, at runs of 48
-     rows, one ring and its default; K1 also at 128, 192 and 256 channels
-     (the FFT instance, bit-equal to the replay of K7 there too) and 320
-     (the dense instance), where pfb_channelize's "auto" must launch it;
+     rows, one ring and its default; K1 also at 128, 192, 256, 320, 384
+     and 448 channels (the FFT instance, bit-equal to the replay of K7
+     there too) and 512 (the dense instance), where pfb_channelize's
+     "auto" must launch it;
      K7 within 1e-5 of its plain version and
      tile-invariant at 96 and 34 lanes, at 4, 8 and 17 taps, with v short
      of its rows and with v 4 bytes off a 16-byte boundary;
@@ -238,19 +239,26 @@ Phases (each failure raises, so the script exits nonzero):
      de-emphasis (iir_filter at 104448 samples) timed beside K10, and the
      fused step with and without it;
  48. AGC, an order-4 Butterworth iir_filter, the fft block and math and
-     streamops blocks on the card against their CPU runs;
- 49. K1's dense instance on its main path: the staged fm_channelizer at
-     M = 320 in graph mode, >= 60 dB, counted; its time beside its plain
+     streamops blocks on the card against their CPU runs; the AGC's and
+     the rotator's state constructors on the card by default;
+ 49. K1 past 256 channels on its main path: the staged fm_channelizer in
+     graph mode at M = 320 (K1's FFT instance, P = 5, counted; the dense
+     instance never) and at M = 512 (the dense instance, counted), >= 60
+     dB each; the FFT instance's time at M = 320, 384 and 448 beside its
+     plain version, its bound and (M = 320) the dense instance's time
+     there before; the dense instance's at M = 512 beside its plain
      version and its bound (``arm_fold_dft[dense]`` in the kernels line);
  50. S1 costas_loop (orders 2, 4, 8) and S2 clock_recovery_mm (sps 4) at
      65536 samples on 1 and 64 streams against their plain versions (run
      on the CPU): within 1e-4 of max|y|, the state within the same, S1's
      decisions identical; two batches bit-equal to one; their times beside
      the bytes bound and the serial floor of their critical path;
- 51. S3 viterbi_decode at 1024 frames of 512 bits, K = 7 and 3, hard and
-     soft: bit-equal to its plain version; no errors on the noiseless code
-     and with four separated coded bits flipped a frame; its time at 1024
-     frames and at one, beside its bound;
+ 51. S3 viterbi_decode at 1024 frames of 512 bits, K = 7 and 3 (its warp
+     instance) and 11 (its block instance), hard and soft, each launch
+     counted on its instance: bit-equal to its plain version; no errors on
+     the noiseless code and with four separated coded bits flipped a
+     frame; its time at 1024 frames and at one beside the block-a-frame
+     design's and its bound;
  52. S1 and S2 at the QPSK link's shapes against their plain versions and
      timed (the kernels line's); the QPSK link (``models.qpsk_tx`` on the
      card, a channel of 0.3 rad, 0.5 sample and 20 dB, ``qpsk_receiver``)
@@ -263,7 +271,8 @@ Phases (each failure raises, so the script exits nonzero):
  53. the FEC link (cc_encoder, BPSK + AWGN, cc_decoder: S3) over 8
      batches of 1024 frames in graph mode: bit-equal to S3's plain version
      on the same LLRs, error-free at 7 dB, at the reference's sigma 0.65 a
-     BER under a fifth of the raw; S3 launched; the step's two-point time.
+     BER under a fifth of the raw; S3 (its warp instance) launched; the
+     step's two-point time beside the block-a-frame design's.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -324,11 +333,16 @@ def card_line() -> str:
 
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name in ptxas' 'Compiling entry function' line: the
-    length-prefixed part of the mangled name that ends in _kernel."""
+    length-prefixed part of the mangled name that ends in _kernel, with its
+    integer template arguments (an instance's width, taps, states)."""
     for m in re.finditer(r"(?=(\d+))", ptxas_line):  # every digit suffix
         n = m.group(1)
-        name = ptxas_line[m.start() + len(n):m.start() + len(n) + int(n)]
+        end = m.start() + len(n) + int(n)
+        name = ptxas_line[m.start() + len(n):end]
         if name.endswith("_kernel") and name.isidentifier():
+            args = re.match(r"I((?:Li\d+E)+)E", ptxas_line[end:])
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">"
             return name
     return "?"
 
@@ -721,8 +735,8 @@ def phase_k1_k7(torch, channelizer) -> dict:
     log("K7, K1: the default tile and tile 256 give bit-identical outputs")
     k1_is_fft_of_k7(torch, channelizer, v, c2, w2, fft)
     errs["arm_fold"] = max(errs["arm_fold"], k7_shapes(torch, channelizer))
-    errs["arm_fold_dft"] = max(errs["arm_fold_dft"],
-                               *(k1_wide(torch, channelizer, m) for m in WIDE_M))
+    errs["arm_fold_dft"] = max(errs["arm_fold_dft"], *(
+        k1_wide(torch, channelizer, m) for m in WIDE_M + K1_WIDE_M))
     errs["arm_fold_dft[dense]"] = k1_wide(torch, channelizer, K1_DENSE_M)
     return errs
 
@@ -792,7 +806,8 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
     """K1 at m channels (2m lanes): "auto" in pfb_channelize launches it
     (the FFT instance at m in planes_fft.CHANNELS, bit-equal to the FFT
     replay of K7's output; the dense instance elsewhere), it agrees with
-    its plain version, and runs of 48 rows give the default's bits."""
+    its plain version, and runs of 48 rows (the dense instance: blocks of
+    16) give the default's bits."""
     from newsched_tpu_torch.ops import firdes, pfb
 
     arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(m, L), m)
@@ -822,9 +837,10 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
             channelizer.arm_fold(v, consts.c2, n_out), consts.fft)
         require(torch.equal(got, rep), f"K1 at M={m} differs from the FFT "
                 f"replay of K7's output")
-    require(torch.equal(got, fn(v, consts.c2, consts.w2, n_out, tile=48,
+    tile = 48 if consts.fft is not None else 16  # the dense: 32 rows at 1024
+    require(torch.equal(got, fn(v, consts.c2, consts.w2, n_out, tile=tile,
                                 fft=consts.fft)),
-            f"K1 at M={m}: tile 48 differs from the default tile")
+            f"K1 at M={m}: tile {tile} differs from the default tile")
     return err
 
 
@@ -2372,7 +2388,8 @@ K9P_GEOMS = ((512, 16), (512, 8), (1024, 8), (2048, 8), (1024, 16), (512, 32))
 K9_WIDE_N = 2 * FIR_BATCH   # the 1024-tap live graph: two batches, graph mode
 WIDE_M = (128, 192, 256)    # channels past the flagship's the chains take
 WIDE_ROWS = 16384           # planes rows a batch at those widths
-K1_DENSE_M = 320            # a width K1 takes by its dense instance
+K1_WIDE_M = (320, 384, 448)  # K1's FFT instance past the chains' widths
+K1_DENSE_M = 512            # a width K1 takes by its dense instance
 
 
 def wide_taps(torch, ntaps: int):
@@ -2598,14 +2615,14 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
     return worst
 
 
-def wide_graph(m: int, source, n_batches: int, batch: int, **kw):
+def wide_graph(m: int, source, n_batches: int | None, batch: int, **kw):
     from newsched_tpu_torch import models
 
     taps, audio_taps = wide_design(m)
     return models.fm_channelizer(
         nchans=m, taps_per_arm=L, audio_decim=DECIM, fused=kw.pop("fused", True),
-        source=source, batch_size=batch, sink="vector",
-        n_samples=n_batches * batch // m // DECIM,
+        source=source, batch_size=batch, sink=kw.pop("sink", "vector"),
+        n_samples=None if n_batches is None else n_batches * batch // m // DECIM,
         deviation_frac=1.0 / (2 * np.pi * DEMOD_GAIN), audio_taps=audio_taps,
         **kw)
 
@@ -2752,7 +2769,7 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
 
 
 # -- config #3: the overlap-save engines, its graph, the sharded FIR; config
-# #1 de-emphasised; the block library's DSP half; K1's dense instance --------
+# #1 de-emphasised; the block library's DSP half; K1 past 256 channels ------
 
 FFT_BATCH = 1 << 21        # config #3's batch (bench/bm_micro.py bm_fft_filter)
 FFT_SPLITS = (FFT_BATCH, FFT_BATCH - 8192, FFT_BATCH + 8192)  # uneven, carried
@@ -2762,7 +2779,7 @@ FFT_SIZES = (4096, 8192, 16384, 32768)  # the cuFFT engine's sweep
 ENGINES = ("xla", "mxu")
 AUTO_ENGINE = "xla"        # ops/fir.py fft_engine's pick on the card
 DEEMPH_TAU = 75e-6
-DENSE_ROWS = 16384         # planes rows a batch of the M = 320 staged graph
+DENSE_ROWS = 16384         # planes rows a batch of phase 49's staged graphs
 
 
 def golden64(x: np.ndarray, taps) -> np.ndarray:
@@ -3055,50 +3072,82 @@ def phase_dsp_blocks(torch) -> None:
             ok, what = bool(np.array_equal(gpu, cpu)), "bit-equal"
         log(f"block {name} on the card vs its CPU run, 4 batches: {what}")
         require(ok, f"block {name}: {what}")
+    from newsched_tpu_torch.ops import agc as agc_ops, analog as analog_ops
+
+    devs = (agc_ops.agc_init_state().gain.device.type,
+            analog_ops.rotator_init_state().phase.device.type)
+    log(f"agc_init_state() and rotator_init_state() with no argument: on {devs}")
+    require(devs == ("cuda", "cuda"), f"state constructors default to {devs}")
 
 
-def phase_k1_dense(torch, channelizer, noise, card: str) -> dict:
-    """49. K1's dense instance on its main path: the staged fm_channelizer
-    at M = 320 (noise_source -> pfb_channelizer, whose "auto" launches the
-    dense instance -> demod -> audio FIR), two batches of 16384 rows in
-    graph mode, counts set to 0 before: >= 60 dB against the float64
-    golden, K1 dense launched; its time at M = 320 by CUDA-graph replay
-    beside its plain version, and its bound."""
+K1_DENSE_MS_M320 = 1.6574   # K1 at M = 320 as its dense instance (PERF.md)
+
+
+def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
+    """49. K1 past 256 channels on its main path: the staged fm_channelizer
+    (noise_source -> pfb_channelizer, whose "auto" launches K1 -> demod ->
+    audio FIR), two batches of 16384 rows in graph mode, counts set to 0
+    before each, at M = 320 (K1's FFT instance launched, its dense
+    instance never) and at M = 512 (the dense instance launched, the FFT
+    instance never): >= 60 dB against the float64 golden; each graph's
+    step in graph mode by the two-point fit (null sink); then by
+    CUDA-graph replay at 16384 rows the FFT instance at M = 320, 384, 448
+    and the dense one at M = 512 beside their plain versions and bounds."""
+    from newsched_tpu_torch import bench
     from newsched_tpu_torch.ops import pfb
     from newsched_tpu_torch.testing import planes_rows, snr_db
 
-    m = K1_DENSE_M
-    batch = DENSE_ROWS * m
-    zero_launches()
-    fg, blks = wide_graph(m, None, 2, batch, fused=False)
-    fg.run(device="cuda")
-    launches = channelizer.arm_fold_dft.dense_launches
-    r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
-                                  seed=0, device="cuda")
-    x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
-         * 0.5).cpu().numpy()
-    ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
-    snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
-    log(f"staged fm_channelizer at M={m}, 2 batches of {batch} in graph mode: "
-        f"{snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); K1 dense launched "
-        f"{launches} times")
-    require(snr >= STAGED_GATE_DB and launches > 0,
-            f"staged M={m}: {snr:.2f} dB, or K1 dense never launched")
-    taps, _ = wide_design(m)
-    pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
-    g = torch.Generator(device="cuda").manual_seed(m)
-    v = torch.randn(DENSE_ROWS + L - 1, 2 * m, device="cuda", generator=g)
-    t = alternate({
-        "K1d plain": lambda: channelizer.arm_fold_dft_plain(v, pc.c2, pc.w2,
-                                                            DENSE_ROWS),
-        "K1d": lambda: channelizer.arm_fold_dft(v, pc.c2, pc.w2, DENSE_ROWS),
-    }, PLAIN_REPS)
-    ms = {k: min(x_) for k, x_ in t.items()}
-    b_ms, by = chain_bounds(m, DENSE_ROWS, DENSE_ROWS)["K1"]
-    log(f"K1 dense arm_fold_dft at M={m} ({DENSE_ROWS} x {2 * m} rows): kernel "
-        f"{t['K1d']} ms, plain {t['K1d plain']} ms; bound {b_ms:.4f} ms ({by}),"
-        f" {100 * b_ms / ms['K1d']:.1f}% of it [{card}]")
-    return {"launches": launches, "ms": ms, "bound": (b_ms, by)}
+    fn = channelizer.arm_fold_dft
+    launches = {}
+    for m, count, never in ((K1_WIDE_M[0], "launches", "dense_launches"),
+                            (K1_DENSE_M, "dense_launches", "launches")):
+        batch = DENSE_ROWS * m
+        zero_launches()
+        fg, blks = wide_graph(m, None, 2, batch, fused=False)
+        fg.run(device="cuda")
+        n, n_never = getattr(fn, count), getattr(fn, never)
+        r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
+                                      seed=0, device="cuda")
+        x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
+             * 0.5).cpu().numpy()
+        ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
+        snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
+        log(f"staged fm_channelizer at M={m}, 2 batches of {batch} in graph "
+            f"mode: {snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); K1 "
+            f"{count} {n}, {never} {n_never}")
+        require(snr >= STAGED_GATE_DB and n > 0 and n_never == 0,
+                f"staged M={m}: {snr:.2f} dB, or K1 {count} {n}, {never} "
+                f"{n_never}")
+        launches[m] = n
+        fg, _ = wide_graph(m, None, None, batch, fused=False, sink="null")
+        sps = bench.timed_two_point(bench.graph_run(fg, "cuda"),
+                                    f"graph mode staged M={m}", batch,
+                                    n_best=3, k1=8, k2=32)
+        log(f"cell staged fm_channelizer at M={m}: graph mode "
+            f"{batch / sps * 1e3:.4f} ms a batch of {batch} samples = "
+            f"{sps / 1e6:.1f} Msamples/s [{card}]")
+    ms, bounds = {}, {}
+    for m in K1_WIDE_M + (K1_DENSE_M,):
+        taps, _ = wide_design(m)
+        pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
+        g = torch.Generator(device="cuda").manual_seed(m)
+        v = torch.randn(DENSE_ROWS + L - 1, 2 * m, device="cuda", generator=g)
+        kid = "K1d" if m == K1_DENSE_M else f"K1 M={m}"
+        t = alternate({
+            kid + " plain": lambda: channelizer.arm_fold_dft_plain(
+                v, pc.c2, pc.w2, DENSE_ROWS),
+            kid: lambda: fn(v, pc.c2, pc.w2, DENSE_ROWS, fft=pc.fft),
+        }, PLAIN_REPS)
+        ms.update({k: min(x_) for k, x_ in t.items()})
+        bounds[kid] = b_ms, by = chain_bounds(m, DENSE_ROWS, DENSE_ROWS)["K1"]
+        was = (f"; its dense instance there before {K1_DENSE_MS_M320} ms "
+               f"(PERF.md), {K1_DENSE_MS_M320 / ms[kid]:.1f}x"
+               if m == K1_WIDE_M[0] else "")
+        log(f"K1 arm_fold_dft at M={m} ({DENSE_ROWS} x {2 * m} rows, "
+            f"{'dense' if m == K1_DENSE_M else 'FFT'} instance): kernel "
+            f"{t[kid]} ms, plain {t[kid + ' plain']} ms; bound {b_ms:.4f} ms "
+            f"({by}), {100 * b_ms / ms[kid]:.1f}% of it{was} [{card}]")
+    return {"launches": launches, "ms": ms, "bound": bounds}
 
 
 # -- the digital and FEC half: S1-S3, the QPSK link, the FEC link ------------
@@ -3322,16 +3371,27 @@ def fec_llrs(torch, n_frames: int, sigma: float, seed: int, K: int = FEC_K,
     return llr, bits, int(((rx > 0) != (coded > 0)).sum())
 
 
+S3_CODES = (((0o171, 0o133), 7), ((0o7, 0o5), 3), ((0o2565, 0o3753), 11))
+# S3 before its warp instance (one block a frame, a barrier a step; PERF.md
+# section 6): 1024 frames, ns a step of one frame alone, the FEC link's step
+S3_BLOCK = {"ms": 0.2189, "one frame ns": 368.3, "link ms": 0.3470}
+
+
 def phase_viterbi(torch, kfec, card: str) -> dict:
     """51. S3 against its plain version (on the card) at 1024 frames of 512
-    bits, K = 7 (171/133) and K = 3 (7/5), hard and soft LLRs: decoded bits
-    bit-equal; zero errors on the noiseless code and with four separated
-    coded bits flipped a frame (tests/test_fec.py:41); its time at 1024
-    frames and at one (a step's synchronisation cost) beside its bound."""
+    bits, K = 7 (171/133) and K = 3 (7/5) on its warp instance and K = 11
+    (2565/3753) on its block instance, hard and soft LLRs, each launch
+    counted on its instance's count: decoded bits bit-equal; zero errors
+    on the noiseless code and with four separated coded bits flipped a
+    frame (tests/test_fec.py:41); its time at 1024 frames and at one (a
+    step's latency) beside the block-a-frame design's and its bound."""
     from newsched_tpu_torch.ops import fec
 
-    for polys, K in (((0o171, 0o133), 7), ((0o7, 0o5), 3)):
+    vf = kfec.viterbi_frames
+    for polys, K in S3_CODES:
         tabs = fec.viterbi_tables(polys, K, "cuda")
+        inst = kfec.viterbi_instance(K)
+        count = "launches" if inst == "warp" else "block_launches"
         for kind, sigma in (("hard", 0.8), ("soft", 0.8), ("noiseless", 0.0),
                             ("4 flips", 0.0)):
             llr, bits, _ = fec_llrs(torch, FEC_FRAMES, sigma, seed=51 + K,
@@ -3339,13 +3399,16 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
             if kind == "4 flips":
                 llr[:, [17, 150, 301, 450]] *= -1
             lc = torch.from_numpy(llr).cuda().reshape(FEC_FRAMES, -1, 2)
-            got = kfec.viterbi_frames(lc, tabs, K, True)
+            before = getattr(vf, count)
+            got = vf(lc, tabs, K, True)
             ref = kfec.viterbi_frames_plain(lc, tabs, True, FEC_FRAME)
             equal = torch.equal(got, ref)
             errors = int((got.cpu().numpy() != bits).sum())
             log(f"S3 viterbi_decode K = {K}, {kind}, {FEC_FRAMES} frames of "
-                f"{FEC_FRAME} bits: bit-equal to its plain version: {equal}; "
-                f"{errors} bit errors")
+                f"{FEC_FRAME} bits, {inst} instance: bit-equal to its plain "
+                f"version: {equal}; {errors} bit errors")
+            require(getattr(vf, count) == before + 1,
+                    f"S3 K {K}: the {inst} instance was not counted")
             require(equal, f"S3 K {K} {kind}: differs from its plain version")
             require(kind in ("hard", "soft") or errors == 0,
                     f"S3 K {K} {kind}: {errors} bit errors")
@@ -3353,9 +3416,8 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
     llr, _, _ = fec_llrs(torch, FEC_FRAMES, 0.8, seed=510)
     lc = torch.from_numpy(llr).cuda().reshape(FEC_FRAMES, -1, 2)
     one = lc[:1].contiguous()
-    t = {"S3": graph_ms(lambda: kfec.viterbi_frames(lc, tabs, FEC_K, True)),
-         "S3 one frame": graph_ms(lambda: kfec.viterbi_frames(one, tabs, FEC_K,
-                                                              True)),
+    t = {"S3": graph_ms(lambda: vf(lc, tabs, FEC_K, True)),
+         "S3 one frame": graph_ms(lambda: vf(one, tabs, FEC_K, True)),
          "S3 plain": median_ms(lambda: kfec.viterbi_frames_plain(
              lc, tabs, True, FEC_FRAME), reps=3, inner=1)}
     T, S = lc.shape[1], 1 << (FEC_K - 1)
@@ -3364,10 +3426,11 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
     log(f"S3 viterbi_decode ({FEC_FRAMES} x {T} steps, {S} states): kernel "
         f"{t['S3']:.4f} ms = {t['S3'] * 1e6 / T:.1f} ns a step of every frame "
         f"at once; one frame {t['S3 one frame']:.4f} ms = "
-        f"{t['S3 one frame'] * 1e6 / T:.1f} ns a step (its barrier, shuffles "
-        f"and loads: the synchronisation cost); plain {t['S3 plain']:.2f} ms; "
-        f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / t['S3']:.1f}% of it "
-        f"[{card}]")
+        f"{t['S3 one frame'] * 1e6 / T:.1f} ns a step; the block-a-frame "
+        f"design {S3_BLOCK['ms']} ms, one frame {S3_BLOCK['one frame ns']} ns "
+        f"a step; "
+        f"plain {t['S3 plain']:.2f} ms; bound {b_ms:.4f} ms ({by}), "
+        f"{100 * b_ms / t['S3']:.1f}% of it [{card}]")
     return {"t": t, "bound": (b_ms, by)}
 
 
@@ -3698,7 +3761,8 @@ def phase_fec_link(torch, kfec, card: str) -> dict:
                                 n_best=3, k1=8, k2=32)
     step = FEC_FRAMES * FEC_FRAME / sps * 1e3
     log(f"cell FEC link: graph mode {step:.4f} ms a batch of {FEC_FRAMES} "
-        f"frames = {sps / 1e6:.2f} Mbit/s decoded [{card}]")
+        f"frames = {sps / 1e6:.2f} Mbit/s decoded (with the block-a-frame S3: "
+        f"{S3_BLOCK['link ms']} ms) [{card}]")
     out["step"] = step
     return out
 
@@ -4235,15 +4299,15 @@ def main() -> int:
     log(f"phases 40-43: {time.monotonic() - t40:.1f} s")
 
     # 44-49. config #3's engines, graph and sharded FIR; config #1
-    # de-emphasised; the block library's DSP half; K1's dense instance
+    # de-emphasised; the block library's DSP half; K1 past 256 channels
     t44 = time.monotonic()
     phase_engines(torch, card)
     phase_config3(torch, card)
     phase_sharded_fir(torch)
     phase_deemph(torch, wb, card, ms["K10"])
     phase_dsp_blocks(torch)
-    k1d = phase_k1_dense(torch, channelizer, noise, card)
-    ms.update(k1d["ms"])
+    k1w = phase_k1_wide(torch, channelizer, noise, card)
+    ms.update(k1w["ms"])
     log(f"phases 44-49: {time.monotonic() - t44:.1f} s")
 
     # 50-53. the digital and FEC half: S1-S3, the QPSK and FEC links
@@ -4276,7 +4340,7 @@ def main() -> int:
     bounds["planes_unpack"] = bound(2 * pt["stream_bytes"], 0)
     bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
     bounds["K3ag"] = bounds["K3"]  # K3's function, its audio stage banded
-    bounds["K1d"] = k1d["bound"]  # at M = 320, DENSE_ROWS rows
+    bounds["K1d"] = k1w["bound"]["K1d"]  # at M = 512, DENSE_ROWS rows
     bounds.update(main_loops["bounds"])  # at the QPSK link's shapes
     bounds["S3"] = vt["bound"]  # a batch of the FEC link
     for name, (b_ms, by) in bounds.items():
@@ -4344,7 +4408,7 @@ def main() -> int:
         entry("arm_fold_dft[M=128]", "K1w", "channelizer.cu",
               "channelizer.py:209", wide["K1"], fold_err["arm_fold_dft"]),
         entry("arm_fold_dft[dense]", "K1d", "channelizer.cu",
-              "channelizer.py:209", k1d["launches"],
+              "channelizer.py:209", k1w["launches"][K1_DENSE_M],
               fold_err["arm_fold_dft[dense]"]),
         # no TPU kernel: each replaces a lax.scan of the reference
         entry("costas_loop", "S1", "loops.cu", "newsched_tpu/ops/loops.py:88",

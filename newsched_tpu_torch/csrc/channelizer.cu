@@ -43,10 +43,11 @@
 // (chip_smoke.py kernel_bounds), where the TPU's dense (2M x 2M) product,
 // 2*128^2 flops a row at M = 64 (17x the FFT), made it compute-bound.
 //
-// K1 at M = 64, 128, 192 and 256 (the FFT instance) is K7's register ring
-// and the fused chains' FFT (planes_fft.cuh) in one block. A thread owns
-// one channel q, lanes 2q and 2q+1 (a float2), G = 256/M groups of M
-// threads at M <= 128 (one group of M threads above), and each group a run
+// K1 at M = 64 P, P = 1 .. 7 (64 to 448 channels; the FFT instance) is
+// K7's register ring and the fused chains' FFT (planes_fft.cuh) in one
+// block. A thread owns one channel q, lanes 2q and 2q+1 (a float2), G =
+// 256/M groups of M threads at M <= 128 (one group of M threads above),
+// and each group a run
 // of consecutive rows, folded in registers as K7 folds them (the ring of L
 // + kAhead rows, each input word loaded once a run, the same fmaf chain as
 // K7's, so K1's fold is K7's output bit for bit). Every S = 32/G rows of
@@ -58,7 +59,16 @@
 // (planes_fft_table) with every operation rounded on its own, so K1's
 // output is the torch-float32 FFT replay of K7's fold bit for bit
 // (channelizer.py fft_interleaved) and does not depend on the run length.
-// Any other 2M that is a multiple of 128 (the TPU kernel's rule) takes the
+// At P <= 4 a row's 8 threads transform it alone (fft_row); at P = 5-7
+// the block takes the tile in two passes, the radix-P columns and then
+// the P 64-point FFTs a warp (fft_tile_wide), so that a thread holds 8
+// complex values of a row, not 8 P, beside its fold's ring and taps
+// (a block of 448 threads leaves 128 registers a thread: at M = 448 and
+// 16 taps ptxas still spills 164 bytes, PERF.md). The two 32-row tiles
+// take 512 M bytes: 229,376 at M = 448, inside the 232,448 a block may
+// have, so every width keeps them.
+// Any other 2M that is a multiple of 128 (the TPU kernel's rule: M = 512
+// and past, and M = 64 P with P >= 8) takes the
 // dense instance: the fold read through the read-only cache (fold_lane:
 // the L-fold reuse is served by L1) into a shared-memory tile (T x W
 // floats, 64 KB at T=128, W=128), then the FP32 product with W2 straight
@@ -364,13 +374,15 @@ arm_fold_fft_kernel(const float* __restrict__ v, long long n_in,
   const auto flush = [&](int step) {
     float* b = sm + (step & 1) * F::kTileRows * W;
     __syncthreads();
-    {
+    if constexpr (P <= 4) {
       const planes_fft::Tw<P> tw(tab, tid & 7);
       for (int base = 4 * (tid >> 5); base < F::kTileRows;
            base += F::kThreads / 8) {
         const int r = base + ((tid >> 3) & 3);
         planes_fft::fft_row<P>(b + r * W, r, tid & 7, tw, tab);
       }
+    } else {
+      planes_fft::fft_tile_wide<P>(b, F::kTileRows, tid, F::kThreads, tab);
     }
     __syncthreads();
     for (int e = tid; e < F::kTileRows * (M / 2); e += F::kThreads) {
@@ -378,7 +390,13 @@ arm_fold_fft_kernel(const float* __restrict__ v, long long n_in,
       const long long t = run0 + (long long)(j / kS) * R + step * kS + j % kS;
       if (t < n_out) {
         const float* row = b + j * W;
-        const int i0 = planes_fft::sw(j, qq), i1 = planes_fft::sw(j, qq + 1);
+        int i0, i1;  // where the transform left channels qq, qq + 1
+        if constexpr (P <= 4) {
+          i0 = planes_fft::sw(j, qq), i1 = planes_fft::sw(j, qq + 1);
+        } else {
+          i0 = planes_fft::sw(j, planes_fft::wide_lane<P>(qq));
+          i1 = planes_fft::sw(j, planes_fft::wide_lane<P>(qq + 1));
+        }
         *reinterpret_cast<float4*>(out + t * W + 2 * qq) =
             make_float4(row[i0], row[M + i0], row[i1], row[M + i1]);
       }
@@ -494,17 +512,13 @@ int launch_fold_fft(const float* v, long long n_in, const float* c2,
 
 // ---- K1 --------------------------------------------------------------------
 
-// K1: fold T rows into shared memory, then Y = acc @ W2 in passes of 32
-// rows by 128 columns. W is a multiple of 128: the template's kWidth when
-// that is nonzero (a constant, so the index arithmetic and the product's
-// loops compile as for K3), else the argument w.
-template <int kWidth>
+// K1's dense instance: fold T rows into shared memory, then Y = acc @ W2
+// in passes of 32 rows by 128 columns; W a multiple of 128.
 __global__ void __launch_bounds__(kThreads)
 arm_fold_dft_kernel(const float* __restrict__ v, long long n_in,
                     const float* __restrict__ c2, const float* __restrict__ w2,
-                    float* __restrict__ out, long long n_out, int w, int L,
+                    float* __restrict__ out, long long n_out, int W, int L,
                     int T) {
-  const int W = kWidth ? kWidth : w;
   extern __shared__ __align__(16) float buf[];  // (T_pad, W)
   const long long t0 = (long long)blockIdx.x * T;
   const int T_pad = (T + kPassRows - 1) / kPassRows * kPassRows;
@@ -535,17 +549,16 @@ unsigned n_blocks(long long n_out, int T) {
   return (unsigned)((n_out + T - 1) / T);
 }
 
-template <int kWidth>
 int launch_fold_dft(const float* v, long long n_in, const float* c2,
                     const float* w2, float* out, long long n_out, int W, int L,
                     int T, cudaStream_t stream) {
   const size_t smem =
       (size_t)((T + kPassRows - 1) / kPassRows * kPassRows) * W * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      arm_fold_dft_kernel<kWidth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      arm_fold_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  arm_fold_dft_kernel<kWidth><<<n_blocks(n_out, T), kThreads, smem, stream>>>(
+  arm_fold_dft_kernel<<<n_blocks(n_out, T), kThreads, smem, stream>>>(
       v, n_in, c2, w2, out, n_out, W, L, T);
   return (int)cudaGetLastError();
 }
@@ -558,16 +571,11 @@ extern "C" int arm_fold_dft_launch(const float* v, long long n_in,
                                    int T, void* stream) {
   if (W < kW || W % kW != 0 || T < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {  // the widths of the repo's channelizers (M = 64 .. 256)
-    case 128: return launch_fold_dft<128>(v, n_in, c2, w2, out, n_out, W, L, T, s);
-    case 256: return launch_fold_dft<256>(v, n_in, c2, w2, out, n_out, W, L, T, s);
-    case 512: return launch_fold_dft<512>(v, n_in, c2, w2, out, n_out, W, L, T, s);
-    default: return launch_fold_dft<0>(v, n_in, c2, w2, out, n_out, W, L, T, s);
-  }
+  return launch_fold_dft(v, n_in, c2, w2, out, n_out, W, L, T,
+                         (cudaStream_t)stream);
 }
 
-// K1's FFT instance (M = 64, 128, 192, 256): tab the (4, M) table of
+// K1's FFT instance (M = 64 P, P = 1 .. 7): tab the (4, M) table of
 // planes_fft_table; R rows a run of each group (0: one wave).
 extern "C" int arm_fold_fft_launch(const float* v, long long n_in,
                                    const float* c2, const float* tab,
@@ -582,6 +590,9 @@ extern "C" int arm_fold_fft_launch(const float* v, long long n_in,
     case 128: return launch_fold_fft<128>(v, n_in, c2, tab, out, n_out, L, R, s);
     case 192: return launch_fold_fft<192>(v, n_in, c2, tab, out, n_out, L, R, s);
     case 256: return launch_fold_fft<256>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 320: return launch_fold_fft<320>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 384: return launch_fold_fft<384>(v, n_in, c2, tab, out, n_out, L, R, s);
+    case 448: return launch_fold_fft<448>(v, n_in, c2, tab, out, n_out, L, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,12 @@
-// The planes DFT as a shared-memory FFT, for M = 64, 128, 192 and 256
-// channels: the phase combine of the fused chains (fm_chain.cu, stage 2 of
-// chain_tile) and of the channelizer front end (channelizer.cu, K1).
+// The planes DFT as a shared-memory FFT, for M = 64 P channels, P = 1 .. 7
+// (64 to 448): the phase combine of the fused chains (fm_chain.cu, stage 2
+// of chain_tile, P <= 4) and of the channelizer front end (channelizer.cu,
+// K1, every P).
 //
 // A planes row holds a[k] = re at lane k and im at lane M + k (k < M); the
 // routine replaces it with Y[j] = e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}
-// (ops/cuda/fm_chain.py planes_dft_matrix). M = 64 P, P = 1 .. 4, and the
-// transform is a radix-P step, decimation in frequency, then P 64-point
-// FFTs of 8 x 8:
+// (ops/cuda/fm_chain.py planes_dft_matrix). The transform is a radix-P
+// step, decimation in frequency, then P 64-point FFTs of 8 x 8:
 //
 //   y_r[n] = W_M^(n r) sum_j a[n + 64 j] W_P^(j r)     n < 64, r < P
 //   X[P k + r] = sum_n y_r[n] W_64^(n k)              (the 8 x 8 FFT)
@@ -33,6 +33,23 @@
 // which puts the 4 rows of a warp on 4 disjoint sets of 8 banks when its
 // threads read a[t + 8 n2 + 64 j]; the exchange has its own conflict-free
 // layout (xch), the same in each 64-lane part of the row.
+//
+// Past P = 4 (fft_tile_wide, K1 at M = 320, 384, 448) a thread holding
+// 8 P complex values of a row would not fit the registers a block of M
+// threads leaves it beside K1's fold (168 a thread at M = 320 and 384,
+// 128 at 448), so the same operations are spread over the block in two
+// passes: (a) the radix-P step, one column n of one row a thread (P
+// values), in place; (b) the P 64-point FFTs of each row, sub-FFT q of 4
+// rows a warp (8 values a thread), each in its own 64-lane part of the
+// row, with its outputs Y[P (t + 8 k2) + q] left at logical lane
+// 64 q + t + 8 k2 of that part (wide_lane): every pass then touches only
+// its own part, so the passes of one row need no barrier between them.
+// The P-point DFTs: P = 5 and 7 from the pairs x[m] +- x[P-m] (t_k = x0 +
+// sum_m cos(2 pi mk/P) s_m, u_k = sum_m sin(2 pi mk/P) d_m, y_k, y_{P-k} =
+// t_k -+ i u_k), their cos and sin the table's post-twiddle at j = 64 a
+// (e^{-2 pi i a/P}); P = 6 as 2 x 3 by the prime-factor map (no
+// twiddles): the 3-point DFTs of x[0, 2, 4] and x[3, 5, 1], then 2-point
+// DFTs, y at (3 k1 + 4 k2) mod 6.
 
 #pragma once
 
@@ -222,6 +239,157 @@ __device__ __forceinline__ void fft_row(float* row, int r, int t,
       const int i = sw(r, j);
       row[i] = xr[q][k2];
       row[M + i] = xi[q][k2];
+    }
+  }
+}
+
+// ---- P = 5, 6, 7: the tile in two passes (fft_tile_wide) ------------------
+
+// cos and sin of 2 pi a / P, a = 0 .. P-1: the table's e^{-2 pi i j/M} at
+// j = 64 a.
+template <int P>
+struct WP {
+  float cs[P], sn[P], h;
+  __device__ __forceinline__ explicit WP(const float* tab) {
+    constexpr int M = 64 * P;
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      cs[a] = __ldg(tab + 2 * M + 64 * a);
+      sn[a] = -__ldg(tab + 3 * M + 64 * a);
+    }
+    h = P == 6 ? sn[2] : 0.f;  // sin(2 pi 2/6) = sin(pi/3), dftp<3>'s at P = 6
+  }
+};
+
+// y[r] = sum_j x[j] W_P^(jr) in place, P = 5, 7 (odd, from the pairs) and
+// P = 6 (2 x 3, the prime-factor map).
+template <int P>
+__device__ __forceinline__ void dftp_wide(float* xr, float* xi, const WP<P>& w) {
+  if constexpr (P == 6) {
+    float ar[3] = {xr[0], xr[2], xr[4]}, ai[3] = {xi[0], xi[2], xi[4]};
+    float br[3] = {xr[3], xr[5], xr[1]}, bi[3] = {xi[3], xi[5], xi[1]};
+    dftp<3>(ar, ai, w.h);
+    dftp<3>(br, bi, w.h);
+#pragma unroll
+    for (int k2 = 0; k2 < 3; ++k2) {  // y at (3 k1 + 4 k2) % 6, k1 = 0, 1
+      const int lo = 4 * k2 % 6, hi = (3 + 4 * k2) % 6;
+      xr[lo] = radd(ar[k2], br[k2]);
+      xi[lo] = radd(ai[k2], bi[k2]);
+      xr[hi] = rsub(ar[k2], br[k2]);
+      xi[hi] = rsub(ai[k2], bi[k2]);
+    }
+  } else {
+    constexpr int H = (P - 1) / 2;
+    float sr[H + 1], si[H + 1], dr[H + 1], di[H + 1];
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      sr[m] = radd(xr[m], xr[P - m]); si[m] = radd(xi[m], xi[P - m]);
+      dr[m] = rsub(xr[m], xr[P - m]); di[m] = rsub(xi[m], xi[P - m]);
+    }
+    float y0r = xr[0], y0i = xi[0];
+#pragma unroll
+    for (int m = 1; m <= H; ++m) y0r = radd(y0r, sr[m]), y0i = radd(y0i, si[m]);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      float tr = xr[0], ti = xi[0], ur = 0.f, ui = 0.f;
+#pragma unroll
+      for (int m = 1; m <= H; ++m) {
+        const int a = m * k % P;
+        tr = radd(tr, rmul(w.cs[a], sr[m]));
+        ti = radd(ti, rmul(w.cs[a], si[m]));
+        const float pr = rmul(w.sn[a], dr[m]), pi = rmul(w.sn[a], di[m]);
+        ur = m == 1 ? pr : radd(ur, pr);
+        ui = m == 1 ? pi : radd(ui, pi);
+      }
+      xr[k] = radd(tr, ui); xi[k] = rsub(ti, ur);
+      xr[P - k] = rsub(tr, ui); xi[P - k] = radd(ti, ur);
+    }
+    xr[0] = y0r;
+    xi[0] = y0i;
+  }
+}
+
+// Where sub-FFT q leaves output j = P (t + 8 k2) + q: logical lane
+// 64 q + t + 8 k2 of the row.
+template <int P>
+__device__ __forceinline__ int wide_lane(int j) {
+  return 64 * (j % P) + j / P;
+}
+
+// The planes DFT of `rows` rows of the tile (rows of 2M floats, swizzled,
+// rows a multiple of 4) by all `threads` threads of the block, thread tid;
+// the caller has synchronised the block before. Row r's output j is left
+// at logical lane wide_lane<P>(j) of row r; a __syncthreads() comes before
+// it is read.
+template <int P>
+__device__ __forceinline__ void fft_tile_wide(float* tile, int rows, int tid,
+                                              int threads, const float* tab) {
+  constexpr int M = 64 * P, W = 2 * M;
+  {  // (a) the radix-P step: column n of row r, n = e % 64 (a constant
+     // of the thread when threads is a multiple of 64)
+    const WP<P> wp(tab);
+    for (int e = tid; e < rows * 64; e += threads) {
+      const int r = e >> 6, n = e & 63;
+      float* row = tile + r * W;
+      float xr[P], xi[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int i = sw(r, n + 64 * j);
+        xr[j] = row[i];
+        xi[j] = row[M + i];
+      }
+      dftp_wide<P>(xr, xi, wp);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (q > 0)
+          cmul(xr[q], xi[q], __ldg(tab + 2 * M + n * q),
+               __ldg(tab + 3 * M + n * q));
+        const int i = sw(r, n + 64 * q);
+        row[i] = xr[q];
+        row[M + i] = xi[q];
+      }
+    }
+  }
+  __syncthreads();
+  // (b) sub-FFT q of rows 4 g .. 4 g + 3, one task a warp
+  const int t = tid & 7, lane_row = (tid >> 3) & 3;
+  const Tw<P> w(tab, t);
+  for (int task = tid >> 5; task < (rows / 4) * P; task += threads >> 5) {
+    const int q = task % P, r = 4 * (task / P) + lane_row, s = r & 3;
+    float* row = tile + r * W;
+    float xr[8], xi[8];
+#pragma unroll
+    for (int n2 = 0; n2 < 8; ++n2) {
+      const int i = sw(r, t + 8 * n2 + 64 * q);
+      xr[n2] = row[i];
+      xi[n2] = row[M + i];
+    }
+    dft8(xr, xi, w.c);  // A[t][k1], k1 = 0..7
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) cmul(xr[k1], xi[k1], w.in_re[k1], w.in_im[k1]);
+    __syncwarp();
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) {
+      const int i = 64 * q + xch(s, t, k1);
+      row[i] = xr[k1];
+      row[M + i] = xi[k1];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int n1 = 0; n1 < 8; ++n1) {
+      const int i = 64 * q + xch(s, n1, t);
+      xr[n1] = row[i];
+      xi[n1] = row[M + i];
+    }
+    __syncwarp();
+    dft8(xr, xi, w.c);  // X[P (t + 8 k2) + q], k2 = 0..7
+#pragma unroll
+    for (int k2 = 0; k2 < 8; ++k2) {
+      const int j = P * (t + 8 * k2) + q;
+      cmul(xr[k2], xi[k2], __ldg(tab + 2 * M + j), __ldg(tab + 3 * M + j));
+      const int i = sw(r, 64 * q + t + 8 * k2);
+      row[i] = xr[k2];
+      row[M + i] = xi[k2];
     }
   }
 }

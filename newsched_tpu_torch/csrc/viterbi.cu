@@ -1,33 +1,47 @@
 // S3 viterbi_decode for Hopper (sm_90a): maximum-likelihood decoding of a
 // rate-1/n convolutional code, one terminated (or unterminated) frame a
-// block.
+// warp (K <= 9) or a block (K = 10, 11).
 //
 // No TPU kernel: it replaces the reference's two `lax.scan`s in
 // newsched_tpu/ops/fec.py `viterbi_decode` (:83): the add-compare-select
-// over S = 2^(K-1) states (:131) and the traceback (:142). The trellis
-// tables (each state's two predecessors `pred`, their input bits `pbit`
-// and the expected +-1 symbols `psym` on the two branches) are the
-// reference's, built by the same loop on the host (ops/fec.py).
+// over S = 2^(K-1) states (:131) and the traceback (:142). The branch
+// symbols `psym` (each state's expected +-1 symbols on its two incoming
+// branches) are the reference's, built by the same loop on the host
+// (ops/fec.py), which also asserts the trellis's butterfly: state s' has
+// the predecessors s'>>1 and (s'>>1) + S/2, both by the input bit s' & 1
+// (nxt[s, b] = ((s << 1) | b) & (S-1) for every code).
 //
 // What bounds it: each of the T steps of a frame depends on the one
 // before, and each step needs every state's new metric (the
 // normalisation subtracts their max). At the FEC link's shape (1024
-// frames of 512 bits, K = 7, rate 1/2: T = 518, S = 64) the work is ~10
-// FP32 operations a state a step, ~340 MFLOP, 5 us at 67 TFLOP/s, and the
-// bytes 6.3 MB, 1.9 us at 3.35 TB/s; the kernel is bound instead by the
-// step's synchronisation. The design keeps that to one barrier a step:
-//   - one block a frame, one thread a state (at least a warp);
-//   - the frame's LLRs and the tables are staged in shared memory once;
-//   - the metrics are double-buffered in shared memory and kept
-//     unnormalised: a step reads its predecessors' metric m and the
-//     previous step's max g and forms (m - g) + bm, the reference's
-//     rounding order exactly, so the max (warp shuffles, then one word a
-//     warp in shared memory, also double-buffered) needs no second
-//     barrier;
-//   - each step's decisions are one __ballot_sync word a warp, T * S / 8
-//     bytes a frame (4.1 KB at K = 7 and 512-bit frames);
-//   - the traceback runs on one thread over the shared-memory words, the
-//     bits leave through shared memory in coalesced stores.
+// frames of 512 bits, K = 7, rate 1/2: T = 518, S = 64) the work is ~12
+// FP32 operations a state a step, ~400 MFLOP, 6 us at 67 TFLOP/s, and the
+// bytes 6.3 MB, 1.9 us at 3.35 TB/s; what the kernel pays instead is a
+// step's latency, T of them in a row. So the design keeps a step inside
+// one warp, with no barrier and no shared-memory round trip:
+//   - a frame a warp, up to 4 frames a block; lane l holds states
+//     l E .. l E + E - 1 (E = S/32 at S >= 32; one state a lane, lanes
+//     past S idle, below), their metrics and branch symbols in registers;
+//   - the states 2p and 2p + 1 share the predecessors p and p + S/2, so a
+//     lane's E/2 pairs read E old metrics, from lanes l>>1 and
+//     16 + (l>>1): 2E __shfl_sync a step (E/2 of each source's E metrics
+//     are the lane's, by the parity of l);
+//   - the max: each lane's over its states, then one __reduce_max_sync on
+//     the floats' order-preserving int keys, in every lane at once;
+//   - the metrics stay unnormalised: a step forms (m - g) + bm with g the
+//     previous step's max, the reference's rounding order exactly;
+//   - each step's decisions are E __ballot_sync words (bit l of word e:
+//     state l E + e), written to the warp's slice of shared memory, T E
+//     words a frame (4.1 KB at K = 7 and 512-bit frames), beside its LLRs,
+//     staged there once;
+//   - the traceback runs on one lane over the words: the state's word is
+//     picked from the step's E words, loaded ahead of it, so the chain is
+//     a select, a shift and an add a step; the bits leave in coalesced
+//     stores.
+// At K = 10 and 11 (16 and 32 states a lane) a warp's registers would not
+// hold them: the block instance takes those codes, one block a frame, one
+// thread a state, its metrics double-buffered in shared memory, one
+// barrier a step, the max by warp shuffles and one word a warp.
 // Ties: predecessor 1 only if its metric is strictly greater, as
 // jnp.argmax picks the first maximum (hard +-1 LLRs tie often). Every
 // multiply and add is separately rounded (__fmul_rn/__fadd_rn); each
@@ -37,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -142,15 +158,160 @@ __global__ void viterbi_kernel(const float* __restrict__ llr,
   for (int i = tid; i < nbits; i += blockDim.x) bf[i] = out[i];
 }
 
+// ---- the warp instance: a frame a warp, S <= 256 ----------------------------
+
+constexpr int kWarpMaxS = 256;   // 8 states a lane
+constexpr int kWarpFrames = 4;   // frames (warps) a block, at most
+constexpr unsigned kAll = 0xffffffffu;
+
+// The max of x over the warp, in every lane: one redux on int keys that
+// order as the floats do (negative floats' magnitude bits flipped).
+__device__ __forceinline__ float warp_max(float x) {
+  const int i = __float_as_int(x);
+  const int m = __reduce_max_sync(kAll, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+// E states a lane (1: one state, lanes past S idle), N coded bits a step.
+// The warp's slice of shared memory: T N LLRs (then the T decoded bits),
+// then T E decision words.
+template <int E, int N>
+__global__ void __launch_bounds__(32 * kWarpFrames)
+viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
+                    const float* __restrict__ psym, int F, int T, int S,
+                    int terminated, int nbits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int H = E > 1 ? E / 2 : 1;  // predecessor pairs a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int f = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (f >= F) return;  // a whole warp; no block barrier follows
+  float* r = reinterpret_cast<float*>(smem) + (long long)warp * T * (N + E);
+  unsigned* dec = reinterpret_cast<unsigned*>(r + (long long)T * N);
+  const float* lf = llr + (long long)f * T * N;
+  for (int i = lane; i < T * N; i += 32) r[i] = lf[i];
+  const bool live = lane * E < S;
+  float sym[E][2][N], v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int st = lane * E + e;
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        sym[e][b][j] = live ? psym[(st * 2 + b) * N + j] : 0.f;
+    v[e] = st == 0 ? 0.f : -1e9f;  // the encoder starts in state 0
+  }
+  // the lanes holding this lane's predecessors p and p + S/2
+  const int src0 = lane >> 1, src1 = (lane >> 1) + (E > 1 ? 16 : S / 2);
+  const bool odd = lane & 1;
+  float g = 0.f;  // the previous step's max (0 before the first step)
+  __syncwarp();
+  for (int t = 0; t < T; ++t) {
+    float rr[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) rr[j] = r[t * N + j];
+    float m0[H], m1[H];  // the pairs' predecessor metrics, less g
+    if constexpr (E == 1) {
+      m0[0] = __fsub_rn(__shfl_sync(kAll, v[0], src0), g);
+      m1[0] = __fsub_rn(__shfl_sync(kAll, v[0], src1), g);
+    } else {
+      float a[E], b[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        a[e] = __shfl_sync(kAll, v[e], src0);
+        b[e] = __shfl_sync(kAll, v[e], src1);
+      }
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        m0[i] = __fsub_rn(odd ? a[H + i] : a[i], g);
+        m1[i] = __fsub_rn(odd ? b[H + i] : b[i], g);
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float bm0 = __fmul_rn(sym[e][0][0], rr[0]);
+      float bm1 = __fmul_rn(sym[e][1][0], rr[0]);
+#pragma unroll
+      for (int j = 1; j < N; ++j) {
+        bm0 = __fadd_rn(bm0, __fmul_rn(sym[e][0][j], rr[j]));
+        bm1 = __fadd_rn(bm1, __fmul_rn(sym[e][1][j], rr[j]));
+      }
+      const float c0 = __fadd_rn(m0[e / 2], bm0), c1 = __fadd_rn(m1[e / 2], bm1);
+      const bool ch = c1 > c0;
+      v[e] = ch ? c1 : c0;
+      mx = fmaxf(mx, v[e]);
+      const unsigned word = __ballot_sync(kAll, live && ch);
+      if (lane == 0) dec[t * E + e] = word;
+    }
+    g = warp_max(live ? mx : -INFINITY);
+  }
+  int state = 0;
+  if (!terminated && T > 0) {  // argmax of v - g, the first of equal maxima
+    int best = 0;
+    float bv = live ? __fsub_rn(v[0], g) : -INFINITY;
+#pragma unroll
+    for (int e = 1; e < E; ++e) {
+      const float fe = __fsub_rn(v[e], g);
+      if (fe > bv) bv = fe, best = e;
+    }
+    const float top = warp_max(bv);
+    const unsigned at = __ballot_sync(kAll, live && bv == top);
+    const int win = __ffs(at) - 1;
+    state = win * E + __shfl_sync(kAll, best, win);
+  }
+  int* out = reinterpret_cast<int*>(r);  // the LLRs are read
+  __syncwarp();
+  if (lane == 0) {
+    const int hi = S >> 1;
+#pragma unroll 4
+    for (int t = T - 1; t >= 0; --t) {
+      unsigned w[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) w[e] = dec[t * E + e];
+      unsigned word = w[0];
+#pragma unroll
+      for (int e = 1; e < E; ++e) word = (state & (E - 1)) == e ? w[e] : word;
+      const int which = (word >> (state / E)) & 1;
+      out[t] = state & 1;  // the input bit into state: pbit
+      state = (state >> 1) + (which ? hi : 0);  // pred[state][which]
+    }
+  }
+  __syncwarp();
+  int* bf = bits + (long long)f * nbits;
+  for (int i = lane; i < nbits; i += 32) bf[i] = out[i];
+}
+
+using WarpKernel = void (*)(const float*, int*, const float*, int, int, int,
+                            int, int);
+
+template <int E>
+WarpKernel warp_instance(int n) {
+  switch (n) {
+    case 1: return viterbi_warp_kernel<E, 1>;
+    case 2: return viterbi_warp_kernel<E, 2>;
+    case 3: return viterbi_warp_kernel<E, 3>;
+    default: return viterbi_warp_kernel<E, 4>;
+  }
+}
+
 }  // namespace
 
-// Shared memory of a block (ops/cuda/fec.py `viterbi_smem` mirrors it, to
+// Shared memory of a block of the block instance, and of a warp's frame in
+// the warp instance (ops/cuda/fec.py `viterbi_smem` mirrors both, to
 // refuse a frame that does not fit and name the limit).
 static long long viterbi_smem(int T, int n, int S) {
   const long long NW = (S + 31) / 32;
   return 4LL * ((long long)T * n + 2 * S + 2 * NW + S + 4 * S + T * NW + T);
 }
 
+static long long viterbi_warp_smem(int T, int n, int S) {
+  return 4LL * T * (n + (S < 32 ? 1 : S / 32));
+}
+
+static constexpr long long kSmemMax = 232448;  // a block on the H100
+
+// The warp instance up to S = 256 (K = 9), the block instance above.
 extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
                               const int* pred, const int* pbit, int F, int T,
                               int n, int S, int terminated, int nbits,
@@ -159,6 +320,28 @@ extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
       (S & (S - 1)) || nbits < 0 || nbits > T)
     return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (S <= kWarpMaxS) {
+    const long long per = viterbi_warp_smem(T, n, S);
+    if (per > kSmemMax) return (int)cudaErrorInvalidValue;
+    const int wpb = (int)std::min<long long>(kWarpFrames, kSmemMax / std::max(per, 1LL));
+    WarpKernel fn;
+    switch (S < 32 ? 1 : S / 32) {
+      case 1: fn = warp_instance<1>(n); break;
+      case 2: fn = warp_instance<2>(n); break;
+      case 4: fn = warp_instance<4>(n); break;
+      default: fn = warp_instance<8>(n);
+    }
+    const long long smem = per * wpb;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    fn<<<(F + wpb - 1) / wpb, 32 * wpb, (size_t)smem, st>>>(
+        llr, bits, psym, F, T, S, terminated, nbits);
+    return (int)cudaGetLastError();
+  }
   const long long smem = viterbi_smem(T, n, S);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -167,7 +350,7 @@ extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
     if (e != cudaSuccess) return (int)e;
   }
   const int threads = S < 32 ? 32 : S;
-  viterbi_kernel<<<F, threads, (size_t)smem, (cudaStream_t)stream>>>(
+  viterbi_kernel<<<F, threads, (size_t)smem, st>>>(
       llr, bits, psym, pred, pbit, T, n, S, terminated, nbits);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ class AgcState(NamedTuple):
     gain: torch.Tensor  # float32, 0-dim
 
 
-def agc_init_state(initial_gain: float = 1.0, device="cpu") -> AgcState:
+def agc_init_state(initial_gain: float = 1.0, device="cuda") -> AgcState:
     return AgcState(gain=torch.tensor(float(initial_gain), dtype=torch.float32,
                                       device=device))
 

@@ -42,7 +42,7 @@ class RotatorState(NamedTuple):
     phase: torch.Tensor
 
 
-def rotator_init_state(device="cpu") -> RotatorState:
+def rotator_init_state(device="cuda") -> RotatorState:
     return RotatorState(phase=phase_tensor(0, device))
 
 

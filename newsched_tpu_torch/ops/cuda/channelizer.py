@@ -9,9 +9,9 @@ fold is M independent L-tap FIRs down the columns of V:
 and the fused front end adds the phase combine, y[:, k] = e^{-j2pi k/M} *
 DFT_q(acc)[:, k]: the plain version as one real (2M x 2M) product with the
 interleaved DFT matrix, the kernel K1 as the chains' shared-memory FFT
-(``planes_fft``) at M = 64, 128, 192 and 256 and as that dense product at
-any other M with 2M a multiple of 128. Both work on the interleaved
-float32 view of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)``
+(``planes_fft``) at M = 64 P, P = 1 .. 7 (64 to 448 channels), and as that
+dense product at any other M with 2M a multiple of 128 (M = 512 and
+past). Both work on the interleaved float32 view of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)``
 is the same memory, so entering and leaving it costs no copy. The kernels
 are ``csrc/channelizer.cu``, whose header says how they map onto the
 H100.
@@ -28,6 +28,7 @@ from newsched_tpu_torch.ops.cuda.planes_fft import (CHANNELS, fft_planes,
 
 TILE = 128      # rows a block of K1's dense instance at 128 lanes (64 KB)
 DFT_LANES = 128  # arm_fold_dft's kernel takes widths that are multiples of this
+SMEM_MAX = 232448  # shared memory a block on the H100 (227 KB)
 
 
 def interleave_taps(c: np.ndarray) -> np.ndarray:
@@ -152,13 +153,15 @@ def arm_fold_dft(v: torch.Tensor, c2, w2, n_out: int,
     ``interleaved_dft_matrix`` -> Y interleaved (n_out, 2M) f32. The
     kernel takes 2M a multiple of 128, as the TPU kernel does, in one of
     two instances chosen by the width alone: at M in ``planes_fft.CHANNELS``
-    (64, 128, 192, 256) the fold in registers and the shared-memory FFT,
+    (64 P, P = 1 .. 7) the fold in registers and the shared-memory FFT,
     which takes ``fft`` (``planes_fft_table(M)``, on the device) in place
     of w2; at any other M the fold and the FP32 product with w2
     (``dense_launches``). ``tile``: rows a thread group folds in a run
     (the FFT instance; default: one wave of runs on the card) or rows a
-    block (the dense one; default 128 at 128 lanes, fewer at wider rows);
-    the output does not depend on it.
+    block (the dense one; default 128 at 128 lanes, fewer at wider rows,
+    32 at 1024 and past; a tile whose rows, rounded up to 32, pass the
+    block's shared memory is refused, and so is every width past 1816
+    lanes); the output does not depend on it.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``arm_fold_dft_launch`` (csrc/channelizer.cu)."""
@@ -188,6 +191,11 @@ def arm_fold_dft(v: torch.Tensor, c2, w2, n_out: int,
     w2 = _f32(w2, v.device, W, W)
     if tile is None:
         tile = max(32, TILE * DFT_LANES // W)
+    smem = -(-tile // 32) * 32 * W * 4  # the block's folded rows
+    if smem > SMEM_MAX:
+        raise ValueError(f"arm_fold_dft: the dense instance's tile of {tile} "
+                         f"rows at {W} lanes needs {smem} B of shared "
+                         f"memory, past the {SMEM_MAX} B limit of a block")
     dev, W, out = _launch_args(v, c2, n_out, tile)
     with torch.cuda.device(dev):
         err = _build.lib().arm_fold_dft_launch(

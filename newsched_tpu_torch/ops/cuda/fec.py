@@ -2,12 +2,17 @@
 convolutional code, frame by frame (reference: newsched_tpu/ops/fec.py
 ``viterbi_decode``, its ACS ``lax.scan`` at ``:131`` and its traceback at
 ``:142``). No TPU kernel: the reference runs both as scans, which torch
-cannot express, so the decoder is a CUDA kernel here (``csrc/viterbi.cu``,
-one block a frame, one thread a state), with its plain PyTorch version
-beside it: a torch loop over the steps, every frame and state at once.
+cannot express, so the decoder is a CUDA kernel here (``csrc/viterbi.cu``),
+with its plain PyTorch version beside it: a torch loop over the steps,
+every frame and state at once. The kernel has two instances, chosen by
+the number of states S = 2^(K-1): up to K = 9 (``WARP_MAX_K``) a frame a
+warp, S/32 states a lane, a step in shuffles and one redux with no
+barrier (``launches``); at K = 10 and 11 a frame a block, a thread a
+state, one barrier a step (``block_launches``).
 
 The trellis tables come from ops/fec.py (``viterbi_tables``: the
-reference's ``pred``/``pbit`` loop and its expected branch symbols). On
+reference's ``pred``/``pbit`` loop and its expected branch symbols; it
+asserts the butterfly both instances read the predecessors from). On
 CPU tensors the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises, and refuses a code or frame the kernel
 does not take (K > 11, n > 4, a frame past the card's shared memory) with
@@ -25,6 +30,7 @@ import torch
 from newsched_tpu_torch.ops.cuda import _build
 
 MAX_K = 11           # S = 2^(K-1) <= 1024 states, one thread each
+WARP_MAX_K = 9       # the warp instance's codes: S <= 256, 8 states a lane
 MAX_N = 4            # coded bits a step the kernel's registers hold
 SMEM_MAX = 232448    # shared memory a block on the H100 (227 KB)
 NEG = -1e9           # metric of the states the encoder cannot start in
@@ -41,11 +47,15 @@ class ViterbiTables(NamedTuple):
     psym: torch.Tensor
 
 
-def viterbi_smem(T: int, n: int, S: int) -> int:
-    """Shared memory of a block of the kernel (``csrc/viterbi.cu``): the
-    frame's LLRs, two metric and two warp-maximum buffers, the final
-    metrics, the tables, a decision word a warp a step and the bits."""
+def viterbi_smem(T: int, n: int, S: int, instance: str = "block") -> int:
+    """Shared memory of a frame (``csrc/viterbi.cu``). The block instance:
+    the frame's LLRs, two metric and two warp-maximum buffers, the final
+    metrics, the tables, a decision word a warp a step and the bits. The
+    warp instance: the frame's LLRs (then its bits) and S/32 decision
+    words a step (one below 32 states)."""
     nw = -(-S // 32)
+    if instance == "warp":
+        return 4 * T * (n + nw)
     return 4 * (T * n + 2 * S + 2 * nw + S + 4 * S + T * nw + T)
 
 
@@ -83,11 +93,17 @@ def viterbi_frames_plain(llr: torch.Tensor, tables: ViterbiTables,
     return bits[:, :nbits]
 
 
+def viterbi_instance(K: int) -> str:
+    """The kernel's instance for a code of constraint length K."""
+    return "warp" if K <= WARP_MAX_K else "block"
+
+
 def viterbi_frames(llr: torch.Tensor, tables: ViterbiTables, K: int,
                    terminated: bool) -> torch.Tensor:
     """S3 on (F, T, n) float32 LLRs: the plain version for a CPU tensor,
-    ``viterbi_launch`` for a CUDA tensor. Returns (F, T - (K-1)) int32 bits
-    for a terminated code, else (F, T)."""
+    ``viterbi_launch`` for a CUDA tensor (its instance
+    ``viterbi_instance(K)``). Returns (F, T - (K-1)) int32 bits for a
+    terminated code, else (F, T)."""
     F, T, n = llr.shape
     nbits = T - (K - 1) if terminated else T
     if llr.device.type == "cpu":
@@ -100,7 +116,8 @@ def viterbi_frames(llr: torch.Tensor, tables: ViterbiTables, K: int,
     if n > MAX_N:
         raise ValueError(f"viterbi_decode: rate 1/{n}, the kernel takes "
                          f"n <= {MAX_N} coded bits a step")
-    smem = viterbi_smem(T, n, S)
+    inst = viterbi_instance(S.bit_length())  # S = 2^(K-1), as the launcher
+    smem = viterbi_smem(T, n, S, inst)
     if smem > SMEM_MAX:
         raise ValueError(f"viterbi_decode: a frame of {T} steps at K = {K}, "
                          f"n = {n} needs {smem} B of shared memory, past the "
@@ -122,8 +139,12 @@ def viterbi_frames(llr: torch.Tensor, tables: ViterbiTables, K: int,
             tables.pred.data_ptr(), tables.pbit.data_ptr(), F, T, n, S,
             int(terminated), nbits, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "viterbi_launch")
-    viterbi_frames.launches += 1
+    if inst == "warp":
+        viterbi_frames.launches += 1
+    else:
+        viterbi_frames.block_launches += 1
     return bits
 
 
 viterbi_frames.launches = 0
+viterbi_frames.block_launches = 0

@@ -1,6 +1,7 @@
 """The planes DFT as the kernels compute it: a radix-P step and P 64-point
-FFTs of 8 x 8 for M = 64 P channels (``csrc/planes_fft.cuh``, taken by the
-fused chains K3, K5, K6, K3p, K3ag and by the channelizer front end K1).
+FFTs of 8 x 8 for M = 64 P channels, P = 1 .. 7 (``csrc/planes_fft.cuh``,
+taken by the fused chains K3, K5, K6, K3p, K3ag at P <= 4 and by the
+channelizer front end K1 at every P).
 
 ``planes_fft_table`` is the kernels' twiddle table; ``fft_planes`` repeats
 the kernels' arithmetic in torch float32, every operation rounded on its
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-CHANNELS = (64, 128, 192, 256)  # M the FFT takes: 64 P, P = 1 .. 4
+CHANNELS = (64, 128, 192, 256, 320, 384, 448)  # M = 64 P, P = 1 .. 7
 
 
 def planes_fft_table(M: int) -> np.ndarray | None:
@@ -23,7 +24,9 @@ def planes_fft_table(M: int) -> np.ndarray | None:
     ``CHANNELS``: row 0/1 the real/imaginary parts of
     e^{-2 pi i n1 k1 / 64} at n1 * 8 + k1 (n1, k1 < 8), zeros past 64;
     row 2/3 those of e^{-2 pi i j / M} at j < M (the post-twiddle, and the
-    radix-P step's W_M^(n r) at j = n r). Computed in float64, then cast."""
+    radix-P step's W_M^(n r) at j = n r, and at P >= 5 the P-point DFT's
+    cos and sin of 2 pi a / P at j = 64 a). Computed in float64, then
+    cast."""
     if M not in CHANNELS:
         return None
     n1, k1 = np.divmod(np.arange(64), 8)
@@ -59,9 +62,39 @@ def _dft4(yr, yi):
             [s0i + s1i, d0i - d1r, s0i - s1i, d0i + d1r])
 
 
-def _dftp(xr: list, xi: list, h):
-    """The kernels' dftp: the P-point DFT of the lists' entries."""
+def _dftp(xr: list, xi: list, h, cs=None, sn=None):
+    """The kernels' dftp (P <= 4) and dftp_wide (P = 5, 6, 7; ``cs``,
+    ``sn`` the cos and sin of 2 pi a / P): the P-point DFT of the lists'
+    entries."""
     P = len(xr)
+    if P == 6:  # 2 x 3, the prime-factor map: y at (3 k1 + 4 k2) % 6
+        (ar, ai), (br, bi) = (_dftp([xr[0], xr[2], xr[4]], [xi[0], xi[2], xi[4]], h),
+                              _dftp([xr[3], xr[5], xr[1]], [xi[3], xi[5], xi[1]], h))
+        yr, yi = [None] * 6, [None] * 6
+        for k2 in range(3):
+            lo, hi = 4 * k2 % 6, (3 + 4 * k2) % 6
+            yr[lo], yi[lo] = ar[k2] + br[k2], ai[k2] + bi[k2]
+            yr[hi], yi[hi] = ar[k2] - br[k2], ai[k2] - bi[k2]
+        return yr, yi
+    if P in (5, 7):  # from the pairs x[m] +- x[P - m]
+        H = (P - 1) // 2
+        sr = [None] + [xr[m] + xr[P - m] for m in range(1, H + 1)]
+        si = [None] + [xi[m] + xi[P - m] for m in range(1, H + 1)]
+        dr = [None] + [xr[m] - xr[P - m] for m in range(1, H + 1)]
+        di = [None] + [xi[m] - xi[P - m] for m in range(1, H + 1)]
+        yr, yi = [xr[0]] + [None] * (P - 1), [xi[0]] + [None] * (P - 1)
+        for m in range(1, H + 1):
+            yr[0], yi[0] = yr[0] + sr[m], yi[0] + si[m]
+        for k in range(1, H + 1):
+            tr, ti = xr[0], xi[0]
+            for m in range(1, H + 1):
+                a = m * k % P
+                tr, ti = tr + cs[a] * sr[m], ti + cs[a] * si[m]
+                pr, pi = sn[a] * dr[m], sn[a] * di[m]
+                ur, ui = (pr, pi) if m == 1 else (ur + pr, ui + pi)
+            yr[k], yi[k] = tr + ui, ti - ur
+            yr[P - k], yi[P - k] = tr - ui, ti + ur
+        return yr, yi
     if P == 2:
         return [xr[0] + xr[1], xr[0] - xr[1]], [xi[0] + xi[1], xi[0] - xi[1]]
     if P == 3:
@@ -83,18 +116,21 @@ def fft_planes(acc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     t of a row holds a[t + 8 n2 + 64 j], the radix-P DFT over j times
     W_M^((t + 8 n2) r), then for each r a radix-8 DFT over n2, times
     W64^(t k1), the exchange, a radix-8 DFT over n1, times the
-    post-twiddle of output P (k1 + 8 k2) + r."""
+    post-twiddle of output P (k1 + 8 k2) + r. Where a kernel leaves each
+    output in shared memory (P >= 5: ``wide_lane``) does not change its
+    value."""
     n, W = acc.shape
     M = W // 2
     P = M // 64
     c = table[2, M // 8]  # cos(pi/4)
-    h = -table[3, M // 3]  # sin(pi/3), read at P = 3
+    h = -table[3, M // 3]  # sin(pi/3), read at P = 3 and 6
+    cs, sn = table[2, ::64], -table[3, ::64]  # cos, sin of 2 pi a/P, P >= 5
     # [row, j, n1, n2] = a[n1 + 8 n2 + 64 j]
     xr = acc[:, :M].reshape(n, P, 8, 8).transpose(2, 3)
     xi = acc[:, M:].reshape(n, P, 8, 8).transpose(2, 3)
     if P > 1:
         yr, yi = _dftp([xr[:, j] for j in range(P)],
-                       [xi[:, j] for j in range(P)], h)
+                       [xi[:, j] for j in range(P)], h, cs, sn)
         nn = torch.arange(64, device=acc.device).reshape(8, 8).T  # [n1, n2]
         for q in range(1, P):
             m = nn * q

@@ -102,10 +102,28 @@ def _tables_np(polys: tuple[int, ...], K: int):
     return pred, pbit, psym
 
 
+def check_butterfly(pred: np.ndarray, pbit: np.ndarray) -> None:
+    """Raise unless the tables are the shift register's butterfly that S3's
+    kernels read instead of them: state s' has the predecessors s'>>1 and
+    (s'>>1) + S/2, in that order, both by the input bit s' & 1 (so states
+    2p and 2p + 1 share their two predecessors)."""
+    S = pred.shape[0]
+    s = np.arange(S)
+    want = np.stack([s >> 1, (s >> 1) + S // 2], axis=1)
+    if not (np.array_equal(pred, want)
+            and np.array_equal(pbit, np.stack([s & 1, s & 1], axis=1))):
+        raise ValueError("viterbi_tables: the trellis is not the shift "
+                         "register's butterfly (pred[s] = s>>1, s>>1 + S/2; "
+                         "pbit[s] = s & 1) that S3's kernels assume")
+
+
 def viterbi_tables(polys: tuple[int, ...], K: int, device) -> _k.ViterbiTables:
-    """The trellis tables of one code on ``device``."""
+    """The trellis tables of one code on ``device``, checked to be the
+    butterfly (``check_butterfly``)."""
+    pred, pbit, psym = _tables_np(tuple(polys), int(K))
+    check_butterfly(pred, pbit)
     return _k.ViterbiTables(*(torch.tensor(a, device=device)  # a copy
-                              for a in _tables_np(tuple(polys), int(K))))
+                              for a in (pred, pbit, psym)))
 
 
 def viterbi_decode(llr: torch.Tensor, polys: tuple[int, ...] = CC_K7_POLYS,

@@ -41,8 +41,11 @@ gets its blocks' own ``r * amp`` and torch.complex build.
 ``times`` times, alternating, by CUDA-graph replay: K4 at 32768 x 128
 alone, with the amplitude and as the cf32 stream (in a tree without them,
 the kernel and the blocks' torch ops after it); K9 at 128, 1024 and 6001
-taps; and the graph-mode steps of the config #2 fused-noise and staged
-graphs and of the live fir_chain at 1024 taps (the bench's two-point fit).
+taps; K1 at M = 320 on 16384 rows (whichever instance the tree routes
+that width to) and S3 at 1024 frames of 512 bits, K = 7 (the tree's
+default instance); and the graph-mode steps of the config #2 fused-noise
+and staged graphs, the staged graph at M = 320 (16384 rows a batch) and
+the live fir_chain at 1024 taps (the bench's two-point fit).
 
 Prints one JSON line a record, the card's name and power limit first.
 """
@@ -60,8 +63,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from newsched_tpu_torch.ops import firdes, nco, pfb
-from newsched_tpu_torch.ops.cuda import (_build, fir_source, fm_chain, sources,
+from newsched_tpu_torch.ops import fec, firdes, nco, pfb
+from newsched_tpu_torch.ops.cuda import (_build, channelizer, fec as kfec,
+                                         fir_source, fm_chain, sources,
                                          wbfm_chain)
 from newsched_tpu_torch.probes._timing import graph_ms
 from newsched_tpu_torch.probes.run import rotating
@@ -326,18 +330,19 @@ def _k4(g0, amp=None, layout="rows", n_rows=32768, width=128, **kw):
     return r if amp is None else r * a
 
 
-def _fm_graph(kind: str, n_batches):
+def _fm_graph(kind: str, n_batches, M: int = 64, batch: int = 1 << 21):
     """Config #2 (64 channels, 16 taps an arm, a 65-tap audio FIR by 8,
-    batches of 2^21) with its noise source: fused or staged."""
+    batches of 2^21) with its noise source: fused or staged; or the same
+    at M channels and ``batch`` samples a batch."""
     from newsched_tpu_torch import models
 
-    M, D = 64, 8
+    D = 8
     at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=65)
     return models.fm_channelizer(
         nchans=M, taps_per_arm=16, audio_decim=D, fused=kind == "fused",
-        source=None, batch_size=1 << 21,
+        source=None, batch_size=batch,
         sink="vector" if n_batches else "null",
-        n_samples=None if n_batches is None else n_batches * (1 << 21) // (M * D),
+        n_samples=None if n_batches is None else n_batches * batch // (M * D),
         deviation_frac=1.0 / (2 * np.pi * 0.5), audio_taps=at)
 
 
@@ -370,9 +375,10 @@ def _noise_outputs() -> dict:
 
 
 def times() -> list[dict]:
-    """K4's modes, K9 at 128, 1024 and 6001 taps, by CUDA-graph replay in
-    turns (forward, then backward); the graph-mode steps of the config #2
-    noise graphs and the 1024-tap live fir_chain."""
+    """K4's modes, K9 at 128, 1024 and 6001 taps, K1 at M = 320 and S3 at
+    K = 7, by CUDA-graph replay in turns (forward, then backward); the
+    graph-mode steps of the config #2 noise graphs, of the staged graph at
+    M = 320 and of the 1024-tap live fir_chain."""
     from newsched_tpu_torch import bench, models
 
     g0 = torch.tensor(0, dtype=torch.int64, device="cuda")
@@ -389,12 +395,23 @@ def times() -> list[dict]:
         tc = _fir_taps(nt)
         calls[f"K9 {nt} taps"] = (lambda tc=tc: fir_source.fir_tone_step(
             ph, dp, a8, off, tc, 1, FIR_R))
+    gen = torch.Generator(device="cuda").manual_seed(320)
+    pc = pfb.pfb_consts(pfb.pfb_arm_taps(
+        firdes.prototype_channelizer_taps(320, 16), 320), "cuda")
+    v = torch.randn(16384 + 15, 640, device="cuda", generator=gen)
+    calls["K1 M=320"] = lambda: channelizer.arm_fold_dft(
+        v, pc.c2, pc.w2, 16384, fft=pc.fft)
+    tabs = fec.viterbi_tables(fec.CC_K7_POLYS, 7, "cuda")
+    llr = torch.randn(1024, 518, 2, device="cuda", generator=gen)
+    calls["S3 K=7"] = lambda: kfec.viterbi_frames(llr, tabs, 7, True)
     ms: dict = {}
     for name in list(calls) + list(calls)[::-1]:
         ms.setdefault(name, []).append(graph_ms(calls[name]))
     recs = [{"kernel": k, "ms": min(v), "ms_all": v} for k, v in ms.items()]
     cells = {"#2 fused noise": (lambda: _fm_graph("fused", None)[0], 1 << 21),
              "#2 staged": (lambda: _fm_graph("staged", None)[0], 1 << 21),
+             "#2 staged M=320": (lambda: _fm_graph(
+                 "staged", None, 320, 16384 * 320)[0], 16384 * 320),
              "#0 live 1024 taps": (lambda: models.fir_chain(
                  n_samples=10_000_000, fs=FIR_FS, ntaps=1024, frequency=FIR_FREQ,
                  batch_size=1 << 21, sink="null", source="live")[0], 1 << 21)}

@@ -220,3 +220,179 @@ def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
     with pytest.raises(_build.KernelBuildError):
         tf.viterbi_decode(torch.empty(3, 2 * 134, **meta))
     assert kfec.viterbi_frames.launches == 0
+
+
+# -- S3's warp instance, modelled lane by lane --------------------------------
+
+def _keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving int keys of float32 values (its
+    warp_max reduces these with one redux)."""
+    i = x.contiguous().view(torch.int32)
+    return torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
+
+
+def _unkey(k: torch.Tensor) -> torch.Tensor:
+    return torch.where(k >= 0, k, k ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _warp_model(llr: torch.Tensor, tables, terminated: bool,
+                nbits: int) -> torch.Tensor:
+    """csrc/viterbi.cu's viterbi_warp_kernel in torch, every frame at once
+    and lane by lane: lane l holds states l E .. l E + E - 1 (E = S/32; one
+    state a lane below 32 states, lanes past S idle), reads its
+    predecessors' metrics from lanes l>>1 and 16 + (l>>1) (l>>1 + S/2 at
+    E = 1) as __shfl_sync does, picks its half of each source's E words by
+    the parity of l, forms (m - g) + bm, packs each step's decisions into
+    E ballot words (bit l of word e: state l E + e), takes the max by the
+    int keys' redux, and traces back over the words alone: the state's
+    word from its E, its bit l, the next state (s >> 1) + which S/2, the
+    bit out s & 1."""
+    F, T, n = llr.shape
+    S = int(tables.pred.shape[0])
+    E, H = max(1, S // 32), max(1, S // 64)
+    lanes = torch.arange(32)
+    live = lanes * E < S
+    states = lanes[:, None] * E + torch.arange(E)                 # (32, E)
+    sym = tables.psym[states.clamp(max=S - 1)]                    # (32, E, 2, n)
+    v = torch.where(states == 0, 0.0, -1e9).to(torch.float32).expand(
+        F, 32, E).clone()
+    src0 = lanes >> 1
+    src1 = (lanes >> 1) + (16 if E > 1 else S // 2)
+    odd = (lanes & 1).bool()[None, :, None]
+    pair = torch.arange(E) // 2
+    g = torch.zeros(F, 1, 1)
+    words = torch.zeros(T, F, E, dtype=torch.int64)
+    weights = torch.tensor([1 << k for k in range(32)], dtype=torch.int64)
+    neg_inf = torch.tensor(float("-inf"))
+
+    def warp_max(x):  # (F, 32) -> (F, 1, 1)
+        return _unkey(_keys(x).max(dim=1).values)[:, None, None]
+
+    for t in range(T):
+        a, b = v[:, src0], v[:, src1]                             # the shuffles
+        if E > 1:
+            a = torch.where(odd, a[..., H:], a[..., :H])
+            b = torch.where(odd, b[..., H:], b[..., :H])
+        m0, m1 = (a - g)[..., pair], (b - g)[..., pair]           # (F, 32, E)
+        rt = llr[:, t]
+        bm = sym[None, ..., 0] * rt[:, None, None, None, 0]
+        for j in range(1, n):
+            bm = bm + sym[None, ..., j] * rt[:, None, None, None, j]
+        c0, c1 = m0 + bm[..., 0], m1 + bm[..., 1]
+        ch = (c1 > c0) & live[None, :, None]
+        v = torch.where(c1 > c0, c1, c0)
+        words[t] = (ch.to(torch.int64) * weights[None, :, None]).sum(1)
+        g = warp_max(torch.where(live, v.max(dim=2).values, neg_inf))
+    if terminated:
+        state = torch.zeros(F, dtype=torch.int64)
+    else:
+        fin = torch.where(live[None, :, None], v - g, neg_inf)
+        best = fin.argmax(dim=2)                                  # the first max
+        bv = fin.max(dim=2).values
+        at = bv == warp_max(bv)[:, :, 0]
+        win = at.to(torch.int64).argmax(dim=1)                    # __ffs - 1
+        state = win * E + best.gather(1, win[:, None])[:, 0]
+    out = torch.empty((F, T), dtype=torch.int32)
+    for t in range(T - 1, -1, -1):
+        word = words[t].gather(1, (state & (E - 1))[:, None])[:, 0]
+        which = (word >> (state // E)) & 1
+        out[:, t] = (state & 1).to(torch.int32)
+        state = (state >> 1) + which * (S // 2)
+    return out[:, :nbits]
+
+
+WARP_CODES = [((0o7, 0o5), 3), ((0o23, 0o35), 5), (jf.CC_K7_POLYS, 7),
+              ((0o561, 0o753), 9), ((0o2565, 0o3753), 11),
+              ((0o171, 0o133, 0o165), 7)]
+
+
+@pytest.mark.parametrize("kind", ["hard", "soft", "noiseless"])
+@pytest.mark.parametrize("polys,K", WARP_CODES)
+def test_warp_layout_model_is_the_plain_viterbi(polys, K, kind):
+    """The warp instance's layout (states to lanes, shuffle sources, ballot
+    words, the traceback over the words) modelled in torch: bit-equal to
+    viterbi_frames_plain, terminated and not, at K = 3-11 (10 and 11 take
+    the block instance on the card; the layout holds at any S), rate 1/2
+    and 1/3."""
+    tabs = tf.viterbi_tables(polys, K, "cpu")
+    n = len(polys)
+    for terminated in (True, False):
+        bits, llr = _frames(polys, K, 3, 48, 0.0 if kind == "noiseless"
+                            else 0.8, seed=K + n, hard=kind == "hard")
+        if not terminated:
+            coded = tf.conv_encode(torch.from_numpy(bits), polys, K,
+                                   terminate=False).numpy()
+            noise = np.random.default_rng(K).normal(0, 0.8, coded.shape)
+            rx = 2.0 * coded - 1.0 + (0 if kind == "noiseless" else noise)
+            llr = (np.where(rx > 0, 1.0, -1.0) if kind == "hard"
+                   else rx).astype(np.float32)
+        lt = torch.from_numpy(llr).reshape(3, -1, n)
+        T = lt.shape[1]
+        nbits = T - (K - 1) if terminated else T
+        ref = kfec.viterbi_frames_plain(lt, tabs, terminated, nbits)
+        got = _warp_model(lt, tabs, terminated, nbits)
+        assert torch.equal(got, ref)
+        if kind == "noiseless":
+            np.testing.assert_array_equal(got.numpy(), bits[:, :nbits])
+
+
+def test_warp_model_ties_like_the_plain_viterbi():
+    """All-zero LLRs (every comparison ties) and +-1 with every other pair
+    erased: the model's bits are the plain version's."""
+    polys, K = jf.CC_K7_POLYS, 7
+    tabs = tf.viterbi_tables(polys, K, "cpu")
+    _, llr = _frames(polys, K, 2, 64, 0.0, seed=4, hard=True)
+    llr = llr.reshape(2, -1, 2)
+    llr[:, ::2] = 0.0
+    for lt in (torch.zeros(2, 70, 2), torch.from_numpy(llr)):
+        for terminated in (True, False):
+            nbits = lt.shape[1] - (K - 1) if terminated else lt.shape[1]
+            assert torch.equal(
+                _warp_model(lt, tabs, terminated, nbits),
+                kfec.viterbi_frames_plain(lt, tabs, terminated, nbits))
+
+
+def test_viterbi_tables_assert_the_butterfly(monkeypatch):
+    """The kernels read the predecessors from the butterfly, not from the
+    tables: viterbi_tables checks that every code's tables are it, and
+    raises on tables that are not (two predecessors swapped, a bit
+    flipped)."""
+    for K in range(2, 12):
+        S = 1 << (K - 1)
+        pred, pbit, _ = tf.viterbi_tables(((1 << (K - 1)) | 1, 3), K, "cpu")
+        s = torch.arange(S, dtype=torch.int32)
+        assert torch.equal(pred[:, 0], s >> 1)
+        assert torch.equal(pred[:, 1], (s >> 1) + S // 2)
+        assert torch.equal(pbit, torch.stack([s & 1, s & 1], 1))
+    pred, pbit, psym = tf._tables_np(jf.CC_K7_POLYS, 7)
+    for bad in (pred[:, ::-1].copy(), pbit):
+        broken = (bad, pbit, psym) if bad is not pbit else (pred, 1 - pbit, psym)
+        monkeypatch.setattr(tf, "_tables_np", lambda polys, K, b=broken: b)
+        with pytest.raises(ValueError, match="butterfly"):
+            tf.viterbi_tables(jf.CC_K7_POLYS, 7, "cpu")
+
+
+def test_viterbi_instances_and_their_limits(monkeypatch):
+    """K <= 9 takes the warp instance, K = 10 and 11 the block one; the
+    warp instance's frame takes no more shared memory than the block's
+    (so it takes every frame the block instance took), and on a device
+    tensor (meta) a warp frame past the limit is refused by name."""
+    assert [kfec.viterbi_instance(K) for K in (3, 7, 9, 10, 11)] == \
+        ["warp"] * 3 + ["block"] * 2
+    for K in range(2, 10):
+        S = 1 << (K - 1)
+        for n in (1, 2, 4):
+            for T in (1, 518, 4000):
+                assert kfec.viterbi_smem(T, n, S, "warp") \
+                    <= kfec.viterbi_smem(T, n, S)
+    assert kfec.viterbi_smem(518, 2, 64, "warp") == 4 * 518 * (2 + 2)
+
+    def no_build():
+        raise _build.KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    meta = dict(device="meta", dtype=torch.float32)
+    tabs7 = tf.viterbi_tables(jf.CC_K7_POLYS, 7, "meta")
+    with pytest.raises(ValueError, match="232448 B limit"):
+        kfec.viterbi_frames(torch.empty(1, 15000, 2, **meta), tabs7, 7, True)
+    assert kfec.viterbi_frames.launches == kfec.viterbi_frames.block_launches == 0

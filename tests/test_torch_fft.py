@@ -1,18 +1,22 @@
 """The planes DFT as the kernels' shared-memory FFT (csrc/planes_fft.cuh:
-stage 2 of ``chain_tile`` in csrc/fm_chain.cu, and K1 in
-csrc/channelizer.cu), held on the CPU at M = 64, 128, 192 and 256: the
-radix-P step and the P 8 x 8 FFTs evaluated in torch float32
+stage 2 of ``chain_tile`` in csrc/fm_chain.cu at M = 64-256, and K1 in
+csrc/channelizer.cu at M = 64 P, P = 1 .. 7), held on the CPU at every
+width: the radix-P step (P = 5 and 7 from the pairs x[m] +- x[P-m], P = 6
+as 2 x 3) and the P 8 x 8 FFTs evaluated in torch float32
 (``planes_fft.fft_planes``) with the twiddle table the constants carry,
 in the kernels' order of operations, each rounded on its own as the
 kernels' ``__fadd_rn``/``__fmul_rn`` are, against the plain versions'
 dense product ``acc @ planes_dft_matrix(M)`` and against numpy's float64
 FFT with the post-twiddle. K1's path (the fold on interleaved lanes, the
 FFT on planes rows, interleaved out) against its plain version and the
-reference's ``arm_fold_dft`` in interpret mode. Also: every
-``FmChainConsts`` carries the table, the CUDA wrappers refuse constants
+reference's ``arm_fold_dft`` in interpret mode. The tables and the replay
+at P <= 4 are pinned to their hashes, so the wider P changed none of
+their operations. Also: every ``FmChainConsts`` carries the table, the CUDA wrappers refuse constants
 without it, and K3, K5 and K6 plan every width the FFT takes (meta
 tensors stand in for the card: those checks come before any launch).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -26,7 +30,7 @@ from newsched_tpu_torch.ops import firdes, pfb
 from newsched_tpu_torch.ops.cuda import channelizer, fm_chain, planes_fft
 from newsched_tpu_torch.probes import ablate
 
-WIDTHS = planes_fft.CHANNELS  # M = 64, 128, 192, 256
+WIDTHS = planes_fft.CHANNELS  # M = 64 P, P = 1 .. 7
 # |FFT - exact| and |dense product - exact| over the row's largest exact
 # output: FP32 rounding of the transform, a few ulp of the largest output
 # (measured on the random rows: up to 2.6e-7 for the FFT, 1.2e-6 for the
@@ -89,10 +93,36 @@ def test_fft_table_values(M):
     assert not tab[:2, 64:].any()  # rows 0/1 past the 8 x 8 FFT's 64
     np.testing.assert_array_equal(tab[2] + 1j * tab[3], post)
     assert tab[2, M // 8] == np.float32(np.sqrt(0.5))  # cos(pi/4)
-    if M == 192:  # -Im e^{-2 pi i/3} = sin(pi/3), the radix-3 step's
+    if M in (192, 384):  # -Im e^{-2 pi i/3} = sin(pi/3), the radix-3 step's
         assert -tab[3, M // 3] == np.float32(np.sqrt(3) / 2)
-    for m in (16, 48, 320):  # no kernel FFT: K1's dense instance, or none
+    P = M // 64  # the P-point DFT's cos and sin of 2 pi a / P at j = 64 a
+    w = np.exp(-2j * np.pi * np.arange(P) / P).astype(np.complex64)
+    np.testing.assert_array_equal(tab[2, ::64] + 1j * tab[3, ::64], w)
+    for m in (16, 48, 512):  # no kernel FFT: K1's dense instance, or none
         assert fm_chain.planes_fft_table(m) is None
+
+
+# sha256 (first 16 hex digits) of planes_fft_table(M) and of fft_planes on
+# 64 seeded rows, as the P <= 4 code computed them before P = 5-7 existed
+P4_HASHES = {64: ("11a9fb3da3e68355", "6cb776e78400239d"),
+             128: ("581167d807aada67", "c39697143e49a346"),
+             192: ("bf7adb129670430c", "847672770ddd348f"),
+             256: ("012a5c3fadbd8279", "337574c66c131add")}
+
+
+@pytest.mark.parametrize("M", sorted(P4_HASHES))
+def test_p4_tables_and_replay_are_unchanged(M):
+    """The chains' widths keep their table and their replay's bits (so the
+    kernels' P <= 4 arithmetic, which the replay repeats, is untouched)."""
+    tab = planes_fft.planes_fft_table(M)
+    rows = (np.random.default_rng(M).standard_normal((64, 2 * M)) * 8
+            ).astype(np.float32)
+    y = planes_fft.fft_planes(torch.from_numpy(rows), torch.from_numpy(tab))
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    assert (h(tab), h(y.numpy())) == P4_HASHES[M]
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -122,7 +152,7 @@ def _fold_case(M, L, n_out, seed):
     return v, c
 
 
-@pytest.mark.parametrize("M", [64, 128])
+@pytest.mark.parametrize("M", [64, 128, 320, 384, 448])
 def test_k1_fold_then_fft_is_arm_fold_dft(M):
     """K1's FFT instance in torch float32: the fold on the interleaved
     lanes (K7's plain version), the planes FFT of its rows, interleaved
@@ -210,3 +240,18 @@ def test_chain_kernels_plan_every_fft_width(kernel, M):
             _calls(consts, vb, halo, prev, tail, decim)[flagship_only]()
     with pytest.raises(ValueError, match="planes width 640"):
         fm_chain._check_kernel_shape(640, 64, A, L, 1, decim)
+
+
+def test_k1_dense_refuses_a_tile_past_shared_memory():
+    """On a device tensor (meta stands in for the card) K1's dense instance
+    at M = 512 takes its default 32-row tile as far as the checks before
+    the launch, and refuses 48 rows (64 rounded, 256 KB) and any tile at
+    M = 1024 (2048 lanes) naming the block's limit."""
+    meta = dict(device="meta", dtype=torch.float32)
+    for M, tile, ok in ((512, None, True), (512, 48, False), (1024, None, False)):
+        W = 2 * M
+        v, c2, w2 = (torch.empty(64 + 15, W, **meta), torch.empty(16, W, **meta),
+                     torch.empty(W, W, **meta))
+        match = "on meta" if ok else "232448 B limit"
+        with pytest.raises(ValueError, match=match):
+            channelizer.arm_fold_dft(v, c2, w2, 64, tile=tile)

@@ -1,6 +1,7 @@
-"""Hygiene of the port: it imports neither jax nor the JAX package, and
+"""Hygiene of the port: it imports neither jax nor the JAX package,
 chip_smoke.py refuses to run, printing no result, without a GPU or
-without the repository around it."""
+without the repository around it, and the state constructors default to
+the card."""
 
 import ast
 import os
@@ -9,6 +10,8 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 import newsched_tpu_torch
 
@@ -85,3 +88,18 @@ def test_chip_smoke_alone_in_a_directory_exits_nonzero(tmp_path):
     assert r.returncode != 0
     assert "newsched_tpu_torch" in r.stderr
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("module,name", [
+    ("agc", "agc_init_state"), ("analog", "rotator_init_state"),
+    ("loops", "costas_init_state"), ("loops", "mm_init_state")])
+def test_state_constructors_default_to_the_card(module, name):
+    """An entry point runs on the card unless the caller asks for the CPU:
+    the ops' state constructors that take a device default to "cuda" (the
+    CPU tests pass device="cpu")."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module(f"newsched_tpu_torch.ops.{module}"),
+                 name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

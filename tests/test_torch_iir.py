@@ -218,7 +218,7 @@ def test_agc_converges_and_streams():
     reference level, and one batch equal to four streamed (> 100 dB)."""
     rng = np.random.default_rng(1)
     x = (0.1 * np.exp(1j * 2 * np.pi * rng.random(8192))).astype(np.complex64)
-    s = agc.agc_init_state(1.0)
+    s = agc.agc_init_state(1.0, "cpu")
     outs = []
     for i in range(4):
         s, y = agc.agc(s, torch.from_numpy(x[i * 2048:(i + 1) * 2048]),
@@ -226,7 +226,7 @@ def test_agc_converges_and_streams():
         outs.append(y.numpy())
     y = np.concatenate(outs)
     assert abs(np.mean(np.abs(y[-1000:])) - 1.0) < 1e-2
-    _, y_once = agc.agc(agc.agc_init_state(1.0), torch.from_numpy(x),
+    _, y_once = agc.agc(agc.agc_init_state(1.0, "cpu"), torch.from_numpy(x),
                         rate=1e-2, reference=1.0)
     assert snr_db(y_once.numpy(), y) > 100
     _, jy = jagc.agc(jagc.agc_init_state(1.0), jnp.asarray(x), rate=1e-2,
@@ -245,10 +245,10 @@ def test_agc_reference_recurrence():
     for xi in x:
         ys.append(xi * g)
         g = g + rate * (ref - abs(xi) * g)
-    _, y = agc.agc(agc.agc_init_state(1.0), torch.from_numpy(x), rate=rate,
+    _, y = agc.agc(agc.agc_init_state(1.0, "cpu"), torch.from_numpy(x), rate=rate,
                    reference=ref)
     assert snr_db(np.array(ys), y.numpy()) > 90
-    st, y = agc.agc(agc.agc_init_state(1.0), torch.from_numpy(x), rate=rate,
+    st, y = agc.agc(agc.agc_init_state(1.0, "cpu"), torch.from_numpy(x), rate=rate,
                     reference=ref, max_gain=1.2)
     jst, jy = jagc.agc(jagc.agc_init_state(1.0), jnp.asarray(x), rate=rate,
                        reference=ref, max_gain=1.2)

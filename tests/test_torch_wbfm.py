@@ -201,7 +201,7 @@ def test_rotate_and_quadrature_demod_match_reference():
     x = _cf32(2 * 1024, 5)
     x[:3] = 0  # the zero-history pin
     dp = nco.freq_to_dphase(-FC, FS)
-    tst, jst = taops.rotator_init_state(), jaops.rotator_init_state()
+    tst, jst = taops.rotator_init_state("cpu"), jaops.rotator_init_state()
     tq, jq = taops.quad_demod_init_state("cpu"), jaops.quad_demod_init_state()
     for b in range(2):
         xb = x[b * 1024:(b + 1) * 1024]
