@@ -68,8 +68,9 @@ Phases (each failure raises, so the script exits nonzero):
      torch-float32 replay of its planes FFT on K7's output, at runs of 48
      rows, one ring and its default; K1 also at 128, 192, 256, 320, 384
      and 448 channels (the FFT instance, bit-equal to the replay of K7
-     there too) and 512 (the dense instance), where pfb_channelize's
-     "auto" must launch it;
+     there too), where pfb_channelize's "auto" must launch it, and 512
+     (the dense instance), where "auto" must launch K7 instead and
+     method="fused" the dense instance;
      K7 within 1e-5 of its plain version and
      tile-invariant at 96 and 34 lanes, at 4, 8 and 17 taps, with v short
      of its rows and with v 4 bytes off a 16-byte boundary;
@@ -129,10 +130,12 @@ Phases (each failure raises, so the script exits nonzero):
      of an 8-shard batch), at stream start, at shard 3 and at group
      2^32-2, draws 3 and 2: bit-equal to K5's stream at the same rows,
      within K5_TOL of its plain version outside the golden's branch-cut
-     mask;
+     mask; and over the 4 and 8 shards of a batch in one launch (nd = 4,
+     8), bit-equal to the shards one by one and, from stream start, to
+     K5 over the whole batch;
  26. the live flowgraph sharded over 4 and 8 shards, 3 batches: bit-equal
      to the unsharded live flowgraph, >= 95 dB against its golden; K6
-     launched n times a batch, K5 never;
+     launched once a batch (one grid over every shard), K5 never;
  27. the fused flowgraph over the replayed stream sharded over 4 and 8
      shards, 3 batches: bit-equal to the unsharded one, >= 95 dB; K3
      launched n times a batch; on shard 1 of each mesh, K3 with warm > 0
@@ -143,7 +146,8 @@ Phases (each failure raises, so the script exits nonzero):
      batches: bit-equal to their unsharded graphs, >= 60 dB each; launches
      counted; K10, K12 and K9 on two shards of each mesh against their
      plain versions;
- 29. times: K6 at 8192 and 32768 rows beside K5 and its plain version;
+ 29. times: K6 at 8192 and 32768 rows and over the 4 and 8 shards of a
+     batch in one launch, beside K5 and its plain version;
      the sharded live and fused flowgraph steps in Msamples/s (the
      4-shard live step profiled);
  30. graph mode, the runner's default on the card (a captured CUDA graph
@@ -209,18 +213,23 @@ Phases (each failure raises, so the script exits nonzero):
      past its stated limit raises naming the limit; the live fir_chain at
      1024 taps, two batches in graph mode, >= 60 dB against its float64
      golden, the partitioned instance launched on it;
- 41. K3, K5 and K6 at M = 128, 192 and 256 (16384 rows a batch): K3 within
-     K3_TOL of its plain version on an M-station FM band, tile-invariant;
-     K5 bit-equal to K4 * amp -> K3 and within K5_TOL of its plain version
-     off the branch cut; K6 bit-equal to K5's stream at shard 3 and within
-     K5_TOL of its plain version;
+ 41. K3, K5 and K6 at M = 128, 192, 256, 320, 384 and 448 (16384 rows a
+     batch): K3 within K3_TOL of its plain version on an M-station FM
+     band, tile-invariant; K5 bit-equal to K4 * amp -> K3 and within
+     K5_TOL of its plain version off the branch cut; K6 bit-equal to K5's
+     stream at shard 3 and over 4 shards in one launch, and within K5_TOL
+     of its plain version;
  42. the fused (replayed FM band) and live fm_channelizer flowgraphs at M =
-     128, 192 and 256, two batches in graph mode: >= 95 dB against the
-     float64 golden off its branch-cut mask; at M = 128 also at half the
-     batch (bit-equal), the live graph on 4 shards (K6, bit-equal) and the
-     staged graph (>= 60 dB, K1 launched); launches counted;
- 43. times at M = 128: K3, K5, K6 and K1 beside their plain versions; K9's
-     partitioned instance at 1024 and 6001 taps beside its plain version;
+     128 .. 448, two batches in graph mode: >= 95 dB against the float64
+     golden off its branch-cut mask, and the live graph on 4 shards (K6
+     once a batch, bit-equal); at M = 128 also at half the batch
+     (bit-equal) and the staged graph (>= 60 dB, K1 launched); launches
+     counted;
+ 43. times at M = 128, 320, 384 and 448: K3, K5 and K6 (at M = 128 on a
+     shard's 4096 rows, past it over the 4 shards of a batch in one
+     launch) beside their plain versions and bounds, and K1 at M = 128;
+     K9's partitioned instance at 1024 and 6001 taps beside its plain
+     version;
  44. config #3's two overlap-save engines (ops/fir.py "fft": "xla", cuFFT,
      and "mxu", the Bailey products) at 1024 taps over three uneven
      batches around 2^21, and on one segment (16384 samples at fft_size
@@ -241,13 +250,17 @@ Phases (each failure raises, so the script exits nonzero):
  48. AGC, an order-4 Butterworth iir_filter, the fft block and math and
      streamops blocks on the card against their CPU runs; the AGC's and
      the rotator's state constructors on the card by default;
- 49. K1 past 256 channels on its main path: the staged fm_channelizer in
-     graph mode at M = 320 (K1's FFT instance, P = 5, counted; the dense
-     instance never) and at M = 512 (the dense instance, counted), >= 60
-     dB each; the FFT instance's time at M = 320, 384 and 448 beside its
-     plain version, its bound and (M = 320) the dense instance's time
-     there before; the dense instance's at M = 512 beside its plain
-     version and its bound (``arm_fold_dft[dense]`` in the kernels line);
+ 49. the channelizer past 256 channels on its main path: the staged
+     fm_channelizer in graph mode at M = 320 (K1's FFT instance, P = 5,
+     counted; the dense instance and K7 never) and at M = 512 and 1024
+     (pfb_channelize's "auto" takes K7 and cuFFT's combine, counted; K1
+     never), >= 60 dB each, and each step's time; the FFT instance's time
+     at M = 320, 384 and 448 beside its plain version, its bound and (M =
+     320) the dense instance's time there before; the dense instance,
+     on no graph's path, by pfb_channelize(method="fused") at M = 512
+     (counted, within FOLD_TOL of its plain version) and its time by a
+     direct call beside its plain version and its bound
+     (``arm_fold_dft[dense]`` in the kernels line);
  50. S1 costas_loop (orders 2, 4, 8) and S2 clock_recovery_mm (sps 4) at
      65536 samples on 1 and 64 streams against their plain versions (run
      on the CPU): within 1e-4 of max|y|, the state within the same, S1's
@@ -258,7 +271,15 @@ Phases (each failure raises, so the script exits nonzero):
      counted on its instance: bit-equal to its plain version; no errors on
      the noiseless code and with four separated coded bits flipped a
      frame; its time at 1024 frames and at one beside the block-a-frame
-     design's and its bound;
+     design's and its bound; then its routes past those frames and codes,
+     each a FEC link (cc_encoder -> BPSK + AWGN -> cc_decoder) of two
+     batches in graph mode and direct calls, bit-equal to the plain
+     version, each launch counted on its instance and route: 16384-bit
+     frames at K = 7 (the warp instance, decisions in device memory), a
+     rate-1/5 code at K = 7 (the block instance) and a K = 12 code (the
+     block instance, two states a thread), and frames of these two past
+     shared memory (device memory); each route's time beside its plain
+     version and bound;
  52. S1 and S2 at the QPSK link's shapes against their plain versions and
      timed (the kernels line's); the QPSK link (``models.qpsk_tx`` on the
      card, a channel of 0.3 rad, 0.5 sample and 20 dB, ``qpsk_receiver``)
@@ -736,7 +757,7 @@ def phase_k1_k7(torch, channelizer) -> dict:
     k1_is_fft_of_k7(torch, channelizer, v, c2, w2, fft)
     errs["arm_fold"] = max(errs["arm_fold"], k7_shapes(torch, channelizer))
     errs["arm_fold_dft"] = max(errs["arm_fold_dft"], *(
-        k1_wide(torch, channelizer, m) for m in WIDE_M + K1_WIDE_M))
+        k1_wide(torch, channelizer, m) for m in WIDE_M))
     errs["arm_fold_dft[dense]"] = k1_wide(torch, channelizer, K1_DENSE_M)
     return errs
 
@@ -803,11 +824,11 @@ def k7_shapes(torch, channelizer, n_out: int = 4096) -> float:
 
 
 def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
-    """K1 at m channels (2m lanes): "auto" in pfb_channelize launches it
-    (the FFT instance at m in planes_fft.CHANNELS, bit-equal to the FFT
-    replay of K7's output; the dense instance elsewhere), it agrees with
-    its plain version, and runs of 48 rows (the dense instance: blocks of
-    16) give the default's bits."""
+    """K1 at m channels (2m lanes): at m in planes_fft.CHANNELS "auto" in
+    pfb_channelize launches its FFT instance (bit-equal to the FFT replay
+    of K7's output), elsewhere K7 and method="fused" the dense instance;
+    it agrees with its plain version, and runs of 48 rows (the dense
+    instance: blocks of 16) give the default's bits."""
     from newsched_tpu_torch.ops import firdes, pfb
 
     arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(m, L), m)
@@ -816,10 +837,16 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
     x = torch.randn(n_out * m, dtype=torch.complex64, device="cuda", generator=gen)
     fn = channelizer.arm_fold_dft
     count = "launches" if consts.fft is not None else "dense_launches"
-    before = getattr(fn, count)
+    before, k7 = getattr(fn, count), channelizer.arm_fold.launches
     pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x, consts=consts)
+    if consts.fft is None:  # "auto" takes K7; the dense instance by name
+        require(getattr(fn, count) == before
+                and channelizer.arm_fold.launches == k7 + 1,
+                f"pfb_channelize auto at M={m} did not take K7 alone")
+        pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x,
+                           method="fused", consts=consts)
     require(getattr(fn, count) == before + 1,
-            f"pfb_channelize auto at M={m} did not launch K1 ({count})")
+            f"pfb_channelize at M={m} did not launch K1 ({count})")
     xfull = torch.cat([torch.zeros(m * L - 1, dtype=x.dtype, device="cuda"), x])
     v = channelizer.complex_to_interleaved(
         xfull[:(n_out + L - 1) * m].reshape(-1, m))
@@ -830,7 +857,8 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
     what = "FFT" if consts.fft is not None else "dense"
     log(f"arm_fold_dft at M={m} ({what} instance): {n_out} x {2 * m} rows, max "
         f"abs err vs plain {err:.3e} = {err / scale:.3e} of max|out| (tol "
-        f"{FOLD_TOL}); launched by pfb_channelize auto")
+        f"{FOLD_TOL}); launched by pfb_channelize "
+        f"{'auto' if consts.fft is not None else 'method=fused (auto: K7)'}")
     require(err <= FOLD_TOL * scale, f"K1 at M={m} disagrees with plain")
     if consts.fft is not None:
         rep = channelizer.fft_interleaved(
@@ -1403,7 +1431,9 @@ def phase_k6(torch, fm_chain, noise) -> float:
     of the first). K5 runs one batch of ROWS rows with zero state from 3
     shards below the shard (at stream start for the first): its blocks
     reach 80 rows back at most, so from there on it is the true stream.
-    Returns the worst error."""
+    Then K6 over the 4 and the 8 shards of that batch in one launch (nd),
+    bit-equal to the shards' calls one by one, and from stream start to K5
+    over the whole batch. Returns the worst error."""
     consts = chain_consts()
     H8 = fm_chain._round8(L - 1)
     z = dict(dtype=torch.float32, device="cuda")
@@ -1452,13 +1482,34 @@ def phase_k6(torch, fm_chain, noise) -> float:
                 require(err <= K5_TOL, f"K6 at {where}, {n_loc} rows: "
                         f"disagrees with its plain version")
                 worst = max(worst, err)
+            for nd in MESHES:  # the batch's shards, one launch
+                n_loc = ROWS // nd
+                before = fm_chain.fm_chain_gen_warm_step.launches
+                got = fm_chain.fm_chain_gen_warm_step(
+                    noise.group_tensor(b0, "cuda"), amp, consts, DECIM,
+                    DEMOD_GAIN, n_loc, warm=K6_WARM, draws=draws, nd=nd)
+                one = fm_chain.fm_chain_gen_warm_step.launches == before + 1
+                per = torch.cat([fm_chain.fm_chain_gen_warm_step(
+                    noise.group_tensor(b0, "cuda"), amp, consts, DECIM,
+                    DEMOD_GAIN, n_loc, warm=K6_WARM, draws=draws,
+                    goff=d * n_loc // noise.GROUP_ROWS) for d in range(nd)])
+                # K5 ran from zero state: the true stream only at its start
+                k5_eq = b0 != 0 or torch.equal(got, k5)
+                require(one and torch.equal(got, per) and k5_eq,
+                        f"K6 over {nd} shards from base group {b0}, "
+                        f"draws={draws}: not one launch, or differs from the "
+                        f"shards one by one or from K5's stream")
+                log(f"K6 over {nd} shards of {n_loc} rows in one launch from "
+                    f"base group {b0}, draws={draws}: bit-equal to the "
+                    f"{nd} shards one by one"
+                    + (" and to K5's batch" if b0 == 0 else ""))
     return worst
 
 
 def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
     """The live flowgraph over 4 and 8 shards: bit-equal to the unsharded
-    one, gated against its golden; K6 launched n times a batch, K5 never.
-    Returns K6's launches."""
+    one, gated against its golden; K6 launched once a batch (one grid over
+    the shards), K5 never. Returns K6's launches."""
     from newsched_tpu_torch.parallel import make_mesh
 
     total = 0
@@ -1472,8 +1523,8 @@ def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
         got = blks["sink"].data()
         log(f"launches on the live path, {n} shards: fm_chain_gen_warm_step "
             f"{k6}, fm_chain_gen_step {k5}")
-        require(k6 == 3 * n and k5 == 0,
-                f"live on {n} shards: K6 not n times a batch, or K5 ran")
+        require(k6 == 3 and k5 == 0,
+                f"live on {n} shards: K6 not once a batch, or K5 ran")
         require(np.array_equal(got, live_out[:3 * N_AUD]),
                 f"live on {n} shards differs from the unsharded flowgraph")
         gate(None, got, f"live flowgraph on {n} shards (bit-equal to the "
@@ -2386,10 +2437,13 @@ K9_LIVE_TAPS = 1024        # the live graph past the FFT instance's taps
 # (tile, seg_group) of the partitioned instance's blocks, the default first
 K9P_GEOMS = ((512, 16), (512, 8), (1024, 8), (2048, 8), (1024, 16), (512, 32))
 K9_WIDE_N = 2 * FIR_BATCH   # the 1024-tap live graph: two batches, graph mode
-WIDE_M = (128, 192, 256)    # channels past the flagship's the chains take
+WIDE_M = (128, 192, 256, 320, 384, 448)  # channels past the flagship's the
+# chains and K1's FFT instance take (M = 64 P)
 WIDE_ROWS = 16384           # planes rows a batch at those widths
-K1_WIDE_M = (320, 384, 448)  # K1's FFT instance past the chains' widths
+K1_WIDE_M = (320, 384, 448)  # K1's FFT instance past 256 channels
+STREAM_M = (320, 384, 448)  # the chains' widths past 256, timed (phase 43)
 K1_DENSE_M = 512            # a width K1 takes by its dense instance
+K7_WIDE_M = (512, 1024)     # staged widths "auto" takes by K7 (phase 49)
 
 
 def wide_taps(torch, ntaps: int):
@@ -2537,14 +2591,15 @@ def wide_noise(torch, noise, m: int, n_rows: int) -> np.ndarray:
 
 
 def phase_wide_kernels(torch, fm_chain, noise) -> dict:
-    """41. K3, K5 and K6 at M = 128, 192 and 256 (16 taps an arm, a 65-tap
+    """41. K3, K5 and K6 at M = 128 .. 448 (16 taps an arm, a 65-tap
     audio FIR decimating by 8, batches of 16384 rows): K3 on two carried
     batches of an M-station FM band within K3_TOL of its plain version,
     bit-identical at tile 64 and at its default; K5 from stream start
     bit-equal to K4 * amp -> K3 and within K5_TOL of its plain version off
     the golden's branch-cut mask; K6 at a quarter batch from shard 3
     bit-equal to K5's stream there and within K5_TOL of its plain
-    version. Returns the worst errors."""
+    version, and over the batch's 4 shards in one launch bit-equal to K5.
+    Returns the worst errors."""
     from newsched_tpu_torch.testing import planes_rows
 
     n = WIDE_ROWS
@@ -2606,12 +2661,16 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
                                                    K6_WARM)
         e6 = float(np.abs(k6.cpu().numpy() - p6.cpu().numpy())[~bad[sl]].max())
         require(e6 <= K5_TOL, f"K6 at M={m}: {e6:.3e} from its plain version")
+        require(torch.equal(fm_chain.fm_chain_gen_warm_step(
+            g0, amp, consts, DECIM, DEMOD_GAIN, q, warm=K6_WARM, nd=4), k5[0]),
+                f"K6 at M={m} over 4 shards in one launch: differs from K5")
         worst["K5"], worst["K6"] = max(worst["K5"], e5), max(worst["K6"], e6)
         log(f"M={m} ({W} lanes, {n} rows): K3 {err:.3e} from plain (tol "
             f"{K3_TOL}), tiles 64 and {fm_chain._fit_tile(128, W, A, L, DECIM, DECIM)}"
             f" bit-identical; K5 bit-equal to K4 * amp -> K3, {e5:.3e} from "
             f"plain off the branch cut (tol {K5_TOL}); K6 bit-equal to K5's "
-            f"stream at shard 3, {e6:.3e} from plain")
+            f"stream at shard 3 and over 4 shards in one launch, {e6:.3e} "
+            f"from plain")
     return worst
 
 
@@ -2629,12 +2688,12 @@ def wide_graph(m: int, source, n_batches: int | None, batch: int, **kw):
 
 def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
     """42. The fused (a replayed M-station FM band) and live
-    fm_channelizer flowgraphs at M = 128, 192 and 256, two batches each in
-    graph mode: >= 95 dB against the float64 golden off its branch-cut
-    mask, K3 and K5 launched on them. At M = 128 also: both at half the
-    batch, bit-equal; the live graph on 4 shards (K6), bit-equal to the
-    unsharded one; the staged graph (K4 -> K1 -> torch ops) >= 60 dB with
-    K1 launched. Returns the M = 128 paths' launch counts."""
+    fm_channelizer flowgraphs at M = 128 .. 448, two batches each in graph
+    mode: >= 95 dB against the float64 golden off its branch-cut mask, K3
+    and K5 launched on them; the live graph on 4 shards, bit-equal to the
+    unsharded one, K6 launched once a batch. At M = 128 also: both at half
+    the batch, bit-equal; the staged graph (K4 -> K1 -> torch ops) >= 60
+    dB with K1 launched. Returns each width's launch counts."""
     from newsched_tpu_torch.blocks import general
     from newsched_tpu_torch.parallel import make_mesh
     from newsched_tpu_torch.testing import planes_rows, snr_db
@@ -2643,7 +2702,7 @@ def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
     for m in WIDE_M:
         batch = WIDE_ROWS * m
         rows = planes_rows(fm_band(batch, "cuda", m), m)
-        out = {}
+        out, counts[m] = {}, {}
         for kind, source in (("fused", general.vector_source(rows, repeat=True)),
                              ("live", "live")):
             fm_chain.fm_chain_step_planes.launches = 0
@@ -2666,8 +2725,18 @@ def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
             require(snr >= SNR_GATE_DB, f"{kind} M={m}: SNR {snr:.2f} dB")
             require(k > 0, f"{kind} M={m}: its kernel never launched")
             out[kind] = got
-            if m == WIDE_M[0]:
-                counts[kind] = k
+            counts[m][kind] = k
+        fm_chain.fm_chain_gen_warm_step.launches = 0
+        fm_chain.fm_chain_gen_step.launches = 0
+        fg, blks = wide_graph(m, "live", 2, batch)
+        fg.run(device="cuda", mesh=make_mesh(4))
+        counts[m]["K6"] = fm_chain.fm_chain_gen_warm_step.launches
+        require(np.array_equal(blks["sink"].data(), out["live"])
+                and counts[m]["K6"] == 2
+                and fm_chain.fm_chain_gen_step.launches == 0,
+                f"live M={m} on 4 shards differs, or K6 not once a batch")
+        log(f"live flowgraph at M={m} on 4 shards: bit-equal to the unsharded "
+            f"one, K6 launched {counts[m]['K6']} times (once a batch)")
         if m != WIDE_M[0]:
             continue
         for kind, source in (("fused", general.vector_source(rows, repeat=True)),
@@ -2676,17 +2745,10 @@ def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
             fg.run(device="cuda")
             require(np.array_equal(blks["sink"].data(), out[kind]),
                     f"{kind} M={m}: batches of {batch // 2} differ")
-        fm_chain.fm_chain_gen_warm_step.launches = 0
-        fg, blks = wide_graph(m, "live", 2, batch)
-        fg.run(device="cuda", mesh=make_mesh(4))
-        counts["K6"] = fm_chain.fm_chain_gen_warm_step.launches
-        require(np.array_equal(blks["sink"].data(), out["live"])
-                and counts["K6"] == 8,
-                f"live M={m} on 4 shards differs, or K6 not 4 times a batch")
         channelizer.arm_fold_dft.launches = 0
         fg, blks = wide_graph(m, None, 2, batch, fused=False)
         fg.run(device="cuda")
-        counts["K1"] = channelizer.arm_fold_dft.launches
+        counts[m]["K1"] = channelizer.arm_fold_dft.launches
         r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
                                       seed=0, device="cuda")
         x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
@@ -2694,10 +2756,9 @@ def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
         ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
         snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
         log(f"M={m}: fused and live at batches of {batch // 2} bit-equal to "
-            f"batches of {batch}; live on 4 shards bit-equal, K6 launched "
-            f"{counts['K6']} times; staged {snr:.2f} dB (gate "
-            f"{STAGED_GATE_DB}), K1 launched {counts['K1']} times")
-        require(snr >= STAGED_GATE_DB and counts["K1"] > 0,
+            f"batches of {batch}; staged {snr:.2f} dB (gate "
+            f"{STAGED_GATE_DB}), K1 launched {counts[m]['K1']} times")
+        require(snr >= STAGED_GATE_DB and counts[m]["K1"] > 0,
                 f"staged M={m}: {snr:.2f} dB, or K1 never launched")
     return counts
 
@@ -2706,9 +2767,11 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
                      card: str) -> dict:
     """43. Times at M = 128 (batches of 16384 rows of 256 lanes): K3, K5,
     K6 at a 4-shard batch's 4096 rows and K1, by CUDA-graph replay, beside
-    their plain versions; K9's partitioned instance at 1024 taps beside its
-    plain version (3 calls: its 1024 taps are 1024 tensor passes), and at
-    the largest tap count phase 40 checks."""
+    their plain versions; at M = 320, 384 and 448 K3, K5 and K6 (over the 4
+    shards of a batch in one launch) beside their plain versions and
+    bounds; K9's partitioned instance at 1024 taps beside its plain
+    version (3 calls: its 1024 taps are 1024 tensor passes), and at the
+    largest tap count phase 40 checks."""
     from newsched_tpu_torch.ops import nco, pfb
 
     m, n = WIDE_M[0], WIDE_ROWS
@@ -2745,6 +2808,39 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
     for kid in ("K3w", "K5w", "K6w", "K1w"):
         log(f"{kid} at M={m}: kernel {t[kid]} ms, plain {t[kid + ' plain']} "
             f"ms [{card}]")
+    # past 256 channels (chain_tile_stream): K6 as the sharded live graph
+    # launches it, over the 4 shards of a batch in one grid
+    for mw in STREAM_M:
+        cw, Ww = wide_consts(mw), 2 * mw
+        gw = torch.Generator(device="cuda").manual_seed(mw)
+        vw = torch.randn(n, Ww, device="cuda", generator=gw) * 0.5
+        sw = (torch.zeros(16, Ww, **z), torch.zeros(1, Ww, **z),
+              torch.zeros(A - 1, Ww, **z))
+        a5 = (g0, amp, *sw, cw, DECIM, DEMOD_GAIN, n)
+        a6 = (g0, amp, cw, DECIM, DEMOD_GAIN, n // 4)
+        tw = alternate({
+            f"K3 M={mw} plain": lambda: fm_chain.fm_chain_step_planes_plain(
+                vw, *sw, cw, DECIM, DEMOD_GAIN),
+            f"K3 M={mw}": lambda: fm_chain.fm_chain_step_planes(
+                vw, *sw, cw, DECIM, DEMOD_GAIN),
+            f"K5 M={mw} plain": lambda: fm_chain.fm_chain_gen_step_plain(*a5),
+            f"K5 M={mw}": lambda: fm_chain.fm_chain_gen_step(*a5),
+            f"K6 M={mw} plain": lambda: fm_chain.fm_chain_gen_warm_step_plain(
+                *a6, K6_WARM, nd=4),
+            f"K6 M={mw}": lambda: fm_chain.fm_chain_gen_warm_step(
+                *a6, warm=K6_WARM, nd=4),
+        }, PLAIN_REPS)
+        ms.update({k: min(x) for k, x in tw.items()})
+        tile = fm_chain._fit_tile(128, Ww, A, L, DECIM, DECIM)
+        smem = fm_chain._chain_smem(tile, A, L, 1, DECIM, Ww)
+        for kid in ("K3", "K5", "K6"):
+            key = f"{kid} M={mw}"
+            b_ms, by = chain_bounds(mw, n, n, nd=4)[kid]
+            log(f"{key} ({n} x {Ww} rows{', 4 shards, one launch' if kid == 'K6' else ''}"
+                f"; chain_tile_stream, tile {tile}, {smem} B shared): kernel "
+                f"{tw[key]} ms, plain {tw[key + ' plain']} ms; bound "
+                f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms[key]:.1f}% of it "
+                f"[{card}]")
     ph = nco.phase_tensor(7, "cuda")
     dp = nco.phase_tensor(nco.freq_to_dphase(FIR_FREQ, FIR_FS), "cuda")
     off = torch.zeros((), dtype=torch.bool, device="cuda")
@@ -3084,48 +3180,58 @@ K1_DENSE_MS_M320 = 1.6574   # K1 at M = 320 as its dense instance (PERF.md)
 
 
 def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
-    """49. K1 past 256 channels on its main path: the staged fm_channelizer
-    (noise_source -> pfb_channelizer, whose "auto" launches K1 -> demod ->
-    audio FIR), two batches of 16384 rows in graph mode, counts set to 0
-    before each, at M = 320 (K1's FFT instance launched, its dense
-    instance never) and at M = 512 (the dense instance launched, the FFT
-    instance never): >= 60 dB against the float64 golden; each graph's
-    step in graph mode by the two-point fit (null sink); then by
-    CUDA-graph replay at 16384 rows the FFT instance at M = 320, 384, 448
-    and the dense one at M = 512 beside their plain versions and bounds."""
+    """49. The channelizer past 256 channels on its main path: the staged
+    fm_channelizer (noise_source -> pfb_channelizer -> demod -> audio FIR),
+    two batches of 16384 rows in graph mode, counts set to 0 before each,
+    at M = 320 (pfb_channelize's "auto" launches K1's FFT instance; its
+    dense instance and K7 never) and at M = 512 and 1024 ("auto" launches
+    K7 and cuFFT's combine; K1 never): >= 60 dB against the float64
+    golden; each graph's step in graph mode by the two-point fit (null
+    sink); then by CUDA-graph replay at 16384 rows the FFT instance at M =
+    320, 384, 448 beside its plain version and bound. K1's dense instance
+    is on no graph's path: pfb_channelize(method="fused") at M = 512
+    launches it (counted; within FOLD_TOL of max|out| from the plain
+    version), and a direct call times it beside its plain version and
+    bound."""
     from newsched_tpu_torch import bench
     from newsched_tpu_torch.ops import pfb
     from newsched_tpu_torch.testing import planes_rows, snr_db
 
     fn = channelizer.arm_fold_dft
-    launches = {}
-    for m, count, never in ((K1_WIDE_M[0], "launches", "dense_launches"),
-                            (K1_DENSE_M, "dense_launches", "launches")):
+    launches, step = {}, {}
+    for m in (K1_WIDE_M[0],) + K7_WIDE_M:
         batch = DENSE_ROWS * m
         zero_launches()
         fg, blks = wide_graph(m, None, 2, batch, fused=False)
         fg.run(device="cuda")
-        n, n_never = getattr(fn, count), getattr(fn, never)
+        counts = {"K1": fn.launches, "K1 dense": fn.dense_launches,
+                  "K7": channelizer.arm_fold.launches}
+        name = "K1" if m in K1_WIDE_M else "K7"
+        n = counts.pop(name)
+        others = counts
         r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
                                       seed=0, device="cuda")
         x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
              * 0.5).cpu().numpy()
         ref, bad = wide_golden(planes_rows(x, m), m, f"staged M={m}")
-        snr = snr_db(ref[~bad], blks["sink"].data()[~bad])
+        got = blks["sink"].data()
+        snr = snr_db(ref[~bad], got[~bad])
+        _GOLDEN.pop(f"staged M={m}")  # large at M = 1024; used once
         log(f"staged fm_channelizer at M={m}, 2 batches of {batch} in graph "
-            f"mode: {snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); K1 "
-            f"{count} {n}, {never} {n_never}")
-        require(snr >= STAGED_GATE_DB and n > 0 and n_never == 0,
-                f"staged M={m}: {snr:.2f} dB, or K1 {count} {n}, {never} "
-                f"{n_never}")
+            f"mode: {snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); {name} "
+            f"launched {n} times, the others {others}")
+        require(snr >= STAGED_GATE_DB and n > 0 and not any(others.values()),
+                f"staged M={m}: {snr:.2f} dB, or {name} launched {n} times "
+                f"and the others {others}")
         launches[m] = n
         fg, _ = wide_graph(m, None, None, batch, fused=False, sink="null")
         sps = bench.timed_two_point(bench.graph_run(fg, "cuda"),
                                     f"graph mode staged M={m}", batch,
                                     n_best=3, k1=8, k2=32)
+        step[m] = batch / sps * 1e3
         log(f"cell staged fm_channelizer at M={m}: graph mode "
-            f"{batch / sps * 1e3:.4f} ms a batch of {batch} samples = "
-            f"{sps / 1e6:.1f} Msamples/s [{card}]")
+            f"{step[m]:.4f} ms a batch of {batch} samples = "
+            f"{sps / 1e6:.1f} Msamples/s ({name}) [{card}]")
     ms, bounds = {}, {}
     for m in K1_WIDE_M + (K1_DENSE_M,):
         taps, _ = wide_design(m)
@@ -3144,10 +3250,31 @@ def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
                f"(PERF.md), {K1_DENSE_MS_M320 / ms[kid]:.1f}x"
                if m == K1_WIDE_M[0] else "")
         log(f"K1 arm_fold_dft at M={m} ({DENSE_ROWS} x {2 * m} rows, "
-            f"{'dense' if m == K1_DENSE_M else 'FFT'} instance): kernel "
-            f"{t[kid]} ms, plain {t[kid + ' plain']} ms; bound {b_ms:.4f} ms "
-            f"({by}), {100 * b_ms / ms[kid]:.1f}% of it{was} [{card}]")
-    return {"launches": launches, "ms": ms, "bound": bounds}
+            f"{'dense instance, a direct call' if m == K1_DENSE_M else 'FFT instance'}"
+            f"): kernel {t[kid]} ms, plain {t[kid + ' plain']} ms; bound "
+            f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms[kid]:.1f}% of it{was} "
+            f"[{card}]")
+    # the dense instance's one entry point: pfb_channelize by name
+    m = K1_DENSE_M
+    arm = pfb.pfb_arm_taps(wide_design(m)[0], m)
+    pc = pfb.pfb_consts(arm, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(m + 1)
+    xs = torch.randn(DENSE_ROWS * m, dtype=torch.complex64, device="cuda",
+                     generator=g)
+    zero_launches()
+    _, y = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), xs,
+                              method="fused", consts=pc)
+    launches["dense"] = fn.dense_launches
+    _, yr = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), xs,
+                               method="pallas", consts=pc)
+    err = float((y - yr).abs().max()) / float(yr.abs().max())
+    log(f"pfb_channelize(method=\"fused\") at M={m}: the dense instance "
+        f"launched {launches['dense']} times (on no graph's path); {err:.3e} "
+        f"of max|Y| from K7 and the combine (tol {FOLD_TOL})")
+    require(launches["dense"] == 1 and err <= FOLD_TOL,
+            f"method=fused at M={m}: dense launches {launches['dense']}, "
+            f"{err:.3e} from K7 and the combine")
+    return {"launches": launches, "ms": ms, "bound": bounds, "step": step}
 
 
 # -- the digital and FEC half: S1-S3, the QPSK link, the FEC link ------------
@@ -3358,13 +3485,14 @@ def phase_loops(torch, kloops, card: str) -> dict:
 
 
 def fec_llrs(torch, n_frames: int, sigma: float, seed: int, K: int = FEC_K,
-             polys=(0o171, 0o133), hard: bool = False):
-    """Frames of random bits, encoded (ops/fec.py), +-1 plus AWGN; the
-    LLRs (hard: the slicer's +-1), the bits and the raw coded-bit errors."""
+             polys=(0o171, 0o133), hard: bool = False, nbits: int = FEC_FRAME):
+    """Frames of nbits random bits, encoded (ops/fec.py), +-1 plus AWGN;
+    the LLRs (hard: the slicer's +-1), the bits and the raw coded-bit
+    errors."""
     from newsched_tpu_torch.ops import fec
 
     rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 2, (n_frames, FEC_FRAME))
+    bits = rng.integers(0, 2, (n_frames, nbits))
     coded = fec.conv_encode(torch.from_numpy(bits), polys, K).numpy()
     rx = (2.0 * coded - 1.0 + rng.normal(0, sigma, coded.shape)).astype(np.float32)
     llr = np.where(rx > 0, 1.0, -1.0).astype(np.float32) if hard else rx
@@ -3390,7 +3518,7 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
     vf = kfec.viterbi_frames
     for polys, K in S3_CODES:
         tabs = fec.viterbi_tables(polys, K, "cuda")
-        inst = kfec.viterbi_instance(K)
+        inst = kfec.viterbi_instance(K, len(polys))
         count = "launches" if inst == "warp" else "block_launches"
         for kind, sigma in (("hard", 0.8), ("soft", 0.8), ("noiseless", 0.0),
                             ("4 flips", 0.0)):
@@ -3437,6 +3565,107 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
 # ACS a state a step at rate 1/2: two branch metrics (2 products, 1 add
 # each), the previous max subtracted twice, two adds, a compare, a max
 VITERBI_OPS = 2 * 3 + 2 + 2 + 1 + 1
+
+
+def viterbi_ops(n: int) -> int:
+    """VITERBI_OPS at rate 1/n: each branch metric n products, n - 1 adds."""
+    return 2 * (2 * n - 1) + 2 + 2 + 1 + 1
+
+
+# S3's routes past the FEC link's frames and codes (phase 51): name, code,
+# K, frame bits, frames a batch of its link, its (instance, memory), and a
+# frame length of the same code past shared memory (device memory)
+S3_ROUTES = (
+    ("global", (0o171, 0o133), 7, 16384, 16, ("warp", "global"), None),
+    ("n=5", (0o171, 0o133, 0o165, 0o117, 0o127), 7, FEC_FRAME, 256,
+     ("block", "shared"), 8192),
+    ("K=12", (0o4037, 0o5741), 12, FEC_FRAME, 256, ("block", "shared"), 1024),
+)
+
+
+def phase_viterbi_routes(torch, kfec, card: str) -> dict:
+    """51 (continued). S3 past the FEC link's frames and codes, each route
+    on its user path: a FEC link (cc_encoder -> BPSK + AWGN at sigma 0.6 ->
+    cc_decoder) of two batches in graph mode, the decoded bits bit-equal
+    to the plain version on the same LLRs, each launch counted on its
+    instance (and its route, global_launches); then direct calls on noisy
+    hard and soft frames of the code at its link's length and past shared
+    memory, bit-equal to the plain version; each route's time at its
+    link's batch beside its plain version and bound."""
+    from newsched_tpu_torch.ops import fec
+
+    vf = kfec.viterbi_frames
+    out = {"launches": {}, "t": {}, "bound": {}}
+    rng = np.random.default_rng(511)
+    for name, polys, K, frame, F, plan, long_frame in S3_ROUTES:
+        n = len(polys)
+        T = frame + K - 1
+        require(kfec.viterbi_plan(T, n, K) == plan,
+                f"S3 {name}: plans {kfec.viterbi_plan(T, n, K)}, not {plan}")
+        tabs = fec.viterbi_tables(polys, K, "cuda")
+        bits = rng.integers(0, 2, 2 * F * frame).astype(np.int16)
+        noise = (0.6 * rng.standard_normal(2 * F * T * n)).astype(np.float32)
+        zero_launches()
+        fg, snk = fec_link(bits, noise, batch_frames=F, frame=frame, K=K,
+                           polys=polys)
+        fg.run(device="cuda")
+        count = "launches" if plan[0] == "warp" else "block_launches"
+        got_l = (getattr(vf, count), vf.global_launches)
+        out["launches"][name] = got_l[0]
+        coded = fec.conv_encode(torch.from_numpy(bits.reshape(2 * F, -1))
+                                .to(torch.int32), polys, K).numpy()
+        llr = (2.0 * coded.astype(np.float32) - 1.0
+               + noise.reshape(2 * F, -1)).reshape(2, F, T, n)
+        ref = np.concatenate([kfec.viterbi_frames_plain(
+            torch.from_numpy(part).cuda(), tabs, True, frame).cpu().numpy()
+            for part in llr]).reshape(-1)
+        got = snk.data().astype(np.int32)
+        log(f"S3 {name} ({K = }, rate 1/{n}, {frame}-bit frames, {plan}): a "
+            f"FEC link of 2 batches of {F} frames in graph mode bit-equal to "
+            f"the plain version: {np.array_equal(got, ref)}; {count} "
+            f"{got_l[0]}, global_launches {got_l[1]}; "
+            f"{int((got != bits).sum())} bit errors")
+        require(np.array_equal(got, ref) and got_l[0] > 0 and
+                (got_l[1] > 0) == (plan[1] == "global"),
+                f"S3 {name}: the link differs from the plain version, or its "
+                f"route was not counted")
+        for frames, nb in ((F, frame), (4, long_frame)):
+            if nb is None:
+                continue
+            Tn = nb + K - 1
+            for hard in (True, False):
+                llr_d, _, _ = fec_llrs(torch, frames, 0.8, seed=nb + K,
+                                       K=K, polys=polys, hard=hard, nbits=nb)
+                lc = torch.from_numpy(llr_d).cuda().reshape(frames, Tn, n)
+                before = vf.global_launches
+                equal = torch.equal(vf(lc, tabs, K, True),
+                                    kfec.viterbi_frames_plain(lc, tabs, True, nb))
+                route = kfec.viterbi_plan(Tn, n, K)
+                log(f"S3 {name}: {frames} frames of {nb} bits, "
+                    f"{'hard' if hard else 'soft'}, {route}: bit-equal to "
+                    f"the plain version: {equal}")
+                require(equal and (vf.global_launches == before + 1)
+                        == (route[1] == "global"),
+                        f"S3 {name} at {nb} bits: differs from the plain "
+                        f"version, or its route was not counted")
+        llr_t, _, _ = fec_llrs(torch, F, 0.8, seed=K, K=K, polys=polys,
+                               nbits=frame)
+        lc = torch.from_numpy(llr_t).cuda().reshape(F, T, n)
+        key = f"S3 {name}"
+        out["t"][key] = graph_ms(lambda: vf(lc, tabs, K, True))
+        out["t"][key + " plain"] = median_ms(lambda: kfec.viterbi_frames_plain(
+            lc, tabs, True, frame), reps=3, inner=1, warmup=1)
+        S = 1 << (K - 1)
+        b_ms, by = bound(lc.numel() * 4 + F * frame * 4,
+                         F * T * S * viterbi_ops(n))
+        out["bound"][key] = (b_ms, by)
+        log(f"S3 {name} ({F} x {T} steps, {S} states, rate 1/{n}, {plan}): "
+            f"kernel {out['t'][key]:.4f} ms = "
+            f"{out['t'][key] * 1e6 / T:.1f} ns a step of every frame at "
+            f"once; plain {out['t'][key + ' plain']:.2f} ms; bound "
+            f"{b_ms:.4f} ms ({by}), {100 * b_ms / out['t'][key]:.1f}% of it "
+            f"[{card}]")
+    return out
 
 
 def qpsk_symbols(n_batches: int = QPSK_BATCHES + 1) -> np.ndarray:
@@ -3688,17 +3917,19 @@ def bpsk_awgn(noise: np.ndarray):
 
 
 def fec_link(bits: np.ndarray, noise: np.ndarray, batch_frames: int = FEC_FRAMES,
-             sink: str = "vector"):
+             sink: str = "vector", frame: int = FEC_FRAME, K: int = FEC_K,
+             polys=(0o171, 0o133)):
     from newsched_tpu_torch.blocks import fec, general
     from newsched_tpu_torch.runtime.graph import Flowgraph
 
-    fg = Flowgraph("fec link", batch_size=batch_frames * FEC_FRAME)
+    fg = Flowgraph("fec link", batch_size=batch_frames * frame)
     snk = (general.vector_sink(dtype="ri16") if sink == "vector"
            else general.null_sink(dtype="ri16"))
     chain = [general.vector_source(bits, dtype="ri16",
                                    repeat=sink != "vector"),
-             fec.cc_encoder(frame_bits=FEC_FRAME, K=FEC_K), bpsk_awgn(noise),
-             fec.cc_decoder(frame_bits=FEC_FRAME, K=FEC_K), snk]
+             fec.cc_encoder(frame_bits=frame, polys=polys, K=K),
+             bpsk_awgn(noise),
+             fec.cc_decoder(frame_bits=frame, polys=polys, K=K), snk]
     for a, b in zip(chain, chain[1:]):
         fg.connect(a, 0, b, 0)
     return fg, snk
@@ -3801,9 +4032,10 @@ def fir_fft_ops(ntaps: int) -> float:
                for N in (1 << k for k in range(8, 20)) if N > 2 * ntaps)
 
 
-def chain_bounds(m: int, n: int, n6: int) -> dict:
-    """(bound ms, bound_by) of K3, K5, K6 (at n6 rows) and K1 at m channels
-    and n rows, as kernel_bounds counts them at the flagship's."""
+def chain_bounds(m: int, n: int, n6: int, nd: int = 1) -> dict:
+    """(bound ms, bound_by) of K3, K5, K6 (at n6 rows, over nd shards, each
+    generating the A + L - 1 rows before it) and K1 at m channels and n
+    rows, as kernel_bounds counts them at the flagship's."""
     f4, W = 4, 2 * m
     fold = 2 * L * n * W
     fft = 5 * m * np.log2(m) * n
@@ -3811,7 +4043,8 @@ def chain_bounds(m: int, n: int, n6: int) -> dict:
     demod = DEMOD_OPS * n * m
     chain_out = ((n // DECIM) * m + (A - 1) * W + W) * f4
     r6 = n6 / n
-    k6_ops = (fold + fft + demod + audio) * r6 + PHILOX_OPS * (n6 + A + L - 1) * W
+    k6_ops = (fold + fft + demod + audio) * r6 \
+        + PHILOX_OPS * (n6 + nd * (A + L - 1)) * W
     return {
         "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
         "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
@@ -3837,11 +4070,11 @@ def kernel_bounds() -> dict:
     audio = 2 * A * (n // DECIM) * M
     demod = DEMOD_OPS * n * M
     chain_out = ((n // DECIM) * M + (A - 1) * W + W) * f4
-    # K6 at a shard: K5's work at its rows, and the A + L - 1 rows before
-    # them that it generates for its junction; only the audio leaves
-    r6 = K6_ROWS / n
-    k6_ops = (fold + fft + demod + audio) * r6 \
-        + PHILOX_OPS * (K6_ROWS + A + L - 1) * W
+    # K6 over the 4 shards of a batch (the sharded live graph's one
+    # launch): K5's work at its rows, and the A + L - 1 rows before each
+    # shard that it generates for its junction; only the audio leaves
+    k6_ops = (fold + fft + demod + audio) \
+        + PHILOX_OPS * (n + 4 * (A + L - 1)) * W
     U = (WB_R // WB_D) * 64  # xlate outputs
     # real taps on complex samples (4 flops a tap), demod, real resampler
     wb_chain = 4 * 81 * U + DEMOD_OPS * U + 2 * 121 * WB_NAUD * 64
@@ -3857,7 +4090,7 @@ def kernel_bounds() -> dict:
         "K1": bound((n + L - 1) * W * f4 + n * W * f4, fold + fft),
         "K7": bound((n + L - 1) * W * f4 + n * W * f4, fold),
         "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
-        "K6": bound((K6_ROWS // DECIM) * M * f4, k6_ops),
+        "K6": bound((n // DECIM) * M * f4, k6_ops),
         "K8": bound(2 * WB_BATCH * f4, NCO_OPS * WB_BATCH),
         "K11": bound(WB_R * 128 * f4, NCO_OPS * WB_R * 64),
         "K10": bound((WB_R + 568) * 128 * f4 + WB_NAUD * 128 * f4,
@@ -4236,19 +4469,28 @@ def main() -> int:
 
     # 29. times
     b6 = noise.group_tensor(3 * K6_ROWS // 64, "cuda")  # shard 3's base
+    # "K6": the sharded live graph's launch, the 4 shards of a batch in
+    # one grid (its plain version shard by shard); "K6 one shard": one
+    # shard's 8192 rows, as each launch was before the one grid
     t.update(alternate({
         "K6 plain": lambda: fm_chain.fm_chain_gen_warm_step_plain(
-            b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM),
+            g0, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, K6_WARM, nd=4),
         "K5 beside K6": lambda: fm_chain.fm_chain_gen_step(*k5_args),
         "K6 at 32768": lambda: fm_chain.fm_chain_gen_warm_step(
             b6, amp, consts, DECIM, DEMOD_GAIN, ROWS, warm=K6_WARM),
-        "K6": lambda: fm_chain.fm_chain_gen_warm_step(
+        "K6 one shard": lambda: fm_chain.fm_chain_gen_warm_step(
             b6, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM),
+        "K6 8 shards": lambda: fm_chain.fm_chain_gen_warm_step(
+            g0, amp, consts, DECIM, DEMOD_GAIN, ROWS // 8, warm=K6_WARM, nd=8),
+        "K6": lambda: fm_chain.fm_chain_gen_warm_step(
+            g0, amp, consts, DECIM, DEMOD_GAIN, K6_ROWS, warm=K6_WARM, nd=4),
     }, PLAIN_REPS))
     ms = {k: min(v_) for k, v_ in t.items()}
-    log(f"K6 fm_chain_gen_warm_step: {K6_ROWS} rows {t['K6']} ms, {ROWS} rows "
-        f"{t['K6 at 32768']} ms; K5 at {ROWS} rows {t['K5 beside K6']} ms; "
-        f"plain ({K6_ROWS} rows) {t['K6 plain']} ms [{card}]")
+    log(f"K6 fm_chain_gen_warm_step, one launch: 4 shards of {K6_ROWS} rows "
+        f"{t['K6']} ms, 8 shards of {ROWS // 8} {t['K6 8 shards']} ms (one "
+        f"shard's {K6_ROWS} rows {t['K6 one shard']} ms, {ROWS} rows "
+        f"{t['K6 at 32768']} ms); K5 at {ROWS} rows {t['K5 beside K6']} ms; "
+        f"plain (4 shards) {t['K6 plain']} ms [{card}]")
     # one sharded step is profiled: each is its shards' kernels in a row
     for n in MESHES:
         step_rate(torch, "live", f"live, {n} shards", card, mesh=make_mesh(n),
@@ -4314,6 +4556,7 @@ def main() -> int:
     t50 = time.monotonic()
     lp = phase_loops(torch, kloops, card)
     vt = phase_viterbi(torch, kfec, card)
+    vr = phase_viterbi_routes(torch, kfec, card)
     main_loops = loops_on_main_path_shapes(torch, kloops, card)
     qp = phase_qpsk_link(torch, card)
     fl = phase_fec_link(torch, kfec, card)
@@ -4330,7 +4573,8 @@ def main() -> int:
 
     # K3's family beside the dense-DFT chain's times (PERF.md section 6:
     # chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W)
-    dense_ms = {"K3": 0.1909, "K5": 0.2061, "K6": 0.1714, "K3p": 0.1717}
+    dense_ms = {"K3": 0.1909, "K5": 0.2061, "K6 one shard": 0.1714,
+                "K3p": 0.1717}
     log("K3's family, FFT against the dense DFT's times: " + ", ".join(
         f"{k} {ms[k]:.4f} ms ({v:.4f}, {v / ms[k]:.2f}x)"
         for k, v in dense_ms.items()) + f" [{card}]")
@@ -4343,6 +4587,11 @@ def main() -> int:
     bounds["K1d"] = k1w["bound"]["K1d"]  # at M = 512, DENSE_ROWS rows
     bounds.update(main_loops["bounds"])  # at the QPSK link's shapes
     bounds["S3"] = vt["bound"]  # a batch of the FEC link
+    for mw in STREAM_M:  # phase 43's shapes: 16384 rows, K6 over 4 shards
+        cb = chain_bounds(mw, WIDE_ROWS, WIDE_ROWS, nd=4)
+        bounds.update({f"{kid} M={mw}": cb[kid] for kid in ("K3", "K5", "K6")})
+    bounds.update(vr["bound"])  # each route at its link's batch
+    ms.update(vr["t"])
     for name, (b_ms, by) in bounds.items():
         log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
             f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
@@ -4368,7 +4617,8 @@ def main() -> int:
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
               staged["arm_fold_dft"], fold_err["arm_fold_dft"]),
         entry("arm_fold", "K7", "channelizer.cu", "channelizer.py:95",
-              dec_launches, fold_err["arm_fold"]),
+              dec_launches + sum(k1w["launches"][m] for m in K7_WIDE_M),
+              fold_err["arm_fold"]),
         entry("fm_chain_gen_step", "K5", "fm_chain.cu", "fm_chain.py:591",
               live_launches, k5_err),
         entry("nco_planes", "K8", "sources.cu", "sources.py:44",
@@ -4400,16 +4650,25 @@ def main() -> int:
         entry("fir_tone_step[partitioned]", "K9p", "fir_part.cu",
               "fir_source.py:89", k9p["launches"], k9p["err"]),
         entry("fm_chain_step_planes[M=128]", "K3w", "fm_chain.cu",
-              "fm_chain.py:421", wide["fused"], wide_err["K3"]),
+              "fm_chain.py:421", wide[128]["fused"], wide_err["K3"]),
         entry("fm_chain_gen_step[M=128]", "K5w", "fm_chain.cu",
-              "fm_chain.py:591", wide["live"], wide_err["K5"]),
+              "fm_chain.py:591", wide[128]["live"], wide_err["K5"]),
         entry("fm_chain_gen_warm_step[M=128]", "K6w", "fm_chain.cu",
-              "fm_chain.py:724", wide["K6"], wide_err["K6"]),
+              "fm_chain.py:724", wide[128]["K6"], wide_err["K6"]),
         entry("arm_fold_dft[M=128]", "K1w", "channelizer.cu",
-              "channelizer.py:209", wide["K1"], fold_err["arm_fold_dft"]),
+              "channelizer.py:209", wide[128]["K1"], fold_err["arm_fold_dft"]),
+        # on no graph's path: pfb_channelize(method="fused") at M = 512
         entry("arm_fold_dft[dense]", "K1d", "channelizer.cu",
-              "channelizer.py:209", k1w["launches"][K1_DENSE_M],
+              "channelizer.py:209", k1w["launches"]["dense"],
               fold_err["arm_fold_dft[dense]"]),
+        # chain_tile_stream past 256 channels (phase 42's graphs)
+        *[entry(f"{name}[M={mw}]", f"{kid} M={mw}", "fm_chain.cu", ref,
+                wide[mw][kind], wide_err[kid])
+          for mw in STREAM_M
+          for name, kid, ref, kind in (
+              ("fm_chain_step_planes", "K3", "fm_chain.py:421", "fused"),
+              ("fm_chain_gen_step", "K5", "fm_chain.py:591", "live"),
+              ("fm_chain_gen_warm_step", "K6", "fm_chain.py:724", "K6"))],
         # no TPU kernel: each replaces a lax.scan of the reference
         entry("costas_loop", "S1", "loops.cu", "newsched_tpu/ops/loops.py:88",
               qp["launches"]["costas_loop"],
@@ -4420,6 +4679,10 @@ def main() -> int:
               max(lp["err"]["S2"], main_loops["err"]["S2"])),
         entry("viterbi_decode", "S3", "viterbi.cu", "newsched_tpu/ops/fec.py:83",
               fl[FEC_SIGMA_7DB]["launches"], 0.0),
+        # S3's routes past the FEC link's frames and codes (phase 51's links)
+        *[entry(f"viterbi_decode[{name}]", f"S3 {name}", "viterbi.cu",
+                "newsched_tpu/ops/fec.py:83", vr["launches"][name], 0.0)
+          for name, *_ in S3_ROUTES],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

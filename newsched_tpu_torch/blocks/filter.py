@@ -167,8 +167,10 @@ class _pfb_block(Block):
 class pfb_channelizer(_pfb_block):
     """M-channel polyphase channelizer (reference filter::pfb_channelizer):
     cf32 stream in -> stream of (M,)-vector items at rate 1/M, channel k
-    centered at k/M of the input rate. When 2M is a multiple of 128 it runs
-    the fused front end kernel (K1 ``arm_fold_dft``) on a GPU."""
+    centered at k/M of the input rate. At M = 64 P, P = 1 .. 7 it runs the
+    fused front end kernel (K1 ``arm_fold_dft``) on a GPU, at any other M
+    the fold kernel (K7 ``arm_fold``) and cuFFT's combine
+    (``ops/pfb.py`` ``auto_method``)."""
 
     def __init__(self, nchans: int, taps=None, taps_per_arm: int = 16,
                  attenuation_db: float = 80.0, name=None):

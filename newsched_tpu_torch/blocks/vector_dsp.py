@@ -329,12 +329,13 @@ class fm_noise_channelizer_source(_fused_chain):
         return ({"group": group, "carry": carry, "prev": prev,
                  "atail": atail}, {"out": aud})
 
-    # -- graph-level sharding: under fg.run(mesh=...) each time shard d
-    # runs K6 (fm_chain_gen_warm_step) on its own absolute group range,
-    # base group + d * n_loc / 64 (the kernel adds the shard's offset to
-    # the counter it reads from the card), and rebuilds its fold halo and
-    # junction from the stream itself: zero collectives, and the only state
-    # is the 64-bit group counter.
+    # -- graph-level sharding: under fg.run(mesh=...) time shard d takes
+    # its own absolute group range, base group + d * n_loc / 64, and
+    # rebuilds its fold halo and junction from the stream itself: zero
+    # collectives, and the only state is the 64-bit group counter. One K6
+    # launch (fm_chain_gen_warm_step with nd shards) takes every shard: the
+    # kernel adds each shard's offset to the counter it reads from the
+    # card and writes the shards' audio in order.
 
     def _sharded_geometry(self, n_rows_tot: int, n_dev: int):
         """(rows a shard, the reference's tile and warm) for batches of
@@ -384,9 +385,8 @@ class fm_noise_channelizer_source(_fused_chain):
                          max(self.h8, len(self.audio_taps) - 1))
         amp = params["amplitude"]
         consts = self.consts(amp.device)
-        auds = [fm_chain.fm_chain_gen_warm_step(
+        aud = fm_chain.fm_chain_gen_warm_step(
             state["group"], amp, consts, self.audio_decim, self.gain, n_loc,
-            warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws,
-            goff=d * (n_loc // G)) for d in range(nd)]
+            warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws, nd=nd)
         return ({"group": noise.advance(state["group"], n_rows_tot // G)},
-                {"out": torch.cat(auds)})
+                {"out": aud})

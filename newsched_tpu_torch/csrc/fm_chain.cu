@@ -93,11 +93,13 @@
 // window before the fold and the aud rows after the demod stay natural.
 //
 // The width 2M is a template parameter of the kernels: 128 lanes (M = 64)
-// take chain_tile as above; 256, 384 and 512 (M = 128, 192, 256) take
-// chain_tile_wide, whose layout passes 32 rows at a time through a window
-// and keeps the demod's output apart, because chain_tile's buffer would
-// not fit in shared memory at M = 192 and 256 (its header below). K3p and
-// the ablation probe are built at 128 lanes only.
+// take chain_tile as above; 256 to 896 (M = 128 .. 448, 64 P for P = 2 ..
+// 7) take chain_tile_stream, which passes 32 rows at a time through a
+// window, from the tile's last rows down, and accumulates the audio FIR's
+// outputs as the demodulated rows stream through, so that shared memory
+// holds one pass and the outputs, not the tile (its header below). K3p and
+// the ablation probe are built at 128 lanes only. M = 512 and past take no
+// chain kernel (the wrappers raise; ROADMAP.md H13).
 //
 // K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
 // taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
@@ -348,23 +350,27 @@ __device__ __forceinline__ void load_window(float* buf, int sr0, int n,
 
 // The demod of one output: atan2 of conj(Y[t-1]) * Y[t], times the gain
 // (the ablation's variants: kNoAtan2 (PR + PI) * gain, kNoDemod Re Y *
-// gain).
+// gain). PR and PI are each one fused multiply-add, the rest rounded on
+// its own: the roundings nvcc chose in every chain kernel before they were
+// written out (left to the compiler, the contraction can differ between
+// tile routines, and chain_tile_stream's would not have kept the bits of
+// the layout it replaced).
 template <int kV>
 __device__ __forceinline__ float demod(float ar, float ai, float yr, float yi,
                                        const Chain& p) {
-  const float pr = ar * yr + ai * yi;
-  const float pi = ar * yi - ai * yr;
+  const float pr = __fmaf_rn(ar, yr, __fmul_rn(ai, yi));
+  const float pi = __fmaf_rn(ar, yi, -__fmul_rn(ai, yr));
   if constexpr (kV == kNoAtan2)
     return (pr + pi) * p.gain;
   else if constexpr (kV == kNoDemod)
     return yr * p.gain;
   else
-    return atan2_poly(pi, pr, p.co) * p.gain;
+    return __fmul_rn(atan2_poly(pi, pr, p.co), p.gain);
 }
 
 // Stage 4, the decimating audio FIR of a tile: out[o] = sum_k ataps[k] *
 // aud[o*decim - k], aud row jj (stream row t0 - A + jj) at aud + jj * ld,
-// M lanes, in kAG bands (p.ag where kAG is 0). With more than one (K3ag),
+// M lanes, in kAG bands. With more than one (K3ag),
 // band g of Tg = T/ag rows holds outputs g*n_og .. g*n_og + n_og - 1 and
 // reads only [tail; aud] rows g*Tg .. g*Tg + Tg + A-2 (aud rows 1 + g*Tg +
 // s) against the band table H[o][s] = ataps[A-1 + o*decim - s], zero
@@ -378,8 +384,8 @@ __device__ __forceinline__ void audio_fir(const float* aud, int ld,
                                           int t0) {
   const int tid = threadIdx.x, A = p.A;
   const int n_o = p.T / p.decim;
-  const int ag = kAG ? kAG : p.ag;
-  if (kAG == 1 || ag == 1) {
+  constexpr int ag = kAG;
+  if constexpr (ag == 1) {
     for (int idx = tid; idx < n_o * M; idx += kThreads) {
       const int o = idx / M, m = idx % M;
       const float* col = aud + (A + o * p.decim) * ld + m;
@@ -392,7 +398,7 @@ __device__ __forceinline__ void audio_fir(const float* aud, int ld,
       p.aud[((long long)t0 / p.decim + o) * M + m] = acc;
     }
   } else {
-    static_assert(kAG == 0 || kThreads % kAG == 0, "whole bands");
+    static_assert(kThreads % ag == 0, "whole bands");
     const int Tg = p.T / ag, n_og = Tg / p.decim, S = Tg + A - 1;
     for (int idx = tid; idx < n_og * S; idx += kThreads) {
       const int o = idx / S, s = idx % S, k = A - 1 + o * p.decim - s;
@@ -547,103 +553,233 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   audio_fir<M, kV, kAG>(buf, W, buf + R * W, p, t0);
 }
 
-// One tile of T stream rows from t0 at 2M = kW > 128 lanes (M = 128, 192,
-// 256), rebuilding its junction as chain_tile does, in passes of 32 rows:
-// the tile buffer of chain_tile, (T + A + L-1) rows of 2M floats, takes
-// 245,760 bytes at M = 192 and 327,680 at M = 256 (T = 64, the least the
-// reference's T >= A-1 allows at A = 65), past the 232,448 a block may
-// use. Here the block keeps the demod's output, M real lanes a row, in a
-// buffer of its own, aud ((T + A) x M, row jj = stream row t0 - A + jj),
-// and runs the fold, the FFT and the demod through a window of 32 + L-1
-// input rows: each pass loads its rows' window (the L-1 rows of look-back
-// again), folds it in place into 32 swizzled acc rows, transforms them
-// (one row a group of 8 threads) and demodulates them into aud, Y[jj-1] of
-// its first row kept from the pass before (yp, natural, two rows by
-// turns). The audio FIR then reads aud, K3ag's band table the window. At
-// T = 64, L = 16, A = 65 that is 232,448 bytes at M = 256 and 168,960 at
-// M = 192. Every value is computed by the same operations, in the same
-// order, as at any other tile or pass boundary, so the outputs do not
-// depend on the tile, as at M = 64.
-template <int kW, int kAG, class Row>
-__device__ __forceinline__ void chain_tile_wide(float* sm, const Chain& p,
-                                                int t_min, int t0, bool last,
-                                                Row row) {
+// chain_tile_stream's window rows: a pass's 32 + L-1 input rows, of which
+// rows 32 .. 47 (after the fold) also hold the pass's 32 aud rows of M.
+__host__ __device__ __forceinline__ int stream_window_rows(int L) {
+  return kChunkRows + (L - 1 > 16 ? L - 1 : 16);
+}
+
+// The fold of one pass at kW > 128 lanes (chain_tile_stream): buffer rows
+// 0 .. 31 of `win` get acc of window rows jj .. jj + L-1 (swizzled; 0 where
+// t_first + jj < t_min or jj >= nrows), in place, in two halves of 16 rows:
+// the lower half's reads (rows 0 .. 15+L-1), a barrier, its writes (rows
+// 0 .. 15) with the upper half's reads (rows 16 .. 31+L-1, above them),
+// a barrier, the upper half's writes. So a thread holds the ceil(W/256)
+// lanes of one half at a time, not the 2W/256 groups of fold_rows, whose
+// taps and outputs would not fit its registers at 896 lanes. Per lane the
+// sum is fold_rows': c2[0]*v, then fmaf in order.
+template <int kW, int kL>
+__device__ __forceinline__ void fold_pass(float* win, const Chain& p,
+                                          int t_min, int t_first, int nrows) {
+  constexpr int W = kW, kPer = 16;
+  constexpr int kG = (W + kThreads - 1) / kThreads;  // lanes a thread
+  const int tid = threadIdx.x;
+  float c[kG][kL > 0 ? kL : 1];
+  if constexpr (kL > 0) {
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+      for (int q = 0; q < kL; ++q) {
+        const int k = tid + gi * kThreads;
+        c[gi][q] = k < W ? __ldg(p.c2 + q * W + k) : 0.f;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j0 = h * kPer;
+    float o[kG][kPer];
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi) {
+      const int k = tid + gi * kThreads;
+      if (k >= W) continue;
+      if constexpr (kL > 0) {
+        float v[kPer + kL - 1];
+#pragma unroll
+        for (int i = 0; i < kPer + kL - 1; ++i)
+          v[i] = j0 + i < nrows + kL - 1 ? win[(j0 + i) * W + k] : 0.f;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          float acc = 0.f;
+          if (j0 + e < nrows && t_first + j0 + e >= t_min) {
+            acc = c[gi][0] * v[e];
+#pragma unroll
+            for (int q = 1; q < kL; ++q) acc = fmaf(c[gi][q], v[e + q], acc);
+          }
+          o[gi][e] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const int jj = j0 + e;
+          o[gi][e] = 0.f;
+          if (jj < nrows && t_first + jj >= t_min) {
+            float acc = __ldg(p.c2 + k) * win[jj * W + k];
+            for (int q = 1; q < p.L; ++q)
+              acc = fmaf(__ldg(p.c2 + q * W + k), win[(jj + q) * W + k], acc);
+            o[gi][e] = acc;
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi) {
+      const int k = tid + gi * kThreads;
+      if (k >= W) continue;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int r = j0 + e;
+        win[r * W + sw(r, k)] = o[gi][e];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Where the planes FFT leaves logical lane k (< 2M: re of output k, or im
+// of output k - M) of buffer row r: swizzled at P <= 4 (fft_row), at
+// wide_lane's place past it (fft_tile_wide).
+template <int P>
+__device__ __forceinline__ int ypos(int r, int k) {
+  if constexpr (P <= 4) {
+    return sw(r, k);
+  } else {
+    constexpr int M = 64 * P;
+    return k < M ? sw(r, planes_fft::wide_lane<P>(k))
+                 : M + sw(r, planes_fft::wide_lane<P>(k - M));
+  }
+}
+
+// One tile of T stream rows from t0 at 2M = kW > 128 lanes (M = 128 ..
+// 448), rebuilding its junction as chain_tile does. chain_tile's buffer,
+// (T + A + L-1) rows of 2M floats, takes 245,760 bytes at M = 192 (T =
+// 64, the least the reference's T >= A-1 allows at A = 65), past the
+// 232,448 a block may use, and at M = 448 the tile's (T + A) aud rows of
+// M floats alone take 231,168. So the tile streams: its rows jj = 0 ..
+// T+A-1 (stream row t0 - A + jj) in passes of 32, from the top pass down.
+// A pass loads its window of 32 + L-1 input rows, folds it in place
+// (fold_pass), transforms the 32 rows (fft_row at P <= 4; fft_tile_wide,
+// two passes over the block, past it) and demodulates rows r0+1 .. r0+32:
+// aud[jj] from Y[jj-1] and Y[jj], Y[r0+32] being the pass above's first
+// row, kept in yp (natural); the top pass's first row waits for the pass
+// below. The aud rows go to the window's rows past 32 (free after the
+// fold), and each audio output out[o] = sum_k ataps[k] * aud[A + o*decim
+// - k] takes the pass's rows into its accumulator, in shared memory, from
+// the highest row down: the passes run downwards, so every output sums k
+// = 0 .. A-1 in that order, as chain_tile's stage 4 does. The block holds
+// one pass (48 rows of 2M floats at L = 16), yp and T/decim x M
+// accumulators: 189,952 bytes at M = 448, T = 64. With K3ag's bands
+// (Chain.ag) the threads of band g take its outputs; each output's sum is
+// the same. Every value is computed by the same operations, in the same
+// order, whatever the tile, pass or kernel, so the outputs do not depend
+// on the tile, as at M = 64, and at M = 128 .. 256 they are those of the
+// layout this replaced (the passes upwards, the aud rows kept whole), bit
+// for bit.
+template <int kW, class Row>
+__device__ __forceinline__ void chain_tile_stream(float* sm, const Chain& p,
+                                                  int t_min, int t0,
+                                                  bool last, Row row) {
   constexpr int W = kW, M = W / 2, P = M / 64;
   const int A = p.A, L = p.L;
   const int R = p.T + A;
   const int tid = threadIdx.x;
-  float* aud = sm;
-  float* win = aud + R * M;
-  float* yp = win + (kChunkRows + L - 1) * W;
-  const planes_fft::Tw<P> tw(p.tw, tid & 7);
-  const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
-  for (int r0 = 0, pass = 0; r0 < R; r0 += kChunkRows, ++pass) {
+  float* win = sm;
+  float* yp = win + stream_window_rows(L) * W;
+  float* oacc = yp + W;                      // (T/decim) x M
+  float* audb = win + kChunkRows * W;        // a pass's aud rows, M floats
+  const int band_threads = kThreads / p.ag, band = tid / band_threads;
+  const int n_og = p.T / p.decim / p.ag;     // outputs of a band
+  for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads)
+    oacc[band * n_og * M + idx] = 0.f;
+  const int jp = t_min - 1 - (t0 - A);       // the row of Y[t_min - 1]
+  const int top = (R - 1) / kChunkRows * kChunkRows;
+  for (int r0 = top; r0 >= 0; r0 -= kChunkRows) {
     const int n = min(kChunkRows, R - r0);
-    // 1. the pass's window, folded in place: window row j gets acc of
-    //    stream row t0 - A + r0 + j
+    const int hi = r0 == top ? n - 1 : n;    // demodulates rows r0+1 .. r0+hi
+    // 1. the pass's window, folded in place: row j gets acc of stream row
+    //    t0 - A + r0 + j
     load_window<W>(win, t0 - A + r0 - (L - 1), n + L - 1, row);
     __syncthreads();
     if (L == kFoldL)
-      fold_rows<W, false, kFoldL>(win, win, 0, p, t_min, t0 - A + r0, n,
-                                  kChunkRows);
+      fold_pass<W, kFoldL>(win, p, t_min, t0 - A + r0, n);
     else
-      fold_rows<W, false, 0>(win, win, 0, p, t_min, t0 - A + r0, n,
-                             kChunkRows);
-    // 2. Y: the 32 rows (past n: zeros), one a group of 8 threads
-    {
+      fold_pass<W, 0>(win, p, t_min, t0 - A + r0, n);
+    // 2. Y of the 32 rows (past n: zeros)
+    if constexpr (P <= 4) {
+      const planes_fft::Tw<P> tw(p.tw, tid & 7);
       const int r = 4 * (tid >> 5) + ((tid >> 3) & 3);
       planes_fft::fft_row<P>(win + r * W, r, tid & 7, tw, p.tw);
+    } else {
+      planes_fft::fft_tile_wide<P>(win, kChunkRows, tid, kThreads, p.tw);
     }
     __syncthreads();
     if (jp >= r0 && jp < r0 + n)
       for (int k = tid; k < W; k += kThreads)
-        win[(jp - r0) * W + sw(jp - r0, k)] = p.prev0[k];
-    if (last && r0 + n == R)
+        win[(jp - r0) * W + ypos<P>(jp - r0, k)] = p.prev0[k];
+    if (last && r0 == top)
       for (int k = tid; k < W; k += kThreads)
-        p.prev_out[k] = win[(n - 1) * W + sw(n - 1, k)];
+        p.prev_out[k] = win[(n - 1) * W + ypos<P>(n - 1, k)];
     __syncthreads();
-    // 3. demod of rows max(r0, 1) .. r0+n-1 into aud; rows before the
-    //    stream take tail0. The pass's last Y row goes to yp for the next.
-    const float* yprev = yp + (pass & 1) * W;
-    for (int idx = tid; idx < n * M; idx += kThreads) {
-      const int j = idx / M, m = idx % M, jj = r0 + j;
-      if (jj < 1) continue;
+    // 3. demod of rows r0+1 .. r0+hi into audb; rows before the stream
+    //    take tail0; the tile's last A-1 aud rows are the carried tail
+    for (int idx = tid; idx < hi * M; idx += kThreads) {
+      const int j = 1 + idx / M, m = idx % M, jj = r0 + j;
       const int t = t0 - A + jj;
       float v;
       if (t < t_min) {
         v = p.tail0[(A - 1 + t - t_min) * W + m];
       } else {
-        const float* pa = j ? win + (j - 1) * W : yprev;
-        const int ma = j ? sw(j - 1, m) : m, my = sw(j, m);
-        const float* py = win + j * W;
-        v = demod<kFull>(pa[ma], pa[ma + M], py[my], py[my + M], p);
+        const float* pa = win + (j - 1) * W;
+        const float ar = pa[ypos<P>(j - 1, m)], ai = pa[ypos<P>(j - 1, M + m)];
+        float yr, yi;
+        if (j < n) {
+          const float* py = win + j * W;
+          yr = py[ypos<P>(j, m)];
+          yi = py[ypos<P>(j, M + m)];
+        } else {
+          yr = yp[m];
+          yi = yp[M + m];
+        }
+        v = demod<kFull>(ar, ai, yr, yi, p);
       }
-      aud[jj * M + m] = v;
+      audb[(j - 1) * M + m] = v;
+      if (last && jj >= R - (A - 1)) {
+        const int i = jj - (R - (A - 1));
+        p.tail_out[i * W + m] = v;
+        p.tail_out[i * W + M + m] = v;
+      }
     }
-    for (int k = tid; k < W; k += kThreads)
-      yp[((pass + 1) & 1) * W + k] = win[(n - 1) * W + sw(n - 1, k)];
+    __syncthreads();
+    // 4. Y[r0] for the pass below; the audio outputs take rows r0+hi down
+    //    to r0+1 (those within their A taps), k upwards
+    for (int k = tid; k < W; k += kThreads) yp[k] = win[ypos<P>(0, k)];
+    for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads) {
+      const int o = band * n_og + idx / M, m = idx % M;
+      const int base = A + o * p.decim;      // aud row of tap 0
+      const int jhi = min(base, r0 + hi), jlo = max(base - (A - 1), r0 + 1);
+      float acc = oacc[o * M + m];
+      for (int jj = jhi; jj >= jlo; --jj)
+        acc = fmaf(__ldg(p.ataps + (base - jj)), audb[(jj - r0 - 1) * M + m],
+                   acc);
+      oacc[o * M + m] = acc;
+    }
     __syncthreads();
   }
-  if (last)  // the last A-1 aud rows, duplicated in both halves
-    for (int idx = tid; idx < (A - 1) * M; idx += kThreads) {
-      const int i = idx / M, m = idx % M;
-      const float v = aud[(R - (A - 1) + i) * M + m];
-      p.tail_out[i * W + m] = v;
-      p.tail_out[i * W + M + m] = v;
-    }
-  // 4. the decimating audio FIR from aud; K3ag's band table in the window
-  audio_fir<M, kFull, kAG>(aud, M, win, p, t0);
+  for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads) {
+    const int o = band * n_og + idx / M, m = idx % M;
+    p.aud[((long long)t0 / p.decim + o) * M + m] = oacc[o * M + m];
+  }
 }
 
 // Shared floats of a chain block (K3, K5, K6) at kW lanes: at the
 // flagship's 128 the tile buffer, and with kAG > 1 room past its T + A rows
-// for the band table; wider, chain_tile_wide's aud rows, window and two Y
-// rows (the band table, in the window, fits: chain_kernel_fits).
+// for the band table; wider, chain_tile_stream's window, yp and the audio
+// accumulators.
 template <int kW>
 __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
                                                           int ag, int decim) {
   if constexpr (kW != kFlagW) {
-    return (T + A) * (kW / 2) + (kChunkRows + L - 1 + 2) * kW;
+    return (stream_window_rows(L) + 1) * kW + T / decim * (kW / 2);
   } else {
     const int rows = tile_rows(T, A, L) * kW;
     if (ag == 1) return rows;
@@ -651,14 +787,6 @@ __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
     const int need = (T + A) * kW + tg / decim * (tg + A - 1);
     return need > rows ? need : rows;
   }
-}
-
-// Whether K3ag's band table fits where the tile routine keeps it.
-template <int kW>
-bool chain_kernel_fits(int T, int A, int L, int ag, int decim) {
-  if constexpr (kW == kFlagW) return true;  // chain_smem_floats makes room
-  const int tg = T / ag;
-  return ag == 1 || tg / decim * (tg + A - 1) <= (kChunkRows + L - 1) * kW;
 }
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
@@ -672,7 +800,7 @@ __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                               nullptr, nullptr, row, [] {});
   } else {
     static_assert(kV == kFull, "the ablation runs at 128 lanes");
-    chain_tile_wide<kW, kAG>(buf, p, t_min, blockIdx.x * p.T, last, row);
+    chain_tile_stream<kW>(buf, p, t_min, blockIdx.x * p.T, last, row);
   }
 }
 
@@ -718,11 +846,16 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
 
 // K6: K5 with nothing carried in or out: every row a block reads, before
 // the batch too, generated from its signed offset to the base group (the
-// stream masks groups before its start to 0). The shard's base is the
-// batch's group counter on the card plus `goff` groups; the stream's first
-// row relative to it (t_min) follows from that base here: where a block
-// can reach it (shard 0 of the first batch) it is -64 * base, else far in
-// the past (kFarPast, which no block reaches).
+// stream masks groups before its start to 0). One launch takes the nd
+// shards of a batch, n rows each: block b is tile b mod (n/T) of shard d =
+// b / (n/T), whose base is the batch's group counter on the card plus goff
+// + d n/64 groups; the stream's first row relative to it (t_min) follows
+// from that base here: where a block can reach it (shard 0 of the first
+// batch) it is -64 * base, else far in the past (kFarPast, which no block
+// reaches). The blocks count rows from the first shard's base (t0 =
+// b T): shard d's rows are its own shifted by d n (the stream is
+// position-pure, philox.cuh), so each writes its audio at its place in the
+// one (nd n/decim, M) output.
 constexpr int kFarPast = -(1 << 30);
 
 template <int kW, int kAG>
@@ -731,14 +864,16 @@ fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
                          const Chain p) {
   extern __shared__ __align__(16) float buf[];
-  s.g0 = philox::group_at(group, goff);
+  const int d = blockIdx.x / (p.n / p.T);
+  const long long shift = (long long)d * p.n;  // shard d's first row
+  s.g0 = philox::group_at(group, goff + shift / philox::kGroupRows);
   const long long g = (long long)s.g0;
-  const int t_min = g <= 0 ? 0
+  const int t_min = g <= 0 ? (int)shift
                     : g >= (1LL << 24) ? kFarPast
-                                       : (int)(-g * philox::kGroupRows);
+                                       : (int)(shift - g * philox::kGroupRows);
   const float a = amp[0];
   rebuilt_tile<kW, kFull, kAG>(buf, p, t_min, [&](int sr, int k) {
-    return __fmul_rn(philox::gauss(s, sr, k, kW), a);
+    return __fmul_rn(philox::gauss(s, sr - shift, k, kW), a);
   });
 }
 
@@ -840,8 +975,6 @@ bool valid_bands(int ag, int T, int decim) {
 // flagship's 128 lanes one instance reads ag from the Chain.
 #define LAUNCH_BANDS(kernel, ag, T, A, L, decim, blocks, stream, ...)        \
   {                                                                          \
-    if (!chain_kernel_fits<kW>(T, A, L, ag, decim))                          \
-      return (int)cudaErrorInvalidValue;                                     \
     const size_t smem_ =                                                     \
         (size_t)chain_smem_floats<kW>(T, A, L, ag, decim) * sizeof(float);   \
     if constexpr (kW != kFlagW) {                                            \
@@ -863,13 +996,16 @@ bool valid_bands(int ag, int T, int decim) {
   }
 
 // The launch of a chain kernel at 2M lanes: the instance for the width
-// (M = 64, 128, 192, 256), or cudaErrorInvalidValue.
+// (M = 64 P, P = 1 .. 7), or cudaErrorInvalidValue.
 #define FOR_WIDTH(M, fn, ...)                        \
   switch (2 * (M)) {                                 \
     case 128: return fn<128>(__VA_ARGS__);           \
     case 256: return fn<256>(__VA_ARGS__);           \
     case 384: return fn<384>(__VA_ARGS__);           \
     case 512: return fn<512>(__VA_ARGS__);           \
+    case 640: return fn<640>(__VA_ARGS__);           \
+    case 768: return fn<768>(__VA_ARGS__);           \
+    case 896: return fn<896>(__VA_ARGS__);           \
     default: return (int)cudaErrorInvalidValue;      \
   }
 
@@ -892,10 +1028,11 @@ int gen_launch(const philox::Stream& s, const long long* group,
 
 template <int kW>
 int gen_warm_launch(const philox::Stream& s, const long long* group,
-                    long long goff, const float* amp, int n, int L, int A,
-                    int decim, int T, int ag, void* stream, const Chain& p) {
-  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, n / T, stream, s,
-               group, goff, amp, p);
+                    long long goff, int nd, const float* amp, int n, int L,
+                    int A, int decim, int T, int ag, void* stream,
+                    const Chain& p) {
+  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, nd * (n / T),
+               stream, s, group, goff, amp, p);
 }
 
 }  // namespace
@@ -972,17 +1109,19 @@ extern "C" int fm_chain_gen_launch(
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
 }
 
+// K6 over nd shards of n rows each (aud: nd n/decim rows), one launch.
 extern "C" int fm_chain_gen_warm_launch(
-    const long long* group, long long goff, uint32_t k0, uint32_t k1,
+    const long long* group, long long goff, int nd, uint32_t k0, uint32_t k1,
     int draws, float mean, float inv_std, const float* amp, const float* prev0,
     const float* tail0, const float* c2, const float* tw, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
     int ag, float gain, const float* atan_coeffs, void* stream) {
-  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
+  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim) || nd < 1 ||
+      n % T || n % philox::kGroupRows || (long long)nd * n > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
-  FOR_WIDTH(M, gen_warm_launch, s, group, goff, amp, n, L, A, decim, T, ag,
-            stream,
+  FOR_WIDTH(M, gen_warm_launch, s, group, goff, nd, amp, n, L, A, decim, T,
+            ag, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
 }

@@ -45,19 +45,23 @@ inline SinCosCoeffs load_sincos(const float* host) {
 // atan2 by argument reduction to [0, 1] and an odd polynomial of degree
 // 2*kAtanDeg+1 (the reference's mathfns.atan2, deg=9). (+-0, +-0) -> 0:
 // the zero-history demod emits exactly 0, whatever the signs of the zeros.
+// Every rounding is fixed: each Horner step one fused multiply-add, every
+// other operation rounded on its own, the form nvcc chose for it in every
+// kernel before the roundings were written out, whose bits they keep
+// (left to the compiler, its contraction can differ between callers).
 __device__ __forceinline__ float atan2_poly(float y, float x,
                                             const AtanCoeffs& co) {
   const float ax = fabsf(x), ay = fabsf(y);
   const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
-  const float z = lo / fmaxf(hi, 1e-37f);
-  const float w = z * z;
+  const float z = __fdiv_rn(lo, fmaxf(hi, 1e-37f));
+  const float w = __fmul_rn(z, z);
   float acc = co.c[kAtanDeg];
 #pragma unroll
-  for (int k = kAtanDeg - 1; k >= 0; --k) acc = acc * w + co.c[k];
-  float a = z * acc;
+  for (int k = kAtanDeg - 1; k >= 0; --k) acc = __fmaf_rn(acc, w, co.c[k]);
+  float a = __fmul_rn(z, acc);
   const float pi = 3.14159265358979f;
-  if (ay > ax) a = pi * 0.5f - a;
-  if (x < 0.f) a = pi - a;
+  if (ay > ax) a = __fsub_rn(pi * 0.5f, a);
+  if (x < 0.f) a = __fsub_rn(pi, a);
   if (y < 0.f) a = -a;
   if (x == 0.f && y == 0.f) a = 0.f;
   return a;

@@ -1,6 +1,6 @@
 // S3 viterbi_decode for Hopper (sm_90a): maximum-likelihood decoding of a
 // rate-1/n convolutional code, one terminated (or unterminated) frame a
-// warp (K <= 9) or a block (K = 10, 11).
+// warp (K <= 9, n <= 4) or a block (K = 10 .. 15, or n > 4).
 //
 // No TPU kernel: it replaces the reference's two `lax.scan`s in
 // newsched_tpu/ops/fec.py `viterbi_decode` (:83): the add-compare-select
@@ -38,10 +38,24 @@
 //     picked from the step's E words, loaded ahead of it, so the chain is
 //     a select, a shift and an add a step; the bits leave in coalesced
 //     stores.
-// At K = 10 and 11 (16 and 32 states a lane) a warp's registers would not
-// hold them: the block instance takes those codes, one block a frame, one
-// thread a state, its metrics double-buffered in shared memory, one
-// barrier a step, the max by warp shuffles and one word a warp.
+// At K = 10 and past (16 and more states a lane) a warp's registers would
+// not hold them, nor its 4 E branch symbols past n = 4: the block instance
+// takes those codes, one block a frame, S/1024 states a thread past 1024
+// states (state s on thread s mod 1024, so a ballot of warp w at state
+// group e is word s >> 5), the branch symbols from the read-only cache past
+// rate 1/4 or two states a thread, its metrics double-buffered in shared
+// memory (2 S floats: 128 KB at K = 15, the last code whose two rows fit a
+// block, so past K = 15 the launch refuses the code), one barrier a step,
+// the max by warp shuffles and one word a warp.
+//
+// Memory of a frame: where its LLRs and decision words fit a block's
+// shared memory (the warp instance: 4 T (n + S/32) bytes, 14,528 steps at
+// K = 7, rate 1/2) they are staged there, as above. Past it (`global`) the
+// LLRs are read from device memory step by step (the next step's loaded
+// ahead of the step), the decision words go to a scratch buffer in device
+// memory (T S/32 words a frame, the caller's), the traceback reads them
+// back from there, and the bits leave as they are traced. The arithmetic
+// and its order are the same either way.
 // Ties: predecessor 1 only if its metric is strictly greater, as
 // jnp.argmax picks the first maximum (hard +-1 LLRs tie often). Every
 // multiply and add is separately rounded (__fmul_rn/__fadd_rn); each
@@ -56,113 +70,162 @@
 
 namespace {
 
-constexpr int kMaxN = 4;  // outputs a step (rate 1/n)
+constexpr int kMaxN = 4;         // coded bits a step the warp instance holds
+constexpr int kBlockThreads = 1024;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr float kNeg = -1e9f;    // the encoder starts in state 0
 
-__global__ void viterbi_kernel(const float* __restrict__ llr,
-                               int* __restrict__ bits,
-                               const float* __restrict__ psym,
-                               const int* __restrict__ pred,
-                               const int* __restrict__ pbit, int T, int n,
-                               int S, int terminated, int nbits) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int NW = (S + 31) / 32;  // decision words a step
-  float* r = reinterpret_cast<float*>(smem);  // T * n LLRs
-  float* nm = r + T * n;                      // 2 x S metrics
-  float* wmax = nm + 2 * S;                   // 2 x NW warp maxima
-  float* fin = wmax + 2 * NW;                 // S final metrics
-  int* pred_s = reinterpret_cast<int*>(fin + S);  // 2 S
-  int* pbit_s = pred_s + 2 * S;                   // 2 S
-  unsigned* dec = reinterpret_cast<unsigned*>(pbit_s + 2 * S);  // T x NW
-  int* out = reinterpret_cast<int*>(dec + (long long)T * NW);   // T bits
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* lf = llr + (long long)blockIdx.x * T * n;
-  for (int i = tid; i < T * n; i += blockDim.x) r[i] = lf[i];
-  for (int i = tid; i < 2 * S; i += blockDim.x) {
-    pred_s[i] = pred[i];
-    pbit_s[i] = pbit[i];
-  }
-  const bool live = tid < S;
-  float sym0[kMaxN] = {}, sym1[kMaxN] = {};
-  int q0 = 0, q1 = 0;
-  if (live) {
-    q0 = pred[2 * tid];
-    q1 = pred[2 * tid + 1];
-    for (int j = 0; j < n; ++j) {
-      sym0[j] = psym[(2 * tid) * n + j];
-      sym1[j] = psym[(2 * tid + 1) * n + j];
-    }
-  }
-  __syncthreads();
-  const float kNeg = -1e9f;  // the encoder starts in state 0
-  for (int t = 0; t < T; ++t) {
-    float m0, m1;
-    if (t == 0) {
-      m0 = q0 == 0 ? 0.f : kNeg;
-      m1 = q1 == 0 ? 0.f : kNeg;
-    } else {
-      const float* prev = nm + ((t - 1) & 1) * S;
-      const float* wm = wmax + ((t - 1) & 1) * NW;
-      float g = wm[0];
-      for (int w = 1; w < NW; ++w) g = fmaxf(g, wm[w]);
-      m0 = __fsub_rn(prev[q0], g);
-      m1 = __fsub_rn(prev[q1], g);
-    }
-    const float* rt = r + t * n;
-    float bm0 = __fmul_rn(sym0[0], rt[0]);
-    float bm1 = __fmul_rn(sym1[0], rt[0]);
-    for (int j = 1; j < n; ++j) {
-      bm0 = __fadd_rn(bm0, __fmul_rn(sym0[j], rt[j]));
-      bm1 = __fadd_rn(bm1, __fmul_rn(sym1[j], rt[j]));
-    }
-    const float c0 = __fadd_rn(m0, bm0), c1 = __fadd_rn(m1, bm1);
-    const bool ch = live && c1 > c0;
-    const float v = ch ? c1 : c0;
-    const unsigned word = __ballot_sync(0xffffffffu, ch);
-    float mx = live ? v : -INFINITY;
+// One step's branch metric of state st on branch b: sum_j psym * r, the
+// first product alone, then each add rounded on its own.
+template <int E>
+__device__ __forceinline__ float branch(const float (&sym)[E > 2 ? 1 : E][2][kMaxN],
+                                        int e, int b, const float* __restrict__ psym,
+                                        int st, const float* rt, int n) {
+  if (E <= 2 && n <= kMaxN) {
+    float bm = __fmul_rn(sym[E > 2 ? 0 : e][b][0], rt[0]);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (live) nm[(t & 1) * S + tid] = v;
-    if (lane == 0) {
-      wmax[(t & 1) * NW + warp] = mx;
-      dec[(long long)t * NW + warp] = word;
-    }
-    __syncthreads();
+    for (int j = 1; j < kMaxN; ++j)
+      if (j < n) bm = __fadd_rn(bm, __fmul_rn(sym[E > 2 ? 0 : e][b][j], rt[j]));
+    return bm;
   }
-  if (T > 0) {
-    const float* wm = wmax + ((T - 1) & 1) * NW;
-    float g = wm[0];
-    for (int w = 1; w < NW; ++w) g = fmaxf(g, wm[w]);
-    if (live) fin[tid] = __fsub_rn(nm[((T - 1) & 1) * S + tid], g);
-  }
-  __syncthreads();
-  if (tid == 0 && T > 0) {
-    int state = 0;
-    if (!terminated) {  // argmax, the first of equal maxima
-      float best = fin[0];
-      for (int s = 1; s < S; ++s)
-        if (fin[s] > best) {
-          best = fin[s];
-          state = s;
-        }
-    }
-    for (int t = T - 1; t >= 0; --t) {
-      const int which =
-          (dec[(long long)t * NW + (state >> 5)] >> (state & 31)) & 1;
-      out[t] = pbit_s[2 * state + which];
-      state = pred_s[2 * state + which];
-    }
-  }
-  __syncthreads();
-  int* bf = bits + (long long)blockIdx.x * nbits;
-  for (int i = tid; i < nbits; i += blockDim.x) bf[i] = out[i];
+  const float* ps = psym + ((long long)st * 2 + b) * n;
+  float bm = __fmul_rn(__ldg(ps), rt[0]);
+  for (int j = 1; j < n; ++j) bm = __fadd_rn(bm, __fmul_rn(__ldg(ps + j), rt[j]));
+  return bm;
 }
 
-// ---- the warp instance: a frame a warp, S <= 256 ----------------------------
+// The block instance: a frame a block of min(S, 1024) threads (32 below 32
+// states, lanes past S idle), E = S / threads states a thread.
+template <int E>
+__global__ void __launch_bounds__(kBlockThreads)
+viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
+               const float* __restrict__ psym, unsigned* __restrict__ dec_g,
+               int T, int n, int S, int terminated, int nbits, int global) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int threads = blockDim.x, NWt = threads >> 5;
+  const int NW = S < 32 ? 1 : S >> 5;       // decision words a step
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long f = blockIdx.x;
+  float* nm = reinterpret_cast<float*>(smem);   // 2 x S metrics
+  float* wmax = nm + 2 * S;                     // 2 x 32 warp maxima
+  const float* r;                               // T x n LLRs
+  unsigned* dec;                                // T x NW decision words
+  int* out = nullptr;                           // T bits (shared frames)
+  if (global) {
+    r = llr + f * T * n;
+    dec = dec_g + f * T * NW;
+  } else {
+    float* rs = wmax + 64;
+    for (int i = tid; i < T * n; i += threads) rs[i] = llr[f * T * n + i];
+    r = rs;
+    dec = reinterpret_cast<unsigned*>(rs + T * n);
+    out = reinterpret_cast<int*>(dec + (long long)T * NW);
+  }
+  float sym[E > 2 ? 1 : E][2][kMaxN] = {};
+  if (E <= 2 && n <= kMaxN)
+#pragma unroll
+    for (int e = 0; e < (E > 2 ? 1 : E); ++e) {
+      const int st = tid + e * threads;
+      if (st < S)
+        for (int b = 0; b < 2; ++b)
+          for (int j = 0; j < n; ++j) sym[e][b][j] = psym[(st * 2 + b) * n + j];
+    }
+  const int half = S >> 1;
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const float* prev = nm + ((t - 1) & 1) * S;
+    float* cur = nm + (t & 1) * S;
+    float g = 0.f;
+    if (t > 0) {
+      const float* wm = wmax + ((t - 1) & 1) * 32;
+      g = wm[0];
+      for (int w = 1; w < NWt; ++w) g = fmaxf(g, wm[w]);
+    }
+    const float* rt = r + (long long)t * n;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int st = tid + e * threads;
+      const bool live = st < S;
+      bool ch = false;
+      if (live) {
+        const int q = st >> 1;
+        float m0, m1;
+        if (t == 0) {
+          m0 = q == 0 ? 0.f : kNeg;
+          m1 = kNeg;  // q + S/2 is never state 0
+        } else {
+          m0 = __fsub_rn(prev[q], g);
+          m1 = __fsub_rn(prev[q + half], g);
+        }
+        const float c0 = __fadd_rn(m0, branch<E>(sym, e, 0, psym, st, rt, n));
+        const float c1 = __fadd_rn(m1, branch<E>(sym, e, 1, psym, st, rt, n));
+        ch = c1 > c0;
+        const float v = ch ? c1 : c0;
+        cur[st] = v;
+        mx = fmaxf(mx, v);
+      }
+      const unsigned word = __ballot_sync(kAll, ch);  // states st - lane ..
+      if (lane == 0) dec[(long long)t * NW + e * NWt + warp] = word;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, o));
+    if (lane == 0) wmax[(t & 1) * 32 + warp] = mx;
+    __syncthreads();
+  }
+  if (T == 0) return;
+  int state = 0;
+  if (!terminated) {  // argmax of the last metrics less their max: the first
+    const float* last = nm + ((T - 1) & 1) * S;
+    const float* wm = wmax + ((T - 1) & 1) * 32;
+    float g = wm[0];
+    for (int w = 1; w < NWt; ++w) g = fmaxf(g, wm[w]);
+    float bv = -INFINITY;
+    int bs = S;
+    for (int e = 0; e < E; ++e) {
+      const int st = tid + e * threads;
+      if (st < S) {
+        const float fe = __fsub_rn(last[st], g);
+        if (fe > bv) bv = fe, bs = st;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kAll, bv, o);
+      const int os = __shfl_xor_sync(kAll, bs, o);
+      if (ov > bv || (ov == bv && os < bs)) bv = ov, bs = os;
+    }
+    float* cv = nm + (T & 1) * S;                       // free: NWt <= S
+    int* cs = reinterpret_cast<int*>(wmax + (T & 1) * 32);
+    if (lane == 0) cv[warp] = bv, cs[warp] = bs;
+    __syncthreads();
+    if (tid == 0) {
+      bv = cv[0], bs = cs[0];
+      for (int w = 1; w < NWt; ++w)
+        if (cv[w] > bv || (cv[w] == bv && cs[w] < bs)) bv = cv[w], bs = cs[w];
+      state = bs;
+    }
+  }
+  int* bf = bits + f * nbits;
+  if (tid == 0)
+    for (int t = T - 1; t >= 0; --t) {
+      const int which = (dec[(long long)t * NW + (state >> 5)] >> (state & 31)) & 1;
+      if (out)
+        out[t] = state & 1;  // the input bit into state: pbit
+      else if (t < nbits)
+        bf[t] = state & 1;
+      state = (state >> 1) + (which ? half : 0);  // pred[state][which]
+    }
+  if (out) {
+    __syncthreads();
+    for (int i = tid; i < nbits; i += threads) bf[i] = out[i];
+  }
+}
+
+// ---- the warp instance: a frame a warp, S <= 256, n <= 4 -------------------
 
 constexpr int kWarpMaxS = 256;   // 8 states a lane
 constexpr int kWarpFrames = 4;   // frames (warps) a block, at most
-constexpr unsigned kAll = 0xffffffffu;
 
 // The max of x over the warp, in every lane: one redux on int keys that
 // order as the floats do (negative floats' magnitude bits flipped).
@@ -173,22 +236,32 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // E states a lane (1: one state, lanes past S idle), N coded bits a step.
-// The warp's slice of shared memory: T N LLRs (then the T decoded bits),
-// then T E decision words.
-template <int E, int N>
+// A staged frame's slice of shared memory: T N LLRs (then the T decoded
+// bits), then T E decision words; a kGlobal frame's LLRs are llr's (the
+// next step's loaded ahead of the step) and its words dec_g's.
+template <int E, int N, bool kGlobal>
 __global__ void __launch_bounds__(32 * kWarpFrames)
 viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
-                    const float* __restrict__ psym, int F, int T, int S,
+                    const float* __restrict__ psym,
+                    unsigned* __restrict__ dec_g, int F, int T, int S,
                     int terminated, int nbits) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int H = E > 1 ? E / 2 : 1;  // predecessor pairs a lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int f = blockIdx.x * (blockDim.x >> 5) + warp;
   if (f >= F) return;  // a whole warp; no block barrier follows
-  float* r = reinterpret_cast<float*>(smem) + (long long)warp * T * (N + E);
-  unsigned* dec = reinterpret_cast<unsigned*>(r + (long long)T * N);
   const float* lf = llr + (long long)f * T * N;
-  for (int i = lane; i < T * N; i += 32) r[i] = lf[i];
+  float* rs = reinterpret_cast<float*>(smem) + (long long)warp * T * (N + E);
+  const float* r;
+  unsigned* dec;
+  if constexpr (kGlobal) {
+    r = lf;
+    dec = dec_g + (long long)f * T * E;
+  } else {
+    for (int i = lane; i < T * N; i += 32) rs[i] = lf[i];
+    r = rs;
+    dec = reinterpret_cast<unsigned*>(rs + (long long)T * N);
+  }
   const bool live = lane * E < S;
   float sym[E][2][N], v[E];
 #pragma unroll
@@ -206,10 +279,20 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
   const bool odd = lane & 1;
   float g = 0.f;  // the previous step's max (0 before the first step)
   __syncwarp();
+  float rn[N];  // kGlobal: the next step's LLRs, loaded a step ahead
+#pragma unroll
+  for (int j = 0; j < N; ++j) rn[j] = kGlobal && T > 0 ? r[j] : 0.f;
   for (int t = 0; t < T; ++t) {
     float rr[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) rr[j] = r[t * N + j];
+    for (int j = 0; j < N; ++j) {
+      if constexpr (kGlobal) {
+        rr[j] = rn[j];
+        rn[j] = t + 1 < T ? r[(t + 1) * N + j] : 0.f;
+      } else {
+        rr[j] = r[t * N + j];
+      }
+    }
     float m0[H], m1[H];  // the pairs' predecessor metrics, less g
     if constexpr (E == 1) {
       m0[0] = __fsub_rn(__shfl_sync(kAll, v[0], src0), g);
@@ -242,7 +325,7 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
       v[e] = ch ? c1 : c0;
       mx = fmaxf(mx, v[e]);
       const unsigned word = __ballot_sync(kAll, live && ch);
-      if (lane == 0) dec[t * E + e] = word;
+      if (lane == 0) dec[(long long)t * E + e] = word;
     }
     g = warp_max(live ? mx : -INFINITY);
   }
@@ -260,7 +343,10 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
     const int win = __ffs(at) - 1;
     state = win * E + __shfl_sync(kAll, best, win);
   }
-  int* out = reinterpret_cast<int*>(r);  // the LLRs are read
+  int* bf = bits + (long long)f * nbits;
+  // a staged frame's bits go where its LLRs were (read by now)
+  int* out = kGlobal ? bf : reinterpret_cast<int*>(rs);
+  const int lim = kGlobal ? nbits : T;
   __syncwarp();
   if (lane == 0) {
     const int hi = S >> 1;
@@ -268,89 +354,112 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
     for (int t = T - 1; t >= 0; --t) {
       unsigned w[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) w[e] = dec[t * E + e];
+      for (int e = 0; e < E; ++e) w[e] = dec[(long long)t * E + e];
       unsigned word = w[0];
 #pragma unroll
       for (int e = 1; e < E; ++e) word = (state & (E - 1)) == e ? w[e] : word;
       const int which = (word >> (state / E)) & 1;
-      out[t] = state & 1;  // the input bit into state: pbit
+      if (t < lim) out[t] = state & 1;  // the input bit into state: pbit
       state = (state >> 1) + (which ? hi : 0);  // pred[state][which]
     }
   }
-  __syncwarp();
-  int* bf = bits + (long long)f * nbits;
-  for (int i = lane; i < nbits; i += 32) bf[i] = out[i];
+  if constexpr (!kGlobal) {
+    __syncwarp();
+    for (int i = lane; i < nbits; i += 32) bf[i] = out[i];
+  }
 }
 
-using WarpKernel = void (*)(const float*, int*, const float*, int, int, int,
-                            int, int);
+using WarpKernel = void (*)(const float*, int*, const float*, unsigned*, int,
+                            int, int, int, int);
+using BlockKernel = void (*)(const float*, int*, const float*, unsigned*, int,
+                             int, int, int, int, int);
 
-template <int E>
+template <int E, bool kGlobal>
 WarpKernel warp_instance(int n) {
   switch (n) {
-    case 1: return viterbi_warp_kernel<E, 1>;
-    case 2: return viterbi_warp_kernel<E, 2>;
-    case 3: return viterbi_warp_kernel<E, 3>;
-    default: return viterbi_warp_kernel<E, 4>;
+    case 1: return viterbi_warp_kernel<E, 1, kGlobal>;
+    case 2: return viterbi_warp_kernel<E, 2, kGlobal>;
+    case 3: return viterbi_warp_kernel<E, 3, kGlobal>;
+    default: return viterbi_warp_kernel<E, 4, kGlobal>;
   }
+}
+
+template <int E>
+WarpKernel warp_instance(int n, int global) {
+  return global ? warp_instance<E, true>(n) : warp_instance<E, false>(n);
+}
+
+BlockKernel block_instance(int E) {
+  switch (E) {
+    case 1: return viterbi_kernel<1>;
+    case 2: return viterbi_kernel<2>;
+    case 4: return viterbi_kernel<4>;
+    case 8: return viterbi_kernel<8>;
+    default: return viterbi_kernel<16>;
+  }
+}
+
+template <class Kernel>
+int allow_smem(Kernel fn, long long smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
-// Shared memory of a block of the block instance, and of a warp's frame in
-// the warp instance (ops/cuda/fec.py `viterbi_smem` mirrors both, to
-// refuse a frame that does not fit and name the limit).
-static long long viterbi_smem(int T, int n, int S) {
-  const long long NW = (S + 31) / 32;
-  return 4LL * ((long long)T * n + 2 * S + 2 * NW + S + 4 * S + T * NW + T);
+// Shared memory of a frame's block in the block instance and of a frame's
+// warp in the warp instance, staged (global = 0) or not (ops/cuda/fec.py
+// `viterbi_smem` mirrors both, to plan the route and name the limit).
+static long long viterbi_smem(int T, int n, int S, int global) {
+  const long long NW = S < 32 ? 1 : S / 32;
+  return 4LL * (2LL * S + 64 + (global ? 0 : (long long)T * n + T * NW + T));
 }
 
-static long long viterbi_warp_smem(int T, int n, int S) {
-  return 4LL * T * (n + (S < 32 ? 1 : S / 32));
+static long long viterbi_warp_smem(int T, int n, int S, int global) {
+  return global ? 0 : 4LL * T * (n + (S < 32 ? 1 : S / 32));
 }
 
 static constexpr long long kSmemMax = 232448;  // a block on the H100
+static constexpr int kMaxS = 16384;            // K = 15
 
-// The warp instance up to S = 256 (K = 9), the block instance above.
+// warp: the warp instance (S <= 256, n <= 4), else the block instance;
+// global: the frame's LLRs and decision words in device memory (dec: F T
+// max(1, S/32) words), else staged in shared memory, which must hold them.
 extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
-                              const int* pred, const int* pbit, int F, int T,
-                              int n, int S, int terminated, int nbits,
+                              unsigned* dec, int F, int T, int n, int S,
+                              int terminated, int nbits, int warp, int global,
                               void* stream) {
-  if (F < 0 || T < 0 || n < 1 || n > kMaxN || S < 2 || S > 1024 ||
-      (S & (S - 1)) || nbits < 0 || nbits > T)
+  if (F < 0 || T < 0 || n < 1 || S < 2 || S > kMaxS || (S & (S - 1)) ||
+      nbits < 0 || nbits > T || (warp && (S > kWarpMaxS || n > kMaxN)) ||
+      (global && dec == nullptr))
     return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (S <= kWarpMaxS) {
-    const long long per = viterbi_warp_smem(T, n, S);
+  if (warp) {
+    const long long per = viterbi_warp_smem(T, n, S, global);
     if (per > kSmemMax) return (int)cudaErrorInvalidValue;
-    const int wpb = (int)std::min<long long>(kWarpFrames, kSmemMax / std::max(per, 1LL));
+    const int wpb = (int)std::min<long long>(
+        kWarpFrames, per ? kSmemMax / per : kWarpFrames);
     WarpKernel fn;
     switch (S < 32 ? 1 : S / 32) {
-      case 1: fn = warp_instance<1>(n); break;
-      case 2: fn = warp_instance<2>(n); break;
-      case 4: fn = warp_instance<4>(n); break;
-      default: fn = warp_instance<8>(n);
+      case 1: fn = warp_instance<1>(n, global); break;
+      case 2: fn = warp_instance<2>(n, global); break;
+      case 4: fn = warp_instance<4>(n, global); break;
+      default: fn = warp_instance<8>(n, global);
     }
     const long long smem = per * wpb;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
+    if (const int e = allow_smem(fn, smem)) return e;
     fn<<<(F + wpb - 1) / wpb, 32 * wpb, (size_t)smem, st>>>(
-        llr, bits, psym, F, T, S, terminated, nbits);
+        llr, bits, psym, dec, F, T, S, terminated, nbits);
     return (int)cudaGetLastError();
   }
-  const long long smem = viterbi_smem(T, n, S);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = S < 32 ? 32 : S;
-  viterbi_kernel<<<F, threads, (size_t)smem, st>>>(
-      llr, bits, psym, pred, pbit, T, n, S, terminated, nbits);
+  const long long smem = viterbi_smem(T, n, S, global);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int threads = std::max(32, std::min(S, kBlockThreads));
+  const BlockKernel fn = block_instance(S / threads > 0 ? S / threads : 1);
+  if (const int e = allow_smem(fn, smem)) return e;
+  fn<<<F, threads, (size_t)smem, st>>>(llr, bits, psym, dec, T, n, S,
+                                       terminated, nbits, global);
   return (int)cudaGetLastError();
 }

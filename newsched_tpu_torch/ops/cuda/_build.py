@@ -52,7 +52,7 @@ SIGNATURES = {
     "fm_chain_gen_launch": [_P, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P, _P],
-    "fm_chain_gen_warm_launch": [_P, _LL, _U, _U, _I, _F, _F, _P, _P, _P, _P,
+    "fm_chain_gen_warm_launch": [_P, _LL, _I, _U, _U, _I, _F, _F, _P, _P, _P, _P,
                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _F, _P, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
@@ -84,7 +84,7 @@ SIGNATURES = {
     "mm_launch": [_P] * 17 + [_P, _P, _F, _F, _F, _F, _I, _I, _LL, _I, _I,
                               _P],
     # viterbi.cu
-    "viterbi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "viterbi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

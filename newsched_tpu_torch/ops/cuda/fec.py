@@ -5,20 +5,25 @@ convolutional code, frame by frame (reference: newsched_tpu/ops/fec.py
 cannot express, so the decoder is a CUDA kernel here (``csrc/viterbi.cu``),
 with its plain PyTorch version beside it: a torch loop over the steps,
 every frame and state at once. The kernel has two instances, chosen by
-the number of states S = 2^(K-1): up to K = 9 (``WARP_MAX_K``) a frame a
-warp, S/32 states a lane, a step in shuffles and one redux with no
-barrier (``launches``); at K = 10 and 11 a frame a block, a thread a
-state, one barrier a step (``block_launches``).
+the number of states S = 2^(K-1) and the rate 1/n (``viterbi_plan``): up
+to K = 9 (``WARP_MAX_K``) at n <= 4 a frame a warp, S/32 states a lane, a
+step in shuffles and one redux with no barrier (``launches``); at K = 10
+to 15 (``MAX_K``), or past n = 4, a frame a block of up to 1024 threads,
+S/1024 states a thread past K = 11, one barrier a step
+(``block_launches``). Either keeps a frame's LLRs and decision words in
+shared memory where they fit, and past that in device memory
+(``global_launches`` counts those launches, of either instance): any frame
+length is taken.
 
 The trellis tables come from ops/fec.py (``viterbi_tables``: the
 reference's ``pred``/``pbit`` loop and its expected branch symbols; it
 asserts the butterfly both instances read the predecessors from). On
 CPU tensors the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises, and refuses a code or frame the kernel
-does not take (K > 11, n > 4, a frame past the card's shared memory) with
-a ValueError naming the limit. The decoded bits equal the reference's bit
-for bit at rate 1/2: each branch metric is a sum of two exact +-r
-products, and the kernel rounds each add as the plain version does.
+launches the kernel or raises, and refuses a code past K = 15, whose two
+rows of metrics pass a block's shared memory, with a ValueError naming
+the limit. The decoded bits equal the reference's bit for bit at rate
+1/2: each branch metric is a sum of two exact +-r products, and the
+kernel rounds each add as the plain version does.
 """
 
 from __future__ import annotations
@@ -29,9 +34,9 @@ import torch
 
 from newsched_tpu_torch.ops.cuda import _build
 
-MAX_K = 11           # S = 2^(K-1) <= 1024 states, one thread each
+MAX_K = 15           # S = 2^(K-1) <= 16384: two rows of metrics, 128 KB
 WARP_MAX_K = 9       # the warp instance's codes: S <= 256, 8 states a lane
-MAX_N = 4            # coded bits a step the kernel's registers hold
+WARP_MAX_N = 4       # coded bits a step the warp instance's registers hold
 SMEM_MAX = 232448    # shared memory a block on the H100 (227 KB)
 NEG = -1e9           # metric of the states the encoder cannot start in
 
@@ -47,16 +52,33 @@ class ViterbiTables(NamedTuple):
     psym: torch.Tensor
 
 
-def viterbi_smem(T: int, n: int, S: int, instance: str = "block") -> int:
+def viterbi_smem(T: int, n: int, S: int, instance: str = "block",
+                 memory: str = "shared") -> int:
     """Shared memory of a frame (``csrc/viterbi.cu``). The block instance:
-    the frame's LLRs, two metric and two warp-maximum buffers, the final
-    metrics, the tables, a decision word a warp a step and the bits. The
-    warp instance: the frame's LLRs (then its bits) and S/32 decision
-    words a step (one below 32 states)."""
-    nw = -(-S // 32)
+    two rows of metrics and of warp maxima, and, staged ("shared"), the
+    frame's LLRs, its decision words (S/32 a step, one below 32 states)
+    and its bits. The warp instance: staged, the frame's LLRs (then its
+    bits) and its decision words; "global", nothing."""
+    nw = max(1, S // 32)
+    staged = memory == "shared"
     if instance == "warp":
-        return 4 * T * (n + nw)
-    return 4 * (T * n + 2 * S + 2 * nw + S + 4 * S + T * nw + T)
+        return 4 * T * (n + nw) if staged else 0
+    return 4 * (2 * S + 64 + (T * n + T * nw + T if staged else 0))
+
+
+def viterbi_plan(T: int, n: int, K: int) -> tuple[str, str]:
+    """(instance, memory) of S3 for frames of T steps of a rate-1/n code
+    of constraint length K: "warp" at K <= 9 and n <= 4, else "block";
+    "shared" where the frame's LLRs and decision words fit a block's
+    shared memory, else "global". Raises past K = 15, naming the limit."""
+    if K > MAX_K:
+        raise ValueError(f"viterbi_decode: K = {K}, the kernel takes "
+                         f"K <= {MAX_K} (2^{MAX_K - 1} states: two rows of "
+                         f"metrics in a block's {SMEM_MAX} B of shared "
+                         f"memory)")
+    inst = viterbi_instance(K, n)
+    fits = viterbi_smem(T, n, 1 << (K - 1), inst) <= SMEM_MAX
+    return inst, "shared" if fits else "global"
 
 
 def viterbi_frames_plain(llr: torch.Tensor, tables: ViterbiTables,
@@ -93,58 +115,48 @@ def viterbi_frames_plain(llr: torch.Tensor, tables: ViterbiTables,
     return bits[:, :nbits]
 
 
-def viterbi_instance(K: int) -> str:
-    """The kernel's instance for a code of constraint length K."""
-    return "warp" if K <= WARP_MAX_K else "block"
+def viterbi_instance(K: int, n: int = 2) -> str:
+    """The kernel's instance for a rate-1/n code of constraint length K."""
+    return "warp" if K <= WARP_MAX_K and n <= WARP_MAX_N else "block"
 
 
 def viterbi_frames(llr: torch.Tensor, tables: ViterbiTables, K: int,
                    terminated: bool) -> torch.Tensor:
     """S3 on (F, T, n) float32 LLRs: the plain version for a CPU tensor,
-    ``viterbi_launch`` for a CUDA tensor (its instance
-    ``viterbi_instance(K)``). Returns (F, T - (K-1)) int32 bits for a
-    terminated code, else (F, T)."""
+    ``viterbi_launch`` for a CUDA tensor (its route ``viterbi_plan(T, n,
+    K)``). Returns (F, T - (K-1)) int32 bits for a terminated code, else
+    (F, T)."""
     F, T, n = llr.shape
     nbits = T - (K - 1) if terminated else T
     if llr.device.type == "cpu":
         return viterbi_frames_plain(llr, tables, terminated, nbits)
-    S = tables.pred.shape[0]
-    if K > MAX_K or S > 1 << (MAX_K - 1):
-        raise ValueError(f"viterbi_decode: K = {K}, the kernel takes "
-                         f"K <= {MAX_K} (2^{MAX_K - 1} states, one thread "
-                         f"each)")
-    if n > MAX_N:
-        raise ValueError(f"viterbi_decode: rate 1/{n}, the kernel takes "
-                         f"n <= {MAX_N} coded bits a step")
-    inst = viterbi_instance(S.bit_length())  # S = 2^(K-1), as the launcher
-    smem = viterbi_smem(T, n, S, inst)
-    if smem > SMEM_MAX:
-        raise ValueError(f"viterbi_decode: a frame of {T} steps at K = {K}, "
-                         f"n = {n} needs {smem} B of shared memory, past the "
-                         f"{SMEM_MAX} B limit of a block")
+    S = int(tables.psym.shape[0])
+    inst, memory = viterbi_plan(T, n, K)
+    if S != 1 << (K - 1):
+        raise ValueError(f"viterbi_decode: tables of {S} states for K = {K}")
     lib = _build.lib()  # raises where the kernels cannot be built
     dev = llr.device
     _build.check_tensor(llr, "llr", device=dev, shape=(F, T, n))
     _build.check_tensor(tables.psym, "psym", device=dev, shape=(S, 2, n))
-    for name, t in (("pred", tables.pred), ("pbit", tables.pbit)):
-        if t.device != dev or t.dtype != torch.int32 \
-                or tuple(t.shape) != (S, 2) or not t.is_contiguous():
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, the kernel takes int32 ({S}, 2) "
-                             f"on {dev}")
     bits = torch.empty((F, nbits), dtype=torch.int32, device=dev)
+    dec = (torch.empty(F * T * max(1, S // 32), dtype=torch.int32, device=dev)
+           if memory == "global" else None)
     with torch.cuda.device(dev):
         err = lib.viterbi_launch(
             llr.data_ptr(), bits.data_ptr(), tables.psym.data_ptr(),
-            tables.pred.data_ptr(), tables.pbit.data_ptr(), F, T, n, S,
-            int(terminated), nbits, torch.cuda.current_stream(dev).cuda_stream)
+            None if dec is None else dec.data_ptr(), F, T, n, S,
+            int(terminated), nbits, int(inst == "warp"),
+            int(memory == "global"), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "viterbi_launch")
     if inst == "warp":
         viterbi_frames.launches += 1
     else:
         viterbi_frames.block_launches += 1
+    if memory == "global":
+        viterbi_frames.global_launches += 1
     return bits
 
 
 viterbi_frames.launches = 0
 viterbi_frames.block_launches = 0
+viterbi_frames.global_launches = 0

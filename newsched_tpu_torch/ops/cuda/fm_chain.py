@@ -45,7 +45,8 @@ from newsched_tpu_torch.ops.cuda.mathfns import ATAN_COEFFS, atan2_plain
 from newsched_tpu_torch.ops.cuda.planes_fft import planes_fft_table
 
 PRECISIONS = ("split3", "highest", "high", "default")
-WIDTHS = (128, 256, 384, 512)  # planes lanes 2M of K3, K5, K6 (M = 64 .. 256)
+WIDTHS = (128, 256, 384, 512, 640, 768, 896)  # planes lanes 2M of K3, K5,
+# K6: M = 64 P, P = 1 .. 7, the planes FFT's widths (planes_fft.CHANNELS)
 FLAGSHIP_W = 128  # K3p's and the ablation's one width (M = 64)
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
@@ -244,8 +245,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
         dropped. The returned prev/tail are the true end-of-batch state.
       tile: rows per CUDA block tile (shrunk to a divisor of n as the
         reference does; decim must divide it; at M > 64 shrunk again to a
-        divisor whose block fits in shared memory, ``_fit_tile``: 64 at M =
-        256). Outputs do not depend on it. None: 128, the faster of 128
+        divisor whose block fits in shared memory, ``_fit_tile``). Outputs
+        do not depend on it. None: 128, the faster of 128
         and 256 at the flagship shape on an H100; pipelined, 64, within 4%
         of 128 there (PERF.md).
       precision: accepted for the reference's signature; FP32 always.
@@ -259,7 +260,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
-    The kernels take M = 64, 128, 192 and 256 channels (``WIDTHS``).
+    The kernels take M = 64 P channels, P = 1 .. 7 (64 to 448,
+    ``WIDTHS``); M = 512 and past raise (ROADMAP.md H13).
     CPU tensors take the plain version; CUDA tensors launch
     ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3; K3ag where
     ``_pick_audio_groups`` gives ag > 1), or with ``pipelined``
@@ -393,16 +395,21 @@ def _tile_rows(tile: int, A: int, L: int) -> int:
     return max(-(-(tile + A) // 32) * 32, tile + A + L - 1)
 
 
+def _stream_window_rows(L: int) -> int:
+    """chain_tile_stream's window rows (csrc stream_window_rows): a pass's
+    32 + L-1 input rows, at least 48 (rows 32 .. 47 hold its aud rows)."""
+    return 32 + max(L - 1, 16)
+
+
 def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int,
                 W: int = FLAGSHIP_W) -> int:
     """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): at
     128 lanes the tile buffer, and with ag > 1 room past its tile + A rows
     for K3ag's band table (the buffer's padding holds it at the flagship's
-    shape); wider, chain_tile_wide's (tile + A) aud rows of M floats, its
-    window of 32 + L-1 rows and two Y rows (the band table in the
-    window)."""
+    shape); wider, chain_tile_stream's window of one pass, the Y row kept
+    for the pass below and the tile's tile/decim x M audio accumulators."""
     if W != FLAGSHIP_W:
-        return ((tile + A) * (W // 2) + (32 + L - 1 + 2) * W) * 4
+        return ((_stream_window_rows(L) + 1) * W + tile // decim * (W // 2)) * 4
     floats = _tile_rows(tile, A, L) * W
     if ag > 1:
         tg = tile // ag
@@ -414,9 +421,9 @@ def _fit_tile(tile: int, W: int, A: int, L: int, decim: int,
               unit: int) -> int:
     """The largest divisor of ``tile`` that is a multiple of ``unit``, at
     least max(A-1, H8) rows and whose block fits in shared memory at W
-    lanes: the tile itself at 128 lanes, 64 at M = 256 for the flagship's
-    A and L. The tile changes no output bit; the wrapper's checks see
-    ``tile`` where none fits."""
+    lanes: the tile itself up to 128 rows at every width the kernels take
+    for the flagship's A and L. The tile changes no output bit; the
+    wrapper's checks see ``tile`` where none fits."""
     least = max(A - 1, _round8(L - 1), 1)
     return next((d for d in range(tile, least - 1, -1)
                  if tile % d == 0 and d % unit == 0
@@ -425,21 +432,17 @@ def _fit_tile(tile: int, W: int, A: int, L: int, decim: int,
 
 def _check_kernel_shape(W: int, tile: int, A: int, L: int, ag: int,
                         decim: int) -> None:
-    """What K3, K5 and K6 take: 2M in ``WIDTHS``, a block that fits in
-    shared memory, and (wider than 128 lanes) K3ag's band table in the
-    window."""
+    """What K3, K5 and K6 take: 2M in ``WIDTHS`` (M = 64 .. 448) and a
+    block that fits in shared memory."""
     if W not in WIDTHS:
-        raise ValueError(f"planes width {W}: the CUDA kernels take M = 64, "
-                         f"128, 192 or 256 channels (2M in {WIDTHS})")
+        raise ValueError(f"planes width {W} (M={W // 2}): the CUDA kernels "
+                         f"take M = 64 P channels, P = 1 .. 7 (2M in "
+                         f"{WIDTHS}); M = 512 and past are open work "
+                         f"(ROADMAP.md H13)")
     smem = _chain_smem(tile, A, L, ag, decim, W)
     if smem > _SMEM_MAX:
         raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "
                          f"H100 allows {_SMEM_MAX}; pass a smaller tile")
-    tg = tile // ag
-    band_table = tg // decim * (tg + A - 1)
-    if W != FLAGSHIP_W and ag > 1 and band_table > (32 + L - 1) * W:
-        raise ValueError(f"audio groups {ag}: tile {tile}'s band table does "
-                         f"not fit the window at {W} lanes")
 
 
 def _check_chain_tensors(dev, inputs, prev0, tail0, consts) -> None:
@@ -573,40 +576,46 @@ def fm_chain_gen_warm_step_plain(g0, amp, consts: FmChainConsts, decim: int,
                                  gain: float, n_loc: int, warm: int,
                                  seed: int = 0, draws: int = 3,
                                  goff: int = 0, ag: int = 1,
-                                 tile: int | None = None):
+                                 tile: int | None = None, nd: int = 1):
     """The plain PyTorch version of ``fm_chain_gen_warm_step``, the
-    reference's own non-hardware formulation: the stream's rows
-    [base - warm - H8, base + n_loc) (groups before the stream read 0),
-    base = g0 + goff groups, scaled by ``amp``, through K3's warm > 0
-    plain version from a zero junction (ag, tile: its audio stage, as
-    ``fm_chain_step_planes_plain``)."""
+    reference's own non-hardware formulation, shard by shard: for shard d
+    < nd the stream's rows [base - warm - H8, base + n_loc) (groups before
+    the stream read 0), base = g0 + goff + d n_loc/64 groups, scaled by
+    ``amp``, through K3's warm > 0 plain version from a zero junction (ag,
+    tile: its audio stage, as ``fm_chain_step_planes_plain``); the shards'
+    audio in order."""
     L, W = (int(d) for d in consts.c2.shape)
     A = int(consts.ataps.shape[0])
     hr = warm + _round8(L - 1)
     dev = consts.c2.device
-    base = noise.group_tensor(g0, dev) + int(goff)
-    rows = noise.gaussian_rows_plain(base, n_rows=hr + n_loc, width=W,
-                                     seed=seed, device=dev, draws=draws,
-                                     mask_pre=True, row0=-hr) \
-        * torch.as_tensor(amp, dtype=torch.float32, device=dev)
+    amp = torch.as_tensor(amp, dtype=torch.float32, device=dev)
     z1, zt = _zero_state(dev, A, W)
-    aud, _, _ = fm_chain_step_planes_plain(rows[hr:], rows[:hr], z1, zt, consts,
-                                           decim, gain, warm, ag, tile)
-    return aud
+    auds = []
+    for d in range(int(nd)):
+        base = noise.group_tensor(g0, dev) + int(goff) \
+            + d * (n_loc // noise.GROUP_ROWS)
+        rows = noise.gaussian_rows_plain(base, n_rows=hr + n_loc, width=W,
+                                         seed=seed, device=dev, draws=draws,
+                                         mask_pre=True, row0=-hr) * amp
+        auds.append(fm_chain_step_planes_plain(rows[hr:], rows[:hr], z1, zt,
+                                               consts, decim, gain, warm, ag,
+                                               tile)[0])
+    return torch.cat(auds)
 
 
 def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
                            gain: float, n_loc: int, *, warm: int,
                            tile: int = 128, seed: int = 0, draws: int = 3,
-                           goff: int = 0):
-    """One SEGMENT of the live chain with no carried state at all: the
-    audio of stream rows [G*64, G*64 + n_loc) of the noise stream, G = g0
-    + goff (g0: the source's int64 group counter on the device, which the
+                           goff: int = 0, nd: int = 1):
+    """SEGMENTS of the live chain with no carried state at all: the audio
+    of stream rows [G*64, G*64 + nd * n_loc) of the noise stream, G = g0 +
+    goff (g0: the source's int64 group counter on the device, which the
     kernel reads from the card, or a host int; goff: a host count of
-    groups), x ``amp``. The sharded live flagship's per-shard step: shard
-    d passes the batch's counter and its own distance from it in groups,
-    and needs no input, no carries and no collectives. The kernel finds
-    the stream's first row from the base it reads.
+    groups), x ``amp``, as ``nd`` time shards of ``n_loc`` rows (1: one
+    segment). The sharded live flagship's step: one launch takes every
+    shard of the batch (shard d's base the counter plus goff + d n_loc/64
+    groups), and needs no input, no carries and no collectives. The kernel
+    finds each shard's stream start from the base it reads.
 
     The reference regenerates its fold halo and recomputes ``warm`` rows of
     output from a zero junction, then drops them. Each CUDA block here
@@ -620,7 +629,8 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
 
     tile: rows per CUDA block, shrunk to a divisor of n_loc; a multiple of
     64 rows and of decim, as the reference requires. Outputs do not depend
-    on it. Returns audio (n_loc//decim, M) f32.
+    on it, nor on nd: the audio of nd shards equals the shards' audio one
+    by one, in order. Returns audio (nd * n_loc//decim, M) f32.
 
     ``consts`` on the CPU take the plain version; on a CUDA device this
     launches ``fm_chain_gen_warm_launch`` (csrc/fm_chain.cu, K6).
@@ -641,22 +651,26 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     if H8 > noise.GROUP_ROWS:
         raise ValueError(f"H8 {H8} > one noise group ({noise.GROUP_ROWS} "
                          f"rows): first-tile halo regeneration spans one group")
+    nd = int(nd)
+    if nd < 1:
+        raise ValueError(f"nd {nd}: at least one shard")
     ag = _audio_groups(tile, decim, A)
     dev = consts.c2.device
     if dev.type == "cpu":
         return fm_chain_gen_warm_step_plain(g0, amp, consts, decim, gain,
                                             n_loc, warm, seed, draws, goff,
-                                            ag, tile)
+                                            ag, tile, nd)
     _check_kernel_shape(W, tile, A, L, ag, decim)
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     z1, zt = _zero_state(dev, A, W)
     _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)
     args = noise.stream_args(seed, draws)
     g = noise.device_group(g0, dev)
-    aud = torch.empty((n_loc // decim, M), dtype=torch.float32, device=dev)
+    aud = torch.empty((nd * (n_loc // decim), M), dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_warm_launch(
-            g.data_ptr(), int(goff), *args, amp.data_ptr(), z1.data_ptr(),
+            g.data_ptr(), int(goff), nd, *args, amp.data_ptr(), z1.data_ptr(),
             zt.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), n_loc, M, L, H8, A,
             int(decim), tile, ag, float(gain),

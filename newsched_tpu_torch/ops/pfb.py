@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops.cuda import channelizer
-from newsched_tpu_torch.ops.cuda.planes_fft import planes_fft_table
+from newsched_tpu_torch.ops.cuda.planes_fft import CHANNELS, planes_fft_table
 
 METHODS = ("auto", "fused", "pallas", "sum")
 
@@ -122,10 +122,15 @@ def pfb_channelize(arm_taps, state: PfbState, x: torch.Tensor,
       x: (B,) complex64, B % M == 0.
       method: "fused" (fold + combine in one kernel, K1 ``arm_fold_dft``),
         "pallas" (the fold kernel K7 ``arm_fold``, then the combine),
-        "sum" (shifted multiply-adds, then the combine), or "auto": the
-        reference's rule, "fused" when 2M is a multiple of 128, else
-        "sum". The kernels' wrappers run their plain versions on CPU
-        tensors.
+        "sum" (shifted multiply-adds, then the combine), or "auto":
+        "fused" where M is one of K1's FFT widths (``auto_method``: M = 64
+        P, P = 1 .. 7, ``planes_fft.CHANNELS``), else "pallas" (K7 takes
+        any width, then cuFFT's combine). The reference takes K1 on a TPU
+        and "sum" elsewhere; here K1's other instance, the dense product
+        at M = 512 and past, is slower than its plain version and past
+        1816 lanes refuses its tile, so "auto" never picks it ("fused"
+        still reaches it). The kernels' wrappers run their plain versions
+        on CPU tensors.
       combine: "fft", "matmul" or "auto" (= "fft"); "fused" has its own.
       consts: ``pfb_consts(arm_taps, x.device)``; built here when None.
 
@@ -141,11 +146,18 @@ def pfb_channelize(arm_taps, state: PfbState, x: torch.Tensor,
     if consts is None:
         consts = pfb_consts(arm_taps, x.device)
     if method == "auto":
-        method = "fused" if (2 * M) % channelizer.DFT_LANES == 0 else "sum"
+        method = auto_method(M)
     acc = _fold(V, consts, n_out, method)
     if method == "fused":
         return new_state, acc
     return new_state, _phase_combine(acc, consts, combine)
+
+
+def auto_method(M: int) -> str:
+    """``pfb_channelize``'s "auto" route at M channels: "fused" (K1 on its
+    planes FFT) at M in ``planes_fft.CHANNELS``, else "pallas" (K7, then
+    the combine)."""
+    return "fused" if M in CHANNELS else "pallas"
 
 
 def _phase_combine(acc: torch.Tensor, consts: PfbConsts,

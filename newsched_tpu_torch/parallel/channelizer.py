@@ -6,13 +6,15 @@ time axis of logical shards (parallel/mesh.py).
   1. time_halo: each segment's M*L-1-sample filter halo from its left
      neighbour, shard 0's from the previous batch's carry;
   2. each shard channelizes its own segment (``ops.pfb.pfb_channelize``,
-     K1 where 2M is a multiple of 128);
+     whose "auto" takes K1 at M = 64 P, P = 1 .. 7, else K7 and cuFFT);
   3. the corner turn (``all_to_all``): shard j takes channels
      [j*M/n, (j+1)*M/n) of every segment, the whole batch in time;
   4. each shard demodulates and audio-filters its channels with their
      carried state. The audio is the channel shards side by side.
 One shard runs the same chain on the whole batch, as the fused kernel (K3)
-where 2M is a multiple of 128 (the reference's "auto" chain method).
+where its kernel takes the width (2M in ``fm_chain.WIDTHS``; the
+reference's "auto" chain method takes every 2M that is a multiple of 128,
+K3 M = 64 .. 448 on the card), else the staged ops.
 
 ``step_planes`` (the fused kernel's planes rows): one shard runs K3 on the
 batch with carried state; n shards run K3 per time segment with warm > 0,
@@ -158,9 +160,9 @@ class ShardedFMChannelizer:
                 f"{self.ntaps - 1}-sample filter halo; need >= {self.min_batch()}")
         if self.n_dev > 1:
             return self._spmd_step(x, state)
-        # the reference's "auto" rule: the fused kernel where its lanes fit
-        # (2M a multiple of 128)
-        if self._mega_ok and (2 * self.nchans) % 128 == 0:
+        # the reference's "auto" rule: the fused kernel where its lanes fit,
+        # at the widths K3 takes
+        if self._mega_ok and 2 * self.nchans in fm_chain.WIDTHS:
             return self._mega_step(x, state)
         return self._single_step(x, state)
 

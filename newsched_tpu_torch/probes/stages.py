@@ -28,7 +28,8 @@ and skips what follows:
 
 ``outputs`` runs K9, K10 and K12 at the main paths' shapes on fixed inputs
 (K10 and K12 at several block geometries; K9 also at 1024 taps, past the
-FFT instance), the chain kernels at the flagship's shape on seeded rows,
+FFT instance), the chain kernels at the flagship's shape on seeded rows
+(and K3, K3ag, K5, K6 at M = 128, 192, 256; S3 at K = 3, 7, 11),
 K4 at the flagship's 32768 x 128 (with and without an amplitude, as rows
 and as the cf32 stream, at group 2^32 - 2 and at a negative group with
 mask_pre), two batches of each noise block (``noise_planes_source``,
@@ -42,10 +43,13 @@ gets its blocks' own ``r * amp`` and torch.complex build.
 alone, with the amplitude and as the cf32 stream (in a tree without them,
 the kernel and the blocks' torch ops after it); K9 at 128, 1024 and 6001
 taps; K1 at M = 320 on 16384 rows (whichever instance the tree routes
-that width to) and S3 at 1024 frames of 512 bits, K = 7 (the tree's
-default instance); and the graph-mode steps of the config #2 fused-noise
-and staged graphs, the staged graph at M = 320 (16384 rows a batch) and
-the live fir_chain at 1024 taps (the bench's two-point fit).
+that width to), S3 at 1024 frames of 512 bits, K = 7 (the tree's
+default instance), K3 and K5 at M = 128 and 256 on 16384 rows and K6 on
+4096; and the graph-mode steps of the config #2 fused-noise, staged and
+live graphs, the live graph on 4 and 8 shards, the staged graph at M =
+320, 512 and 1024 (16384 rows a batch; a width the tree refuses is
+recorded as its error) and the live fir_chain at 1024 taps (the bench's
+two-point fit).
 
 Prints one JSON line a record, the card's name and power limit first.
 """
@@ -332,15 +336,15 @@ def _k4(g0, amp=None, layout="rows", n_rows=32768, width=128, **kw):
 
 def _fm_graph(kind: str, n_batches, M: int = 64, batch: int = 1 << 21):
     """Config #2 (64 channels, 16 taps an arm, a 65-tap audio FIR by 8,
-    batches of 2^21) with its noise source: fused or staged; or the same
-    at M channels and ``batch`` samples a batch."""
+    batches of 2^21) with its noise source: fused, staged or live; or the
+    same at M channels and ``batch`` samples a batch."""
     from newsched_tpu_torch import models
 
     D = 8
     at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=65)
     return models.fm_channelizer(
-        nchans=M, taps_per_arm=16, audio_decim=D, fused=kind == "fused",
-        source=None, batch_size=batch,
+        nchans=M, taps_per_arm=16, audio_decim=D, fused=kind != "staged",
+        source="live" if kind == "live" else None, batch_size=batch,
         sink="vector" if n_batches else "null",
         n_samples=None if n_batches is None else n_batches * batch // (M * D),
         deviation_frac=1.0 / (2 * np.pi * 0.5), audio_taps=at)
@@ -380,6 +384,7 @@ def times() -> list[dict]:
     graph-mode steps of the config #2 noise graphs, of the staged graph at
     M = 320 and of the 1024-tap live fir_chain."""
     from newsched_tpu_torch import bench, models
+    from newsched_tpu_torch.parallel import make_mesh
 
     g0 = torch.tensor(0, dtype=torch.int64, device="cuda")
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
@@ -404,6 +409,23 @@ def times() -> list[dict]:
     tabs = fec.viterbi_tables(fec.CC_K7_POLYS, 7, "cuda")
     llr = torch.randn(1024, 518, 2, device="cuda", generator=gen)
     calls["S3 K=7"] = lambda: kfec.viterbi_frames(llr, tabs, 7, True)
+    z = dict(dtype=torch.float32, device="cuda")
+    for M in (128, 256):  # the chains past 64 channels, at 16384 rows
+        W = 2 * M
+        c = np.ascontiguousarray(pfb.pfb_arm_taps(
+            firdes.prototype_channelizer_taps(M, 16), M)[::-1, ::-1].T)
+        cc = fm_chain.fm_chain_consts(c, firdes.low_pass(
+            1.0, 1.0, 0.05, 0.0125, ntaps=65), "cuda")
+        vb = torch.randn(16384, W, device="cuda", generator=gen) * 0.5
+        st = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+              torch.zeros(64, W, **z))
+        calls[f"K3 M={M}"] = (lambda vb=vb, st=st, cc=cc:
+                              fm_chain.fm_chain_step_planes(vb, *st, cc, 8,
+                                                            0.5))
+        calls[f"K5 M={M}"] = (lambda st=st, cc=cc: fm_chain.fm_chain_gen_step(
+            g0, amp, *st, cc, 8, 0.5, 16384))
+        calls[f"K6 M={M}"] = (lambda cc=cc: fm_chain.fm_chain_gen_warm_step(
+            g0, amp, cc, 8, 0.5, 4096, warm=512))
     ms: dict = {}
     for name in list(calls) + list(calls)[::-1]:
         ms.setdefault(name, []).append(graph_ms(calls[name]))
@@ -412,12 +434,27 @@ def times() -> list[dict]:
              "#2 staged": (lambda: _fm_graph("staged", None)[0], 1 << 21),
              "#2 staged M=320": (lambda: _fm_graph(
                  "staged", None, 320, 16384 * 320)[0], 16384 * 320),
+             "#2 staged M=512": (lambda: _fm_graph(
+                 "staged", None, 512, 16384 * 512)[0], 16384 * 512),
+             "#2 staged M=1024": (lambda: _fm_graph(
+                 "staged", None, 1024, 16384 * 1024)[0], 16384 * 1024),
+             "#2 live": (lambda: _fm_graph("live", None)[0], 1 << 21),
+             "#2 live 4 shards": (lambda: _fm_graph("live", None)[0], 1 << 21,
+                                  4),
+             "#2 live 8 shards": (lambda: _fm_graph("live", None)[0], 1 << 21,
+                                  8),
              "#0 live 1024 taps": (lambda: models.fir_chain(
                  n_samples=10_000_000, fs=FIR_FS, ntaps=1024, frequency=FIR_FREQ,
                  batch_size=1 << 21, sink="null", source="live")[0], 1 << 21)}
-    for label, (build, n_in) in cells.items():
-        sps = bench.timed_two_point(bench.graph_run(build(), "cuda"), label,
-                                    n_in, n_best=3, k1=16, k2=64)
+    for label, (build, n_in, *mesh) in cells.items():
+        try:
+            run = bench.graph_run(build(), "cuda",
+                                  mesh=make_mesh(mesh[0]) if mesh else None)
+            sps = bench.timed_two_point(run, label, n_in, n_best=3, k1=16,
+                                        k2=64)
+        except (ValueError, RuntimeError) as e:  # a width the tree refuses
+            recs.append({"cell": label, "error": str(e)[:200]})
+            continue
         recs.append({"cell": label, "graph_mode_ms": n_in / sps * 1e3})
     return recs
 
@@ -473,6 +510,59 @@ def _chain_outputs() -> dict:
     grp = torch.tensor(0, dtype=torch.int64, device="cuda")
     res["K6"] = fm_chain.fm_chain_gen_warm_step(
         grp, amp, consts, D, 0.5, 8192, warm=512, goff=3 * 8192 // 64).cpu()
+    res.update(_wide_chain_outputs())
+    return res
+
+
+def _wide_chain_outputs() -> dict:
+    """K3 (two carried batches), K3ag (ag = 2), K5 and K6 (a shard of 4096
+    rows at shard 3) at M = 128, 192 and 256 on seeded rows of 16384, and
+    S3 on 256 seeded frames of 512 bits at K = 3, 7 and 11."""
+    L, A, D, n = 16, 65, 8, 16384
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    res = {}
+    for M in (128, 192, 256):
+        W = 2 * M
+        taps = firdes.prototype_channelizer_taps(M, L)
+        at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
+        c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+        consts = fm_chain.fm_chain_consts(c, at, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(M)
+        rows = torch.randn(2 * n, W, device="cuda", generator=g) * 0.5
+        for key, ag in (("K3", 1), ("K3ag2", 2)):
+            pick = fm_chain._pick_audio_groups
+            fm_chain._pick_audio_groups = lambda tile, decim, A, ag=ag: ag
+            try:
+                halo, prev = torch.zeros(16, W, **z), torch.zeros(1, W, **z)
+                tail = torch.zeros(A - 1, W, **z)
+                for b in range(2):
+                    vb = rows[b * n:(b + 1) * n]
+                    aud, prev, tail = fm_chain.fm_chain_step_planes(
+                        vb, halo, prev, tail, consts, D, 0.5)
+                    for name, t in (("aud", aud), ("prev", prev),
+                                    ("tail", tail)):
+                        res[f"{key} M={M}/{b}/{name}"] = t.cpu()
+                    halo = vb[-16:].contiguous()
+            finally:
+                fm_chain._pick_audio_groups = pick
+        grp = torch.tensor(0, dtype=torch.int64, device="cuda")
+        zs = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+              torch.zeros(A - 1, W, **z))
+        k5 = fm_chain.fm_chain_gen_step(grp, amp, *zs, consts, D, 0.5, n)
+        for name, t in zip(("aud", "prev", "tail", "carry"), k5):
+            res[f"K5 M={M}/{name}"] = t.cpu()
+        res[f"K6 M={M}"] = fm_chain.fm_chain_gen_warm_step(
+            grp, amp, consts, D, 0.5, n // 4, warm=512,
+            goff=3 * (n // 4) // 64).cpu()
+    gen = torch.Generator(device="cuda").manual_seed(511)
+    for polys, K in ((fec.CC_K7_POLYS, 7), ((0o7, 0o5), 3),
+                     ((0o2565, 0o3753), 11)):
+        tabs = fec.viterbi_tables(polys, K, "cuda")
+        llr = torch.randn(256, 512 + K - 1, 2, device="cuda", generator=gen)
+        for term in (True, False):
+            res[f"S3 K={K}/{int(term)}"] = kfec.viterbi_frames(
+                llr, tabs, K, term).cpu()
     return res
 
 

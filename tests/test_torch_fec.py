@@ -3,7 +3,8 @@ and its plain version on the CPU, the interleavers; blocks/fec.py) held
 against the JAX package on the same numpy inputs: bit-equal for the
 (171/133, K = 7) and (7/5, K = 3) codes, hard and soft; the reference's
 own cases mirrored (tests/test_fec.py); the tie-break on an input built to
-tie; the encoder -> LLR -> decoder graph at frame 128."""
+tie; the encoder -> LLR -> decoder graph at frame 128; a 16384-bit frame,
+a rate-1/5 and a K = 12 code (S3's device-memory routes)."""
 
 import numpy as np
 import pytest
@@ -197,29 +198,59 @@ def test_fec_graph_end_to_end(interleave):
 
 
 def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
-    """On a device tensor (meta stands in for the card) S3 refuses K > 11,
-    rate 1/5 and a frame past the block's shared memory, naming each limit;
-    with `_build.build` failing it raises, never returning the plain result."""
+    """On a device tensor (meta stands in for the card) S3 refuses K > 15,
+    whose two rows of metrics pass a block's shared memory, naming the
+    limit; K = 12, rate 1/5 and a frame past the block's shared memory go
+    on to the build (their routes: the block instance, device memory); with
+    `_build.build` failing each raises, never returning the plain result."""
     def no_build():
         raise _build.KernelBuildError("nvcc not found")
 
     monkeypatch.setattr(_build, "build", no_build)
     meta = dict(device="meta", dtype=torch.float32)
-    with pytest.raises(ValueError, match="K <= 11"):
+    with pytest.raises(ValueError, match="K <= 15"):
         kfec.viterbi_frames(torch.empty(2, 40, 2, **meta),
-                            tf.viterbi_tables((0o4037, 0o5741), 12, "meta"),
-                            12, True)
-    with pytest.raises(ValueError, match="n <= 4"):
-        kfec.viterbi_frames(torch.empty(2, 40, 5, **meta),
-                            tf.viterbi_tables((7, 5, 6, 3, 1), 3, "meta"), 3,
-                            True)
-    with pytest.raises(ValueError, match="232448 B limit"):
-        kfec.viterbi_frames(torch.empty(1, 1800, 2, **meta),
-                            tf.viterbi_tables((0o2565, 0o3753), 11, "meta"),
-                            11, True)
+                            tf.viterbi_tables((0o100001, 0o165007), 16, "meta"),
+                            16, True)
+    for llr, tabs, K in (
+            (torch.empty(2, 40, 2, **meta),
+             tf.viterbi_tables((0o4037, 0o5741), 12, "meta"), 12),
+            (torch.empty(2, 40, 5, **meta),
+             tf.viterbi_tables((7, 5, 6, 3, 1), 3, "meta"), 3),
+            (torch.empty(1, 1800, 2, **meta),
+             tf.viterbi_tables((0o2565, 0o3753), 11, "meta"), 11)):
+        with pytest.raises(_build.KernelBuildError):
+            kfec.viterbi_frames(llr, tabs, K, True)
     with pytest.raises(_build.KernelBuildError):
         tf.viterbi_decode(torch.empty(3, 2 * 134, **meta))
     assert kfec.viterbi_frames.launches == 0
+
+
+# The routes past the shared-memory frame: (code, K, bits a frame, the
+# instance); each frame's LLRs and decision words pass a block's shared
+# memory, so each plans the global-memory route
+LONG = [(jf.CC_K7_POLYS, 7, 16384, "warp"),
+        ((0o171, 0o133, 0o165, 0o117, 0o127), 7, 8192, "block"),
+        ((0o4037, 0o5741), 12, 1024, "block")]
+
+
+@pytest.mark.parametrize("polys,K,nbits,inst", LONG)
+def test_viterbi_long_frames_and_codes_match_reference(polys, K, nbits, inst):
+    """A 16384-bit frame at K = 7, a rate-1/5 code and a K = 12 code, soft
+    and noisy: each plans the device-memory route of its instance, and the
+    plain version's bits (what the kernel is held to on the card, phase
+    51) equal the reference's bit for bit, terminated and not."""
+    n = len(polys)
+    _, llr = _frames(polys, K, 1, nbits, 0.8, seed=K + n)
+    T = llr.shape[1] // n
+    assert kfec.viterbi_plan(T, n, K) == (inst, "global")
+    assert kfec.viterbi_smem(T, n, 1 << (K - 1), inst) > kfec.SMEM_MAX
+    for terminated in (True, False):
+        got = tf.viterbi_decode(torch.from_numpy(llr[0]), polys, K,
+                                terminated=terminated)
+        ref = np.asarray(jf.viterbi_decode(jnp.asarray(llr[0]), polys, K,
+                                           terminated=terminated))
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 # -- S3's warp instance, modelled lane by lane --------------------------------
@@ -373,12 +404,14 @@ def test_viterbi_tables_assert_the_butterfly(monkeypatch):
 
 
 def test_viterbi_instances_and_their_limits(monkeypatch):
-    """K <= 9 takes the warp instance, K = 10 and 11 the block one; the
-    warp instance's frame takes no more shared memory than the block's
-    (so it takes every frame the block instance took), and on a device
-    tensor (meta) a warp frame past the limit is refused by name."""
-    assert [kfec.viterbi_instance(K) for K in (3, 7, 9, 10, 11)] == \
-        ["warp"] * 3 + ["block"] * 2
+    """K <= 9 at n <= 4 takes the warp instance, K = 10-15 and rate 1/5 the
+    block one; the warp instance's frame takes no more shared memory than
+    the block's (so it stages every frame the block instance staged); a
+    frame past the limit plans device memory (the warp frame at K = 7 past
+    14,528 steps), and on a device tensor (meta) goes on to the build."""
+    assert [kfec.viterbi_instance(K) for K in (3, 7, 9, 10, 11, 12, 15)] == \
+        ["warp"] * 3 + ["block"] * 4
+    assert kfec.viterbi_instance(7, 5) == "block"
     for K in range(2, 10):
         S = 1 << (K - 1)
         for n in (1, 2, 4):
@@ -386,6 +419,11 @@ def test_viterbi_instances_and_their_limits(monkeypatch):
                 assert kfec.viterbi_smem(T, n, S, "warp") \
                     <= kfec.viterbi_smem(T, n, S)
     assert kfec.viterbi_smem(518, 2, 64, "warp") == 4 * 518 * (2 + 2)
+    assert kfec.viterbi_plan(14528, 2, 7) == ("warp", "shared")
+    assert kfec.viterbi_plan(14529, 2, 7) == ("warp", "global")
+    assert kfec.viterbi_plan(518, 2, 15) == ("block", "global")
+    assert kfec.viterbi_smem(518, 2, 1 << 14, "block", "global") \
+        == 4 * (2 * 16384 + 64) <= kfec.SMEM_MAX
 
     def no_build():
         raise _build.KernelBuildError("nvcc not found")
@@ -393,6 +431,6 @@ def test_viterbi_instances_and_their_limits(monkeypatch):
     monkeypatch.setattr(_build, "build", no_build)
     meta = dict(device="meta", dtype=torch.float32)
     tabs7 = tf.viterbi_tables(jf.CC_K7_POLYS, 7, "meta")
-    with pytest.raises(ValueError, match="232448 B limit"):
+    with pytest.raises(_build.KernelBuildError):
         kfec.viterbi_frames(torch.empty(1, 15000, 2, **meta), tabs7, 7, True)
     assert kfec.viterbi_frames.launches == kfec.viterbi_frames.block_launches == 0

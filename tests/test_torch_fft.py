@@ -1,5 +1,5 @@
 """The planes DFT as the kernels' shared-memory FFT (csrc/planes_fft.cuh:
-stage 2 of ``chain_tile`` in csrc/fm_chain.cu at M = 64-256, and K1 in
+stage 2 of the chains' tile routines in csrc/fm_chain.cu at M = 64-448, and K1 in
 csrc/channelizer.cu at M = 64 P, P = 1 .. 7), held on the CPU at every
 width: the radix-P step (P = 5 and 7 from the pairs x[m] +- x[P-m], P = 6
 as 2 x 3) and the P 8 x 8 FFTs evaluated in torch float32
@@ -13,7 +13,8 @@ reference's ``arm_fold_dft`` in interpret mode. The tables and the replay
 at P <= 4 are pinned to their hashes, so the wider P changed none of
 their operations. Also: every ``FmChainConsts`` carries the table, the CUDA wrappers refuse constants
 without it, and K3, K5 and K6 plan every width the FFT takes (meta
-tensors stand in for the card: those checks come before any launch).
+tensors stand in for the card: those checks come before any launch);
+pfb_channelize's "auto" takes K1 at those widths and K7 elsewhere.
 """
 
 import hashlib
@@ -22,12 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from newsched_tpu.ops.pallas import channelizer as jch
+from newsched_tpu.ops import firdes as jfirdes, pfb as jpfb
+from newsched_tpu.ops.pallas import channelizer as jch, fm_chain as jfm
 
 from newsched_tpu_torch.ops import firdes, pfb
-from newsched_tpu_torch.ops.cuda import channelizer, fm_chain, planes_fft
+from newsched_tpu_torch.ops.cuda import channelizer, fm_chain, noise, planes_fft
 from newsched_tpu_torch.probes import ablate
 
 WIDTHS = planes_fft.CHANNELS  # M = 64 P, P = 1 .. 7
@@ -36,6 +39,10 @@ WIDTHS = planes_fft.CHANNELS  # M = 64 P, P = 1 .. 7
 # (measured on the random rows: up to 2.6e-7 for the FFT, 1.2e-6 for the
 # dense product at M = 192)
 REL_TOL = 1e-6
+# the chains' plain versions against the reference's fm_chain_step_planes
+# (interpret mode, HIGHEST) on the same rows, as tests/test_torch_live.py
+# holds K5's at M = 64 (measured at M = 320: 8.2e-7 of the audio's 1.7)
+CHAIN_RTOL, CHAIN_ATOL = 2e-4, 2e-5
 # K1's path against its plain version and the reference, relative to
 # max|out|: the fold's FMA against separate products and sums, and the FFT
 # against a dense FP32 product (measured 4e-7)
@@ -215,31 +222,62 @@ def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
                decim)[kernel]()
 
 
-@pytest.mark.parametrize("M", [128, 192, 256])
+@pytest.mark.parametrize("M", [128, 192, 256, 320, 384, 448])
 @pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
 def test_chain_kernels_plan_every_fft_width(kernel, M):
     """At the flagship's A = 65, L = 16, decim 8 and batch, K3, K5 and K6
-    plan M = 128, 192 and 256: a tile whose block fits the H100's shared
-    memory (chain_tile_wide's layout), every check passed up to the
-    tensors' device, which the meta tensors here fail. K3p and the
-    ablation stay at M = 64 and say so."""
+    plan M = 128 .. 448: the default tile of 128 rows, whose block fits the
+    H100's shared memory (chain_tile_stream's layout: one pass's window of
+    48 rows, the Y row kept for the pass below and the tile's 16 x M audio
+    accumulators), every check passed up to the tensors' device, which the
+    meta tensors here fail. K3p and the ablation stay at M = 64 and say so;
+    M = 512 is refused naming ROADMAP.md H13."""
     L, A, decim, n = 16, 65, 8, 32768
     consts, vb, (halo, prev, tail), _ = _meta_case(M, n)
     W = 2 * M
     tile = fm_chain._fit_tile(128, W, A, L, decim,
                               64 if kernel == "K6" else decim)
     smem = fm_chain._chain_smem(tile, A, L, 1, decim, W)
-    assert smem <= fm_chain._SMEM_MAX
-    assert smem == ((tile + A) * M + (32 + L - 1 + 2) * W) * 4
-    assert tile == (64 if M == 256 else 128)
+    assert tile == 128
+    assert smem == ((48 + 1) * W + tile // decim * M) * 4
+    assert fm_chain._chain_smem(64, A, L, 1, decim, W) <= smem \
+        <= fm_chain._SMEM_MAX
     fm_chain._check_kernel_shape(W, tile, A, L, 1, decim)
+    for ag in (2, 4):  # K3ag's bands: the same block
+        fm_chain._check_kernel_shape(W, tile, A, L, ag, decim)
     with pytest.raises(ValueError, match="on meta"):
         _calls(consts, vb, halo, prev, tail, decim)[kernel]()
     for flagship_only in ("K3p", "ablate"):
         with pytest.raises(ValueError, match="M=64"):
             _calls(consts, vb, halo, prev, tail, decim)[flagship_only]()
-    with pytest.raises(ValueError, match="planes width 640"):
-        fm_chain._check_kernel_shape(640, 64, A, L, 1, decim)
+    with pytest.raises(ValueError, match="H13"):
+        fm_chain._check_kernel_shape(1024, 64, A, L, 1, decim)
+
+
+@pytest.mark.parametrize("M,route", [(64, "K1"), (448, "K1"), (512, "K7"),
+                                     (1024, "K7")])
+def test_pfb_auto_routes_by_the_fft_widths(M, route, monkeypatch):
+    """pfb_channelize's "auto" on a device tensor (meta stands in for the
+    card): K1 (its planes FFT) at M = 64 and 448, K7 and the combine at M =
+    512 and 1024, where K1's dense instance ran at 0.5% of its bound (M =
+    512) or refused its tile (M = 1024); each route goes as far as the
+    device check, which meta fails, and the dense instance's own check
+    (its shared memory) is never reached."""
+    taken = []
+    for name in ("arm_fold_dft", "arm_fold"):
+        real = getattr(channelizer, name)
+        monkeypatch.setattr(channelizer, name,
+                            lambda *a, _f=real, _n=name, **k:
+                            (taken.append(_n), _f(*a, **k))[1])
+    L, n_out = 16, 64
+    arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(M, L), M)
+    meta = dict(device="meta", dtype=torch.complex64)
+    assert pfb.auto_method(M) == ("fused" if route == "K1" else "pallas")
+    with pytest.raises(ValueError, match="on meta"):
+        pfb.pfb_channelize(arm, pfb.PfbState(torch.zeros(M * L - 1, **meta)),
+                           torch.zeros(n_out * M, **meta),
+                           consts=pfb.pfb_consts(arm, "meta"))
+    assert taken == ["arm_fold_dft" if route == "K1" else "arm_fold"]
 
 
 def test_k1_dense_refuses_a_tile_past_shared_memory():
@@ -255,3 +293,60 @@ def test_k1_dense_refuses_a_tile_past_shared_memory():
         match = "on meta" if ok else "232448 B limit"
         with pytest.raises(ValueError, match=match):
             channelizer.arm_fold_dft(v, c2, w2, 64, tile=tile)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
+def test_chain_plain_versions_at_320_match_reference(kernel):
+    """At M = 320 (P = 5, the first width past 256 that the chains now
+    take) the plain versions the kernels are held to on the card against
+    the reference's fm_chain_step_planes in interpret mode (HIGHEST) on the
+    same rows, within CHAIN_RTOL/CHAIN_ATOL: K3 on two carried batches of
+    noise rows, K5 on its generated rows, K6 on a shard's window at group
+    5 (warm 128 rows, the reference's recompute from a zero junction)."""
+    M, L, A, decim, n, gain = 320, 16, 65, 8, 256, 0.7
+    W = 2 * M
+    taps = jfirdes.prototype_channelizer_taps(M, L)
+    ataps = jfirdes.low_pass(1.0, 1.0, 0.4 / decim, 0.1 / decim, ntaps=A)
+    fold_c = np.asarray(jpfb.pfb_arm_taps(taps, M))[::-1, ::-1].T.copy()
+    consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
+    hi = jax.lax.Precision.HIGHEST
+
+    def ref(rows, halo, prev, tail, warm=0):
+        return jfm.fm_chain_step_planes(
+            jnp.asarray(rows), jnp.asarray(halo), jnp.asarray(prev),
+            jnp.asarray(tail), fold_c, ataps, decim, gain, warm=warm,
+            tile=128, interpret=True, precision=hi)
+
+    z = np.zeros
+    pairs = []
+    if kernel == "K6":
+        warm, hr = 128, 128 + 16
+        got = fm_chain.fm_chain_gen_warm_step(5, 0.5, consts, decim, gain, n,
+                                              warm=warm, seed=4)
+        rows = (noise.gaussian_rows_plain(5, n_rows=hr + n, width=W, seed=4,
+                                          device="cpu", mask_pre=True,
+                                          row0=-hr) * 0.5).numpy()
+        ja, _, _ = ref(rows[hr:], rows[:hr], z((1, W), np.float32),
+                       z((A - 1, W), np.float32), warm=warm)
+        pairs.append((got, ja))
+    else:
+        halo, prev, tail = (z((16, W), np.float32), z((1, W), np.float32),
+                            z((A - 1, W), np.float32))
+        carry = torch.from_numpy(halo)
+        tp, tt = torch.from_numpy(prev), torch.from_numpy(tail)
+        for b in range(2):
+            rows = (noise.gaussian_rows_plain(4 * b, n_rows=n, width=W, seed=4,
+                                              device="cpu") * 0.5).numpy()
+            if kernel == "K5":
+                aud, tp, tt, carry = fm_chain.fm_chain_gen_step(
+                    4 * b, 0.5, carry, tp, tt, consts, decim, gain, n, seed=4)
+            else:
+                aud, tp, tt = fm_chain.fm_chain_step_planes(
+                    torch.from_numpy(rows), torch.from_numpy(halo), tp, tt,
+                    consts, decim, gain)
+            ja, jp, jt = ref(rows, halo, prev, tail)
+            pairs += [(aud, ja), (tp, jp), (tt, jt)]
+            halo, prev, tail = rows[-16:], np.asarray(jp), np.asarray(jt)
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=CHAIN_RTOL, atol=CHAIN_ATOL)

@@ -309,6 +309,29 @@ def test_k6_plain_equals_k5_stream_at_the_shard(where, draws):
     assert _off_cut_err(got, ref, rows[:r0 + n_loc], taps, ataps, r0) <= CHAIN_TOL
 
 
+@pytest.mark.parametrize("nd", [4, 8])
+def test_k6_one_grid_equals_the_shards_one_by_one(nd):
+    """K6 over nd shards in one call (the sharded live source's one launch
+    a batch) against the nd per-shard calls, each at its own base (goff +
+    d n_loc/64 groups), concatenated: bit for bit, from stream start and
+    from a base past it; and against K5's stream at the same rows within
+    CHAIN_TOL off the branch cut is what test_k6_plain_equals_k5_stream_at
+    _the_shard holds per shard."""
+    taps, fold_c, ataps = _chain()
+    consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
+    n_loc = 1024 // nd
+    for g0, goff in ((0, 0), (7, 3)):
+        got = fm_chain.fm_chain_gen_warm_step(
+            g0, 0.5, consts, 8, GAIN, n_loc, warm=128, tile=64, seed=4,
+            goff=goff, nd=nd)
+        per = torch.cat([fm_chain.fm_chain_gen_warm_step(
+            g0, 0.5, consts, 8, GAIN, n_loc, warm=128, tile=64, seed=4,
+            goff=goff + d * n_loc // 64) for d in range(nd)])
+        assert got.shape == (nd * n_loc // 8, 64)
+        assert torch.equal(got, per)
+    assert fm_chain.fm_chain_gen_warm_step.launches == 0
+
+
 def test_k6_validates_as_the_reference():
     _, fold_c, ataps = _chain()
     consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
