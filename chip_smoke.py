@@ -66,11 +66,11 @@ Phases (each failure raises, so the script exits nonzero):
      within 1e-5 of max|out| from their plain versions, bit-identical at
      their default tiles and 256; K1 (its FFT instance) bit-equal to the
      torch-float32 replay of its planes FFT on K7's output, at runs of 48
-     rows, one ring and its default; K1 also at 128, 192, 256, 320, 384
-     and 448 channels (the FFT instance, bit-equal to the replay of K7
-     there too), where pfb_channelize's "auto" must launch it, and 512
-     (the dense instance), where "auto" must launch K7 instead and
-     method="fused" the dense instance;
+     rows, one ring and its default; K1 also at 128, 192, 256, 320, 384,
+     448, 512, 960 and 1024 channels (the FFT instance, past 448 its
+     run-time instance, bit-equal to the replay of K7 there too), where
+     pfb_channelize launches it ("auto" up to 512 channels, by name past
+     them);
      K7 within 1e-5 of its plain version and
      tile-invariant at 96 and 34 lanes, at 4, 8 and 17 taps, with v short
      of its rows and with v 4 bytes off a 16-byte boundary;
@@ -213,19 +213,23 @@ Phases (each failure raises, so the script exits nonzero):
      past its stated limit raises naming the limit; the live fir_chain at
      1024 taps, two batches in graph mode, >= 60 dB against its float64
      golden, the partitioned instance launched on it;
- 41. K3, K5 and K6 at M = 128, 192, 256, 320, 384 and 448 (16384 rows a
-     batch): K3 within K3_TOL of its plain version on an M-station FM
+ 41. K3, K5 and K6 at M = 128, 256, 320, 384, 448, 512 and 1024 (16384 rows
+     a batch): K3 within K3_TOL of its plain version on an M-station FM
      band, tile-invariant; K5 bit-equal to K4 * amp -> K3 and within
      K5_TOL of its plain version off the branch cut; K6 bit-equal to K5's
      stream at shard 3 and over 4 shards in one launch, and within K5_TOL
-     of its plain version;
+     of its plain version; at every other M = 64 P, P = 3 .. 15 (192,
+     576 .. 960; 4096 rows a batch) K3 within K3_TOL of its plain version
+     and tile-invariant, K5 bit-equal to K4 * amp -> K3 and K6 over 4
+     shards to K5;
  42. the fused (replayed FM band) and live fm_channelizer flowgraphs at M =
-     128 .. 448, two batches in graph mode: >= 95 dB against the float64
+     128, 256, 320, 384, 448, 512 and 1024, two batches in graph mode: >= 95 dB against the float64
      golden off its branch-cut mask, and the live graph on 4 shards (K6
      once a batch, bit-equal); at M = 128 also at half the batch
      (bit-equal) and the staged graph (>= 60 dB, K1 launched); launches
      counted;
- 43. times at M = 128, 320, 384 and 448: K3, K5 and K6 (at M = 128 on a
+ 43. times at M = 128, 320, 384, 448, 512 and 1024: K3, K5 and K6 (at M =
+     128 on a
      shard's 4096 rows, past it over the 4 shards of a batch in one
      launch) beside their plain versions and bounds, and K1 at M = 128;
      K9's partitioned instance at 1024 and 6001 taps beside its plain
@@ -251,18 +255,18 @@ Phases (each failure raises, so the script exits nonzero):
      streamops blocks on the card against their CPU runs; the AGC's and
      the rotator's state constructors on the card by default;
  49. the channelizer past 256 channels on its main path: the staged
-     fm_channelizer in graph mode at M = 320 (K1's FFT instance, P = 5,
-     counted; the dense instance and K7 never) and at M = 512 and 1024
-     (pfb_channelize's "auto" takes K7 and cuFFT's combine, counted; K1
-     never), >= 60 dB each, and each step's time; the FFT instance's time
-     at M = 320, 384 and 448 beside its plain version, its bound and (M =
-     320) the dense instance's time there before; the dense instance,
-     on no graph's path, by pfb_channelize(method="fused") at M = 512
-     (counted, within FOLD_TOL of its plain version) and its time by a
-     direct call beside its plain version and its bound
-     (``arm_fold_dft[dense]`` in the kernels line);
+     fm_channelizer in graph mode at M = 320, 512 and 1024
+     (pfb_channelize's "auto" takes K1, counted; K7 never), >= 60 dB each,
+     and each step's time; pfb_channelize by method="fused" and "auto" at
+     M = 512, 960 and 1024, K1 launched once each, within FOLD_TOL of K7
+     and the combine; K1's time at M = 320 .. 1024 beside its plain
+     version, its bound and (M = 320) the dense instance's time there
+     before; K1 at every M = 512 .. 1024 (P = 8 .. 16) bit-equal to the
+     FFT replay of K7's output and within FOLD_TOL of its plain version,
+     and at M = 512, 576, 704, 896 and 1024 timed beside K7 + cuFFT's
+     combine, the other route "auto" could take;
  50. S1 costas_loop (orders 2, 4, 8) and S2 clock_recovery_mm (sps 4) at
-     65536 samples on 1 and 64 streams against their plain versions (run
+     32768 samples on 1 and 64 streams against their plain versions (run
      on the CPU): within 1e-4 of max|y|, the state within the same, S1's
      decisions identical; two batches bit-equal to one; their times beside
      the bytes bound and the serial floor of their critical path;
@@ -276,10 +280,11 @@ Phases (each failure raises, so the script exits nonzero):
      batches in graph mode and direct calls, bit-equal to the plain
      version, each launch counted on its instance and route: 16384-bit
      frames at K = 7 (the warp instance, decisions in device memory), a
-     rate-1/5 code at K = 7 (the block instance) and a K = 12 code (the
-     block instance, two states a thread), and frames of these two past
-     shared memory (device memory); each route's time beside its plain
-     version and bound;
+     rate-1/5 code at K = 7 (the block instance), a K = 12 code (the
+     block instance, two states a thread) and a K = 16 code (the block
+     instance, its metrics in device memory, error-free at 7 dB), and
+     frames of the rate-1/5 and K = 12 codes past shared memory (device
+     memory); each route's time beside its plain version and bound;
  52. S1 and S2 at the QPSK link's shapes against their plain versions and
      timed (the kernels line's); the QPSK link (``models.qpsk_tx`` on the
      card, a channel of 0.3 rad, 0.5 sample and 20 dB, ``qpsk_receiver``)
@@ -337,6 +342,7 @@ DEC_TOL = 1e-5             # pfb_decimator vs the channelizer's column
 DEC_CHANNEL = 5
 REPS = 30
 PLAIN_REPS = 10            # the slow plain versions of K1, K7, K5
+WIDE_PLAIN_REPS = 3        # theirs past 256 channels (phase 43), 10-84 ms a call
 _GOLDEN: dict = {}         # float64 goldens by stream, computed once
 LOOP: dict = {}            # cell -> (loop-mode step ms, profiled device ms)
 
@@ -756,9 +762,11 @@ def phase_k1_k7(torch, channelizer) -> dict:
     log("K7, K1: the default tile and tile 256 give bit-identical outputs")
     k1_is_fft_of_k7(torch, channelizer, v, c2, w2, fft)
     errs["arm_fold"] = max(errs["arm_fold"], k7_shapes(torch, channelizer))
+    k1_m = sorted(set(WIDE_M + K1_WIDE_M) | {m for m in INSTANCE_M if m <= 448})
+    for m in k1_m:
+        errs[f"K1 M={m}"] = k1_wide(torch, channelizer, m)
     errs["arm_fold_dft"] = max(errs["arm_fold_dft"], *(
-        k1_wide(torch, channelizer, m) for m in WIDE_M))
-    errs["arm_fold_dft[dense]"] = k1_wide(torch, channelizer, K1_DENSE_M)
+        errs[f"K1 M={m}"] for m in k1_m if m <= 448))
     return errs
 
 
@@ -824,11 +832,10 @@ def k7_shapes(torch, channelizer, n_out: int = 4096) -> float:
 
 
 def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
-    """K1 at m channels (2m lanes): at m in planes_fft.CHANNELS "auto" in
-    pfb_channelize launches its FFT instance (bit-equal to the FFT replay
-    of K7's output), elsewhere K7 and method="fused" the dense instance;
-    it agrees with its plain version, and runs of 48 rows (the dense
-    instance: blocks of 16) give the default's bits."""
+    """K1 at m channels (2m lanes, m in planes_fft.CHANNELS): pfb_channelize
+    launches it ("auto" where it takes K1, else by name), bit-equal to the
+    FFT replay of K7's output; it agrees with its plain version, and runs
+    of 48 rows give the default's bits."""
     from newsched_tpu_torch.ops import firdes, pfb
 
     arm = pfb.pfb_arm_taps(firdes.prototype_channelizer_taps(m, L), m)
@@ -836,17 +843,12 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
     gen = torch.Generator(device="cuda").manual_seed(m)
     x = torch.randn(n_out * m, dtype=torch.complex64, device="cuda", generator=gen)
     fn = channelizer.arm_fold_dft
-    count = "launches" if consts.fft is not None else "dense_launches"
-    before, k7 = getattr(fn, count), channelizer.arm_fold.launches
-    pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x, consts=consts)
-    if consts.fft is None:  # "auto" takes K7; the dense instance by name
-        require(getattr(fn, count) == before
-                and channelizer.arm_fold.launches == k7 + 1,
-                f"pfb_channelize auto at M={m} did not take K7 alone")
-        pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x,
-                           method="fused", consts=consts)
-    require(getattr(fn, count) == before + 1,
-            f"pfb_channelize at M={m} did not launch K1 ({count})")
+    before, k7 = fn.launches, channelizer.arm_fold.launches
+    method = "auto" if pfb.auto_method(m) == "fused" else "fused"
+    pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), x,
+                       method=method, consts=consts)
+    require(fn.launches == before + 1 and channelizer.arm_fold.launches == k7,
+            f"pfb_channelize {method} at M={m} did not launch K1 alone")
     xfull = torch.cat([torch.zeros(m * L - 1, dtype=x.dtype, device="cuda"), x])
     v = channelizer.complex_to_interleaved(
         xfull[:(n_out + L - 1) * m].reshape(-1, m))
@@ -854,21 +856,18 @@ def k1_wide(torch, channelizer, m: int, n_out: int = 4096) -> float:
     ref = channelizer.arm_fold_dft_plain(v, consts.c2, consts.w2, n_out)
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    what = "FFT" if consts.fft is not None else "dense"
-    log(f"arm_fold_dft at M={m} ({what} instance): {n_out} x {2 * m} rows, max "
-        f"abs err vs plain {err:.3e} = {err / scale:.3e} of max|out| (tol "
-        f"{FOLD_TOL}); launched by pfb_channelize "
-        f"{'auto' if consts.fft is not None else 'method=fused (auto: K7)'}")
+    log(f"arm_fold_dft at M={m} ({'run-time P' if m > 448 else 'FFT'} "
+        f"instance): {n_out} x {2 * m} rows, max abs err vs plain {err:.3e} "
+        f"= {err / scale:.3e} of max|out| (tol {FOLD_TOL}); launched by "
+        f"pfb_channelize {method}")
     require(err <= FOLD_TOL * scale, f"K1 at M={m} disagrees with plain")
-    if consts.fft is not None:
-        rep = channelizer.fft_interleaved(
-            channelizer.arm_fold(v, consts.c2, n_out), consts.fft)
-        require(torch.equal(got, rep), f"K1 at M={m} differs from the FFT "
-                f"replay of K7's output")
-    tile = 48 if consts.fft is not None else 16  # the dense: 32 rows at 1024
-    require(torch.equal(got, fn(v, consts.c2, consts.w2, n_out, tile=tile,
+    rep = channelizer.fft_interleaved(
+        channelizer.arm_fold(v, consts.c2, n_out), consts.fft)
+    require(torch.equal(got, rep), f"K1 at M={m} differs from the FFT "
+            f"replay of K7's output")
+    require(torch.equal(got, fn(v, consts.c2, consts.w2, n_out, tile=48,
                                 fft=consts.fft)),
-            f"K1 at M={m}: tile {tile} differs from the default tile")
+            f"K1 at M={m}: tile 48 differs from the default tile")
     return err
 
 
@@ -2437,13 +2436,17 @@ K9_LIVE_TAPS = 1024        # the live graph past the FFT instance's taps
 # (tile, seg_group) of the partitioned instance's blocks, the default first
 K9P_GEOMS = ((512, 16), (512, 8), (1024, 8), (2048, 8), (1024, 16), (512, 32))
 K9_WIDE_N = 2 * FIR_BATCH   # the 1024-tap live graph: two batches, graph mode
-WIDE_M = (128, 192, 256, 320, 384, 448)  # channels past the flagship's the
-# chains and K1's FFT instance take (M = 64 P)
+WIDE_M = (128, 256, 320, 384, 448, 512, 1024)  # channels past the
+# flagship's the chains and K1 take (M = 64 P), checked and run in graphs
+INSTANCE_M = (192, 576, 640, 704, 768, 832, 896, 960)  # every other P =
+# 2 .. 16 (phase 41's instance check): each factor of the radix-P passes
 WIDE_ROWS = 16384           # planes rows a batch at those widths
-K1_WIDE_M = (320, 384, 448)  # K1's FFT instance past 256 channels
-STREAM_M = (320, 384, 448)  # the chains' widths past 256, timed (phase 43)
-K1_DENSE_M = 512            # a width K1 takes by its dense instance
-K7_WIDE_M = (512, 1024)     # staged widths "auto" takes by K7 (phase 49)
+K1_WIDE_M = (320, 384, 448, 512, 960, 1024)  # K1 past 256 channels, timed
+STREAM_M = (320, 384, 448, 512, 1024)  # the chains' widths past 256, timed
+# (phase 43): chain_tile_stream to 448, chain_tile_wide past it
+STAGED_M = (320, 512, 1024)  # phase 49's staged graphs
+ROUTE_M = tuple(range(512, 1025, 64))  # K1 checked against K7 + cuFFT's
+ROUTE_TIMED = (512, 576, 704, 896, 1024)  # combine, and timed beside it
 
 
 def wide_taps(torch, ntaps: int):
@@ -2591,7 +2594,7 @@ def wide_noise(torch, noise, m: int, n_rows: int) -> np.ndarray:
 
 
 def phase_wide_kernels(torch, fm_chain, noise) -> dict:
-    """41. K3, K5 and K6 at M = 128 .. 448 (16 taps an arm, a 65-tap
+    """41. K3, K5 and K6 at WIDE_M (16 taps an arm, a 65-tap
     audio FIR decimating by 8, batches of 16384 rows): K3 on two carried
     batches of an M-station FM band within K3_TOL of its plain version,
     bit-identical at tile 64 and at its default; K5 from stream start
@@ -2674,6 +2677,64 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
     return worst
 
 
+def phase_chain_instances(torch, fm_chain, noise) -> float:
+    """41, the other widths: K3, K5 and K6 at INSTANCE_M (M = 192 and 576
+    .. 960, with WIDE_M every P = 2 .. 16 and so every factor of the
+    radix-P step's two passes), batches of 4096 rows: K3 on two carried
+    batches of an M-station FM band within K3_TOL of its plain version and
+    bit-identical at tile 64; K5 from stream start bit-equal to K4 * amp
+    -> K3; K6 over the batch's 4 shards in one launch bit-equal to K5.
+    Returns K3's worst error."""
+    from newsched_tpu_torch.testing import planes_rows
+
+    n, worst = WIDE_ROWS // 4, 0.0
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    g0 = noise.group_tensor(0, "cuda")
+    for m in INSTANCE_M:
+        consts, W = wide_consts(m), 2 * m
+        rows = torch.from_numpy(planes_rows(fm_band(2 * n * m, "cuda", m),
+                                            m)).cuda()
+
+        def k3(step, **kw):
+            halo, prev = torch.zeros(16, W, **z), torch.zeros(1, W, **z)
+            tail, outs = torch.zeros(A - 1, W, **z), []
+            for b in range(2):
+                vb = rows[b * n:(b + 1) * n]
+                aud, prev, tail = step(vb, halo, prev, tail, consts, DECIM,
+                                       DEMOD_GAIN, **kw)
+                outs += [aud, prev, tail]
+                halo = vb[-16:].contiguous()
+            return outs
+
+        got = k3(fm_chain.fm_chain_step_planes)
+        err = max(float((g - r).abs().max()) for g, r in
+                  zip(got, k3(fm_chain.fm_chain_step_planes_plain)))
+        tiles = all(torch.equal(a, b) for a, b in
+                    zip(got, k3(fm_chain.fm_chain_step_planes, tile=64)))
+        zero = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+                torch.zeros(A - 1, W, **z))
+        k5 = fm_chain.fm_chain_gen_step(g0, amp, *zero, consts, DECIM,
+                                        DEMOD_GAIN, n)
+        nrows = noise.gaussian_rows(g0, n_rows=n, width=W, seed=0,
+                                    device="cuda", amp=amp)
+        k4k3 = fm_chain.fm_chain_step_planes(nrows, *zero, consts, DECIM,
+                                             DEMOD_GAIN)
+        k5_ok = all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3))
+        k6_ok = torch.equal(fm_chain.fm_chain_gen_warm_step(
+            g0, amp, consts, DECIM, DEMOD_GAIN, n // 4, warm=K6_WARM, nd=4),
+            k5[0])
+        log(f"M={m} (P = {m // 64}, {n} rows): K3 {err:.3e} from plain (tol "
+            f"{K3_TOL}), tile 64 bit-identical: {tiles}; K5 bit-equal to K4 "
+            f"* amp -> K3: {k5_ok}; K6 over 4 shards in one launch bit-equal "
+            f"to K5: {k6_ok}")
+        require(err <= K3_TOL and tiles and k5_ok and k6_ok,
+                f"chains at M={m}: K3 {err:.3e} from plain, tiles {tiles}, "
+                f"K5 {k5_ok}, K6 {k6_ok}")
+        worst = max(worst, err)
+    return worst
+
+
 def wide_graph(m: int, source, n_batches: int | None, batch: int, **kw):
     from newsched_tpu_torch import models
 
@@ -2688,7 +2749,7 @@ def wide_graph(m: int, source, n_batches: int | None, batch: int, **kw):
 
 def phase_wide_graphs(torch, fm_chain, noise, channelizer) -> dict:
     """42. The fused (a replayed M-station FM band) and live
-    fm_channelizer flowgraphs at M = 128 .. 448, two batches each in graph
+    fm_channelizer flowgraphs at WIDE_M, two batches each in graph
     mode: >= 95 dB against the float64 golden off its branch-cut mask, K3
     and K5 launched on them; the live graph on 4 shards, bit-equal to the
     unsharded one, K6 launched once a batch. At M = 128 also: both at half
@@ -2829,15 +2890,16 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
                 *a6, K6_WARM, nd=4),
             f"K6 M={mw}": lambda: fm_chain.fm_chain_gen_warm_step(
                 *a6, warm=K6_WARM, nd=4),
-        }, PLAIN_REPS)
+        }, WIDE_PLAIN_REPS)
         ms.update({k: min(x) for k, x in tw.items()})
         tile = fm_chain._fit_tile(128, Ww, A, L, DECIM, DECIM)
         smem = fm_chain._chain_smem(tile, A, L, 1, DECIM, Ww)
         for kid in ("K3", "K5", "K6"):
             key = f"{kid} M={mw}"
             b_ms, by = chain_bounds(mw, n, n, nd=4)[kid]
+            routine = "chain_tile_stream" if mw <= 448 else "chain_tile_wide"
             log(f"{key} ({n} x {Ww} rows{', 4 shards, one launch' if kid == 'K6' else ''}"
-                f"; chain_tile_stream, tile {tile}, {smem} B shared): kernel "
+                f"; {routine}, tile {tile}, {smem} B shared): kernel "
                 f"{tw[key]} ms, plain {tw[key + ' plain']} ms; bound "
                 f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms[key]:.1f}% of it "
                 f"[{card}]")
@@ -3183,32 +3245,27 @@ def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
     """49. The channelizer past 256 channels on its main path: the staged
     fm_channelizer (noise_source -> pfb_channelizer -> demod -> audio FIR),
     two batches of 16384 rows in graph mode, counts set to 0 before each,
-    at M = 320 (pfb_channelize's "auto" launches K1's FFT instance; its
-    dense instance and K7 never) and at M = 512 and 1024 ("auto" launches
-    K7 and cuFFT's combine; K1 never): >= 60 dB against the float64
-    golden; each graph's step in graph mode by the two-point fit (null
-    sink); then by CUDA-graph replay at 16384 rows the FFT instance at M =
-    320, 384, 448 beside its plain version and bound. K1's dense instance
-    is on no graph's path: pfb_channelize(method="fused") at M = 512
-    launches it (counted; within FOLD_TOL of max|out| from the plain
-    version), and a direct call times it beside its plain version and
-    bound."""
+    at M = 320, 512 and 1024 (pfb_channelize's "auto" launches K1, K7
+    never): >= 60 dB against the float64 golden; each graph's step in graph
+    mode by the two-point fit (null sink); then pfb_channelize at M = 512,
+    960 and 1024 by method="fused" and "auto", each launching K1 once,
+    within FOLD_TOL of max|Y| from K7 and the combine; by CUDA-graph replay
+    at 16384 rows K1 at M = 320 .. 1024 beside its plain version and bound,
+    and at M = 512 and 1024 the two routes "auto" chooses between, K1 and
+    K7 + cuFFT's combine, in one alternation."""
     from newsched_tpu_torch import bench
     from newsched_tpu_torch.ops import pfb
     from newsched_tpu_torch.testing import planes_rows, snr_db
 
     fn = channelizer.arm_fold_dft
-    launches, step = {}, {}
-    for m in (K1_WIDE_M[0],) + K7_WIDE_M:
+    launches, step = {m: 0 for m in K1_WIDE_M}, {}
+    launches["K7"] = 0
+    for m in STAGED_M:
         batch = DENSE_ROWS * m
         zero_launches()
         fg, blks = wide_graph(m, None, 2, batch, fused=False)
         fg.run(device="cuda")
-        counts = {"K1": fn.launches, "K1 dense": fn.dense_launches,
-                  "K7": channelizer.arm_fold.launches}
-        name = "K1" if m in K1_WIDE_M else "K7"
-        n = counts.pop(name)
-        others = counts
+        n, k7 = fn.launches, channelizer.arm_fold.launches
         r = noise.gaussian_rows_plain(0, n_rows=2 * batch // 64, width=128,
                                       seed=0, device="cuda")
         x = (torch.complex(r[:, :64].reshape(-1), r[:, 64:].reshape(-1))
@@ -3217,13 +3274,17 @@ def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
         got = blks["sink"].data()
         snr = snr_db(ref[~bad], got[~bad])
         _GOLDEN.pop(f"staged M={m}")  # large at M = 1024; used once
+        route = pfb.auto_method(m)
         log(f"staged fm_channelizer at M={m}, 2 batches of {batch} in graph "
-            f"mode: {snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); {name} "
-            f"launched {n} times, the others {others}")
-        require(snr >= STAGED_GATE_DB and n > 0 and not any(others.values()),
-                f"staged M={m}: {snr:.2f} dB, or {name} launched {n} times "
-                f"and the others {others}")
-        launches[m] = n
+            f"mode: {snr:.2f} dB vs float64 (gate {STAGED_GATE_DB}); auto "
+            f"takes {route}: K1 launched {n} times, K7 {k7}")
+        require(snr >= STAGED_GATE_DB and ((n > 0 and k7 == 0) if
+                                           route == "fused" else
+                                           (k7 > 0 and n == 0)),
+                f"staged M={m}: {snr:.2f} dB, or K1 launched {n} times and "
+                f"K7 {k7} on the route {route}")
+        launches[m] = launches.get(m, 0) + n
+        launches["K7"] += k7
         fg, _ = wide_graph(m, None, None, batch, fused=False, sink="null")
         sps = bench.timed_two_point(bench.graph_run(fg, "cuda"),
                                     f"graph mode staged M={m}", batch,
@@ -3231,55 +3292,93 @@ def phase_k1_wide(torch, channelizer, noise, card: str) -> dict:
         step[m] = batch / sps * 1e3
         log(f"cell staged fm_channelizer at M={m}: graph mode "
             f"{step[m]:.4f} ms a batch of {batch} samples = "
-            f"{sps / 1e6:.1f} Msamples/s ({name}) [{card}]")
+            f"{sps / 1e6:.1f} Msamples/s ({route}) [{card}]")
+    # pfb_channelize by name and by "auto" at the run-time instance's widths
+    for m in (512, 960, 1024):
+        arm = pfb.pfb_arm_taps(wide_design(m)[0], m)
+        pc = pfb.pfb_consts(arm, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(m + 1)
+        xs = torch.randn(DENSE_ROWS * m, dtype=torch.complex64, device="cuda",
+                         generator=g)
+        _, yr = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), xs,
+                                   method="pallas", consts=pc)
+        for method in ("fused", "auto"):
+            zero_launches()
+            _, y = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"),
+                                      xs, method=method, consts=pc)
+            n, k7 = fn.launches, channelizer.arm_fold.launches
+            launches[m] += n
+            launches["K7"] += k7
+            err = float((y - yr).abs().max()) / float(yr.abs().max())
+            want = "fused" if method == "fused" else pfb.auto_method(m)
+            log(f"pfb_channelize(method=\"{method}\") at M={m}, {DENSE_ROWS} "
+                f"rows ({want}): K1 launched {n} times, K7 {k7}; {err:.3e} of "
+                f"max|Y| from K7 and the combine (tol {FOLD_TOL})")
+            require((n, k7) == ((1, 0) if want == "fused" else (0, 1))
+                    and err <= FOLD_TOL,
+                    f"method={method} at M={m}: K1 launched {n} times, K7 "
+                    f"{k7}, {err:.3e} from K7 and the combine")
     ms, bounds = {}, {}
-    for m in K1_WIDE_M + (K1_DENSE_M,):
+    for m in K1_WIDE_M:
         taps, _ = wide_design(m)
         pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
         g = torch.Generator(device="cuda").manual_seed(m)
         v = torch.randn(DENSE_ROWS + L - 1, 2 * m, device="cuda", generator=g)
-        kid = "K1d" if m == K1_DENSE_M else f"K1 M={m}"
+        kid = f"K1 M={m}"
         t = alternate({
             kid + " plain": lambda: channelizer.arm_fold_dft_plain(
                 v, pc.c2, pc.w2, DENSE_ROWS),
-            kid: lambda: fn(v, pc.c2, pc.w2, DENSE_ROWS, fft=pc.fft),
-        }, PLAIN_REPS)
+            kid: lambda: fn(v, pc.c2, pc.w2, DENSE_ROWS, fft=pc.fft)},
+            PLAIN_REPS)
         ms.update({k: min(x_) for k, x_ in t.items()})
         bounds[kid] = b_ms, by = chain_bounds(m, DENSE_ROWS, DENSE_ROWS)["K1"]
         was = (f"; its dense instance there before {K1_DENSE_MS_M320} ms "
                f"(PERF.md), {K1_DENSE_MS_M320 / ms[kid]:.1f}x"
                if m == K1_WIDE_M[0] else "")
         log(f"K1 arm_fold_dft at M={m} ({DENSE_ROWS} x {2 * m} rows, "
-            f"{'dense instance, a direct call' if m == K1_DENSE_M else 'FFT instance'}"
-            f"): kernel {t[kid]} ms, plain {t[kid + ' plain']} ms; bound "
-            f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms[kid]:.1f}% of it{was} "
-            f"[{card}]")
-    # the dense instance's one entry point: pfb_channelize by name
-    m = K1_DENSE_M
-    arm = pfb.pfb_arm_taps(wide_design(m)[0], m)
-    pc = pfb.pfb_consts(arm, "cuda")
-    g = torch.Generator(device="cuda").manual_seed(m + 1)
-    xs = torch.randn(DENSE_ROWS * m, dtype=torch.complex64, device="cuda",
-                     generator=g)
-    zero_launches()
-    _, y = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), xs,
-                              method="fused", consts=pc)
-    launches["dense"] = fn.dense_launches
-    _, yr = pfb.pfb_channelize(arm, pfb.pfb_init_state(m * L, "cuda"), xs,
-                               method="pallas", consts=pc)
-    err = float((y - yr).abs().max()) / float(yr.abs().max())
-    log(f"pfb_channelize(method=\"fused\") at M={m}: the dense instance "
-        f"launched {launches['dense']} times (on no graph's path); {err:.3e} "
-        f"of max|Y| from K7 and the combine (tol {FOLD_TOL})")
-    require(launches["dense"] == 1 and err <= FOLD_TOL,
-            f"method=fused at M={m}: dense launches {launches['dense']}, "
-            f"{err:.3e} from K7 and the combine")
+            f"{'run-time P' if m > 448 else 'FFT'} instance): kernel "
+            f"{t[kid]} ms, plain {t[kid + ' plain']} ms; bound {b_ms:.4f} ms "
+            f"({by}), {100 * b_ms / ms[kid]:.1f}% of it{was} [{card}]")
+    # the two routes "auto" chooses between: K1 at every P = 8 .. 16 bit for
+    # bit the FFT replay of K7's output and within FOLD_TOL of its plain
+    # version; at ROUTE_TIMED both in one alternation a width
+    for m in ROUTE_M:
+        taps, _ = wide_design(m)
+        pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, m), "cuda")
+        g = torch.Generator(device="cuda").manual_seed(m)
+        v = torch.randn(DENSE_ROWS + L - 1, 2 * m, device="cuda", generator=g)
+        got = fn(v, pc.c2, pc.w2, DENSE_ROWS, fft=pc.fft)
+        rep = channelizer.fft_interleaved(
+            channelizer.arm_fold(v, pc.c2, DENSE_ROWS), pc.fft)
+        ref = channelizer.arm_fold_dft_plain(v, pc.c2, pc.w2, DENSE_ROWS)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        same = torch.equal(got, rep)
+        log(f"K1 at M={m} (P = {m // 64}), {DENSE_ROWS} rows: bit-equal to "
+            f"the FFT replay of K7's output: {same}; {err:.3e} of max|out| "
+            f"from its plain version (tol {FOLD_TOL})")
+        require(same and err <= FOLD_TOL,
+                f"K1 at M={m}: differs from the replay of K7's output, or "
+                f"{err:.3e} from its plain version")
+        if m not in ROUTE_TIMED:
+            continue
+        t = alternate({
+            "K1": lambda: fn(v, pc.c2, pc.w2, DENSE_ROWS, fft=pc.fft),
+            "K7+fft": lambda: pfb._phase_combine(
+                channelizer.interleaved_to_complex(
+                    channelizer.arm_fold(v, pc.c2, DENSE_ROWS)), pc, "fft")},
+            3)
+        k1, k7 = min(t["K1"]), min(t["K7+fft"])
+        ms[f"route K1 M={m}"], ms[f"route K7+fft M={m}"] = k1, k7
+        log(f"routes at M={m}, {DENSE_ROWS} rows: K1 {t['K1']} ms, K7 + "
+            f"cuFFT's combine {t['K7+fft']} ms; auto takes "
+            f"{pfb.auto_method(m)}, the faster here "
+            f"{'fused' if k1 <= k7 else 'pallas'} [{card}]")
     return {"launches": launches, "ms": ms, "bound": bounds, "step": step}
 
 
 # -- the digital and FEC half: S1-S3, the QPSK link, the FEC link ------------
 
-LOOP_N = 65536             # samples a stream of phase 50's loops
+LOOP_N = 32768             # samples a stream of phase 50's loops
 LOOP_STREAMS = (1, 64)
 LOOP_TOL = 1e-4            # S1/S2 vs plain, of max|y|: sincosf vs torch sin/cos
 QPSK_SPS = 4
@@ -3361,7 +3460,7 @@ def loop_ms(fn) -> float:
 
 def phase_loops(torch, kloops, card: str) -> dict:
     """50. S1 and S2 against their plain versions (run on the CPU, its loop
-    of torch ops on the same inputs) at 65536 samples, C = 1 and 64
+    of torch ops on the same inputs) at LOOP_N samples, C = 1 and 64
     streams: S1 at orders 2, 4, 8 on each detector's constellation, S2 at
     sps 4: outputs within LOOP_TOL of max|y|, the carried state within the
     same, S1's decisions (constellation_decoder's) identical; two batches
@@ -3580,6 +3679,11 @@ S3_ROUTES = (
     ("n=5", (0o171, 0o133, 0o165, 0o117, 0o127), 7, FEC_FRAME, 256,
      ("block", "shared"), 8192),
     ("K=12", (0o4037, 0o5741), 12, FEC_FRAME, 256, ("block", "shared"), 1024),
+    # past K = 15 the metrics too in device memory (2^K x 4 bytes a frame);
+    # 16 frames a batch keep the plain version's (T, F, 2^15) decisions in
+    # 2.2 GB
+    ("K=16", (0o152711, 0o126723), 16, FEC_FRAME, 16, ("block", "global"),
+     None),
 )
 
 
@@ -3629,6 +3733,22 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
                 (got_l[1] > 0) == (plan[1] == "global"),
                 f"S3 {name}: the link differs from the plain version, or its "
                 f"route was not counted")
+        if K > kfec.SMEM_MAX_K:  # the metrics in device memory, at 7 dB
+            before = vf.metric_launches
+            llr7, bits7, raw7 = fec_llrs(torch, F, FEC_SIGMA_7DB, seed=K, K=K,
+                                         polys=polys, nbits=frame)
+            lc7 = torch.from_numpy(llr7).cuda().reshape(F, T, n)
+            got7 = vf(lc7, tabs, K, True)
+            eq7 = torch.equal(got7, kfec.viterbi_frames_plain(lc7, tabs, True,
+                                                              frame))
+            errs7 = int((got7.cpu().numpy() != bits7).sum())
+            log(f"S3 {name} at 7 dB, {F} frames of {frame} bits: bit-equal "
+                f"to the plain version: {eq7}; {errs7} bit errors ({raw7} "
+                f"coded bits wrong); metric_launches "
+                f"{vf.metric_launches - before}")
+            require(eq7 and errs7 == 0 and vf.metric_launches == before + 1,
+                    f"S3 {name} at 7 dB: differs from the plain version, "
+                    f"{errs7} bit errors, or its metrics route not counted")
         for frames, nb in ((F, frame), (4, long_frame)):
             if nb is None:
                 continue
@@ -4534,11 +4654,18 @@ def main() -> int:
     # 40-43. K9 past the FFT's taps; the chains and K1 past 64 channels
     t40 = time.monotonic()
     k9p = phase_k9_part(torch, fir_source)
+    t41 = time.monotonic()
     wide_err = phase_wide_kernels(torch, fm_chain, noise)
+    wide_err["K3"] = max(wide_err["K3"],
+                         phase_chain_instances(torch, fm_chain, noise))
+    t42 = time.monotonic()
     wide = phase_wide_graphs(torch, fm_chain, noise, channelizer)
+    t43 = time.monotonic()
     ms.update(phase_wide_times(torch, fm_chain, channelizer, fir_source,
                                noise, card))
-    log(f"phases 40-43: {time.monotonic() - t40:.1f} s")
+    log(f"phases 40-43: {time.monotonic() - t40:.1f} s (40 {t41 - t40:.1f}, "
+        f"41 {t42 - t41:.1f}, 42 {t43 - t42:.1f}, 43 "
+        f"{time.monotonic() - t43:.1f})")
 
     # 44-49. config #3's engines, graph and sharded FIR; config #1
     # de-emphasised; the block library's DSP half; K1 past 256 channels
@@ -4548,19 +4675,26 @@ def main() -> int:
     phase_sharded_fir(torch)
     phase_deemph(torch, wb, card, ms["K10"])
     phase_dsp_blocks(torch)
+    t49 = time.monotonic()
     k1w = phase_k1_wide(torch, channelizer, noise, card)
     ms.update(k1w["ms"])
-    log(f"phases 44-49: {time.monotonic() - t44:.1f} s")
+    log(f"phases 44-49: {time.monotonic() - t44:.1f} s (49 "
+        f"{time.monotonic() - t49:.1f})")
 
     # 50-53. the digital and FEC half: S1-S3, the QPSK and FEC links
     t50 = time.monotonic()
     lp = phase_loops(torch, kloops, card)
+    t51 = time.monotonic()
     vt = phase_viterbi(torch, kfec, card)
     vr = phase_viterbi_routes(torch, kfec, card)
+    t52 = time.monotonic()
     main_loops = loops_on_main_path_shapes(torch, kloops, card)
     qp = phase_qpsk_link(torch, card)
+    t53 = time.monotonic()
     fl = phase_fec_link(torch, kfec, card)
-    log(f"phases 50-53: {time.monotonic() - t50:.1f} s")
+    log(f"phases 50-53: {time.monotonic() - t50:.1f} s (50 {t51 - t50:.1f}, "
+        f"51 {t52 - t51:.1f}, 52 {t53 - t52:.1f}, 53 "
+        f"{time.monotonic() - t53:.1f})")
     for kid in ("S1", "S2"):
         ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
                                        main_loops["plain"][kid])
@@ -4584,7 +4718,7 @@ def main() -> int:
     bounds["planes_unpack"] = bound(2 * pt["stream_bytes"], 0)
     bounds["ablate"] = bounds["K3"]  # its "full" instance is K3
     bounds["K3ag"] = bounds["K3"]  # K3's function, its audio stage banded
-    bounds["K1d"] = k1w["bound"]["K1d"]  # at M = 512, DENSE_ROWS rows
+    bounds.update(k1w["bound"])  # K1 past 448 channels, DENSE_ROWS rows
     bounds.update(main_loops["bounds"])  # at the QPSK link's shapes
     bounds["S3"] = vt["bound"]  # a batch of the FEC link
     for mw in STREAM_M:  # phase 43's shapes: 16384 rows, K6 over 4 shards
@@ -4617,8 +4751,7 @@ def main() -> int:
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
               staged["arm_fold_dft"], fold_err["arm_fold_dft"]),
         entry("arm_fold", "K7", "channelizer.cu", "channelizer.py:95",
-              dec_launches + sum(k1w["launches"][m] for m in K7_WIDE_M),
-              fold_err["arm_fold"]),
+              dec_launches + k1w["launches"]["K7"], fold_err["arm_fold"]),
         entry("fm_chain_gen_step", "K5", "fm_chain.cu", "fm_chain.py:591",
               live_launches, k5_err),
         entry("nco_planes", "K8", "sources.cu", "sources.py:44",
@@ -4657,10 +4790,11 @@ def main() -> int:
               "fm_chain.py:724", wide[128]["K6"], wide_err["K6"]),
         entry("arm_fold_dft[M=128]", "K1w", "channelizer.cu",
               "channelizer.py:209", wide[128]["K1"], fold_err["arm_fold_dft"]),
-        # on no graph's path: pfb_channelize(method="fused") at M = 512
-        entry("arm_fold_dft[dense]", "K1d", "channelizer.cu",
-              "channelizer.py:209", k1w["launches"]["dense"],
-              fold_err["arm_fold_dft[dense]"]),
+        # K1 at P = 8 .. 16 (the run-time instance; phase 49's graphs and
+        # pfb_channelize calls)
+        *[entry(f"arm_fold_dft[M={m}]", f"K1 M={m}", "channelizer.cu",
+                "channelizer.py:209", k1w["launches"][m], fold_err[f"K1 M={m}"])
+          for m in K1_WIDE_M if m > 448],
         # chain_tile_stream past 256 channels (phase 42's graphs)
         *[entry(f"{name}[M={mw}]", f"{kid} M={mw}", "fm_chain.cu", ref,
                 wide[mw][kind], wide_err[kid])

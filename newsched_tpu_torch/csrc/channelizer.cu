@@ -26,7 +26,7 @@
 // kAhead steps ahead of its use with one 16-byte load, computes one output
 // from the ring and stores it with one 16-byte store. Each input word is
 // thus loaded once per run (R + L - 1 loads for R outputs), where a loop
-// over each output's taps (K1's fold_lane) loads L words of input and L of
+// over each output's taps loads L words of input and L of
 // taps for every output and leaves the reuse to L1. With no tile given, R
 // is what makes one wave of runs on the card (fold_plan): the time follows
 // the wave count more than the halo rows a run re-reads. The taps' count L
@@ -66,14 +66,22 @@
 // (a block of 448 threads leaves 128 registers a thread: at M = 448 and
 // 16 taps ptxas still spills 164 bytes, PERF.md). The two 32-row tiles
 // take 512 M bytes: 229,376 at M = 448, inside the 232,448 a block may
-// have, so every width keeps them.
-// Any other 2M that is a multiple of 128 (the TPU kernel's rule: M = 512
-// and past, and M = 64 P with P >= 8) takes the
-// dense instance: the fold read through the read-only cache (fold_lane:
-// the L-fold reuse is served by L1) into a shared-memory tile (T x W
-// floats, 64 KB at T=128, W=128), then the FP32 product with W2 straight
-// from registers, 128 columns at a time (tile_mm.cuh). Both keep the TPU
-// kernel's HIGHEST accuracy: bf16 passes left its DFT at 22 dB.
+// have, so every width up to 448 keeps them.
+// At M = 64 P, P = 8 .. 16 (512 to 1024 channels) neither the two tiles
+// nor a thread a channel fit (a block of M threads leaves 64 registers a
+// thread at M = 1024, less than a channel's taps and ring), so one
+// instance with P and M as run-time values (arm_fold_fft_rt_kernel) takes
+// them: a block of kRtThreads threads walks its run of rows 16 at a time;
+// for each 16 it folds every lane of the rows, a thread a lane at a time,
+// its L taps and the 16 + L-1 input rows of the lane in registers (each
+// input word loaded (16 + L-1)/16 times, the overlap from L2), the same
+// chain as K7's; writes them as planes rows into one 16-row tile (128 KB
+// at M = 1024); transforms it (planes_fft.cuh fft_tile_rt, the radix-P
+// step in two passes and the 64-point FFTs) and writes it out as the FFT
+// instance does. Its output is also fft_interleaved of K7's, bit for bit.
+// Both keep the TPU kernel's HIGHEST accuracy (every product in FP32):
+// bf16 passes left its DFT at 22 dB. The kernel takes no other width:
+// the TPU kernel's dense (2M x 2M) product is no instance here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,27 +93,8 @@
 #include <utility>
 
 #include "planes_fft.cuh"
-#include "tile_mm.cuh"
 
 namespace {
-
-constexpr int kThreads = tile_mm::kThreads;
-constexpr int kPassRows = tile_mm::kPassRows;
-constexpr int kW = tile_mm::kW;
-
-// Lane k of row t of the fold, rows at or past n_in read as 0.
-__device__ __forceinline__ float fold_lane(const float* __restrict__ v,
-                                           long long n_in,
-                                           const float* __restrict__ c2,
-                                           int W, int L, long long t, int k) {
-  float acc = 0.f;
-  for (int q = 0; q < L; ++q) {
-    const long long r = t + q;
-    const float x = r < n_in ? __ldg(v + r * W + k) : 0.f;
-    acc = q ? fmaf(__ldg(c2 + q * W + k), x, acc) : __ldg(c2 + k) * x;
-  }
-  return acc;
-}
 
 // ---- K7 --------------------------------------------------------------------
 
@@ -510,73 +499,112 @@ int launch_fold_fft(const float* v, long long n_in, const float* c2,
   return (int)cudaGetLastError();
 }
 
-// ---- K1 --------------------------------------------------------------------
+// ---- K1 at M = 512 .. 1024 (P and M at run time) ---------------------------
 
-// K1's dense instance: fold T rows into shared memory, then Y = acc @ W2
-// in passes of 32 rows by 128 columns; W a multiple of 128.
-__global__ void __launch_bounds__(kThreads)
-arm_fold_dft_kernel(const float* __restrict__ v, long long n_in,
-                    const float* __restrict__ c2, const float* __restrict__ w2,
-                    float* __restrict__ out, long long n_out, int W, int L,
-                    int T) {
-  extern __shared__ __align__(16) float buf[];  // (T_pad, W)
-  const long long t0 = (long long)blockIdx.x * T;
-  const int T_pad = (T + kPassRows - 1) / kPassRows * kPassRows;
-  for (int idx = threadIdx.x; idx < T_pad * W; idx += kThreads) {
-    const int jj = idx / W, k = idx % W;
-    const long long t = t0 + jj;
-    buf[idx] = jj < T && t < n_out ? fold_lane(v, n_in, c2, W, L, t, k) : 0.f;
-  }
-  __syncthreads();
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int r0 = 0; r0 < T_pad; r0 += kPassRows) {
-    for (int c0 = 0; c0 < W; c0 += kW) {
-      float o[4][4];
-      tile_mm::pass(buf + r0 * W, W, w2 + c0, W, W, o);
+constexpr int kRtThreads = 512;  // threads of a block
+constexpr int kRtRows = 16;      // rows a pass: the tile, and a lane's fold
+
+// Block b walks rows [b R, b R + R) of the output, R a multiple of
+// kRtRows, a pass of kRtRows rows at a time: the fold of every lane k into
+// the tile (planes row e, lane k's channel k/2 in the re half at even k,
+// the im half at odd), the transform, the rows out (two channels a 16-byte
+// store; by lane instead, 8 bytes a store, it measured slower on the H100).
+// kL = 16: a lane's taps and 16 + kL-1 input rows in registers;
+// kL = 0: any L, each output's rows and taps loaded in turn. Both sum
+// K7's chain: c2[0] v[t], then fmaf for q = 1 .. L-1.
+template <int kL>
+__global__ void __launch_bounds__(kRtThreads)
+arm_fold_fft_rt_kernel(const float* __restrict__ v, long long n_in,
+                       const float* __restrict__ c2,
+                       const float* __restrict__ tab, float* __restrict__ out,
+                       long long n_out, int M, int l, int R) {
+  extern __shared__ __align__(16) float tile[];  // kRtRows x 2M
+  __shared__ planes_fft::PlanTabs tb;
+  const planes_fft::Plan pl = planes_fft::plan_of(M / 64);
+  const int W = 2 * M, L = kL ? kL : l, tid = threadIdx.x;
+  planes_fft::fill_tabs(tb, pl, tid);
+  const long long run0 = (long long)blockIdx.x * R;
+  const long long run1 = min(run0 + R, n_out);
+  for (long long t0 = run0; t0 < run1; t0 += kRtRows) {
+    for (int k = tid; k < W; k += kRtThreads) {
+      const int q = k >> 1;
+      float* col = tile + (k & 1) * M;
+      if constexpr (kL > 0) {
+        float c[kL], x[kRtRows + kL - 1];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int jj = r0 + 4 * ty + i;
-        const long long t = t0 + jj;
-        if (jj < T && t < n_out)
-          *reinterpret_cast<float4*>(out + t * W + c0 + 4 * tx) =
-              make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+        for (int i = 0; i < kL; ++i) c[i] = __ldg(c2 + i * W + k);
+#pragma unroll
+        for (int i = 0; i < kRtRows + kL - 1; ++i)
+          x[i] = t0 + i < n_in ? __ldg(v + (t0 + i) * W + k) : 0.f;
+#pragma unroll
+        for (int e = 0; e < kRtRows; ++e) {
+          float acc = c[0] * x[e];
+#pragma unroll
+          for (int i = 1; i < kL; ++i) acc = fmaf(c[i], x[e + i], acc);
+          col[e * W + planes_fft::sw(e, q)] = acc;
+        }
+      } else {
+        for (int e = 0; e < kRtRows; ++e) {
+          float acc = 0.f;
+          for (int i = 0; i < L; ++i) {
+            const long long r = t0 + e + i;
+            const float x = r < n_in ? __ldg(v + r * W + k) : 0.f;
+            acc = i ? fmaf(__ldg(c2 + i * W + k), x, acc) : __ldg(c2 + k) * x;
+          }
+          col[e * W + planes_fft::sw(e, q)] = acc;
+        }
       }
     }
+    __syncthreads();
+    planes_fft::fft_tile_rt(tile, kRtRows, tid, kRtThreads, tab, pl, tb);
+    __syncthreads();
+    for (int e = tid; e < kRtRows * (M / 2); e += kRtThreads) {
+      const int j = e / (M / 2), qq = 2 * (e % (M / 2));
+      const long long t = t0 + j;
+      if (t < n_out) {
+        const float* row = tile + j * W;
+        const int i0 = planes_fft::sw(j, pl.lane(qq));
+        const int i1 = planes_fft::sw(j, pl.lane(qq + 1));
+        *reinterpret_cast<float4*>(out + t * W + 2 * qq) =
+            make_float4(row[i0], row[M + i0], row[i1], row[M + i1]);
+      }
+    }
+    __syncthreads();
   }
 }
 
-unsigned n_blocks(long long n_out, int T) {
-  return (unsigned)((n_out + T - 1) / T);
-}
-
-int launch_fold_dft(const float* v, long long n_in, const float* c2,
-                    const float* w2, float* out, long long n_out, int W, int L,
-                    int T, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)((T + kPassRows - 1) / kPassRows * kPassRows) * W * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      arm_fold_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// One launch of the run-time instance: R rows a block (the hint rounded up
+// to whole passes, or one wave of the card's resident blocks).
+int launch_fold_fft_rt(const float* v, long long n_in, const float* c2,
+                       const float* tab, float* out, long long n_out, int M,
+                       int L, int R, cudaStream_t stream) {
+  const auto fn = L == 16 ? arm_fold_fft_rt_kernel<16> : arm_fold_fft_rt_kernel<0>;
+  const size_t smem = (size_t)kRtRows * 2 * M * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  arm_fold_dft_kernel<<<n_blocks(n_out, T), kThreads, smem, stream>>>(
-      v, n_in, c2, w2, out, n_out, W, L, T);
+  if (R <= 0) {
+    int dev = 0, sms = 0, blocks = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                          kRtThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long wave = std::max(1, blocks * sms);
+    R = (int)std::max(1LL, (n_out + wave - 1) / wave);
+  }
+  R = (R + kRtRows - 1) / kRtRows * kRtRows;
+  const unsigned grid = (unsigned)std::max(1LL, (n_out + R - 1) / R);
+  fn<<<grid, kRtThreads, smem, stream>>>(v, n_in, c2, tab, out, n_out, M, L, R);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int arm_fold_dft_launch(const float* v, long long n_in,
-                                   const float* c2, const float* w2,
-                                   float* out, long long n_out, int W, int L,
-                                   int T, void* stream) {
-  if (W < kW || W % kW != 0 || T < 1 || L < 1)
-    return (int)cudaErrorInvalidValue;
-  return launch_fold_dft(v, n_in, c2, w2, out, n_out, W, L, T,
-                         (cudaStream_t)stream);
-}
-
-// K1's FFT instance (M = 64 P, P = 1 .. 7): tab the (4, M) table of
-// planes_fft_table; R rows a run of each group (0: one wave).
+// K1 (M = 64 P, P = 1 .. 16): tab the (4, M) table of planes_fft_table;
+// R rows a run of each group (P <= 7) or block (0: one wave).
 extern "C" int arm_fold_fft_launch(const float* v, long long n_in,
                                    const float* c2, const float* tab,
                                    float* out, long long n_out, int M, int L,
@@ -593,7 +621,9 @@ extern "C" int arm_fold_fft_launch(const float* v, long long n_in,
     case 320: return launch_fold_fft<320>(v, n_in, c2, tab, out, n_out, L, R, s);
     case 384: return launch_fold_fft<384>(v, n_in, c2, tab, out, n_out, L, R, s);
     case 448: return launch_fold_fft<448>(v, n_in, c2, tab, out, n_out, L, R, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (M % 64 || M / 64 < 8 || M / 64 > 16) return (int)cudaErrorInvalidValue;
+      return launch_fold_fft_rt(v, n_in, c2, tab, out, n_out, M, L, R, s);
   }
 }
 

@@ -97,9 +97,14 @@
 // 7) take chain_tile_stream, which passes 32 rows at a time through a
 // window, from the tile's last rows down, and accumulates the audio FIR's
 // outputs as the demodulated rows stream through, so that shared memory
-// holds one pass and the outputs, not the tile (its header below). K3p and
-// the ablation probe are built at 128 lanes only. M = 512 and past take no
-// chain kernel (the wrappers raise; ROADMAP.md H13).
+// holds one pass and the outputs, not the tile (its header below). 1024 to
+// 2048 lanes (M = 512 .. 1024, P = 8 .. 16) take one instance, the width a
+// run-time value (kW = 0, Chain::w), chain_tile_wide: its 48-row window
+// would not fit (401 KB at M = 1024), so each lane's fold reads its input
+// rows into registers and only the 16 folded rows a pass stay in shared
+// memory (its header below). K3p and the ablation probe are built at 128
+// lanes only. Wider than 1024 channels no kernel is built (the wrappers
+// raise; ROADMAP.md Queue 3, R1).
 //
 // K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
 // taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
@@ -163,6 +168,7 @@ struct Chain {
   int n, L, H8, A, decim, T;
   int t_min;  // the stream's first row, relative to the batch
   int ag;     // the audio stage's bands, where the kernel reads them here
+  int w;      // the planes width 2M (what chain_tile_wide reads)
   float gain;
   AtanCoeffs co;
 };
@@ -299,17 +305,20 @@ __device__ __forceinline__ void fold_rows(const float* src, float* buf,
 // K3's and K3p's input rows: read from memory, vp = [halo; vb], the halo
 // the hrows rows before the batch (H8, or warm + H8 for a time shard).
 // vec: vb and halo 16-byte aligned, so the window loads 16 bytes at once.
+// kW = 0: the width w at run time.
 template <int kW>
 struct HaloRows {
   const float* vb;
   const float* halo;
   int hrows;
   bool vec;
+  int w;
   __device__ __forceinline__ float operator()(int sr, int k) const {
+    const int W = kW ? kW : w;
     const int i = sr + hrows;  // row of vp
     if (i < 0) return 0.f;
-    return i < hrows ? __ldg(halo + i * kW + k)
-                     : __ldg(vb + (long long)(i - hrows) * kW + k);
+    return i < hrows ? __ldg(halo + i * W + k)
+                     : __ldg(vb + (long long)(i - hrows) * W + k);
   }
   __device__ __forceinline__ float4 load4(int sr, int k) const {
     const int i = sr + hrows;
@@ -323,9 +332,9 @@ struct HaloRows {
 template <int kW>
 __device__ __forceinline__ HaloRows<kW> halo_rows(const float* vb,
                                                   const float* halo,
-                                                  int hrows) {
+                                                  int hrows, int w = kW) {
   return HaloRows<kW>{vb, halo, hrows,
-                      (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0};
+                      (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0, w};
 }
 
 // A tile's window of n input rows from stream row sr0 into buf (natural,
@@ -771,14 +780,168 @@ __device__ __forceinline__ void chain_tile_stream(float* sm, const Chain& p,
   }
 }
 
+// ---- M = 512 .. 1024: chain_tile_wide -------------------------------------
+
+constexpr int kWideRows = 16;       // rows a pass of chain_tile_wide
+constexpr int kWideThreads = 1024;  // threads of its block (K3, K5)
+constexpr int kWideThreadsK6 = 256;  // K6's, whose shard arithmetic and
+// Philox state spill past 64 registers a thread
+
+// One tile of T stream rows from t0 at 2M = p.w lanes, M = 64 P, P = 8 ..
+// 16, rebuilding its junction as chain_tile_stream does, in passes of 16
+// rows from the top pass down. chain_tile_stream's window of 32 + L-1 rows
+// would take 401 KB at M = 1024, so a pass keeps in shared memory only its
+// 16 folded rows (128 KB at M = 1024): 1. each lane's fold reads the pass's
+// 16 + L-1 input rows of that lane from `row` into registers (K3 from
+// memory, the overlap with the pass above from L2; K5 and K6 generate
+// them, (16 + L-1)/16 times a row) with its L taps, and writes the 16
+// acc rows, the sum chain_tile_stream's fold_pass takes; 2. the planes FFT
+// (planes_fft.cuh fft_tile_rt: P at run time, the radix-P step in two
+// passes); 3. each thread takes the positions k of the row's logical lanes
+// (channel P (k & 63) + PlanTabs::chan[k >> 6], whose Y the FFT left at
+// lane k), so a warp reads 32 consecutive lanes, and walks the pass's rows
+// from its highest down:
+// the demod of aud[jj] from Y[jj-1] and Y[jj] (the top row's Y[jj] the pass
+// above's row 0, kept in yp by position), then each audio output o within
+// its A taps takes aud[jj] into its accumulator (by position, in shared
+// memory): out[o] sums k = 0 .. A-1 in that order, as chain_tile's stage 4
+// and chain_tile_stream's, so the outputs do not depend on the tile. No
+// thread reads another's positions after the FFT, so the demod and the
+// audio stage need no barrier. The block holds the pass, yp and the T/decim
+// x M accumulators: 204,800 bytes at M = 1024 and the default tile of 128
+// rows, so one block an SM, and kT threads are all that SM runs: 1024 for
+// K3 and K5 (256 and 512 were slower on the H100), 256 for K6 (1024 was
+// slower: 64 registers a thread spill its shard's arithmetic). K3ag's
+// bands change no output bit and take no part here: every thread sums its
+// own outputs.
+template <int kT, class Row>
+__device__ __forceinline__ void chain_tile_wide(float* sm, const Chain& p,
+                                                int t_min, int t0, bool last,
+                                                Row row) {
+  const int W = p.w, M = W / 2;
+  const planes_fft::Plan pl = planes_fft::plan_of(M / 64);
+  const int A = p.A, L = p.L, R = p.T + A, decim = p.decim;
+  const int n_o = p.T / decim, tid = threadIdx.x;
+  float* tile = sm;                    // kWideRows x W, swizzled
+  float* yp = tile + kWideRows * W;    // Y[r0] of the pass above, by position
+  float* oacc = yp + W;                // n_o x M, by position
+  __shared__ planes_fft::PlanTabs tb;  // the plan's maps
+  planes_fft::fill_tabs(tb, pl, tid);
+  for (int idx = tid; idx < n_o * M; idx += kT) oacc[idx] = 0.f;
+  const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
+  const int top = (R - 1) / kWideRows * kWideRows;
+  // Y's logical lane k (< 2M) of tile row r
+  const auto ylane = [&](int r, int k) {
+    return k < M ? sw(r, pl.lane(k)) : M + sw(r, pl.lane(k - M));
+  };
+  for (int r0 = top; r0 >= 0; r0 -= kWideRows) {
+    const int n = min(kWideRows, R - r0);
+    const int hi = r0 == top ? n - 1 : n;  // demodulates rows r0+1 .. r0+hi
+    const int t_first = t0 - A + r0;       // the stream row of tile row 0
+    const int sr0 = t_first - (L - 1);     // of the fold's first input row
+    // 1. the fold: tile row e gets acc of stream row t_first + e
+    for (int k = tid; k < W; k += kT) {
+      if (L == kFoldL) {
+        float c[kFoldL], x[kWideRows + kFoldL - 1];
+#pragma unroll
+        for (int i = 0; i < kFoldL; ++i) c[i] = __ldg(p.c2 + i * W + k);
+#pragma unroll
+        for (int i = 0; i < kWideRows + kFoldL - 1; ++i)
+          x[i] = i < n + kFoldL - 1 ? row(sr0 + i, k) : 0.f;
+#pragma unroll
+        for (int e = 0; e < kWideRows; ++e) {
+          float acc = 0.f;
+          if (e < n && t_first + e >= t_min) {
+            acc = c[0] * x[e];
+#pragma unroll
+            for (int i = 1; i < kFoldL; ++i) acc = fmaf(c[i], x[e + i], acc);
+          }
+          tile[e * W + sw(e, k)] = acc;
+        }
+      } else {
+        for (int e = 0; e < kWideRows; ++e) {
+          float acc = 0.f;
+          if (e < n && t_first + e >= t_min) {
+            acc = __ldg(p.c2 + k) * row(sr0 + e, k);
+            for (int i = 1; i < L; ++i)
+              acc = fmaf(__ldg(p.c2 + i * W + k), row(sr0 + e + i, k), acc);
+          }
+          tile[e * W + sw(e, k)] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    // 2. Y of the pass's rows (past n: zeros)
+    planes_fft::fft_tile_rt(tile, kWideRows, tid, kT, p.tw, pl, tb);
+    __syncthreads();
+    if (jp >= r0 && jp < r0 + n)
+      for (int k = tid; k < W; k += kT)
+        tile[(jp - r0) * W + ylane(jp - r0, k)] = p.prev0[k];
+    if (last && r0 == top)
+      for (int k = tid; k < W; k += kT)
+        p.prev_out[k] = tile[(n - 1) * W + ylane(n - 1, k)];
+    __syncthreads();
+    // 3. demod and audio, position by position, rows r0+hi down to r0+1;
+    //    rows before the stream take tail0; the tile's last A-1 aud rows
+    //    are the carried tail
+    for (int pos = tid; pos < M; pos += kT) {
+      const int m = pl.P * (pos & 63) + tb.chan[pos >> 6];
+      for (int j = hi; j >= 1; --j) {
+        const int jj = r0 + j, t = t0 - A + jj;
+        float v;
+        if (t < t_min) {
+          v = p.tail0[(A - 1 + t - t_min) * W + m];
+        } else {
+          const int i0 = sw(j - 1, pos);
+          const float ar = tile[(j - 1) * W + i0], ai = tile[(j - 1) * W + M + i0];
+          float yr, yi;
+          if (j < n) {
+            const int i1 = sw(j, pos);
+            yr = tile[j * W + i1];
+            yi = tile[j * W + M + i1];
+          } else {
+            yr = yp[pos];
+            yi = yp[M + pos];
+          }
+          v = demod<kFull>(ar, ai, yr, yi, p);
+        }
+        if (last && jj >= R - (A - 1)) {
+          const int i = jj - (R - (A - 1));
+          p.tail_out[i * W + m] = v;
+          p.tail_out[i * W + M + m] = v;
+        }
+        // the outputs o with A + o*decim - (A-1) <= jj <= A + o*decim
+        const int olo = jj > A ? (jj - A + decim - 1) / decim : 0;
+        const int ohi = min(n_o - 1, (jj - 1) / decim);
+        for (int o = olo; o <= ohi; ++o)
+          oacc[o * M + pos] = fmaf(__ldg(p.ataps + (A + o * decim - jj)), v,
+                                   oacc[o * M + pos]);
+      }
+      const int i = sw(0, pos);
+      yp[pos] = tile[i];
+      yp[M + pos] = tile[M + i];
+    }
+    __syncthreads();
+  }
+  for (int pos = tid; pos < M; pos += kT) {
+    const int m = pl.P * (pos & 63) + tb.chan[pos >> 6];
+    for (int o = 0; o < n_o; ++o)
+      p.aud[((long long)t0 / decim + o) * M + m] = oacc[o * M + pos];
+  }
+}
+
 // Shared floats of a chain block (K3, K5, K6) at kW lanes: at the
 // flagship's 128 the tile buffer, and with kAG > 1 room past its T + A rows
 // for the band table; wider, chain_tile_stream's window, yp and the audio
+// accumulators; at kW = 0 (w lanes) chain_tile_wide's pass, yp and
 // accumulators.
 template <int kW>
 __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
-                                                          int ag, int decim) {
-  if constexpr (kW != kFlagW) {
+                                                          int ag, int decim,
+                                                          int w = kW) {
+  if constexpr (kW == 0) {
+    return (kWideRows + 1) * w + T / decim * (w / 2);
+  } else if constexpr (kW != kFlagW) {
     return (stream_window_rows(L) + 1) * kW + T / decim * (kW / 2);
   } else {
     const int rows = tile_rows(T, A, L) * kW;
@@ -791,13 +954,17 @@ __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
 // last block writes the end state where the kernel returns one.
-template <int kW, int kV = kFull, int kAG = 1, class Row>
+template <int kW, int kV = kFull, int kAG = 1, int kT = kWideThreads,
+          class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
                                              int t_min, Row row) {
   const bool last = blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr;
   if constexpr (kW == kFlagW) {
     chain_tile<true, kV, kAG>(buf, p, t_min, blockIdx.x * p.T, last, nullptr,
                               nullptr, nullptr, row, [] {});
+  } else if constexpr (kW == 0) {
+    static_assert(kV == kFull, "the ablation runs at 128 lanes");
+    chain_tile_wide<kT>(buf, p, t_min, blockIdx.x * p.T, last, row);
   } else {
     static_assert(kV == kFull, "the ablation runs at 128 lanes");
     chain_tile_stream<kW>(buf, p, t_min, blockIdx.x * p.T, last, row);
@@ -806,12 +973,12 @@ __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
 
 // K3: input rows read from memory, vp = [halo; vb]; kAG > 1 is K3ag.
 template <int kW, int kAG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kW ? kThreads : kWideThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
   rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min,
-                               halo_rows<kW>(vb, halo, hrows));
+                               halo_rows<kW>(vb, halo, hrows, p.w));
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -827,19 +994,19 @@ fm_chain_ablate_kernel(const float* __restrict__ vb,
 // K5: input rows generated in the block (and the batch's last H8 copied
 // out as the next carry), the halo from carry0; the base group on the card.
 template <int kW, int kAG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kW ? kThreads : kWideThreads)
 fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     const float* __restrict__ amp,
                     const float* __restrict__ carry0,
                     float* __restrict__ carry_out, Chain p) {
   extern __shared__ __align__(16) float buf[];
   s.g0 = philox::group_at(group, 0);
-  const int H8 = p.H8, n = p.n;
+  const int H8 = p.H8, n = p.n, W = kW ? kW : p.w;
   const float a = amp[0];
   rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
-    if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * kW + k] : 0.f;
-    const float v = __fmul_rn(philox::gauss(s, sr, k, kW), a);
-    if (sr >= n - H8) carry_out[(sr - (n - H8)) * kW + k] = v;
+    if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
+    const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
+    if (sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
     return v;
   });
 }
@@ -859,7 +1026,7 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
 constexpr int kFarPast = -(1 << 30);
 
 template <int kW, int kAG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kW ? kThreads : kWideThreadsK6)
 fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
                          const Chain p) {
@@ -872,8 +1039,10 @@ fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                     : g >= (1LL << 24) ? kFarPast
                                        : (int)(shift - g * philox::kGroupRows);
   const float a = amp[0];
-  rebuilt_tile<kW, kFull, kAG>(buf, p, t_min, [&](int sr, int k) {
-    return __fmul_rn(philox::gauss(s, sr - shift, k, kW), a);
+  const int W = kW ? kW : p.w;
+  rebuilt_tile<kW, kFull, kAG, kWideThreadsK6>(buf, p, t_min,
+                                               [&](int sr, int k) {
+    return __fmul_rn(philox::gauss(s, sr - shift, k, W), a);
   });
 }
 
@@ -944,23 +1113,30 @@ Chain make_chain(const float* prev0, const float* tail0, const float* c2,
                  const float* tw, const float* ataps, float* aud,
                  float* prev_out, float* tail_out, int n, int L, int H8,
                  int A, int decim, int T, int t_min, float gain,
-                 const float* atan_coeffs, int ag = 1) {
+                 const float* atan_coeffs, int ag = 1, int M = 64) {
   return Chain{c2,    tw,    ataps, prev0, tail0,
                aud,   prev_out, tail_out, n, L,
                H8,    A,     decim, T,     t_min,
-               ag,    gain,  mathfns::load_atan(atan_coeffs)};
+               ag,    2 * M, gain,  mathfns::load_atan(atan_coeffs)};
 }
 
 // The chain kernels' launch: the shared memory the tile buffer takes
-// (above 48 KB only once the kernel is allowed it), then one block a tile.
+// (above 48 KB only once the kernel is allowed it), then one block of
+// `threads` a tile.
 template <class Kernel, class... Args>
-int launch_tiles(Kernel kernel, size_t smem, int blocks, void* stream,
-                 Args... args) {
+int launch_blocks(Kernel kernel, int threads, size_t smem, int blocks,
+                  void* stream, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <class Kernel, class... Args>
+int launch_tiles(Kernel kernel, size_t smem, int blocks, void* stream,
+                 Args... args) {
+  return launch_blocks(kernel, kThreads, smem, blocks, stream, args...);
 }
 
 // The audio stage's bands a chain kernel takes: 1, or K3ag's 2 or 4, each
@@ -971,13 +1147,18 @@ bool valid_bands(int ag, int T, int decim) {
 
 // One chain kernel (K3, K5 or K6) at kW lanes and the audio stage's bands
 // `ag`: the instance of the kernel template for them, with the shared
-// memory it takes. Used inside a function templated on kW; wider than the
-// flagship's 128 lanes one instance reads ag from the Chain.
-#define LAUNCH_BANDS(kernel, ag, T, A, L, decim, blocks, stream, ...)        \
+// memory it takes. Used inside a function templated on kW (0: the width
+// p.w at run time, blocks of wide_threads); wider than the flagship's 128
+// lanes one instance reads ag from the Chain.
+#define LAUNCH_BANDS(kernel, wide_threads, ag, T, A, L, decim, blocks, stream, \
+                     ...)                                                    \
   {                                                                          \
-    const size_t smem_ =                                                     \
-        (size_t)chain_smem_floats<kW>(T, A, L, ag, decim) * sizeof(float);   \
-    if constexpr (kW != kFlagW) {                                            \
+    const size_t smem_ = (size_t)chain_smem_floats<kW>(T, A, L, ag, decim,   \
+                                                       p.w) * sizeof(float); \
+    if constexpr (kW == 0) {                                                 \
+      return launch_blocks(kernel<0, 0>, wide_threads, smem_, blocks,        \
+                           stream, __VA_ARGS__);                             \
+    } else if constexpr (kW != kFlagW) {                                     \
       return launch_tiles(kernel<kW, 0>, smem_, blocks, stream,              \
                           __VA_ARGS__);                                      \
     } else {                                                                 \
@@ -996,25 +1177,29 @@ bool valid_bands(int ag, int T, int decim) {
   }
 
 // The launch of a chain kernel at 2M lanes: the instance for the width
-// (M = 64 P, P = 1 .. 7), or cudaErrorInvalidValue.
-#define FOR_WIDTH(M, fn, ...)                        \
-  switch (2 * (M)) {                                 \
-    case 128: return fn<128>(__VA_ARGS__);           \
-    case 256: return fn<256>(__VA_ARGS__);           \
-    case 384: return fn<384>(__VA_ARGS__);           \
-    case 512: return fn<512>(__VA_ARGS__);           \
-    case 640: return fn<640>(__VA_ARGS__);           \
-    case 768: return fn<768>(__VA_ARGS__);           \
-    case 896: return fn<896>(__VA_ARGS__);           \
-    default: return (int)cudaErrorInvalidValue;      \
+// (M = 64 P, P = 1 .. 7), the run-time one (kW = 0) at P = 8 .. 16, or
+// cudaErrorInvalidValue.
+#define FOR_WIDTH(M, fn, ...)                                     \
+  switch (2 * (M)) {                                              \
+    case 128: return fn<128>(__VA_ARGS__);                        \
+    case 256: return fn<256>(__VA_ARGS__);                        \
+    case 384: return fn<384>(__VA_ARGS__);                        \
+    case 512: return fn<512>(__VA_ARGS__);                        \
+    case 640: return fn<640>(__VA_ARGS__);                        \
+    case 768: return fn<768>(__VA_ARGS__);                        \
+    case 896: return fn<896>(__VA_ARGS__);                        \
+    default:                                                      \
+      if ((M) % 64 || (M) / 64 < 8 || (M) / 64 > 16)             \
+        return (int)cudaErrorInvalidValue;                        \
+      return fn<0>(__VA_ARGS__);                                  \
   }
 
 template <int kW>
 int planes_launch(const float* vb, const float* halo, int hrows, int n,
                   int L, int A, int decim, int T, int ag, void* stream,
                   const Chain& p) {
-  LAUNCH_BANDS(fm_chain_kernel, ag, T, A, L, decim, n / T, stream, vb, halo,
-               hrows, p);
+  LAUNCH_BANDS(fm_chain_kernel, kWideThreads, ag, T, A, L, decim, n / T,
+               stream, vb, halo, hrows, p);
 }
 
 template <int kW>
@@ -1022,8 +1207,8 @@ int gen_launch(const philox::Stream& s, const long long* group,
                const float* amp, const float* carry0, float* carry_out, int n,
                int L, int A, int decim, int T, int ag, void* stream,
                const Chain& p) {
-  LAUNCH_BANDS(fm_chain_gen_kernel, ag, T, A, L, decim, n / T, stream, s,
-               group, amp, carry0, carry_out, p);
+  LAUNCH_BANDS(fm_chain_gen_kernel, kWideThreads, ag, T, A, L, decim, n / T,
+               stream, s, group, amp, carry0, carry_out, p);
 }
 
 template <int kW>
@@ -1031,8 +1216,8 @@ int gen_warm_launch(const philox::Stream& s, const long long* group,
                     long long goff, int nd, const float* amp, int n, int L,
                     int A, int decim, int T, int ag, void* stream,
                     const Chain& p) {
-  LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, T, A, L, decim, nd * (n / T),
-               stream, s, group, goff, amp, p);
+  LAUNCH_BANDS(fm_chain_gen_warm_kernel, kWideThreadsK6, ag, T, A, L, decim,
+               nd * (n / T), stream, s, group, goff, amp, p);
 }
 
 }  // namespace
@@ -1049,7 +1234,8 @@ extern "C" int fm_chain_planes_launch(
     return (int)cudaErrorInvalidValue;
   FOR_WIDTH(M, planes_launch, vb, halo, hrows, n, L, A, decim, T, ag, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
-                       n, L, H8, A, decim, T, t_min, gain, atan_coeffs, ag));
+                       n, L, H8, A, decim, T, t_min, gain, atan_coeffs, ag,
+                       M));
 }
 
 // The ablation probe's launch: K3's arguments (prev_out/tail_out may be
@@ -1106,7 +1292,7 @@ extern "C" int fm_chain_gen_launch(
   FOR_WIDTH(M, gen_launch, s, group, amp, carry0, carry_out, n, L, A, decim,
             T, ag, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
-                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
+                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
 }
 
 // K6 over nd shards of n rows each (aud: nd n/decim rows), one launch.
@@ -1123,7 +1309,7 @@ extern "C" int fm_chain_gen_warm_launch(
   FOR_WIDTH(M, gen_warm_launch, s, group, goff, nd, amp, n, L, A, decim, T,
             ag, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
-                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag));
+                       n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
 }
 
 extern "C" int fm_chain_pipe_launch(

@@ -1,7 +1,7 @@
-// The planes DFT as a shared-memory FFT, for M = 64 P channels, P = 1 .. 7
-// (64 to 448): the phase combine of the fused chains (fm_chain.cu, stage 2
-// of chain_tile, P <= 4) and of the channelizer front end (channelizer.cu,
-// K1, every P).
+// The planes DFT as a shared-memory FFT, for M = 64 P channels, P = 1 .. 16
+// (64 to 1024): the phase combine of the fused chains (fm_chain.cu: stage 2
+// of chain_tile at P = 1, chain_tile_stream at P = 2 .. 7, chain_tile_wide
+// past it) and of the channelizer front end (channelizer.cu, K1, every P).
 //
 // A planes row holds a[k] = re at lane k and im at lane M + k (k < M); the
 // routine replaces it with Y[j] = e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}
@@ -50,6 +50,23 @@
 // (e^{-2 pi i a/P}); P = 6 as 2 x 3 by the prime-factor map (no
 // twiddles): the 3-point DFTs of x[0, 2, 4] and x[3, 5, 1], then 2-point
 // DFTs, y at (3 k1 + 4 k2) mod 6.
+//
+// Past P = 7 (fft_tile_rt: K1 and the chains at M = 512 .. 1024) P and M
+// are run-time values, one code for the nine widths, and the radix-P step
+// is two passes over the block, P = P1 x P2 (Plan, plan_of): pass 1 the
+// P1-point DFTs of each column n, pass 2 the P2-point DFTs, then the P
+// 64-point FFTs of pass (b) above, sub-FFT q in the row's 64-lane part
+// Plan::part(q). Where P1 and P2 are coprime (10 = 2 x 5, 12 = 4 x 3, 14 =
+// 2 x 7, 15 = 3 x 5) the prime-factor map takes the input j from part
+// (P2 j1 + P1 j2) mod P and needs no twiddles between the passes; 9 = 3 x 3
+// and 16 = 4 x 4 take the input j = P2 j1 + j2 and the twiddles W_P^(j2
+// k1); 8 (dft8), 11 and 13 (the pairs' form, dft_odd) are one pass. A
+// thread holds one column's P1 or P2 values, at most 13, not a row's P: a
+// block of 256 threads leaves each at most 255 registers, but K1 at M =
+// 448 already spilled with 7. Pass 1 leaves its outputs in the parts it
+// read, pass 2 in the parts it read, so neither needs more than its own
+// column. Every operation is rounded on its own as above;
+// ops/cuda/planes_fft.py _radix_two_pass repeats the passes.
 
 #pragma once
 
@@ -261,6 +278,59 @@ struct WP {
   }
 };
 
+// The cos and sin of 2 pi a / P read from the table where they are used
+// (the post-twiddle's e^{-2 pi i j/M} at j = a step), so that a P-point
+// DFT past P = 7 holds no copy of them in registers.
+struct TabCosSin {
+  const float* re;  // the table's row 2
+  const float* im;  // its row 3
+  int step;
+  __device__ __forceinline__ float cos_at(int a) const { return __ldg(re + a * step); }
+  __device__ __forceinline__ float sin_at(int a) const { return -__ldg(im + a * step); }
+};
+
+// Arrays of cos and sin, as WP holds them.
+struct ArrCosSin {
+  const float* cs;
+  const float* sn;
+  __device__ __forceinline__ float cos_at(int a) const { return cs[a]; }
+  __device__ __forceinline__ float sin_at(int a) const { return sn[a]; }
+};
+
+// y[k] = sum_j x[j] W_P^(jk) in place for an odd P >= 5, from the pairs
+// x[m] +- x[P-m]; w.cos_at(a), w.sin_at(a) the cos and sin of 2 pi a / P.
+template <int P, class CS>
+__device__ __forceinline__ void dft_odd(float* xr, float* xi, const CS& w) {
+  constexpr int H = (P - 1) / 2;
+  float sr[H + 1], si[H + 1], dr[H + 1], di[H + 1];
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    sr[m] = radd(xr[m], xr[P - m]); si[m] = radd(xi[m], xi[P - m]);
+    dr[m] = rsub(xr[m], xr[P - m]); di[m] = rsub(xi[m], xi[P - m]);
+  }
+  float y0r = xr[0], y0i = xi[0];
+#pragma unroll
+  for (int m = 1; m <= H; ++m) y0r = radd(y0r, sr[m]), y0i = radd(y0i, si[m]);
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float tr = xr[0], ti = xi[0], ur = 0.f, ui = 0.f;
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      const int a = m * k % P;
+      const float c = w.cos_at(a), sa = w.sin_at(a);
+      tr = radd(tr, rmul(c, sr[m]));
+      ti = radd(ti, rmul(c, si[m]));
+      const float pr = rmul(sa, dr[m]), pi = rmul(sa, di[m]);
+      ur = m == 1 ? pr : radd(ur, pr);
+      ui = m == 1 ? pi : radd(ui, pi);
+    }
+    xr[k] = radd(tr, ui); xi[k] = rsub(ti, ur);
+    xr[P - k] = rsub(tr, ui); xi[P - k] = radd(ti, ur);
+  }
+  xr[0] = y0r;
+  xi[0] = y0i;
+}
+
 // y[r] = sum_j x[j] W_P^(jr) in place, P = 5, 7 (odd, from the pairs) and
 // P = 6 (2 x 3, the prime-factor map).
 template <int P>
@@ -279,33 +349,7 @@ __device__ __forceinline__ void dftp_wide(float* xr, float* xi, const WP<P>& w) 
       xi[hi] = rsub(ai[k2], bi[k2]);
     }
   } else {
-    constexpr int H = (P - 1) / 2;
-    float sr[H + 1], si[H + 1], dr[H + 1], di[H + 1];
-#pragma unroll
-    for (int m = 1; m <= H; ++m) {
-      sr[m] = radd(xr[m], xr[P - m]); si[m] = radd(xi[m], xi[P - m]);
-      dr[m] = rsub(xr[m], xr[P - m]); di[m] = rsub(xi[m], xi[P - m]);
-    }
-    float y0r = xr[0], y0i = xi[0];
-#pragma unroll
-    for (int m = 1; m <= H; ++m) y0r = radd(y0r, sr[m]), y0i = radd(y0i, si[m]);
-#pragma unroll
-    for (int k = 1; k <= H; ++k) {
-      float tr = xr[0], ti = xi[0], ur = 0.f, ui = 0.f;
-#pragma unroll
-      for (int m = 1; m <= H; ++m) {
-        const int a = m * k % P;
-        tr = radd(tr, rmul(w.cs[a], sr[m]));
-        ti = radd(ti, rmul(w.cs[a], si[m]));
-        const float pr = rmul(w.sn[a], dr[m]), pi = rmul(w.sn[a], di[m]);
-        ur = m == 1 ? pr : radd(ur, pr);
-        ui = m == 1 ? pi : radd(ui, pi);
-      }
-      xr[k] = radd(tr, ui); xi[k] = rsub(ti, ur);
-      xr[P - k] = rsub(tr, ui); xi[P - k] = radd(ti, ur);
-    }
-    xr[0] = y0r;
-    xi[0] = y0i;
+    dft_odd<P>(xr, xi, ArrCosSin{w.cs, w.sn});
   }
 }
 
@@ -388,6 +432,244 @@ __device__ __forceinline__ void fft_tile_wide(float* tile, int rows, int tid,
       const int j = P * (t + 8 * k2) + q;
       cmul(xr[k2], xi[k2], __ldg(tab + 2 * M + j), __ldg(tab + 3 * M + j));
       const int i = sw(r, 64 * q + t + 8 * k2);
+      row[i] = xr[k2];
+      row[M + i] = xi[k2];
+    }
+  }
+}
+
+// ---- P = 8 .. 16: P and M at run time (fft_tile_rt) -----------------------
+
+// The radix-P step's two passes, P = P1 x P2 (the header). slot(a, b): the
+// 64-lane part of a row holding the passes' value (a, b), the input j at
+// slot(j1, j2); out(k1, k2): the radix output q that pass 2 leaves at
+// slot(k1, k2); part(q): where sub-FFT q runs; lane(j): the logical lane of
+// output j < M in a row.
+struct Plan {
+  int P, P1, P2, pfa, e1, e2;
+  __host__ __device__ __forceinline__ int slot(int a, int b) const {
+    return pfa ? (P2 * a + P1 * b) % P : P2 * a + b;
+  }
+  __host__ __device__ __forceinline__ int out(int k1, int k2) const {
+    return pfa ? (e1 * k1 + e2 * k2) % P : k1 + P1 * k2;
+  }
+  __host__ __device__ __forceinline__ int part(int q) const {
+    return slot(q % P1, pfa ? q % P2 : q / P1);
+  }
+  __host__ __device__ __forceinline__ int lane(int j) const {
+    return 64 * part(j % P) + j / P;
+  }
+};
+
+// The plan at P = 8 .. 16 (P1 = 0 elsewhere): ops/cuda/planes_fft.py
+// FACTORS; e1 = P2 (P2^-1 mod P1) and e2 = P1 (P1^-1 mod P2) by the
+// prime-factor map, which puts output q at (q mod P1, q mod P2).
+__host__ __device__ __forceinline__ Plan plan_of(int P) {
+  int P1 = 0, P2 = 1;
+  switch (P) {
+    case 8: P1 = 8; break;
+    case 9: P1 = 3, P2 = 3; break;
+    case 10: P1 = 2, P2 = 5; break;
+    case 11: P1 = 11; break;
+    case 12: P1 = 4, P2 = 3; break;
+    case 13: P1 = 13; break;
+    case 14: P1 = 2, P2 = 7; break;
+    case 15: P1 = 3, P2 = 5; break;
+    case 16: P1 = 4, P2 = 4; break;
+    default: break;
+  }
+  int g = P1, h = P2;
+  while (h) { const int t = g % h; g = h; h = t; }
+  const int pfa = P2 > 1 && g == 1;
+  int e1 = 0, e2 = 0;
+  if (pfa) {
+    int i1 = 1, i2 = 1;
+    while (P2 * i1 % P1 != 1) ++i1;
+    while (P1 * i2 % P2 != 1) ++i2;
+    e1 = P2 * i1 % P;
+    e2 = P1 * i2 % P;
+  }
+  return Plan{P, P1, P2, pfa, e1, e2};
+}
+
+// The plan's maps as tables, in a block's shared memory, so the passes
+// index them in place of the run-time divisions: slot[a P2 + b], out[k1
+// P2 + k2], part[q] and chan[s] (the sub-FFT q in part s). A kernel fills
+// them once (fill_tabs, threads 0 .. 15) before its first barrier.
+struct PlanTabs {
+  int slot[16], out[16], part[16], chan[16];
+};
+
+__device__ __forceinline__ void fill_tabs(PlanTabs& tb, const Plan& pl,
+                                          int tid) {
+  if (tid < pl.P) {
+    const int a = tid / pl.P2, b = tid % pl.P2;
+    tb.slot[tid] = pl.slot(a, b);
+    tb.out[tid] = pl.out(a, b);
+    tb.part[tid] = pl.part(tid);
+    tb.chan[pl.part(tid)] = tid;
+  }
+}
+
+// An F-point DFT in place (F = 2, 3, 4, 5, 7, 8, 11, 13), its constants
+// from the table of M channels: cos(pi/4) at M/8, sin(pi/3) at M/3, and
+// the cos and sin of 2 pi a / F at a M/F.
+template <int F>
+__device__ __forceinline__ void dft_f(float* xr, float* xi, const float* tab,
+                                      int M) {
+  if constexpr (F == 2 || F == 4) {
+    dftp<F>(xr, xi, 0.f);
+  } else if constexpr (F == 3) {
+    dftp<3>(xr, xi, -__ldg(tab + 3 * M + M / 3));
+  } else if constexpr (F == 8) {
+    dft8(xr, xi, __ldg(tab + 2 * M + M / 8));
+  } else {
+    dft_odd<F>(xr, xi, TabCosSin{tab + 2 * M, tab + 3 * M, M / F});
+  }
+}
+
+// Pass 1, F = P1: column n of part group j2 of row r a thread; at P2 = 1
+// also the radix twiddles W_M^(n k) of its outputs k > 0.
+template <int F>
+__device__ __forceinline__ void radix_pass1(float* tile, int rows, int tid,
+                                            int threads, const float* tab,
+                                            const Plan& pl,
+                                            const PlanTabs& tb) {
+  const int M = 64 * pl.P, W = 2 * M, P2 = pl.P2, n = tid & 63;
+  for (int rb = tid >> 6; rb < rows * P2; rb += threads >> 6) {
+    const int r = rb / P2, b = rb - r * P2;
+    float* row = tile + r * W;
+    float xr[F], xi[F];
+#pragma unroll
+    for (int a = 0; a < F; ++a) {
+      const int i = sw(r, n + 64 * tb.slot[a * P2 + b]);
+      xr[a] = row[i];
+      xi[a] = row[M + i];
+    }
+    dft_f<F>(xr, xi, tab, M);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      if (P2 == 1 && k > 0)
+        cmul(xr[k], xi[k], __ldg(tab + 2 * M + n * k), __ldg(tab + 3 * M + n * k));
+      const int i = sw(r, n + 64 * tb.slot[k * P2 + b]);
+      row[i] = xr[k];
+      row[M + i] = xi[k];
+    }
+  }
+}
+
+// Pass 2, F = P2: column n of part group k1 of row r a thread: the
+// twiddles W_P^(j2 k1) (none by the prime-factor map), the F-point DFT,
+// the radix twiddles W_M^(n q) of its outputs q > 0.
+template <int F>
+__device__ __forceinline__ void radix_pass2(float* tile, int rows, int tid,
+                                            int threads, const float* tab,
+                                            const Plan& pl,
+                                            const PlanTabs& tb) {
+  const int M = 64 * pl.P, W = 2 * M, P1 = pl.P1, n = tid & 63;
+  for (int rk = tid >> 6; rk < rows * P1; rk += threads >> 6) {
+    const int r = rk / P1, k1 = rk - r * P1;
+    float* row = tile + r * W;
+    float xr[F], xi[F];
+#pragma unroll
+    for (int b = 0; b < F; ++b) {
+      const int i = sw(r, n + 64 * tb.slot[k1 * F + b]);
+      xr[b] = row[i];
+      xi[b] = row[M + i];
+    }
+    if (!pl.pfa && k1 > 0) {
+#pragma unroll
+      for (int b = 1; b < F; ++b)
+        cmul(xr[b], xi[b], __ldg(tab + 2 * M + 64 * b * k1),
+             __ldg(tab + 3 * M + 64 * b * k1));
+    }
+    dft_f<F>(xr, xi, tab, M);
+#pragma unroll
+    for (int k2 = 0; k2 < F; ++k2) {
+      const int q = tb.out[k1 * F + k2];
+      if (q > 0)
+        cmul(xr[k2], xi[k2], __ldg(tab + 2 * M + n * q), __ldg(tab + 3 * M + n * q));
+      const int i = sw(r, n + 64 * tb.slot[k1 * F + k2]);
+      row[i] = xr[k2];
+      row[M + i] = xi[k2];
+    }
+  }
+}
+
+// The planes DFT of `rows` rows of the tile (rows of 2M floats, swizzled,
+// rows a multiple of 4, M = 64 pl.P) by all `threads` threads of the
+// block (a multiple of 64), thread tid, the plan's tables tb filled; the
+// caller has synchronised the block before. Row r's output j is left at
+// logical lane pl.lane(j) of row r (j = P (k & 63) + tb.chan[k >> 6] at
+// lane k); a __syncthreads() comes before it is read.
+__device__ __forceinline__ void fft_tile_rt(float* tile, int rows, int tid,
+                                            int threads, const float* tab,
+                                            const Plan& pl,
+                                            const PlanTabs& tb) {
+  const int P = pl.P, M = 64 * P, W = 2 * M;
+  switch (pl.P1) {
+    case 2: radix_pass1<2>(tile, rows, tid, threads, tab, pl, tb); break;
+    case 3: radix_pass1<3>(tile, rows, tid, threads, tab, pl, tb); break;
+    case 4: radix_pass1<4>(tile, rows, tid, threads, tab, pl, tb); break;
+    case 8: radix_pass1<8>(tile, rows, tid, threads, tab, pl, tb); break;
+    case 11: radix_pass1<11>(tile, rows, tid, threads, tab, pl, tb); break;
+    default: radix_pass1<13>(tile, rows, tid, threads, tab, pl, tb); break;
+  }
+  if (pl.P2 > 1) {
+    __syncthreads();
+    switch (pl.P2) {
+      case 3: radix_pass2<3>(tile, rows, tid, threads, tab, pl, tb); break;
+      case 4: radix_pass2<4>(tile, rows, tid, threads, tab, pl, tb); break;
+      case 5: radix_pass2<5>(tile, rows, tid, threads, tab, pl, tb); break;
+      default: radix_pass2<7>(tile, rows, tid, threads, tab, pl, tb); break;
+    }
+  }
+  __syncthreads();
+  // (b) sub-FFT q of rows 4 g .. 4 g + 3 in part pl.part(q), one task a
+  // warp, as fft_tile_wide's
+  const int t = tid & 7, lane_row = (tid >> 3) & 3;
+  float in_re[8], in_im[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    in_re[i] = __ldg(tab + t * 8 + i);
+    in_im[i] = __ldg(tab + M + t * 8 + i);
+  }
+  const float c = __ldg(tab + 2 * M + M / 8);
+  for (int task = tid >> 5; task < (rows / 4) * P; task += threads >> 5) {
+    const int g = task / P, q = task - g * P, r = 4 * g + lane_row, s = r & 3;
+    const int base = 64 * tb.part[q];
+    float* row = tile + r * W;
+    float xr[8], xi[8];
+#pragma unroll
+    for (int n2 = 0; n2 < 8; ++n2) {
+      const int i = sw(r, base + t + 8 * n2);
+      xr[n2] = row[i];
+      xi[n2] = row[M + i];
+    }
+    dft8(xr, xi, c);  // A[t][k1], k1 = 0..7
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) cmul(xr[k1], xi[k1], in_re[k1], in_im[k1]);
+    __syncwarp();
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) {
+      const int i = base + xch(s, t, k1);
+      row[i] = xr[k1];
+      row[M + i] = xi[k1];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int n1 = 0; n1 < 8; ++n1) {
+      const int i = base + xch(s, n1, t);
+      xr[n1] = row[i];
+      xi[n1] = row[M + i];
+    }
+    __syncwarp();
+    dft8(xr, xi, c);  // X[P (t + 8 k2) + q], k2 = 0..7
+#pragma unroll
+    for (int k2 = 0; k2 < 8; ++k2) {
+      const int j = P * (t + 8 * k2) + q;
+      cmul(xr[k2], xi[k2], __ldg(tab + 2 * M + j), __ldg(tab + 3 * M + j));
+      const int i = sw(r, base + t + 8 * k2);
       row[i] = xr[k2];
       row[M + i] = xi[k2];
     }

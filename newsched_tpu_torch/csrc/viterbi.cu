@@ -1,6 +1,6 @@
 // S3 viterbi_decode for Hopper (sm_90a): maximum-likelihood decoding of a
 // rate-1/n convolutional code, one terminated (or unterminated) frame a
-// warp (K <= 9, n <= 4) or a block (K = 10 .. 15, or n > 4).
+// warp (K <= 9, n <= 4) or a block (K >= 10, or n > 4).
 //
 // No TPU kernel: it replaces the reference's two `lax.scan`s in
 // newsched_tpu/ops/fec.py `viterbi_decode` (:83): the add-compare-select
@@ -45,8 +45,20 @@
 // group e is word s >> 5), the branch symbols from the read-only cache past
 // rate 1/4 or two states a thread, its metrics double-buffered in shared
 // memory (2 S floats: 128 KB at K = 15, the last code whose two rows fit a
-// block, so past K = 15 the launch refuses the code), one barrier a step,
-// the max by warp shuffles and one word a warp.
+// block), one barrier a step, the max by warp shuffles and one word a warp.
+// Past K = 15 (S/1024 >= 32 states a thread, a run-time count) the two rows
+// live in device memory, 2 S floats a frame of the caller's scratch
+// (`metrics`), written and read by the frame's block alone, whose barrier
+// a step also orders those accesses (256 KB a frame at K = 16, from L2);
+// such a frame takes the `global` route below too. Its branch symbols
+// (512 KB at K = 16, rate 1/2) would come from L2 at every step as well,
+// so up to rate 1/4 they are computed instead: the code is linear, psym
+// of state s' on branch b is 2 parity(g_j & (s' + b S)) - 1 for the
+// register s' + b S of its K bits, and the generators g_j are read back
+// once from psym (bit k of g_j from state 2^k, branch 0; bit K-1 from
+// state 0, branch 1), so the symbols are psym's, exactly +-1. What bounds
+// the code is then the card's memory for the metrics and decision words
+// (ops/cuda/fec.py viterbi_plan).
 //
 // Memory of a frame: where its LLRs and decision words fit a block's
 // shared memory (the warp instance: 4 T (n + S/32) bytes, 14,528 steps at
@@ -77,15 +89,20 @@ constexpr float kNeg = -1e9f;    // the encoder starts in state 0
 
 // One step's branch metric of state st on branch b: sum_j psym * r, the
 // first product alone, then each add rounded on its own.
+// kRegSym<E>: the block instance keeps the branch symbols in registers
+// (E = 1, 2 states a thread); E = 0 is the run-time count past K = 15.
 template <int E>
-__device__ __forceinline__ float branch(const float (&sym)[E > 2 ? 1 : E][2][kMaxN],
+constexpr bool kRegSym = E >= 1 && E <= 2;
+
+template <int E>
+__device__ __forceinline__ float branch(const float (&sym)[kRegSym<E> ? E : 1][2][kMaxN],
                                         int e, int b, const float* __restrict__ psym,
                                         int st, const float* rt, int n) {
-  if (E <= 2 && n <= kMaxN) {
-    float bm = __fmul_rn(sym[E > 2 ? 0 : e][b][0], rt[0]);
+  if (kRegSym<E> && n <= kMaxN) {
+    float bm = __fmul_rn(sym[kRegSym<E> ? e : 0][b][0], rt[0]);
 #pragma unroll
     for (int j = 1; j < kMaxN; ++j)
-      if (j < n) bm = __fadd_rn(bm, __fmul_rn(sym[E > 2 ? 0 : e][b][j], rt[j]));
+      if (j < n) bm = __fadd_rn(bm, __fmul_rn(sym[kRegSym<E> ? e : 0][b][j], rt[j]));
     return bm;
   }
   const float* ps = psym + ((long long)st * 2 + b) * n;
@@ -95,22 +112,43 @@ __device__ __forceinline__ float branch(const float (&sym)[E > 2 ? 1 : E][2][kMa
 }
 
 // The block instance: a frame a block of min(S, 1024) threads (32 below 32
-// states, lanes past S idle), E = S / threads states a thread.
+// states, lanes past S idle), E = S / threads states a thread (E = 0: that
+// count at run time). metrics_g: the frames' metrics in device memory (2 S
+// floats a frame), else in shared memory.
 template <int E>
 __global__ void __launch_bounds__(kBlockThreads)
 viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
                const float* __restrict__ psym, unsigned* __restrict__ dec_g,
-               int T, int n, int S, int terminated, int nbits, int global) {
+               float* metrics_g, int T, int n, int S, int terminated,
+               int nbits, int global) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int threads = blockDim.x, NWt = threads >> 5;
+  const int NE = E ? E : S / threads;       // states a thread
   const int NW = S < 32 ? 1 : S >> 5;       // decision words a step
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long f = blockIdx.x;
-  float* nm = reinterpret_cast<float*>(smem);   // 2 x S metrics
-  float* wmax = nm + 2 * S;                     // 2 x 32 warp maxima
+  float* nm = metrics_g ? metrics_g + f * 2 * S        // 2 x S metrics
+                        : reinterpret_cast<float*>(smem);
+  float* wmax = metrics_g ? reinterpret_cast<float*>(smem)
+                          : nm + 2 * S;                // 2 x 32 warp maxima
   const float* r;                               // T x n LLRs
   unsigned* dec;                                // T x NW decision words
   int* out = nullptr;                           // T bits (shared frames)
+  // E = 0 up to rate 1/4: the generators, read back from psym (the header)
+  unsigned gen[kMaxN] = {};
+  if constexpr (E == 0) {
+    if (n <= kMaxN) {
+      const int lg = 31 - __clz(S);  // K - 1
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < n) {
+          unsigned g = __ldg(psym + n + j) > 0.f ? 1u << lg : 0u;
+          for (int k = 0; k < lg; ++k)
+            if (__ldg(psym + (2LL << k) * n + j) > 0.f) g |= 1u << k;
+          gen[j] = g;
+        }
+    }
+  }
   if (global) {
     r = llr + f * T * n;
     dec = dec_g + f * T * NW;
@@ -121,10 +159,10 @@ viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
     dec = reinterpret_cast<unsigned*>(rs + T * n);
     out = reinterpret_cast<int*>(dec + (long long)T * NW);
   }
-  float sym[E > 2 ? 1 : E][2][kMaxN] = {};
-  if (E <= 2 && n <= kMaxN)
+  float sym[kRegSym<E> ? E : 1][2][kMaxN] = {};
+  if (kRegSym<E> && n <= kMaxN)
 #pragma unroll
-    for (int e = 0; e < (E > 2 ? 1 : E); ++e) {
+    for (int e = 0; e < (kRegSym<E> ? E : 1); ++e) {
       const int st = tid + e * threads;
       if (st < S)
         for (int b = 0; b < 2; ++b)
@@ -142,24 +180,44 @@ viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
       for (int w = 1; w < NWt; ++w) g = fmaxf(g, wm[w]);
     }
     const float* rt = r + (long long)t * n;
-    float mx = -INFINITY;
+    float rr[kMaxN] = {};  // E = 0: the step's LLRs, loaded once
+    if constexpr (E == 0) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int st = tid + e * threads;
-      const bool live = st < S;
-      bool ch = false;
-      if (live) {
-        const int q = st >> 1;
-        float m0, m1;
-        if (t == 0) {
-          m0 = q == 0 ? 0.f : kNeg;
-          m1 = kNeg;  // q + S/2 is never state 0
-        } else {
-          m0 = __fsub_rn(prev[q], g);
-          m1 = __fsub_rn(prev[q + half], g);
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < n) rr[j] = rt[j];
+    }
+    float mx = -INFINITY;
+    // the metric of state st's predecessor `which` (st>>1, or that + S/2),
+    // less the previous step's max
+    const auto pred_metric = [&](int st, int which) {
+      const int q = (st >> 1) + (which ? half : 0);
+      if (t == 0) return q == 0 ? 0.f : kNeg;  // the encoder starts in 0
+      return __fsub_rn(prev[q], g);
+    };
+    // state st's branch metric on branch b: E = 0 up to rate 1/4 from the
+    // generators, in branch()'s order of operations
+    const auto bmetric = [&](int e, int b, int st) {
+      if constexpr (E == 0) {
+        if (n <= kMaxN) {
+          const unsigned reg = (unsigned)st + (b ? (unsigned)S : 0u);
+          float bm = __fmul_rn(__popc(gen[0] & reg) & 1 ? 1.f : -1.f, rr[0]);
+#pragma unroll
+          for (int j = 1; j < kMaxN; ++j)
+            if (j < n)
+              bm = __fadd_rn(bm, __fmul_rn(__popc(gen[j] & reg) & 1 ? 1.f : -1.f,
+                                           rr[j]));
+          return bm;
         }
-        const float c0 = __fadd_rn(m0, branch<E>(sym, e, 0, psym, st, rt, n));
-        const float c1 = __fadd_rn(m1, branch<E>(sym, e, 1, psym, st, rt, n));
+      }
+      return branch<E>(sym, e, b, psym, st, rt, n);
+    };
+    // state group e's ACS from its predecessors' metrics, its decisions
+    const auto acs = [&](int e, float m0, float m1) {
+      const int st = tid + e * threads;
+      bool ch = false;
+      if (st < S) {
+        const float c0 = __fadd_rn(m0, bmetric(e, 0, st));
+        const float c1 = __fadd_rn(m1, bmetric(e, 1, st));
         ch = c1 > c0;
         const float v = ch ? c1 : c0;
         cur[st] = v;
@@ -167,6 +225,27 @@ viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
       }
       const unsigned word = __ballot_sync(kAll, ch);  // states st - lane ..
       if (lane == 0) dec[(long long)t * NW + e * NWt + warp] = word;
+    };
+    if constexpr (E > 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int st = tid + e * threads;
+        const bool live = st < S;
+        acs(e, live ? pred_metric(st, 0) : 0.f, live ? pred_metric(st, 1) : 0.f);
+      }
+    } else {  // NE = S/1024 >= 32 groups, every state live: the metrics of
+              // 8 groups loaded before their ACS stores
+      for (int e0 = 0; e0 < NE; e0 += 8) {
+        float m[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int st = tid + (e0 + i) * threads;
+          m[i][0] = pred_metric(st, 0);
+          m[i][1] = pred_metric(st, 1);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acs(e0 + i, m[i][0], m[i][1]);
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, o));
@@ -182,7 +261,7 @@ viterbi_kernel(const float* __restrict__ llr, int* __restrict__ bits,
     for (int w = 1; w < NWt; ++w) g = fmaxf(g, wm[w]);
     float bv = -INFINITY;
     int bs = S;
-    for (int e = 0; e < E; ++e) {
+    for (int e = 0; e < NE; ++e) {
       const int st = tid + e * threads;
       if (st < S) {
         const float fe = __fsub_rn(last[st], g);
@@ -371,8 +450,8 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
 
 using WarpKernel = void (*)(const float*, int*, const float*, unsigned*, int,
                             int, int, int, int);
-using BlockKernel = void (*)(const float*, int*, const float*, unsigned*, int,
-                             int, int, int, int, int);
+using BlockKernel = void (*)(const float*, int*, const float*, unsigned*,
+                             float*, int, int, int, int, int, int);
 
 template <int E, bool kGlobal>
 WarpKernel warp_instance(int n) {
@@ -395,7 +474,8 @@ BlockKernel block_instance(int E) {
     case 2: return viterbi_kernel<2>;
     case 4: return viterbi_kernel<4>;
     case 8: return viterbi_kernel<8>;
-    default: return viterbi_kernel<16>;
+    case 16: return viterbi_kernel<16>;
+    default: return viterbi_kernel<0>;
   }
 }
 
@@ -408,12 +488,15 @@ int allow_smem(Kernel fn, long long smem) {
 
 }  // namespace
 
+static constexpr int kSmemMaxS = 16384;  // K = 15: the last metrics in a block
+
 // Shared memory of a frame's block in the block instance and of a frame's
 // warp in the warp instance, staged (global = 0) or not (ops/cuda/fec.py
 // `viterbi_smem` mirrors both, to plan the route and name the limit).
 static long long viterbi_smem(int T, int n, int S, int global) {
   const long long NW = S < 32 ? 1 : S / 32;
-  return 4LL * (2LL * S + 64 + (global ? 0 : (long long)T * n + T * NW + T));
+  return 4LL * ((S > kSmemMaxS ? 0 : 2LL * S) + 64 +
+                (global ? 0 : (long long)T * n + T * NW + T));
 }
 
 static long long viterbi_warp_smem(int T, int n, int S, int global) {
@@ -421,18 +504,22 @@ static long long viterbi_warp_smem(int T, int n, int S, int global) {
 }
 
 static constexpr long long kSmemMax = 232448;  // a block on the H100
-static constexpr int kMaxS = 16384;            // K = 15
+static constexpr int kMaxS = 1 << 26;          // K = 27
 
 // warp: the warp instance (S <= 256, n <= 4), else the block instance;
 // global: the frame's LLRs and decision words in device memory (dec: F T
-// max(1, S/32) words), else staged in shared memory, which must hold them.
+// max(1, S/32) words), else staged in shared memory, which must hold them;
+// past kSmemMaxS states (K = 15) the block instance's metrics in device
+// memory too (metrics: F 2 S floats), and the global route.
 extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
-                              unsigned* dec, int F, int T, int n, int S,
-                              int terminated, int nbits, int warp, int global,
-                              void* stream) {
+                              unsigned* dec, float* metrics, int F, int T,
+                              int n, int S, int terminated, int nbits,
+                              int warp, int global, void* stream) {
+  const bool wide = S > kSmemMaxS;
   if (F < 0 || T < 0 || n < 1 || S < 2 || S > kMaxS || (S & (S - 1)) ||
       nbits < 0 || nbits > T || (warp && (S > kWarpMaxS || n > kMaxN)) ||
-      (global && dec == nullptr))
+      (global && dec == nullptr) ||
+      (wide && (warp || !global || metrics == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -459,7 +546,8 @@ extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
   const int threads = std::max(32, std::min(S, kBlockThreads));
   const BlockKernel fn = block_instance(S / threads > 0 ? S / threads : 1);
   if (const int e = allow_smem(fn, smem)) return e;
-  fn<<<F, threads, (size_t)smem, st>>>(llr, bits, psym, dec, T, n, S,
+  fn<<<F, threads, (size_t)smem, st>>>(llr, bits, psym, dec,
+                                       wide ? metrics : nullptr, T, n, S,
                                        terminated, nbits, global);
   return (int)cudaGetLastError();
 }

@@ -59,7 +59,6 @@ SIGNATURES = {
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
     "arm_fold_geometry": [_I, _I, _I, _LL, _P],
-    "arm_fold_dft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
     "arm_fold_fft_launch": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
     # sources.cu
     "nco_planes_launch": [_P, _P, _P, _LL, _P, _P, _P, _P],
@@ -84,7 +83,8 @@ SIGNATURES = {
     "mm_launch": [_P] * 17 + [_P, _P, _F, _F, _F, _F, _I, _I, _LL, _I, _I,
                               _P],
     # viterbi.cu
-    "viterbi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "viterbi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
 }
 
 

@@ -9,9 +9,9 @@ fold is M independent L-tap FIRs down the columns of V:
 and the fused front end adds the phase combine, y[:, k] = e^{-j2pi k/M} *
 DFT_q(acc)[:, k]: the plain version as one real (2M x 2M) product with the
 interleaved DFT matrix, the kernel K1 as the chains' shared-memory FFT
-(``planes_fft``) at M = 64 P, P = 1 .. 7 (64 to 448 channels), and as that
-dense product at any other M with 2M a multiple of 128 (M = 512 and
-past). Both work on the interleaved float32 view of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)``
+(``planes_fft``) at M = 64 P, P = 1 .. 16 (64 to 1024 channels); the
+kernel takes no other width (ROADMAP.md Queue 3, R1). Both work on the
+interleaved float32 view of complex64 data: ``torch.view_as_real(V).reshape(n, 2M)``
 is the same memory, so entering and leaving it costs no copy. The kernels
 are ``csrc/channelizer.cu``, whose header says how they map onto the
 H100.
@@ -26,9 +26,6 @@ from newsched_tpu_torch.ops.cuda import _build
 from newsched_tpu_torch.ops.cuda.planes_fft import (CHANNELS, fft_planes,
                                                     planes_fft_table)
 
-TILE = 128      # rows a block of K1's dense instance at 128 lanes (64 KB)
-DFT_LANES = 128  # arm_fold_dft's kernel takes widths that are multiples of this
-SMEM_MAX = 232448  # shared memory a block on the H100 (227 KB)
 
 
 def interleave_taps(c: np.ndarray) -> np.ndarray:
@@ -150,65 +147,43 @@ def arm_fold_dft(v: torch.Tensor, c2, w2, n_out: int,
                  tile: int | None = None, fft=None) -> torch.Tensor:
     """Fold + interleaved DFT in one kernel: v (rows, 2M) f32 interleaved,
     c2 (L, 2M) from ``interleave_taps``, w2 (2M, 2M) from
-    ``interleaved_dft_matrix`` -> Y interleaved (n_out, 2M) f32. The
-    kernel takes 2M a multiple of 128, as the TPU kernel does, in one of
-    two instances chosen by the width alone: at M in ``planes_fft.CHANNELS``
-    (64 P, P = 1 .. 7) the fold in registers and the shared-memory FFT,
-    which takes ``fft`` (``planes_fft_table(M)``, on the device) in place
-    of w2; at any other M the fold and the FP32 product with w2
-    (``dense_launches``). ``tile``: rows a thread group folds in a run
-    (the FFT instance; default: one wave of runs on the card) or rows a
-    block (the dense one; default 128 at 128 lanes, fewer at wider rows,
-    32 at 1024 and past; a tile whose rows, rounded up to 32, pass the
-    block's shared memory is refused, and so is every width past 1816
-    lanes); the output does not depend on it.
+    ``interleaved_dft_matrix`` (the plain version's) -> Y interleaved
+    (n_out, 2M) f32. The kernel takes M in ``planes_fft.CHANNELS`` (64 P,
+    P = 1 .. 16): the fold in registers and the shared-memory FFT, which
+    takes ``fft`` (``planes_fft_table(M)``, on the device) in place of w2;
+    any other M raises (ROADMAP.md Queue 3, R1). ``tile``: rows a thread
+    group (P <= 7) or a block (P >= 8) folds in a run (default: one wave
+    of runs on the card); the output does not depend on it.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``arm_fold_dft_launch`` (csrc/channelizer.cu)."""
+    ``arm_fold_fft_launch`` (csrc/channelizer.cu)."""
     L, W = int(np.shape(c2)[0]), int(np.shape(c2)[1])
     M = W // 2
-    if v.device.type != "cpu" and W % DFT_LANES:
-        raise ValueError(f"arm_fold_dft: width {W} lanes (M={M}); the "
-                         f"CUDA kernel takes multiples of {DFT_LANES}")
+    if v.device.type != "cpu" and M not in CHANNELS:
+        raise ValueError(f"arm_fold_dft: width {W} lanes (M={M}); the CUDA "
+                         f"kernel takes M = 64 P, P = 1 .. 16 (64 to "
+                         f"{CHANNELS[-1]}); other widths are ROADMAP.md "
+                         f"Queue 3, R1")
     c2 = _f32(c2, v.device, L, W)
     if v.device.type == "cpu":
         return arm_fold_dft_plain(v, c2, _f32(w2, v.device, W, W), n_out)
-    if M in CHANNELS:
-        if fft is None:
-            raise ValueError("arm_fold_dft: the kernel takes the DFT as an "
-                             "FFT and needs its twiddle table: pass fft="
-                             "planes_fft_table(M) on the device")
-        dev, W, out = _launch_args(v, c2, n_out, tile)
-        fft = _f32(fft, dev, 4, M)
-        with torch.cuda.device(dev):
-            err = _build.lib().arm_fold_fft_launch(
-                v.data_ptr(), int(v.shape[0]), c2.data_ptr(), fft.data_ptr(),
-                out.data_ptr(), n_out, M, L, int(tile or 0),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "arm_fold_fft_launch")
-        arm_fold_dft.launches += 1
-        return out
-    w2 = _f32(w2, v.device, W, W)
-    if tile is None:
-        tile = max(32, TILE * DFT_LANES // W)
-    smem = -(-tile // 32) * 32 * W * 4  # the block's folded rows
-    if smem > SMEM_MAX:
-        raise ValueError(f"arm_fold_dft: the dense instance's tile of {tile} "
-                         f"rows at {W} lanes needs {smem} B of shared "
-                         f"memory, past the {SMEM_MAX} B limit of a block")
+    if fft is None:
+        raise ValueError("arm_fold_dft: the kernel takes the DFT as an "
+                         "FFT and needs its twiddle table: pass fft="
+                         "planes_fft_table(M) on the device")
     dev, W, out = _launch_args(v, c2, n_out, tile)
+    fft = _f32(fft, dev, 4, M)
     with torch.cuda.device(dev):
-        err = _build.lib().arm_fold_dft_launch(
-            v.data_ptr(), int(v.shape[0]), c2.data_ptr(), w2.data_ptr(),
-            out.data_ptr(), n_out, W, L, int(tile),
+        err = _build.lib().arm_fold_fft_launch(
+            v.data_ptr(), int(v.shape[0]), c2.data_ptr(), fft.data_ptr(),
+            out.data_ptr(), n_out, M, L, int(tile or 0),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "arm_fold_dft_launch")
-    arm_fold_dft.dense_launches += 1
+    _build.check(err, "arm_fold_fft_launch")
+    arm_fold_dft.launches += 1
     return out
 
 
 arm_fold_dft.launches = 0
-arm_fold_dft.dense_launches = 0
 
 
 def pfb_arm_fold_complex(V: torch.Tensor, c: np.ndarray, n_out: int,

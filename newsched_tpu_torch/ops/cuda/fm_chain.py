@@ -42,11 +42,14 @@ import torch
 
 from newsched_tpu_torch.ops.cuda import _build, noise
 from newsched_tpu_torch.ops.cuda.mathfns import ATAN_COEFFS, atan2_plain
-from newsched_tpu_torch.ops.cuda.planes_fft import planes_fft_table
+from newsched_tpu_torch.ops.cuda.planes_fft import CHANNELS, planes_fft_table
 
 PRECISIONS = ("split3", "highest", "high", "default")
-WIDTHS = (128, 256, 384, 512, 640, 768, 896)  # planes lanes 2M of K3, K5,
-# K6: M = 64 P, P = 1 .. 7, the planes FFT's widths (planes_fft.CHANNELS)
+WIDTHS = tuple(2 * m for m in CHANNELS)  # planes lanes 2M of K3, K5, K6:
+# M = 64 P, P = 1 .. 16, the planes FFT's widths (planes_fft.CHANNELS)
+STREAM_W = 896  # the widest chain_tile_stream instance (M = 448); past it
+# chain_tile_wide, the width a run-time value
+WIDE_ROWS = 16  # rows a pass of chain_tile_wide (csrc kWideRows)
 FLAGSHIP_W = 128  # K3p's and the ablation's one width (M = 64)
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
@@ -260,8 +263,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
-    The kernels take M = 64 P channels, P = 1 .. 7 (64 to 448,
-    ``WIDTHS``); M = 512 and past raise (ROADMAP.md H13).
+    The kernels take M = 64 P channels, P = 1 .. 16 (64 to 1024,
+    ``WIDTHS``); other widths raise (ROADMAP.md Queue 3, R1).
     CPU tensors take the plain version; CUDA tensors launch
     ``fm_chain_planes_launch`` (csrc/fm_chain.cu, K3; K3ag where
     ``_pick_audio_groups`` gives ag > 1), or with ``pipelined``
@@ -406,8 +409,12 @@ def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int,
     """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): at
     128 lanes the tile buffer, and with ag > 1 room past its tile + A rows
     for K3ag's band table (the buffer's padding holds it at the flagship's
-    shape); wider, chain_tile_stream's window of one pass, the Y row kept
-    for the pass below and the tile's tile/decim x M audio accumulators."""
+    shape); up to ``STREAM_W``, chain_tile_stream's window of one pass, the
+    Y row kept for the pass below and the tile's tile/decim x M audio
+    accumulators; wider, chain_tile_wide's 16 folded rows, that Y row and
+    the accumulators."""
+    if W > STREAM_W:
+        return ((WIDE_ROWS + 1) * W + tile // decim * (W // 2)) * 4
     if W != FLAGSHIP_W:
         return ((_stream_window_rows(L) + 1) * W + tile // decim * (W // 2)) * 4
     floats = _tile_rows(tile, A, L) * W
@@ -432,13 +439,13 @@ def _fit_tile(tile: int, W: int, A: int, L: int, decim: int,
 
 def _check_kernel_shape(W: int, tile: int, A: int, L: int, ag: int,
                         decim: int) -> None:
-    """What K3, K5 and K6 take: 2M in ``WIDTHS`` (M = 64 .. 448) and a
+    """What K3, K5 and K6 take: 2M in ``WIDTHS`` (M = 64 .. 1024) and a
     block that fits in shared memory."""
     if W not in WIDTHS:
         raise ValueError(f"planes width {W} (M={W // 2}): the CUDA kernels "
-                         f"take M = 64 P channels, P = 1 .. 7 (2M in "
-                         f"{WIDTHS}); M = 512 and past are open work "
-                         f"(ROADMAP.md H13)")
+                         f"take M = 64 P channels, P = 1 .. 16 (64 to "
+                         f"{CHANNELS[-1]}); other widths are ROADMAP.md "
+                         f"Queue 3, R1")
     smem = _chain_smem(tile, A, L, ag, decim, W)
     if smem > _SMEM_MAX:
         raise ValueError(f"tile {tile}: {smem} bytes of shared memory, the "

@@ -32,6 +32,10 @@ from newsched_tpu_torch.ops.cuda import channelizer
 from newsched_tpu_torch.ops.cuda.planes_fft import CHANNELS, planes_fft_table
 
 METHODS = ("auto", "fused", "pallas", "sum")
+# The widest channel count "auto" takes K1 at: past it K7 + cuFFT's
+# combine was the faster on the H100 at 576 .. 1024 but for 704, where K1
+# won by 0.012 ms of 0.22 (PERF.md, chip_smoke.py phase 49)
+AUTO_K1_MAX = 512
 
 
 class PfbState(NamedTuple):
@@ -120,17 +124,15 @@ def pfb_channelize(arm_taps, state: PfbState, x: torch.Tensor,
       arm_taps: (M, L) float32 polyphase partition from pfb_arm_taps.
       state: PfbState with M*L-1 tail samples.
       x: (B,) complex64, B % M == 0.
-      method: "fused" (fold + combine in one kernel, K1 ``arm_fold_dft``),
-        "pallas" (the fold kernel K7 ``arm_fold``, then the combine),
-        "sum" (shifted multiply-adds, then the combine), or "auto":
-        "fused" where M is one of K1's FFT widths (``auto_method``: M = 64
-        P, P = 1 .. 7, ``planes_fft.CHANNELS``), else "pallas" (K7 takes
-        any width, then cuFFT's combine). The reference takes K1 on a TPU
-        and "sum" elsewhere; here K1's other instance, the dense product
-        at M = 512 and past, is slower than its plain version and past
-        1816 lanes refuses its tile, so "auto" never picks it ("fused"
-        still reaches it). The kernels' wrappers run their plain versions
-        on CPU tensors.
+      method: "fused" (fold + combine in one kernel, K1 ``arm_fold_dft``,
+        which on the card takes M = 64 P, P = 1 .. 16, 64 to 1024
+        channels), "pallas" (the fold kernel K7 ``arm_fold``, then the
+        combine), "sum" (shifted multiply-adds, then the combine), or
+        "auto" (``auto_method``): "fused" at K1's widths
+        (``planes_fft.CHANNELS``) up to ``AUTO_K1_MAX`` = 512, else
+        "pallas" (K7 takes any width, then cuFFT's combine). The reference
+        takes K1 on a TPU and "sum" elsewhere. The kernels' wrappers run their plain versions on CPU
+        tensors.
       combine: "fft", "matmul" or "auto" (= "fft"); "fused" has its own.
       consts: ``pfb_consts(arm_taps, x.device)``; built here when None.
 
@@ -155,9 +157,10 @@ def pfb_channelize(arm_taps, state: PfbState, x: torch.Tensor,
 
 def auto_method(M: int) -> str:
     """``pfb_channelize``'s "auto" route at M channels: "fused" (K1 on its
-    planes FFT) at M in ``planes_fft.CHANNELS``, else "pallas" (K7, then
-    the combine)."""
-    return "fused" if M in CHANNELS else "pallas"
+    planes FFT) at M in ``planes_fft.CHANNELS`` up to ``AUTO_K1_MAX``,
+    else "pallas" (K7, then the combine), which past 512 was the faster
+    of the two on the H100 (chip_smoke.py phase 49 times both)."""
+    return "fused" if M in CHANNELS and M <= AUTO_K1_MAX else "pallas"
 
 
 def _phase_combine(acc: torch.Tensor, consts: PfbConsts,

@@ -14,7 +14,7 @@ time axis of logical shards (parallel/mesh.py).
 One shard runs the same chain on the whole batch, as the fused kernel (K3)
 where its kernel takes the width (2M in ``fm_chain.WIDTHS``; the
 reference's "auto" chain method takes every 2M that is a multiple of 128,
-K3 M = 64 .. 448 on the card), else the staged ops.
+K3 M = 64 .. 1024 on the card), else the staged ops.
 
 ``step_planes`` (the fused kernel's planes rows): one shard runs K3 on the
 batch with carried state; n shards run K3 per time segment with warm > 0,

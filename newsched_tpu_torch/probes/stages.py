@@ -29,7 +29,9 @@ and skips what follows:
 ``outputs`` runs K9, K10 and K12 at the main paths' shapes on fixed inputs
 (K10 and K12 at several block geometries; K9 also at 1024 taps, past the
 FFT instance), the chain kernels at the flagship's shape on seeded rows
-(and K3, K3ag, K5, K6 at M = 128, 192, 256; S3 at K = 3, 7, 11),
+(K3's ablation variants too; and K3, K3ag, K5, K6 at M = 128 .. 448,
+512 and 1024, a width the tree refuses skipped; K1 at M = 64 .. 448; S3
+at K = 3, 7, 11, 12, 15),
 K4 at the flagship's 32768 x 128 (with and without an amplitude, as rows
 and as the cf32 stream, at group 2^32 - 2 and at a negative group with
 mask_pre), two batches of each noise block (``noise_planes_source``,
@@ -44,8 +46,9 @@ alone, with the amplitude and as the cf32 stream (in a tree without them,
 the kernel and the blocks' torch ops after it); K9 at 128, 1024 and 6001
 taps; K1 at M = 320 on 16384 rows (whichever instance the tree routes
 that width to), S3 at 1024 frames of 512 bits, K = 7 (the tree's
-default instance), K3 and K5 at M = 128 and 256 on 16384 rows and K6 on
-4096; and the graph-mode steps of the config #2 fused-noise, staged and
+default instance), K3 and K5 at M = 128, 256, 320, 448, 512 and 1024
+on 16384 rows and K6 on 4096 (a width the tree refuses left out); and
+the graph-mode steps of the config #2 fused-noise, staged and
 live graphs, the live graph on 4 and 8 shards, the staged graph at M =
 320, 512 and 1024 (16384 rows a batch; a width the tree refuses is
 recorded as its error) and the live fir_chain at 1024 taps (the bench's
@@ -71,6 +74,7 @@ from newsched_tpu_torch.ops import fec, firdes, nco, pfb
 from newsched_tpu_torch.ops.cuda import (_build, channelizer, fec as kfec,
                                          fir_source, fm_chain, sources,
                                          wbfm_chain)
+from newsched_tpu_torch.probes import ablate
 from newsched_tpu_torch.probes._timing import graph_ms
 from newsched_tpu_torch.probes.run import rotating
 
@@ -410,7 +414,7 @@ def times() -> list[dict]:
     llr = torch.randn(1024, 518, 2, device="cuda", generator=gen)
     calls["S3 K=7"] = lambda: kfec.viterbi_frames(llr, tabs, 7, True)
     z = dict(dtype=torch.float32, device="cuda")
-    for M in (128, 256):  # the chains past 64 channels, at 16384 rows
+    for M in (128, 256, 320, 448, 512, 1024):  # the chains, 16384 rows
         W = 2 * M
         c = np.ascontiguousarray(pfb.pfb_arm_taps(
             firdes.prototype_channelizer_taps(M, 16), M)[::-1, ::-1].T)
@@ -426,6 +430,12 @@ def times() -> list[dict]:
             g0, amp, *st, cc, 8, 0.5, 16384))
         calls[f"K6 M={M}"] = (lambda cc=cc: fm_chain.fm_chain_gen_warm_step(
             g0, amp, cc, 8, 0.5, 4096, warm=512))
+        try:
+            calls[f"K3 M={M}"]()
+        except ValueError as e:  # a width the tree refuses
+            print(json.dumps({"skipped": f"chains M={M}", "why": str(e)[:200]}))
+            for k in ("K3", "K5", "K6"):
+                del calls[f"{k} M={M}"]
     ms: dict = {}
     for name in list(calls) + list(calls)[::-1]:
         ms.setdefault(name, []).append(graph_ms(calls[name]))
@@ -510,56 +520,90 @@ def _chain_outputs() -> dict:
     grp = torch.tensor(0, dtype=torch.int64, device="cuda")
     res["K6"] = fm_chain.fm_chain_gen_warm_step(
         grp, amp, consts, D, 0.5, 8192, warm=512, goff=3 * 8192 // 64).cpu()
+    halo, prev = torch.zeros(16, 2 * M, **z), torch.zeros(1, 2 * M, **z)
+    tail = torch.zeros(A - 1, 2 * M, **z)
+    for variant in ablate.VARIANTS:
+        res[f"ablate/{variant}"] = ablate.fm_chain_ablate(
+            rows[:n], halo, prev, tail, consts, D, 0.5, variant)[0].cpu()
     res.update(_wide_chain_outputs())
+    res.update(_k1_outputs())
+    return res
+
+
+def _k1_outputs() -> dict:
+    """K1 (``arm_fold_dft`` on its FFT table) at M = 64 .. 448 on 8192
+    seeded rows of a real channelizer's taps, 16 an arm."""
+    res = {}
+    for M in range(64, 449, 64):
+        taps = firdes.prototype_channelizer_taps(M, 16)
+        pc = pfb.pfb_consts(pfb.pfb_arm_taps(taps, M), "cuda")
+        g = torch.Generator(device="cuda").manual_seed(M + 7)
+        v = torch.randn(8192 + 15, 2 * M, device="cuda", generator=g)
+        res[f"K1 M={M}"] = channelizer.arm_fold_dft(v, pc.c2, pc.w2, 8192,
+                                                    fft=pc.fft).cpu()
+    return res
+
+
+def _wide_chain_width(M: int, L: int, A: int, D: int, n: int) -> dict:
+    """_wide_chain_outputs' chain records at M channels."""
+    W = 2 * M
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    res = {}
+    taps = firdes.prototype_channelizer_taps(M, L)
+    at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
+    c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+    consts = fm_chain.fm_chain_consts(c, at, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(M)
+    rows = torch.randn(2 * n, W, device="cuda", generator=g) * 0.5
+    for key, ag in (("K3", 1), ("K3ag2", 2)):
+        pick = fm_chain._pick_audio_groups
+        fm_chain._pick_audio_groups = lambda tile, decim, A, ag=ag: ag
+        try:
+            halo, prev = torch.zeros(16, W, **z), torch.zeros(1, W, **z)
+            tail = torch.zeros(A - 1, W, **z)
+            for b in range(2):
+                vb = rows[b * n:(b + 1) * n]
+                aud, prev, tail = fm_chain.fm_chain_step_planes(
+                    vb, halo, prev, tail, consts, D, 0.5)
+                for name, t in (("aud", aud), ("prev", prev),
+                                ("tail", tail)):
+                    res[f"{key} M={M}/{b}/{name}"] = t.cpu()
+                halo = vb[-16:].contiguous()
+        finally:
+            fm_chain._pick_audio_groups = pick
+    grp = torch.tensor(0, dtype=torch.int64, device="cuda")
+    zs = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+          torch.zeros(A - 1, W, **z))
+    k5 = fm_chain.fm_chain_gen_step(grp, amp, *zs, consts, D, 0.5, n)
+    for name, t in zip(("aud", "prev", "tail", "carry"), k5):
+        res[f"K5 M={M}/{name}"] = t.cpu()
+    res[f"K6 M={M}"] = fm_chain.fm_chain_gen_warm_step(
+        grp, amp, consts, D, 0.5, n // 4, warm=512,
+        goff=3 * (n // 4) // 64).cpu()
     return res
 
 
 def _wide_chain_outputs() -> dict:
     """K3 (two carried batches), K3ag (ag = 2), K5 and K6 (a shard of 4096
-    rows at shard 3) at M = 128, 192 and 256 on seeded rows of 16384, and
-    S3 on 256 seeded frames of 512 bits at K = 3, 7 and 11."""
+    rows at shard 3) at M = 128 .. 448, 512 and 1024 on seeded rows of
+    16384 (a width the tree refuses skipped), and S3 on
+    256 seeded frames of 512 bits at K = 3, 7, 11 and 12 (on 16 frames at
+    K = 15)."""
     L, A, D, n = 16, 65, 8, 16384
-    z = dict(dtype=torch.float32, device="cuda")
-    amp = torch.tensor(0.5, **z)
     res = {}
-    for M in (128, 192, 256):
-        W = 2 * M
-        taps = firdes.prototype_channelizer_taps(M, L)
-        at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
-        c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
-        consts = fm_chain.fm_chain_consts(c, at, "cuda")
-        g = torch.Generator(device="cuda").manual_seed(M)
-        rows = torch.randn(2 * n, W, device="cuda", generator=g) * 0.5
-        for key, ag in (("K3", 1), ("K3ag2", 2)):
-            pick = fm_chain._pick_audio_groups
-            fm_chain._pick_audio_groups = lambda tile, decim, A, ag=ag: ag
-            try:
-                halo, prev = torch.zeros(16, W, **z), torch.zeros(1, W, **z)
-                tail = torch.zeros(A - 1, W, **z)
-                for b in range(2):
-                    vb = rows[b * n:(b + 1) * n]
-                    aud, prev, tail = fm_chain.fm_chain_step_planes(
-                        vb, halo, prev, tail, consts, D, 0.5)
-                    for name, t in (("aud", aud), ("prev", prev),
-                                    ("tail", tail)):
-                        res[f"{key} M={M}/{b}/{name}"] = t.cpu()
-                    halo = vb[-16:].contiguous()
-            finally:
-                fm_chain._pick_audio_groups = pick
-        grp = torch.tensor(0, dtype=torch.int64, device="cuda")
-        zs = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
-              torch.zeros(A - 1, W, **z))
-        k5 = fm_chain.fm_chain_gen_step(grp, amp, *zs, consts, D, 0.5, n)
-        for name, t in zip(("aud", "prev", "tail", "carry"), k5):
-            res[f"K5 M={M}/{name}"] = t.cpu()
-        res[f"K6 M={M}"] = fm_chain.fm_chain_gen_warm_step(
-            grp, amp, consts, D, 0.5, n // 4, warm=512,
-            goff=3 * (n // 4) // 64).cpu()
+    for M in (128, 192, 256, 320, 384, 448, 512, 1024):
+        try:
+            res.update(_wide_chain_width(M, L, A, D, n))
+        except ValueError as e:  # a width the tree refuses
+            print(json.dumps({"skipped": f"chains M={M}", "why": str(e)[:200]}))
     gen = torch.Generator(device="cuda").manual_seed(511)
     for polys, K in ((fec.CC_K7_POLYS, 7), ((0o7, 0o5), 3),
-                     ((0o2565, 0o3753), 11)):
+                     ((0o2565, 0o3753), 11), ((0o4037, 0o5741), 12),
+                     ((0o46321, 0o51271), 15)):
         tabs = fec.viterbi_tables(polys, K, "cuda")
-        llr = torch.randn(256, 512 + K - 1, 2, device="cuda", generator=gen)
+        frames = 16 if K == 15 else 256
+        llr = torch.randn(frames, 512 + K - 1, 2, device="cuda", generator=gen)
         for term in (True, False):
             res[f"S3 K={K}/{int(term)}"] = kfec.viterbi_frames(
                 llr, tabs, K, term).cpu()

@@ -4,7 +4,8 @@ against the JAX package on the same numpy inputs: bit-equal for the
 (171/133, K = 7) and (7/5, K = 3) codes, hard and soft; the reference's
 own cases mirrored (tests/test_fec.py); the tie-break on an input built to
 tie; the encoder -> LLR -> decoder graph at frame 128; a 16384-bit frame,
-a rate-1/5 and a K = 12 code (S3's device-memory routes)."""
+a rate-1/5 and a K = 12 code (S3's device-memory routes); a K = 16 code,
+whose metrics S3 keeps in device memory, and its plan past K = 15."""
 
 import numpy as np
 import pytest
@@ -198,21 +199,24 @@ def test_fec_graph_end_to_end(interleave):
 
 
 def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
-    """On a device tensor (meta stands in for the card) S3 refuses K > 15,
-    whose two rows of metrics pass a block's shared memory, naming the
-    limit; K = 12, rate 1/5 and a frame past the block's shared memory go
-    on to the build (their routes: the block instance, device memory); with
-    `_build.build` failing each raises, never returning the plain result."""
+    """On a device tensor (meta stands in for the card, with the H100's
+    80 GiB) S3 refuses frames whose metrics and decision words pass the
+    card's memory, naming the bytes: 300,000 frames of 40 steps at K = 16
+    (125 GB); K = 16 on two frames (its metrics in device memory), K = 12,
+    rate 1/5 and a frame past the block's shared memory go on to the build
+    (their routes: the block instance, device memory); with `_build.build`
+    failing each raises, never returning the plain result."""
     def no_build():
         raise _build.KernelBuildError("nvcc not found")
 
     monkeypatch.setattr(_build, "build", no_build)
     meta = dict(device="meta", dtype=torch.float32)
-    with pytest.raises(ValueError, match="K <= 15"):
-        kfec.viterbi_frames(torch.empty(2, 40, 2, **meta),
-                            tf.viterbi_tables((0o100001, 0o165007), 16, "meta"),
-                            16, True)
+    tabs16 = tf.viterbi_tables((0o152711, 0o126723), 16, "meta")
+    with pytest.raises(ValueError, match=r"need \d+ B of device memory"):
+        kfec.viterbi_frames(torch.empty(300000, 40, 2, **meta), tabs16, 16,
+                            True)
     for llr, tabs, K in (
+            (torch.empty(2, 40, 2, **meta), tabs16, 16),
             (torch.empty(2, 40, 2, **meta),
              tf.viterbi_tables((0o4037, 0o5741), 12, "meta"), 12),
             (torch.empty(2, 40, 5, **meta),
@@ -424,6 +428,7 @@ def test_viterbi_instances_and_their_limits(monkeypatch):
     assert kfec.viterbi_plan(518, 2, 15) == ("block", "global")
     assert kfec.viterbi_smem(518, 2, 1 << 14, "block", "global") \
         == 4 * (2 * 16384 + 64) <= kfec.SMEM_MAX
+    assert kfec.viterbi_instance(16) == "block"
 
     def no_build():
         raise _build.KernelBuildError("nvcc not found")
@@ -434,3 +439,72 @@ def test_viterbi_instances_and_their_limits(monkeypatch):
     with pytest.raises(_build.KernelBuildError):
         kfec.viterbi_frames(torch.empty(1, 15000, 2, **meta), tabs7, 7, True)
     assert kfec.viterbi_frames.launches == kfec.viterbi_frames.block_launches == 0
+
+
+# -- S3 past K = 15: its metrics in device memory -------------------------------
+
+K16_POLYS = (0o152711, 0o126723)  # a rate-1/2 code of K = 16 (its
+# polynomials share no factor over GF(2): not catastrophic)
+
+
+@pytest.mark.parametrize("K", [16, 17, 18])
+def test_viterbi_plans_codes_past_k15_in_device_memory(K):
+    """Past K = 15 S3 plans the block instance on the global route (its two
+    rows of metrics, 2^K x 4 bytes, no longer in a block's shared memory,
+    which holds only the warp maxima); the device bytes are the decision
+    words and the metrics of every frame, and past the card's memory the
+    plan raises, naming them."""
+    S, T = 1 << (K - 1), 512 + K - 1
+    assert kfec.viterbi_plan(T, 2, K) == ("block", "global")
+    assert kfec.viterbi_plan(2, 1, K) == ("block", "global")
+    assert kfec.viterbi_smem(T, 2, S, "block", "global") == 4 * 64
+    need = kfec.viterbi_device_bytes(256, T, K)
+    assert need == 4 * 256 * (T * S // 32 + 2 * S)
+    assert kfec.viterbi_plan(T, 2, K, 256, need) == ("block", "global")
+    with pytest.raises(ValueError, match=f"need {need} B of device memory"):
+        kfec.viterbi_plan(T, 2, K, 256, need - 1)
+    # K <= 15 keeps its routes, and its bytes are the decision words alone
+    assert kfec.viterbi_device_bytes(4, 518, 15) == 4 * 4 * 518 * 512
+
+
+def test_viterbi_k16_plain_matches_reference():
+    """At K = 16 (32768 states) the plain version S3 is held to on the card
+    equals the reference's viterbi_decode bit for bit on a short noisy
+    frame, terminated and not, and decodes a noiseless frame without
+    error."""
+    K = 16
+    bits, llr = _frames(K16_POLYS, K, 1, 24, 0.8, seed=16)
+    for terminated in (True, False):
+        got = tf.viterbi_decode(torch.from_numpy(llr[0]), K16_POLYS, K,
+                                terminated=terminated)
+        ref = np.asarray(jf.viterbi_decode(jnp.asarray(llr[0]), K16_POLYS, K,
+                                           terminated=terminated))
+        np.testing.assert_array_equal(got.numpy(), ref)
+    coded = tf.conv_encode(torch.from_numpy(bits[0]), K16_POLYS, K)
+    np.testing.assert_array_equal(
+        tf.viterbi_decode(tf.hard_to_llr(coded), K16_POLYS, K).numpy(), bits[0])
+
+
+@pytest.mark.parametrize("polys,K", [(K16_POLYS, 16), (jf.CC_K7_POLYS, 7),
+                                     ((0o171, 0o133, 0o165), 7),
+                                     ((0o46321, 0o51271, 0o63667, 0o70535), 15)])
+def test_viterbi_symbols_are_parities_of_generators_read_from_psym(polys, K):
+    """S3 past K = 15 computes each branch symbol in place of loading it
+    (csrc/viterbi.cu): generator j read back from psym (bit k from state
+    2^k on branch 0, bit K-1 from state 0 on branch 1), and psym[s][b][j]
+    = 2 parity(g_j & (s + b S)) - 1. The read-back equals the code's
+    generators and the parities equal psym at every state, branch and
+    output, at rates 1/2 to 1/4."""
+    _, _, psym = tf._tables_np(tuple(polys), K)
+    S, n = psym.shape[0], psym.shape[2]
+    lg = S.bit_length() - 1
+    flat = psym.reshape(-1)
+    gen = [(int(flat[n + j] > 0) << lg)
+           | sum(int(flat[(2 << k) * n + j] > 0) << k for k in range(lg))
+           for j in range(n)]
+    assert gen == list(polys)
+    reg = np.arange(S)[:, None] + np.array([0, S])[None, :]  # (S, 2)
+    for j, g in enumerate(gen):
+        parity = np.array([[bin(g & int(r)).count("1") & 1 for r in row]
+                           for row in reg])
+        np.testing.assert_array_equal(psym[:, :, j], 2.0 * parity - 1.0)

@@ -1,20 +1,22 @@
 """The planes DFT as the kernels' shared-memory FFT (csrc/planes_fft.cuh:
-stage 2 of the chains' tile routines in csrc/fm_chain.cu at M = 64-448, and K1 in
-csrc/channelizer.cu at M = 64 P, P = 1 .. 7), held on the CPU at every
+stage 2 of the chains' tile routines in csrc/fm_chain.cu and K1 in
+csrc/channelizer.cu at M = 64 P, P = 1 .. 16), held on the CPU at every
 width: the radix-P step (P = 5 and 7 from the pairs x[m] +- x[P-m], P = 6
-as 2 x 3) and the P 8 x 8 FFTs evaluated in torch float32
-(``planes_fft.fft_planes``) with the twiddle table the constants carry,
-in the kernels' order of operations, each rounded on its own as the
-kernels' ``__fadd_rn``/``__fmul_rn`` are, against the plain versions'
-dense product ``acc @ planes_dft_matrix(M)`` and against numpy's float64
-FFT with the post-twiddle. K1's path (the fold on interleaved lanes, the
-FFT on planes rows, interleaved out) against its plain version and the
-reference's ``arm_fold_dft`` in interpret mode. The tables and the replay
-at P <= 4 are pinned to their hashes, so the wider P changed none of
-their operations. Also: every ``FmChainConsts`` carries the table, the CUDA wrappers refuse constants
-without it, and K3, K5 and K6 plan every width the FFT takes (meta
-tensors stand in for the card: those checks come before any launch);
-pfb_channelize's "auto" takes K1 at those widths and K7 elsewhere.
+as 2 x 3; past P = 7 two passes, P = P1 x P2, by the prime-factor map or
+with twiddles, 11 and 13 from the pairs) and the P 8 x 8 FFTs evaluated
+in torch float32 (``planes_fft.fft_planes``) with the twiddle table the
+constants carry, in the kernels' order of operations, each rounded on its
+own as the kernels' ``__fadd_rn``/``__fmul_rn`` are, against the plain
+versions' dense product ``acc @ planes_dft_matrix(M)`` and against
+numpy's float64 FFT with the post-twiddle. K1's path (the fold on
+interleaved lanes, the FFT on planes rows, interleaved out) against its
+plain version and the reference's ``arm_fold_dft`` in interpret mode.
+The tables and the replay at P <= 7 are pinned to their hashes, so the
+wider P changed none of their operations. Also: every ``FmChainConsts``
+carries the table, the CUDA wrappers refuse constants without it, and
+K3, K5 and K6 plan every width the FFT takes and refuse the widths past
+it (meta tensors stand in for the card: those checks come before any
+launch); pfb_channelize's "auto" takes K1 at those widths and K7 elsewhere.
 """
 
 import hashlib
@@ -33,7 +35,7 @@ from newsched_tpu_torch.ops import firdes, pfb
 from newsched_tpu_torch.ops.cuda import channelizer, fm_chain, noise, planes_fft
 from newsched_tpu_torch.probes import ablate
 
-WIDTHS = planes_fft.CHANNELS  # M = 64 P, P = 1 .. 7
+WIDTHS = planes_fft.CHANNELS  # M = 64 P, P = 1 .. 16
 # |FFT - exact| and |dense product - exact| over the row's largest exact
 # output: FP32 rounding of the transform, a few ulp of the largest output
 # (measured on the random rows: up to 2.6e-7 for the FFT, 1.2e-6 for the
@@ -100,12 +102,12 @@ def test_fft_table_values(M):
     assert not tab[:2, 64:].any()  # rows 0/1 past the 8 x 8 FFT's 64
     np.testing.assert_array_equal(tab[2] + 1j * tab[3], post)
     assert tab[2, M // 8] == np.float32(np.sqrt(0.5))  # cos(pi/4)
-    if M in (192, 384):  # -Im e^{-2 pi i/3} = sin(pi/3), the radix-3 step's
+    if M % 192 == 0:  # -Im e^{-2 pi i/3} = sin(pi/3), the radix-3 steps'
         assert -tab[3, M // 3] == np.float32(np.sqrt(3) / 2)
     P = M // 64  # the P-point DFT's cos and sin of 2 pi a / P at j = 64 a
     w = np.exp(-2j * np.pi * np.arange(P) / P).astype(np.complex64)
     np.testing.assert_array_equal(tab[2, ::64] + 1j * tab[3, ::64], w)
-    for m in (16, 48, 512):  # no kernel FFT: K1's dense instance, or none
+    for m in (16, 48, 1088):  # no kernel FFT: no kernel takes these widths
         assert fm_chain.planes_fft_table(m) is None
 
 
@@ -115,6 +117,60 @@ P4_HASHES = {64: ("11a9fb3da3e68355", "6cb776e78400239d"),
              128: ("581167d807aada67", "c39697143e49a346"),
              192: ("bf7adb129670430c", "847672770ddd348f"),
              256: ("012a5c3fadbd8279", "337574c66c131add")}
+
+
+# the same at P = 5 .. 7, as the one-pass radix-P step computed them before
+# the two passes past P = 7 existed
+P7_HASHES = {320: ("59fa0631b4e8c138", "aab4f138c9ecee6a"),
+             384: ("d6cdb8e8fd658c0f", "d8a67a210edb372e"),
+             448: ("826cbe442d7253c2", "40f41e7a4f34006e")}
+
+
+def _table_and_replay_hashes(M):
+    tab = planes_fft.planes_fft_table(M)
+    rows = (np.random.default_rng(M).standard_normal((64, 2 * M)) * 8
+            ).astype(np.float32)
+    y = planes_fft.fft_planes(torch.from_numpy(rows), torch.from_numpy(tab))
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    return h(tab), h(y.numpy())
+
+
+@pytest.mark.parametrize("M", sorted(P7_HASHES))
+def test_p5_to_p7_tables_and_replay_are_unchanged(M):
+    """K1's and the chains' widths 320-448 keep their table and their
+    replay's bits (so the kernels' P = 5 .. 7 arithmetic is untouched)."""
+    assert _table_and_replay_hashes(M) == P7_HASHES[M]
+
+
+@pytest.mark.parametrize("P", range(8, 17))
+def test_two_pass_plans_cover_every_part(P):
+    """Past P = 7 the radix step's two passes (``planes_fft.plan``): P =
+    P1 x P2 with P1, P2 among the DFTs the kernels hold (2, 3, 4, 5, 7, 8,
+    11, 13); each pass's columns take every part of the row once; the
+    prime-factor map's outputs (e1 k1 + e2 k2) mod P are the q with q mod
+    P1 = k1 and q mod P2 = k2; every output q has one part, and the
+    table's entries the passes read lie inside it."""
+    pl = planes_fft.plan(P)
+    assert pl.P1 * pl.P2 == P
+    assert pl.P1 in (2, 3, 4, 8, 11, 13) and pl.P2 in (1, 3, 4, 5, 7)
+    assert pl.pfa == (pl.P2 > 1 and np.gcd(pl.P1, pl.P2) == 1)
+    cells = [(a, b) for a in range(pl.P1) for b in range(pl.P2)]
+    assert sorted(planes_fft._slot(pl, a, b) for a, b in cells) == list(range(P))
+    outs = [planes_fft._out(pl, a, b) for a, b in cells]
+    assert sorted(outs) == list(range(P))
+    if pl.pfa:
+        assert all(q % pl.P1 == a and q % pl.P2 == b
+                   for q, (a, b) in zip(outs, cells))
+    parts = [planes_fft.slot_of(P, q) for q in range(P)]
+    assert sorted(parts) == list(range(P))
+    assert all(planes_fft.slot_of(P, planes_fft._out(pl, a, b))
+               == planes_fft._slot(pl, a, b) for a, b in cells)
+    M = 64 * P  # twiddles 64 j2 k1 and n q, and the DFTs' a M / F
+    assert 64 * (pl.P1 - 1) * (pl.P2 - 1) < M and 63 * (P - 1) < M
+    assert M % pl.P1 == 0 and M % pl.P2 == 0
 
 
 @pytest.mark.parametrize("M", sorted(P4_HASHES))
@@ -159,7 +215,7 @@ def _fold_case(M, L, n_out, seed):
     return v, c
 
 
-@pytest.mark.parametrize("M", [64, 128, 320, 384, 448])
+@pytest.mark.parametrize("M", [64, 128, 320, 384, 448, 512, 1024])
 def test_k1_fold_then_fft_is_arm_fold_dft(M):
     """K1's FFT instance in torch float32: the fold on the interleaved
     lanes (K7's plain version), the planes FFT of its rows, interleaved
@@ -222,16 +278,19 @@ def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
                decim)[kernel]()
 
 
-@pytest.mark.parametrize("M", [128, 192, 256, 320, 384, 448])
+@pytest.mark.parametrize("M", [128, 192, 256, 320, 384, 448, 512, 576, 640,
+                               704, 768, 832, 896, 960, 1024])
 @pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
 def test_chain_kernels_plan_every_fft_width(kernel, M):
     """At the flagship's A = 65, L = 16, decim 8 and batch, K3, K5 and K6
-    plan M = 128 .. 448: the default tile of 128 rows, whose block fits the
-    H100's shared memory (chain_tile_stream's layout: one pass's window of
-    48 rows, the Y row kept for the pass below and the tile's 16 x M audio
-    accumulators), every check passed up to the tensors' device, which the
-    meta tensors here fail. K3p and the ablation stay at M = 64 and say so;
-    M = 512 is refused naming ROADMAP.md H13."""
+    plan M = 128 .. 1024: the default tile of 128 rows, whose block fits the
+    H100's shared memory (up to M = 448 chain_tile_stream's layout: one
+    pass's window of 48 rows, the Y row kept for the pass below and the
+    tile's 16 x M audio accumulators; past it chain_tile_wide's 16 folded
+    rows a pass, that Y row and the accumulators), every check passed up to
+    the tensors' device, which the meta tensors here fail. K3p and the
+    ablation stay at M = 64 and say so; M = 1088 (past 1024) is refused
+    naming ROADMAP.md Queue 3, R1."""
     L, A, decim, n = 16, 65, 8, 32768
     consts, vb, (halo, prev, tail), _ = _meta_case(M, n)
     W = 2 * M
@@ -239,7 +298,8 @@ def test_chain_kernels_plan_every_fft_width(kernel, M):
                               64 if kernel == "K6" else decim)
     smem = fm_chain._chain_smem(tile, A, L, 1, decim, W)
     assert tile == 128
-    assert smem == ((48 + 1) * W + tile // decim * M) * 4
+    rows = 48 if M <= 448 else 16
+    assert smem == ((rows + 1) * W + tile // decim * M) * 4
     assert fm_chain._chain_smem(64, A, L, 1, decim, W) <= smem \
         <= fm_chain._SMEM_MAX
     fm_chain._check_kernel_shape(W, tile, A, L, 1, decim)
@@ -250,19 +310,19 @@ def test_chain_kernels_plan_every_fft_width(kernel, M):
     for flagship_only in ("K3p", "ablate"):
         with pytest.raises(ValueError, match="M=64"):
             _calls(consts, vb, halo, prev, tail, decim)[flagship_only]()
-    with pytest.raises(ValueError, match="H13"):
-        fm_chain._check_kernel_shape(1024, 64, A, L, 1, decim)
+    with pytest.raises(ValueError, match="Queue 3, R1"):
+        fm_chain._check_kernel_shape(2 * 1088, 64, A, L, 1, decim)
 
 
-@pytest.mark.parametrize("M,route", [(64, "K1"), (448, "K1"), (512, "K7"),
-                                     (1024, "K7")])
+@pytest.mark.parametrize("M,route", [(64, "K1"), (448, "K1"), (512, "K1"),
+                                     (576, "K7"), (1024, "K7"), (1088, "K7")])
 def test_pfb_auto_routes_by_the_fft_widths(M, route, monkeypatch):
     """pfb_channelize's "auto" on a device tensor (meta stands in for the
-    card): K1 (its planes FFT) at M = 64 and 448, K7 and the combine at M =
-    512 and 1024, where K1's dense instance ran at 0.5% of its bound (M =
-    512) or refused its tile (M = 1024); each route goes as far as the
-    device check, which meta fails, and the dense instance's own check
-    (its shared memory) is never reached."""
+    card): K1 (its planes FFT) at M = 64, 448 and 512, K7 and the combine
+    past ``pfb.AUTO_K1_MAX`` = 512 (576 and 1024, where K7 and cuFFT's
+    combine was the faster on the card), and past 1024 channels (1088), where
+    K1 takes no width; each route goes as far as the device check, which
+    meta fails."""
     taken = []
     for name in ("arm_fold_dft", "arm_fold"):
         real = getattr(channelizer, name)
@@ -280,19 +340,24 @@ def test_pfb_auto_routes_by_the_fft_widths(M, route, monkeypatch):
     assert taken == ["arm_fold_dft" if route == "K1" else "arm_fold"]
 
 
-def test_k1_dense_refuses_a_tile_past_shared_memory():
-    """On a device tensor (meta stands in for the card) K1's dense instance
-    at M = 512 takes its default 32-row tile as far as the checks before
-    the launch, and refuses 48 rows (64 rounded, 256 KB) and any tile at
-    M = 1024 (2048 lanes) naming the block's limit."""
+def test_k1_refuses_widths_past_its_fft():
+    """On a device tensor (meta stands in for the card) K1 takes M = 512
+    and 1024 as far as the device check, and refuses 1088 channels and a
+    width that is no multiple of 64 channels, naming ROADMAP.md Queue 3,
+    R1; the plain version on the CPU takes any width."""
     meta = dict(device="meta", dtype=torch.float32)
-    for M, tile, ok in ((512, None, True), (512, 48, False), (1024, None, False)):
+    for M, ok in ((512, True), (1024, True), (1088, False), (544, False)):
         W = 2 * M
         v, c2, w2 = (torch.empty(64 + 15, W, **meta), torch.empty(16, W, **meta),
                      torch.empty(W, W, **meta))
-        match = "on meta" if ok else "232448 B limit"
-        with pytest.raises(ValueError, match=match):
-            channelizer.arm_fold_dft(v, c2, w2, 64, tile=tile)
+        fft = None if planes_fft.planes_fft_table(M) is None else torch.empty(4, M, **meta)
+        with pytest.raises(ValueError, match="on meta" if ok else "Queue 3, R1"):
+            channelizer.arm_fold_dft(v, c2, w2, 64, fft=fft)
+    v, c = _fold_case(1088 // 16, 4, 8, seed=1)
+    out = channelizer.arm_fold_dft(torch.from_numpy(v),
+                                   channelizer.interleave_taps(c),
+                                   channelizer.interleaved_dft_matrix(68), 8)
+    assert out.shape == (8, 136) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
@@ -303,7 +368,18 @@ def test_chain_plain_versions_at_320_match_reference(kernel):
     same rows, within CHAIN_RTOL/CHAIN_ATOL: K3 on two carried batches of
     noise rows, K5 on its generated rows, K6 on a shard's window at group
     5 (warm 128 rows, the reference's recompute from a zero junction)."""
-    M, L, A, decim, n, gain = 320, 16, 65, 8, 256, 0.7
+    _chain_plain_vs_reference(kernel, 320)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
+def test_chain_plain_versions_at_512_match_reference(kernel):
+    """The same at M = 512 (P = 8, the first width of chain_tile_wide),
+    two tiles' rows a batch."""
+    _chain_plain_vs_reference(kernel, 512)
+
+
+def _chain_plain_vs_reference(kernel, M):
+    L, A, decim, n, gain = 16, 65, 8, 256, 0.7
     W = 2 * M
     taps = jfirdes.prototype_channelizer_taps(M, L)
     ataps = jfirdes.low_pass(1.0, 1.0, 0.4 / decim, 0.1 / decim, ntaps=A)

@@ -177,12 +177,14 @@ def test_pfb_channelize_matches_reference(method, combine):
 @pytest.mark.parametrize("M,want", [(64, "fused"), (128, "fused"), (192, "fused"),
                                     (256, "fused"), (48, "pallas"), (16, "pallas"),
                                     (32, "pallas"), (320, "fused"),
-                                    (512, "pallas")])
+                                    (512, "fused"), (576, "pallas"),
+                                    (704, "pallas")])
 def test_pfb_channelize_auto_follows_reference_rule(M, want, monkeypatch):
     """"auto" takes K1 where the reference's rule does and K1 has its planes
-    FFT (M = 64 P, P = 1 .. 7), and K7 and the combine at every other width
-    (the reference's "sum" there, or K1 at M = 512, whose dense instance is
-    slower than its plain version on the card), never the plain path
+    FFT (M = 64 P) up to ``pfb.AUTO_K1_MAX`` = 512 (P = 1 .. 8), and K7
+    and the combine at every other width (the reference's "sum" there, or
+    K1's widths past 512, where K7 and cuFFT's combine was the faster on
+    the card), never the plain path
     because of the width; the result matches the reference's "sum" within
     2e-6 of max|Y|."""
     taken = []
