@@ -299,6 +299,26 @@ Phases (each failure raises, so the script exits nonzero):
      on the same LLRs, error-free at 7 dB, at the reference's sigma 0.65 a
      BER under a fifth of the raw; S3 (its warp instance) launched; the
      step's two-point time beside the block-a-frame design's.
+ 54. the host boundary (newsched_tpu_torch/io, blocks/fileio.py,
+     blocks/network.py, the runner's staging): the ingest probe
+     (probes/ingest.py) over a 256 MB file of seeded cf32 in batches of
+     2^21, page cache warm: the native ring alone, with the runner's pinned
+     staging, and on to the card with a checksum there (the host's), each
+     in MB/s beside the 800 MB/s target; the ring carried every byte;
+ 55. config #2 at full width, fused (cplx_to_planes -> K3) and staged
+     (pfb_channelizer on K1 -> demod -> vector_fir), over the file's 16
+     batches: fed from the file through file_source(use_native=True) in
+     the runner's loop (never captured), counted, its ring carrying the
+     whole file, and fed from memory in graph mode;
+ 56. file_sink's bytes equal to the memory-fed graph's output bit for bit,
+     the first 2 batches above the golden's gates (95 dB fused, 60 staged);
+ 57. a TCP loopback: a thread serves 4 batches of the file into tcp_source
+     (the ring's fd pump) -> fused config #2 -> tcp_sink (the ring's drain)
+     -> a reading thread, bit-equal to the memory-fed graph, K3 counted;
+ 58. times: the file-fed fused and staged graphs in loop mode, ms a batch
+     and Msamples/s (the median of 3 runs over the file) and the card's
+     busy share in a traced run, beside the same graphs fed from memory in
+     graph mode and phase 34's cells.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -4118,6 +4138,281 @@ def phase_fec_link(torch, kfec, card: str) -> dict:
     return out
 
 
+# -- the host boundary: config #2 fed from a file and over TCP ---------------
+
+IO_BATCHES = 16            # probes/ingest.py's 256 MB file: 16 batches
+TCP_BATCHES = 4            # batches the TCP loopback carries (64 MB)
+IO_TIME_RUNS = 3           # timed file-fed runs a form (the median kept)
+IO_GATE_BATCHES = 2        # batches of a file-fed output gated on the golden
+
+
+def io_file() -> str:
+    """probes/ingest.py's file: FILE_MB MB of seeded random cf32 (x 0.5),
+    under build/ingest/, whose batches all differ (a stale staging buffer
+    would show)."""
+    from newsched_tpu_torch.probes import ingest
+
+    return ingest.cf32_file(ingest.FILE_MB * 2 ** 20 // 8)
+
+
+def phase_ingest(path: str, card: str) -> list:
+    """54. The ingest probe's three stages over the file (page cache warm):
+    the ring alone, with the pinned staging, on to the card with a checksum
+    there; the ring carried every byte, the card's checksum is the
+    host's."""
+    import os
+
+    from newsched_tpu_torch.probes import ingest
+
+    recs = ingest.ingest_stages(path, "cuda")
+    size = os.path.getsize(path)
+    for r in recs:
+        log(f"ingest stage {r['probe']}: {r['MBps']:.1f} MB/s = "
+            f"{r['Msps_cf32']:.1f} Msamples/s of cf32 (passes "
+            f"{', '.join(f'{v:.1f}' for v in r['runs_MBps'])} MB/s; target "
+            f"{r['target_MBps']} MB/s), {r['file_MB']:.0f} MB in batches of "
+            f"{r['batch']} [{card}]")
+        require(r["ring_bytes"] == size, f"{r['probe']}: the ring carried "
+                f"{r['ring_bytes']} of {size} bytes")
+    dev = recs[-1]
+    log(f"ingest checksum on the card {dev['checksum']!r}, on the host "
+        f"{dev['checksum_host']!r}")
+    require(abs(dev["checksum"] - dev["checksum_host"])
+            <= 1e-6 + 1e-9 * abs(dev["checksum_host"]),
+            "ingest: the card's checksum is not the file's")
+    return recs
+
+
+def file_fed(path: str, fused: bool, n_batches: int, sink, **kw):
+    """Config #2 (``fused``, or staged) reading ``path`` through
+    file_source(use_native=True); returns (graph, blocks, source)."""
+    from newsched_tpu_torch.blocks import fileio
+
+    src = fileio.file_source(path, use_native=True)
+    fg, blks = flowgraph(src, n_batches, sink=sink, fused=fused, **kw)
+    return fg, blks, src
+
+
+def phase_file_fed(torch, fm_chain, channelizer, path: str,
+                   device: str = "cuda") -> dict:
+    """55-56. Config #2 at full width, fused (K3) and staged (K1), over
+    IO_BATCHES batches of the file: from memory (vector_source of the
+    file's samples, graph mode) into a vector_sink, and from the file
+    (file_source through the native ring, the loop) into file_sink. The
+    file-fed run is counted (counts zeroed just before it), never captured,
+    and its ring carried the whole file; file_sink's bytes are the
+    memory-fed graph's output, bit for bit; their first IO_GATE_BATCHES
+    batches pass the golden's gate."""
+    import os
+
+    from newsched_tpu_torch.blocks import general, fileio
+    from newsched_tpu_torch.probes import ingest
+    from newsched_tpu_torch.testing import planes_rows
+
+    x = ingest.cf32_items(path, 0, IO_BATCHES * BATCH)
+    require(len(x) == IO_BATCHES * BATCH, "the ingest file is short")
+    rows = planes_rows(x[:IO_GATE_BATCHES * BATCH], M)
+    kernel = {"fused": (fm_chain.fm_chain_step_planes, "K3"),
+              "staged": (channelizer.arm_fold_dft, "K1")}
+    out = {"launches": {}, "mem": {}}
+    for form, fused in (("fused", True), ("staged", False)):
+        fg, blks = flowgraph(general.vector_source(x), IO_BATCHES, fused=fused)
+        r = fg.run(device=device)
+        require(device != "cuda" or (r._chunk is not None
+                                     and r._chunk.graph is not None),
+                f"memory-fed {form}: no graph mode")
+        mem = out["mem"][form] = blks["sink"].data()
+        dst = os.path.join(ingest.DATA_DIR, f"config2_{form}.f32")
+        fg, blks, src = file_fed(path, fused, IO_BATCHES,
+                                 fileio.file_sink(dst, dtype="rf32",
+                                                  vlen=(M,)))
+        zero_launches()
+        r = fg.run(device=device)
+        fn, kid = kernel[form]
+        n = out["launches"][kid] = fn.launches
+        counts = {k: v for k, v in launch_counts().items() if v}
+        got = np.fromfile(dst, np.float32).reshape(-1, M)
+        same = got.shape == mem.shape and got.tobytes() == mem.tobytes()
+        log(f"file-fed {form} config #2, {IO_BATCHES} batches: loop mode "
+            f"(graph mode refused: {not r._can_graph()}, no chunk: "
+            f"{r._chunk is None}); the ring carried {src.ring_reads} bytes; "
+            f"file_sink's {got.shape} bit-equal to the memory-fed graph's "
+            f"output: {same}; launches {counts}")
+        require(r._chunk is None and not r._can_graph(),
+                f"file-fed {form}: the runner captured a host-I/O graph")
+        require(src.ring_reads == 8 * IO_BATCHES * BATCH,
+                f"file-fed {form}: the ring carried {src.ring_reads} bytes")
+        require(same, f"file-fed {form}: file_sink's bytes differ from the "
+                "memory-fed graph's output")
+        require(n > 0, f"file-fed {form}: {kid} was never launched")
+        gate(rows, got[:IO_GATE_BATCHES * N_AUD], f"file-fed {form}",
+             "file", SNR_GATE_DB if fused else STAGED_GATE_DB)
+    return out
+
+
+def phase_tcp(torch, fm_chain, path: str, mem_fused: np.ndarray,
+              device: str = "cuda") -> int:
+    """57. A TCP loopback: a thread serves TCP_BATCHES batches of the file
+    into tcp_source (the ring's fd pump) -> fused config #2 -> tcp_sink
+    (the ring's drain) -> a reading thread: the bytes read are the
+    memory-fed graph's first batches, bit for bit; the ring carried every
+    byte; K3 counted. Every thread joined with a timeout."""
+    import socket
+    import threading
+
+    from newsched_tpu_torch.blocks import network
+
+    data = np.fromfile(path, np.uint8, count=8 * TCP_BATCHES * BATCH)
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    port_in = free_port()
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+    listener.settimeout(120)
+    received, errors = bytearray(), []
+
+    def serve():
+        try:
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port_in), 10)
+                    break
+                except ConnectionRefusedError:
+                    require(time.monotonic() < deadline, "tcp_source never "
+                            "listened")
+                    time.sleep(0.05)
+            with s:
+                s.sendall(data.tobytes())
+        except Exception as e:  # raised again below
+            errors.append(e)
+
+    def read():
+        try:
+            conn, _ = listener.accept()
+            with conn:
+                conn.settimeout(120)
+                while chunk := conn.recv(1 << 20):
+                    received.extend(chunk)
+        except Exception as e:  # raised again below
+            errors.append(e)
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (serve, read)]
+    for t in threads:
+        t.start()
+    src = network.tcp_source(port_in, mode="server", use_native=True,
+                             timeout_s=60)
+    snk = network.tcp_sink(listener.getsockname()[1], mode="client",
+                           dtype="rf32", vlen=(M,), use_native=True)
+    fg, _ = flowgraph(src, TCP_BATCHES, sink=snk)
+    zero_launches()
+    r = fg.run(device=device)
+    launches = fm_chain.fm_chain_step_planes.launches
+    for t in threads:
+        t.join(timeout=120)
+    listener.close()
+    require(not any(t.is_alive() for t in threads), "TCP loopback: a thread "
+            "did not finish")
+    if errors:
+        raise errors[0]
+    got = np.frombuffer(bytes(received), np.float32).reshape(-1, M)
+    want = mem_fused[:TCP_BATCHES * N_AUD]
+    same = got.shape == want.shape and got.tobytes() == want.tobytes()
+    log(f"TCP loopback, fused config #2, {TCP_BATCHES} batches: "
+        f"{len(data)} bytes in (the ring carried {src.ring_reads}), "
+        f"{len(received)} bytes out, bit-equal to the memory-fed graph: "
+        f"{same}; loop mode: {r._chunk is None}; K3 launched {launches}")
+    require(src.ring_reads == len(data), "TCP loopback: the ring did not "
+            "carry the stream")
+    require(same, "TCP loopback: the output differs from the memory-fed graph")
+    require(r._chunk is None, "TCP loopback: a host-I/O graph was captured")
+    require(launches > 0, "TCP loopback: K3 never launched")
+    return launches
+
+
+def busy_run(torch, fn) -> tuple[float, float, list]:
+    """fn() traced by torch.profiler: its host seconds, the device time of
+    its kernels and copies in ms, and the largest of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0), reverse=True)
+    return wall, sum(r[0] for r in rows), rows[:6]
+
+
+def phase_file_fed_times(torch, path: str, card: str,
+                         graph_times: dict) -> dict:
+    """58. The file-fed config #2, fused and staged, in loop mode (the
+    runner's, file_source -> ... -> file_sink over the whole file, page
+    cache warm): ms a batch (the median of IO_TIME_RUNS runs' host time
+    over IO_BATCHES) and Msamples/s; the card's busy share in one traced
+    run; beside the same graph fed from memory in graph mode (the bench's
+    two-point fit) and phase 34's cells."""
+    import os
+
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.blocks import general, fileio
+    from newsched_tpu_torch.probes import ingest
+
+    x1 = ingest.cf32_items(path, 0, BATCH)
+    out = {}
+    for form, fused, cell in (("fused", True, "replay"),
+                              ("staged", False, "staged")):
+        dst = os.path.join(ingest.DATA_DIR, f"config2_{form}_timed.f32")
+
+        def run():
+            fg, _, _ = file_fed(path, fused, IO_BATCHES,
+                                fileio.file_sink(dst, dtype="rf32", vlen=(M,)))
+            fg.run(device="cuda")
+
+        run()  # warm: kernels loaded, plans made, pages cached
+        walls = []
+        for _ in range(IO_TIME_RUNS):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        ms = float(np.median(walls)) / IO_BATCHES * 1e3
+        wall, dev_ms, top = busy_run(torch, run)
+        fg, _ = flowgraph(general.vector_source(x1, repeat=True), None,
+                          sink="null", fused=fused)
+        sps = bench.timed_two_point(bench.graph_run(fg, "cuda"),
+                                    f"graph mode memory-fed cf32 {form}",
+                                    BATCH, n_best=3, k1=GRAPH_K[0],
+                                    k2=GRAPH_K[1])
+        mem_ms = BATCH / sps * 1e3
+        busy = dev_ms / (wall * 1e3)
+        out[form] = {"ms": ms, "msps": BATCH / ms / 1e3, "busy": busy,
+                     "mem_ms": mem_ms, "runs_ms": [w / IO_BATCHES * 1e3
+                                                   for w in walls]}
+        log(f"cell #2 {form} file-fed (not a cell): loop mode {ms:.4f} ms a "
+            f"batch = {BATCH / ms / 1e3:.1f} Msamples/s (runs "
+            f"{', '.join(f'{v:.4f}' for v in out[form]['runs_ms'])} ms); "
+            f"traced run {wall * 1e3 / IO_BATCHES:.4f} ms a batch, device "
+            f"{dev_ms / IO_BATCHES:.4f} ms a batch, busy {100 * busy:.1f}%; "
+            f"memory-fed cf32 graph mode {mem_ms:.4f} ms "
+            f"({BATCH / mem_ms / 1e3:.1f} Msamples/s); phase 34's {cell} "
+            f"cell {graph_times[cell]:.4f} ms [{card}]")
+        for d_ms, count, key in top:
+            log(f"  {d_ms / IO_BATCHES:.4f} ms a batch x{count / IO_BATCHES:g}"
+                f" {key[:100]}")
+    return out
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -4695,6 +4990,20 @@ def main() -> int:
     log(f"phases 50-53: {time.monotonic() - t50:.1f} s (50 {t51 - t50:.1f}, "
         f"51 {t52 - t51:.1f}, 52 {t53 - t52:.1f}, 53 "
         f"{time.monotonic() - t53:.1f})")
+    # 54-58. the host boundary: ingest, config #2 fed from a file and over
+    # TCP, and their loop-mode times
+    t54 = time.monotonic()
+    io_path = io_file()
+    phase_ingest(io_path, card)
+    t55 = time.monotonic()
+    ff = phase_file_fed(torch, fm_chain, channelizer, io_path)
+    t57 = time.monotonic()
+    tcp_launches = phase_tcp(torch, fm_chain, io_path, ff["mem"]["fused"])
+    t58 = time.monotonic()
+    phase_file_fed_times(torch, io_path, card, graph_times)
+    log(f"phases 54-58: {time.monotonic() - t54:.1f} s (54 {t55 - t54:.1f}, "
+        f"55-56 {t57 - t55:.1f}, 57 {t58 - t57:.1f}, 58 "
+        f"{time.monotonic() - t58:.1f})")
     for kid in ("S1", "S2"):
         ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
                                        main_loops["plain"][kid])
@@ -4745,11 +5054,13 @@ def main() -> int:
     wl = wb["launches"]
     print(json.dumps({"kernels": [
         entry("fm_chain_step_planes", "K3", "fm_chain.cu", "fm_chain.py:421",
-              launches["fm_chain"] + k3_warm_launches, k3_err),
+              launches["fm_chain"] + k3_warm_launches + ff["launches"]["K3"]
+              + tcp_launches, k3_err),
         entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
               launches["noise"], k4_err),
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
-              staged["arm_fold_dft"], fold_err["arm_fold_dft"]),
+              staged["arm_fold_dft"] + ff["launches"]["K1"],
+              fold_err["arm_fold_dft"]),
         entry("arm_fold", "K7", "channelizer.cu", "channelizer.py:95",
               dec_launches + k1w["launches"]["K7"], fold_err["arm_fold"]),
         entry("fm_chain_gen_step", "K5", "fm_chain.cu", "fm_chain.py:591",

@@ -8,7 +8,8 @@ CUDA kernels for Hopper (``csrc/``, built with nvcc at first use).
 Package layout mirrors ``newsched_tpu`` module for module:
   ops/      DSP helpers (numpy) and the kernels (ops/cuda/ + csrc/)
   runtime/  graph model, compiler, runner
-  blocks/   the block library
+  blocks/   the block library (and its YAML descriptors, blocks/yml/)
+  io/       the native double-mapped ring the file and socket blocks use
   models/   prebuilt flagship flowgraphs
   utils/    dtypes, logging, preferences
 

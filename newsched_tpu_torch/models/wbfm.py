@@ -21,7 +21,11 @@ from newsched_tpu_torch.ops import firdes
 from newsched_tpu_torch.runtime.graph import Flowgraph
 
 
-def _sink(nchans: int, sink: str):
+def _sink(nchans: int, sink):
+    """"null", "vector", or a sink block of the caller's (a file_sink of
+    rf32 (nchans,)-vectors, a socket sink), connected as it is."""
+    if not isinstance(sink, str):
+        return sink
     return (general.null_sink(dtype="rf32", vlen=(nchans,)) if sink == "null"
             else general.vector_sink(dtype="rf32", vlen=(nchans,)))
 
@@ -177,7 +181,7 @@ def make_fm_demod_hier(quad_rate: float, deviation: float = 75e3,
 
 def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
                    audio_decim: int = 8, n_samples: int | None = None,
-                   source=None, batch_size: int | None = None, sink: str = "null",
+                   source=None, batch_size: int | None = None, sink="null",
                    deviation_frac: float = 0.3, fused: bool = False,
                    precision="split3", audio_taps=None, noise_draws: int = 3):
     """Configs #2/#4: wideband channelizer + per-channel FM demod + per-
@@ -200,7 +204,8 @@ def fm_channelizer(nchans: int = 64, fs: float = 100e6, taps_per_arm: int = 16,
     ``noise_draws`` Philox words per sample): no input stream at all.
 
     n_samples bounds the OUTPUT stream (audio (nchans,)-vector items, the
-    head block's units); batch_size is wideband samples.
+    head block's units); batch_size is wideband samples. ``sink``: "null",
+    "vector", or a sink block taking rf32 (nchans,)-vectors (a file_sink).
     """
     chan_rate = fs / nchans
     if audio_taps is None:

@@ -11,6 +11,9 @@ experiments that asked where the fused chain's time goes).
   prep pass costs in front of K3.
 - ``ablate``: K3 with its stages switched off at compile time
   (``chain_tile``'s variants in csrc/fm_chain.cu), each timed beside K3.
+- ``ingest`` (probes/ingest.py; reference bench/bm_ingest.py): a cf32
+  file through the native ring, the pinned staging and on to the card,
+  in MB/s beside config #2's 800 MB/s input.
 
 Run them on the card: ``python3 -m newsched_tpu_torch.probes``; one JSON
 line a measurement. Every kernel has its plain PyTorch version beside it,

@@ -1,6 +1,6 @@
 """Run the probes on the card and print one JSON line a measurement:
 
-    python3 -m newsched_tpu_torch.probes [dma] [prep] [ablate] [fold]
+    python3 -m newsched_tpu_torch.probes [dma] [prep] [ablate] [fold] [ingest]
 
 (no group named: every group). The card's name and power limit come
 first; without a CUDA device it exits with an error and measures
@@ -14,7 +14,7 @@ import sys
 
 import torch
 
-from newsched_tpu_torch.probes import run
+from newsched_tpu_torch.probes import ingest, run
 
 
 def main() -> int:
@@ -26,7 +26,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     groups = {"dma": run.dma_sweep, "prep": run.prep_times,
-              "ablate": run.ablate_times, "fold": run.fold_times}
+              "ablate": run.ablate_times, "fold": run.fold_times,
+              "ingest": ingest.ingest_times}
     names = sys.argv[1:] or list(groups)
     unknown = set(names) - set(groups)
     if unknown:

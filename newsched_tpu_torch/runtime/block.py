@@ -34,6 +34,13 @@ IN = "input"
 OUT = "output"
 
 
+class StreamAborted(Exception):
+    """Raised by a host-I/O block when its stream is stopped locally (a
+    user's stop(), a sibling's shutdown). The runner ends the stream there
+    and delivers what was collected, a clean early end; a peer's failure
+    raises another error, which fails the run."""
+
+
 @dataclasses.dataclass(frozen=True)
 class Port:
     """A typed stream port. item_shape is the reference's vlen generalized:
@@ -112,6 +119,15 @@ class Block:
     on the run's device. ``params`` maps param name -> tensor on that
     device. ``nin``/``nout`` are python ints fixed by the compiler's rate
     algebra.
+
+    Host I/O (reference: blocks/fileio.py): a block with the class
+    attribute ``host_io = True`` touches the host each batch, which keeps
+    the runner in its loop (no captured CUDA graph). A source defines
+    ``host_pull(nout) -> numpy array`` (or a dict of arrays): the runner
+    calls it on its thread before each step, stages the batch to the run's
+    device and hands it to ``work`` as the pseudo input port ``host_in``. A
+    sink defines ``host_push(batch)``: the runner hands it each batch's
+    collected output on the host as it is produced.
 
     Tags (runtime/tags.py): a block with ``tag_aware = True`` gets its
     merged input tags as ``work(..., in_tags=)`` and returns (state, outs,

@@ -295,8 +295,14 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
                n_in: dict[str, int] | None = None, mesh=None,
                time_axis: str | None = None,
                tag_capacity_limit: int | None = None):
-    """Emit the per-batch function. Sinks (no stream outputs) return a
-    per-batch collected value under their name (None to collect nothing).
+    """Emit the per-batch function ``step(states, params, host_ins=None)``.
+    Sinks (no stream outputs) return a per-batch collected value under their
+    name (None to collect nothing).
+
+    ``host_ins`` maps the name of each host-ingest block (one defining
+    ``host_pull``, e.g. file_source) to its batch, staged on the run's
+    device; that block's ``work`` sees it as the pseudo input port
+    "host_in".
 
     Under a mesh whose time axis is > 1, a block exposing ``work_sharded``
     runs its own per-shard formulation (the reference's explicit-collective
@@ -351,7 +357,8 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
             caps[(b.name, p.name)] = c
     any_tags = any(caps.values())
 
-    def step(states: dict, params: dict):
+    def step(states: dict, params: dict, host_ins: dict | None = None):
+        host_ins = host_ins or {}
         vals: dict[tuple[str, str], Any] = {}
         tag_vals: dict[tuple[str, str], Any] = {}  # (block, out port) -> TagBatch
         new_states = dict(states)
@@ -359,6 +366,8 @@ def build_step(g: Graph, order: list[Block], n_out: dict[str, int],
         tag_drops = None  # int32 0-dim tensor when compaction is active
         for b in order:
             ins = {e.dst_port: vals[(e.src.name, e.src_port)] for e in g.in_edges(b)}
+            if b.name in host_ins:
+                ins["host_in"] = host_ins[b.name]
             # tags on each input port, in declared port order (one_to_one
             # pairs input i with output i)
             in_tags: list[Any] = []

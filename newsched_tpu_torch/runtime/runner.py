@@ -6,8 +6,8 @@ Two modes, as in the reference:
 - Graph mode, the reference's scan mode (``Runner._run_scan``, a
   ``lax.scan`` of the step): on a CUDA device, whenever the run has at
   least two batches and none of the reference's ``_can_scan`` conditions
-  stands against it (pacing, messages, checkpoints, stats; the port has no
-  host I/O blocks yet). ``GRAPH_CHUNK`` steps are captured once as a
+  stands against it (host I/O, pacing, messages, checkpoints, stats).
+  ``GRAPH_CHUNK`` steps are captured once as a
   CUDA graph and the graph is replayed batch chunk after batch chunk; the
   remaining batches run through the step directly. It works because every
   piece of stream state (NCO phases, noise counters, first-batch flags,
@@ -22,7 +22,15 @@ Two modes, as in the reference:
   per batch. Kernel launches are asynchronous, so the host enqueues batch
   i+1 while the device still computes batch i. Between batches it drains
   the message queue, rebinds changed parameters, paces throttled graphs,
-  writes checkpoints and takes stats.
+  writes checkpoints and takes stats. A graph with host I/O blocks
+  (``host_io``: files, sockets, ZMQ, audio) always runs here, bounded or
+  not: a captured graph would replay the staged batch's address, and with
+  it stale samples. Before each step the runner pulls every host-ingest
+  block's batch (``host_pull``) and stages it to the device (``_Staging``:
+  two pinned buffers a block, a copy behind an event, so the host fills
+  batch i+1 while the card computes batch i); after it, each streaming
+  sink (``host_push``) gets its batch on the host. A block that raises
+  ``StreamAborted`` ends the stream there, cleanly.
 
 An unbounded graph runs only under ``start()`` (``start_async``), on a
 thread of its own, until ``stop()``: as replays of the one captured chunk
@@ -53,7 +61,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from newsched_tpu_torch.runtime.block import param_tensor
+from newsched_tpu_torch.runtime.block import StreamAborted, param_tensor
 from newsched_tpu_torch.runtime.compile import compile_flowgraph
 from newsched_tpu_torch.utils.logger import get_logger
 
@@ -152,6 +160,46 @@ def _set_launch_counts(counts: list[int]) -> None:
 
     for (f, a), n in zip(launch_counters(), counts, strict=True):
         setattr(f, a, n)
+
+
+class _Staging:
+    """Host batches to the run's device (the reference's StagingBuffer,
+    io/native_ring.py:236-264). On a CUDA device each array goes into one
+    of two pinned host buffers of its block (and key, for a dict batch),
+    taken in turn, and is copied to the card with ``non_blocking=True``; an
+    event recorded behind that copy must have completed before the buffer
+    is filled again. So the host fills batch i+1 while the card still
+    copies and computes batch i, and no copy reads a buffer being refilled.
+    On the CPU the array becomes the batch as it is (each ``host_pull``
+    returns a new one)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._slots: dict = {}  # key -> [[buffer, event] x 2, next index]
+
+    def __call__(self, key: tuple, batch):
+        if isinstance(batch, dict):
+            return {k: self(key + (k,), v) for k, v in batch.items()}
+        arr = np.ascontiguousarray(batch)
+        if not self.cuda:
+            return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        slot = self._slots.get(key)
+        if slot is None:
+            slot = self._slots[key] = [[None, torch.cuda.Event()],
+                                       [None, torch.cuda.Event()], 0]
+        i = slot[2]
+        slot[2] ^= 1
+        buf, done = slot[i]
+        done.synchronize()  # the copy out of this buffer has landed
+        src = torch.from_numpy(arr)
+        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+            buf = slot[i][0] = torch.empty(src.shape, dtype=src.dtype,
+                                           pin_memory=True)
+        buf.copy_(src)
+        dev = buf.to(self.device, non_blocking=True)
+        done.record()
+        return dev
 
 
 class _Chunk:
@@ -278,6 +326,8 @@ class Runner:
         self._thread: threading.Thread | None = None
         self._exc: str | None = None
         self._has_pacing = any(getattr(b, "pacing", None) for b in self.cfg.order)
+        self._has_host_io = any(getattr(b, "host_io", False)
+                                for b in self.cfg.order)
         self._chunk: _Chunk | None = None
         self._collect_acc: dict[str, Any] = {}  # combine_collected folds
         self._dropped_items: dict[str, int] = {}  # ring-trimmed items a sink
@@ -296,6 +346,11 @@ class Runner:
 
     def request_stop(self) -> None:
         self._stop.set()
+        # a host-I/O block waiting on a socket or ring stops within one
+        # poll, not one receive timeout
+        for b in self.cfg.order:
+            if hasattr(b, "request_abort"):
+                b.request_abort()
 
     def init_states(self) -> dict:
         return self.cfg.init_states(self.device)
@@ -340,10 +395,13 @@ class Runner:
                 b._runtime = None
 
     def _can_graph(self) -> bool:
-        """The reference's ``_can_scan``: no pacing, messages,
-        checkpoints or stats, so every batch can stay on the device."""
-        return not (self._has_pacing or self._msg_queue or self.resume_from
-                    or self.checkpoint_path or self.collect_stats)
+        """The reference's ``_can_scan``: no host I/O, pacing, messages,
+        checkpoints or stats, so every batch can stay on the device. Host
+        I/O rules a captured graph out for good: it would replay the first
+        staged batch's address."""
+        return not (self._has_host_io or self._has_pacing or self._msg_queue
+                    or self.resume_from or self.checkpoint_path
+                    or self.collect_stats)
 
     def _run_loop(self, n_batches: int, unbounded: bool = False) -> None:
         with self.param_lock:
@@ -354,32 +412,46 @@ class Runner:
         else:
             states = self.init_states()
         per_sink: dict[str, list] = {name: [] for name in self.cfg.sink_totals}
+        pullers = [b for b in self.cfg.order if hasattr(b, "host_pull")]
+        pushers = {b.name: b for b in self.cfg.order if hasattr(b, "host_push")}
+        stage = _Staging(self.device)
         t0, done = time.monotonic(), start
-        for i in range(start, n_batches):
-            if self._stop.is_set():
-                break
-            bt0 = time.monotonic()
-            self._drain_msgs()
-            with self.param_lock:
-                dirty, self._dirty_params = self._dirty_params, set()
-                for name in dirty:
-                    params[name] = self._block(name).param_leaves(self.device)
-                states, sink_out = self.cfg.step(states, params)
-            for name, v in sink_out.items():
-                per_sink.setdefault(name, []).append(v)
-            if unbounded:
-                self._bound_collections(per_sink, per_batch=True)
-            done = i + 1
-            if self.checkpoint_path and self.checkpoint_every \
-                    and done % self.checkpoint_every == 0:
-                self._save_checkpoint(states, done)
-            if self.collect_stats:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.stats["batch_seconds"].append(time.monotonic() - bt0)
-            self.stats["batches"] += 1
-            self.stats["items"] += self.cfg.batch_ref
-            self._pace((done - start) * self.cfg.batch_ref, t0)
+        try:
+            for i in range(start, n_batches):
+                if self._stop.is_set():
+                    break
+                bt0 = time.monotonic()
+                self._drain_msgs()
+                host_ins = {b.name: stage((b.name,),
+                                          b.host_pull(self.cfg.n_out[b.name]))
+                            for b in pullers}
+                with self.param_lock:
+                    dirty, self._dirty_params = self._dirty_params, set()
+                    for name in dirty:
+                        params[name] = self._block(name).param_leaves(self.device)
+                    states, sink_out = self.cfg.step(states, params, host_ins)
+                for name, v in sink_out.items():
+                    if name in pushers:  # streaming egress, batch by batch
+                        pushers[name].host_push(_host(v))
+                    else:
+                        per_sink.setdefault(name, []).append(v)
+                if unbounded:
+                    self._bound_collections(per_sink, per_batch=True)
+                done = i + 1
+                if self.checkpoint_path and self.checkpoint_every \
+                        and done % self.checkpoint_every == 0:
+                    self._save_checkpoint(states, done)
+                if self.collect_stats:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self.stats["batch_seconds"].append(time.monotonic() - bt0)
+                self.stats["batches"] += 1
+                self.stats["items"] += self.cfg.batch_ref
+                self._pace((done - start) * self.cfg.batch_ref, t0)
+        except StreamAborted as e:
+            # a local stop inside a host-I/O block: the stream ends here
+            # and what was collected is delivered
+            log.info("stream aborted: %s", e)
         if self.checkpoint_path:
             self._save_checkpoint(states, done)
         self._deliver({k: _stack(v) for k, v in per_sink.items() if v})
@@ -500,12 +572,13 @@ class Runner:
     def _check_unbounded_sinks(self) -> None:
         for name in self.cfg.sink_totals:
             b = self._block(name)
-            if hasattr(b, "combine_collected") \
+            if hasattr(b, "host_push") or hasattr(b, "combine_collected") \
                     or getattr(b, "collect_capacity", None) is not None:
                 continue
             raise ValueError(
                 f"sink {name!r} collects an UNBOUNDED stream into host "
-                f"memory: give it a capacity (vector_sink(capacity=...)) or "
+                f"memory: give it a capacity (vector_sink(capacity=...)), "
+                f"use a streaming sink (a socket, ZMQ or audio sink) or "
                 f"bound the stream (head block / total_items)")
 
     def _bound_collections(self, per_sink: dict[str, list],

@@ -18,7 +18,7 @@ from newsched_tpu.ops import fec as jf
 from newsched_tpu_torch.blocks import fec as tfecb, general as tgen
 from newsched_tpu_torch.ops import fec as tf
 from newsched_tpu_torch.ops.cuda import _build, fec as kfec
-from newsched_tpu_torch.runtime.block import SyncBlock
+from newsched_tpu_torch.runtime.blockspec import block_from_yaml
 from newsched_tpu_torch.runtime.graph import Flowgraph
 
 CODES = [(jf.CC_K7_POLYS, 7), ((0o7, 0o5), 3)]
@@ -164,16 +164,17 @@ def test_interleave_roundtrip():
         tf.block_interleave(torch.from_numpy(x), rows=7)
 
 
-class _bits_to_llr(SyncBlock):
-    """ri16 hard bits -> rf32 +-1 LLRs (the reference test's YAML block)."""
-
-    def __init__(self, name=None):
-        super().__init__(name)
-        self.add_input("in", "ri16")
-        self.add_output("out", "rf32")
-
-    def work(self, state, ins, params, nout):
-        return state, {"out": 2.0 * ins["in"].to(torch.float32) - 1.0}
+# ri16 hard bits -> rf32 +-1 LLRs, from a descriptor as the reference's test
+# builds it (tests/test_fec.py::test_fec_graph_end_to_end), in torch
+_bits_to_llr = block_from_yaml("""
+module: fec
+block: bits_to_llr
+label: Hard bits to LLR
+ports:
+  - {domain: stream, id: in,  direction: input,  type: ri16}
+  - {domain: stream, id: out, direction: output, type: rf32}
+expr: "2.0 * in_.to(torch.float32) - 1.0"
+""")
 
 
 @pytest.mark.parametrize("interleave", [False, True])
