@@ -318,7 +318,34 @@ Phases (each failure raises, so the script exits nonzero):
  58. times: the file-fed fused and staged graphs in loop mode, ms a batch
      and Msamples/s (the median of 3 runs over the file) and the card's
      busy share in a traced run, beside the same graphs fed from memory in
-     graph mode and phase 34's cells.
+     graph mode and phase 34's cells;
+ 59. partitions (runtime/distributed.py, io/zmtp.py): config #2 fused noise
+     (K4 -> K3) at full width split by partition_flowgraph into "dsp" and
+     "tail", run by Runtime.run() on two threads, about 1 MB of audio a
+     batch through the port's ZMTP over TCP loopback, counted, 16 batches
+     bit-equal to the unpartitioned graph; its ms a batch and busy share
+     beside the same graph unpartitioned in the runner's loop on the same
+     host clock (a file_sink to os.devnull keeps it out of graph mode), its
+     graph-mode device step and the transport alone;
+ 60. config #1 fused (K8 -> K10) at full width in a child process
+     (``chip_smoke.py --radio``, the kernels loaded from the parent's
+     build), tuned to 200 kHz under a keyed ControlServer (runtime/
+     control.py); this process pulls its audio over TCP, and once it holds
+     the first batch retunes it to 290 kHz; an unkeyed client and a frame
+     that would open a file when unpickled refused, a replayed keyed frame
+     refused; one switched batch, every batch before it bit-equal to a
+     local run at 200 kHz, every one after it to one at 290 kHz; the edge
+     holds 2 batches at each end, so the child cannot run far ahead;
+ 61. the port's examples (newsched_tpu_torch/examples/) on the card, each
+     its main("cuda"), but yaml_block (PyYAML, which this machine lacks);
+ 62. the chains with the model's own 193-tap audio FIR, longer than their
+     128-row tile: K3 against its plain version and across tiles, K5
+     against K4 -> K3, K6 against K5, at M = 64, 128 and 512; the live
+     and the fused noise model with their default FIR bit-equal.
+
+``python3 chip_smoke.py --phases 59-62`` builds the kernels and runs
+phases 59-62 alone, checked as in the whole run, and prints their
+numbers as one JSON line, with no result line.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -4413,6 +4440,565 @@ def phase_file_fed_times(torch, path: str, card: str,
     return out
 
 
+# -- partitions: config #2 across an edge, config #1 in a child, examples ----
+
+PART_BATCHES = 16          # config #2 batches across the partition edge
+PART_TIME_RUNS = 3         # timed partitioned runs (the median kept)
+RADIO_BATCHES = 64         # config #1 batches the child partition sends
+RADIO_FC2 = 290e3          # the retune's centre (the reference example's)
+RADIO_BLOCK = "wbfm_rcv_fused_0"   # the child's one fused receiver
+CHILD_S = 300              # the longest the child may take
+RADIO_HWM = 2              # batches queued at each end of the radio edge
+TRANSPORT_MSGS = 32        # messages of phase 59's transport probe
+
+
+def free_tcp_address() -> str:
+    """tcp://127.0.0.1 at a port the OS picks."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"tcp://127.0.0.1:{port}"
+
+
+def partitioned_noise(addr: str):
+    """Config #2's fused noise graph (K4 -> K3) split into "dsp" (the
+    source, the chain and the head) and "tail" (the sink) at ``addr``:
+    (Runtime, the sink). The tail's batch is one batch of audio rows."""
+    from newsched_tpu_torch.runtime.distributed import (Runtime,
+                                                        partition_flowgraph)
+
+    fg, blks = flowgraph(None, PART_BATCHES)
+    tail = [blks["sink"]]
+    dsp = [b for b in fg.blocks if b is not blks["sink"]]
+    head = next(e.src for e in fg.edges if e.dst is blks["sink"])
+    parts = partition_flowgraph(fg, {"dsp": dsp, "tail": tail},
+                                addresses={(head.name, "out"): addr})
+    parts["tail"].batch_size = N_AUD
+    return Runtime(parts, total_items={"tail": PART_BATCHES * N_AUD},
+                   device="cuda"), blks["sink"]
+
+
+def transport_ms(nbytes: int) -> float:
+    """ms a message of ``nbytes`` through the port's ZMTP over TCP
+    loopback, PUSH to PULL in this process (median of TRANSPORT_MSGS
+    messages timed one by one, each sent when the last has arrived)."""
+    from newsched_tpu_torch.io import zmtp
+
+    addr = free_tcp_address()
+    tx, rx = zmtp.Socket(zmtp.PUSH), zmtp.Socket(zmtp.PULL)
+    rx.setsockopt(zmtp.RCVTIMEO, 60_000)
+    tx.bind(addr)
+    rx.connect(addr)
+    msg = bytes(nbytes)
+    times = []
+    try:
+        for _ in range(TRANSPORT_MSGS + 2):
+            t0 = time.perf_counter()
+            tx.send(msg)
+            got = rx.recv()
+            times.append(time.perf_counter() - t0)
+            require(len(got) == nbytes, "transport probe: short message")
+    finally:
+        tx.close(0)
+        rx.close(0)
+    return float(np.median(times[2:])) * 1e3
+
+
+def codec_ms(batch: np.ndarray) -> tuple[float, float]:
+    """ms of blocks/zmq.py's encode and decode of ``batch`` on the host
+    (the median of TRANSPORT_MSGS calls each)."""
+    from newsched_tpu_torch.blocks import zmq as zb
+
+    def med(fn):
+        times = []
+        for _ in range(TRANSPORT_MSGS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    msg = zb._encode_batch(batch)
+    return med(lambda: zb._encode_batch(batch)), med(lambda: zb._decode_batch(msg))
+
+
+def phase_partitioned(torch, fm_chain, noise, card: str) -> dict:
+    """59. Config #2 fused noise (K4 -> K3) at full width split across a
+    partition edge in this process: Runtime.run() of "dsp" and "tail" on
+    two threads, about 1 MB of audio a batch through the port's ZMTP over
+    TCP loopback, counted; the sink's array bit-equal to the unpartitioned
+    graph's over PART_BATCHES batches. Then its ms a batch (the median of
+    PART_TIME_RUNS runs) and the card's busy share in a traced run, beside
+    the same graph unpartitioned in the runner's loop on the same host
+    clock (``unpartitioned_loop``), its graph-mode device step and the
+    transport alone."""
+    import os
+
+    from newsched_tpu_torch.blocks import fileio
+
+    fg, blks = flowgraph(None, PART_BATCHES)
+    fg.run(device="cuda")
+    want = blks["sink"].data()
+    rt, snk = partitioned_noise(free_tcp_address())
+    zero_launches()
+    rt.run()
+    k3, k4 = fm_chain.fm_chain_step_planes.launches, noise.gaussian_rows.launches
+    got = snk.data()
+    same = got.shape == want.shape and got.tobytes() == want.tobytes()
+    log(f"partitioned #2 fused noise, {PART_BATCHES} batches over "
+        f"{rt.partitions['tail'].blocks[0].address}: {got.shape} bit-equal to "
+        f"the unpartitioned graph: {same}; K4 launched {k4}, K3 {k3}")
+    require(same, "partitioned #2 fused noise differs from the unpartitioned "
+            "graph")
+    require(k3 == PART_BATCHES and k4 == PART_BATCHES,
+            "partitioned #2 fused noise: K3 or K4 not once a batch")
+    gate(noise_rows(torch, noise, 2), got[:2 * N_AUD],
+         "partitioned #2 fused noise", "noise", n_batches=2)
+    walls, steady = [], []
+    for _ in range(PART_TIME_RUNS):
+        rt, _ = partitioned_noise(free_tcp_address())
+        edge = rt.partitions["tail"].blocks[0]
+        t0 = time.perf_counter()
+        rt.start()
+        require(edge.first_batch.wait(120), "partitioned: no first batch")
+        t1 = time.perf_counter()
+        rt.wait()
+        t2 = time.perf_counter()
+        walls.append((t2 - t0) / PART_BATCHES * 1e3)
+        steady.append((t2 - t1) / (PART_BATCHES - 1) * 1e3)
+    rt, _ = partitioned_noise(free_tcp_address())
+    wall, dev_ms, top = busy_run(torch, rt.run)
+    ms, ms_all = float(np.median(steady)), float(np.median(walls))
+    un = unpartitioned_loop(torch, lambda: fileio.file_sink(
+        os.devnull, dtype="rf32", vlen=(M,)))
+    fg, _ = flowgraph(None, None, sink="null")
+    step = fg_step_rate(torch, fg, "#2 fused noise, unpartitioned", card,
+                        BATCH, profile=False)
+    msg = int(got[:N_AUD].nbytes)
+    tr = transport_ms(msg)
+    enc, dec = codec_ms(got[:N_AUD])
+    busy = dev_ms / (wall * 1e3)
+    log(f"partitioned #2 fused noise (not a cell): {ms:.4f} ms a batch "
+        f"after the first (runs {', '.join(f'{v:.4f}' for v in steady)}) = "
+        f"{BATCH / ms / 1e3:.1f} Msamples/s; with the start-up "
+        f"{ms_all:.4f} (runs {', '.join(f'{v:.4f}' for v in walls)}); "
+        f"traced run {wall * 1e3 / PART_BATCHES:.4f} ms a batch, device "
+        f"{dev_ms / PART_BATCHES:.4f} ms a batch, busy {100 * busy:.1f}% "
+        f"(of the steady ms a batch {100 * dev_ms / PART_BATCHES / ms:.1f}%); "
+        f"unpartitioned in the loop on the same clock {un['ms']:.4f} ms a "
+        f"batch by the two-point fit (runs of {PART_BATCHES} and 1 batches: "
+        f"{', '.join(f'{v:.4f}' for v in un['whole'])} / "
+        f"{', '.join(f'{v:.4f}' for v in un['one'])} ms), with the start-up "
+        f"{un['ms_all']:.4f}, busy {100 * un['busy']:.1f}% of a traced run; "
+        f"its graph-mode device step {step:.4f} ms; the transport alone "
+        f"{tr:.4f} ms a {msg}-byte message, the wire format's encode "
+        f"{enc:.4f} ms and decode {dec:.4f} ms a batch [{card}]")
+    for d_ms, count, key in top:
+        log(f"  {d_ms / PART_BATCHES:.4f} ms a batch x{count / PART_BATCHES:g}"
+            f" {key[:100]}")
+    return {"K3": k3, "K4": k4, "ms": ms, "ms_all": ms_all, "busy": busy,
+            "unpartitioned": un, "step": step,
+            "transport": tr, "encode": enc, "decode": dec}
+
+
+def unpartitioned_loop(torch, sink) -> dict:
+    """Phase 59's graph unpartitioned, timed as the partitioned one is:
+    host seconds of ``fg.run`` in the runner's loop (``sink()`` makes a
+    host-I/O sink, so the graph is never captured; it collects as a
+    vector_sink does),
+    the median of PART_TIME_RUNS runs of PART_BATCHES batches and of one
+    batch. ms: the two-point fit, a batch past the first; ms_all: a run of
+    PART_BATCHES with its start-up, a batch; busy: device time over the
+    host time of one traced run of PART_BATCHES."""
+
+    def run(n: int) -> float:
+        fg, _ = flowgraph(None, n, sink=sink())
+        t0 = time.perf_counter()
+        fg.run(device="cuda")
+        return time.perf_counter() - t0
+
+    run(PART_BATCHES)  # warm: kernels loaded, plans made
+    whole, one = [], []
+    for _ in range(PART_TIME_RUNS):
+        whole.append(run(PART_BATCHES))
+        one.append(run(1))
+    w, o = float(np.median(whole)), float(np.median(one))
+    wall, dev_ms, _ = busy_run(torch, lambda: run(PART_BATCHES))
+    return {"ms": (w - o) / (PART_BATCHES - 1) * 1e3,
+            "ms_all": w / PART_BATCHES * 1e3,
+            "whole": [v / PART_BATCHES * 1e3 for v in whole],
+            "one": [v * 1e3 for v in one], "busy": dev_ms / (wall * 1e3)}
+
+
+class _Unpickled:
+    """Unpickling this opens ``path`` for writing: what a forged control
+    frame could make the server do, were it deserialized."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __reduce__(self):
+        return (open, (self.path, "w"))
+
+
+def radio_child(data_addr: str, ctl_addr: str, key_hex: str) -> int:
+    """Phase 60's child (``chip_smoke.py --radio DATA CTL KEY``): config
+    #1 fused, K8 -> K10, at full width on the card, tuned to 200 kHz, its
+    "radio" partition pushing RADIO_BATCHES batches of audio to
+    ``data_addr`` under a keyed ControlServer at ``ctl_addr``. Loads the
+    kernels the parent built and builds none. Prints one JSON line: whether
+    it compiled, its launches of K8 and K10, its seconds."""
+    import torch
+
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.blocks import analog
+    from newsched_tpu_torch.ops.cuda import _build, sources, wbfm_chain
+    from newsched_tpu_torch.runtime.distributed import (Runtime,
+                                                        partition_flowgraph)
+
+    if not torch.cuda.is_available():
+        return 2
+    t0 = time.monotonic()
+    compiled = bool(_build.build().log)
+    fg, blks = models.wbfm_receiver(
+        fs=WB_FS, center_freq=WB_FC, quad_rate_decim=WB_D,
+        audio_decim=(1, WB_RD), deviation=WB_DEV, fused=True,
+        source=analog.sig_source(WB_FS, "complex", frequency=WB_TONE),
+        batch_size=WB_BATCH, n_samples=RADIO_BATCHES * WB_NAUD * 64)
+    require(blks["fused"].name == RADIO_BLOCK, "radio: another block name")
+    head = next(e.src for e in fg.edges if e.dst is blks["sink"])
+    radio = [b for b in fg.blocks if b is not blks["sink"]]
+    parts = partition_flowgraph(fg, {"radio": radio, "audio": [blks["sink"]]},
+                                addresses={(head.name, "out"): data_addr},
+                                hwm=RADIO_HWM)
+    sources.nco_planes.launches = wbfm_chain.wbfm_chain_step.launches = 0
+    rt = Runtime({"radio": parts["radio"]}, control_addresses={"radio": ctl_addr},
+                 control_auth_key=bytes.fromhex(key_hex), device="cuda")
+    t_run = time.monotonic()
+    rt.run()
+    print(json.dumps({"compiled": compiled,
+                      "K8": sources.nco_planes.launches,
+                      "K10": wbfm_chain.wbfm_chain_step.launches,
+                      "run_s": time.monotonic() - t_run,
+                      "seconds": time.monotonic() - t0}), flush=True)
+    return 0
+
+
+def radio_local(fc: float) -> np.ndarray:
+    """Config #1 fused as the child runs it, unpartitioned, here, tuned to
+    ``fc``: (RADIO_BATCHES, audio a batch)."""
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.blocks import analog
+
+    fg, blks = models.wbfm_receiver(
+        fs=WB_FS, center_freq=fc, quad_rate_decim=WB_D,
+        audio_decim=(1, WB_RD), deviation=WB_DEV, fused=True,
+        source=analog.sig_source(WB_FS, "complex", frequency=WB_TONE),
+        batch_size=WB_BATCH, n_samples=RADIO_BATCHES * WB_NAUD * 64)
+    fg.run(device="cuda")
+    return blks["sink"].data().reshape(RADIO_BATCHES, -1)
+
+
+def control_refusals(ctl_addr: str, key: bytes, tmp: str) -> None:
+    """Phase 60's checks of the keyed server before the retune: an unkeyed
+    client refused; a frame that would open a file when unpickled refused
+    and the file never made; a keyed request's exact bytes answered once
+    (naming it) and refused when sent again."""
+    import os
+    import pickle
+
+    from newsched_tpu_torch.io import zmtp
+    from newsched_tpu_torch.runtime import control
+
+    rogue = control.RuntimeClient(ctl_addr, timeout_ms=CHILD_S * 1000)
+    try:
+        rogue.ping()
+        raise AssertionError("phase 60: the unkeyed client was served")
+    except RuntimeError as e:
+        log(f"unkeyed client refused: {e}")
+    finally:
+        rogue.close()
+    raw = zmtp.Socket(zmtp.REQ)
+    raw.setsockopt(zmtp.RCVTIMEO, CHILD_S * 1000)
+    raw.setsockopt(zmtp.SNDTIMEO, CHILD_S * 1000)
+    raw.connect(ctl_addr)
+    canary = os.path.join(tmp, "unpickled")
+    try:
+        raw.send(pickle.dumps({"op": "ping", "x": _Unpickled(canary)}))
+        rep = pickle.loads(raw.recv())
+        require(not rep["ok"] and not os.path.exists(canary),
+                "phase 60: an unkeyed frame was deserialized")
+        session = os.urandom(16)
+        frame = control.request_frame({"op": "get_param", "block": RADIO_BLOCK,
+                                       "param": "center_freq"}, key, session, 1)
+        raw.send(frame)
+        sess, n, body = control._split_guard(control._unseal(raw.recv(), key))
+        rep = pickle.loads(body)
+        require((sess, n) == (session, 1) and rep["ok"]
+                and float(rep["value"]) == WB_FC,
+                f"phase 60: the keyed request was not answered: {rep}")
+        raw.send(frame)
+        rep = pickle.loads(raw.recv())
+        require(not rep["ok"] and "replayed" in rep["error"],
+                f"phase 60: a replayed frame was served: {rep}")
+        log(f"keyed request answered (center_freq {float(WB_FC):.0f}); the "
+            f"same bytes again refused: {rep['error']}")
+    finally:
+        raw.close(0)
+
+
+def phase_retune(torch, sources, wbfm_chain, card: str) -> dict:
+    """60. Config #1 fused across a process boundary, retuned: a child
+    (subprocess, ``--radio``) runs the "radio" partition on the card, tuned
+    to 200 kHz under a keyed ControlServer; this process runs pull_source
+    -> head -> vector_sink on the card. Once it holds its first batch it
+    sets center_freq to 290 kHz over the keyed socket (no sleep decides
+    when). Checks: the refusals (control_refusals); one switched batch:
+    every batch before it bit-equal to a local unpartitioned run at 200
+    kHz, every batch after it bit-equal to one at 290 kHz; the child built
+    no kernel. The edge holds RADIO_HWM batches at each end, so the child
+    runs at most those and the TCP buffers' few ahead of what this process
+    has taken: the retune lands well before the last batch whatever the
+    two processes' timing."""
+    import os
+    import tempfile
+
+    from newsched_tpu_torch import Flowgraph
+    from newsched_tpu_torch.blocks import general, zmq as zb
+    from newsched_tpu_torch.runtime.control import RuntimeClient
+
+    before, after = radio_local(WB_FC), radio_local(RADIO_FC2)
+    require(not np.array_equal(before[-1], after[-1]),
+            "phase 60: the two tunings give the same audio")
+    data_addr, ctl_addr = free_tcp_address(), free_tcp_address()
+    key = os.urandom(32)
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--radio", data_addr,
+         ctl_addr, key.hex()], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    n_aud = WB_NAUD * 64
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            control_refusals(ctl_addr, key, tmp)
+        fg = Flowgraph(batch_size=n_aud)
+        src = zb.pull_source(data_addr, bind=False, dtype="rf32",
+                             timeout_s=CHILD_S, rcvhwm=RADIO_HWM)
+        hd = general.head(RADIO_BATCHES * n_aud, dtype="rf32")
+        snk = general.vector_sink(dtype="rf32")
+        fg.connect(src, 0, hd, 0)
+        fg.connect(hd, 0, snk, 0)
+        t0 = time.monotonic()
+        runner = fg.start(device="cuda")
+        ctl = RuntimeClient(ctl_addr, timeout_ms=CHILD_S * 1000, auth_key=key)
+        try:
+            require(src.first_batch.wait(CHILD_S), "phase 60: no first batch")
+            t_first = time.monotonic()
+            ctl.set_param(RADIO_BLOCK, "center_freq", RADIO_FC2)
+            t_set = time.monotonic()
+        finally:
+            ctl.close()
+        runner._thread.join(CHILD_S)
+        t_end = time.monotonic()
+        require(not runner._thread.is_alive(), "phase 60: the receiver hangs")
+        fg.wait()
+        out, err = child.communicate(timeout=CHILD_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate(timeout=60)
+    require(child.returncode == 0, f"phase 60: the child failed "
+            f"({child.returncode}):\n{err[-3000:]}")
+    rep = json.loads(out.strip().splitlines()[-1])
+    got = snk.data().reshape(RADIO_BATCHES, -1)
+    on_before = [np.array_equal(g, b) for g, b in zip(got, before)]
+    on_after = [np.array_equal(g, a) for g, a in zip(got, after)]
+    k = on_before.index(False) if False in on_before else RADIO_BATCHES
+    log(f"retuned #1 fused in a child, {RADIO_BATCHES} batches of {n_aud} "
+        f"audio samples: bit-equal to the 200 kHz run through batch {k - 1}, "
+        f"switched at batch {k} (equal to the 290 kHz run there: "
+        f"{k < RADIO_BATCHES and on_after[k]}), to the 290 kHz run from "
+        f"batch {k + 1} on: {all(on_after[k + 1:])}; first batch "
+        f"{t_first - t0:.2f} s after start, set_param answered in "
+        f"{(t_set - t_first) * 1e3:.2f} ms, the rest received at "
+        f"{(t_end - t_first) / (RADIO_BATCHES - 1) * 1e3:.4f} ms a batch "
+        f"(the child's run {rep['run_s'] / RADIO_BATCHES * 1e3:.4f} ms a "
+        f"batch, start-up included); the child: {rep} [{card}]")
+    require(0 < k < RADIO_BATCHES - 1, f"phase 60: the retune landed at "
+            f"batch {k} of {RADIO_BATCHES}")
+    require(all(on_before[:k]) and all(on_after[k + 1:]),
+            "phase 60: a batch is neither the 200 kHz run's nor the 290 kHz "
+            "run's")
+    require(not rep["compiled"], "phase 60: the child built kernels")
+    require(rep["K8"] == RADIO_BATCHES and rep["K10"] == RADIO_BATCHES,
+            f"phase 60: the child's K8/K10 not once a batch: {rep}")
+    return {"K8": rep["K8"], "K10": rep["K10"], "switch": k,
+            "ms": (t_end - t_first) / (RADIO_BATCHES - 1) * 1e3}
+
+
+EXAMPLES = ("channelizer", "fm_receiver", "live_flagship",
+            "sharded_channelizer", "distributed_pipeline",
+            "retune_live_receiver")
+
+
+def phase_examples() -> dict:
+    """61. The port's examples on the card, each its ``main("cuda")`` (each
+    asserts what its twin in examples/ does); yaml_block needs PyYAML,
+    which this machine lacks, and runs on the CPU only."""
+    import importlib
+
+    seconds = {}
+    for name in EXAMPLES:
+        t0 = time.monotonic()
+        importlib.import_module(f"newsched_tpu_torch.examples.{name}").main("cuda")
+        seconds[name] = time.monotonic() - t0
+        log(f"example {name}: passed on the card in {seconds[name]:.1f} s")
+    return seconds
+
+
+DEFAULT_A = 193            # the model's own audio FIR at 100 MS/s, 64 channels
+LONG_FIR_M = (64, 128, 512)  # chain_tile, chain_tile_stream, chain_tile_wide
+LONG_FIR_ROWS = 4096       # planes rows a batch of phase 62's kernel checks
+LONG_FIR_BATCHES = 4       # batches of phase 62's model runs
+
+
+def phase_long_audio_fir(torch, fm_chain, noise) -> dict:
+    """62. The chains with an audio FIR longer than their tile (ROADMAP
+    F4): the model's own 193 taps (DEFAULT_A) against a tile of 128 rows.
+    At M = 64, 128 and 512 (each of the three tile routines) K3 on two
+    carried batches of an M-station FM band within K3_TOL of its plain
+    version and bit-identical at tile 64; K5 from stream start bit-equal
+    to K4 * amp -> K3; K6 over 4 shards in one launch bit-equal to K5.
+    Then ``fm_channelizer(fused=True)`` with its default audio FIR at full
+    width: the live model (K5) bit-equal to the fused noise model (K4 ->
+    K3) over LONG_FIR_BATCHES batches, finite. Returns K3's worst error
+    and the models' launches."""
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.blocks import vector_dsp
+    from newsched_tpu_torch.ops import firdes
+    from newsched_tpu_torch.testing import planes_rows
+
+    n, worst = LONG_FIR_ROWS, 0.0
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    g0 = noise.group_tensor(0, "cuda")
+    chan_rate = 100e6 / 64
+    at = firdes.low_pass(1.0, chan_rate, 0.4 * chan_rate / DECIM,
+                         0.1 * chan_rate / DECIM)
+    require(len(at) == DEFAULT_A, f"phase 62: the default FIR has {len(at)} "
+            f"taps, not {DEFAULT_A}")
+    for m in LONG_FIR_M:
+        W = 2 * m
+        consts = vector_dsp.fm_channelizer_fused_planes(
+            m, firdes.prototype_channelizer_taps(m, L), at,
+            audio_decim=DECIM).consts("cuda")
+        rows = torch.from_numpy(planes_rows(fm_band(2 * n * m, "cuda", m),
+                                            m)).cuda()
+
+        def zero():
+            return (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+                    torch.zeros(DEFAULT_A - 1, W, **z))
+
+        def k3(step, **kw):
+            halo, prev, tail = zero()
+            outs = []
+            for b in range(2):
+                vb = rows[b * n:(b + 1) * n]
+                aud, prev, tail = step(vb, halo, prev, tail, consts, DECIM,
+                                       DEMOD_GAIN, **kw)
+                outs += [aud, prev, tail]
+                halo = vb[-16:].contiguous()
+            return outs
+
+        got = k3(fm_chain.fm_chain_step_planes)
+        err = max(float((g - r).abs().max()) for g, r in
+                  zip(got, k3(fm_chain.fm_chain_step_planes_plain)))
+        tiles = all(torch.equal(a, b) for a, b in
+                    zip(got, k3(fm_chain.fm_chain_step_planes, tile=64)))
+        k5 = fm_chain.fm_chain_gen_step(g0, amp, *zero(), consts, DECIM,
+                                        DEMOD_GAIN, n)
+        nrows = noise.gaussian_rows(g0, n_rows=n, width=W, seed=0,
+                                    device="cuda", amp=amp)
+        k4k3 = fm_chain.fm_chain_step_planes(nrows, *zero(), consts, DECIM,
+                                             DEMOD_GAIN)
+        k5_ok = all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3))
+        k6_ok = torch.equal(fm_chain.fm_chain_gen_warm_step(
+            g0, amp, consts, DECIM, DEMOD_GAIN, n // 4, warm=K6_WARM, nd=4),
+            k5[0])
+        log(f"A={DEFAULT_A} at M={m} ({n} rows, tile 128): K3 {err:.3e} from "
+            f"plain (tol {K3_TOL}), tile 64 bit-identical: {tiles}; K5 "
+            f"bit-equal to K4 * amp -> K3: {k5_ok}; K6 over 4 shards "
+            f"bit-equal to K5: {k6_ok}")
+        require(err <= K3_TOL and tiles and k5_ok and k6_ok,
+                f"A={DEFAULT_A} at M={m}: K3 {err:.3e} from plain, tiles "
+                f"{tiles}, K5 {k5_ok}, K6 {k6_ok}")
+        worst = max(worst, err)
+    out = {}
+    zero_launches()
+    for source in ("live", None):
+        fg, blks = models.fm_channelizer(
+            nchans=M, taps_per_arm=L, fused=True, source=source,
+            batch_size=BATCH, sink="vector",
+            n_samples=LONG_FIR_BATCHES * N_AUD)
+        require(len(blks["audio_taps"]) == DEFAULT_A,
+                "phase 62: the model's FIR is not its default")
+        fg.run(device="cuda")
+        out[source] = blks["sink"].data()
+    launches = {"K5": fm_chain.fm_chain_gen_step.launches,
+                "K3": fm_chain.fm_chain_step_planes.launches,
+                "K4": noise.gaussian_rows.launches}
+    same = np.array_equal(out["live"], out[None])
+    log(f"fm_channelizer(fused=True) with its default {DEFAULT_A}-tap audio "
+        f"FIR, {LONG_FIR_BATCHES} batches of {BATCH}: live {out['live'].shape} "
+        f"bit-equal to the fused noise model: {same}, finite: "
+        f"{bool(np.isfinite(out['live']).all())}; launches {launches}")
+    require(same and bool(np.isfinite(out["live"]).all())
+            and out["live"].shape == (LONG_FIR_BATCHES * N_AUD, M),
+            "phase 62: the default-FIR live model differs from the fused one")
+    require(all(v >= 1 for v in launches.values()),
+            f"phase 62: a kernel of the default-FIR models did not launch: "
+            f"{launches}")
+    return {"err": worst, "launches": launches}
+
+
+def late_phases(which: list) -> int:
+    """``chip_smoke.py --phases 59-62``: the build, then phases 59-62
+    alone (the partitions, the examples and the long audio FIR), each
+    checked as in the whole run; prints their numbers as one JSON line and
+    no result line. The only group it takes is 59-62."""
+    if which != ["59-62"]:
+        print("chip_smoke.py: --phases takes 59-62", file=sys.stderr)
+        return 2
+    from newsched_tpu_torch.ops.cuda import (_build, fm_chain, noise, sources,
+                                             wbfm_chain)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    _build.build()
+    log(f"build: {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
+    t59 = time.monotonic()
+    part = phase_partitioned(torch, fm_chain, noise, card)
+    radio = phase_retune(torch, sources, wbfm_chain, card)
+    t61 = time.monotonic()
+    phase_examples()
+    t62 = time.monotonic()
+    long_fir = phase_long_audio_fir(torch, fm_chain, noise)
+    log(f"phases 59-62: {time.monotonic() - t59:.1f} s (59-60 "
+        f"{t61 - t59:.1f}, 61 {t62 - t61:.1f}, 62 {time.monotonic() - t62:.1f})")
+    print(json.dumps({"partitioned": part, "retune": radio,
+                      "long_fir": long_fir, "card": card}), flush=True)
+    return 0
+
+
 # -- the least time of each kernel's work on the card ------------------------
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (published)
@@ -5004,6 +5590,19 @@ def main() -> int:
     log(f"phases 54-58: {time.monotonic() - t54:.1f} s (54 {t55 - t54:.1f}, "
         f"55-56 {t57 - t55:.1f}, 57 {t58 - t57:.1f}, 58 "
         f"{time.monotonic() - t58:.1f})")
+    # 59-62. partitions: config #2 across an edge, config #1 retuned in a
+    # child process, the examples; the chains past their tile's audio FIR
+    t59 = time.monotonic()
+    part = phase_partitioned(torch, fm_chain, noise, card)
+    t60 = time.monotonic()
+    radio = phase_retune(torch, sources, wbfm_chain, card)
+    t61 = time.monotonic()
+    phase_examples()
+    t62 = time.monotonic()
+    phase_long_audio_fir(torch, fm_chain, noise)
+    log(f"phases 59-62: {time.monotonic() - t59:.1f} s (59 {t60 - t59:.1f}, "
+        f"60 {t61 - t60:.1f}, 61 {t62 - t61:.1f}, 62 "
+        f"{time.monotonic() - t62:.1f})")
     for kid in ("S1", "S2"):
         ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
                                        main_loops["plain"][kid])
@@ -5055,9 +5654,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fm_chain_step_planes", "K3", "fm_chain.cu", "fm_chain.py:421",
               launches["fm_chain"] + k3_warm_launches + ff["launches"]["K3"]
-              + tcp_launches, k3_err),
+              + tcp_launches + part["K3"], k3_err),
         entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
-              launches["noise"], k4_err),
+              launches["noise"] + part["K4"], k4_err),
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
               staged["arm_fold_dft"] + ff["launches"]["K1"],
               fold_err["arm_fold_dft"]),
@@ -5067,12 +5666,13 @@ def main() -> int:
               live_launches, k5_err),
         entry("nco_planes", "K8", "sources.cu", "sources.py:44",
               wl["staged"]["K8"] + wl["fused"]["K8"]
-              + fir["launches"]["staged"]["K8"] + sharded["K8"], nco_err["K8"]),
+              + fir["launches"]["staged"]["K8"] + sharded["K8"] + radio["K8"],
+              nco_err["K8"]),
         entry("nco_folded", "K11", "sources.cu", "sources.py:91",
               wl["folded"]["K11"], nco_err["K11"]),
         entry("wbfm_chain_step", "K10", "wbfm_chain.cu", "wbfm_chain.py:364",
-              wl["fused"]["K10"] + wl["folded"]["K10"] + sharded["K10"],
-              k10_err),
+              wl["fused"]["K10"] + wl["folded"]["K10"] + sharded["K10"]
+              + radio["K10"], k10_err),
         entry("wbfm_chain_live_step", "K12", "wbfm_chain.cu",
               "wbfm_chain.py:452", wl["live"]["K12"] + sharded["K12"], k12_err),
         entry("fir_tone_step", "K9", "fir_source.cu", "fir_source.py:89",
@@ -5136,4 +5736,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--radio"]:
+        sys.exit(radio_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--phases"]:
+        sys.exit(late_phases(sys.argv[2:]))
     sys.exit(main())

@@ -14,17 +14,20 @@ Host-boundary blocks: a push/pub sink sends every batch as it is produced
 key registry (runtime/tags.py); a pull/sub source feeds ``host_pull`` and,
 with ``tag_capacity`` > 0, puts the received tags back on the device tag
 plane. PUSH/PULL blocks at the peer's high-water mark: the cross-process
-form of ring backpressure. ``zmq`` (pyzmq) is imported when a block
-starts, never at import.
+form of ring backpressure. The sockets are the port's own ZMTP 3.0
+(``io/zmtp.py``), which interoperates with libzmq peers; no pyzmq is
+needed.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 
 import numpy as np
 
+from newsched_tpu_torch.io import zmtp
 from newsched_tpu_torch.runtime.block import Block, StreamAborted
 from newsched_tpu_torch.utils.dtypes import port_dtype
 
@@ -89,17 +92,13 @@ class _zmq_sink_base(Block):
         self.vlen = tuple(vlen)
         self.add_input("in", self.dtype, self.vlen)
         self._sock = None
-        self._ctx = None
         self._items_sent = 0
         self._abort = False
 
     def start(self):
-        import zmq
-
-        self._ctx = zmq.Context.instance()
-        self._sock = self._ctx.socket(getattr(zmq, self.sock_type))
+        self._sock = zmtp.Socket(self.sock_type)
         if self.sndhwm is not None:
-            self._sock.setsockopt(zmq.SNDHWM, int(self.sndhwm))
+            self._sock.setsockopt(zmtp.SNDHWM, int(self.sndhwm))
         if self.bind:
             self._sock.bind(self.address)
         else:
@@ -114,18 +113,16 @@ class _zmq_sink_base(Block):
         this raises and the local runner's wait() surfaces it, instead of
         blocking on POLLOUT forever (reference: runtime_monitor mirrors
         EXIT in both directions across runtime_proxy, SURVEY.md §4.5)."""
-        import zmq
-
         deadline = (None if self.send_timeout_s is None
                     else time.monotonic() + self.send_timeout_s)
         while True:
             if self._abort:
                 raise StreamAborted(f"{self.name}: send aborted")
             try:
-                self._sock.send(data, flags=zmq.NOBLOCK)
+                self._sock.send(data, flags=zmtp.NOBLOCK)
                 return
-            except zmq.Again:
-                self._sock.poll(_POLL_MS, zmq.POLLOUT)
+            except zmtp.Again:
+                self._sock.poll(_POLL_MS, zmtp.POLLOUT)
                 if deadline is not None and time.monotonic() > deadline:
                     raise TimeoutError(
                         f"{self.name}: peer at {self.address} accepted no "
@@ -140,21 +137,17 @@ class _zmq_sink_base(Block):
         """Ship an abort frame so downstream partitions fail within one
         batch instead of waiting out their receive timeout (reference:
         runtime_monitor mirroring EXIT across runtime_proxy, SURVEY.md §4.5)."""
-        import zmq
-
         if self._sock is not None:
             try:
                 self._sock.send(_encode_batch(
                     np.empty((0,) + self.vlen, self.dtype.np_dtype), abort=True),
-                    flags=zmq.NOBLOCK)
-            except Exception:
+                    flags=zmtp.NOBLOCK)
+            except (zmtp.Again, zmtp.ZMTPError):
                 pass
 
     def stop(self):
         if self._sock is not None:
             try:
-                import zmq
-
                 # EOF delivery is bounded, not best-effort-once: retry up
                 # to eof_timeout so a live-but-backlogged peer still gets a
                 # clean end-of-stream, while a dead peer can never hang
@@ -168,13 +161,13 @@ class _zmq_sink_base(Block):
                 deadline = time.monotonic() + eof_timeout
                 while True:
                     try:
-                        self._sock.send(eof, flags=zmq.NOBLOCK)
+                        self._sock.send(eof, flags=zmtp.NOBLOCK)
                         break
-                    except zmq.Again:
+                    except zmtp.Again:
                         if time.monotonic() > deadline:
                             break
-                        self._sock.poll(_POLL_MS, zmq.POLLOUT)
-            except Exception:
+                        self._sock.poll(_POLL_MS, zmtp.POLLOUT)
+            except zmtp.ZMTPError:
                 pass
             self._sock.close(linger=1000)
             self._sock = None
@@ -234,12 +227,17 @@ class _zmq_source_base(Block):
     host_io = True
 
     def __init__(self, address: str, sock_type: str, bind: bool, dtype, vlen, name,
-                 timeout_s: float = 30.0, tag_capacity: int = 0):
+                 timeout_s: float = 30.0, tag_capacity: int = 0,
+                 rcvhwm: int | None = None):
         super().__init__(name)
         self.address = address
         self.sock_type = sock_type
         self.bind = bind
         self.timeout_s = timeout_s
+        # rcvhwm: received messages (batches) held before the socket stops
+        # reading; with the sender's sndhwm it bounds how far a producer
+        # can run ahead of this source's consumer.
+        self.rcvhwm = rcvhwm
         self.dtype = port_dtype(dtype)
         self.vlen = tuple(vlen)
         # tag_capacity > 0: re-emit received wire tags into the local tag
@@ -254,14 +252,16 @@ class _zmq_source_base(Block):
         self._pos = 0  # absolute items emitted
         self._pending_tags: list = []  # (abs_offset, key, values, payload)
         self._abort = False
+        # set once a batch has been received: a caller acts on the running
+        # stream (a retune, a stop) by waiting on it, not on a sleep
+        self.first_batch = threading.Event()
 
     def start(self):
-        import zmq
-
-        ctx = zmq.Context.instance()
-        self._sock = ctx.socket(getattr(zmq, self.sock_type))
+        self._sock = zmtp.Socket(self.sock_type)
+        if self.rcvhwm is not None:
+            self._sock.setsockopt(zmtp.RCVHWM, int(self.rcvhwm))
         if self.sock_type == "SUB":
-            self._sock.setsockopt(zmq.SUBSCRIBE, b"")
+            self._sock.setsockopt(zmtp.SUBSCRIBE, b"")
         if self.bind:
             self._sock.bind(self.address)
         else:
@@ -271,6 +271,7 @@ class _zmq_source_base(Block):
         self._pos = 0
         self._pending_tags = []
         self._abort = False
+        self.first_batch.clear()
 
     def request_abort(self) -> None:
         """Cross-thread: unblock a pending receive and end the stream
@@ -320,6 +321,7 @@ class _zmq_source_base(Block):
                 self._pending_tags.append((int(t[0]), str(t[1]), t[2],
                                            t[3] if len(t) > 3 else None))
             res = payload.astype(self.dtype.np_dtype, copy=False)
+            self.first_batch.set()
         self._residual = res
         if not self.tag_capacity:
             self._pos += nout
@@ -379,9 +381,10 @@ class pull_source(_zmq_source_base):
     """PULL socket source (reference zmq::pull_source)."""
 
     def __init__(self, address: str, bind: bool = False, dtype="cf32", vlen=(),
-                 timeout_s: float = 30.0, tag_capacity: int = 0, name=None):
+                 timeout_s: float = 30.0, tag_capacity: int = 0,
+                 rcvhwm: int | None = None, name=None):
         super().__init__(address, "PULL", bind, dtype, vlen, name, timeout_s,
-                         tag_capacity)
+                         tag_capacity, rcvhwm)
 
 
 class sub_source(_zmq_source_base):

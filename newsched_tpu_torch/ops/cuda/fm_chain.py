@@ -283,8 +283,7 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
         tile = _fit_tile(tile, W, A, L, decim, decim)
     if warm:
         _check_warm(warm, tile, A, decim)
-    if A - 1 > tile:
-        raise ValueError(f"audio tail {A-1} exceeds tile {tile}")
+    _check_audio_tail(A, n, tile if pipelined else n)
     if tile < H8:
         raise ValueError(f"tile {tile} < H8 {H8} (batch rows must be >= {H8})")
     if int(halo.shape[0]) != warm + H8:
@@ -323,6 +322,16 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
 fm_chain_step_planes.launches = 0
 fm_chain_step_planes.ag2_launches = 0
 fm_chain_step_planes.ag4_launches = 0
+
+
+def _check_audio_tail(A: int, n: int, rows: int) -> None:
+    """The audio FIR's A-1 rows of carried history must fit in the
+    ``n``-row batch, and for K3p, which carries it from tile to tile, in
+    its tile (``rows``); any other tile takes it, however short."""
+    if A - 1 > min(n, rows):
+        what = "batch rows" if rows >= n else "pipelined tile"
+        raise ValueError(f"audio tail {A - 1} exceeds the {what} "
+                         f"{min(n, rows)}")
 
 
 def _check_warm(warm: int, tile: int, A: int, decim: int) -> None:
@@ -427,11 +436,14 @@ def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int,
 def _fit_tile(tile: int, W: int, A: int, L: int, decim: int,
               unit: int) -> int:
     """The largest divisor of ``tile`` that is a multiple of ``unit``, at
-    least max(A-1, H8) rows and whose block fits in shared memory at W
-    lanes: the tile itself up to 128 rows at every width the kernels take
-    for the flagship's A and L. The tile changes no output bit; the
-    wrapper's checks see ``tile`` where none fits."""
-    least = max(A - 1, _round8(L - 1), 1)
+    least H8 rows and whose block fits in shared memory at W lanes: the
+    tile itself up to 128 rows at every width the kernels take for the
+    flagship's A and L. The tile may be shorter than the audio FIR's A-1
+    rows of history: each block rebuilds A rows before its tile, reading
+    tail0 only for rows before the batch, whichever tile they fall in. The
+    tile changes no output bit; the wrapper's checks see ``tile`` where
+    none fits."""
+    least = max(_round8(L - 1), 1)
     return next((d for d in range(tile, least - 1, -1)
                  if tile % d == 0 and d % unit == 0
                  and _chain_smem(d, A, L, 1, decim, W) <= _SMEM_MAX), tile)
@@ -528,8 +540,9 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
     n_loc = int(n_loc)
     H8 = _round8(L - 1)
     tile = _fit_tile(_pick_tile(n_loc, tile, decim), W, A, L, decim, decim)
-    if A - 1 > tile or tile < H8:
-        raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
+    _check_audio_tail(A, n_loc, n_loc)
+    if tile < H8:
+        raise ValueError(f"tile {tile} < H8 {H8} (batch rows must be >= {H8})")
     if int(carry0.shape[0]) != H8:
         raise ValueError(f"carry rows {carry0.shape[0]} != H8 = {H8}")
     ag = _audio_groups(tile, decim, A)
@@ -653,8 +666,9 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     if tile % noise.GROUP_ROWS:
         raise ValueError(f"tile {tile} not a multiple of the noise group "
                          f"({noise.GROUP_ROWS} rows)")
-    if A - 1 > tile or tile < H8:
-        raise ValueError(f"tile {tile} too small for A={A}, H8={H8}")
+    _check_audio_tail(A, n_loc, n_loc)
+    if tile < H8:
+        raise ValueError(f"tile {tile} < H8 {H8} (batch rows must be >= {H8})")
     if H8 > noise.GROUP_ROWS:
         raise ValueError(f"H8 {H8} > one noise group ({noise.GROUP_ROWS} "
                          f"rows): first-tile halo regeneration spans one group")

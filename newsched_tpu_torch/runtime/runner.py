@@ -352,6 +352,14 @@ class Runner:
             if hasattr(b, "request_abort"):
                 b.request_abort()
 
+    def abort_peers(self) -> None:
+        """This partition failed: every ZMQ sink ships an abort frame, so
+        the partitions downstream fail within one batch (reference:
+        runtime_monitor mirroring EXIT across runtime_proxy)."""
+        for b in self.cfg.order:
+            if hasattr(b, "send_abort"):
+                b.send_abort()
+
     def init_states(self) -> dict:
         return self.cfg.init_states(self.device)
 

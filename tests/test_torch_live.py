@@ -186,9 +186,16 @@ def test_live_source_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="draws"):
         fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
                                    GAIN, 256, draws=1)
-    with pytest.raises(ValueError, match="too small"):
+    with pytest.raises(ValueError, match="H8"):
         fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
-                                   GAIN, 256, tile=32)
+                                   GAIN, 256, tile=8)
+    # a tile shorter than the audio FIR's A-1 rows of history is taken
+    short = fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
+                                       GAIN, 256, tile=32)
+    whole = fm_chain.fm_chain_gen_step(0, 0.5, carry, prev, tail, consts, 8,
+                                       GAIN, 256)
+    for a, b in zip(short, whole):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="noise_draws"):
         tvd.fm_noise_channelizer_source(M, None, ataps, noise_draws=4)
     with pytest.raises(ValueError, match="generator"):

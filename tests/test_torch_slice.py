@@ -148,6 +148,39 @@ def test_fused_slice_default_noise_source_against_golden():
     assert fm_chain.fm_chain_step_planes.launches == 0
 
 
+def _default_taps_run(pkg, source, M, rows, nb):
+    gen, models = (jgen, jmodels) if pkg == "jax" else (tgen, tmodels)
+    kw = dict(interpret=True, precision=HIGHEST) if pkg == "jax" else {}
+    if isinstance(source, np.ndarray):
+        source = gen.vector_source(source, repeat=True)
+    fg, blks = models.fm_channelizer(
+        nchans=M, fused=True, source=source, batch_size=rows * M,
+        sink="vector", n_samples=nb * rows // 8, **kw)
+    if pkg == "jax":
+        fg.run()
+    else:
+        fg.run(device="cpu")
+    return blks["sink"].data(), blks["audio_taps"]
+
+
+def test_fused_model_default_audio_taps_match_reference():
+    """The model's own audio FIR (193 taps at 100 MS/s over 64 channels,
+    decimation 8), longer than the port's chain tile of 128 rows: the
+    fused replay model equals the reference's; the live model equals the
+    fused model on its noise stream bit for bit."""
+    M, rows, nb = 64, 512, 2
+    planes = testing.planes_rows(_noise_cf32(rows * M * 2, seed=7), M)
+    got, at = _default_taps_run("torch", planes, M, rows, nb)
+    ref, jat = _default_taps_run("jax", planes, M, rows, nb)
+    assert len(at) == len(jat) == 193
+    assert got.shape == ref.shape == (nb * rows // 8, M)
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
+    live, _ = _default_taps_run("torch", "live", M, rows, nb)
+    fused, _ = _default_taps_run("torch", None, M, rows, nb)
+    np.testing.assert_array_equal(live, fused)
+    assert fm_chain.fm_chain_gen_step.launches == 0
+
+
 def _handover_graph(pkg, x, M, L, A, decim):
     taps, at = _design(M, L, A, decim)
     gen, vd, Fg = ((jgen, jvd, JFlowgraph) if pkg == "jax"
