@@ -35,10 +35,10 @@ And the fused channelizer chain's pipelined form,
 more take the runner's graph mode (a captured CUDA graph of a chunk of
 steps, the reference's scan mode), which phase 30 holds against its loop
 mode. Then the same graphs sharded, ``fg.run(mesh=make_mesh(n))`` for n = 4 and 8 logical shards on
-the one card (``newsched_tpu_torch.parallel``): the live channelizer (K6
-per shard), the fused channelizer (K3 per shard with warm > 0), and the
-receiver's fused (K10 per shard) and live (K12) forms and the live FIR
-chain (K9), each against its unsharded graph.
+the one card (``newsched_tpu_torch.parallel``): the live channelizer (K6),
+the fused channelizer (K3 with warm > 0), and the receiver's fused (K10)
+and live (K12) forms and the live FIR chain (K9), each kernel once a
+batch over every shard, each graph against its unsharded graph.
 
 Phases (each failure raises, so the script exits nonzero):
   1. device: a CUDA device is required; its name and power limit;
@@ -138,18 +138,25 @@ Phases (each failure raises, so the script exits nonzero):
      launched once a batch (one grid over every shard), K5 never;
  27. the fused flowgraph over the replayed stream sharded over 4 and 8
      shards, 3 batches: bit-equal to the unsharded one, >= 95 dB; K3
-     launched n times a batch; on shard 1 of each mesh, K3 with warm > 0
-     within K3_TOL of its plain version off the branch cut, and K3p with
-     warm > 0 bit-equal to K3;
- 28. the wbfm fused (K8 -> K10 per shard) and live (K12 per shard) graphs
-     and the live fir_chain graph (K9 per shard) over 4 and 8 shards, 3
-     batches: bit-equal to their unsharded graphs, >= 60 dB each; launches
-     counted; K10, K12 and K9 on two shards of each mesh against their
-     plain versions;
+     launched once a batch (warm > 0, every shard in one launch); K3 over
+     every shard of a batch in one launch bit-equal to its shards' calls
+     one by one and within K3_TOL of its plain version with nd= off the
+     branch cut; on shard 1 of each mesh, K3 with warm > 0 within K3_TOL
+     of its plain version, and K3p with warm > 0 bit-equal to K3;
+ 28. the wbfm fused (K8 -> K10) and live (K12) graphs and the live
+     fir_chain graph (K9) over 4 and 8 shards, 3 batches: bit-equal to
+     their unsharded graphs, >= 60 dB each; K10, K12 and K9 launched once
+     a batch; K10, K12, K9 and K9's partitioned instance over every shard
+     of a batch in one launch, each bit-equal to its shards' calls one by
+     one and within its tolerance of its plain version with nd=;
  29. times: K6 at 8192 and 32768 rows and over the 4 and 8 shards of a
      batch in one launch, beside K5 and its plain version;
      the sharded live and fused flowgraph steps in Msamples/s (the
-     4-shard live step profiled);
+     4-shard live step profiled); the graph-mode steps (two-point fit) of
+     the #2 fused replay, #1 fused, #1 live and #0 live graphs unsharded
+     and on 4 and 8 shards, each sharded graph in its one launch a batch
+     and in the per-shard loop it ran before (probes/stages.py
+     ``shard_loops``), in turns;
  30. graph mode, the runner's default on the card (a captured CUDA graph
      of runtime/runner.py's GRAPH_CHUNK steps over the stream state on
      the card): every unsharded graph (config #2 fused replay, fused
@@ -1582,11 +1589,13 @@ def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
 def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
                         replay_out: np.ndarray) -> tuple[int, float]:
     """The fused flowgraph over the replayed stream on 4 and 8 shards:
-    bit-equal to the unsharded one, gated; K3 launched n times a batch.
-    Then, on shard 1 of each mesh, K3 with warm > 0 against its plain
-    version (K3_TOL off the branch cut) and the unsharded stream, and K3p
-    with warm > 0 against K3. Returns K3's launches with warm > 0 and the
-    worst error against the plain version."""
+    bit-equal to the unsharded one, gated; K3 launched once a batch. Then
+    K3 with warm > 0 over the batch's shards in one launch against its
+    shards' calls one by one (bit for bit), the unsharded stream and its
+    plain version with nd= (K3_TOL off the branch cut); on shard 1 of each
+    mesh, K3 with warm > 0 against its plain version and the unsharded
+    stream, and K3p with warm > 0 against K3. Returns K3's launches with
+    warm > 0 and the worst error against the plain version."""
     from newsched_tpu_torch.blocks import general
     from newsched_tpu_torch.parallel import make_mesh
 
@@ -1598,7 +1607,7 @@ def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
         k3 = fm_chain.fm_chain_step_planes.launches
         got = blks["sink"].data()
         log(f"launches on the fused path, {n} shards: fm_chain_step_planes {k3}")
-        require(k3 == 3 * n, f"fused on {n} shards: K3 not n times a batch")
+        require(k3 == 3, f"fused on {n} shards: K3 not once a batch")
         require(np.array_equal(got, replay_out[:3 * N_AUD]),
                 f"fused on {n} shards differs from the unsharded flowgraph")
         gate(np.concatenate([rows] * 4), got, f"fused flowgraph on {n} shards "
@@ -1611,6 +1620,41 @@ def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
     hr = K6_WARM + H8
     _, bad = golden(None, "replay")
     worst = 0.0
+    z1, zt = torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z)
+    halo0 = torch.zeros(hr, 2 * M, **z)  # stream start
+    vp = torch.cat([halo0, vb_all])
+    keep = ~bad[:N_AUD]
+    for n_dev, n_loc in zip(MESHES, K6_NLOC):
+        # the batch's n_dev shards in one launch, as the sharded graph
+        # launches K3: against the shards one by one, each after the warm
+        # + H8 rows before it, and the plain version's shards
+        before = fm_chain.fm_chain_step_planes.launches
+        one = fm_chain.fm_chain_step_planes(
+            vb_all, halo0, z1, zt, consts, DECIM, DEMOD_GAIN, warm=K6_WARM,
+            tile=128, nd=n_dev)[0]
+        once = fm_chain.fm_chain_step_planes.launches == before + 1
+        per = torch.cat([fm_chain.fm_chain_step_planes(
+            vb_all[d * n_loc:(d + 1) * n_loc], vp[d * n_loc:d * n_loc + hr],
+            z1, zt, consts, DECIM, DEMOD_GAIN, warm=K6_WARM, tile=128)[0]
+            for d in range(n_dev)])
+        plain = fm_chain.fm_chain_step_planes_plain(
+            vb_all, halo0, z1, zt, consts, DECIM, DEMOD_GAIN, K6_WARM,
+            nd=n_dev)[0]
+        require(once and torch.equal(one, per),
+                f"K3 warm > 0 over {n_dev} shards: not one launch, or "
+                f"differs from the shards one by one")
+        require(np.array_equal(one.cpu().numpy(), replay_out[:N_AUD]),
+                f"K3 warm > 0 over {n_dev} shards differs from the unsharded "
+                f"stream")
+        err = float(np.abs(one.cpu().numpy()
+                           - plain.cpu().numpy())[keep].max())
+        log(f"K3 with warm={K6_WARM} over the {n_dev} shards of a batch in "
+            f"one launch: bit-equal to the {n_dev} shards one by one and to "
+            f"the unsharded stream; vs plain (nd={n_dev}) {err:.3e} on "
+            f"{int(keep.sum())} unmasked samples (tol {K3_TOL})")
+        require(err <= K3_TOL, f"K3 warm > 0 over {n_dev} shards: disagrees "
+                f"with its plain version")
+        worst = max(worst, err)
     for n_dev, n_loc in zip(MESHES, K6_NLOC):
         args = (vb_all[n_loc:2 * n_loc], vb_all[n_loc - hr:n_loc],
                 torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z),
@@ -1639,60 +1683,86 @@ def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
 
 
 def shard_kernels_vs_plain(torch, wbfm_chain, fir_source, n: int) -> dict:
-    """Shards 0 and 1 of an n-shard batch through K10, K12 and K9 as the
-    sharded blocks call them (K10 from a zero carry, then from shard 0's
-    boundary rows; K12 and K9 at each shard's phase offset, stream start
-    on shard 0 only), each against its plain version: K10_TOL (carry
-    equal), K10_TOL, K9_TOL of max|out|. Returns each kernel's worst
-    error."""
+    """K10, K12, K9 and K9's partitioned instance over the n shards of a
+    batch in one launch, as the sharded blocks launch them (K10 from a
+    zero carry, each shard from the one before's boundary rows; K12 and K9
+    at each shard's phase offset, stream start on shard 0 only): each one
+    launch, bit-equal to its shards' calls one by one, and against its
+    plain version with nd=: K10_TOL (carry equal), K10_TOL, K9_TOL of
+    max|out|. Returns each kernel's worst error."""
     from newsched_tpu_torch.ops import nco
 
     plan, consts, _, _ = wb_plan()
     seg = WB_BATCH // n
-    x = fm_signal(2 * seg, torch)
+    x = fm_signal(WB_BATCH, torch)
     dp = nco.freq_to_dphase(WB_TONE, WB_FS)
+    dp9 = nco.freq_to_dphase(FIR_FREQ, FIR_FS)
     _, taps = fir_taps(torch)
-    seg9, dp9 = FIR_BATCH // n, nco.freq_to_dphase(FIR_FREQ, FIR_FS)
-    carry = torch.zeros(plan.B8, 128, device="cuda")
-    errs = {"K10": 0.0, "K12": 0.0, "K9": 0.0}
-    for d in range(2):
-        xp = wbfm_chain.fold_planes(x[d * seg:(d + 1) * seg])
-        aud, bot = wbfm_chain.wbfm_chain_step(xp, carry, plan, consts)
-        ref, bot_p = wbfm_chain.wbfm_chain_step_plain(xp, carry, plan, consts)
-        require(torch.equal(bot, bot_p), f"K10 shard {d} of {n}: carry differs "
-                f"from its plain version's")
-        errs["K10"] = max(errs["K10"], float((aud - ref).abs().max()))
-        carry = bot
-        ph, first = nco.nco_advance(0x12345678, dp, seg * d), d == 0
-        got = wbfm_chain.wbfm_chain_live_step(ph, dp, 0.8, first, plan, consts,
-                                              seg // 64)
-        ref = wbfm_chain.wbfm_chain_live_step_plain(ph, dp, 0.8, first, plan,
-                                                    consts, seg // 64)
-        errs["K12"] = max(errs["K12"], float((got - ref).abs().max()))
-        ph = nco.nco_advance(0, dp9, seg9 * d)
-        got = fir_source.fir_tone_step(ph, dp9, 0.8, first, taps, 1, seg9 // 64)
-        ref = fir_source.fir_tone_step_plain(ph, dp9, 0.8, first, taps, 1,
-                                             seg9 // 64)
-        err = float((got - ref).abs().max())
-        require(err <= K9_TOL * float(ref.abs().max()),
-                f"K9 shard {d} of {n}: disagrees with its plain version")
-        errs["K9"] = max(errs["K9"], err)
-    log(f"shards 0-1 of {n}: K10 ({seg // 64} rows), K12 ({seg // 64} rows), "
-        f"K9 ({seg9 // 64} rows) vs plain: max abs err {errs['K10']:.3e}, "
-        f"{errs['K12']:.3e}, {errs['K9']:.3e} (tol {K10_TOL}, {K10_TOL}, "
-        f"{K9_TOL} of max|out|)")
-    require(errs["K10"] <= K10_TOL and errs["K12"] <= K10_TOL,
-            f"K10/K12 on a shard of {n}: disagree with their plain versions")
+    taps_p = wide_taps(torch, 1024)[1]
+    carry0 = torch.zeros(plan.B8, 128, device="cuda")
+    ph = 0x12345678
+
+    def once(fn, counter, attr="launches"):
+        before = getattr(counter, attr)
+        out = fn()
+        require(getattr(counter, attr) == before + 1,
+                f"{counter.__name__}.{attr}: not one launch over {n} shards")
+        return out
+
+    xp = wbfm_chain.fold_planes(x, n)
+    aud, carry = once(lambda: wbfm_chain.wbfm_chain_step(
+        xp, carry0, plan, consts, nd=n), wbfm_chain.wbfm_chain_step)
+    ref, carry_p = wbfm_chain.wbfm_chain_step_plain(xp, carry0, plan, consts,
+                                                    nd=n)
+    per, c = [], carry0
+    for d in range(n):
+        a, c = wbfm_chain.wbfm_chain_step(wbfm_chain.fold_planes(
+            x[d * seg:(d + 1) * seg]), c, plan, consts)
+        per.append(a)
+    got = {"K10": (aud, ref, torch.cat(per))}
+    require(torch.equal(carry, carry_p) and torch.equal(carry, c),
+            f"K10 over {n} shards: carry differs")
+    args = (ph, dp, 0.8, True, plan, consts, seg // 64)
+    got["K12"] = (
+        once(lambda: wbfm_chain.wbfm_chain_live_step(*args, nd=n),
+             wbfm_chain.wbfm_chain_live_step),
+        wbfm_chain.wbfm_chain_live_step_plain(*args, nd=n),
+        torch.cat([wbfm_chain.wbfm_chain_live_step(*args, shard=d)
+                   for d in range(n)]))
+    for kid, tp, attr in (("K9", taps, "launches"),
+                          ("K9p", taps_p, "partitioned_launches")):
+        args = (0, dp9, 0.8, True, tp, 1, FIR_R // n)
+        got[kid] = (
+            once(lambda: fir_source.fir_tone_step(*args, nd=n),
+                 fir_source.fir_tone_step, attr),
+            fir_source.fir_tone_step_plain(*args, nd=n),
+            torch.cat([fir_source.fir_tone_step(*args, shard=d)
+                       for d in range(n)]))
+    errs = {}
+    for kid, (one, ref, per) in got.items():
+        require(torch.equal(one, per), f"{kid} over {n} shards in one launch "
+                f"differs from the shards one by one")
+        errs[kid] = float((one - ref).abs().max())
+        tol = (K9_TOL * float(ref.abs().max()) if kid.startswith("K9")
+               else K10_TOL)
+        require(errs[kid] <= tol, f"{kid} over {n} shards: disagrees with its "
+                f"plain version")
+    log(f"one launch over {n} shards: K10 ({seg // 64} rows a shard), K12, "
+        f"K9 and K9 at 1024 taps ({FIR_R // n} rows a shard) each bit-equal "
+        f"to its shards one by one; vs plain (nd={n}) max abs err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {K10_TOL}, {K10_TOL}, {K9_TOL} of max|out|)")
     return errs
 
 
 def phase_sharded_receivers(torch, sources, wbfm_chain, fir_source, wb: dict,
                             fir: dict) -> tuple[dict, dict]:
-    """The wbfm fused (sig_source K8 -> K10 per shard) and live (K12) graphs
-    and the live fir_chain (K9) on 4 and 8 shards, 3 batches: bit-equal to
-    their unsharded graphs, >= 60 dB; launches counted. Then one shard's
-    K10, K12 and K9 call of each mesh against its plain version. Returns
-    the launches and each kernel's worst error."""
+    """The wbfm fused (sig_source K8 -> K10) and live (K12) graphs and the
+    live fir_chain (K9) on 4 and 8 shards, 3 batches: bit-equal to their
+    unsharded graphs, >= 60 dB; each kernel launched once a batch over
+    every shard. Then K10, K12 and K9's two instances over each mesh's
+    shards in one launch against their shards one by one and their plain
+    versions. Returns the launches and each kernel's worst error."""
     from newsched_tpu_torch.parallel import make_mesh
     from newsched_tpu_torch.testing import snr_db
 
@@ -1706,12 +1776,12 @@ def phase_sharded_receivers(torch, sources, wbfm_chain, fir_source, wb: dict,
                 form = kind.split()[1]
                 fg, blks = wb_graph(form, 3)
                 unsharded, ref, gate_db = wb["audio"][form], wb["ref"], WB_GATE_DB
-                want = ({"K8": 3, "K10": 3 * n} if form == "fused"
-                        else {"K12": 3 * n})
+                want = ({"K8": 3, "K10": 3} if form == "fused"
+                        else {"K12": 3})
             else:
                 fg, blks = fir_graph("live", 3 * FIR_BATCH)
                 unsharded, ref = fir["out"]["live"], fir["ref"]
-                gate_db, want = FIR_GATE_DB, {"K9": 3 * n}
+                gate_db, want = FIR_GATE_DB, {"K9": 3}
             for k in kernels.values():
                 k.launches = 0
             fg.run(device="cuda", mesh=make_mesh(n))
@@ -1734,6 +1804,28 @@ def phase_sharded_receivers(torch, sources, wbfm_chain, fir_source, wb: dict,
                                            n).items():
             errs[k] = max(errs.get(k, 0.0), e)
     return launches, errs
+
+
+def phase_sharded_steps(card: str) -> list:
+    """29b. The graph-mode steps (the bench's two-point fit, CUDA events)
+    of the #2 fused replay (K3 at warm > 0), #1 fused (K8 -> K10), #1
+    live (K12) and #0 live (K9) graphs unsharded and on 4 and 8 shards,
+    each sharded graph in its one launch a batch and in the per-shard loop
+    it ran before (probes/stages.py, a cut copy), in turns (forward, then
+    backward); the best of each beside the unsharded step."""
+    from newsched_tpu_torch.probes import stages
+
+    t0 = time.monotonic()
+    recs = stages.sharded_steps(shards=MESHES)
+    one = {r["cell"]: r["ms"] for r in recs if r["shards"] == 1}
+    for r in recs:
+        log(f"sharded step, {r['cell']}, {r['shards']} shard(s), "
+            f"{r['form']}: graph mode {r['ms']:.4f} ms a step (runs "
+            + ", ".join(f"{m:.4f}" for m in r["ms_all"])
+            + f"), {r['ms'] / one[r['cell']]:.3f}x the unsharded step "
+            f"{one[r['cell']]:.4f} [{card}]")
+    log(f"phase 29b: {time.monotonic() - t0:.1f} s")
+    return recs
 
 
 # -- graph mode: the runner's captured chunks against its loop ---------------
@@ -5492,12 +5584,13 @@ def main() -> int:
         f"shard's {K6_ROWS} rows {t['K6 one shard']} ms, {ROWS} rows "
         f"{t['K6 at 32768']} ms); K5 at {ROWS} rows {t['K5 beside K6']} ms; "
         f"plain (4 shards) {t['K6 plain']} ms [{card}]")
-    # one sharded step is profiled: each is its shards' kernels in a row
+    # one sharded step is profiled
     for n in MESHES:
         step_rate(torch, "live", f"live, {n} shards", card, mesh=make_mesh(n),
                   profile=n == MESHES[0])
         step_rate(torch, general.vector_source(rows, repeat=True),
                   f"replay, {n} shards", card, mesh=make_mesh(n), profile=False)
+    phase_sharded_steps(card)
     # 30-33. graph mode against the loop, parameter changes, the on-card
     # counters, the probes against their plain versions
     graph_launches = phase_graph_mode(rows, wb, fir)
@@ -5535,6 +5628,7 @@ def main() -> int:
     # 40-43. K9 past the FFT's taps; the chains and K1 past 64 channels
     t40 = time.monotonic()
     k9p = phase_k9_part(torch, fir_source)
+    k9p["err"] = max(k9p["err"], shard_err["K9p"])  # phase 28's one launch
     t41 = time.monotonic()
     wide_err = phase_wide_kernels(torch, fm_chain, noise)
     wide_err["K3"] = max(wide_err["K3"],

@@ -367,9 +367,10 @@ class wbfm_rcv_fused(_wbfm_chain_block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """Each time shard folds its own segment and runs K10 on it; its
-        junction is the B8 boundary rows of its left neighbour's fold
-        (shard 0: the carry), and the new carry the last shard's."""
+        """Each time shard's segment folded on its own (one op for all),
+        then K10 over every shard in one launch: shard d's junction is the
+        B8 boundary rows of its left neighbour's fold (shard 0: the carry),
+        and the new carry the last shard's."""
         if self.input_format == "folded":
             raise NotImplementedError(
                 "wbfm_rcv_fused(input_format='folded') has per-batch fold "
@@ -377,18 +378,12 @@ class wbfm_rcv_fused(_wbfm_chain_block):
                 "under fg.run(mesh=...)")
         nd = mesh.shape[axis]
         x = ins["in"]
-        consts = self.consts(x.device)
-        auds, bots = [], []
-        for d, seg in enumerate(x.chunk(nd)):
-            xp = wbfm_chain.fold_planes(seg)
-            aud, bot = wbfm_chain.wbfm_chain_step(
-                xp, bots[-1] if d else state["carry"], self.plan, consts,
-                tile=self.tile)
-            auds.append(wbfm_chain.unfold_audio(aud))
-            bots.append(bot)
+        aud, carry = wbfm_chain.wbfm_chain_step(
+            wbfm_chain.fold_planes(x, nd), state["carry"], self.plan,
+            self.consts(x.device), tile=self.tile, nd=nd)
         # the reference's psum of the last shard's boundary rows, the one
         # contributor
-        return {"carry": bots[-1]}, {"out": torch.cat(auds)}
+        return {"carry": carry}, {"out": wbfm_chain.unfold_audio(aud, nd)}
 
 
 class sig_source_folded(Block):
@@ -489,18 +484,18 @@ class wbfm_live_source(_wbfm_chain_block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K12 per time shard at its own phase offset (the kernel's shard
-        index): zero collectives."""
+        """K12 over every time shard in one launch, each at its own phase
+        offset (the kernel's shard index, from its grid): zero
+        collectives."""
         nd = mesh.shape[axis]
         S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
         n_loc = int(nout) * D * Rd // nd  # samples a shard
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
-        consts = self.consts(a.device)
-        auds = [wbfm_chain.unfold_audio(wbfm_chain.wbfm_chain_live_step(
-            ph, dp, a, state["first"], self.plan, consts, n_loc // S,
-            tile=self.tile, shard=d)) for d in range(nd)]
+        aud = wbfm_chain.wbfm_chain_live_step(
+            ph, dp, a, state["first"], self.plan, self.consts(a.device),
+            n_loc // S, tile=self.tile, nd=nd)
         return (_live_advance(state, dp, int(nout) * D * Rd),
-                {"out": torch.cat(auds)})
+                {"out": wbfm_chain.unfold_audio(aud, nd)})
 
 
 class fir_tone_source(Block):
@@ -570,17 +565,17 @@ class fir_tone_source(Block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K9 per time shard at its own phase offset (the kernel's shard
-        index): zero collectives."""
+        """K9 over every time shard in one launch, each at its own phase
+        offset (the kernel's shard index, from its grid) and with its own
+        transform alignment: zero collectives."""
         nd = mesh.shape[axis]
         R_loc = self._fold_rows(int(nout) // nd)
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
-        taps = self.dev_taps(a.device)
-        outs = [fir_source.unfold_complex(fir_source.fir_tone_step(
-            ph, dp, a, state["first"], taps, self.decim, R_loc,
-            tile=self.tile, shard=d)) for d in range(nd)]
+        out = fir_source.fir_tone_step(
+            ph, dp, a, state["first"], self.dev_taps(a.device), self.decim,
+            R_loc, tile=self.tile, nd=nd)
         return (_live_advance(state, dp, int(nout) * self.decim),
-                {"out": torch.cat(outs)})
+                {"out": fir_source.unfold_complex(out, nd)})
 
 
 def _live_state(device) -> dict:

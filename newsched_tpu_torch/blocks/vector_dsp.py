@@ -246,8 +246,9 @@ class fm_channelizer_fused_planes(_fused_chain):
         return {"carry": carry, "prev": prev, "atail": atail}, {"out": aud}
 
     # -- graph-level sharding: under fg.run(mesh=...) the block runs
-    # parallel.channelizer.ShardedFMChannelizer.step_planes, K3 per time
-    # shard with warm > 0 after a time_halo of warm + H8 rows.
+    # parallel.channelizer.ShardedFMChannelizer.step_planes, K3 with warm >
+    # 0 over every time shard in one launch, each shard's halo the warm +
+    # H8 rows before it.
 
     def _sharded_pipe(self, mesh, axis):
         from newsched_tpu_torch.parallel.channelizer import ShardedFMChannelizer

@@ -93,14 +93,17 @@ __host__ __device__ __forceinline__ int smem_float2(const Part& p) {
 }
 
 // One block: segments [blockIdx.y*GS, +GS), batch rows [r0, r0+T) with r0 =
-// blockIdx.x * T. The phase counter, its increment and the first-batch flag
-// are read from the card; time shard `shard` starts shard * 64 * R samples
-// into the batch, and only shard 0 has samples before the stream.
+// blockIdx.x * T, of time shard `shard0` + blockIdx.z (one launch takes the
+// nd shards of a sharded graph's batch, each R rows, its output rows after
+// the shard before's; as in fir_source.cu, each keeps its own alignment).
+// The phase counter, its increment and the first-batch flag are read from
+// the card; time shard `shard` starts shard * 64 * R samples into the
+// batch, and only shard 0 has samples before the stream.
 __global__ void __launch_bounds__(kThreads, 1)
 fir_part_kernel(const long long* __restrict__ phase,
                 const long long* __restrict__ dphase,
                 const float* __restrict__ amp,
-                const unsigned char* __restrict__ first, int shard,
+                const unsigned char* __restrict__ first, int shard0,
                 mathfns::SinCosCoeffs sc, Part p,
                 const __grid_constant__ CUtensorMap omap) {
   extern __shared__ __align__(128) float2 sm2[];
@@ -109,6 +112,8 @@ fir_part_kernel(const long long* __restrict__ phase,
   const int gs_shift = __ffs(GS) - 1;
   const int r0 = blockIdx.x * T;
   const int s0 = blockIdx.y * GS;
+  const int shard = shard0 + blockIdx.z;
+  const int ob = blockIdx.z * (p.R / D);  // the shard's first output row
   const float a = amp[0];
   const mathfns::NcoPos pos =
       mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * p.R);
@@ -220,7 +225,7 @@ fir_part_kernel(const long long* __restrict__ phase,
       fence_async_shared();
       __syncthreads();
       if (tid == 0) {
-        const int row = (r0 + iq * kL) / D;
+        const int row = ob + (r0 + iq * kL) / D;
         for (int b = 0; b < p.BR; b += kBox) {
           tma_store(&omap, ot + kG * b, s0 + sl0, row + b);
           tma_store(&omap, ot + kG * (p.BR + b), kSegs + s0 + sl0, row + b);
@@ -252,7 +257,7 @@ fir_part_kernel(const long long* __restrict__ phase,
         vr[u] = v.x;
         vi[u] = v.y;
       }
-      float* row = p.out + (long long)(r0 / D + o) * kW + s0 + 4 * c;
+      float* row = p.out + (long long)(ob + r0 / D + o) * kW + s0 + 4 * c;
       if (ok[0] && ok[1] && ok[2] && ok[3]) {
         *reinterpret_cast<float4*>(row) = make_float4(vr[0], vr[1], vr[2], vr[3]);
         *reinterpret_cast<float4*>(row + kSegs) =
@@ -275,12 +280,14 @@ fir_part_kernel(const long long* __restrict__ phase,
 
 extern "C" int fir_part_launch(const long long* phase, const long long* dphase,
                                const float* amp, const unsigned char* first,
-                               int shard, const float* tab, float* out, int R,
-                               int D, int T, int GS, int NQ, int P, int BR,
-                               const float* sincos_coeffs, void* stream) {
+                               int shard, int nd, const float* tab, float* out,
+                               int R, int D, int T, int GS, int NQ, int P,
+                               int BR, const float* sincos_coeffs,
+                               void* stream) {
   const Part p{tab, out, R, D, T, GS, NQ, P, BR};
   if (D <= 0 || T <= 0 || T % D || R % T || GS < 8 || kSegs % GS ||
-      (GS & (GS - 1)) || NQ <= 0 || P <= 0 || shard < 0 || BR < 0)
+      (GS & (GS - 1)) || NQ <= 0 || P <= 0 || shard < 0 || BR < 0 ||
+      nd < 1 || nd > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap omap{};
   if (BR) {
@@ -290,7 +297,7 @@ extern "C" int fir_part_launch(const long long* phase, const long long* dphase,
       return (int)cudaErrorInvalidValue;
     const EncodeTiled encode = encode_tiled();
     if (!encode) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[2] = {(cuuint64_t)kW, (cuuint64_t)(R / D)};
+    const cuuint64_t dims[2] = {(cuuint64_t)kW, (cuuint64_t)nd * (R / D)};
     const cuuint64_t strides[1] = {(cuuint64_t)kW * sizeof(float)};
     const cuuint32_t box[2] = {(cuuint32_t)kG, (cuuint32_t)min(BR, kBox)};
     const cuuint32_t estrides[2] = {1, 1};
@@ -304,7 +311,7 @@ extern "C" int fir_part_launch(const long long* phase, const long long* dphase,
   const cudaError_t err = cudaFuncSetAttribute(
       fir_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R / T, kSegs / GS);
+  const dim3 grid(R / T, kSegs / GS, nd);
   fir_part_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs), p,
       omap);

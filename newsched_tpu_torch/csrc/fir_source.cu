@@ -107,16 +107,21 @@ __host__ __device__ __forceinline__ int smem_float2(const Fir& p) {
 }
 
 // One block: segments [blockIdx.y*GS, +GS), batch rows [r0, r0+T) with r0
-// = blockIdx.x * T. The phase counter, its increment and the first-batch
-// flag are read from the card (the stream state of the runner's captured
-// graph); time shard `shard` starts shard * 64 * R samples into the batch,
-// and only shard 0 has samples before the stream.
+// = blockIdx.x * T, of time shard `shard0` + blockIdx.z (one launch takes
+// the nd shards of a sharded graph's batch, each R rows, its output rows
+// after the shard before's). The phase counter, its increment and the
+// first-batch flag are read from the card (the stream state of the
+// runner's captured graph); time shard `shard` starts shard * 64 * R
+// samples into the batch, and only shard 0 has samples before the stream.
+// A block computes what a launch of its shard alone computes: its
+// transforms align to that shard's own index j, so the one launch keeps
+// each shard's alignment and bits.
 template <int Q>
 __global__ void __launch_bounds__(kThreads, 2)
 fir_tone_kernel(const long long* __restrict__ phase,
                 const long long* __restrict__ dphase,
                 const float* __restrict__ amp,
-                const unsigned char* __restrict__ first, int shard,
+                const unsigned char* __restrict__ first, int shard0,
                 mathfns::SinCosCoeffs sc, Fir p,
                 const __grid_constant__ CUtensorMap omap) {
   using Gq = Geo<Q>;
@@ -128,6 +133,8 @@ fir_tone_kernel(const long long* __restrict__ phase,
   const int gs_shift = __ffs(GS) - 1;
   const int r0 = blockIdx.x * T;
   const int s0 = blockIdx.y * GS;
+  const int shard = shard0 + blockIdx.z;
+  const int ob = blockIdx.z * (p.R / D);  // the shard's first output row
   const float a = amp[0];
   const mathfns::NcoPos pos =
       mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * p.R);
@@ -233,8 +240,8 @@ fir_tone_kernel(const long long* __restrict__ phase,
       fence_async_shared();
       __syncthreads();
       if (tid == 0) {
-        tma_store(&omap, ot, s0, r0 / D + o_a);
-        tma_store(&omap, ot + p.BR * GS, kSegs + s0, r0 / D + o_a);
+        tma_store(&omap, ot, s0, ob + r0 / D + o_a);
+        tma_store(&omap, ot + p.BR * GS, kSegs + s0, ob + r0 / D + o_a);
       }
       continue;  // the next round's first barrier orders the tile's reuse
     }
@@ -256,7 +263,7 @@ fir_tone_kernel(const long long* __restrict__ phase,
         vr[u] = v.x;
         vi[u] = v.y;
       }
-      float* row = p.out + (long long)(r0 / D + o) * kW + s0 + 4 * c;
+      float* row = p.out + (long long)(ob + r0 / D + o) * kW + s0 + 4 * c;
       if (ok[0] && ok[1] && ok[2] && ok[3]) {
         *reinterpret_cast<float4*>(row) = make_float4(vr[0], vr[1], vr[2], vr[3]);
         *reinterpret_cast<float4*>(row + kSegs) =
@@ -277,7 +284,7 @@ fir_tone_kernel(const long long* __restrict__ phase,
 
 template <int Q>
 int launch(const long long* phase, const long long* dphase, const float* amp,
-           const unsigned char* first, int shard, Fir p,
+           const unsigned char* first, int shard, int nd, Fir p,
            const float* sincos_coeffs, cudaStream_t stream) {
   using Gq = Geo<Q>;
   const size_t smem = (size_t)smem_float2<Q>(p) * sizeof(float2);
@@ -287,8 +294,8 @@ int launch(const long long* phase, const long long* dphase, const float* amp,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap omap{};
   if (p.BR) {
-    // the output (R/D rows of 128 floats), a box of GS lanes x BR rows; the
-    // map holds the output's address, so a captured graph replays it
+    // the output (nd R/D rows of 128 floats), a box of GS lanes x BR rows;
+    // the map holds the output's address, so a captured graph replays it
     // whole rounds of whole rows only: a round's outputs fill its box
     const int per_round = Gq::G / p.GS * Gq::L / p.D;
     if (p.R % Gq::L || p.T % Gq::L || Gq::G % p.GS || Gq::L % p.D ||
@@ -296,7 +303,8 @@ int launch(const long long* phase, const long long* dphase, const float* amp,
       return (int)cudaErrorInvalidValue;
     const EncodeTiled encode = encode_tiled();
     if (!encode) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[2] = {(cuuint64_t)kW, (cuuint64_t)(p.R / p.D)};
+    const cuuint64_t dims[2] = {(cuuint64_t)kW,
+                                (cuuint64_t)nd * (p.R / p.D)};
     const cuuint64_t strides[1] = {(cuuint64_t)kW * sizeof(float)};
     const cuuint32_t box[2] = {(cuuint32_t)p.GS, (cuuint32_t)p.BR};
     const cuuint32_t estrides[2] = {1, 1};
@@ -306,7 +314,7 @@ int launch(const long long* phase, const long long* dphase, const float* amp,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(p.R / p.T, kSegs / p.GS);
+  const dim3 grid(p.R / p.T, kSegs / p.GS, nd);
   fir_tone_kernel<Q><<<grid, kThreads, smem, stream>>>(
       phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs), p,
       omap);
@@ -317,20 +325,20 @@ int launch(const long long* phase, const long long* dphase, const float* amp,
 
 extern "C" int fir_tone_launch(const long long* phase, const long long* dphase,
                                const float* amp, const unsigned char* first,
-                               int shard, const float* tab, float* out, int R,
-                               int Q, int D, int T, int GS, int NQ, int off,
-                               int WR, int PW, int BR,
+                               int shard, int nd, const float* tab, float* out,
+                               int R, int Q, int D, int T, int GS, int NQ,
+                               int off, int WR, int PW, int BR,
                                const float* sincos_coeffs, void* stream) {
   const Fir p{tab, out, R, D, T, GS, NQ, off, WR, PW, BR};
   if (D <= 0 || T <= 0 || T % D || R % T || GS < 8 || kSegs % GS ||
       (GS & (GS - 1)) || PW < GS || NQ <= 0 || WR <= 0 || off < 0 ||
-      BR < 0 || BR > 256 || shard < 0)
+      BR < 0 || BR > 256 || shard < 0 || nd < 1 || nd > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (Q) {
-    case 8: return launch<8>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
-    case 16: return launch<16>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
-    case 32: return launch<32>(phase, dphase, amp, first, shard, p, sincos_coeffs, s);
+    case 8: return launch<8>(phase, dphase, amp, first, shard, nd, p, sincos_coeffs, s);
+    case 16: return launch<16>(phase, dphase, amp, first, shard, nd, p, sincos_coeffs, s);
+    case 32: return launch<32>(phase, dphase, amp, first, shard, nd, p, sincos_coeffs, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,6 +37,16 @@
 // (sources.cu), so K12's outputs equal K11 -> K10's bit for bit. Before
 // the stream (first batch, sample index < 0) the samples are 0.
 //
+// Time shards (a sharded graph's batch): one launch takes every shard,
+// the shard the grid's z dimension. Shard z is a batch of R rows of its
+// own, folded on its own and written to its own R/(D*Rd) audio rows. K10's
+// shard z reads its rows at xp + z R rows and, before them, shard z-1's
+// last B8 rows where they lie in xp (shard 0: carry), which is what a
+// launch a shard from the previous shard's bottom rows read; K12's is
+// shard `shard` + z, at its phase offset. So the audio equals the
+// per-shard launches' bit for bit. K10 keeps a one-shard instance for
+// nd = 1, the unsharded graphs' (BatchRows<false>).
+//
 // Bound on the H100 at config #1 (81 channel taps, D = 4, 121 resampler
 // taps, Rd = 5, R = 32640): this formulation does 8 flops per complex tap,
 // 522,240 xlate outputs, and 2 per resampler tap, 104,448 outputs: 0.36
@@ -91,8 +101,8 @@ constexpr int kW = 2 * kSegs;
 struct Wbfm {
   const float2* crot;   // (ntaps,) rotated channel taps (re, im)
   const float* rtaps;   // (A,) resampler taps
-  float* aud;           // (R / (D*Rd), 128) audio, duplicated halves
-  int R, ntaps, D, Rd, A;
+  float* aud;           // (nd R / (D*Rd), 128) audio, duplicated halves
+  int R, ntaps, D, Rd, A;  // R: rows a shard
   int T;                // batch rows per block tile (To = T / (D*Rd))
   int GS;               // segments per block
   int P;                // shared row stride of the sample planes (>= GS)
@@ -184,10 +194,10 @@ __device__ __forceinline__ void xlate_outputs(const float* xr,
 }
 
 // One block: segments [blockIdx.y*GS, +GS), audio rows [o0, o0+To) with
-// o0 = blockIdx.x * To. `ld` stages the block's samples: ld.stage(xre,
-// xim, at, s, k) puts segment s's k-th sample of the batch (k >= -B8) at
-// xre[at], xim[at], now or by an asynchronous copy that ld.finish() waits
-// for (each thread its own).
+// o0 = blockIdx.x * To, of shard blockIdx.z. `ld` stages the block's
+// samples: ld.stage(xre, xim, at, s, k) puts segment s's k-th sample of
+// the shard (k >= -B8) at xre[at], xim[at], now or by an asynchronous copy
+// that ld.finish() waits for (each thread its own).
 template <class Loader>
 __device__ __forceinline__ void wbfm_tile(float* sm, const Wbfm& p,
                                           const Loader& ld) {
@@ -271,7 +281,10 @@ __device__ __forceinline__ void wbfm_tile(float* sm, const Wbfm& p,
 
   // 3. y[o0 + o] = sum_k r[k] * d[(o0+o)*Rd - k], to both halves: 4
   //    segments a thread where GS allows (16-byte reads of d), each summed
-  //    on its own in ascending k.
+  //    on its own in ascending k. The shard's audio rows follow the shards
+  //    before it (its pointer made here, not live through stages 1-2).
+  float* const aud =
+      p.aud + (long long)ld.shard() * (p.R / (D * p.Rd)) * kW;
   if (GS % 4 == 0) {
     const int q_shift = gs_shift - 2;
     for (int e = tid; e < To << q_shift; e += nth) {
@@ -287,7 +300,7 @@ __device__ __forceinline__ void wbfm_tile(float* sm, const Wbfm& p,
         acc.z = fmaf(r, v.z, acc.z);
         acc.w = fmaf(r, v.w, acc.w);
       }
-      float* row = p.aud + (long long)(o0 + o) * kW + s0 + c;
+      float* row = aud + (long long)(o0 + o) * kW + s0 + c;
       *reinterpret_cast<float4*>(row) = acc;
       *reinterpret_cast<float4*>(row + kSegs) = acc;
     }
@@ -297,21 +310,35 @@ __device__ __forceinline__ void wbfm_tile(float* sm, const Wbfm& p,
       const float* col = dd + (o * p.Rd + p.A) * GS + sl;
       float acc = 0.f;
       for (int k = 0; k < p.A; ++k) acc = fmaf(rt[k], col[-k * GS], acc);
-      float* row = p.aud + (long long)(o0 + o) * kW;
+      float* row = aud + (long long)(o0 + o) * kW;
       row[s0 + sl] = acc;
       row[kSegs + s0 + sl] = acc;
     }
   }
 }
 
-// K10: samples read from the folded batch xp (R, 128), by asynchronous
-// 8-byte copies of two segments (4-byte ones where the row stride is
-// odd); before row 0, from the previous segment's last rows, or for
-// segment 0 from carry (B8, 128), the previous batch's last rows.
+// K10: samples read from the folded batch xp (nd R, 128), shard z's R
+// rows from row z R, by asynchronous 8-byte copies of two segments (4-byte
+// ones where the row stride is odd); before the shard's row 0, from the
+// previous segment's last rows, or for segment 0 from the previous shard's
+// last B8 rows (shard 0: carry (B8, 128), the previous batch's). The
+// shard's rows are offsets from the kernel's arguments, made where they are
+// read, so no pointer of the shard stays live in registers (one that did
+// made the kernel spill). !kShards (nd = 1, the unsharded graphs) leaves
+// the shard's offsets out, which cost the one-shard launch ~3% on the
+// card (PERF.md).
+template <bool kShards>
 struct BatchRows {
   const float* xp;
   const float* carry;
   int B8, R;
+  __device__ __forceinline__ static int shard() {
+    return kShards ? (int)blockIdx.z : 0;
+  }
+  // row k of shard z (k < 0: the shard before's row R + k)
+  __device__ __forceinline__ const float* batch_row(long long k) const {
+    return xp + ((long long)shard() * R + k) * kW;
+  }
   template <int B>
   __device__ __forceinline__ static void copy(float* dst, const float* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
@@ -322,7 +349,7 @@ struct BatchRows {
   __device__ __forceinline__ void stage2(float* xre, float* xim, int at, int s,
                                          int k) const {
     if (k >= 0) {
-      const float* row = xp + (long long)k * kW + s;
+      const float* row = batch_row(k) + s;
       copy<8>(xre + at, row);
       copy<8>(xim + at, row + kSegs);
     } else {
@@ -333,7 +360,7 @@ struct BatchRows {
   __device__ __forceinline__ void stage(float* xre, float* xim, int at, int s,
                                         int k) const {
     if (k >= 0) {
-      const float* row = xp + (long long)k * kW + s;
+      const float* row = batch_row(k) + s;
       copy<4>(xre + at, row);
       copy<4>(xim + at, row + kSegs);
       return;
@@ -341,10 +368,10 @@ struct BatchRows {
     const float* row;
     int lane = s;
     if (s > 0) {
-      row = xp + (long long)(R + k) * kW;
+      row = batch_row(R + k);
       lane = s - 1;
     } else {
-      row = carry + (long long)(B8 + k) * kW;
+      row = shard() ? batch_row(k) : carry + (long long)(B8 + k) * kW;
       lane = kSegs - 1;
     }
     xre[at] = __ldg(row + lane);
@@ -356,23 +383,26 @@ struct BatchRows {
   }
 };
 
+template <bool kShards>
 __global__ void __launch_bounds__(kMaxThreads)
 wbfm_chain_kernel(const float* __restrict__ xp, const float* __restrict__ carry,
                   int B8, Wbfm p) {
   extern __shared__ __align__(16) float sm[];
-  wbfm_tile(sm, p, BatchRows{xp, carry, B8, p.R});
+  wbfm_tile(sm, p, BatchRows<kShards>{xp, carry, B8, p.R});
 }
 
 // K12: samples generated from the NCO's phase counter (on the card): sample
-// index s*R + k of the batch (negative: the previous batch, by the uint32
-// wrap; 0 before the stream on the stream's first batch, the flag `first`
-// on the card, which only time shard 0 of a batch reads).
+// index s*R + k of the shard (negative: the previous shard or batch, by the
+// uint32 wrap; 0 before the stream on the stream's first batch, the flag
+// `first` on the card, which only time shard 0 of a batch reads). Block
+// z's shard is `shard` + z.
 struct ToneRows {
   mathfns::NcoPos pos;
   float a;
   bool b0;
   int R;
   mathfns::SinCosCoeffs sc;
+  __device__ __forceinline__ static int shard() { return blockIdx.z; }
   __device__ __forceinline__ void stage(float* xre, float* xim, int at, int s,
                                         int k) const {
     mathfns::nco_folded_sample(pos.ph0, pos.dp, a, b0, R, s, k, sc, xre + at,
@@ -390,9 +420,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 wbfm_live_kernel(const long long* __restrict__ phase,
                  const long long* __restrict__ dphase,
                  const float* __restrict__ amp,
-                 const unsigned char* __restrict__ first, int shard,
+                 const unsigned char* __restrict__ first, int shard0,
                  mathfns::SinCosCoeffs sc, Wbfm p) {
   extern __shared__ __align__(16) float sm[];
+  const int shard = shard0 + blockIdx.z;
   const mathfns::NcoPos pos =
       mathfns::nco_pos(phase, dphase, (long long)shard * kSegs * p.R);
   wbfm_tile(sm, p,
@@ -425,19 +456,22 @@ int set_smem(Kernel kernel, const Wbfm& p, size_t* smem) {
 
 extern "C" int wbfm_chain_launch(const float* xp, const float* carry,
                                  const float* crot, const float* rtaps,
-                                 float* aud, int R, int ntaps, int D, int Rd,
+                                 float* aud, int R, int nd, int ntaps, int D,
+                                 int Rd,
                                  int A, int B8, int T, int GS, int P, int NT,
                                  int CU, float cos_t, float sin_t, float gain,
                                  const float* atan_coeffs, void* stream) {
   const Wbfm p = make(crot, rtaps, aud, R, ntaps, D, Rd, A, T, GS, P, NT, CU,
                       cos_t, sin_t, gain, atan_coeffs);
-  if (bad_geometry(p) || R < B8) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(p) || R < B8 || nd < 1 || nd > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      nd > 1 ? wbfm_chain_kernel<true> : wbfm_chain_kernel<false>;
   size_t smem;
-  const int err = set_smem(wbfm_chain_kernel, p, &smem);
+  const int err = set_smem(kernel, p, &smem);
   if (err) return err;
-  const dim3 grid(R / T, kSegs / GS);
-  wbfm_chain_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(xp, carry, B8,
-                                                              p);
+  const dim3 grid(R / T, kSegs / GS, nd);
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(xp, carry, B8, p);
   return (int)cudaGetLastError();
 }
 
@@ -445,7 +479,7 @@ extern "C" int wbfm_live_launch(const long long* phase,
                                 const long long* dphase, const float* amp,
                                 const unsigned char* first, int shard,
                                 const float* crot,
-                                const float* rtaps, float* aud, int R,
+                                const float* rtaps, float* aud, int R, int nd,
                                 int ntaps, int D, int Rd, int A, int B8, int T,
                                 int GS, int P, int NT, int CU, float cos_t,
                                 float sin_t, float gain,
@@ -453,11 +487,12 @@ extern "C" int wbfm_live_launch(const long long* phase,
                                 const float* sincos_coeffs, void* stream) {
   const Wbfm p = make(crot, rtaps, aud, R, ntaps, D, Rd, A, T, GS, P, NT, CU,
                       cos_t, sin_t, gain, atan_coeffs);
-  if (bad_geometry(p) || R < B8 || shard < 0) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(p) || R < B8 || shard < 0 || nd < 1 || nd > 65535)
+    return (int)cudaErrorInvalidValue;
   size_t smem;
   const int err = set_smem(wbfm_live_kernel, p, &smem);
   if (err) return err;
-  const dim3 grid(R / T, kSegs / GS);
+  const dim3 grid(R / T, kSegs / GS, nd);
   wbfm_live_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       phase, dphase, amp, first, shard, mathfns::load_sincos(sincos_coeffs),
       p);

@@ -1,7 +1,8 @@
 """Config #4's sharded flagship: the fused FM-channelizer kernel (K3) run
 PER TIME SHARD of a mesh, each shard's halo rows taken from its
-neighbour and its state rebuilt by warm-up rows, the audio kept in time
-order (reference: examples/sharded_channelizer.py).
+neighbour and its state rebuilt by warm-up rows, every shard of a batch
+in one launch, the audio kept in time order (reference:
+examples/sharded_channelizer.py).
 
 The port's mesh is logical shards on one device (``parallel/mesh.py``), so
 this runs on one card, or here on the CPU. It checks the sharded output

@@ -64,16 +64,16 @@ SIGNATURES = {
     "nco_planes_launch": [_P, _P, _P, _LL, _P, _P, _P, _P],
     "nco_folded_launch": [_P, _P, _P, _I, _P, _P, _P],
     # fir_source.cu
-    "fir_tone_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P, _P],
+    "fir_tone_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P, _P],
     # fir_part.cu
-    "fir_part_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P, _P],
+    "fir_part_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P],
     # wbfm_chain.cu
     "wbfm_chain_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _F, _F, _F, _P, _P],
+                          _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "wbfm_live_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
     # probes.cu
     "window_copy_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "planes_unpack_launch": [_P, _P, _P, _P, _I, _I, _P],

@@ -267,29 +267,33 @@ def plan(R: int, D: int, ntaps: int, tile=None, seg_group: int | None = None):
 
 
 def fir_tone_step_plain(phase0, dphase, amp, first, taps, decim: int, R: int,
-                        shard: int = 0):
+                        shard: int = 0, nd: int = 1):
     """The plain PyTorch version of ``fir_tone_step`` (``taps``: the taps,
     or ``FirToneConsts``): the folded tone (``sources.folded_values``) over
     rows [-(ntaps-1), R), zero before the stream on the first batch, then
-    the FIR tap by tap, in direct form."""
+    the FIR tap by tap, in direct form; shard by shard."""
     if isinstance(taps, FirToneConsts):
         taps = taps.taps
     R, D = int(R), int(decim)
     nt = int(taps.shape[0])
     W = nt - 1
     idx = folded_index(R, -W, W + R, taps.device)
-    x = folded_values(shard_phase(phase0, dphase, shard, R), dphase, amp, idx)
-    x = mask_before_stream(x, idx, first, shard)
     n_o = R // D
-    out = torch.zeros((n_o, 2 * S), dtype=torch.float32, device=taps.device)
-    for t in range(nt):
-        lo = W - t
-        out = out + taps[t] * x[lo:lo + (n_o - 1) * D + 1:D]
-    return out
+    outs = []
+    for sh in range(int(shard), int(shard) + int(nd)):
+        x = folded_values(shard_phase(phase0, dphase, sh, R), dphase, amp, idx)
+        x = mask_before_stream(x, idx, first, sh)
+        out = torch.zeros((n_o, 2 * S), dtype=torch.float32,
+                          device=taps.device)
+        for t in range(nt):
+            lo = W - t
+            out = out + taps[t] * x[lo:lo + (n_o - 1) * D + 1:D]
+        outs.append(out)
+    return torch.cat(outs)
 
 
 def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
-                  tile: int | None = None, shard: int = 0):
+                  tile: int | None = None, shard: int = 0, nd: int = 1):
     """One batch of the live filtered tone: R folded rows (64*R samples)
     generated from the phase counter and filtered (and decimated) in one
     pass.
@@ -309,8 +313,14 @@ def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
         ``pick_tile``). It does not change the outputs, bit for bit.
       shard: the time shard of the batch this call computes (R rows of
         it, from 64*R*shard samples on; only shard 0 reads ``first``).
+      nd: the shards ``shard`` .. ``shard`` + nd - 1 in one launch (the
+        sharded graph's batch), the shard a grid dimension, each with its
+        own R rows and phase offset: bit for bit the nd one-shard calls'
+        outputs concatenated.
 
-    Returns (R/D, 128) float32 folded planes of the filtered stream. Both
+    Returns (nd R/D, 128) float32 folded planes of the filtered stream
+    (each shard's R/D rows after the one before's; ``unfold_complex(out,
+    nd)`` gives the stream). Both
     instances are FFT convolutions that align their transforms to the
     batch index at multiples of L (``fft_radix``: L = 128 at up to 129
     taps; L = ``PART_L`` = 512 past ``FFT_MAX_TAPS``), so the output is
@@ -323,18 +333,20 @@ def fir_tone_step(phase0, dphase, amp, first, taps, decim: int, R: int,
     past ``FFT_MAX_TAPS`` taps, ``fir_part_launch`` (csrc/fir_part.cu,
     counted on ``fir_tone_step.partitioned_launches``).
     """
-    R, D = int(R), int(decim)
+    R, D, nd = int(R), int(decim), int(nd)
+    if nd < 1:
+        raise ValueError(f"nd {nd}: at least one shard")
     consts = taps if isinstance(taps, FirToneConsts) else FirToneConsts(taps,
                                                                         None)
     g = plan(R, D, int(consts.taps.shape[0]), tile)
     if consts.taps.device.type == "cpu":
         return fir_tone_step_plain(phase0, dphase, amp, first, consts.taps, D,
-                                   R, shard)
-    return _launch(phase0, dphase, amp, first, consts, D, R, g, shard)
+                                   R, shard, nd)
+    return _launch(phase0, dphase, amp, first, consts, D, R, g, shard, nd)
 
 
 def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
-            g, shard: int = 0):
+            g, shard: int = 0, nd: int = 1):
     """Launch the instance of ``g``: the FFT instance for a ``_Geometry``,
     the partitioned one for a ``_Part``."""
     dev = consts.taps.device
@@ -349,14 +361,14 @@ def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
     a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     ph, dp = nco_args(phase0, dphase, dev)
     fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
-    out = torch.empty((R // D, 2 * S), dtype=torch.float32, device=dev)
+    out = torch.empty((nd * (R // D), 2 * S), dtype=torch.float32, device=dev)
     coeffs = SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p)
     if part:
         with torch.cuda.device(dev):
             err = _build.lib().fir_part_launch(
                 ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
-                int(shard), consts.fft.data_ptr(), out.data_ptr(), R, D, g.T,
-                g.GS, g.NQ, g.P, g.BR, coeffs,
+                int(shard), nd, consts.fft.data_ptr(), out.data_ptr(), R, D,
+                g.T, g.GS, g.NQ, g.P, g.BR, coeffs,
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "fir_part_launch")
         fir_tone_step.partitioned_launches += 1
@@ -364,7 +376,7 @@ def _launch(phase0, dphase, amp, first, consts: FirToneConsts, D: int, R: int,
     with torch.cuda.device(dev):
         err = _build.lib().fir_tone_launch(
             ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
-            int(shard), consts.fft.data_ptr(), out.data_ptr(), R, g.Q, D,
+            int(shard), nd, consts.fft.data_ptr(), out.data_ptr(), R, g.Q, D,
             g.T, g.GS, g.NQ, g.off, g.WR, g.PW, g.BR, coeffs,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fir_tone_launch")
@@ -376,6 +388,9 @@ fir_tone_step.launches = 0
 fir_tone_step.partitioned_launches = 0
 
 
-def unfold_complex(planes: torch.Tensor) -> torch.Tensor:
-    """(R, 128) folded planes -> (64*R,) complex64 in stream order."""
-    return torch.complex(planes[:, :S].T.reshape(-1), planes[:, S:].T.reshape(-1))
+def unfold_complex(planes: torch.Tensor, nd: int = 1) -> torch.Tensor:
+    """(R, 128) folded planes -> (64*R,) complex64 in stream order; with nd
+    > 1, the planes of nd time shards, each unfolded on its own."""
+    p = planes.reshape(nd, -1, 2 * S)
+    return torch.complex(p[:, :, :S].transpose(1, 2).reshape(-1),
+                         p[:, :, S:].transpose(1, 2).reshape(-1))

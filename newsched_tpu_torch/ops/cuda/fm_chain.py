@@ -167,15 +167,26 @@ def fm_chain_consts(arm_c: np.ndarray, ataps: np.ndarray,
 
 def fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts: FmChainConsts,
                                decim: int, gain: float, warm: int = 0,
-                               ag: int = 1, tile: int | None = None):
+                               ag: int = 1, tile: int | None = None,
+                               nd: int = 1):
     """The plain PyTorch version of ``fm_chain_step_planes``: the same sums,
     written over whole tensors. warm > 0 keeps the reference's own
     formulation: the halo's last ``warm`` rows run through the chain from
-    the junction state passed (zeros) and their audio is dropped. ag > 1
+    the junction state passed (zeros) and their audio is dropped; with nd
+    > 1, shard by shard, shard d > 0's halo the warm + H8 rows before it
+    in [halo; vb], and the last shard's prev and tail returned. ag > 1
     (K3ag) is the reference's banded audio stage: each tile of ``tile``
     rows as ``ag`` products of one shared shifted Toeplitz
     (``audio_toeplitz(ataps, tile // ag, decim)``) against the rows
     [g*T/ag, g*T/ag + T/ag + A-1) of the tile's [tail; aud]."""
+    if nd > 1:
+        n_loc, hr = vb.shape[0] // nd, halo.shape[0]
+        vp = torch.cat([halo, vb])
+        outs = [fm_chain_step_planes_plain(
+            vb[d * n_loc:(d + 1) * n_loc], vp[d * n_loc:d * n_loc + hr],
+            prev0, tail0, consts, decim, gain, warm, ag, tile)
+            for d in range(nd)]
+        return torch.cat([o[0] for o in outs]), outs[-1][1], outs[-1][2]
     if warm:
         H8 = halo.shape[0] - warm
         aud, prev, tail = fm_chain_step_planes_plain(
@@ -226,7 +237,8 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
                          prev0: torch.Tensor, tail0: torch.Tensor,
                          consts: FmChainConsts, decim: int, gain: float,
                          warm: int = 0, tile: int | None = None,
-                         precision="split3", pipelined: bool = False):
+                         precision="split3", pipelined: bool = False,
+                         nd: int = 1):
     """Run one batch of the fused chain on the planes-rows stream format.
 
     Args:
@@ -260,6 +272,15 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
         The same values bit for bit; tile must then be a multiple of 32
         (64 or 128 at M=64: the block holds two windows). Built for M = 64
         only: other widths raise.
+      nd: with warm > 0, the batch's time shards of n/nd rows each (the
+        sharded fused graph's step): the audio equals the nd per-shard
+        calls', each with the warm + H8 rows before its shard as its halo,
+        concatenated, bit for bit, and the tile is picked at n/nd rows as
+        theirs is. One launch takes them all: with warm > 0 every block
+        already rebuilds its junction from the rows before its tile, so
+        over the whole batch with shard 0's halo a block reads what the
+        per-shard launch of its shard reads, where those rows lie in the
+        batch itself. Only the plain version goes shard by shard.
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
@@ -277,8 +298,11 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     A = int(consts.ataps.shape[0])
     n = int(vb.shape[0])
     H8 = _round8(L - 1)
-    warm = int(warm)
-    tile = _pick_tile(n, tile or (64 if pipelined else 128), decim)
+    warm, nd = int(warm), int(nd)
+    if nd < 1 or n % nd or (nd > 1 and not warm):
+        raise ValueError(f"nd {nd}: time shards of a batch of {n} rows take "
+                         f"warm > 0 and n a multiple of nd")
+    tile = _pick_tile(n // nd, tile or (64 if pipelined else 128), decim)
     if not pipelined:
         tile = _fit_tile(tile, W, A, L, decim, decim)
     if warm:
@@ -294,7 +318,7 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
     ag = 1 if pipelined else _audio_groups(tile, decim, A)
     if vb.device.type == "cpu":
         return fm_chain_step_planes_plain(vb, halo, prev0, tail0, consts,
-                                          decim, gain, warm, ag, tile)
+                                          decim, gain, warm, ag, tile, nd)
     t_min = _FAR_PAST if warm else 0
     if pipelined:
         return _pipe(vb, halo, prev0, tail0, consts, decim, gain, tile, None,

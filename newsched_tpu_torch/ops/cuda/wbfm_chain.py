@@ -96,16 +96,21 @@ def wbfm_consts(plan: WbfmChainPlan, device) -> WbfmConsts:
         torch.as_tensor(plan.resamp_taps, device=device))
 
 
-def fold_planes(x: torch.Tensor) -> torch.Tensor:
-    """(n,) complex batch -> (n/64, 128) time-folded planes."""
+def fold_planes(x: torch.Tensor, nd: int = 1) -> torch.Tensor:
+    """(n,) complex batch -> (n/64, 128) time-folded planes; with nd > 1,
+    each of the batch's nd time shards folded on its own, in one op: shard
+    d's (n/nd/64, 128) planes in rows [d n/nd/64, (d+1) n/nd/64)."""
     n = int(x.shape[0])
-    Xc = x.reshape(S, n // S).T
-    return torch.cat([Xc.real, Xc.imag], dim=1).to(torch.float32).contiguous()
+    Xc = x.reshape(nd, S, n // (nd * S)).transpose(1, 2)
+    return torch.cat([Xc.real, Xc.imag], dim=2).to(torch.float32).reshape(
+        n // S, 2 * S)
 
 
-def unfold_audio(aud: torch.Tensor) -> torch.Tensor:
-    """(R_a, 128) duplicated-halves audio -> (R_a * 64,) in stream order."""
-    return aud[:, :S].T.reshape(-1)
+def unfold_audio(aud: torch.Tensor, nd: int = 1) -> torch.Tensor:
+    """(R_a, 128) duplicated-halves audio -> (R_a * 64,) in stream order;
+    with nd > 1, the audio of nd time shards, each unfolded on its own, in
+    one op."""
+    return aud.reshape(nd, -1, 2 * S)[:, :, :S].transpose(1, 2).reshape(-1)
 
 
 def pick_tile(R: int, D: int, Rd: int, target_out: int = 102) -> int:
@@ -229,11 +234,27 @@ def _chain_plain(xr: torch.Tensor, xi: torch.Tensor, plan: WbfmChainPlan,
 
 
 def wbfm_chain_step_plain(xp: torch.Tensor, carry: torch.Tensor,
-                          plan: WbfmChainPlan, consts: WbfmConsts):
-    """The plain PyTorch version of ``wbfm_chain_step``."""
-    R = int(xp.shape[0])
-    xr, xi = _extended(xp, carry, plan.B8)
-    return _chain_plain(xr, xi, plan, consts, R), xp[R - plan.B8:].clone()
+                          plan: WbfmChainPlan, consts: WbfmConsts,
+                          nd: int = 1):
+    """The plain PyTorch version of ``wbfm_chain_step``: shard by shard,
+    each from the one before's last B8 rows (shard 0 from ``carry``)."""
+    R = int(xp.shape[0]) // nd
+    auds = []
+    for d in range(nd):
+        x = xp[d * R:(d + 1) * R]
+        xr, xi = _extended(x, carry, plan.B8)
+        auds.append(_chain_plain(xr, xi, plan, consts, R))
+        carry = x[R - plan.B8:]
+    return torch.cat(auds), carry.clone()
+
+
+def _shards(nd, rows: int | None = None) -> int:
+    """The shard count a wrapper takes: at least 1, dividing ``rows``."""
+    nd = int(nd)
+    if nd < 1 or (rows is not None and rows % nd):
+        raise ValueError(f"nd {nd}: at least one shard"
+                         + ("" if rows is None else f", dividing {rows} rows"))
+    return nd
 
 
 def _check(plan: WbfmChainPlan, consts: WbfmConsts, dev) -> None:
@@ -242,9 +263,9 @@ def _check(plan: WbfmChainPlan, consts: WbfmConsts, dev) -> None:
 
 
 def _launch_args(plan: WbfmChainPlan, consts: WbfmConsts, aud, R: int,
-                 g: _Geometry):
+                 g: _Geometry, nd: int):
     return (consts.crot.data_ptr(), consts.rtaps.data_ptr(), aud.data_ptr(),
-            R, plan.ntaps, plan.D, plan.Rd, plan.A, plan.B8, g.T, g.GS, g.P,
+            R, nd, plan.ntaps, plan.D, plan.Rd, plan.A, plan.B8, g.T, g.GS, g.P,
             g.NT, g.CU, float(np.float32(plan.cos_t)),
             float(np.float32(plan.sin_t)),
             float(np.float32(plan.gain)),
@@ -253,7 +274,8 @@ def _launch_args(plan: WbfmChainPlan, consts: WbfmConsts, aud, R: int,
 
 def wbfm_chain_step(xp: torch.Tensor, carry: torch.Tensor,
                     plan: WbfmChainPlan, consts: WbfmConsts,
-                    tile: int | None = None, seg_group: int = 8):
+                    tile: int | None = None, seg_group: int = 8,
+                    nd: int = 1):
     """One batch of the fused chain.
 
     Args:
@@ -264,33 +286,41 @@ def wbfm_chain_step(xp: torch.Tensor, carry: torch.Tensor,
       tile: batch rows per CUDA block, a multiple of D*Rd dividing R (None:
         ``pick_tile``); seg_group: segments per block, a divisor of 64.
         Neither changes the outputs, bit for bit.
+      nd: the batch's time shards, each folded on its own (``fold_planes(x,
+        nd)``: xp is nd shards of R/nd rows, tile and seg_group per
+        shard). Shard d's junction is shard d-1's last B8 rows, read where
+        they lie in xp (shard 0's the carry): the audio equals the nd
+        per-shard calls', each from the one before's rows, concatenated,
+        bit for bit, and the new carry is the last shard's. One launch
+        takes every shard, the shard a grid dimension.
 
     Returns (audio (R/(D*Rd), 128), new carry (B8, 128)).
 
     CPU tensors take the plain version; CUDA tensors launch
     ``wbfm_chain_launch`` (csrc/wbfm_chain.cu, kernel K10).
     """
-    R = int(xp.shape[0])
+    nd = _shards(nd, int(xp.shape[0]))
+    R = int(xp.shape[0]) // nd
     g = _geometry(plan, R, tile, seg_group)
     if tuple(carry.shape) != (plan.B8, 2 * S):
         raise ValueError(f"carry shape {tuple(carry.shape)} != "
                          f"({plan.B8}, {2 * S})")
     dev = xp.device
     if dev.type == "cpu":
-        return wbfm_chain_step_plain(xp, carry, plan, consts)
-    _build.check_tensor(xp, "xp", device=dev, shape=(R, 2 * S))
+        return wbfm_chain_step_plain(xp, carry, plan, consts, nd)
+    _build.check_tensor(xp, "xp", device=dev, shape=(nd * R, 2 * S))
     _build.check_tensor(carry, "carry", device=dev)
     _check(plan, consts, dev)
-    aud = torch.empty((R // (plan.D * plan.Rd), 2 * S), dtype=torch.float32,
-                      device=dev)
+    aud = torch.empty((nd * R // (plan.D * plan.Rd), 2 * S),
+                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().wbfm_chain_launch(
             xp.data_ptr(), carry.data_ptr(),
-            *_launch_args(plan, consts, aud, R, g),
+            *_launch_args(plan, consts, aud, R, g, nd),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "wbfm_chain_launch")
     wbfm_chain_step.launches += 1
-    return aud, xp[R - plan.B8:].clone()
+    return aud, xp[nd * R - plan.B8:].clone()
 
 
 wbfm_chain_step.launches = 0
@@ -298,20 +328,23 @@ wbfm_chain_step.launches = 0
 
 def wbfm_chain_live_step_plain(phase0, dphase, amp, first,
                                plan: WbfmChainPlan, consts: WbfmConsts,
-                               R: int, shard: int = 0):
+                               R: int, shard: int = 0, nd: int = 1):
     """The plain PyTorch version of ``wbfm_chain_live_step``: the folded
     tone (``sources.folded_values``) over the same extended rows, zero
-    before the stream on the first batch."""
+    before the stream on the first batch; shard by shard."""
     dev = consts.crot.device
     idx = folded_index(R, -plan.B8, plan.B8 + int(R), dev)
-    x = folded_values(shard_phase(phase0, dphase, shard, R), dphase, amp, idx)
-    x = mask_before_stream(x, idx, first, shard)
-    return _chain_plain(x[:, :S], x[:, S:], plan, consts, int(R))
+    auds = []
+    for sh in range(int(shard), int(shard) + int(nd)):
+        x = folded_values(shard_phase(phase0, dphase, sh, R), dphase, amp, idx)
+        x = mask_before_stream(x, idx, first, sh)
+        auds.append(_chain_plain(x[:, :S], x[:, S:], plan, consts, int(R)))
+    return torch.cat(auds)
 
 
 def wbfm_chain_live_step(phase0, dphase, amp, first, plan: WbfmChainPlan,
                          consts: WbfmConsts, R: int, tile: int | None = None,
-                         seg_group: int = 8, shard: int = 0):
+                         seg_group: int = 8, shard: int = 0, nd: int = 1):
     """One batch of the LIVE chain: the NCO tone of ``sources.nco_folded``
     generated inside the chain. ``phase0``/``dphase``: the batch's phase
     and increment, int64 tensors on the device (the block's state and
@@ -320,30 +353,32 @@ def wbfm_chain_live_step(phase0, dphase, amp, first, plan: WbfmChainPlan,
     marks the stream's first batch, before which the samples are 0.
     ``shard``: the time shard of the batch this call computes, R rows of
     it, at 64*R*shard samples from the phase (only shard 0 reads
-    ``first``). Returns audio (R/(D*Rd), 128), bit for bit what
-    ``nco_folded`` -> ``wbfm_chain_step`` gives at the same tile and
-    segment group.
+    ``first``); ``nd``: the shards ``shard`` .. ``shard`` + nd - 1 in one
+    launch, the shard a grid dimension, their audio in order, bit for bit
+    the nd one-shard calls' concatenated. Returns audio (nd R/(D*Rd),
+    128), bit for bit what ``nco_folded`` -> ``wbfm_chain_step`` gives at
+    the same tile and segment group.
 
     CPU tensors (``consts`` on the CPU) take the plain version; on a CUDA
     device it launches ``wbfm_live_launch`` (csrc/wbfm_chain.cu, K12).
     """
-    R = int(R)
+    R, nd = int(R), _shards(nd)
     g = _geometry(plan, R, tile, seg_group)
     dev = consts.crot.device
     if dev.type == "cpu":
         return wbfm_chain_live_step_plain(phase0, dphase, amp, first, plan,
-                                          consts, R, shard)
+                                          consts, R, shard, nd)
     _check(plan, consts, dev)
     a = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     ph, dp = nco_args(phase0, dphase, dev)
     fl = _build.device_scalar(first, "first", device=dev, dtype=torch.bool)
-    aud = torch.empty((R // (plan.D * plan.Rd), 2 * S), dtype=torch.float32,
-                      device=dev)
+    aud = torch.empty((nd * R // (plan.D * plan.Rd), 2 * S),
+                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().wbfm_live_launch(
             ph.data_ptr(), dp.data_ptr(), a.data_ptr(), fl.data_ptr(),
             int(shard),
-            *_launch_args(plan, consts, aud, R, g),
+            *_launch_args(plan, consts, aud, R, g, nd),
             SINCOS_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "wbfm_live_launch")

@@ -17,12 +17,15 @@ reference's "auto" chain method takes every 2M that is a multiple of 128,
 K3 M = 64 .. 1024 on the card), else the staged ops.
 
 ``step_planes`` (the fused kernel's planes rows): one shard runs K3 on the
-batch with carried state; n shards run K3 per time segment with warm > 0,
-after a ``time_halo`` of warm + H8 rows: no state but the rows, and the
-audio stays in time order.
+batch with carried state; n shards run K3 with warm > 0 over every time
+segment in one launch: each segment's halo is the warm + H8 rows before
+it (the reference's ``time_halo``), which for every segment but the first
+lie in the batch itself. No state but the rows, and the audio stays in
+time order.
 
-Every shard's kernels run on the stream's device (the mesh's first), one
-after another. States keep the reference's layout, so a reference state
+Every shard's kernels run on the stream's device (the mesh's first):
+``step`` shard after shard, ``step_planes`` in one launch. States keep
+the reference's layout, so a reference state
 converts field by field (``convert.py``): a carry holds one block per
 shard, the tail that shard received, of which only shard 0's is read.
 Not ported: ``init_state_enc``/``step_enc`` (the TPU tunnel's complex
@@ -295,14 +298,17 @@ class ShardedFMChannelizer:
             new_carry = (xrows[-hr:] if n_rows >= hr
                          else torch.cat([state.carry, xrows])[-hr:]).clone()
             return aud, PlanesFMState(carry=new_carry, prev=prev, tail=tail)
-        hr = int(state.carry.shape[0]) // self.n_dev
-        segs = list(xrows.split(n_rows // self.n_dev))
-        halos, recv = time_halo(segs, list(state.carry.split(hr)))
-        auds = [fm_chain.fm_chain_step_planes(
-            s, h, state.prev, state.tail, consts, self.audio_decim,
-            self.demod_gain, warm=warm, tile=kt,
-            precision=self.chain_precision)[0] for s, h in zip(segs, halos)]
-        return torch.cat(auds), state._replace(carry=torch.cat(recv))
+        # every shard in one launch: shard d > 0's halo (time_halo's, the
+        # last warm + H8 rows of shard d-1) lies in the batch before it,
+        # shard 0's is its carry; each shard's carry is the halo it
+        # received, its left neighbour's tail (shard 0's the last shard's)
+        n, hr = self.n_dev, int(state.carry.shape[0]) // self.n_dev
+        aud = fm_chain.fm_chain_step_planes(
+            xrows, state.carry[:hr], state.prev, state.tail, consts,
+            self.audio_decim, self.demod_gain, warm=warm, tile=kt,
+            precision=self.chain_precision, nd=n)[0]
+        tails = xrows.view(n, n_rows // n, -1)[:, -hr:]
+        return aud, state._replace(carry=tails.roll(1, 0).reshape(n * hr, -1))
 
     def batch_multiple(self) -> int:
         return self.n_dev * self.nchans * self.audio_decim

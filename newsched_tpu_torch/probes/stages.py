@@ -8,6 +8,7 @@ past the FFT's 513 taps, for the same comparison.
     PYTHONPATH=<tree> python3 <this file> outputs --save FILE
     PYTHONPATH=<tree> python3 <this file> outputs --compare FILE
     PYTHONPATH=<tree> python3 <this file> times
+    PYTHONPATH=<tree> python3 <this file> sharded
 
 ``stages`` copies ``csrc/fir_source.cu``, ``csrc/fir_part.cu`` and
 ``csrc/wbfm_chain.cu`` of the package on the path (this tree, or one
@@ -54,11 +55,18 @@ live graphs, the live graph on 4 and 8 shards, the staged graph at M =
 recorded as its error) and the live fir_chain at 1024 taps (the bench's
 two-point fit).
 
+``sharded`` times the graph-mode steps of the sharded graphs (#2 fused
+replay, #1 fused, #1 live, #0 live) unsharded and on 4 and 8 logical
+shards, each sharded graph in its one launch a batch and in the
+per-shard loop it ran before (``shard_loops``, a cut copy of the four
+hooks), in turns.
+
 Prints one JSON line a record, the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import inspect
 import json
@@ -338,17 +346,19 @@ def _k4(g0, amp=None, layout="rows", n_rows=32768, width=128, **kw):
     return r if amp is None else r * a
 
 
-def _fm_graph(kind: str, n_batches, M: int = 64, batch: int = 1 << 21):
+def _fm_graph(kind: str, n_batches, M: int = 64, batch: int = 1 << 21,
+              source=None):
     """Config #2 (64 channels, 16 taps an arm, a 65-tap audio FIR by 8,
     batches of 2^21) with its noise source: fused, staged or live; or the
-    same at M channels and ``batch`` samples a batch."""
+    same at M channels and ``batch`` samples a batch; ``source`` in place
+    of the noise source (fused)."""
     from newsched_tpu_torch import models
 
     D = 8
     at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=65)
     return models.fm_channelizer(
         nchans=M, taps_per_arm=16, audio_decim=D, fused=kind != "staged",
-        source="live" if kind == "live" else None, batch_size=batch,
+        source="live" if kind == "live" else source, batch_size=batch,
         sink="vector" if n_batches else "null",
         n_samples=None if n_batches is None else n_batches * batch // (M * D),
         deviation_frac=1.0 / (2 * np.pi * 0.5), audio_taps=at)
@@ -629,13 +639,183 @@ def outputs(argv) -> list[dict]:
     return recs
 
 
+# -- the sharded hooks' per-shard loops (cut copies) ---------------------
+#
+# How K3 at warm > 0 (the fused replay), K10 (#1 fused), K12 (#1 live)
+# and K9 (#0 live) ran on a mesh before one launch took every shard of a
+# batch: a launch a shard from a Python loop, then a torch.cat of the
+# shards. Kept only to time the two forms in one call (``sharded``,
+# chip_smoke.py phase 29) and to hold them equal in the CPU tests; no
+# graph's path takes them but under ``shard_loops()``.
+
+def _loop_step_planes(self, xrows, state):
+    """``ShardedFMChannelizer.step_planes`` on n > 1 shards: K3 a shard,
+    each after a ``time_halo`` of warm + H8 rows."""
+    from newsched_tpu_torch.parallel.channelizer import kernel_tile
+    from newsched_tpu_torch.parallel.halo import time_halo
+
+    if self.n_dev == 1:
+        raise ValueError("the per-shard loop is the sharded step's")
+    n_rows = int(xrows.shape[0])
+    tile, warm = self._planes_setup(n_rows)
+    A, L = len(self.audio_taps), self.arm_taps.shape[1]
+    kt = kernel_tile(tile, self.audio_decim,
+                     max(fm_chain._round8(L - 1), A - 1))
+    consts = self._dev_consts(xrows.device)[1]
+    xrows = xrows.contiguous()
+    hr = int(state.carry.shape[0]) // self.n_dev
+    segs = list(xrows.split(n_rows // self.n_dev))
+    halos, recv = time_halo(segs, list(state.carry.split(hr)))
+    auds = [fm_chain.fm_chain_step_planes(
+        s, h, state.prev, state.tail, consts, self.audio_decim,
+        self.demod_gain, warm=warm, tile=kt,
+        precision=self.chain_precision)[0] for s, h in zip(segs, halos)]
+    return torch.cat(auds), state._replace(carry=torch.cat(recv))
+
+
+def _loop_wbfm_fused(self, state, ins, params, nout, mesh, axis):
+    """``wbfm_rcv_fused.work_sharded``: a fold and K10 a shard, its
+    junction the left neighbour's bottom B8 folded rows."""
+    nd = mesh.shape[axis]
+    x = ins["in"]
+    consts = self.consts(x.device)
+    auds, bots = [], []
+    for d, seg in enumerate(x.chunk(nd)):
+        xp = wbfm_chain.fold_planes(seg)
+        aud, bot = wbfm_chain.wbfm_chain_step(
+            xp, bots[-1] if d else state["carry"], self.plan, consts,
+            tile=self.tile)
+        auds.append(wbfm_chain.unfold_audio(aud))
+        bots.append(bot)
+    return {"carry": bots[-1]}, {"out": torch.cat(auds)}
+
+
+def _loop_wbfm_live(self, state, ins, params, nout, mesh, axis):
+    """``wbfm_live_source.work_sharded``: K12 a shard at its phase
+    offset."""
+    from newsched_tpu_torch.blocks.analog import _live_advance
+
+    nd = mesh.shape[axis]
+    S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
+    n_loc = int(nout) * D * Rd // nd
+    ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
+    consts = self.consts(a.device)
+    auds = [wbfm_chain.unfold_audio(wbfm_chain.wbfm_chain_live_step(
+        ph, dp, a, state["first"], self.plan, consts, n_loc // S,
+        tile=self.tile, shard=d)) for d in range(nd)]
+    return (_live_advance(state, dp, int(nout) * D * Rd),
+            {"out": torch.cat(auds)})
+
+
+def _loop_fir_tone(self, state, ins, params, nout, mesh, axis):
+    """``fir_tone_source.work_sharded``: K9 a shard at its phase offset."""
+    from newsched_tpu_torch.blocks.analog import _live_advance
+
+    nd = mesh.shape[axis]
+    R_loc = self._fold_rows(int(nout) // nd)
+    ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
+    taps = self.dev_taps(a.device)
+    outs = [fir_source.unfold_complex(fir_source.fir_tone_step(
+        ph, dp, a, state["first"], taps, self.decim, R_loc,
+        tile=self.tile, shard=d)) for d in range(nd)]
+    return (_live_advance(state, dp, int(nout) * self.decim),
+            {"out": torch.cat(outs)})
+
+
+@contextlib.contextmanager
+def shard_loops():
+    """The four hooks' per-shard loops in place of their one launch, for
+    the graphs built and run inside."""
+    from newsched_tpu_torch.blocks import analog
+    from newsched_tpu_torch.parallel.channelizer import ShardedFMChannelizer
+
+    cuts = ((ShardedFMChannelizer, "step_planes", _loop_step_planes),
+            (analog.wbfm_rcv_fused, "work_sharded", _loop_wbfm_fused),
+            (analog.wbfm_live_source, "work_sharded", _loop_wbfm_live),
+            (analog.fir_tone_source, "work_sharded", _loop_fir_tone))
+    kept = [(cls, name, cls.__dict__[name]) for cls, name, _ in cuts]
+    try:
+        for cls, name, fn in cuts:
+            setattr(cls, name, fn)
+        yield
+    finally:
+        for cls, name, fn in kept:
+            setattr(cls, name, fn)
+
+
+SHARDS = (4, 8)  # the logical shards of the sharded graphs
+
+
+def sharded_cells() -> dict:
+    """The sharded graphs' cells at full width, each with a null sink: the
+    builder of its graph and its input samples a batch. #2 fused replay
+    (K3 at warm > 0 sharded) on seeded planes rows, #1 fused (K8 -> K10)
+    and #1 live (K12) on config #1's tone, #0 live (K9) on config #0's."""
+    from newsched_tpu_torch import models
+    from newsched_tpu_torch.blocks import analog, general
+
+    gen = torch.Generator().manual_seed(29)
+    rows = (torch.randn(32768, 128, generator=gen) * 0.5).numpy()
+
+    def wb(live):
+        fg, blks = models.wbfm_receiver(
+            fs=WB_FS, center_freq=WB_FC, quad_rate_decim=WB_D,
+            audio_decim=(1, WB_RD), deviation=WB_DEV,
+            source="live" if live else analog.sig_source(
+                WB_FS, "complex", frequency=WB_TONE),
+            batch_size=64 * WB_R, sink="null", fused=True, n_samples=None)
+        if live:
+            blks["source"].set_frequency(WB_TONE)
+        return fg
+
+    return {
+        "#2 fused replay": (lambda: _fm_graph(
+            "fused", None, source=general.vector_source(rows, repeat=True))[0],
+            1 << 21),
+        "#1 fused": (lambda: wb(False), 64 * WB_R),
+        "#1 live": (lambda: wb(True), 64 * WB_R),
+        "#0 live": (lambda: models.fir_chain(
+            n_samples=10_000_000, fs=FIR_FS, ntaps=FIR_NTAPS,
+            frequency=FIR_FREQ, batch_size=64 * FIR_R, sink="null",
+            source="live")[0], 64 * FIR_R),
+    }
+
+
+def sharded_steps(cells: dict | None = None, shards=SHARDS,
+                  device="cuda") -> list[dict]:
+    """Graph-mode steps (the bench's two-point fit, k = 16 and 64, CUDA
+    events) of each sharded cell unsharded and at each shard count, in one
+    launch a batch and in the per-shard loop (``shard_loops``), in turns:
+    forward, then backward. One record a cell and form: its best and every
+    ms a step."""
+    from newsched_tpu_torch import bench
+    from newsched_tpu_torch.parallel import make_mesh
+
+    cells = sharded_cells() if cells is None else cells
+    runs = [(cell, n, form) for cell in cells for n in (1, *shards)
+            for form in (("one launch",) if n == 1 else ("one launch", "loop"))]
+    ms: dict = {}
+    for cell, n, form in runs + runs[::-1]:
+        build, n_in = cells[cell]
+        with (shard_loops() if form == "loop" else contextlib.nullcontext()):
+            run = bench.graph_run(
+                build(), device,
+                mesh=make_mesh(n, device=device) if n > 1 else None)
+            sps = bench.timed_two_point(run, f"{cell}, {n} shards, {form}",
+                                        n_in, n_best=3, k1=16, k2=64)
+        ms.setdefault((cell, n, form), []).append(n_in / sps * 1e3)
+    return [{"cell": cell, "shards": n, "form": form, "ms": min(v),
+             "ms_all": v} for (cell, n, form), v in ms.items()]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("stages: no CUDA device", file=sys.stderr)
         return 2
     print(_card(), flush=True)
     recs = (stages() if argv[:1] == ["stages"] else
-            times() if argv[:1] == ["times"] else outputs(argv[1:]))
+            times() if argv[:1] == ["times"] else
+            sharded_steps() if argv[:1] == ["sharded"] else outputs(argv[1:]))
     for rec in recs:
         print(json.dumps(rec), flush=True)
     return 0

@@ -9,6 +9,8 @@ runs. Inputs come from seeded numpy generators. CUDA is never built here:
 every launch count stays 0.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -343,6 +345,134 @@ def test_k6_validates_as_the_reference():
                                             **kw)
 
 
+# -- one launch over every time shard: K3 (warm > 0), K10, K12, K9 -----------
+
+def _k3_shards(nd, past):
+    """K3 with warm > 0 over nd shards of one batch: the call with nd=
+    (shard 0's halo) and the nd one-shard calls, each with the warm + H8
+    rows before its shard as its halo."""
+    _, fold_c, ataps = _chain()
+    consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
+    n_loc, warm, hr = 2048 // nd, 128, 128 + 16
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(rng.standard_normal((hr + nd * n_loc, 128))
+                            .astype(np.float32) * 0.5)
+    if not past:  # stream start: zero rows before the batch
+        rows[:hr] = 0
+    vb, z1, zt = rows[hr:], torch.zeros(1, 128), torch.zeros(64, 128)
+    kw = dict(warm=warm, tile=64)
+    got = fm_chain.fm_chain_step_planes(vb, rows[:hr], z1, zt, consts, 8,
+                                        GAIN, nd=nd, **kw)[0]
+    per = [fm_chain.fm_chain_step_planes(
+        vb[d * n_loc:(d + 1) * n_loc], rows[d * n_loc:d * n_loc + hr], z1,
+        zt, consts, 8, GAIN, **kw)[0] for d in range(nd)]
+    return got, per
+
+
+def _wb_plan():
+    from newsched_tpu_torch.ops import nco
+
+    plan = wbfm_chain.WbfmChainPlan(WB_CHAN, nco.freq_to_dphase(0.2e6, 1e6),
+                                    4, WB_RT, 5, 1.0)
+    return plan, wbfm_chain.wbfm_consts(plan, "cpu")
+
+
+def _k10_shards(nd, past):
+    """K10 over nd shards: the batch folded shard by shard in one op, one
+    call, the audio unfolded once; against a fold, a call and an unfold a
+    shard, each from the shard before's last B8 folded rows (shard 0 from
+    the carry: zeros at stream start, an earlier batch's rows past it)."""
+    plan, consts = _wb_plan()
+    R = 240  # folded rows a shard, >= B8 = 208
+    x = torch.from_numpy(_fm_signal(64 * R * (nd + 1)))
+    carry0 = (wbfm_chain.fold_planes(x[:64 * R])[R - plan.B8:] if past
+              else torch.zeros(plan.B8, 128))
+    x = x[64 * R:]
+    aud, carry = wbfm_chain.wbfm_chain_step(wbfm_chain.fold_planes(x, nd),
+                                            carry0, plan, consts, nd=nd)
+    per, c = [], carry0
+    for seg in x.chunk(nd):
+        a, c = wbfm_chain.wbfm_chain_step(wbfm_chain.fold_planes(seg), c,
+                                          plan, consts)
+        per.append(wbfm_chain.unfold_audio(a))
+    assert torch.equal(carry, c)
+    return wbfm_chain.unfold_audio(aud, nd), per
+
+
+def _k12_shards(nd, past):
+    """K12 over nd shards in one call (shards 0 .. nd-1 of the batch) and
+    the nd calls at shard d, from stream start and from a phase past it."""
+    plan, consts = _wb_plan()
+    ph, first = (0x9E3779B9, False) if past else (0, True)
+    args = (ph, 0x0A3D70A4, 0.8, first, plan, consts, 240)
+    got = wbfm_chain.wbfm_chain_live_step(*args, nd=nd)
+    return got, [wbfm_chain.wbfm_chain_live_step(*args, shard=d)
+                 for d in range(nd)]
+
+
+def _k9_shards(ntaps):
+    def run(nd, past):
+        """K9 over nd shards in one call, unfolded once, and the nd calls
+        at shard d, each unfolded: the FFT instance's taps, or past
+        FFT_MAX_TAPS the partitioned instance's."""
+        taps = torch.from_numpy(np.asarray(jfirdes.low_pass(
+            1.0, 1.0, 0.2, 0.05, ntaps=ntaps), np.float32))
+        assert isinstance(fir_source.plan(512, 4, ntaps), fir_source._Part) \
+            == (ntaps > fir_source.FFT_MAX_TAPS)
+        ph, first = (0x9E3779B9, False) if past else (0, True)
+        args = (ph, 0x0A3D70A4, 0.8, first, taps, 4, 512)
+        got = fir_source.fir_tone_step(*args, nd=nd)
+        return fir_source.unfold_complex(got, nd), [
+            fir_source.unfold_complex(fir_source.fir_tone_step(*args,
+                                                               shard=d))
+            for d in range(nd)]
+    return run
+
+
+ONE_LAUNCH = {"K3 warm": _k3_shards, "K10": _k10_shards,
+              "K12": _k12_shards, "K9": _k9_shards(33),
+              "K9 partitioned": _k9_shards(600)}
+
+
+@pytest.mark.parametrize("nd", [4, 8])
+@pytest.mark.parametrize("kernel", list(ONE_LAUNCH))
+def test_one_launch_equals_the_shards_one_by_one(kernel, nd):
+    """The sharded graphs' one launch a batch for K3 with warm > 0, K10,
+    K12 and K9 (both instances): each wrapper's plain version with nd=
+    equals its nd per-shard calls concatenated (as the sharded blocks made
+    them before, a launch a shard), bit for bit, from stream start and
+    past it; no kernel is launched on the CPU."""
+    for past in (False, True):
+        got, per = ONE_LAUNCH[kernel](nd, past)
+        assert got.shape[0] == sum(int(p.shape[0]) for p in per)
+        assert torch.equal(got, torch.cat(per)), (kernel, nd, past)
+    assert fm_chain.fm_chain_step_planes.launches == 0
+    assert wbfm_chain.wbfm_chain_step.launches == 0
+    assert wbfm_chain.wbfm_chain_live_step.launches == 0
+    assert fir_source.fir_tone_step.launches == 0
+    assert fir_source.fir_tone_step.partitioned_launches == 0
+
+
+def test_time_shards_validate():
+    """nd must divide the batch; K3's time shards take warm > 0."""
+    _, fold_c, ataps = _chain()
+    consts = fm_chain.fm_chain_consts(fold_c, ataps, "cpu")
+    z = torch.zeros
+    with pytest.raises(ValueError, match="warm > 0"):
+        fm_chain.fm_chain_step_planes(z(512, 128), z(16, 128), z(1, 128),
+                                      z(64, 128), consts, 8, GAIN, nd=4)
+    with pytest.raises(ValueError, match="multiple of nd"):
+        fm_chain.fm_chain_step_planes(z(512, 128), z(144, 128), z(1, 128),
+                                      z(64, 128), consts, 8, GAIN, warm=128,
+                                      nd=3)
+    plan, wc = _wb_plan()
+    with pytest.raises(ValueError, match="nd 3"):
+        wbfm_chain.wbfm_chain_step(z(1000, 128), z(plan.B8, 128), plan, wc,
+                                   nd=3)
+    with pytest.raises(ValueError, match="nd 0"):
+        fir_source.fir_tone_step(0, 1, 0.5, True, z(33), 1, 256, nd=0)
+
+
 # -- graphs under a mesh: the port sharded, unsharded, and the reference ------
 
 def _run_port(fg, n_dev):
@@ -440,6 +570,62 @@ def _fm_signal(n):
     t = np.arange(n) / 1e6
     return np.exp(2j * np.pi * (0.21e6 * t + 3.0 * np.sin(2 * np.pi * 1e3 * t))
                   ).astype(np.complex64)
+
+
+def _loop_graphs():
+    """The four sharded graphs (K3 with warm > 0, K10, K12, K9) as
+    builders of (flowgraph, sink)."""
+    rows = planes_rows(_rand_complex(3 * 512 * 16, 3), 16)
+    x = _fm_signal(WB_BATCH * 3)
+    return {"fused planes": lambda: _fused_graph("torch", rows, 16, 3 * 128,
+                                                 512),
+            "wbfm fused": lambda: _wb_graph("torch", "fused", x),
+            "wbfm live": lambda: _wb_graph("torch", "live"),
+            "fir live": lambda: _fir_graph("torch")}
+
+
+@pytest.mark.parametrize("kind", ["fused planes", "wbfm fused", "wbfm live",
+                                  "fir live"])
+def test_sharded_graphs_equal_their_per_shard_loops(kind):
+    """Each sharded graph in its one launch a batch equals the same graph
+    run by the per-shard loop it ran before (the cut copy in
+    probes/stages.py that chip_smoke.py phase 29 times beside it), on 4
+    shards, bit for bit."""
+    from newsched_tpu_torch.probes import stages
+
+    out = {}
+    for form in ("one launch", "loop"):
+        with (stages.shard_loops() if form == "loop"
+              else contextlib.nullcontext()):
+            fg, snk = _loop_graphs()[kind]()
+            _run_port(fg, 4)
+        out[form] = snk.data()
+    assert out["one launch"].size > 0
+    np.testing.assert_array_equal(out["one launch"], out["loop"])
+
+
+def test_sharded_steps_time_each_form_in_turns():
+    """probes/stages.py ``sharded_steps`` (chip_smoke.py phase 29b) on the
+    CPU at a small size: a record for each cell unsharded and for each
+    shard count in one launch and in the loop, each timed twice (forward,
+    then backward), the best its ms."""
+    from newsched_tpu_torch.probes import stages
+
+    rows = planes_rows(_rand_complex(512 * 16, 5), 16)
+
+    def fused():
+        return tmodels.fm_channelizer(
+            nchans=16, taps_per_arm=8, audio_decim=4, fused=True,
+            source=tgen.vector_source(rows, repeat=True),
+            batch_size=512 * 16, sink="null",
+            audio_taps=jfirdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=17))[0]
+
+    recs = stages.sharded_steps({"fused": (fused, 512 * 16)}, shards=(4,),
+                                device="cpu")
+    assert [(r["shards"], r["form"]) for r in recs] == [
+        (1, "one launch"), (4, "one launch"), (4, "loop")]
+    assert all(len(r["ms_all"]) == 2 and r["ms"] == min(r["ms_all"]) > 0
+               for r in recs)
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
