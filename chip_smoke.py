@@ -88,7 +88,8 @@ Phases (each failure raises, so the script exits nonzero):
      same stream) and >= 95 dB against its golden; K5 launched on it; a
      two-draw live flowgraph equals phase 13's first batch;
  15. times: K1, K7 and K5 beside their plain versions (and K5 beside
-     K4 -> K3), the staged, live and pfb_decimator flowgraph steps in
+     K4 -> K3, and K5 against K4 + K3 from this run, and the reset of
+     its junction handoff's flags alone), the staged, live and pfb_decimator flowgraph steps in
      Msamples/s; K7 beside one library call computing its function (a
      grouped conv1d), both over 4 rotating inputs and outputs (past the
      L2) and on one input, with K7's run length and occupancy on the card;
@@ -132,10 +133,17 @@ Phases (each failure raises, so the script exits nonzero):
      within K5_TOL of its plain version outside the golden's branch-cut
      mask; and over the 4 and 8 shards of a batch in one launch (nd = 4,
      8), bit-equal to the shards one by one and, from stream start, to
-     K5 over the whole batch;
+     K5 over the whole batch; and at 3 tiles a shard (4 shards of 192 rows at tile 64, 8 of 384 at tile
+     128: the handoff across the shards), bit-equal to the shards one by
+     one;
  26. the live flowgraph sharded over 4 and 8 shards, 3 batches: bit-equal
      to the unsharded live flowgraph, >= 95 dB against its golden; K6
-     launched once a batch (one grid over every shard), K5 never;
+     launched once a batch (one grid over every shard), K5 never; then
+     K5 and K6 at once on two streams (``k5_k6_at_once``): 16 launches
+     of each over 256 tiles, captured in two CUDA graphs replayed side by
+     side, each output bit-equal to the call alone, and the live and the
+     4-shard live flowgraphs run at once on two threads, each on its own
+     stream, both bit-equal to the unsharded live flowgraph;
  27. the fused flowgraph over the replayed stream sharded over 4 and 8
      shards, 3 batches: bit-equal to the unsharded one, >= 95 dB; K3
      launched once a batch (warm > 0, every shard in one launch); K3 over
@@ -187,7 +195,9 @@ Phases (each failure raises, so the script exits nonzero):
      planes_unpack beside torch.cat of the same skewed rows' planes,
      aligned and 8 bytes off as the kernel reads them (and of rows
      aligned to the batch); and every kernel's least time on the card for
-     its work (``kernel_bounds``).
+     its work (``kernel_bounds``), and beside K4's, K5's and K6's the
+     integer-issue floor of their Philox work at the INT32 rate
+     (``int_floors``).
 
  35. K3ag, the banded audio stage (``_pick_audio_groups`` overridden to 2
      and 4): K3 (two carried batches of the FM band), K5 (from stream
@@ -222,7 +232,8 @@ Phases (each failure raises, so the script exits nonzero):
      golden, the partitioned instance launched on it;
  41. K3, K5 and K6 at M = 128, 256, 320, 384, 448, 512 and 1024 (16384 rows
      a batch): K3 within K3_TOL of its plain version on an M-station FM
-     band, tile-invariant; K5 bit-equal to K4 * amp -> K3 and within
+     band, tile-invariant; K5 at tiles 64, 128 and 256 (each fitted to
+     the block's shared memory) bit-equal to K4 * amp -> K3 and within
      K5_TOL of its plain version off the branch cut; K6 bit-equal to K5's
      stream at shard 3 and over 4 shards in one launch, and within K5_TOL
      of its plain version; at every other M = 64 P, P = 3 .. 15 (192,
@@ -1020,7 +1031,8 @@ def composed(rows_fn, chain_fn):
 
 
 def phase_k5(torch, fm_chain, noise):
-    """K5 against K4 -> K3, across tiles and against its plain version;
+    """K5 against K4 -> K3, across tiles 64, 128 and 256, and against
+    its plain version;
     returns (worst error vs plain, the two-draw stream's first audio)."""
     consts = chain_consts()
     worst = 0.0
@@ -1036,7 +1048,8 @@ def phase_k5(torch, fm_chain, noise):
             other = gen_batches(torch, fm_chain, noise, consts, draws,
                                 fm_chain.fm_chain_gen_step, tile=tile)
             require(all(torch.equal(a, b) for a, b in zip(got, other)),
-                    f"K5 draws={draws}: tile {tile} differs from tile 128")
+                    f"K5 draws={draws}: tile {tile} differs from K4 * amp "
+                    f"-> K3")
         plain = gen_batches(torch, fm_chain, noise, consts, draws,
                             fm_chain.fm_chain_gen_step_plain)
         # draws=3 is phase 7's stream: its golden's first two batches
@@ -1049,7 +1062,7 @@ def phase_k5(torch, fm_chain, noise):
         err_prev = max(float((got[i] - plain[i]).abs().max()) for i in (1, 5))
         err_carry = max(float((got[i] - plain[i]).abs().max()) for i in (3, 7))
         log(f"K5 fm_chain_gen_step draws={draws}: bit-equal to K4 * amp -> K3 "
-            f"and across tiles 64/128/256; vs plain: audio {err:.3e} on "
+            f"across tiles 64/128/256; vs plain: audio {err:.3e} on "
             f"{int((~bad).sum())} unmasked samples, prev {err_prev:.3e}, "
             f"carry {err_carry:.3e} (tol {K5_TOL})")
         require(max(err, err_prev) <= K5_TOL and err_carry == 0.0,
@@ -1556,7 +1569,35 @@ def phase_k6(torch, fm_chain, noise) -> float:
                     f"base group {b0}, draws={draws}: bit-equal to the "
                     f"{nd} shards one by one"
                     + (" and to K5's batch" if b0 == 0 else ""))
+            k6_across_shards(torch, fm_chain, noise, consts, amp, b0, draws,
+                             k5)
     return worst
+
+
+def k6_across_shards(torch, fm_chain, noise, consts, amp, b0: int,
+                     draws: int, k5) -> None:
+    """K6's junction handoff across its shards at short shards: 3 tiles
+    a shard (4 shards of 192 rows at tile 64, where a tile's junction
+    reaches two tiles back; 8 of 384 at tile 128), so a third of the
+    blocks take their junction from the shard before: bit-equal to the
+    shards one by one (each a launch of its own) and, from stream start,
+    to K5's batch."""
+    for nd, n_loc, tile in ((4, 192, 64), (8, 384, 128)):
+        def k6(**kw):
+            return fm_chain.fm_chain_gen_warm_step(
+                noise.group_tensor(b0, "cuda"), amp, consts, DECIM,
+                DEMOD_GAIN, n_loc, warm=128, draws=draws, tile=tile, **kw)
+        per = torch.cat([k6(goff=d * n_loc // noise.GROUP_ROWS)
+                         for d in range(nd)])
+        got = k6(nd=nd)
+        require(torch.equal(got, per)
+                and (b0 != 0 or torch.equal(got, k5[:nd * n_loc // DECIM])),
+                f"K6 over {nd} shards of {n_loc} rows, tile {tile}, from "
+                f"base group {b0}, draws={draws}: differs from the shards "
+                f"one by one or from K5's stream")
+        log(f"K6 over {nd} shards of {n_loc} rows at tile {tile} from base "
+            f"group {b0}, draws={draws}: bit-equal to the shards one by one, "
+            f"with its junction handoff across the shards")
 
 
 def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
@@ -1584,6 +1625,89 @@ def phase_sharded_live(fm_chain, live_out: np.ndarray) -> int:
              f"unsharded one)", "noise", n_batches=3)
         total += k6
     return total
+
+
+def k5_k6_at_once(torch, fm_chain, noise, live_out: np.ndarray) -> None:
+    """K5 and K6 running at once, as graphs under Flowgraph.start,
+    Runtime.start's partitions and Runner.capture's warm-up stream can:
+    each launch's junction handoff has its own flags, so nothing passes
+    between them. K5 at the flagship's 32768 rows and K6 over its 4
+    shards (256 tiles each) 16 times each, captured in two CUDA graphs
+    and replayed side by side on two streams, 4 times: every output
+    bit-equal to the same call alone. Then the live flowgraph and the
+    4-shard live flowgraph, 3 batches each, at once on two threads, each
+    on a stream of its own: both bit-equal to the unsharded live
+    flowgraph."""
+    import threading
+
+    from newsched_tpu_torch.parallel import make_mesh
+
+    consts = chain_consts()
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    g = noise.group_tensor(0, "cuda")
+    st = (torch.zeros(fm_chain._round8(L - 1), 2 * M, **z),
+          torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z))
+    calls = {
+        "K5": lambda: fm_chain.fm_chain_gen_step(g, amp, *st, consts, DECIM,
+                                                 DEMOD_GAIN, ROWS)[0],
+        "K6": lambda: fm_chain.fm_chain_gen_warm_step(
+            g, amp, consts, DECIM, DEMOD_GAIN, ROWS // 4, warm=K6_WARM,
+            nd=4)}
+    want = {k: fn() for k, fn in calls.items()}
+    graphs, outs = {}, {}
+    for k, fn in calls.items():
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            graphs[k] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[k], stream=s):
+                outs[k] = [fn() for _ in range(16)]
+        torch.cuda.current_stream().wait_stream(s)
+    streams = {k: torch.cuda.Stream() for k in calls}
+    for rep in range(4):
+        for k in calls:
+            for o in outs[k]:
+                o.zero_()
+        torch.cuda.synchronize()
+        for k in calls:  # enqueued back to back: the replays overlap
+            with torch.cuda.stream(streams[k]):
+                graphs[k].replay()
+        torch.cuda.synchronize()
+        for k in calls:
+            bad = [i for i, o in enumerate(outs[k]) if not torch.equal(o, want[k])]
+            require(not bad, f"{k} replayed beside the other on its own "
+                    f"stream, replay {rep}: launches {bad} differ from the "
+                    f"call alone")
+    log("K5 (32768 rows) and K6 (4 shards), 16 launches each in two CUDA "
+        "graphs replayed side by side on two streams, 4 times: every "
+        "output bit-equal to the call alone")
+    got, errs = {}, []
+
+    def run(nd):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                fg, blks = flowgraph("live", 3)
+                fg.run(device="cuda", mesh=make_mesh(nd) if nd > 1 else None)
+                s.synchronize()
+            got[nd] = blks["sink"].data()
+        except BaseException as e:  # re-raised on the main thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(nd,)) for nd in (1, 4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    for nd in (1, 4):
+        require(np.array_equal(got[nd], live_out[:3 * N_AUD]),
+                f"live flowgraph on {nd} shard(s), run beside another on a "
+                f"thread of its own: differs from the unsharded flowgraph")
+    log("the live flowgraph and the 4-shard live flowgraph at once on two "
+        "threads and streams: both bit-equal to the unsharded live flowgraph")
 
 
 def phase_sharded_fused(torch, fm_chain, rows: np.ndarray,
@@ -2785,6 +2909,11 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
         require(all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3))
                 and torch.equal(k5[3], nrows[-16:]),
                 f"K5 at M={m}: differs from K4 * amp -> K3")
+        for tile in (64, 256):  # fitted to the block's shared memory
+            k5t = fm_chain.fm_chain_gen_step(g0, amp, *zero, consts, DECIM,
+                                             DEMOD_GAIN, n, tile=tile)
+            require(all(torch.equal(a, b) for a, b in zip(k5t, k5)),
+                    f"K5 at M={m}, tile {tile}: differs from K4 * amp -> K3")
         _, bad = wide_golden(wide_noise(torch, noise, m, n), m,
                              f"noise M={m}")
         p5 = fm_chain.fm_chain_gen_step_plain(g0, amp, *zero, consts, DECIM,
@@ -2809,7 +2938,8 @@ def phase_wide_kernels(torch, fm_chain, noise) -> dict:
         worst["K5"], worst["K6"] = max(worst["K5"], e5), max(worst["K6"], e6)
         log(f"M={m} ({W} lanes, {n} rows): K3 {err:.3e} from plain (tol "
             f"{K3_TOL}), tiles 64 and {fm_chain._fit_tile(128, W, A, L, DECIM, DECIM)}"
-            f" bit-identical; K5 bit-equal to K4 * amp -> K3, {e5:.3e} from "
+            f" bit-identical; K5 at tiles 64, 128 and 256 (fitted) bit-equal"
+            f" to K4 * amp -> K3, {e5:.3e} from "
             f"plain off the branch cut (tol {K5_TOL}); K6 bit-equal to K5's "
             f"stream at shard 3 and over 4 shards in one launch, {e6:.3e} "
             f"from plain")
@@ -5199,6 +5329,30 @@ def kernel_bounds() -> dict:
     }
 
 
+PEAK_INT32 = PEAK_FP32 / 2  # Hopper issues INT32 at half the FP32 rate
+# (the H100 white paper's SM: 64 INT32 lanes to 128 FP32 a clock)
+
+
+def int_floors() -> dict:
+    """The integer-issue floor of the kernels that run Philox (K4, K5,
+    K6, at the shapes kernel_bounds and chain_bounds count them): its
+    PHILOX_OPS an element at the INT32 rate, in ms. Printed beside each
+    bound, which counts them at the FP32 rate."""
+    W = 2 * M
+
+    def philox(rows, w):
+        return PHILOX_OPS * rows * w / PEAK_INT32 * 1e3
+
+    out = {"K4": philox(ROWS, W), "K5": philox(ROWS, W),
+           "K6": philox(ROWS + 4 * (A + L - 1), W),
+           "K5w": philox(WIDE_ROWS, 2 * WIDE_M[0]),
+           "K6w": philox(WIDE_ROWS // 4 + A + L - 1, 2 * WIDE_M[0])}
+    for mw in STREAM_M:
+        out[f"K5 M={mw}"] = philox(WIDE_ROWS, 2 * mw)
+        out[f"K6 M={mw}"] = philox(WIDE_ROWS + 4 * (A + L - 1), 2 * mw)
+    return out
+
+
 def graph_ms(fn, reps: int = REPS, inner: int = 10) -> float:
     """Device time of one call without the host's enqueue time: ``inner``
     calls captured once in a CUDA graph, the graph replayed under CUDA
@@ -5337,6 +5491,9 @@ def main() -> int:
     amp = torch.tensor(0.5, dtype=torch.float32, device="cuda")
     k5_rows = composed(noise.gaussian_rows, fm_chain.fm_chain_step_planes)
     k5_args = (g0, amp, *st, consts, DECIM, DEMOD_GAIN, ROWS)
+    fm_chain_lib = _build.lib()
+    reset_flags = torch.zeros(ROWS // 128 + 1, dtype=torch.int32,
+                              device="cuda")
     # K7 over 4 copies of its input, its outputs kept: 67 MB in and as
     # much out, past the 50 MB L2, as a stream's batches come
     vs = [v.clone() for _ in range(probes.ROT)]
@@ -5348,6 +5505,13 @@ def main() -> int:
         "K1": lambda: channelizer.arm_fold_dft(v, c2, w2, ROWS, fft=fft),
         "K5 plain": lambda: fm_chain.fm_chain_gen_step_plain(*k5_args),
         "K4 -> K3": lambda: k5_rows(*k5_args, draws=3),
+        "K4 amp": lambda: noise.gaussian_rows(
+            g0, n_rows=ROWS, width=2 * M, seed=0, device="cuda", amp=amp),
+        "K3 beside K5": lambda: fm_chain.fm_chain_step_planes(
+            vb, *st, consts, DECIM, DEMOD_GAIN),
+        "K5/K6 flags reset": lambda: fm_chain_lib.fm_chain_handoff_reset(
+            reset_flags.data_ptr(), ROWS // 128,
+            torch.cuda.current_stream().cuda_stream),
         "K5": lambda: fm_chain.fm_chain_gen_step(*k5_args),
     }, PLAIN_REPS))
     ms = {k: min(v_) for k, v_ in t.items()}
@@ -5355,7 +5519,14 @@ def main() -> int:
                        ("K5", "fm_chain_gen_step")):
         log(f"{name} {what} ({ROWS} x {2 * M} rows): kernel {t[name]} ms, "
             f"plain {t[name + ' plain']} ms [{card}]")
-    log(f"K4 * amp -> K3 (what K5 fuses): {t['K4 -> K3']} ms [{card}]")
+    k4k3 = ms["K4 amp"] + ms["K3 beside K5"]
+    log(f"K5 {ms['K5']:.4f} ms against K4 + K3 {k4k3:.4f} ms from this run "
+        f"(K4 with the amplitude {ms['K4 amp']:.4f}, K3 "
+        f"{ms['K3 beside K5']:.4f}; K4 * amp -> K3 composed {ms['K4 -> K3']:.4f})"
+        f": {ms['K5'] / k4k3:.3f}x; of K5, its flags' reset before the "
+        f"launch (cudaMemsetAsync of {4 * (ROWS // 128 + 1)} B) "
+        f"{ms['K5/K6 flags reset']:.4f} ms alone (plan: "
+        f"{fm_chain.gen_plan(2 * M, 128, ROWS // 128, A, L)}) [{card}]")
     step_rate(torch, None, "staged", card, fused=False)
     step_rate(torch, "live", "live", card)
     decimator_step(torch, card)
@@ -5551,6 +5722,7 @@ def main() -> int:
 
     k6_err = phase_k6(torch, fm_chain, noise)
     k6_launches = phase_sharded_live(fm_chain, fused_out)
+    k5_k6_at_once(torch, fm_chain, noise, fused_out)
     k3_warm_launches, k3_warm_err = phase_sharded_fused(torch, fm_chain, rows,
                                                         replay_out)
     sharded, shard_err = phase_sharded_receivers(torch, sources, wbfm_chain,
@@ -5728,9 +5900,14 @@ def main() -> int:
         bounds.update({f"{kid} M={mw}": cb[kid] for kid in ("K3", "K5", "K6")})
     bounds.update(vr["bound"])  # each route at its link's batch
     ms.update(vr["t"])
+    floors = int_floors()
     for name, (b_ms, by) in bounds.items():
-        log(f"bound {name}: {b_ms:.4f} ms ({by}); kernel {ms[name]:.4f} ms, "
-            f"roofline share {100 * b_ms / ms[name]:.1f}% [{card}]")
+        floor = (f", integer-issue floor {floors[name]:.4f} ms "
+                 f"({100 * floors[name] / ms[name]:.1f}%)"
+                 if name in floors else "")
+        log(f"bound {name}: {b_ms:.4f} ms ({by}){floor}; kernel "
+            f"{ms[name]:.4f} ms, roofline share {100 * b_ms / ms[name]:.1f}% "
+            f"[{card}]")
     log(f"graph-mode launches on the main paths of phase 30: {graph_launches}")
 
     def entry(name, kid, src, replaces, launches, err):

@@ -75,11 +75,27 @@
 // of T+A+L-1 input rows into that same buffer, once, and folds it in
 // place, 32 rows a pass: a thread keeps its lane's L taps in registers and
 // slides its 16 rows' window through registers, so a pass reads 16+L-1
-// values a thread from shared memory, not 16 L (stage 1). K5 generates
-// each value once per block that needs it (1.6x per row at T=128, for the
-// junction), not once per tap. The window fits in the padded tile at T =
-// 64, 128 and 256 (at most L-1 more rows elsewhere).
+// values a thread from shared memory, not 16 L (stage 1). The window fits
+// in the padded tile at T = 64, 128 and 256 (at most L-1 more rows
+// elsewhere).
 //
+// K5 and K6 generate their window (GenRows): at T = 128 a block's window
+// is 1.625 of its own rows, and generating it one element a thread took
+// K5 its window's 0.0347 ms plus K3's chain's 0.0313, with no overlap
+// between the two, where K4 makes a batch's rows in 0.0151 (PERF.md §6,
+// on an NVIDIA H100 80GB HBM3 at 700 W; Philox's integer work bounds the
+// window, ~0.0142 ms a batch at Hopper's INT32 rate). So a thread
+// makes four lanes of a row at a time from hoisted round keys, with one
+// 16-byte store (gen_rows), and at 128 lanes each block generates only its
+// own rows and takes its junction from the blocks before it through
+// device memory (gen_window_handoff): (n + A + L - 1) / n rows a row, and
+// K5 0.0551 ms, the window alone 0.0253 (each block its whole window with
+// the same generator: 0.0585 and 0.0270; the same card). Thread-block
+// clusters passing the junction through distributed shared memory were
+// tried (PERF.md §6): clusters of 4 or 8 tiles of 112 KB do not all
+// fit on the card at once (62 and 30 clusters, for 64 and 32), and of 2
+// gained 3%.
+
 // Stage 2, the planes DFT as an FFT (planes_fft.cuh, shared with K1 in
 // channelizer.cu). W2 maps [ar | ai] to Y with Y[j] = e^{-2 pi i j/M}
 // sum_k a[k] e^{-2 pi i jk/M}: at M = 64 a 64-point FFT of 8 x 8 by 8
@@ -337,9 +353,105 @@ __device__ __forceinline__ HaloRows<kW> halo_rows(const float* vb,
                       (((uintptr_t)vb | (uintptr_t)halo) & 15) == 0, w};
 }
 
+// K5's and K6's input rows, made in the block: row sr of the launch (rows
+// counted from the first block's first row, of either sign) is amp *
+// gauss(s, sr, lane) (philox.cuh; s.g0 the group of row 0), K4's stream
+// bit for bit. K5 reads the carried halo in place of rows sr < 0 (carry0,
+// H8 rows, zeros before them) and writes rows sr >= n - H8 out as the next
+// batch's (carry_out); K6 has neither (carry0 null) and generates every
+// row it reads, the stream's groups before its start reading 0
+// (s.mask_pre). A time shard d of K6 is the same stream shifted by d n
+// rows (n a multiple of 64), so one base serves every shard. hand/flags:
+// the junction handoff between the tiles of a launch (gen_window_handoff;
+// null: each block generates its whole window). operator() is one element
+// (chain_tile_wide's fold); gen4 is four consecutive lanes of one row from
+// the round keys hoisted out of the loop (gen_rows), the row's group and
+// its masked test once for the four, and their four Philox chains
+// independent, so they are in flight together. Both compute gauss()'s
+// counter, rounds and transform: the same bits.
+template <int kW>
+struct GenRows {
+  philox::Stream s;
+  float a;
+  const float* carry0;
+  float* carry_out;
+  int H8, n, w;
+  float* hand;
+  unsigned* flags;
+
+  __device__ __forceinline__ float operator()(int sr, int k) const {
+    const int W = kW ? kW : w;
+    if (carry0 && sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
+    const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
+    if (carry_out && sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
+    return v;
+  }
+
+  __device__ __forceinline__ float4 gen4(int sr, int k,
+                                         const philox::Keys& keys) const {
+    const int W = kW ? kW : w;
+    float v[4];
+    if (carry0 && sr < 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = sr >= -H8 ? carry0[(H8 + sr) * W + k + j] : 0.f;
+      return make_float4(v[0], v[1], v[2], v[3]);
+    }
+    const int q = sr >> 6;  // floor(sr / 64), either sign
+    const uint64_t g = s.g0 + (uint64_t)(long long)q;
+    if (s.mask_pre && (long long)g < 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = 0.f;
+    } else {
+      const uint32_t c0 = (uint32_t)((sr & 63) * W + k);  // (sr - 64 q) W + k
+      uint32_t c[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j][0] = c0 + j;
+        c[j][1] = (uint32_t)g;
+        c[j][2] = (uint32_t)(g >> 32);
+        c[j][3] = 0u;
+        philox::philox4x32_10(c[j], keys);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t sum = 0;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          if (d < s.draws) sum += (c[j][d] & 0xFFFFu) + (c[j][d] >> 16);
+        v[j] = __fmul_rn(__fsub_rn((float)sum, s.mean), s.inv_std);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = __fmul_rn(v[j], a);
+      if (carry_out && sr >= n - H8) carry_out[(sr - (n - H8)) * W + k + j] = v[j];
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// Rows sr0 .. sr0 + n - 1 of a generating row source into dst (natural,
+// kW floats a row), and into `also` (device memory) where given: four
+// lanes a thread at a time, one 16-byte store each.
+template <int kW>
+__device__ __forceinline__ void gen_rows(float* dst, int sr0, int n,
+                                         const GenRows<kW>& row,
+                                         float* also = nullptr) {
+  constexpr int W4 = kW / 4;
+  const philox::Keys keys = philox::round_keys(row.s.k0, row.s.k1);
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < n * W4; idx += kThreads) {
+    const float4 v = row.gen4(sr0 + idx / W4, 4 * (idx % W4), keys);
+    reinterpret_cast<float4*>(dst)[idx] = v;
+    if (also) reinterpret_cast<float4*>(also)[idx] = v;
+  }
+}
+
 // A tile's window of n input rows from stream row sr0 into buf (natural,
 // kW floats a row): 16-byte loads where the rows come from memory on the
-// 16-byte grid, else one float at a time.
+// 16-byte grid, generated four lanes a thread (gen_rows) where the block
+// makes them, else one float at a time.
 template <int kW, class Row>
 __device__ __forceinline__ void load_window(float* buf, int sr0, int n,
                                             const Row& row) {
@@ -352,9 +464,79 @@ __device__ __forceinline__ void load_window(float* buf, int sr0, int n,
             row.load4(sr0 + idx / W4, 4 * (idx % W4));
       return;
     }
+  } else if constexpr (std::is_same_v<Row, GenRows<kW>>) {
+    gen_rows<kW>(buf, sr0, n, row);
+    return;
   }
   for (int idx = tid; idx < n * kW; idx += kThreads)
     buf[idx] = row(sr0 + idx / kW, idx % kW);
+}
+
+// The junction handoff of a generating launch at the flagship's 128
+// lanes. A tile's window is its junction, the J = A + L - 1 rows before
+// it, then its own T rows; the junction rows are the tiles before's own
+// rows, so generating every window whole makes (T + J) / T rows a row
+// (1.625 at T = 128). Here each block generates only its own rows, and
+// the rows the tiles after it read, the last H = min(T, J) of them, first:
+// into its window and into its slot of `hand` (device memory, H rows a
+// tile), then it publishes them (flags[1 + b] = 1, after a fence) and
+// generates the rest. Then it waits for the flags of the ceil(J / T)
+// tiles before it (one at T >= J, two at tile 64) and copies its junction
+// from their slots (from L2; rows before the launch's first row it
+// generates, as every window did). `hand` and `flags` belong to the one
+// launch: the wrapper allocates them for it on its stream, and the
+// launcher zeroes the flags before it (handoff_reset), so launches on
+// other streams or threads share nothing. A block's tile b is the ticket
+// it takes first (take_tile, flags[0]), not its blockIdx, so every tile
+// it waits for belongs to a block that has started and so is resident or
+// done, in whatever order the card starts them; a wait that passes ~0.5
+// s traps, so a fault ends the launch with an error, not a hang. Every
+// row holds the bits its block would have generated itself (the stream is
+// position-pure), so the outputs do not depend on the handoff. The rows
+// generated fall to (n + J) / n a launch.
+__device__ __forceinline__ int take_tile(unsigned* flags, float* buf) {
+  if (threadIdx.x == 0)
+    reinterpret_cast<int*>(buf)[0] = (int)atomicAdd(flags, 1u);
+  __syncthreads();
+  const int b = reinterpret_cast<const int*>(buf)[0];
+  __syncthreads();
+  return b;
+}
+
+template <class Row>
+__device__ __forceinline__ void gen_window_handoff(float* buf, int t0, int J,
+                                                   int T, const Row& row) {
+  constexpr int W = kFlagW, W4 = W / 4;
+  const int b = t0 / T, tid = threadIdx.x, H = min(T, J);
+  // 1. the rows the next tiles read, into the window and the tile's slot
+  gen_rows<W>(buf + (J + T - H) * W, t0 + T - H, H, row,
+              row.hand + (size_t)b * H * W);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) atomicExch(row.flags + 1 + b, 1u);
+  // 2. the rest of the block's own rows
+  gen_rows<W>(buf + J * W, t0, T - H, row);
+  // 3. the junction: rows before the launch generated, the rest copied
+  const int s_lo = t0 - J;
+  if (s_lo < 0) gen_rows<W>(buf, s_lo, min(-s_lo, J), row);
+  const int o_lo = s_lo > 0 ? s_lo / T : 0;
+  if (tid == 0) {
+    for (int o = o_lo; o < b; ++o)
+      for (long long i = 0; *(volatile unsigned*)(row.flags + 1 + o) == 0u;
+           ++i) {
+        if (i > (1LL << 22)) __trap();
+        __nanosleep(128);
+      }
+    __threadfence();
+  }
+  __syncthreads();
+  const int first = s_lo > 0 ? s_lo : 0;  // the first row copied
+  for (int idx = tid; idx < (t0 - first) * W4; idx += kThreads) {
+    const int sr = first + idx / W4, o = sr / T;
+    const float* src = row.hand + ((size_t)o * H + (sr - (o * T + T - H))) * W;
+    reinterpret_cast<float4*>(buf + (sr - s_lo) * W)[idx % W4] =
+        __ldcg(reinterpret_cast<const float4*>(src) + idx % W4);
+  }
 }
 
 // The demod of one output: atan2 of conj(Y[t-1]) * Y[t], times the gain
@@ -461,7 +643,14 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   // 1. The window, folded: row jj gets acc of stream row t0 - A + jj.
   if constexpr (kRebuild) {
     // the window's first stream row is t0 - A - (L - 1)
-    load_window<W>(buf, t0 - A - (L - 1), R + L - 1, row);
+    if constexpr (std::is_same_v<Row, GenRows<W>>) {
+      if (row.hand)
+        gen_window_handoff(buf, t0, A + L - 1, p.T, row);
+      else
+        load_window<W>(buf, t0 - A - (L - 1), R + L - 1, row);
+    } else {
+      load_window<W>(buf, t0 - A - (L - 1), R + L - 1, row);
+    }
     __syncthreads();
     if constexpr (kV == kDmaOnly) {
       // window row A + L - 1 + j is stream row t0 + j
@@ -954,20 +1143,22 @@ __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
 
 // The tile of a kernel that rebuilds every junction (K3, K5, K6); the
 // last block writes the end state where the kernel returns one.
+// tile: the tile the block takes (its blockIdx, or take_tile's ticket).
 template <int kW, int kV = kFull, int kAG = 1, int kT = kWideThreads,
           class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
-                                             int t_min, Row row) {
-  const bool last = blockIdx.x == gridDim.x - 1 && p.prev_out != nullptr;
+                                             int t_min, Row row,
+                                             int tile) {
+  const bool last = tile == (int)gridDim.x - 1 && p.prev_out != nullptr;
   if constexpr (kW == kFlagW) {
-    chain_tile<true, kV, kAG>(buf, p, t_min, blockIdx.x * p.T, last, nullptr,
+    chain_tile<true, kV, kAG>(buf, p, t_min, tile * p.T, last, nullptr,
                               nullptr, nullptr, row, [] {});
   } else if constexpr (kW == 0) {
     static_assert(kV == kFull, "the ablation runs at 128 lanes");
-    chain_tile_wide<kT>(buf, p, t_min, blockIdx.x * p.T, last, row);
+    chain_tile_wide<kT>(buf, p, t_min, tile * p.T, last, row);
   } else {
     static_assert(kV == kFull, "the ablation runs at 128 lanes");
-    chain_tile_stream<kW>(buf, p, t_min, blockIdx.x * p.T, last, row);
+    chain_tile_stream<kW>(buf, p, t_min, tile * p.T, last, row);
   }
 }
 
@@ -978,7 +1169,7 @@ fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
   rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min,
-                               halo_rows<kW>(vb, halo, hrows, p.w));
+                               halo_rows<kW>(vb, halo, hrows, p.w), blockIdx.x);
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -988,27 +1179,42 @@ fm_chain_ablate_kernel(const float* __restrict__ vb,
                        const float* __restrict__ halo, int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
   rebuilt_tile<kFlagW, kV>(buf, p, p.t_min,
-                           halo_rows<kFlagW>(vb, halo, hrows));
+                           halo_rows<kFlagW>(vb, halo, hrows), blockIdx.x);
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
 // out as the next carry), the halo from carry0; the base group on the card.
+// hand/flags (128 lanes only, else null): the junction handoff
+// (gen_window_handoff), with the block's tile from a ticket (take_tile).
 template <int kW, int kAG>
 __global__ void __launch_bounds__(kW ? kThreads : kWideThreads)
 fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     const float* __restrict__ amp,
                     const float* __restrict__ carry0,
-                    float* __restrict__ carry_out, Chain p) {
+                    float* __restrict__ carry_out, float* hand,
+                    unsigned* flags, Chain p) {
   extern __shared__ __align__(16) float buf[];
   s.g0 = philox::group_at(group, 0);
-  const int H8 = p.H8, n = p.n, W = kW ? kW : p.w;
   const float a = amp[0];
-  rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
-    if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
-    const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
-    if (sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
-    return v;
-  });
+  if constexpr (kW == 0) {
+    // chain_tile_wide's one element at a time, from the kernel's own
+    // parameters: at 1024 threads and 64 registers a thread, GenRows' copy
+    // of them spilled more (K5 at M = 512 0.6289 ms against 0.4560 on an
+    // NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6)
+    const int H8 = p.H8, n = p.n, W = p.w;
+    rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
+      if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
+      const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
+      if (sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
+      return v;
+    }, blockIdx.x);
+  } else {
+    const int tile = hand ? take_tile(flags, buf) : (int)blockIdx.x;
+    rebuilt_tile<kW, kFull, kAG>(
+        buf, p, p.t_min,
+        GenRows<kW>{s, a, carry0, carry_out, p.H8, p.n, p.w, hand, flags},
+        tile);
+  }
 }
 
 // K6: K5 with nothing carried in or out: every row a block reads, before
@@ -1016,34 +1222,35 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
 // stream masks groups before its start to 0). One launch takes the nd
 // shards of a batch, n rows each: block b is tile b mod (n/T) of shard d =
 // b / (n/T), whose base is the batch's group counter on the card plus goff
-// + d n/64 groups; the stream's first row relative to it (t_min) follows
-// from that base here: where a block can reach it (shard 0 of the first
-// batch) it is -64 * base, else far in the past (kFarPast, which no block
-// reaches). The blocks count rows from the first shard's base (t0 =
-// b T): shard d's rows are its own shifted by d n (the stream is
-// position-pure, philox.cuh), so each writes its audio at its place in the
-// one (nd n/decim, M) output.
+// + d n/64 groups. The rows are one stream over the shards (row sr of the
+// launch is row sr - d n of shard d, n a multiple of 64), so the junction
+// handoff runs across the shards as within them. The stream's first row relative to a
+// shard's base (t_min) follows from that base here: where a block can
+// reach it (shard 0 of the first batch) it is -64 * base, else far in the
+// past (kFarPast, which no block reaches). The blocks count rows from the
+// first shard's base (t0 = b T), so each writes its audio at its place in
+// the one (nd n/decim, M) output.
 constexpr int kFarPast = -(1 << 30);
 
 template <int kW, int kAG>
 __global__ void __launch_bounds__(kW ? kThreads : kWideThreadsK6)
 fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
-                         const Chain p) {
+                         float* hand, unsigned* flags, const Chain p) {
   extern __shared__ __align__(16) float buf[];
-  const int d = blockIdx.x / (p.n / p.T);
+  const int tile = hand ? take_tile(flags, buf) : (int)blockIdx.x;
+  const int d = tile / (p.n / p.T);
   const long long shift = (long long)d * p.n;  // shard d's first row
-  s.g0 = philox::group_at(group, goff + shift / philox::kGroupRows);
-  const long long g = (long long)s.g0;
+  const long long g = (long long)philox::group_at(
+      group, goff + shift / philox::kGroupRows);  // shard d's base
   const int t_min = g <= 0 ? (int)shift
                     : g >= (1LL << 24) ? kFarPast
                                        : (int)(shift - g * philox::kGroupRows);
-  const float a = amp[0];
-  const int W = kW ? kW : p.w;
-  rebuilt_tile<kW, kFull, kAG, kWideThreadsK6>(buf, p, t_min,
-                                               [&](int sr, int k) {
-    return __fmul_rn(philox::gauss(s, sr - shift, k, W), a);
-  });
+  s.g0 = philox::group_at(group, goff);  // row 0 of the launch
+  rebuilt_tile<kW, kFull, kAG, kWideThreadsK6>(
+      buf, p, t_min,
+      GenRows<kW>{s, amp[0], nullptr, nullptr, p.H8, p.n, p.w, hand, flags},
+      tile);
 }
 
 // K3p's overlap: a 16-byte copy from device to shared memory that runs
@@ -1202,22 +1409,39 @@ int planes_launch(const float* vb, const float* halo, int hrows, int n,
                stream, vb, halo, hrows, p);
 }
 
+// The handoff's flags zeroed on the launch's stream, before it: the
+// ticket counter and one flag a tile (gen_window_handoff).
+int handoff_reset(unsigned* flags, int tiles, void* stream) {
+  return (int)cudaMemsetAsync(flags, 0, (size_t)(tiles + 1) * sizeof(unsigned),
+                              (cudaStream_t)stream);
+}
+
 template <int kW>
 int gen_launch(const philox::Stream& s, const long long* group,
                const float* amp, const float* carry0, float* carry_out, int n,
-               int L, int A, int decim, int T, int ag, void* stream,
-               const Chain& p) {
+               int L, int A, int decim, int T, int ag, float* hand,
+               unsigned* flags, void* stream, const Chain& p) {
+  if (hand)
+    if (const int err = handoff_reset(flags, n / T, stream)) return err;
   LAUNCH_BANDS(fm_chain_gen_kernel, kWideThreads, ag, T, A, L, decim, n / T,
-               stream, s, group, amp, carry0, carry_out, p);
+               stream, s, group, amp, carry0, carry_out, hand, flags, p);
 }
 
 template <int kW>
 int gen_warm_launch(const philox::Stream& s, const long long* group,
                     long long goff, int nd, const float* amp, int n, int L,
-                    int A, int decim, int T, int ag, void* stream,
-                    const Chain& p) {
+                    int A, int decim, int T, int ag, float* hand,
+                    unsigned* flags, void* stream, const Chain& p) {
+  if (hand)
+    if (const int err = handoff_reset(flags, nd * (n / T), stream)) return err;
   LAUNCH_BANDS(fm_chain_gen_warm_kernel, kWideThreadsK6, ag, T, A, L, decim,
-               nd * (n / T), stream, s, group, goff, amp, p);
+               nd * (n / T), stream, s, group, goff, amp, hand, flags, p);
+}
+
+// K5's and K6's junction handoff: both buffers or neither, at 128 lanes.
+bool valid_handoff(const float* hand, const unsigned* flags, int M) {
+  return (hand == nullptr) == (flags == nullptr) &&
+         (hand == nullptr || 2 * M == kFlagW);
 }
 
 }  // namespace
@@ -1285,12 +1509,14 @@ extern "C" int fm_chain_gen_launch(
     const float* prev0, const float* tail0, const float* c2, const float* tw,
     const float* ataps, float* aud, float* prev_out, float* tail_out,
     float* carry_out, int n, int M, int L, int H8, int A, int decim, int T,
-    int ag, float gain, const float* atan_coeffs, void* stream) {
-  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim))
+    int ag, float* hand, unsigned* flags, float gain,
+    const float* atan_coeffs, void* stream) {
+  if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim) ||
+      !valid_handoff(hand, flags, M))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
   FOR_WIDTH(M, gen_launch, s, group, amp, carry0, carry_out, n, L, A, decim,
-            T, ag, stream,
+            T, ag, hand, flags, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
 }
@@ -1301,15 +1527,25 @@ extern "C" int fm_chain_gen_warm_launch(
     int draws, float mean, float inv_std, const float* amp, const float* prev0,
     const float* tail0, const float* c2, const float* tw, const float* ataps,
     float* aud, int n, int M, int L, int H8, int A, int decim, int T,
-    int ag, float gain, const float* atan_coeffs, void* stream) {
+    int ag, float* hand, unsigned* flags, float gain,
+    const float* atan_coeffs, void* stream) {
   if ((draws != 2 && draws != 3) || !valid_bands(ag, T, decim) || nd < 1 ||
-      n % T || n % philox::kGroupRows || (long long)nd * n > (1LL << 30))
+      n % T || n % philox::kGroupRows || (long long)nd * n > (1LL << 30) ||
+      !valid_handoff(hand, flags, M))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
   FOR_WIDTH(M, gen_warm_launch, s, group, goff, nd, amp, n, L, A, decim, T,
-            ag, stream,
+            ag, hand, flags, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
+}
+
+// K5's and K6's flags zeroed alone, as their launchers zero them before a
+// launch of `tiles` tiles (the probes time it).
+extern "C" int fm_chain_handoff_reset(unsigned* flags, int tiles,
+                                      void* stream) {
+  return tiles < 1 ? (int)cudaErrorInvalidValue
+                   : handoff_reset(flags, tiles, stream);
 }
 
 extern "C" int fm_chain_pipe_launch(

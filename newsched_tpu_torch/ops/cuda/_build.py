@@ -51,10 +51,11 @@ SIGNATURES = {
                              _P],
     "fm_chain_gen_launch": [_P, _U, _U, _I, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _P, _P],
+                            _I, _I, _P, _P, _F, _P, _P],
     "fm_chain_gen_warm_launch": [_P, _LL, _I, _U, _U, _I, _F, _F, _P, _P, _P, _P,
                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _P, _P],
+                                 _P, _P, _F, _P, _P],
+    "fm_chain_handoff_reset": [_P, _I, _P],
     "atan2_launch": [_P, _P, _P, _LL, _P, _P],
     # channelizer.cu
     "arm_fold_launch": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],

@@ -126,6 +126,46 @@ def _count_bands(fn, ag: int) -> None:
         setattr(fn, name, getattr(fn, name) + 1)
 
 
+class GenPlan(NamedTuple):
+    """How K5 or K6 is launched: ``blocks`` tiles of ``tile`` rows. At
+    the flagship's 128 lanes each block generates its own rows, publishes
+    the last ``hand_rows`` (min(tile, A + L - 1)) in device memory and
+    copies its junction from the tiles before it (csrc/fm_chain.cu
+    gen_window_handoff: from 0.0585 to 0.0551 ms for K5 at 32768 rows on
+    an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6); wider, ``hand_rows``
+    is 0 and each block generates its whole window (``chain_tile_stream``
+    and ``chain_tile_wide`` have no handoff)."""
+
+    blocks: int
+    tile: int
+    hand_rows: int
+
+
+def gen_plan(W: int, tile: int, blocks: int, A: int, L: int) -> GenPlan:
+    """The launch plan of K5 and K6 over ``blocks`` tiles of ``tile``
+    rows at ``W`` lanes. A tile shorter than the junction (tile 64
+    against A + L - 1 = 80 rows) is planned like any other: its blocks
+    wait for the two tiles before. Raises ValueError naming itself for an
+    empty grid or tile."""
+    if blocks < 1 or tile < 1:
+        raise ValueError(f"gen_plan: {blocks} blocks of {tile} rows")
+    return GenPlan(blocks, tile,
+                   min(tile, A + L - 1) if W == FLAGSHIP_W else 0)
+
+
+def _handoff_buffers(plan: GenPlan, W: int, dev) -> tuple:
+    """The handoff's device memory for one launch, (None, None) without
+    it: each tile's published rows, then the flags (the tile ticket and
+    one flag a tile, which the launcher zeroes on the launch's stream).
+    Made for the call on the current stream, so launches on other
+    streams, threads or captured graphs share nothing."""
+    if not plan.hand_rows:
+        return None, None
+    nh = plan.blocks * plan.hand_rows * W
+    buf = torch.empty(nh + plan.blocks + 1, dtype=torch.float32, device=dev)
+    return buf[:nh], buf[nh:].view(torch.int32)
+
+
 def _pick_tile(n_out: int, tile: int, decim: int) -> int:
     if n_out % tile != 0:
         if n_out <= tile:
@@ -503,6 +543,11 @@ def _check_chain_tensors(dev, inputs, prev0, tail0, consts) -> None:
         _build.check_tensor(t, name, device=dev, shape=shape)
 
 
+def _ptr(t) -> int | None:
+    """A tensor's address for a launcher, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def _chain_outputs(n: int, decim: int, M: int, A: int, dev):
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty((n // decim, M), **f32),
@@ -576,6 +621,7 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
                                        decim, gain, n_loc, seed, draws, ag,
                                        tile)
     _check_kernel_shape(W, tile, A, L, ag, decim)
+    plan = gen_plan(W, tile, n_loc // tile, A, L)
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     _check_chain_tensors(dev, [("amp", amp, (1,)), ("carry0", carry0, (H8, W))],
                          prev0, tail0, consts)
@@ -583,6 +629,7 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
     g = noise.device_group(g0, dev)
     aud, prev, tail = _chain_outputs(n_loc, decim, M, A, dev)
     carry = torch.empty((H8, W), dtype=torch.float32, device=dev)
+    hand, flags = _handoff_buffers(plan, W, dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_launch(
             g.data_ptr(), *args, amp.data_ptr(), carry0.data_ptr(),
@@ -590,7 +637,8 @@ def fm_chain_gen_step(g0, amp, carry0: torch.Tensor, prev0: torch.Tensor,
             tail0.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), carry.data_ptr(), n_loc, M, L, H8, A, int(decim),
-            tile, ag, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            tile, ag, _ptr(hand), _ptr(flags), float(gain),
+            ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_gen_launch")
     fm_chain_gen_step.launches += 1
@@ -706,6 +754,7 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
                                             n_loc, warm, seed, draws, goff,
                                             ag, tile, nd)
     _check_kernel_shape(W, tile, A, L, ag, decim)
+    plan = gen_plan(W, tile, nd * (n_loc // tile), A, L)
     amp = torch.as_tensor(amp, dtype=torch.float32, device=dev).reshape(1)
     z1, zt = _zero_state(dev, A, W)
     _check_chain_tensors(dev, [("amp", amp, (1,))], z1, zt, consts)
@@ -713,12 +762,13 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     g = noise.device_group(g0, dev)
     aud = torch.empty((nd * (n_loc // decim), M), dtype=torch.float32,
                       device=dev)
+    hand, flags = _handoff_buffers(plan, W, dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_gen_warm_launch(
             g.data_ptr(), int(goff), nd, *args, amp.data_ptr(), z1.data_ptr(),
             zt.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), n_loc, M, L, H8, A,
-            int(decim), tile, ag, float(gain),
+            int(decim), tile, ag, _ptr(hand), _ptr(flags), float(gain),
             ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_gen_warm_launch")

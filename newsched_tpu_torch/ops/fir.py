@@ -409,9 +409,10 @@ def interp_taps(taps, interp: int, decim: int, device) -> InterpTaps:
     dtype = np.complex64 if np.iscomplexobj(taps) else np.float32
     L = -(-len(taps) // interp)  # taps per phase, zero-padded
     tpad = np.pad(taps, (0, L * interp - len(taps)))
+    # a copy: a one-tap arm's reversed view keeps its negative stride
     return InterpTaps(tuple(
-        torch.tensor(np.ascontiguousarray(tpad[(r * decim) % interp::interp][::-1],
-                                          dtype), device=device)
+        torch.tensor(np.array(tpad[(r * decim) % interp::interp][::-1], dtype),
+                     device=device)
         for r in range(interp)))
 
 

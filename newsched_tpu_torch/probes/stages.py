@@ -9,6 +9,7 @@ past the FFT's 513 taps, for the same comparison.
     PYTHONPATH=<tree> python3 <this file> outputs --compare FILE
     PYTHONPATH=<tree> python3 <this file> times
     PYTHONPATH=<tree> python3 <this file> sharded
+    PYTHONPATH=<tree> python3 <this file> split
 
 ``stages`` copies ``csrc/fir_source.cu``, ``csrc/fir_part.cu`` and
 ``csrc/wbfm_chain.cu`` of the package on the path (this tree, or one
@@ -36,15 +37,18 @@ at K = 3, 7, 11, 12, 15),
 K4 at the flagship's 32768 x 128 (with and without an amplitude, as rows
 and as the cf32 stream, at group 2^32 - 2 and at a negative group with
 mask_pre), two batches of each noise block (``noise_planes_source``,
-``noise_source`` cf32 and rf32) and the audio of the config #2 fused-noise
-and staged graphs (two batches, graph mode), and saves them, or compares
+``noise_source`` cf32 and rf32) and the audio of the config #2 fused-noise,
+staged, live and 4-shard live graphs (two batches, graph mode), and K5
+at tiles 64 and 256 and K6 over 4 and 8 shards of a batch at M = 64, and
+saves them, or compares
 them with a saved run: each record says whether the two are bit-equal and
 their largest difference. A tree whose noise kernel takes no amplitude
 gets its blocks' own ``r * amp`` and torch.complex build.
 
 ``times`` times, alternating, by CUDA-graph replay: K4 at 32768 x 128
 alone, with the amplitude and as the cf32 stream (in a tree without them,
-the kernel and the blocks' torch ops after it); K9 at 128, 1024 and 6001
+the kernel and the blocks' torch ops after it); K3 and K5 at M = 64 on
+its 32768 rows and K6 over their 4 and 8 shards; K9 at 128, 1024 and 6001
 taps; K1 at M = 320 on 16384 rows (whichever instance the tree routes
 that width to), S3 at 1024 frames of 512 bits, K = 7 (the tree's
 default instance), K3 and K5 at M = 128, 256, 320, 448, 512 and 1024
@@ -54,6 +58,13 @@ live graphs, the live graph on 4 and 8 shards, the staged graph at M =
 320, 512 and 1024 (16384 rows a batch; a width the tree refuses is
 recorded as its error) and the live fir_chain at 1024 taps (the bench's
 two-point fit).
+
+``split`` takes K5 at the flagship's M = 64 (32768 rows) apart beside
+K4: K3 on K4's rows (the chain on a loaded window) and its window alone,
+K5 and K6 over 4 shards whole and their window alone (made, not
+folded), the window alone from ``fm_chain.cu`` cut after it
+(``_WINDOW_CUT``, built under ``build/split/``); in a tree whose K5 and
+K6 take the junction handoff, with it and without it.
 
 ``sharded`` times the graph-mode steps of the sharded graphs (#2 fused
 replay, #1 fused, #1 live, #0 live) unsharded and on 4 and 8 logical
@@ -73,6 +84,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -207,6 +219,120 @@ def _build_stages(out: Path, stages=(1, 2, 3)) -> dict:
                           r"registers", "".join(logs[st]))
         print(json.dumps({"stage_build": st, "registers": regs}), flush=True)
     return libs
+
+
+# K3's, K5's and K6's tile routine at 128 lanes (csrc/fm_chain.cu
+# chain_tile) cut after its window, as K3's kDmaOnly variant: STAGE 1
+# writes the window's rows o * decim as the audio and returns, so K3 reads
+# its window and K5 and K6 make theirs, and nothing of the chain runs
+_WINDOW_CUT = ("    if constexpr (kV == kDmaOnly) {",
+               "#if STAGE < 2\n"
+               "    for (int idx = tid; idx < p.T / p.decim * M; idx += kThreads) {\n"
+               "      const int o = idx / M, m = idx % M;\n"
+               "      p.aud[((long long)t0 / p.decim + o) * M + m] =\n"
+               "          buf[(A + L - 1 + o * p.decim) * W + m];\n"
+               "    }\n"
+               "    return;\n"
+               "#endif\n")
+
+
+def _gen_registers(log: str) -> list:
+    """(kernel, registers) of K5's and K6's instances in a build log."""
+    return re.findall(r"Function properties for \S*?(fm_chain_gen\w*?Li\d+ELi\d+E)"
+                      r"[\s\S]*?Used (\d+) registers", log)
+
+
+def _window_cut_lib(out: Path) -> ctypes.CDLL:
+    """``csrc/fm_chain.cu`` cut after the window (``_WINDOW_CUT``, STAGE
+    1), built alone under ``out``: the chain kernels' launchers."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC.glob("*.cuh"):
+        (out / f.name).write_text(f.read_text())
+    text = (_build.CSRC / "fm_chain.cu").read_text()
+    anchor, cut = _WINDOW_CUT
+    if text.count(anchor) != 1:
+        raise SystemExit("fm_chain.cu: the window cut's anchor is not there "
+                         "once")
+    (out / "fm_chain.cu").write_text("#define STAGE 1\n"
+                                     + text.replace(anchor, cut + anchor))
+    so = out / "libwindow.so"
+    log = _build._compile([out / "fm_chain.cu"], so)
+    print(json.dumps({"window_cut_build": str(so),
+                      "registers": _gen_registers(log)}), flush=True)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith("fm_chain"):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def split() -> list[dict]:
+    """K5 at the flagship's M = 64 (32768 rows, the default tile) taken
+    apart, beside K4 with the amplitude: K3 on K4's rows (the chain on a
+    loaded window) and its window alone, K5 whole and its generation
+    alone (the window made, ``_WINDOW_CUT``), K6 over the 4 shards of the
+    batch whole and alone; in a tree with the junction handoff
+    (``fm_chain._handoff_buffers``) K5 and K6 with it and without it (the
+    wrapper given no handoff buffers, so each block generates its whole
+    window). By CUDA-graph replay, forward then backward; each record the
+    best."""
+    M, L, A, D, n = 64, 16, 65, 8, 32768
+    taps = firdes.prototype_channelizer_taps(M, L)
+    at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
+    c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+    consts = fm_chain.fm_chain_consts(c, at, "cuda")
+    z = dict(dtype=torch.float32, device="cuda")
+    g0 = torch.tensor(5, dtype=torch.int64, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    rows = _k4(g0, amp)
+    st = (torch.zeros(16, 2 * M, **z), torch.zeros(1, 2 * M, **z),
+          torch.zeros(A - 1, 2 * M, **z))
+    calls = {"K4 amp": lambda: _k4(g0, amp),
+             "K3": lambda: fm_chain.fm_chain_step_planes(rows, *st, consts, D,
+                                                         0.5),
+             "K5": lambda: fm_chain.fm_chain_gen_step(g0, amp, *st, consts, D,
+                                                      0.5, n),
+             "K6 4 shards": lambda: fm_chain.fm_chain_gen_warm_step(
+                 g0, amp, consts, D, 0.5, n // 4, warm=512, nd=4)}
+    bufs = getattr(fm_chain, "_handoff_buffers", None)
+    forms = (True, False) if bufs else (None,)
+    box: dict = {}  # the cut builds while the library does
+    th = threading.Thread(target=lambda: box.setdefault(
+        "lib", _window_cut_lib(Path(_build.BUILD_DIR).parent / "split")))
+    th.start()
+    full = _build.lib()
+    th.join()
+    window = box["lib"]
+    if _build.build().log:
+        print(json.dumps({"build": "library",
+                          "registers": _gen_registers(_build.build().log)}),
+              flush=True)
+    runs = []  # (name, call, library, handoff)
+    for name, fn in calls.items():
+        for ho in (forms if name[:2] in ("K5", "K6") else (None,)):
+            tag = name if ho is None else \
+                f"{name} {'handoff' if ho else 'whole windows'}"
+            runs.append((tag, fn, full, ho))
+            if name != "K4 amp":
+                runs.append((tag + " window alone", fn, window, ho))
+    ms: dict = {}
+    try:
+        for tag, fn, lib, ho in runs + runs[::-1]:
+            _build.lib = (lambda lib=lib: lib)
+            if ho is not None:
+                fm_chain._handoff_buffers = (
+                    bufs if ho else lambda plan, w, dev: (None, None))
+            ms.setdefault(tag, []).append(graph_ms(fn))
+    finally:
+        _build.lib = lambda: full
+        if bufs:
+            fm_chain._handoff_buffers = bufs
+    recs = [{"kernel": k, "ms": min(v), "ms_all": v} for k, v in ms.items()]
+    if bufs:
+        recs.append({"plan": fm_chain.gen_plan(2 * M, 128, n // 128, A,
+                                               L)._asdict()})
+    return recs
 
 
 def _wb_plan():
@@ -385,10 +511,13 @@ def _noise_outputs() -> dict:
         for b in range(2):
             st, o = blk.work(st, {}, {"amplitude": amp}, nout)
             res[f"block/{kind}/{b}"] = o["out"].cpu()
-    for kind in ("fused", "staged"):
+    from newsched_tpu_torch.parallel import make_mesh
+
+    for kind, nd in (("fused", 1), ("staged", 1), ("live", 1), ("live", 4)):
         fg, blks = _fm_graph(kind, 2)
-        fg.run(device="cuda")
-        res[f"graph/{kind}"] = torch.from_numpy(np.asarray(blks["sink"].data()))
+        fg.run(device="cuda", mesh=make_mesh(nd) if nd > 1 else None)
+        key = f"graph/{kind}" + (f"/{nd} shards" if nd > 1 else "")
+        res[key] = torch.from_numpy(np.asarray(blks["sink"].data()))
     return res
 
 
@@ -424,6 +553,21 @@ def times() -> list[dict]:
     llr = torch.randn(1024, 518, 2, device="cuda", generator=gen)
     calls["S3 K=7"] = lambda: kfec.viterbi_frames(llr, tabs, 7, True)
     z = dict(dtype=torch.float32, device="cuda")
+    c64 = np.ascontiguousarray(pfb.pfb_arm_taps(
+        firdes.prototype_channelizer_taps(64, 16), 64)[::-1, ::-1].T)
+    cc64 = fm_chain.fm_chain_consts(c64, firdes.low_pass(
+        1.0, 1.0, 0.05, 0.0125, ntaps=65), "cuda")
+    r64 = _k4(g0, amp)  # the flagship's batch, 32768 rows of M = 64
+    st64 = (torch.zeros(16, 128, **z), torch.zeros(1, 128, **z),
+            torch.zeros(64, 128, **z))
+    calls["K3 M=64"] = lambda: fm_chain.fm_chain_step_planes(r64, *st64, cc64,
+                                                            8, 0.5)
+    calls["K5 M=64"] = lambda: fm_chain.fm_chain_gen_step(g0, amp, *st64,
+                                                         cc64, 8, 0.5, 32768)
+    for nd in (4, 8):
+        calls[f"K6 M=64 {nd} shards"] = (
+            lambda nd=nd: fm_chain.fm_chain_gen_warm_step(
+                g0, amp, cc64, 8, 0.5, 32768 // nd, warm=512, nd=nd))
     for M in (128, 256, 320, 448, 512, 1024):  # the chains, 16384 rows
         W = 2 * M
         c = np.ascontiguousarray(pfb.pfb_arm_taps(
@@ -527,9 +671,22 @@ def _chain_outputs() -> dict:
             grp, amp, carry, prev, tail, consts, D, 0.5, n)
         res[f"K5/{b}/aud"] = aud.cpu()
         res[f"K5/{b}/carry"] = carry.cpu()
+    for tile in (64, 256):
+        carry, prev, tail = torch.zeros(16, 2 * M, **z), zp, zt
+        for b in range(2):
+            grp = torch.tensor(b * n // 64, dtype=torch.int64, device="cuda")
+            aud, prev, tail, carry = fm_chain.fm_chain_gen_step(
+                grp, amp, carry, prev, tail, consts, D, 0.5, n, tile=tile)
+            res[f"K5/t{tile}/{b}/aud"] = aud.cpu()
+            res[f"K5/t{tile}/{b}/carry"] = carry.cpu()
     grp = torch.tensor(0, dtype=torch.int64, device="cuda")
     res["K6"] = fm_chain.fm_chain_gen_warm_step(
         grp, amp, consts, D, 0.5, 8192, warm=512, goff=3 * 8192 // 64).cpu()
+    for nd in (4, 8):
+        for base in (0, (1 << 32) - 2):
+            grp = torch.tensor(base, dtype=torch.int64, device="cuda")
+            res[f"K6/{base}/nd{nd}"] = fm_chain.fm_chain_gen_warm_step(
+                grp, amp, consts, D, 0.5, n // nd, warm=512, nd=nd).cpu()
     halo, prev = torch.zeros(16, 2 * M, **z), torch.zeros(1, 2 * M, **z)
     tail = torch.zeros(A - 1, 2 * M, **z)
     for variant in ablate.VARIANTS:
@@ -815,7 +972,8 @@ def main(argv) -> int:
     print(_card(), flush=True)
     recs = (stages() if argv[:1] == ["stages"] else
             times() if argv[:1] == ["times"] else
-            sharded_steps() if argv[:1] == ["sharded"] else outputs(argv[1:]))
+            sharded_steps() if argv[:1] == ["sharded"] else
+            split() if argv[:1] == ["split"] else outputs(argv[1:]))
     for rec in recs:
         print(json.dumps(rec), flush=True)
     return 0
