@@ -119,9 +119,9 @@ Phases (each failure raises, so the script exits nonzero):
      2^21: >= 60 dB against the float64 golden each (the reading is
      printed), live against staged > 100 dB; K8 launched on the staged
      path, K9 on the live one;
- 23. K3p on two carried batches of the FM band, counted: bit-equal to K3
-     (audio, prev, tail), bit-identical at tiles 128 and 64 and at 1, 2
-     and 4 tiles a block;
+ 23. K3p (the warp-specialised pipeline) on two carried batches of the
+     FM band, counted: bit-equal to K3 (audio, prev, tail),
+     bit-identical at tiles 128 and 64 and at 1, 2 and 4 tiles a block;
  24. times: K2 alone at the demod's shape beside its plain version and
      torch.atan2, over 4 rotating inputs and outputs and on one; K9
      beside its plain version and K11 -> conv1d(groups=128), over 4
@@ -289,7 +289,8 @@ Phases (each failure raises, so the script exits nonzero):
      decisions identical; two batches bit-equal to one; their times beside
      the bytes bound and the serial floor of their critical path;
  51. S3 viterbi_decode at 1024 frames of 512 bits, K = 7 and 3 (its warp
-     instance) and 11 (its block instance), hard and soft, each launch
+     instance) and 11 (its block instance, 128 threads of 8 states a
+     frame), hard and soft, each launch
      counted on its instance: bit-equal to its plain version; no errors on
      the noiseless code and with four separated coded bits flipped a
      frame; its time at 1024 frames and at one beside the block-a-frame
@@ -298,11 +299,17 @@ Phases (each failure raises, so the script exits nonzero):
      batches in graph mode and direct calls, bit-equal to the plain
      version, each launch counted on its instance and route: 16384-bit
      frames at K = 7 (the warp instance, decisions in device memory), a
-     rate-1/5 code at K = 7 (the block instance), a K = 12 code (the
-     block instance, two states a thread) and a K = 16 code (the block
-     instance, its metrics in device memory, error-free at 7 dB), and
-     frames of the rate-1/5 and K = 12 codes past shared memory (device
-     memory); each route's time beside its plain version and bound;
+     rate-1/5 code at K = 7 (the block instance, a warp a frame), a K =
+     12 code (the block instance, 256 threads of 8 states, its words in
+     device memory), a K = 15 rate-1/4 code and a K = 16 code (the
+     cluster form, 8 blocks a frame; at 7 dB too, K = 16 error-free), and
+     a rate-1/5 code at K = 5 and rate-1/9 codes at K = 7 and 12 (the
+     serial instance, its metrics and the frame staged in shared memory),
+     and frames of the rate-1/5, K = 12 and serial codes past shared
+     memory (device memory); K = 17 and 18 on the cluster form and K = 19 on the serial
+     instance, two short frames each; each route's time beside the
+     parent's (``S3_PARENT``), its plain version, its bound and, where its
+     frames are fewer than the card's SMs, its serial floor;
  52. S1 and S2 at the QPSK link's shapes against their plain versions and
      timed (the kernels line's); the QPSK link (``models.qpsk_tx`` on the
      card, a channel of 0.3 rad, 0.5 sample and 20 dB, ``qpsk_receiver``)
@@ -1311,6 +1318,9 @@ K9_GEOMS = ((512, 8), (256, 8), (1024, 8), (512, 16), (1024, 16), (256, 32),
             (128, 64))
 K9_R_ODD = 32700           # folded rows that L = 128 does not divide
 K3P_GS = (1, 2, 4)         # tiles a K3p block walks, beside its default
+K3P_PARENT = 0.0524        # K3p in the parent tree (PERF.md section 6; one
+# block of 256 threads walking its tiles stage by stage, NVIDIA H100 80GB
+# HBM3, 700.00 W)
 
 
 def fir_taps(torch):
@@ -3868,6 +3878,9 @@ def fec_llrs(torch, n_frames: int, sigma: float, seed: int, K: int = FEC_K,
 
 
 S3_CODES = (((0o171, 0o133), 7), ((0o7, 0o5), 3), ((0o2565, 0o3753), 11))
+# each instance's count of launches (ops/cuda/fec.py viterbi_frames)
+S3_COUNTS = {"warp": "launches", "block": "block_launches",
+             "cluster": "cluster_launches", "serial": "serial_launches"}
 # S3 before its warp instance (one block a frame, a barrier a step; PERF.md
 # section 6): 1024 frames, ns a step of one frame alone, the FEC link's step
 S3_BLOCK = {"ms": 0.2189, "one frame ns": 368.3, "link ms": 0.3470}
@@ -3876,8 +3889,9 @@ S3_BLOCK = {"ms": 0.2189, "one frame ns": 368.3, "link ms": 0.3470}
 def phase_viterbi(torch, kfec, card: str) -> dict:
     """51. S3 against its plain version (on the card) at 1024 frames of 512
     bits, K = 7 (171/133) and K = 3 (7/5) on its warp instance and K = 11
-    (2565/3753) on its block instance, hard and soft LLRs, each launch
-    counted on its instance's count: decoded bits bit-equal; zero errors
+    (2565/3753) on its block instance (the redesigned one: 128 threads of 8
+    states), hard and soft LLRs, each launch counted on its instance's
+    count: decoded bits bit-equal; zero errors
     on the noiseless code and with four separated coded bits flipped a
     frame (tests/test_fec.py:41); its time at 1024 frames and at one (a
     step's latency) beside the block-a-frame design's and its bound."""
@@ -3886,8 +3900,11 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
     vf = kfec.viterbi_frames
     for polys, K in S3_CODES:
         tabs = fec.viterbi_tables(polys, K, "cuda")
-        inst = kfec.viterbi_instance(K, len(polys))
-        count = "launches" if inst == "warp" else "block_launches"
+        inst = kfec.viterbi_layout(FEC_FRAME + K - 1, len(polys), K,
+                                   FEC_FRAMES).instance
+        require(inst == ("warp" if K <= kfec.WARP_MAX_K else "block"),
+                f"S3 K {K}: plans the {inst} instance")
+        count = S3_COUNTS[inst]
         for kind, sigma in (("hard", 0.8), ("soft", 0.8), ("noiseless", 0.0),
                             ("4 flips", 0.0)):
             llr, bits, _ = fec_llrs(torch, FEC_FRAMES, sigma, seed=51 + K,
@@ -3918,7 +3935,7 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
              lc, tabs, True, FEC_FRAME), reps=3, inner=1)}
     T, S = lc.shape[1], 1 << (FEC_K - 1)
     b_ms, by = bound(lc.numel() * 4 + FEC_FRAMES * FEC_FRAME * 4,
-                     FEC_FRAMES * T * S * VITERBI_OPS)
+                     FEC_FRAMES * T * viterbi_ops(2, S))
     log(f"S3 viterbi_decode ({FEC_FRAMES} x {T} steps, {S} states): kernel "
         f"{t['S3']:.4f} ms = {t['S3'] * 1e6 / T:.1f} ns a step of every frame "
         f"at once; one frame {t['S3 one frame']:.4f} ms = "
@@ -3930,30 +3947,73 @@ def phase_viterbi(torch, kfec, card: str) -> dict:
     return {"t": t, "bound": (b_ms, by)}
 
 
-# ACS a state a step at rate 1/2: two branch metrics (2 products, 1 add
-# each), the previous max subtracted twice, two adds, a compare, a max
-VITERBI_OPS = 2 * 3 + 2 + 2 + 1 + 1
+def viterbi_ops(n: int, S: int) -> int:
+    """A step's least work at rate 1/n over S states: the step's branch
+    metrics, a table of the 2^n sums of +-LLR (n operations each; or, where
+    fewer, each state's two branch metrics apart, 2n - 1 each), then for
+    each state the previous max subtracted, its two candidates' adds, a
+    compare, a select and its share of the step's max (6)."""
+    return min((1 << n) * n, 2 * (2 * n - 1) * S) + 6 * S
 
 
-def viterbi_ops(n: int) -> int:
-    """VITERBI_OPS at rate 1/n: each branch metric n products, n - 1 adds."""
-    return 2 * (2 * n - 1) + 2 + 2 + 1 + 1
-
-
+# a rate-1/9 code at K = 7 (no published source is claimed)
+S3_RATE_9 = (0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o163)
 # S3's routes past the FEC link's frames and codes (phase 51): name, code,
-# K, frame bits, frames a batch of its link, its (instance, memory), and a
-# frame length of the same code past shared memory (device memory)
+# K, frame bits, frames a batch of its link, its (instance, memory) at those
+# frames, and a frame length of the same code past shared memory (device
+# memory)
 S3_ROUTES = (
     ("global", (0o171, 0o133), 7, 16384, 16, ("warp", "global"), None),
     ("n=5", (0o171, 0o133, 0o165, 0o117, 0o127), 7, FEC_FRAME, 256,
      ("block", "shared"), 8192),
-    ("K=12", (0o4037, 0o5741), 12, FEC_FRAME, 256, ("block", "shared"), 1024),
-    # past K = 15 the metrics too in device memory (2^K x 4 bytes a frame);
-    # 16 frames a batch keep the plain version's (T, F, 2^15) decisions in
-    # 2.2 GB
-    ("K=16", (0o152711, 0o126723), 16, FEC_FRAME, 16, ("block", "global"),
+    ("K=12", (0o4037, 0o5741), 12, FEC_FRAME, 256, ("block", "global"), 1024),
+    # K = 15 at rate 1/4, the largest code whose two rows of metrics fit one
+    # block (128 KB): generators 46321, 51271, 63667, 70535 (octal), those
+    # tests/test_torch_fec.py holds at K = 15 (no published source is
+    # claimed); 32 frames keep the plain version's (T, F, 2^14) int64
+    # decisions in 2.2 GB; a cluster of 8 blocks a frame, 256 blocks
+    ("K=15", (0o46321, 0o51271, 0o63667, 0o70535), 15, FEC_FRAME, 32,
+     ("cluster", "global"), None),
+    # past K = 15 the metrics no longer fit a block: a cluster of 8 blocks a
+    # frame holds them, 16 frames x 8 = 128 blocks; 16 frames a batch keep
+    # the plain version's (T, F, 2^15) decisions in 2.2 GB
+    ("K=16", (0o152711, 0o126723), 16, FEC_FRAME, 16, ("cluster", "global"),
      None),
+    # codes past the block and cluster instance take the serial one (a
+    # block of up to 1024 threads a frame, its metrics in shared memory):
+    # rate 1/5 at K = 5 (K <= 6 past rate 1/4) and rate 1/9 (past 1/8) at K
+    # = 7 and 12 (E = 2 states a thread), staged at the link's frames, and
+    # in device memory past them
+    ("serial K=5", (0o25, 0o33, 0o37, 0o35, 0o27), 5, FEC_FRAME, 256,
+     ("serial", "shared"), 16384),
+    ("serial n=9", S3_RATE_9, 7, FEC_FRAME, 256, ("serial", "shared"), 8192),
+    ("serial K=12", S3_RATE_9[:8] + (0o6153,), 12, FEC_FRAME, 64,
+     ("serial", "shared"), 1024),
 )
+# Each route's time in the parent tree (PERF.md section 6: chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700.00 W; K = 15 and the serial codes from
+# probes/stages.py s3), the block instance's before its redesign (one
+# block of up to 1024 threads a frame, a barrier and a serial max a step:
+# the serial instance, which the serial codes still take)
+S3_PARENT = {"global": 2.4809, "n=5": 0.3850, "K=12": 1.7862,
+             "K=15": 11.6206, "K=16": 9.0488, "serial K=5": 0.3010,
+             "serial n=9": 0.4147, "serial K=12": 4.0856}
+# Codes past K = 16, two frames of 48 bits each: the cluster form to K =
+# 18 (CLUSTER_MAX_K: 128 KB of metrics a block at 8 blocks), the serial
+# instance with its metrics in device memory past it
+S3_WIDE = (((0o251343, 0o367375), 17), ((0o561753, 0o703515), 18),
+           ((0o1234567, 0o1654321), 19))
+
+
+def s3_floor_ns(K: int, mhz: float) -> float:
+    """ns a step of S3's serial floor: the dependent operations of a step,
+    from a state's metric to the next step's (less the max, plus the
+    branch metric, compare, select: 4 ALU), the max over the S = 2^(K-1)
+    states (K - 1 dependent maxima at least), and one exchange through
+    shared memory (a state's predecessors are other threads' states),
+    each class at LAT_CYCLES' latency, at the card's maximum SM clock."""
+    cycles = (4 + K - 1) * LAT_CYCLES["alu"] + LAT_CYCLES["lds"]
+    return cycles / mhz * 1e3
 
 
 def phase_viterbi_routes(torch, kfec, card: str) -> dict:
@@ -3961,20 +4021,26 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
     on its user path: a FEC link (cc_encoder -> BPSK + AWGN at sigma 0.6 ->
     cc_decoder) of two batches in graph mode, the decoded bits bit-equal
     to the plain version on the same LLRs, each launch counted on its
-    instance (and its route, global_launches); then direct calls on noisy
-    hard and soft frames of the code at its link's length and past shared
-    memory, bit-equal to the plain version; each route's time at its
-    link's batch beside its plain version and bound."""
+    instance (and its route, global_launches); K = 15 and 16 at 7 dB too
+    (K = 16 without a bit error), counted on the cluster form; then direct
+    calls on noisy hard and soft frames of the code at its link's length
+    and past shared memory, bit-equal to the plain version; K = 17, 18 (the
+    cluster form) and 19 (the serial instance, its metrics in device
+    memory) on two short frames; each route's time at its link's batch
+    beside its parent's, its plain version, its bound and, where its frames
+    leave SMs idle, its serial floor."""
     from newsched_tpu_torch.ops import fec
 
     vf = kfec.viterbi_frames
-    out = {"launches": {}, "t": {}, "bound": {}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    out = {"launches": {}, "t": {}, "bound": {}, "floor": {}}
     rng = np.random.default_rng(511)
     for name, polys, K, frame, F, plan, long_frame in S3_ROUTES:
         n = len(polys)
         T = frame + K - 1
-        require(kfec.viterbi_plan(T, n, K) == plan,
-                f"S3 {name}: plans {kfec.viterbi_plan(T, n, K)}, not {plan}")
+        require(kfec.viterbi_plan(T, n, K, F) == plan,
+                f"S3 {name}: plans {kfec.viterbi_plan(T, n, K, F)}, not {plan}")
         tabs = fec.viterbi_tables(polys, K, "cuda")
         bits = rng.integers(0, 2, 2 * F * frame).astype(np.int16)
         noise = (0.6 * rng.standard_normal(2 * F * T * n)).astype(np.float32)
@@ -3982,7 +4048,7 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
         fg, snk = fec_link(bits, noise, batch_frames=F, frame=frame, K=K,
                            polys=polys)
         fg.run(device="cuda")
-        count = "launches" if plan[0] == "warp" else "block_launches"
+        count = S3_COUNTS[plan[0]]
         got_l = (getattr(vf, count), vf.global_launches)
         out["launches"][name] = got_l[0]
         coded = fec.conv_encode(torch.from_numpy(bits.reshape(2 * F, -1))
@@ -4002,8 +4068,8 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
                 (got_l[1] > 0) == (plan[1] == "global"),
                 f"S3 {name}: the link differs from the plain version, or its "
                 f"route was not counted")
-        if K > kfec.SMEM_MAX_K:  # the metrics in device memory, at 7 dB
-            before = vf.metric_launches
+        if K >= kfec.SMEM_MAX_K:  # the cluster form, at 7 dB
+            before = getattr(vf, count)
             llr7, bits7, raw7 = fec_llrs(torch, F, FEC_SIGMA_7DB, seed=K, K=K,
                                          polys=polys, nbits=frame)
             lc7 = torch.from_numpy(llr7).cuda().reshape(F, T, n)
@@ -4013,11 +4079,11 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
             errs7 = int((got7.cpu().numpy() != bits7).sum())
             log(f"S3 {name} at 7 dB, {F} frames of {frame} bits: bit-equal "
                 f"to the plain version: {eq7}; {errs7} bit errors ({raw7} "
-                f"coded bits wrong); metric_launches "
-                f"{vf.metric_launches - before}")
-            require(eq7 and errs7 == 0 and vf.metric_launches == before + 1,
+                f"coded bits wrong); {count} {getattr(vf, count) - before}")
+            require(eq7 and (errs7 == 0 or K < 16)
+                    and getattr(vf, count) == before + 1,
                     f"S3 {name} at 7 dB: differs from the plain version, "
-                    f"{errs7} bit errors, or its metrics route not counted")
+                    f"{errs7} bit errors, or its cluster form not counted")
         for frames, nb in ((F, frame), (4, long_frame)):
             if nb is None:
                 continue
@@ -4029,7 +4095,7 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
                 before = vf.global_launches
                 equal = torch.equal(vf(lc, tabs, K, True),
                                     kfec.viterbi_frames_plain(lc, tabs, True, nb))
-                route = kfec.viterbi_plan(Tn, n, K)
+                route = kfec.viterbi_plan(Tn, n, K, frames, sms=sms)
                 log(f"S3 {name}: {frames} frames of {nb} bits, "
                     f"{'hard' if hard else 'soft'}, {route}: bit-equal to "
                     f"the plain version: {equal}")
@@ -4046,14 +4112,43 @@ def phase_viterbi_routes(torch, kfec, card: str) -> dict:
             lc, tabs, True, frame), reps=3, inner=1, warmup=1)
         S = 1 << (K - 1)
         b_ms, by = bound(lc.numel() * 4 + F * frame * 4,
-                         F * T * S * viterbi_ops(n))
+                         F * T * viterbi_ops(n, S))
         out["bound"][key] = (b_ms, by)
+        floor = ""
+        if F < sms:  # fewer frames than SMs: a step's latency, T of them
+            out["floor"][key] = s3_floor_ns(K, mhz) * T * 1e-6
+            floor = (f"; serial floor {out['floor'][key]:.4f} ms "
+                     f"({s3_floor_ns(K, mhz):.1f} ns a step at {mhz:.0f} "
+                     f"MHz), {100 * out['floor'][key] / out['t'][key]:.1f}% "
+                     f"of it")
         log(f"S3 {name} ({F} x {T} steps, {S} states, rate 1/{n}, {plan}): "
             f"kernel {out['t'][key]:.4f} ms = "
             f"{out['t'][key] * 1e6 / T:.1f} ns a step of every frame at "
-            f"once; plain {out['t'][key + ' plain']:.2f} ms; bound "
-            f"{b_ms:.4f} ms ({by}), {100 * b_ms / out['t'][key]:.1f}% of it "
-            f"[{card}]")
+            f"once (parent {S3_PARENT[name]} ms, "
+            f"{S3_PARENT[name] / out['t'][key]:.2f}x); plain "
+            f"{out['t'][key + ' plain']:.2f} ms; bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / out['t'][key]:.1f}% of it{floor} [{card}]")
+    for polys, K in S3_WIDE:  # the cluster form's last codes, and past it
+        n, nb = len(polys), 48
+        tabs = fec.viterbi_tables(polys, K, "cuda")
+        llr_w, _, _ = fec_llrs(torch, 2, 0.8, seed=K, K=K, polys=polys,
+                               nbits=nb)
+        lw = torch.from_numpy(llr_w).cuda().reshape(2, nb + K - 1, n)
+        lay = kfec.viterbi_layout(nb + K - 1, n, K, 2, sms)
+        before = getattr(vf, S3_COUNTS[lay.instance])
+        equal = torch.equal(vf(lw, tabs, K, True),
+                            kfec.viterbi_frames_plain(lw, tabs, True, nb))
+        shape = (f"{lay.C} blocks of {lay.threads} threads, {lay.E} states "
+                 f"a thread" if lay.instance == "cluster" else
+                 f"a block of {lay.threads} threads a frame")
+        log(f"S3 K = {K}: 2 frames of {nb} bits on the {lay.instance} "
+            f"instance ({shape}, {lay.smem} B shared): bit-equal to the "
+            f"plain version: {equal}")
+        require(equal and getattr(vf, S3_COUNTS[lay.instance]) == before + 1
+                and lay.instance == ("cluster" if K <= kfec.CLUSTER_MAX_K
+                                     else "serial"),
+                f"S3 K = {K}: differs from the plain version, or not counted "
+                f"on its instance")
     return out
 
 
@@ -5684,7 +5779,8 @@ def main() -> int:
         f"plain {t['K9 plain']} ms; K11 -> conv1d(groups=128) "
         f"{t['K11 -> conv1d']} ms [{card}]")
     log(f"K3p fm_chain_step_planes(pipelined=True) ({ROWS} x {2 * M} rows): "
-        f"kernel {t['K3p']} ms, K3 {t['K3 beside K3p']} ms, plain "
+        f"kernel {t['K3p']} ms (parent, before its warp-specialised "
+        f"pipeline: {K3P_PARENT} ms), K3 {t['K3 beside K3p']} ms, plain "
         f"{t['K3p plain']} ms [{card}]")
     for tile, gs in K9_GEOMS:
         k9_ms = graph_ms(lambda: k9_at(fir_source, tile, gs)(
@@ -5708,12 +5804,14 @@ def main() -> int:
         for G in sorted({default, *K3P_GS}):
             k3p_ms = graph_ms(lambda: fm_chain._pipe(
                 vb, *st, consts, DECIM, DEMOD_GAIN, tile, G))
-            rows_done = first_rows(tile) + (G - 1) * tile
+            # rows folded and transformed: the junction's A, in 32-row passes
+            rows_done = -(-A // 32) * 32 + G * tile
             mark = " (default)" if G == default else ""
             log(f"K3p tile {tile}, {G} tiles a block{mark}: "
-                f"{-(-(ROWS // tile) // G)} blocks, {smem} B shared, junction "
-                f"+{100 * (rows_done - G * tile) / (G * tile):.0f}% rows; "
-                f"{k3p_ms:.4f} ms [{card}]")
+                f"{-(-(ROWS // tile) // G)} blocks of "
+                f"{fm_chain._PIPE_THREADS} threads, {smem} B shared, "
+                f"junction +{100 * (rows_done - G * tile) / (G * tile):.0f}% "
+                f"rows; {k3p_ms:.4f} ms [{card}]")
     for kind in ("staged", "live"):
         fir_step_rate(torch, kind, card)
 

@@ -41,8 +41,9 @@
 // returns this batch's last H8 rows as the next carry. Everything after
 // the rows is one routine (chain_tile), so K5's outputs equal
 // K4 -> K3's bit for bit. K3p reads what K3 reads and runs the same
-// routine on it, tile after tile (see fm_chain_pipe_kernel), so its
-// outputs equal K3's bit for bit.
+// per-row arithmetic on it (fold_rows' sums, fft_row, demod, the audio
+// FIR's order) in roles of its own, tile after tile (see
+// fm_chain_pipe_kernel), so its outputs equal K3's bit for bit.
 //
 // The TPU grid runs its tiles in order and carries Y[t-1] and the audio
 // tail from tile to tile in VMEM. CUDA blocks run in no order, so each
@@ -54,11 +55,11 @@
 // whichever block computes it, so the outputs are bit-identical for every
 // tile size T. K3p is the ordered form the TPU grid has, inside a block:
 // a block walks G consecutive tiles, rebuilds the junction for its first
-// only and carries it from tile to tile after that, and copies the next
-// tile's window (cp.async) while the current one computes. At the
-// flagship's batch and tile 64, G = 4 (128 blocks, one an SM at 121 KB of
-// shared memory) cuts the rows folded and transformed from +150% to +38%
-// over the batch's own (K3 at tile 128: +75%).
+// only and carries it from tile to tile after that, in a warp-specialised
+// pipeline (its header below). At the flagship's batch and tile 64, G = 4
+// (128 blocks, one an SM at 180 KB of shared memory) cuts the rows folded
+// and transformed from +150% to +38% over the batch's own (K3 at tile
+// 128: +75%).
 //
 // Bound on the H100. The function's least work is the fold (2 L flops a
 // lane), an M-point FFT a row (~5 M log2 M = 1,920 flops at M = 64), the
@@ -1253,66 +1254,351 @@ fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
       tile);
 }
 
-// K3p's overlap: a 16-byte copy from device to shared memory that runs
-// while the block computes (cp.async), committed as one group.
-__device__ __forceinline__ void prefetch_window(float* dst, const float* src,
-                                             int nfloats) {
-  for (int i = threadIdx.x * 4; i < nfloats; i += kThreads * 4) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + i));
+// K3p: a block walks G consecutive tiles of the batch, in the roles of a
+// warp-specialised pipeline (the overlap the reference's `_kernel_pipe`
+// describes: the fold and DFT of one tile beside the demod and audio FIR
+// of the tile before):
+//   - a producer warp keeps the fold's input windows coming: each 32-row
+//     pass of the fold reads 32 + L-1 consecutive input rows, one bulk
+//     copy (cp.async.bulk, the TMA's) into a ring of kPipeStages stages,
+//     completion on the stage's `full` mbarrier, the stage reused once the
+//     fold threads have arrived on its `empty` one (rows before the batch:
+//     a second copy from the halo, and zeros before it);
+//   - the fold group (4 warps) folds each pass into one of two Y slots
+//     (fold_pass_to, the arithmetic of fold_rows), then transforms the
+//     slot's rows (fft_row) and hands the slot over;
+//   - the demod group (8 warps) demodulates the slot into a ring of aud
+//     rows, keeps the slot's last Y row (Y[t0-1] of the next tile), hands
+//     the slot back, and runs the tile's decimating audio FIR over the
+//     ring, the A-1 rows before the tile included, its taps in shared
+//     memory.
+// The demod and the audio FIR are two thirds of a tile's work: with 8
+// fold and 4 demod warps (PERF.md §6, `probes/stages.py k3p --split`) the
+// fold group waited on the demod group, which alone took the whole time.
+// A block's first chunk is its junction, the A stream rows before its
+// first tile (the rows K3's block folds in front of its tile), and then
+// its tiles, T rows each; the slot of chunk c is c mod 2. The two groups
+// meet only at the slots, on named barriers (bar.arrive by the side that
+// is done, bar.sync by the side that waits; kBarFull + s, kBarEmpty + s),
+// never at a block-wide barrier. Every value is computed by the routines
+// K3 runs, in their order, so the outputs are K3's bit for bit at any
+// tile and G.
+constexpr int kPipeStages = 2;       // windows in flight
+constexpr int kPipeFold = 128;       // the fold group's threads (4 warps)
+constexpr int kPipeDemod = 256;      // the demod group's threads (8 warps)
+constexpr int kPipeThreads = kPipeFold + kPipeDemod + 32;
+constexpr int kBarFold = 1, kBarDemod = 2, kBarFull = 3, kBarEmpty = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+
+// The producer's arrival on `full`, which then waits for `bytes` more of
+// bulk copies.
+__device__ __forceinline__ void expect_tx(uint64_t* full, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(full)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, its bytes counted on `full`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* full) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(full))
+      : "memory");
+}
+
+// Shared memory of a K3p block, in floats: the mbarriers (16 floats),
+// two Y slots of pad32(max(T, A)) rows, kPipeStages windows of 32 + L-1
+// rows, the aud ring of A-1+T rows of M, two saved Y rows and the A audio
+// taps.
+__host__ __device__ __forceinline__ int pipe_slot_rows(int T, int A) {
+  return pad_rows(T > A ? T : A);
+}
+
+__host__ __device__ __forceinline__ long long pipe_smem_floats(int T, int A,
+                                                               int L) {
+  constexpr int W = kFlagW;
+  return 16 + 2LL * pipe_slot_rows(T, A) * W +
+         (long long)kPipeStages * (kChunkRows + L - 1) * W +
+         (long long)(A - 1 + T) * (W / 2) + 2 * W + A;
+}
+
+// A fold pass of the fold group (kPipeFold threads, the role's own index
+// ft; groups of 16 rows of a lane, kG a thread): rows r0 .. r0+31 of slot
+// `dst` (swizzled) from the window `src` (natural; its row jj + q the
+// input of row jj's tap q), acc 0 where t_first + jj < t_min or jj >=
+// nrows. Per lane fold_rows' sum: c2[0]*v, then fmaf in order. The
+// window's reads come before `after_reads`.
+constexpr int kPipeG = kChunkRows * kFlagW / (16 * kPipeFold);  // groups a
+                                                                 // thread
+
+// The fold group's taps: c[gi][q] = c2[q][lane of group gi], loaded once.
+__device__ __forceinline__ void pipe_taps(float (&c)[kPipeG][kFoldL],
+                                          const Chain& p, int ft) {
+#pragma unroll
+  for (int gi = 0; gi < kPipeG; ++gi)
+#pragma unroll
+    for (int q = 0; q < kFoldL; ++q)
+      c[gi][q] = __ldg(p.c2 + q * kFlagW + (ft + gi * kPipeFold) % kFlagW);
+}
+
+template <int kL, class AfterReads>
+__device__ __forceinline__ void fold_pass_to(const float* src, float* dst,
+                                             int r0, const Chain& p,
+                                             int t_min, int t_first,
+                                             int nrows, int ft,
+                                             const float (&c)[kPipeG][kFoldL],
+                                             AfterReads after_reads) {
+  constexpr int W = kFlagW, kPer = 16, kG = kPipeG;
+  float o[kG][kPer];
+#pragma unroll
+  for (int gi = 0; gi < kG; ++gi) {
+    const int gr = ft + gi * kPipeFold;
+    const int k = gr % W, jw = gr / W * kPer;  // its lane, its window rows
+    const int j0 = r0 + jw;
+    if constexpr (kL > 0) {
+      float v[kPer + kL - 1];
+#pragma unroll
+      for (int i = 0; i < kPer + kL - 1; ++i)
+        v[i] = j0 + i < nrows + kL - 1 ? src[(jw + i) * W + k] : 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        float acc = 0.f;
+        if (j0 + e < nrows && t_first + j0 + e >= t_min) {
+          acc = c[gi][0] * v[e];
+#pragma unroll
+          for (int q = 1; q < kL; ++q) acc = fmaf(c[gi][q], v[e + q], acc);
+        }
+        o[gi][e] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int jj = j0 + e;
+        o[gi][e] = 0.f;
+        if (jj < nrows && t_first + jj >= t_min) {
+          float acc = __ldg(p.c2 + k) * src[(jw + e) * W + k];
+          for (int q = 1; q < p.L; ++q)
+            acc = fmaf(__ldg(p.c2 + q * W + k), src[(jw + e + q) * W + k],
+                       acc);
+          o[gi][e] = acc;
+        }
+      }
+    }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  after_reads();
+#pragma unroll
+  for (int gi = 0; gi < kG; ++gi) {
+    const int gr = ft + gi * kPipeFold;
+    const int k = gr % W, j0 = r0 + gr / W * kPer;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int r = j0 + e;
+      dst[r * W + sw(r, k)] = o[gi][e];
+    }
+  }
 }
 
-__device__ __forceinline__ void wait_window() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// K3p: block b walks tiles [b*G, b*G + G) of the batch in stream order.
-// Its first tile is K3's (chain_tile, the junction rebuilt from the
-// block's own window); every later tile carries the junction from the tile
-// before: aud rows t0-A+1 .. t0-1 stay in the tile buffer (moved from rows
-// T+1 .. T+A-1 to 1 .. A-1) and Y[t0-1] in a shared row, so the tile folds
-// and transforms only its own T rows. Its window, the T+L-1 input rows
-// t0-L+1 .. t0+T-1 of vb, was copied into the stage buffer while the tile
-// before computed.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPipeThreads)
 fm_chain_pipe_kernel(const float* __restrict__ vb,
                      const float* __restrict__ halo, int hrows, Chain p,
                      int G) {
   extern __shared__ __align__(16) float sm[];
   constexpr int W = kFlagW, M = W / 2;
   const int T = p.T, A = p.A, L = p.L;
-  const int NT = p.n / T;
-  const int g0 = blockIdx.x * G;
+  const int NT = p.n / T, g0 = blockIdx.x * G;
   const int g1 = min(g0 + G, NT);
+  const int nchunks = 1 + g1 - g0;     // the junction, then the tiles
+  const int RS = pipe_slot_rows(T, A), WR = kChunkRows + L - 1;
+  const int Ra = A - 1 + T;            // the aud ring's rows
+  const int base = g0 * T - A;         // the stream row of ring row 0
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* empty = full + kPipeStages;
+  float* slots = sm + 16;
+  float* stages = slots + 2 * RS * W;
+  float* ring = stages + kPipeStages * WR * W;
+  float* yp = ring + Ra * M;           // Y[t0-1] of the next chunk, by turns
+  float* taps = yp + 2 * W;            // the audio FIR's A taps
   const int tid = threadIdx.x;
-  float* buf = sm;
-  float* stage = buf + tile_rows(T, A, L) * W;
-  float* yrows = stage + (T + L - 1) * W;  // Y[t0-1] and Y[t0+T-1], by turns
-  const int win = (T + L - 1) * W;
-
-  const HaloRows<W> row = halo_rows<W>(vb, halo, hrows);
-  if (g0 + 1 < g1)
-    prefetch_window(stage, vb + ((long long)(g0 + 1) * T - (L - 1)) * W, win);
-  chain_tile<true, kFull, 1>(buf, p, p.t_min, g0 * T, g0 == NT - 1, nullptr,
-                          yrows, nullptr, row, [] {});
-  for (int g = g0 + 1; g < g1; ++g) {
-    __syncthreads();  // the tile before has read its aud rows
-    for (int idx = tid; idx < (A - 1) * M; idx += kThreads) {
-      const int i = idx / M, m = idx % M;
-      buf[(1 + i) * W + m] = buf[(T + 1 + i) * W + m];
+  if (tid == 0) {
+    for (int i = 0; i < kPipeStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kPipeFold);
     }
-    wait_window();
-    __syncthreads();
-    chain_tile<false, kFull, 1>(buf, p, p.t_min, g * T, g == NT - 1,
-                      yrows + ((g - g0 - 1) & 1) * W,  // Y[t0-1]
-                      yrows + ((g - g0) & 1) * W, stage, row, [&] {
-      if (g + 1 < g1)
-        prefetch_window(stage, vb + ((long long)(g + 1) * T - (L - 1)) * W,
-                        win);
-    });
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // chunk c: stream rows u0 .. u0 + nr - 1 (the junction: A rows before
+  // the first tile)
+  const auto chunk_u0 = [&](int c) { return c == 0 ? g0 * T - A : (g0 + c - 1) * T; };
+  const auto chunk_rows = [&](int c) { return c == 0 ? A : T; };
+
+  if (tid >= kPipeFold + kPipeDemod) {  // the producer warp
+    const int lane = tid & 31;
+    int q = 0;  // passes issued
+    for (int c = 0; c < nchunks; ++c) {
+      const int u0 = chunk_u0(c), np = (chunk_rows(c) + kChunkRows - 1) / kChunkRows;
+      for (int pass = 0; pass < np; ++pass, ++q) {
+        const int k = q % kPipeStages;
+        mbar_wait(empty + k, ((q / kPipeStages) & 1) ^ 1);
+        float* dst = stages + k * WR * W;
+        // the window, stream rows lo .. hi-1: zeros before the halo, then
+        // the halo's rows (stream rows -hrows .. -1), then vb's
+        const int lo = u0 + pass * kChunkRows - (L - 1), hi = lo + WR;
+        const int z1 = min(hi, -hrows), h0 = max(lo, -hrows), h1 = min(hi, 0);
+        const int v0 = max(lo, 0);
+        for (int idx = lane; idx < (z1 - lo) * W; idx += 32) dst[idx] = 0.f;
+        const int nh = max(0, h1 - h0), nv = max(0, hi - v0);
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) {
+          if (nh + nv == 0) {
+            mbar_arrive(full + k);
+          } else {
+            expect_tx(full + k, (unsigned)((nh + nv) * W * 4));
+            if (nh)
+              bulk_copy(dst + (h0 - lo) * W, halo + (long long)(h0 + hrows) * W,
+                        (unsigned)(nh * W * 4), full + k);
+            if (nv)
+              bulk_copy(dst + (v0 - lo) * W, vb + (long long)v0 * W,
+                        (unsigned)(nv * W * 4), full + k);
+          }
+        }
+      }
+    }
+  } else if (tid < kPipeFold) {  // the fold group: fold, then the FFT
+    const int ft = tid;
+    const planes_fft::Tw<1> tw(p.tw, ft & 7);
+    float ctaps[kPipeG][kFoldL] = {};  // the thread's lanes' fold taps
+    if (L == kFoldL) pipe_taps(ctaps, p, ft);
+    int q = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      float* slot = slots + (c & 1) * RS * W;
+      if (c >= 2) bar_sync(kBarEmpty + (c & 1), kPipeFold + kPipeDemod);
+      const int u0 = chunk_u0(c), nr = chunk_rows(c);
+      const int np = (nr + kChunkRows - 1) / kChunkRows;
+      for (int pass = 0; pass < np; ++pass, ++q) {
+        const int k = q % kPipeStages;
+        mbar_wait(full + k, (q / kPipeStages) & 1);
+        const float* src = stages + k * WR * W;
+        const auto release = [&] { mbar_arrive(empty + k); };
+        if (L == kFoldL)
+          fold_pass_to<kFoldL>(src, slot, pass * kChunkRows, p, p.t_min, u0,
+                               nr, ft, ctaps, release);
+        else
+          fold_pass_to<0>(src, slot, pass * kChunkRows, p, p.t_min, u0, nr,
+                          ft, ctaps, release);
+      }
+      bar_sync(kBarFold, kPipeFold);
+      for (int b = 4 * (ft >> 5); b < nr; b += kPipeFold / 8) {
+        const int r = b + ((ft >> 3) & 3);
+        planes_fft::fft_row<1>(slot + r * W, r, ft & 7, tw, p.tw);
+      }
+      const int jp = p.t_min - 1 - u0;  // the row of Y[t_min - 1]
+      if (jp >= 0 && jp < nr) {
+        bar_sync(kBarFold, kPipeFold);
+        for (int k = ft; k < W; k += kPipeFold) slot[jp * W + sw(jp, k)] = p.prev0[k];
+      }
+      __threadfence_block();
+      bar_arrive(kBarFull + (c & 1), kPipeFold + kPipeDemod);
+    }
+  } else {  // the demod group: demod, then the audio FIR
+    const int dt = tid - kPipeFold;
+    for (int k = dt; k < A; k += kPipeDemod) taps[k] = __ldg(p.ataps + k);
+    bar_sync(kBarDemod, kPipeDemod);
+    for (int c = 0; c < nchunks; ++c) {
+      const float* slot = slots + (c & 1) * RS * W;
+      bar_sync(kBarFull + (c & 1), kPipeFold + kPipeDemod);
+      const int u0 = chunk_u0(c), nr = chunk_rows(c);
+      const int j0 = c == 0 ? 1 : 0;  // the junction's first row: no aud
+      const float* ya = yp + ((c - 1) & 1) * W;  // Y[u0 - 1], natural
+      const int ring0 = (u0 - base) % Ra;  // ring row of stream row u0
+      for (int idx = dt; idx < (nr - j0) * M; idx += kPipeDemod) {
+        const int jj = j0 + idx / M, m = idx % M, t = u0 + jj;
+        const int rr = ring0 + jj < Ra ? ring0 + jj : ring0 + jj - Ra;
+        float val;
+        if (t < p.t_min) {
+          val = p.tail0[(A - 1 + t - p.t_min) * W + m];
+        } else {
+          const float* pa = jj == 0 ? ya : slot + (jj - 1) * W;
+          const int ma = jj == 0 ? m : sw(jj - 1, m), my = sw(jj, m);
+          const float* py = slot + jj * W;
+          val = demod<kFull>(pa[ma], pa[ma + M], py[my], py[my + M], p);
+        }
+        ring[rr * M + m] = val;
+      }
+      for (int k = dt; k < W; k += kPipeDemod)
+        yp[(c & 1) * W + k] = slot[(nr - 1) * W + sw(nr - 1, k)];
+      if (c + 2 < nchunks) {
+        __threadfence_block();
+        bar_arrive(kBarEmpty + (c & 1), kPipeFold + kPipeDemod);
+      }
+      bar_sync(kBarDemod, kPipeDemod);
+      if (c > 0) {  // the tile's audio: out[o] = sum_k ataps[k] aud[o d - k]
+        const int n_o = T / p.decim;
+        for (int idx = dt; idx < n_o * M; idx += kPipeDemod) {
+          const int o = idx / M, m = idx % M;
+          int r = ring0 + o * p.decim;  // the ring row of tap 0
+          r = r < Ra ? r : r - Ra;
+          // taps 0 .. r at rows r .. 0, then the rest from the ring's end
+          const int k1 = r + 1 < A ? r + 1 : A;
+          const float* col = ring + r * M + m;
+          float acc = 0.f;
+          for (int k = 0; k < k1; ++k) acc = fmaf(taps[k], col[-k * M], acc);
+          col += Ra * M;
+          for (int k = k1; k < A; ++k) acc = fmaf(taps[k], col[-k * M], acc);
+          p.aud[((long long)u0 / p.decim + o) * M + m] = acc;
+        }
+        if (g0 + c == NT) {  // the batch's last tile: the carried state
+          for (int k = dt; k < W; k += kPipeDemod) p.prev_out[k] = yp[(c & 1) * W + k];
+          for (int idx = dt; idx < (A - 1) * M; idx += kPipeDemod) {
+            const int i = idx / M, m = idx % M;
+            const float v = ring[((p.n - (A - 1) + i - base) % Ra) * M + m];
+            p.tail_out[i * W + m] = v;
+            p.tail_out[i * W + M + m] = v;
+          }
+        }
+        bar_sync(kBarDemod, kPipeDemod);  // before the next chunk's aud rows
+      }
+    }
   }
 }
 
@@ -1554,14 +1840,15 @@ extern "C" int fm_chain_pipe_launch(
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
     int decim, int T, int hrows, int t_min, int G, float gain,
     const float* atan_coeffs, void* stream) {
-  // later tiles: whole DFT passes, a window inside vb, a tail below row A
+  // tiles of whole fold passes; a window's rows inside vb past the halo
   if (2 * M != kFlagW || T % kChunkRows || T < A - 1 || T < L - 1 || n % T ||
-      G < 1 || (uintptr_t)vb % 16 || hrows < H8 ||
-      (t_min < 0 && hrows < A + L - 1))
+      G < 1 || ((uintptr_t)vb | (uintptr_t)halo) % 16 || hrows < H8 ||
+      L < 1 || A < 1 ||
+      T % decim || (t_min < 0 && hrows < A + L - 1))
     return (int)cudaErrorInvalidValue;
-  return launch_tiles(
-      fm_chain_pipe_kernel,
-      ((size_t)tile_rows(T, A, L) + T + L - 1 + 2) * kFlagW * sizeof(float),
+  return launch_blocks(
+      fm_chain_pipe_kernel, kPipeThreads,
+      (size_t)pipe_smem_floats(T, A, L) * sizeof(float),
       (n / T + G - 1) / G, stream, vb, halo, hrows,
       make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out, n, L,
                  H8, A, decim, T, t_min, gain, atan_coeffs),

@@ -1,6 +1,8 @@
 // S3 viterbi_decode for Hopper (sm_90a): maximum-likelihood decoding of a
 // rate-1/n convolutional code, one terminated (or unterminated) frame a
-// warp (K <= 9, n <= 4) or a block (K >= 10, or n > 4).
+// warp (K <= 9, n <= 4), a block or a thread-block cluster (K <= 18, n <=
+// 8: viterbi_acs_kernel below), or, for the rest, a block of up to 1024
+// threads (the serial instance, viterbi_kernel).
 //
 // No TPU kernel: it replaces the reference's two `lax.scan`s in
 // newsched_tpu/ops/fec.py `viterbi_decode` (:83): the add-compare-select
@@ -39,8 +41,10 @@
 //     a select, a shift and an add a step; the bits leave in coalesced
 //     stores.
 // At K = 10 and past (16 and more states a lane) a warp's registers would
-// not hold them, nor its 4 E branch symbols past n = 4: the block instance
-// takes those codes, one block a frame, S/1024 states a thread past 1024
+// not hold them, nor its 4 E branch symbols past n = 4: the block and
+// cluster instance takes those codes up to K = 18 and n = 8 (its header
+// below). The serial instance takes what neither takes (K <= 6 past n = 4,
+// n > 8, K > 18), one block a frame, S/1024 states a thread past 1024
 // states (state s on thread s mod 1024, so a ballot of warp w at state
 // group e is word s >> 5), the branch symbols from the read-only cache past
 // rate 1/4 or two states a thread, its metrics double-buffered in shared
@@ -78,7 +82,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
+#include <climits>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -448,6 +458,421 @@ viterbi_warp_kernel(const float* __restrict__ llr, int* __restrict__ bits,
   }
 }
 
+// ---- the block and cluster instance: K = 7-18 past the warp's, n <= 8 ------
+//
+// A frame is C blocks (a thread-block cluster at C > 1; C = 1 a block) of P
+// = S / (C E) threads, E states a thread (2-32). Block r of the frame
+// computes states r Sb .. r Sb + Sb - 1 (Sb = S / C), thread t of it the E
+// consecutive states r Sb + t E + e, whose E/2 pairs 2p, 2p + 1 read the
+// E/2 consecutive metrics p and the E/2 at p + S/2. Each block keeps, in
+// two rows of Sb (one a step's parity), the metrics its own pairs read:
+// the "lo" half p = r Sb/2 .. and the "hi" half p + S/2, so every read is
+// local. Its writers put them there: the metrics of block r's first or
+// second half of states go to block 2 (r mod C/2) or that + 1, into the lo
+// half below C/2 and the hi half from it (distributed shared memory; at C
+// = 1 the block's own rows in state order). Each row is swizzled in
+// 16-byte groups (swz: group g at g ^ ((g / 8) mod 8) past E = 4), so the
+// float4 loads of eight consecutive threads, and their E/4 float4 stores,
+// fall on distinct banks. A step:
+//   - the previous step's max g: each warp loads the C P/32 warp maxima
+//     (int keys) one a lane and reduces them with one redux (one warp a
+//     frame: the redux's result, kept);
+//   - the ACS of the thread's E states, the reference's rounding order,
+//     (m - g) + bm: each state's two branch metrics come from the step's
+//     table of the 2^n sums of +-LLR (a sign pattern's: the first product,
+//     then each add rounded on its own; a product by +-1 is the LLR with
+//     its sign bit flipped), indexed by the state's sign bits (psym < 0,
+//     read once into a register);
+//   - the decisions: the thread's E bits are one E-bit element of the
+//     step's S/32 words (state s at bit s mod 32 of word s / 32), one
+//     store, coalesced across the warp (below E = 8, E ballots whose bits
+//     are spread into place);
+//   - the next step's table, from its LLRs (staged in shared memory where
+//     the frame's fit in 32 KB, else loaded a step ahead);
+//   - the max: the thread's over its states, the warp's by one redux on
+//     the int keys, then lane c of each warp stores it into block c's
+//     table (C stores; at C = 1 lane 0 into the block's);
+//   - one barrier: the cluster's (barrier.cluster, release and acquire),
+//     or the block's, or at P = 32 the warp's.
+// The decision words stay in shared memory beside the LLRs ("shared", C =
+// 1) where that costs the launch no wave (ops/cuda/fec.py viterbi_layout),
+// else they go to device memory, stores nothing waits on. The traceback is
+// one warp of block 0: lane l fetches, five steps ahead, the word of the
+// l-th state the path can reach by then, (s >> 5) + l S/32 from state s
+// (from device memory by cp.async into a ring in shared memory, one group
+// a step, so a step waits for the group of five steps before, not for the
+// last load), and each step is a select, a shift and an add (the first
+// five steps load directly).
+constexpr int kAcsMaxN = 8;       // coded bits a step: 2n sign bits a state
+constexpr int kAcsThreads = 512;  // threads of a frame's block, at most
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kAcsTab = 1 << kAcsMaxN;  // a step's branch metrics, at most
+constexpr int kRing = 10;         // the traceback's steps in flight, twice
+constexpr int kAux = 80 + kRing * 32;  // words: 32 warp bests (value, state),
+                                       // 8 blocks', the traceback's ring
+constexpr int kStageLlr = 8192;   // LLRs staged in shared memory, at most
+
+__device__ __forceinline__ int fkey(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float unkey(int m) {
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+// Physical index of logical metric i in a row (16-byte groups swizzled
+// past E = 4; i a multiple of 4 where a float4 is read or written).
+template <int E>
+__device__ __forceinline__ int swz(int i) {
+  if constexpr (E >= 8)
+    return (((i >> 2) ^ ((i >> 5) & 7)) << 2) | (i & 3);
+  else
+    return i;
+}
+
+// +-r: __fmul_rn(+-1, r) exactly, the sign bit flipped where bit is 1.
+__device__ __forceinline__ float flip(float r, unsigned bit) {
+  return __int_as_float(__float_as_int(r) ^ (int)(bit << 31));
+}
+
+// Q consecutive floats, one load (Q = 1, 2, 4; 4 Q-byte aligned).
+template <int Q>
+__device__ __forceinline__ void load_q(const float* p, float (&v)[Q]) {
+  if constexpr (Q == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (Q == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int E>
+using DecElem = std::conditional_t<
+    E == 8, uint8_t, std::conditional_t<E == 16, uint16_t, uint32_t>>;
+
+// The 32/E bits of x (x < 2^(32/E)) spread to every E-th bit (E = 2, 4).
+template <int E>
+__device__ __forceinline__ unsigned spread(unsigned x) {
+  if constexpr (E == 2) {
+    x = (x | (x << 8)) & 0x00ff00ffu;
+    x = (x | (x << 4)) & 0x0f0f0f0fu;
+    x = (x | (x << 2)) & 0x33333333u;
+    return (x | (x << 1)) & 0x55555555u;
+  } else {
+    x = (x | (x << 12)) & 0x000f000fu;
+    x = (x | (x << 6)) & 0x03030303u;
+    return (x | (x << 3)) & 0x11111111u;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The traceback by one warp: from `state` at step T-1 over the step's
+// NW = S/32 decision words a step, the bits out (`out` in shared memory, T
+// of them, or the frame's nbits in device memory). Lane l fetches, at step
+// t, the word at step t - 5 of state (s_t >> 5) + l S/32; the path's
+// state at t - 5 is the one of lane m, m the five decisions between
+// (hist). kAsync (the words in device memory): the fetch is a cp.async
+// into `ring` (kRing x 32 words of shared memory), a group a step; else a
+// load into a register, its ring.
+template <bool kAsync>
+__device__ __forceinline__ void traceback_warp(const unsigned* dec, int T,
+                                               int S, int state, int* out,
+                                               int* bf, int nbits,
+                                               unsigned* ring) {
+  const int lane = threadIdx.x & 31, NW = S >> 5, half = S >> 1;
+  unsigned reg[5] = {};
+  int hist = 0;
+#pragma unroll 1
+  for (int t0 = T - 1; t0 >= 0; t0 -= kRing) {
+#pragma unroll
+    for (int k = 0; k < kRing; ++k) {
+      const int t = t0 - k;
+      if (t < 0) break;
+      unsigned w;
+      if (t >= T - 5) {
+        w = dec[(long long)t * NW + (state >> 5)];
+      } else if constexpr (kAsync) {
+        asm volatile("cp.async.wait_group 4;\n" ::: "memory");
+        __syncwarp();
+        w = ring[k * 32 + hist];
+      } else {
+        w = __shfl_sync(kAll, reg[k % 5], hist);
+      }
+      const unsigned* src = dec + (long long)(t - 5) * NW +
+                            (((state >> 5) + lane * NW) >> 5);
+      if constexpr (kAsync) {
+        if (t >= 5)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           smem_u32(ring + ((k + 5) % kRing) * 32 + lane)),
+                       "l"(src)
+                       : "memory");
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      } else {
+        if (t >= 5) reg[k % 5] = *src;
+      }
+      const int which = (w >> (state & 31)) & 1;
+      if (lane == 0) {
+        if (out)
+          out[t] = state & 1;  // the input bit into state: pbit
+        else if (t < nbits)
+          bf[t] = state & 1;
+      }
+      state = (state >> 1) + (which ? half : 0);  // pred[state][which]
+      hist = (hist >> 1) | (which << 4);
+    }
+  }
+  if constexpr (kAsync) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int E, bool kCluster>
+__global__ void __launch_bounds__(kAcsThreads, 1)
+viterbi_acs_kernel(const float* __restrict__ llr, int* __restrict__ bits,
+                   const float* __restrict__ psym, unsigned* dec_g, int T,
+                   int n, int S, int C, int terminated, int nbits, int global) {
+  static_assert(E >= 2 && E <= 32 && (E & (E - 1)) == 0, "E a power of 2");
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (T == 0) return;
+  const int P = blockDim.x, NWt = P >> 5, CW = C * NWt, NB = 1 << n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int r = 0;
+  if constexpr (kCluster) r = (int)cg::this_cluster().block_rank();
+  const long long f = blockIdx.x / C;
+  const int Sb = S / C, NW = S >> 5;
+  // one warp a frame: its max stays in registers, the rows need no block
+  // barrier
+  const bool solo = !kCluster && NWt == 1;
+  float* rows = reinterpret_cast<float*>(smem);           // 2 x Sb metrics
+  float* tab = rows + 2 * Sb;                             // 2 x 2^n metrics
+  int* keys = reinterpret_cast<int*>(tab + 2 * kAcsTab);  // 2 x CW maxima
+  float* wv = reinterpret_cast<float*>(keys + 2 * CW);    // warp bests
+  int* ws = reinterpret_cast<int*>(wv + 32);
+  float* cv = reinterpret_cast<float*>(ws + 32);          // block bests
+  int* cs = reinterpret_cast<int*>(cv + kMaxCluster);
+  unsigned* ring = reinterpret_cast<unsigned*>(cs + kMaxCluster);
+  float* stage = reinterpret_cast<float*>(ring + kRing * 32);
+  const float* rsrc = llr + f * T * n;  // the frame's T x n LLRs
+  unsigned* dec = dec_g ? dec_g + f * T * NW : nullptr;
+  int* out = nullptr;
+  if (!global || T * n <= kStageLlr) {  // the LLRs staged
+    for (int i = tid; i < T * n; i += P) stage[i] = rsrc[i];
+    rsrc = stage;
+  }
+  if (!global) {  // and the decision words and bits (C = 1)
+    dec = reinterpret_cast<unsigned*>(stage + T * n);
+    out = reinterpret_cast<int*>(dec + (long long)T * NW);
+  }
+  // each state's two branches: their symbols' sign bits (bit j: psym < 0),
+  // the indices of their metrics in the step's table, in bytes 0 and 1
+  unsigned sg[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const long long s = (long long)r * Sb + tid * E + e;
+    unsigned w = 0;
+    for (int b = 0; b < 2; ++b)
+      for (int j = 0; j < n; ++j)
+        if (__ldg(psym + (s * 2 + b) * n + j) < 0.f) w |= 1u << (8 * b + j);
+    sg[e] = w;
+  }
+  for (int i = tid; i < Sb; i += P)  // the metrics before step 0
+    rows[Sb + swz<E>(i)] = r == 0 && i == 0 ? 0.f : kNeg;
+  // Step t's 2^n branch metrics, one a sign pattern, into tab's slot
+  // t & 1: the LLRs with their sign bits flipped, summed in order (the
+  // first product, then each add rounded on its own), as every state's.
+  const auto fill_tab = [&](int t, const float (&x)[kAcsMaxN]) {
+    for (int sgn = tid; sgn < NB; sgn += P) {
+      float bm = flip(x[0], sgn & 1);
+#pragma unroll
+      for (int j = 1; j < kAcsMaxN; ++j)
+        if (j < n) bm = __fadd_rn(bm, flip(x[j], (sgn >> j) & 1));
+      tab[(t & 1) * kAcsTab + sgn] = bm;
+    }
+  };
+  const bool filler = tid < NB;  // a thread of the table: the LLRs
+  float rn[kAcsMaxN] = {};       // the next step's LLRs
+  // where the thread's new metrics go: its destination block's row
+  // (distributed shared memory at C > 1), at its states' offset + woff
+  constexpr int H = E / 2, Q = H < 4 ? H : 4;  // pairs; a load's pairs
+  float* wdst = rows;
+  int woff = 0;
+  if constexpr (kCluster) {
+    const int hb = tid * E >= Sb / 2;  // the second half of its states
+    wdst = cg::this_cluster().map_shared_rank(rows, 2 * (r % (C / 2)) + hb);
+    woff = (r >= C / 2 ? Sb / 2 : 0) - hb * (Sb / 2);
+  }
+  int* key_dst = keys;  // lane c's table: block c's
+  if constexpr (kCluster)
+    key_dst = cg::this_cluster().map_shared_rank(keys, lane < C ? lane : 0);
+  if (kCluster || !solo) {
+    if constexpr (kCluster)
+      cg::this_cluster().sync();  // every block started, its rows set
+    else
+      __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  if (filler) {
+    float r0[kAcsMaxN] = {};
+#pragma unroll
+    for (int j = 0; j < kAcsMaxN; ++j) {
+      r0[j] = j < n ? rsrc[j] : 0.f;
+      rn[j] = j < n && T > 1 ? rsrc[n + j] : 0.f;
+    }
+    fill_tab(0, r0);
+  }
+  if (kCluster || !solo) {
+    if constexpr (kCluster)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  const auto step_max = [&](int t) {  // g of step t, in every lane
+    const int* kk = keys + (t & 1) * CW;
+    int x = INT_MIN;
+    for (int i = lane; i < CW; i += 32) x = max(x, kk[i]);
+    return unkey(__reduce_max_sync(kAll, x));
+  };
+  const int off_lo = tid * H, off_hi = Sb / 2 + tid * H;
+  float g = 0.f;  // the previous step's max (0 before the first step)
+  for (int t = 0; t < T; ++t) {
+    if (t > 0 && !solo) g = step_max(t - 1);
+    const float* tb = tab + (t & 1) * kAcsTab;
+    const float* prev = rows + ((t - 1) & 1) * Sb;
+    float* cur = wdst + (t & 1) * Sb;
+    float mx = -INFINITY;
+    unsigned mask = 0;
+#pragma unroll
+    for (int h0 = 0; h0 < H; h0 += Q) {
+      float a[Q], b[Q], v[2 * Q];
+      load_q<Q>(prev + swz<E>(off_lo + h0), a);
+      load_q<Q>(prev + swz<E>(off_hi + h0), b);
+#pragma unroll
+      for (int h = 0; h < Q; ++h) {
+        const float m0 = __fsub_rn(a[h], g), m1 = __fsub_rn(b[h], g);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 2 * (h0 + h) + u;
+          const float c0 = __fadd_rn(m0, tb[sg[e] & 0xff]);
+          const float c1 = __fadd_rn(m1, tb[sg[e] >> 8]);
+          const bool ch = c1 > c0;  // the first maximum, as jnp.argmax
+          v[2 * h + u] = ch ? c1 : c0;
+          mx = fmaxf(mx, v[2 * h + u]);
+          mask |= (unsigned)ch << e;
+        }
+      }
+      const int i0 = tid * E + 2 * h0 + woff;
+      if constexpr (2 * Q == 2) {
+        *reinterpret_cast<float2*>(cur + i0) = make_float2(v[0], v[1]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 2 * Q; q += 4)
+          *reinterpret_cast<float4*>(cur + swz<E>(i0 + q)) =
+              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+      }
+    }
+    unsigned* drow = dec + (long long)t * NW;
+    if constexpr (E >= 8) {
+      reinterpret_cast<DecElem<E>*>(drow)[r * (Sb / E) + tid] =
+          (DecElem<E>)mask;
+    } else {  // E ballots; word w: lanes w 32/E .., state bit (l E + e) % 32
+      unsigned wd = 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned bl = __ballot_sync(kAll, (mask >> e) & 1);
+        wd |= spread<E>((bl >> (lane * (32 / E))) & ((1u << (32 / E)) - 1)) << e;
+      }
+      if (lane < E && lane * 32 < Sb) drow[(r * Sb >> 5) + (tid >> 5) * E + lane] = wd;
+    }
+    if (filler && t + 1 < T) {  // the next step's table; its LLRs' load
+      fill_tab(t + 1, rn);
+#pragma unroll
+      for (int j = 0; j < kAcsMaxN; ++j)
+        rn[j] = j < n && t + 2 < T ? rsrc[(t + 2) * n + j] : 0.f;
+    }
+    const int key = __reduce_max_sync(kAll, fkey(mx));
+    if constexpr (kCluster) {
+      if (lane < C) key_dst[(t & 1) * CW + r * NWt + warp] = key;
+      cg::this_cluster().sync();
+    } else if (solo) {
+      g = unkey(key);
+      __syncwarp();
+    } else {
+      if (lane == 0) keys[(t & 1) * CW + warp] = key;
+      __syncthreads();
+    }
+  }
+  if constexpr (kCluster) {  // the words of every block, before block 0 reads
+    __threadfence();
+    cg::this_cluster().sync();
+  }
+  int state = 0;
+  if (!terminated) {  // argmax of the last metrics less their max: the
+                      // first, by state
+    if (!solo) g = step_max(T - 1);
+    const float* last = rows + ((T - 1) & 1) * Sb;
+    float bv = -INFINITY;
+    int bs = INT_MAX;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = tid * E + e;  // a row offset: the lo half, then the hi
+      const int st = (j < Sb / 2 ? 0 : S / 2 - Sb / 2) + r * (Sb / 2) + j;
+      const float fe = __fsub_rn(last[swz<E>(j)], g);
+      if (fe > bv || (fe == bv && st < bs)) bv = fe, bs = st;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kAll, bv, o);
+      const int os = __shfl_xor_sync(kAll, bs, o);
+      if (ov > bv || (ov == bv && os < bs)) bv = ov, bs = os;
+    }
+    if (lane == 0) wv[warp] = bv, ws[warp] = bs;
+    __syncthreads();
+    if (tid == 0) {
+      bv = wv[0], bs = ws[0];
+      for (int w = 1; w < NWt; ++w)
+        if (wv[w] > bv || (wv[w] == bv && ws[w] < bs)) bv = wv[w], bs = ws[w];
+      if constexpr (kCluster) {
+        cg::cluster_group cl = cg::this_cluster();
+        cl.map_shared_rank(cv, 0)[r] = bv;
+        cl.map_shared_rank(cs, 0)[r] = bs;
+      } else {
+        cs[0] = bs;
+      }
+    }
+    if constexpr (kCluster)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+    if (r == 0) {
+      bv = cv[0], bs = cs[0];
+      if constexpr (kCluster)
+        for (int c = 1; c < C; ++c)
+          if (cv[c] > bv || (cv[c] == bv && cs[c] < bs)) bv = cv[c], bs = cs[c];
+      state = bs;
+    }
+  }
+  if (r != 0) return;
+  int* bf = bits + f * nbits;
+  if (warp == 0) {
+    if (out)
+      traceback_warp<false>(dec, T, S, state, out, bf, nbits, ring);
+    else
+      traceback_warp<true>(dec, T, S, state, out, bf, nbits, ring);
+  }
+  if (out) {
+    __syncthreads();
+    for (int i = tid; i < nbits; i += P) bf[i] = out[i];
+  }
+}
+
 using WarpKernel = void (*)(const float*, int*, const float*, unsigned*, int,
                             int, int, int, int);
 using BlockKernel = void (*)(const float*, int*, const float*, unsigned*,
@@ -476,6 +901,26 @@ BlockKernel block_instance(int E) {
     case 8: return viterbi_kernel<8>;
     case 16: return viterbi_kernel<16>;
     default: return viterbi_kernel<0>;
+  }
+}
+
+using AcsKernel = void (*)(const float*, int*, const float*, unsigned*, int,
+                           int, int, int, int, int, int);
+
+AcsKernel acs_instance(int E, bool cluster) {
+  if (cluster) {
+    switch (E) {
+      case 8: return viterbi_acs_kernel<8, true>;
+      case 16: return viterbi_acs_kernel<16, true>;
+      default: return viterbi_acs_kernel<32, true>;
+    }
+  }
+  switch (E) {
+    case 2: return viterbi_acs_kernel<2, false>;
+    case 4: return viterbi_acs_kernel<4, false>;
+    case 8: return viterbi_acs_kernel<8, false>;
+    case 16: return viterbi_acs_kernel<16, false>;
+    default: return viterbi_acs_kernel<32, false>;
   }
 }
 
@@ -549,5 +994,69 @@ extern "C" int viterbi_launch(const float* llr, int* bits, const float* psym,
   fn<<<F, threads, (size_t)smem, st>>>(llr, bits, psym, dec,
                                        wide ? metrics : nullptr, T, n, S,
                                        terminated, nbits, global);
+  return (int)cudaGetLastError();
+}
+
+
+// Shared memory of a block of the block and cluster instance (ops/cuda/
+// fec.py `viterbi_smem` mirrors it): its two rows of Sb metrics, two
+// steps' tables of branch metrics, two tables of C P/32 warp maxima, the
+// bests and the traceback's ring, the frame's LLRs where they are staged
+// (at most kStageLlr of them on the global route), and, staged (global =
+// 0), its decision words and bits.
+static long long viterbi_acs_smem(int T, int n, int S, int E, int C,
+                                  int global) {
+  const long long Sb = S / C, CW = (long long)C * (Sb / E / 32);
+  const long long llr = !global || (long long)T * n <= kStageLlr
+                            ? (long long)T * n : 0;
+  return 4LL * (2 * Sb + 2 * kAcsTab + 2 * CW + kAux + llr +
+                (global ? 0 : (long long)T * (S / 32) + T));
+}
+
+// The block (C = 1) and cluster (C = 2, 4, 8) instance: F frames of T
+// steps, S >= 64 states, E states a thread, n <= 8; global: the decision
+// words in dec (F T S/32 words) and the LLRs read from device memory, else
+// staged in shared memory (C = 1 only).
+extern "C" int viterbi_acs_launch(const float* llr, int* bits,
+                                  const float* psym, unsigned* dec, int F,
+                                  int T, int n, int S, int E, int C,
+                                  int terminated, int nbits, int global,
+                                  void* stream) {
+  const bool okE = E == 2 || E == 4 || E == 8 || E == 16 || E == 32;
+  const bool okC = C == 1 || C == 2 || C == 4 || C == 8;
+  if (F < 0 || T < 0 || n < 1 || n > kAcsMaxN || S < 64 || S > kMaxS ||
+      (S & (S - 1)) || !okE || !okC || nbits < 0 || nbits > T ||
+      (global && dec == nullptr) || (C > 1 && (!global || E < 8)))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)S / C / E;
+  if (threads < 32 || threads > kAcsThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  if (F == 0) return 0;
+  const long long smem = viterbi_acs_smem(T, n, S, E, C, global);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const AcsKernel fn = acs_instance(E, C > 1);
+  if (const int e = allow_smem(fn, smem)) return e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C == 1) {
+    fn<<<F, (int)threads, (size_t)smem, st>>>(llr, bits, psym, dec, T, n, S,
+                                             C, terminated, nbits, global);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)F * C);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, llr, bits, psym, dec,
+                                             T, n, S, C, terminated, nbits,
+                                             global);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

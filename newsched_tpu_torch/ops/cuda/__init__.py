@@ -25,6 +25,8 @@ def launch_counters() -> list[tuple[object, str]]:
         (fm_chain.fm_chain_step_planes, "pipe_launches"),
         (fir_source.fir_tone_step, "partitioned_launches"),
         (fec.viterbi_frames, "block_launches"),
+        (fec.viterbi_frames, "cluster_launches"),
+        (fec.viterbi_frames, "serial_launches"),
         (fec.viterbi_frames, "global_launches"),
         (fec.viterbi_frames, "metric_launches")] + [
         (f, f"ag{ag}_launches") for f in banded for ag in (2, 4)]

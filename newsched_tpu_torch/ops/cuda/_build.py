@@ -86,6 +86,8 @@ SIGNATURES = {
     # viterbi.cu
     "viterbi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
+    "viterbi_acs_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 

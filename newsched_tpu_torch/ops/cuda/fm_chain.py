@@ -54,7 +54,6 @@ FLAGSHIP_W = 128  # K3p's and the ablation's one width (M = 64)
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
 _SM_THREADS = 2048  # threads an SM holds
-_THREADS = 256  # threads of a chain block
 # t_min of a batch whose rows before it are all real stream rows: further
 # back than any block reaches, so no block takes the stream-start branch
 _FAR_PAST = -(1 << 30)
@@ -308,10 +307,12 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
       pipelined: the reference's software-pipelined variant (K3p): each
         CUDA block walks several consecutive tiles in order, carries the
         demod/audio junction from tile to tile instead of rebuilding it,
-        and copies the next tile's window while the current one computes.
-        The same values bit for bit; tile must then be a multiple of 32
-        (64 or 128 at M=64: the block holds two windows). Built for M = 64
-        only: other widths raise.
+        and runs as a warp-specialised pipeline: a producer warp copies the
+        fold's input windows (bulk copies into two stages, mbarriers), 4
+        warps fold and transform one tile while 8 demodulate and filter
+        the tile before it (two Y slots, named barriers). The same values
+        bit for bit; tile must then be a multiple of 32 (64 or 128 at
+        M=64: ``_pipe_smem``). Built for M = 64 only: other widths raise.
       nd: with warm > 0, the batch's time shards of n/nd rows each (the
         sharded fused graph's step): the audio equals the nd per-shard
         calls', each with the warm + H8 rows before its shard as its halo,
@@ -409,17 +410,27 @@ def _check_warm(warm: int, tile: int, A: int, decim: int) -> None:
             f"recomputed rows to rebuild demod+audio state")
 
 
+_PIPE_THREADS = 416  # K3p's block: a producer warp, 4 fold and 8 demod warps
+_PIPE_STAGES = 2     # its input windows in flight
+
+
 def _pipe_smem(tile: int, A: int, L: int, W: int) -> int:
-    """Shared bytes of a K3p block: the tile buffer, the stage buffer for
-    the next window and two Y rows."""
-    return (_tile_rows(tile, A, L) + tile + L - 1 + 2) * W * 4
+    """Shared bytes of a K3p block (csrc/fm_chain.cu pipe_smem_floats): its
+    mbarriers (64 bytes), two Y slots of max(tile, A) rows padded to 32,
+    ``_PIPE_STAGES`` input windows of 32 + L-1 rows, the ring of A-1+tile
+    aud rows of M, two saved Y rows and the A audio taps."""
+    slot = -(-max(tile, A) // 32) * 32
+    return 4 * (16 + 2 * slot * W + _PIPE_STAGES * (32 + L - 1) * W
+                + (A - 1 + tile) * (W // 2) + 2 * W + A)
 
 
 @functools.lru_cache(maxsize=None)
 def _pipe_tiles_per_block(n_tiles: int, smem: int, sms: int) -> int:
     """Tiles a K3p block walks: as few as fill every SM once at the blocks
-    per SM that its shared memory allows (one at the flagship's tiles)."""
-    per_sm = max(1, min(_SM_THREADS // _THREADS, _SM_SMEM // (smem + 1024)))
+    per SM that its threads and shared memory allow (one at the flagship's
+    tiles)."""
+    per_sm = max(1, min(_SM_THREADS // _PIPE_THREADS,
+                        _SM_SMEM // (smem + 1024)))
     return -(-n_tiles // (sms * per_sm))
 
 
@@ -446,6 +457,8 @@ def _pipe(vb, halo, prev0, tail0, consts: FmChainConsts, decim: int,
     if vb.data_ptr() % 16:
         raise ValueError("vb: the pipelined kernel copies 16-byte words; "
                          "its data must be 16-byte aligned")
+    if halo.data_ptr() % 16:  # a view off the grid: a copy on it
+        halo = halo.clone()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     G = tiles_per_block or _pipe_tiles_per_block(n // tile, smem, sms)
     aud, prev, tail = _chain_outputs(n, decim, M, A, dev)

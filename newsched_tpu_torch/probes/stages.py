@@ -10,6 +10,9 @@ past the FFT's 513 taps, for the same comparison.
     PYTHONPATH=<tree> python3 <this file> times
     PYTHONPATH=<tree> python3 <this file> sharded
     PYTHONPATH=<tree> python3 <this file> split
+    PYTHONPATH=<tree> python3 <this file> s3 [--geometries]
+    PYTHONPATH=<tree> python3 <this file> s3split
+    PYTHONPATH=<tree> python3 <this file> k3p [--split]
 
 ``stages`` copies ``csrc/fir_source.cu``, ``csrc/fir_part.cu`` and
 ``csrc/wbfm_chain.cu`` of the package on the path (this tree, or one
@@ -65,6 +68,16 @@ K5 and K6 over 4 shards whole and their window alone (made, not
 folded), the window alone from ``fm_chain.cu`` cut after it
 (``_WINDOW_CUT``, built under ``build/split/``); in a tree whose K5 and
 K6 take the junction handoff, with it and without it.
+
+``s3`` decodes S3's routes (``S3_TIME_ROUTES``: the FEC link's K = 7 and
+11, the 16384-bit frames, rate 1/5, K = 12, 15-18) under the tree's
+``csrc/viterbi.cu`` built alone, each against the plain version on the
+card, and times them (``--geometries``: other states a thread and blocks
+a frame of the block and cluster instance); ``s3split`` times cut copies
+of the kernel those routes take (``_S3_FORMS``); ``k3p`` holds K3p
+against K3 bit for bit and times both (``--split``: K3p's fold and demod
+groups' work cut, ``_K3P_CUTS``). Run under two trees in turns to compare
+them.
 
 ``sharded`` times the graph-mode steps of the sharded graphs (#2 fused
 replay, #1 fused, #1 live, #0 live) unsharded and on 4 and 8 logical
@@ -332,6 +345,436 @@ def split() -> list[dict]:
     if bufs:
         recs.append({"plan": fm_chain.gen_plan(2 * M, 128, n // 128, A,
                                                L)._asdict()})
+    return recs
+
+
+# S3's routes that the block instance takes (chip_smoke.py S3_ROUTES): name,
+# code, K, frames of 512 bits
+S3_SPLIT_ROUTES = (
+    ("K=12", (0o4037, 0o5741), 12, 256),
+    ("n=5", (0o171, 0o133, 0o165, 0o117, 0o127), 7, 256),
+    ("K=16", (0o152711, 0o126723), 16, 16),
+)
+# The cuts of S3's kernels that the block routes take, each form's (anchor,
+# text put before it, text put after it) behind its own macro, and the
+# variants timed (name, macros; THREADS the old form's threads a frame).
+# "block-a-frame": csrc/viterbi.cu viterbi_kernel, the design before the
+# redesign (run against a tree that has it); "acs": viterbi_acs_kernel.
+_S3_FORMS = {
+    "block-a-frame": ({
+        # no max: g stays 0 and no warp maximum is reduced or stored
+        "CUT_MAX": [
+            ("      g = wm[0];\n      for (int w = 1; w < NWt; ++w) g = fmaxf(g, wm[w]);\n",
+             "#if !CUT_MAX\n", "#endif\n"),
+            ("    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, o));\n"
+             "    if (lane == 0) wmax[(t & 1) * 32 + warp] = mx;\n",
+             "#if !CUT_MAX\n", "#endif\n")],
+        # no decision stores (the ballot with them)
+        "CUT_DEC": [
+            ("      const unsigned word = __ballot_sync(kAll, ch);  // states st - lane ..\n"
+             "      if (lane == 0) dec[(long long)t * NW + e * NWt + warp] = word;\n",
+             "#if !CUT_DEC\n", "#endif\n")],
+        # no traceback: thread 0 skips its loop over the steps
+        "CUT_TB": [
+            ("  if (tid == 0)\n    for (int t = T - 1; t >= 0; --t) {",
+             "#if CUT_TB\n  if (false)\n#endif\n", "")],
+        "THREADS": [("constexpr int kBlockThreads = 1024;",
+                     "#if 0\n", "#endif\nconstexpr int kBlockThreads = THREADS;\n")],
+    }, (("full", {}), ("no max", {"CUT_MAX": 1}),
+        ("no decision stores", {"CUT_DEC": 1}),
+        ("no traceback", {"CUT_TB": 1}),
+        ("512 threads", {"THREADS": 512}),
+        ("256 threads", {"THREADS": 256}))),
+    "acs": ({
+        # no max: g stays 0, no redux, no table of warp maxima
+        "CUT_MAX": [
+            ("    if (t > 0 && !solo) g = step_max(t - 1);\n", "#if !CUT_MAX\n",
+             "#endif\n"),
+            ("    const int key = __reduce_max_sync(kAll, fkey(mx));\n",
+             "#if CUT_MAX\n    const int key = 0;\n#else\n", "#endif\n"),
+            ("      g = unkey(key);\n", "#if !CUT_MAX\n", "#endif\n")],
+        # no decision stores
+        "CUT_DEC": [
+            ("    unsigned* drow = dec + (long long)t * NW;\n"
+             "    if constexpr (E >= 8) {\n", "#if !CUT_DEC\n", ""),
+            ("      if (lane < E && lane * 32 < Sb) drow[(r * Sb >> 5) + (tid >> 5) * E + lane] = wd;\n"
+             "    }\n", "", "#endif\n")],
+        # no traceback
+        "CUT_TB": [
+            ("  if (warp == 0) {\n    if (out)\n      traceback_warp<false>(",
+             "#if !CUT_TB\n", ""),
+            ("      traceback_warp<true>(dec, T, S, state, out, bf, nbits, ring);\n  }\n",
+             "", "#endif\n")],
+        # no branch-metric table a step (step 0's stays)
+        "CUT_TAB": [
+            ("      fill_tab(t + 1, rn);\n", "#if !CUT_TAB\n", "#endif\n")],
+    }, (("full", {}), ("no max", {"CUT_MAX": 1}),
+        ("no decision stores", {"CUT_DEC": 1}),
+        ("no traceback", {"CUT_TB": 1}),
+        ("no table a step", {"CUT_TAB": 1}))),
+}
+
+
+def _s3_cut_libs(out: Path) -> tuple:
+    """``csrc/viterbi.cu`` of the package on the path with the cuts of its
+    form in ``_S3_FORMS`` ("acs" where the tree has the block and cluster
+    instance, else "block-a-frame") behind their macros, built alone once
+    a variant (every nvcc started together) under ``out``; the form's name
+    and the variants' libraries."""
+    out.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / "viterbi.cu").read_text()
+    form = "acs" if "viterbi_acs_kernel" in text else "block-a-frame"
+    cuts, variants = _S3_FORMS[form]
+    anchors = [a for cs in cuts.values() for a, _, _ in cs]
+    if any(text.count(a) != 1 for a in anchors):
+        raise SystemExit(f"viterbi.cu: the {form} kernel's cut anchors are "
+                         f"not there once")
+    for cs in cuts.values():
+        for a, pre, post in cs:
+            text = text.replace(a, pre + a + post)
+    src = out / "viterbi.cu"
+    src.write_text("#ifndef THREADS\n#define THREADS 1024\n#endif\n"
+                   + "".join(f"#ifndef {m}\n#define {m} 0\n#endif\n"
+                             for m in cuts if m != "THREADS") + text)
+    nvcc = _build._find_nvcc()
+    jobs = {}
+    for name, macros in variants:
+        tag = re.sub(r"\W+", "_", name)
+        obj, so = out / f"s3_{tag}.o", out / f"libs3_{tag}.so"
+        flags = [f"-D{k}={v}" for k, v in macros.items()]
+        jobs[name] = (obj, so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (obj, so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc viterbi.cu ({name}):\n{log}")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        str(obj)], check=True)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("viterbi_launch", "viterbi_acs_launch"):
+            if hasattr(lib, fn) and fn in _build.SIGNATURES:
+                getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return form, libs
+
+
+def _s3_llrs(polys, K: int, frames: int, nbits: int = 512, seed: int = 0):
+    """Noisy soft LLRs (sigma 0.8) of seeded frames of ``polys``, on the
+    card: (frames, nbits + K - 1, n)."""
+    rng = np.random.default_rng(seed + K)
+    bits = rng.integers(0, 2, (frames, nbits))
+    coded = fec.conv_encode(torch.from_numpy(bits), polys, K).numpy()
+    rx = 2.0 * coded - 1.0 + rng.normal(0, 0.8, coded.shape)
+    return torch.from_numpy(rx.astype(np.float32)).cuda().reshape(
+        frames, nbits + K - 1, len(polys))
+
+
+def s3split() -> list[dict]:
+    """S3's kernel for the block routes taken apart at those routes
+    (``S3_SPLIT_ROUTES``: K = 12 and rate 1/5 at 256 frames, K = 16 at 16
+    frames, 512 bits a frame), each variant of its form in ``_S3_FORMS`` a
+    cut copy of the tree's ``csrc/viterbi.cu`` built alone under
+    ``build/split_s3/``: the block-a-frame kernel whole, without the step's
+    max, the decision stores or the traceback, and at 512 and 256 threads a
+    frame (1024 whole); the block and cluster instance whole, without the
+    max, the decision stores, the traceback or a step's table of branch
+    metrics. By CUDA-graph replay, the variants forward then backward; each
+    record the best, and ns a step. Only the times mean anything: a cut's
+    bits are not the decoder's."""
+    form, libs = _s3_cut_libs(Path(_build.BUILD_DIR).parent / "split_s3")
+    full = _build.lib
+    ms: dict = {}
+    try:
+        for name, polys, K, F in S3_SPLIT_ROUTES:
+            tabs = fec.viterbi_tables(polys, K, "cuda")
+            llr = _s3_llrs(polys, K, F)
+            order = list(libs)
+            for variant in order + order[::-1]:
+                _build.lib = (lambda lib=libs[variant]: lib)
+                ms.setdefault((name, variant), []).append(graph_ms(
+                    lambda: kfec.viterbi_frames(llr, tabs, K, True)))
+    finally:
+        _build.lib = full
+    steps = {name: 512 + K - 1 for name, _, K, _ in S3_SPLIT_ROUTES}
+    return [{"s3_split": name, "form": form, "variant": v, "ms": min(t),
+             "ms_all": t, "ns_a_step": 1e6 * min(t) / steps[name]}
+            for (name, v), t in ms.items()]
+
+
+# codes past the block and cluster instance (K <= 6 past rate 1/4, rates
+# past 1/8), which take the serial instance: rate 1/5 at K = 5 and rate
+# 1/9 at K = 7 (the rate-1/9 generators at K = 12 end in a 12-bit one)
+S3_SERIAL_N5 = (0o25, 0o33, 0o37, 0o35, 0o27)
+S3_SERIAL_N9 = (0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147,
+                0o163)
+# S3's routes timed by ``s3`` (chip_smoke.py S3_ROUTES and phase 51's
+# FEC link): name, code, K, bits a frame, frames
+S3_TIME_ROUTES = (
+    ("K=7", (0o171, 0o133), 7, 512, 1024),
+    ("K=11", (0o2565, 0o3753), 11, 512, 1024),
+    ("global", (0o171, 0o133), 7, 16384, 16),
+    ("n=5", (0o171, 0o133, 0o165, 0o117, 0o127), 7, 512, 256),
+    ("K=12", (0o4037, 0o5741), 12, 512, 256),
+    ("K=15", (0o46321, 0o51271, 0o63667, 0o70535), 15, 512, 32),
+    ("K=16", (0o152711, 0o126723), 16, 512, 16),
+    ("K=17", (0o251343, 0o367375), 17, 512, 4),
+    ("K=18", (0o561753, 0o703515), 18, 512, 2),
+    ("serial K=5", S3_SERIAL_N5, 5, 512, 256),
+    ("serial n=9", S3_SERIAL_N9, 7, 512, 256),
+    ("serial K=12", S3_SERIAL_N9[:8] + (0o6153,), 12, 512, 64),
+)
+# other geometries (states a thread E, blocks a frame C) of the block and
+# cluster instance, timed by ``s3 --geometries`` where the tree has them
+S3_GEOMETRIES = {"K=11": ((8, 2),),
+                 "K=12": ((8, 2), (16, 1)),
+                 "K=15": ((8, 4), (16, 4), (16, 8)),
+                 "K=16": ((16, 8), (32, 8))}
+
+
+def s3(argv) -> list[dict]:
+    """S3 at ``S3_TIME_ROUTES``' shapes under the package on the path, its
+    ``csrc/viterbi.cu`` built alone: each route's bits against the plain
+    version on the card, the instance that ran (its counts), its time by
+    CUDA-graph replay and ns a step; with ``--geometries`` the block and
+    cluster instance at ``S3_GEOMETRIES`` too, launched directly (a tree
+    with ``acs_layout``). Run under two trees in turns to compare them."""
+    lib = _alone_lib("viterbi")
+    full = _build.lib
+    _build.lib = lambda: lib
+    vf = kfec.viterbi_frames
+    counts = [c for c in ("launches", "block_launches", "cluster_launches",
+                          "serial_launches", "global_launches",
+                          "metric_launches") if hasattr(vf, c)]
+    recs = []
+    try:
+        for name, polys, K, nbits, F in S3_TIME_ROUTES:
+            tabs = fec.viterbi_tables(polys, K, "cuda")
+            llr = _s3_llrs(polys, K, F, nbits)
+            runs = [(None, lambda: vf(llr, tabs, K, True))]
+            if "--geometries" in argv and hasattr(kfec, "acs_layout"):
+                for E, C in S3_GEOMETRIES.get(name, ()):
+                    try:
+                        lay = kfec.acs_layout(nbits + K - 1, len(polys), K,
+                                              E, C, F)
+                    except ValueError:
+                        continue
+                    runs.append(((E, C), lambda lay=lay: _acs_at(
+                        lib, llr, tabs, K, lay, nbits)))
+            ref = kfec.viterbi_frames_plain(llr, tabs, True, nbits)
+            for geom, call in runs:
+                before = {c: getattr(vf, c) for c in counts}
+                equal = torch.equal(call(), ref)
+                ran = {c: getattr(vf, c) - before[c] for c in counts
+                       if getattr(vf, c) != before[c]}
+                ms = graph_ms(call)
+                recs.append({"s3": name, "K": K, "n": len(polys),
+                             "frames": F, "bits": nbits,
+                             "geometry": geom, "counts": ran,
+                             "bit_equal": equal, "ms": ms,
+                             "ns_a_step": 1e6 * ms / (nbits + K - 1)})
+                print(json.dumps(recs[-1]), flush=True)
+    finally:
+        _build.lib = full
+    return []
+
+
+def _acs_at(lib, llr, tabs, K: int, lay, nbits: int) -> torch.Tensor:
+    """The block and cluster instance launched at the geometry ``lay``
+    (``kfec.acs_layout``: E, C, memory) on terminated frames, as
+    ``viterbi_frames`` launches it at its own: (F, nbits) int32 bits."""
+    F, T, n = llr.shape
+    S = 1 << (K - 1)
+    bits = torch.empty((F, nbits), dtype=torch.int32, device=llr.device)
+    dec = (torch.empty(F * T * max(1, S // 32), dtype=torch.int32,
+                       device=llr.device) if lay.memory == "global" else None)
+    err = lib.viterbi_acs_launch(
+        llr.data_ptr(), bits.data_ptr(), tabs.psym.data_ptr(),
+        None if dec is None else dec.data_ptr(), F, T, n, S, lay.E, lay.C, 1,
+        nbits, int(lay.memory == "global"),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "viterbi_acs_launch")
+    return bits
+
+
+def _alone_lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` of the package on the path built alone (with the
+    headers it includes) under ``build/alone/``, named by a hash of the
+    sources; the launchers it defines given their argument types."""
+    import hashlib
+
+    src = _build.CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(_build.CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    out = Path(_build.BUILD_DIR).parent / "alone"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        log = _build._compile([src], so)
+        regs = re.findall(r"Function properties for \S*?(\w+?)\n"
+                          r"\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores[\s\S]*?Used (\d+) registers", log)
+        print(json.dumps({"build": str(so), "stack, spills, registers":
+                          [r for r in regs if "pipe" in r[0]
+                           or "viterbi" in r[0]]}), flush=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _build.SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+# K3p's roles taken apart (``k3p --split``): cut copies of csrc/fm_chain.cu
+# in which the fold group or the demod group does none of its work, only
+# its waits and hand-overs: (anchor, text before it, text after it)
+_K3P_CUTS = {
+    "CUT_F": [
+        ("        if (L == kFoldL)\n          fold_pass_to<kFoldL>(",
+         "#if CUT_F\n        release();\n        continue;\n#endif\n", ""),
+        ("      for (int b = 4 * (ft >> 5); b < nr; b += kPipeFold / 8) {\n"
+         "        const int r = b + ((ft >> 3) & 3);\n"
+         "        planes_fft::fft_row<1>(slot + r * W, r, ft & 7, tw, p.tw);\n"
+         "      }\n", "#if !CUT_F\n", "#endif\n")],
+    "CUT_D": [
+        ("      for (int idx = dt; idx < (nr - j0) * M; idx += kPipeDemod) {\n"
+         "        const int jj = j0 + idx / M, m = idx % M, t = u0 + jj;\n",
+         "#if !CUT_D\n", ""),
+        ("        ring[rr * M + m] = val;\n      }\n", "", "#endif\n"),
+        ("        for (int idx = dt; idx < n_o * M; idx += kPipeDemod) {\n"
+         "          const int o = idx / M, m = idx % M;\n", "#if !CUT_D\n", ""),
+        ("          p.aud[((long long)u0 / p.decim + o) * M + m] = acc;\n"
+         "        }\n", "", "#endif\n")],
+}
+_K3P_VARIANTS = (("whole", {}), ("no fold group work", {"CUT_F": 1}),
+                 ("no demod group work", {"CUT_D": 1}),
+                 ("neither", {"CUT_F": 1, "CUT_D": 1}))
+
+
+def _k3p_cut_libs(out: Path) -> dict:
+    """``csrc/fm_chain.cu`` with ``_K3P_CUTS`` behind their macros, built
+    alone once a variant of ``_K3P_VARIANTS`` (every nvcc at once) under
+    ``out``: the variants' libraries."""
+    out.mkdir(parents=True, exist_ok=True)
+    for hdr in _build.CSRC.glob("*.cuh"):
+        (out / hdr.name).write_text(hdr.read_text())
+    text = (_build.CSRC / "fm_chain.cu").read_text()
+    for cuts in _K3P_CUTS.values():
+        for a, pre, post in cuts:
+            if text.count(a) != 1:
+                raise SystemExit("fm_chain.cu: a K3p cut's anchor is not "
+                                 "there once")
+            text = text.replace(a, pre + a + post)
+    src = out / "fm_chain.cu"
+    src.write_text("".join(f"#ifndef {m}\n#define {m} 0\n#endif\n"
+                           for m in _K3P_CUTS) + text)
+    nvcc = _build._find_nvcc()
+    jobs = {}
+    for name, macros in _K3P_VARIANTS:
+        tag = re.sub(r"\W+", "_", name)
+        obj, so = out / f"k3p_{tag}.o", out / f"libk3p_{tag}.so"
+        jobs[name] = (obj, so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *[f"-D{k}={v}" for k, v in
+                                         macros.items()],
+             "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (obj, so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc fm_chain.cu ({name}):\n{log}")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o",
+                        str(so), str(obj)], check=True)
+        lib = ctypes.CDLL(str(so))
+        lib.fm_chain_pipe_launch.argtypes = _build.SIGNATURES[
+            "fm_chain_pipe_launch"]
+        lib.fm_chain_pipe_launch.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+K3P_TILES = ((64, (1, 2, 4)), (128, (1, 2)))  # tile, tiles a block checked
+
+
+def k3p(argv=()) -> list[dict]:
+    """K3p (``fm_chain_step_planes(pipelined=True)``) against K3 under the
+    package on the path, ``csrc/fm_chain.cu`` built alone: two carried
+    batches of the flagship's 32768 x 128 rows (K4's noise) at tiles 64
+    and 128, at its default tiles a block and at ``K3P_TILES``' (bit-equal
+    to K3's audio, prev and tail), and with warm = 512 on the second of 4
+    shards of a batch (bit-equal); then, in turns by CUDA-graph replay, K3
+    (tile 128) and K3p at tiles 64 and 128 (their default tiles a block).
+    With ``--split`` K3p's roles taken apart too (``_K3P_VARIANTS``: cut
+    copies built under ``build/split_k3p/``), timed in the same turns."""
+    M, L, A, D, n = 64, 16, 65, 8, 32768
+    taps = firdes.prototype_channelizer_taps(M, L)
+    at = firdes.low_pass(1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A)
+    c = np.ascontiguousarray(pfb.pfb_arm_taps(taps, M)[::-1, ::-1].T)
+    consts = fm_chain.fm_chain_consts(c, at, "cuda")
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    rows = torch.cat([_k4(torch.tensor(g, dtype=torch.int64, device="cuda"),
+                          amp) for g in (5, 6)])
+    H8 = fm_chain._round8(L - 1)
+    lib = _alone_lib("fm_chain")
+    full = _build.lib
+    _build.lib = lambda: lib
+    step = fm_chain.fm_chain_step_planes
+
+    def batches(fn, **kw):
+        halo = torch.zeros(H8, 2 * M, **z)
+        prev, tail = torch.zeros(1, 2 * M, **z), torch.zeros(A - 1, 2 * M, **z)
+        outs = []
+        for b in range(2):
+            vb = rows[b * n:(b + 1) * n]
+            aud, prev, tail = fn(vb, halo, prev, tail, consts, D, 0.5, **kw)
+            outs += [aud, prev, tail]
+            halo = vb[-H8:].contiguous()
+        return outs
+
+    recs = []
+    try:
+        k3 = batches(step)
+        before = step.pipe_launches
+        for tile, gs in K3P_TILES:
+            for G in (None, *gs):
+                got = batches(fm_chain._pipe, tile=tile, tiles_per_block=G)
+                recs.append({"k3p_check": "2 batches", "tile": tile, "G": G,
+                             "bit_equal": all(torch.equal(a, b)
+                                              for a, b in zip(got, k3))})
+        nl, warm = n // 4, 512
+        hr = warm + H8
+        args = (rows[nl:2 * nl], rows[nl - hr:nl], torch.zeros(1, 2 * M, **z),
+                torch.zeros(A - 1, 2 * M, **z), consts, D, 0.5)
+        a = step(*args, warm=warm)
+        b = step(*args, warm=warm, pipelined=True)
+        recs.append({"k3p_check": "warm 512, shard 1 of 4",
+                     "bit_equal": all(torch.equal(x, y) for x, y in zip(a, b))})
+        recs.append({"k3p_launches": step.pipe_launches - before})
+        st = (rows[:H8].clone(), torch.zeros(1, 2 * M, **z),
+              torch.zeros(A - 1, 2 * M, **z))
+        vb = rows[:n]
+        calls = {"K3": lambda: step(vb, *st, consts, D, 0.5),
+                 "K3p tile 64": lambda: fm_chain._pipe(vb, *st, consts, D,
+                                                        0.5, 64, None),
+                 "K3p tile 128": lambda: fm_chain._pipe(vb, *st, consts, D,
+                                                         0.5, 128, None)}
+        cut = (_k3p_cut_libs(Path(_build.BUILD_DIR).parent / "split_k3p")
+               if "--split" in argv else {})
+        runs = [(k, fn, lib) for k, fn in calls.items()] + [
+            (f"K3p tile 64, {v}", calls["K3p tile 64"], cl)
+            for v, cl in cut.items()]
+        ms: dict = {}
+        for name, fn, cl in runs + runs[::-1]:
+            _build.lib = lambda cl=cl: cl
+            ms.setdefault(name, []).append(graph_ms(fn))
+        recs += [{"k3p_time": k, "ms": min(v), "ms_all": v}
+                 for k, v in ms.items()]
+    finally:
+        _build.lib = full
     return recs
 
 
@@ -973,7 +1416,10 @@ def main(argv) -> int:
     recs = (stages() if argv[:1] == ["stages"] else
             times() if argv[:1] == ["times"] else
             sharded_steps() if argv[:1] == ["sharded"] else
-            split() if argv[:1] == ["split"] else outputs(argv[1:]))
+            split() if argv[:1] == ["split"] else
+            s3split() if argv[:1] == ["s3split"] else
+            s3(argv[1:]) if argv[:1] == ["s3"] else
+            k3p(argv[1:]) if argv[:1] == ["k3p"] else outputs(argv[1:]))
     for rec in recs:
         print(json.dumps(rec), flush=True)
     return 0

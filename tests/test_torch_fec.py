@@ -201,12 +201,14 @@ def test_fec_graph_end_to_end(interleave):
 
 def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
     """On a device tensor (meta stands in for the card, with the H100's
-    80 GiB) S3 refuses frames whose metrics and decision words pass the
-    card's memory, naming the bytes: 300,000 frames of 40 steps at K = 16
-    (125 GB); K = 16 on two frames (its metrics in device memory), K = 12,
+    80 GiB) S3 refuses frames whose decision words (and the serial
+    instance's metrics) pass the card's memory, naming the bytes: 600,000
+    frames of 40 steps at K = 16 (98 GB of decision words; the cluster form
+    keeps the metrics on chip); K = 16 on two frames (a cluster), K = 12,
     rate 1/5 and a frame past the block's shared memory go on to the build
-    (their routes: the block instance, device memory); with `_build.build`
-    failing each raises, never returning the plain result."""
+    (their routes: the block or cluster instance, device memory); with
+    `_build.build` failing each raises, never returning the plain
+    result."""
     def no_build():
         raise _build.KernelBuildError("nvcc not found")
 
@@ -214,7 +216,7 @@ def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
     meta = dict(device="meta", dtype=torch.float32)
     tabs16 = tf.viterbi_tables((0o152711, 0o126723), 16, "meta")
     with pytest.raises(ValueError, match=r"need \d+ B of device memory"):
-        kfec.viterbi_frames(torch.empty(300000, 40, 2, **meta), tabs16, 16,
+        kfec.viterbi_frames(torch.empty(600000, 40, 2, **meta), tabs16, 16,
                             True)
     for llr, tabs, K in (
             (torch.empty(2, 40, 2, **meta), tabs16, 16),
@@ -232,11 +234,12 @@ def test_viterbi_refuses_codes_the_kernel_cannot_take(monkeypatch):
 
 
 # The routes past the shared-memory frame: (code, K, bits a frame, the
-# instance); each frame's LLRs and decision words pass a block's shared
-# memory, so each plans the global-memory route
+# instance of one frame); each frame's LLRs and decision words pass a
+# block's shared memory, so each plans the global-memory route (one frame
+# at K = 12: a cluster of two blocks)
 LONG = [(jf.CC_K7_POLYS, 7, 16384, "warp"),
         ((0o171, 0o133, 0o165, 0o117, 0o127), 7, 8192, "block"),
-        ((0o4037, 0o5741), 12, 1024, "block")]
+        ((0o4037, 0o5741), 12, 1024, "cluster")]
 
 
 @pytest.mark.parametrize("polys,K,nbits,inst", LONG)
@@ -409,26 +412,81 @@ def test_viterbi_tables_assert_the_butterfly(monkeypatch):
 
 
 def test_viterbi_instances_and_their_limits(monkeypatch):
-    """K <= 9 at n <= 4 takes the warp instance, K = 10-15 and rate 1/5 the
-    block one; the warp instance's frame takes no more shared memory than
-    the block's (so it stages every frame the block instance staged); a
-    frame past the limit plans device memory (the warp frame at K = 7 past
-    14,528 steps), and on a device tensor (meta) goes on to the build."""
+    """K <= 9 at n <= 4 takes the warp instance, K = 10-18 and rate 1/5 at
+    K >= 7 the block or cluster one, the rest the serial one; the warp
+    instance's frame takes no more shared memory than the other instance
+    of its code (so it stages every frame that one staged); a frame past
+    the limit plans device memory (the warp frame at K = 7 past 14,528
+    steps), and on a device tensor (meta) goes on to the build. The
+    layouts at the routes' shapes: a block of 128 threads of 8 states at
+    K = 11 x 1024 frames, 256 at K = 12 x 256 (the words in device memory:
+    staged, 157 KB a block would leave one block an SM, two waves), one
+    warp of 2 states a lane at rate 1/5 (staged); clusters of 8 blocks of
+    16 states a thread at K = 15 x 32 and K = 16 x 16 frames (256 and 128
+    blocks), of 4 at K = 16 past the card's SMs; every block within 227 KB
+    and 512 threads, C <= 8."""
     assert [kfec.viterbi_instance(K) for K in (3, 7, 9, 10, 11, 12, 15)] == \
         ["warp"] * 3 + ["block"] * 4
     assert kfec.viterbi_instance(7, 5) == "block"
+    assert kfec.viterbi_instance(5, 5) == kfec.viterbi_instance(12, 9) == \
+        kfec.viterbi_instance(19) == "serial"
     for K in range(2, 10):
         S = 1 << (K - 1)
+        other = "serial" if K < 7 else "block"
         for n in (1, 2, 4):
             for T in (1, 518, 4000):
                 assert kfec.viterbi_smem(T, n, S, "warp") \
-                    <= kfec.viterbi_smem(T, n, S)
+                    <= kfec.viterbi_smem(T, n, S, other)
     assert kfec.viterbi_smem(518, 2, 64, "warp") == 4 * 518 * (2 + 2)
     assert kfec.viterbi_plan(14528, 2, 7) == ("warp", "shared")
     assert kfec.viterbi_plan(14529, 2, 7) == ("warp", "global")
-    assert kfec.viterbi_plan(518, 2, 15) == ("block", "global")
-    assert kfec.viterbi_smem(518, 2, 1 << 14, "block", "global") \
-        == 4 * (2 * 16384 + 64) <= kfec.SMEM_MAX
+    L = kfec.viterbi_layout
+    for (T, n, K, F), want in {
+            (518, 2, 11, 1024): ("block", "global", 8, 1, 128),
+            (523, 2, 12, 256): ("block", "global", 8, 1, 256),
+            (518, 5, 7, 256): ("block", "shared", 2, 1, 32),
+            (526, 4, 15, 32): ("cluster", "global", 16, 8, 128),
+            (527, 2, 16, 16): ("cluster", "global", 16, 8, 256),
+            (527, 2, 16, 1000): ("cluster", "global", 16, 4, 512),
+            (525, 2, 14, 1000): ("cluster", "global", 16, 2, 256),
+            (524, 2, 13, 1000): ("block", "global", 8, 1, 512),
+            (529, 2, 18, 2): ("cluster", "global", 32, 8, 512)}.items():
+        lay = L(T, n, K, F)
+        assert lay[:5] == want, (T, n, K, F, lay)
+        S = 1 << (K - 1)
+        assert lay.threads * lay.E * lay.C == S and lay.C <= kfec.MAX_CLUSTER
+        assert lay.smem == kfec.viterbi_smem(T, n, S, "block", lay.memory,
+                                             lay.E, lay.C) <= kfec.SMEM_MAX
+    # K = 12 at 256 frames: staging the words would cost a second wave
+    staged = kfec.viterbi_smem(523, 2, 2048, "block", "shared", 8)
+    assert staged == 4 * (2 * 2048 + 2 * 256 + 2 * 8 + kfec.ACS_AUX
+                          + 523 * 2 + 523 * 64 + 523)
+    assert kfec.SM_SMEM // (staged + 1024) == 1 and 256 > kfec.CARD_SMS
+    glob = L(523, 2, 12, 256).smem
+    assert kfec._waves(256, 1, 256, staged, 132) == 2
+    assert kfec._waves(256, 1, 256, glob, 132) == 1
+    assert L(523, 2, 10, 256)[:2] == ("block", "shared")  # 46 KB: one wave
+    # the serial instance's codes at phase 51's routes: a block of S
+    # threads (up to 1024) a frame, the metrics and the frame staged at 512
+    # bits, in device memory past them
+    for (T, n, K, F), want in {
+            (516, 5, 5, 256): ("serial", "shared", 32),
+            (518, 9, 7, 256): ("serial", "shared", 64),
+            (523, 9, 12, 64): ("serial", "shared", 1024),
+            (16388, 5, 5, 4): ("serial", "global", 32),
+            (8198, 9, 7, 4): ("serial", "global", 64),
+            (1035, 9, 12, 4): ("serial", "global", 1024)}.items():
+        lay = L(T, n, K, F)
+        assert (lay.instance, lay.memory, lay.threads) == want, (T, n, K)
+        assert lay.smem == kfec.viterbi_smem(T, n, 1 << (K - 1), "serial",
+                                             lay.memory) <= kfec.SMEM_MAX
+    # K = 15 at one frame: a cluster; in one block its 2 x 16384 metrics
+    assert kfec.viterbi_plan(518, 2, 15) == ("cluster", "global")
+    assert kfec.viterbi_smem(518, 2, 1 << 14, "block", "global", 32) \
+        == 4 * (2 * 16384 + 2 * 256 + 2 * 16 + kfec.ACS_AUX + 518 * 2) \
+        <= kfec.SMEM_MAX
+    with pytest.raises(ValueError, match="no block geometry"):
+        kfec.acs_layout(518, 2, 15, 16, 1)  # 1024 threads
     assert kfec.viterbi_instance(16) == "block"
 
     def no_build():
@@ -442,26 +500,227 @@ def test_viterbi_instances_and_their_limits(monkeypatch):
     assert kfec.viterbi_frames.launches == kfec.viterbi_frames.block_launches == 0
 
 
+# -- S3's block and cluster instance, modelled block by block and lane by lane
+
+def _swz(i: torch.Tensor, E: int) -> torch.Tensor:
+    """csrc/viterbi.cu swz: a row's 16-byte groups swizzled past E = 4."""
+    if E >= 8:
+        return (((i >> 2) ^ ((i >> 5) & 7)) << 2) | (i & 3)
+    return i
+
+
+def _block_model(llr: torch.Tensor, tables, terminated: bool, nbits: int,
+                 E: int, C: int) -> torch.Tensor:
+    """The block (C = 1) and cluster instance's layout in torch: block r of
+    a frame computes states r Sb .. (Sb = S/C), thread t the E states r Sb
+    + t E + e, and keeps in two swizzled rows the metrics its own pairs
+    read: the lo half p = r Sb/2 + t E/2 + h at t E/2 + h and the hi half p
+    + S/2 at Sb/2 + t E/2 + h (at C = 1 its rows in state order); so the
+    writer of state r Sb + i puts it into block 2 (r mod C/2) + (i >=
+    Sb/2), into its lo half below C/2 and its hi half from it. Each branch
+    metric is the LLRs with their sign bits flipped by psym's signs, summed
+    in order; (m - g) + bm; each thread's E decisions one E-bit element of
+    the step's words (natural: state s at bit s mod 32 of word s / 32); the
+    max by int keys, a warp's table entry each, reduced over the frame's C
+    P/32 entries; the argmax of the last step by (value, least state)
+    thread, warp and block in turn; the traceback of one warp: lane l's
+    word five steps ahead, of state (s >> 5) + l S/32, the path's lane
+    picked by the five decisions between."""
+    F, T, n = llr.shape
+    S = int(tables.pred.shape[0])
+    Sb, H, NW = S // C, E // 2, S // 32
+    P = Sb // E
+    neg = tables.psym < 0                                     # (S, 2, n)
+    r = torch.arange(C)[:, None, None]
+    t = torch.arange(P)[None, :, None]
+    h = torch.arange(H)[None, None, :]
+    lo, hi = _swz(t * H + h, E), _swz(Sb // 2 + t * H + h, E)  # (1, P, H)
+    e_ = torch.arange(E)[None, None, :]
+    states = r * Sb + t * E + e_                              # (C, P, E)
+    sneg = neg[states]                                       # (C, P, E, 2, n)
+    i = t * E + e_                                           # (1, P, E)
+    if C == 1:
+        dst = torch.zeros_like(states)
+        off = i.expand_as(states)
+    else:
+        hb = (i >= Sb // 2).to(torch.int64)
+        dst = 2 * (r % (C // 2)) + hb
+        off = torch.where(r >= C // 2, Sb // 2, 0) + i - hb * (Sb // 2)
+    dst, off = dst.reshape(-1), _swz(off.expand_as(states).reshape(-1), E)
+    rows = torch.empty(F, C, 2, Sb)
+    init = torch.full((C, Sb), -1e9)
+    init[0, 0] = 0.0
+    rows[:, :, 1, _swz(torch.arange(Sb), E)] = init
+    g = torch.zeros(F, 1, 1, 1)
+    words = torch.zeros(T, F, NW, dtype=torch.int64)
+    per = 32 // E
+    shifts = torch.tensor([i * E for i in range(per)], dtype=torch.int64)
+    bitw = torch.tensor([1 << e for e in range(E)], dtype=torch.int64)
+    for step in range(T):
+        prev = rows[:, :, (step - 1) & 1]                     # (F, C, Sb)
+        a, b = prev[:, :, lo[0]], prev[:, :, hi[0]]           # (F, C, P, H)
+        m0 = (a - g).repeat_interleave(2, dim=-1)             # state 2h + u
+        m1 = (b - g).repeat_interleave(2, dim=-1)
+        rt = llr[:, step][:, None, None, None, :]             # (F,1,1,1,n)
+        sgn = torch.where(sneg[None], -rt[..., None, :], rt[..., None, :])
+        bm = sgn[..., 0]                                      # (F,C,P,E,2)
+        for j in range(1, n):
+            bm = bm + sgn[..., j]
+        c0, c1 = m0 + bm[..., 0], m1 + bm[..., 1]
+        ch = c1 > c0
+        v = torch.where(ch, c1, c0)                           # (F, C, P, E)
+        rows[:, dst, step & 1, off] = v.reshape(F, -1)        # the writers
+        elem = (ch.to(torch.int64) * bitw).sum(-1).reshape(F, S // E)
+        words[step] = (elem.reshape(F, NW, per) << shifts).sum(-1)
+        wkeys = _keys(v.amax(-1)).reshape(F, C * P // 32, 32).amax(-1)
+        g = _unkey(wkeys.amax(-1))[:, None, None, None]
+    if terminated:
+        state = torch.zeros(F, dtype=torch.int64)
+    else:  # each block over its rows' offsets j, states by the two halves
+        last = rows[:, :, (T - 1) & 1][..., _swz(torch.arange(Sb), E)]
+        fe = (last - g[..., 0]).reshape(F, C, P, E)
+        j = (t * E + e_).expand(C, P, E)
+        st = torch.where(j < Sb // 2, 0, S // 2 - Sb // 2) + r * (Sb // 2) + j
+        fe, st = fe.reshape(F, -1), st.reshape(-1).expand(F, -1)
+        top = fe.max(dim=1, keepdim=True).values  # (value, least state)
+        state = torch.where(fe == top, st, S).amin(dim=1)
+    out = torch.empty((F, T), dtype=torch.int32)
+    ring = torch.zeros(F, 5, 32, dtype=torch.int64)
+    hist = torch.zeros(F, dtype=torch.int64)
+    lane = torch.arange(32)
+    for t0 in range(T - 1, -1, -5):
+        for k in range(5):
+            stp = t0 - k
+            if stp < 0:
+                break
+            if stp >= T - 5:
+                w = words[stp].gather(1, (state >> 5)[:, None])[:, 0]
+            else:
+                w = ring[:, k].gather(1, hist[:, None])[:, 0]
+            if stp >= 5:
+                ring[:, k] = words[stp - 5].gather(
+                    1, ((state >> 5)[:, None] + lane * NW) >> 5)
+            which = (w >> (state & 31)) & 1
+            out[:, stp] = (state & 1).to(torch.int32)
+            state = (state >> 1) + which * (S // 2)
+            hist = (hist >> 1) | (which << 4)
+    return out[:, :nbits]
+
+
+@pytest.fixture
+def one_thread():
+    """The layout model's many small torch ops on one thread: under
+    several test workers a pool of threads each only oversubscribes the
+    cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+BLOCK_CODES = [((0o1167, 0o1545), 10), ((0o4037, 0o5741), 12),
+               ((0o46321, 0o51271, 0o63667, 0o70535), 15),
+               ((0o152711, 0o126723), 16)]
+
+
+@pytest.mark.parametrize("kind", ["hard", "soft"])
+@pytest.mark.parametrize("polys,K", BLOCK_CODES)
+def test_block_layout_model_is_the_plain_viterbi(polys, K, kind, one_thread):
+    """The block and cluster instance's layout (``_block_model``) at the
+    planner's geometry for two frames (K = 10: a block of 64 threads of 8
+    states; K = 12: a cluster of 2 blocks of 128; K = 15 and 16: clusters
+    of 8 blocks of 128 and 256 threads of 16 states): bit-equal to
+    viterbi_frames_plain, hard and soft, terminated and not."""
+    tabs = tf.viterbi_tables(polys, K, "cpu")
+    n, F = len(polys), 2
+    for terminated in (True, False):
+        _, llr = _frames(polys, K, F, 40, 0.8, seed=K + n, hard=kind == "hard")
+        lt = torch.from_numpy(llr).reshape(F, -1, n)
+        T = lt.shape[1]
+        lay = kfec.viterbi_layout(T, n, K, F)
+        assert (lay.instance, lay.E, lay.C) == {
+            10: ("block", 8, 1), 12: ("cluster", 8, 2),
+            15: ("cluster", 16, 8), 16: ("cluster", 16, 8)}[K]
+        nbits = T - (K - 1) if terminated else T
+        ref = kfec.viterbi_frames_plain(lt, tabs, terminated, nbits)
+        assert torch.equal(_block_model(lt, tabs, terminated, nbits, lay.E,
+                                        lay.C), ref)
+
+
+@pytest.mark.parametrize("polys,K,E,C", [
+    ((0o171, 0o133, 0o165, 0o117, 0o127), 7, 2, 1),
+    ((0o345, 0o313, 0o277, 0o235, 0o221), 8, 4, 1),
+    ((0o4037, 0o5741), 12, 16, 1),
+    ((0o4037, 0o5741), 12, 8, 2),
+    ((0o46321, 0o51271, 0o63667, 0o70535), 15, 16, 4),
+    ((0o152711, 0o126723), 16, 32, 2), ((0o152711, 0o126723), 16, 16, 4)])
+def test_block_layout_model_at_other_geometries(polys, K, E, C, one_thread):
+    """The same model at the geometries a probe may set and the one-warp
+    frames of rate 1/5 (E = 2, 4: no swizzle, 32/E threads a word): the
+    bits do not depend on E or C, ties included (all-zero LLRs)."""
+    tabs = tf.viterbi_tables(polys, K, "cpu")
+    n = len(polys)
+    _, llr = _frames(polys, K, 2, 30, 0.8, seed=K * E + C, hard=True)
+    for lt in (torch.from_numpy(llr).reshape(2, -1, n),
+               torch.zeros(1, 30 + K - 1, n)):
+        assert kfec.acs_layout(lt.shape[1], n, K, E, C, 2).E == E
+        for terminated in (True, False):
+            nbits = lt.shape[1] - (K - 1) if terminated else lt.shape[1]
+            assert torch.equal(
+                _block_model(lt, tabs, terminated, nbits, E, C),
+                kfec.viterbi_frames_plain(lt, tabs, terminated, nbits))
+
+
+def test_block_swizzle_spreads_each_quarter_warp_over_the_banks():
+    """The float4 loads (E/2 metrics at t E/2, and past a block's half) and
+    the stores (E at t E) of eight consecutive threads fall in eight
+    distinct 16-byte slots of a 128-byte row: no bank conflict."""
+    for E in (8, 16, 32):
+        for base in (0, 32, 2048):  # a half-row offset, a multiple of 32
+            for lo, step, n4 in ((base, E // 2, E // 8), (0, E, E // 4)):
+                for q in range(4):
+                    for j in range(n4):
+                        i = torch.tensor([lo + (8 * q + tt) * step + 4 * j
+                                          for tt in range(8)])
+                        slots = (_swz(i, E) >> 2) & 7
+                        assert len(set(slots.tolist())) == 8, (E, base, j)
+
+
 # -- S3 past K = 15: its metrics in device memory -------------------------------
 
 K16_POLYS = (0o152711, 0o126723)  # a rate-1/2 code of K = 16 (its
 # polynomials share no factor over GF(2): not catastrophic)
 
 
-@pytest.mark.parametrize("K", [16, 17, 18])
+@pytest.mark.parametrize("K", [16, 17, 18, 19])
 def test_viterbi_plans_codes_past_k15_in_device_memory(K):
-    """Past K = 15 S3 plans the block instance on the global route (its two
-    rows of metrics, 2^K x 4 bytes, no longer in a block's shared memory,
-    which holds only the warp maxima); the device bytes are the decision
-    words and the metrics of every frame, and past the card's memory the
-    plan raises, naming them."""
+    """Past K = 15 a block's shared memory no longer holds a frame's two
+    rows of metrics: up to K = 18 (CLUSTER_MAX_K) S3 plans a cluster of 4
+    or 8 blocks a frame, the rows split across their shared memory (S/C
+    states a block, at most 128 KB), its decision words in device memory;
+    past it
+    the serial instance with the metrics in device memory too. The device
+    bytes are the decision words (and the serial instance's metrics) of
+    every frame, and past the card's memory the plan raises, naming
+    them."""
     S, T = 1 << (K - 1), 512 + K - 1
-    assert kfec.viterbi_plan(T, 2, K) == ("block", "global")
-    assert kfec.viterbi_plan(2, 1, K) == ("block", "global")
-    assert kfec.viterbi_smem(T, 2, S, "block", "global") == 4 * 64
+    inst = "cluster" if K <= kfec.CLUSTER_MAX_K else "serial"
+    assert kfec.viterbi_plan(T, 2, K) == (inst, "global")
+    assert kfec.viterbi_plan(2, 1, K) == (inst, "global")
+    lay = kfec.viterbi_layout(T, 2, K, 256)
+    if inst == "cluster":
+        C, E = {16: (4, 16), 17: (8, 16), 18: (8, 32)}[K]
+        assert (lay.C, lay.threads, lay.E) == (C, 512, E) == (
+            C, S // C // E, E)
+        assert lay.smem == 4 * (2 * S // C + 2 * 256 + 2 * C * 16
+                                + kfec.ACS_AUX + T * 2)  # the LLRs staged
+        assert lay.smem <= kfec.SMEM_MAX
+    else:
+        assert kfec.viterbi_smem(T, 2, S, "serial", "global") == 4 * 64
+    metrics = inst == "serial"
     need = kfec.viterbi_device_bytes(256, T, K)
-    assert need == 4 * 256 * (T * S // 32 + 2 * S)
-    assert kfec.viterbi_plan(T, 2, K, 256, need) == ("block", "global")
+    assert need == 4 * 256 * (T * S // 32 + (2 * S if metrics else 0))
+    assert kfec.viterbi_plan(T, 2, K, 256, need) == (inst, "global")
     with pytest.raises(ValueError, match=f"need {need} B of device memory"):
         kfec.viterbi_plan(T, 2, K, 256, need - 1)
     # K <= 15 keeps its routes, and its bytes are the decision words alone
@@ -509,3 +768,22 @@ def test_viterbi_symbols_are_parities_of_generators_read_from_psym(polys, K):
         parity = np.array([[bin(g & int(r)).count("1") & 1 for r in row]
                            for row in reg])
         np.testing.assert_array_equal(psym[:, :, j], 2.0 * parity - 1.0)
+
+
+def test_s3_split_cuts_find_their_anchors():
+    """``probes/stages.py s3split`` cuts ``csrc/viterbi.cu``'s block and
+    cluster instance ("acs") at anchors that must each be there once, each
+    behind its macro; the cuts of the block-a-frame kernel it timed before
+    the redesign find theirs in the serial instance, which keeps that
+    kernel's text."""
+    from newsched_tpu_torch.probes import stages
+
+    text = (_build.CSRC / "viterbi.cu").read_text()
+    for form in ("acs", "block-a-frame"):
+        cuts, variants = stages._S3_FORMS[form]
+        for macro, anchors in cuts.items():
+            for anchor, pre, post in anchors:
+                assert text.count(anchor) == 1, (form, macro)
+            assert any(macro in pre + post for _, pre, post in anchors)
+        assert {m for _, ms in variants for m in ms} <= set(cuts)
+    assert "viterbi_acs_kernel" in text  # so s3split takes the "acs" form

@@ -310,6 +310,38 @@ def test_fir_chain_states_from_jax_hand_over_at_batch_two():
 
 # -- K3p: the pipelined fused channelizer chain ----------------------------------
 
+def test_fm_chain_pipelined_plan_fits_the_card():
+    """K3p's plan (csrc/fm_chain.cu pipe_smem_floats): a block of a
+    producer warp, 4 fold and 8 demod warps; its shared memory at the
+    flagship's taps (L = 16, A = 65) is two Y slots of max(tile, A) rows
+    padded to 32, two windows of 32 + L-1 rows, the ring of A-1+tile aud
+    rows, two Y rows and the audio taps: within the H100's 227 KB a block at tiles 64 and
+    128, one block an SM, so the batch's 32768 rows take 4 and 2 tiles a
+    block on 132 SMs; tile 256 passes the block's memory and is refused
+    before any launch."""
+    W, A, L = 128, 65, 16
+    assert fm_chain._PIPE_THREADS == 32 + 128 + 256
+    assert fm_chain._PIPE_THREADS % 32 == 0 and fm_chain._PIPE_STAGES == 2
+    for tile, slot, G in ((64, 96, 4), (128, 128, 2)):
+        smem = fm_chain._pipe_smem(tile, A, L, W)
+        assert smem == 4 * (16 + 2 * slot * W + 2 * (32 + L - 1) * W
+                            + (A - 1 + tile) * W // 2 + 2 * W + A)
+        assert smem <= fm_chain._SMEM_MAX
+        assert fm_chain._SM_SMEM // (smem + 1024) == 1
+        assert fm_chain._pipe_tiles_per_block(32768 // tile, smem, 132) == G
+    assert fm_chain._pipe_smem(64, A, L, W) == 180288 + 4 * A
+    assert fm_chain._pipe_smem(128, A, L, W) == 229440 + 4 * A
+    assert fm_chain._pipe_smem(256, A, L, W) > fm_chain._SMEM_MAX
+    meta = dict(device="meta", dtype=torch.float32)
+    consts = fm_chain.FmChainConsts(*(torch.empty(s, **meta) for s in (
+        (L, W), (W, W), (A,), (4, W // 2))))
+    with pytest.raises(ValueError, match="tile 256"):
+        fm_chain._pipe(torch.empty(1024, W, **meta),
+                       torch.empty(16, W, **meta),
+                       torch.empty(1, W, **meta), torch.empty(A - 1, W, **meta),
+                       consts, 8, 1.0, 256, None)
+
+
 def test_fm_chain_pipelined_matches_unpipelined_and_reference():
     """Two batches of 512 rows at tile 128 with carried state: the
     pipelined call equals the unpipelined one bit for bit, and both are
@@ -351,3 +383,19 @@ def test_fm_chain_pipelined_matches_unpipelined_and_reference():
                                       z(A - 1, 2 * M), consts, decim, 0.7,
                                       tile=80, pipelined=True)
     assert _launches() == (0, 0, 0, 0)
+
+
+def test_k3p_split_cuts_find_their_anchors():
+    """``probes/stages.py k3p --split`` cuts K3p's fold group and demod
+    group (``csrc/fm_chain.cu``) at anchors that must each be there once,
+    each behind its macro."""
+    from newsched_tpu_torch.ops.cuda import _build
+    from newsched_tpu_torch.probes import stages
+
+    text = (_build.CSRC / "fm_chain.cu").read_text()
+    for macro, anchors in stages._K3P_CUTS.items():
+        for anchor, pre, post in anchors:
+            assert text.count(anchor) == 1, macro
+        assert any(macro in pre + post for _, pre, post in anchors)
+    assert {m for _, ms in stages._K3P_VARIANTS for m in ms} == set(
+        stages._K3P_CUTS)
