@@ -366,11 +366,22 @@ Phases (each failure raises, so the script exits nonzero):
  62. the chains with the model's own 193-tap audio FIR, longer than their
      128-row tile: K3 against its plain version and across tiles, K5
      against K4 -> K3, K6 against K5, at M = 64, 128 and 512; the live
-     and the fused noise model with their default FIR bit-equal.
+     and the fused noise model with their default FIR bit-equal;
+ 63. the reference's two-process global mesh: two child ranks
+     (``chip_smoke.py --rank``, the kernels loaded from the parent's
+     build) joined over gloo by parallel.make_process_mesh, both on the
+     one card, each running config #2 at full width on its 4 of 8 time
+     shards: the fused replay (K3 at warm > 0, its halo over the ring
+     through pinned host memory) and the live source (K6 at its group
+     offset); 2 batches of each path assembled in time order bit-equal
+     to the one-process 8-shard and the unsharded steps, K3 and K6 once
+     a batch a rank, then each rank's ms a batch over 64 batches, the
+     exchange apart and the one-process 8-shard steps' times.
 
 ``python3 chip_smoke.py --phases 59-62`` builds the kernels and runs
 phases 59-62 alone, checked as in the whole run, and prints their
-numbers as one JSON line, with no result line.
+numbers as one JSON line, with no result line; ``--phases 63`` does the
+same for phase 63.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -5279,13 +5290,286 @@ def phase_long_audio_fir(torch, fm_chain, noise) -> dict:
     return {"err": worst, "launches": launches}
 
 
+MESH_RANKS = 2             # phase 63's ranks, both on the one card
+MESH_SHARDS = 8            # global time shards of its process mesh (4 a rank)
+MESH_TIMED = 64            # timed batches a path and rank
+MESH_FIT = 16              # the batch the two-point fit's first event follows
+
+
+def mesh_rows() -> np.ndarray:
+    """Phase 63's two checked batches: config #2's planes rows of a seeded
+    complex noise band, made alike in every process."""
+    from newsched_tpu_torch.testing import planes_rows
+
+    rng = np.random.default_rng(63)
+    x = ((rng.standard_normal(2 * BATCH) + 1j * rng.standard_normal(2 * BATCH))
+         * 0.5).astype(np.complex64)
+    return planes_rows(x, M)
+
+
+def mesh_paths(mesh):
+    """The fused replay and the live source of config #2 at full width on
+    ``mesh``: (ShardedFMChannelizer, fm_noise_channelizer_source)."""
+    from newsched_tpu_torch.blocks import vector_dsp
+    from newsched_tpu_torch.parallel import ShardedFMChannelizer
+
+    taps, audio_taps = design()
+    ch = ShardedFMChannelizer(mesh, M, taps, audio_taps, audio_decim=DECIM,
+                              demod_gain=DEMOD_GAIN)
+    src = vector_dsp.fm_noise_channelizer_source(
+        M, taps, audio_taps, audio_decim=DECIM, gain=DEMOD_GAIN,
+        amplitude=0.5, seed=0)
+    return ch, src
+
+
+def fit_ms(torch, step, n: int = MESH_TIMED, k: int = MESH_FIT) -> float:
+    """ms a call of ``step`` by CUDA events, as a two-point fit: the time
+    from the end of call k to the end of call n, over n - k calls, so a
+    start-up cost outside the loop is left out."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for i in range(n):
+        if i == k:
+            ev[0].record()
+        step()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / (n - k)
+
+
+def exchange_ms(torch, mesh, tail, reps: int = MESH_TIMED) -> dict:
+    """The ring exchange of ``tail`` taken apart, the median of ``reps``:
+    the copy into the pinned buffer (CUDA events), gloo's send/receive pair
+    (the host's clock) and the copy back to the card (CUDA events)."""
+    from newsched_tpu_torch.parallel import halo
+
+    parts: dict = {"D2H": [], "gloo": [], "H2D": []}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        send, recv, done = halo.stage_out(tail, mesh)
+        ev[1].record()
+        ev[1].synchronize()
+        t0 = time.perf_counter()
+        halo.ring_swap(send, recv, done, mesh)
+        parts["gloo"].append((time.perf_counter() - t0) * 1e3)
+        ev[2].record()
+        halo.stage_in(recv, tail)
+        ev[3].record()
+        ev[3].synchronize()
+        parts["D2H"].append(ev[0].elapsed_time(ev[1]))
+        parts["H2D"].append(ev[2].elapsed_time(ev[3]))
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def mesh_rank(rank: str, world: str, init: str, out: str) -> int:
+    """Phase 63's rank (``chip_smoke.py --rank R WORLD INIT DIR``): joins
+    the process mesh of MESH_SHARDS shards over gloo at ``init``, on the
+    card, and runs config #2's fused replay (K3 at warm > 0, its halo over
+    the ring) and live source (K6 at its rank's group offset) on its own
+    shards: 2 checked batches each, their audio saved to ``out``, then
+    MESH_TIMED timed batches (``fit_ms``) and the exchange apart. Loads
+    the kernels the parent built and builds none. Prints one JSON line:
+    whether it compiled, its K3 and K6 launches a path, its times."""
+    import torch
+    import torch.distributed as dist
+
+    from newsched_tpu_torch.ops.cuda import _build, fm_chain
+    from newsched_tpu_torch.parallel import make_process_mesh
+
+    if not torch.cuda.is_available():
+        return 2
+    r, world = int(rank), int(world)
+    compiled = bool(_build.build().log)
+    mesh = make_process_mesh(MESH_SHARDS, rank=r, world=world,
+                             init_method=init, timeout_s=CHILD_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ch, src = mesh_paths(mesh)
+    rows = mesh_rows()
+    loc = ROWS // world
+    mine = [torch.from_numpy(rows[b * ROWS + r * loc:b * ROWS + (r + 1) * loc]
+                             ).cuda() for b in range(2)]
+    rep: dict = {"rank": r, "device": str(mesh.device), "compiled": compiled}
+    # the fused replay: 2 checked batches, then MESH_TIMED timed ones
+    fm_chain.fm_chain_step_planes.launches = 0
+    st = ch.init_state_planes(ROWS)
+    auds = []
+    for b in range(2):
+        aud, st = ch.step_planes(mine[b], st)
+        auds.append(aud.cpu().numpy())
+    np.save(f"{out}/fused_{r}.npy", np.concatenate(auds))
+    rep["K3 checked"] = fm_chain.fm_chain_step_planes.launches
+    box = [st]
+
+    def fused():
+        box[0] = ch.step_planes(mine[0], box[0])[1]
+
+    dist.barrier()
+    rep["fused ms"] = fit_ms(torch, fused)
+    rep["K3"] = fm_chain.fm_chain_step_planes.launches
+    hr = int(st.carry.shape[0]) // mesh.n_local
+    rep["halo bytes"] = hr * 2 * M * 4
+    rep["exchange ms"] = exchange_ms(torch, mesh, mine[0][-hr:])
+    # the rank's K3 launch alone, no exchange, both ranks at once (after
+    # the count: a timing, not the path)
+    args = (mine[0], st.carry[:hr], st.prev, st.tail,
+            ch._dev_consts(mesh.device)[1], DECIM, DEMOD_GAIN)
+    warm = ch._planes_setup(ROWS)[1]
+    dist.barrier()
+    rep["K3 alone ms"] = fit_ms(torch, lambda: fm_chain.fm_chain_step_planes(
+        *args, warm=warm, nd=mesh.n_local))
+    # the live source: 2 checked batches, then MESH_TIMED timed ones
+    fm_chain.fm_chain_gen_warm_step.launches = 0
+    fm_chain.fm_chain_gen_step.launches = 0
+    lst = src.init_state_sharded(ROWS, N_AUD, mesh, "t")
+    params = src.param_leaves(mesh.device)
+    auds = []
+    for b in range(2):
+        lst, o = src.work_sharded(lst, {}, params, N_AUD, mesh, "t")
+        auds.append(o["out"].cpu().numpy())
+    np.save(f"{out}/live_{r}.npy", np.concatenate(auds))
+    rep["K6 checked"] = fm_chain.fm_chain_gen_warm_step.launches
+    lbox = [lst]
+
+    def live():
+        lbox[0] = src.work_sharded(lbox[0], {}, params, N_AUD, mesh, "t")[0]
+
+    dist.barrier()
+    rep["live ms"] = fit_ms(torch, live)
+    rep["K6"] = fm_chain.fm_chain_gen_warm_step.launches
+    rep["K5"] = fm_chain.fm_chain_gen_step.launches
+    dist.barrier()
+    mesh.close()
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+def phase_process_mesh(torch, fm_chain, card: str) -> dict:
+    """63. The reference's two-process global mesh (tests/test_multihost.py)
+    on the card: MESH_RANKS child processes (``--rank``), joined over gloo
+    by ``make_process_mesh`` at a file in a temporary directory, both on
+    the one H100, each running config #2 at full width on its own 4 of
+    MESH_SHARDS time shards: the fused replay (one K3 launch a batch a
+    rank, warm > 0, its halo over the ring through pinned host memory) and
+    the live source (one K6 launch a batch a rank, no exchange). Checks:
+    each path's assembled audio over 2 batches bit-equal to the
+    one-process 8-shard step and to the unsharded step (K3; K5 for live),
+    finite; each child built no kernel and launched K3 and K6 once a
+    batch. Prints each rank's ms a batch (two ranks sharing one card, not
+    a two-card figure), the exchange apart, and the one-process 8-shard
+    steps timed the same way here afterwards. Returns the children's
+    launches and the times."""
+    import os
+    import tempfile
+
+    from newsched_tpu_torch.parallel import make_mesh
+    from newsched_tpu_torch.testing import assemble_ranks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        kids = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             str(MESH_RANKS), f"file://{tmp}/group", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+            for r in range(MESH_RANKS)]
+        outs = []
+        try:
+            for k in kids:
+                outs.append(k.communicate(timeout=CHILD_S))
+        finally:
+            for k in kids:
+                if k.poll() is None:
+                    k.kill()
+                    k.communicate(timeout=60)
+        for r, (k, (out, err)) in enumerate(zip(kids, outs)):
+            require(k.returncode == 0, f"phase 63: rank {r} failed "
+                    f"({k.returncode}):\n{err[-3000:]}")
+        reps = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        got = {p: assemble_ranks([np.load(f"{tmp}/{p}_{r}.npy")
+                                  for r in range(MESH_RANKS)], 2)
+               for p in ("fused", "live")}
+    rows = mesh_rows()
+    want: dict = {}
+    for n in (MESH_SHARDS, 1):
+        mesh = make_mesh(n)
+        ch, src = mesh_paths(mesh)
+        st = ch.init_state_planes(ROWS)
+        lst = (src.init_state_sharded(ROWS, N_AUD, mesh, "t") if n > 1
+               else src.init_state(ROWS, N_AUD, "cuda"))
+        params = src.param_leaves("cuda")
+        fused, live = [], []
+        for b in range(2):
+            aud, st = ch.step_planes(
+                torch.from_numpy(rows[b * ROWS:(b + 1) * ROWS]).cuda(), st)
+            fused.append(aud.cpu().numpy())
+            lst, o = (src.work_sharded(lst, {}, params, N_AUD, mesh, "t")
+                      if n > 1 else src.work(lst, {}, params, N_AUD))
+            live.append(o["out"].cpu().numpy())
+        want[n] = {"fused": np.concatenate(fused), "live": np.concatenate(live)}
+    same = {f"{p} vs {n}": bool(np.array_equal(got[p], want[n][p]))
+            for p in ("fused", "live") for n in (MESH_SHARDS, 1)}
+    finite = all(bool(np.isfinite(g).all()) for g in got.values())
+    # the one-process 8-shard steps, timed as the ranks time theirs
+    mesh8 = make_mesh(MESH_SHARDS)
+    ch, src = mesh_paths(mesh8)
+    vb = torch.from_numpy(rows[:ROWS]).cuda()
+    box = [ch.init_state_planes(ROWS),
+           src.init_state_sharded(ROWS, N_AUD, mesh8, "t")]
+    params = src.param_leaves("cuda")
+
+    def fused8():
+        box[0] = ch.step_planes(vb, box[0])[1]
+
+    def live8():
+        box[1] = src.work_sharded(box[1], {}, params, N_AUD, mesh8, "t")[0]
+
+    args = (vb, box[0].carry[:box[0].carry.shape[0] // MESH_SHARDS],
+            box[0].prev, box[0].tail, ch._dev_consts("cuda")[1], DECIM,
+            DEMOD_GAIN)
+    warm = ch._planes_setup(ROWS)[1]
+    one = {"fused ms": fit_ms(torch, fused8), "live ms": fit_ms(torch, live8),
+           "K3 ms": fit_ms(torch, lambda: fm_chain.fm_chain_step_planes(
+               *args, warm=warm, nd=MESH_SHARDS))}
+    for rep in reps:
+        log(f"process mesh rank {rep['rank']} of {MESH_RANKS} on "
+            f"{rep['device']} (4 of {MESH_SHARDS} shards, {ROWS // MESH_RANKS} "
+            f"rows a batch; two ranks sharing one card, not a two-card "
+            f"figure): fused replay {rep['fused ms']:.4f} ms a batch, live "
+            f"{rep['live ms']:.4f} ms a batch (CUDA events, batches "
+            f"{MESH_FIT}-{MESH_TIMED}); the exchange of {rep['halo bytes']} "
+            f"B apart: D2H {rep['exchange ms']['D2H']:.4f} ms, gloo "
+            f"{rep['exchange ms']['gloo']:.4f} ms, H2D "
+            f"{rep['exchange ms']['H2D']:.4f} ms; its K3 launch alone, "
+            f"both ranks at once, {rep['K3 alone ms']:.4f} ms; launches K3 "
+            f"{rep['K3 checked']} checked, {rep['K3']} in all, K6 "
+            f"{rep['K6 checked']} checked, {rep['K6']} in all, K5 "
+            f"{rep['K5']}; compiled: {rep['compiled']} [{card}]")
+    log(f"one process, {MESH_SHARDS} shards, the same batches: fused "
+        f"{one['fused ms']:.4f} ms a batch, live {one['live ms']:.4f} ms a "
+        f"batch, its K3 launch alone {one['K3 ms']:.4f} ms [{card}]")
+    log(f"process mesh, {MESH_RANKS} ranks x {MESH_SHARDS // MESH_RANKS} "
+        f"shards, 2 batches assembled in time order: {same}, finite: {finite}")
+    require(all(same.values()) and finite,
+            f"phase 63: the process mesh's audio differs: {same}")
+    for rep in reps:
+        require(not rep["compiled"], f"phase 63: rank {rep['rank']} built "
+                f"kernels")
+        require(rep["K3 checked"] == 2 and rep["K3"] == MESH_TIMED + 2
+                and rep["K6 checked"] == 2 and rep["K6"] == MESH_TIMED + 2
+                and rep["K5"] == 0,
+                f"phase 63: rank {rep['rank']}: K3/K6 not once a batch: {rep}")
+    return {"K3": sum(r["K3"] for r in reps), "K6": sum(r["K6"] for r in reps),
+            "ranks": reps, "one process": one}
+
+
 def late_phases(which: list) -> int:
     """``chip_smoke.py --phases 59-62``: the build, then phases 59-62
     alone (the partitions, the examples and the long audio FIR), each
     checked as in the whole run; prints their numbers as one JSON line and
-    no result line. The only group it takes is 59-62."""
-    if which != ["59-62"]:
-        print("chip_smoke.py: --phases takes 59-62", file=sys.stderr)
+    no result line. ``--phases 63``: the build and the process mesh alone,
+    the same way. It takes those two groups."""
+    if which not in (["59-62"], ["63"]):
+        print("chip_smoke.py: --phases takes 59-62 or 63", file=sys.stderr)
         return 2
     from newsched_tpu_torch.ops.cuda import (_build, fm_chain, noise, sources,
                                              wbfm_chain)
@@ -5302,6 +5586,12 @@ def late_phases(which: list) -> int:
     t0 = time.monotonic()
     _build.build()
     log(f"build: {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
+    if which == ["63"]:
+        t63 = time.monotonic()
+        pm = phase_process_mesh(torch, fm_chain, card)
+        log(f"phase 63: {time.monotonic() - t63:.1f} s")
+        print(json.dumps({"process_mesh": pm, "card": card}), flush=True)
+        return 0
     t59 = time.monotonic()
     part = phase_partitioned(torch, fm_chain, noise, card)
     radio = phase_retune(torch, sources, wbfm_chain, card)
@@ -5964,9 +6254,12 @@ def main() -> int:
     phase_examples()
     t62 = time.monotonic()
     phase_long_audio_fir(torch, fm_chain, noise)
-    log(f"phases 59-62: {time.monotonic() - t59:.1f} s (59 {t60 - t59:.1f}, "
-        f"60 {t61 - t60:.1f}, 61 {t62 - t61:.1f}, 62 "
-        f"{time.monotonic() - t62:.1f})")
+    t63 = time.monotonic()
+    # 63. the reference's two-process global mesh, both ranks on the card
+    pm = phase_process_mesh(torch, fm_chain, card)
+    log(f"phases 59-63: {time.monotonic() - t59:.1f} s (59 {t60 - t59:.1f}, "
+        f"60 {t61 - t60:.1f}, 61 {t62 - t61:.1f}, 62 {t63 - t62:.1f}, 63 "
+        f"{time.monotonic() - t63:.1f})")
     for kid in ("S1", "S2"):
         ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
                                        main_loops["plain"][kid])
@@ -6023,7 +6316,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fm_chain_step_planes", "K3", "fm_chain.cu", "fm_chain.py:421",
               launches["fm_chain"] + k3_warm_launches + ff["launches"]["K3"]
-              + tcp_launches + part["K3"], k3_err),
+              + tcp_launches + part["K3"] + pm["K3"], k3_err),
         entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
               launches["noise"] + part["K4"], k4_err),
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
@@ -6049,7 +6342,7 @@ def main() -> int:
         entry("fm_chain_step_planes[pipelined]", "K3p", "fm_chain.cu",
               "fm_chain.py:315", k3p["launches"], k3p["err"]),
         entry("fm_chain_gen_warm_step", "K6", "fm_chain.cu", "fm_chain.py:724",
-              k6_launches, k6_err),
+              k6_launches + pm["K6"], k6_err),
         entry("window_copy", "window_copy", "probes.cu", "bench/exp_dma.py:93",
               pt["launches"]["window_copy"], probe_err["window_copy"]),
         entry("planes_unpack", "planes_unpack", "probes.cu",
@@ -6107,6 +6400,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--radio"]:
         sys.exit(radio_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--phases"]:
         sys.exit(late_phases(sys.argv[2:]))
     sys.exit(main())

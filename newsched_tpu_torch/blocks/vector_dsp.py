@@ -336,7 +336,10 @@ class fm_noise_channelizer_source(_fused_chain):
     # collectives, and the only state is the 64-bit group counter. One K6
     # launch (fm_chain_gen_warm_step with nd shards) takes every shard: the
     # kernel adds each shard's offset to the counter it reads from the
-    # card and writes the shards' audio in order.
+    # card and writes the shards' audio in order. On a process mesh rank r
+    # launches K6 over its own n_local shards, offset by the r n_local
+    # shards before them (goff), and emits their audio; the counter still
+    # advances by the global batch.
 
     def _sharded_geometry(self, n_rows_tot: int, n_dev: int):
         """(rows a shard, the reference's tile and warm) for batches of
@@ -378,9 +381,9 @@ class fm_noise_channelizer_source(_fused_chain):
     def work_sharded(self, state, ins, params, nout, mesh, axis):
         from newsched_tpu_torch.parallel.channelizer import kernel_tile
 
-        nd = mesh.shape[axis]
+        nd = mesh.local(axis)
         n_rows_tot = int(nout) * self.audio_decim
-        n_loc, tile, warm = self._sharded_geometry(n_rows_tot, nd)
+        n_loc, tile, warm = self._sharded_geometry(n_rows_tot, mesh.shape[axis])
         G = noise.GROUP_ROWS
         kt = kernel_tile(tile, int(np.lcm(G, self.audio_decim)),
                          max(self.h8, len(self.audio_taps) - 1))
@@ -388,6 +391,7 @@ class fm_noise_channelizer_source(_fused_chain):
         consts = self.consts(amp.device)
         aud = fm_chain.fm_chain_gen_warm_step(
             state["group"], amp, consts, self.audio_decim, self.gain, n_loc,
-            warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws, nd=nd)
+            warm=warm, tile=kt, seed=self.seed, draws=self.noise_draws,
+            goff=mesh.rank * nd * (n_loc // G), nd=nd)
         return ({"group": noise.advance(state["group"], n_rows_tot // G)},
                 {"out": aud})

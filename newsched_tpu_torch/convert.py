@@ -30,6 +30,13 @@ position as int64, the form the kernel takes). The reference
 noise sources' threefry ``key`` state has no counterpart (its bits are
 jax's key chaining) and raises.
 
+On a process mesh (``parallel.make_process_mesh``) a rank takes what the
+reference's process holds: ``process_state_from_jax`` keeps the rank's
+own blocks of a sharded carry (``PlanesFMState``'s and
+``ShardedFirState``'s), from the addressable shards of a global
+``jax.Array`` or from a whole host array, and the replicated fields
+whole.
+
 Parameters map the same way: every leaf becomes a tensor of its own
 dtype, and the reference's host-number parameters (``dphase`` as uint32,
 ``center_freq`` as float64; ``dtype=None`` in the port) become the
@@ -110,6 +117,56 @@ def state_from_jax(state: Any, device) -> Any:
         elif k != "glo":
             out[k] = _tensor(v, device)
     return out
+
+
+# the fields a process mesh shards along their first axis, by state type
+_PROCESS_SHARDED = {"PlanesFMState": ("carry",), "ShardedFirState": ("carry",)}
+
+
+def _process_rows(v, mesh, sharded: bool) -> np.ndarray:
+    """A leaf as this rank holds it: rows [r n, (r+1) n), n = len / world,
+    of a sharded field, else the whole value. A global ``jax.Array`` gives
+    them from its addressable shards, which is all a process of the
+    reference's mesh may read."""
+    if hasattr(v, "addressable_shards"):
+        shards = sorted(v.addressable_shards,
+                        key=lambda sh: sh.index[0].start or 0 if sh.index else 0)
+        if not sharded:
+            return np.asarray(shards[0].data)
+        v_rows = int(v.shape[0])
+    else:
+        v = np.asarray(v)
+        if not sharded:
+            return v
+        v_rows = v.shape[0]
+    if v_rows % mesh.world:
+        raise ValueError(f"{v_rows} rows do not split over {mesh.world} ranks")
+    n = v_rows // mesh.world
+    lo = mesh.rank * n
+    if isinstance(v, np.ndarray):
+        return v[lo:lo + n]
+    parts = {sh.index[0].start or 0: np.asarray(sh.data) for sh in shards
+             if lo <= (sh.index[0].start or 0) < lo + n}
+    out = np.concatenate([parts[k] for k in sorted(parts)])
+    if out.shape[0] != n:
+        raise ValueError(f"rank {mesh.rank} addresses {out.shape[0]} of its "
+                         f"{n} rows")
+    return out
+
+
+def process_state_from_jax(state: Any, mesh, device=None) -> Any:
+    """A reference sharded state (``PlanesFMState`` or
+    ``ShardedFirState``: global ``jax.Array`` leaves, or host arrays of
+    the global state) -> this rank's port state on ``device`` (the mesh's
+    by default): its own shards' carry blocks and the replicated fields."""
+    name = type(state).__name__
+    if name not in _PROCESS_SHARDED:
+        raise NotImplementedError(
+            f"state of type {name} has no process-mesh form")
+    local = type(state)(*(_process_rows(getattr(state, f), mesh,
+                                        f in _PROCESS_SHARDED[name])
+                          for f in state._fields))
+    return state_from_jax(local, mesh.device if device is None else device)
 
 
 def states_from_jax(states: dict, device) -> dict:

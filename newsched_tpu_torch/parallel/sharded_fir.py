@@ -12,7 +12,10 @@ as offset * 1 // decim exactly as in the unsharded filter.
 The shards are the port's logical shards (parallel/mesh.py), all on the
 mesh's device: shard i's segment is a view of the batch, its halo a view
 of shard i-1's segment, and the carry keeps the reference's layout, one
-block of ntaps-1 samples per shard.
+block of ntaps-1 samples per shard. On a process mesh each rank passes
+its own stretch of the batch, holds the carry blocks of its own shards
+and gets its own output; its first shard's halo comes over
+``time_halo``'s ring from rank r-1.
 """
 
 from __future__ import annotations
@@ -28,19 +31,21 @@ from newsched_tpu_torch.runtime import tags as tags_mod
 
 
 class ShardedFirState(NamedTuple):
-    carry: torch.Tensor  # (n_dev * (ntaps-1),) input tail carry, per shard
+    carry: torch.Tensor  # (shards * (ntaps-1),) input tail carry, per shard
 
 
 class ShardedFirFilter:
     """step(x, tags, state) -> (y, tags', state): x (B,) the whole batch,
-    cut into ``mesh.shape[axis]`` time shards; tags a TagBatch or None;
-    y (B/decim,)."""
+    cut into ``mesh.shape[axis]`` time shards (on a process mesh the
+    rank's stretch, its ``mesh.local(axis)`` shards); tags a TagBatch or
+    None; y (B/decim,)."""
 
     def __init__(self, mesh, taps: np.ndarray, decim: int = 1,
                  method: str = "fft", axis: str = "t"):
         self.mesh = mesh
         self.axis = axis
         self.n_dev = mesh.shape[axis]
+        self.n_local = mesh.local(axis)  # the shards this process holds
         self.taps = np.asarray(taps)
         self.ntaps = len(self.taps)
         self.decim = int(decim)
@@ -49,7 +54,7 @@ class ShardedFirFilter:
 
     def init_state(self) -> ShardedFirState:
         return ShardedFirState(carry=torch.zeros(
-            (self.n_dev * (self.ntaps - 1),), dtype=torch.complex64,
+            (self.n_local * (self.ntaps - 1),), dtype=torch.complex64,
             device=self.mesh.device))
 
     def min_batch(self) -> int:
@@ -60,8 +65,8 @@ class ShardedFirFilter:
 
     def step(self, x: torch.Tensor, tags, state: ShardedFirState):
         B = int(x.shape[0])
-        seg = B // self.n_dev
-        if B % (self.n_dev * self.decim) != 0:
+        seg = B // self.n_local
+        if B % (self.n_local * self.decim) != 0:
             raise ValueError(f"batch {B} must divide by n_dev*decim")
         if seg < self.ntaps - 1:
             raise ValueError(
@@ -73,10 +78,11 @@ class ShardedFirFilter:
                 self.method, x.is_complex())
         dt = self._dev_taps[key]
         H = self.ntaps - 1
-        segs = list(x.chunk(self.n_dev))
-        carries = list(state.carry.chunk(self.n_dev)) if H else [x[:0]] * self.n_dev
+        n = self.n_local
+        segs = list(x.chunk(n))
+        carries = list(state.carry.chunk(n)) if H else [x[:0]] * n
         if H:
-            halos, new_carries = time_halo(segs, carries)
+            halos, new_carries = time_halo(segs, carries, self.mesh)
         else:
             halos, new_carries = carries, carries
         ys = [fir_ops.fir_filter(self.taps, fir_ops.FirState(tail=h), s,

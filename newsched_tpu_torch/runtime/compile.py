@@ -168,6 +168,11 @@ def compile_flowgraph(g: Graph, batch_size: int | None = None,
     rates = _propagate_rates(g, order)
     shard_n = 1
     if mesh is not None:
+        if mesh.world > 1:
+            raise NotImplementedError(
+                "a flowgraph on a process mesh is not ported (ROADMAP Queue "
+                "1, item 11): step a block's work_sharded, or the sharded "
+                "channelizer's step_planes, on each rank instead")
         time_axis = time_axis or mesh.axis_names[0]
         shard_n = mesh.shape[time_axis]
     # Grouping constraints the rate fraction alone cannot carry

@@ -99,6 +99,15 @@ def fir_golden(n: int, taps, freq: float, fs: float) -> np.ndarray:
     return sig.lfilter(np.asarray(taps, np.float64), 1.0, x)
 
 
+def assemble_ranks(parts, n_batches: int) -> np.ndarray:
+    """The output of a process mesh in time order: ``parts[r]`` is rank
+    r's output over ``n_batches`` batches, its own rows of each batch one
+    after the other; batch by batch, the ranks' rows in rank order (as
+    the reference's tests/test_multihost.py interleaves them)."""
+    per = [np.split(np.asarray(p), n_batches) for p in parts]
+    return np.concatenate([p[b] for b in range(n_batches) for p in per])
+
+
 def snr_db(ref, test) -> float:
     """10*log10(mean|ref|^2 / mean|ref-test|^2), real or complex; inf when
     equal."""
