@@ -372,11 +372,17 @@ Phases (each failure raises, so the script exits nonzero):
      build) joined over gloo by parallel.make_process_mesh, both on the
      one card, each running config #2 at full width on its 4 of 8 time
      shards: the fused replay (K3 at warm > 0, its halo over the ring
-     through pinned host memory) and the live source (K6 at its group
-     offset); 2 batches of each path assembled in time order bit-equal
-     to the one-process 8-shard and the unsharded steps, K3 and K6 once
-     a batch a rank, then each rank's ms a batch over 64 batches, the
-     exchange apart and the one-process 8-shard steps' times.
+     through pinned host memory), the live source (K6 at its group
+     offset) and the complex-sample step (K1 a shard, the corner turn in
+     one all_to_all_single, the rank's 32 channels returned), and the
+     sharded hooks of config #1 fused (K10, its junction over the ring,
+     its carry broadcast from the last rank) and live (K12) and config #0
+     live (K9); 2 batches of each path bit-equal to the rank's part of the
+     one-process 8-shard run (fused and live also of the unsharded step),
+     the complex step also >= 60 dB against the float64 golden, K3, K6,
+     K10, K12 and K9 once a batch a rank and K1 once a shard, then each
+     rank's ms a batch over 64 batches, the ring and the corner turn's
+     copies and gloo apart, and the one-process 8-shard steps' times.
 
 ``python3 chip_smoke.py --phases 59-62`` builds the kernels and runs
 phases 59-62 alone, checked as in the whole run, and prints their
@@ -5296,15 +5302,53 @@ MESH_TIMED = 64            # timed batches a path and rank
 MESH_FIT = 16              # the batch the two-point fit's first event follows
 
 
+def mesh_signal() -> np.ndarray:
+    """Phase 63's two checked batches of config #2: a seeded complex noise
+    band, made alike in every process."""
+    rng = np.random.default_rng(63)
+    return ((rng.standard_normal(2 * BATCH) + 1j * rng.standard_normal(2 * BATCH))
+            * 0.5).astype(np.complex64)
+
+
 def mesh_rows() -> np.ndarray:
-    """Phase 63's two checked batches: config #2's planes rows of a seeded
-    complex noise band, made alike in every process."""
+    """``mesh_signal``'s planes rows."""
     from newsched_tpu_torch.testing import planes_rows
 
-    rng = np.random.default_rng(63)
-    x = ((rng.standard_normal(2 * BATCH) + 1j * rng.standard_normal(2 * BATCH))
-         * 0.5).astype(np.complex64)
-    return planes_rows(x, M)
+    return planes_rows(mesh_signal(), M)
+
+
+def mesh_hooks() -> dict:
+    """Phase 63's sharded block hooks at full width, as the models build
+    them: {kernel: (block, the global batch's output items, its two input
+    batches or None)}: config #1's fused receiver (K10) on the fixed-point
+    tone, its live source (K12), config #0's live FIR (K9)."""
+    from newsched_tpu_torch.ops import nco
+    from newsched_tpu_torch.testing import fxpt_tone
+
+    x = fxpt_tone(2 * WB_BATCH, nco.freq_to_dphase(WB_TONE, WB_FS)).astype(
+        np.complex64).reshape(2, WB_BATCH)
+    return {"K10": (wb_graph("fused", 2)[1]["fused"], WB_BATCH // (WB_D * WB_RD),
+                    x),
+            "K12": (wb_graph("live", 2)[1]["source"],
+                    WB_BATCH // (WB_D * WB_RD), None),
+            "K9": (fir_graph("live", 2 * FIR_BATCH)[1]["src"], FIR_BATCH, None)}
+
+
+def hook_kernels() -> dict:
+    """The wrappers whose counts phase 63's hooks read."""
+    from newsched_tpu_torch.ops.cuda import fir_source, wbfm_chain
+
+    return {"K10": wbfm_chain.wbfm_chain_step,
+            "K12": wbfm_chain.wbfm_chain_live_step,
+            "K9": fir_source.fir_tone_step}
+
+
+def hook_inputs(torch, xb, lo: int, hi: int) -> list:
+    """A hook's two batches of input on the card, samples [lo, hi) of each
+    (the rank's segment), or no input."""
+    if xb is None:
+        return [{}, {}]
+    return [{"in": torch.from_numpy(v[lo:hi]).cuda()} for v in xb]
 
 
 def mesh_paths(mesh):
@@ -5337,44 +5381,71 @@ def fit_ms(torch, step, n: int = MESH_TIMED, k: int = MESH_FIT) -> float:
     return ev[0].elapsed_time(ev[1]) / (n - k)
 
 
-def exchange_ms(torch, mesh, tail, reps: int = MESH_TIMED) -> dict:
-    """The ring exchange of ``tail`` taken apart, the median of ``reps``:
-    the copy into the pinned buffer (CUDA events), gloo's send/receive pair
-    (the host's clock) and the copy back to the card (CUDA events)."""
-    from newsched_tpu_torch.parallel import halo
-
+def exchange_ms(torch, real, out, swap, back, reps: int = MESH_TIMED) -> dict:
+    """An exchange of the real tensor ``real`` taken apart, the median of
+    ``reps``: ``out`` (the copies into the pinned send buffer, CUDA
+    events), ``swap`` (gloo, the host's clock) and ``back`` (the copies to
+    the card, CUDA events); and the bytes sent."""
     parts: dict = {"D2H": [], "gloo": [], "H2D": []}
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        send, recv, done = halo.stage_out(tail, mesh)
+        send, recv = out(real)
         ev[1].record()
         ev[1].synchronize()
         t0 = time.perf_counter()
-        halo.ring_swap(send, recv, done, mesh)
+        swap(send, recv, real)
         parts["gloo"].append((time.perf_counter() - t0) * 1e3)
         ev[2].record()
-        halo.stage_in(recv, tail)
+        back(recv, real)
         ev[3].record()
         ev[3].synchronize()
         parts["D2H"].append(ev[0].elapsed_time(ev[1]))
         parts["H2D"].append(ev[2].elapsed_time(ev[3]))
-    return {k: float(np.median(v)) for k, v in parts.items()}
+    return {**{k: float(np.median(v)) for k, v in parts.items()},
+            "bytes": send.numel() * send.element_size()}
+
+
+def ring_ms(torch, mesh, tail) -> dict:
+    """The ring exchange of ``tail`` (``time_halo``'s) taken apart."""
+    from newsched_tpu_torch.parallel import halo
+
+    return exchange_ms(torch, tail, lambda t: halo.stage_out(t, mesh),
+                       lambda s, v, t: halo.ring_swap(s, v, t, mesh),
+                       halo.stage_in)
+
+
+def corner_ms(torch, mesh) -> dict:
+    """The complex step's corner turn taken apart at its full-width shape
+    (each local shard's 4096 rows x 64 channels of cf32 in 8 pieces): the
+    copies of the other rank's pieces into the pinned buffer, gloo's
+    all_to_all_single, the copies back and of the rank's own pieces."""
+    from newsched_tpu_torch.parallel import halo
+
+    n = mesh.n_local
+    real = torch.randn((mesh.world, n, n, BATCH // MESH_SHARDS // M,
+                        M // MESH_SHARDS, 2), device=mesh.device)
+    return exchange_ms(torch, real, lambda t: halo.corner_out(t, mesh),
+                       lambda s, v, t: halo.corner_swap(s, v, t, mesh),
+                       lambda v, t: halo.corner_in(v, t, mesh))
 
 
 def mesh_rank(rank: str, world: str, init: str, out: str) -> int:
     """Phase 63's rank (``chip_smoke.py --rank R WORLD INIT DIR``): joins
     the process mesh of MESH_SHARDS shards over gloo at ``init``, on the
     card, and runs config #2's fused replay (K3 at warm > 0, its halo over
-    the ring) and live source (K6 at its rank's group offset) on its own
-    shards: 2 checked batches each, their audio saved to ``out``, then
-    MESH_TIMED timed batches (``fit_ms``) and the exchange apart. Loads
-    the kernels the parent built and builds none. Prints one JSON line:
-    whether it compiled, its K3 and K6 launches a path, its times."""
+    the ring), live source (K6 at its rank's group offset) and
+    complex-sample step (K1 a shard, the corner turn), and the hooks of
+    ``mesh_hooks`` (K10, K12, K9) on its own shards: 2 checked batches
+    each, their output saved to ``out``, then MESH_TIMED timed batches
+    (``fit_ms``) and the exchanges apart. Loads the kernels the parent
+    built and builds none. Prints one JSON line: whether it compiled, its
+    launches a path, its times."""
     import torch
     import torch.distributed as dist
 
     from newsched_tpu_torch.ops.cuda import _build, fm_chain
+    from newsched_tpu_torch.ops.cuda.channelizer import arm_fold_dft
     from newsched_tpu_torch.parallel import make_process_mesh
 
     if not torch.cuda.is_available():
@@ -5408,8 +5479,7 @@ def mesh_rank(rank: str, world: str, init: str, out: str) -> int:
     rep["fused ms"] = fit_ms(torch, fused)
     rep["K3"] = fm_chain.fm_chain_step_planes.launches
     hr = int(st.carry.shape[0]) // mesh.n_local
-    rep["halo bytes"] = hr * 2 * M * 4
-    rep["exchange ms"] = exchange_ms(torch, mesh, mine[0][-hr:])
+    rep["exchange ms"] = ring_ms(torch, mesh, mine[0][-hr:])
     # the rank's K3 launch alone, no exchange, both ranks at once (after
     # the count: a timing, not the path)
     args = (mine[0], st.carry[:hr], st.prev, st.tail,
@@ -5438,6 +5508,54 @@ def mesh_rank(rank: str, world: str, init: str, out: str) -> int:
     rep["live ms"] = fit_ms(torch, live)
     rep["K6"] = fm_chain.fm_chain_gen_warm_step.launches
     rep["K5"] = fm_chain.fm_chain_gen_step.launches
+    # the complex-sample step: 2 checked batches, then MESH_TIMED timed
+    half = BATCH // world
+    x = mesh_signal()
+    xs = [torch.from_numpy(x[b * BATCH + r * half:b * BATCH + (r + 1) * half]
+                           ).cuda() for b in range(2)]
+    arm_fold_dft.launches = 0
+    cst = ch.init_state()
+    auds = []
+    for b in range(2):
+        aud, cst = ch.step(xs[b], cst)
+        auds.append(aud.cpu().numpy())
+    np.save(f"{out}/complex_{r}.npy", np.concatenate(auds))
+    rep["K1 checked"] = arm_fold_dft.launches
+    cbox = [cst]
+
+    def complex_step():
+        cbox[0] = ch.step(xs[0], cbox[0])[1]
+
+    dist.barrier()
+    rep["complex ms"] = fit_ms(torch, complex_step)
+    rep["K1"] = arm_fold_dft.launches
+    dist.barrier()
+    rep["corner turn"] = corner_ms(torch, mesh)
+    # the hooks: 2 checked batches each, then MESH_TIMED timed
+    counters = hook_kernels()
+    for kid, (blk, nout, xb) in mesh_hooks().items():
+        loc = 0 if xb is None else xb.shape[1] // world
+        ins = hook_inputs(torch, xb, r * loc, (r + 1) * loc)
+        params = blk.param_leaves(mesh.device)
+        counters[kid].launches = 0
+        hst = blk.init_state_sharded(0, nout, mesh, "t")
+        outs = []
+        for b in range(2):
+            hst, o = blk.work_sharded(hst, ins[b], params, nout, mesh, "t")
+            outs.append(o["out"].cpu().numpy())
+        np.save(f"{out}/{kid}_{r}.npy", np.concatenate(outs))
+        if kid == "K10":
+            np.save(f"{out}/K10_carry_{r}.npy", hst["carry"].cpu().numpy())
+        rep[f"{kid} checked"] = counters[kid].launches
+        hbox = [hst]
+
+        def hook(blk=blk, ins=ins, params=params, nout=nout, hbox=hbox):
+            hbox[0] = blk.work_sharded(hbox[0], ins[0], params, nout, mesh,
+                                       "t")[0]
+
+        dist.barrier()
+        rep[f"{kid} ms"] = fit_ms(torch, hook)
+        rep[kid] = counters[kid].launches
     dist.barrier()
     mesh.close()
     print(json.dumps(rep), flush=True)
@@ -5448,24 +5566,29 @@ def phase_process_mesh(torch, fm_chain, card: str) -> dict:
     """63. The reference's two-process global mesh (tests/test_multihost.py)
     on the card: MESH_RANKS child processes (``--rank``), joined over gloo
     by ``make_process_mesh`` at a file in a temporary directory, both on
-    the one H100, each running config #2 at full width on its own 4 of
-    MESH_SHARDS time shards: the fused replay (one K3 launch a batch a
-    rank, warm > 0, its halo over the ring through pinned host memory) and
-    the live source (one K6 launch a batch a rank, no exchange). Checks:
-    each path's assembled audio over 2 batches bit-equal to the
-    one-process 8-shard step and to the unsharded step (K3; K5 for live),
-    finite; each child built no kernel and launched K3 and K6 once a
-    batch. Prints each rank's ms a batch (two ranks sharing one card, not
-    a two-card figure), the exchange apart, and the one-process 8-shard
-    steps timed the same way here afterwards. Returns the children's
-    launches and the times."""
+    the one H100, each running at full width on its own 4 of MESH_SHARDS
+    time shards: config #2's fused replay (one K3 launch a batch a rank,
+    warm > 0, its halo over the ring through pinned host memory), live
+    source (one K6 launch a batch a rank, no exchange) and complex-sample
+    step (K1 a shard, the corner turn, the rank's channel block), and the
+    hooks of config #1 fused (K10) and live (K12) and config #0 live (K9).
+    Checks: each rank's output over 2 batches bit-equal to its part of the
+    one-process 8-shard run (fused and live assembled, also to the
+    unsharded step: K3; K5 for live), finite; the complex step >= 60 dB
+    against the float64 golden; K10's carry the same on both ranks and
+    the one-process run's; each child built no kernel and launched K3,
+    K6, K10, K12 and K9 once a batch and K1 once a shard. Prints each
+    rank's ms a batch (two ranks sharing one card, not a two-card figure),
+    the exchanges apart, and the one-process 8-shard steps timed the same
+    way here afterwards. Returns the children's launches and the times."""
     import os
     import tempfile
 
     from newsched_tpu_torch.parallel import make_mesh
-    from newsched_tpu_torch.testing import assemble_ranks
+    from newsched_tpu_torch.testing import assemble_channels, assemble_ranks
 
     here = os.path.dirname(os.path.abspath(__file__))
+    hooks = ("K10", "K12", "K9")
     with tempfile.TemporaryDirectory() as tmp:
         kids = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--rank", str(r),
@@ -5485,10 +5608,15 @@ def phase_process_mesh(torch, fm_chain, card: str) -> dict:
             require(k.returncode == 0, f"phase 63: rank {r} failed "
                     f"({k.returncode}):\n{err[-3000:]}")
         reps = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
-        got = {p: assemble_ranks([np.load(f"{tmp}/{p}_{r}.npy")
-                                  for r in range(MESH_RANKS)], 2)
-               for p in ("fused", "live")}
-    rows = mesh_rows()
+
+        def load(p):
+            return [np.load(f"{tmp}/{p}_{r}.npy") for r in range(MESH_RANKS)]
+
+        got = {p: assemble_ranks(load(p), 2) for p in ("fused", "live")}
+        got["complex"] = assemble_channels(load("complex"))
+        ranks = {kid: load(kid) for kid in hooks}
+        carries = load("K10_carry")
+    rows, x = mesh_rows(), mesh_signal()
     want: dict = {}
     for n in (MESH_SHARDS, 1):
         mesh = make_mesh(n)
@@ -5508,13 +5636,39 @@ def phase_process_mesh(torch, fm_chain, card: str) -> dict:
         want[n] = {"fused": np.concatenate(fused), "live": np.concatenate(live)}
     same = {f"{p} vs {n}": bool(np.array_equal(got[p], want[n][p]))
             for p in ("fused", "live") for n in (MESH_SHARDS, 1)}
-    finite = all(bool(np.isfinite(g).all()) for g in got.values())
-    # the one-process 8-shard steps, timed as the ranks time theirs
+    # the complex step and the hooks on the one-process 8-shard mesh
     mesh8 = make_mesh(MESH_SHARDS)
     ch, src = mesh_paths(mesh8)
+    xs = [torch.from_numpy(x[b * BATCH:(b + 1) * BATCH]).cuda() for b in range(2)]
+    cst, one_c = ch.init_state(), []
+    for b in range(2):
+        aud, cst = ch.step(xs[b], cst)
+        one_c.append(aud.cpu().numpy())
+    same[f"complex vs {MESH_SHARDS}"] = bool(np.array_equal(
+        got["complex"], np.concatenate(one_c)))
+    snr_c = gate(rows, got["complex"], "process mesh, complex step, 2 ranks",
+                 "mesh", STAGED_GATE_DB)
+    hook_steps = {}
+    for kid, (blk, nout, xb) in mesh_hooks().items():
+        ins = hook_inputs(torch, xb, 0, None)
+        params = blk.param_leaves("cuda")
+        hst, one = blk.init_state_sharded(0, nout, mesh8, "t"), []
+        for b in range(2):
+            hst, o = blk.work_sharded(hst, ins[b], params, nout, mesh8, "t")
+            one.append(np.split(o["out"].cpu().numpy(), MESH_RANKS))
+        same[f"{kid} vs {MESH_SHARDS}"] = all(
+            np.array_equal(ranks[kid][r], np.concatenate([o[r] for o in one]))
+            for r in range(MESH_RANKS))
+        if kid == "K10":
+            same["K10 carry"] = all(np.array_equal(c, hst["carry"].cpu().numpy())
+                                    for c in carries)
+        hook_steps[kid] = (blk, ins[0], params, nout, [hst])
+    finite = all(bool(np.isfinite(g).all()) for g in
+                 [*got.values(), *(a for v in ranks.values() for a in v)])
+    # the one-process 8-shard steps, timed as the ranks time theirs
     vb = torch.from_numpy(rows[:ROWS]).cuda()
     box = [ch.init_state_planes(ROWS),
-           src.init_state_sharded(ROWS, N_AUD, mesh8, "t")]
+           src.init_state_sharded(ROWS, N_AUD, mesh8, "t"), ch.init_state()]
     params = src.param_leaves("cuda")
 
     def fused8():
@@ -5523,43 +5677,69 @@ def phase_process_mesh(torch, fm_chain, card: str) -> dict:
     def live8():
         box[1] = src.work_sharded(box[1], {}, params, N_AUD, mesh8, "t")[0]
 
+    def complex8():
+        box[2] = ch.step(xs[0], box[2])[1]
+
     args = (vb, box[0].carry[:box[0].carry.shape[0] // MESH_SHARDS],
             box[0].prev, box[0].tail, ch._dev_consts("cuda")[1], DECIM,
             DEMOD_GAIN)
     warm = ch._planes_setup(ROWS)[1]
     one = {"fused ms": fit_ms(torch, fused8), "live ms": fit_ms(torch, live8),
            "K3 ms": fit_ms(torch, lambda: fm_chain.fm_chain_step_planes(
-               *args, warm=warm, nd=MESH_SHARDS))}
+               *args, warm=warm, nd=MESH_SHARDS)),
+           "complex ms": fit_ms(torch, complex8)}
+    for kid, (blk, ins, hp, nout, hbox) in hook_steps.items():
+        def hook(blk=blk, ins=ins, hp=hp, nout=nout, hbox=hbox):
+            hbox[0] = blk.work_sharded(hbox[0], ins, hp, nout, mesh8, "t")[0]
+
+        one[f"{kid} ms"] = fit_ms(torch, hook)
     for rep in reps:
+        ct, ex = rep["corner turn"], rep["exchange ms"]
         log(f"process mesh rank {rep['rank']} of {MESH_RANKS} on "
             f"{rep['device']} (4 of {MESH_SHARDS} shards, {ROWS // MESH_RANKS} "
             f"rows a batch; two ranks sharing one card, not a two-card "
             f"figure): fused replay {rep['fused ms']:.4f} ms a batch, live "
             f"{rep['live ms']:.4f} ms a batch (CUDA events, batches "
-            f"{MESH_FIT}-{MESH_TIMED}); the exchange of {rep['halo bytes']} "
-            f"B apart: D2H {rep['exchange ms']['D2H']:.4f} ms, gloo "
-            f"{rep['exchange ms']['gloo']:.4f} ms, H2D "
-            f"{rep['exchange ms']['H2D']:.4f} ms; its K3 launch alone, "
+            f"{MESH_FIT}-{MESH_TIMED}); the exchange of {ex['bytes']} B "
+            f"apart: D2H {ex['D2H']:.4f} ms, gloo {ex['gloo']:.4f} ms, H2D "
+            f"{ex['H2D']:.4f} ms; its K3 launch alone, "
             f"both ranks at once, {rep['K3 alone ms']:.4f} ms; launches K3 "
             f"{rep['K3 checked']} checked, {rep['K3']} in all, K6 "
             f"{rep['K6 checked']} checked, {rep['K6']} in all, K5 "
             f"{rep['K5']}; compiled: {rep['compiled']} [{card}]")
+        log(f"process mesh rank {rep['rank']}: complex step "
+            f"{rep['complex ms']:.4f} ms a batch ({BATCH // MESH_RANKS} "
+            f"samples, {M // MESH_RANKS} channels out); its corner turn "
+            f"apart, {ct['bytes']} B sent and as many received: D2H "
+            f"{ct['D2H']:.4f} ms, gloo {ct['gloo']:.4f} ms, H2D "
+            f"{ct['H2D']:.4f} ms; hooks K10 {rep['K10 ms']:.4f}, K12 "
+            f"{rep['K12 ms']:.4f}, K9 {rep['K9 ms']:.4f} ms a batch; "
+            f"launches K1 {rep['K1 checked']} checked, {rep['K1']} in all, "
+            + ", ".join(f"{k} {rep[k + ' checked']} checked, {rep[k]} in all"
+                        for k in hooks) + f" [{card}]")
     log(f"one process, {MESH_SHARDS} shards, the same batches: fused "
         f"{one['fused ms']:.4f} ms a batch, live {one['live ms']:.4f} ms a "
-        f"batch, its K3 launch alone {one['K3 ms']:.4f} ms [{card}]")
+        f"batch, its K3 launch alone {one['K3 ms']:.4f} ms, complex step "
+        f"{one['complex ms']:.4f} ms, hooks K10 {one['K10 ms']:.4f}, K12 "
+        f"{one['K12 ms']:.4f}, K9 {one['K9 ms']:.4f} ms [{card}]")
     log(f"process mesh, {MESH_RANKS} ranks x {MESH_SHARDS // MESH_RANKS} "
-        f"shards, 2 batches assembled in time order: {same}, finite: {finite}")
+        f"shards, 2 batches, each rank's part: {same}, finite: {finite}; "
+        f"complex step {snr_c:.2f} dB against the float64 golden")
     require(all(same.values()) and finite,
-            f"phase 63: the process mesh's audio differs: {same}")
+            f"phase 63: the process mesh's output differs: {same}")
+    n_loc = MESH_SHARDS // MESH_RANKS
     for rep in reps:
         require(not rep["compiled"], f"phase 63: rank {rep['rank']} built "
                 f"kernels")
-        require(rep["K3 checked"] == 2 and rep["K3"] == MESH_TIMED + 2
-                and rep["K6 checked"] == 2 and rep["K6"] == MESH_TIMED + 2
-                and rep["K5"] == 0,
-                f"phase 63: rank {rep['rank']}: K3/K6 not once a batch: {rep}")
-    return {"K3": sum(r["K3"] for r in reps), "K6": sum(r["K6"] for r in reps),
-            "ranks": reps, "one process": one}
+        once = ("K3", "K6", *hooks)
+        require(all(rep[k + " checked"] == 2 and rep[k] == MESH_TIMED + 2
+                    for k in once) and rep["K5"] == 0
+                and rep["K1 checked"] == 2 * n_loc
+                and rep["K1"] == (MESH_TIMED + 2) * n_loc,
+                f"phase 63: rank {rep['rank']}: K3/K6/K10/K12/K9 not once a "
+                f"batch or K1 not once a shard: {rep}")
+    return {**{k: sum(r[k] for r in reps) for k in ("K3", "K6", "K1", *hooks)},
+            "ranks": reps, "one process": one, "complex dB": snr_c}
 
 
 def late_phases(which: list) -> int:
@@ -6320,7 +6500,7 @@ def main() -> int:
         entry("gaussian_rows", "K4", "noise.cu", "noise.py:176",
               launches["noise"] + part["K4"], k4_err),
         entry("arm_fold_dft", "K1", "channelizer.cu", "channelizer.py:209",
-              staged["arm_fold_dft"] + ff["launches"]["K1"],
+              staged["arm_fold_dft"] + ff["launches"]["K1"] + pm["K1"],
               fold_err["arm_fold_dft"]),
         entry("arm_fold", "K7", "channelizer.cu", "channelizer.py:95",
               dec_launches + k1w["launches"]["K7"], fold_err["arm_fold"]),
@@ -6334,11 +6514,13 @@ def main() -> int:
               wl["folded"]["K11"], nco_err["K11"]),
         entry("wbfm_chain_step", "K10", "wbfm_chain.cu", "wbfm_chain.py:364",
               wl["fused"]["K10"] + wl["folded"]["K10"] + sharded["K10"]
-              + radio["K10"], k10_err),
+              + radio["K10"] + pm["K10"], k10_err),
         entry("wbfm_chain_live_step", "K12", "wbfm_chain.cu",
-              "wbfm_chain.py:452", wl["live"]["K12"] + sharded["K12"], k12_err),
+              "wbfm_chain.py:452", wl["live"]["K12"] + sharded["K12"]
+              + pm["K12"], k12_err),
         entry("fir_tone_step", "K9", "fir_source.cu", "fir_source.py:89",
-              fir["launches"]["live"]["K9"] + sharded["K9"], k9_err),
+              fir["launches"]["live"]["K9"] + sharded["K9"] + pm["K9"],
+              k9_err),
         entry("fm_chain_step_planes[pipelined]", "K3p", "fm_chain.cu",
               "fm_chain.py:315", k3p["launches"], k3p["err"]),
         entry("fm_chain_gen_warm_step", "K6", "fm_chain.cu", "fm_chain.py:724",

@@ -17,7 +17,11 @@ stretch of the batch. The live blocks need no collective, since a window
 of theirs is a pure function of the phase counter: the kernel of shard d
 starts at phase ph + dphase * n_loc * d (uint32 arithmetic on the card),
 and only shard 0 of the stream's first batch has samples before the
-stream.
+stream. On a process mesh (parallel/mesh.py ``make_process_mesh``) a
+rank runs its own n_local shards, global shards [r n_local, (r+1)
+n_local), and returns their output, its part of the reference's
+``P(axis)`` output; a stream position still advances by the global
+batch.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from newsched_tpu_torch.ops import agc as agc_ops, analog as analog_ops, \
     firdes, iir as iir_ops, nco
 from newsched_tpu_torch.ops.cuda import (fir_source, fm_chain, noise, sources,
                                          wbfm_chain)
+from newsched_tpu_torch.parallel.halo import broadcast, time_halo
 from newsched_tpu_torch.runtime.block import Block
 from newsched_tpu_torch.utils.dtypes import port_dtype
 
@@ -370,17 +375,26 @@ class wbfm_rcv_fused(_wbfm_chain_block):
         """Each time shard's segment folded on its own (one op for all),
         then K10 over every shard in one launch: shard d's junction is the
         B8 boundary rows of its left neighbour's fold (shard 0: the carry),
-        and the new carry the last shard's."""
+        and the new carry the last shard's. On a process mesh ``in`` is
+        the rank's own segment, its n_local shards: the junction of rank
+        r > 0's first shard is rank r-1's last B8 fold rows (``time_halo``'s
+        ring), rank 0's the carry, and the new carry the last rank's last
+        B8 rows on every rank (``broadcast``, the reference's ``psum``)."""
         if self.input_format == "folded":
             raise NotImplementedError(
                 "wbfm_rcv_fused(input_format='folded') has per-batch fold "
                 "semantics and does not shard; use input_format='cf32' "
                 "under fg.run(mesh=...)")
-        nd = mesh.shape[axis]
+        nd = mesh.local(axis)
         x = ins["in"]
+        xp = wbfm_chain.fold_planes(x, nd)
+        junction = (state["carry"] if mesh.world == 1 else
+                    time_halo([xp], [state["carry"]], mesh)[0][0])
         aud, carry = wbfm_chain.wbfm_chain_step(
-            wbfm_chain.fold_planes(x, nd), state["carry"], self.plan,
-            self.consts(x.device), tile=self.tile, nd=nd)
+            xp, junction, self.plan, self.consts(x.device), tile=self.tile,
+            nd=nd)
+        if mesh.world > 1:
+            carry = broadcast(carry, mesh.world - 1, mesh)
         # the reference's psum of the last shard's boundary rows, the one
         # contributor
         return {"carry": carry}, {"out": wbfm_chain.unfold_audio(aud, nd)}
@@ -484,18 +498,18 @@ class wbfm_live_source(_wbfm_chain_block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K12 over every time shard in one launch, each at its own phase
-        offset (the kernel's shard index, from its grid): zero
-        collectives."""
-        nd = mesh.shape[axis]
+        """K12 over every time shard of this process in one launch, each
+        at its own phase offset (the kernel's shard index, from its grid):
+        zero collectives. ``nout``: the global batch."""
+        n = mesh.local(axis)
         S, D, Rd = wbfm_chain.S, self.plan.D, self.plan.Rd
-        n_loc = int(nout) * D * Rd // nd  # samples a shard
+        n_loc = int(nout) * D * Rd // mesh.shape[axis]  # samples a shard
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
         aud = wbfm_chain.wbfm_chain_live_step(
             ph, dp, a, state["first"], self.plan, self.consts(a.device),
-            n_loc // S, tile=self.tile, nd=nd)
+            n_loc // S, tile=self.tile, shard=mesh.rank * n, nd=n)
         return (_live_advance(state, dp, int(nout) * D * Rd),
-                {"out": wbfm_chain.unfold_audio(aud, nd)})
+                {"out": wbfm_chain.unfold_audio(aud, n)})
 
 
 class fir_tone_source(Block):
@@ -565,17 +579,18 @@ class fir_tone_source(Block):
         return self.init_state(nin, nout, mesh.device)
 
     def work_sharded(self, state, ins, params, nout, mesh, axis):
-        """K9 over every time shard in one launch, each at its own phase
-        offset (the kernel's shard index, from its grid) and with its own
-        transform alignment: zero collectives."""
-        nd = mesh.shape[axis]
-        R_loc = self._fold_rows(int(nout) // nd)
+        """K9 over every time shard of this process in one launch, each at
+        its own phase offset (the kernel's shard index, from its grid) and
+        with its own transform alignment: zero collectives. ``nout``: the
+        global batch."""
+        n = mesh.local(axis)
+        R_loc = self._fold_rows(int(nout) // mesh.shape[axis])
         ph, dp, a = state["phase"], params["dphase"], params["amplitude"]
         out = fir_source.fir_tone_step(
             ph, dp, a, state["first"], self.dev_taps(a.device), self.decim,
-            R_loc, tile=self.tile, nd=nd)
+            R_loc, tile=self.tile, shard=mesh.rank * n, nd=n)
         return (_live_advance(state, dp, int(nout) * self.decim),
-                {"out": fir_source.unfold_complex(out, nd)})
+                {"out": fir_source.unfold_complex(out, n)})
 
 
 def _live_state(device) -> dict:

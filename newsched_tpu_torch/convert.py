@@ -119,8 +119,11 @@ def state_from_jax(state: Any, device) -> Any:
     return out
 
 
-# the fields a process mesh shards along their first axis, by state type
-_PROCESS_SHARDED = {"PlanesFMState": ("carry",), "ShardedFirState": ("carry",)}
+# the fields a process mesh shards along their first axis, by state type:
+# time blocks (carries) and, for the complex-sample step, channels
+_PROCESS_SHARDED = {"PlanesFMState": ("carry",), "ShardedFirState": ("carry",),
+                    "ShardedFMState": ("pfb_carry", "demod_prev",
+                                       "audio_tail")}
 
 
 def _process_rows(v, mesh, sharded: bool) -> np.ndarray:
@@ -155,10 +158,18 @@ def _process_rows(v, mesh, sharded: bool) -> np.ndarray:
 
 
 def process_state_from_jax(state: Any, mesh, device=None) -> Any:
-    """A reference sharded state (``PlanesFMState`` or
-    ``ShardedFirState``: global ``jax.Array`` leaves, or host arrays of
+    """A reference sharded state (``PlanesFMState``, ``ShardedFirState``
+    or ``ShardedFMState``: global ``jax.Array`` leaves, or host arrays of
     the global state) -> this rank's port state on ``device`` (the mesh's
-    by default): its own shards' carry blocks and the replicated fields."""
+    by default): its own shards' carry blocks, its own channels'
+    ``demod_prev`` and ``audio_tail`` rows, and the replicated fields. A
+    block's state dict (the sharded hooks' of ``wbfm_rcv_fused``,
+    ``wbfm_live_source``, ``fir_tone_source``) is replicated: every rank
+    holds all of it."""
+    if isinstance(state, dict):
+        return state_from_jax({k: _process_rows(v, mesh, False)
+                               for k, v in state.items()},
+                              mesh.device if device is None else device)
     name = type(state).__name__
     if name not in _PROCESS_SHARDED:
         raise NotImplementedError(

@@ -16,9 +16,9 @@ A ``ProcessMesh`` (``make_process_mesh``) is the counterpart of
 reference's ``tests/test_multihost.py``): ``world`` processes, joined by a
 ``torch.distributed`` process group over gloo, each owning ``n_local``
 consecutive shards of the global time axis and feeding and holding only
-those. Its ring exchange (parallel/halo.py) moves each rank's last rows
-to the next rank through host memory, so every rank may run on the same
-card. Placing shards on cards of their own (and NCCL between them) is
+those. Its exchanges (parallel/halo.py: the ring of each rank's last
+rows, the channelizer's corner turn, a broadcast) go through host
+memory, so every rank may run on the same card. Placing shards on cards of their own (and NCCL between them) is
 later work (ROADMAP Queue 1, item 11); until then a mesh names the one
 device where its process's shards run and where the graph's stream
 edges and states live.
@@ -104,7 +104,8 @@ class ProcessMesh(Mesh):
     """A 1-D mesh of ``shape[axis]`` global shards over ``world``
     processes of a process group: rank r holds global shards [r n_local,
     (r+1) n_local) on ``device``. ``staging`` keeps the pinned host
-    buffers of the ring exchange, one per tensor shape, made once."""
+    buffers of its exchanges, one set per exchange and tensor shape, made
+    once."""
 
     def __init__(self, device: torch.device, axis_name: str, n_shards: int,
                  rank: int, world: int, group):

@@ -170,9 +170,12 @@ def compile_flowgraph(g: Graph, batch_size: int | None = None,
     if mesh is not None:
         if mesh.world > 1:
             raise NotImplementedError(
-                "a flowgraph on a process mesh is not ported (ROADMAP Queue "
-                "1, item 11): step a block's work_sharded, or the sharded "
-                "channelizer's step_planes, on each rank instead")
+                "a flowgraph on a process mesh is not ported, and the "
+                "reference's fg.run cannot run on a multi-process mesh "
+                "either (its runner fetches sink outputs with "
+                "jax.device_get): step a block's work_sharded, or the "
+                "sharded channelizer's step or step_planes, on each rank "
+                "instead")
         time_axis = time_axis or mesh.axis_names[0]
         shard_n = mesh.shape[time_axis]
     # Grouping constraints the rate fraction alone cannot carry

@@ -108,6 +108,18 @@ def assemble_ranks(parts, n_batches: int) -> np.ndarray:
     return np.concatenate([p[b] for b in range(n_batches) for p in per])
 
 
+def assemble_channels(parts) -> np.ndarray:
+    """The output of a channel-sharded process mesh (the complex-sample
+    channelizer step's, the reference's ``P(None, "t")``): ``parts[r]`` is
+    rank r's channel block, its rows the whole of every batch in time
+    order; the blocks side by side in rank order, row by row, so batch b's
+    rows hold batch b of every rank."""
+    parts = [np.asarray(p) for p in parts]
+    if len({p.shape[0] for p in parts}) != 1:
+        raise ValueError(f"ranks' rows differ: {[p.shape for p in parts]}")
+    return np.concatenate(parts, axis=1)
+
+
 def snr_db(ref, test) -> float:
     """10*log10(mean|ref|^2 / mean|ref-test|^2), real or complex; inf when
     equal."""

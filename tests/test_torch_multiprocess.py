@@ -4,8 +4,10 @@
 time shards of one global mesh, held against the JAX package's
 ``tests/test_multihost.py`` paths (the fused replay, K3 at warm > 0 with
 the ring halo; the live source, K6 with no collectives), against the
-reference's shard_map ``time_halo`` and sharded FIR, and against the
-port's own one-process runs. Each rank is a child process that imports
+reference's shard_map ``time_halo``, ``lax.all_to_all``, complex-sample
+channelizer step (K1 a shard, the corner turn) and sharded FIR, against
+its block hooks (K10, K12, K9) on its 8 simulated devices, and against
+the port's own one-process runs. Each rank is a child process that imports
 only the port; the JAX reference runs in the test's own process. Ranks
 meet at a file under the test's tmp_path, never a fixed port.
 """
@@ -25,6 +27,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from newsched_tpu.blocks import analog as janalog
 from newsched_tpu.ops import firdes as jfirdes
 from newsched_tpu.parallel import ShardedFMChannelizer as JSharded, \
     make_mesh as jmake_mesh
@@ -32,20 +35,26 @@ from newsched_tpu.parallel.halo import time_halo as jtime_halo
 from newsched_tpu.parallel.sharded_fir import ShardedFirFilter as JShardedFir
 
 from newsched_tpu_torch import Flowgraph, convert
-from newsched_tpu_torch.blocks import general as tgen, vector_dsp as tvd
+from newsched_tpu_torch.blocks import analog as tanalog, general as tgen, \
+    vector_dsp as tvd
 from newsched_tpu_torch.ops import firdes
 from newsched_tpu_torch.ops.cuda import fm_chain, noise
+from newsched_tpu_torch.ops.cuda.channelizer import arm_fold_dft
 from newsched_tpu_torch.parallel import ShardedFMChannelizer, \
     ShardedFirFilter, make_mesh, make_process_mesh, planes_rows, time_halo
-from newsched_tpu_torch.parallel.channelizer import PlanesFMState
+from newsched_tpu_torch.parallel.channelizer import PlanesFMState, \
+    ShardedFMState
+from newsched_tpu_torch.parallel.halo import all_to_all
 from newsched_tpu_torch.parallel.mesh import ProcessMesh
-from newsched_tpu_torch.testing import assemble_ranks, rows_reference, snr_db
+from newsched_tpu_torch.testing import assemble_channels, assemble_ranks, \
+    rows_reference, snr_db
 
 try:
     from jax import shard_map
 except ImportError:  # older jax
     from jax.experimental.shard_map import shard_map
 
+HIGHEST = jax.lax.Precision.HIGHEST
 REPO = str(Path(__file__).resolve().parents[1])
 CHILD_S = 120  # each rank's own time limit
 
@@ -56,12 +65,14 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 from newsched_tpu_torch import convert
-from newsched_tpu_torch.blocks import vector_dsp
+from newsched_tpu_torch.blocks import analog, vector_dsp
 from newsched_tpu_torch.ops import firdes
 from newsched_tpu_torch.parallel import (ShardedFMChannelizer,
                                          ShardedFirFilter, make_process_mesh,
                                          planes_rows, time_halo)
-from newsched_tpu_torch.parallel.channelizer import PlanesFMState
+from newsched_tpu_torch.parallel.channelizer import (PlanesFMState,
+                                                     ShardedFMState)
+from newsched_tpu_torch.parallel.halo import all_to_all
 
 case, rank, world, init, out = sys.argv[1:6]
 rank, world = int(rank), int(world)
@@ -148,6 +159,68 @@ if case == "fir":
         ys.append(y.numpy())
     save("fir", np.concatenate(ys))
     save("fcarry", st.carry.numpy())
+
+if case == "complex":
+    M, decim, n_dev = 16, 4, 8
+    mesh = make_process_mesh(n_dev, rank=rank, world=world, init_method=init,
+                             device="cpu", timeout_s=60)
+    ch = ShardedFMChannelizer(mesh, M, firdes.prototype_channelizer_taps(M, 8),
+                              firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=33),
+                              audio_decim=decim, demod_gain=1.1)
+    g = np.load(f"{out}/complex_in.npz")
+    x = g["x"]
+    B = x.shape[0] // 3
+    loc = B // world
+    st = ch.init_state()
+    auds = []
+    for b in range(3):
+        aud, st = ch.step(torch.from_numpy(
+            x[b * B + rank * loc:b * B + (rank + 1) * loc]), st)
+        auds.append(aud.numpy())
+        for f in st._fields:
+            save(f"fm_{f}{b}", getattr(st, f).numpy())
+    save("complex", np.concatenate(auds))
+    # the reference's global state after batch 0, handed to this rank
+    st = convert.process_state_from_jax(ShardedFMState(
+        g["pfb_carry"], g["demod_prev"], g["audio_tail"]), mesh)
+    save("complex_handover", ch.step(torch.from_numpy(
+        x[B + rank * loc:B + (rank + 1) * loc]), st)[0].numpy())
+
+if case.startswith("hook_"):
+    mesh = make_process_mesh(8, rank=rank, world=world, init_method=init,
+                             device="cpu", timeout_s=60)
+    g = np.load(f"{out}/hook_in.npz")
+    kid, nout = case[5:], int(g["nout"])
+    blk = {"K10": lambda: analog.wbfm_rcv_fused(g["chan"], 0.2e6, 1e6,
+                                                resamp_taps=g["rt"]),
+           "K12": lambda: analog.wbfm_live_source(
+               g["chan"], 0.2e6, 1e6, resamp_taps=g["rt"],
+               frequency=0.2123e6),
+           "K9": lambda: analog.fir_tone_source(1.0, g["fir"],
+                                                frequency=0.0123, decim=4),
+           }[kid]()
+    st = blk.init_state_sharded(0, nout, mesh, "t")
+    params = blk.param_leaves("cpu")
+    outs = []
+    for b in range(2):
+        ins = {}
+        if kid == "K10":  # the rank's own segment of the batch
+            loc = g["x"].shape[1] // world
+            ins = {"in": torch.from_numpy(g["x"][b, rank * loc:(rank + 1) * loc])}
+        st, o = blk.work_sharded(st, ins, params, nout, mesh, "t")
+        outs.append(o["out"].numpy())
+    save("hook", np.concatenate(outs))
+    save("hook_state", st["carry" if kid == "K10" else "phase"].numpy())
+
+if case == "a2a":
+    mesh = make_process_mesh(8, rank=rank, world=world, init_method=init,
+                             device="cpu", timeout_s=60)
+    g = np.load(f"{out}/a2a_in.npz")
+    n = mesh.n_local
+    for key, (sa, ca) in (("c", (1, 0)), ("r", (0, 1))):
+        xs = [torch.from_numpy(v) for v in g[key][rank * n:(rank + 1) * n]]
+        got = all_to_all(xs, split_axis=sa, concat_axis=ca, mesh=mesh)
+        save(f"a2a_{key}", torch.stack(got).numpy())
 
 print(f"rank {rank}: {case} ok", flush=True)
 '''
@@ -361,11 +434,194 @@ def test_two_process_sharded_fir_matches_one_process_and_reference(tmp_path):
                                   st.carry.numpy())
 
 
+def _rand_complex(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+
+
+def _rank_rows(a, r, world=2):
+    """Rank r's rows of a global state field sharded on its first axis."""
+    return np.split(np.asarray(a), world)[r]
+
+
+def test_two_process_complex_step_matches_reference(tmp_path):
+    """The complex-sample step on 2 ranks x 4 of 8 shards (time_halo's
+    ring, a PFB a shard, the corner turn in one all_to_all_single, demod
+    and audio FIR a channel shard), 3 batches: each rank's channel block
+    > 100 dB against its columns of the reference's 8-device shard_map
+    step, and the blocks side by side equal to the port's one-process
+    8-shard step bit for bit; each rank's state its part of the
+    one-process state bit for bit and of the reference's within float32
+    rounding; the reference's state after batch 0, handed to each rank by
+    convert.process_state_from_jax, gives batch 1 (> 100 dB)."""
+    M, decim, n_dev = 16, 4, 8
+    taps = jfirdes.prototype_channelizer_taps(M, 8)
+    ataps = jfirdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=33)
+    jm = JSharded(jmake_mesh(n_dev), M, taps, ataps, audio_decim=decim,
+                  demod_gain=1.1)
+    B = jm.batch_multiple() * 4
+    x = _rand_complex(3 * B, 24)
+    stepf, jst = jax.jit(jm.step), jm.init_state()
+    refs, jstates = [], []
+    for b in range(3):
+        aud, jst = stepf(jax.device_put(jnp.asarray(x[b * B:(b + 1) * B]),
+                                        jm.input_sharding()), jst)
+        refs.append(np.asarray(aud))
+        jstates.append(jst)
+        if b == 0:
+            g0 = jax.device_get(jst)
+            np.savez(tmp_path / "complex_in.npz", x=x, **g0._asdict())
+            ps = _spawn(tmp_path, "complex")
+    one = ShardedFMChannelizer(make_mesh(n_dev, device="cpu"), M, taps, ataps,
+                               audio_decim=decim, demod_gain=1.1)
+    ost, single, ostates = one.init_state(), [], []
+    for b in range(3):
+        oa, ost = one.step(torch.from_numpy(x[b * B:(b + 1) * B]), ost)
+        single.append(oa.numpy())
+        ostates.append(ost)
+    for r, (out, rc) in enumerate(_wait(ps)):
+        assert rc == 0, f"rank {r}:\n{out[-3000:]}"
+    parts = _load(tmp_path, "complex")
+    ref = np.concatenate(refs)
+    for r, part in enumerate(parts):
+        assert part.shape == (3 * B // M // decim, M // 2)
+        assert snr_db(ref[:, r * M // 2:(r + 1) * M // 2], part) > 100
+    np.testing.assert_array_equal(assemble_channels(parts),
+                                  np.concatenate(single))
+    for b in range(3):
+        for f in ShardedFMState._fields:
+            for r, got in enumerate(_load(tmp_path, f"fm_{f}{b}")):
+                np.testing.assert_array_equal(
+                    got, _rank_rows(getattr(ostates[b], f).numpy(), r))
+                np.testing.assert_allclose(
+                    got, _rank_rows(getattr(jstates[b], f), r), rtol=1e-4,
+                    atol=1e-4)
+    for r, got in enumerate(_load(tmp_path, "complex_handover")):
+        assert snr_db(refs[1][:, r * M // 2:(r + 1) * M // 2], got) > 100
+        mine = convert.process_state_from_jax(
+            jstates[0], types.SimpleNamespace(rank=r, world=2, device="cpu"))
+        assert isinstance(mine, ShardedFMState)
+        for f in ShardedFMState._fields:
+            np.testing.assert_array_equal(getattr(mine, f).numpy(),
+                                          _rank_rows(getattr(g0, f), r))
+    assert arm_fold_dft.launches == 0
+
+
+WB_CHAN = jfirdes.low_pass(1.0, 1e6, 100e3, 60e3)
+WB_RT = jfirdes.low_pass(1.0, 1.0, 0.09, 0.06)
+WB_BATCH = 163840  # 8 shards of 320 folded rows (the boundary is 208)
+FIR_TAPS = jfirdes.low_pass(1.0, 1.0, 0.2, 0.05, ntaps=33)
+
+
+def _hook_block(pkg, kid):
+    analog = janalog if pkg == "jax" else tanalog
+    kw = dict(interpret=True, precision=HIGHEST) if pkg == "jax" else {}
+    if kid == "K10":
+        return analog.wbfm_rcv_fused(WB_CHAN, 0.2e6, 1e6, resamp_taps=WB_RT,
+                                     **kw), WB_BATCH // 20
+    if kid == "K12":
+        return analog.wbfm_live_source(WB_CHAN, 0.2e6, 1e6, resamp_taps=WB_RT,
+                                       frequency=0.2123e6, **kw), WB_BATCH // 20
+    return analog.fir_tone_source(1.0, FIR_TAPS, frequency=0.0123, decim=4,
+                                  **kw), 8192
+
+
+def _fm_signal(n):
+    t = np.arange(n) / 1e6
+    return np.exp(2j * np.pi * (0.21e6 * t + 3.0 * np.sin(2 * np.pi * 1e3 * t))
+                  ).astype(np.complex64)
+
+
+@pytest.mark.parametrize("kid", ["K10", "K12", "K9"])
+def test_two_process_block_hooks_match_one_process_and_reference(tmp_path,
+                                                                 kid):
+    """The sharded hooks of wbfm_rcv_fused (K10), wbfm_live_source (K12)
+    and fir_tone_source (K9) on 2 ranks x 4 of 8 shards, 2 batches: each
+    rank returns its own shards' output, equal to its part of the port's
+    one-process 8-shard hook bit for bit and > 100 dB against the
+    reference's hook on its 8 simulated devices (interpret mode); K10's
+    junction of rank 1 is rank 0's last fold rows (the ring) and its carry
+    the last rank's on both ranks (the broadcast); the live sources' phase
+    advanced by the global batch on both; the reference's state handed to
+    each rank by convert.process_state_from_jax equal to the port's."""
+    blk, nout = _hook_block("torch", kid)
+    x = _fm_signal(2 * WB_BATCH).reshape(2, WB_BATCH)
+    np.savez(tmp_path / "hook_in.npz", x=x, nout=nout, chan=WB_CHAN, rt=WB_RT,
+             fir=FIR_TAPS)
+    ps = _spawn(tmp_path, f"hook_{kid}")
+    mesh = make_mesh(8, device="cpu")
+    st, params, one = (blk.init_state_sharded(0, nout, mesh, "t"),
+                       blk.param_leaves("cpu"), [])
+    jblk, _ = _hook_block("jax", kid)
+    jmesh = jmake_mesh(8)
+    jst = jblk.init_state_sharded(0, nout, jmesh, "t")
+    jparams = {k: jnp.asarray(v) for k, v in jblk.param_leaves().items()}
+    jstep = jax.jit(lambda s, i: jblk.work_sharded(s, i, jparams, nout,
+                                                   jmesh, "t"))
+    ref = []
+    for b in range(2):
+        ins = {"in": torch.from_numpy(x[b])} if kid == "K10" else {}
+        st, o = blk.work_sharded(st, ins, params, nout, mesh, "t")
+        one.append(o["out"].numpy())
+        jst, jo = jstep(jst, {"in": jnp.asarray(x[b])} if kid == "K10" else {})
+        ref.append(np.asarray(jo["out"]))
+    for r, (out, rc) in enumerate(_wait(ps)):
+        assert rc == 0, f"rank {r}:\n{out[-3000:]}"
+    for r, part in enumerate(_load(tmp_path, "hook")):
+        want = np.concatenate([np.split(o, 2)[r] for o in one])
+        np.testing.assert_array_equal(part, want)
+        got_ref = np.concatenate([np.split(o, 2)[r] for o in ref])
+        assert snr_db(got_ref, part) > 100
+    key = "carry" if kid == "K10" else "phase"
+    for got in _load(tmp_path, "hook_state"):
+        np.testing.assert_array_equal(got, st[key].numpy())
+    for r in range(2):  # the reference's state, replicated, on each rank
+        mine = convert.process_state_from_jax(
+            jst, types.SimpleNamespace(rank=r, world=2, device="cpu"))
+        assert set(mine) == set(st)
+        for k, v in mine.items():
+            np.testing.assert_array_equal(v.numpy(), st[k].numpy())
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_process_all_to_all_matches_one_process_and_reference(tmp_path,
+                                                                  world):
+    """The cross-rank all_to_all on 2 ranks x 4 of 8 shards (and 4 x 2,
+    a rank with ranks on both sides), complex along the channelizer's
+    axes (split 1, concat 0) and real along the others: each rank's
+    shards get what the one-process form over 8 shards and the
+    reference's tiled lax.all_to_all under shard_map give them."""
+    rng = np.random.default_rng(12)
+    xs = {"c": _rand_complex(8 * 6 * 16, 12).reshape(8, 6, 16),
+          "r": rng.standard_normal((8, 16, 5)).astype(np.float32)}
+    np.savez(tmp_path / "a2a_in.npz", **xs)
+    ps = _spawn(tmp_path, "a2a", world)
+    jm = jmake_mesh(8)
+    want = {}
+    for key, (sa, ca) in (("c", (1, 0)), ("r", (0, 1))):
+        one = torch.stack(all_to_all([torch.from_numpy(v) for v in xs[key]],
+                                     split_axis=sa, concat_axis=ca)).numpy()
+        jfn = jax.jit(_smap(
+            lambda a: jax.lax.all_to_all(a, "t", sa, ca, tiled=True), jm,
+            (P("t"),), P("t")))
+        jout = np.asarray(jfn(jnp.asarray(xs[key].reshape(
+            -1, *xs[key].shape[2:]))))
+        np.testing.assert_array_equal(one.reshape(jout.shape), jout)
+        want[key] = one
+    for r, (out, rc) in enumerate(_wait(ps)):
+        assert rc == 0, f"rank {r}:\n{out[-3000:]}"
+    for key, one in want.items():
+        np.testing.assert_array_equal(
+            np.concatenate(_load(tmp_path, f"a2a_{key}", world)), one)
+
+
 def test_process_mesh_refusals(tmp_path):
     """NCCL raises naming the ROADMAP item; a world that does not divide
     the shards raises; a rank whose peer never starts raises within its
-    3 s timeout; a flowgraph and the complex-sample step on a process mesh
-    raise rather than run on one process's shards."""
+    3 s timeout; a flowgraph on a process mesh raises rather than run on
+    one process's shards; the complex-sample step's state is the rank's
+    part."""
     with pytest.raises(NotImplementedError, match="item 11"):
         make_process_mesh(8, rank=0, world=2, backend="nccl",
                           init_method=f"file://{tmp_path}/g", device="cpu")
@@ -386,5 +642,6 @@ def test_process_mesh_refusals(tmp_path):
     ch = ShardedFMChannelizer(mesh, 16, firdes.prototype_channelizer_taps(16, 8),
                               firdes.low_pass(1.0, 1.0, 0.1, 0.05, ntaps=33),
                               audio_decim=4)
-    with pytest.raises(NotImplementedError, match="corner turn"):
-        ch.init_state()
+    st = ch.init_state()  # the rank's 2 carry blocks and 8 channels
+    assert st.pfb_carry.shape == (2 * 127,) and st.demod_prev.shape == (8,)
+    assert st.audio_tail.shape == (8, 32)
