@@ -2732,8 +2732,11 @@ INSTANCE_M = (192, 576, 640, 704, 768, 832, 896, 960)  # every other P =
 # 2 .. 16 (phase 41's instance check): each factor of the radix-P passes
 WIDE_ROWS = 16384           # planes rows a batch at those widths
 K1_WIDE_M = (320, 384, 448, 512, 960, 1024)  # K1 past 256 channels, timed
-STREAM_M = (320, 384, 448, 512, 1024)  # the chains' widths past 256, timed
-# (phase 43): chain_tile_stream to 448, chain_tile_wide past it
+CHAIN_TIMED_M = (256, 320, 384, 448, 512, 1024)  # the chains' widths timed
+# beside their bounds (phase 43; chain_tile_wide at each), config #4's 256
+# channels among them
+HANDOFF_M = (256, 512, 1024)  # phase 41b: the junction handoff over
+HANDOFF_WAVES = 4             # at least this many waves of the card's blocks
 STAGED_M = (320, 512, 1024)  # phase 49's staged graphs
 ROUTE_M = tuple(range(512, 1025, 64))  # K1 checked against K7 + cuFFT's
 ROUTE_TIMED = (512, 576, 704, 896, 1024)  # combine, and timed beside it
@@ -3031,6 +3034,137 @@ def phase_chain_instances(torch, fm_chain, noise) -> float:
     return worst
 
 
+def handoff_rows(torch, fm_chain, m: int) -> tuple:
+    """Rows of a batch whose tiles (the default 128 rows) fill the card at
+    least HANDOFF_WAVES times over at m channels, a multiple of 4 tiles:
+    the blocks an SM can hold by the wide block's threads and shared
+    memory (its registers can only hold fewer), times the SMs. Returns
+    (rows, tiles, blocks resident at once)."""
+    W = 2 * m
+    smem = fm_chain._chain_smem(128, A, L, 1, DECIM, W)
+    per_sm = max(1, min(2048 // fm_chain.wide_threads(m // 64),
+                        fm_chain._SM_SMEM // (smem + 1024)))
+    resident = torch.cuda.get_device_properties(0).multi_processor_count \
+        * per_sm
+    tiles = -(-HANDOFF_WAVES * resident // 4) * 4
+    return tiles * 128, tiles, resident
+
+
+def phase_wide_handoff(torch, fm_chain, noise) -> dict:
+    """41b. chain_tile_wide's junction handoff (a block the launch's
+    junction, a block a tile, each taking its junction from the segment
+    before through device memory) at HANDOFF_M over batches of at least
+    HANDOFF_WAVES waves of the blocks the card holds at once: K3 on one
+    batch of seeded rows bit-equal to the same rows as 4 carried batches;
+    K5 from stream start bit-equal to K4 * amp -> K3 on its rows; K6 over
+    the batch's 4 shards in one launch bit-equal to K5; each one launch a
+    call, counted. At M = 512: K3, K5 and K6 captured in one CUDA graph and
+    replayed twice, each replay (its outputs cleared first) bit-equal to
+    the eager calls (each launch zeroes its own flags); K3 at warm > 0 over
+    the 4 shards of a batch in one launch bit-equal to the 4 per-shard
+    calls. Returns the launch counts."""
+    z = dict(dtype=torch.float32, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    g0 = noise.group_tensor(0, "cuda")
+    counted = {"K3": 0, "K5": 0, "K6": 0}
+    fns = {"K3": fm_chain.fm_chain_step_planes, "K5": fm_chain.fm_chain_gen_step,
+           "K6": fm_chain.fm_chain_gen_warm_step}
+
+    def zero(W):
+        return (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+                torch.zeros(A - 1, W, **z))
+
+    for m in HANDOFF_M:
+        consts, W = wide_consts(m), 2 * m
+        n, tiles, resident = handoff_rows(torch, fm_chain, m)
+        g = torch.Generator(device="cuda").manual_seed(m + 25)
+        rows = torch.randn(n, W, device="cuda", generator=g) * 0.5
+        before = {k: f.launches for k, f in fns.items()}
+        whole = fm_chain.fm_chain_step_planes(rows, *zero(W), consts, DECIM,
+                                              DEMOD_GAIN)
+        (halo, prev, tail), parts, q = zero(W), [], n // 4
+        for b in range(4):
+            vb = rows[b * q:(b + 1) * q]
+            aud, prev, tail = fm_chain.fm_chain_step_planes(
+                vb, halo, prev, tail, consts, DECIM, DEMOD_GAIN)
+            parts.append(aud)
+            halo = vb[-16:].contiguous()
+        k3_ok = all(torch.equal(a, b) for a, b in
+                    zip(whole, (torch.cat(parts), prev, tail)))
+        del rows, parts
+        k5 = fm_chain.fm_chain_gen_step(g0, amp, *zero(W), consts, DECIM,
+                                        DEMOD_GAIN, n)
+        nrows = noise.gaussian_rows(g0, n_rows=n, width=W, seed=0,
+                                    device="cuda", amp=amp)
+        k4k3 = fm_chain.fm_chain_step_planes(nrows, *zero(W), consts, DECIM,
+                                             DEMOD_GAIN)
+        k5_ok = all(torch.equal(a, b) for a, b in zip(k5[:3], k4k3)) \
+            and torch.equal(k5[3], nrows[-16:])
+        del nrows, k4k3
+        k6 = fm_chain.fm_chain_gen_warm_step(g0, amp, consts, DECIM,
+                                             DEMOD_GAIN, q, warm=K6_WARM, nd=4)
+        k6_ok = torch.equal(k6, k5[0])
+        got = {k: f.launches - before[k] for k, f in fns.items()}
+        log(f"handoff at M={m}: {n} rows, {tiles} tiles + the junction's "
+            f"block, {tiles / resident:.2f} waves of the {resident} blocks "
+            f"the card holds at once: K3 one batch bit-equal to 4 carried "
+            f"batches: {k3_ok}; K5 bit-equal to K4 * amp -> K3: {k5_ok}; K6 "
+            f"over 4 shards bit-equal to K5: {k6_ok}; launches {got}")
+        require(k3_ok and k5_ok and k6_ok and tiles >= HANDOFF_WAVES * resident
+                and got == {"K3": 6, "K5": 1, "K6": 1},
+                f"the handoff at M={m}: K3 {k3_ok}, K5 {k5_ok}, K6 {k6_ok}, "
+                f"launches {got}")
+        for k in counted:
+            counted[k] += got[k]
+    # a captured graph replayed twice, and K3 at warm > 0 over 4 shards
+    m, n = 512, WIDE_ROWS
+    consts, W = wide_consts(m), 2 * m
+    g = torch.Generator(device="cuda").manual_seed(m + 26)
+    full = torch.randn(K6_WARM + 16 + n, W, device="cuda", generator=g) * 0.5
+    vb, halo = full[K6_WARM + 16:], full[:K6_WARM + 16]
+    st = zero(W)
+
+    def calls():
+        return (*fm_chain.fm_chain_step_planes(vb, *st, consts, DECIM,
+                                               DEMOD_GAIN),
+                *fm_chain.fm_chain_gen_step(g0, amp, *st, consts, DECIM,
+                                            DEMOD_GAIN, n),
+                fm_chain.fm_chain_gen_warm_step(g0, amp, consts, DECIM,
+                                                DEMOD_GAIN, n // 4,
+                                                warm=K6_WARM, nd=4))
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    replays = []
+    for _ in range(2):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(all(torch.equal(a, b) for a, b in zip(out, eager)))
+    zp, zt = st[1], st[2]
+    one = fm_chain.fm_chain_step_planes(vb, halo, zp, zt, consts, DECIM,
+                                        DEMOD_GAIN, warm=K6_WARM, nd=4)[0]
+    q = n // 4
+    per = torch.cat([fm_chain.fm_chain_step_planes(
+        vb[d * q:(d + 1) * q], full[d * q:d * q + K6_WARM + 16], zp, zt,
+        consts, DECIM, DEMOD_GAIN, warm=K6_WARM)[0] for d in range(4)])
+    warm_ok = torch.equal(one, per)
+    log(f"M={m}: K3, K5 and K6 captured in one graph, two replays bit-equal "
+        f"to the eager calls: {replays}; K3 at warm > 0 over 4 shards in one "
+        f"launch bit-equal to the 4 per-shard calls: {warm_ok}")
+    require(all(replays) and warm_ok, f"M={m}: graph replays {replays}, K3 "
+            f"at warm > 0 over 4 shards {warm_ok}")
+    return counted
+
+
 def wide_graph(m: int, source, n_batches: int | None, batch: int, **kw):
     from newsched_tpu_torch import models
 
@@ -3165,9 +3299,9 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
     for kid in ("K3w", "K5w", "K6w", "K1w"):
         log(f"{kid} at M={m}: kernel {t[kid]} ms, plain {t[kid + ' plain']} "
             f"ms [{card}]")
-    # past 256 channels (chain_tile_stream): K6 as the sharded live graph
+    # past 128 channels (chain_tile_wide): K6 as the sharded live graph
     # launches it, over the 4 shards of a batch in one grid
-    for mw in STREAM_M:
+    for mw in CHAIN_TIMED_M:
         cw, Ww = wide_consts(mw), 2 * mw
         gw = torch.Generator(device="cuda").manual_seed(mw)
         vw = torch.randn(n, Ww, device="cuda", generator=gw) * 0.5
@@ -3192,10 +3326,9 @@ def phase_wide_times(torch, fm_chain, channelizer, fir_source, noise,
         smem = fm_chain._chain_smem(tile, A, L, 1, DECIM, Ww)
         for kid in ("K3", "K5", "K6"):
             key = f"{kid} M={mw}"
-            b_ms, by = chain_bounds(mw, n, n, nd=4)[kid]
-            routine = "chain_tile_stream" if mw <= 448 else "chain_tile_wide"
+            b_ms, by = chain_bounds(mw, n, n)[kid]
             log(f"{key} ({n} x {Ww} rows{', 4 shards, one launch' if kid == 'K6' else ''}"
-                f"; {routine}, tile {tile}, {smem} B shared): kernel "
+                f"; chain_tile_wide, tile {tile}, {smem} B shared): kernel "
                 f"{tw[key]} ms, plain {tw[key + ' plain']} ms; bound "
                 f"{b_ms:.4f} ms ({by}), {100 * b_ms / ms[key]:.1f}% of it "
                 f"[{card}]")
@@ -5192,7 +5325,7 @@ def phase_examples() -> dict:
 
 
 DEFAULT_A = 193            # the model's own audio FIR at 100 MS/s, 64 channels
-LONG_FIR_M = (64, 128, 512)  # chain_tile, chain_tile_stream, chain_tile_wide
+LONG_FIR_M = (64, 128, 512)  # chain_tile, chain_tile_wide at P = 2 and 8
 LONG_FIR_ROWS = 4096       # planes rows a batch of phase 62's kernel checks
 LONG_FIR_BATCHES = 4       # batches of phase 62's model runs
 
@@ -5820,10 +5953,11 @@ def fir_fft_ops(ntaps: int) -> float:
                for N in (1 << k for k in range(8, 20)) if N > 2 * ntaps)
 
 
-def chain_bounds(m: int, n: int, n6: int, nd: int = 1) -> dict:
-    """(bound ms, bound_by) of K3, K5, K6 (at n6 rows, over nd shards, each
-    generating the A + L - 1 rows before it) and K1 at m channels and n
-    rows, as kernel_bounds counts them at the flagship's."""
+def chain_bounds(m: int, n: int, n6: int) -> dict:
+    """(bound ms, bound_by) of K3, K5, K6 (at n6 rows, its shards one
+    stream, so the A + L - 1 rows before its first generated once) and K1
+    at m channels and n rows, as kernel_bounds counts them at the
+    flagship's."""
     f4, W = 4, 2 * m
     fold = 2 * L * n * W
     fft = 5 * m * np.log2(m) * n
@@ -5832,7 +5966,7 @@ def chain_bounds(m: int, n: int, n6: int, nd: int = 1) -> dict:
     chain_out = ((n // DECIM) * m + (A - 1) * W + W) * f4
     r6 = n6 / n
     k6_ops = (fold + fft + demod + audio) * r6 \
-        + PHILOX_OPS * (n6 + nd * (A + L - 1)) * W
+        + PHILOX_OPS * (n6 + A + L - 1) * W
     return {
         "K3": bound((n + L) * W * f4 + chain_out, fold + fft + demod + audio),
         "K5": bound(chain_out, fold + fft + demod + audio + PHILOX_OPS * n * W),
@@ -5912,9 +6046,9 @@ def int_floors() -> dict:
            "K6": philox(ROWS + 4 * (A + L - 1), W),
            "K5w": philox(WIDE_ROWS, 2 * WIDE_M[0]),
            "K6w": philox(WIDE_ROWS // 4 + A + L - 1, 2 * WIDE_M[0])}
-    for mw in STREAM_M:
+    for mw in CHAIN_TIMED_M:
         out[f"K5 M={mw}"] = philox(WIDE_ROWS, 2 * mw)
-        out[f"K6 M={mw}"] = philox(WIDE_ROWS + 4 * (A + L - 1), 2 * mw)
+        out[f"K6 M={mw}"] = philox(WIDE_ROWS + A + L - 1, 2 * mw)
     return out
 
 
@@ -6373,13 +6507,15 @@ def main() -> int:
     wide_err = phase_wide_kernels(torch, fm_chain, noise)
     wide_err["K3"] = max(wide_err["K3"],
                          phase_chain_instances(torch, fm_chain, noise))
+    t41b = time.monotonic()
+    phase_wide_handoff(torch, fm_chain, noise)
     t42 = time.monotonic()
     wide = phase_wide_graphs(torch, fm_chain, noise, channelizer)
     t43 = time.monotonic()
     ms.update(phase_wide_times(torch, fm_chain, channelizer, fir_source,
                                noise, card))
     log(f"phases 40-43: {time.monotonic() - t40:.1f} s (40 {t41 - t40:.1f}, "
-        f"41 {t42 - t41:.1f}, 42 {t43 - t42:.1f}, 43 "
+        f"41 {t41b - t41:.1f}, 41b {t42 - t41b:.1f}, 42 {t43 - t42:.1f}, 43 "
         f"{time.monotonic() - t43:.1f})")
 
     # 44-49. config #3's engines, graph and sharded FIR; config #1
@@ -6466,8 +6602,8 @@ def main() -> int:
     bounds.update(k1w["bound"])  # K1 past 448 channels, DENSE_ROWS rows
     bounds.update(main_loops["bounds"])  # at the QPSK link's shapes
     bounds["S3"] = vt["bound"]  # a batch of the FEC link
-    for mw in STREAM_M:  # phase 43's shapes: 16384 rows, K6 over 4 shards
-        cb = chain_bounds(mw, WIDE_ROWS, WIDE_ROWS, nd=4)
+    for mw in CHAIN_TIMED_M:  # phase 43's shapes: 16384 rows, K6 over 4 shards
+        cb = chain_bounds(mw, WIDE_ROWS, WIDE_ROWS)
         bounds.update({f"{kid} M={mw}": cb[kid] for kid in ("K3", "K5", "K6")})
     bounds.update(vr["bound"])  # each route at its link's batch
     ms.update(vr["t"])
@@ -6550,10 +6686,10 @@ def main() -> int:
         *[entry(f"arm_fold_dft[M={m}]", f"K1 M={m}", "channelizer.cu",
                 "channelizer.py:209", k1w["launches"][m], fold_err[f"K1 M={m}"])
           for m in K1_WIDE_M if m > 448],
-        # chain_tile_stream past 256 channels (phase 42's graphs)
+        # chain_tile_wide from 256 channels (phase 42's graphs)
         *[entry(f"{name}[M={mw}]", f"{kid} M={mw}", "fm_chain.cu", ref,
                 wide[mw][kind], wide_err[kid])
-          for mw in STREAM_M
+          for mw in CHAIN_TIMED_M
           for name, kid, ref, kind in (
               ("fm_chain_step_planes", "K3", "fm_chain.py:421", "fused"),
               ("fm_chain_gen_step", "K5", "fm_chain.py:591", "live"),

@@ -109,19 +109,14 @@
 // tile buffer keeps acc and Y rows swizzled (planes_fft.cuh sw); the
 // window before the fold and the aud rows after the demod stay natural.
 //
-// The width 2M is a template parameter of the kernels: 128 lanes (M = 64)
-// take chain_tile as above; 256 to 896 (M = 128 .. 448, 64 P for P = 2 ..
-// 7) take chain_tile_stream, which passes 32 rows at a time through a
-// window, from the tile's last rows down, and accumulates the audio FIR's
-// outputs as the demodulated rows stream through, so that shared memory
-// holds one pass and the outputs, not the tile (its header below). 1024 to
-// 2048 lanes (M = 512 .. 1024, P = 8 .. 16) take one instance, the width a
-// run-time value (kW = 0, Chain::w), chain_tile_wide: its 48-row window
-// would not fit (401 KB at M = 1024), so each lane's fold reads its input
-// rows into registers and only the 16 folded rows a pass stay in shared
-// memory (its header below). K3p and the ablation probe are built at 128
-// lanes only. Wider than 1024 channels no kernel is built (the wrappers
-// raise; ROADMAP.md Queue 3, R1).
+// The width 2M: 128 lanes (M = 64) take chain_tile as above, its kernels
+// templated on the audio stage's bands; 256 to 2048 (M = 128 .. 1024, 64 P
+// for P = 2 .. 16) take chain_tile_wide, which streams a block's rows
+// through a pass of 16 and takes its junction from the block before (its
+// header below), one instance a P up to 7 and one for P = 8 .. 16, the
+// width a run-time value (Chain::w). K3p and the ablation probe are built
+// at 128 lanes only. Wider than 1024 channels no kernel is built (the
+// wrappers raise; ROADMAP.md Queue 3, R1).
 //
 // K3ag, the reference's banded audio stage (`_compute_tile` with `ag` > 1,
 // taken by K3, K5 and K6 when `_pick_audio_groups` returns 2 or 4), is
@@ -338,10 +333,11 @@ struct HaloRows {
                      : __ldg(vb + (long long)(i - hrows) * W + k);
   }
   __device__ __forceinline__ float4 load4(int sr, int k) const {
+    const int W = kW ? kW : w;
     const int i = sr + hrows;
     if (i < 0) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* src = i < hrows ? halo + i * kW + k
-                                 : vb + (long long)(i - hrows) * kW + k;
+    const float* src = i < hrows ? halo + i * W + k
+                                 : vb + (long long)(i - hrows) * W + k;
     return __ldg(reinterpret_cast<const float4*>(src));
   }
 };
@@ -364,12 +360,12 @@ __device__ __forceinline__ HaloRows<kW> halo_rows(const float* vb,
 // (s.mask_pre). A time shard d of K6 is the same stream shifted by d n
 // rows (n a multiple of 64), so one base serves every shard. hand/flags:
 // the junction handoff between the tiles of a launch (gen_window_handoff;
-// null: each block generates its whole window). operator() is one element
-// (chain_tile_wide's fold); gen4 is four consecutive lanes of one row from
-// the round keys hoisted out of the loop (gen_rows), the row's group and
-// its masked test once for the four, and their four Philox chains
-// independent, so they are in flight together. Both compute gauss()'s
-// counter, rounds and transform: the same bits.
+// null: each block generates its whole window). gen4 is four consecutive
+// lanes of one row from the round keys hoisted out of the loop (gen_rows,
+// chain_tile_wide's fill_ring), the row's group and its masked test once
+// for the four, and their four Philox chains independent, so they are in
+// flight together. It computes gauss()'s counter, rounds and transform:
+// the same bits.
 template <int kW>
 struct GenRows {
   philox::Stream s;
@@ -379,14 +375,6 @@ struct GenRows {
   int H8, n, w;
   float* hand;
   unsigned* flags;
-
-  __device__ __forceinline__ float operator()(int sr, int k) const {
-    const int W = kW ? kW : w;
-    if (carry0 && sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
-    const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
-    if (carry_out && sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
-    return v;
-  }
 
   __device__ __forceinline__ float4 gen4(int sr, int k,
                                          const philox::Keys& keys) const {
@@ -457,20 +445,17 @@ template <int kW, class Row>
 __device__ __forceinline__ void load_window(float* buf, int sr0, int n,
                                             const Row& row) {
   const int tid = threadIdx.x;
-  if constexpr (std::is_same_v<Row, HaloRows<kW>>) {
-    if (row.vec) {
-      constexpr int W4 = kW / 4;
-      for (int idx = tid; idx < n * W4; idx += kThreads)
-        reinterpret_cast<float4*>(buf)[idx] =
-            row.load4(sr0 + idx / W4, 4 * (idx % W4));
-      return;
-    }
-  } else if constexpr (std::is_same_v<Row, GenRows<kW>>) {
+  if constexpr (std::is_same_v<Row, GenRows<kW>>) {
     gen_rows<kW>(buf, sr0, n, row);
-    return;
+  } else if (row.vec) {
+    constexpr int W4 = kW / 4;
+    for (int idx = tid; idx < n * W4; idx += kThreads)
+      reinterpret_cast<float4*>(buf)[idx] =
+          row.load4(sr0 + idx / W4, 4 * (idx % W4));
+  } else {
+    for (int idx = tid; idx < n * kW; idx += kThreads)
+      buf[idx] = row(sr0 + idx / kW, idx % kW);
   }
-  for (int idx = tid; idx < n * kW; idx += kThreads)
-    buf[idx] = row(sr0 + idx / kW, idx % kW);
 }
 
 // The junction handoff of a generating launch at the flagship's 128
@@ -545,8 +530,7 @@ __device__ __forceinline__ void gen_window_handoff(float* buf, int t0, int J,
 // gain). PR and PI are each one fused multiply-add, the rest rounded on
 // its own: the roundings nvcc chose in every chain kernel before they were
 // written out (left to the compiler, the contraction can differ between
-// tile routines, and chain_tile_stream's would not have kept the bits of
-// the layout it replaced).
+// tile routines, and one routine would not keep another's bits).
 template <int kV>
 __device__ __forceinline__ float demod(float ar, float ai, float yr, float yi,
                                        const Chain& p) {
@@ -752,387 +736,560 @@ __device__ __forceinline__ void chain_tile(float* buf, const Chain& p,
   audio_fir<M, kV, kAG>(buf, W, buf + R * W, p, t0);
 }
 
-// chain_tile_stream's window rows: a pass's 32 + L-1 input rows, of which
-// rows 32 .. 47 (after the fold) also hold the pass's 32 aud rows of M.
-__host__ __device__ __forceinline__ int stream_window_rows(int L) {
-  return kChunkRows + (L - 1 > 16 ? L - 1 : 16);
+// ---- M = 128 .. 1024: chain_tile_wide, the junction handed over ----------
+//
+// Past the flagship's 128 lanes the tile buffer of chain_tile does not fit
+// (its (T + A + L-1) rows of 2M floats take 245,760 bytes at M = 192 and T =
+// 64), so a block streams its rows through a pass of kR rows (wide_rows:
+// 64 at P = 2, 32 to P = 7, 16 past it), from its top pass down, and keeps
+// in shared memory the pass (the folded rows, swizzled; the planes FFT in
+// place), Y of the pass above's first row (yp), its audio outputs'
+// accumulators, the A audio taps and, up to P = 4, the ring of its input
+// rows: 205,060 bytes at M = 1024 and the default tile of 128 rows.
+//
+// The junction is handed over, not rebuilt. A launch's blocks take
+// segments of the stream from a ticket (take_tile): ticket 0 the junction,
+// the A rows before the launch's first (what every block of the rebuilding
+// design folded in front of its tile, here once a launch), ticket 1 + o
+// tile o, its T rows. A block computes its own rows only: it folds, turns
+// into Y and demodulates each of them once. What the block after it needs
+// it publishes in its slot of device memory, in two levels, each raised on
+// the slot's flag after a fence: after its top pass Y of its last row and
+// (K5, K6) its last L-1 input rows (level 1); once its last A-1 aud rows
+// (all of them, short of A-1) are done, those (level 2; at T = 128 after 5
+// of its 8 passes at 16 rows a pass). The block after it waits for level 1
+// before its lowest pass (Y[t0-1] for its first row's demod, the input
+// rows for its fold), and for level 2 of the segments holding rows
+// t0-(A-1) .. t0-1 (one at T >= A-1) only after its own rows, where it
+// feeds those A-1 aud rows to the audio outputs that reach them: their
+// taps come last in each output's sum (out[o] sums k = 0 .. A-1 from the
+// highest row down), so every output is the rebuilding design's sum bit
+// for bit. A block waits only for tickets before its own, which belong to
+// blocks that have started and so are resident or done, in whatever order
+// the card starts them, and no level waits on a later wait of its own
+// block, so no wait chains through the launch, at any tile; a wait past
+// ~0.5 s traps. The slots, flags and rings belong to the one launch: the
+// wrapper allocates them for it on its stream and the launcher zeroes the
+// flags before it (handoff_reset).
+//
+// The fold reads each input row once from memory. Up to P = 4 the block
+// keeps a ring of a pass's rows + L-1 in shared memory (ring_on_chip): K3
+// loads each pass's new rows into it 16 bytes at a time, K5 and K6 make
+// them there four lanes a thread (GenRows.gen4), and each fold group of 16
+// rows reads its 16 + L-1 rows from it. Past P = 4 the ring does not fit
+// beside the pass: K3's fold reads its 16 + L-1 rows a group from [halo;
+// vb] (the L-1 again from L2), and K5 and K6 make their rows once into a
+// ring in device memory and fold from there. The rows below a tile come
+// from the slot before (K5, K6), the junction block's from carry0 (K5) or
+// the stream (K6). So a launch makes its own rows and A + L-1 more, where
+// every rebuilding block made (T + A) (16 + L-1) / 16 for its T.
+//
+// The pass: 1. the fold, each lane's 16-row group's inputs and taps in
+// registers (tile row e = stream row s0 + e, acc 0 before t_min); 2. the
+// planes FFT (fft_row<P> at P <= 4, fft_tile_wide<P> at P = 5 .. 7,
+// fft_tile_rt at P = 8 .. 16, P at run time); 3. each thread takes the
+// positions pos of the row (channel chan(pos), whose Y the FFT left there),
+// so a warp reads 32 consecutive lanes, and walks the pass's rows from its
+// highest down, 16 at a time: the demod of aud[t] from Y[t-1] and Y[t] (the
+// top row's Y[t] the pass above's row 0, kept in yp by position; the lowest
+// row's Y[t-1] the segment before's) into registers, then each audio output
+// within their taps adds them to its accumulator (by position, in shared
+// memory; audio_rows). At P = 2 four groups of M threads demodulate four
+// 16-row chunks at once and add them one group after the other. No thread
+// reads another's positions after the FFT but across those groups, so the
+// demod and the audio stage need no other barrier. Every value is computed
+// by the operations the rebuilding design used, in its order: the outputs
+// do not depend on the tile, the segment that computes a row, or the block
+// that reads it. K3ag's bands change no output bit and take no part here:
+// every thread sums its own outputs.
+constexpr int kWideRows = 16;  // rows a fold group and a demod chunk
+
+// Rows a pass of chain_tile_wide at P = kP (0: P = 8 .. 16, at run time):
+// 64 at P = 2 and 32 up to P = 7, where a block's work a pass is small
+// beside its barriers (fft_row<P> transforms 8 rows a warp); 16 past it,
+// where the pass takes 128 KB of shared memory at M = 1024.
+__host__ __device__ constexpr int wide_rows(int kP) {
+  return kP == 0 ? 16 : kP == 2 ? 64 : 32;
 }
 
-// The fold of one pass at kW > 128 lanes (chain_tile_stream): buffer rows
-// 0 .. 31 of `win` get acc of window rows jj .. jj + L-1 (swizzled; 0 where
-// t_first + jj < t_min or jj >= nrows), in place, in two halves of 16 rows:
-// the lower half's reads (rows 0 .. 15+L-1), a barrier, its writes (rows
-// 0 .. 15) with the upper half's reads (rows 16 .. 31+L-1, above them),
-// a barrier, the upper half's writes. So a thread holds the ceil(W/256)
-// lanes of one half at a time, not the 2W/256 groups of fold_rows, whose
-// taps and outputs would not fit its registers at 896 lanes. Per lane the
-// sum is fold_rows': c2[0]*v, then fmaf in order.
-template <int kW, int kL>
-__device__ __forceinline__ void fold_pass(float* win, const Chain& p,
-                                          int t_min, int t_first, int nrows) {
-  constexpr int W = kW, kPer = 16;
-  constexpr int kG = (W + kThreads - 1) / kThreads;  // lanes a thread
-  const int tid = threadIdx.x;
-  float c[kG][kL > 0 ? kL : 1];
-  if constexpr (kL > 0) {
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi)
-#pragma unroll
-      for (int q = 0; q < kL; ++q) {
-        const int k = tid + gi * kThreads;
-        c[gi][q] = k < W ? __ldg(p.c2 + q * W + k) : 0.f;
-      }
+// Whether a chain_tile_wide block at M = 64 P keeps its input rows' ring
+// (a pass's rows + L-1) in shared memory beside the pass: up to P = 4 (at
+// P = 8 it would fit, 224 KB, but measured slower than K3's reads from L2
+// and K5's ring in device memory).
+__host__ __device__ constexpr bool ring_on_chip(int P) { return P <= 4; }
+
+// Threads of a chain_tile_wide block at P = kP: fft_row<P> holds 16 P
+// values a thread, so P = 3, 4 keep 255 registers a thread; at P = 2 the
+// 128 positions of a row take 4 groups of threads (wide_groups); past P =
+// 7, 1024 threads would keep 64 and spill (K3 at M = 1024 0.6788 ms
+// against 0.5445 at 512 threads on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md §6).
+__host__ __device__ constexpr int wide_threads(int kP) {
+  return kP == 0 || kP == 2 || kP >= 5 ? 512 : 256;
+}
+
+// Groups of M threads that share a pass's demod, a 16-row chunk each: 4 at
+// P = 2 (M = 128 positions, 512 threads), else 1.
+__host__ __device__ constexpr int wide_groups(int kP) {
+  return kP == 2 ? 4 : 1;
+}
+
+// The junction handoff of a wide launch, the segments' published rows:
+// slot s (the junction's, then tile o's at 1 + o) holds Y of the
+// segment's last row (natural), its last A-1 aud rows (M floats, by
+// position; a tile shorter than A-1 rows fills its first T) and its last
+// L-1 input rows (2M floats; K5, K6); flags[0] the ticket, flags[1 + s]
+// slot s published; ring (K5 and K6 where it is not on chip,
+// ring_on_chip) a segment's rb input rows,
+// row r at r mod rb.
+struct Hand {
+  float* slots;
+  unsigned* flags;
+  float* ring;
+  int slot;  // floats a slot: 2M + (A-1) M + (K5, K6) (L-1) 2M
+  int rb;    // rows of a ring: a pass's rows + L-1
+};
+
+// A block's input rows, from its ring.
+struct RingRows {
+  const float* ring;
+  int rb, w;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    const int i = r % rb;
+    return ring[(i < 0 ? i + rb : i) * w + k];
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j0 = h * kPer;
-    float o[kG][kPer];
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi) {
-      const int k = tid + gi * kThreads;
-      if (k >= W) continue;
-      if constexpr (kL > 0) {
-        float v[kPer + kL - 1];
-#pragma unroll
-        for (int i = 0; i < kPer + kL - 1; ++i)
-          v[i] = j0 + i < nrows + kL - 1 ? win[(j0 + i) * W + k] : 0.f;
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) {
-          float acc = 0.f;
-          if (j0 + e < nrows && t_first + j0 + e >= t_min) {
-            acc = c[gi][0] * v[e];
-#pragma unroll
-            for (int q = 1; q < kL; ++q) acc = fmaf(c[gi][q], v[e + q], acc);
-          }
-          o[gi][e] = acc;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) {
-          const int jj = j0 + e;
-          o[gi][e] = 0.f;
-          if (jj < nrows && t_first + jj >= t_min) {
-            float acc = __ldg(p.c2 + k) * win[jj * W + k];
-            for (int q = 1; q < p.L; ++q)
-              acc = fmaf(__ldg(p.c2 + q * W + k), win[(jj + q) * W + k], acc);
-            o[gi][e] = acc;
-          }
-        }
+};
+
+// Where the planes FFT leaves logical lane k (< 2M: re of output k, or im
+// of output k - M) of buffer row r: swizzled at P <= 4 (fft_row), at
+// wide_lane's place at P = 5 .. 7 (fft_tile_wide), the plan's past it
+// (fft_tile_rt); chan(pos): the channel whose Y is at position pos.
+template <int kP>
+struct WideMap {
+  int M, P;
+  const planes_fft::Plan* pl;
+  const planes_fft::PlanTabs* tb;
+  __device__ __forceinline__ int lane(int k) const {
+    if constexpr (kP == 0)
+      return pl->lane(k);
+    else if constexpr (kP >= 5)
+      return planes_fft::wide_lane<kP>(k);
+    else
+      return k;
+  }
+  __device__ __forceinline__ int ylane(int r, int k) const {
+    return k < M ? sw(r, lane(k)) : M + sw(r, lane(k - M));
+  }
+  __device__ __forceinline__ int chan(int pos) const {
+    if constexpr (kP == 0)
+      return P * (pos & 63) + tb->chan[pos >> 6];
+    else if constexpr (kP >= 5)
+      return kP * (pos & 63) + (pos >> 6);
+    else
+      return pos;
+  }
+};
+
+// A block's wait for slots s0 .. s1 to reach `level` (1: Y of the last
+// row and the input rows published, 2: the aud rows too; thread 0 spins,
+// the block then reads them through L2).
+__device__ __forceinline__ void wait_slots(const unsigned* flags, int s0,
+                                           int s1, unsigned level) {
+  if (threadIdx.x == 0) {
+    for (int s = s0; s <= s1; ++s)
+      for (long long i = 0;
+           *(volatile const unsigned*)(flags + 1 + s) < level; ++i) {
+        if (i > (1LL << 22)) __trap();
+        __nanosleep(128);
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi) {
-      const int k = tid + gi * kThreads;
-      if (k >= W) continue;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int r = j0 + e;
-        win[r * W + sw(r, k)] = o[gi][e];
-      }
-    }
+    __threadfence();
   }
   __syncthreads();
 }
 
-// Where the planes FFT leaves logical lane k (< 2M: re of output k, or im
-// of output k - M) of buffer row r: swizzled at P <= 4 (fft_row), at
-// wide_lane's place past it (fft_tile_wide).
-template <int P>
-__device__ __forceinline__ int ypos(int r, int k) {
-  if constexpr (P <= 4) {
-    return sw(r, k);
-  } else {
-    constexpr int M = 64 * P;
-    return k < M ? sw(r, planes_fft::wide_lane<P>(k))
-                 : M + sw(r, planes_fft::wide_lane<P>(k - M));
+// The new input rows of a pass, [r_lo, r_hi), into the block's ring (in
+// shared or device memory), four lanes a thread, as row4(r, k) gives them;
+// rows from pub_lo on also into the block's slot (`pub`).
+template <int kT, class Row4>
+__device__ __forceinline__ void fill_ring(const RingRows& rr, int r_lo,
+                                          int r_hi, const Row4& row4,
+                                          float* pub, int pub_lo) {
+  const int W = rr.w, W4 = W / 4;
+  float* ring = const_cast<float*>(rr.ring);
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < (r_hi - r_lo) * W4; idx += kT) {
+    const int r = r_lo + idx / W4, k = 4 * (idx % W4);
+    const float4 v = row4(r, k);
+    const int i = r % rr.rb;
+    *reinterpret_cast<float4*>(ring + (size_t)(i < 0 ? i + rr.rb : i) * W + k) =
+        v;
+    if (pub && r >= pub_lo)
+      *reinterpret_cast<float4*>(pub + (size_t)(r - pub_lo) * W + k) = v;
   }
 }
 
-// One tile of T stream rows from t0 at 2M = kW > 128 lanes (M = 128 ..
-// 448), rebuilding its junction as chain_tile does. chain_tile's buffer,
-// (T + A + L-1) rows of 2M floats, takes 245,760 bytes at M = 192 (T =
-// 64, the least the reference's T >= A-1 allows at A = 65), past the
-// 232,448 a block may use, and at M = 448 the tile's (T + A) aud rows of
-// M floats alone take 231,168. So the tile streams: its rows jj = 0 ..
-// T+A-1 (stream row t0 - A + jj) in passes of 32, from the top pass down.
-// A pass loads its window of 32 + L-1 input rows, folds it in place
-// (fold_pass), transforms the 32 rows (fft_row at P <= 4; fft_tile_wide,
-// two passes over the block, past it) and demodulates rows r0+1 .. r0+32:
-// aud[jj] from Y[jj-1] and Y[jj], Y[r0+32] being the pass above's first
-// row, kept in yp (natural); the top pass's first row waits for the pass
-// below. The aud rows go to the window's rows past 32 (free after the
-// fold), and each audio output out[o] = sum_k ataps[k] * aud[A + o*decim
-// - k] takes the pass's rows into its accumulator, in shared memory, from
-// the highest row down: the passes run downwards, so every output sums k
-// = 0 .. A-1 in that order, as chain_tile's stage 4 does. The block holds
-// one pass (48 rows of 2M floats at L = 16), yp and T/decim x M
-// accumulators: 189,952 bytes at M = 448, T = 64. With K3ag's bands
-// (Chain.ag) the threads of band g take its outputs; each output's sum is
-// the same. Every value is computed by the same operations, in the same
-// order, whatever the tile, pass or kernel, so the outputs do not depend
-// on the tile, as at M = 64, and at M = 128 .. 256 they are those of the
-// layout this replaced (the passes upwards, the aud rows kept whole), bit
-// for bit.
-template <int kW, class Row>
-__device__ __forceinline__ void chain_tile_stream(float* sm, const Chain& p,
-                                                  int t_min, int t0,
-                                                  bool last, Row row) {
-  constexpr int W = kW, M = W / 2, P = M / 64;
-  const int A = p.A, L = p.L;
-  const int R = p.T + A;
-  const int tid = threadIdx.x;
-  float* win = sm;
-  float* yp = win + stream_window_rows(L) * W;
-  float* oacc = yp + W;                      // (T/decim) x M
-  float* audb = win + kChunkRows * W;        // a pass's aud rows, M floats
-  const int band_threads = kThreads / p.ag, band = tid / band_threads;
-  const int n_og = p.T / p.decim / p.ag;     // outputs of a band
-  for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads)
-    oacc[band * n_og * M + idx] = 0.f;
-  const int jp = t_min - 1 - (t0 - A);       // the row of Y[t_min - 1]
-  const int top = (R - 1) / kChunkRows * kChunkRows;
-  for (int r0 = top; r0 >= 0; r0 -= kChunkRows) {
-    const int n = min(kChunkRows, R - r0);
-    const int hi = r0 == top ? n - 1 : n;    // demodulates rows r0+1 .. r0+hi
-    // 1. the pass's window, folded in place: row j gets acc of stream row
-    //    t0 - A + r0 + j
-    load_window<W>(win, t0 - A + r0 - (L - 1), n + L - 1, row);
-    __syncthreads();
-    if (L == kFoldL)
-      fold_pass<W, kFoldL>(win, p, t_min, t0 - A + r0, n);
-    else
-      fold_pass<W, 0>(win, p, t_min, t0 - A + r0, n);
-    // 2. Y of the 32 rows (past n: zeros)
-    if constexpr (P <= 4) {
-      const planes_fft::Tw<P> tw(p.tw, tid & 7);
-      const int r = 4 * (tid >> 5) + ((tid >> 3) & 3);
-      planes_fft::fft_row<P>(win + r * W, r, tid & 7, tw, p.tw);
+// The fold of a pass of kR rows: tile row e (swizzled) gets acc of stream
+// row s0 + e, 0 before t_min; the sum chain_tile's fold_rows takes (c2[0]
+// v, then fmaf in order), in groups of 16 rows a lane, each group's 16 +
+// L-1 inputs and L taps in registers.
+template <int kT, int kR, class Src>
+__device__ __forceinline__ void fold_wide(float* tile, const Src& in,
+                                          const Chain& p, int W, int s0,
+                                          int t_min) {
+  const int L = p.L;
+  for (int kg = threadIdx.x; kg < W * (kR / kWideRows); kg += kT) {
+    const int k = kg % W, e0 = kg / W * kWideRows;
+    if (L == kFoldL) {
+      float c[kFoldL], x[kWideRows + kFoldL - 1];
+#pragma unroll
+      for (int i = 0; i < kFoldL; ++i) c[i] = __ldg(p.c2 + i * W + k);
+#pragma unroll
+      for (int i = 0; i < kWideRows + kFoldL - 1; ++i)
+        x[i] = in(s0 + e0 - (kFoldL - 1) + i, k);
+#pragma unroll
+      for (int e = 0; e < kWideRows; ++e) {
+        float acc = 0.f;
+        if (s0 + e0 + e >= t_min) {
+          acc = c[0] * x[e];
+#pragma unroll
+          for (int i = 1; i < kFoldL; ++i) acc = fmaf(c[i], x[e + i], acc);
+        }
+        tile[(e0 + e) * W + sw(e0 + e, k)] = acc;
+      }
     } else {
-      planes_fft::fft_tile_wide<P>(win, kChunkRows, tid, kThreads, p.tw);
-    }
-    __syncthreads();
-    if (jp >= r0 && jp < r0 + n)
-      for (int k = tid; k < W; k += kThreads)
-        win[(jp - r0) * W + ypos<P>(jp - r0, k)] = p.prev0[k];
-    if (last && r0 == top)
-      for (int k = tid; k < W; k += kThreads)
-        p.prev_out[k] = win[(n - 1) * W + ypos<P>(n - 1, k)];
-    __syncthreads();
-    // 3. demod of rows r0+1 .. r0+hi into audb; rows before the stream
-    //    take tail0; the tile's last A-1 aud rows are the carried tail
-    for (int idx = tid; idx < hi * M; idx += kThreads) {
-      const int j = 1 + idx / M, m = idx % M, jj = r0 + j;
-      const int t = t0 - A + jj;
-      float v;
-      if (t < t_min) {
-        v = p.tail0[(A - 1 + t - t_min) * W + m];
-      } else {
-        const float* pa = win + (j - 1) * W;
-        const float ar = pa[ypos<P>(j - 1, m)], ai = pa[ypos<P>(j - 1, M + m)];
-        float yr, yi;
-        if (j < n) {
-          const float* py = win + j * W;
-          yr = py[ypos<P>(j, m)];
-          yi = py[ypos<P>(j, M + m)];
-        } else {
-          yr = yp[m];
-          yi = yp[M + m];
+      for (int e = e0; e < e0 + kWideRows; ++e) {
+        const int sr = s0 + e - (L - 1);
+        float acc = 0.f;
+        if (s0 + e >= t_min) {
+          acc = __ldg(p.c2 + k) * in(sr, k);
+          for (int i = 1; i < L; ++i)
+            acc = fmaf(__ldg(p.c2 + i * W + k), in(sr + i, k), acc);
         }
-        v = demod<kFull>(ar, ai, yr, yi, p);
-      }
-      audb[(j - 1) * M + m] = v;
-      if (last && jj >= R - (A - 1)) {
-        const int i = jj - (R - (A - 1));
-        p.tail_out[i * W + m] = v;
-        p.tail_out[i * W + M + m] = v;
+        tile[e * W + sw(e, k)] = acc;
       }
     }
-    __syncthreads();
-    // 4. Y[r0] for the pass below; the audio outputs take rows r0+hi down
-    //    to r0+1 (those within their A taps), k upwards
-    for (int k = tid; k < W; k += kThreads) yp[k] = win[ypos<P>(0, k)];
-    for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads) {
-      const int o = band * n_og + idx / M, m = idx % M;
-      const int base = A + o * p.decim;      // aud row of tap 0
-      const int jhi = min(base, r0 + hi), jlo = max(base - (A - 1), r0 + 1);
-      float acc = oacc[o * M + m];
-      for (int jj = jhi; jj >= jlo; --jj)
-        acc = fmaf(__ldg(p.ataps + (base - jj)), audb[(jj - r0 - 1) * M + m],
-                   acc);
-      oacc[o * M + m] = acc;
-    }
-    __syncthreads();
-  }
-  for (int idx = tid % band_threads; idx < n_og * M; idx += band_threads) {
-    const int o = band * n_og + idx / M, m = idx % M;
-    p.aud[((long long)t0 / p.decim + o) * M + m] = oacc[o * M + m];
   }
 }
 
-// ---- M = 512 .. 1024: chain_tile_wide -------------------------------------
+// The planes FFT of the pass's kR rows (the block synchronised before and
+// after by the caller).
+template <int kP, int kT, int kR>
+__device__ __forceinline__ void fft_wide(float* tile, const Chain& p,
+                                         const planes_fft::Plan& pl,
+                                         const planes_fft::PlanTabs& tb) {
+  const int tid = threadIdx.x;
+  if constexpr (kP == 0) {
+    planes_fft::fft_tile_rt(tile, kR, tid, kT, p.tw, pl, tb);
+  } else if constexpr (kP >= 5) {
+    planes_fft::fft_tile_wide<kP>(tile, kR, tid, kT, p.tw);
+  } else {
+    constexpr int W = 128 * kP;
+    const planes_fft::Tw<kP> tw(p.tw, tid & 7);
+    for (int base = 4 * (tid >> 5); base < kR; base += kT / 8) {
+      const int r = base + ((tid >> 3) & 3);
+      planes_fft::fft_row<kP>(tile + r * W, r, tid & 7, tw, p.tw);
+    }
+  }
+}
 
-constexpr int kWideRows = 16;       // rows a pass of chain_tile_wide
-constexpr int kWideThreads = 1024;  // threads of its block (K3, K5)
-constexpr int kWideThreadsK6 = 256;  // K6's, whose shard arithmetic and
-// Philox state spill past 64 registers a thread
+// The audio outputs o (of n_o; output o takes local rows o*decim - (A-1) ..
+// o*decim) that reach the cnt aud rows v[i], local row u_hi - i: each
+// output's accumulator (oacc, by position) read once, these rows summed
+// into it from the highest down (k = o*decim - u upwards; the A taps in
+// shared memory), written once.
+__device__ __forceinline__ void audio_rows(float* oacc, int M, int pos,
+                                           const float (&v)[kWideRows],
+                                           int u_hi, int cnt, int n_o,
+                                           const float* taps,
+                                           const Chain& p) {
+  const int A = p.A, decim = p.decim, u_lo = u_hi - cnt + 1;
+  const int o0 = u_lo > 0 ? (u_lo + decim - 1) / decim : 0;
+  const int o1 = min(n_o - 1, (u_hi + A - 1) / decim);
+  for (int o = o0; o <= o1; ++o) {
+    float acc = oacc[o * M + pos];
+    const int k0 = o * decim - u_hi;  // the tap of v[0]
+    if (cnt == kWideRows && k0 >= 0 && k0 + kWideRows <= A) {
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i)
+        acc = fmaf(taps[k0 + i], v[i], acc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) {
+        const int k = k0 + i;
+        if (i < cnt && k >= 0 && k < A) acc = fmaf(taps[k], v[i], acc);
+      }
+    }
+    oacc[o * M + pos] = acc;
+  }
+}
 
-// One tile of T stream rows from t0 at 2M = p.w lanes, M = 64 P, P = 8 ..
-// 16, rebuilding its junction as chain_tile_stream does, in passes of 16
-// rows from the top pass down. chain_tile_stream's window of 32 + L-1 rows
-// would take 401 KB at M = 1024, so a pass keeps in shared memory only its
-// 16 folded rows (128 KB at M = 1024): 1. each lane's fold reads the pass's
-// 16 + L-1 input rows of that lane from `row` into registers (K3 from
-// memory, the overlap with the pass above from L2; K5 and K6 generate
-// them, (16 + L-1)/16 times a row) with its L taps, and writes the 16
-// acc rows, the sum chain_tile_stream's fold_pass takes; 2. the planes FFT
-// (planes_fft.cuh fft_tile_rt: P at run time, the radix-P step in two
-// passes); 3. each thread takes the positions k of the row's logical lanes
-// (channel P (k & 63) + PlanTabs::chan[k >> 6], whose Y the FFT left at
-// lane k), so a warp reads 32 consecutive lanes, and walks the pass's rows
-// from its highest down:
-// the demod of aud[jj] from Y[jj-1] and Y[jj] (the top row's Y[jj] the pass
-// above's row 0, kept in yp by position), then each audio output o within
-// its A taps takes aud[jj] into its accumulator (by position, in shared
-// memory): out[o] sums k = 0 .. A-1 in that order, as chain_tile's stage 4
-// and chain_tile_stream's, so the outputs do not depend on the tile. No
-// thread reads another's positions after the FFT, so the demod and the
-// audio stage need no barrier. The block holds the pass, yp and the T/decim
-// x M accumulators: 204,800 bytes at M = 1024 and the default tile of 128
-// rows, so one block an SM, and kT threads are all that SM runs: 1024 for
-// K3 and K5 (256 and 512 were slower on the H100), 256 for K6 (1024 was
-// slower: 64 registers a thread spill its shard's arithmetic). K3ag's
-// bands change no output bit and take no part here: every thread sums its
-// own outputs.
-template <int kT, class Row>
+// The segment of ticket j (0 the junction, 1 + o tile o) at 2M lanes, M =
+// 64 P (P = kP, or p.w at kP = 0), nb tiles in the launch. `in` reads the
+// fold's input rows (K3: [halo; vb]; K5, K6: the block's ring, filled by
+// `gen` pass by pass).
+template <int kP, int kT, class Src, class Gen>
 __device__ __forceinline__ void chain_tile_wide(float* sm, const Chain& p,
-                                                int t_min, int t0, bool last,
-                                                Row row) {
-  const int W = p.w, M = W / 2;
-  const planes_fft::Plan pl = planes_fft::plan_of(M / 64);
-  const int A = p.A, L = p.L, R = p.T + A, decim = p.decim;
-  const int n_o = p.T / decim, tid = threadIdx.x;
-  float* tile = sm;                    // kWideRows x W, swizzled
-  float* yp = tile + kWideRows * W;    // Y[r0] of the pass above, by position
-  float* oacc = yp + W;                // n_o x M, by position
-  __shared__ planes_fft::PlanTabs tb;  // the plan's maps
-  planes_fft::fill_tabs(tb, pl, tid);
+                                                int t_min, int j, int nb,
+                                                const Src& in, const Gen* gen,
+                                                const Hand& h) {
+  constexpr int kR = wide_rows(kP);
+  const int W = kP ? 128 * kP : p.w, M = W / 2, P = M / 64;
+  const int A = p.A, L = p.L, decim = p.decim, T = p.T, tid = threadIdx.x;
+  const bool junction = j == 0;
+  const int lo = junction ? -A : (j - 1) * T, hi = junction ? 0 : lo + T;
+  const int dlo = junction ? lo + 1 : lo;  // the first row demodulated
+  const int Ha = junction ? A - 1 : min(T, A - 1);  // aud rows published
+  const int n_o = junction ? 0 : T / decim;
+  const bool last = j == nb && p.prev_out != nullptr;
+  float* tile = sm;           // kR x W, swizzled
+  float* yp = tile + kR * W;  // Y of the pass above's row 0, by position
+  float* oacc = yp + W;       // n_o x M, by position
+  // the fold's input rows: at P = 2 .. 4 and 8 in a ring in shared memory
+  // (K3's loaded 16 bytes at a time, K5's and K6's made), where it fits
+  // beside the pass; else K5's and K6's in their ring in device memory,
+  // K3's read from memory by the fold itself
+  constexpr bool kGen = !std::is_same_v<Gen, void>;
+  const bool on_chip = ring_on_chip(P);
+  RingRows ring{oacc + n_o * M, kR + L - 1, W};
+  float* taps = oacc + n_o * M + (on_chip ? (kR + L - 1) * W : 0);  // (A,)
+  if constexpr (kGen) {
+    if (!on_chip) ring = in;
+  }
+  __shared__ planes_fft::PlanTabs tb;
+  const planes_fft::Plan pl = planes_fft::plan_of(kP ? 0 : P);
+  if constexpr (kP == 0) planes_fft::fill_tabs(tb, pl, tid);
+  const WideMap<kP> map{M, P, &pl, &tb};
+  // past M < kT threads, G groups of M threads share the demod: thread tid
+  // takes position gpos (channel gm) in group grp
+  constexpr int G = wide_groups(kP);
+  const int grp = tid / M, gpos = tid % M;
+  const int gm = grp < G ? map.chan(gpos) : 0;
+  float* mine = h.slots + (size_t)j * h.slot;
+  float* my_aud = mine + W;
+  const float* before = h.slots + (size_t)(j - 1) * h.slot;  // (j > 0)
   for (int idx = tid; idx < n_o * M; idx += kT) oacc[idx] = 0.f;
-  const int jp = t_min - 1 - (t0 - A);  // the row of Y[t_min - 1]
-  const int top = (R - 1) / kWideRows * kWideRows;
-  // Y's logical lane k (< 2M) of tile row r
-  const auto ylane = [&](int r, int k) {
-    return k < M ? sw(r, pl.lane(k)) : M + sw(r, pl.lane(k - M));
+  for (int k = tid; k < A; k += kT) taps[k] = __ldg(p.ataps + k);
+  philox::Keys keys{};
+  if constexpr (kGen) keys = philox::round_keys(gen->s.k0, gen->s.k1);
+  // input row r, lanes k .. k+3: K5 and K6 make the segment's own rows
+  // (the junction block every row), take the L-1 below a tile from the
+  // slot before, and zero the rows below those (read by no row of the
+  // tile); K3 reads [halo; vb]
+  const auto row4 = [&](int r, int k) -> float4 {
+    if constexpr (kGen) {
+      if (junction || r >= lo) return gen->gen4(r, k, keys);
+      if (r >= lo - (L - 1))
+        return __ldcg(reinterpret_cast<const float4*>(
+            before + W + (A - 1) * M + (size_t)(r - (lo - (L - 1))) * W + k));
+      return make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (in.vec) return in.load4(r, k);
+      return make_float4(in(r, k), in(r, k + 1), in(r, k + 2), in(r, k + 3));
+    }
   };
-  for (int r0 = top; r0 >= 0; r0 -= kWideRows) {
-    const int n = min(kWideRows, R - r0);
-    const int hi = r0 == top ? n - 1 : n;  // demodulates rows r0+1 .. r0+hi
-    const int t_first = t0 - A + r0;       // the stream row of tile row 0
-    const int sr0 = t_first - (L - 1);     // of the fold's first input row
-    // 1. the fold: tile row e gets acc of stream row t_first + e
-    for (int k = tid; k < W; k += kT) {
-      if (L == kFoldL) {
-        float c[kFoldL], x[kWideRows + kFoldL - 1];
-#pragma unroll
-        for (int i = 0; i < kFoldL; ++i) c[i] = __ldg(p.c2 + i * W + k);
-#pragma unroll
-        for (int i = 0; i < kWideRows + kFoldL - 1; ++i)
-          x[i] = i < n + kFoldL - 1 ? row(sr0 + i, k) : 0.f;
-#pragma unroll
-        for (int e = 0; e < kWideRows; ++e) {
-          float acc = 0.f;
-          if (e < n && t_first + e >= t_min) {
-            acc = c[0] * x[e];
-#pragma unroll
-            for (int i = 1; i < kFoldL; ++i) acc = fmaf(c[i], x[e + i], acc);
-          }
-          tile[e * W + sw(e, k)] = acc;
-        }
-      } else {
-        for (int e = 0; e < kWideRows; ++e) {
-          float acc = 0.f;
-          if (e < n && t_first + e >= t_min) {
-            acc = __ldg(p.c2 + k) * row(sr0 + e, k);
-            for (int i = 1; i < L; ++i)
-              acc = fmaf(__ldg(p.c2 + i * W + k), row(sr0 + e + i, k), acc);
-          }
-          tile[e * W + sw(e, k)] = acc;
-        }
-      }
+  const int jp = t_min - 1;  // the row of Y[t_min - 1]
+  bool published = false;
+  for (int s0 = hi - kR;; s0 -= kR) {
+    const bool top = s0 + kR == hi, lowest = s0 <= lo;
+    // Y[lo-1] and the input rows below the tile, in the slot before
+    if (lowest && !junction) wait_slots(h.flags, j - 1, j - 1, 1u);
+    // 1. the fold
+    if (kGen || on_chip) {
+      const int r_lo = s0 - (L - 1), r_hi = top ? hi : r_lo + kR;
+      fill_ring<kT>(ring, r_lo, r_hi, row4,
+                    kGen && top ? mine + W + (A - 1) * M : nullptr,
+                    hi - (L - 1));
+      __syncthreads();
+      fold_wide<kT, kR>(tile, ring, p, W, s0, t_min);
+    } else {
+      if constexpr (!kGen) fold_wide<kT, kR>(tile, in, p, W, s0, t_min);
     }
     __syncthreads();
-    // 2. Y of the pass's rows (past n: zeros)
-    planes_fft::fft_tile_rt(tile, kWideRows, tid, kT, p.tw, pl, tb);
+    // 2. Y of the pass's rows; Y[t_min - 1] is prev0; the segment's last
+    //    row's Y into its slot (and the batch's prev_out)
+    fft_wide<kP, kT, kR>(tile, p, pl, tb);
     __syncthreads();
-    if (jp >= r0 && jp < r0 + n)
+    if (jp >= max(s0, lo) && jp < s0 + kR)
       for (int k = tid; k < W; k += kT)
-        tile[(jp - r0) * W + ylane(jp - r0, k)] = p.prev0[k];
-    if (last && r0 == top)
-      for (int k = tid; k < W; k += kT)
-        p.prev_out[k] = tile[(n - 1) * W + ylane(n - 1, k)];
+        tile[(jp - s0) * W + map.ylane(jp - s0, k)] = p.prev0[k];
+    if (top) {  // the slot's first level: Y of the last row, the input rows
+      for (int k = tid; k < W; k += kT) {
+        const float y = tile[(kR - 1) * W + map.ylane(kR - 1, k)];
+        mine[k] = y;
+        if (last) p.prev_out[k] = y;
+      }
+      __threadfence();
+    }
     __syncthreads();
-    // 3. demod and audio, position by position, rows r0+hi down to r0+1;
-    //    rows before the stream take tail0; the tile's last A-1 aud rows
+    if (top && tid == 0) atomicExch(h.flags + 1 + j, 1u);
+    // 3. demod and audio, position by position, rows s0 + jhi down to
+    //    s0 + jlo in chunks of 16 from the top: a chunk's aud rows in
+    //    registers, then into the outputs that take them (audio_rows);
+    //    rows before the stream take tail0; the batch's last A-1 aud rows
     //    are the carried tail
-    for (int pos = tid; pos < M; pos += kT) {
-      const int m = pl.P * (pos & 63) + tb.chan[pos >> 6];
-      for (int j = hi; j >= 1; --j) {
-        const int jj = r0 + j, t = t0 - A + jj;
-        float v;
-        if (t < t_min) {
-          v = p.tail0[(A - 1 + t - t_min) * W + m];
-        } else {
-          const int i0 = sw(j - 1, pos);
-          const float ar = tile[(j - 1) * W + i0], ai = tile[(j - 1) * W + M + i0];
-          float yr, yi;
-          if (j < n) {
-            const int i1 = sw(j, pos);
-            yr = tile[j * W + i1];
-            yi = tile[j * W + M + i1];
+    const int jhi = top ? kR - 1 : kR;
+    const int jlo = lowest ? dlo - s0 : 1;
+    const auto demod_chunk = [&](float (&v)[kWideRows], int jc, int cnt,
+                                 int pos, int m) {
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) {
+        const int jr = jc - i, t = s0 + jr;
+        if constexpr (kP == 0) {  // a branch out: fewer registers live
+          if (i >= cnt) break;
+        }
+        if (i < cnt) {
+          if (t < t_min) {
+            v[i] = p.tail0[(A - 1 + t - t_min) * W + m];
           } else {
-            yr = yp[pos];
-            yi = yp[M + pos];
+            float ar, ai, yr, yi;
+            if (t - 1 >= lo) {
+              const int i0 = (jr - 1) * W + sw(jr - 1, pos);
+              ar = tile[i0];
+              ai = tile[i0 + M];
+            } else {  // Y[lo - 1], the segment before's last row
+              ar = __ldcg(before + m);
+              ai = __ldcg(before + M + m);
+            }
+            if (jr < kR) {
+              const int i1 = jr * W + sw(jr, pos);
+              yr = tile[i1];
+              yi = tile[i1 + M];
+            } else {
+              yr = yp[pos];
+              yi = yp[M + pos];
+            }
+            v[i] = demod<kFull>(ar, ai, yr, yi, p);
           }
-          v = demod<kFull>(ar, ai, yr, yi, p);
+          if (t >= hi - Ha) my_aud[(t - (hi - Ha)) * M + pos] = v[i];
+          if (last && t >= hi - (A - 1)) {
+            const int it = t - (hi - (A - 1));
+            p.tail_out[it * W + m] = v[i];
+            p.tail_out[it * W + M + m] = v[i];
+          }
         }
-        if (last && jj >= R - (A - 1)) {
-          const int i = jj - (R - (A - 1));
-          p.tail_out[i * W + m] = v;
-          p.tail_out[i * W + M + m] = v;
-        }
-        // the outputs o with A + o*decim - (A-1) <= jj <= A + o*decim
-        const int olo = jj > A ? (jj - A + decim - 1) / decim : 0;
-        const int ohi = min(n_o - 1, (jj - 1) / decim);
-        for (int o = olo; o <= ohi; ++o)
-          oacc[o * M + pos] = fmaf(__ldg(p.ataps + (A + o * decim - jj)), v,
-                                   oacc[o * M + pos]);
       }
-      const int i = sw(0, pos);
-      yp[pos] = tile[i];
-      yp[M + pos] = tile[M + i];
+    };
+    const int nc = (jhi - jlo + kWideRows) / kWideRows;  // chunks
+    if (G == 1) {
+      for (int pos = tid; pos < M; pos += kT) {
+        const int m = map.chan(pos);
+        for (int jc = jhi; jc >= jlo; jc -= kWideRows) {
+          const int cnt = min(kWideRows, jc - jlo + 1);
+          float v[kWideRows];
+          demod_chunk(v, jc, cnt, pos, m);
+          audio_rows(oacc, M, pos, v, s0 + jc - lo, cnt, n_o, taps, p);
+        }
+        const int i = sw(0, pos);
+        yp[pos] = tile[i];
+        yp[M + pos] = tile[M + i];
+      }
+    } else {
+      // G groups of M threads take G chunks at once, then add them to the
+      // outputs one group after the other, the highest rows first
+      for (int c0 = 0; c0 < nc; c0 += G) {
+        const int c = c0 + grp, jc = jhi - c * kWideRows;
+        const int cnt = grp < G && c < nc ? min(kWideRows, jc - jlo + 1) : 0;
+        float v[kWideRows];
+        demod_chunk(v, jc, cnt, gpos, gm);
+        for (int g = 0; g < G; ++g) {
+          __syncthreads();
+          if (grp == g && cnt > 0)
+            audio_rows(oacc, M, gpos, v, s0 + jc - lo, cnt, n_o, taps, p);
+        }
+      }
+      if (grp == 0) {
+        const int i = sw(0, gpos);
+        yp[gpos] = tile[i];
+        yp[M + gpos] = tile[M + i];
+      }
+    }
+    if (!published && s0 + jlo <= hi - Ha) {  // the aud rows: the second
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) atomicExch(h.flags + 1 + j, 2u);
+      published = true;
+    }
+    __syncthreads();
+    if (lowest) break;
+  }
+  if (junction) return;
+  // 4. the aud rows below the tile, from the segments before (those
+  //    holding rows lo-(A-1) .. lo-1), into the outputs that reach them:
+  //    their last taps
+  wait_slots(h.flags, lo - (A - 1) < 0 ? 0 : (lo - (A - 1)) / T + 1, j - 1,
+             2u);
+  const auto hand_chunk = [&](float (&v)[kWideRows], int tc, int cnt,
+                              int pos, int m) {
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      const int t = tc - i;
+      if constexpr (kP == 0) {
+        if (i >= cnt) break;
+      }
+      if (i < cnt) {
+        if (T >= A - 1) {  // every row below the tile in the slot before
+          v[i] = __ldcg(before + W + (t - lo + A - 1) * M + pos);
+        } else {
+          const int o_t = t < 0 ? -1 : t / T;  // the tile holding row t
+          const int hi_t = t < 0 ? 0 : (o_t + 1) * T;
+          const int ha_t = t < 0 ? A - 1 : min(T, A - 1);
+          v[i] = __ldcg(h.slots + (size_t)(o_t + 1) * h.slot + W +
+                        (t - (hi_t - ha_t)) * M + pos);
+        }
+        if (last && t >= hi - (A - 1)) {
+          const int it = t - (hi - (A - 1));
+          p.tail_out[it * W + m] = v[i];
+          p.tail_out[it * W + M + m] = v[i];
+        }
+      }
+    }
+  };
+  const int nh = (A - 1 + kWideRows - 1) / kWideRows;  // chunks
+  const auto hand_cnt = [&](int c) {
+    return min(kWideRows, A - 1 - c * kWideRows);
+  };
+  if (G == 1) {
+    for (int pos = tid; pos < M; pos += kT) {
+      const int m = map.chan(pos);
+      for (int c = 0; c < nh; ++c) {
+        float v[kWideRows];
+        hand_chunk(v, lo - 1 - c * kWideRows, hand_cnt(c), pos, m);
+        audio_rows(oacc, M, pos, v, -1 - c * kWideRows, hand_cnt(c), n_o, taps,
+                   p);
+      }
+    }
+  } else {
+    for (int c0 = 0; c0 < nh; c0 += G) {
+      const int c = c0 + grp;
+      const int cnt = grp < G && c < nh ? hand_cnt(c) : 0;
+      float v[kWideRows];
+      hand_chunk(v, lo - 1 - c * kWideRows, cnt, gpos, gm);
+      for (int g = 0; g < G; ++g) {
+        __syncthreads();
+        if (grp == g && cnt > 0)
+          audio_rows(oacc, M, gpos, v, -1 - c * kWideRows, cnt, n_o, taps, p);
+      }
     }
     __syncthreads();
   }
-  for (int pos = tid; pos < M; pos += kT) {
-    const int m = pl.P * (pos & 63) + tb.chan[pos >> 6];
+  for (int pos = tid; pos < M; pos += kT)
     for (int o = 0; o < n_o; ++o)
-      p.aud[((long long)t0 / decim + o) * M + m] = oacc[o * M + pos];
-  }
+      p.aud[((long long)lo / decim + o) * M + map.chan(pos)] =
+          oacc[o * M + pos];
 }
 
 // Shared floats of a chain block (K3, K5, K6) at kW lanes: at the
 // flagship's 128 the tile buffer, and with kAG > 1 room past its T + A rows
-// for the band table; wider, chain_tile_stream's window, yp and the audio
-// accumulators; at kW = 0 (w lanes) chain_tile_wide's pass, yp and
-// accumulators.
+// for the band table; wider (kW = 0, w lanes), chain_tile_wide's pass, yp
+// and the tile's T/decim x M audio accumulators.
 template <int kW>
 __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
                                                           int ag, int decim,
                                                           int w = kW) {
   if constexpr (kW == 0) {
-    return (kWideRows + 1) * w + T / decim * (w / 2);
-  } else if constexpr (kW != kFlagW) {
-    return (stream_window_rows(L) + 1) * kW + T / decim * (kW / 2);
+    const int P = w / 128, rows = wide_rows(P > 7 ? 0 : P);
+    return (rows + 1) * w + T / decim * (w / 2) +
+           (ring_on_chip(P) ? (rows + L - 1) * w : 0) + A;
   } else {
     const int rows = tile_rows(T, A, L) * kW;
     if (ag == 1) return rows;
@@ -1142,35 +1299,25 @@ __host__ __device__ __forceinline__ int chain_smem_floats(int T, int A, int L,
   }
 }
 
-// The tile of a kernel that rebuilds every junction (K3, K5, K6); the
-// last block writes the end state where the kernel returns one.
+// The flagship's tile of a kernel that rebuilds every junction (K3, K5,
+// K6); the last block writes the end state where the kernel returns one.
 // tile: the tile the block takes (its blockIdx, or take_tile's ticket).
-template <int kW, int kV = kFull, int kAG = 1, int kT = kWideThreads,
-          class Row>
+template <int kV = kFull, int kAG = 1, class Row>
 __device__ __forceinline__ void rebuilt_tile(float* buf, const Chain& p,
-                                             int t_min, Row row,
-                                             int tile) {
+                                             int t_min, Row row, int tile) {
   const bool last = tile == (int)gridDim.x - 1 && p.prev_out != nullptr;
-  if constexpr (kW == kFlagW) {
-    chain_tile<true, kV, kAG>(buf, p, t_min, tile * p.T, last, nullptr,
-                              nullptr, nullptr, row, [] {});
-  } else if constexpr (kW == 0) {
-    static_assert(kV == kFull, "the ablation runs at 128 lanes");
-    chain_tile_wide<kT>(buf, p, t_min, tile * p.T, last, row);
-  } else {
-    static_assert(kV == kFull, "the ablation runs at 128 lanes");
-    chain_tile_stream<kW>(buf, p, t_min, tile * p.T, last, row);
-  }
+  chain_tile<true, kV, kAG>(buf, p, t_min, tile * p.T, last, nullptr, nullptr,
+                            nullptr, row, [] {});
 }
 
 // K3: input rows read from memory, vp = [halo; vb]; kAG > 1 is K3ag.
-template <int kW, int kAG>
-__global__ void __launch_bounds__(kW ? kThreads : kWideThreads)
+template <int kAG>
+__global__ void __launch_bounds__(kThreads)
 fm_chain_kernel(const float* __restrict__ vb, const float* __restrict__ halo,
                 int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min,
-                               halo_rows<kW>(vb, halo, hrows, p.w), blockIdx.x);
+  rebuilt_tile<kFull, kAG>(buf, p, p.t_min,
+                           halo_rows<kFlagW>(vb, halo, hrows), blockIdx.x);
 }
 
 // The ablation probe: K3 with the stages of kV switched off; kFull is K3.
@@ -1179,16 +1326,16 @@ __global__ void __launch_bounds__(kThreads)
 fm_chain_ablate_kernel(const float* __restrict__ vb,
                        const float* __restrict__ halo, int hrows, Chain p) {
   extern __shared__ __align__(16) float buf[];
-  rebuilt_tile<kFlagW, kV>(buf, p, p.t_min,
-                           halo_rows<kFlagW>(vb, halo, hrows), blockIdx.x);
+  rebuilt_tile<kV>(buf, p, p.t_min, halo_rows<kFlagW>(vb, halo, hrows),
+                   blockIdx.x);
 }
 
 // K5: input rows generated in the block (and the batch's last H8 copied
 // out as the next carry), the halo from carry0; the base group on the card.
-// hand/flags (128 lanes only, else null): the junction handoff
-// (gen_window_handoff), with the block's tile from a ticket (take_tile).
-template <int kW, int kAG>
-__global__ void __launch_bounds__(kW ? kThreads : kWideThreads)
+// hand/flags: the junction handoff (gen_window_handoff), with the block's
+// tile from a ticket (take_tile).
+template <int kAG>
+__global__ void __launch_bounds__(kThreads)
 fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     const float* __restrict__ amp,
                     const float* __restrict__ carry0,
@@ -1196,62 +1343,101 @@ fm_chain_gen_kernel(philox::Stream s, const long long* __restrict__ group,
                     unsigned* flags, Chain p) {
   extern __shared__ __align__(16) float buf[];
   s.g0 = philox::group_at(group, 0);
-  const float a = amp[0];
-  if constexpr (kW == 0) {
-    // chain_tile_wide's one element at a time, from the kernel's own
-    // parameters: at 1024 threads and 64 registers a thread, GenRows' copy
-    // of them spilled more (K5 at M = 512 0.6289 ms against 0.4560 on an
-    // NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6)
-    const int H8 = p.H8, n = p.n, W = p.w;
-    rebuilt_tile<kW, kFull, kAG>(buf, p, p.t_min, [&](int sr, int k) {
-      if (sr < 0) return sr >= -H8 ? carry0[(H8 + sr) * W + k] : 0.f;
-      const float v = __fmul_rn(philox::gauss(s, sr, k, W), a);
-      if (sr >= n - H8) carry_out[(sr - (n - H8)) * W + k] = v;
-      return v;
-    }, blockIdx.x);
-  } else {
-    const int tile = hand ? take_tile(flags, buf) : (int)blockIdx.x;
-    rebuilt_tile<kW, kFull, kAG>(
-        buf, p, p.t_min,
-        GenRows<kW>{s, a, carry0, carry_out, p.H8, p.n, p.w, hand, flags},
-        tile);
-  }
+  const int tile = hand ? take_tile(flags, buf) : (int)blockIdx.x;
+  rebuilt_tile<kFull, kAG>(
+      buf, p, p.t_min,
+      GenRows<kFlagW>{s, amp[0], carry0, carry_out, p.H8, p.n, p.w, hand,
+                      flags},
+      tile);
 }
 
 // K6: K5 with nothing carried in or out: every row a block reads, before
 // the batch too, generated from its signed offset to the base group (the
 // stream masks groups before its start to 0). One launch takes the nd
-// shards of a batch, n rows each: block b is tile b mod (n/T) of shard d =
+// shards of a batch, n rows each: tile b is tile b mod (n/T) of shard d =
 // b / (n/T), whose base is the batch's group counter on the card plus goff
 // + d n/64 groups. The rows are one stream over the shards (row sr of the
 // launch is row sr - d n of shard d, n a multiple of 64), so the junction
-// handoff runs across the shards as within them. The stream's first row relative to a
-// shard's base (t_min) follows from that base here: where a block can
-// reach it (shard 0 of the first batch) it is -64 * base, else far in the
-// past (kFarPast, which no block reaches). The blocks count rows from the
-// first shard's base (t0 = b T), so each writes its audio at its place in
-// the one (nd n/decim, M) output.
+// handoff runs across the shards as within them. The stream's first row
+// relative to a shard's base (t_min) follows from that base (k6_t_min):
+// where a block can reach it (shard 0 of the first batch) it is -64 *
+// base, else far in the past (kFarPast, which no block reaches). The blocks
+// count rows from the first shard's base (t0 = b T), so each writes its
+// audio at its place in the one (nd n/decim, M) output.
 constexpr int kFarPast = -(1 << 30);
 
-template <int kW, int kAG>
-__global__ void __launch_bounds__(kW ? kThreads : kWideThreadsK6)
+__device__ __forceinline__ int k6_t_min(const long long* group,
+                                        long long goff, int d, int n) {
+  const long long shift = (long long)d * n;  // shard d's first row
+  const long long g = (long long)philox::group_at(
+      group, goff + shift / philox::kGroupRows);  // shard d's base
+  return g <= 0 ? (int)shift
+         : g >= (1LL << 24) ? kFarPast
+                            : (int)(shift - g * philox::kGroupRows);
+}
+
+template <int kAG>
+__global__ void __launch_bounds__(kThreads)
 fm_chain_gen_warm_kernel(philox::Stream s, const long long* __restrict__ group,
                          long long goff, const float* __restrict__ amp,
                          float* hand, unsigned* flags, const Chain p) {
   extern __shared__ __align__(16) float buf[];
   const int tile = hand ? take_tile(flags, buf) : (int)blockIdx.x;
-  const int d = tile / (p.n / p.T);
-  const long long shift = (long long)d * p.n;  // shard d's first row
-  const long long g = (long long)philox::group_at(
-      group, goff + shift / philox::kGroupRows);  // shard d's base
-  const int t_min = g <= 0 ? (int)shift
-                    : g >= (1LL << 24) ? kFarPast
-                                       : (int)(shift - g * philox::kGroupRows);
+  const int t_min = k6_t_min(group, goff, tile / (p.n / p.T), p.n);
   s.g0 = philox::group_at(group, goff);  // row 0 of the launch
-  rebuilt_tile<kW, kFull, kAG, kWideThreadsK6>(
+  rebuilt_tile<kFull, kAG>(
       buf, p, t_min,
-      GenRows<kW>{s, amp[0], nullptr, nullptr, p.H8, p.n, p.w, hand, flags},
+      GenRows<kFlagW>{s, amp[0], nullptr, nullptr, p.H8, p.n, p.w, hand,
+                      flags},
       tile);
+}
+
+// The wide kernels (chain_tile_wide, 2M > 128 lanes): a block a segment,
+// nb tiles and the junction, its segment from the ticket.
+template <int kP>
+__global__ void __launch_bounds__(wide_threads(kP))
+fm_chain_wide_kernel(const float* __restrict__ vb,
+                     const float* __restrict__ halo, int hrows, Hand h, int nb,
+                     Chain p) {
+  extern __shared__ __align__(16) float buf[];
+  const int j = take_tile(h.flags, buf);
+  chain_tile_wide<kP, wide_threads(kP), HaloRows<0>, void>(
+      buf, p, p.t_min, j, nb, halo_rows<0>(vb, halo, hrows, p.w), nullptr, h);
+}
+
+template <int kP>
+__global__ void __launch_bounds__(wide_threads(kP))
+fm_chain_gen_wide_kernel(philox::Stream s, const long long* __restrict__ group,
+                         const float* __restrict__ amp,
+                         const float* __restrict__ carry0,
+                         float* __restrict__ carry_out, Hand h, int nb,
+                         Chain p) {
+  extern __shared__ __align__(16) float buf[];
+  const int j = take_tile(h.flags, buf);
+  s.g0 = philox::group_at(group, 0);
+  const GenRows<0> gen{s, amp[0], carry0, carry_out, p.H8, p.n, p.w, nullptr,
+                       nullptr};
+  chain_tile_wide<kP, wide_threads(kP)>(
+      buf, p, p.t_min, j, nb,
+      RingRows{h.ring + (size_t)j * h.rb * p.w, h.rb, p.w}, &gen, h);
+}
+
+template <int kP>
+__global__ void __launch_bounds__(wide_threads(kP))
+fm_chain_gen_warm_wide_kernel(philox::Stream s,
+                              const long long* __restrict__ group,
+                              long long goff, const float* __restrict__ amp,
+                              Hand h, int nb, const Chain p) {
+  extern __shared__ __align__(16) float buf[];
+  const int j = take_tile(h.flags, buf);
+  const int d = j == 0 ? 0 : (j - 1) / (p.n / p.T);  // the segment's shard
+  const int t_min = k6_t_min(group, goff, d, p.n);
+  s.g0 = philox::group_at(group, goff);  // row 0 of the launch
+  const GenRows<0> gen{s, amp[0], nullptr, nullptr, p.H8, p.n, p.w, nullptr,
+                       nullptr};
+  chain_tile_wide<kP, wide_threads(kP)>(
+      buf, p, t_min, j, nb,
+      RingRows{h.ring + (size_t)j * h.rb * p.w, h.rb, p.w}, &gen, h);
 }
 
 // K3p: a block walks G consecutive tiles of the batch, in the roles of a
@@ -1638,96 +1824,132 @@ bool valid_bands(int ag, int T, int decim) {
   return (ag == 1 || ag == 2 || ag == 4) && T % ag == 0 && (T / ag) % decim == 0;
 }
 
-// One chain kernel (K3, K5 or K6) at kW lanes and the audio stage's bands
-// `ag`: the instance of the kernel template for them, with the shared
-// memory it takes. Used inside a function templated on kW (0: the width
-// p.w at run time, blocks of wide_threads); wider than the flagship's 128
-// lanes one instance reads ag from the Chain.
-#define LAUNCH_BANDS(kernel, wide_threads, ag, T, A, L, decim, blocks, stream, \
-                     ...)                                                    \
+// One flagship chain kernel (K3, K5 or K6 at 128 lanes) at the audio
+// stage's bands `ag`: the instance of the kernel template for them, with
+// the shared memory it takes.
+#define LAUNCH_BANDS(kernel, ag, T, A, L, decim, blocks, stream, ...)        \
   {                                                                          \
-    const size_t smem_ = (size_t)chain_smem_floats<kW>(T, A, L, ag, decim,   \
-                                                       p.w) * sizeof(float); \
-    if constexpr (kW == 0) {                                                 \
-      return launch_blocks(kernel<0, 0>, wide_threads, smem_, blocks,        \
-                           stream, __VA_ARGS__);                             \
-    } else if constexpr (kW != kFlagW) {                                     \
-      return launch_tiles(kernel<kW, 0>, smem_, blocks, stream,              \
-                          __VA_ARGS__);                                      \
-    } else {                                                                 \
-      switch (ag) {                                                          \
-        case 1:                                                              \
-          return launch_tiles(kernel<kW, 1>, smem_, blocks, stream,          \
-                              __VA_ARGS__);                                  \
-        case 2:                                                              \
-          return launch_tiles(kernel<kW, 2>, smem_, blocks, stream,          \
-                              __VA_ARGS__);                                  \
-        default:                                                             \
-          return launch_tiles(kernel<kW, 4>, smem_, blocks, stream,          \
-                              __VA_ARGS__);                                  \
-      }                                                                      \
+    const size_t smem_ =                                                     \
+        (size_t)chain_smem_floats<kFlagW>(T, A, L, ag, decim) * sizeof(float); \
+    switch (ag) {                                                            \
+      case 1:                                                                \
+        return launch_tiles(kernel<1>, smem_, blocks, stream, __VA_ARGS__);  \
+      case 2:                                                                \
+        return launch_tiles(kernel<2>, smem_, blocks, stream, __VA_ARGS__);  \
+      default:                                                               \
+        return launch_tiles(kernel<4>, smem_, blocks, stream, __VA_ARGS__);  \
     }                                                                        \
   }
 
-// The launch of a chain kernel at 2M lanes: the instance for the width
-// (M = 64 P, P = 1 .. 7), the run-time one (kW = 0) at P = 8 .. 16, or
-// cudaErrorInvalidValue.
-#define FOR_WIDTH(M, fn, ...)                                     \
-  switch (2 * (M)) {                                              \
-    case 128: return fn<128>(__VA_ARGS__);                        \
-    case 256: return fn<256>(__VA_ARGS__);                        \
-    case 384: return fn<384>(__VA_ARGS__);                        \
-    case 512: return fn<512>(__VA_ARGS__);                        \
-    case 640: return fn<640>(__VA_ARGS__);                        \
-    case 768: return fn<768>(__VA_ARGS__);                        \
-    case 896: return fn<896>(__VA_ARGS__);                        \
-    default:                                                      \
-      if ((M) % 64 || (M) / 64 < 8 || (M) / 64 > 16)             \
-        return (int)cudaErrorInvalidValue;                        \
-      return fn<0>(__VA_ARGS__);                                  \
+// The launch of a chain kernel at M = 64 P channels: the flagship's
+// instances at P = 1 (fn<1>), chain_tile_wide's for P = 2 .. 7 (fn<P>) and
+// its run-time one at P = 8 .. 16 (fn<0>), or cudaErrorInvalidValue.
+#define FOR_WIDTH(M, fn, ...)                                        \
+  switch ((M) % 64 ? 0 : (M) / 64) {                                 \
+    case 1: return fn<1>(__VA_ARGS__);                               \
+    case 2: return fn<2>(__VA_ARGS__);                               \
+    case 3: return fn<3>(__VA_ARGS__);                               \
+    case 4: return fn<4>(__VA_ARGS__);                               \
+    case 5: return fn<5>(__VA_ARGS__);                               \
+    case 6: return fn<6>(__VA_ARGS__);                               \
+    case 7: return fn<7>(__VA_ARGS__);                               \
+    default:                                                         \
+      if ((M) % 64 || (M) / 64 < 8 || (M) / 64 > 16)                \
+        return (int)cudaErrorInvalidValue;                           \
+      return fn<0>(__VA_ARGS__);                                     \
   }
 
-template <int kW>
-int planes_launch(const float* vb, const float* halo, int hrows, int n,
-                  int L, int A, int decim, int T, int ag, void* stream,
-                  const Chain& p) {
-  LAUNCH_BANDS(fm_chain_kernel, kWideThreads, ag, T, A, L, decim, n / T,
-               stream, vb, halo, hrows, p);
-}
-
 // The handoff's flags zeroed on the launch's stream, before it: the
-// ticket counter and one flag a tile (gen_window_handoff).
+// ticket counter and one flag a tile (gen_window_handoff) or segment
+// (chain_tile_wide).
 int handoff_reset(unsigned* flags, int tiles, void* stream) {
   return (int)cudaMemsetAsync(flags, 0, (size_t)(tiles + 1) * sizeof(unsigned),
                               (cudaStream_t)stream);
 }
 
-template <int kW>
+// A wide launch's handoff memory (ops/cuda/fm_chain.py wide_plan lays out
+// the same): nb + 1 slots, then (K5, K6) nb + 1 rings.
+Hand make_hand(float* hand, unsigned* flags, int nb, int W, int A, int L,
+               bool gen) {
+  const int hx = gen ? L - 1 : 0, P = W / 128;
+  const int rb = wide_rows(P > 7 ? 0 : P) + L - 1;
+  const int slot = W + (A - 1) * (W / 2) + hx * W;
+  return Hand{hand, flags,
+              gen && !ring_on_chip(P) ? hand + (size_t)(nb + 1) * slot
+                                      : nullptr,
+              slot, rb};
+}
+
+// A wide kernel's launch over nb tiles: its flags zeroed, then the
+// junction's block and a block a tile.
+template <int kP, class Kernel, class... Args>
+int launch_wide(Kernel kernel, const Chain& p, int nb, void* stream,
+                const Hand& h, Args... args) {
+  if (const int err = handoff_reset(h.flags, nb + 1, stream)) return err;
+  const size_t smem =
+      (size_t)chain_smem_floats<0>(p.T, p.A, p.L, 1, p.decim, p.w) *
+      sizeof(float);
+  return launch_blocks(kernel, wide_threads(kP), smem, nb + 1, stream,
+                       args..., h, nb, p);
+}
+
+template <int kP>
+int planes_launch(const float* vb, const float* halo, int hrows, int n,
+                  int ag, float* hand, unsigned* flags, void* stream,
+                  const Chain& p) {
+  if constexpr (kP == 1) {
+    LAUNCH_BANDS(fm_chain_kernel, ag, p.T, p.A, p.L, p.decim, n / p.T, stream,
+                 vb, halo, hrows, p);
+  } else {
+    const int nb = n / p.T;
+    return launch_wide<kP>(fm_chain_wide_kernel<kP>, p, nb, stream,
+                           make_hand(hand, flags, nb, p.w, p.A, p.L, false),
+                           vb, halo, hrows);
+  }
+}
+
+template <int kP>
 int gen_launch(const philox::Stream& s, const long long* group,
                const float* amp, const float* carry0, float* carry_out, int n,
-               int L, int A, int decim, int T, int ag, float* hand,
-               unsigned* flags, void* stream, const Chain& p) {
-  if (hand)
-    if (const int err = handoff_reset(flags, n / T, stream)) return err;
-  LAUNCH_BANDS(fm_chain_gen_kernel, kWideThreads, ag, T, A, L, decim, n / T,
-               stream, s, group, amp, carry0, carry_out, hand, flags, p);
+               int ag, float* hand, unsigned* flags, void* stream,
+               const Chain& p) {
+  if constexpr (kP == 1) {
+    if (hand)
+      if (const int err = handoff_reset(flags, n / p.T, stream)) return err;
+    LAUNCH_BANDS(fm_chain_gen_kernel, ag, p.T, p.A, p.L, p.decim, n / p.T,
+                 stream, s, group, amp, carry0, carry_out, hand, flags, p);
+  } else {
+    const int nb = n / p.T;
+    return launch_wide<kP>(fm_chain_gen_wide_kernel<kP>, p, nb, stream,
+                           make_hand(hand, flags, nb, p.w, p.A, p.L, true), s,
+                           group, amp, carry0, carry_out);
+  }
 }
 
-template <int kW>
+template <int kP>
 int gen_warm_launch(const philox::Stream& s, const long long* group,
-                    long long goff, int nd, const float* amp, int n, int L,
-                    int A, int decim, int T, int ag, float* hand,
-                    unsigned* flags, void* stream, const Chain& p) {
-  if (hand)
-    if (const int err = handoff_reset(flags, nd * (n / T), stream)) return err;
-  LAUNCH_BANDS(fm_chain_gen_warm_kernel, kWideThreadsK6, ag, T, A, L, decim,
-               nd * (n / T), stream, s, group, goff, amp, hand, flags, p);
+                    long long goff, int nd, const float* amp, int n, int ag,
+                    float* hand, unsigned* flags, void* stream,
+                    const Chain& p) {
+  const int nb = nd * (n / p.T);
+  if constexpr (kP == 1) {
+    if (hand)
+      if (const int err = handoff_reset(flags, nb, stream)) return err;
+    LAUNCH_BANDS(fm_chain_gen_warm_kernel, ag, p.T, p.A, p.L, p.decim, nb,
+                 stream, s, group, goff, amp, hand, flags, p);
+  } else {
+    return launch_wide<kP>(fm_chain_gen_warm_wide_kernel<kP>, p, nb, stream,
+                           make_hand(hand, flags, nb, p.w, p.A, p.L, true), s,
+                           group, goff, amp);
+  }
 }
 
-// K5's and K6's junction handoff: both buffers or neither, at 128 lanes.
+// The junction handoff's buffers: at 128 lanes K5's and K6's, both or
+// neither (none: each block generates its whole window); wider every chain
+// kernel's, both.
 bool valid_handoff(const float* hand, const unsigned* flags, int M) {
-  return (hand == nullptr) == (flags == nullptr) &&
-         (hand == nullptr || 2 * M == kFlagW);
+  return 2 * M == kFlagW ? (hand == nullptr) == (flags == nullptr)
+                         : hand != nullptr && flags != nullptr;
 }
 
 }  // namespace
@@ -1736,13 +1958,15 @@ extern "C" int fm_chain_planes_launch(
     const float* vb, const float* halo, const float* prev0, const float* tail0,
     const float* c2, const float* tw, const float* ataps, float* aud,
     float* prev_out, float* tail_out, int n, int M, int L, int H8, int A,
-    int decim, int T, int ag, int hrows, int t_min, float gain,
-    const float* atan_coeffs, void* stream) {
-  // every block's window must lie in [halo; vb]
+    int decim, int T, int ag, int hrows, int t_min, float* hand,
+    unsigned* flags, float gain, const float* atan_coeffs, void* stream) {
+  // every block's window must lie in [halo; vb]; wider than the flagship,
+  // the handoff's buffers
   if (hrows < H8 || (t_min < 0 && hrows < A + L - 1) ||
-      !valid_bands(ag, T, decim))
+      !valid_bands(ag, T, decim) ||
+      (2 * M != kFlagW && (hand == nullptr || flags == nullptr)))
     return (int)cudaErrorInvalidValue;
-  FOR_WIDTH(M, planes_launch, vb, halo, hrows, n, L, A, decim, T, ag, stream,
+  FOR_WIDTH(M, planes_launch, vb, halo, hrows, n, ag, hand, flags, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
                        n, L, H8, A, decim, T, t_min, gain, atan_coeffs, ag,
                        M));
@@ -1801,8 +2025,8 @@ extern "C" int fm_chain_gen_launch(
       !valid_handoff(hand, flags, M))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 0};
-  FOR_WIDTH(M, gen_launch, s, group, amp, carry0, carry_out, n, L, A, decim,
-            T, ag, hand, flags, stream,
+  FOR_WIDTH(M, gen_launch, s, group, amp, carry0, carry_out, n, ag, hand,
+            flags, stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, prev_out, tail_out,
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
 }
@@ -1820,14 +2044,14 @@ extern "C" int fm_chain_gen_warm_launch(
       !valid_handoff(hand, flags, M))
     return (int)cudaErrorInvalidValue;
   const philox::Stream s{0, k0, k1, draws, mean, inv_std, 1};
-  FOR_WIDTH(M, gen_warm_launch, s, group, goff, nd, amp, n, L, A, decim, T,
-            ag, hand, flags, stream,
+  FOR_WIDTH(M, gen_warm_launch, s, group, goff, nd, amp, n, ag, hand, flags,
+            stream,
             make_chain(prev0, tail0, c2, tw, ataps, aud, nullptr, nullptr,
                        n, L, H8, A, decim, T, 0, gain, atan_coeffs, ag, M));
 }
 
-// K5's and K6's flags zeroed alone, as their launchers zero them before a
-// launch of `tiles` tiles (the probes time it).
+// The handoff's flags zeroed alone, as the launchers zero them before a
+// launch of `tiles` tiles or segments (the probes time it).
 extern "C" int fm_chain_handoff_reset(unsigned* flags, int tiles,
                                       void* stream) {
   return tiles < 1 ? (int)cudaErrorInvalidValue

@@ -1,7 +1,7 @@
 // The planes DFT as a shared-memory FFT, for M = 64 P channels, P = 1 .. 16
 // (64 to 1024): the phase combine of the fused chains (fm_chain.cu: stage 2
-// of chain_tile at P = 1, chain_tile_stream at P = 2 .. 7, chain_tile_wide
-// past it) and of the channelizer front end (channelizer.cu, K1, every P).
+// of chain_tile at P = 1, chain_tile_wide past it) and of the channelizer
+// front end (channelizer.cu, K1, every P).
 //
 // A planes row holds a[k] = re at lane k and im at lane M + k (k < M); the
 // routine replaces it with Y[j] = e^{-2 pi i j/M} sum_k a[k] e^{-2 pi i jk/M}

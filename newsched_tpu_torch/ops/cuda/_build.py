@@ -41,8 +41,8 @@ SIGNATURES = {
                              _I, _I, _I, _P],
     # fm_chain.cu
     "fm_chain_planes_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _P, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                               _P, _F, _P, _P],
     "fm_chain_ablate_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
                                _P],

@@ -47,9 +47,6 @@ from newsched_tpu_torch.ops.cuda.planes_fft import CHANNELS, planes_fft_table
 PRECISIONS = ("split3", "highest", "high", "default")
 WIDTHS = tuple(2 * m for m in CHANNELS)  # planes lanes 2M of K3, K5, K6:
 # M = 64 P, P = 1 .. 16, the planes FFT's widths (planes_fft.CHANNELS)
-STREAM_W = 896  # the widest chain_tile_stream instance (M = 448); past it
-# chain_tile_wide, the width a run-time value
-WIDE_ROWS = 16  # rows a pass of chain_tile_wide (csrc kWideRows)
 FLAGSHIP_W = 128  # K3p's and the ablation's one width (M = 64)
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory an H100 SM holds for its blocks
@@ -126,41 +123,97 @@ def _count_bands(fn, ag: int) -> None:
 
 
 class GenPlan(NamedTuple):
-    """How K5 or K6 is launched: ``blocks`` tiles of ``tile`` rows. At
-    the flagship's 128 lanes each block generates its own rows, publishes
+    """How K5 or K6 is launched at the flagship's 128 lanes: ``blocks``
+    tiles of ``tile`` rows; each block generates its own rows, publishes
     the last ``hand_rows`` (min(tile, A + L - 1)) in device memory and
     copies its junction from the tiles before it (csrc/fm_chain.cu
     gen_window_handoff: from 0.0585 to 0.0551 ms for K5 at 32768 rows on
-    an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6); wider, ``hand_rows``
-    is 0 and each block generates its whole window (``chain_tile_stream``
-    and ``chain_tile_wide`` have no handoff)."""
+    an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)."""
 
     blocks: int
     tile: int
     hand_rows: int
 
 
-def gen_plan(W: int, tile: int, blocks: int, A: int, L: int) -> GenPlan:
+class WidePlan(NamedTuple):
+    """How K3, K5 or K6 is launched past the flagship's 128 lanes
+    (csrc/fm_chain.cu chain_tile_wide): ``blocks`` = the tiles + 1, a
+    block the junction (the A rows before the launch's first), then a
+    block a tile of ``tile`` rows. Each segment publishes in its slot of
+    ``slot`` floats the Y of its last row (2M), its last ``aud_rows`` (A -
+    1) aud rows of M and its last ``in_rows`` input rows of 2M (L - 1 for
+    the generating K5 and K6, 0 for K3, which reads its rows from memory);
+    the block after it takes its junction from there. K5 and K6 make each
+    input row once, into their block's ring of a pass's ``wide_rows`` + L
+    - 1 rows: in shared memory where ``ring_on_chip``, else in device
+    memory, ``ring_rows`` (0 for K3 and where the ring is on chip)."""
+
+    blocks: int
+    tile: int
+    aud_rows: int
+    in_rows: int
+    ring_rows: int
+    slot: int
+
+
+def wide_rows(P: int) -> int:
+    """Rows a pass of chain_tile_wide at M = 64 P (csrc wide_rows): 64 at P
+    = 2, 32 up to P = 7, 16 past it."""
+    return 16 if P >= 8 else 64 if P == 2 else 32
+
+
+def ring_on_chip(P: int) -> bool:
+    """Whether chain_tile_wide at M = 64 P keeps its input rows' ring in
+    shared memory (csrc ring_on_chip): up to P = 4."""
+    return P <= 4
+
+
+def wide_threads(P: int) -> int:
+    """Threads of a chain_tile_wide block at M = 64 P (csrc wide_threads):
+    256 at P = 3 and 4, else 512."""
+    return 256 if P in (3, 4) else 512
+
+
+def wide_plan(W: int, tile: int, tiles: int, A: int, L: int,
+              gen: bool) -> WidePlan:
+    """The launch plan of K3 (``gen`` False) or K5 and K6 past 128 lanes
+    over ``tiles`` tiles of ``tile`` rows at ``W`` lanes. Raises
+    ValueError naming itself for an empty grid or tile."""
+    if tiles < 1 or tile < 1:
+        raise ValueError(f"wide_plan: {tiles} tiles of {tile} rows")
+    hx = L - 1 if gen else 0
+    P = W // 128
+    ring = wide_rows(P) + L - 1 if gen and not ring_on_chip(P) else 0
+    return WidePlan(tiles + 1, tile, A - 1, hx, ring,
+                    W + (A - 1) * (W // 2) + hx * W)
+
+
+def gen_plan(W: int, tile: int, blocks: int, A: int, L: int):
     """The launch plan of K5 and K6 over ``blocks`` tiles of ``tile``
-    rows at ``W`` lanes. A tile shorter than the junction (tile 64
-    against A + L - 1 = 80 rows) is planned like any other: its blocks
+    rows at ``W`` lanes: a GenPlan at 128 lanes, wider a WidePlan
+    (``wide_plan``). A tile shorter than the junction (tile 64 against A
+    + L - 1 = 80 rows) is planned like any other: at 128 lanes its blocks
     wait for the two tiles before. Raises ValueError naming itself for an
     empty grid or tile."""
     if blocks < 1 or tile < 1:
         raise ValueError(f"gen_plan: {blocks} blocks of {tile} rows")
-    return GenPlan(blocks, tile,
-                   min(tile, A + L - 1) if W == FLAGSHIP_W else 0)
+    if W != FLAGSHIP_W:
+        return wide_plan(W, tile, blocks, A, L, True)
+    return GenPlan(blocks, tile, min(tile, A + L - 1))
 
 
-def _handoff_buffers(plan: GenPlan, W: int, dev) -> tuple:
-    """The handoff's device memory for one launch, (None, None) without
-    it: each tile's published rows, then the flags (the tile ticket and
-    one flag a tile, which the launcher zeroes on the launch's stream).
-    Made for the call on the current stream, so launches on other
-    streams, threads or captured graphs share nothing."""
-    if not plan.hand_rows:
-        return None, None
-    nh = plan.blocks * plan.hand_rows * W
+def _handoff_buffers(plan, W: int, dev) -> tuple:
+    """The handoff's device memory for one launch: at 128 lanes (a
+    GenPlan) each tile's published rows, then the flags (the tile ticket
+    and one flag a tile); wider (a WidePlan) every segment's slot, then
+    K5's and K6's rings, then the flags (the ticket and one flag a
+    segment). The launcher zeroes the flags on the launch's stream. One
+    allocation made for the call on the current stream, so launches on
+    other streams, threads or captured graphs share nothing."""
+    if isinstance(plan, WidePlan):
+        nh = plan.blocks * (plan.slot + plan.ring_rows * W)
+    else:
+        nh = plan.blocks * plan.hand_rows * W
     buf = torch.empty(nh + plan.blocks + 1, dtype=torch.float32, device=dev)
     return buf[:nh], buf[nh:].view(torch.int32)
 
@@ -317,11 +370,12 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
         sharded fused graph's step): the audio equals the nd per-shard
         calls', each with the warm + H8 rows before its shard as its halo,
         concatenated, bit for bit, and the tile is picked at n/nd rows as
-        theirs is. One launch takes them all: with warm > 0 every block
-        already rebuilds its junction from the rows before its tile, so
-        over the whole batch with shard 0's halo a block reads what the
-        per-shard launch of its shard reads, where those rows lie in the
-        batch itself. Only the plain version goes shard by shard.
+        theirs is. One launch takes them all: with warm > 0 every row's
+        values depend only on the rows before it, so over the whole batch
+        with shard 0's halo the junction of a shard is the one the
+        per-shard launch of that shard computes from its halo, where those
+        rows lie in the batch itself. Only the plain version goes shard by
+        shard.
 
     Returns (audio (n//decim, M) f32, prev (1, 2M), tail (A-1, 2M)).
 
@@ -370,13 +424,16 @@ def fm_chain_step_planes(vb: torch.Tensor, halo: torch.Tensor,
                                ("halo", halo, (warm + H8, W))],
                          prev0, tail0, consts)
     aud, prev, tail = _chain_outputs(n, decim, M, A, dev)
+    hand, flags = (None, None) if W == FLAGSHIP_W else _handoff_buffers(
+        wide_plan(W, tile, n // tile, A, L, False), W, dev)
     with torch.cuda.device(dev):
         err = _build.lib().fm_chain_planes_launch(
             vb.data_ptr(), halo.data_ptr(), prev0.data_ptr(),
             tail0.data_ptr(), consts.c2.data_ptr(), consts.fft.data_ptr(),
             consts.ataps.data_ptr(), aud.data_ptr(), prev.data_ptr(),
             tail.data_ptr(), n, M, L, H8, A, int(decim), tile, ag, warm + H8,
-            t_min, float(gain), ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
+            t_min, _ptr(hand), _ptr(flags), float(gain),
+            ATAN_COEFFS.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fm_chain_planes_launch")
     fm_chain_step_planes.launches += 1
@@ -484,25 +541,19 @@ def _tile_rows(tile: int, A: int, L: int) -> int:
     return max(-(-(tile + A) // 32) * 32, tile + A + L - 1)
 
 
-def _stream_window_rows(L: int) -> int:
-    """chain_tile_stream's window rows (csrc stream_window_rows): a pass's
-    32 + L-1 input rows, at least 48 (rows 32 .. 47 hold its aud rows)."""
-    return 32 + max(L - 1, 16)
-
-
 def _chain_smem(tile: int, A: int, L: int, ag: int, decim: int,
                 W: int = FLAGSHIP_W) -> int:
     """Shared bytes of a K3, K5 or K6 block (csrc chain_smem_floats): at
     128 lanes the tile buffer, and with ag > 1 room past its tile + A rows
     for K3ag's band table (the buffer's padding holds it at the flagship's
-    shape); up to ``STREAM_W``, chain_tile_stream's window of one pass, the
-    Y row kept for the pass below and the tile's tile/decim x M audio
-    accumulators; wider, chain_tile_wide's 16 folded rows, that Y row and
-    the accumulators."""
-    if W > STREAM_W:
-        return ((WIDE_ROWS + 1) * W + tile // decim * (W // 2)) * 4
+    shape); wider, chain_tile_wide's pass of ``wide_rows`` folded rows, the
+    Y row kept for the pass below, the tile's tile/decim x M audio
+    accumulators, where ``ring_on_chip`` the ring of a pass's input rows,
+    and the A audio taps."""
     if W != FLAGSHIP_W:
-        return ((_stream_window_rows(L) + 1) * W + tile // decim * (W // 2)) * 4
+        rows = wide_rows(W // 128)
+        ring = (rows + L - 1) * W if ring_on_chip(W // 128) else 0
+        return ((rows + 1) * W + tile // decim * (W // 2) + ring + A) * 4
     floats = _tile_rows(tile, A, L) * W
     if ag > 1:
         tg = tile // ag
@@ -723,14 +774,15 @@ def fm_chain_gen_warm_step(g0, amp, consts: FmChainConsts, decim: int,
     finds each shard's stream start from the base it reads.
 
     The reference regenerates its fold halo and recomputes ``warm`` rows of
-    output from a zero junction, then drops them. Each CUDA block here
-    already rebuilds its junction from the rows before its tile, so K6
-    generates exactly those rows (before the base too, groups before the
-    stream reading 0) and computes nothing it drops: ``warm`` is checked
-    as the reference checks it (a multiple of the tile, at least
-    ceil(A/decim)*decim) and not otherwise used. The audio equals K5's at
-    the same rows bit for bit: the same routine on the same rows, and where
-    the shard starts at the stream's first row the same stream-start state.
+    output from a zero junction, then drops them. Here the launch's blocks
+    hand each junction on from the tile before, across the shards too, and
+    the junction before the first shard is computed once from the rows
+    before its base (groups before the stream reading 0), so K6 computes
+    nothing it drops: ``warm`` is checked as the reference checks it (a
+    multiple of the tile, at least ceil(A/decim)*decim) and not otherwise
+    used. The audio equals K5's at the same rows bit for bit: the same
+    routine on the same rows, and where the shard starts at the stream's
+    first row the same stream-start state.
 
     tile: rows per CUDA block, shrunk to a divisor of n_loc; a multiple of
     64 rows and of decim, as the reference requires. Outputs do not depend

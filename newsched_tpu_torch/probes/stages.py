@@ -10,6 +10,7 @@ past the FFT's 513 taps, for the same comparison.
     PYTHONPATH=<tree> python3 <this file> times
     PYTHONPATH=<tree> python3 <this file> sharded
     PYTHONPATH=<tree> python3 <this file> split
+    PYTHONPATH=<tree> python3 <this file> wide [M ...]
     PYTHONPATH=<tree> python3 <this file> s3 [--geometries]
     PYTHONPATH=<tree> python3 <this file> s3split
     PYTHONPATH=<tree> python3 <this file> k3p [--split]
@@ -50,7 +51,8 @@ gets its blocks' own ``r * amp`` and torch.complex build.
 
 ``times`` times, alternating, by CUDA-graph replay: K4 at 32768 x 128
 alone, with the amplitude and as the cf32 stream (in a tree without them,
-the kernel and the blocks' torch ops after it); K3 and K5 at M = 64 on
+the kernel and the blocks' torch ops after it), and with the amplitude at
+16384 x 2M for M = 512 and 1024; K3 and K5 at M = 64 on
 its 32768 rows and K6 over their 4 and 8 shards; K9 at 128, 1024 and 6001
 taps; K1 at M = 320 on 16384 rows (whichever instance the tree routes
 that width to), S3 at 1024 frames of 512 bits, K = 7 (the tree's
@@ -61,6 +63,11 @@ live graphs, the live graph on 4 and 8 shards, the staged graph at M =
 320, 512 and 1024 (16384 rows a batch; a width the tree refuses is
 recorded as its error) and the live fir_chain at 1024 taps (the bench's
 two-point fit).
+
+``wide`` takes K3, K5 and K6 (over 4 shards) at M = 256, 448 and 1024
+(16384 rows) apart: cut copies of ``fm_chain.cu`` (``_WIDE_FORMS``, built
+under ``build/wide/``) stop after the input rows, the fold, the FFT and
+the demod, each timed beside the whole kernel.
 
 ``split`` takes K5 at the flagship's M = 64 (32768 rows) apart beside
 K4: K3 on K4's rows (the chain on a loaded window) and its window alone,
@@ -346,6 +353,171 @@ def split() -> list[dict]:
         recs.append({"plan": fm_chain.gen_plan(2 * M, 128, n // 128, A,
                                                L)._asdict()})
     return recs
+
+
+# The chains past 64 channels cut into stages (``wide``): for each form of
+# csrc/fm_chain.cu's wide routines, (anchor, text put before it, text put
+# after it) a cut behind STAGE; the cuts are cumulative, each leaving the
+# stages below it: 1 the input rows (loaded, or made), 2 + the fold, 3 +
+# the FFT, 4 + the demod, then the audio FIR (the untouched build).
+# "rebuild": each block rebuilds its junction (chain_tile_stream, M = 128
+# .. 448, and chain_tile_wide past it); "handoff": the blocks take their
+# junction from the block before (chain_tile_wide, every M past 64), so
+# every cut keeps the slots and flags the blocks hand over.
+_WIDE_STAGES = ("rows", "fold", "fft", "demod", "full")
+_WIDE_FORMS = {
+    "rebuild": [
+        # chain_tile_wide
+        ("#pragma unroll\n        for (int e = 0; e < kWideRows; ++e) {\n"
+         "          float acc = 0.f;\n          if (e < n && t_first + e >= t_min) {\n"
+         "            acc = c[0] * x[e];",
+         "#if STAGE < 2\n#pragma unroll\n        for (int e = 0; e < kWideRows; ++e)\n"
+         "          tile[e * W + sw(e, k)] = x[e] + x[e + kFoldL - 1];\n"
+         "        continue;\n#endif\n", ""),
+        ("    // 2. Y of the pass's rows (past n: zeros)\n",
+         "#if STAGE < 3\n    continue;\n#endif\n", ""),
+        ("    // 3. demod and audio, position by position, rows r0+hi down to r0+1;",
+         "#if STAGE < 4\n    continue;\n#endif\n", ""),
+        ("        // the outputs o with A + o*decim - (A-1) <= jj <= A + o*decim",
+         "#if STAGE < 5\n        if (v == 1234.5f) oacc[pos] = v;\n"
+         "        continue;\n#endif\n", ""),
+        # chain_tile_stream
+        ("    if (L == kFoldL)\n      fold_pass<W, kFoldL>(",
+         "#if STAGE < 2\n    continue;\n#endif\n", ""),
+        ("    // 2. Y of the 32 rows (past n: zeros)\n",
+         "#if STAGE < 3\n    continue;\n#endif\n", ""),
+        ("    // 3. demod of rows r0+1 .. r0+hi into audb;",
+         "#if STAGE < 4\n    continue;\n#endif\n", ""),
+        ("    // 4. Y[r0] for the pass below; the audio outputs take rows",
+         "#if STAGE < 5\n    continue;\n#endif\n", ""),
+    ],
+    "handoff": [
+        ("#pragma unroll\n      for (int e = 0; e < kWideRows; ++e) {\n"
+         "        float acc = 0.f;\n        if (s0 + e0 + e >= t_min) {",
+         "#if STAGE < 2\n#pragma unroll\n      for (int e = 0; e < kWideRows; ++e)\n"
+         "        tile[(e0 + e) * W + sw(e0 + e, k)] = x[e] + x[e + kFoldL - 1];\n"
+         "      continue;\n#endif\n", ""),
+        ("    fft_wide<kP, kT, kR>(tile, p, pl, tb);\n", "#if STAGE >= 3\n",
+         "#endif\n"),
+        ("            v[i] = demod<kFull>(ar, ai, yr, yi, p);\n",
+         "#if STAGE < 4\n            v[i] = ar + yi;\n#else\n", "#endif\n"),
+        ("  const int A = p.A, decim = p.decim, u_lo = u_hi - cnt + 1;\n",
+         "#if STAGE < 5\n  if (v[0] == 1234.5f) oacc[pos] = v[cnt - 1];\n"
+         "  return;\n#endif\n", ""),
+    ],
+}
+WIDE_SPLIT_M = (256, 448, 1024)  # config #4's width, the widest stream
+# instance's and the widest
+
+
+def _wide_cut_libs(out: Path) -> tuple:
+    """``csrc/fm_chain.cu`` cut at each stage of its wide routines
+    (``_WIDE_FORMS``, whichever form has all its anchors once), built
+    under ``out``, one nvcc a stage, all at once; the form's name and the
+    libraries, STAGE 1 .. 4."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC.glob("*.cuh"):
+        (out / f.name).write_text(f.read_text())
+    text = (_build.CSRC / "fm_chain.cu").read_text()
+    form = next((f for f, cuts in _WIDE_FORMS.items()
+                 if all(text.count(a) == 1 for a, _, _ in cuts)), None)
+    if form is None:
+        raise SystemExit("fm_chain.cu: no form of the wide cuts has all its "
+                         "anchors here once")
+    for anchor, before, after in _WIDE_FORMS[form]:
+        text = text.replace(anchor, before + anchor + after)
+    libs, logs, errors = {}, {}, []
+
+    def build(st):
+        try:
+            build_one(st)
+        except BaseException as e:  # raised again by the caller's thread
+            errors.append(f"STAGE {st}: {e}")
+
+    def build_one(st):
+        src = out / f"fm_chain_s{st}.cu"
+        src.write_text(f"#define STAGE {st}\n" + text)
+        so = out / f"libwide{st}.so"
+        logs[st] = _build._compile([src], so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _build.SIGNATURES.items():
+            if name.startswith("fm_chain"):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+        libs[st] = lib
+
+    threads = [threading.Thread(target=build, args=(st,)) for st in (1, 2, 3, 4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors or len(libs) != 4:
+        raise SystemExit("fm_chain.cu: a stage's cut copy did not build:\n"
+                         + "\n".join(errors))
+    print(json.dumps({"wide_cut_form": form, "registers": re.findall(
+        r"Function properties for \S*?(fm_chain_\w*?kernel\w*)[\s\S]*?Used "
+        r"(\d+) registers", logs[4])}), flush=True)
+    return form, libs
+
+
+def wide(argv=()) -> list[dict]:
+    """K3, K5 and K6 (over the 4 shards of the batch) at WIDE_SPLIT_M (or
+    the widths given) on
+    16384 rows (16 taps an arm, a 65-tap audio FIR by 8) taken apart into
+    the stages of ``_WIDE_STAGES``: each stage's cut copy of
+    ``csrc/fm_chain.cu`` (``_wide_cut_libs``, built under
+    ``build/wide/``) beside the tree's own build, by CUDA-graph replay,
+    forward then backward; each record the best of the two."""
+    L, A, D, n = 16, 65, 8, 16384
+    z = dict(dtype=torch.float32, device="cuda")
+    g0 = torch.tensor(0, dtype=torch.int64, device="cuda")
+    amp = torch.tensor(0.5, **z)
+    box: dict = {}  # the cuts build while the library does
+
+    def cuts():
+        try:
+            box["form"], box["libs"] = _wide_cut_libs(
+                Path(_build.BUILD_DIR).parent / "wide")
+        except BaseException as e:  # raised again below
+            box["error"] = e
+
+    th = threading.Thread(target=cuts)
+    th.start()
+    full = _build.lib()
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    libs = {**{_WIDE_STAGES[st - 1]: lib for st, lib in box["libs"].items()},
+            "full": full}
+    calls = {}
+    for M in [int(a) for a in argv] or WIDE_SPLIT_M:
+        W = 2 * M
+        c = np.ascontiguousarray(pfb.pfb_arm_taps(
+            firdes.prototype_channelizer_taps(M, L), M)[::-1, ::-1].T)
+        cc = fm_chain.fm_chain_consts(c, firdes.low_pass(
+            1.0, 1.0, 0.4 / D, 0.1 / D, ntaps=A), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(M)
+        vb = torch.randn(n, W, device="cuda", generator=gen) * 0.5
+        st = (torch.zeros(16, W, **z), torch.zeros(1, W, **z),
+              torch.zeros(A - 1, W, **z))
+        calls[f"K3 M={M}"] = (lambda vb=vb, st=st, cc=cc:
+                              fm_chain.fm_chain_step_planes(vb, *st, cc, D,
+                                                            0.5))
+        calls[f"K5 M={M}"] = (lambda st=st, cc=cc: fm_chain.fm_chain_gen_step(
+            g0, amp, *st, cc, D, 0.5, n))
+        calls[f"K6 M={M} 4 shards"] = (
+            lambda cc=cc: fm_chain.fm_chain_gen_warm_step(
+                g0, amp, cc, D, 0.5, n // 4, warm=512, nd=4))
+    ms: dict = {}
+    order = [(k, s) for k in calls for s in _WIDE_STAGES]
+    try:
+        for k, s in order + order[::-1]:
+            _build.lib = (lambda lib=libs[s]: lib)
+            ms.setdefault((k, s), []).append(graph_ms(calls[k]))
+    finally:
+        _build.lib = lambda: full
+    return [{"kernel": k, "stage": s, "form": box["form"], "ms": min(v),
+             "ms_all": v} for (k, s), v in ms.items()]
 
 
 # S3's routes that the block instance takes (chip_smoke.py S3_ROUTES): name,
@@ -1011,6 +1183,9 @@ def times() -> list[dict]:
         calls[f"K6 M=64 {nd} shards"] = (
             lambda nd=nd: fm_chain.fm_chain_gen_warm_step(
                 g0, amp, cc64, 8, 0.5, 32768 // nd, warm=512, nd=nd))
+    for M in (512, 1024):  # K4 at the chains' widths, beside K5 and K6
+        calls[f"K4 amp 16384x{2 * M}"] = (
+            lambda M=M: _k4(g0, amp, n_rows=16384, width=2 * M))
     for M in (128, 256, 320, 448, 512, 1024):  # the chains, 16384 rows
         W = 2 * M
         c = np.ascontiguousarray(pfb.pfb_arm_taps(
@@ -1191,13 +1366,19 @@ def _wide_chain_width(M: int, L: int, A: int, D: int, n: int) -> dict:
     res[f"K6 M={M}"] = fm_chain.fm_chain_gen_warm_step(
         grp, amp, consts, D, 0.5, n // 4, warm=512,
         goff=3 * (n // 4) // 64).cpu()
+    if M == 512:  # K3 at warm > 0 over the 4 shards of a batch, one launch
+        zp, zt = torch.zeros(1, W, **z), torch.zeros(A - 1, W, **z)
+        res[f"K3 M={M}/warm/nd4"] = fm_chain.fm_chain_step_planes(
+            rows[n:].contiguous(), rows[n - 512 - 16:n].contiguous(), zp, zt,
+            consts, D, 0.5, warm=512, nd=4)[0].cpu()
     return res
 
 
 def _wide_chain_outputs() -> dict:
     """K3 (two carried batches), K3ag (ag = 2), K5 and K6 (a shard of 4096
     rows at shard 3) at M = 128 .. 448, 512 and 1024 on seeded rows of
-    16384 (a width the tree refuses skipped), and S3 on
+    16384 (a width the tree refuses skipped), K3 at warm > 0 over the 4
+    shards of a batch at M = 512, and S3 on
     256 seeded frames of 512 bits at K = 3, 7, 11 and 12 (on 16 frames at
     K = 15)."""
     L, A, D, n = 16, 65, 8, 16384
@@ -1417,6 +1598,7 @@ def main(argv) -> int:
             times() if argv[:1] == ["times"] else
             sharded_steps() if argv[:1] == ["sharded"] else
             split() if argv[:1] == ["split"] else
+            wide(argv[1:]) if argv[:1] == ["wide"] else
             s3split() if argv[:1] == ["s3split"] else
             s3(argv[1:]) if argv[:1] == ["s3"] else
             k3p(argv[1:]) if argv[:1] == ["k3p"] else outputs(argv[1:]))

@@ -284,10 +284,11 @@ def test_cuda_wrappers_refuse_consts_without_the_table(kernel):
 def test_chain_kernels_plan_every_fft_width(kernel, M):
     """At the flagship's A = 65, L = 16, decim 8 and batch, K3, K5 and K6
     plan M = 128 .. 1024: the default tile of 128 rows, whose block fits the
-    H100's shared memory (up to M = 448 chain_tile_stream's layout: one
-    pass's window of 48 rows, the Y row kept for the pass below and the
-    tile's 16 x M audio accumulators; past it chain_tile_wide's 16 folded
-    rows a pass, that Y row and the accumulators), every check passed up to
+    H100's shared memory (chain_tile_wide's layout at every one of them:
+    its folded rows a pass, 64 at M = 128, 32 up to M = 448 and 16 past
+    it, the Y row kept for the pass below, the tile's 16 x M audio
+    accumulators, up to M = 256 a ring of a pass's input rows, and the A
+    audio taps), every check passed up to
     the tensors' device, which the meta tensors here fail. K3p and the
     ablation stay at M = 64 and say so; M = 1088 (past 1024) is refused
     naming ROADMAP.md Queue 3, R1."""
@@ -298,8 +299,9 @@ def test_chain_kernels_plan_every_fft_width(kernel, M):
                               64 if kernel == "K6" else decim)
     smem = fm_chain._chain_smem(tile, A, L, 1, decim, W)
     assert tile == 128
-    rows = 48 if M <= 448 else 16
-    assert smem == ((rows + 1) * W + tile // decim * M) * 4
+    rows = 64 if M == 128 else 32 if M <= 448 else 16
+    ring = (rows + L - 1) * W if M <= 256 else 0
+    assert smem == ((rows + 1) * W + tile // decim * M + ring + A) * 4
     assert fm_chain._chain_smem(64, A, L, 1, decim, W) <= smem \
         <= fm_chain._SMEM_MAX
     fm_chain._check_kernel_shape(W, tile, A, L, 1, decim)
@@ -369,6 +371,13 @@ def test_chain_plain_versions_at_320_match_reference(kernel):
     noise rows, K5 on its generated rows, K6 on a shard's window at group
     5 (warm 128 rows, the reference's recompute from a zero junction)."""
     _chain_plain_vs_reference(kernel, 320)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])
+def test_chain_plain_versions_at_256_match_reference(kernel):
+    """The same at M = 256 (P = 4, BASELINE config #4's 256-channel
+    channelizer), two tiles' rows a batch."""
+    _chain_plain_vs_reference(kernel, 256)
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K5", "K6"])

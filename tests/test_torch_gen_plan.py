@@ -1,5 +1,6 @@
-"""The launch plan of the generating chain kernels K5 and K6
-(``ops/cuda/fm_chain.py`` ``gen_plan``, ``_handoff_buffers``) and the
+"""The launch plan of the generating chain kernels K5 and K6, and past
+128 lanes of K3 too (``ops/cuda/fm_chain.py`` ``gen_plan``,
+``wide_plan``, ``_handoff_buffers``) and the
 counters of their four-lane row source (``csrc/fm_chain.cu`` ``GenRows``),
 on the CPU: the plan at the flagship's rows and over its 4 and 8 shards,
 the tile-64 junction planned, each launch's handoff memory its own, a
@@ -46,11 +47,43 @@ def test_each_launch_has_its_own_flags():
     assert f2.untyped_storage().data_ptr() == h2.untyped_storage().data_ptr()
 
 
-def test_wide_instances_take_no_handoff():
-    for w in (256, 896, 1024, 2048):
-        plan = fm_chain.gen_plan(w, 64, 256, A, L)
-        assert plan.hand_rows == 0
-        assert fm_chain._handoff_buffers(plan, w, "meta") == (None, None)
+@pytest.mark.parametrize("w", [w for w in fm_chain.WIDTHS if w != W])
+def test_wide_instances_hand_over_the_junction(w):
+    """Past 128 lanes every chain kernel hands its junction over
+    (csrc/fm_chain.cu chain_tile_wide): at the flagship's batch of 16384
+    rows and tile of 128, a block the junction and a block a tile; a slot
+    a block holding Y of its last row, its last A-1 aud rows of M and (K5,
+    K6) its last L-1 input rows; K5's and K6's rings of a pass's rows (64
+    at M = 128, 32 up to M = 448, 16 past it) + L-1, in shared memory up
+    to M = 256, else in device memory; the flags the ticket and one a
+    block; the
+    tile fitted to the block's shared memory (_chain_smem, _fit_tile)
+    within _SMEM_MAX, as at tile 64."""
+    M, tiles = w // 2, 16384 // 128
+    rows = 16 if M >= 512 else 64 if M == 128 else 32
+    assert fm_chain.wide_rows(M // 64) == rows
+    tile = fm_chain._fit_tile(128, w, A, L, 8, 8)
+    assert tile == 128
+    smem = fm_chain._chain_smem(tile, A, L, 1, 8, w)
+    ring = (rows + L - 1) * w
+    on_chip = M <= 256
+    assert fm_chain.ring_on_chip(M // 64) == on_chip
+    assert smem == ((rows + 1) * w + tile // 8 * M + A
+                    + (ring if on_chip else 0)) * 4 <= fm_chain._SMEM_MAX
+    assert fm_chain._chain_smem(64, A, L, 1, 8, w) < smem
+    for gen in (False, True):
+        plan = (fm_chain.gen_plan(w, tile, tiles, A, L) if gen else
+                fm_chain.wide_plan(w, tile, tiles, A, L, False))
+        hx = L - 1 if gen else 0
+        assert plan == (tiles + 1, tile, A - 1, hx,
+                        rows + L - 1 if gen and not on_chip else 0,
+                        w + (A - 1) * M + hx * w)
+        hand, flags = fm_chain._handoff_buffers(plan, w, "meta")
+        assert hand.shape == ((tiles + 1) * (plan.slot + plan.ring_rows * w),)
+        assert hand.dtype == torch.float32
+        assert flags.shape == (tiles + 2,) and flags.dtype == torch.int32
+    with pytest.raises(ValueError, match="wide_plan: 0 tiles of 128 rows"):
+        fm_chain.wide_plan(w, 128, 0, A, L, False)
 
 
 @pytest.mark.parametrize("blocks,tile", [(0, 128), (4, 0)])
@@ -117,3 +150,16 @@ def test_window_cut_anchors_once():
     anchor, cut = stages._WINDOW_CUT
     assert (_build.CSRC / "fm_chain.cu").read_text().count(anchor) == 1
     assert cut.startswith("#if STAGE < 2") and "return;" in cut
+
+
+def test_wide_cut_anchors_once():
+    """``probes/stages.py wide`` cuts ``csrc/fm_chain.cu``'s wide routine at
+    anchors of its handoff form, each of which must be there once, and
+    each cut sits behind STAGE."""
+    from newsched_tpu_torch.ops.cuda import _build
+    from newsched_tpu_torch.probes import stages
+
+    text = (_build.CSRC / "fm_chain.cu").read_text()
+    cuts = stages._WIDE_FORMS["handoff"]
+    assert [text.count(anchor) for anchor, _, _ in cuts] == [1] * len(cuts)
+    assert all("STAGE" in before for _, before, _ in cuts)
