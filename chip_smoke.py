@@ -266,12 +266,14 @@ Phases (each failure raises, so the script exits nonzero):
      batches with tags: >= 120 dB against the unsharded filter, tag offsets
      exact;
  47. config #1 staged, fused, folded and live with deemph_tau=75e-6 in
-     graph mode: >= 60 dB against the float64 golden de-emphasised; the
-     de-emphasis (iir_filter at 104448 samples) timed beside K10, and the
-     fused step with and without it;
- 48. AGC, an order-4 Butterworth iir_filter, the fft block and math and
-     streamops blocks on the card against their CPU runs; the AGC's and
-     the rotator's state constructors on the card by default;
+     graph mode: >= 60 dB against the float64 golden de-emphasised, S4
+     counted; the de-emphasis (iir_filter at 104448 samples: S4) timed
+     beside its plain version (the chunk form) on the card and K10, and
+     the fused step with and without it;
+ 48. AGC (S5), an order-4 Butterworth iir_filter (S4), the fft block and
+     math and streamops blocks on the card against their CPU runs, S4 and
+     S5 counted; the AGC's and the rotator's state constructors on the
+     card by default;
  49. the channelizer past 256 channels on its main path: the staged
      fm_channelizer in graph mode at M = 320, 512 and 1024
      (pfb_channelize's "auto" takes K1, counted; K7 never), >= 60 dB each,
@@ -316,7 +318,7 @@ Phases (each failure raises, so the script exits nonzero):
      over 8 batches of 2^20 samples in graph mode: the sent symbols from
      symbol 2000 at the link's lag in every batch, but at the 36 symbols
      where the reference's receiver errs on the same stream, and there the
-     same errors; S1 and S2 launched;
+     same errors; S1, S2 and S5 (the AGC) launched;
      graph mode bit-equal to the loop at batches of 2^18, which equal
      batches of 2^20; the step's two-point time, loop time and profile;
  53. the FEC link (cc_encoder, BPSK + AWGN, cc_decoder: S3) over 8
@@ -382,12 +384,32 @@ Phases (each failure raises, so the script exits nonzero):
      the complex step also >= 60 dB against the float64 golden, K3, K6,
      K10, K12 and K9 once a batch a rank and K1 once a shard, then each
      rank's ms a batch over 64 batches, the ring and the corner turn's
-     copies and gloo apart, and the one-process 8-shard steps' times.
+     copies and gloo apart, and the one-process 8-shard steps' times;
+ 64. S4 iir_filter and S5 agc (csrc/scan.cu), one launch a call: S4
+     streamed in batches of 104448, 3 and 104445 (the order-4 and -16
+     states longer than the middle batch) at config #1's de-emphasis, an
+     order-4 Butterworth, order 16, a cf32 stream (order 3) and 33
+     feed-forward taps (the FIR as a torch op first), >= 100 dB against
+     its plain version (the chunk form) on the card and > 80 dB against
+     scipy float64; the de-emphasis at 9 x 2^19 + 5 samples (past 32
+     groups of tiles), >= 100 dB against its plain version; poles at
+     0.765, 0.99 and 0.999 in batches of 3, 1000 and 104448, >= 80 dB
+     against scipy; S5 at 2^20 cf32 samples (and rf32, and cf32 at 9 x 2^19
+     + 5) in three batches, with and without max_gain, rate and
+     reference as host numbers and as 0-dim tensors, >= 100 dB against its
+     plain version (the doubling scan) on the card and the carried gain
+     within 1e-5; both captured in one CUDA graph and replayed twice, the
+     outputs bit-equal to each other and to an eager call, the ticket
+     counters whole launches after each; the AGC's rate changed in
+     its tensor and the graph replayed, the output equal to an eager call
+     at the new rate; fm_preemph -> fm_deemph in graph mode against its
+     CPU run (>= 100 dB), S4 counted; each kernel's time by CUDA-graph
+     replay beside its plain version's, in turns, and its bound.
 
 ``python3 chip_smoke.py --phases 59-62`` builds the kernels and runs
 phases 59-62 alone, checked as in the whole run, and prints their
-numbers as one JSON line, with no result line; ``--phases 63`` does the
-same for phase 63.
+numbers as one JSON line, with no result line; ``--phases 63`` and
+``--phases 64`` do the same for phase 63 and phase 64.
 
 Kernel times are device times: 10 calls captured in a CUDA graph and the
 graph replayed under CUDA events (median of 30), so the host's launch
@@ -3550,22 +3572,29 @@ def phase_sharded_fir(torch) -> float:
 def phase_deemph(torch, wb: dict, card: str, k10_ms: float) -> dict:
     """47. Config #1 staged, fused, folded and live with deemph_tau=75e-6,
     4 batches each in graph mode: >= 60 dB against the float64 golden
-    followed by a float64 lfilter of the emphasis taps; the de-emphasis
-    (fm_deemph's iir_filter at a batch's 104448 audio samples) timed by
-    CUDA-graph replay beside K10; the fused step with and without it."""
+    followed by a float64 lfilter of the emphasis taps, S4 counted; the
+    de-emphasis (fm_deemph's iir_filter at a batch's 104448 audio samples,
+    S4) timed by CUDA-graph replay beside its plain version (the chunk
+    form) on the card and K10; the fused step with and without it."""
     import scipy.signal as sig
 
     from newsched_tpu_torch import bench
     from newsched_tpu_torch.blocks import analog
     from newsched_tpu_torch.ops import iir
+    from newsched_tpu_torch.ops.cuda import scan as kscan
     from newsched_tpu_torch.testing import snr_db
 
     b, a = analog._emphasis_taps(WB_FS / WB_D / WB_RD, DEEMPH_TAU, None, True)
     ref = sig.lfilter(b, a, wb["ref"])
     out = {}
+    launches = 0
     for kind in ("staged", "fused", "folded", "live"):
         fg, blks = wb_graph(kind, 4, deemph_tau=DEEMPH_TAU)
+        kscan.iir_scan.launches = 0
         r = fg.run(device="cuda")
+        launches += kscan.iir_scan.launches
+        require(kscan.iir_scan.launches > 0, f"wbfm {kind} de-emphasised: "
+                f"S4 never launched")
         got = blks["sink"].data()
         snr = snr_db(ref[:len(got)], got)
         log(f"wbfm {kind} with de-emphasis (tau 75 us), graph mode: "
@@ -3578,9 +3607,15 @@ def phase_deemph(torch, wb: dict, card: str, k10_ms: float) -> dict:
     ff, fb = iir.lfilter_taps(b, a)
     n = WB_NAUD * 64
     c = iir.iir_consts(ff, fb, n, "cuda")
+    cp = iir.chunk_consts(ff, fb, n, "cuda")
     s0 = iir.iir_init_state(len(ff), len(fb), "cuda")
     xa = torch.randn(n, device="cuda")
-    de_ms = graph_ms(lambda: iir.iir_filter(ff, fb, s0, xa, consts=c))
+    # both by CUDA-graph replay, in turns (alternate's "plain" is no
+    # "... plain" name, so it is not timed with the host's launches)
+    t = alternate({
+        "plain": lambda: iir.iir_filter_plain(ff, fb, s0, xa, consts=cp),
+        "S4": lambda: iir.iir_filter(ff, fb, s0, xa, consts=c)})
+    de_ms, plain_ms = min(t["S4"]), min(t["plain"])
     steps = {}
     for tau in (None, DEEMPH_TAU):
         sps = bench.timed_two_point(
@@ -3589,18 +3624,23 @@ def phase_deemph(torch, wb: dict, card: str, k10_ms: float) -> dict:
             f"graph mode wbfm fused, deemph {tau}", WB_BATCH, n_best=3,
             k1=GRAPH_K[0], k2=GRAPH_K[1])
         steps[tau] = WB_BATCH / sps * 1e3
-    log(f"de-emphasis: iir_filter at {n} audio samples (chunk "
-        f"{c.C}, {c.K} chunks) {de_ms:.4f} ms by CUDA-graph replay, beside "
-        f"K10 {k10_ms:.4f} ms; wbfm fused graph-mode step {steps[None]:.4f} "
-        f"ms, with de-emphasis {steps[DEEMPH_TAU]:.4f} ms [{card}]")
-    return {"snr": out, "ms": de_ms, "steps": steps}
+    log(f"de-emphasis: iir_filter at {n} audio samples, S4 {t['S4']} ms by "
+        f"CUDA-graph replay ({kscan.n_tiles(n)} tiles), its plain version "
+        f"(the chunk form, chunk {cp.C}, {cp.K} chunks) {t['plain']} ms the "
+        f"same way, beside K10 {k10_ms:.4f} ms; S4 launched {launches} "
+        f"times in the 4 graphs; wbfm fused graph-mode step "
+        f"{steps[None]:.4f} ms, with de-emphasis {steps[DEEMPH_TAU]:.4f} ms "
+        f"[{card}]")
+    return {"snr": out, "ms": de_ms, "plain_ms": plain_ms, "steps": steps,
+            "launches": launches}
 
 
-def phase_dsp_blocks(torch) -> None:
+def phase_dsp_blocks(torch) -> dict:
     """48. The block library's DSP half on the card against its CPU run,
-    4 batches in graph mode, within the tolerance of its CPU test: AGC and
-    an order-4 Butterworth iir_filter (>= 100 dB), the fft block (1e-6 of
-    max|out|), math (1e-6) and streamops (exact) blocks."""
+    4 batches in graph mode, within the tolerance of its CPU test: AGC (S5)
+    and an order-4 Butterworth iir_filter (S4) (>= 100 dB), the fft block
+    (1e-6 of max|out|), math (1e-6) and streamops (exact) blocks. Returns
+    S4's and S5's launches."""
     import scipy.signal as sig
 
     from newsched_tpu_torch.blocks import analog, fft, filter as filt, \
@@ -3629,6 +3669,9 @@ def phase_dsp_blocks(torch) -> None:
             return snk.data()
         return run("cuda"), run("cpu")
 
+    from newsched_tpu_torch.ops.cuda import scan as kscan
+
+    kscan.iir_scan.launches = kscan.agc_scan.launches = 0
     cases = {
         "agc": (chain(xc, lambda: analog.agc(rate=1e-3), "cf32"), "snr"),
         "iir_filter": (chain(xr, lambda: filt.iir_filter(ff, fb), "rf32"),
@@ -3646,6 +3689,11 @@ def phase_dsp_blocks(torch) -> None:
         "delay": (chain(xr, lambda: streamops.delay(77, dtype="rf32"),
                         "rf32"), "exact"),
     }
+    launches = {"S4": kscan.iir_scan.launches, "S5": kscan.agc_scan.launches}
+    log(f"blocks on the card: S4 launched {launches['S4']} times "
+        f"(iir_filter), S5 {launches['S5']} (agc)")
+    require(min(launches.values()) > 0, f"blocks: S4 or S5 never launched "
+            f"({launches})")
     for name, ((gpu, cpu), how) in cases.items():
         require(gpu.shape == cpu.shape and len(gpu) > 0,
                 f"{name}: shapes {gpu.shape} {cpu.shape}")
@@ -3665,6 +3713,7 @@ def phase_dsp_blocks(torch) -> None:
             analog_ops.rotator_init_state().phase.device.type)
     log(f"agc_init_state() and rotator_init_state() with no argument: on {devs}")
     require(devs == ("cuda", "cuda"), f"state constructors default to {devs}")
+    return launches
 
 
 K1_DENSE_MS_M320 = 1.6574   # K1 at M = 320 as its dense instance (PERF.md)
@@ -4444,7 +4493,7 @@ MM_OPS = 6 + 2 + 10 + 10
 
 def phase_qpsk_link(torch, card: str) -> dict:
     """52. The QPSK link at full width in graph mode: qpsk_tx on the card,
-    the channel, qpsk_receiver (AGC, 44-tap RRC matched filter, S2 at sps 4,
+    the channel, qpsk_receiver (AGC (S5), 44-tap RRC matched filter, S2 at sps 4,
     S1 at loop_bw 0.06, decisions, diff decoder) over 4 batches of 2^20
     samples: symbols equal to the sent ones from symbol 2000 at the lag in
     every batch but at the 36 where the reference's receiver errs on this
@@ -4454,7 +4503,7 @@ def phase_qpsk_link(torch, card: str) -> dict:
     from newsched_tpu_torch import bench
     from newsched_tpu_torch.blocks import general
     from newsched_tpu_torch.models import qpsk_receiver
-    from newsched_tpu_torch.ops.cuda import loops as kloops
+    from newsched_tpu_torch.ops.cuda import loops as kloops, scan as kscan
     from newsched_tpu_torch.runtime.graph import Flowgraph
 
     syms, rx = qpsk_stream(torch)
@@ -4464,12 +4513,13 @@ def phase_qpsk_link(torch, card: str) -> dict:
     r = fg.run(device="cuda")
     require(r._chunk is not None or QPSK_BATCHES < 2, "QPSK: no graph mode")
     launches = {"costas_loop": kloops.costas_loop.launches,
-                "clock_recovery_mm": kloops.clock_recovery_mm.launches}
+                "clock_recovery_mm": kloops.clock_recovery_mm.launches,
+                "agc_scan": kscan.agc_scan.launches}
     got = b["sink"].data()
     log(f"QPSK link, {QPSK_BATCHES} batches of {QPSK_BATCH} samples in graph "
         f"mode: launches {launches}")
     require(all(v > 0 for v in launches.values()),
-            "QPSK link: S1 or S2 never launched")
+            "QPSK link: S1, S2 or S5 never launched")
     qpsk_check(got, syms[:len(got)], "QPSK link, graph mode")
 
     def build(batch):
@@ -4480,7 +4530,8 @@ def phase_qpsk_link(torch, card: str) -> dict:
 
     loop_out, _ = graph_vs_loop(build(QPSK_BATCH // 4), "QPSK link at 2^18",
                                 ["costas_loop.launches",
-                                 "clock_recovery_mm.launches"])
+                                 "clock_recovery_mm.launches",
+                                 "agc_scan.launches"])
     small = loop_out[:len(got)]
     require(np.array_equal(small, got[:len(small)]),
             "QPSK link: batches of 2^18 differ from batches of 2^20")
@@ -5875,14 +5926,286 @@ def phase_process_mesh(torch, fm_chain, card: str) -> dict:
             "ranks": reps, "one process": one, "complex dB": snr_c}
 
 
+# -- 64. S4 and S5, the hand kernels of the reference's associative scans ---
+
+SCAN_N = WB_NAUD * 64      # config #1's audio samples a batch (104448)
+SCAN_SIZES = (SCAN_N, 3, SCAN_N - 3)  # batches, the state carried
+SCAN_GATE_DB = 100.0       # against the plain versions (phase 48's gate)
+SCAN_GOLD_DB = 80.0        # S4 against scipy float64 (tests/test_torch_iir.py)
+SCAN_POLES = (0.765, 0.99, 0.999)     # tests/test_torch_iir.py:84's cases
+SCAN_POLE_BATCHES = (3, 1000, SCAN_N)
+SCAN_LONG = (9 << 19) + 5  # 2305 tiles: past 32 groups of 64
+
+
+def scan_filters() -> dict:
+    """S4's cases: (ff, fb, complex stream) a name, float32 host taps."""
+    import scipy.signal as sig
+
+    from newsched_tpu_torch.blocks import analog
+    from newsched_tpu_torch.ops import iir
+
+    r, th = np.linspace(0.6, 0.8, 8), np.linspace(0.2, 2.9, 8)
+    poles = np.concatenate([r * np.exp(1j * th), r * np.exp(-1j * th)])
+    ff33 = (np.random.default_rng(33).standard_normal(33) / 33).astype(
+        np.float32)
+    return {
+        "deemph": (*iir.lfilter_taps(*analog._emphasis_taps(
+            WB_FS / WB_D / WB_RD, DEEMPH_TAU, None, True)), False),
+        "butter4": (*iir.lfilter_taps(*sig.butter(4, 0.2)), False),
+        "order16": (*iir.lfilter_taps(np.ones(1), np.real(np.poly(poles))),
+                    False),
+        "cf32": (*iir.lfilter_taps(*sig.butter(3, 0.1)), True),
+        "ff33": (ff33, iir.lfilter_taps(*sig.butter(2, 0.3))[1], False),
+    }
+
+
+def s4_stream(torch, ff, fb, x: np.ndarray, sizes, plain: bool):
+    """x through iir_filter on the card in batches of ``sizes``, the state
+    carried: S4, or its plain version (the chunk form) with ``plain``."""
+    from newsched_tpu_torch.ops import iir
+
+    xt = torch.from_numpy(x).cuda()
+    st = iir.iir_init_state(len(ff), len(fb), "cuda", xt.dtype)
+    fn, mk = ((iir.iir_filter_plain, iir.chunk_consts) if plain
+              else (iir.iir_filter, iir.iir_consts))
+    consts, outs, i = {}, [], 0
+    for b in sizes:
+        if b not in consts:
+            consts[b] = mk(ff, fb, b, "cuda")
+        st, y = fn(ff, fb, st, xt[i:i + b], consts=consts[b])
+        outs.append(y)
+        i += b
+    return torch.cat(outs).cpu().numpy(), st
+
+
+def s5_stream(torch, x: np.ndarray, sizes, rate, ref, max_gain, plain: bool):
+    """x through agc on the card in batches of ``sizes`` from a gain of
+    1.3: S5 (a workspace a batch length, as the block keeps them), or its
+    plain version (the doubling scan)."""
+    from newsched_tpu_torch.ops import agc
+    from newsched_tpu_torch.ops.cuda import scan as kscan
+
+    xt = torch.from_numpy(x).cuda()
+    st = agc.agc_init_state(1.3, "cuda")
+    ws, outs, i = {}, [], 0
+    for b in sizes:
+        if plain:
+            st, y = agc.agc_plain(st, xt[i:i + b], rate, ref, max_gain)
+        else:
+            ws.setdefault(b, kscan.agc_workspace(b, "cuda"))
+            st, y = agc.agc(st, xt[i:i + b], rate, ref, max_gain,
+                            workspace=ws[b])
+        outs.append(y)
+        i += b
+    return torch.cat(outs).cpu().numpy(), float(st.gain)
+
+
+def phase_scan(torch, card: str) -> dict:
+    """64. S4 and S5 against their plain versions and scipy, a captured
+    graph replayed and a rate changed in it, the emphasis blocks in graph
+    mode, and the kernels' times (module docstring)."""
+    import scipy.signal as sig
+
+    from newsched_tpu_torch.blocks import analog, general
+    from newsched_tpu_torch.ops import agc, iir
+    from newsched_tpu_torch.ops.cuda import scan as kscan
+    from newsched_tpu_torch.runtime.graph import Flowgraph
+    from newsched_tpu_torch.testing import snr_db
+
+    rng = np.random.default_rng(64)
+    n2 = sum(SCAN_SIZES)
+    filters = scan_filters()
+    err = {"S4": 0.0, "S5": 0.0}
+    for name, (ff, fb, cplx) in filters.items():
+        x = rng.standard_normal(n2)
+        if cplx:
+            x = x + 1j * rng.standard_normal(n2)
+        x = x.astype(np.complex64 if cplx else np.float32)
+        got, st = s4_stream(torch, ff, fb, x, SCAN_SIZES, plain=False)
+        want, pst = s4_stream(torch, ff, fb, x, SCAN_SIZES, plain=True)
+        gold = sig.lfilter(ff.astype(np.float64),
+                           np.concatenate([[1.0], -fb.astype(np.float64)]),
+                           x.astype(np.complex128 if cplx else np.float64))
+        v, g = snr_db(want, got), snr_db(gold, got)
+        e = float(np.max(np.abs(got - want)))
+        if name == "deemph":
+            err["S4"] = e
+        log(f"S4 {name} (order {len(fb)}, {len(ff)} feed-forward taps, "
+            f"{'cf32' if cplx else 'rf32'}) in batches {SCAN_SIZES}: "
+            f"{v:.2f} dB against its plain version on the card (max abs err "
+            f"{e:.3e}), {g:.2f} dB against scipy float64; plain "
+            f"{snr_db(gold, want):.2f} dB against scipy")
+        require(v >= SCAN_GATE_DB and g > SCAN_GOLD_DB,
+                f"S4 {name}: {v:.2f} dB against plain, {g:.2f} against scipy")
+        require(np.allclose(st.y_hist.cpu().numpy(), pst.y_hist.cpu().numpy(),
+                            rtol=1e-4, atol=1e-6 * np.abs(want).max()),
+                f"S4 {name}: y_hist {st.y_hist} against {pst.y_hist}")
+    # past 32 groups of 32 tiles (a lane of the look-back takes two)
+    ff, fb, _ = filters["deemph"]
+    x = rng.standard_normal(SCAN_LONG + 4096).astype(np.float32)
+    got, _ = s4_stream(torch, ff, fb, x, (SCAN_LONG, 4096), plain=False)
+    want, _ = s4_stream(torch, ff, fb, x, (SCAN_LONG, 4096), plain=True)
+    v = snr_db(want, got)
+    log(f"S4 deemph in batches ({SCAN_LONG}, 4096): {v:.2f} dB against its "
+        f"plain version on the card")
+    require(v >= SCAN_GATE_DB, f"S4 at {SCAN_LONG}: {v:.2f} dB")
+    for pole in SCAN_POLES:
+        ff, fb = iir.lfilter_taps([1.0 - pole], [1.0, -pole])
+        for B in SCAN_POLE_BATCHES:
+            n = 2 * B if B > 1000 else 3000
+            x = np.random.default_rng(7).standard_normal(n).astype(np.float32)
+            got, _ = s4_stream(torch, ff, fb, x, (B,) * (n // B), plain=False)
+            g = snr_db(sig.lfilter([1.0 - pole], [1.0, -pole],
+                                   x.astype(np.float64))[:len(got)], got)
+            log(f"S4 pole {pole} in batches of {B}: {g:.2f} dB against scipy "
+                f"float64 (gate {SCAN_GOLD_DB})")
+            require(g >= SCAN_GOLD_DB, f"S4 pole {pole}, batches of {B}: {g}")
+
+    # S5 at the QPSK link's batch, and a real stream
+    for cplx, n, max_gain, tensors in ((True, QPSK_BATCH, 0.0, False),
+                                       (True, QPSK_BATCH, 1.5, True),
+                                       (False, SCAN_N, 1.5, False),
+                                       (True, SCAN_LONG, 0.0, False)):
+        sizes = (n, n, 12345)
+        x = 0.3 * rng.standard_normal(sum(sizes))
+        if cplx:
+            x = x + 0.3j * rng.standard_normal(sum(sizes))
+        x = x.astype(np.complex64 if cplx else np.float32)
+        rate, ref = 1e-2, 1.0
+        if tensors:
+            rate = torch.tensor(rate, dtype=torch.float32, device="cuda")
+            ref = torch.tensor(ref, dtype=torch.float32, device="cuda")
+        got, g1 = s5_stream(torch, x, sizes, rate, ref, max_gain, plain=False)
+        want, g0 = s5_stream(torch, x, sizes, rate, ref, max_gain, plain=True)
+        v, e = snr_db(want, got), float(np.max(np.abs(got - want)))
+        err["S5"] = max(err["S5"], e)
+        log(f"S5 {'cf32' if cplx else 'rf32'} in batches {sizes}, max_gain "
+            f"{max_gain}, rate and reference as "
+            f"{'0-dim tensors' if tensors else 'host numbers'}: {v:.2f} dB "
+            f"against its plain version on the card (max abs err {e:.3e}); "
+            f"gain {g1!r} against {g0!r}")
+        require(v >= SCAN_GATE_DB and abs(g1 - g0) <= 1e-5 * abs(g0),
+                f"S5: {v:.2f} dB, gain {g1} against {g0}")
+
+    # one captured graph of both, replayed; the AGC's rate changed in it
+    ff, fb, _ = filters["deemph"]
+    c = iir.iir_consts(ff, fb, SCAN_N, "cuda")
+    s0 = iir.iir_init_state(len(ff), len(fb), "cuda")
+    xa = torch.randn(SCAN_N, device="cuda")
+    xq = torch.randn(QPSK_BATCH, dtype=torch.complex64, device="cuda") * 0.3
+    gs = agc.agc_init_state(1.0, "cuda")
+    rate = torch.tensor(1e-2, dtype=torch.float32, device="cuda")
+    ref = torch.tensor(1.0, dtype=torch.float32, device="cuda")
+    ws = kscan.agc_workspace(QPSK_BATCH, "cuda")
+
+    def step():
+        _, y4 = iir.iir_filter(ff, fb, s0, xa, consts=c)
+        st5, y5 = agc.agc(gs, xq, rate, ref, 0.0, workspace=ws)
+        return y4, y5, st5.gain
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    replays, blocks = [], (kscan.n_tiles(SCAN_N), kscan.n_tiles(QPSK_BATCH))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in outs])
+        tickets = (int(c.scan.tickets[0]), int(ws.tickets[0]))
+        require(all(k % b == 0 for k, b in zip(tickets, blocks)),
+                f"S4/S5: tickets {tickets} after a replay, not whole "
+                f"launches of {blocks} blocks")
+    eager = step()
+    same = all(torch.equal(a, b) and torch.equal(a, e)
+               for a, b, e in zip(*replays, eager))
+    log(f"S4 and S5 in one captured graph, replayed twice: bit-equal to each "
+        f"other and to an eager call: {same}; the ticket counters whole "
+        f"launches of {blocks} blocks after each replay: {tickets}")
+    require(same, "S4/S5: replays differ from each other or from an eager call")
+    rate.fill_(2e-2)
+    graph.replay()
+    torch.cuda.synchronize()
+    at_new = step()
+    follows = torch.equal(outs[1], at_new[1]) \
+        and not torch.equal(outs[1], replays[0][1])
+    log(f"S5's rate changed to 0.02 in its tensor, the graph replayed: equal "
+        f"to an eager call at the new rate and not to the old output: "
+        f"{follows}")
+    require(follows, "S5: the captured graph did not follow the new rate")
+
+    # the emphasis pair in graph mode against its CPU run
+    fs = WB_FS / WB_D / WB_RD
+    xe = np.random.default_rng(65).standard_normal(4 * SCAN_N).astype(
+        np.float32)
+
+    def emphasis(device):
+        fg = Flowgraph(batch_size=SCAN_N)
+        pre, de = analog.fm_preemph(fs), analog.fm_deemph(fs)
+        snk = general.vector_sink(dtype="rf32")
+        fg.connect(general.vector_source(xe, dtype="rf32"), 0, pre, 0)
+        fg.connect(pre, 0, de, 0)
+        fg.connect(de, 0, snk, 0)
+        r = fg.run(device=device)
+        return snk.data(), r
+
+    kscan.iir_scan.launches = 0
+    on_card, r = emphasis("cuda")
+    launches = kscan.iir_scan.launches
+    v = snr_db(emphasis("cpu")[0], on_card)
+    log(f"fm_preemph -> fm_deemph, 4 batches of {SCAN_N} in graph mode: "
+        f"{v:.2f} dB against the CPU run, S4 launched {launches} times")
+    require(r._chunk is not None and v >= SCAN_GATE_DB and launches > 0,
+            f"emphasis pair: {v:.2f} dB, {launches} launches")
+
+    # times by CUDA-graph replay, kernel and plain version in turns
+    t, bounds = {}, {}
+    for name in ("deemph", "butter4", "order16", "cf32"):
+        ff, fb, cplx = filters[name]
+        dt = torch.complex64 if cplx else torch.float32
+        x = torch.randn(SCAN_N, dtype=dt, device="cuda")
+        ck = iir.iir_consts(ff, fb, SCAN_N, "cuda")
+        cp = iir.chunk_consts(ff, fb, SCAN_N, "cuda")
+        st = iir.iir_init_state(len(ff), len(fb), "cuda", dt)
+        tt = alternate({
+            "plain": lambda: iir.iir_filter_plain(ff, fb, st, x, consts=cp),
+            "kernel": lambda: iir.iir_filter(ff, fb, st, x, consts=ck)})
+        cs = 2 if cplx else 1
+        kid = "S4" if name == "deemph" else f"S4 {name}"
+        t[kid], t[kid + " plain"] = min(tt["kernel"]), min(tt["plain"])
+        bounds[kid] = bound(2 * SCAN_N * 4 * cs,
+                            2 * SCAN_N * cs * (len(ff) + len(fb)))
+        log(f"S4 {name} at {SCAN_N} {'cf32' if cplx else 'rf32'} samples: "
+            f"kernel {tt['kernel']} ms, plain (chunk form) {tt['plain']} ms, "
+            f"bound {bounds[kid][0]:.5f} ms ({bounds[kid][1]}), "
+            f"{100 * bounds[kid][0] / t[kid]:.1f}% of it [{card}]")
+    tt = alternate({
+        "plain": lambda: agc.agc_plain(gs, xq, rate, ref),
+        "kernel": lambda: agc.agc(gs, xq, rate, ref, workspace=ws)})
+    t["S5"], t["S5 plain"] = min(tt["kernel"]), min(tt["plain"])
+    # |x|, a, the gain's update and the product: ~12 flops a sample
+    bounds["S5"] = bound(2 * QPSK_BATCH * 8, 12 * QPSK_BATCH)
+    log(f"S5 at {QPSK_BATCH} cf32 samples: kernel {tt['kernel']} ms, plain "
+        f"(the doubling scan) {tt['plain']} ms, bound {bounds['S5'][0]:.5f} "
+        f"ms ({bounds['S5'][1]}), {100 * bounds['S5'][0] / t['S5']:.1f}% of "
+        f"it [{card}]")
+    return {"t": t, "bound": bounds, "err": err,
+            "launches": {"S4": launches}}
+
+
 def late_phases(which: list) -> int:
     """``chip_smoke.py --phases 59-62``: the build, then phases 59-62
     alone (the partitions, the examples and the long audio FIR), each
     checked as in the whole run; prints their numbers as one JSON line and
     no result line. ``--phases 63``: the build and the process mesh alone,
-    the same way. It takes those two groups."""
-    if which not in (["59-62"], ["63"]):
-        print("chip_smoke.py: --phases takes 59-62 or 63", file=sys.stderr)
+    the same way; ``--phases 64``: S4 and S5. It takes those groups."""
+    if which not in (["59-62"], ["63"], ["64"]):
+        print("chip_smoke.py: --phases takes 59-62, 63 or 64",
+              file=sys.stderr)
         return 2
     from newsched_tpu_torch.ops.cuda import (_build, fm_chain, noise, sources,
                                              wbfm_chain)
@@ -5899,6 +6222,12 @@ def late_phases(which: list) -> int:
     t0 = time.monotonic()
     _build.build()
     log(f"build: {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
+    if which == ["64"]:
+        t64 = time.monotonic()
+        sc = phase_scan(torch, card)
+        log(f"phase 64: {time.monotonic() - t64:.1f} s")
+        print(json.dumps({"scan": sc, "card": card}), flush=True)
+        return 0
     if which == ["63"]:
         t63 = time.monotonic()
         pm = phase_process_mesh(torch, fm_chain, card)
@@ -6524,8 +6853,8 @@ def main() -> int:
     phase_engines(torch, card)
     phase_config3(torch, card)
     phase_sharded_fir(torch)
-    phase_deemph(torch, wb, card, ms["K10"])
-    phase_dsp_blocks(torch)
+    de = phase_deemph(torch, wb, card, ms["K10"])
+    dsp = phase_dsp_blocks(torch)
     t49 = time.monotonic()
     k1w = phase_k1_wide(torch, channelizer, noise, card)
     ms.update(k1w["ms"])
@@ -6573,9 +6902,13 @@ def main() -> int:
     t63 = time.monotonic()
     # 63. the reference's two-process global mesh, both ranks on the card
     pm = phase_process_mesh(torch, fm_chain, card)
-    log(f"phases 59-63: {time.monotonic() - t59:.1f} s (59 {t60 - t59:.1f}, "
+    t64 = time.monotonic()
+    # 64. S4 and S5, the reference's associative scans
+    sc = phase_scan(torch, card)
+    log(f"phases 59-64: {time.monotonic() - t59:.1f} s (59 {t60 - t59:.1f}, "
         f"60 {t61 - t60:.1f}, 61 {t62 - t61:.1f}, 62 {t63 - t62:.1f}, 63 "
-        f"{time.monotonic() - t63:.1f})")
+        f"{t64 - t63:.1f}, 64 {time.monotonic() - t64:.1f})")
+    ms.update(sc["t"])
     for kid in ("S1", "S2"):
         ms[kid], ms[kid + " plain"] = (main_loops["ms"][kid],
                                        main_loops["plain"][kid])
@@ -6606,6 +6939,7 @@ def main() -> int:
         cb = chain_bounds(mw, WIDE_ROWS, WIDE_ROWS)
         bounds.update({f"{kid} M={mw}": cb[kid] for kid in ("K3", "K5", "K6")})
     bounds.update(vr["bound"])  # each route at its link's batch
+    bounds.update(sc["bound"])  # S4 at 104448 samples, S5 at 2^20
     ms.update(vr["t"])
     floors = int_floors()
     for name, (b_ms, by) in bounds.items():
@@ -6708,6 +7042,12 @@ def main() -> int:
         *[entry(f"viterbi_decode[{name}]", f"S3 {name}", "viterbi.cu",
                 "newsched_tpu/ops/fec.py:83", vr["launches"][name], 0.0)
           for name, *_ in S3_ROUTES],
+        # no TPU kernel: each replaces a lax.associative_scan of the reference
+        entry("iir_filter", "S4", "scan.cu", "newsched_tpu/ops/iir.py:41",
+              de["launches"] + dsp["S4"] + sc["launches"]["S4"],
+              sc["err"]["S4"]),
+        entry("agc", "S5", "scan.cu", "newsched_tpu/ops/agc.py:30",
+              dsp["S5"] + qp["launches"]["agc_scan"], sc["err"]["S5"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,7 +187,8 @@ class quadrature_demod(Block):
 
 
 class agc(Block):
-    """AGC (reference analog::agc_cc/_ff): ops/agc.py's affine scan;
+    """AGC (reference analog::agc_cc/_ff): ops/agc.py's affine scan (S5 on
+    the card, its workspace kept per device and batch length);
     ``rate`` and ``reference`` settable, ``max_gain`` <= 0 no clamp."""
 
     def __init__(self, rate: float = 1e-4, reference: float = 1.0,
@@ -201,13 +202,20 @@ class agc(Block):
         self.max_gain = max_gain
         self.declare_param("rate", rate, dtype=np.float32)
         self.declare_param("reference", reference, dtype=np.float32)
+        self._ws: dict[tuple, agc_ops.kscan.AgcWorkspace] = {}
 
     def init_state(self, nin, nout, device):
         return agc_ops.agc_init_state(self.initial_gain, device)
 
     def work(self, state, ins, params, nout):
-        st, y = agc_ops.agc(state, ins["in"], params["rate"],
-                            params["reference"], self.max_gain)
+        x, ws = ins["in"], None
+        if x.device.type == "cuda":
+            key = (x.device, int(x.shape[-1]))
+            if key not in self._ws:
+                self._ws[key] = agc_ops.kscan.agc_workspace(key[1], x.device)
+            ws = self._ws[key]
+        st, y = agc_ops.agc(state, x, params["rate"], params["reference"],
+                            self.max_gain, workspace=ws)
         return st, {"out": y}
 
 
@@ -243,7 +251,7 @@ def _emphasis_taps(fs: float, tau: float, fh: float | None, deemph: bool):
 class fm_deemph(filt.iir_filter):
     """FM broadcast de-emphasis (GR-lineage analog fm_deemph): a
     single-pole IIR low-pass, corner 1/tau (75 us US, 50 us EU), run as
-    ``filter.iir_filter`` (ops/iir.py's chunked form)."""
+    ``filter.iir_filter`` (ops/iir.py: S4 on the card)."""
 
     def __init__(self, fs: float, tau: float = 75e-6, name=None):
         b, a = _emphasis_taps(fs, tau, None, deemph=True)

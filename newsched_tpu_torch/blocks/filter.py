@@ -102,8 +102,9 @@ class fft_filter(fir_filter):
 
 
 class iir_filter(Block):
-    """Streaming IIR (reference filter::iir_filter), ops/iir.py's chunked
-    matrix form; its constants built once per device and batch length."""
+    """Streaming IIR (reference filter::iir_filter), ops/iir.py (S4 on the
+    card, the chunked matrix form on the CPU); its constants, and on the
+    card S4's workspace, built once per device and batch length."""
 
     def __init__(self, ff_taps, fb_taps, dtype="rf32", name=None):
         super().__init__(name)

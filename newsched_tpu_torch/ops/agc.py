@@ -7,10 +7,12 @@ which is the affine recurrence
 
     g[n+1] = g[n] * (1 - rate*|x[n]|) + rate*reference.
 
-The reference solves it with ``lax.associative_scan``; torch has none, so
-here the prefix compositions of the affine maps come from a doubling
-(Hillis-Steele) scan: log2(n) passes of whole-batch tensor ops. The state
-is the one carried gain, so batch splits are exact.
+The reference solves it with ``lax.associative_scan``; torch has none. On
+a CUDA tensor ``agc`` launches S5 (ops/cuda/scan.py ``agc_scan``,
+csrc/scan.cu), one launch a call. On a CPU tensor it runs the plain
+version, ``agc_plain``: the prefix compositions of the affine maps from a
+doubling (Hillis-Steele) scan, log2(n) passes of whole-batch tensor ops.
+The state is the one carried gain, so batch splits are exact.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from newsched_tpu_torch.ops.cuda import scan as kscan
 
 
 class AgcState(NamedTuple):
@@ -42,10 +46,23 @@ def affine_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def agc(state: AgcState, x: torch.Tensor, rate, reference,
-        max_gain: float = 0.0):
+        max_gain: float = 0.0, workspace: kscan.AgcWorkspace | None = None):
     """Apply AGC over one batch; max_gain <= 0 disables the clamp. Works
     for complex64 and float32 inputs (envelope |x|), as agc_cc / agc_ff.
-    ``rate`` and ``reference`` are numbers or 0-dim tensors."""
+    ``rate`` and ``reference`` are numbers or 0-dim tensors. S5 on a CUDA
+    tensor (``workspace``: its flags, ``kscan.agc_workspace(n, device)``,
+    made for the call when None), the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return agc_plain(state, x, rate, reference, max_gain)
+    y, gain = kscan.agc_scan(x.contiguous(), state.gain, rate, reference,
+                             max_gain, workspace)
+    return AgcState(gain=gain), y
+
+
+def agc_plain(state: AgcState, x: torch.Tensor, rate, reference,
+              max_gain: float = 0.0):
+    """The plain version, on any device: ``affine_scan``, then the gains
+    and the clamp."""
     mag = x.abs().to(torch.float32)
     rate = torch.as_tensor(rate, dtype=torch.float32, device=x.device)
     reference = torch.as_tensor(reference, dtype=torch.float32,

@@ -10,7 +10,7 @@ def launch_counters() -> list[tuple[object, str]]:
     capture and adds a captured chunk's launches once per replay."""
     from newsched_tpu_torch.ops.cuda import (channelizer, fec, fir_source,
                                              fm_chain, loops, mathfns, noise,
-                                             sources, wbfm_chain)
+                                             scan, sources, wbfm_chain)
 
     fns = (noise.gaussian_rows, fm_chain.fm_chain_step_planes,
            fm_chain.fm_chain_gen_step, fm_chain.fm_chain_gen_warm_step,
@@ -18,7 +18,8 @@ def launch_counters() -> list[tuple[object, str]]:
            sources.nco_planes, sources.nco_folded,
            wbfm_chain.wbfm_chain_step, wbfm_chain.wbfm_chain_live_step,
            fir_source.fir_tone_step, loops.costas_loop,
-           loops.clock_recovery_mm, fec.viterbi_frames)
+           loops.clock_recovery_mm, fec.viterbi_frames, scan.iir_scan,
+           scan.agc_scan)
     banded = (fm_chain.fm_chain_step_planes, fm_chain.fm_chain_gen_step,
               fm_chain.fm_chain_gen_warm_step)
     return [(f, "launches") for f in fns] + [

@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -88,6 +90,11 @@ SIGNATURES = {
                        _P],
     "viterbi_acs_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
+    # scan.cu
+    "iir_scan_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                        _P, _P, _P, _P, _P, _I, _P],
+    "agc_scan_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P, _P,
+                        _P, _I, _P],
 }
 
 
@@ -207,6 +214,18 @@ def device_scalar(x, name: str, *, device, dtype):
                              f"{device}")
         return x
     return torch.tensor(x, dtype=dtype, device=device)
+
+
+def scalar_arg(x, name: str, device) -> tuple[int, float]:
+    """A settable float32 parameter as the kernels take it: (the pointer of
+    a 0-dim float32 tensor on ``device``, 0.0), so a captured graph reads
+    the value the card holds at replay, or (0, the host number)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return device_scalar(x, name, device=device,
+                             dtype=torch.float32).data_ptr(), 0.0
+    return 0, float(np.float32(x))
 
 
 def check_tensor(t, name: str, *, device, shape: tuple | None = None) -> None:

@@ -101,14 +101,6 @@ def _check_c64(t, name, device, shape) -> None:
                          f"{device}")
 
 
-def _scalar_ptr(g, name, device):
-    """A gain as the kernels take it: (device pointer or 0, host value)."""
-    if isinstance(g, torch.Tensor):
-        return _build.device_scalar(g, name, device=device,
-                                    dtype=torch.float32).data_ptr(), 0.0
-    return 0, float(np.float32(g))
-
-
 def costas_loop(x, phase, freq, bw, alpha: float, beta: float, order: int,
                 max_freq: float):
     """S1: the plain version for CPU tensors, ``costas_launch`` for CUDA
@@ -125,7 +117,7 @@ def costas_loop(x, phase, freq, bw, alpha: float, beta: float, order: int,
     _build.check_tensor(freq, "freq", device=x.device, shape=(C,))
     bw_ptr = 0
     if bw is not None:
-        bw_ptr, _ = _scalar_ptr(bw, "loop_bw", x.device)
+        bw_ptr, _ = _build.scalar_arg(bw, "loop_bw", x.device)
     y = torch.empty_like(x)
     ph, fr = torch.empty_like(phase), torch.empty_like(freq)
     with torch.cuda.device(x.device):
@@ -224,8 +216,8 @@ def clock_recovery_mm(x, hist, pos, mu, omega, p1, p2, c1, c2, sps: int,
     if pos.device != dev or pos.dtype != torch.int64 or tuple(pos.shape) != (C,):
         raise ValueError(f"pos: {pos.dtype} {tuple(pos.shape)} on {pos.device},"
                          f" the kernel takes int64 ({C},) on {dev}")
-    g_om_ptr, g_om = _scalar_ptr(gain_omega, "gain_omega", dev)
-    g_mu_ptr, g_mu = _scalar_ptr(gain_mu, "gain_mu", dev)
+    g_om_ptr, g_om = _build.scalar_arg(gain_omega, "gain_omega", dev)
+    g_mu_ptr, g_mu = _build.scalar_arg(gain_mu, "gain_mu", dev)
     om_mid = np.float32(sps)
     om_lim = float(om_mid * np.float32(omega_relative_limit))
     y = torch.empty((C, nout), dtype=torch.complex64, device=dev)

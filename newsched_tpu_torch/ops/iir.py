@@ -1,7 +1,14 @@
-"""Streaming IIR filter (reference: newsched_tpu/ops/iir.py), in a chunked
-matrix form.
+"""Streaming IIR filter (reference: newsched_tpu/ops/iir.py): S4 on the
+card, a chunked matrix form as its plain version.
 
-The recurrence is split as in the reference:
+On a CUDA tensor ``iir_filter`` launches S4 (ops/cuda/scan.py
+``iir_scan``, csrc/scan.cu): one launch computes the feed-forward taps
+(up to 32 of them; with more they run as ``fir_filter`` "conv" first, as
+the reference computes them), the recurrence and the new state; past
+feedback order 16 it raises (ROADMAP Queue 3, R3). On a CPU tensor it runs
+the plain version, ``iir_filter_plain``, below.
+
+The plain version splits the recurrence as the reference does:
 
   1. the feed-forward (FIR) part runs through ``fir_filter`` ("conv");
   2. the autoregressive part  y[n] = v[n] + sum_k fb[k] y[n-1-k]  is solved
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from newsched_tpu_torch.ops import fir as fir_ops
+from newsched_tpu_torch.ops.cuda import scan as kscan
 from newsched_tpu_torch.ops.fftops import fp32_matmul
 
 _MAX_CHUNK = 1024
@@ -66,9 +74,11 @@ def chunk_length(n: int, order: int) -> int:
 
 class IirConsts(NamedTuple):
     """One filter's constants on a device for batches of n samples
-    (``iir_consts``)."""
+    (``iir_consts``): the chunk form's (``chunk_consts``), or on the card
+    S4's (``scan``) in place of C, K, T, S, P and Q."""
 
-    ff: fir_ops.FirTaps   # the feed-forward taps ("conv")
+    ff: fir_ops.FirTaps | None  # the feed-forward taps ("conv"), where a
+                                # torch op applies them
     n: int                # the batch length they are built for
     C: int
     K: int
@@ -76,6 +86,7 @@ class IirConsts(NamedTuple):
     S: torch.Tensor | None  # (C, order) state response, transposed: (order, C)
     P: torch.Tensor | None  # (K*order, K*order) powers of Phi, transposed
     Q: torch.Tensor | None  # (order, K*order) Phi^j, transposed
+    scan: kscan.ScanConsts | None = None
 
 
 def _ar_matrices(fb: np.ndarray, C: int, K: int):
@@ -108,6 +119,19 @@ def _ar_matrices(fb: np.ndarray, C: int, K: int):
 
 
 def iir_consts(ff_taps, fb_taps, n: int, device) -> IirConsts:
+    """The constants ``iir_filter`` takes on ``device``: S4's on the card
+    (``kscan.scan_consts``, its workspace included, so each block instance
+    keeps its own), the chunk form's elsewhere."""
+    if torch.device(device).type != "cuda":
+        return chunk_consts(ff_taps, fb_taps, n, device)
+    sc = kscan.scan_consts(ff_taps, fb_taps, n, device)
+    ft = (fir_ops.fir_taps(np.asarray(ff_taps), n, 1, device, method="conv")
+          if sc.fir_outside else None)
+    return IirConsts(ft, n, 0, 0, None, None, None, None, scan=sc)
+
+
+def chunk_consts(ff_taps, fb_taps, n: int, device) -> IirConsts:
+    """The plain version's constants on any device."""
     ff = np.asarray(ff_taps)
     fb = np.asarray(fb_taps, np.float64)
     order = len(fb)
@@ -147,10 +171,41 @@ def iir_filter(ff_taps, fb_taps, state: IirState, x: torch.Tensor,
     """Filter one batch x (n,), float32 or complex64 (real taps). ff_taps:
     (nff,), fb_taps: (order,) with fb_taps[k] multiplying y[n-1-k] (host
     arrays). ``consts``: ``iir_consts(ff_taps, fb_taps, n, x.device)``,
-    built here when None. Returns (new_state, y)."""
+    built here when None. S4 on a CUDA tensor, the plain version on a CPU
+    one. Returns (new_state, y)."""
     n = int(x.shape[-1])
     if consts is None:
         consts = iir_consts(ff_taps, fb_taps, n, x.device)
+    if x.device.type == "cpu":
+        return iir_filter_plain(ff_taps, fb_taps, state, x, consts)
+    if consts.n != n:
+        raise ValueError(f"IIR constants built for batches of {consts.n}, "
+                         f"got {n}")
+    sc = consts.scan
+    if sc is None:
+        raise ValueError("iir_filter on the card takes iir_consts(..., "
+                         "device=<a CUDA device>), S4's constants")
+    x = x.contiguous()
+    if not sc.fir_outside:
+        y, tail, y_hist = kscan.iir_scan(x, state.fir.tail.contiguous(),
+                                         state.y_hist.contiguous(), sc)
+        return IirState(fir=fir_ops.FirState(tail=tail), y_hist=y_hist), y
+    fir_state, v = fir_ops.fir_filter(ff_taps, state.fir, x, method="conv",
+                                      dev_taps=consts.ff)
+    y, _, y_hist = kscan.iir_scan(v.to(x.dtype).contiguous(), x.new_empty(0),
+                                  state.y_hist.contiguous(), sc)
+    return IirState(fir=fir_state, y_hist=y_hist), y
+
+
+def iir_filter_plain(ff_taps, fb_taps, state: IirState, x: torch.Tensor,
+                     consts: IirConsts | None = None):
+    """The plain version, on any device: ``fir_filter`` "conv", then the
+    chunk form (``consts``: ``chunk_consts``, built here when None)."""
+    n = int(x.shape[-1])
+    if consts is None:
+        consts = chunk_consts(ff_taps, fb_taps, n, x.device)
+    if consts.scan is not None:
+        raise ValueError("iir_filter_plain takes chunk_consts, not S4's")
     if consts.n != n:
         raise ValueError(f"IIR constants built for batches of {consts.n}, "
                          f"got {n}")

@@ -14,6 +14,7 @@ past the FFT's 513 taps, for the same comparison.
     PYTHONPATH=<tree> python3 <this file> s3 [--geometries]
     PYTHONPATH=<tree> python3 <this file> s3split
     PYTHONPATH=<tree> python3 <this file> k3p [--split]
+    PYTHONPATH=<tree> python3 <this file> scansplit
 
 ``stages`` copies ``csrc/fir_source.cu``, ``csrc/fir_part.cu`` and
 ``csrc/wbfm_chain.cu`` of the package on the path (this tree, or one
@@ -85,6 +86,13 @@ of the kernel those routes take (``_S3_FORMS``); ``k3p`` holds K3p
 against K3 bit for bit and times both (``--split``: K3p's fold and demod
 groups' work cut, ``_K3P_CUTS``). Run under two trees in turns to compare
 them.
+
+``scansplit`` times S4 at config #1's de-emphasis (104448 rf32 samples)
+and S5 at the QPSK link's batch (2^20 cf32) whole and as cut copies of
+``csrc/scan.cu`` (``_SCAN_CUTS``, cumulative, built alone under
+``build/split_scan/``): without the look-back (each tile starts from the
+carried state), then without the aggregates' publication, then with
+blockIdx in place of the ticket; beside a torch copy of the same bytes.
 
 ``sharded`` times the graph-mode steps of the sharded graphs (#2 fused
 replay, #1 fused, #1 live, #0 live) unsharded and on 4 and 8 logical
@@ -631,6 +639,112 @@ def _s3_cut_libs(out: Path) -> tuple:
                 getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return form, libs
+
+
+# S4's and S5's chained scan taken apart (``scansplit``): cumulative cuts
+# of csrc/scan.cu, each (text, replacement); a cut's outputs are not the
+# kernel's, only its time means anything
+_SCAN_CUTS = (
+    ("no look-back", [
+        ("    wait_flags(want, lane < grp ? gflags + lane * cs + c : nullptr,\n"
+         "               j0 < tile ? flags + j0 * cs + c : nullptr,\n"
+         "               j1 < tile ? flags + j1 * cs + c : nullptr);\n"
+         "    for (int g = lane; g < grp; g += 32) {",
+         "    for (int g = lane; g < 0; g += 32) {"),
+        ("      if (j < tile) {\n        float w[P];",
+         "      if (j < 0) {\n        float w[P];"),
+        ("    if (tile % kGroup == kGroup - 1 && tile < ntiles - 1) {\n"
+         "      // the group's aggregate",
+         "    if (false) {\n      // the group's aggregate"),
+        ("    wait_flags(want, g1 > g0 ? gflags + g0 : nullptr,\n"
+         "               j0 < tile ? flags + j0 : nullptr,\n"
+         "               j1 < tile ? flags + j1 : nullptr);\n", ""),
+        ("    for (int g = g0; g < g1; ++g) {", "    for (int g = g0; g < g0; ++g) {"),
+        ("      if (j < tile) {\n        const float2 m",
+         "      if (j < 0) {\n        const float2 m"),
+        ("    if (tile % kGroup == kGroup - 1 && tile < ntiles - 1) {\n"
+         "      // j1 of lane 31", "    if (false) {\n      // j1 of lane 31"),
+    ]),
+    ("no publication", [
+        ("      if (tile < ntiles - 1) {\n#pragma unroll\n        for (int r = 0;",
+         "      if (false) {\n#pragma unroll\n        for (int r = 0;"),
+        ("      if (tile < ntiles - 1) {\n        __stcg(vals + tile,",
+         "      if (false) {\n        __stcg(vals + tile,"),
+    ]),
+    ("no ticket", [
+        ("  const int me = take_ticket(ticket, &want);",
+         "  const int me = blockIdx.x;\n  want = 1u;"),
+        ("  const int tile = take_ticket(ticket, &want);",
+         "  const int tile = blockIdx.x;\n  want = 1u;"),
+    ]),
+)
+
+
+def _scan_cut_libs(out: Path) -> dict:
+    """``csrc/scan.cu`` of the package on the path whole and with the cuts
+    of ``_SCAN_CUTS`` applied in turn, each built alone under ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / "scan.cu").read_text()
+    texts = {"whole": text}
+    for name, cuts in _SCAN_CUTS:
+        for a, b in cuts:
+            if text.count(a) != 1:
+                raise SystemExit(f"scan.cu: a cut anchor of {name!r} is not "
+                                 f"there once: {a[:60]!r}")
+            text = text.replace(a, b)
+        texts[name] = text
+    libs = {}
+    for i, (name, t) in enumerate(texts.items()):
+        src = out / f"scan_{i}.cu"
+        src.write_text(t)
+        so = out / f"libscan_{i}.so"
+        _build._compile([src], so)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("iir_scan_launch", "agc_scan_launch"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def scansplit() -> list[dict]:
+    """S4 at 104448 rf32 samples (config #1's de-emphasis taps) and S5 at
+    2^20 cf32, whole and cut (``_SCAN_CUTS``), by CUDA-graph replay, the
+    variants forward then backward, beside ``Tensor.copy_`` of the same
+    bytes; each record the best."""
+    from newsched_tpu_torch.blocks import analog
+    from newsched_tpu_torch.ops import agc, iir
+    from newsched_tpu_torch.ops.cuda import scan as kscan
+
+    libs = _scan_cut_libs(Path(_build.BUILD_DIR).parent / "split_scan")
+    ff, fb = iir.lfilter_taps(*analog._emphasis_taps(50_000.0, 75e-6, None,
+                                                     True))
+    n4, n5 = 104448, 1 << 20
+    xa = torch.randn(n4, device="cuda")
+    xq = torch.randn(n5, dtype=torch.complex64, device="cuda")
+    s4 = iir.iir_init_state(len(ff), len(fb), "cuda")
+    s5 = agc.agc_init_state(1.0, "cuda")
+    rate = torch.tensor(1e-2, device="cuda")
+    ref = torch.tensor(1.0, device="cuda")
+    full = _build.lib
+    ms: dict = {}
+    try:
+        order = list(libs)
+        for variant in order + order[::-1]:
+            _build.lib = (lambda lib=libs[variant]: lib)
+            c = iir.iir_consts(ff, fb, n4, "cuda")
+            ws = kscan.agc_workspace(n5, "cuda")
+            ms.setdefault(("S4", variant), []).append(graph_ms(
+                lambda: iir.iir_filter(ff, fb, s4, xa, consts=c)))
+            ms.setdefault(("S5", variant), []).append(graph_ms(
+                lambda: agc.agc(s5, xq, rate, ref, workspace=ws)))
+    finally:
+        _build.lib = full
+    ya, yq = torch.empty_like(xa), torch.empty_like(xq)
+    ms[("S4", "copy")] = [graph_ms(lambda: ya.copy_(xa))]
+    ms[("S5", "copy")] = [graph_ms(lambda: yq.copy_(xq))]
+    return [{"scan_split": k, "variant": v, "ms": min(t), "ms_all": t}
+            for (k, v), t in ms.items()]
 
 
 def _s3_llrs(polys, K: int, frames: int, nbits: int = 512, seed: int = 0):
@@ -1600,6 +1714,7 @@ def main(argv) -> int:
             split() if argv[:1] == ["split"] else
             wide(argv[1:]) if argv[:1] == ["wide"] else
             s3split() if argv[:1] == ["s3split"] else
+            scansplit() if argv[:1] == ["scansplit"] else
             s3(argv[1:]) if argv[:1] == ["s3"] else
             k3p(argv[1:]) if argv[:1] == ["k3p"] else outputs(argv[1:]))
     for rec in recs:
